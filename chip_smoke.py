@@ -24,7 +24,9 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    480 + 32 fills the 512-token context of the default 32 x 16-token
    block table) on the bucket path, then with ``chunk=64`` and with an int8
    cache; kernel launch counts are reset before and read after each
-   run and must show each kernel of that path.
+   run and must show each kernel of that path. After the bucket run,
+   ``tick`` lines profile decode ticks of the same model, with the
+   paged-decode kernel and with its plain version.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -75,7 +77,7 @@ def timed(torch, fn, iters, kernel=None, warmup=3):
     ``kernel_ms``, the part spent in kernels whose name holds
     ``kernel``; ``wall_ms``, CUDA-event time over back-to-back calls,
     which also counts the host's launch overhead when the host is the
-    slower side."""
+    slower side; ``by_name``, device ms per call of each event name."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -94,6 +96,7 @@ def timed(torch, fn, iters, kernel=None, warmup=3):
             fn()
         torch.cuda.synchronize()
     total = only = 0.0
+    by_name = {}
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
@@ -101,12 +104,14 @@ def timed(torch, fn, iters, kernel=None, warmup=3):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         total += us
+        by_name[e.key] = by_name.get(e.key, 0.0) + us / iters / 1e3
         if kernel is not None and kernel in e.key:
             only += us
     if total <= 0:
         raise AssertionError("torch.profiler recorded no device time")
     return {"device_ms": total / iters / 1e3, "wall_ms": wall,
-            "kernel_ms": only / iters / 1e3 if kernel else None}
+            "kernel_ms": only / iters / 1e3 if kernel else None,
+            "by_name": by_name}
 
 
 def timing(torch, kernel, fn, plain, library, iters):
@@ -324,6 +329,63 @@ def phase_tiny(torch, K):
                 raise AssertionError(f"{spec}: {k} never launched")
 
 
+def phase_tick(torch, m, card, ticks=10):
+    """Where a decode tick's time goes: every slot prefilled with a
+    200-token prompt, then ticks of all slots straight through ``m`` (no
+    engine threads), with the paged-decode kernel and with its plain
+    version. Per tick: CUDA-event wall time back to back, device time by
+    group (matrix products, the paged-decode kernel, the rest) and the
+    device's busy share of the wall time."""
+    import numpy as np
+    S, W, n_prompt = m.num_slots, m.max_blocks_per_seq, 200
+    per_slot = (n_prompt + 2 * ticks + 3) // m.block_size + 1
+    tables = np.zeros((S, W), np.int32)
+    for i in range(S):                       # private blocks, 0 is trash
+        tables[i, :per_slot] = 1 + per_slot * i + np.arange(per_slot)
+    rs = np.random.RandomState(11)
+    first = np.array([m.prefill(rs.randint(0, m.cfg.vocab, (n_prompt,)),
+                                tables[i]) for i in range(S)], np.int32)
+    lanes = (np.zeros(S, np.float32), np.zeros(S, np.int32),
+             np.ones(S, np.float32), np.zeros(S, np.uint32))
+    fresh = np.ones(S, bool)
+
+    def group(name):
+        n = name.lower()
+        if "paged_decode_kernel" in n:
+            return "paged_decode"
+        if any(s in n for s in ("gemm", "gemv", "cutlass", "matmul")):
+            return "matmul"
+        return "other"
+
+    impl0 = m.decode_attention_impl
+    try:
+        for impl in ("flash", "dense"):
+            m.decode_attention_impl = impl
+            st = {"prev": None, "t": 0}
+
+            def tick():
+                prev = st["prev"]
+                st["prev"] = m.decode_step(
+                    prev, first, fresh if prev is None else ~fresh, tables,
+                    np.full(S, n_prompt + st["t"], np.int32), lanes)
+                st["t"] += 1
+
+            t = timed(torch, tick, ticks)
+            m.read_tokens(st["prev"])
+            groups = {}
+            for name, ms in t["by_name"].items():
+                groups[group(name)] = groups.get(group(name), 0.0) + ms
+            top = sorted(t["by_name"].items(), key=lambda kv: -kv[1])[:6]
+            emit({"phase": "tick", "decode_impl": impl, "card": card,
+                  "slots": S, "context": n_prompt, "ticks": ticks,
+                  "wall_ms": t["wall_ms"], "device_ms": t["device_ms"],
+                  "device_busy_share": t["device_ms"] / t["wall_ms"],
+                  "device_ms_by_group": groups,
+                  "top_device_ms": [[k[:80], v] for k, v in top]})
+    finally:
+        m.decode_attention_impl = impl0
+
+
 def phase_main(torch, K, card):
     """The 8B-width engine on the bucket, chunk=64 and int8 paths."""
     import numpy as np
@@ -381,8 +443,12 @@ def phase_main(torch, K, card):
             first = toks
             launches.update(flash_attention=counts["flash_attention"],
                             paged_decode=counts["paged_decode"])
+            phase_tick(torch, eng.model, card)
         elif label == "chunk=64":
             launches["paged_prefill"] = counts["paged_prefill"]
+            # information only, not asserted: the two paths sum attention
+            # in another order, and random 8B weights leave near-tied
+            # logits whose argmax may flip
             emit({"phase": "main", "run": label,
                   "streams_equal_bucket": toks == first})
         del eng

@@ -28,9 +28,10 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 @pytest.fixture(scope="module")
 def hopper():
+    from zoo_tpu_torch.ops.kernels import on_hopper
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    if torch.cuda.get_device_capability(0) != (9, 0):
+    if not on_hopper():
         pytest.skip("the kernels are built for sm_90a (Hopper)")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")

@@ -104,3 +104,14 @@ def test_resolve_attention_impl(monkeypatch):
     assert tl.resolve_attention_impl("flash", 8, "cpu") == "flash"
     monkeypatch.setenv("ZOO_LLAMA_ATTN_IMPL", "dense")
     assert tl.resolve_attention_impl("auto", 4096, "cuda") == "dense"
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:1"])
+def test_resolve_attention_impl_auto_picks_kernel_on_any_cuda_device(
+        monkeypatch, device):
+    # decided by the device type alone (no card needed): off Hopper the
+    # kernel then raises instead of the plain version running on the card
+    monkeypatch.delenv("ZOO_LLAMA_ATTN_IMPL", raising=False)
+    monkeypatch.delenv("ZOO_LLAMA_FLASH_MIN_SEQ", raising=False)
+    assert tl.resolve_attention_impl("auto", 512, device) == "flash"
+    assert tl.resolve_attention_impl("auto", 511, device) == "dense"

@@ -274,6 +274,24 @@ def test_build_llm_engine_on_cpu(monkeypatch):
     assert len(toks[0]) == 4
 
 
+@pytest.mark.parametrize("device,want", [
+    ("cpu", ("dense", "dense", "f32")),
+    ("cuda", ("flash", "flash", "int8")),
+    ("cuda:1", ("flash", "flash", "int8"))])
+def test_auto_dispatch_follows_the_device_type(monkeypatch, device, want):
+    # any CUDA device gets the kernels (which raise off Hopper); only the
+    # CPU gets the plain versions
+    for knob in ("ZOO_LLM_DECODE_IMPL", "ZOO_LLM_PREFILL_IMPL",
+                 "ZOO_LLM_KV_DTYPE"):
+        monkeypatch.delenv(knob, raising=False)
+    got = (tmodel.resolve_decode_impl("auto", torch.device(device)),
+           tmodel.resolve_prefill_impl("auto", torch.device(device)),
+           tmodel.resolve_kv_dtype("auto", torch.device(device)))
+    assert got == want
+    assert tmodel.resolve_decode_impl("dense", device) == "dense"
+    assert tmodel.resolve_kv_dtype(None, device) == "f32"
+
+
 def test_prefix_hashes_match_jax_chain():
     from zoo_tpu.serving.llm.kv_cache import prefix_block_hashes as jh
     toks = np.arange(37) % 11

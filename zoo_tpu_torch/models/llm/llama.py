@@ -74,7 +74,7 @@ def resolve_attention_impl(impl: str, seq_len: int, device=None) -> str:
     """Concrete attention for an ``attention_impl`` request at
     ``seq_len`` on ``device``: ``"auto"`` picks the flash kernel from
     ``ZOO_LLAMA_FLASH_MIN_SEQ`` tokens up (default 512, the threshold the
-    JAX package uses) on a Hopper card, else the dense path.
+    JAX package uses) on a CUDA device, else the dense path.
     ``ZOO_LLAMA_ATTN_IMPL`` force-overrides auto; ``"dense"``/``"flash"``
     pass through."""
     if impl != "auto":
@@ -82,9 +82,9 @@ def resolve_attention_impl(impl: str, seq_len: int, device=None) -> str:
     forced = knob_value("ZOO_LLAMA_ATTN_IMPL")
     if forced:
         return forced
-    from zoo_tpu_torch.ops.kernels import on_hopper
+    from zoo_tpu_torch.ops.kernels import on_cuda
     min_seq = int(knob_value("ZOO_LLAMA_FLASH_MIN_SEQ"))
-    return "flash" if seq_len >= min_seq and on_hopper(device) else "dense"
+    return "flash" if seq_len >= min_seq and on_cuda(device) else "dense"
 
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float):

@@ -29,13 +29,21 @@ import torch
 KERNELS = ("flash_attention", "paged_decode", "paged_prefill")
 
 
+def on_cuda(device=None) -> bool:
+    """True when ``device`` (default: the current CUDA device, if any)
+    is a CUDA device. ``auto`` dispatch picks the kernels there on any
+    card: off Hopper they fail to build or launch and raise, never
+    falling back to the plain versions."""
+    if device is None:
+        return torch.cuda.is_available()
+    return torch.device(device).type == "cuda"
+
+
 def on_hopper(device=None) -> bool:
     """True when ``device`` (default: the current CUDA device) is a
     Hopper card, compute capability (9, 0) — the only target the
     kernels are built for."""
-    if device is not None and torch.device(device).type != "cuda":
-        return False
-    if not torch.cuda.is_available():
+    if not on_cuda(device) or not torch.cuda.is_available():
         return False
     return torch.cuda.get_device_capability(device) == (9, 0)
 

@@ -3,7 +3,7 @@
 
 * :mod:`kv_cache` — fixed-size token-block allocator with prefix sharing;
 * :mod:`model` — bucket/chunk prefill and the fixed-shape decode tick,
-  whose attention runs the paged CUDA kernels on a Hopper card;
+  whose attention runs the paged CUDA kernels on a CUDA device;
 * :mod:`engine` — the iteration-level scheduler;
 * :mod:`spec` — ``llama:...`` specs to build an engine.
 """

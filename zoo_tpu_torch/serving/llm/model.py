@@ -4,7 +4,7 @@
 * **Prefill** — a causal forward over the padded prompt, one shape per
   prompt-length bucket (32/128/512 by default). Attention goes through
   :func:`~zoo_tpu_torch.ops.attention.dot_product_attention`: the flash
-  kernel from 512 tokens up on a Hopper card, the dense path otherwise.
+  kernel from 512 tokens up on a CUDA device, the dense path otherwise.
   The prompt's K/V are written into the paged cache through the
   sequence's block table. With ``prefill_chunk=N`` prompts are fed in
   N-token chunks that attend over everything already in the cache
@@ -15,7 +15,7 @@
   on the device. Only ``slots x 1`` int32 ids cross to the host.
 
 Each attention has two implementations: ``"flash"`` (the CUDA kernel,
-the default on a Hopper card) and ``"dense"`` (the plain PyTorch
+the default on a CUDA device) and ``"dense"`` (the plain PyTorch
 gather, the default on the CPU and the reference the kernels are held
 against). Inactive slots point their table at the reserved trash block
 0 and are masked by position, so a tick never branches on liveness.
@@ -80,8 +80,8 @@ def _resolve_impl(impl, knob, what, device) -> str:
     if impl in (None, "auto"):
         impl = knob_value(knob) or "auto"
     if impl == "auto":
-        from zoo_tpu_torch.ops.kernels import on_hopper
-        return "flash" if on_hopper(device) else "dense"
+        from zoo_tpu_torch.ops.kernels import on_cuda
+        return "flash" if on_cuda(device) else "dense"
     if impl not in ("dense", "flash"):
         raise ValueError(f"unknown {what} impl {impl!r} "
                          "(dense / flash / auto)")
@@ -90,7 +90,7 @@ def _resolve_impl(impl, knob, what, device) -> str:
 
 def resolve_decode_impl(impl: Optional[str] = "auto", device=None) -> str:
     """Decode attention for ``device``: ``auto`` picks the paged-decode
-    kernel on a Hopper card and the dense gather elsewhere;
+    kernel on a CUDA device and the dense gather on the CPU;
     ``ZOO_LLM_DECODE_IMPL`` overrides auto."""
     return _resolve_impl(impl, "ZOO_LLM_DECODE_IMPL", "decode", device)
 
@@ -104,15 +104,15 @@ def resolve_prefill_impl(impl: Optional[str] = "auto", device=None) -> str:
 
 def resolve_kv_dtype(dtype: Optional[str] = None, device=None) -> str:
     """KV cache dtype: ``None`` reads ``ZOO_LLM_KV_DTYPE`` (default
-    f32); ``auto`` picks int8 on a Hopper card (decode reads the cache
-    from device memory every tick) and f32 elsewhere."""
+    f32); ``auto`` picks int8 on a CUDA device (decode reads the cache
+    from device memory every tick) and f32 on the CPU."""
     if dtype in (None, ""):
         dtype = knob_value("ZOO_LLM_KV_DTYPE") or "f32"
     dtype = {"fp32": "f32", "float32": "f32",
              "bfloat16": "bf16"}.get(dtype, dtype)
     if dtype == "auto":
-        from zoo_tpu_torch.ops.kernels import on_hopper
-        return "int8" if on_hopper(device) else "f32"
+        from zoo_tpu_torch.ops.kernels import on_cuda
+        return "int8" if on_cuda(device) else "f32"
     if dtype not in KV_DTYPES:
         raise ValueError(f"unknown KV cache dtype {dtype!r} "
                          f"({'/'.join(KV_DTYPES)}/auto)")
