@@ -13,7 +13,8 @@ with the card need not have; this file imports only torch and numpy.)
 
 Tolerances: max absolute error 1e-4 on f32 outputs (the same f32 math
 summed in another order), 3e-2 on bf16 outputs (one bf16 rounding of an
-O(1) value is up to 4e-3, and the plain version rounds at other points).
+O(1) value is up to 4e-3, and the plain version rounds at other points);
+1e-6 absolute on the optimizer updates (the same f32 elementwise math).
 """
 
 import numpy as np
@@ -179,3 +180,119 @@ def test_engine_streams_equal_plain_path(hopper):
         assert counts["paged_decode"] > 0
         assert counts["paged_prefill" if "chunk" in spec
                       else "flash_attention"] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,h,hkv,tq,tk,d", [
+    (True, 12, 4, 200, 200, 64), (False, 8, 2, 70, 45, 16),
+    (True, 6, 6, 33, 130, 128), (True, 8, 1, 129, 129, 32)])
+def test_flash_backward_kernels_match_plain(hopper, dtype, causal, h, hkv,
+                                            tq, tk, d):
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 5)
+    q = torch.randn(2, h, tq, d, generator=g, device=hopper).to(dtype)
+    k = torch.randn(2, hkv, tk, d, generator=g, device=hopper).to(dtype)
+    v = torch.randn(2, hkv, tk, d, generator=g, device=hopper).to(dtype)
+    do = torch.randn(2, h, tq, d, generator=g, device=hopper).to(dtype)
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = FA.flash_attention_plain(q, k, v, causal=causal)
+    assert _err(o, ro) <= TOL[dtype] and _err(lse, rlse) <= TOL[dtype]
+    before = (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == dtype
+        assert _err(a, b) <= TOL[dtype], name
+
+
+def test_flash_autograd_runs_the_backward_kernels(hopper):
+    """Gradients through ``flash_attention`` on the card come from the
+    two backward kernels and equal autograd of the dense path."""
+    from zoo_tpu_torch.ops.attention import dense_attention
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 6)
+    leaves = [torch.randn(2, n, 96, 64, generator=g, device=hopper)
+              .requires_grad_() for n in (H, HKV, HKV)]
+    do = torch.randn(2, H, 96, 64, generator=g, device=hopper)
+    before = FA.DQ_LAUNCHES
+    # a non-contiguous cotangent, as a transpose after attention gives
+    out = FA.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out.transpose(1, 2).contiguous()
+                                .transpose(1, 2), leaves,
+                                do.transpose(1, 2).contiguous()
+                                .transpose(1, 2))
+    ref = torch.autograd.grad(dense_attention(*leaves, causal=True)[0],
+                              leaves, do)
+    torch.cuda.synchronize()
+    assert FA.DQ_LAUNCHES == before + 1
+    for a, b in zip(grads, ref):
+        assert _err(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("n,offset", [(768 * 2048, 0), (1_000_003, 0),
+                                      (4099, 1)])
+@pytest.mark.parametrize("step", [1, 10])
+def test_fused_optim_kernels_match_plain(hopper, n, offset, step):
+    """A 16-byte-aligned leaf, a ragged one, and one that starts one
+    element into its storage (the scalar path)."""
+    from zoo_tpu_torch.ops.kernels import fused_optim as FO
+    g = _gen(hopper, 7)
+
+    def leaf(scale, positive=False):
+        t = torch.randn(n + offset, generator=g, device=hopper) * scale
+        return (t.abs() if positive else t)[offset:]
+    # scales at which one step moves every output by more than 10x the
+    # tolerance: a missing or misplaced store cannot pass
+    p, grad = leaf(0.05), leaf(0.1)
+    m, v = leaf(1e-2), leaf(1e-2, positive=True)
+    want = FO.reference_apply_adam(p, grad, m, v, step, 1e-4,
+                                   weight_decay=0.01)
+    got = FO.fused_apply_adam(p.clone(), grad, m.clone(), v.clone(), step,
+                              1e-4, weight_decay=0.01)
+    torch.cuda.synchronize()
+    for x, a, b in zip((p, m, v), got, want):
+        assert _err(b, x) > 1e-5
+        assert _err(a, b) <= 1e-6
+    buf = leaf(1e-2)
+    want = FO.reference_apply_sgd(p, grad, buf, 0.01, 0.9, 0.01)
+    got = FO.fused_apply_sgd(p.clone(), grad, buf.clone(), 0.01, 0.9, 0.01)
+    torch.cuda.synchronize()
+    for x, a, b in zip((p, buf), got, want):
+        assert _err(b, x) > 1e-5
+        assert _err(a, b) <= 1e-6
+
+
+def test_tiny_fit_kernels_equal_plain(hopper):
+    """A tiny Llama ``fit`` on the card: the flash and fused-AdamW
+    kernels against the dense attention and the plain update."""
+    from zoo_tpu_torch.models.llm.llama import (Llama, init_params,
+                                                tiny_llama_config)
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import AdamWeightDecay
+    cfg = tiny_llama_config()
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab, (16, 32)).astype(np.int32)
+    start = init_params(cfg, _gen(hopper, 8))
+    out = {}
+    for impl, fused in (("flash", True), ("dense", False)):
+        m = Sequential().add(Llama(cfg, attention_impl=impl,
+                                   input_shape=(32,)))
+        m.compile(AdamWeightDecay(lr=1e-3, fused=fused),
+                  "sparse_categorical_crossentropy_from_logits")
+        m.params = {"000_llama": tree_map(torch.clone, start)}
+        reset_launch_counts()
+        hist = m.fit(ids, np.roll(ids, -1, 1), batch_size=4, nb_epoch=2,
+                     verbose=0)
+        out[impl] = (hist["loss"], m.params["000_llama"], launch_counts())
+    np.testing.assert_allclose(out["flash"][0], out["dense"][0], rtol=1e-4)
+    for k in ("flash_attention", "flash_attention_dkdv",
+              "flash_attention_dq", "fused_adam"):
+        assert out["flash"][2][k] > 0 and out["dense"][2][k] == 0, k
+    for k, w in out["dense"][1]["blocks"].items():
+        assert _err(out["flash"][1]["blocks"][k].detach(), w.detach()) \
+            <= 1e-4, k

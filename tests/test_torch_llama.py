@@ -43,7 +43,7 @@ def test_llama_logits_match_jax(jax_model, T):
     model = tl.Llama(tl.LlamaConfig(**CFG), params_from_jax(tree, "cpu"))
     out = model(torch.from_numpy(ids))
     assert model.last_attention_impl == "dense"
-    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4)
+    np.testing.assert_allclose(out.detach().numpy(), ref, atol=1e-4)
 
 
 def test_param_tree_round_trips(jax_model):
@@ -51,12 +51,13 @@ def test_param_tree_round_trips(jax_model):
     _, _, _, tree = jax_model
     params = params_from_jax(tree, "cpu")
     model = tl.Llama(tl.LlamaConfig(**CFG), params)
-    got = model.params
-    np.testing.assert_array_equal(got["embed"].numpy(), tree["embed"])
+    got = model.params      # trainable parameters: detach to read
+    np.testing.assert_array_equal(got["embed"].detach().numpy(),
+                                  tree["embed"])
     for k in tl.BLOCK_KEYS:
-        np.testing.assert_array_equal(got["blocks"][k].numpy(),
+        np.testing.assert_array_equal(got["blocks"][k].detach().numpy(),
                                       tree["blocks"][k])
-    np.testing.assert_array_equal(got["head"].numpy(), tree["head"])
+    np.testing.assert_array_equal(got["head"].detach().numpy(), tree["head"])
 
 
 def test_norm_and_rope_match_jax():
@@ -86,8 +87,8 @@ def test_configs_and_param_count_match_jax():
 
 def test_build_from_seed_is_deterministic_with_jax_fans():
     cfg = tl.LlamaConfig(**CFG)
-    a = tl.Llama.build(cfg, seed=3, device="cpu").params
-    b = tl.Llama.build(cfg, seed=3, device="cpu").params
+    a = tl.Llama.from_seed(cfg, seed=3, device="cpu").params
+    b = tl.Llama.from_seed(cfg, seed=3, device="cpu").params
     assert torch.equal(a["blocks"]["wq"], b["blocks"]["wq"])
     assert a["blocks"]["wq"].shape == (2, 32, 32)
     assert a["blocks"]["wk"].shape == (2, 32, 16)

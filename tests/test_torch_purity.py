@@ -76,19 +76,26 @@ def test_entry_points_without_device_raise_without_a_card(monkeypatch):
     """No GPU and no ``device=``: every entry point raises instead of
     carrying on on the CPU."""
     from zoo_tpu_torch.common.device import resolve_device
-    from zoo_tpu_torch.convert import params_from_jax
+    from zoo_tpu_torch.convert import keras_params_from_jax, params_from_jax
     from zoo_tpu_torch.models.llm.llama import Llama, tiny_llama_config
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
     from zoo_tpu_torch.serving.llm import PagedLlamaModel, build_llm_engine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tiny_llama_config()
     tree = {"embed": np.zeros((4, 2), np.float32)}
+    model = Sequential().add(Llama(cfg, input_shape=(8,)))
+    model.compile("adamw", "sparse_categorical_crossentropy_from_logits")
+    ids = np.zeros((4, 8), np.int32)
     for call in (lambda: resolve_device(),
                  lambda: resolve_device("cuda"),
-                 lambda: Llama.build(cfg),
+                 lambda: Llama.from_seed(cfg),
                  lambda: PagedLlamaModel(cfg),
                  lambda: build_llm_engine("llama:tiny"),
-                 lambda: params_from_jax(tree)):
+                 lambda: params_from_jax(tree),
+                 lambda: keras_params_from_jax({"000_llama": tree}),
+                 lambda: model.build(),
+                 lambda: model.fit(ids, ids, batch_size=4, verbose=0)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,4 +1,4 @@
-"""The ``ZOO_*`` knobs the ported serving path reads.
+"""The ``ZOO_*`` knobs the port reads (serving and training).
 
 A copy of the entries of ``zoo_tpu/common/knobs.py`` that this package
 needs, with the same names, types and defaults, so one environment
@@ -85,6 +85,8 @@ _k("ZOO_LLAMA_FLASH_MIN_SEQ", "int", 512,
    "sequence length from which attention `auto` picks the flash kernel")
 _k("ZOO_LLAMA_ATTN_IMPL", "str", "",
    "force `dense` / `flash` attention for A/B runs")
+_k("ZOO_FUSED_OPTIM", "bool", False,
+   "AdamW takes the fused direct-apply path")
 
 
 def get(name: str) -> Knob:

@@ -7,6 +7,11 @@ already turned into numpy arrays by the caller, and returns the same
 tree of torch tensors on ``device``. The layout is kept: ``(in, out)``
 matrices and ``(n_block, ...)`` stacked block tensors, so ``x @ w`` is
 the same product in both packages.
+
+``keras_params_from_jax(tree)`` takes a Keras model's whole params tree
+(``{"000_llama": {...}, ...}``, layer keys as the JAX package makes
+them) or a fused AdamW state ``{"m", "v", "step"}``, numpy leaves, and
+returns the same tree of tensors (``step`` as an int).
 """
 
 from __future__ import annotations
@@ -32,3 +37,17 @@ def params_from_jax(tree: Dict, device=None) -> Dict:
     if "head" in tree:
         out["head"] = conv(tree["head"])
     return out
+
+
+def _tensors(node, dev):
+    if isinstance(node, dict):
+        return {k: _tensors(v, dev) for k, v in node.items()}
+    return torch.from_numpy(np.array(node, copy=True)).to(dev)
+
+
+def keras_params_from_jax(tree: Dict, device=None) -> Dict:
+    dev = resolve_device(device)
+    if set(tree) == {"m", "v", "step"}:   # the fused AdamW state
+        return {"m": _tensors(tree["m"], dev), "v": _tensors(tree["v"], dev),
+                "step": int(np.asarray(tree["step"]))}
+    return _tensors(tree, dev)

@@ -8,11 +8,17 @@ package's layout so the two hold the same numbers for the same model:
 leading ``n_block`` axis — ``embed``, ``blocks/{wq, wk, wv, wo,
 attn_norm, mlp_norm, w_gate, w_up, w_down}``, ``final_norm``, ``head``
 (:func:`zoo_tpu_torch.convert.params_from_jax` reads that tree).
+
+One :class:`Llama` serves and trains: ``Llama(config, params)`` holds a
+parameter tree as trainable ``nn.Parameter`` objects (the serving path), and
+``Llama(config, input_shape=(T,), remat=...)`` is a Keras layer whose
+parameters the model holds (``Sequential.add``).
 """
 
 from __future__ import annotations
 
 import math
+import functools
 from dataclasses import dataclass
 from typing import Dict, Optional
 
@@ -23,6 +29,7 @@ import torch.nn.functional as F
 from zoo_tpu_torch.common.device import resolve_device
 from zoo_tpu_torch.common.knobs import value as knob_value
 from zoo_tpu_torch.ops.attention import dot_product_attention
+from zoo_tpu_torch.pipeline.api.keras.engine.base import Layer
 
 BLOCK_KEYS = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm", "w_gate",
               "w_up", "w_down")
@@ -125,79 +132,127 @@ def _glorot(shape, generator: torch.Generator) -> torch.Tensor:
         -lim, lim, generator=generator)
 
 
-class Llama(nn.Module):
+def init_params(config: LlamaConfig, generator: torch.Generator,
+                lm_head: bool = True) -> Dict:
+    """A parameter tree drawn from ``generator`` on its device:
+    glorot-uniform matrices with the JAX package's fans, unit norm gains,
+    and the embedding scaled by 0.02 * sqrt(3). The draws differ from
+    ``jax.random``'s: to hold the same weights as a JAX model, convert
+    its params instead."""
+    c, g, dev = config, generator, generator.device
+    kv = c.n_kv_head * c.head_dim
+    L = c.n_block
+    params = {"embed": _glorot((c.vocab, c.hidden), g)
+              * (0.02 * math.sqrt(3.0))}
+    blocks = {
+        "wq": _glorot((L, c.hidden, c.hidden), g),
+        "wk": _glorot((L, c.hidden, kv), g),
+        "wv": _glorot((L, c.hidden, kv), g),
+        "wo": _glorot((L, c.hidden, c.hidden), g),
+        "w_gate": _glorot((L, c.hidden, c.intermediate), g),
+        "w_up": _glorot((L, c.hidden, c.intermediate), g),
+        "w_down": _glorot((L, c.intermediate, c.hidden), g),
+    }
+    for k in ("attn_norm", "mlp_norm"):
+        blocks[k] = torch.ones((L, c.hidden), device=dev)
+    params["blocks"] = blocks
+    params["final_norm"] = torch.ones((c.hidden,), device=dev)
+    if lm_head and not c.tie_embeddings:
+        params["head"] = _glorot((c.hidden, c.vocab), g)
+    return params
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"``: keep the outputs
+    of matrix products without batch dimensions (``aten.mm``, what ``x @
+    w`` lowers to), recompute the elementwise chains — the JAX package's
+    ``dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+class Llama(Layer):
     """Decoder-only Llama LM: int ids (B, T) -> logits (B, T, vocab)
     (``lm_head=True``) or hidden states (B, T, hidden).
 
-    ``Llama(config, params)`` wraps a parameter tree without copying it;
-    :meth:`build` draws one from a seed. The parameters are frozen
-    (``requires_grad=False``): this slice of the port serves."""
+    ``Llama(config, params)`` wraps a parameter tree (without copying
+    it) as trainable parameters; ``Llama.from_seed(config, seed=...)``
+    draws one from a seed. Without ``params`` it is a Keras layer
+    (``input_shape=(T,)``) whose ``build(generator, input_shape)``
+    returns a tree for the model to hold and whose ``call(params, ids,
+    training=...)`` runs on the tree it is given.
 
-    def __init__(self, config: LlamaConfig, params: Dict, *,
-                 lm_head: bool = True, attention_impl: str = "auto"):
-        super().__init__()
+    ``remat`` sets what the backward pass recomputes, as in the JAX
+    package: ``False`` keeps every block activation; ``True`` checkpoints
+    whole blocks (the backward reruns each block's forward, attention
+    included); ``"dots"`` checkpoints only the MLP half and keeps its
+    matrix products, recomputing the norm and the SwiGLU elementwise
+    chain — the attention half keeps the flash kernel's residuals."""
+
+    def __init__(self, config: Optional[LlamaConfig] = None,
+                 params: Optional[Dict] = None, *, lm_head: bool = True,
+                 attention_impl: str = "auto", remat=False,
+                 input_shape=None, name: Optional[str] = None):
+        super().__init__(input_shape=input_shape, name=name)
+        config = config or LlamaConfig()
         self.cfg = config
         if config.hidden % config.n_head:
             raise ValueError("hidden must divide by n_head")
         if config.n_head % config.n_kv_head:
             raise ValueError("n_head must divide by n_kv_head")
+        if remat not in (False, True, "dots"):
+            raise ValueError(
+                f"remat must be False, True or 'dots', got {remat!r}")
         self.lm_head = lm_head
         self.attention_impl = attention_impl
+        self.remat = remat
         self.last_attention_impl: Optional[str] = None
-
-        def frozen(t):
-            return nn.Parameter(t, requires_grad=False)
-
-        self.embed = frozen(params["embed"])
-        self.blocks = nn.ParameterDict(
-            {k: frozen(params["blocks"][k]) for k in BLOCK_KEYS})
-        self.final_norm = frozen(params["final_norm"])
-        self.head = frozen(params["head"]) \
-            if lm_head and not config.tie_embeddings else None
+        self.embed = self.blocks = self.final_norm = self.head = None
+        if params is not None:
+            self.embed = nn.Parameter(params["embed"])
+            self.blocks = nn.ParameterDict(
+                {k: nn.Parameter(params["blocks"][k]) for k in BLOCK_KEYS})
+            self.final_norm = nn.Parameter(params["final_norm"])
+            if lm_head and not config.tie_embeddings:
+                self.head = nn.Parameter(params["head"])
 
     @classmethod
-    def build(cls, config: LlamaConfig, *, seed: int = 0, device=None,
-              lm_head: bool = True, attention_impl: str = "auto"
-              ) -> "Llama":
-        """Weights from a ``torch.Generator`` seeded with ``seed`` on
-        ``device``: glorot-uniform matrices with the JAX package's fans,
-        unit norm gains, and the embedding scaled by 0.02 * sqrt(3). The
-        draws differ from ``jax.random``'s: to hold the same weights as
-        a JAX model, convert its params instead."""
+    def from_seed(cls, config: LlamaConfig, *, seed: int = 0, device=None,
+                  lm_head: bool = True, attention_impl: str = "auto"
+                  ) -> "Llama":
+        """A model whose weights come from a ``torch.Generator`` seeded
+        with ``seed`` on ``device`` (see :func:`init_params`)."""
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(int(seed))
-        c = config
-        kv = c.n_kv_head * c.head_dim
-        L = c.n_block
-        params = {"embed": _glorot((c.vocab, c.hidden), g)
-                  * (0.02 * math.sqrt(3.0))}
-        blocks = {
-            "wq": _glorot((L, c.hidden, c.hidden), g),
-            "wk": _glorot((L, c.hidden, kv), g),
-            "wv": _glorot((L, c.hidden, kv), g),
-            "wo": _glorot((L, c.hidden, c.hidden), g),
-            "w_gate": _glorot((L, c.hidden, c.intermediate), g),
-            "w_up": _glorot((L, c.hidden, c.intermediate), g),
-            "w_down": _glorot((L, c.intermediate, c.hidden), g),
-        }
-        for k in ("attn_norm", "mlp_norm"):
-            blocks[k] = torch.ones((L, c.hidden), device=dev)
-        params["blocks"] = blocks
-        params["final_norm"] = torch.ones((c.hidden,), device=dev)
-        if lm_head and not c.tie_embeddings:
-            params["head"] = _glorot((c.hidden, c.vocab), g)
-        return cls(config, params, lm_head=lm_head,
+        return cls(config, init_params(config, g, lm_head), lm_head=lm_head,
                    attention_impl=attention_impl)
+
+    def build(self, generator: torch.Generator, input_shape) -> Dict:
+        return init_params(self.cfg, generator, self.lm_head)
 
     @property
     def params(self) -> Dict:
         """The parameter tree in the JAX package's layout (the module's
         own tensors, not copies)."""
+        if self.embed is None:
+            raise ValueError("this Llama is a Keras layer: its params are "
+                             "held by the model")
         out = {"embed": self.embed, "blocks": dict(self.blocks),
                "final_norm": self.final_norm}
         if self.head is not None:
             out["head"] = self.head
         return out
+
+    def compute_output_shape(self, input_shape):
+        b, t = input_shape
+        return (b, t, self.cfg.vocab if self.lm_head else self.cfg.hidden)
 
     def _attn_part(self, p, h, cos, sin, impl):
         c = self.cfg
@@ -217,18 +272,44 @@ class Llama(nn.Module):
         x = rms_norm(h, p["mlp_norm"], self.cfg.rms_eps)
         return h + (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def _block(self, p, h, cos, sin, impl):
+        return self._mlp_part(p, self._attn_part(p, h, cos, sin, impl))
+
+    def _block_fn(self):
+        """The per-block function under this layer's ``remat`` (which
+        only matters while autograd records)."""
+        from torch.utils.checkpoint import checkpoint
+        if not torch.is_grad_enabled() or self.remat is False:
+            return self._block
+        if self.remat == "dots":
+            def block(p, h, cos, sin, impl):
+                h = self._attn_part(p, h, cos, sin, impl)
+                return checkpoint(self._mlp_part, p, h, use_reentrant=False,
+                                  context_fn=_dots_context)
+            return block
+        return functools.partial(checkpoint, self._block,
+                                 use_reentrant=False)
+
+    def call(self, params: Dict, ids: torch.Tensor, *,
+             training: bool = False) -> torch.Tensor:
         c = self.cfg
-        h = self.embed[ids.long()]
+        h = params["embed"][ids.long()]
         T = ids.shape[1]
         cos, sin = rope_frequencies(c.head_dim, T, c.rope_theta, h.device)
         impl = resolve_attention_impl(self.attention_impl, T, h.device)
         self.last_attention_impl = impl
-        for i in range(c.n_block):
-            p = {k: w[i] for k, w in self.blocks.items()}
-            h = self._mlp_part(p, self._attn_part(p, h, cos, sin, impl))
-        h = rms_norm(h, self.final_norm, c.rms_eps)
+        # one unbind per stacked leaf: its backward stacks the per-block
+        # gradients once, where w[i] per block would materialise a
+        # zero-filled gradient of the whole stack for every block
+        per_key = [torch.unbind(params["blocks"][k], 0) for k in BLOCK_KEYS]
+        block = self._block_fn()
+        for ws in zip(*per_key):
+            h = block(dict(zip(BLOCK_KEYS, ws)), h, cos, sin, impl)
+        h = rms_norm(h, params["final_norm"], c.rms_eps)
         if not self.lm_head:
             return h
-        head = self.embed.T if c.tie_embeddings else self.head
+        head = params["embed"].T if c.tie_embeddings else params["head"]
         return h @ head.to(h.dtype)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.call(self.params, ids)

@@ -57,7 +57,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
 
     ``mask``: optional boolean mask broadcastable to (B, H, Tq, Tk)
     (True = attend). ``impl``: ``"dense"``, ``"flash"`` (the CUDA
-    kernel; CUDA tensors only, causal or none masking), or ``"auto"``
+    kernels, differentiable through their backward kernels; CUDA tensors
+    only, causal or none masking), or ``"auto"``
     (:func:`~zoo_tpu_torch.models.llm.llama.resolve_attention_impl`).
     GQA: ``k``/``v`` may carry fewer heads than ``q``."""
     flash_ok = mask is None

@@ -5,8 +5,13 @@ built by ``nvcc`` at first use (:mod:`._build`) and bound with
 ``ctypes``. Its Python wrapper sits in a module of its own together
 with the kernel's plain PyTorch version:
 
-- :mod:`.flash_attention` — blockwise flash-attention forward
-  (replaces ``_fwd_kernel`` of ``zoo_tpu/ops/pallas/flash_attention.py``);
+- :mod:`.flash_attention` — blockwise flash attention, the forward and
+  the two backward kernels (dK/dV, dQ) behind an autograd function
+  (replaces ``_fwd_kernel``, ``_dkdv_kernel`` and ``_dq_kernel`` of
+  ``zoo_tpu/ops/pallas/flash_attention.py``);
+- :mod:`.fused_optim` — AdamW and SGD updates in one in-place pass
+  (replaces ``_adam_kernel`` and ``_sgd_kernel`` of
+  ``zoo_tpu/ops/pallas/fused_optim.py``);
 - :mod:`.paged_decode` — single-query attention through a block table
   (replaces ``zoo_tpu/ops/pallas/paged_decode.py``);
 - :mod:`.paged_prefill` — a chunk of query rows through a block table
@@ -26,7 +31,17 @@ from typing import Dict
 
 import torch
 
-KERNELS = ("flash_attention", "paged_decode", "paged_prefill")
+# kernel -> (module of ops.kernels, its launch-count attribute)
+_COUNTERS = {
+    "flash_attention": ("flash_attention", "LAUNCHES"),
+    "flash_attention_dkdv": ("flash_attention", "DKDV_LAUNCHES"),
+    "flash_attention_dq": ("flash_attention", "DQ_LAUNCHES"),
+    "fused_adam": ("fused_optim", "ADAM_LAUNCHES"),
+    "fused_sgd": ("fused_optim", "SGD_LAUNCHES"),
+    "paged_decode": ("paged_decode", "LAUNCHES"),
+    "paged_prefill": ("paged_prefill", "LAUNCHES"),
+}
+KERNELS = tuple(_COUNTERS)
 
 
 def on_cuda(device=None) -> bool:
@@ -48,19 +63,17 @@ def on_hopper(device=None) -> bool:
     return torch.cuda.get_device_capability(device) == (9, 0)
 
 
-def _modules():
-    from zoo_tpu_torch.ops.kernels import (flash_attention, paged_decode,
-                                           paged_prefill)
-    return {"flash_attention": flash_attention,
-            "paged_decode": paged_decode,
-            "paged_prefill": paged_prefill}
+def _module(name: str):
+    import importlib
+    return importlib.import_module(f"zoo_tpu_torch.ops.kernels.{name}")
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {name: mod.LAUNCHES for name, mod in _modules().items()}
+    return {k: getattr(_module(mod), attr)
+            for k, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _modules().values():
-        mod.LAUNCHES = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(_module(mod), attr, 0)

@@ -33,6 +33,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "zoo_tpu_torch"
 # kernel name -> its source under csrc/
 SOURCES = {
     "flash_attention": "flash_attention_fwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
+    "fused_optim": "fused_optim.cu",
     "paged_decode": "paged_decode.cu",
     "paged_prefill": "paged_prefill.cu",
 }

@@ -216,7 +216,7 @@ def _rope_rows(x: torch.Tensor, cos: torch.Tensor,
 class PagedLlamaModel:
     """Llama weights + paged KV cache + the serving paths.
 
-    ``params=None`` draws the weights from ``seed`` (:meth:`Llama.build`);
+    ``params=None`` draws the weights from ``seed`` (:meth:`Llama.from_seed`);
     otherwise ``params`` is a parameter tree in the JAX layout (e.g. from
     :func:`zoo_tpu_torch.convert.params_from_jax`, or another model's
     ``params`` to share one set of weights). ``device=None`` is the
@@ -279,7 +279,7 @@ class PagedLlamaModel:
             if not self.prefill_chunk_size else self.max_context
 
         if params is None:
-            params = Llama.build(c, seed=seed, device=self.device).params
+            params = Llama.from_seed(c, seed=seed, device=self.device).params
         self.params = {
             "embed": params["embed"].to(self.device),
             "blocks": {k: params["blocks"][k].to(self.device)
