@@ -36,7 +36,22 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    B=64, ``mixed_bfloat16``, ``remat="dots"``, fused AdamW: a warm-up
    fit, then a timed fit of 8 steps (per-step losses finite and
    falling, launches of flash fwd / dK-dV / dQ / AdamW counted), then
-   a ``step`` line profiling train steps by kernel group.
+   a ``step`` line profiling train steps by kernel group;
+7. infer-tiny — a tiny ResNet (bottleneck, blocks (1, 1), 32x32x3, 10
+   classes, BatchNorm stats drawn from a seed) predicts through the
+   conv kernels within 1e-5 of the plain path in f32, and after
+   ``quantize_model`` through the int8 kernels bit-equal to it;
+8. infer-main — ``resnet50(1000, (224, 224, 3))`` at full width and
+   depth, seed weights, ``mixed_bfloat16``, behind
+   ``InferenceModel.load_keras(batch_size=128)``: 8 batches of 128
+   images (``bench.py`` ``bench_resnet50_int8_infer``'s
+   ``RandomState(0).randn``) in float, then after
+   ``quantize_model(mode="force")`` in int8, one batch with
+   ``ZOO_INT8_MATMUL=unfused``, and a ``quantize_model(mode="auto")``
+   verdict; samples/s, launches per forward (49 ``conv2d``, or 49
+   ``conv2d_int8`` and one head GEMM), kernel path vs plain path on one
+   batch, top-1 agreement of int8 with float, peak memory, and an
+   ``infer-step`` line profiling one batch per path.
 
 Phase 3 also holds the flash forward (o, lse) and backward kernels
 (dK/dV, dQ) against their plain versions, and the gradients against
@@ -44,7 +59,10 @@ autograd of the dense path, at B=8, H=12, Hkv=4, T=512, D=64, and the
 fused AdamW and SGD kernels against theirs, then times them at the
 training config's shapes beside their bounds and a library yardstick
 (``scaled_dot_product_attention`` and its backward, ``torch.optim``'s
-fused AdamW and SGD) the port never calls.
+fused AdamW and SGD) the port never calls; and the implicit-GEMM conv
+kernels (bf16, int8) at four ResNet-50 shapes, B=128, and the int8
+GEMMs at the ResNet-50 head and at ``bench_int8_matmul``'s shape,
+beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -52,6 +70,7 @@ Any failure exits non-zero without the ``ok`` line. Without a CUDA
 device, or without the package beside this file, it exits 2.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -67,11 +86,19 @@ N_BLOCK = 32
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3, bytes/s
 PEAK_F32_FLOPS = 67e12            # H100 SXM f32, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
+PEAK_INT8_OPS = 1979e12           # H100 SXM int8 tensor cores, dense
 LOSS = "sparse_categorical_crossentropy_from_logits"
 # the training config: bench.py bench_llama, full width and depth
 TRAIN_CFG = dict(vocab=32000, hidden=768, n_block=12, n_head=12,
                  n_kv_head=4, intermediate=2048, rope_theta=10000.0)
 TRAIN_S, TRAIN_B, TRAIN_STEPS = 512, 64, 8
+# the image-inference path: bench.py bench_resnet50_int8_infer
+INFER_B, INFER_STEPS = 128, 8
+# ResNet-50 convs inside the kernels' envelope, (spatial, C, k, O, stride)
+CONV_SHAPES = ((56, 256, 1, 64, 1), (28, 128, 3, 128, 1),
+               (56, 256, 1, 512, 2), (7, 512, 3, 512, 1))
+# (M, K, N): the ResNet-50 head at B=128, bench.py bench_int8_matmul
+GEMM_SHAPES = ((128, 2048, 1000), (512, 1024, 1024))
 
 # tolerances of kernel vs plain version, max absolute error:
 # f32 outputs 1e-4 (the same f32 math summed in another order, expf vs
@@ -83,7 +110,19 @@ TRAIN_S, TRAIN_B, TRAIN_STEPS = 512, 64, 8
 # The flash gradients against autograd of the dense path, which rounds
 # neither p nor ds to bf16, take the bf16 tolerance times their largest
 # magnitude: they reach ~9, and half a bf16 ulp in [8, 16) is 2**-5.
-TOL = {"float32": 1e-4, "bfloat16": 3e-2, "update": 1e-6}
+# The conv kernel against its plain version (cuDNN in f32, TF32 off):
+# f32 within 1e-5 of the largest output (the same f32 sums in another
+# order over up to 9 * C = 4608 terms), bf16 within one bf16 ulp of it,
+# 2**-7 (both round one f32 sum, which may fall either side of a tie).
+# The int8 kernels: exact (integer sums, the same f32 epilogue).
+# The tiny ResNet's probabilities through the f32 conv kernels: 1e-5.
+TOL = {"float32": 1e-4, "bfloat16": 3e-2, "update": 1e-6,
+       "conv_f32": 1e-5, "conv_bf16": 2.0 ** -7, "int8": 0.0}
+TOL_TINY_F32 = 1e-5
+# full-width ResNet-50 in bf16, kernel path vs plain path: the two round
+# the conv sums to bf16 on either side of ties at other elements, and 53
+# layers carry that on; the probabilities stay within this
+TOL_MAIN_BF16 = 5e-2
 
 
 def emit(obj):
@@ -101,30 +140,10 @@ def nvidia_smi_line():
         return f"nvidia-smi unavailable: {e!r}"
 
 
-def timed(torch, fn, iters, kernel=None, warmup=3):
-    """Per call: ``device_ms``, the device time of everything ``fn``
-    launches (torch.profiler's kernel, copy and memset events, summed);
-    ``kernel_ms``, the part spent in kernels whose name holds
-    ``kernel``; ``wall_ms``, CUDA-event time over back-to-back calls,
-    which also counts the host's launch overhead when the host is the
-    slower side; ``host_ms``, the host clock per call over the same calls
-    until the last is issued (near ``wall_ms`` when the host is the
-    slower side); ``by_name``, device ms per call of each event name;
-    ``host_by_name``, host ms per call of each host event, its own time
-    without its children's, under the profiler (which adds its own)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    host = (time.perf_counter() - t0) * 1e3 / iters
-    end.record()
-    torch.cuda.synchronize()
-    wall = start.elapsed_time(end) / iters
+def _profiled(torch, fn, iters, kernel):
+    """One ``torch.profiler`` pass over ``iters`` calls: the device us of
+    all events, of those whose name holds ``kernel``, and ms per call by
+    device and by host event name."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -144,12 +163,67 @@ def timed(torch, fn, iters, kernel=None, warmup=3):
         by_name[e.key] = by_name.get(e.key, 0.0) + us / iters / 1e3
         if kernel is not None and kernel in e.key:
             only += us
-    if total <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return {"device_ms": total / iters / 1e3, "wall_ms": wall,
-            "host_ms": host,
-            "kernel_ms": only / iters / 1e3 if kernel else None,
-            "by_name": by_name, "host_by_name": host_by_name}
+    return total, only, by_name, host_by_name
+
+
+def timed(torch, fn, iters, kernel=None, warmup=3, attempts=3):
+    """Per call: ``device_ms``, the device time of everything ``fn``
+    launches (torch.profiler's kernel, copy and memset events, summed);
+    ``kernel_ms``, the part spent in kernels whose name holds
+    ``kernel``; ``wall_ms``, CUDA-event time over back-to-back calls,
+    which also counts the host's launch overhead when the host is the
+    slower side; ``host_ms``, the host clock per call over the same calls
+    until the last is issued (near ``wall_ms`` when the host is the
+    slower side); ``by_name``, device ms per call of each event name;
+    ``host_by_name``, host ms per call of each host event, its own time
+    without its children's, under the profiler (which adds its own);
+    ``device_busy_share``, ``device_ms`` over ``wall_ms``.
+
+    The profiler now and then returns no device event at all on the
+    card's machine; a pass that does is repeated, up to ``attempts``
+    passes. If none records device time, ``device_ms`` is CUDA-event
+    time from just before to just after each call (an upper bound: it
+    also holds the host's launch of the call when the device waits for
+    it), ``device_source`` says ``cuda_events``, and ``kernel_ms``,
+    ``by_name`` and ``device_busy_share`` are empty."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / iters
+    for attempt in range(1, attempts + 1):
+        total, only, by_name, host_by_name = _profiled(torch, fn, iters,
+                                                       kernel)
+        if total > 0:
+            device = total / iters / 1e3
+            return {"device_ms": device, "wall_ms": wall, "host_ms": host,
+                    "kernel_ms": only / iters / 1e3 if kernel else None,
+                    "by_name": by_name, "host_by_name": host_by_name,
+                    "device_busy_share": device / wall,
+                    "device_source": "profiler"}
+        emit({"phase": "timing", "kernel": kernel, "attempt": attempt,
+              "note": "torch.profiler recorded no device time"})
+    pairs = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    device = sum(a.elapsed_time(b) for a, b in pairs) / iters
+    return {"device_ms": device, "wall_ms": wall, "host_ms": host,
+            "kernel_ms": None, "by_name": {}, "host_by_name": host_by_name,
+            "device_busy_share": None, "device_source": "cuda_events"}
 
 
 def timing(torch, kernel, fn, plain, library, iters):
@@ -190,17 +264,18 @@ def phase_kernels(torch):
     results = {}
 
     def record(kernel, case, err, dtype, magnitude=None):
-        # ``magnitude``: the largest output, given only where the witness
-        # rounds elsewhere than the kernel (dense autograd, see TOL)
+        # ``magnitude``: the largest output, given where the tolerance
+        # scales with it (see TOL)
         tol = TOL[dtype] * (max(1.0, magnitude) if magnitude is not None
-                            and dtype == "bfloat16" else 1.0)
+                            and dtype in ("bfloat16", "conv_f32",
+                                          "conv_bf16") else 1.0)
         emit({"phase": "kernels", "kernel": kernel, "case": case,
               "max_abs_err": err, "tol": tol})
         if not err <= tol:
             raise AssertionError(f"{kernel} {case}: max abs err {err} "
                                  f"> {tol}")
         r = results.setdefault(kernel, {"max_abs_err": 0.0})
-        if dtype in ("float32", "update"):
+        if dtype in ("float32", "update", "conv_f32", "conv_bf16", "int8"):
             r["max_abs_err"] = max(r["max_abs_err"], err)
 
     def err(a, b):
@@ -315,6 +390,7 @@ def phase_kernels(torch):
                                                pos), None, 100),
                 bound_ms=b_ms, bound_by=b_by)
     phase_training_kernels(torch, record, err, results)
+    phase_inference_kernels(torch, record, err, results)
     for name, r in results.items():
         emit({"phase": "kernels", "kernel": name, "timing": r})
     return results
@@ -515,6 +591,435 @@ def phase_training_kernels(torch, record, err, results):
     torch.cuda.empty_cache()
 
 
+def _sum_timing(per):
+    """One kernel's timings summed over the shapes it was timed at (one
+    call at each); ``bound_by`` is that of the shape with the largest
+    bound."""
+    lib = [t["library_ms"] for t in per]
+    return {"ms": sum(t["ms"] for t in per),
+            "kernel_ms": sum(t["kernel_ms"] or 0.0 for t in per),
+            "wall_ms": sum(t["wall_ms"] for t in per),
+            "plain_ms": sum(t["plain_ms"] for t in per),
+            "library_ms": None if None in lib else sum(lib),
+            "bound_ms": sum(t["bound_ms"] for t in per),
+            "bound_by": max(per, key=lambda t: t["bound_ms"])["bound_by"],
+            "shapes": per}
+
+
+def phase_inference_kernels(torch, record, err, results):
+    """The implicit-GEMM conv kernels (f32, bf16, int8) at ResNet-50's
+    shapes and the int8 GEMMs at the head's and ``bench_int8_matmul``'s,
+    each against its plain version, then timed (into ``results``)."""
+    import torch.nn.functional as F
+    from zoo_tpu_torch.ops.kernels import conv as CV
+    from zoo_tpu_torch.ops.kernels import quant as Q
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2468)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def scales(n):
+        return torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3
+
+    B = INFER_B
+    per = {k: [] for k in ("conv2d", "conv2d_int8", "quantized_matmul",
+                           "fused_quantized_matmul")}
+    for h, c, k, o, s in CONV_SHAPES:
+        oh = -(-h // s)
+        shape = f"{h}x{h} {c}->{o} {k}x{k} stride {s}"
+        x32, w32 = randn(8, h, h, c, dtype=torch.float32), \
+            randn(k, k, c, o, dtype=torch.float32)
+        y = CV.implicit_gemm_conv2d(x32, w32, (s, s))
+        ref = CV.conv2d_plain(x32, w32, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d", f"f32 B=8 {shape}", err(y, ref), "conv_f32",
+               float(ref.abs().max()))
+        x, w = randn(B, h, h, c), randn(k, k, c, o)
+        y, ref = CV.implicit_gemm_conv2d(x, w, (s, s)), \
+            CV.conv2d_plain(x, w, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d", f"bf16 B={B} {shape}", err(y, ref), "conv_bf16",
+               float(ref.float().abs().max()))
+        del x32, w32, y, ref
+        ops = 2 * B * oh * oh * k * k * c * o
+        # x elements the conv reads: a 1x1 at stride s only every s-th
+        # pixel (the JAX cost estimate counts its pre-sliced x), a 3x3 at
+        # stride 1 all of them; either way B * oh * oh * c
+        x_read = B * oh * oh * c
+        b_ms, b_by = bound(2 * (x_read + w.numel() + B * oh * oh * o),
+                           ops, PEAK_BF16_FLOPS)
+        xn = x.permute(0, 3, 1, 2)                  # channels-last NCHW
+        wn = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        t = timing(torch, "conv2d_kernel",
+                   lambda: CV.implicit_gemm_conv2d(x, w, (s, s)),
+                   lambda: CV.conv2d_plain(x, w, (s, s)),
+                   lambda: F.conv2d(xn, wn, stride=s, padding=(k - 1) // 2),
+                   10)
+        per["conv2d"].append(dict(t, shape=f"B={B} bf16 {shape}",
+                                  bound_ms=b_ms, bound_by=b_by,
+                                  tflops=ops / t["ms"] / 1e9))
+        del x, w, xn, wn
+        xq, wq, xs, ws = int8(B, h, h, c), int8(k, k, c, o), scales(B), \
+            scales(o)
+        y = CV.implicit_gemm_conv2d_int8(xq, wq, xs, ws, (s, s))
+        ref = CV.conv2d_int8_plain(xq, wq, xs, ws, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d_int8", f"B={B} {shape}", err(y, ref), "int8")
+        del y, ref
+        b_ms, b_by = bound(x_read + wq.numel() + 4 * (B + o)
+                           + 4 * B * oh * oh * o, ops, PEAK_INT8_OPS)
+        # the float64 plain version is slow: one warm-up, one timed call
+        t = timed(torch, lambda: CV.implicit_gemm_conv2d_int8(
+            xq, wq, xs, ws, (s, s)), 5, kernel="conv2d_int8_kernel")
+        plain = timed(torch, lambda: CV.conv2d_int8_plain(
+            xq, wq, xs, ws, (s, s)), 1, warmup=1)
+        per["conv2d_int8"].append({
+            "ms": t["device_ms"], "kernel_ms": t["kernel_ms"],
+            "wall_ms": t["wall_ms"], "plain_ms": plain["device_ms"],
+            "library_ms": None, "shape": f"B={B} int8 {shape}",
+            "bound_ms": b_ms, "bound_by": b_by,
+            "tops": ops / t["device_ms"] / 1e9})
+        del xq, wq
+        torch.cuda.empty_cache()
+
+    # every other in-envelope conv shape of ResNet-50, checked, not timed
+    from zoo_tpu_torch.models.image import resnet50
+    rest = sorted(set(envelope_convs(resnet50(1000, (224, 224, 3))))
+                  - set(CONV_SHAPES))
+    for h, c, k, o, s in rest:
+        shape = f"{h}x{h} {c}->{o} {k}x{k} stride {s}"
+        x, w = randn(B, h, h, c), randn(k, k, c, o)
+        y, ref = CV.implicit_gemm_conv2d(x, w, (s, s)), \
+            CV.conv2d_plain(x, w, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d", f"bf16 B={B} {shape}", err(y, ref), "conv_bf16",
+               float(ref.float().abs().max()))
+        xq, wq, xs, ws = int8(B, h, h, c), int8(k, k, c, o), scales(B), \
+            scales(o)
+        y = CV.implicit_gemm_conv2d_int8(xq, wq, xs, ws, (s, s))
+        ref = CV.conv2d_int8_plain(xq, wq, xs, ws, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d_int8", f"B={B} {shape}", err(y, ref), "int8")
+        del x, w, xq, wq, y, ref
+    emit({"phase": "kernels", "conv_shapes_checked":
+          len(CONV_SHAPES) + len(rest)})
+    torch.cuda.empty_cache()
+
+    for m, k, n in GEMM_SHAPES:
+        shape = f"M={m} K={k} N={n}"
+        x, wq, ws = randn(m, k), int8(k, n), scales(n)
+        x[0] = 0                                   # a zero row: scale 1
+        xq, xs = Q.quantize_int8(x, axis=-1)
+        for out in (torch.float32, bf16):
+            y = Q.quantized_matmul(xq, wq, xs, ws, out_dtype=out)
+            ref = Q.quantized_matmul_plain(xq, wq, xs, ws, out_dtype=out)
+            torch.cuda.synchronize()
+            record("quantized_matmul", f"{shape} out {out}", err(y, ref),
+                   "int8")
+            for xdt in (torch.float32, bf16):
+                y = Q.fused_quantized_matmul(x.to(xdt), wq, ws, out)
+                ref = Q.fused_quantized_matmul_plain(x.to(xdt), wq, ws, out)
+                torch.cuda.synchronize()
+                record("fused_quantized_matmul",
+                       f"{shape} x {xdt} out {out}", err(y, ref), "int8")
+        ops = 2 * m * k * n
+
+        def int_mm_dequant(q, sc):
+            return (torch._int_mm(q, wq).float() * sc
+                    * ws.reshape(1, n)).to(bf16)
+
+        def lib_fused():
+            xf = x.float()
+            amax = xf.abs().amax(dim=-1, keepdim=True)
+            sc = torch.where(amax == 0, 1.0, amax / 127.0)
+            q = torch.clamp(torch.round(xf / sc), -127, 127).to(torch.int8)
+            return int_mm_dequant(q, sc)
+
+        libs = {"quantized_matmul": lambda: int_mm_dequant(xq, xs),
+                "fused_quantized_matmul": lib_fused}
+        for name, lib in libs.items():
+            try:   # a yardstick only: a torch without it gives None
+                lib()
+            except RuntimeError as e:
+                emit({"phase": "kernels", "kernel": name,
+                      "library": f"torch._int_mm unavailable: {e!r}"})
+                libs[name] = None
+        # timed at the main path's types: bf16 activations, bf16 out
+        b_q = bound(m * k + k * n + 4 * (m + n) + 2 * m * n, ops,
+                    PEAK_INT8_OPS)
+        t = timing(torch, "::qmm_kernel",
+                   lambda: Q.quantized_matmul(xq, wq, xs, ws, bf16),
+                   lambda: Q.quantized_matmul_plain(xq, wq, xs, ws, bf16),
+                   libs["quantized_matmul"], 50)
+        per["quantized_matmul"].append(dict(
+            t, shape=shape + " bf16 out", bound_ms=b_q[0],
+            bound_by=b_q[1]))
+        b_f = bound(2 * m * k + k * n + 4 * n + 2 * m * n, ops,
+                    PEAK_INT8_OPS)
+        t = timing(torch, "::fqmm_kernel",
+                   lambda: Q.fused_quantized_matmul(x, wq, ws),
+                   lambda: Q.fused_quantized_matmul_plain(x, wq, ws),
+                   libs["fused_quantized_matmul"], 50)
+        per["fused_quantized_matmul"].append(dict(
+            t, shape=shape + " bf16 in and out", bound_ms=b_f[0],
+            bound_by=b_f[1]))
+    for name in ("conv2d", "conv2d_int8"):
+        results[name].update(_sum_timing(per[name]))
+    for name in ("quantized_matmul", "fused_quantized_matmul"):
+        # the kernels line carries the head's shape, the main path's
+        results[name].update(per[name][0], shapes=per[name])
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The four inference kernel wrappers routed to their plain versions:
+    the yardstick path, which nothing on the main path takes."""
+    from zoo_tpu_torch.ops.kernels import conv as CV
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    swaps = ((CV, "implicit_gemm_conv2d", CV.conv2d_plain),
+             (CV, "implicit_gemm_conv2d_int8", CV.conv2d_int8_plain),
+             (Q, "quantized_matmul", Q.quantized_matmul_plain),
+             (Q, "fused_quantized_matmul", Q.fused_quantized_matmul_plain))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    try:
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def redraw_batchnorm(torch, params, seed):
+    """BatchNorm gamma, beta and running stats drawn from ``seed``, so BN
+    is not the identity (gamma, var ~ U(0.5, 1.5); beta, mean ~ 0.1 N)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def walk(tree):
+        for key, val in tree.items():
+            if isinstance(val, dict) and "stats" in val:
+                d = val["gamma"].shape[0]
+                u = torch.rand((4, d), generator=g, device="cuda")
+                z = torch.randn((4, d), generator=g, device="cuda")
+                val["gamma"], val["beta"] = u[0] + 0.5, 0.1 * z[0]
+                val["stats"] = {"mean": 0.1 * z[1], "var": u[1] + 0.5}
+            elif isinstance(val, dict):
+                walk(val)
+    walk(params)
+
+
+def envelope_convs(model):
+    """(spatial, C, k, O, stride) of each of a functional model's Conv2D
+    nodes inside the kernels' envelope, in graph order (square NHWC
+    inputs, SAME padding, as ResNet's are)."""
+    from zoo_tpu_torch.ops.kernels.conv import pallas_conv_supported
+    from zoo_tpu_torch.pipeline.api.keras.layers import Convolution2D
+    out = []
+    for node in model._topo:
+        layer = node.layer
+        if isinstance(layer, Convolution2D) and \
+                pallas_conv_supported(layer.kernel, layer.subsample):
+            h, c = node.inbound[0].shape[1], node.inbound[0].shape[3]
+            out.append((h, c, layer.kernel[0], layer.nb_filter,
+                        layer.subsample[0]))
+    return out
+
+
+INFER_KERNELS = ("conv2d", "conv2d_int8", "quantized_matmul",
+                 "fused_quantized_matmul")
+
+
+def _launched(counts, **want):
+    """Raise unless the four inference kernels launched as ``want``
+    (default 0) says."""
+    got = {k: counts[k] for k in INFER_KERNELS}
+    need = {k: want.get(k, 0) for k in INFER_KERNELS}
+    if got != need:
+        raise AssertionError(f"launches {got}, expected {need}")
+
+
+def phase_infer_tiny(torch, K):
+    """Kernel path == plain path through a tiny ResNet's predict, f32."""
+    import numpy as np
+    from zoo_tpu_torch.models.image import ResNet
+    from zoo_tpu_torch.pipeline.inference import (InferenceModel,
+                                                  quantize_model)
+
+    m = ResNet(10, (1, 1), bottleneck=True, input_shape=(32, 32, 3))
+    m.compile("adamw", "sparse_categorical_crossentropy")
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    redraw_batchnorm(torch, m.params, 1)
+    n_conv = len(envelope_convs(m))
+    x = np.random.RandomState(5).randn(16, 32, 32, 3).astype(np.float32)
+    im = InferenceModel().load_keras(m, batch_size=8)
+    for path in ("float", "int8"):
+        if path == "int8":
+            quantize_model(m, mode="force")
+        K.reset_launch_counts()
+        got = im.predict(x)
+        counts = K.launch_counts()
+        with plain_kernels():
+            K.reset_launch_counts()
+            ref = im.predict(x)
+            _launched(K.launch_counts())
+        diff = float(np.abs(got - ref).max())
+        emit({"phase": "infer-tiny", "path": path, "max_abs_err": diff,
+              "tol": TOL_TINY_F32 if path == "float" else 0.0,
+              "launches": {k: counts[k] for k in INFER_KERNELS},
+              "argmax": got.argmax(1).tolist()})
+        if not (np.isfinite(got).all() and got.shape == (16, 10)):
+            raise AssertionError(f"infer-tiny {path}: outputs {got}")
+        if path == "float":
+            _launched(counts, conv2d=2 * n_conv)
+            if not diff <= TOL_TINY_F32:
+                raise AssertionError(f"infer-tiny float: {diff}")
+        else:
+            _launched(counts, conv2d_int8=2 * n_conv,
+                      fused_quantized_matmul=2)
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"infer-tiny int8: kernel path "
+                                     f"differs from plain by {diff}")
+
+
+def phase_infer_main(torch, K, card):
+    """ResNet-50 at full width and depth through InferenceModel: float,
+    int8 (fused head), one unfused-head batch and the auto verdict."""
+    import numpy as np
+    from zoo_tpu_torch.models.image import resnet50
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    from zoo_tpu_torch.pipeline.inference import (InferenceModel,
+                                                  quantize_model)
+    from zoo_tpu_torch.pipeline.inference.inference_model import _copy_tree
+
+    B, steps = INFER_B, INFER_STEPS
+    t0 = time.perf_counter()
+    m = resnet50(1000, (224, 224, 3))
+    m.compile("adamw", "sparse_categorical_crossentropy",
+              dtype_policy="mixed_bfloat16")
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    redraw_batchnorm(torch, m.params, 1)
+    float_params = _copy_tree(m.params)
+    n_conv = len(envelope_convs(m))
+    if n_conv != 49:
+        raise AssertionError(f"{n_conv} convs inside the envelope, not 49")
+    im = InferenceModel().load_keras(m, batch_size=B)     # warm-up batch
+    rs = np.random.RandomState(0)                          # bench.py:504
+    x = np.concatenate([rs.randn(B, 224, 224, 3).astype(np.float32)
+                        for _ in range(steps)])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    emit({"phase": "infer-main", "model": "resnet50(1000, (224, 224, 3))",
+          "policy": "mixed_bfloat16", "batch": B, "batches": steps,
+          "params": sum(t.numel() for t in tree_leaves(m.params)),
+          "setup_s": setup_s})
+    launches, outs, profiles = {k: 0 for k in INFER_KERNELS}, {}, {}
+
+    def run(path, xs, **want):
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        y = im.predict(xs)
+        wall = time.perf_counter() - t
+        counts = K.launch_counts()
+        n_fwd = xs.shape[0] // B
+        emit({"phase": "infer-main", "path": path, "card": card,
+              "images": xs.shape[0], "wall_s": wall,
+              "samples_per_s": xs.shape[0] / wall,
+              "launches": {k: counts[k] for k in INFER_KERNELS},
+              "launches_per_forward": {k: counts[k] / n_fwd
+                                       for k in INFER_KERNELS},
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if not (y.shape == (xs.shape[0], 1000) and np.isfinite(y).all()
+                and np.allclose(y.sum(1), 1.0, atol=2e-2)):
+            raise AssertionError(f"infer-main {path}: outputs not "
+                                 "probabilities")
+        _launched(counts, **{k: v * n_fwd for k, v in want.items()})
+        for k in INFER_KERNELS:
+            launches[k] += counts[k]
+        return y
+
+    def against_plain(path, y, exact):
+        with plain_kernels():
+            K.reset_launch_counts()
+            ref = im.predict(x[:B])
+            _launched(K.launch_counts())
+        diff = float(np.abs(y[:B] - ref).max())
+        top1 = float((y[:B].argmax(1) == ref.argmax(1)).mean())
+        emit({"phase": "infer-main", "path": path, "vs_plain_max_abs": diff,
+              "vs_plain_top1": top1,
+              "tol": 0.0 if exact else TOL_MAIN_BF16})
+        if not (np.array_equal(y[:B], ref) if exact
+                else diff <= TOL_MAIN_BF16):
+            raise AssertionError(f"infer-main {path}: kernel path differs "
+                                 f"from plain by {diff}")
+
+    def profile(path):
+        xb = x[:B]
+        t = timed(torch, lambda: im.predict(xb), 2, warmup=1)
+        groups = {}
+        for name, ms in t["by_name"].items():
+            n = name.lower()
+            label = ("conv2d_int8" if "conv2d_int8_kernel" in n else
+                     "conv2d" if "conv2d_kernel" in n else
+                     "int8_gemm" if "qmm_kernel" in n else
+                     "cudnn_conv" if "conv" in n or "cudnn" in n
+                     or "xmma" in n or "implicit" in n else
+                     "copies" if "memcpy" in n.replace(" ", "") else
+                     "other")
+            groups[label] = groups.get(label, 0.0) + ms
+        top = sorted(t["by_name"].items(), key=lambda kv: -kv[1])[:10]
+        profiles[path] = t
+        emit({"phase": "infer-step", "path": path, "card": card,
+              "batch": B, "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
+              "device_ms": t["device_ms"],
+              "device_busy_share": t["device_busy_share"],
+              "device_ms_by_group": groups,
+              "top_device_ms": [[k[:80], v] for k, v in top]})
+
+    outs["float"] = run("float", x, conv2d=n_conv)
+    against_plain("float", outs["float"], exact=False)
+    profile("float")
+    quantize_model(m, mode="force")
+    outs["int8"] = run("int8", x, conv2d_int8=n_conv,
+                       fused_quantized_matmul=1)
+    against_plain("int8", outs["int8"], exact=True)
+    profile("int8")
+    os.environ["ZOO_INT8_MATMUL"] = "unfused"
+    try:
+        y = run("int8 unfused head", x[:B], conv2d_int8=n_conv,
+                quantized_matmul=1)
+    finally:
+        del os.environ["ZOO_INT8_MATMUL"]
+    agree = float((outs["int8"].argmax(1) == outs["float"].argmax(1))
+                  .mean())
+    emit({"phase": "infer-main", "int8_top1_agreement_with_float": agree,
+          "int8_vs_float_max_abs": float(
+              np.abs(outs["int8"] - outs["float"]).max()),
+          "unfused_vs_fused_head_max_abs": float(
+              np.abs(y - outs["int8"][:B]).max()),
+          "float_top1_classes": int(len(set(outs["float"].argmax(1))))})
+
+    auto = resnet50(1000, (224, 224, 3))
+    auto.compile("adamw", "sparse_categorical_crossentropy",
+                 dtype_policy="mixed_bfloat16")
+    auto.params = float_params
+    t = time.perf_counter()
+    quantize_model(auto, mode="auto")
+    emit({"phase": "infer-main", "auto_verdict": auto._quant_path,
+          "auto_speedup_int8_over_float": auto._quant_speedup,
+          "sample_batch": 8, "seconds": time.perf_counter() - t})
+    return launches
+
+
 def phase_train_tiny(torch, K):
     """Kernel path == plain path through a tiny Llama ``fit``."""
     import numpy as np
@@ -643,7 +1148,7 @@ def phase_train_main(torch, K, card):
     top = sorted(t["by_name"].items(), key=lambda kv: -kv[1])[:16]
     emit({"phase": "step", "card": card, "steps": 3,
           "wall_ms": t["wall_ms"], "device_ms": t["device_ms"],
-          "device_busy_share": t["device_ms"] / t["wall_ms"],
+          "device_busy_share": t["device_busy_share"],
           "device_ms_by_group": groups,
           "top_device_ms": [[k[:80], v] for k, v in top]})
     return {k: counts[k] for k in ("flash_attention", "flash_attention_dkdv",
@@ -757,7 +1262,7 @@ def phase_tick(torch, m, card, ticks=10):
                   "slots": S, "context": n_prompt, "ticks": ticks,
                   "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
                   "device_ms": t["device_ms"],
-                  "device_busy_share": t["device_ms"] / t["wall_ms"],
+                  "device_busy_share": t["device_busy_share"],
                   "device_ms_by_group": groups,
                   "top_device_ms": [[k[:80], v] for k, v in top],
                   "top_host_self_ms": [[k[:80], v] for k, v in host]})
@@ -879,8 +1384,10 @@ def main():
         phase_tiny(torch, K)
         phase_train_tiny(torch, K)
         # each main path's launches, counted from 0 just before it runs
+        phase_infer_tiny(torch, K)
         by_path = {"serve": phase_main(torch, K, card),
-                   "train": phase_train_main(torch, K, card)}
+                   "train": phase_train_main(torch, K, card),
+                   "infer": phase_infer_main(torch, K, card)}
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"
@@ -894,7 +1401,11 @@ def main():
             "fused_adam": ("fused_optim.cu", "fused_optim.py:87"),
             "fused_sgd": ("fused_optim.cu", "fused_optim.py:49"),
             "paged_decode": ("paged_decode.cu", "paged_decode.py:55"),
-            "paged_prefill": ("paged_prefill.cu", "paged_prefill.py:54")}
+            "paged_prefill": ("paged_prefill.cu", "paged_prefill.py:54"),
+            "conv2d": ("conv2d.cu", "conv.py:114"),
+            "conv2d_int8": ("conv2d.cu", "conv.py:128"),
+            "quantized_matmul": ("quant_matmul.cu", "quant.py:42"),
+            "fused_quantized_matmul": ("quant_matmul.cu", "quant.py:122")}
         kernels = []
         for k in K.KERNELS:
             t = timing[k]

@@ -296,3 +296,159 @@ def test_tiny_fit_kernels_equal_plain(hopper):
     for k, w in out["dense"][1]["blocks"].items():
         assert _err(out["flash"][1]["blocks"][k].detach(), w.detach()) \
             <= 1e-4, k
+
+
+# -- the image-inference slice: implicit-GEMM conv and int8 GEMMs --------
+#
+# Float conv: f32 within 1e-5 of the largest output (the same f32 sums in
+# another order over up to 9 * C terms), bf16 within one bf16 ulp of it,
+# 2**-7 relative (both round an f32 sum once, which may land on either
+# side of a tie). Int8 kernels: bit-equal to their plain versions (exact
+# integer sums, the same f32 epilogue and IEEE division).
+
+def _rel_err(a, b):
+    return _err(a, b) / max(1.0, float(b.float().abs().max()))
+
+
+def _int8(shape, g, dev):
+    return torch.randint(-127, 128, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,w,c,k,o,s,padding", [
+    (2, 14, 14, 64, 1, 64, 1, "SAME"), (2, 14, 14, 64, 1, 128, 2, "SAME"),
+    (2, 9, 9, 16, 1, 24, 2, "VALID"), (2, 8, 8, 64, 3, 64, 1, "SAME"),
+    (2, 8, 8, 16, 3, 70, 1, "VALID"), (3, 7, 7, 130, 3, 33, 1, "SAME"),
+    (1, 5, 6, 3, 3, 8, 1, "SAME")])
+def test_conv_kernels_match_plain(hopper, dtype, n, h, w, c, k, o, s,
+                                  padding):
+    from zoo_tpu_torch.ops.kernels import conv
+    g = _gen(hopper, 11)
+    x = torch.randn(n, h, w, c, generator=g, device=hopper).to(dtype)
+    wt = torch.randn(k, k, c, o, generator=g, device=hopper).to(dtype)
+    before = conv.LAUNCHES
+    y = conv.implicit_gemm_conv2d(x, wt, (s, s), padding)
+    ref = conv.conv2d_plain(x, wt, (s, s), padding)
+    torch.cuda.synchronize()
+    assert conv.LAUNCHES == before + 1
+    assert y.dtype == dtype and y.shape == ref.shape
+    assert _rel_err(y, ref) <= (1e-5 if dtype == torch.float32 else 2 ** -7)
+
+    xq, wq = _int8((n, h, w, c), g, hopper), _int8((k, k, c, o), g, hopper)
+    xs = torch.rand(n, generator=g, device=hopper) + 0.01
+    ws = torch.rand(o, generator=g, device=hopper) + 0.01
+    before = conv.INT8_LAUNCHES
+    y = conv.implicit_gemm_conv2d_int8(xq, wq, xs, ws, (s, s), padding)
+    ref = conv.conv2d_int8_plain(xq, wq, xs, ws, (s, s), padding)
+    torch.cuda.synchronize()
+    assert conv.INT8_LAUNCHES == before + 1
+    assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 2048, 1000), (5, 33, 70),
+                                   (64, 96, 64), (130, 260, 17)])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_quant_gemm_kernels_equal_plain(hopper, m, k, n, out):
+    from zoo_tpu_torch.ops.kernels import quant
+    g = _gen(hopper, 12)
+    xq, wq = _int8((m, k), g, hopper), _int8((k, n), g, hopper)
+    xs = torch.rand(m, 1, generator=g, device=hopper) + 0.01
+    ws = torch.rand(1, n, generator=g, device=hopper) + 0.01
+    y = quant.quantized_matmul(xq, wq, xs, ws, out_dtype=out)
+    ref = quant.quantized_matmul_plain(xq, wq, xs, ws, out_dtype=out)
+    torch.cuda.synchronize()
+    assert y.dtype == out and torch.equal(y, ref)
+    for xdt in (torch.float32, torch.bfloat16):
+        x = torch.randn(m, k, generator=g, device=hopper).to(xdt)
+        x[0] = 0                           # an all-zero row: scale 1
+        before = quant.FQMM_LAUNCHES
+        y = quant.fused_quantized_matmul(x, wq, ws, out_dtype=out)
+        ref = quant.fused_quantized_matmul_plain(x, wq, ws, out_dtype=out)
+        torch.cuda.synchronize()
+        assert quant.FQMM_LAUNCHES == before + 1
+        assert y.dtype == out and torch.equal(y, ref)
+
+
+def test_fused_gemm_past_max_k_runs_the_two_pass_kernel(hopper):
+    from zoo_tpu_torch.ops.kernels import quant
+    g = _gen(hopper, 13)
+    k = quant._FUSED_MAX_K + 64
+    x = torch.randn(8, k, generator=g, device=hopper)
+    wq = _int8((k, 40), g, hopper)
+    ws = torch.rand(40, generator=g, device=hopper) + 0.01
+    before = (quant.QMM_LAUNCHES, quant.FQMM_LAUNCHES)
+    y = quant.fused_quantized_matmul(x, wq, ws)
+    x_q, x_s = quant.quantize_int8(x, axis=-1)
+    ref = quant.quantized_matmul_plain(x_q, wq, x_s, ws)
+    torch.cuda.synchronize()
+    assert (quant.QMM_LAUNCHES, quant.FQMM_LAUNCHES) == \
+        (before[0] + 1, before[1])
+    assert torch.equal(y, ref)
+
+
+def test_inference_wrappers_reject_what_the_kernels_do_not_take(hopper):
+    from zoo_tpu_torch.ops.kernels import conv, quant
+    x = torch.randn(1, 4, 4, 8, device=hopper)
+    with pytest.raises(TypeError):
+        conv.implicit_gemm_conv2d(x, x.new_zeros(1, 1, 8, 8).bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv.implicit_gemm_conv2d(x.transpose(1, 2), x.new_zeros(1, 1, 8, 8))
+    with pytest.raises(ValueError, match="channels"):
+        conv.implicit_gemm_conv2d(x, x.new_zeros(1, 1, 4, 8))
+    with pytest.raises(TypeError):
+        quant.quantized_matmul(torch.zeros(4, 8, device=hopper),
+                               torch.zeros(8, 4, dtype=torch.int8,
+                                           device=hopper),
+                               torch.ones(4, device=hopper),
+                               torch.ones(4, device=hopper))
+    with pytest.raises(TypeError):
+        quant.fused_quantized_matmul(torch.zeros(4, 8, device=hopper).half(),
+                                     torch.zeros(8, 4, dtype=torch.int8,
+                                                 device=hopper),
+                                     torch.ones(4, device=hopper))
+
+
+def _plain_kernels(monkeypatch):
+    """Route the four inference kernel wrappers to their plain versions."""
+    from zoo_tpu_torch.ops.kernels import conv, quant
+    monkeypatch.setattr(conv, "implicit_gemm_conv2d", conv.conv2d_plain)
+    monkeypatch.setattr(conv, "implicit_gemm_conv2d_int8",
+                        conv.conv2d_int8_plain)
+    monkeypatch.setattr(quant, "quantized_matmul",
+                        quant.quantized_matmul_plain)
+    monkeypatch.setattr(quant, "fused_quantized_matmul",
+                        quant.fused_quantized_matmul_plain)
+
+
+def test_tiny_resnet_kernels_equal_plain(hopper, monkeypatch):
+    """A tiny ResNet on the card, f32: the conv kernels within 1e-5 of
+    the plain path's probabilities; after quantize_model the int8 path
+    bit-equal to the plain one."""
+    from zoo_tpu_torch.models.image import ResNet
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.inference import quantize_model
+    m = ResNet(10, (1, 1), bottleneck=True, input_shape=(32, 32, 3))
+    m.compile("adamw", "sparse_categorical_crossentropy")
+    m.build(_gen(hopper, 14))
+    x = np.random.RandomState(0).randn(6, 32, 32, 3).astype(np.float32)
+    out = {}
+    for path in ("float", "int8"):
+        if path == "int8":
+            quantize_model(m, mode="force")
+        reset_launch_counts()
+        got = m.predict(x, batch_size=4)
+        counts = launch_counts()
+        with monkeypatch.context() as mp:
+            _plain_kernels(mp)
+            reset_launch_counts()
+            ref = m.predict(x, batch_size=4)
+            assert not any(launch_counts().values())
+        out[path] = (got, ref, counts)
+    got, ref, counts = out["float"]
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+    assert counts["conv2d"] == 2 * 7 and counts["conv2d_int8"] == 0
+    got, ref, counts = out["int8"]
+    np.testing.assert_array_equal(got, ref)
+    assert counts["conv2d_int8"] == 2 * 7 and counts["conv2d"] == 0
+    assert counts["fused_quantized_matmul"] == 2

@@ -101,6 +101,25 @@ def test_entry_points_without_device_raise_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_inference_entry_points_raise_without_a_card(monkeypatch):
+    """The image-inference slice: no GPU and no ``device=`` raises."""
+    from zoo_tpu_torch.models.image import resnet50
+    from zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = resnet50(10, (32, 32, 3))
+    x = np.zeros((2, 32, 32, 3), np.float32)
+    for call in (lambda: model.build(),
+                 lambda: model.predict(x),
+                 lambda: InferenceModel().load_keras(model),
+                 lambda: InferenceModel().load_keras(model, batch_size=2)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    model.build(device="cpu")
+    assert InferenceModel().load_keras(model, device="cpu").predict(
+        x).shape == (2, 10)
+
+
 def test_flash_paths_refuse_cpu_tensors():
     from zoo_tpu_torch.models.llm.llama import tiny_llama_config
     from zoo_tpu_torch.serving.llm import PagedLlamaModel

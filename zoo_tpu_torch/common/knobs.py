@@ -1,4 +1,4 @@
-"""The ``ZOO_*`` knobs the port reads (serving and training).
+"""The ``ZOO_*`` knobs the port reads (serving, training, inference).
 
 A copy of the entries of ``zoo_tpu/common/knobs.py`` that this package
 needs, with the same names, types and defaults, so one environment
@@ -87,6 +87,18 @@ _k("ZOO_LLAMA_ATTN_IMPL", "str", "",
    "force `dense` / `flash` attention for A/B runs")
 _k("ZOO_FUSED_OPTIM", "bool", False,
    "AdamW takes the fused direct-apply path")
+_k("ZOO_INT8_MODE", "str", "auto",
+   "int8 quantization policy: `auto` microbenches int8 vs float and "
+   "keeps the winner, `force`, `off`. The default `auto` is that of the "
+   "`InferenceModel` file loaders (not ported yet); `quantize_model` "
+   "with no `mode=` and the knob unset forces, as in the JAX package")
+_k("ZOO_CONV_IMPL", "str", "auto",
+   "conv2d backend: `auto` (the implicit-GEMM CUDA kernel on a CUDA "
+   "device for supported shapes, the reference conv elsewhere), "
+   "`pallas` (the kernel), `reference`")
+_k("ZOO_INT8_MATMUL", "str", "auto",
+   "int8 GEMM backend: `auto`/`fused` (one-kernel quantize+dot+"
+   "dequant), `unfused` (quantize pass + dequant matmul kernel)")
 
 
 def get(name: str) -> Knob:

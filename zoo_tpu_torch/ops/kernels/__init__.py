@@ -5,6 +5,9 @@ built by ``nvcc`` at first use (:mod:`._build`) and bound with
 ``ctypes``. Its Python wrapper sits in a module of its own together
 with the kernel's plain PyTorch version:
 
+- :mod:`.conv` — implicit-GEMM NHWC convolution, float and int8
+  (replaces ``_conv_kernel`` and ``_conv_kernel_q`` of
+  ``zoo_tpu/ops/pallas/conv.py``), and the conv dispatch point;
 - :mod:`.flash_attention` — blockwise flash attention, the forward and
   the two backward kernels (dK/dV, dQ) behind an autograd function
   (replaces ``_fwd_kernel``, ``_dkdv_kernel`` and ``_dq_kernel`` of
@@ -15,7 +18,10 @@ with the kernel's plain PyTorch version:
 - :mod:`.paged_decode` — single-query attention through a block table
   (replaces ``zoo_tpu/ops/pallas/paged_decode.py``);
 - :mod:`.paged_prefill` — a chunk of query rows through a block table
-  (replaces ``zoo_tpu/ops/pallas/paged_prefill.py``).
+  (replaces ``zoo_tpu/ops/pallas/paged_prefill.py``);
+- :mod:`.quant` — int8 GEMMs with the dequant fused, on quantized
+  activations or quantizing float ones inside the kernel (replaces
+  ``_qmm_kernel`` and ``_fqmm_kernel`` of ``zoo_tpu/ops/pallas/quant.py``).
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel or raises — it never falls back. Every launch
@@ -33,6 +39,8 @@ import torch
 
 # kernel -> (module of ops.kernels, its launch-count attribute)
 _COUNTERS = {
+    "conv2d": ("conv", "LAUNCHES"),
+    "conv2d_int8": ("conv", "INT8_LAUNCHES"),
     "flash_attention": ("flash_attention", "LAUNCHES"),
     "flash_attention_dkdv": ("flash_attention", "DKDV_LAUNCHES"),
     "flash_attention_dq": ("flash_attention", "DQ_LAUNCHES"),
@@ -40,6 +48,8 @@ _COUNTERS = {
     "fused_sgd": ("fused_optim", "SGD_LAUNCHES"),
     "paged_decode": ("paged_decode", "LAUNCHES"),
     "paged_prefill": ("paged_prefill", "LAUNCHES"),
+    "quantized_matmul": ("quant", "QMM_LAUNCHES"),
+    "fused_quantized_matmul": ("quant", "FQMM_LAUNCHES"),
 }
 KERNELS = tuple(_COUNTERS)
 

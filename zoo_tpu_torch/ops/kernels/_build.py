@@ -32,11 +32,13 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "zoo_tpu_torch"
 
 # kernel name -> its source under csrc/
 SOURCES = {
+    "conv2d": "conv2d.cu",
     "flash_attention": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "fused_optim": "fused_optim.cu",
     "paged_decode": "paged_decode.cu",
     "paged_prefill": "paged_prefill.cu",
+    "quant_matmul": "quant_matmul.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

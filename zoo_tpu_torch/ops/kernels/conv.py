@@ -1,0 +1,276 @@
+"""Implicit-GEMM convolutions and the one conv dispatch point
+(counterpart of ``zoo_tpu/ops/pallas/conv.py``).
+
+Layouts are the JAX package's: NHWC activations, HWIO weights. The
+kernels are ``zoo_tpu_torch/csrc/conv2d.cu`` (its header says what
+bounds them): a float one (f32 or bf16 in, f32 accumulation, output in
+the input type) and an int8 one (int32 accumulation, dequantized to f32
+in the epilogue). Both cover the JAX kernels' envelope, a 1x1 conv at
+any stride and a 3x3 conv at stride 1, SAME or VALID; the halo reads as
+zero inside the kernel, so no padded copy is made.
+
+:func:`resolve_conv_impl` is the single selection rule, used by the
+Keras conv layer and the int8 conv path: ``auto`` picks the kernel on a
+CUDA device for shapes inside the envelope and the reference conv
+everywhere else; ``ZOO_CONV_IMPL`` overrides it (``pallas`` keeps the
+JAX package's name for "the hand-written kernel"). The reference conv
+is also the kernels' plain version: ``torch.nn.functional.conv2d`` with
+XLA's SAME pads applied explicitly, in f32 for the float conv and in
+float64 (exact on integer values) for the int8 one.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from zoo_tpu_torch.common import knobs
+from zoo_tpu_torch.ops.kernels import _launch as L
+from zoo_tpu_torch.ops.kernels import on_cuda
+
+__all__ = ["conv2d", "conv2d_int8", "resolve_conv_impl",
+           "pallas_conv_supported"]
+
+# kernel launches since the last reset (see ops.kernels.launch_counts)
+LAUNCHES = 0
+INT8_LAUNCHES = 0
+_fns = None
+
+Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+
+
+def _entries():
+    global _fns
+    if _fns is None:
+        from zoo_tpu_torch.ops.kernels._build import library
+        lib = library("conv2d")
+        fl, q = lib.zt_conv2d, lib.zt_conv2d_int8
+        fl.argtypes = [L.P] * 3 + [L.I] * 14 + [L.P]
+        q.argtypes = [L.P] * 5 + [L.I] * 13 + [L.P]
+        fl.restype = q.restype = L.I
+        _fns = (lib, fl, q)
+    return _fns
+
+
+def pallas_conv_supported(kernel: Tuple[int, int],
+                          strides: Tuple[int, int] = (1, 1),
+                          dilation: Tuple[int, int] = (1, 1)) -> bool:
+    """Shapes the implicit-GEMM kernels cover: a 1x1 conv at any stride
+    and a 3x3 conv at stride 1, undilated."""
+    if tuple(dilation) != (1, 1):
+        return False
+    k = tuple(kernel)
+    if k == (1, 1):
+        return True
+    return k == (3, 3) and tuple(strides) == (1, 1)
+
+
+def resolve_conv_impl(impl: Optional[str] = None, *,
+                      kernel: Tuple[int, int],
+                      strides: Tuple[int, int] = (1, 1),
+                      dilation: Tuple[int, int] = (1, 1),
+                      device=None) -> str:
+    """The one conv dispatch rule -> ``"pallas"`` (the implicit-GEMM
+    kernel) or ``"reference"``.
+
+    ``impl=None`` reads ``ZOO_CONV_IMPL`` (``auto`` | ``pallas`` |
+    ``reference``). ``auto`` picks the kernel on a CUDA ``device``
+    (default: the current one, if any) for supported shapes and the
+    reference conv everywhere else; an explicit ``pallas`` on an
+    unsupported shape raises rather than falling back."""
+    impl = impl or knobs.value("ZOO_CONV_IMPL")
+    if impl not in ("auto", "pallas", "reference"):
+        raise ValueError(f"unknown conv impl {impl!r} "
+                         "(expected auto|pallas|reference)")
+    supported = pallas_conv_supported(kernel, strides, dilation)
+    if impl == "pallas":
+        if not supported:
+            raise ValueError(
+                f"ZOO_CONV_IMPL=pallas but kernel={tuple(kernel)} "
+                f"strides={tuple(strides)} dilation={tuple(dilation)} "
+                "is outside the implicit-GEMM kernel's envelope "
+                "(1x1 any stride, 3x3 stride 1)")
+        return "pallas"
+    if impl == "reference":
+        return "reference"
+    return "pallas" if (supported and on_cuda(device)) else "reference"
+
+
+def _spatial_pads(h: int, w: int, kh: int, kw: int,
+                  strides: Tuple[int, int], padding: str):
+    """XLA-convention SAME/VALID pads and the output spatial dims:
+    ``((top, bottom), (left, right), oh, ow)``. SAME puts the odd pad
+    at the end."""
+    sh, sw = strides
+    padding = padding.upper()
+    if padding == "VALID":
+        return (0, 0), (0, 0), (h - kh) // sh + 1, (w - kw) // sw + 1
+    if padding != "SAME":
+        raise ValueError(f"unsupported padding {padding!r}")
+    oh = -(-h // sh)
+    ow = -(-w // sw)
+    th = max((oh - 1) * sh + kh - h, 0)
+    tw = max((ow - 1) * sw + kw - w, 0)
+    return (th // 2, th - th // 2), (tw // 2, tw - tw // 2), oh, ow
+
+
+def _pads(x, w, strides, padding: Union[str, Pads]) -> Pads:
+    if isinstance(padding, str):
+        ph, pw, _, _ = _spatial_pads(x.shape[1], x.shape[2], w.shape[0],
+                                     w.shape[1], strides, padding)
+        return ph, pw
+    return tuple(map(tuple, padding))
+
+
+def _conv_nhwc(x, w, strides, pads: Pads, dtype) -> torch.Tensor:
+    """``F.conv2d`` of NHWC ``x`` and HWIO ``w``, both cast to
+    ``dtype``, with explicit (top, bottom), (left, right) pads; NHWC
+    out."""
+    (pt, pb), (pl, pr) = pads
+    xn = x.to(dtype).permute(0, 3, 1, 2)
+    if pt or pb or pl or pr:
+        xn = F.pad(xn, (pl, pr, pt, pb))
+    # full f32 products: cuDNN would otherwise take TF32 for f32 convs
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        y = F.conv2d(xn, w.to(dtype).permute(3, 2, 0, 1),
+                     stride=tuple(strides))
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
+                 strides: Tuple[int, int] = (1, 1),
+                 padding: Union[str, Pads] = "SAME") -> torch.Tensor:
+    """The reference conv and the float kernel's plain version: f32
+    arithmetic, output in ``x``'s dtype. ``padding``: ``"SAME"``,
+    ``"VALID"`` or explicit ``((top, bottom), (left, right))``."""
+    y = _conv_nhwc(x, w, strides, _pads(x, w, strides, padding),
+                   torch.float32)
+    return y.to(x.dtype)
+
+
+def conv2d_int8_plain(x_q, w_q, x_scale, w_scale,
+                      strides: Tuple[int, int] = (1, 1),
+                      padding: str = "SAME") -> torch.Tensor:
+    """The int8 kernel's plain version and the reference int8 conv: the
+    integer sums in float64 (exact), then ``f32(acc) * x_scale[n] *
+    w_scale[o]``, f32 out."""
+    acc = _conv_nhwc(x_q, w_q, strides, _pads(x_q, w_q, strides, padding),
+                     torch.float64).float()
+    n, o = x_q.shape[0], w_q.shape[3]
+    return acc * x_scale.reshape(n, 1, 1, 1).float() * \
+        w_scale.reshape(o).float()
+
+
+def _conv_args(x, w, strides, padding):
+    n, h, wd, c = x.shape
+    kh, kw, c2, o = w.shape
+    if c != c2:
+        raise ValueError(f"input has {c} channels, weights {c2}")
+    (pt, _), (pl, _), oh, ow = _spatial_pads(h, wd, kh, kw, strides,
+                                             padding)
+    return (n, h, wd, c, kh, kw, o, strides[0], strides[1], pt, pl, oh,
+            ow)
+
+
+def _check_envelope(w, strides):
+    """Raise (naming the envelope) unless the kernel takes ``w``'s shape."""
+    resolve_conv_impl("pallas", kernel=tuple(w.shape[:2]), strides=strides)
+
+
+def implicit_gemm_conv2d(x: torch.Tensor, w: torch.Tensor,
+                         strides: Tuple[int, int] = (1, 1),
+                         padding: str = "SAME") -> torch.Tensor:
+    """NHWC x HWIO float conv through the implicit-GEMM kernel; ``x``
+    and ``w`` f32 or bf16 alike, output in their dtype.
+
+    CPU tensors take :func:`conv2d_plain`; CUDA tensors launch the
+    kernel (or raise)."""
+    global LAUNCHES
+    strides = tuple(strides)
+    _check_envelope(w, strides)
+    if x.device.type == "cpu":
+        return conv2d_plain(x, w, strides, padding)
+    dev = x.device
+    L.require(x, "x", dev, (torch.float32, torch.bfloat16))
+    L.require(w, "w", dev, (x.dtype,))
+    args = _conv_args(x, w, strides, padding)
+    y = torch.empty((args[0], args[11], args[12], args[6]), dtype=x.dtype,
+                    device=dev)
+    lib, fl, _ = _entries()
+    rc = fl(L.ptr(x), L.ptr(w), L.ptr(y), L.DTYPE_CODES[x.dtype], *args,
+            L.stream(dev))
+    L.check(lib, rc, "conv2d")
+    LAUNCHES += 1
+    return y
+
+
+def implicit_gemm_conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor,
+                              x_scale: torch.Tensor, w_scale: torch.Tensor,
+                              strides: Tuple[int, int] = (1, 1),
+                              padding: str = "SAME") -> torch.Tensor:
+    """Int8 NHWC conv through the implicit-GEMM kernel with the dequant
+    epilogue, f32 out. ``x_q`` holds int8-range values (int8, or any
+    float dtype, converted here), ``x_scale`` the (N, 1, 1, 1) or (N,)
+    per-image scale, ``w_scale`` the (O,) per-output-channel scale.
+
+    CPU tensors take :func:`conv2d_int8_plain`; CUDA tensors launch the
+    kernel (or raise)."""
+    global INT8_LAUNCHES
+    strides = tuple(strides)
+    _check_envelope(w_q, strides)
+    if x_q.device.type == "cpu":
+        return conv2d_int8_plain(x_q, w_q, x_scale, w_scale, strides,
+                                 padding)
+    dev = x_q.device
+    if x_q.dtype != torch.int8:
+        x_q = x_q.to(torch.int8)
+    n, o = x_q.shape[0], w_q.shape[3]
+    xs = x_scale.reshape(n).float().contiguous()
+    ws = w_scale.reshape(o).float().contiguous()
+    L.require(x_q, "x_q", dev, (torch.int8,))
+    L.require(w_q, "w_q", dev, (torch.int8,))
+    L.require(xs, "x_scale", dev, (torch.float32,))
+    L.require(ws, "w_scale", dev, (torch.float32,))
+    args = _conv_args(x_q, w_q, strides, padding)
+    y = torch.empty((n, args[11], args[12], o), dtype=torch.float32,
+                    device=dev)
+    lib, _, q = _entries()
+    rc = q(L.ptr(x_q), L.ptr(w_q), L.ptr(xs), L.ptr(ws), L.ptr(y), *args,
+           L.stream(dev))
+    L.check(lib, rc, "conv2d_int8")
+    INT8_LAUNCHES += 1
+    return y
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor,
+           strides: Tuple[int, int] = (1, 1), padding: str = "SAME",
+           impl: Optional[str] = None) -> torch.Tensor:
+    """NHWC float conv behind the one dispatch point: the implicit-GEMM
+    kernel or the reference conv (:func:`resolve_conv_impl`)."""
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    strides = tuple(strides)
+    if resolve_conv_impl(impl, kernel=(kh, kw), strides=strides,
+                         device=x.device) == "reference":
+        return conv2d_plain(x, w, strides, padding)
+    return implicit_gemm_conv2d(x, w, strides, padding)
+
+
+def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor,
+                x_scale: torch.Tensor, w_scale: torch.Tensor,
+                strides: Tuple[int, int] = (1, 1), padding: str = "SAME",
+                impl: Optional[str] = None) -> torch.Tensor:
+    """Int8 NHWC conv with the dequant fused, f32 out, behind the one
+    dispatch point. Outside the kernel's envelope it takes the exact
+    float64 reference on every device (the JAX package runs a true int8
+    conv there on its chip and an f32 conv on the CPU)."""
+    kh, kw = int(w_q.shape[0]), int(w_q.shape[1])
+    strides = tuple(strides)
+    if resolve_conv_impl(impl, kernel=(kh, kw), strides=strides,
+                         device=x_q.device) == "pallas":
+        return implicit_gemm_conv2d_int8(x_q, w_q, x_scale, w_scale,
+                                         strides, padding)
+    return conv2d_int8_plain(x_q, w_q, x_scale, w_scale, strides, padding)

@@ -1,0 +1,232 @@
+"""Int8 quantized inference GEMMs (counterpart of
+``zoo_tpu/ops/pallas/quant.py``).
+
+Weights are int8 per output channel, symmetric; activations are
+quantized per row (Dense) or per image (conv) at run time; the product
+runs int8 x int8 -> int32 with the dequant fused into the epilogue. The
+kernels are ``zoo_tpu_torch/csrc/quant_matmul.cu`` (its header says
+what bounds them): :func:`quantized_matmul` takes quantized activations
+and their scales, :func:`fused_quantized_matmul` quantizes float
+activations inside the kernel. Beside each is its plain PyTorch
+version, which sums the integer products in float64 (exact) and applies
+the same f32 epilogue, so kernel and plain version agree bit for bit.
+
+The per-image activation quantization of :func:`quantized_conv2d` stays
+plain PyTorch, as it is XLA in the JAX package; its integer conv goes
+through :func:`zoo_tpu_torch.ops.kernels.conv.conv2d_int8`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from zoo_tpu_torch.common import knobs
+from zoo_tpu_torch.ops.kernels import _launch as L
+
+# kernel launches since the last reset (see ops.kernels.launch_counts)
+QMM_LAUNCHES = 0
+FQMM_LAUNCHES = 0
+_fns = None
+
+# Past this K the JAX package's fused kernel would crowd its VMEM and the
+# two-pass path takes over (quant.py:119); the port keeps the same branch.
+# It also keeps the int32 sums exact: 127 * 127 * 8192 << 2**31.
+_FUSED_MAX_K = 8192
+
+
+def _entries():
+    global _fns
+    if _fns is None:
+        from zoo_tpu_torch.ops.kernels._build import library
+        lib = library("quant_matmul")
+        qmm, fqmm = lib.zt_quantized_matmul, lib.zt_fused_quantized_matmul
+        qmm.argtypes = [L.P] * 5 + [L.I] * 4 + [L.P]
+        fqmm.argtypes = [L.P, L.I, L.P, L.P, L.P] + [L.I] * 4 + [L.P]
+        qmm.restype = fqmm.restype = L.I
+        _fns = (lib, qmm, fqmm)
+    return _fns
+
+
+def absmax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``1`` where ``amax == 0``, else ``amax / 127`` in ``amax``'s dtype,
+    by IEEE division on every device: PyTorch's CUDA kernels multiply by
+    the reciprocal of a Python-number divisor, which can differ in the
+    last bit, so the divisor is a tensor."""
+    return torch.where(amax == 0, 1.0, amax / torch.full_like(amax, 127.0))
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-slice int8 quantization along ``axis``: ``(values
+    int8, scale f32)`` with ``scale`` shaped like ``x`` reduced over
+    ``axis`` (keepdim), ``x ~ values * scale``. The absmax and its
+    division by 127 run in ``x``'s dtype and widen to f32 after, and
+    ``torch.round`` is half-to-even, as the JAX package computes them."""
+    scale = absmax_scale(x.abs().amax(dim=axis, keepdim=True)).float()
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantized_matmul_plain(x_q, w_q, x_scale, w_scale,
+                           out_dtype=torch.float32) -> torch.Tensor:
+    """The plain version of :func:`quantized_matmul`: the integer sums in
+    float64 (exact), then ``f32(acc) * x_scale[row] * w_scale[col]``.
+    ``x_q`` may carry its int8-range values in a float dtype."""
+    m, n = x_q.shape[0], w_q.shape[1]
+    acc = (x_q.double() @ w_q.double()).float()
+    y = acc * x_scale.reshape(m, 1).float() * w_scale.reshape(1, n).float()
+    return y.to(out_dtype)
+
+
+def _scales(t: torch.Tensor, n: int) -> torch.Tensor:
+    return t.reshape(n).float().contiguous()
+
+
+def quantized_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
+                     x_scale: torch.Tensor, w_scale: torch.Tensor,
+                     out_dtype=torch.float32) -> torch.Tensor:
+    """(M, K) int8 @ (K, N) int8 -> (M, N) ``out_dtype`` (f32 or bf16)
+    with the dequant fused: ``x_scale`` (M, 1) or (M,) per row,
+    ``w_scale`` (1, N) or (N,) per output channel.
+
+    CPU tensors take :func:`quantized_matmul_plain`; CUDA tensors launch
+    the kernel (or raise)."""
+    global QMM_LAUNCHES
+    m, k = x_q.shape
+    k2, n = w_q.shape
+    if k != k2:
+        raise ValueError(f"shapes {tuple(x_q.shape)} @ {tuple(w_q.shape)}")
+    if x_q.device.type == "cpu":
+        return quantized_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype)
+    dev = x_q.device
+    xs, ws = _scales(x_scale, m), _scales(w_scale, n)
+    L.require(x_q, "x_q", dev, (torch.int8,), (m, k))
+    L.require(w_q, "w_q", dev, (torch.int8,), (k, n))
+    L.require(xs, "x_scale", dev, (torch.float32,))
+    L.require(ws, "w_scale", dev, (torch.float32,))
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype {out_dtype}: the kernel writes f32 or "
+                        "bf16")
+    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    lib, qmm, _ = _entries()
+    rc = qmm(L.ptr(x_q), L.ptr(w_q), L.ptr(xs), L.ptr(ws), L.ptr(y),
+             L.DTYPE_CODES[out_dtype], m, k, n, L.stream(dev))
+    L.check(lib, rc, "quantized_matmul")
+    QMM_LAUNCHES += 1
+    return y
+
+
+def fused_quantized_matmul_plain(x, w_q, w_scale, out_dtype=None
+                                 ) -> torch.Tensor:
+    """The plain version of :func:`fused_quantized_matmul`: ``x`` widened
+    to f32, per-row absmax over the full K, ``q = clamp(round(x /
+    scale), -127, 127)``, then :func:`quantized_matmul_plain`."""
+    out_dtype = out_dtype or x.dtype
+    xf = x.float()
+    scale = absmax_scale(xf.abs().amax(dim=-1, keepdim=True))
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return quantized_matmul_plain(q, w_q, scale, w_scale, out_dtype)
+
+
+def fused_quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                           w_scale: torch.Tensor, out_dtype=None
+                           ) -> torch.Tensor:
+    """(M, K) float @ (K, N) int8 -> (M, N) in one kernel: per-row
+    activation quantization, the int8 product and the dequant epilogue,
+    with no int8 copy of ``x`` in device memory. ``out_dtype`` defaults
+    to ``x``'s. Past ``_FUSED_MAX_K`` it takes the two-pass path
+    (:func:`quantize_int8` + :func:`quantized_matmul`), as the JAX
+    package does.
+
+    CPU tensors take :func:`fused_quantized_matmul_plain`; CUDA tensors
+    launch the kernel (or raise)."""
+    global FQMM_LAUNCHES
+    m, k = x.shape
+    k2, n = w_q.shape
+    if k != k2:
+        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w_q.shape)}")
+    out_dtype = out_dtype or x.dtype
+    if k > _FUSED_MAX_K:
+        x_q, x_scale = quantize_int8(x, axis=-1)
+        return quantized_matmul(x_q, w_q, x_scale, w_scale,
+                                out_dtype=out_dtype)
+    if x.device.type == "cpu":
+        return fused_quantized_matmul_plain(x, w_q, w_scale, out_dtype)
+    dev = x.device
+    ws = _scales(w_scale, n)
+    L.require(x, "x", dev, (torch.float32, torch.bfloat16), (m, k))
+    L.require(w_q, "w_q", dev, (torch.int8,), (k, n))
+    L.require(ws, "w_scale", dev, (torch.float32,))
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"out_dtype {out_dtype}: the kernel writes f32 or "
+                        "bf16")
+    y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    lib, _, fqmm = _entries()
+    rc = fqmm(L.ptr(x), L.DTYPE_CODES[x.dtype], L.ptr(w_q), L.ptr(ws),
+              L.ptr(y), L.DTYPE_CODES[out_dtype], m, k, n, L.stream(dev))
+    L.check(lib, rc, "fused_quantized_matmul")
+    FQMM_LAUNCHES += 1
+    return y
+
+
+def resolve_int8_matmul(impl: Optional[str] = None) -> str:
+    """The one int8-GEMM dispatch rule: ``"fused"`` (one kernel:
+    quantize, product, dequant) or ``"unfused"`` (a quantize pass, then
+    :func:`quantized_matmul`). ``impl=None`` reads ``ZOO_INT8_MATMUL``
+    (``auto`` -> fused)."""
+    impl = impl or knobs.value("ZOO_INT8_MATMUL")
+    if impl == "auto":
+        return "fused"
+    if impl not in ("fused", "unfused"):
+        raise ValueError(f"unknown int8 matmul impl {impl!r} "
+                         "(expected auto|fused|unfused)")
+    return impl
+
+
+def quantized_dense(x: torch.Tensor, w_q: torch.Tensor,
+                    w_scale: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None,
+                    impl: Optional[str] = None) -> torch.Tensor:
+    """f32/bf16 activations (..., K) x int8 weights (K, N): per-row
+    dynamic activation quantization and the int8 product, backend chosen
+    by :func:`resolve_int8_matmul`. The output has ``x``'s dtype."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if resolve_int8_matmul(impl) == "fused":
+        y = fused_quantized_matmul(x2, w_q, w_scale, out_dtype=x.dtype)
+    else:
+        x_q, x_scale = quantize_int8(x2, axis=-1)
+        y = quantized_matmul(x_q, w_q, x_scale, w_scale, out_dtype=x.dtype)
+    if bias is not None:
+        y = y + bias
+    return y.reshape(*x.shape[:-1], w_q.shape[1])
+
+
+def quantize_conv_weights(w: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """HWIO conv weights -> (int8 HWIO, per-output-channel scale (O,))."""
+    kh, kw, ci, o = w.shape
+    flat_q, scale = quantize_int8(w.reshape(kh * kw * ci, o), axis=0)
+    return flat_q.reshape(w.shape), scale.reshape(o)
+
+
+def quantized_conv2d(x: torch.Tensor, w_q: torch.Tensor,
+                     w_scale: torch.Tensor, strides=(1, 1),
+                     padding: str = "SAME",
+                     bias: Optional[torch.Tensor] = None,
+                     impl: Optional[str] = None) -> torch.Tensor:
+    """f32/bf16 NHWC activations x int8 HWIO weights: per-image dynamic
+    activation quantization (plain PyTorch, f32), then the int8 conv of
+    :func:`~zoo_tpu_torch.ops.kernels.conv.conv2d_int8` with its dequant
+    epilogue, then the bias in f32; the output has ``x``'s dtype."""
+    from zoo_tpu_torch.ops.kernels.conv import conv2d_int8
+
+    xf = x.float()
+    x_scale = absmax_scale(xf.abs().amax(dim=(1, 2, 3), keepdim=True))
+    x_q = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
+    y = conv2d_int8(x_q, w_q, x_scale, w_scale.float(),
+                    strides=tuple(strides), padding=padding, impl=impl)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(x.dtype)

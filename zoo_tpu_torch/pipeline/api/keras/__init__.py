@@ -1,8 +1,12 @@
-"""Keras-style training API of the port (counterpart of
-``zoo_tpu/pipeline/api/keras``): ``Sequential`` with ``compile``/``fit``
-on one device. The functional ``Model`` and ``Input`` are not ported
-yet."""
+"""Keras-style API of the port (counterpart of
+``zoo_tpu/pipeline/api/keras``): ``Sequential`` and the functional
+``Model``/``Input`` with ``compile``/``fit``/``predict`` on one
+device."""
 
-from zoo_tpu_torch.pipeline.api.keras.engine.topology import Sequential
+from zoo_tpu_torch.pipeline.api.keras.engine.topology import (
+    Input,
+    Model,
+    Sequential,
+)
 
-__all__ = ["Sequential"]
+__all__ = ["Input", "Model", "Sequential"]

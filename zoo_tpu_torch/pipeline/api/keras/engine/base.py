@@ -10,14 +10,16 @@ protocol, with its parameters held by the model, not by the layer:
 - ``compute_output_shape(input_shape)``.
 
 ``input_shape`` excludes the batch dimension; reported shapes carry
-``None`` for it. The functional API (``KTensor``, ``Input``, ``Model``)
-is not ported yet.
+``None`` for it. Calling a layer on a :class:`KTensor` (or a list of
+them) adds a node to a functional graph (``Input``/``Model`` in
+``topology``); calling it on tensors is ``nn.Module``'s call.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Dict, Optional, Tuple
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -47,6 +49,111 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+# ---------------------------------------------------------------------------
+# Initializers (keras-1 names): fn(generator, shape) -> f32 tensor on the
+# generator's device. Values differ from jax.random's for the same seed;
+# parity tests carry the JAX package's weights over instead.
+# ---------------------------------------------------------------------------
+
+def _fans(shape) -> Tuple[float, float]:
+    """Fan-in and fan-out as ``jax.nn.initializers`` count them: the
+    last two axes are (in, out), the rest the receptive field."""
+    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    fan_in = shape[-2] * receptive if len(shape) > 1 else shape[0]
+    return fan_in, shape[-1] * receptive
+
+
+def _uniform(limit_of: Callable[[float, float], float]):
+    def init(generator: torch.Generator, shape) -> torch.Tensor:
+        limit = limit_of(*_fans(tuple(shape)))
+        out = torch.empty(tuple(shape), dtype=torch.float32,
+                          device=generator.device)
+        return out.uniform_(-limit, limit, generator=generator)
+    return init
+
+
+def _const(value: float):
+    def init(generator: torch.Generator, shape) -> torch.Tensor:
+        return torch.full(tuple(shape), value, dtype=torch.float32,
+                          device=generator.device)
+    return init
+
+
+_INITIALIZERS = {
+    "glorot_uniform": _uniform(lambda fi, fo: math.sqrt(6.0 / (fi + fo))),
+    "he_uniform": _uniform(lambda fi, fo: math.sqrt(6.0 / fi)),
+    "lecun_uniform": _uniform(lambda fi, fo: math.sqrt(3.0 / fi)),
+    "zero": _const(0.0),
+    "zeros": _const(0.0),
+    "one": _const(1.0),
+    "ones": _const(1.0),
+}
+
+
+def get_initializer(name: Union[str, Callable, None]) -> Callable:
+    """Initializer by keras-1 name (default ``glorot_uniform``), or the
+    callable itself."""
+    if callable(name):
+        return name
+    name = (name or "glorot_uniform").lower()
+    if name not in _INITIALIZERS:
+        raise ValueError(f"unknown initializer: {name} (the port has "
+                         f"{', '.join(sorted(_INITIALIZERS))})")
+    return _INITIALIZERS[name]
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` as it computes: in the input dtype, max
+    subtracted, exp, divided by the sum."""
+    u = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return u / u.sum(dim=-1, keepdim=True)
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "softmax": _softmax,
+    "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
+    "softplus": torch.nn.functional.softplus,
+    "elu": torch.nn.functional.elu,
+    "selu": torch.nn.functional.selu,
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "silu": torch.nn.functional.silu,
+    "swish": torch.nn.functional.silu,
+    "exp": torch.exp,
+    "linear": lambda x: x,
+}
+
+
+def get_activation_fn(name: Union[str, Callable, None]
+                      ) -> Optional[Callable]:
+    """Activation by keras name (``gelu`` is the tanh form, the default
+    of ``jax.nn.gelu``), the callable itself, or None."""
+    if name is None or callable(name):
+        return name
+    name = name.lower()
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation: {name}")
+    return _ACTIVATIONS[name]
+
+
+class KTensor:
+    """Symbolic tensor node of the functional graph: its shape (with a
+    None batch dim), the layer that made it and that layer's inputs."""
+
+    def __init__(self, shape: Tuple, layer: Optional["Layer"] = None,
+                 inbound: Sequence["KTensor"] = ()):
+        self.shape = tuple(shape)
+        self.layer = layer
+        self.inbound = list(inbound)
+
+    def __repr__(self):
+        lname = self.layer.name if self.layer else "input"
+        return f"KTensor(shape={self.shape}, from={lname})"
+
+
 class Layer(nn.Module):
     """Base layer. Subclasses implement ``build``/``call``/
     ``compute_output_shape`` as functions of the params they are given."""
@@ -69,3 +176,15 @@ class Layer(nn.Module):
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape)
+
+    def __call__(self, *args, **kwargs):
+        """On a :class:`KTensor` or a list of them: a new graph node with
+        the output shape; otherwise ``nn.Module``'s call."""
+        x = args[0] if len(args) == 1 and not kwargs else None
+        nodes = list(x) if isinstance(x, (list, tuple)) else [x]
+        if nodes and all(isinstance(t, KTensor) for t in nodes):
+            in_shape = ([t.shape for t in nodes] if len(nodes) > 1
+                        else nodes[0].shape)
+            return KTensor(self.compute_output_shape(in_shape), layer=self,
+                           inbound=nodes)
+        return super().__call__(*args, **kwargs)

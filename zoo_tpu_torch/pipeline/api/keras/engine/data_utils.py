@@ -1,7 +1,7 @@
 """Input plumbing of the Keras facade (counterpart of
 ``zoo_tpu/pipeline/api/keras/engine/data_utils.py``).
 
-Numpy inputs only in this slice: ``x`` as one array, a list of arrays,
+Numpy inputs only: ``x`` as one array, a list of arrays,
 or ``{"x": ..., "y": ...}``, and one label array. XShards, DataFrames,
 DataLoaders and ``tf.data`` wait for the data plane. Batch order is the JAX package's:
 one ``RandomState.shuffle`` of the sample indices per epoch, the ragged
@@ -29,8 +29,8 @@ def to_xy_arrays(x, y=None
     if isinstance(x, dict):
         x, y = x["x"], x.get("y")
     if not isinstance(x, (np.ndarray, list, tuple)):
-        raise TypeError(f"fit takes numpy arrays (or a dict of them) in "
-                        f"this port; got {type(x).__name__}")
+        raise TypeError(f"the Keras API takes numpy arrays (or a dict of "
+                        f"them) in this port; got {type(x).__name__}")
     return _as_list(x), None if y is None else np.asarray(y)
 
 
@@ -49,3 +49,17 @@ def batch_slices(n: int, batch_size: int, shuffle: bool,
     idx = idx[:(n // batch_size) * batch_size]
     for i in range(0, len(idx), batch_size):
         yield idx[i:i + batch_size]
+
+
+def pad_batch(arrs: List[np.ndarray], batch_size: int
+              ) -> Tuple[List[np.ndarray], int]:
+    """Pad a ragged final batch up to ``batch_size`` by repeating row 0;
+    returns (padded, real_count)."""
+    real = arrs[0].shape[0]
+    if real == batch_size:
+        return arrs, real
+    out = []
+    for a in arrs:
+        pad = np.repeat(a[:1], batch_size - real, axis=0)
+        out.append(np.concatenate([a, pad], axis=0))
+    return out, real

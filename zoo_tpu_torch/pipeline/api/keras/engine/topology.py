@@ -1,6 +1,6 @@
-"""``Sequential`` with ``compile``/``fit`` on one device (counterpart of
-the single-device part of ``zoo_tpu/pipeline/api/keras/engine/
-topology.py``).
+"""``Sequential`` and the functional ``Model`` with ``compile``/``fit``/
+``predict`` on one device (counterpart of the single-device part of
+``zoo_tpu/pipeline/api/keras/engine/topology.py``).
 
 The JAX package jits one train step (forward, backward, optimizer
 update) and feeds it superbatches; here the same step runs eagerly on
@@ -11,14 +11,19 @@ the leaves in place. Per-step losses are summed on the device and read
 once per epoch. Batches follow the JAX package's order
 (:func:`~.data_utils.batch_slices` with ``RandomState(seed)``).
 
-Not ported yet: ``evaluate``/``predict``, metrics, the functional
-``Model``, validation data, meshes and plans, the training guard,
-checkpoints and summaries.
+``predict`` runs the forward under ``torch.no_grad()`` batch by batch
+in order, the ragged tail padded with copies of its first row and
+sliced off after, and brings the outputs to the host once at the end;
+under ``mixed_bfloat16`` every f32 leaf but the BatchNorm running stats
+is cast to bf16 (:func:`_split_state`) and bf16 outputs come back f32.
+
+Not ported yet: ``evaluate``, metrics, validation data, meshes and
+plans, the training guard, checkpoints and summaries.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,6 +31,7 @@ import torch
 from zoo_tpu_torch.common.device import resolve_device
 from zoo_tpu_torch.pipeline.api.keras.engine import data_utils
 from zoo_tpu_torch.pipeline.api.keras.engine.base import (
+    KTensor,
     Layer,
     tree_leaves,
     tree_map,
@@ -34,8 +40,48 @@ from zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
 from zoo_tpu_torch.pipeline.api.keras.optimizers import get_optimizer
 
 
+def _split_state(params: Dict) -> Tuple[Dict, Dict]:
+    """Separate the non-trainable running stats (BatchNorm's
+    ``stats``) from the other params, so the compute cast leaves them
+    f32."""
+    trainable, state = {}, {}
+    for lname, p in params.items():
+        if isinstance(p, dict) and "stats" in p:
+            state[lname] = {"stats": p["stats"]}
+            trainable[lname] = {k: v for k, v in p.items() if k != "stats"}
+        else:
+            trainable[lname] = p
+    return trainable, state
+
+
+def _merge_state(trainable: Dict, state: Dict) -> Dict:
+    out = dict(trainable)
+    for lname, st in state.items():
+        merged = dict(out.get(lname, {}))
+        merged.update(st)
+        out[lname] = merged
+    return out
+
+
+def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A numpy batch on ``dev``, 64-bit narrowed to 32 as ``jnp.asarray``
+    narrows it."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if t.dtype == torch.float64:
+        t = t.float()
+    elif t.dtype == torch.int64:
+        t = t.int()
+    return t.to(dev)
+
+
+def _outputs_f32(preds):
+    if isinstance(preds, tuple):
+        return tuple(_outputs_f32(p) for p in preds)
+    return preds.float() if preds.dtype == torch.bfloat16 else preds
+
+
 class KerasNet:
-    """Training engine shared by the Keras models."""
+    """Engine shared by the Keras models."""
 
     def __init__(self, name: Optional[str] = None):
         self.name = name or type(self).__name__.lower()
@@ -45,13 +91,19 @@ class KerasNet:
         self.dtype_policy = "float32"
         self._opt_state = None
         self._step = 0
+        self._keys: Optional[Dict[int, str]] = None
+        self._built_shapes: Optional[List[Tuple]] = None
+        self._quantized = False
 
     # -- param keys --------------------------------------------------------
     def _param_keys(self) -> Dict[int, str]:
         """Params keys by layer position and type (``000_llama``), as the
-        JAX package keys them, so its trees load by name."""
-        return {id(layer): f"{i:03d}_{type(layer).__name__.lower()}"
-                for i, layer in enumerate(self.layers)}
+        JAX package keys them, so its trees load by name. Built once per
+        layer list (the JAX package rebuilds the map on every lookup)."""
+        if self._keys is None:
+            self._keys = {id(layer): f"{i:03d}_{type(layer).__name__.lower()}"
+                          for i, layer in enumerate(self.layers)}
+        return self._keys
 
     def _key_of(self, layer) -> str:
         return self._param_keys()[id(layer)]
@@ -102,8 +154,8 @@ class KerasNet:
         if generator is None:
             generator = torch.Generator(
                 device=resolve_device(device)).manual_seed(0)
-        self.params = self._init_params(generator,
-                                        [tuple(s) for s in shapes])
+        self._built_shapes = [tuple(s) for s in shapes]
+        self.params = self._init_params(generator, self._built_shapes)
         return self.params
 
     def _cast_compute(self, tree):
@@ -146,6 +198,8 @@ class KerasNet:
         continues from the optimizer state the first one left."""
         if self.loss_fn is None:
             raise RuntimeError("call compile() before fit()")
+        if self._quantized:
+            raise RuntimeError("a quantized model is inference-only")
         xs, ys = data_utils.to_xy_arrays(x, y)
         if ys is None:
             raise ValueError("fit requires labels")
@@ -186,6 +240,60 @@ class KerasNet:
         self._opt_state = opt_state
         return history
 
+    # -- inference ---------------------------------------------------------
+    def _params_device(self) -> torch.device:
+        return tree_leaves(self.params)[0].device
+
+    def _build_pred_step(self, device=None) -> Callable:
+        """The forward on ``device`` (default: where the params live) as
+        ``step(*numpy_or_tensor_batches) -> outputs``: params moved and
+        cast once, here, for every call of the step; inputs cast to the
+        compute dtype; bf16 outputs returned f32."""
+        dev = self._params_device() if device is None else \
+            torch.device(device)
+        with torch.no_grad():
+            trainable, state = _split_state(tree_map(
+                lambda t: t.detach().to(dev), self.params))
+            params = _merge_state(self._cast_compute(trainable), state)
+
+        def step(*xs):
+            batch = [x if isinstance(x, torch.Tensor) else _to_device(x, dev)
+                     for x in xs]
+            with torch.no_grad():
+                return _outputs_f32(self._forward(
+                    params, self._cast_compute(batch), training=False))
+        return step
+
+    def predict(self, x, batch_size: int = 256, device=None) -> np.ndarray:
+        """Outputs for numpy ``x`` (one array or a list), in order.
+        Runs on the current CUDA device unless ``device`` names another
+        (``device="cpu"`` runs every plain version); builds the params
+        there from seed 0 if the model has none."""
+        xs, _ = data_utils.to_xy_arrays(x, None)
+        dev = resolve_device(device)
+        if self.params is None:
+            self.build(torch.Generator(device=dev).manual_seed(0),
+                       [(None,) + a.shape[1:] for a in xs])
+        return self._predict_arrays(xs, batch_size, dev)
+
+    def _predict_arrays(self, xs: List[np.ndarray], batch_size: int,
+                        dev: torch.device):
+        step = self._build_pred_step(dev)
+        n = data_utils.num_samples(xs)
+        bs = max(1, min(batch_size, n))
+        outs = []
+        for start in range(0, n, bs):
+            padded, real = data_utils.pad_batch(
+                [a[start:start + bs] for a in xs], bs)
+            preds = step(*padded)
+            # stays on the device: one transfer at the end
+            outs.append(tuple(p[:real] for p in preds)
+                        if isinstance(preds, tuple) else preds[:real])
+        if outs and isinstance(outs[0], tuple):
+            return tuple(torch.cat([o[i] for o in outs]).cpu().numpy()
+                         for i in range(len(outs[0])))
+        return torch.cat(outs).cpu().numpy()
+
 
 class Sequential(KerasNet):
     """Linear stack of layers."""
@@ -201,6 +309,7 @@ class Sequential(KerasNet):
     def add(self, layer: Layer) -> "Sequential":
         self._layers.append(layer)
         self.params = None  # invalidate
+        self._keys = None
         return self
 
     def _input_shapes(self):
@@ -222,3 +331,88 @@ class Sequential(KerasNet):
             h = layer.call(params.get(self._key_of(layer), {}), h,
                            training=training)
         return h
+
+
+def Input(shape: Tuple, name: Optional[str] = None) -> KTensor:
+    """Symbolic input of a functional ``Model`` (``shape`` excludes the
+    batch dim)."""
+    return KTensor((None,) + tuple(shape))
+
+
+class Model(KerasNet):
+    """Functional graph model: the layers between ``input`` and
+    ``output`` KTensors, run in topological order; a layer used at
+    several nodes is built once and shares its params."""
+
+    def __init__(self, input: Union[KTensor, Sequence[KTensor]],
+                 output: Union[KTensor, Sequence[KTensor]],
+                 name: Optional[str] = None):
+        super().__init__(name=name)
+        self.inputs = list(input) if isinstance(input, (list, tuple)) \
+            else [input]
+        self.outputs = list(output) if isinstance(output, (list, tuple)) \
+            else [output]
+        self.output = self.outputs[0]
+        self._topo = self._toposort()
+        seen, self._layer_list = set(), []
+        for node in self._topo:
+            if node.layer is not None and id(node.layer) not in seen:
+                seen.add(id(node.layer))
+                self._layer_list.append(node.layer)
+
+    def _toposort(self) -> List[KTensor]:
+        """Depth-first from each output, parents in inbound order: the
+        JAX package's order, which fixes the params keys."""
+        seen, order = set(), []
+
+        def visit(node: KTensor):
+            if id(node) in seen:
+                return
+            seen.add(id(node))
+            for parent in node.inbound:
+                visit(parent)
+            order.append(node)
+
+        for out in self.outputs:
+            visit(out)
+        for t in self.inputs:
+            if id(t) not in seen:
+                raise ValueError("an input tensor is not connected to output")
+        return order
+
+    @property
+    def layers(self) -> List[Layer]:
+        return self._layer_list
+
+    def _input_shapes(self):
+        return [t.shape for t in self.inputs]
+
+    def _init_params(self, generator, input_shapes) -> Dict:
+        params: Dict = {}
+        shapes = {id(t): tuple(s) for t, s in zip(self.inputs, input_shapes)}
+        for node in self._topo:
+            if node.layer is None:
+                continue
+            in_shapes = [shapes[id(p)] for p in node.inbound]
+            arg = in_shapes if len(in_shapes) > 1 else in_shapes[0]
+            key = self._key_of(node.layer)
+            if key not in params:  # shared layers build once
+                params[key] = node.layer.build(generator, arg)
+            shapes[id(node)] = node.layer.compute_output_shape(arg)
+        return params
+
+    def _forward(self, params, inputs: List, *, training):
+        values = {id(t): v for t, v in zip(self.inputs, inputs)}
+        for node in self._topo:
+            if node.layer is None:
+                if id(node) not in values:
+                    raise ValueError("missing input value")
+                continue
+            args = [values[id(p)] for p in node.inbound]
+            arg = args if len(args) > 1 else args[0]
+            values[id(node)] = node.layer.call(
+                params.get(self._key_of(node.layer), {}), arg,
+                training=training)
+        if len(self.outputs) == 1:
+            return values[id(self.output)]
+        return tuple(values[id(o)] for o in self.outputs)

@@ -1,0 +1,155 @@
+"""Core keras-1 layers (counterpart of the layers of
+``zoo_tpu/pipeline/api/keras/layers/core.py`` that the image models
+need): ``Dense`` (with its int8 path), ``Activation``,
+``BatchNormalization`` (inference) and ``Merge``/``merge``. Keras-1
+argument names are kept. Parameters are held by the model, as
+``engine.base`` describes.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from zoo_tpu_torch.pipeline.api.keras.engine.base import (
+    KTensor,
+    Layer,
+    get_activation_fn,
+    get_initializer,
+)
+
+
+class Dense(Layer):
+    """Fully connected layer, ``W`` (in, out) and ``b``. After
+    ``quantize_model`` it holds ``W_q``/``W_scale`` instead of ``W`` and
+    runs :func:`~zoo_tpu_torch.ops.kernels.quant.quantized_dense`."""
+
+    def __init__(self, output_dim: int, init="glorot_uniform",
+                 activation=None, bias: bool = True,
+                 input_dim: Optional[int] = None, **kwargs):
+        if input_dim is not None and kwargs.get("input_shape") is None:
+            kwargs["input_shape"] = (input_dim,)
+        super().__init__(**kwargs)
+        self.output_dim = int(output_dim)
+        self.init = get_initializer(init)
+        self.activation = get_activation_fn(activation)
+        self.bias = bias
+
+    def build(self, generator, input_shape):
+        params = {"W": self.init(generator,
+                                 (input_shape[-1], self.output_dim))}
+        if self.bias:
+            params["b"] = get_initializer("zero")(generator,
+                                                  (self.output_dim,))
+        return params
+
+    def call(self, params, inputs, *, training=False):
+        if "W_q" in params:  # int8 weights (the quantize_model path)
+            from zoo_tpu_torch.ops.kernels.quant import quantized_dense
+            y = quantized_dense(inputs, params["W_q"], params["W_scale"])
+        else:
+            y = torch.matmul(inputs, params["W"])
+        if self.bias:
+            y = y + params["b"]
+        return self.activation(y) if self.activation else y
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape[:-1]) + (self.output_dim,)
+
+
+class Activation(Layer):
+    def __init__(self, activation, **kwargs):
+        super().__init__(**kwargs)
+        self.activation = get_activation_fn(activation)
+
+    def call(self, params, inputs, *, training=False):
+        return self.activation(inputs)
+
+
+class BatchNormalization(Layer):
+    """Batch norm over the trailing feature axis, running stats in
+    ``params["stats"]`` (kept f32 under ``mixed_bfloat16``). Inference
+    only in this port: the normalisation is a precomputed (C,) scale and
+    shift, computed in f32 from the stats and applied in the input's
+    dtype, as the JAX package applies it. Training with batch moments
+    and running-stat updates is not ported."""
+
+    def __init__(self, epsilon: float = 1e-3, momentum: float = 0.99,
+                 beta_init="zero", gamma_init="one", **kwargs):
+        super().__init__(**kwargs)
+        self.epsilon = float(epsilon)
+        self.momentum = float(momentum)
+        self.beta_init = get_initializer(beta_init)
+        self.gamma_init = get_initializer(gamma_init)
+
+    def build(self, generator, input_shape):
+        d = input_shape[-1]
+        return {"gamma": self.gamma_init(generator, (d,)),
+                "beta": self.beta_init(generator, (d,)),
+                "stats": {"mean": get_initializer("zero")(generator, (d,)),
+                          "var": get_initializer("one")(generator, (d,))}}
+
+    def call(self, params, inputs, *, training=False):
+        if training:
+            raise NotImplementedError(
+                "BatchNormalization training (batch moments, running-stat "
+                "updates) is not ported to zoo_tpu_torch yet")
+        mean, var = params["stats"]["mean"], params["stats"]["var"]
+        inv = torch.rsqrt(var + self.epsilon) * params["gamma"].float()
+        shift = params["beta"].float() - mean * inv
+        return inputs * inv.to(inputs.dtype) + shift.to(inputs.dtype)
+
+
+class Merge(Layer):
+    """Merge a list of inputs: modes concat / sum / mul / ave / max /
+    min / dot / cos, as the JAX package's ``Merge``."""
+
+    def __init__(self, mode: str = "sum", concat_axis: int = -1, **kwargs):
+        super().__init__(**kwargs)
+        self.mode = mode
+        self.concat_axis = concat_axis
+
+    def call(self, params, inputs, *, training=False):
+        xs = list(inputs)
+        if self.mode == "concat":
+            return torch.cat(xs, dim=self.concat_axis)
+        if self.mode in ("sum", "ave"):
+            out = xs[0]
+            for x in xs[1:]:
+                out = out + x
+            return out / len(xs) if self.mode == "ave" else out
+        if self.mode in ("mul", "max", "min"):
+            op = {"mul": torch.mul, "max": torch.maximum,
+                  "min": torch.minimum}[self.mode]
+            out = xs[0]
+            for x in xs[1:]:
+                out = op(out, x)
+            return out
+        if self.mode == "dot":
+            return torch.sum(xs[0] * xs[1], dim=-1, keepdim=True)
+        if self.mode == "cos":
+            a, b = xs[0], xs[1]
+            num = torch.sum(a * b, dim=-1, keepdim=True)
+            den = (torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+                   * torch.linalg.vector_norm(b, dim=-1, keepdim=True))
+            return num / torch.clamp(den, min=1e-8)
+        raise ValueError(f"unknown merge mode: {self.mode}")
+
+    def compute_output_shape(self, input_shape):
+        shapes = input_shape
+        if self.mode == "concat":
+            out = list(shapes[0])
+            dims = [s[self.concat_axis] for s in shapes]
+            out[self.concat_axis] = None if None in dims else sum(dims)
+            return tuple(out)
+        if self.mode in ("dot", "cos"):
+            return (shapes[0][0], 1)
+        return tuple(shapes[0])
+
+
+def merge(inputs: Sequence[KTensor], mode: str = "sum",
+          concat_axis: int = -1, name: Optional[str] = None) -> KTensor:
+    """Functional-API merge helper."""
+    return Merge(mode=mode, concat_axis=concat_axis, name=name)(
+        list(inputs))
