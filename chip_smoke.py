@@ -51,7 +51,25 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    verdict; samples/s, launches per forward (49 ``conv2d``, or 49
    ``conv2d_int8`` and one head GEMM), kernel path vs plain path on one
    batch, top-1 agreement of int8 with float, peak memory, and an
-   ``infer-step`` line profiling one batch per path.
+   ``infer-step`` line profiling one batch per path;
+8b. train-image-tiny — the tiny ResNet of phase 7 ``fit`` with
+   ``SGD(0.1, 0.9)``, f32, 8 images, two shuffled epochs at B=4,
+   through the conv kernel and the SGD kernel, equals the same ``fit``
+   through their plain versions;
+9. bottleneck-main — ``fused_bottleneck`` at the geometries of
+   ResNet-50's twelve identity blocks (four stages, B=128, bf16),
+   forward and forward+backward, one kernel launch per call and no
+   composition fallback, beside the port's unfused block (three
+   ``conv2d`` dispatches); ms per stage;
+10. train-image-main — Keras ``fit`` of ``bench.py`` ``bench_resnet50``
+   (``resnet50(1000, (224, 224, 3))``, ``SGD(lr=0.1, momentum=0.9)``,
+   ``mixed_bfloat16``, B=128, ``RandomState(0)`` images and labels,
+   ``shuffle=False``) at full width and depth: a warm-up fit, 8 timed
+   steps (step ms, samples/s, ``mfu`` against ``bench.py``'s 8.0 GFLOP
+   per forward, losses finite, 49 ``conv2d`` per forward and one SGD
+   launch per trainable leaf per step, running stats moved), then
+   ``evaluate(metrics=["accuracy"])`` on 256 images and a
+   ``train-image-step`` line profiling steps by kernel group.
 
 Phase 3 also holds the flash forward (o, lse) and backward kernels
 (dK/dV, dQ) against their plain versions, and the gradients against
@@ -62,7 +80,11 @@ training config's shapes beside their bounds and a library yardstick
 fused AdamW and SGD) the port never calls; and the implicit-GEMM conv
 kernels (bf16, int8) at four ResNet-50 shapes, B=128, and the int8
 GEMMs at the ResNet-50 head and at ``bench_int8_matmul``'s shape,
-beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks.
+beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks; and the
+fused bottleneck at ResNet-50's four identity geometries (B=128, bf16,
+and f32 at conv2_x) with its gradients at conv2_x, timed beside the
+unfused cuDNN composition (three ``F.conv2d``, the ReLUs and the add),
+a yardstick the port never calls.
 
 Then a ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
@@ -99,6 +121,13 @@ CONV_SHAPES = ((56, 256, 1, 64, 1), (28, 128, 3, 128, 1),
                (56, 256, 1, 512, 2), (7, 512, 3, 512, 1))
 # (M, K, N): the ResNet-50 head at B=128, bench.py bench_int8_matmul
 GEMM_SHAPES = ((128, 2048, 1000), (512, 1024, 1024))
+# ResNet-50's identity bottlenecks per stage: (name, spatial, Cin, Cmid)
+BLOCK_STAGES = (("conv2_x", 56, 256, 64), ("conv3_x", 28, 512, 128),
+                ("conv4_x", 14, 1024, 256), ("conv5_x", 7, 2048, 512))
+BLOCK_B, BLOCK_GRAD_B = 128, 32
+# the image-training path: bench.py bench_resnet50 (:371-384)
+TRAIN_IMG_B, TRAIN_IMG_STEPS, TRAIN_IMG_N = 128, 8, 1024
+RESNET50_FWD_FLOPS = 8.0e9          # bench.py:65, per image
 
 # tolerances of kernel vs plain version, max absolute error:
 # f32 outputs 1e-4 (the same f32 math summed in another order, expf vs
@@ -117,8 +146,26 @@ GEMM_SHAPES = ((128, 2048, 1000), (512, 1024, 1024))
 # The int8 kernels: exact (integer sums, the same f32 epilogue).
 # The tiny ResNet's probabilities through the f32 conv kernels: 1e-5.
 TOL = {"float32": 1e-4, "bfloat16": 3e-2, "update": 1e-6,
-       "conv_f32": 1e-5, "conv_bf16": 2.0 ** -7, "int8": 0.0}
+       "conv_f32": 1e-5, "conv_bf16": 2.0 ** -7, "int8": 0.0,
+       "block": 2.0 ** -6, "block_grad": 2e-2}
 TOL_TINY_F32 = 1e-5
+# The fused bottleneck against its plain version ("block"): within 2**-6
+# of the largest output (both round t1, t2, z3 and y to bf16 and may land
+# on either side of a tie after summing in another order); its gradients
+# through the op (recompute backward) against autograd of the
+# composition ("block_grad"): within 2e-2 of the largest gradient.
+# Besides, at least BLOCK_BIT_EQUAL of its outputs equal the plain
+# version's bit for bit (readings 0.99974 to 0.99997 at the four
+# stages): a fault confined to few or small outputs, such as a skipped
+# bf16 rounding of z3 or a wrong tap on a tile's border row, stays under
+# the max-diff limit but not under this one.
+BLOCK_BIT_EQUAL = 0.999
+# the tiny ResNet fit, kernel path vs plain path, relative to each
+# loss and, by norm, to each parameter and running stat: one step
+# differs by the conv's summation order (~1e-7); SGD(0.1, 0.9) on random
+# labels is an unstable run that amplifies it step by step (see
+# phase_train_image_tiny)
+TOL_TRAIN_TINY = 1e-3
 # full-width ResNet-50 in bf16, kernel path vs plain path: the two round
 # the conv sums to bf16 on either side of ties at other elements, and 53
 # layers carry that on; the probabilities stay within this
@@ -268,14 +315,16 @@ def phase_kernels(torch):
         # scales with it (see TOL)
         tol = TOL[dtype] * (max(1.0, magnitude) if magnitude is not None
                             and dtype in ("bfloat16", "conv_f32",
-                                          "conv_bf16") else 1.0)
+                                          "conv_bf16", "block",
+                                          "block_grad") else 1.0)
         emit({"phase": "kernels", "kernel": kernel, "case": case,
               "max_abs_err": err, "tol": tol})
         if not err <= tol:
             raise AssertionError(f"{kernel} {case}: max abs err {err} "
                                  f"> {tol}")
         r = results.setdefault(kernel, {"max_abs_err": 0.0})
-        if dtype in ("float32", "update", "conv_f32", "conv_bf16", "int8"):
+        if dtype in ("float32", "update", "conv_f32", "conv_bf16", "int8",
+                     "block"):
             r["max_abs_err"] = max(r["max_abs_err"], err)
 
     def err(a, b):
@@ -391,6 +440,7 @@ def phase_kernels(torch):
                 bound_ms=b_ms, bound_by=b_by)
     phase_training_kernels(torch, record, err, results)
     phase_inference_kernels(torch, record, err, results)
+    phase_block_kernels(torch, record, err, results)
     for name, r in results.items():
         emit({"phase": "kernels", "kernel": name, "timing": r})
     return results
@@ -778,16 +828,140 @@ def phase_inference_kernels(torch, record, err, results):
         results[name].update(per[name][0], shapes=per[name])
 
 
+def _block_weights(torch, g, cin, cmid, grad=False):
+    """w1 (cin, cmid), w2 (3, 3, cmid, cmid), w3 (cmid, cin), f32, drawn
+    at 1 / sqrt(fan in)."""
+    return [(torch.randn(s, generator=g, device="cuda") / math.sqrt(fan))
+            .requires_grad_(grad)
+            for s, fan in (((cin, cmid), cin), ((3, 3, cmid, cmid),
+                                                9 * cmid),
+                           ((cmid, cin), cmid))]
+
+
+def _block_bound(b, h, cin, cmid, x_bytes):
+    """Least time of one bottleneck: x read and y written once, bf16
+    weights read once, against its FLOPs at the bf16 peak."""
+    pixels = b * h * h
+    flops = 2 * pixels * (2 * cin * cmid + 9 * cmid * cmid)
+    nbytes = 2 * pixels * cin * x_bytes + \
+        2 * (2 * cin * cmid + 9 * cmid * cmid)
+    return bound(nbytes, flops, PEAK_BF16_FLOPS) + (flops,)
+
+
+def phase_block_kernels(torch, record, err, results):
+    """The fused bottleneck kernel against its plain version at
+    ResNet-50's four identity geometries (B=128 bf16, conv2_x also f32),
+    its gradients through the op against autograd of the composition at
+    conv2_x (B=32), then timed beside its bound, its plain version and
+    the unfused cuDNN composition (into ``results``)."""
+    import torch.nn.functional as F
+    from zoo_tpu_torch.ops.kernels import fused_block as FB
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1357)
+    bf16, cl = torch.bfloat16, torch.channels_last
+    B, per = BLOCK_B, []
+    for name, h, cin, cmid in BLOCK_STAGES:
+        ws = _block_weights(torch, g, cin, cmid)
+        smem = FB.plan(h, h, cmid)[2]
+        shape = f"{name} {h}x{h} {cin}->{cmid}->{cin}"
+        for dt in ((bf16, torch.float32) if name == "conv2_x" else (bf16,)):
+            x = torch.randn(B, h, h, cin, generator=g, device=dev).to(dt)
+            y = FB.fused_bottleneck(x, *ws, impl="kernel")
+            ref = FB.fused_bottleneck_plain(x, *ws)
+            torch.cuda.synchronize()
+            case = f"{str(dt).split('.')[-1]} B={B} {shape}"
+            share = float((y == ref).float().mean())
+            emit({"phase": "kernels", "kernel": "fused_bottleneck",
+                  "case": case, "smem_bytes": smem,
+                  "bit_equal_share": share})
+            if not share >= BLOCK_BIT_EQUAL:
+                raise AssertionError(
+                    f"fused_bottleneck {case}: {share} of the outputs equal "
+                    f"the plain version's bit for bit, under "
+                    f"{BLOCK_BIT_EQUAL}")
+            record("fused_bottleneck", case, err(y, ref), "block",
+                   float(ref.float().abs().max()))
+            del y, ref
+        # timed in bf16, the training path's type
+        x = x.to(bf16)
+        (b_ms, b_by, flops) = _block_bound(B, h, cin, cmid, 2)
+        xn = x.permute(0, 3, 1, 2)                  # channels-last NCHW
+        w1n = ws[0].t().reshape(cmid, cin, 1, 1).to(bf16) \
+            .contiguous(memory_format=cl)
+        w2n = ws[1].permute(3, 2, 0, 1).to(bf16).contiguous(memory_format=cl)
+        w3n = ws[2].t().reshape(cin, cmid, 1, 1).to(bf16) \
+            .contiguous(memory_format=cl)
+
+        def composition():
+            t1 = F.relu(F.conv2d(xn, w1n))
+            t2 = F.relu(F.conv2d(t1, w2n, padding=1))
+            return F.relu(xn + F.conv2d(t2, w3n))
+        t = timing(torch, "fused_bottleneck_kernel",
+                   lambda: FB.fused_bottleneck(x, *ws, impl="kernel"),
+                   lambda: FB.fused_bottleneck_plain(x, *ws), None, 5)
+        comp = timed(torch, composition, 5)["device_ms"]
+        per.append(dict(t, shape=f"B={B} bf16 {shape}", bound_ms=b_ms,
+                        bound_by=b_by, composition_ms=comp,
+                        tflops=flops / t["ms"] / 1e9))
+        emit({"phase": "kernels", "kernel": "fused_bottleneck",
+              "timing": per[-1]})
+        del x, xn
+        torch.cuda.empty_cache()
+
+    # gradients through the op at conv2_x, B=32: kernel forward,
+    # recompute backward, against autograd of the composition
+    _, h, cin, cmid = BLOCK_STAGES[0]
+    x = torch.randn(BLOCK_GRAD_B, h, h, cin, generator=g,
+                    device=dev).to(bf16)
+    ws = _block_weights(torch, g, cin, cmid)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(bf16)
+    leaves = [t.clone().requires_grad_() for t in [x] + ws]
+    before = FB.LAUNCHES
+    got = torch.autograd.grad(FB.fused_bottleneck(*leaves), leaves, dy)
+    if FB.LAUNCHES != before + 1:
+        raise AssertionError("fused_bottleneck: the gradient pass did not "
+                             "launch the kernel once")
+    ref_leaves = [t.clone().requires_grad_() for t in [x] + ws]
+    want = torch.autograd.grad(FB.bottleneck_reference(*ref_leaves),
+                               ref_leaves, dy)
+    torch.cuda.synchronize()
+    for part, a, b in zip(("dx", "dw1", "dw2", "dw3"), got, want):
+        record("fused_bottleneck", f"{part} B={BLOCK_GRAD_B} conv2_x vs "
+               "composition autograd", err(a, b), "block_grad",
+               float(b.float().abs().max()))
+    results["fused_bottleneck"].update(_sum_timing(per))
+    results["fused_bottleneck"]["composition_ms"] = sum(
+        t["composition_ms"] for t in per)
+    del x, dy, leaves, ref_leaves, got, want
+    torch.cuda.empty_cache()
+
+
+def _sgd_plain(param, grad, momentum_buf, lr, momentum=0.0,
+               weight_decay=0.0):
+    """``fused_apply_sgd``'s plain version, in place, on any device."""
+    import torch
+    from zoo_tpu_torch.ops.kernels import fused_optim as FO
+    with torch.no_grad():
+        for dst, src in zip((param, momentum_buf), FO.reference_apply_sgd(
+                param, grad, momentum_buf, lr, momentum, weight_decay)):
+            dst.copy_(src)
+    return param, momentum_buf
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """The four inference kernel wrappers routed to their plain versions:
-    the yardstick path, which nothing on the main path takes."""
+    """The four image-inference kernel wrappers and the SGD update
+    routed to their plain versions: the yardstick path, which nothing on
+    the main path takes."""
     from zoo_tpu_torch.ops.kernels import conv as CV
     from zoo_tpu_torch.ops.kernels import quant as Q
+    from zoo_tpu_torch.pipeline.api.keras import optimizers as OPT
     swaps = ((CV, "implicit_gemm_conv2d", CV.conv2d_plain),
              (CV, "implicit_gemm_conv2d_int8", CV.conv2d_int8_plain),
              (Q, "quantized_matmul", Q.quantized_matmul_plain),
-             (Q, "fused_quantized_matmul", Q.fused_quantized_matmul_plain))
+             (Q, "fused_quantized_matmul", Q.fused_quantized_matmul_plain),
+             (OPT, "fused_apply_sgd", _sgd_plain))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -902,7 +1076,7 @@ def phase_infer_main(torch, K, card):
     B, steps = INFER_B, INFER_STEPS
     t0 = time.perf_counter()
     m = resnet50(1000, (224, 224, 3))
-    m.compile("adamw", "sparse_categorical_crossentropy",
+    m.compile("sgd", "sparse_categorical_crossentropy",
               dtype_policy="mixed_bfloat16")
     m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     redraw_batchnorm(torch, m.params, 1)
@@ -1009,7 +1183,7 @@ def phase_infer_main(torch, K, card):
           "float_top1_classes": int(len(set(outs["float"].argmax(1))))})
 
     auto = resnet50(1000, (224, 224, 3))
-    auto.compile("adamw", "sparse_categorical_crossentropy",
+    auto.compile("sgd", "sparse_categorical_crossentropy",
                  dtype_policy="mixed_bfloat16")
     auto.params = float_params
     t = time.perf_counter()
@@ -1018,6 +1192,259 @@ def phase_infer_main(torch, K, card):
           "auto_speedup_int8_over_float": auto._quant_speedup,
           "sample_batch": 8, "seconds": time.perf_counter() - t})
     return launches
+
+
+def phase_bottleneck_main(torch, K, card):
+    """The fused op's own path at full width: the geometries of
+    ResNet-50's twelve identity blocks at B=128 in bf16, each stage
+    driven forward and forward+backward through ``fused_bottleneck``,
+    and through the port's unfused block (three ``conv2d`` dispatches,
+    the ReLUs and the add), then timed. Returns the path's launches."""
+    from zoo_tpu_torch.ops.kernels import fused_block as FB
+    from zoo_tpu_torch.ops.kernels.conv import conv2d
+
+    g = torch.Generator(device="cuda").manual_seed(8642)
+    bf16, B = torch.bfloat16, BLOCK_B
+    launches = {"fused_bottleneck": 0, "conv2d": 0}
+
+    def unfused(x, ws):
+        cin, cmid = ws[0].shape
+        w1, w2, w3 = (w.to(bf16) for w in ws)
+        t1 = torch.relu(conv2d(x, w1.reshape(1, 1, cin, cmid)))
+        t2 = torch.relu(conv2d(t1, w2))
+        return torch.relu(x + conv2d(t2, w3.reshape(1, 1, cmid, cin)))
+
+    for name, h, cin, cmid in BLOCK_STAGES:
+        x = torch.randn(B, h, h, cin, generator=g, device="cuda").to(bf16)
+        ws = _block_weights(torch, g, cin, cmid, grad=True)
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(bf16)
+        xg = x.clone().requires_grad_()
+
+        def fused_fwd():
+            with torch.no_grad():
+                return FB.fused_bottleneck(x, *ws)
+
+        def fused_train():
+            return torch.autograd.grad(FB.fused_bottleneck(xg, *ws),
+                                       [xg] + ws, dy)
+
+        def unfused_fwd():
+            with torch.no_grad():
+                return unfused(x, ws)
+
+        def unfused_train():
+            return torch.autograd.grad(unfused(xg, ws), [xg] + ws, dy)
+
+        runs = (("fused forward", fused_fwd, {"fused_bottleneck": 1}),
+                ("fused forward+backward", fused_train,
+                 {"fused_bottleneck": 1}),
+                ("unfused forward", unfused_fwd, {"conv2d": 3}),
+                ("unfused forward+backward", unfused_train, {"conv2d": 3}))
+        out, ms = {}, {}
+        for label, fn, want in runs:
+            K.reset_launch_counts()
+            out[label] = fn()
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            got = {k: counts[k] for k in ("fused_bottleneck", "conv2d",
+                                          "fused_bottleneck_reference")}
+            need = {k: want.get(k, 0) for k in got}
+            if got != need:
+                raise AssertionError(f"bottleneck-main {name} {label}: "
+                                     f"launches {got}, expected {need}")
+            for k in launches:
+                launches[k] += counts[k]
+        for label, fn, _ in runs:
+            ms[label] = timed(torch, fn, 3, warmup=1)["device_ms"]
+        y, yu = out["fused forward"], out["unfused forward"]
+        if not (torch.isfinite(y.float()).all() and y.shape == x.shape):
+            raise AssertionError(f"bottleneck-main {name}: outputs")
+        emit({"phase": "bottleneck-main", "stage": name, "card": card,
+              "shape": f"B={B} {h}x{h} {cin}->{cmid}->{cin} bf16",
+              "ms": ms, "fused_vs_unfused_max_abs": float(
+                  (y.float() - yu.float()).abs().max()),
+              "fused_forward_speedup": ms["unfused forward"]
+              / ms["fused forward"],
+              "fused_train_speedup": ms["unfused forward+backward"]
+              / ms["fused forward+backward"]})
+        del x, xg, dy, ws, out, y, yu
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_image_tiny(torch, K):
+    """Kernel path == plain path through a tiny ResNet's ``fit`` with
+    ``SGD(0.1, 0.9)``, f32: 8 images, two shuffled epochs at B=4.
+
+    Only 4 steps: the run is unstable (random labels at lr 0.1 with
+    momentum drive the loss from ~2.3 to ~8 within two epochs), and it
+    amplifies the conv's summation-order differences (~1e-7 per step)
+    step by step; after 8 such steps the CPU parity test
+    (``tests/test_torch_resnet_train.py``) sees the JAX package's and the
+    port's leaves 2.5e-3 apart from summation order alone."""
+    import numpy as np
+    from zoo_tpu_torch.models.image import ResNet
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+
+    m = ResNet(10, (1, 1), bottleneck=True, input_shape=(32, 32, 3))
+    m.compile(SGD(lr=0.1, momentum=0.9), "sparse_categorical_crossentropy")
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    redraw_batchnorm(torch, m.params, 1)
+    start = tree_map(torch.clone, m.params)
+    n_conv = len(envelope_convs(m))
+    rs = np.random.RandomState(5)
+    x = rs.randn(8, 32, 32, 3).astype(np.float32)
+    y = rs.randint(0, 10, 8).astype(np.int32)
+    out = {}
+    for label in ("kernels", "plain"):
+        m.compile(SGD(lr=0.1, momentum=0.9),
+                  "sparse_categorical_crossentropy")
+        m.params = tree_map(torch.clone, start)
+        with (plain_kernels() if label == "plain"
+              else contextlib.nullcontext()):
+            K.reset_launch_counts()
+            hist = m.fit(x, y, batch_size=4, nb_epoch=2, shuffle=True,
+                         seed=0, verbose=0, device="cuda")
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+        out[label] = (hist["loss"], tree_leaves(m.params), counts)
+    (lk, pk, ck), (lp, pp, cp) = out["kernels"], out["plain"]
+    n_train = sum(1 for t in pk if t.requires_grad)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    param_rel = max(float((a.detach() - b.detach()).norm()
+                          / b.detach().norm()) for a, b in zip(pk, pp))
+    moved = min(float((a.detach() - b).abs().max())
+                for a, b in zip(pk, tree_leaves(start)))
+    emit({"phase": "train-image-tiny", "loss_kernels": lk, "loss_plain": lp,
+          "loss_max_rel": loss_rel, "param_and_stat_max_rel": param_rel,
+          "least_leaf_move": moved, "tol": TOL_TRAIN_TINY,
+          "launches": {k: ck[k] for k in ("conv2d", "fused_sgd")},
+          "launches_plain": {k: cp[k] for k in ("conv2d", "fused_sgd")}})
+    if not (np.isfinite(lk).all() and loss_rel <= TOL_TRAIN_TINY
+            and param_rel <= TOL_TRAIN_TINY and moved > 0):
+        raise AssertionError(f"train-image-tiny: kernel path differs from "
+                             f"plain: loss {loss_rel}, params {param_rel}, "
+                             f"least move {moved}")
+    steps = 4
+    if (ck["conv2d"], ck["fused_sgd"]) != (n_conv * steps,
+                                           n_train * steps) \
+            or cp["conv2d"] or cp["fused_sgd"]:
+        raise AssertionError(f"train-image-tiny: launches {ck} with the "
+                             f"kernels, {cp} without")
+
+
+def phase_train_image_main(torch, K, card):
+    """Keras ``fit`` of ``bench.py`` ``bench_resnet50``'s config at full
+    width and depth, then ``evaluate``; returns the path's launches."""
+    import numpy as np
+    from zoo_tpu_torch.models.image import resnet50
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    from zoo_tpu_torch.pipeline.api.keras.engine.topology import (
+        _split_state)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+
+    B, steps = TRAIN_IMG_B, TRAIN_IMG_STEPS
+    t0 = time.perf_counter()
+    m = resnet50(1000, (224, 224, 3))
+    m.compile(optimizer=SGD(lr=0.1, momentum=0.9),
+              loss="sparse_categorical_crossentropy", metrics=["accuracy"],
+              dtype_policy="mixed_bfloat16")
+    rs = np.random.RandomState(0)                          # bench.py:379
+    x = rs.randn(TRAIN_IMG_N, 224, 224, 3).astype(np.float32)
+    y = rs.randint(0, 1000, TRAIN_IMG_N).astype(np.int32)
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    trainable, state = _split_state(m.params)
+    n_train = len(tree_leaves(trainable))
+    stats0 = [t.clone() for t in tree_leaves(state)]
+    n_conv = len(envelope_convs(m))
+    # warm-up: two steps
+    m.fit(x[:2 * B], y[:2 * B], batch_size=B, nb_epoch=1, shuffle=False,
+          verbose=0, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # timed: `steps` steps, one fit per batch so every step's loss shows
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(steps):
+        sl = slice(i * B, (i + 1) * B)
+        losses += m.fit(x[sl], y[sl], batch_size=B, nb_epoch=1,
+                        shuffle=False, verbose=0, device="cuda")["loss"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak_fit = torch.cuda.max_memory_allocated() / 1e9
+    step_s = wall / steps
+    stats_moved = min(float((a - b).abs().max()) for a, b in
+                      zip(tree_leaves(_split_state(m.params)[1]), stats0))
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    ev = m.evaluate(x[:2 * B], y[:2 * B], batch_size=B, device="cuda")
+    eval_s = time.perf_counter() - t1
+    emit({"phase": "train-image-main", "model": "resnet50(1000, (224, 224, "
+          "3))", "optimizer": "SGD(lr=0.1, momentum=0.9)",
+          "policy": "mixed_bfloat16", "card": card, "batch": B,
+          "steps": steps, "trainable_leaves": n_train,
+          "params": sum(t.numel() for t in tree_leaves(m.params)),
+          "setup_s": setup_s, "wall_s": wall, "step_ms": step_s * 1e3,
+          "samples_per_s": B / step_s,
+          "mfu": 3 * RESNET50_FWD_FLOPS * B / step_s / PEAK_BF16_FLOPS,
+          "losses": losses, "launches": counts,
+          "launches_per_step": {k: v / steps for k, v in counts.items()},
+          "running_stats_least_move": stats_moved,
+          "peak_mem_gb_fit": peak_fit, "evaluate": ev,
+          "evaluate_images": 2 * B, "evaluate_s": eval_s,
+          "peak_mem_gb_evaluate": torch.cuda.max_memory_allocated() / 1e9})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train-image-main: losses {losses}")
+    if counts["conv2d"] != n_conv * steps or \
+            counts["fused_sgd"] != n_train * steps:
+        raise AssertionError(f"train-image-main: launches {counts}, "
+                             f"expected {n_conv} conv2d per forward and "
+                             f"{n_train} fused_sgd per step")
+    if not stats_moved > 0:
+        raise AssertionError("train-image-main: a running stat did not "
+                             "move")
+    if not (set(ev) == {"loss", "accuracy"} and 0 <= ev["accuracy"] <= 1
+            and np.isfinite(ev["loss"])):
+        raise AssertionError(f"train-image-main: evaluate gave {ev}")
+
+    def group(name):
+        n = name.lower()
+        if "conv2d_kernel" in n:
+            return "conv2d_kernel"
+        if "sgd_kernel" in n:
+            return "fused_sgd"
+        if any(k in n for k in ("conv", "cudnn", "xmma", "implicit",
+                                "dgrad", "wgrad", "fprop")):
+            return "cudnn_conv"
+        if "memcpy" in n.replace(" ", ""):
+            return "copies"
+        if any(k in n for k in ("gemm", "gemv", "cutlass", "nvjet")):
+            return "matmul"
+        return "elementwise"
+
+    xb, yb = x[:B], y[:B]
+    t = timed(torch, lambda: m.fit(xb, yb, batch_size=B, nb_epoch=1,
+                                   shuffle=False, verbose=0, device="cuda"),
+              3, warmup=1)
+    groups = {}
+    for name, ms in t["by_name"].items():
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    top = sorted(t["by_name"].items(), key=lambda kv: -kv[1])[:12]
+    emit({"phase": "train-image-step", "card": card, "steps": 3,
+          "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
+          "device_ms": t["device_ms"],
+          "device_busy_share": t["device_busy_share"],
+          "device_ms_by_group": groups,
+          "top_device_ms": [[k[:80], v] for k, v in top]})
+    del m, x
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in ("conv2d", "fused_sgd")}
 
 
 def phase_train_tiny(torch, K):
@@ -1385,9 +1812,12 @@ def main():
         phase_train_tiny(torch, K)
         # each main path's launches, counted from 0 just before it runs
         phase_infer_tiny(torch, K)
+        phase_train_image_tiny(torch, K)
         by_path = {"serve": phase_main(torch, K, card),
                    "train": phase_train_main(torch, K, card),
-                   "infer": phase_infer_main(torch, K, card)}
+                   "infer": phase_infer_main(torch, K, card),
+                   "block": phase_bottleneck_main(torch, K, card),
+                   "train_image": phase_train_image_main(torch, K, card)}
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"
@@ -1398,6 +1828,7 @@ def main():
                                      "flash_attention.py:151"),
             "flash_attention_dq": ("flash_attention_bwd.cu",
                                    "flash_attention.py:213"),
+            "fused_bottleneck": ("fused_block.cu", "fused_block.py:80"),
             "fused_adam": ("fused_optim.cu", "fused_optim.py:87"),
             "fused_sgd": ("fused_optim.cu", "fused_optim.py:49"),
             "paged_decode": ("paged_decode.cu", "paged_decode.py:55"),
@@ -1417,7 +1848,9 @@ def main():
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "kernel_ms": t["kernel_ms"], "wall_ms": t["wall_ms"]})
+                "kernel_ms": t["kernel_ms"], "wall_ms": t["wall_ms"],
+                **({"composition_ms": t["composition_ms"]}
+                   if "composition_ms" in t else {})})
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
         emit({"kernels": kernels})
         print(card, flush=True)

@@ -17,6 +17,8 @@ O(1) value is up to 4e-3, and the plain version rounds at other points);
 1e-6 absolute on the optimizer updates (the same f32 elementwise math).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +26,7 @@ import torch
 pytestmark = pytest.mark.gpu
 
 H, HKV, D, BS, NB, W = 8, 2, 64, 16, 24, 6
-TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2, "update": 1e-6}
 
 
 @pytest.fixture(scope="module")
@@ -452,3 +454,134 @@ def test_tiny_resnet_kernels_equal_plain(hopper, monkeypatch):
     np.testing.assert_array_equal(got, ref)
     assert counts["conv2d_int8"] == 2 * 7 and counts["conv2d"] == 0
     assert counts["fused_quantized_matmul"] == 2
+
+
+# -- the image-training slice: conv autograd, fused bottleneck, SGD ------
+#
+# The fused bottleneck against its plain version: within 2**-6 of the
+# largest output (both round t1, t2, z3 and y to bf16 and may land on
+# either side of a tie after summing in another order; a flip in t1 or
+# t2 moves y by a few bf16 steps of its largest value at most).
+
+@pytest.mark.parametrize("policy", ["float32", "mixed_bfloat16"])
+def test_conv_kernel_fit_trains_on_the_card(hopper, policy):
+    """A ``Sequential`` of an in-envelope ``Conv2D`` and a ``Dense``:
+    one ``fit`` step on the card through the conv kernel takes the
+    gradient the CPU's plain path takes (SGD at lr 1, no momentum, so
+    each parameter moves by minus its gradient)."""
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    from zoo_tpu_torch.pipeline.api.keras.layers import Conv2D, Dense
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+    rs = np.random.RandomState(0)
+    x = rs.randn(8, 8, 8, 4).astype(np.float32)
+    y = rs.randn(8, 8, 8, 3).astype(np.float32)
+    start, moved = None, {}
+    for dev in ("cpu", "cuda"):
+        m = Sequential()
+        m.add(Conv2D(16, 3, 3, border_mode="same", dim_ordering="tf",
+                     input_shape=(8, 8, 4)))
+        m.add(Dense(3))
+        m.compile(SGD(lr=1.0), "mse", dtype_policy=policy)
+        m.build(_gen(torch.device("cpu"), 15), device="cpu")
+        if start is None:
+            start = tree_map(torch.clone, m.params)
+        m.params = tree_map(lambda t: t.clone().to(dev), start)
+        reset_launch_counts()
+        m.fit(x, y, batch_size=8, nb_epoch=1, verbose=0, device=dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["conv2d"] == (1 if dev == "cuda" else 0)
+        assert counts["fused_sgd"] == (4 if dev == "cuda" else 0)
+        moved[dev] = tree_map(lambda a, b: (a.detach().cpu() - b),
+                              m.params, start)
+    tol = TOL[torch.float32 if policy == "float32" else torch.bfloat16]
+    for k in ("000_convolution2d", "001_dense"):
+        for leaf, a in moved["cuda"][k].items():
+            b = moved["cpu"][k][leaf]
+            assert float(b.abs().max()) > 1e-3, (k, leaf)
+            assert _err(a, b) <= tol * max(1.0, float(b.abs().max())), \
+                (k, leaf)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,cin,cmid", [
+    (56, 56, 256, 64), (28, 28, 512, 128), (14, 14, 1024, 256),
+    (7, 7, 2048, 512),
+    # ragged tiles (12 and 10 are not multiples of the 8-pixel tile) and
+    # channel counts that are not multiples of the 32-deep slice
+    (12, 10, 48, 12), (9, 9, 40, 24)])
+def test_fused_bottleneck_kernel_matches_plain(hopper, dtype, h, w, cin,
+                                               cmid):
+    from zoo_tpu_torch.ops.kernels import fused_block as FB
+    g = _gen(hopper, 16)
+    x = torch.randn(2, h, w, cin, generator=g, device=hopper).to(dtype)
+    ws = [torch.randn(s, generator=g, device=hopper) / math.sqrt(fan)
+          for s, fan in (((cin, cmid), cin), ((3, 3, cmid, cmid), 9 * cmid),
+                         ((cmid, cin), cmid))]
+    before = FB.LAUNCHES
+    y = FB.fused_bottleneck(x, *ws, impl="kernel")
+    ref = FB.fused_bottleneck_plain(x, *ws)
+    torch.cuda.synchronize()
+    assert FB.LAUNCHES == before + 1 and y.dtype == dtype
+    scale = float(ref.float().abs().max())
+    assert _err(y, ref) <= 2 ** -6 * scale
+    # a fault in few or small outputs stays under the max-diff limit:
+    # hold the share of outputs equal bit for bit too. At B=2 the share
+    # counts few events: one t1 or t2 element rounded the other way
+    # perturbs every channel of up to nine pixels, 9 of 49 at 7x7, and
+    # 7x7 2048->512 read 0.99374 on an H100 (the other cases at least
+    # 0.999, the limit chip_smoke.py holds B=128 to). z3 left unrounded
+    # or a tap wrong on each tile's border row changes far more.
+    assert float((y == ref).float().mean()) >= 0.99
+
+
+def test_fused_bottleneck_gradients_on_the_card(hopper):
+    """The op's gradients (kernel forward, recompute backward) against
+    autograd of the composition, within 2e-2 of the largest gradient."""
+    from zoo_tpu_torch.ops.kernels import fused_block as FB
+    g = _gen(hopper, 17)
+    x = torch.randn(4, 56, 56, 256, generator=g, device=hopper)
+    ws = [torch.randn(s, generator=g, device=hopper) * 0.05
+          for s in ((256, 64), (3, 3, 64, 64), (64, 256))]
+    dy = torch.randn(x.shape, generator=g, device=hopper)
+    leaves = [t.clone().requires_grad_() for t in [x] + ws]
+    before = FB.LAUNCHES
+    got = torch.autograd.grad(FB.fused_bottleneck(*leaves), leaves, dy)
+    assert FB.LAUNCHES == before + 1
+    ref_leaves = [t.clone().requires_grad_() for t in [x] + ws]
+    want = torch.autograd.grad(FB.bottleneck_reference(*ref_leaves),
+                               ref_leaves, dy)
+    for a, b in zip(got, want):
+        assert _err(a, b) <= 2e-2 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("kw", [dict(lr=0.1, momentum=0.9),
+                                dict(lr=0.1, momentum=0.9, decay=0.5),
+                                dict(lr=0.05)])
+def test_sgd_through_the_kernel_matches_plain(hopper, kw):
+    """``SGD`` on CUDA leaves (the kernel, one launch per leaf and step)
+    against the same updates on CPU leaves (the plain version)."""
+    from zoo_tpu_torch.ops.kernels import fused_optim as FO
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+    g = _gen(torch.device("cpu"), 18)
+    shapes = ((4099,), (64, 33), (3, 3, 16, 16))
+    params = [torch.randn(s, generator=g) for s in shapes]
+    grads = [[torch.randn(s, generator=g) for s in shapes]
+             for _ in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = SGD(**kw)
+        tree = {f"{i}": p.clone().to(dev) for i, p in enumerate(params)}
+        state = opt.init(tree)
+        before = FO.SGD_LAUNCHES
+        for step in grads:
+            tree, state = opt.apply(
+                {f"{i}": t.to(dev) for i, t in enumerate(step)}, state, tree)
+        torch.cuda.synchronize()
+        assert FO.SGD_LAUNCHES - before == (9 if dev == "cuda" else 0)
+        out[dev] = tree
+    for k, a in out["cuda"].items():
+        assert _err(out["cpu"][k], params[int(k)]) > 1e-3
+        assert _err(a.cpu(), out["cpu"][k]) <= TOL["update"]

@@ -268,18 +268,23 @@ def test_optimizer_and_compile_contract(monkeypatch):
     monkeypatch.setenv("ZOO_FUSED_OPTIM", "0")
     assert not AdamWeightDecay().fused
     assert isinstance(get_optimizer("adamw"), AdamWeightDecay)
+    assert get_optimizer("sgd").name == "sgd"
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_optimizer("sgd")
+        get_optimizer("adam")
     with pytest.raises(ValueError, match="unknown optimizer"):
         get_optimizer("nope")
     m = Sequential()
     m.add(tl.Llama(tl.tiny_llama_config(), input_shape=(T_LEN,)))
-    with pytest.raises(NotImplementedError, match="metrics"):
-        m.compile("adamw", LOSS, metrics=["accuracy"])
+    m.compile("adamw", LOSS, metrics=["accuracy"])
+    assert [x.name for x in m.metrics] == ["accuracy"]
+    with pytest.raises(ValueError, match="unknown metric"):
+        m.compile("adamw", LOSS, metrics=["f1"])
     with pytest.raises(ValueError, match="dtype_policy"):
         m.compile("adamw", LOSS, dtype_policy="float16")
+    fresh = Sequential()
+    fresh.add(tl.Llama(tl.tiny_llama_config(), input_shape=(T_LEN,)))
     with pytest.raises(RuntimeError, match="compile"):
-        m.fit(*_data(n=4), batch_size=4, device="cpu")
+        fresh.fit(*_data(n=4), batch_size=4, device="cpu")
 
 
 def test_port_knobs_match_the_jax_registry():

@@ -327,9 +327,12 @@ def test_batch_normalization_inference_matches_jax(dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(ref.astype(jnp.float32)),
                                rtol=0, atol=tol)
-    with pytest.raises(NotImplementedError, match="training"):
-        tlayers.BatchNormalization().call(tp, torch.from_numpy(x),
-                                          training=True)
+    # training normalizes by the batch moments, not the running stats
+    train = tlayers.BatchNormalization().call(tp, torch.from_numpy(x),
+                                              training=True)
+    np.testing.assert_allclose(train.mean((0, 1, 2)).numpy(),
+                               p["beta"], rtol=0, atol=1e-5)
+    assert float((train - got.float()).abs().max()) > 0.1
 
 
 @pytest.mark.parametrize("mode", ["sum", "mul", "ave", "max", "min",

@@ -12,6 +12,9 @@ with the kernel's plain PyTorch version:
   the two backward kernels (dK/dV, dQ) behind an autograd function
   (replaces ``_fwd_kernel``, ``_dkdv_kernel`` and ``_dq_kernel`` of
   ``zoo_tpu/ops/pallas/flash_attention.py``);
+- :mod:`.fused_block` — the whole ResNet identity bottleneck in one
+  kernel, differentiable through a recompute backward (replaces
+  ``_kernel`` of ``zoo_tpu/ops/pallas/fused_block.py``);
 - :mod:`.fused_optim` — AdamW and SGD updates in one in-place pass
   (replaces ``_adam_kernel`` and ``_sgd_kernel`` of
   ``zoo_tpu/ops/pallas/fused_optim.py``);
@@ -26,7 +29,9 @@ with the kernel's plain PyTorch version:
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel or raises — it never falls back. Every launch
 adds one to the wrapper's count (:func:`launch_counts`), so a run can
-show which kernels its main path went through.
+show which kernels its main path went through. An op that falls back
+to a composition outside its kernel's envelope counts that dispatch
+too (:data:`DISPATCHES`), apart from the kernels.
 
 Nothing here imports a compiler or builds anything at import time.
 """
@@ -44,6 +49,7 @@ _COUNTERS = {
     "flash_attention": ("flash_attention", "LAUNCHES"),
     "flash_attention_dkdv": ("flash_attention", "DKDV_LAUNCHES"),
     "flash_attention_dq": ("flash_attention", "DQ_LAUNCHES"),
+    "fused_bottleneck": ("fused_block", "LAUNCHES"),
     "fused_adam": ("fused_optim", "ADAM_LAUNCHES"),
     "fused_sgd": ("fused_optim", "SGD_LAUNCHES"),
     "paged_decode": ("paged_decode", "LAUNCHES"),
@@ -52,6 +58,10 @@ _COUNTERS = {
     "fused_quantized_matmul": ("quant", "FQMM_LAUNCHES"),
 }
 KERNELS = tuple(_COUNTERS)
+# op -> (module, attribute) of the count of its composition fallbacks
+DISPATCHES = {
+    "fused_bottleneck_reference": ("fused_block", "REFERENCE_DISPATCHES"),
+}
 
 
 def on_cuda(device=None) -> bool:
@@ -79,11 +89,12 @@ def _module(name: str):
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
+    """Kernel launches (and composition fallbacks, :data:`DISPATCHES`)
+    since the last :func:`reset_launch_counts`."""
     return {k: getattr(_module(mod), attr)
-            for k, (mod, attr) in _COUNTERS.items()}
+            for k, (mod, attr) in {**_COUNTERS, **DISPATCHES}.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod, attr in _COUNTERS.values():
+    for mod, attr in (*_COUNTERS.values(), *DISPATCHES.values()):
         setattr(_module(mod), attr, 0)

@@ -35,6 +35,7 @@ SOURCES = {
     "conv2d": "conv2d.cu",
     "flash_attention": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "fused_block": "fused_block.cu",
     "fused_optim": "fused_optim.cu",
     "paged_decode": "paged_decode.cu",
     "paged_prefill": "paged_prefill.cu",

@@ -17,6 +17,12 @@ JAX package's name for "the hand-written kernel"). The reference conv
 is also the kernels' plain version: ``torch.nn.functional.conv2d`` with
 XLA's SAME pads applied explicitly, in f32 for the float conv and in
 float64 (exact on integer values) for the int8 one.
+
+The float kernel is differentiable: :class:`_ConvKernel` launches it in
+the forward, and its backward is the gradient of the reference conv in
+the input dtype (``F.conv2d``'s own input and weight gradients, on the
+saved inputs), as XLA transposes the JAX package's convs; the JAX
+package has no backward conv kernel. The int8 conv is inference-only.
 """
 
 from __future__ import annotations
@@ -124,21 +130,51 @@ def _pads(x, w, strides, padding: Union[str, Pads]) -> Pads:
     return tuple(map(tuple, padding))
 
 
-def _conv_nhwc(x, w, strides, pads: Pads, dtype) -> torch.Tensor:
-    """``F.conv2d`` of NHWC ``x`` and HWIO ``w``, both cast to
-    ``dtype``, with explicit (top, bottom), (left, right) pads; NHWC
-    out."""
+def _no_tf32():
+    """Full f32 products: cuDNN would otherwise take TF32 for f32
+    convs."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+def _padded_nchw(x, pads: Pads, dtype) -> torch.Tensor:
     (pt, pb), (pl, pr) = pads
     xn = x.to(dtype).permute(0, 3, 1, 2)
     if pt or pb or pl or pr:
         xn = F.pad(xn, (pl, pr, pt, pb))
-    # full f32 products: cuDNN would otherwise take TF32 for f32 convs
-    cudnn = torch.backends.cudnn
-    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                     deterministic=cudnn.deterministic, allow_tf32=False):
+    return xn
+
+
+def _conv_nhwc(x, w, strides, pads: Pads, dtype) -> torch.Tensor:
+    """``F.conv2d`` of NHWC ``x`` and HWIO ``w``, both cast to
+    ``dtype``, with explicit (top, bottom), (left, right) pads; NHWC
+    out."""
+    xn = _padded_nchw(x, pads, dtype)
+    with _no_tf32():
         y = F.conv2d(xn, w.to(dtype).permute(3, 2, 0, 1),
                      stride=tuple(strides))
     return y.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_plain_grads(x, w, dy, strides: Tuple[int, int] = (1, 1),
+                       padding: Union[str, Pads] = "SAME"):
+    """``(dx, dw)``, the gradients of the reference conv in ``x``'s
+    dtype (f32 sums, TF32 off) at ``x``, ``w`` for the output gradient
+    ``dy``: the float kernel's backward."""
+    strides = tuple(strides)
+    pads = _pads(x, w, strides, padding)
+    (pt, _), (pl, _) = pads
+    dt = x.dtype
+    xn = _padded_nchw(x, pads, dt)
+    wn = w.to(dt).permute(3, 2, 0, 1)
+    dyn = dy.to(dt).permute(0, 3, 1, 2)
+    with _no_tf32():
+        dx = torch.nn.grad.conv2d_input(xn.shape, wn, dyn, stride=strides)
+        dw = torch.nn.grad.conv2d_weight(xn, wn.shape, dyn, stride=strides)
+    dx = dx[:, :, pt:pt + x.shape[1], pl:pl + x.shape[2]]
+    return (dx.permute(0, 2, 3, 1).contiguous(),
+            dw.permute(2, 3, 1, 0).contiguous().to(w.dtype))
 
 
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
@@ -185,15 +221,20 @@ def implicit_gemm_conv2d(x: torch.Tensor, w: torch.Tensor,
                          strides: Tuple[int, int] = (1, 1),
                          padding: str = "SAME") -> torch.Tensor:
     """NHWC x HWIO float conv through the implicit-GEMM kernel; ``x``
-    and ``w`` f32 or bf16 alike, output in their dtype.
+    and ``w`` f32 or bf16 alike, output in their dtype; differentiable
+    (:class:`_ConvKernel`).
 
     CPU tensors take :func:`conv2d_plain`; CUDA tensors launch the
     kernel (or raise)."""
-    global LAUNCHES
     strides = tuple(strides)
     _check_envelope(w, strides)
     if x.device.type == "cpu":
         return conv2d_plain(x, w, strides, padding)
+    return _ConvKernel.apply(x, w, strides, padding)
+
+
+def _launch_conv2d(x, w, strides, padding) -> torch.Tensor:
+    global LAUNCHES
     dev = x.device
     L.require(x, "x", dev, (torch.float32, torch.bfloat16))
     L.require(w, "w", dev, (x.dtype,))
@@ -206,6 +247,23 @@ def implicit_gemm_conv2d(x: torch.Tensor, w: torch.Tensor,
     L.check(lib, rc, "conv2d")
     LAUNCHES += 1
     return y
+
+
+class _ConvKernel(torch.autograd.Function):
+    """The float kernel in the forward; the reference conv's gradients
+    (:func:`conv2d_plain_grads`) on the saved inputs in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, strides, padding):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (strides, padding)
+        return _launch_conv2d(x, w, strides, padding)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = conv2d_plain_grads(x, w, dy, *ctx.conv)
+        return dx, dw, None, None
 
 
 def implicit_gemm_conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor,

@@ -39,14 +39,17 @@ def num_samples(xs: List[np.ndarray]) -> int:
 
 
 def batch_slices(n: int, batch_size: int, shuffle: bool,
-                 rng: Optional[np.random.RandomState] = None):
-    """Yield the index array of each training batch: one shuffle of the
-    sample indices (the JAX package's numpy calls, so both packages see
-    the same batches), the ragged tail dropped."""
+                 rng: Optional[np.random.RandomState] = None,
+                 drop_remainder: bool = True):
+    """Yield the index array of each batch: one shuffle of the sample
+    indices (the JAX package's numpy calls, so both packages see the
+    same batches), the ragged tail dropped in training; inference keeps
+    it and pads it (:func:`pad_batch`)."""
     idx = np.arange(n)
     if shuffle:
         (rng or np.random).shuffle(idx)
-    idx = idx[:(n // batch_size) * batch_size]
+    if drop_remainder:
+        idx = idx[:(n // batch_size) * batch_size]
     for i in range(0, len(idx), batch_size):
         yield idx[i:i + batch_size]
 

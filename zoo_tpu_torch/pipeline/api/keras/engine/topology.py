@@ -4,11 +4,14 @@
 
 The JAX package jits one train step (forward, backward, optimizer
 update) and feeds it superbatches; here the same step runs eagerly on
-one CUDA device (or, when asked, the CPU): the trainable f32 leaves
-are cast to the compute dtype inside autograd, the loss is
-differentiated with ``torch.autograd.grad``, and the optimizer updates
-the leaves in place. Per-step losses are summed on the device and read
-once per epoch. Batches follow the JAX package's order
+one CUDA device (or, when asked, the CPU). The params split as the JAX
+step splits them (:func:`_split_state`): the trainable f32 leaves are
+cast to the compute dtype inside autograd, the loss is differentiated
+against them alone with ``torch.autograd.grad``, and the optimizer
+updates them in place; the BatchNorm running stats stay f32 out of the
+gradient, and each BatchNorm's ``updated_stats`` from its training
+input replace them after the update. Per-step losses are summed on the
+device and read once per epoch. Batches follow the JAX package's order
 (:func:`~.data_utils.batch_slices` with ``RandomState(seed)``).
 
 ``predict`` runs the forward under ``torch.no_grad()`` batch by batch
@@ -16,9 +19,12 @@ in order, the ragged tail padded with copies of its first row and
 sliced off after, and brings the outputs to the host once at the end;
 under ``mixed_bfloat16`` every f32 leaf but the BatchNorm running stats
 is cast to bf16 (:func:`_split_state`) and bf16 outputs come back f32.
+``evaluate`` streams the same forward batch by batch and sums the loss
+and each compiled metric's ``(sum, count)`` on the device, read once at
+the end (the JAX package's ``_evaluate_arrays``).
 
-Not ported yet: ``evaluate``, metrics, validation data, meshes and
-plans, the training guard, checkpoints and summaries.
+Not ported yet: validation data, meshes and plans, the training guard,
+checkpoints and summaries.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from zoo_tpu_torch.pipeline.api.keras.engine.base import (
     tree_leaves,
     tree_map,
 )
+from zoo_tpu_torch.pipeline.api.keras.metrics import Metric, get_metric
 from zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
 from zoo_tpu_torch.pipeline.api.keras.optimizers import get_optimizer
 
@@ -80,6 +87,20 @@ def _outputs_f32(preds):
     return preds.float() if preds.dtype == torch.bfloat16 else preds
 
 
+def _call(layer, key: str, params: Dict, h, training: bool,
+          collect: Optional[Dict]):
+    """``layer.call`` on ``h``; in training, with ``collect`` given, a
+    layer with running stats also leaves its ``updated_stats`` from
+    ``h`` in ``collect[key]`` (one computation of the batch moments)."""
+    p = params.get(key, {})
+    if training and collect is not None and \
+            hasattr(layer, "call_and_update"):
+        out, stats = layer.call_and_update(p, h)
+        collect[key] = {"stats": stats}
+        return out
+    return layer.call(p, h, training=training)
+
+
 class KerasNet:
     """Engine shared by the Keras models."""
 
@@ -88,6 +109,7 @@ class KerasNet:
         self.params: Optional[Dict] = None
         self.optimizer = None
         self.loss_fn: Optional[Callable] = None
+        self.metrics: List[Metric] = []
         self.dtype_policy = "float32"
         self._opt_state = None
         self._step = 0
@@ -116,7 +138,11 @@ class KerasNet:
     def _init_params(self, generator, input_shapes) -> Dict:
         raise NotImplementedError
 
-    def _forward(self, params, inputs: List, *, training: bool):
+    def _forward(self, params, inputs: List, *, training: bool,
+                 collect: Optional[Dict] = None):
+        """The model's outputs. In training, with ``collect`` given,
+        each BatchNorm's ``updated_stats`` from its input lands in
+        ``collect[key] = {"stats": ...}``."""
         raise NotImplementedError
 
     def _input_shapes(self) -> Optional[List[Tuple]]:
@@ -129,14 +155,12 @@ class KerasNet:
         parameters and optimizer state stay f32, the forward and
         backward run in bf16 with f32 islands in the norms, softmax and
         loss reductions; gradients arrive in f32."""
-        if metrics:
-            raise NotImplementedError("metrics are not ported to "
-                                      "zoo_tpu_torch yet")
         if dtype_policy not in ("float32", "mixed_bfloat16"):
             raise ValueError(f"unknown dtype_policy: {dtype_policy}")
         self.dtype_policy = dtype_policy
         self.optimizer = get_optimizer(optimizer)
         self.loss_fn = get_loss(loss)
+        self.metrics = [get_metric(m) for m in (metrics or [])]
         self._opt_state = None  # a new optimizer cannot reuse old state
         return self
 
@@ -172,20 +196,27 @@ class KerasNet:
 
     def _train_step(self, opt_state, xs: List[torch.Tensor],
                     ys: torch.Tensor):
-        """Forward, backward and the optimizer's in-place update; returns
-        ``(opt_state, loss)`` with the loss a detached f32 scalar."""
-        params = self.params
-        leaves = tree_leaves(params)
+        """Forward, backward against the trainable leaves, the
+        optimizer's in-place update, then the running stats replaced by
+        their updates; returns ``(opt_state, loss)`` with the loss a
+        detached f32 scalar."""
+        trainable, state = _split_state(self.params)
+        collect: Dict = {}
         with torch.enable_grad():
-            preds = self._forward(self._cast_compute(params),
-                                  self._cast_compute(xs), training=True)
+            # cast trainables only: the running stats keep f32
+            # resolution, or momentum-0.99 increments vanish below a
+            # bf16 ulp
+            preds = self._forward(
+                _merge_state(self._cast_compute(trainable), state),
+                self._cast_compute(xs), training=True, collect=collect)
             if not getattr(self.loss_fn, "_handles_low_precision", False) \
                     and preds.dtype == torch.bfloat16:
                 preds = preds.float()
             loss = self.loss_fn(ys, preds)
-        grads = iter(torch.autograd.grad(loss, leaves))
-        grad_tree = tree_map(lambda _: next(grads), params)
-        _, opt_state = self.optimizer.apply(grad_tree, opt_state, params)
+        grads = iter(torch.autograd.grad(loss, tree_leaves(trainable)))
+        grad_tree = tree_map(lambda _: next(grads), trainable)
+        _, opt_state = self.optimizer.apply(grad_tree, opt_state, trainable)
+        self.params = _merge_state(trainable, collect or state)
         return opt_state, loss.detach()
 
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
@@ -211,14 +242,18 @@ class KerasNet:
         self.build(torch.Generator(device=dev).manual_seed(int(seed)),
                    [(None,) + a.shape[1:] for a in xs])
         # the trainable leaves: f32 tensors on the device that autograd
-        # differentiates the loss against
-        self.params = tree_map(
+        # differentiates the loss against; the running stats: plain
+        # tensors on the device
+        trainable, state = _split_state(self.params)
+        trainable = tree_map(
             lambda t: t if t.device == dev and t.requires_grad
             and t.is_leaf else t.detach().to(dev).requires_grad_(True),
-            self.params)
+            trainable)
+        self.params = _merge_state(trainable, tree_map(
+            lambda t: t.detach().to(dev), state))
         opt_state = self._opt_state
         if opt_state is None:
-            opt_state = self.optimizer.init(self.params)
+            opt_state = self.optimizer.init(trainable)
         nprng = np.random.RandomState(seed)
         history: Dict[str, List[float]] = {"loss": []}
         for epoch in range(nb_epoch):
@@ -276,6 +311,56 @@ class KerasNet:
                        [(None,) + a.shape[1:] for a in xs])
         return self._predict_arrays(xs, batch_size, dev)
 
+    def evaluate(self, x, y=None, batch_size: int = 32,
+                 device=None) -> Dict[str, float]:
+        """The loss and each compiled metric over numpy ``x``/``y``,
+        streamed batch by batch in order (the ragged tail padded, then
+        its padding sliced off); one read from the device at the end.
+        Runs on the current CUDA device unless ``device`` names another
+        (``device="cpu"`` runs every plain version)."""
+        xs, ys = data_utils.to_xy_arrays(x, y)
+        if ys is None:
+            raise ValueError("evaluate requires labels")
+        if len(getattr(self, "outputs", [None])) > 1:
+            raise NotImplementedError("evaluate of a multi-output model is "
+                                      "not ported to zoo_tpu_torch yet")
+        dev = resolve_device(device)
+        if self.params is None:
+            self.build(torch.Generator(device=dev).manual_seed(0),
+                       [(None,) + a.shape[1:] for a in xs])
+        return self._evaluate_arrays(xs, ys, batch_size, dev)
+
+    def _evaluate_arrays(self, xs: List[np.ndarray], ys: np.ndarray,
+                         batch_size: int, dev: torch.device
+                         ) -> Dict[str, float]:
+        step = self._build_pred_step(dev)
+        n = data_utils.num_samples(xs)
+        bs = max(1, min(batch_size, n))
+        loss_sum, seen = None, 0
+        totals: Dict[str, Optional[Tuple]] = {m.name: None
+                                              for m in self.metrics}
+        for idx in data_utils.batch_slices(n, bs, False,
+                                           drop_remainder=False):
+            padded, real = data_utils.pad_batch([a[idx] for a in xs], bs)
+            preds = step(*padded)[:real]
+            yt = _to_device(ys[idx], dev)
+            if self.loss_fn is not None:
+                contrib = self.loss_fn(yt, preds) * real
+                loss_sum = contrib if loss_sum is None \
+                    else loss_sum + contrib
+            for m in self.metrics:
+                s, c = m.batch_eval(yt, preds)
+                prev = totals[m.name]
+                totals[m.name] = (s, c) if prev is None \
+                    else (prev[0] + s, prev[1] + c)
+            seen += real
+        out = {}
+        if loss_sum is not None:
+            out["loss"] = float(loss_sum) / max(seen, 1)
+        for m in self.metrics:
+            out[m.name] = float(m.finalize(*totals[m.name]))
+        return out
+
     def _predict_arrays(self, xs: List[np.ndarray], batch_size: int,
                         dev: torch.device):
         step = self._build_pred_step(dev)
@@ -325,11 +410,11 @@ class Sequential(KerasNet):
             shape = layer.compute_output_shape(shape)
         return params
 
-    def _forward(self, params, inputs: List, *, training):
+    def _forward(self, params, inputs: List, *, training, collect=None):
         h = inputs[0] if len(inputs) == 1 else inputs
         for layer in self._layers:
-            h = layer.call(params.get(self._key_of(layer), {}), h,
-                           training=training)
+            h = _call(layer, self._key_of(layer), params, h, training,
+                      collect)
         return h
 
 
@@ -401,7 +486,7 @@ class Model(KerasNet):
             shapes[id(node)] = node.layer.compute_output_shape(arg)
         return params
 
-    def _forward(self, params, inputs: List, *, training):
+    def _forward(self, params, inputs: List, *, training, collect=None):
         values = {id(t): v for t, v in zip(self.inputs, inputs)}
         for node in self._topo:
             if node.layer is None:
@@ -410,9 +495,8 @@ class Model(KerasNet):
                 continue
             args = [values[id(p)] for p in node.inbound]
             arg = args if len(args) > 1 else args[0]
-            values[id(node)] = node.layer.call(
-                params.get(self._key_of(node.layer), {}), arg,
-                training=training)
+            values[id(node)] = _call(node.layer, self._key_of(node.layer),
+                                     params, arg, training, collect)
         if len(self.outputs) == 1:
             return values[id(self.output)]
         return tuple(values[id(o)] for o in self.outputs)

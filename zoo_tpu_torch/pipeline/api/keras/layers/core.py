@@ -1,7 +1,7 @@
 """Core keras-1 layers (counterpart of the layers of
 ``zoo_tpu/pipeline/api/keras/layers/core.py`` that the image models
 need): ``Dense`` (with its int8 path), ``Activation``,
-``BatchNormalization`` (inference) and ``Merge``/``merge``. Keras-1
+``BatchNormalization`` and ``Merge``/``merge``. Keras-1
 argument names are kept. Parameters are held by the model, as
 ``engine.base`` describes.
 """
@@ -69,11 +69,16 @@ class Activation(Layer):
 
 class BatchNormalization(Layer):
     """Batch norm over the trailing feature axis, running stats in
-    ``params["stats"]`` (kept f32 under ``mixed_bfloat16``). Inference
-    only in this port: the normalisation is a precomputed (C,) scale and
-    shift, computed in f32 from the stats and applied in the input's
-    dtype, as the JAX package applies it. Training with batch moments
-    and running-stat updates is not ported."""
+    ``params["stats"]`` (kept f32 under ``mixed_bfloat16``), as the JAX
+    package's layer.
+
+    The moments are an f32 island: batch moments in training, the
+    running stats otherwise. The normalisation is then a precomputed
+    (C,) scale and shift, computed in f32 and applied in the input's
+    dtype. In training the gradient flows through the batch moments;
+    :meth:`updated_stats` gives the running stats after one batch
+    (momentum 0.99 on the detached moments), which the engine merges
+    back after the optimizer's update."""
 
     def __init__(self, epsilon: float = 1e-3, momentum: float = 0.99,
                  beta_init="zero", gamma_init="one", **kwargs):
@@ -90,15 +95,40 @@ class BatchNormalization(Layer):
                 "stats": {"mean": get_initializer("zero")(generator, (d,)),
                           "var": get_initializer("one")(generator, (d,))}}
 
-    def call(self, params, inputs, *, training=False):
-        if training:
-            raise NotImplementedError(
-                "BatchNormalization training (batch moments, running-stat "
-                "updates) is not ported to zoo_tpu_torch yet")
-        mean, var = params["stats"]["mean"], params["stats"]["var"]
+    @staticmethod
+    def _moments(inputs):
+        """Biased batch mean and variance over every axis but the last,
+        in f32."""
+        return torch.var_mean(inputs.float(), dim=tuple(
+            range(inputs.ndim - 1)), correction=0)[::-1]
+
+    def _normalize(self, params, inputs, mean, var):
         inv = torch.rsqrt(var + self.epsilon) * params["gamma"].float()
         shift = params["beta"].float() - mean * inv
         return inputs * inv.to(inputs.dtype) + shift.to(inputs.dtype)
+
+    def _running(self, params, mean, var):
+        m, st = self.momentum, params["stats"]
+        return {"mean": m * st["mean"] + (1 - m) * mean.detach(),
+                "var": m * st["var"] + (1 - m) * var.detach()}
+
+    def call(self, params, inputs, *, training=False):
+        if training:
+            mean, var = self._moments(inputs)
+        else:
+            mean, var = params["stats"]["mean"], params["stats"]["var"]
+        return self._normalize(params, inputs, mean, var)
+
+    def updated_stats(self, params, inputs):
+        """The running stats after the batch ``inputs``."""
+        return self._running(params, *self._moments(inputs))
+
+    def call_and_update(self, params, inputs):
+        """``(call(training=True), updated_stats)`` from one computation
+        of the batch moments."""
+        mean, var = self._moments(inputs)
+        return (self._normalize(params, inputs, mean, var),
+                self._running(params, mean, var))
 
 
 class Merge(Layer):

@@ -1,25 +1,30 @@
 """Optimizers with keras-1 names (counterpart of
 ``zoo_tpu/pipeline/api/keras/optimizers.py``).
 
-This slice ports :class:`AdamWeightDecay`, the optimizer of the Llama
-training config. Its state is ``{"m": tree, "v": tree, "step": int}``
+Ported: :class:`AdamWeightDecay`, the optimizer of the Llama training
+config, and :class:`SGD`, that of the ResNet-50 one. Both update the
+parameter tensors IN PLACE, leaf by leaf in tree order, through a
+hand-written kernel on a CUDA device (``ops/kernels/fused_optim.py``)
+or through the kernel's plain PyTorch version, which repeats optax's
+arithmetic. AdamW's state is ``{"m": tree, "v": tree, "step": int}``
 (f32 moments shaped like the parameters, the 1-based step of the last
-update), and it updates the parameter tensors IN PLACE: with
-``fused=True`` through the hand-written AdamW kernel, one launch per
-leaf; otherwise through the kernel's plain PyTorch version, the optax
-AdamW math. The other optimizers and learning-rate schedules are not
-ported yet and raise.
+update); SGD's is ``{"momentum": tree, "count": int}`` (the f32
+momentum buffers, optax's 0-based count of updates applied). The other
+optimizers and the orca learning-rate schedulers are not ported yet and
+raise.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from zoo_tpu_torch.common.knobs import value as knob_value
 from zoo_tpu_torch.ops.kernels.fused_optim import (
     fused_apply_adam,
+    fused_apply_sgd,
     reference_apply_adam,
 )
 from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves, tree_map
@@ -86,7 +91,8 @@ class AdamWeightDecay(Optimizer):
                                   tree_leaves(state["m"]),
                                   tree_leaves(state["v"])):
                 if self.fused:
-                    fused_apply_adam(p, g, m, v, step, lr, b1, b2, eps, wd)
+                    fused_apply_adam(p, g.contiguous(), m, v, step, lr, b1,
+                                     b2, eps, wd)
                     continue
                 for dst, src in zip((p, m, v), reference_apply_adam(
                         p, g, m, v, step, lr, b1, b2, eps, wd)):
@@ -94,9 +100,68 @@ class AdamWeightDecay(Optimizer):
         return trainable, {"m": state["m"], "v": state["v"], "step": step}
 
 
-_ALIASES = {"adamw": AdamWeightDecay}
-_NOT_PORTED = ("sgd", "adam", "rmsprop", "adagrad", "adadelta", "adamax",
-               "lars")
+class SGD(Optimizer):
+    """``optax.sgd`` with keras-1 arguments: ``buf = momentum * buf +
+    g``, then ``p -= lr_t * buf`` (with ``nesterov``, ``p -= lr_t * (g +
+    momentum * buf)``), in f32, no weight decay. ``decay`` is keras-1's
+    inverse-time decay, ``lr_t = lr / (1 + decay * count)`` in f32 with
+    optax's 0-based count of updates applied; ``lr_t`` is a runtime
+    scalar of the update.
+
+    Without ``nesterov`` the update is :func:`fused_apply_sgd`: the
+    hand-written kernel on CUDA leaves, one launch per leaf, and its
+    plain version on CPU leaves (``fused`` is True). With ``nesterov``
+    it is plain PyTorch on every device (``fused`` is False): the kernel
+    has no Nesterov form."""
+
+    def __init__(self, lr: float = 0.01, momentum: float = 0.0,
+                 decay: float = 0.0, nesterov: bool = False,
+                 learningrate_schedule=None):
+        super().__init__("sgd")
+        if learningrate_schedule is not None:
+            raise NotImplementedError(
+                "learningrate_schedule: the orca learning-rate schedulers "
+                "are not ported to zoo_tpu_torch yet")
+        self.lr, self.momentum = float(lr), float(momentum)
+        self.decay, self.nesterov = float(decay), bool(nesterov)
+        self.fused = not self.nesterov
+
+    def learning_rate(self, count: int) -> float:
+        """``lr_t`` after ``count`` updates, in f32 as optax's schedule
+        computes it."""
+        if not self.decay:
+            return self.lr
+        one = np.float32(1.0)
+        return float(np.float32(self.lr) / (
+            one + np.float32(self.decay) * np.float32(count)))
+
+    def init(self, trainable) -> Dict:
+        def zeros(p):
+            return torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
+        return {"momentum": tree_map(zeros, trainable), "count": 0}
+
+    def apply(self, grads, state, trainable):
+        """One update of every leaf, in tree order, in place. Returns
+        ``(trainable, state)``."""
+        lr = self.learning_rate(state["count"])
+        mu = self.momentum
+        with torch.no_grad():
+            for p, g, buf in zip(tree_leaves(trainable), tree_leaves(grads),
+                                 tree_leaves(state["momentum"])):
+                if self.fused:
+                    # autograd may hand back a permuted (strided) gradient
+                    fused_apply_sgd(p, g.contiguous(), buf, lr, mu)
+                    continue
+                g = g.float()
+                buf.mul_(mu).add_(g)
+                p.sub_((g + mu * buf) * lr)
+        return trainable, {"momentum": state["momentum"],
+                           "count": state["count"] + 1}
+
+
+_ALIASES = {"adamw": AdamWeightDecay, "sgd": SGD}
+_NOT_PORTED = ("adam", "rmsprop", "adagrad", "adadelta", "adamax", "lars")
 
 
 def get_optimizer(identifier) -> Optimizer:
@@ -106,7 +171,7 @@ def get_optimizer(identifier) -> Optimizer:
     if key in _NOT_PORTED:
         raise NotImplementedError(
             f"optimizer {identifier!r} is not ported to zoo_tpu_torch yet "
-            "(AdamWeightDecay / 'adamw' is)")
+            "(AdamWeightDecay / 'adamw' and SGD / 'sgd' are)")
     if key not in _ALIASES:
         raise ValueError(f"unknown optimizer: {identifier}")
     return _ALIASES[key]()
