@@ -9,7 +9,12 @@ It imports neither JAX nor the JAX package, builds the port's CUDA
 kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 
 1. device — name, capability, count, power limit (fails off Hopper);
-2. build — nvcc wall time and each kernel's ``-Xptxas -v`` report;
+2. build — nvcc wall time and each kernel function's ``-Xptxas -v``
+   registers, shared memory and spills;
+2b. sass — how each kernel multiplies, read from the built libraries'
+   SASS (``cuobjdump -sass``): ``wgmma`` (HGMMA), ``mma.sync`` (HMMA,
+   IMMA) or ``simt``; fails unless the bf16 conv and the bf16 flash
+   forward run on the tensor cores;
 3. kernels — each kernel against its plain PyTorch version at the
    Llama-3-8B serving shapes, for f32, bf16 and int8 caches and the
    position edges, then timed (device time per call from
@@ -86,8 +91,16 @@ and f32 at conv2_x) with its gradients at conv2_x, timed beside the
 unfused cuDNN composition (three ``F.conv2d``, the ReLUs and the add),
 a yardstick the port never calls.
 
-Then a ``{"kernels": [...]}`` line, the card's name and power limit as
-``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
+The bf16 conv (per shape and summed), the f32 conv at one shape and
+the bf16 flash forward at the training shape also print TFLOP/s, the
+share of their bound they reach and their time over the library
+call's.
+
+Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route;
+for ``conv2d`` and ``flash_attention`` the numbers are the bf16 route's,
+the f32 route's sit under ``f32_route``), the card's name and power
+limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device":
+...}``.
 Any failure exits non-zero without the ``ok`` line. Without a CUDA
 device, or without the package beside this file, it exits 2.
 """
@@ -96,6 +109,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -119,6 +133,8 @@ INFER_B, INFER_STEPS = 128, 8
 # ResNet-50 convs inside the kernels' envelope, (spatial, C, k, O, stride)
 CONV_SHAPES = ((56, 256, 1, 64, 1), (28, 128, 3, 128, 1),
                (56, 256, 1, 512, 2), (7, 512, 3, 512, 1))
+# the one shape the f32 conv route (the SIMT body) is timed at
+CONV_F32_TIMED = CONV_SHAPES[1]
 # (M, K, N): the ResNet-50 head at B=128, bench.py bench_int8_matmul
 GEMM_SHAPES = ((128, 2048, 1000), (512, 1024, 1024))
 # ResNet-50's identity bottlenecks per stage: (name, spatial, Cin, Cmid)
@@ -172,6 +188,28 @@ TOL_TRAIN_TINY = 1e-3
 TOL_MAIN_BF16 = 5e-2
 
 
+# kernel -> (its library, the __global__ function of its main-path
+# route): for conv2d and the flash forward the bf16 tensor-core bodies;
+# their f32 routes are F32_ROUTES
+MMA_FUNCTIONS = {
+    "flash_attention": ("flash_attention", "flash_fwd_tc_kernel"),
+    "flash_attention_dkdv": ("flash_attention_bwd", "flash_bwd_dkdv_kernel"),
+    "flash_attention_dq": ("flash_attention_bwd", "flash_bwd_dq_kernel"),
+    "fused_bottleneck": ("fused_block", "fused_bottleneck_kernel"),
+    "fused_adam": ("fused_optim", "adam_kernel"),
+    "fused_sgd": ("fused_optim", "sgd_kernel"),
+    "paged_decode": ("paged_decode", "paged_decode_kernel"),
+    "paged_prefill": ("paged_prefill", "paged_prefill_kernel"),
+    "conv2d": ("conv2d", "conv_tc_kernel"),
+    "conv2d_int8": ("conv2d", "conv2d_int8_kernel"),
+    "quantized_matmul": ("quant_matmul", "qmm_kernel"),
+    "fused_quantized_matmul": ("quant_matmul", "fqmm_kernel")}
+F32_ROUTES = {"flash_attention": ("flash_attention", "flash_fwd_kernel"),
+              "conv2d": ("conv2d", "conv2d_kernel")}
+# kernels whose main-path route must run on the tensor cores
+TENSOR_CORE_KERNELS = ("conv2d", "flash_attention")
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -185,6 +223,82 @@ def nvidia_smi_line():
             f"nvidia-smi gave nothing (exit {r.returncode})"
     except (OSError, subprocess.SubprocessError) as e:
         return f"nvidia-smi unavailable: {e!r}"
+
+
+def ptxas_lines(report):
+    """``function: Used ...`` and ``function: ... spill ...`` lines of an
+    ``nvcc -Xptxas -v`` report, each named by its (mangled) function."""
+    out, fn = [], "?"
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1] if ln.count("'") >= 2 else ln.strip()
+        elif "Used" in ln:
+            out.append(f"{fn}: {ln.split(':', 1)[-1].strip()}")
+        elif "spill" in ln:
+            out.append(f"{fn}: {ln.strip()}")
+    return out
+
+
+def cuobjdump():
+    """``cuobjdump`` of the CUDA toolkit that builds the kernels (or of
+    Triton's package, which carries one)."""
+    from zoo_tpu_torch.ops.kernels._build import find_nvcc
+    cands = [os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for c in cands:
+        if os.access(c, os.X_OK):
+            return c
+    raise AssertionError(f"cuobjdump not found (looked at {cands})")
+
+
+def sass_functions(path):
+    """{mangled function name: its SASS} of a built kernel library."""
+    out = subprocess.run([cuobjdump(), "-sass", path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in out.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def mma_route(funcs, function):
+    """How the instances of ``__global__ function`` multiply, read from
+    their SASS: ``"wgmma"`` (HGMMA), ``"mma.sync"`` (HMMA, IMMA) or
+    ``"simt"``; with the instruction counts and the instances found."""
+    key = f"{len(function)}{function}"          # as the name is mangled
+    hit = [f for n, f in funcs.items() if key in n]
+    if not hit:
+        raise AssertionError(f"{function}: not in the library's SASS")
+    counts = {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in hit)
+              for op in ("HGMMA", "HMMA", "IMMA")}
+    route = "wgmma" if counts["HGMMA"] else \
+        "mma.sync" if counts["HMMA"] or counts["IMMA"] else "simt"
+    return {"mma": route, "counts": counts, "instances": len(hit)}
+
+
+def phase_sass(built):
+    """Each kernel's multiply route from the built libraries' SASS; fails
+    unless conv2d and the flash forward run on the tensor cores."""
+    sass = {lib: sass_functions(r.path) for lib, r in built.items()}
+    routes = {k: mma_route(sass[lib], fn)
+              for k, (lib, fn) in MMA_FUNCTIONS.items()}
+    f32 = {k: mma_route(sass[lib], fn) for k, (lib, fn) in
+           F32_ROUTES.items()}
+    emit({"phase": "sass", "kernels": routes, "f32_routes": f32})
+    for k in TENSOR_CORE_KERNELS:
+        if routes[k]["mma"] == "simt":
+            raise AssertionError(f"{k}: its bf16 route has no tensor-core "
+                                 f"instruction in its SASS")
+    return routes, f32
 
 
 def _profiled(torch, fn, iters, kernel):
@@ -293,6 +407,15 @@ def bound(nbytes, flops, peak=PEAK_F32_FLOPS):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def rates(ops, ms, bound_ms, library_ms):
+    """A timed call's rate (TFLOP/s or TOP/s), the share of its bound it
+    reaches (bound ms over ms) and how many times the library call's
+    time it takes (None without one)."""
+    return {"tflops": ops / ms / 1e9, "bound_ratio": bound_ms / ms,
+            "library_ratio": None if library_ms is None else
+            ms / library_ms}
+
+
 def phase_kernels(torch):
     """Each kernel against its plain version at the 8B path's shapes."""
     import torch.nn.functional as F
@@ -322,10 +445,14 @@ def phase_kernels(torch):
         if not err <= tol:
             raise AssertionError(f"{kernel} {case}: max abs err {err} "
                                  f"> {tol}")
-        r = results.setdefault(kernel, {"max_abs_err": 0.0})
+        r = results.setdefault(kernel, {"max_abs_err": 0.0,
+                                        "max_abs_err_by_dtype": {}})
         if dtype in ("float32", "update", "conv_f32", "conv_bf16", "int8",
                      "block"):
             r["max_abs_err"] = max(r["max_abs_err"], err)
+        if magnitude is None or dtype != "bfloat16":   # not vs autograd
+            by = r["max_abs_err_by_dtype"]
+            by[dtype] = max(by.get(dtype, 0.0), err)
 
     def err(a, b):
         return float((a.float() - b.float()).abs().max())
@@ -353,13 +480,17 @@ def phase_kernels(torch):
     pairs = 512 * 513 // 2
     b_ms, b_by = bound(4 * (2 * q.numel() + 2 * k.numel()) + 4 * H * 512,
                        4 * D * pairs * H)
-    results["flash_attention"].update(timing(
-        torch, "flash_fwd_kernel",
-        lambda: FA.flash_attention_fwd(q, k, v, True),
-        lambda: FA.flash_attention_plain(q, k, v, True),
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               enable_gqa=True), 50),
-        bound_ms=b_ms, bound_by=b_by)
+    # the f32 route (SIMT body) at the 8B serving shape; the bf16 route
+    # is timed at the training shape (phase_training_kernels)
+    t = timing(torch, "flash_fwd_kernel",
+               lambda: FA.flash_attention_fwd(q, k, v, True),
+               lambda: FA.flash_attention_plain(q, k, v, True),
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True), 50)
+    results["flash_attention"]["f32_route"] = dict(
+        t, bound_ms=b_ms, bound_by=b_by,
+        shape=f"B=1 H={H} Hkv={HKV} T=512 D={D} f32 causal",
+        **rates(4 * D * pairs * H, t["ms"], b_ms, t["library_ms"]))
 
     # -- paged caches: 128 blocks of 16 rows, 8 kv heads, f32/bf16/int8 --
     def cache(kind):
@@ -441,6 +572,13 @@ def phase_kernels(torch):
     phase_training_kernels(torch, record, err, results)
     phase_inference_kernels(torch, record, err, results)
     phase_block_kernels(torch, record, err, results)
+    # conv2d and the flash forward: the line's numbers are the bf16
+    # (tensor-core) route's, the f32 (SIMT) route's sit under f32_route
+    for k, bf, f32 in (("flash_attention", "bfloat16", "float32"),
+                       ("conv2d", "conv_bf16", "conv_f32")):
+        by = results[k]["max_abs_err_by_dtype"]
+        results[k]["max_abs_err"] = by[bf]
+        results[k]["f32_route"]["max_abs_err"] = by[f32]
     for name, r in results.items():
         emit({"phase": "kernels", "kernel": name, "timing": r})
     return results
@@ -521,15 +659,27 @@ def phase_training_kernels(torch, record, err, results):
     # the forward at the training shape, beside the serving one
     b_ms, b_by = bound(2 * qb + 2 * kb + B * H * S * 4, 4 * D * pairs,
                        PEAK_BF16_FLOPS)
-    results["flash_attention"]["train_shape"] = dict(
-        timing(torch, "flash_fwd_kernel",
+    t = timing(torch, "flash_fwd_tc_kernel",
                lambda: FA.flash_attention_fwd(q, k, v, True),
                lambda: FA.flash_attention_plain(q, k, v, True),
                lambda: F.scaled_dot_product_attention(
-                   q, k, v, is_causal=True, enable_gqa=True), 10),
-        bound_ms=b_ms, bound_by=b_by,
-        shape=f"B={B} H={H} Hkv={HKV} T={S} D={D} bf16 causal")
+                   q, k, v, is_causal=True, enable_gqa=True), 10)
+    results["flash_attention"].update(
+        t, bound_ms=b_ms, bound_by=b_by,
+        shape=f"B={B} H={H} Hkv={HKV} T={S} D={D} bf16 causal",
+        **rates(4 * D * pairs, t["ms"], b_ms, t["library_ms"]))
+    emit({"phase": "kernels", "kernel": "flash_attention", "summed": {
+        k: results["flash_attention"][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "tflops",
+            "bound_ratio", "library_ratio", "shape")}})
     o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    ro, rlse = FA.flash_attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    shape = f"bfloat16 causal=True Tq={S} Tk={S} D={D} B={B}"
+    record("flash_attention", "o " + shape, err(o, ro), "bfloat16")
+    record("flash_attention", "lse " + shape, err(lse, rlse), "bfloat16")
+    del ro, rlse
+    torch.cuda.empty_cache()
     delta = (do.float() * o.float()).sum(-1)
     t = timed(torch, lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
                                                     True), 10)
@@ -708,14 +858,35 @@ def phase_inference_kernels(torch, record, err, results):
         xn = x.permute(0, 3, 1, 2)                  # channels-last NCHW
         wn = w.permute(3, 2, 0, 1).contiguous(
             memory_format=torch.channels_last)
-        t = timing(torch, "conv2d_kernel",
+        t = timing(torch, "conv_tc_kernel",
                    lambda: CV.implicit_gemm_conv2d(x, w, (s, s)),
                    lambda: CV.conv2d_plain(x, w, (s, s)),
                    lambda: F.conv2d(xn, wn, stride=s, padding=(k - 1) // 2),
                    10)
         per["conv2d"].append(dict(t, shape=f"B={B} bf16 {shape}",
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  tflops=ops / t["ms"] / 1e9))
+                                  bound_ms=b_ms, bound_by=b_by, ops=ops,
+                                  **rates(ops, t["ms"], b_ms,
+                                          t["library_ms"])))
+        emit({"phase": "kernels", "kernel": "conv2d",
+              "timing": per["conv2d"][-1]})
+        if (h, c, k, o, s) == CONV_F32_TIMED:
+            # the f32 route (SIMT body) keeps a time on record
+            # beside one f32 F.conv2d (TF32 is off for the whole run)
+            xf, wf = x.float(), w.float()
+            xnf, wnf = xf.permute(0, 3, 1, 2), wn.float()
+            b_f = bound(4 * (x_read + w.numel() + B * oh * oh * o), ops)
+            tf = timing(torch, "conv2d_kernel",
+                        lambda: CV.implicit_gemm_conv2d(xf, wf, (s, s)),
+                        lambda: CV.conv2d_plain(xf, wf, (s, s)),
+                        lambda: F.conv2d(xnf, wnf, stride=s,
+                                         padding=(k - 1) // 2), 5)
+            f32_route = dict(tf, shape=f"B={B} f32 {shape}",
+                             bound_ms=b_f[0], bound_by=b_f[1],
+                             **rates(ops, tf["ms"], b_f[0],
+                                     tf["library_ms"]))
+            emit({"phase": "kernels", "kernel": "conv2d",
+                  "timing_f32": f32_route})
+            del xf, wf, xnf, wnf
         del x, w, xn, wn
         xq, wq, xs, ws = int8(B, h, h, c), int8(k, k, c, o), scales(B), \
             scales(o)
@@ -823,6 +994,12 @@ def phase_inference_kernels(torch, record, err, results):
             bound_by=b_f[1]))
     for name in ("conv2d", "conv2d_int8"):
         results[name].update(_sum_timing(per[name]))
+    r = results["conv2d"]
+    r.update(rates(sum(t["ops"] for t in per["conv2d"]), r["ms"],
+                   r["bound_ms"], r["library_ms"]), f32_route=f32_route)
+    emit({"phase": "kernels", "kernel": "conv2d", "summed": {
+        k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                          "tflops", "bound_ratio", "library_ratio")}})
     for name in ("quantized_matmul", "fused_quantized_matmul"):
         # the kernels line carries the head's shape, the main path's
         results[name].update(per[name][0], shapes=per[name])
@@ -1143,7 +1320,8 @@ def phase_infer_main(torch, K, card):
         for name, ms in t["by_name"].items():
             n = name.lower()
             label = ("conv2d_int8" if "conv2d_int8_kernel" in n else
-                     "conv2d" if "conv2d_kernel" in n else
+                     "conv2d" if "conv_tc_kernel" in n
+                     or "conv2d_kernel" in n else
                      "int8_gemm" if "qmm_kernel" in n else
                      "cudnn_conv" if "conv" in n or "cudnn" in n
                      or "xmma" in n or "implicit" in n else
@@ -1415,7 +1593,7 @@ def phase_train_image_main(torch, K, card):
 
     def group(name):
         n = name.lower()
-        if "conv2d_kernel" in n:
+        if "conv_tc_kernel" in n or "conv2d_kernel" in n:
             return "conv2d_kernel"
         if "sgd_kernel" in n:
             return "fused_sgd"
@@ -1555,7 +1733,8 @@ def phase_train_main(torch, K, card):
 
     def group(name):
         n = name.lower()
-        for key, label in (("flash_fwd_kernel", "flash_fwd"),
+        for key, label in (("flash_fwd_tc_kernel", "flash_fwd"),
+                           ("flash_fwd_kernel", "flash_fwd"),
                            ("flash_bwd_dkdv_kernel", "flash_dkdv"),
                            ("flash_bwd_dq_kernel", "flash_dq"),
                            ("adam_kernel", "fused_adam")):
@@ -1802,10 +1981,10 @@ def main():
         t0 = time.perf_counter()
         built = _build.build()
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
-              "kernels": {k: {"reused": r.reused, "ptxas": [
-                  ln.split(":", 1)[-1].strip() for ln in
-                  r.ptxas.splitlines() if "Used" in ln or "spill" in ln]}
-                  for k, r in built.items()}})
+              "kernels": {k: {"reused": r.reused,
+                              "ptxas": ptxas_lines(r.ptxas)}
+                          for k, r in built.items()}})
+        mma, f32_mma = phase_sass(built)
 
         timing = phase_kernels(torch)
         phase_tiny(torch, K)
@@ -1849,8 +2028,17 @@ def main():
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "kernel_ms": t["kernel_ms"], "wall_ms": t["wall_ms"],
-                **({"composition_ms": t["composition_ms"]}
-                   if "composition_ms" in t else {})})
+                "mma": mma[k]["mma"],
+                **{key: t[key] for key in ("composition_ms", "tflops",
+                                           "bound_ratio", "library_ratio",
+                                           "shape") if key in t},
+                **({"f32_route": dict(
+                    {key: t["f32_route"][key] for key in (
+                        "ms", "plain_ms", "library_ms", "bound_ms",
+                        "bound_by", "tflops", "bound_ratio",
+                        "library_ratio", "shape", "max_abs_err")},
+                    mma=f32_mma[k]["mma"])}
+                   if "f32_route" in t else {})})
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})
         emit({"kernels": kernels})
         print(card, flush=True)

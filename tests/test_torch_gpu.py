@@ -348,6 +348,131 @@ def test_conv_kernels_match_plain(hopper, dtype, n, h, w, c, k, o, s,
     assert torch.equal(y, ref)
 
 
+# -- the bf16 tensor-core conv kernel at its edges ------------------------
+#
+# Against the plain version within 2**-7 of the largest output, as above:
+# one bf16 ulp, since both round one f32 sum (taken in another order)
+# that may land on either side of a tie.
+
+@pytest.mark.parametrize("n,h,w,c,k,o,vec", [
+    (1, 5, 7, 64, 1, 64, 8),      # 35 rows: not a multiple of the M tile
+    (2, 6, 6, 64, 3, 200, 8),     # O = 200: a ragged N tile
+    (2, 6, 6, 10, 3, 16, 2),      # C % 8 == 2: 4-byte copies
+    (2, 6, 6, 11, 3, 16, 1),      # C % 8 == 3: 2-byte copies
+    (2, 6, 6, 14, 1, 24, 2),      # C % 8 == 6: 4-byte copies
+    (2, 6, 6, 12, 3, 40, 4),      # C % 8 == 4: 8-byte copies
+    (2, 7, 7, 512, 3, 512, 8)])   # ResNet-50's 7x7 512 -> 512 at B = 2
+def test_bf16_conv_tensor_core_edges(hopper, n, h, w, c, k, o, vec):
+    from zoo_tpu_torch.ops.kernels import conv
+    g = _gen(hopper, 14)
+    x = torch.randn(n, h, w, c, generator=g, device=hopper).bfloat16()
+    wt = torch.randn(k, k, c, o, generator=g, device=hopper).bfloat16()
+    assert conv.conv_plan(n * h * w, c, o).vec == vec
+    before = conv.LAUNCHES
+    y = conv.implicit_gemm_conv2d(x, wt)
+    ref = conv.conv2d_plain(x, wt)
+    torch.cuda.synchronize()
+    assert conv.LAUNCHES == before + 1
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert _rel_err(y, ref) <= 2 ** -7
+
+
+def test_bf16_conv_on_an_unaligned_view(hopper):
+    """A contiguous view two bytes off a 16-byte boundary takes 2-byte
+    copies of the same kernel."""
+    from zoo_tpu_torch.ops.kernels import conv
+    g = _gen(hopper, 15)
+    base = torch.randn(1 + 2 * 8 * 8 * 64, generator=g,
+                       device=hopper).bfloat16()
+    x = base[1:].view(2, 8, 8, 64)
+    wt = torch.randn(3, 3, 64, 64, generator=g, device=hopper).bfloat16()
+    assert conv._alignment(x, wt) == 2
+    y = conv.implicit_gemm_conv2d(x, wt)
+    ref = conv.conv2d_plain(x, wt)
+    torch.cuda.synchronize()
+    assert _rel_err(y, ref) <= 2 ** -7
+
+
+# -- the bf16 tensor-core flash forward at its edges ----------------------
+#
+# Against the plain version within 3e-2 (one bf16 rounding of an O(1)
+# output is up to 4e-3, and the plain path rounds p at other points). A
+# row with no live column (causal, Tq > Tk) is o = 0 and lse = -inf, as
+# the Pallas kernel writes it; the plain path's finite mask gives another
+# value there, so such rows are checked against that rule instead.
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,tq,tk", [
+    (True, 5, 5),         # Tq < 16
+    (True, 9, 140),       # Tq < 16 against a longer, ragged K
+    (False, 100, 100),    # Tk not a multiple of the 64-row K tile
+    (True, 33, 130),      # causal with Tq < Tk
+    (True, 130, 45)])     # causal with Tq > Tk: rows with no live column
+def test_bf16_flash_forward_edges(hopper, d, causal, tq, tk):
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 16)
+    bf16 = torch.bfloat16
+    q = torch.randn(2, H, tq, d, generator=g, device=hopper).to(bf16)
+    k = torch.randn(2, HKV, tk, d, generator=g, device=hopper).to(bf16)
+    v = torch.randn(2, HKV, tk, d, generator=g, device=hopper).to(bf16)
+    before = FA.LAUNCHES
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1
+    live = torch.arange(tq, device=hopper) + (tk - tq) >= 0 if causal \
+        else torch.ones(tq, dtype=torch.bool, device=hopper)
+    assert _err(o[:, :, live], ro[:, :, live]) <= 3e-2
+    assert _err(lse[:, :, live], rlse[:, :, live]) <= 3e-2
+    assert torch.all(o[:, :, ~live] == 0)
+    assert torch.all(lse[:, :, ~live] == -math.inf)
+
+
+def test_bf16_flash_forward_on_an_unaligned_view(hopper):
+    """A contiguous q two bytes off a 16-byte boundary is copied to an
+    aligned buffer and still launches the kernel."""
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 18)
+    bf16 = torch.bfloat16
+    base = torch.randn(1 + 2 * H * 70 * 64, generator=g,
+                       device=hopper).to(bf16)
+    q = base[1:].view(2, H, 70, 64)
+    k = torch.randn(2, HKV, 70, 64, generator=g, device=hopper).to(bf16)
+    v = torch.randn(2, HKV, 70, 64, generator=g, device=hopper).to(bf16)
+    assert q.data_ptr() % 16 == 2
+    before = FA.LAUNCHES
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    ro, rlse = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1
+    assert _err(o, ro) <= 3e-2 and _err(lse, rlse) <= 3e-2
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_backward_kernels_take_the_tensor_core_lse(hopper, d):
+    """The backward kernels, fed the bf16 forward's o and lse, against
+    autograd of the dense path in f32 from the same bf16 inputs: within
+    3e-2 of the largest gradient (the dense path rounds neither p nor ds
+    to bf16; half a bf16 ulp of a gradient near 8 is 2**-5)."""
+    from zoo_tpu_torch.ops.attention import dense_attention
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 17)
+    bf16 = torch.bfloat16
+    q = torch.randn(2, H, 150, d, generator=g, device=hopper).to(bf16)
+    k = torch.randn(2, HKV, 150, d, generator=g, device=hopper).to(bf16)
+    v = torch.randn(2, HKV, 150, d, generator=g, device=hopper).to(bf16)
+    do = torch.randn(2, H, 150, d, generator=g, device=hopper).to(bf16)
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(dense_attention(*leaves, causal=True)[0],
+                               leaves, do.float())
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        tol = 3e-2 * max(1.0, float(b.abs().max()))
+        assert _err(a, b) <= tol, name
+
+
 @pytest.mark.parametrize("m,k,n", [(128, 2048, 1000), (5, 33, 70),
                                    (64, 96, 64), (130, 260, 17)])
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])

@@ -16,30 +16,23 @@
 // GEMM. No im2col buffer exists either: the A slice of each step is
 // gathered from the image straight into shared memory.
 //
-// Int8 epilogue: f32(acc) * xs[image] * ws[o], in that order, as
-// _conv_kernel_q applies it (conv.py:139).
-//
-// What bounds it on an H100, against the bf16 tensor cores (~295 flop
-// per byte of memory traffic): bytes for ResNet-50's 1x1 convs (256 ->
-// 64 at 56x56, B=128, bf16: 13.2 GFLOP over 0.26 GB, 51 flop/byte),
-// operations for its 3x3 ones (128 -> 128 at 28x28: 29.6 GFLOP over
-// 52 MB, 572 flop/byte). This first version runs on the SIMT units (f32
-// FMAs, __dp4a for int8), which makes operations the limit everywhere:
-// 64 x 64 output tiles, 32-deep slices staged in shared memory, a 4 x 4
-// register micro-tile per thread. Tensor-core tiles (mma/wgmma) are the
-// later speed work.
+// Three kernels:
+// - bf16: conv_tc::conv_tc_kernel (conv2d_tc.cuh), on the tensor cores
+//   (wgmma, a cp.async ring); its header says what bounds it.
+// - f32: conv2d_kernel below, on the SIMT units (f32 FMAs). Tensor cores
+//   would mean TF32, which keeps ~3 decimal digits where the f32 path is
+//   held to 1e-5; so it stays a SIMT kernel: 64 x 64 output tiles,
+//   32-deep slices staged in shared memory, a 4 x 4 register micro-tile
+//   per thread (zt_gemm.cuh).
+// - int8: conv2d_int8_kernel below, __dp4a on the same tiles. Epilogue:
+//   f32(acc) * xs[image] * ws[o], in that order, as _conv_kernel_q
+//   applies it (conv.py:139).
+#include "conv2d_tc.cuh"
 #include "zt_gemm.cuh"
 
 namespace zt {
 
 using namespace gemm;
-
-struct ConvArgs {
-  int n, h, w, c;       // input, NHWC
-  int kh, kw, o;        // weights, HWIO (kh, kw, c, o)
-  int sh, sw, ph, pw;   // strides and leading pads
-  int oh, ow;           // output spatial dims
-};
 
 // The A rows this thread loads: per row its image (-1 past the last
 // row) and the top-left input pixel of its window, which may lie in the
@@ -92,7 +85,7 @@ __device__ __forceinline__ long long w_offset(const ConvArgs& a, int tap,
 template <typename T>
 __global__ void __launch_bounds__(kGemmThreads)
     conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  T* __restrict__ y, ConvArgs a) {
+                  T* __restrict__ y, ConvArgs a) {   // T = float only
   __shared__ FloatTile t;
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
@@ -192,28 +185,25 @@ inline bool valid(const ConvArgs& a) {
 }  // namespace zt
 
 // Float conv: x (n, h, w, c) and wt (kh, kw, c, o) of dtype (0 = f32,
-// 1 = bf16), y (n, oh, ow, o) of the same dtype; all contiguous.
+// 1 = bf16), y (n, oh, ow, o) of the same dtype; all contiguous. bf16
+// takes the tensor-core kernel with the plan (bn, stages, vec, smem)
+// that conv_plan() gives; f32 takes the SIMT kernel and ignores the plan.
 extern "C" int zt_conv2d(const void* x, const void* wt, void* y, int dtype,
                          int n, int h, int w, int c, int kh, int kw, int o,
                          int sh, int sw, int ph, int pw, int oh, int ow,
+                         int bn, int stages, int vec, int smem,
                          void* stream) {
   using namespace zt;
   const ConvArgs a{n, h, w, c, kh, kw, o, sh, sw, ph, pw, oh, ow};
   if (!valid(a)) return cudaErrorInvalidValue;
-  const dim3 grid = grid_for(static_cast<long long>(n) * oh * ow, o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) {
-    conv2d_kernel<float><<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wt),
-        static_cast<float*>(y), a);
-  } else if (dtype == kBF16) {
-    conv2d_kernel<__nv_bfloat16><<<grid, kGemmThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(wt),
-        static_cast<__nv_bfloat16*>(y), a);
-  } else {
-    return cudaErrorInvalidValue;
-  }
+  if (dtype == kBF16)
+    return conv_tc::conv2d_bf16(x, wt, y, a, bn, stages, vec, smem, s);
+  if (dtype != kF32) return cudaErrorInvalidValue;
+  const dim3 grid = grid_for(static_cast<long long>(n) * oh * ow, o);
+  conv2d_kernel<float><<<grid, kGemmThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wt),
+      static_cast<float*>(y), a);
   return cudaGetLastError();
 }
 

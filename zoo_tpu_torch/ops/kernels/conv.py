@@ -2,12 +2,14 @@
 (counterpart of ``zoo_tpu/ops/pallas/conv.py``).
 
 Layouts are the JAX package's: NHWC activations, HWIO weights. The
-kernels are ``zoo_tpu_torch/csrc/conv2d.cu`` (its header says what
-bounds them): a float one (f32 or bf16 in, f32 accumulation, output in
-the input type) and an int8 one (int32 accumulation, dequantized to f32
-in the epilogue). Both cover the JAX kernels' envelope, a 1x1 conv at
-any stride and a 3x3 conv at stride 1, SAME or VALID; the halo reads as
-zero inside the kernel, so no padded copy is made.
+kernels are ``zoo_tpu_torch/csrc/conv2d.cu`` and ``conv2d_tc.cuh``
+(their headers say what bounds them): a float one (f32 or bf16 in, f32
+accumulation, output in the input type; bf16 on the tensor cores with
+the tiles :func:`conv_plan` picks, f32 on the SIMT units) and an int8
+one (int32 accumulation, dequantized to f32 in the epilogue). All cover
+the JAX kernels' envelope, a 1x1 conv at any stride and a 3x3 conv at
+stride 1, SAME or VALID; the halo reads as zero inside the kernel, so
+no padded copy is made.
 
 :func:`resolve_conv_impl` is the single selection rule, used by the
 Keras conv layer and the int8 conv path: ``auto`` picks the kernel on a
@@ -27,6 +29,7 @@ package has no backward conv kernel. The int8 conv is inference-only.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple, Union
 
 import torch
@@ -37,7 +40,7 @@ from zoo_tpu_torch.ops.kernels import _launch as L
 from zoo_tpu_torch.ops.kernels import on_cuda
 
 __all__ = ["conv2d", "conv2d_int8", "resolve_conv_impl",
-           "pallas_conv_supported"]
+           "pallas_conv_supported", "conv_plan"]
 
 # kernel launches since the last reset (see ops.kernels.launch_counts)
 LAUNCHES = 0
@@ -53,11 +56,80 @@ def _entries():
         from zoo_tpu_torch.ops.kernels._build import library
         lib = library("conv2d")
         fl, q = lib.zt_conv2d, lib.zt_conv2d_int8
-        fl.argtypes = [L.P] * 3 + [L.I] * 14 + [L.P]
+        fl.argtypes = [L.P] * 3 + [L.I] * 18 + [L.P]
         q.argtypes = [L.P] * 5 + [L.I] * 13 + [L.P]
         fl.restype = q.restype = L.I
         _fns = (lib, fl, q)
     return _fns
+
+
+# the bf16 tensor-core kernel (csrc/conv2d_tc.cuh): output rows of a
+# block (two warpgroups of 64), channels per reduction step
+_TC_BM, _TC_BK = 128, 64
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """Launch plan of the bf16 conv kernel: a ``bm`` x ``bn`` output tile
+    per block of ``threads``, a ring of ``stages`` slots filled by copies
+    of ``vec`` channels (``2 * vec`` bytes), ``smem`` bytes of dynamic
+    shared memory, ``m_tiles`` x ``n_tiles`` blocks."""
+    bm: int
+    bn: int
+    stages: int
+    vec: int
+    smem: int
+    threads: int
+    m_tiles: int
+    n_tiles: int
+
+    @property
+    def copy_bytes(self) -> int:
+        return 2 * self.vec
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def conv_plan(rows: int, c: int, o: int, align: int = 16) -> ConvPlan:
+    """The bf16 kernel's plan for ``rows`` = N*OH*OW output pixels, ``c``
+    input and ``o`` output channels, pointers aligned to ``align`` bytes.
+
+    - Copy width: the widest of 8, 4, 2, 1 channels that divides ``c``
+      and ``o`` and whose bytes divide ``align`` (16-byte copies for
+      every ResNet-50 shape).
+    - Tile: 128 rows (a warpgroup per 64) by 64 columns where ``o <= 64``
+      (one tile covers O, so the activation is read once), with 4 ring
+      stages; else by 128 columns, with 3 stages. Either way a block
+      takes 101,376 bytes of shared memory and at most 128 registers a
+      thread (16-byte copies), so two blocks share an SM: ResNet-50's
+      7x7 convs (6,272 rows x 512 channels, 196 tiles) are resident at
+      once on 132 SMs, one wave.
+    """
+    if min(rows, c, o) <= 0:
+        raise ValueError(f"empty conv: rows={rows} c={c} o={o}")
+    vec = next(v for v in (8, 4, 2, 1)
+               if c % v == 0 and o % v == 0 and align % (2 * v) == 0)
+    bm, (bn, stages) = _TC_BM, ((64, 4) if o <= 64 else (128, 3))
+    stage = (bm + bn) * _TC_BK * 2
+    smem = 1024 + max(stages * stage, bm * (bn + 8) * 2) + 16 * bm
+    return ConvPlan(bm, bn, stages, vec, smem, 2 * bm, _cdiv(rows, bm),
+                    _cdiv(o, bn))
+
+
+def _alignment(*tensors) -> int:
+    """The largest power of two, at most 16, dividing every data
+    pointer."""
+    a = 16
+    for t in tensors:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
 
 
 def pallas_conv_supported(kernel: Tuple[int, int],
@@ -239,11 +311,15 @@ def _launch_conv2d(x, w, strides, padding) -> torch.Tensor:
     L.require(x, "x", dev, (torch.float32, torch.bfloat16))
     L.require(w, "w", dev, (x.dtype,))
     args = _conv_args(x, w, strides, padding)
-    y = torch.empty((args[0], args[11], args[12], args[6]), dtype=x.dtype,
-                    device=dev)
+    n, c, o, oh, ow = args[0], args[3], args[6], args[11], args[12]
+    y = torch.empty((n, oh, ow, o), dtype=x.dtype, device=dev)
+    plan = (0,) * 4                     # the f32 SIMT kernel takes none
+    if x.dtype == torch.bfloat16:
+        p = conv_plan(n * oh * ow, c, o, _alignment(x, w))
+        plan = (p.bn, p.stages, p.vec, p.smem)
     lib, fl, _ = _entries()
     rc = fl(L.ptr(x), L.ptr(w), L.ptr(y), L.DTYPE_CODES[x.dtype], *args,
-            L.stream(dev))
+            *plan, L.stream(dev))
     L.check(lib, rc, "conv2d")
     LAUNCHES += 1
     return y

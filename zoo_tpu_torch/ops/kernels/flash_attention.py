@@ -2,9 +2,11 @@
 ``zoo_tpu/ops/pallas/flash_attention.py``).
 
 The kernels are ``zoo_tpu_torch/csrc/flash_attention_fwd.cu`` (forward,
-returning the logsumexp) and ``zoo_tpu_torch/csrc/flash_attention_bwd.cu``
-(dK/dV, then dQ, recomputed from that logsumexp); their headers say what
-bounds them and how they are laid out. This module holds the wrappers,
+returning the logsumexp: bf16 on the tensor cores with the plan
+:func:`flash_plan` counts, f32 on the SIMT units) and
+``zoo_tpu_torch/csrc/flash_attention_bwd.cu`` (dK/dV, then dQ,
+recomputed from that logsumexp); their headers say what bounds them and
+how they are laid out. This module holds the wrappers,
 the plain versions and :class:`FlashAttention`, the autograd function
 that makes :func:`flash_attention` differentiable, as the JAX package's
 ``custom_vjp`` does.
@@ -29,6 +31,20 @@ _bwd_fns = None
 HEAD_DIMS = (16, 32, 64, 128)
 
 
+# the bf16 tensor-core kernel (csrc/flash_attention_fwd.cu, tc::): query
+# rows of a block (4 warps of 16), rows of a K/V tile, slots of its ring
+_TC_BQ, _TC_BKV, _TC_STAGES = 64, 64, 2
+
+
+def flash_plan(head_dim: int) -> int:
+    """The bf16 forward kernel's launch plan at ``head_dim``: the bytes of
+    dynamic shared memory it takes, the bf16 Q tile and the K/V ring.
+    The tiles are the same at every head dim: 4 warps (64 query rows),
+    64-row K and V tiles, 2 stages."""
+    _require_head_dim(head_dim)
+    return 2 * head_dim * (_TC_BQ + 2 * _TC_STAGES * _TC_BKV)
+
+
 def flash_attention_plain(q, k, v, causal=False, scale=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` by the dense path: the plain PyTorch version of
@@ -44,7 +60,7 @@ def _entry():
         from zoo_tpu_torch.ops.kernels._build import library
         lib = library("flash_attention")
         fn = lib.zt_flash_attention_fwd
-        fn.argtypes = [L.P] * 5 + [L.I] * 6 + [L.F, L.I, L.I, L.P]
+        fn.argtypes = [L.P] * 5 + [L.I] * 6 + [L.F] + [L.I] * 3 + [L.P]
         fn.restype = L.I
         _fn = (lib, fn)
     return _fn
@@ -85,7 +101,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over (B, H, T, D) returning ``(o, lse)``: ``o`` in
     ``q``'s dtype, ``lse`` (B, H, Tq) f32. ``k``/``v`` may carry fewer
     heads than ``q`` (GQA, never repeated). Causal masking is
-    end-aligned (column <= row + Tk - Tq).
+    end-aligned (column <= row + Tk - Tq). A bf16 input that is not
+    16-byte aligned is copied to an aligned buffer for the kernel.
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
     the kernel (or raise)."""
@@ -102,10 +119,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require_head_dim(D)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), device=dev, dtype=torch.float32)
+    smem = 0                            # the f32 SIMT kernel takes none
+    if q.dtype == torch.bfloat16:
+        # the kernel copies 16 bytes at a time: a view off a 16-byte
+        # boundary is copied into a fresh (aligned) buffer first
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
+        smem = flash_plan(D)
     lib, fn = _entry()
     rc = fn(L.ptr(q), L.ptr(k), L.ptr(v), L.ptr(o), L.ptr(lse), B, H, Hkv,
             Tq, Tk, D, float(scale), int(bool(causal)),
-            L.DTYPE_CODES[q.dtype], L.stream(dev))
+            L.DTYPE_CODES[q.dtype], smem, L.stream(dev))
     L.check(lib, rc, "flash_attention")
     LAUNCHES += 1
     return o, lse
