@@ -14,7 +14,7 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 2b. sass — how each kernel multiplies, read from the built libraries'
    SASS (``cuobjdump -sass``): ``wgmma`` (HGMMA), ``mma.sync`` (HMMA,
    IMMA) or ``simt``; fails unless the bf16 conv and the bf16 flash
-   forward run on the tensor cores;
+   forward and backward (dK/dV, dQ) run on the tensor cores;
 3. kernels — each kernel against its plain PyTorch version at the
    Llama-3-8B serving shapes, for f32, bf16 and int8 caches and the
    position edges, then timed (device time per call from
@@ -78,8 +78,10 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 
 Phase 3 also holds the flash forward (o, lse) and backward kernels
 (dK/dV, dQ) against their plain versions, and the gradients against
-autograd of the dense path, at B=8, H=12, Hkv=4, T=512, D=64, and the
-fused AdamW and SGD kernels against theirs, then times them at the
+autograd of the dense path, at B=8 and B=64, H=12, Hkv=4, T=512, D=64
+(the f32 backward route timed at B=8), checks that the reference
+conv's f32 gradients do not change with cuDNN's TF32 switched on, and
+holds the fused AdamW and SGD kernels against theirs, then times them at the
 training config's shapes beside their bounds and a library yardstick
 (``scaled_dot_product_attention`` and its backward, ``torch.optim``'s
 fused AdamW and SGD) the port never calls; and the implicit-GEMM conv
@@ -92,13 +94,13 @@ unfused cuDNN composition (three ``F.conv2d``, the ReLUs and the add),
 a yardstick the port never calls.
 
 The bf16 conv (per shape and summed), the f32 conv at one shape and
-the bf16 flash forward at the training shape also print TFLOP/s, the
-share of their bound they reach and their time over the library
-call's.
+the bf16 flash forward and backward kernels at the training shape
+also print TFLOP/s, the share of their bound they reach and their time
+over the library call's.
 
 Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route;
-for ``conv2d`` and ``flash_attention`` the numbers are the bf16 route's,
-the f32 route's sit under ``f32_route``), the card's name and power
+for ``conv2d`` and the three flash kernels the numbers are the bf16
+route's, the f32 route's sit under ``f32_route``), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device":
 ...}``.
 Any failure exits non-zero without the ``ok`` line. Without a CUDA
@@ -189,12 +191,13 @@ TOL_MAIN_BF16 = 5e-2
 
 
 # kernel -> (its library, the __global__ function of its main-path
-# route): for conv2d and the flash forward the bf16 tensor-core bodies;
-# their f32 routes are F32_ROUTES
+# route): for conv2d and the flash forward and backward the bf16
+# tensor-core bodies; their f32 routes are F32_ROUTES
 MMA_FUNCTIONS = {
     "flash_attention": ("flash_attention", "flash_fwd_tc_kernel"),
-    "flash_attention_dkdv": ("flash_attention_bwd", "flash_bwd_dkdv_kernel"),
-    "flash_attention_dq": ("flash_attention_bwd", "flash_bwd_dq_kernel"),
+    "flash_attention_dkdv": ("flash_attention_bwd",
+                             "flash_bwd_dkdv_tc_kernel"),
+    "flash_attention_dq": ("flash_attention_bwd", "flash_bwd_dq_tc_kernel"),
     "fused_bottleneck": ("fused_block", "fused_bottleneck_kernel"),
     "fused_adam": ("fused_optim", "adam_kernel"),
     "fused_sgd": ("fused_optim", "sgd_kernel"),
@@ -205,9 +208,14 @@ MMA_FUNCTIONS = {
     "quantized_matmul": ("quant_matmul", "qmm_kernel"),
     "fused_quantized_matmul": ("quant_matmul", "fqmm_kernel")}
 F32_ROUTES = {"flash_attention": ("flash_attention", "flash_fwd_kernel"),
+              "flash_attention_dkdv": ("flash_attention_bwd",
+                                       "flash_bwd_dkdv_kernel"),
+              "flash_attention_dq": ("flash_attention_bwd",
+                                     "flash_bwd_dq_kernel"),
               "conv2d": ("conv2d", "conv2d_kernel")}
 # kernels whose main-path route must run on the tensor cores
-TENSOR_CORE_KERNELS = ("conv2d", "flash_attention")
+TENSOR_CORE_KERNELS = ("conv2d", "flash_attention", "flash_attention_dkdv",
+                       "flash_attention_dq")
 
 
 def emit(obj):
@@ -287,7 +295,8 @@ def mma_route(funcs, function):
 
 def phase_sass(built):
     """Each kernel's multiply route from the built libraries' SASS; fails
-    unless conv2d and the flash forward run on the tensor cores."""
+    unless the bf16 routes of conv2d and the flash forward and backward
+    run on the tensor cores."""
     sass = {lib: sass_functions(r.path) for lib, r in built.items()}
     routes = {k: mma_route(sass[lib], fn)
               for k, (lib, fn) in MMA_FUNCTIONS.items()}
@@ -572,9 +581,11 @@ def phase_kernels(torch):
     phase_training_kernels(torch, record, err, results)
     phase_inference_kernels(torch, record, err, results)
     phase_block_kernels(torch, record, err, results)
-    # conv2d and the flash forward: the line's numbers are the bf16
+    # conv2d and the flash kernels: the line's numbers are the bf16
     # (tensor-core) route's, the f32 (SIMT) route's sit under f32_route
     for k, bf, f32 in (("flash_attention", "bfloat16", "float32"),
+                       ("flash_attention_dkdv", "bfloat16", "float32"),
+                       ("flash_attention_dq", "bfloat16", "float32"),
                        ("conv2d", "conv_bf16", "conv_f32")):
         by = results[k]["max_abs_err_by_dtype"]
         results[k]["max_abs_err"] = by[bf]
@@ -594,6 +605,92 @@ def _train_leaf_shapes():
             (L, h, kv), (L, h, h), (L, h), (L, h),
             (L, h, c["intermediate"]), (L, h, c["intermediate"]),
             (L, c["intermediate"], h)]
+
+
+def _bwd_timing(torch, FA, q, k, v, o, lse, do):
+    """The two backward kernels timed in one ``flash_attention_bwd``
+    call (causal), each beside its plain version, its bound (bf16 at the
+    tensor cores' peak, f32 at the SIMT peak) and SDPA's backward (all
+    three gradients, one call; the same for both), with its TFLOP/s,
+    share of its bound and factor over SDPA's backward."""
+    import torch.nn.functional as F
+    B, H, S, D = q.shape
+    pairs = B * H * S * (S + 1) // 2
+    item = q.element_size()
+    qb, kb = q.numel() * item, k.numel() * item
+    stats = 2 * B * H * S * 4                      # lse + delta, f32
+    peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    delta = (do.float() * o.float()).sum(-1)
+    t = timed(torch, lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
+                                                    True), 10)
+    lq, lk, ls = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    lo = F.scaled_dot_product_attention(lq, lk, ls, is_causal=True,
+                                        enable_gqa=True)
+    lib = timed(torch, lambda: torch.autograd.grad(
+        lo, (lq, lk, ls), do, retain_graph=True), 10)["device_ms"]
+    tc = q.dtype == torch.bfloat16
+    out = {}
+    for kernel, name, plain, nbytes, flops in (
+            ("flash_attention_dkdv",
+             "flash_bwd_dkdv_tc_kernel" if tc else "flash_bwd_dkdv_kernel",
+             lambda: FA.flash_attention_dkdv_plain(q, k, v, do, lse, delta,
+                                                   True),
+             2 * qb + 2 * kb + stats + 2 * kb, 8 * D * pairs),
+            ("flash_attention_dq",
+             "flash_bwd_dq_tc_kernel" if tc else "flash_bwd_dq_kernel",
+             lambda: FA.flash_attention_dq_plain(q, k, v, do, lse, delta,
+                                                 True),
+             2 * qb + 2 * kb + stats + qb, 6 * D * pairs)):
+        ms = sum(v_ for n, v_ in t["by_name"].items() if name in n)
+        if not ms > 0:
+            raise AssertionError(f"{name}: no device time recorded "
+                                 f"({t['device_source']})")
+        b_ms, b_by = bound(nbytes, flops, peak)
+        out[kernel] = dict(
+            ms=ms, wall_ms=t["wall_ms"], kernel_ms=ms,
+            plain_ms=timed(torch, plain, 3)["device_ms"], library_ms=lib,
+            bound_ms=b_ms, bound_by=b_by, **rates(flops, ms, b_ms, lib))
+    return out
+
+
+def _check_reference_conv_grads(torch, record, err):
+    """The reference conv's gradients (f32, 3x3 stride 2, as ResNet-50's
+    3x3/s2 convs take them) with cuDNN's TF32 switched on equal those
+    with it off: its backward turns TF32 off itself. Beside them, the
+    error autograd of the same ``F.conv2d`` takes under TF32 (what the
+    backward was before it did), for scale only."""
+    import torch.nn.functional as F
+    from zoo_tpu_torch.ops.kernels import conv as CV
+    g = torch.Generator(device="cuda").manual_seed(99)
+    x = torch.randn(32, 28, 28, 256, generator=g, device="cuda")
+    w = torch.randn(3, 3, 256, 256, generator=g, device="cuda") * 0.05
+    dy = torch.randn(32, 14, 14, 256, generator=g, device="cuda")
+    flag = torch.backends.cudnn.allow_tf32
+
+    def grads(tf32, plain=True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        if plain:
+            y = CV.conv2d_plain(xs, ws, (2, 2), "SAME")
+        else:   # autograd of F.conv2d, as SAME pads 28 -> 14 at stride 2
+            y = F.conv2d(F.pad(xs.permute(0, 3, 1, 2), (0, 1, 0, 1)),
+                         ws.permute(3, 2, 0, 1), stride=2).permute(
+                             0, 2, 3, 1)
+        return torch.autograd.grad(y, (xs, ws), dy)
+
+    try:
+        off, on = grads(False), grads(True)
+        tf32 = grads(True, plain=False)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    for name, a, b, c in zip(("dx", "dw"), on, off, tf32):
+        mag = float(b.abs().max())
+        emit({"phase": "kernels", "check": "reference_conv_grads",
+              "grad": name, "tf32_on_vs_off": err(a, b),
+              "autograd_under_tf32_vs_off": err(c, b), "magnitude": mag})
+        record("conv2d_reference", f"{name} f32 3x3/s2, TF32 on vs off",
+               err(a, b) / mag, "conv_f32")
 
 
 def phase_training_kernels(torch, record, err, results):
@@ -678,34 +775,50 @@ def phase_training_kernels(torch, record, err, results):
     shape = f"bfloat16 causal=True Tq={S} Tk={S} D={D} B={B}"
     record("flash_attention", "o " + shape, err(o, ro), "bfloat16")
     record("flash_attention", "lse " + shape, err(lse, rlse), "bfloat16")
-    del ro, rlse
+    # the backward at the training shape against its plain version and
+    # autograd of the dense path, as the B=8 cases
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    for i, part in enumerate(("dq", "dk", "dv")):
+        kernel = "flash_attention_dq" if part == "dq" else \
+            "flash_attention_dkdv"
+        record(kernel, f"{part} {shape}", err(got[i], plain[i]), "bfloat16")
+    del ro, rlse, plain
     torch.cuda.empty_cache()
-    delta = (do.float() * o.float()).sum(-1)
-    t = timed(torch, lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
-                                                    True), 10)
-    lq, lk, ls = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    lo = F.scaled_dot_product_attention(lq, lk, ls, is_causal=True,
-                                        enable_gqa=True)
-    lib = timed(torch, lambda: torch.autograd.grad(
-        lo, (lq, lk, ls), do, retain_graph=True), 10)["device_ms"]
-    stats = 2 * B * H * S * 4                      # lse + delta, f32
-    for kernel, name, plain, nbytes, flops in (
-            ("flash_attention_dkdv", "flash_bwd_dkdv_kernel",
-             lambda: FA.flash_attention_dkdv_plain(q, k, v, do, lse, delta,
-                                                   True),
-             2 * qb + 2 * kb + stats + 2 * kb, 8 * D * pairs),
-            ("flash_attention_dq", "flash_bwd_dq_kernel",
-             lambda: FA.flash_attention_dq_plain(q, k, v, do, lse, delta,
-                                                 True),
-             2 * qb + 2 * kb + stats + qb, 6 * D * pairs)):
-        b_ms, b_by = bound(nbytes, flops, PEAK_BF16_FLOPS)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    dense = torch.autograd.grad(
+        dense_attention(*leaves, causal=True)[0], leaves, do.float())
+    torch.cuda.synchronize()
+    for i, part in enumerate(("dq", "dk", "dv")):
+        kernel = "flash_attention_dq" if part == "dq" else \
+            "flash_attention_dkdv"
+        record(kernel, f"{part} {shape} vs dense autograd",
+               err(got[i], dense[i]), "bfloat16",
+               float(dense[i].abs().max()))
+    del got, leaves, dense
+    torch.cuda.empty_cache()
+    # the bf16 (tensor-core) route at the main path's shape; the f32
+    # (SIMT) route at B=8, its time kept under f32_route
+    for kernel, t in _bwd_timing(torch, FA, q, k, v, o, lse, do).items():
         results[kernel].update(
-            ms=sum(ms for n, ms in t["by_name"].items() if name in n),
-            wall_ms=t["wall_ms"], kernel_ms=None,
-            plain_ms=timed(torch, plain, 3)["device_ms"], library_ms=lib,
-            bound_ms=b_ms, bound_by=b_by)
-    del q, k, v, do, o, lse, delta, lq, lk, ls, lo
+            t, shape=f"B={B} H={H} Hkv={HKV} T={S} D={D} bf16 causal")
+        emit({"phase": "kernels", "kernel": kernel, "summed": {
+            key: results[kernel][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "tflops",
+                "bound_ratio", "library_ratio", "shape")}})
+    del q, k, v, do, o, lse
     torch.cuda.empty_cache()
+    B32 = 8
+    q, do = randn(B32, H, S, D), randn(B32, H, S, D)
+    k, v = randn(B32, HKV, S, D), randn(B32, HKV, S, D)
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    for kernel, t in _bwd_timing(torch, FA, q, k, v, o, lse, do).items():
+        results[kernel]["f32_route"] = dict(
+            t, shape=f"B={B32} H={H} Hkv={HKV} T={S} D={D} f32 causal")
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    _check_reference_conv_grads(torch, record, err)
 
     # -- E: fused AdamW and SGD ------------------------------------------
     # every input at a scale where one step moves each output (p, m, v,
@@ -1735,8 +1848,8 @@ def phase_train_main(torch, K, card):
         n = name.lower()
         for key, label in (("flash_fwd_tc_kernel", "flash_fwd"),
                            ("flash_fwd_kernel", "flash_fwd"),
-                           ("flash_bwd_dkdv_kernel", "flash_dkdv"),
-                           ("flash_bwd_dq_kernel", "flash_dq"),
+                           ("flash_bwd_dkdv", "flash_dkdv"),
+                           ("flash_bwd_dq", "flash_dq"),
                            ("adam_kernel", "fused_adam")):
             if key in n:
                 return label

@@ -473,6 +473,64 @@ def test_flash_backward_kernels_take_the_tensor_core_lse(hopper, d):
         assert _err(a, b) <= tol, name
 
 
+# -- the bf16 tensor-core flash backward at its edges ---------------------
+#
+# dK/dV and dQ of the bf16 route against the plain version within 3e-2,
+# fed the bf16 forward's o and lse (rows with no live column have
+# lse = -inf there, and get no gradient from either).
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,hkv,causal,tq,tk", [
+    (8, 8, True, 5, 5),         # rep 1, one ragged tile of either
+    (6, 2, True, 33, 130),      # rep 3, causal with Tq < Tk (end-aligned)
+    (8, 1, False, 100, 100),    # rep 8, T not a multiple of the tile
+    (6, 2, True, 130, 45),      # Tq > Tk: rows whose lse is -inf
+    (8, 2, True, 192, 192)])    # several whole tiles, the causal skips
+def test_bf16_flash_backward_edges(hopper, d, h, hkv, causal, tq, tk):
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 19)
+    bf16 = torch.bfloat16
+    q, do = (torch.randn(2, h, tq, d, generator=g, device=hopper).to(bf16)
+             for _ in "ab")
+    k, v = (torch.randn(2, hkv, tk, d, generator=g, device=hopper).to(bf16)
+            for _ in "ab")
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+    before = (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == bf16 and torch.isfinite(a).all(), name
+        assert _err(a, b) <= TOL[bf16], name
+    empty = torch.isinf(lse)
+    assert bool(empty.any()) == (causal and tq > tk)
+    assert torch.all(got[0][empty] == 0)
+
+
+def test_bf16_flash_backward_on_an_unaligned_view(hopper):
+    """q and dO two bytes off a 16-byte boundary are copied to aligned
+    buffers and still launch the tensor-core kernels."""
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 20)
+    bf16 = torch.bfloat16
+    q, do = (torch.randn(1 + 2 * H * 70 * 64, generator=g, device=hopper)
+             .to(bf16)[1:].view(2, H, 70, 64) for _ in "ab")
+    k, v = (torch.randn(2, HKV, 70, 64, generator=g, device=hopper).to(bf16)
+            for _ in "ab")
+    assert q.data_ptr() % 16 == 2 and do.data_ptr() % 16 == 2
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    before = (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _err(a, b) <= TOL[bf16], name
+
+
 @pytest.mark.parametrize("m,k,n", [(128, 2048, 1000), (5, 33, 70),
                                    (64, 96, 64), (130, 260, 17)])
 @pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
@@ -628,6 +686,50 @@ def test_conv_kernel_fit_trains_on_the_card(hopper, policy):
             assert float(b.abs().max()) > 1e-3, (k, leaf)
             assert _err(a, b) <= tol * max(1.0, float(b.abs().max())), \
                 (k, leaf)
+
+
+def test_reference_conv_fit_takes_f32_gradients(hopper):
+    """A ``Conv2D`` outside the kernel's envelope (3x3, stride 2) takes
+    the reference conv. With cuDNN's TF32 at PyTorch's default (on), one
+    f32 ``fit`` step on the card takes the gradient the CPU takes, within
+    the f32 tolerance: the reference conv's backward runs in f32 with
+    TF32 off, as its forward does."""
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    from zoo_tpu_torch.pipeline.api.keras.layers import Conv2D, Dense
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+    rs = np.random.RandomState(1)
+    x = rs.randn(8, 16, 16, 32).astype(np.float32)
+    y = rs.randn(8, 8, 8, 3).astype(np.float32)
+    start, moved = None, {}
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for dev in ("cpu", "cuda"):
+            m = Sequential()
+            m.add(Conv2D(32, 3, 3, border_mode="same", subsample=(2, 2),
+                         dim_ordering="tf", input_shape=(16, 16, 32)))
+            m.add(Dense(3))
+            m.compile(SGD(lr=1.0), "mse")
+            m.build(_gen(torch.device("cpu"), 21), device="cpu")
+            if start is None:
+                start = tree_map(torch.clone, m.params)
+            m.params = tree_map(lambda t: t.clone().to(dev), start)
+            reset_launch_counts()
+            m.fit(x, y, batch_size=8, nb_epoch=1, verbose=0, device=dev)
+            torch.cuda.synchronize()
+            assert launch_counts()["conv2d"] == 0    # the reference conv
+            moved[dev] = tree_map(lambda a, b: (a.detach().cpu() - b),
+                                  m.params, start)
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+    for k in ("000_convolution2d", "001_dense"):
+        for leaf, a in moved["cuda"][k].items():
+            b = moved["cpu"][k][leaf]
+            assert float(b.abs().max()) > 1e-3, (k, leaf)
+            assert _err(a, b) <= TOL[torch.float32] * max(
+                1.0, float(b.abs().max())), (k, leaf)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

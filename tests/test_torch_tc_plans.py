@@ -1,8 +1,9 @@
 """Launch plans of the port's tensor-core kernels, on the CPU.
 
-``conv_plan`` (the bf16 conv kernel, ``csrc/conv2d_tc.cuh``) and
+``conv_plan`` (the bf16 conv kernel, ``csrc/conv2d_tc.cuh``),
 ``flash_plan`` (the bf16 flash forward, ``csrc/flash_attention_fwd.cu``)
-are counted in Python only; the C entries take them as given and check
+and ``flash_bwd_plan`` (the bf16 flash backward,
+``csrc/flash_attention_bwd.cu``) are counted in Python only; the C entries take them as given and check
 the shared memory only against a block's limit. These tests hold the
 plans to the kernels' layouts, to what a Hopper
 block can have and to the shapes the main paths give them: every
@@ -109,6 +110,26 @@ def test_flash_plan_refuses_other_head_dims():
         FA.flash_plan(48)
 
 
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_flash_bwd_plan_at_every_head_dim(d):
+    p = FA.flash_bwd_plan(d)
+    # 32-row steps at D=128 keep the accumulators in registers
+    step = 32 if d == 128 else 64
+    assert (p.step, p.stages) == (step, 2)
+    row = 2 * d
+    # dK/dV: the 64-row K and V tiles, then per slot a Q and a dO tile
+    # with their f32 lse and delta; dQ: the 64-row Q and dO tiles, then
+    # per slot a K and a V tile
+    assert p.dkdv_smem == 2 * 64 * row + 2 * step * (2 * row + 8)
+    assert p.dq_smem == 2 * 64 * row + 2 * 2 * step * row
+    assert max(p.dkdv_smem, p.dq_smem) <= MAX_SMEM
+
+
+def test_flash_bwd_plan_refuses_other_head_dims():
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_bwd_plan(96)
+
+
 class _Entry:
     """Stands in for a C entry: records its arguments, returns 0."""
 
@@ -174,3 +195,58 @@ def test_flash_wrapper_copies_an_unaligned_input(monkeypatch):
     FA.flash_attention_fwd(q, kv, kv, causal=True)
     (args,) = fn.calls
     assert args[0] % 16 == 0 and args[1:3] == (kv.data_ptr(),) * 2
+
+
+def _bwd_inputs(dtype, q_off=0):
+    q = _meta(q_off + 2 * 12 * 100 * 64, dtype=dtype)[q_off:].view(
+        2, 12, 100, 64)
+    kv = _meta(2, 4, 100, 64, dtype=dtype)
+    lse = _meta(2, 12, 100, dtype=torch.float32)
+    return q, kv, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_wrapper_passes_the_plan(monkeypatch, dtype):
+    dkdv, dq = _Entry(), _Entry()
+    monkeypatch.setattr(FA, "_bwd_entries", lambda: (None, dkdv, dq))
+    monkeypatch.setattr(L, "stream", lambda dev: 7)
+    q, kv, lse = _bwd_inputs(dtype)
+    before = (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES)
+    grads = FA.flash_attention_bwd(q, kv, kv, q, lse, q, causal=True)
+    assert [g.shape for g in grads] == [q.shape, kv.shape, kv.shape]
+    assert (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    (a,), (b,) = dkdv.calls, dq.calls
+    # 8 (dK/dV) or 7 (dQ) pointers, the shapes, scale, causal, dtype,
+    # the plan and the stream
+    assert len(a) == 8 + 6 + 1 + 2 + 3 + 1 and len(b) == len(a) - 1
+    for args, n in ((a, 8), (b, 7)):
+        assert args[n:n + 6] == (2, 12, 4, 100, 100, 64)
+        assert args[n + 7:n + 9] == (1, L.DTYPE_CODES[dtype])
+        assert args[-1] == 7
+    p = FA.flash_bwd_plan(64)
+    bf16 = dtype == torch.bfloat16
+    assert a[-4:-1] == ((p.step, p.stages, p.dkdv_smem) if bf16
+                        else (0, 0, 0))
+    assert b[-4:-1] == ((p.step, p.stages, p.dq_smem) if bf16
+                        else (0, 0, 0))
+
+
+def test_flash_bwd_wrapper_copies_an_unaligned_input(monkeypatch):
+    # the bf16 kernels copy 16 bytes at a time: a q and a dO two bytes off
+    # a boundary reach them as aligned copies, aligned inputs as they are
+    dkdv, dq = _Entry(), _Entry()
+    monkeypatch.setattr(FA, "_bwd_entries", lambda: (None, dkdv, dq))
+    monkeypatch.setattr(L, "stream", lambda dev: 7)
+    q, kv, lse = _bwd_inputs(torch.bfloat16, q_off=1)
+    do = _bwd_inputs(torch.bfloat16, q_off=1)[0]
+    assert q.data_ptr() % 16 == 2 and do.data_ptr() % 16 == 2
+    FA.flash_attention_bwd(q, kv, kv, q, lse, do, causal=True)
+    for args in (dkdv.calls[0], dq.calls[0]):
+        assert args[0] % 16 == 0 and args[3] % 16 == 0
+        assert args[0] != q.data_ptr() and args[3] != do.data_ptr()
+        assert args[1:3] == (kv.data_ptr(),) * 2
+    # the f32 route takes no copy
+    q32, kv32, lse32 = _bwd_inputs(torch.float32)
+    FA.flash_attention_bwd(q32, kv32, kv32, q32, lse32, q32, causal=True)
+    assert dkdv.calls[1][0] == q32.data_ptr()

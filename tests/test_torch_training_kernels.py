@@ -5,10 +5,15 @@ runs its Pallas kernels under the interpreter, as the JAX package's own
 tests do. Inputs are drawn with numpy from a seed and handed to both.
 
 Tolerances: 1e-5 absolute on the flash-attention gradients (f32 sums of
-at most ~60 O(1) products per element, in another order); 1e-6
+at most ~60 O(1) products per element, in another order), one bf16 ulp
+of the largest gradient for bf16 inputs (both round p and ds to bf16 at
+the same points and the outputs once; an f32 sum in another order may
+round either side of a tie); 1e-6
 absolute on the optimizer updates (the same f32 elementwise math; the
 bias corrections are computed in f32 by both).
 """
+
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +30,8 @@ from zoo_tpu_torch.ops.kernels import flash_attention as tflash
 from zoo_tpu_torch.ops.kernels import fused_optim as topt
 
 jax.config.update("jax_platforms", "cpu")
+# the module (the package re-exports its function under the same name)
+jfa = importlib.import_module("zoo_tpu.ops.pallas.flash_attention")
 
 T = torch.from_numpy
 
@@ -84,6 +91,57 @@ def test_flash_backward_plain_matches_dense_autograd(causal, h, hkv, tq,
     for name, a, b in zip("qkv", got, leaves):
         np.testing.assert_allclose(a.numpy(), b.grad.numpy(), atol=1e-5,
                                    err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("tq,tk", [
+    (21, 21),     # T not a multiple of the 8-row block
+    (37, 37),
+    (13, 45),     # end-aligned causal, Tq < Tk
+    (45, 13),     # Tq > Tk: the first 32 rows see no column (lse -inf)
+])
+def test_flash_backward_bf16_matches_pallas(tq, tk):
+    """bf16 inputs at rep 3 (H=6, Hkv=2), D=64, causal: the plain
+    backward against the Pallas kernels in interpret mode, within one
+    bf16 ulp of the largest gradient. The plain backward rounds where
+    the bf16 tensor-core kernels round on the card (p to bf16 before
+    dV, ds before dK and dQ, f32 sums, bf16 outputs); both are fed the
+    residuals of the Pallas forward (o and lse), since the port's CPU
+    forward is the dense path, whose lse comes from bf16 scores. The
+    tolerance alone does not see a missing rounding point (the sums
+    average it out), so at least 95 % of each gradient's elements must
+    also equal JAX's bit for bit."""
+    rs = np.random.RandomState(tq * 31 + tk)
+    B, h, hkv, D, blk = 2, 6, 2, 64, 8
+    q, do = (rs.randn(B, h, tq, D).astype(np.float32) for _ in "ab")
+    k, v = (rs.randn(B, hkv, tk, D).astype(np.float32) for _ in "ab")
+    bf = jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(bf) for a in (q, k, v, do))
+
+    _, vjp = jax.vjp(lambda a, b, c: jflash(a, b, c, causal=True,
+                                            block_q=blk, block_k=blk,
+                                            interpret=True), jq, jk, jv)
+    ref = [np.asarray(g.astype(jnp.float32)) for g in vjp(jdo)]
+    o, lse = jfa._fwd(*(jfa._pad_to(a.reshape(-1, a.shape[2], D), 1, blk)
+                        for a in (jq, jk, jv)), D ** -0.5, True, tk, tq,
+                      blk, blk, h, hkv, True)
+
+    def tb(a):
+        return T(np.array(jnp.asarray(a).astype(jnp.float32))).to(
+            torch.bfloat16)
+
+    got = tflash.flash_attention_bwd_plain(
+        tb(jq), tb(jk), tb(jv), tb(o[:, :tq]).reshape(B, h, tq, D),
+        T(np.array(lse[:, :tq])).reshape(B, h, tq), tb(jdo), causal=True)
+    for name, a, want in zip("qkv", got, ref):
+        assert a.dtype == torch.bfloat16
+        ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+        got_ = a.float().numpy()
+        np.testing.assert_allclose(got_, want, rtol=0, atol=ulp,
+                                   err_msg=f"d{name}")
+        # the rounding points themselves: readings 0.976 to 1.0 here (dq
+        # lower: its first rows are f32 cancellation noise in both);
+        # without the bf16 rounding of p and ds 0.60 to 0.89
+        assert np.mean(got_ == want) >= 0.95, f"d{name}"
 
 
 def test_flash_backward_empty_rows_have_no_gradient():

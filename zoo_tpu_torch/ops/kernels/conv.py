@@ -230,10 +230,12 @@ def _conv_nhwc(x, w, strides, pads: Pads, dtype) -> torch.Tensor:
 
 
 def conv2d_plain_grads(x, w, dy, strides: Tuple[int, int] = (1, 1),
-                       padding: Union[str, Pads] = "SAME"):
+                       padding: Union[str, Pads] = "SAME",
+                       needs: Tuple[bool, bool] = (True, True)):
     """``(dx, dw)``, the gradients of the reference conv in ``x``'s
     dtype (f32 sums, TF32 off) at ``x``, ``w`` for the output gradient
-    ``dy``: the float kernel's backward."""
+    ``dy``: the float kernel's backward. A gradient whose ``needs`` flag
+    is False is not computed (None)."""
     strides = tuple(strides)
     pads = _pads(x, w, strides, padding)
     (pt, _), (pl, _) = pads
@@ -241,23 +243,51 @@ def conv2d_plain_grads(x, w, dy, strides: Tuple[int, int] = (1, 1),
     xn = _padded_nchw(x, pads, dt)
     wn = w.to(dt).permute(3, 2, 0, 1)
     dyn = dy.to(dt).permute(0, 3, 1, 2)
+    dx = dw = None
     with _no_tf32():
-        dx = torch.nn.grad.conv2d_input(xn.shape, wn, dyn, stride=strides)
-        dw = torch.nn.grad.conv2d_weight(xn, wn.shape, dyn, stride=strides)
-    dx = dx[:, :, pt:pt + x.shape[1], pl:pl + x.shape[2]]
-    return (dx.permute(0, 2, 3, 1).contiguous(),
-            dw.permute(2, 3, 1, 0).contiguous().to(w.dtype))
+        if needs[0]:
+            dx = torch.nn.grad.conv2d_input(xn.shape, wn, dyn,
+                                            stride=strides)
+            dx = dx[:, :, pt:pt + x.shape[1], pl:pl + x.shape[2]]
+            dx = dx.permute(0, 2, 3, 1).contiguous()
+        if needs[1]:
+            dw = torch.nn.grad.conv2d_weight(xn, wn.shape, dyn,
+                                             stride=strides)
+            dw = dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)
+    return dx, dw
+
+
+class _ConvPlain(torch.autograd.Function):
+    """The reference conv: f32 sums with TF32 off in the forward and,
+    unlike autograd of ``F.conv2d`` (taken outside :func:`_no_tf32`,
+    under cuDNN's TF32 default), in the backward, whose f32 ``dx`` and
+    ``dw`` are cast to their inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, x, w, strides, pads):
+        ctx.save_for_backward(x, w)
+        ctx.conv = (strides, pads)
+        return _conv_nhwc(x, w, strides, pads, torch.float32).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = conv2d_plain_grads(x.float(), w.float(), dy.float(),
+                                    *ctx.conv, needs=ctx.needs_input_grad[:2])
+        return (None if dx is None else dx.to(x.dtype),
+                None if dw is None else dw.to(w.dtype), None, None)
 
 
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
                  strides: Tuple[int, int] = (1, 1),
                  padding: Union[str, Pads] = "SAME") -> torch.Tensor:
     """The reference conv and the float kernel's plain version: f32
-    arithmetic, output in ``x``'s dtype. ``padding``: ``"SAME"``,
-    ``"VALID"`` or explicit ``((top, bottom), (left, right))``."""
-    y = _conv_nhwc(x, w, strides, _pads(x, w, strides, padding),
-                   torch.float32)
-    return y.to(x.dtype)
+    arithmetic, output in ``x``'s dtype; differentiable, with f32
+    gradients (TF32 off) cast to the inputs' dtypes (:class:`_ConvPlain`).
+    ``padding``: ``"SAME"``, ``"VALID"`` or explicit ``((top, bottom),
+    (left, right))``."""
+    strides = tuple(strides)
+    return _ConvPlain.apply(x, w, strides, _pads(x, w, strides, padding))
 
 
 def conv2d_int8_plain(x_q, w_q, x_scale, w_scale,

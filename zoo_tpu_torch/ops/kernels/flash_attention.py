@@ -5,8 +5,9 @@ The kernels are ``zoo_tpu_torch/csrc/flash_attention_fwd.cu`` (forward,
 returning the logsumexp: bf16 on the tensor cores with the plan
 :func:`flash_plan` counts, f32 on the SIMT units) and
 ``zoo_tpu_torch/csrc/flash_attention_bwd.cu`` (dK/dV, then dQ,
-recomputed from that logsumexp); their headers say what bounds them and
-how they are laid out. This module holds the wrappers,
+recomputed from that logsumexp: bf16 on the tensor cores with the plan
+:func:`flash_bwd_plan` counts, f32 on the SIMT units); their headers say
+what bounds them and how they are laid out. This module holds the wrappers,
 the plain versions and :class:`FlashAttention`, the autograd function
 that makes :func:`flash_attention` differentiable, as the JAX package's
 ``custom_vjp`` does.
@@ -15,7 +16,7 @@ that makes :func:`flash_attention` differentiable, as the JAX package's
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -34,6 +35,8 @@ HEAD_DIMS = (16, 32, 64, 128)
 # the bf16 tensor-core kernel (csrc/flash_attention_fwd.cu, tc::): query
 # rows of a block (4 warps of 16), rows of a K/V tile, slots of its ring
 _TC_BQ, _TC_BKV, _TC_STAGES = 64, 64, 2
+# slots of the bf16 backward kernels' rings (flash_bwd_plan)
+_TC_BWD_STAGES = 2
 
 
 def flash_plan(head_dim: int) -> int:
@@ -43,6 +46,32 @@ def flash_plan(head_dim: int) -> int:
     64-row K and V tiles, 2 stages."""
     _require_head_dim(head_dim)
     return 2 * head_dim * (_TC_BQ + 2 * _TC_STAGES * _TC_BKV)
+
+
+class FlashBwdPlan(NamedTuple):
+    """The bf16 backward kernels' launch plan at one head dim: the rows a
+    step takes (q rows in dK/dV, key rows in dQ), the slots of each
+    kernel's ``cp.async`` ring, and the bytes of dynamic shared memory
+    each takes."""
+    step: int
+    stages: int
+    dkdv_smem: int
+    dq_smem: int
+
+
+def flash_bwd_plan(head_dim: int) -> FlashBwdPlan:
+    """The bf16 backward kernels' plan at ``head_dim``. dK/dV: the 64-row
+    K and V tiles, and per ring slot a Q and a dO tile of ``step`` rows
+    with their f32 lse and delta. dQ: the 64-row Q and dO tiles, and per
+    slot a K and a V tile of ``step`` rows. The step is 32 rows at
+    D = 128, which keeps the dK/dV (dQ) accumulators in registers, and
+    64 below."""
+    _require_head_dim(head_dim)
+    step = 32 if head_dim > 64 else 64
+    row = 2 * head_dim                              # bytes of a bf16 row
+    dkdv = 2 * _TC_BKV * row + _TC_BWD_STAGES * step * (2 * row + 2 * 4)
+    dq = 2 * _TC_BQ * row + _TC_BWD_STAGES * 2 * step * row
+    return FlashBwdPlan(step, _TC_BWD_STAGES, dkdv, dq)
 
 
 def flash_attention_plain(q, k, v, causal=False, scale=None
@@ -72,8 +101,8 @@ def _bwd_entries():
         from zoo_tpu_torch.ops.kernels._build import library
         lib = library("flash_attention_bwd")
         dkdv, dq = lib.zt_flash_bwd_dkdv, lib.zt_flash_bwd_dq
-        dkdv.argtypes = [L.P] * 8 + [L.I] * 6 + [L.F, L.I, L.I, L.P]
-        dq.argtypes = [L.P] * 7 + [L.I] * 6 + [L.F, L.I, L.I, L.P]
+        dkdv.argtypes = [L.P] * 8 + [L.I] * 6 + [L.F] + [L.I] * 5 + [L.P]
+        dq.argtypes = [L.P] * 7 + [L.I] * 6 + [L.F] + [L.I] * 5 + [L.P]
         dkdv.restype = dq.restype = L.I
         _bwd_fns = (lib, dkdv, dq)
     return _bwd_fns
@@ -217,7 +246,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv head.
 
     CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors
-    launch the dK/dV kernel, then the dQ kernel (or raise)."""
+    launch the dK/dV kernel, then the dQ kernel (or raise): for bf16 the
+    tensor-core bodies with the plan :func:`flash_bwd_plan` counts (a
+    bf16 input off a 16-byte boundary is copied to an aligned buffer),
+    for f32 the SIMT bodies."""
     global DKDV_LAUNCHES, DQ_LAUNCHES
     B, H, Hkv, Tq, Tk, D = _check_shapes(q, k)
     if scale is None:
@@ -235,15 +267,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = _delta(o, do)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
+    # the f32 SIMT kernels take no plan
+    dkdv_plan = dq_plan = (0, 0, 0)
+    if q.dtype == torch.bfloat16:
+        # the kernels copy 16 bytes at a time: a view off a 16-byte
+        # boundary is copied into a fresh (aligned) buffer first
+        q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                       for t in (q, k, v, do))
+        p = flash_bwd_plan(D)
+        dkdv_plan = (p.step, p.stages, p.dkdv_smem)
+        dq_plan = (p.step, p.stages, p.dq_smem)
     lib, dkdv_fn, dq_fn = _bwd_entries()
     args = (B, H, Hkv, Tq, Tk, D, float(scale), int(bool(causal)),
-            L.DTYPE_CODES[q.dtype], L.stream(dev))
+            L.DTYPE_CODES[q.dtype])
     ins = (L.ptr(q), L.ptr(k), L.ptr(v), L.ptr(do), L.ptr(lse),
            L.ptr(delta))
-    L.check(lib, dkdv_fn(*ins, L.ptr(dk), L.ptr(dv), *args),
+    st = L.stream(dev)
+    L.check(lib, dkdv_fn(*ins, L.ptr(dk), L.ptr(dv), *args, *dkdv_plan, st),
             "flash_attention dK/dV")
     DKDV_LAUNCHES += 1
-    L.check(lib, dq_fn(*ins, L.ptr(dq), *args), "flash_attention dQ")
+    L.check(lib, dq_fn(*ins, L.ptr(dq), *args, *dq_plan, st),
+            "flash_attention dQ")
     DQ_LAUNCHES += 1
     return dq, dk, dv
 
