@@ -12,9 +12,10 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 2. build — nvcc wall time and each kernel function's ``-Xptxas -v``
    registers, shared memory and spills;
 2b. sass — how each kernel multiplies, read from the built libraries'
-   SASS (``cuobjdump -sass``): ``wgmma`` (HGMMA), ``mma.sync`` (HMMA,
-   IMMA) or ``simt``; fails unless the bf16 conv and the bf16 flash
-   forward and backward (dK/dV, dQ) run on the tensor cores;
+   SASS (``cuobjdump -sass``): ``wgmma`` (HGMMA, IGMMA), ``mma.sync``
+   (HMMA, IMMA) or ``simt``; fails unless the bf16 conv and the bf16
+   flash forward and backward (dK/dV, dQ) run on the tensor cores and
+   the bf16 and int8 convs on ``wgmma``;
 3. kernels — each kernel against its plain PyTorch version at the
    Llama-3-8B serving shapes, for f32, bf16 and int8 caches and the
    position edges, then timed (device time per call from
@@ -85,7 +86,9 @@ holds the fused AdamW and SGD kernels against theirs, then times them at the
 training config's shapes beside their bounds and a library yardstick
 (``scaled_dot_product_attention`` and its backward, ``torch.optim``'s
 fused AdamW and SGD) the port never calls; and the implicit-GEMM conv
-kernels (bf16, int8) at four ResNet-50 shapes, B=128, and the int8
+kernels (bf16, int8) at four ResNet-50 shapes, B=128 (int8 on the
+K-major weight copy a quantized layer carries, the copy's one-time cost
+printed apart), and the int8
 GEMMs at the ResNet-50 head and at ``bench_int8_matmul``'s shape,
 beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks; and the
 fused bottleneck at ResNet-50's four identity geometries (B=128, bf16,
@@ -93,10 +96,13 @@ and f32 at conv2_x) with its gradients at conv2_x, timed beside the
 unfused cuDNN composition (three ``F.conv2d``, the ReLUs and the add),
 a yardstick the port never calls.
 
-The bf16 conv (per shape and summed), the f32 conv at one shape and
-the bf16 flash forward and backward kernels at the training shape
-also print TFLOP/s, the share of their bound they reach and their time
-over the library call's.
+The bf16 and int8 convs (per shape and summed), the f32 conv at one
+shape, the bf16 flash forward and backward kernels at the training
+shape and the paged prefill at the serving shape also print TFLOP/s
+(TOP/s for int8), the share of their bound they reach and, where there
+is one, their time over the library call's. The paged prefill is also
+held to its plain version at a one-row and a 17-row chunk of three
+sequences.
 
 Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route;
 for ``conv2d`` and the three flash kernels the numbers are the bf16
@@ -204,7 +210,7 @@ MMA_FUNCTIONS = {
     "paged_decode": ("paged_decode", "paged_decode_kernel"),
     "paged_prefill": ("paged_prefill", "paged_prefill_kernel"),
     "conv2d": ("conv2d", "conv_tc_kernel"),
-    "conv2d_int8": ("conv2d", "conv2d_int8_kernel"),
+    "conv2d_int8": ("conv2d", "conv_i8_tc_kernel"),
     "quantized_matmul": ("quant_matmul", "qmm_kernel"),
     "fused_quantized_matmul": ("quant_matmul", "fqmm_kernel")}
 F32_ROUTES = {"flash_attention": ("flash_attention", "flash_fwd_kernel"),
@@ -216,6 +222,8 @@ F32_ROUTES = {"flash_attention": ("flash_attention", "flash_fwd_kernel"),
 # kernels whose main-path route must run on the tensor cores
 TENSOR_CORE_KERNELS = ("conv2d", "flash_attention", "flash_attention_dkdv",
                        "flash_attention_dq")
+# ... and on wgmma (HGMMA for bf16, IGMMA for int8)
+WGMMA_KERNELS = ("conv2d", "conv2d_int8")
 
 
 def emit(obj):
@@ -280,15 +288,16 @@ def sass_functions(path):
 
 def mma_route(funcs, function):
     """How the instances of ``__global__ function`` multiply, read from
-    their SASS: ``"wgmma"`` (HGMMA), ``"mma.sync"`` (HMMA, IMMA) or
+    their SASS: ``"wgmma"`` (HGMMA, or IGMMA for int8), ``"mma.sync"``
+    (HMMA, IMMA) or
     ``"simt"``; with the instruction counts and the instances found."""
     key = f"{len(function)}{function}"          # as the name is mangled
     hit = [f for n, f in funcs.items() if key in n]
     if not hit:
         raise AssertionError(f"{function}: not in the library's SASS")
     counts = {op: sum(len(re.findall(rf"\b{op}\b", f)) for f in hit)
-              for op in ("HGMMA", "HMMA", "IMMA")}
-    route = "wgmma" if counts["HGMMA"] else \
+              for op in ("HGMMA", "IGMMA", "HMMA", "IMMA")}
+    route = "wgmma" if counts["HGMMA"] or counts["IGMMA"] else \
         "mma.sync" if counts["HMMA"] or counts["IMMA"] else "simt"
     return {"mma": route, "counts": counts, "instances": len(hit)}
 
@@ -296,7 +305,10 @@ def mma_route(funcs, function):
 def phase_sass(built):
     """Each kernel's multiply route from the built libraries' SASS; fails
     unless the bf16 routes of conv2d and the flash forward and backward
-    run on the tensor cores."""
+    run on the tensor cores, and unless conv2d (bf16) and conv2d_int8
+    run on ``wgmma``. The paged kernels, the optimizers, the int8 GEMMs
+    and the fused bottleneck read ``simt``; paged_prefill by design: the
+    serving path is f32, and the tensor cores would mean TF32."""
     sass = {lib: sass_functions(r.path) for lib, r in built.items()}
     routes = {k: mma_route(sass[lib], fn)
               for k, (lib, fn) in MMA_FUNCTIONS.items()}
@@ -307,6 +319,11 @@ def phase_sass(built):
         if routes[k]["mma"] == "simt":
             raise AssertionError(f"{k}: its bf16 route has no tensor-core "
                                  f"instruction in its SASS")
+    for k in WGMMA_KERNELS:
+        if routes[k]["mma"] != "wgmma":
+            raise AssertionError(f"{k}: its main-path route reads "
+                                 f"{routes[k]['mma']}, not wgmma, in its "
+                                 f"SASS ({routes[k]['counts']})")
     return routes, f32
 
 
@@ -401,7 +418,7 @@ def timing(torch, kernel, fn, plain, library, iters):
     one exists, the library call's (device time per call)."""
     t = timed(torch, fn, iters, kernel=kernel)
     return {"ms": t["device_ms"], "kernel_ms": t["kernel_ms"],
-            "wall_ms": t["wall_ms"],
+            "wall_ms": t["wall_ms"], "by_name": t["by_name"],
             "plain_ms": timed(torch, plain, max(3, iters // 5))["device_ms"],
             "library_ms": None if library is None else
             timed(torch, library, iters)["device_ms"]}
@@ -565,19 +582,38 @@ def phase_kernels(torch):
             record("paged_prefill", f"cache {kind} start={start}",
                    err(o, ro), "float32")
         if kind == "f32":
+            # a one-row chunk and a ragged 17-row one, three sequences
+            for cs in (1, 17):
+                qs = randn(3, cs, H, D)
+                pos3 = (torch.tensor([0, 200, 512 - cs], device=dev)[:, None]
+                        + torch.arange(cs, device=dev)[None]).to(torch.int32)
+                o = PP.paged_flash_prefill(qs, c[0], c[1], tables[:3], pos3)
+                ro = PP.paged_prefill_plain(qs, c[0], c[1], tables[:3], pos3)
+                torch.cuda.synchronize()
+                record("paged_prefill", f"cache f32 S=3 chunk={cs}",
+                       err(o, ro), "float32")
             pos = (200 + torch.arange(C, device=dev)).to(torch.int32)[None]
             rows = int(pos.max()) + 1
             pairs = int((pos.long() + 1).sum())
+            flops = 4 * pairs * H * D
             b_ms, b_by = bound(
                 cache_bytes(c, rows) + 2 * qp.numel() * 4 + C * 4 + W * 4,
-                4 * pairs * H * D)
-            results["paged_prefill"].update(timing(
-                torch, "paged_prefill_kernel",
+                flops)
+            # "paged_prefill" names the kernel and its split merge
+            t = timing(
+                torch, "paged_prefill",
                 lambda: PP.paged_flash_prefill(qp, c[0], c[1], tables[:1],
                                                pos),
                 lambda: PP.paged_prefill_plain(qp, c[0], c[1], tables[:1],
-                                               pos), None, 100),
-                bound_ms=b_ms, bound_by=b_by)
+                                               pos), None, 100)
+            plan = PP.prefill_plan(1, C, HKV, H // HKV, D, BS, W, 4)
+            results["paged_prefill"].update(
+                t, bound_ms=b_ms, bound_by=b_by,
+                shape=f"S=1 C={C} H={H} Hkv={HKV} D={D} f32 positions "
+                      f"200-263",
+                plan={"splits": plan.splits, "blocks": plan.blocks,
+                      "smem": plan.smem},
+                **rates(flops, t["ms"], b_ms, None))
     phase_training_kernels(torch, record, err, results)
     phase_inference_kernels(torch, record, err, results)
     phase_block_kernels(torch, record, err, results)
@@ -1003,7 +1039,17 @@ def phase_inference_kernels(torch, record, err, results):
         del x, w, xn, wn
         xq, wq, xs, ws = int8(B, h, h, c), int8(k, k, c, o), scales(B), \
             scales(o)
-        y = CV.implicit_gemm_conv2d_int8(xq, wq, xs, ws, (s, s))
+        # the K-major weight copy the kernel reads, made once per layer
+        # (quantize_model), timed on its own
+        tk = timed(torch, lambda: CV.int8_weights_kmajor(wq), 5)
+        wk = CV.int8_weights_kmajor(wq)
+        if not torch.equal(wk, wq.permute(3, 0, 1, 2).reshape(o, -1)):
+            raise AssertionError(f"conv2d_int8 {shape}: K-major copy")
+        emit({"phase": "kernels", "kernel": "conv2d_int8",
+              "kmajor_copy_once": {"shape": f"{k}x{k}x{c}x{o}",
+                                   "ms": tk["device_ms"]}})
+        y = CV.implicit_gemm_conv2d_int8(xq, wq, xs, ws, (s, s),
+                                         w_kmajor=wk)
         ref = CV.conv2d_int8_plain(xq, wq, xs, ws, (s, s))
         torch.cuda.synchronize()
         record("conv2d_int8", f"B={B} {shape}", err(y, ref), "int8")
@@ -1012,16 +1058,23 @@ def phase_inference_kernels(torch, record, err, results):
                            + 4 * B * oh * oh * o, ops, PEAK_INT8_OPS)
         # the float64 plain version is slow: one warm-up, one timed call
         t = timed(torch, lambda: CV.implicit_gemm_conv2d_int8(
-            xq, wq, xs, ws, (s, s)), 5, kernel="conv2d_int8_kernel")
+            xq, wq, xs, ws, (s, s), w_kmajor=wk), 10,
+            kernel="conv_i8_tc_kernel")
         plain = timed(torch, lambda: CV.conv2d_int8_plain(
             xq, wq, xs, ws, (s, s)), 1, warmup=1)
-        per["conv2d_int8"].append({
-            "ms": t["device_ms"], "kernel_ms": t["kernel_ms"],
-            "wall_ms": t["wall_ms"], "plain_ms": plain["device_ms"],
-            "library_ms": None, "shape": f"B={B} int8 {shape}",
-            "bound_ms": b_ms, "bound_by": b_by,
-            "tops": ops / t["device_ms"] / 1e9})
-        del xq, wq
+        plan = CV.conv_int8_plan(B * oh * oh, c, o)
+        per["conv2d_int8"].append(dict(
+            {"ms": t["device_ms"], "kernel_ms": t["kernel_ms"],
+             "wall_ms": t["wall_ms"], "plain_ms": plain["device_ms"],
+             "library_ms": None, "shape": f"B={B} int8 {shape}",
+             "bound_ms": b_ms, "bound_by": b_by, "ops": ops,
+             "kmajor_copy_ms": tk["device_ms"],
+             "plan": {"bn": plan.bn, "bk": plan.bk, "stages": plan.stages,
+                      "vec": plan.vec, "blocks": plan.blocks}},
+            **rates(ops, t["device_ms"], b_ms, None)))
+        emit({"phase": "kernels", "kernel": "conv2d_int8",
+              "timing": per["conv2d_int8"][-1]})
+        del xq, wq, wk
         torch.cuda.empty_cache()
 
     # every other in-envelope conv shape of ResNet-50, checked, not timed
@@ -1107,12 +1160,13 @@ def phase_inference_kernels(torch, record, err, results):
             bound_by=b_f[1]))
     for name in ("conv2d", "conv2d_int8"):
         results[name].update(_sum_timing(per[name]))
-    r = results["conv2d"]
-    r.update(rates(sum(t["ops"] for t in per["conv2d"]), r["ms"],
-                   r["bound_ms"], r["library_ms"]), f32_route=f32_route)
-    emit({"phase": "kernels", "kernel": "conv2d", "summed": {
-        k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                          "tflops", "bound_ratio", "library_ratio")}})
+        r = results[name]
+        r.update(rates(sum(t["ops"] for t in per[name]), r["ms"],
+                       r["bound_ms"], r["library_ms"]))
+        emit({"phase": "kernels", "kernel": name, "summed": {
+            k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "tflops", "bound_ratio", "library_ratio")}})
+    results["conv2d"]["f32_route"] = f32_route
     for name in ("quantized_matmul", "fused_quantized_matmul"):
         # the kernels line carries the head's shape, the main path's
         results[name].update(per[name][0], shapes=per[name])
@@ -1432,7 +1486,7 @@ def phase_infer_main(torch, K, card):
         groups = {}
         for name, ms in t["by_name"].items():
             n = name.lower()
-            label = ("conv2d_int8" if "conv2d_int8_kernel" in n else
+            label = ("conv2d_int8" if "conv_i8_tc_kernel" in n else
                      "conv2d" if "conv_tc_kernel" in n
                      or "conv2d_kernel" in n else
                      "int8_gemm" if "qmm_kernel" in n else
@@ -1453,7 +1507,23 @@ def phase_infer_main(torch, K, card):
     outs["float"] = run("float", x, conv2d=n_conv)
     against_plain("float", outs["float"], exact=False)
     profile("float")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     quantize_model(m, mode="force")
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t
+    # every in-envelope conv carries the K-major weights its kernel reads,
+    # made here once, so no forward transposes them
+    from zoo_tpu_torch.ops.kernels.conv import kmajor_of
+    from zoo_tpu_torch.pipeline.api.keras.layers import Convolution2D
+    attached = sum(
+        kmajor_of(m.params[m._key_of(l)]["W_q"]) is not None
+        for l in m.layers if isinstance(l, Convolution2D))
+    emit({"phase": "infer-main", "quantize_s": quantize_s,
+          "kmajor_copies_attached": attached})
+    if attached != n_conv:
+        raise AssertionError(f"{attached} int8 convs carry K-major "
+                             f"weights, not {n_conv}")
     outs["int8"] = run("int8", x, conv2d_int8=n_conv,
                        fused_quantized_matmul=1)
     against_plain("int8", outs["int8"], exact=True)
@@ -2126,7 +2196,7 @@ def main():
             "paged_decode": ("paged_decode.cu", "paged_decode.py:55"),
             "paged_prefill": ("paged_prefill.cu", "paged_prefill.py:54"),
             "conv2d": ("conv2d.cu", "conv.py:114"),
-            "conv2d_int8": ("conv2d.cu", "conv.py:128"),
+            "conv2d_int8": ("conv2d_int8_tc.cuh", "conv.py:128"),
             "quantized_matmul": ("quant_matmul.cu", "quant.py:42"),
             "fused_quantized_matmul": ("quant_matmul.cu", "quant.py:122")}
         kernels = []

@@ -69,10 +69,10 @@ def test_flash_kernel_matches_plain(hopper, dtype, causal, tq, tk, d):
         assert _err(lse, rlse) <= 1e-4
 
 
-def _cache(dev, kind, g):
+def _cache(dev, kind, g, hkv=HKV, d=D):
     from zoo_tpu_torch.util.quantize import absmax_scale, narrow_int8
-    kc = torch.randn(NB, BS, HKV, D, generator=g, device=dev)
-    vc = torch.randn(NB, BS, HKV, D, generator=g, device=dev)
+    kc = torch.randn(NB, BS, hkv, d, generator=g, device=dev)
+    vc = torch.randn(NB, BS, hkv, d, generator=g, device=dev)
     if kind == "int8":
         ks, vs = absmax_scale(kc, dim=-1), absmax_scale(vc, dim=-1)
         return (narrow_int8(kc, ks[..., None]),
@@ -103,19 +103,57 @@ def test_paged_decode_kernel_matches_plain(hopper, kind, qdtype, splits):
     assert _err(o, ro) <= TOL[qdtype]
 
 
+# (kv heads, query heads a kv head, head dim): the module's shape, then
+# G = 1, 4 and 8 at D = 128
+PREFILL_HEADS = [(HKV, H // HKV, D), (8, 1, 128), (4, 4, 128), (2, 8, 128)]
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("S,C,starts", [(1, 64, [20]), (3, 5, [0, 7, 91]),
-                                        (2, 1, [0, 95])])
-def test_paged_prefill_kernel_matches_plain(hopper, kind, S, C, starts):
+                                        (2, 1, [0, 95]), (3, 17, [0, 40, 79]),
+                                        (1, 64, [32])])
+@pytest.mark.parametrize("hkv,g,d", PREFILL_HEADS)
+def test_paged_prefill_kernel_matches_plain(hopper, kind, S, C, starts, hkv,
+                                            g, d):
     from zoo_tpu_torch.ops.kernels import paged_prefill as PP
-    g = _gen(hopper, 2)
-    kc, vc, ks, vs = _cache(hopper, kind, g)
-    tables = torch.randint(1, NB, (S, W), generator=g, device=hopper,
+    gen = _gen(hopper, 2)
+    kc, vc, ks, vs = _cache(hopper, kind, gen, hkv, d)
+    tables = torch.randint(1, NB, (S, W), generator=gen, device=hopper,
                            dtype=torch.int32)
     pos = (torch.tensor(starts, device=hopper)[:, None]
            + torch.arange(C, device=hopper)[None]).clamp(max=W * BS - 1) \
         .to(torch.int32)
-    q = torch.randn(S, C, H, D, generator=g, device=hopper)
+    qdtype = torch.bfloat16 if kind == "bf16" and C == 17 else torch.float32
+    q = torch.randn(S, C, hkv * g, d, generator=gen, device=hopper) \
+        .to(qdtype)
+    # these small shapes split the key axis; test_paged_prefill_unsplit
+    # takes the one-kernel route
+    assert PP.prefill_plan(S, C, hkv, g, d, BS, W,
+                           kc.element_size()).splits > 1
+    o = PP.paged_flash_prefill(q, kc, vc, tables, pos, k_scale=ks,
+                               v_scale=vs)
+    ro = PP.paged_prefill_plain(q, kc, vc, tables, pos, k_scale=ks,
+                                v_scale=vs)
+    torch.cuda.synchronize()
+    assert o.dtype == qdtype
+    assert _err(o, ro) <= TOL[qdtype]
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+def test_paged_prefill_unsplit(hopper, kind):
+    """Enough rows that the plan does not split the key axis: the first
+    kernel writes the output itself."""
+    from zoo_tpu_torch.ops.kernels import paged_prefill as PP
+    gen = _gen(hopper, 3)
+    S, C, hkv, g, d = 9, 64, 8, 4, 128
+    kc, vc, ks, vs = _cache(hopper, kind, gen, hkv, d)
+    assert PP.prefill_plan(S, C, hkv, g, d, BS, W,
+                           kc.element_size()).splits == 1
+    tables = torch.randint(1, NB, (S, W), generator=gen, device=hopper,
+                           dtype=torch.int32)
+    pos = (torch.arange(S, device=hopper)[:, None] * 4
+           + torch.arange(C, device=hopper)[None]).to(torch.int32)
+    q = torch.randn(S, C, hkv * g, d, generator=gen, device=hopper)
     o = PP.paged_flash_prefill(q, kc, vc, tables, pos, k_scale=ks,
                                v_scale=vs)
     ro = PP.paged_prefill_plain(q, kc, vc, tables, pos, k_scale=ks,
@@ -375,6 +413,65 @@ def test_bf16_conv_tensor_core_edges(hopper, n, h, w, c, k, o, vec):
     assert conv.LAUNCHES == before + 1
     assert y.shape == ref.shape and y.dtype == torch.bfloat16
     assert _rel_err(y, ref) <= 2 ** -7
+
+
+# -- the int8 tensor-core conv kernel at its edges ------------------------
+#
+# Bit-equal to the plain version: exact int32 sums, the same f32 epilogue.
+
+@pytest.mark.parametrize("n,h,w,c,k,o,s,bk,vec", [
+    (1, 5, 7, 64, 1, 64, 1, 64, 16),     # 35 rows: not a multiple of 128
+    (2, 6, 6, 64, 3, 200, 1, 64, 16),    # O = 200: a ragged N tile
+    (2, 7, 7, 64, 3, 64, 1, 64, 16),     # C = 64: 64-channel steps; halo
+    (2, 7, 7, 256, 3, 96, 1, 128, 16),   # 128-channel steps, 3x3 halo
+    (2, 9, 9, 128, 1, 130, 2, 128, 16),  # 1x1 at stride 2; O % 4 == 2
+    (2, 6, 6, 24, 3, 33, 1, 64, 8),      # C % 16 == 8: 8-byte copies
+    (2, 6, 6, 20, 1, 16, 1, 64, 4),      # 4-byte copies
+    (2, 6, 6, 10, 3, 16, 1, 64, 2),      # 2-byte loads
+    (1, 5, 6, 3, 3, 8, 1, 64, 1),        # 1-byte loads
+    (2, 7, 7, 512, 3, 512, 1, 128, 16)])  # ResNet-50's 7x7 512 -> 512
+def test_int8_conv_tensor_core_edges(hopper, n, h, w, c, k, o, s, bk, vec):
+    from zoo_tpu_torch.ops.kernels import conv
+    g = _gen(hopper, 16)
+    xq, wq = _int8((n, h, w, c), g, hopper), _int8((k, k, c, o), g, hopper)
+    xs = torch.rand(n, generator=g, device=hopper) + 0.01
+    ws = torch.rand(o, generator=g, device=hopper) + 0.01
+    oh = -(-h // s)
+    plan = conv.conv_int8_plan(n * oh * oh, c, o)
+    assert (plan.bk, plan.vec, plan.out_vec) == (bk, vec,
+                                                 4 if o % 4 == 0 else 1)
+    wk = conv.int8_weights_kmajor(wq)
+    before = conv.INT8_LAUNCHES
+    y = conv.implicit_gemm_conv2d_int8(xq, wq, xs, ws, (s, s), "SAME",
+                                       w_kmajor=wk)
+    y2 = conv.implicit_gemm_conv2d_int8(xq, wq, xs, ws, (s, s), "SAME")
+    ref = conv.conv2d_int8_plain(xq, wq, xs, ws, (s, s), "SAME")
+    torch.cuda.synchronize()
+    assert conv.INT8_LAUNCHES == before + 2
+    assert y.dtype == torch.float32 and y.shape == ref.shape
+    assert torch.equal(y, ref) and torch.equal(y2, ref)
+
+
+def test_int8_conv_layer_uses_the_attached_kmajor_copy(hopper):
+    """quantized_conv2d finds the copy quantize_model attached, so the
+    forward makes none; the result equals the plain path."""
+    from zoo_tpu_torch.ops.kernels import conv, quant
+    g = _gen(hopper, 17)
+    x = torch.randn(2, 8, 8, 64, generator=g, device=hopper)
+    w = torch.randn(3, 3, 64, 96, generator=g, device=hopper)
+    w_q, w_s = quant.quantize_conv_weights(w)
+    wk = conv.attach_kmajor(w_q)
+    made = []
+    orig = conv.int8_weights_kmajor
+    try:
+        conv.int8_weights_kmajor = lambda t: made.append(t) or orig(t)
+        y = quant.quantized_conv2d(x, w_q.detach(), w_s)
+    finally:
+        conv.int8_weights_kmajor = orig
+    assert not made and conv.kmajor_of(w_q) is wk
+    ref = quant.quantized_conv2d(x.cpu(), w_q.cpu(), w_s.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(y.cpu(), ref)
 
 
 def test_bf16_conv_on_an_unaligned_view(hopper):

@@ -169,6 +169,26 @@ def test_keras_params_from_jax_carries_stats_and_int8_leaves():
         np.testing.assert_array_equal(v, _flat(tree)[k])
 
 
+def test_carried_int8_conv_weights_get_the_kmajor_copy():
+    """The JAX package's int8 conv leaves, carried over, come with the
+    K-major copy the port's int8 conv kernel reads, kept beside the tree
+    (whose keys stay the JAX package's)."""
+    from zoo_tpu_torch.ops.kernels.conv import int8_weights_kmajor, kmajor_of
+    jm, _ = _pair()
+    jinf.quantize_model(jm, mode="force")
+    tree = jax.tree_util.tree_map(np.asarray, jm.params)
+    got = keras_params_from_jax(tree, "cpu")
+    convs = [k for k in tree if k.endswith("convolution2d")]
+    assert convs
+    for k in convs:
+        w_q = got[k]["W_q"]
+        assert torch.equal(kmajor_of(w_q), int8_weights_kmajor(w_q))
+        hwio = torch.from_numpy(np.array(tree[k]["W_q"]))
+        assert torch.equal(kmajor_of(w_q), hwio.permute(3, 0, 1, 2)
+                           .reshape(w_q.shape[3], -1))
+    assert set(_flat(got)) == set(_flat(tree))
+
+
 def test_quantize_model_auto_keeps_the_faster_path(monkeypatch):
     monkeypatch.setattr(tinf, "_AUTO_VERDICT_CACHE", {})
     rates = iter([100.0, 50.0])          # float, then int8: int8 loses

@@ -1,12 +1,14 @@
 """Launch plans of the port's tensor-core kernels, on the CPU.
 
 ``conv_plan`` (the bf16 conv kernel, ``csrc/conv2d_tc.cuh``),
-``flash_plan`` (the bf16 flash forward, ``csrc/flash_attention_fwd.cu``)
-and ``flash_bwd_plan`` (the bf16 flash backward,
-``csrc/flash_attention_bwd.cu``) are counted in Python only; the C entries take them as given and check
-the shared memory only against a block's limit. These tests hold the
-plans to the kernels' layouts, to what a Hopper
-block can have and to the shapes the main paths give them: every
+``conv_int8_plan`` (the int8 conv kernel, ``csrc/conv2d_int8_tc.cuh``),
+``flash_plan`` (the bf16 flash forward, ``csrc/flash_attention_fwd.cu``),
+``flash_bwd_plan`` (the bf16 flash backward,
+``csrc/flash_attention_bwd.cu``) and ``prefill_plan`` (the paged
+prefill, ``csrc/paged_prefill.cu``) are counted in Python only; the C
+entries take them as given and check the shared memory only against a
+block's limit. These tests hold the plans to the kernels' layouts, to
+what a Hopper block can have and to the shapes the main paths give them: every
 in-envelope conv of the port's own ResNet-50 (as ``chip_smoke.py``
 enumerates them) at B=128, the ragged shapes of the card tests, and
 every head dim. The wrappers are driven with a stand-in C entry, so the
@@ -250,3 +252,264 @@ def test_flash_bwd_wrapper_copies_an_unaligned_input(monkeypatch):
     q32, kv32, lse32 = _bwd_inputs(torch.float32)
     FA.flash_attention_bwd(q32, kv32, kv32, q32, lse32, q32, causal=True)
     assert dkdv.calls[1][0] == q32.data_ptr()
+
+
+# -- the int8 conv on the int8 tensor cores (csrc/conv2d_int8_tc.cuh) -----
+
+def _check_int8(plan, rows, c, o):
+    assert plan.smem <= MAX_SMEM
+    assert plan.m_tiles * plan.bm >= rows > (plan.m_tiles - 1) * plan.bm
+    assert plan.n_tiles * plan.bn >= o > (plan.n_tiles - 1) * plan.bn
+    assert c % plan.copy_bytes == 0             # int8: a byte a channel
+    assert plan.threads == 2 * plan.bm          # a warpgroup per 64 rows
+    assert (plan.bk, plan.stages) in ((64, 6), (128, 3))
+    assert plan.bk == 64 or (c % 128 == 0 and plan.vec == 16)
+    assert plan.out_vec == (4 if o % 4 == 0 else 1)
+    # the ring, or the int32 epilogue tile, the row origins and the
+    # slack that aligns the ring to 1024 bytes
+    ring = plan.stages * (plan.bm + plan.bn) * plan.bk
+    assert plan.smem == 1024 + max(ring, plan.bm * (plan.bn + 8) * 4) \
+        + 16 * plan.bm
+    # two blocks share an SM (233,472 bytes of shared memory an SM)
+    assert 2 * plan.smem <= 233_472
+
+
+def test_every_resnet50_conv_gets_an_int8_plan(resnet50_convs):
+    steps = set()
+    for h, c, k, o, s in resnet50_convs:
+        oh = -(-h // s)
+        rows = B * oh * oh
+        plan = CV.conv_int8_plan(rows, c, o)
+        _check_int8(plan, rows, c, o)
+        assert plan.vec == 16 and plan.out_vec == 4, (h, c, k, o, s)
+        assert plan.bk == (128 if c % 128 == 0 else 64)
+        assert plan.n_tiles == 1 or o > 64
+        steps.add(plan.bk)
+    # C = 64 convs take 64-channel steps, the rest 128
+    assert steps == {64, 128}
+
+
+@pytest.mark.parametrize("n,h,w,c,k,o,s,padding", RAGGED + [
+    (1, 5, 7, 64, 1, 64, 1, "SAME"), (2, 6, 6, 64, 3, 200, 1, "SAME"),
+    (2, 7, 7, 24, 3, 30, 1, "SAME"), (2, 5, 5, 20, 1, 13, 1, "SAME")])
+def test_ragged_int8_convs_get_narrower_copies(n, h, w, c, k, o, s,
+                                               padding):
+    _, _, oh, ow = CV._spatial_pads(h, w, k, k, (s, s), padding)
+    rows = n * oh * ow
+    plan = CV.conv_int8_plan(rows, c, o)
+    _check_int8(plan, rows, c, o)
+    assert plan.vec == next(v for v in (16, 8, 4, 2, 1) if c % v == 0)
+    assert plan.vec < 16 or c % 16 == 0
+    assert plan.bn == (64 if o <= 64 else 128)
+
+
+@pytest.mark.parametrize("align,vec", [(16, 16), (8, 8), (4, 4), (2, 2),
+                                       (1, 1)])
+def test_int8_plan_narrows_the_copy_to_the_pointers(align, vec):
+    plan = CV.conv_int8_plan(1000, 256, 64, align=align)
+    assert plan.vec == vec
+    assert plan.bk == (128 if vec == 16 else 64)
+    assert CV.conv_int8_plan(1000, 256, 64, out_align=4).out_vec == 1
+
+
+def test_int8_plan_refuses_an_empty_conv():
+    with pytest.raises(ValueError, match="empty"):
+        CV.conv_int8_plan(10, 0, 64)
+
+
+def test_int8_plan_fills_the_card_at_7x7():
+    # 6,272 rows x 512: 196 tiles of 128 x 128, 128-channel steps, two
+    # blocks to an SM: resident at once on 132 SMs
+    plan = CV.conv_int8_plan(B * 7 * 7, 512, 512)
+    assert (plan.bm, plan.bn, plan.bk, plan.blocks) == (128, 128, 128, 196)
+    assert plan.blocks <= 2 * NUM_SMS
+
+
+@pytest.mark.parametrize("k,c,o", [(1, 64, 256), (3, 64, 64),
+                                   (3, 11, 17)])
+def test_kmajor_copy_is_the_transposed_weights(k, c, o):
+    g = torch.Generator().manual_seed(k * 100 + c)
+    w = torch.randint(-127, 128, (k, k, c, o), generator=g,
+                      dtype=torch.int8)
+    wk = CV.int8_weights_kmajor(w)
+    assert wk.shape == (o, k * k * c) and wk.is_contiguous()
+    assert torch.equal(wk, w.permute(3, 0, 1, 2).reshape(o, -1))
+    # row o, column tap * C + c is w[dy, dx, c, o]
+    assert int(wk[o - 1, (k * k - 1) * c + c - 1]) == int(w[k - 1, k - 1,
+                                                           c - 1, o - 1])
+
+
+def test_attached_kmajor_copy_follows_its_weight():
+    w = torch.randint(-127, 128, (3, 3, 8, 16), dtype=torch.int8)
+    assert CV.kmajor_of(w) is None
+    wk = CV.attach_kmajor(w)
+    # made once: found again for the weight and for views of its storage
+    assert CV.attach_kmajor(w) is wk
+    assert CV.kmajor_of(w.detach()) is wk and CV.kmajor_of(w.to("cpu")) is wk
+    assert torch.equal(wk, CV.int8_weights_kmajor(w))
+    # another tensor with the same values is not the same weight
+    assert CV.kmajor_of(w.clone()) is None
+    # a weight written in place no longer matches its copy
+    w.add_(1)
+    assert CV.kmajor_of(w) is None
+    fresh = CV.attach_kmajor(w)
+    assert torch.equal(fresh, CV.int8_weights_kmajor(w))
+    # a weight that dies takes its copy along
+    n = len(CV._KMAJOR)
+    del w
+    assert len(CV._KMAJOR) == n - 1
+
+
+def test_quantize_model_attaches_the_kmajor_copies():
+    from zoo_tpu_torch.models.image import ResNet
+    from zoo_tpu_torch.pipeline.api.keras.layers import Convolution2D
+    from zoo_tpu_torch.pipeline.inference import quantize_model
+    m = ResNet(10, (1, 1), bottleneck=True, input_shape=(32, 32, 3))
+    m.compile("adamw", "sparse_categorical_crossentropy")
+    m.build(torch.Generator().manual_seed(0), device="cpu")
+    quantize_model(m, mode="force")
+    inside = 0
+    for layer in m.layers:
+        if not isinstance(layer, Convolution2D):
+            continue
+        w_q = m.params[m._key_of(layer)]["W_q"]
+        wk = CV.kmajor_of(w_q)
+        if CV.pallas_conv_supported(layer.kernel, layer.subsample):
+            inside += 1
+            assert torch.equal(wk, CV.int8_weights_kmajor(w_q))
+        else:   # the reference conv takes the HWIO weights
+            assert wk is None
+    assert inside > 0
+
+
+def test_carried_int8_conv_leaves_get_the_kmajor_copy():
+    import numpy as np
+    from zoo_tpu_torch.convert import keras_params_from_jax
+    rs = np.random.RandomState(0)
+    tree = {"001_convolution2d": {
+                "W_q": rs.randint(-127, 128, (3, 3, 4, 6)).astype(np.int8),
+                "W_scale": rs.rand(6).astype(np.float32)},
+            "002_dense": {
+                "W_q": rs.randint(-127, 128, (6, 5)).astype(np.int8),
+                "W_scale": rs.rand(5).astype(np.float32)}}
+    got = keras_params_from_jax(tree, "cpu")
+    w_q = got["001_convolution2d"]["W_q"]
+    assert torch.equal(CV.kmajor_of(w_q), CV.int8_weights_kmajor(w_q))
+    assert CV.kmajor_of(got["002_dense"]["W_q"]) is None
+    assert set(got["001_convolution2d"]) == {"W_q", "W_scale"}
+
+
+@pytest.mark.parametrize("passed", [True, False])
+def test_int8_conv_wrapper_passes_the_plan(monkeypatch, passed):
+    q = _Entry()
+    monkeypatch.setattr(CV, "_entries", lambda: (None, None, q))
+    monkeypatch.setattr(L, "stream", lambda dev: 7)
+    before = CV.INT8_LAUNCHES
+    x = _meta(128, 7, 7, 512, dtype=torch.int8)
+    w = _meta(3, 3, 512, 512, dtype=torch.int8)
+    xs, ws = _meta(128, dtype=torch.float32), _meta(512, dtype=torch.float32)
+    wk = _meta(512, 9 * 512, dtype=torch.int8)
+    y = CV.implicit_gemm_conv2d_int8(x, w, xs, ws, (1, 1), "SAME",
+                                     w_kmajor=wk if passed else None)
+    assert y.shape == (128, 7, 7, 512) and y.dtype == torch.float32
+    assert CV.INT8_LAUNCHES == before + 1
+    (args,) = q.calls
+    assert len(args) == 5 + 13 + 6 + 1 and args[-1] == 7
+    if passed:   # the kernel reads the K-major copy it was given
+        assert args[1] == wk.data_ptr()
+    assert args[5:18] == (128, 7, 7, 512, 3, 3, 512, 1, 1, 1, 1, 7, 7)
+    p = CV.conv_int8_plan(128 * 49, 512, 512)
+    assert args[18:24] == (p.bn, p.bk, p.stages, p.vec, p.out_vec, p.smem)
+
+
+def test_int8_conv_wrapper_refuses_a_wrong_kmajor_copy(monkeypatch):
+    monkeypatch.setattr(CV, "_entries", lambda: (None, None, _Entry()))
+    x = _meta(2, 7, 7, 64, dtype=torch.int8)
+    w = _meta(3, 3, 64, 32, dtype=torch.int8)
+    s = _meta(2, dtype=torch.float32)
+    with pytest.raises(ValueError, match="w_kmajor"):
+        CV.implicit_gemm_conv2d_int8(x, w, s, _meta(32, dtype=torch.float32),
+                                     w_kmajor=_meta(32, 64,
+                                                    dtype=torch.int8))
+
+
+# -- the paged-prefill kernel (csrc/paged_prefill.cu) ---------------------
+
+from zoo_tpu_torch.ops.kernels import paged_prefill as PP  # noqa: E402
+
+# the serving shape: one sequence, a 64-row chunk, 32 query heads over 8
+# kv heads, D = 128, a 32-block table of 16 rows
+SERVE = dict(S=1, C=64, n_kv=8, G=4, D=128, block_size=16, W=32)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+def test_prefill_plan_fills_the_card_at_the_serving_shape(itemsize):
+    plan = PP.prefill_plan(**SERVE, cache_itemsize=itemsize)
+    assert plan.blocks >= NUM_SMS
+    # 256 rows of a kv head in 4 tiles of 64, the key axis split 8 ways
+    assert plan.row_tiles == 4 and plan.splits == 8
+    assert plan.blocks == 1 * 8 * plan.row_tiles * plan.splits == 256
+    assert 2 * plan.smem <= 233_472          # two blocks an SM
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+def test_prefill_plan_within_the_block_limit(d, itemsize):
+    plan = PP.prefill_plan(1, 64, 8, 4, d, 16, 32, itemsize)
+    row = d * itemsize + 16
+    # the f32 q and p tiles (64 rows), two K and V tiles of 32 rows and,
+    # for int8, their scales
+    want = 4 * 64 * (d + 4) + 4 * 64 * 36 + 2 * 2 * 32 * row + \
+        (2 * 2 * 32 * 4 if itemsize == 1 else 0)
+    assert plan.smem == want <= MAX_SMEM
+    assert 2 * plan.smem <= 233_472
+    assert (plan.row_tile, plan.key_tile) == (64, 32)
+
+
+def test_prefill_plan_splits_only_where_rows_are_too_few():
+    # 9 sequences x 8 kv heads x 4 row tiles: 288 blocks, two an SM,
+    # no split; 8 sequences: 256 blocks, split in 2
+    assert PP.prefill_plan(9, 64, 8, 4, 128, 16, 32, 4).splits == 1
+    assert PP.prefill_plan(8, 64, 8, 4, 128, 16, 32, 4).splits == 2
+    # a one-row chunk: as many splits as allowed, but no more than the
+    # table has key tiles
+    assert PP.prefill_plan(1, 1, 8, 4, 128, 16, 32, 4).splits == 8
+    assert PP.prefill_plan(1, 1, 8, 4, 128, 16, 2, 4).splits == 1
+    # 3 x 8 x 2 = 48 blocks: 6 splits reach 264
+    assert PP.prefill_plan(3, 17, 8, 4, 128, 16, 32, 4).splits == 6
+
+
+def test_prefill_plan_refuses_other_head_dims():
+    for d in (130, 62, 0):
+        with pytest.raises(ValueError, match="head_dim"):
+            PP.prefill_plan(1, 4, 2, 2, d, 16, 4, 4)
+
+
+@pytest.mark.parametrize("s,c,cache_dtype", [
+    (1, 64, torch.float32), (8, 64, torch.bfloat16), (3, 5, torch.int8)])
+def test_prefill_wrapper_passes_the_plan(monkeypatch, s, c, cache_dtype):
+    fn = _Entry()
+    monkeypatch.setattr(PP, "_entry", lambda: (None, fn))
+    monkeypatch.setattr(L, "stream", lambda dev: 7)
+    H, n_kv, D, bs, W, nb = 32, 8, 128, 16, 32, 40
+    q = _meta(s, c, H, D, dtype=torch.float32)
+    kc = _meta(nb, bs, n_kv, D, dtype=cache_dtype)
+    sc = _meta(nb, bs, n_kv, dtype=torch.float32) \
+        if cache_dtype == torch.int8 else None
+    tables = _meta(s, W, dtype=torch.int32)
+    pos = _meta(s, c, dtype=torch.int32)
+    before = PP.LAUNCHES
+    out = PP.paged_flash_prefill(q, kc, kc, tables, pos, k_scale=sc,
+                                 v_scale=sc)
+    assert out.shape == q.shape and PP.LAUNCHES == before + 1
+    (args,) = fn.calls
+    assert len(args) == 10 + 7 + 1 + 6 + 1 and args[-1] == 7
+    assert args[10:17] == (s, c, n_kv, H // n_kv, D, bs, W)
+    assert args[18:20] == (0, L.DTYPE_CODES[cache_dtype])
+    plan = PP.prefill_plan(s, c, n_kv, H // n_kv, D, bs, W,
+                           kc.element_size())
+    assert args[20:24] == (plan.row_tile, plan.key_tile, plan.splits,
+                           plan.smem)
+    # split partials only where the key axis is split
+    assert (args[8] is None) == (plan.splits == 1)
+    assert (args[9] is None) == (plan.splits == 1)

@@ -11,7 +11,10 @@ the same product in both packages.
 ``keras_params_from_jax(tree)`` takes a Keras model's whole params tree
 (``{"000_llama": {...}, ...}``, layer keys as the JAX package makes
 them) or a fused AdamW state ``{"m", "v", "step"}``, numpy leaves, and
-returns the same tree of tensors (``step`` as an int).
+returns the same tree of tensors (``step`` as an int). Each int8 conv
+weight ``W_q`` gets the K-major copy the int8 conv kernel reads
+(:func:`~zoo_tpu_torch.ops.kernels.conv.attach_kmajor`), kept beside the
+tree, not in it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from zoo_tpu_torch.common.device import resolve_device
 from zoo_tpu_torch.models.llm.llama import BLOCK_KEYS
+from zoo_tpu_torch.ops.kernels.conv import attach_kmajor
 
 
 def params_from_jax(tree: Dict, device=None) -> Dict:
@@ -41,7 +45,12 @@ def params_from_jax(tree: Dict, device=None) -> Dict:
 
 def _tensors(node, dev):
     if isinstance(node, dict):
-        return {k: _tensors(v, dev) for k, v in node.items()}
+        out = {k: _tensors(v, dev) for k, v in node.items()}
+        w_q = out.get("W_q")
+        if w_q is not None and w_q.dim() == 4:
+            # an int8 conv weight: attach the kernel's K-major copy once
+            attach_kmajor(w_q)
+        return out
     return torch.from_numpy(np.array(node, copy=True)).to(dev)
 
 

@@ -24,9 +24,11 @@
 //   held to 1e-5; so it stays a SIMT kernel: 64 x 64 output tiles,
 //   32-deep slices staged in shared memory, a 4 x 4 register micro-tile
 //   per thread (zt_gemm.cuh).
-// - int8: conv2d_int8_kernel below, __dp4a on the same tiles. Epilogue:
-//   f32(acc) * xs[image] * ws[o], in that order, as _conv_kernel_q
-//   applies it (conv.py:139).
+// - int8: conv_i8::conv_i8_tc_kernel (conv2d_int8_tc.cuh), on the int8
+//   tensor cores (wgmma s8) over a K-major copy of the weights; its
+//   header says what bounds it. Epilogue: f32(acc) * xs[image] * ws[o],
+//   in that order, as _conv_kernel_q applies it (conv.py:139).
+#include "conv2d_int8_tc.cuh"
 #include "conv2d_tc.cuh"
 #include "zt_gemm.cuh"
 
@@ -127,55 +129,6 @@ __global__ void __launch_bounds__(kGemmThreads)
   }
 }
 
-__global__ void __launch_bounds__(kGemmThreads)
-    conv2d_int8_kernel(const int8_t* __restrict__ x,
-                       const int8_t* __restrict__ w,
-                       const float* __restrict__ xs,
-                       const float* __restrict__ ws, float* __restrict__ y,
-                       ConvArgs a) {
-  __shared__ __align__(16) Int8Tile t;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int ak = tid % kBK, ar = tid / kBK;
-  const int bn = tid % kBN, bk = tid / kBN;
-  RowOrigins ro;
-  row_origins(a, m0, ar, ro);
-  int acc[4][4] = {};
-  for (int tap = 0; tap < a.kh * a.kw; ++tap) {
-    const int dy = tap / a.kw, dx = tap - (tap / a.kw) * a.kw;
-    for (int c0 = 0; c0 < a.c; c0 += kBK) {
-#pragma unroll
-      for (int i = 0; i < kLoads; ++i) {
-        const long long off = x_offset(a, ro, i, dy, dx, c0 + ak);
-        t.a[ar + kARowStep * i][ak] = off < 0 ? int8_t(0) : x[off];
-      }
-#pragma unroll
-      for (int i = 0; i < kLoads; ++i) {
-        const int k = bk + kBRowStep * i;
-        const long long off = w_offset(a, tap, c0 + k, n0 + bn);
-        t.b[bn][k] = off < 0 ? int8_t(0) : w[off];
-      }
-      __syncthreads();
-      dp4a_slice(t, tx, ty, acc);
-      __syncthreads();
-    }
-  }
-  const long long rows = static_cast<long long>(a.n) * a.oh * a.ow;
-  const int hw = a.oh * a.ow;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty + 16 * i;
-    if (m >= rows) continue;
-    const float row_scale = xs[m / hw];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = n0 + tx + 16 * j;
-      if (o < a.o) y[m * a.o + o] = dequant(acc[i][j], row_scale, ws[o]);
-    }
-  }
-}
-
 inline bool valid(const ConvArgs& a) {
   return a.n > 0 && a.h > 0 && a.w > 0 && a.c > 0 && a.kh > 0 && a.kw > 0 &&
          a.o > 0 && a.sh > 0 && a.sw > 0 && a.ph >= 0 && a.pw >= 0 &&
@@ -207,20 +160,20 @@ extern "C" int zt_conv2d(const void* x, const void* wt, void* y, int dtype,
   return cudaGetLastError();
 }
 
-// Int8 conv: x (n, h, w, c) and wt (kh, kw, c, o) int8, xs (n,) and
-// ws (o,) f32 scales, y (n, oh, ow, o) f32; all contiguous.
-extern "C" int zt_conv2d_int8(const void* x, const void* wt, const void* xs,
+// Int8 conv: x (n, h, w, c) int8, wk (o, kh * kw * c) int8, the K-major
+// copy of the HWIO weights, xs (n,) and ws (o,) f32 scales, y (n, oh, ow,
+// o) f32; all contiguous. The plan (bn, bk, stages, vec, out_vec, smem)
+// is conv_int8_plan()'s.
+extern "C" int zt_conv2d_int8(const void* x, const void* wk, const void* xs,
                               const void* ws, void* y, int n, int h, int w,
                               int c, int kh, int kw, int o, int sh, int sw,
-                              int ph, int pw, int oh, int ow, void* stream) {
+                              int ph, int pw, int oh, int ow, int bn, int bk,
+                              int stages, int vec, int out_vec, int smem,
+                              void* stream) {
   using namespace zt;
   const ConvArgs a{n, h, w, c, kh, kw, o, sh, sw, ph, pw, oh, ow};
   if (!valid(a)) return cudaErrorInvalidValue;
-  const dim3 grid = grid_for(static_cast<long long>(n) * oh * ow, o);
-  conv2d_int8_kernel<<<grid, kGemmThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(wt),
-      static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<float*>(y), a);
-  return cudaGetLastError();
+  return conv_i8::conv2d_int8(x, wk, xs, ws, y, a, bn, bk, stages, vec,
+                              out_vec, smem,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -69,14 +69,18 @@ using bf16 = __nv_bfloat16;
 
 // ----------------------------------------------------------- wgmma
 
-// Shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading- and stride-dimension byte offsets (each >> 4).
+// Swizzle modes of a matrix descriptor (bits 62-63)
+constexpr uint64_t kSwizzle128 = 1, kSwizzle64 = 2;
+
+// Shared-memory matrix descriptor: start address, leading- and
+// stride-dimension byte offsets (each >> 4), swizzle mode (128-byte by
+// default; the int8 conv also reads 64-byte rows in the 64-byte one).
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
+                                         uint32_t sbo,
+                                         uint64_t mode = kSwizzle128) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
-         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 |
-         static_cast<uint64_t>(1) << 62;
+         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | mode << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -87,9 +91,13 @@ __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// wait until at most N of this warpgroup's wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+
+__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
 
 // make this thread's generic-proxy writes to shared memory (cp.async,
 // st.shared) visible to the async proxy wgmma reads through
@@ -164,6 +172,27 @@ constexpr int kBK = 64;                  // channels of one reduction step
 constexpr int kThreads = 2 * kBM;        // a warpgroup per 64 rows
 constexpr int kRowBytes = kBK * 2;       // an A row, a B atom row: 128 B
 
+// Row r of the block's BM output rows from m0: its image (-1 past the
+// last row) and the input pixel (y, x) of its window's top-left tap,
+// which may lie in the halo; written to origin[r] by the THREADS threads.
+template <int BM, int THREADS>
+__device__ __forceinline__ void block_origins(const ConvArgs& a,
+                                              long long m0, int4* origin) {
+  const long long rows = static_cast<long long>(a.n) * a.oh * a.ow;
+  const int hw = a.oh * a.ow;
+  for (int r = threadIdx.x; r < BM; r += THREADS) {
+    const long long m = m0 + r;
+    int4 og = make_int4(-1, 0, 0, 0);
+    if (m < rows) {
+      const int img = static_cast<int>(m / hw);
+      const int rem = static_cast<int>(m - static_cast<long long>(img) * hw);
+      const int oy = rem / a.ow, ox = rem - oy * a.ow;
+      og = make_int4(img, oy * a.sh - a.ph, ox * a.sw - a.pw, 0);
+    }
+    origin[r] = og;
+  }
+}
+
 template <int BN, int STAGES>
 struct Tile {
   static constexpr int kABytes = kBM * kRowBytes;
@@ -204,19 +233,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const long long m0 = static_cast<long long>(blockIdx.x / n_tiles) * kBM;
   const int n0 = (blockIdx.x % n_tiles) * BN;
 
-  // each row's image (-1 past the last row) and window origin
-  const int hw = a.oh * a.ow;
-  for (int r = tid; r < kBM; r += kThreads) {
-    const long long m = m0 + r;
-    int4 og = make_int4(-1, 0, 0, 0);
-    if (m < rows) {
-      const int img = static_cast<int>(m / hw);
-      const int rem = static_cast<int>(m - static_cast<long long>(img) * hw);
-      const int oy = rem / a.ow, ox = rem - oy * a.ow;
-      og = make_int4(img, oy * a.sh - a.ph, ox * a.sw - a.pw, 0);
-    }
-    origin[r] = og;
-  }
+  block_origins<kBM, kThreads>(a, m0, origin);
   __syncthreads();
 
   const int c_steps = (a.c + kBK - 1) / kBK;

@@ -2,11 +2,14 @@
 (counterpart of ``zoo_tpu/ops/pallas/conv.py``).
 
 Layouts are the JAX package's: NHWC activations, HWIO weights. The
-kernels are ``zoo_tpu_torch/csrc/conv2d.cu`` and ``conv2d_tc.cuh``
-(their headers say what bounds them): a float one (f32 or bf16 in, f32
+kernels are ``zoo_tpu_torch/csrc/conv2d.cu``, ``conv2d_tc.cuh`` and
+``conv2d_int8_tc.cuh`` (their headers say what bounds them): a float one (f32 or bf16 in, f32
 accumulation, output in the input type; bf16 on the tensor cores with
 the tiles :func:`conv_plan` picks, f32 on the SIMT units) and an int8
-one (int32 accumulation, dequantized to f32 in the epilogue). All cover
+one on the int8 tensor cores (int32 accumulation, dequantized to f32 in
+the epilogue, tiles from :func:`conv_int8_plan`). The int8 kernel reads
+the weights as a K-major (O, KH*KW*C) copy: :func:`attach_kmajor` makes
+it once per weight and keeps it beside the weight. All cover
 the JAX kernels' envelope, a 1x1 conv at any stride and a 3x3 conv at
 stride 1, SAME or VALID; the halo reads as zero inside the kernel, so
 no padded copy is made.
@@ -30,6 +33,7 @@ package has no backward conv kernel. The int8 conv is inference-only.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional, Tuple, Union
 
 import torch
@@ -40,7 +44,8 @@ from zoo_tpu_torch.ops.kernels import _launch as L
 from zoo_tpu_torch.ops.kernels import on_cuda
 
 __all__ = ["conv2d", "conv2d_int8", "resolve_conv_impl",
-           "pallas_conv_supported", "conv_plan"]
+           "pallas_conv_supported", "conv_plan", "conv_int8_plan",
+           "int8_weights_kmajor", "attach_kmajor", "kmajor_of"]
 
 # kernel launches since the last reset (see ops.kernels.launch_counts)
 LAUNCHES = 0
@@ -57,7 +62,7 @@ def _entries():
         lib = library("conv2d")
         fl, q = lib.zt_conv2d, lib.zt_conv2d_int8
         fl.argtypes = [L.P] * 3 + [L.I] * 18 + [L.P]
-        q.argtypes = [L.P] * 5 + [L.I] * 13 + [L.P]
+        q.argtypes = [L.P] * 5 + [L.I] * 19 + [L.P]
         fl.restype = q.restype = L.I
         _fns = (lib, fl, q)
     return _fns
@@ -120,6 +125,130 @@ def conv_plan(rows: int, c: int, o: int, align: int = 16) -> ConvPlan:
     smem = 1024 + max(stages * stage, bm * (bn + 8) * 2) + 16 * bm
     return ConvPlan(bm, bn, stages, vec, smem, 2 * bm, _cdiv(rows, bm),
                     _cdiv(o, bn))
+
+
+# the int8 tensor-core kernel (csrc/conv2d_int8_tc.cuh): output rows of
+# a block (two warpgroups of 64); ring stages by channels (bytes) a step
+_I8_BM = 128
+_I8_STAGES = {64: 6, 128: 3}
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvInt8Plan:
+    """Launch plan of the int8 conv kernel: a ``bm`` x ``bn`` output tile
+    per block of ``threads``, ``bk`` channels a reduction step, a ring of
+    ``stages`` slots filled by copies of ``vec`` bytes, outputs stored
+    ``out_vec`` f32 at a time, ``smem`` bytes of dynamic shared memory,
+    ``m_tiles`` x ``n_tiles`` blocks."""
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    vec: int
+    out_vec: int
+    smem: int
+    threads: int
+    m_tiles: int
+    n_tiles: int
+
+    @property
+    def copy_bytes(self) -> int:
+        return self.vec
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+
+def conv_int8_plan(rows: int, c: int, o: int, align: int = 16,
+                   out_align: int = 16) -> ConvInt8Plan:
+    """The int8 kernel's plan for ``rows`` = N*OH*OW output pixels, ``c``
+    input and ``o`` output channels, the activation and K-major weight
+    pointers aligned to ``align`` bytes, the output and weight-scale
+    pointers to ``out_align``.
+
+    - Copy width: the widest of 16, 8, 4, 2, 1 bytes (channels) that
+      divides ``c`` and ``align`` (16-byte copies for every ResNet-50
+      shape). The K-major weight rows run over the channels too, so
+      ``o`` does not narrow the copies; it narrows the stores: 16 bytes
+      (4 f32) where ``o % 4 == 0``, else 4.
+    - Step: 128 channels in 128-byte swizzled rows where ``c % 128 ==
+      0`` (with 16-byte copies), 3 ring stages; else 64 channels in
+      64-byte rows, 6 stages.
+    - Tile: 128 rows (a warpgroup per 64) by 64 columns where ``o <=
+      64``, else by 128. Shared memory: the ring or the int32 epilogue
+      tile, whichever is larger, 16 bytes of row origins a row and 1024
+      bytes of slack to align the ring: 101,376 bytes at 128 columns,
+      so two blocks share an SM.
+    """
+    if min(rows, c, o) <= 0:
+        raise ValueError(f"empty conv: rows={rows} c={c} o={o}")
+    vec = next(v for v in (16, 8, 4, 2, 1) if c % v == 0 and align % v == 0)
+    bk = 128 if c % 128 == 0 and vec == 16 else 64
+    bn = 64 if o <= 64 else 128
+    out_vec = 4 if o % 4 == 0 and out_align % 16 == 0 else 1
+    bm, stages = _I8_BM, _I8_STAGES[bk]
+    ring = stages * (bm + bn) * bk
+    smem = 1024 + max(ring, bm * (bn + 8) * 4) + 16 * bm
+    return ConvInt8Plan(bm, bn, bk, stages, vec, out_vec, smem, 2 * bm,
+                        _cdiv(rows, bm), _cdiv(o, bn))
+
+
+def int8_weights_kmajor(w_q: torch.Tensor) -> torch.Tensor:
+    """The int8 kernel's weight operand: HWIO ``w_q`` (kh, kw, c, o) as an
+    (o, kh*kw*c) K-major copy, row ``o`` holding tap-major channels."""
+    return w_q.permute(3, 0, 1, 2).reshape(w_q.shape[3], -1).contiguous()
+
+
+# K-major copies made once per weight: (device, storage pointer, offset,
+# shape, stride) of the int8 HWIO tensor -> (a weak reference to the
+# tensor the copy was made from, its version, the copy). A lookup hits
+# for that tensor and every view of the same storage (``detach()``,
+# ``.to()`` its own device), as long as the tensor lives and was not
+# written in place since.
+_KMAJOR: dict = {}
+
+
+def _kmajor_key(w_q: torch.Tensor):
+    return (str(w_q.device), w_q.untyped_storage().data_ptr(),
+            w_q.storage_offset(), tuple(w_q.shape), tuple(w_q.stride()))
+
+
+def kmajor_of(w_q: torch.Tensor) -> Optional[torch.Tensor]:
+    """The K-major copy made for ``w_q`` (or a view of its storage) by
+    :func:`attach_kmajor`, or None."""
+    hit = _KMAJOR.get(_kmajor_key(w_q))
+    if hit is None:
+        return None
+    ref, version, copy = hit
+    source = ref()
+    if source is None or source._version != version or \
+            w_q._version != version:
+        return None
+    return copy
+
+
+def attach_kmajor(w_q: torch.Tensor) -> torch.Tensor:
+    """``w_q``'s K-major copy (:func:`int8_weights_kmajor`), made once and
+    kept beside the weight while it lives: ``quantize_model`` and
+    ``keras_params_from_jax`` attach it to every int8 conv weight, and the
+    layer's forward finds it again instead of transposing per call."""
+    copy = kmajor_of(w_q)
+    if copy is not None:
+        return copy
+    key = _kmajor_key(w_q)
+    copy = int8_weights_kmajor(w_q.detach())
+    _KMAJOR[key] = (weakref.ref(w_q, lambda ref: _forget(key, ref)),
+                    w_q._version, copy)
+    return copy
+
+
+def _forget(key, ref) -> None:
+    """Drop the copy of a weight that died (not one made since for a
+    tensor that took its place)."""
+    hit = _KMAJOR.get(key)
+    if hit is not None and hit[0] is ref:
+        del _KMAJOR[key]
 
 
 def _alignment(*tensors) -> int:
@@ -292,10 +421,14 @@ def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
 
 def conv2d_int8_plain(x_q, w_q, x_scale, w_scale,
                       strides: Tuple[int, int] = (1, 1),
-                      padding: str = "SAME") -> torch.Tensor:
+                      padding: str = "SAME",
+                      w_kmajor: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """The int8 kernel's plain version and the reference int8 conv: the
     integer sums in float64 (exact), then ``f32(acc) * x_scale[n] *
-    w_scale[o]``, f32 out."""
+    w_scale[o]``, f32 out. It takes the kernel wrapper's arguments and
+    reads the HWIO ``w_q``; ``w_kmajor``, the kernel's operand, is not
+    used."""
     acc = _conv_nhwc(x_q, w_q, strides, _pads(x_q, w_q, strides, padding),
                      torch.float64).float()
     n, o = x_q.shape[0], w_q.shape[3]
@@ -375,11 +508,16 @@ class _ConvKernel(torch.autograd.Function):
 def implicit_gemm_conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor,
                               x_scale: torch.Tensor, w_scale: torch.Tensor,
                               strides: Tuple[int, int] = (1, 1),
-                              padding: str = "SAME") -> torch.Tensor:
+                              padding: str = "SAME",
+                              w_kmajor: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """Int8 NHWC conv through the implicit-GEMM kernel with the dequant
     epilogue, f32 out. ``x_q`` holds int8-range values (int8, or any
-    float dtype, converted here), ``x_scale`` the (N, 1, 1, 1) or (N,)
-    per-image scale, ``w_scale`` the (O,) per-output-channel scale.
+    float dtype, converted here), ``w_q`` the int8 HWIO weights,
+    ``x_scale`` the (N, 1, 1, 1) or (N,) per-image scale, ``w_scale`` the
+    (O,) per-output-channel scale; ``w_kmajor`` the weights' K-major copy
+    (:func:`int8_weights_kmajor`), which the kernel reads: made here, per
+    call, when none is passed.
 
     CPU tensors take :func:`conv2d_int8_plain`; CUDA tensors launch the
     kernel (or raise)."""
@@ -392,18 +530,24 @@ def implicit_gemm_conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor,
     dev = x_q.device
     if x_q.dtype != torch.int8:
         x_q = x_q.to(torch.int8)
-    n, o = x_q.shape[0], w_q.shape[3]
-    xs = x_scale.reshape(n).float().contiguous()
-    ws = w_scale.reshape(o).float().contiguous()
     L.require(x_q, "x_q", dev, (torch.int8,))
     L.require(w_q, "w_q", dev, (torch.int8,))
+    args = _conv_args(x_q, w_q, strides, padding)
+    n, c, kh, kw, o = args[0], args[3], args[4], args[5], args[6]
+    if w_kmajor is None:
+        w_kmajor = int8_weights_kmajor(w_q)
+    L.require(w_kmajor, "w_kmajor", dev, (torch.int8,), (o, kh * kw * c))
+    xs = x_scale.reshape(n).float().contiguous()
+    ws = w_scale.reshape(o).float().contiguous()
     L.require(xs, "x_scale", dev, (torch.float32,))
     L.require(ws, "w_scale", dev, (torch.float32,))
-    args = _conv_args(x_q, w_q, strides, padding)
     y = torch.empty((n, args[11], args[12], o), dtype=torch.float32,
                     device=dev)
+    p = conv_int8_plan(n * args[11] * args[12], c, o,
+                       _alignment(x_q, w_kmajor), _alignment(y, ws))
     lib, _, q = _entries()
-    rc = q(L.ptr(x_q), L.ptr(w_q), L.ptr(xs), L.ptr(ws), L.ptr(y), *args,
+    rc = q(L.ptr(x_q), L.ptr(w_kmajor), L.ptr(xs), L.ptr(ws), L.ptr(y),
+           *args, p.bn, p.bk, p.stages, p.vec, p.out_vec, p.smem,
            L.stream(dev))
     L.check(lib, rc, "conv2d_int8")
     INT8_LAUNCHES += 1
@@ -426,15 +570,17 @@ def conv2d(x: torch.Tensor, w: torch.Tensor,
 def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor,
                 x_scale: torch.Tensor, w_scale: torch.Tensor,
                 strides: Tuple[int, int] = (1, 1), padding: str = "SAME",
-                impl: Optional[str] = None) -> torch.Tensor:
+                impl: Optional[str] = None,
+                w_kmajor: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Int8 NHWC conv with the dequant fused, f32 out, behind the one
-    dispatch point. Outside the kernel's envelope it takes the exact
-    float64 reference on every device (the JAX package runs a true int8
-    conv there on its chip and an f32 conv on the CPU)."""
+    dispatch point (``w_kmajor`` as in :func:`implicit_gemm_conv2d_int8`).
+    Outside the kernel's envelope it takes the exact float64 reference on
+    every device (the JAX package runs a true int8 conv there on its chip
+    and an f32 conv on the CPU)."""
     kh, kw = int(w_q.shape[0]), int(w_q.shape[1])
     strides = tuple(strides)
     if resolve_conv_impl(impl, kernel=(kh, kw), strides=strides,
                          device=x_q.device) == "pallas":
         return implicit_gemm_conv2d_int8(x_q, w_q, x_scale, w_scale,
-                                         strides, padding)
+                                         strides, padding, w_kmajor)
     return conv2d_int8_plain(x_q, w_q, x_scale, w_scale, strides, padding)

@@ -9,6 +9,8 @@ masked to the columns at or before its own position.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -23,6 +25,66 @@ from zoo_tpu_torch.ops.kernels.paged_decode import (
 # kernel launches since the last reset (see ops.kernels.launch_counts)
 LAUNCHES = 0
 _fn = None
+
+# the kernel's tile (csrc/paged_prefill.cu kRows, kKeys, kStages): query
+# rows of a block, keys of a K/V tile, tiles in the ring; its largest
+# head dim; the SMs of an H100 SXM, which the grid should cover
+ROW_TILE, KEY_TILE, RING_STAGES, MAX_HEAD_DIM = 64, 32, 2, 128
+NUM_SMS, BLOCKS_PER_SM = 132, 2
+MAX_SPLITS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class PrefillPlan:
+    """Launch plan of the paged-prefill kernel: ``row_tile`` query rows a
+    block, ``key_tile`` keys a K/V tile, ``splits`` blocks along the key
+    axis for each row tile, ``smem`` bytes of dynamic shared memory,
+    ``row_tiles`` row tiles per (sequence, kv head)."""
+    row_tile: int
+    key_tile: int
+    splits: int
+    smem: int
+    row_tiles: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def prefill_plan(S: int, C: int, n_kv: int, G: int, D: int, block_size: int,
+                 W: int, cache_itemsize: int) -> PrefillPlan:
+    """The kernel's plan for ``S`` sequences of ``C`` rows, ``n_kv`` kv
+    heads of ``G`` query heads, head dim ``D``, a block table of ``W``
+    blocks of ``block_size`` rows, cache elements of ``cache_itemsize``
+    bytes (4 f32, 2 bf16, 1 int8).
+
+    - Rows: the C x G rows of a (sequence, kv head) in tiles of 64.
+    - Splits: a block walks its key tiles one after another, so where
+      the row tiles give fewer blocks than two for each of the 132 SMs,
+      the key axis is split, as few times as reaches that (at most 8,
+      and no more than the table has key tiles); the blocks of a row
+      tile share the key tiles its rows reach and a second kernel merges
+      them (8 splits, 256 blocks at the serving shape).
+    - Shared memory: the f32 q tile (64 rows of D + 4 floats), the f32 p
+      tile (64 x 36), a ring of two K and V tiles (32 rows of
+      D * itemsize + 16 bytes) and, for int8, their f32 row scales:
+      110,592 bytes at D=128 f32, so two blocks share an SM.
+    """
+    if D % 4 or not 4 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"paged prefill kernel takes head_dim a multiple "
+                         f"of 4 up to {MAX_HEAD_DIM} (got {D})")
+    if min(S, C, n_kv, G, block_size, W) < 1:
+        raise ValueError("empty paged prefill")
+    row_tiles = -(-C * G // ROW_TILE)
+    base = S * n_kv * row_tiles
+    key_tiles = -(-W * block_size // KEY_TILE)
+    splits = max(1, min(-(-NUM_SMS * BLOCKS_PER_SM // base), MAX_SPLITS,
+                        key_tiles))
+    row = D * cache_itemsize + 16
+    smem = (4 * ROW_TILE * (D + 4) + 4 * ROW_TILE * (KEY_TILE + 4)
+            + RING_STAGES * 2 * KEY_TILE * row
+            + (RING_STAGES * 2 * KEY_TILE * 4 if cache_itemsize == 1
+               else 0))
+    return PrefillPlan(ROW_TILE, KEY_TILE, splits, smem, row_tiles,
+                       base * splits)
 
 
 def paged_prefill_plain(q, k_cache, v_cache, block_tables, positions, *,
@@ -51,7 +113,7 @@ def _entry():
         from zoo_tpu_torch.ops.kernels._build import library
         lib = library("paged_prefill")
         fn = lib.zt_paged_prefill
-        fn.argtypes = [L.P] * 8 + [L.I] * 7 + [L.F, L.I, L.I, L.P]
+        fn.argtypes = [L.P] * 10 + [L.I] * 7 + [L.F] + [L.I] * 6 + [L.P]
         fn.restype = L.I
         _fn = (lib, fn)
     return _fn
@@ -73,7 +135,9 @@ def paged_flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
     dtype.
 
     CPU tensors take :func:`paged_prefill_plain`; CUDA tensors launch
-    the kernel (or raise)."""
+    the kernel (or raise) with :func:`prefill_plan`'s tiles, and, where
+    the plan splits the key axis, its merge of the splits in the same
+    call (one launch counted)."""
     global LAUNCHES
     S, C, H, D = q.shape
     n_blocks, bs, n_kv, _ = k_cache.shape
@@ -104,16 +168,30 @@ def paged_flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
             L.require(t, name, dev, (torch.float32,), (n_blocks, bs, n_kv))
     L.require(block_tables, "block_tables", dev, (torch.int32,), (S, W))
     L.require(positions, "positions", dev, (torch.int32,), (S, C))
-    if bs > 32 or D > 128:
-        raise ValueError(f"paged prefill kernel takes block_size <= 32 "
-                         f"and head_dim <= 128 (got {bs}, {D})")
+    plan = prefill_plan(S, C, n_kv, G, D, bs, W, k_cache.element_size())
+    # the kernel copies q rows 16 bytes and cache rows up to 16 bytes at a
+    # time: an unaligned view of q reaches it as an aligned copy
+    if q.data_ptr() % 16:
+        q = q.clone()
+    row = D * k_cache.element_size()
+    align = 16 if row % 16 == 0 else 8 if row % 8 == 0 else 4
+    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} must start on a {align}-byte "
+                             "boundary")
     out = torch.empty_like(q)
+    part_o = part_ml = None
+    if plan.splits > 1:   # the splits' partials (o; m, l), one buffer
+        rows = plan.splits * S * C * H
+        part = torch.empty(rows * (D + 2), dtype=torch.float32, device=dev)
+        part_o, part_ml = part[:rows * D], part[rows * D:]
     lib, fn = _entry()
     rc = fn(L.ptr(q), L.ptr(k_cache), L.ptr(v_cache), L.ptr(k_scale),
             L.ptr(v_scale), L.ptr(block_tables), L.ptr(positions),
-            L.ptr(out), S, C, n_kv, G, D, bs, W, float(scale),
-            L.DTYPE_CODES[q.dtype], L.DTYPE_CODES[k_cache.dtype],
-            L.stream(dev))
+            L.ptr(out), L.ptr(part_o), L.ptr(part_ml), S, C, n_kv, G, D, bs,
+            W, float(scale), L.DTYPE_CODES[q.dtype],
+            L.DTYPE_CODES[k_cache.dtype], plan.row_tile, plan.key_tile,
+            plan.splits, plan.smem, L.stream(dev))
     L.check(lib, rc, "paged_prefill")
     LAUNCHES += 1
     return out

@@ -219,14 +219,25 @@ def quantized_conv2d(x: torch.Tensor, w_q: torch.Tensor,
     """f32/bf16 NHWC activations x int8 HWIO weights: per-image dynamic
     activation quantization (plain PyTorch, f32), then the int8 conv of
     :func:`~zoo_tpu_torch.ops.kernels.conv.conv2d_int8` with its dequant
-    epilogue, then the bias in f32; the output has ``x``'s dtype."""
-    from zoo_tpu_torch.ops.kernels.conv import conv2d_int8
+    epilogue, then the bias in f32; the output has ``x``'s dtype. On a
+    CUDA device the kernel reads the weights' K-major copy, the one
+    ``quantize_model`` attached (made here once if none was)."""
+    from zoo_tpu_torch.ops.kernels.conv import (
+        attach_kmajor,
+        conv2d_int8,
+        pallas_conv_supported,
+    )
 
     xf = x.float()
     x_scale = absmax_scale(xf.abs().amax(dim=(1, 2, 3), keepdim=True))
     x_q = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
+    w_kmajor = None
+    if w_q.device.type == "cuda" and pallas_conv_supported(
+            tuple(w_q.shape[:2]), tuple(strides)):
+        w_kmajor = attach_kmajor(w_q)
     y = conv2d_int8(x_q, w_q, x_scale, w_scale.float(),
-                    strides=tuple(strides), padding=padding, impl=impl)
+                    strides=tuple(strides), padding=padding, impl=impl,
+                    w_kmajor=w_kmajor)
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)

@@ -132,6 +132,10 @@ def _time_forward(model, xs, reps: int = 3) -> float:
 
 
 def _apply_int8(model):
+    from zoo_tpu_torch.ops.kernels.conv import (
+        attach_kmajor,
+        pallas_conv_supported,
+    )
     from zoo_tpu_torch.ops.kernels.quant import (
         quantize_conv_weights,
         quantize_int8,
@@ -143,8 +147,10 @@ def _apply_int8(model):
 
     dense_keys = {model._key_of(l) for l in model.layers
                   if isinstance(l, Dense)}
-    conv_keys = {model._key_of(l) for l in model.layers
-                 if isinstance(l, Convolution2D)}
+    # conv key -> whether the int8 kernel takes the layer (its envelope)
+    conv_keys = {model._key_of(l): pallas_conv_supported(l.kernel,
+                                                         l.subsample)
+                 for l in model.layers if isinstance(l, Convolution2D)}
 
     def walk(tree):
         for key, val in list(tree.items()):
@@ -155,6 +161,9 @@ def _apply_int8(model):
                 elif key in conv_keys and "W" in val:
                     val["W_q"], val["W_scale"] = quantize_conv_weights(
                         val.pop("W").detach())
+                    if conv_keys[key]:
+                        # the kernel's K-major weights, made once here
+                        attach_kmajor(val["W_q"])
                 else:
                     walk(val)
 
