@@ -13,13 +13,16 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    registers, shared memory and spills;
 2b. sass — how each kernel multiplies, read from the built libraries'
    SASS (``cuobjdump -sass``): ``wgmma`` (HGMMA, IGMMA), ``mma.sync``
-   (HMMA, IMMA) or ``simt``; fails unless the bf16 conv and the bf16
-   flash forward and backward (dK/dV, dQ) run on the tensor cores and
-   the bf16 and int8 convs on ``wgmma``;
+   (HMMA, IMMA) or ``simt``; fails unless the bf16 conv, the bf16
+   flash forward and backward (dK/dV, dQ) and the fused bottleneck run
+   on the tensor cores, the bf16 and int8 convs on ``wgmma``, and the
+   paged decode's shuffles all on the fast path (no
+   ``WARPSYNC.COLLECTIVE``);
 3. kernels — each kernel against its plain PyTorch version at the
    Llama-3-8B serving shapes, for f32, bf16 and int8 caches and the
    position edges, then timed (device time per call from
-   ``torch.profiler``, and CUDA-event wall time) beside its plain
+   ``torch.profiler``, and CUDA-event wall time; for the paged decode
+   also the device launches per call, which must be one) beside its plain
    version, its least possible time on the card, and (flash only)
    ``scaled_dot_product_attention`` as a yardstick the port never calls;
 4. tiny — ``llama:tiny`` greedy streams through the engine with the
@@ -35,7 +38,8 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    cache; kernel launch counts are reset before and read after each
    run and must show each kernel of that path. After the bucket run,
    ``tick`` lines profile decode ticks of the same model, with the
-   paged-decode kernel and with its plain version;
+   paged-decode kernel and with its plain version (device time by group,
+   device launches per tick);
 6. train-main — Keras ``fit`` of the repo's Llama training config
    (``bench.py`` ``bench_llama``: vocab 32000, hidden 768, 12 blocks, 12
    heads, 4 kv heads, intermediate 2048) at full width and depth, S=512,
@@ -221,9 +225,12 @@ F32_ROUTES = {"flash_attention": ("flash_attention", "flash_fwd_kernel"),
               "conv2d": ("conv2d", "conv2d_kernel")}
 # kernels whose main-path route must run on the tensor cores
 TENSOR_CORE_KERNELS = ("conv2d", "flash_attention", "flash_attention_dkdv",
-                       "flash_attention_dq")
+                       "flash_attention_dq", "fused_bottleneck")
 # ... and on wgmma (HGMMA for bf16, IGMMA for int8)
 WGMMA_KERNELS = ("conv2d", "conv2d_int8")
+# kernels whose warp shuffles must all take the fast path (each key row's
+# scores are reduced across the warp)
+FAST_SHUFFLE_KERNELS = ("paged_decode",)
 
 
 def emit(obj):
@@ -290,7 +297,9 @@ def mma_route(funcs, function):
     """How the instances of ``__global__ function`` multiply, read from
     their SASS: ``"wgmma"`` (HGMMA, or IGMMA for int8), ``"mma.sync"``
     (HMMA, IMMA) or
-    ``"simt"``; with the instruction counts and the instances found."""
+    ``"simt"``; with the instruction counts, the instances found and the
+    ``WARPSYNC.COLLECTIVE`` count (the slow path of a warp shuffle or vote
+    the compiler could not prove converged)."""
     key = f"{len(function)}{function}"          # as the name is mangled
     hit = [f for n, f in funcs.items() if key in n]
     if not hit:
@@ -299,16 +308,20 @@ def mma_route(funcs, function):
               for op in ("HGMMA", "IGMMA", "HMMA", "IMMA")}
     route = "wgmma" if counts["HGMMA"] or counts["IGMMA"] else \
         "mma.sync" if counts["HMMA"] or counts["IMMA"] else "simt"
-    return {"mma": route, "counts": counts, "instances": len(hit)}
+    collective = sum(f.count("WARPSYNC.COLLECTIVE") for f in hit)
+    return {"mma": route, "counts": counts, "instances": len(hit),
+            "collective_syncs": collective}
 
 
 def phase_sass(built):
     """Each kernel's multiply route from the built libraries' SASS; fails
     unless the bf16 routes of conv2d and the flash forward and backward
-    run on the tensor cores, and unless conv2d (bf16) and conv2d_int8
-    run on ``wgmma``. The paged kernels, the optimizers, the int8 GEMMs
-    and the fused bottleneck read ``simt``; paged_prefill by design: the
-    serving path is f32, and the tensor cores would mean TF32."""
+    and the fused bottleneck run on the tensor cores, unless conv2d
+    (bf16) and conv2d_int8 run on ``wgmma``, and unless the paged decode
+    is free of ``WARPSYNC.COLLECTIVE`` (slow-path shuffles). The paged kernels, the
+    optimizers and the int8 GEMMs read ``simt``; the paged kernels by
+    design: the serving path is f32 (the tensor cores would mean TF32)
+    and the decode does ~4 flops a cache element."""
     sass = {lib: sass_functions(r.path) for lib, r in built.items()}
     routes = {k: mma_route(sass[lib], fn)
               for k, (lib, fn) in MMA_FUNCTIONS.items()}
@@ -319,6 +332,10 @@ def phase_sass(built):
         if routes[k]["mma"] == "simt":
             raise AssertionError(f"{k}: its bf16 route has no tensor-core "
                                  f"instruction in its SASS")
+    for k in FAST_SHUFFLE_KERNELS:
+        if routes[k]["collective_syncs"]:
+            raise AssertionError(f"{k}: {routes[k]['collective_syncs']} "
+                                 "WARPSYNC.COLLECTIVE in its SASS")
     for k in WGMMA_KERNELS:
         if routes[k]["mma"] != "wgmma":
             raise AssertionError(f"{k}: its main-path route reads "
@@ -338,6 +355,7 @@ def _profiled(torch, fn, iters, kernel):
             fn()
         torch.cuda.synchronize()
     total = only = 0.0
+    launches = 0
     by_name, host_by_name = {}, {}
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -350,7 +368,9 @@ def _profiled(torch, fn, iters, kernel):
         by_name[e.key] = by_name.get(e.key, 0.0) + us / iters / 1e3
         if kernel is not None and kernel in e.key:
             only += us
-    return total, only, by_name, host_by_name
+        if not e.key.startswith(("Memcpy", "Memset")):
+            launches += e.count
+    return total, only, by_name, host_by_name, launches / iters
 
 
 def timed(torch, fn, iters, kernel=None, warmup=3, attempts=3):
@@ -364,7 +384,9 @@ def timed(torch, fn, iters, kernel=None, warmup=3, attempts=3):
     slower side); ``by_name``, device ms per call of each event name;
     ``host_by_name``, host ms per call of each host event, its own time
     without its children's, under the profiler (which adds its own);
-    ``device_busy_share``, ``device_ms`` over ``wall_ms``.
+    ``device_busy_share``, ``device_ms`` over ``wall_ms``;
+    ``device_launches``, the device kernels ``fn`` launches per call
+    (copies and memsets not counted).
 
     The profiler now and then returns no device event at all on the
     card's machine; a pass that does is repeated, up to ``attempts``
@@ -387,14 +409,15 @@ def timed(torch, fn, iters, kernel=None, warmup=3, attempts=3):
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
     for attempt in range(1, attempts + 1):
-        total, only, by_name, host_by_name = _profiled(torch, fn, iters,
-                                                       kernel)
+        total, only, by_name, host_by_name, launches = _profiled(
+            torch, fn, iters, kernel)
         if total > 0:
             device = total / iters / 1e3
             return {"device_ms": device, "wall_ms": wall, "host_ms": host,
                     "kernel_ms": only / iters / 1e3 if kernel else None,
                     "by_name": by_name, "host_by_name": host_by_name,
                     "device_busy_share": device / wall,
+                    "device_launches": launches,
                     "device_source": "profiler"}
         emit({"phase": "timing", "kernel": kernel, "attempt": attempt,
               "note": "torch.profiler recorded no device time"})
@@ -410,7 +433,8 @@ def timed(torch, fn, iters, kernel=None, warmup=3, attempts=3):
     device = sum(a.elapsed_time(b) for a, b in pairs) / iters
     return {"device_ms": device, "wall_ms": wall, "host_ms": host,
             "kernel_ms": None, "by_name": {}, "host_by_name": host_by_name,
-            "device_busy_share": None, "device_source": "cuda_events"}
+            "device_busy_share": None, "device_launches": None,
+            "device_source": "cuda_events"}
 
 
 def timing(torch, kernel, fn, plain, library, iters):
@@ -419,6 +443,7 @@ def timing(torch, kernel, fn, plain, library, iters):
     t = timed(torch, fn, iters, kernel=kernel)
     return {"ms": t["device_ms"], "kernel_ms": t["kernel_ms"],
             "wall_ms": t["wall_ms"], "by_name": t["by_name"],
+            "device_launches_per_call": t["device_launches"],
             "plain_ms": timed(torch, plain, max(3, iters // 5))["device_ms"],
             "library_ms": None if library is None else
             timed(torch, library, iters)["device_ms"]}
@@ -545,8 +570,12 @@ def phase_kernels(torch):
         for qdt in ((torch.float32, torch.bfloat16) if kind == "bf16"
                     else (torch.float32,)):
             qd = randn(S, H, D, dtype=qdt)
+            before = PD.LAUNCHES
             o = PD.paged_flash_decode(qd, c[0], c[1], tables, positions,
                                       k_scale=c[2], v_scale=c[3])
+            if PD.LAUNCHES != before + 1:
+                raise AssertionError("paged_decode: one call, "
+                                     f"{PD.LAUNCHES - before} launches")
             ro = PD.paged_decode_plain(qd, c[0], c[1], tables, positions,
                                        k_scale=c[2], v_scale=c[3])
             torch.cuda.synchronize()
@@ -558,13 +587,28 @@ def phase_kernels(torch):
             b_ms, b_by = bound(
                 cache_bytes(c, live) + 2 * qd.numel() * 4
                 + tables.numel() * 4 + S * 4, 4 * live * H * D)
-            results["paged_decode"].update(timing(
+            t = timing(
                 torch, "paged_decode_kernel",
                 lambda: PD.paged_flash_decode(qd, c[0], c[1], tables,
                                               positions),
                 lambda: PD.paged_decode_plain(qd, c[0], c[1], tables,
-                                              positions), None, 100),
-                bound_ms=b_ms, bound_by=b_by)
+                                              positions), None, 100)
+            # the split merge runs in the kernel: one device launch a call
+            if t["device_launches_per_call"] not in (None, 1.0):
+                raise AssertionError(
+                    f"paged_decode: {t['device_launches_per_call']} device "
+                    "launches per call, expected 1")
+            plan = PD.decode_plan(S, HKV, H // HKV, D, BS, W, 4,
+                                  PD.resolve_num_splits(W))
+            results["paged_decode"].update(
+                t, bound_ms=b_ms, bound_by=b_by,
+                shape=f"S={S} H={H} Hkv={HKV} D={D} bs={BS} W={W} f32, "
+                      f"{live} live rows",
+                plan={"ctas": plan.ctas, "warps": plan.warps,
+                      "stages": plan.stages, "chunk_rows": plan.chunk_rows,
+                      "copy_bytes": plan.copy_bytes, "smem": plan.smem,
+                      "blocks": plan.blocks},
+                bound_ratio=b_ms / t["ms"])
 
     # -- C: paged prefill, one sequence x a 64-row chunk ----------------
     C = 64
@@ -1207,7 +1251,8 @@ def phase_block_kernels(torch, record, err, results):
     B, per = BLOCK_B, []
     for name, h, cin, cmid in BLOCK_STAGES:
         ws = _block_weights(torch, g, cin, cmid)
-        smem = FB.plan(h, h, cmid)[2]
+        plan = FB.plan(h, h, cin, cmid)
+        smem = plan.smem
         shape = f"{name} {h}x{h} {cin}->{cmid}->{cin}"
         for dt in ((bf16, torch.float32) if name == "conv2_x" else (bf16,)):
             x = torch.randn(B, h, h, cin, generator=g, device=dev).to(dt)
@@ -1247,7 +1292,13 @@ def phase_block_kernels(torch, record, err, results):
         comp = timed(torch, composition, 5)["device_ms"]
         per.append(dict(t, shape=f"B={B} bf16 {shape}", bound_ms=b_ms,
                         bound_by=b_by, composition_ms=comp,
-                        tflops=flops / t["ms"] / 1e9))
+                        tflops=flops / t["ms"] / 1e9,
+                        bound_ratio=b_ms / t["ms"],
+                        composition_ratio=t["ms"] / comp,
+                        plan={"tile": [plan.th, plan.tw],
+                              "tiles": plan.tiles, "warps": plan.warps,
+                              "wn": list(plan.wn), "stages": plan.stages,
+                              "smem": plan.smem}))
         emit({"phase": "kernels", "kernel": "fused_bottleneck",
               "timing": per[-1]})
         del x, xn
@@ -1275,8 +1326,12 @@ def phase_block_kernels(torch, record, err, results):
                "composition autograd", err(a, b), "block_grad",
                float(b.float().abs().max()))
     results["fused_bottleneck"].update(_sum_timing(per))
-    results["fused_bottleneck"]["composition_ms"] = sum(
-        t["composition_ms"] for t in per)
+    r = results["fused_bottleneck"]
+    r["composition_ms"] = sum(t["composition_ms"] for t in per)
+    r.update(tflops=sum(_block_bound(B, h, cin, cmid, 2)[2]
+                        for _, h, cin, cmid in BLOCK_STAGES) / r["ms"] / 1e9,
+             bound_ratio=r["bound_ms"] / r["ms"],
+             composition_ratio=r["ms"] / r["composition_ms"])
     del x, dy, leaves, ref_leaves, got, want
     torch.cuda.empty_cache()
 
@@ -2052,6 +2107,7 @@ def phase_tick(torch, m, card, ticks=10):
                   "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
                   "device_ms": t["device_ms"],
                   "device_busy_share": t["device_busy_share"],
+                  "device_launches_per_tick": t["device_launches"],
                   "device_ms_by_group": groups,
                   "top_device_ms": [[k[:80], v] for k, v in top],
                   "top_host_self_ms": [[k[:80], v] for k, v in host]})
@@ -2214,7 +2270,9 @@ def main():
                 "mma": mma[k]["mma"],
                 **{key: t[key] for key in ("composition_ms", "tflops",
                                            "bound_ratio", "library_ratio",
-                                           "shape") if key in t},
+                                           "composition_ratio", "shape",
+                                           "plan", "device_launches_per_call")
+                   if key in t},
                 **({"f32_route": dict(
                     {key: t["f32_route"][key] for key in (
                         "ms", "plain_ms", "library_ms", "bound_ms",

@@ -27,10 +27,13 @@ from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
 
 jax.config.update("jax_platforms", "cpu")
 
-# ResNet-50's four identity-bottleneck geometries: (H, W, Cin, Cmid) and
-# the shared memory of the kernel's plan (zoo_tpu_torch/csrc/fused_block.cu)
-RESNET50 = [((56, 56, 256, 64), 37504), ((28, 28, 512, 128), 49792),
-            ((14, 14, 1024, 256), 83072), ((7, 7, 2048, 512), 149632)]
+# ResNet-50's four identity-bottleneck geometries: (H, W, Cin, Cmid), the
+# output tile and the shared memory of the kernel's plan
+# (zoo_tpu_torch/csrc/fused_block.cu)
+RESNET50 = [((56, 56, 256, 64), (14, 14), 187936),
+            ((28, 28, 512, 128), (14, 14), 223776),
+            ((14, 14, 1024, 256), (7, 14), 222544),
+            ((7, 7, 2048, 512), (7, 7), 214736)]
 
 
 def _inputs(b, h, w, cin, cmid, seed=0):
@@ -107,18 +110,22 @@ def test_op_gradients_match_jax_custom_vjp():
 
 
 def test_envelope_holds_resnet50_and_refuses_the_absurd():
-    for (h, w, cin, cmid), smem in RESNET50:
+    for (h, w, cin, cmid), tile, smem in RESNET50:
         assert FB.fused_bottleneck_supported(h, w, cin, cmid)
-        assert FB.plan(h, w, cmid)[2] == smem
+        p = FB.plan(h, w, cin, cmid)
+        assert ((p.th, p.tw), p.smem) == (tile, smem)
     # the TPU plan's own absurd case is inside the H100 plan (Cmid 512
     # fits at any spatial size); Cmid 1024 is not
     assert jfb._pick_k(128, 112, 112, 2048, 512) == 0
     assert FB.fused_bottleneck_supported(112, 112, 2048, 512)
     assert not FB.fused_bottleneck_supported(112, 112, 4096, 1024)
     assert not FB.fused_bottleneck_supported(0, 8, 32, 16)
-    assert FB.plan(56, 56, 64)[:2] == (8, 8)
-    assert FB.plan(28, 14, 128)[:2] == (7, 7)
-    assert FB.plan(12, 10, 12)[:2] == (8, 8)
+    # x is copied 16 bytes at a time: Cin a multiple of 8
+    assert not FB.fused_bottleneck_supported(8, 8, 36, 16)
+    p = FB.plan(28, 14, 512, 128)
+    assert (p.th, p.tw, p.tiles) == (14, 14, 2)
+    p = FB.plan(12, 10, 48, 12)
+    assert (p.th, p.tw, p.tiles, p.cmid) == (12, 10, 1, 16)
 
 
 def test_cpu_dispatch_counts_no_launch():

@@ -83,24 +83,66 @@ def _cache(dev, kind, g, hkv=HKV, d=D):
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 8, 12])
 def test_paged_decode_kernel_matches_plain(hopper, kind, qdtype, splits):
+    """Every split count (12 maps onto a cluster of 8 CTAs) on a 16-entry
+    table; positions at 0, both sides of a block edge and the table's
+    end. One launch per call: the split merge runs in the kernel."""
     from zoo_tpu_torch.ops.kernels import paged_decode as PD
     g = _gen(hopper, 1)
     kc, vc, ks, vs = _cache(hopper, kind, g)
-    S = 6
-    tables = torch.randint(1, NB, (S, W), generator=g, device=hopper,
+    S, W16 = 7, 16
+    tables = torch.randint(1, NB, (S, W16), generator=g, device=hopper,
                            dtype=torch.int32)
-    pos = torch.tensor([0, 15, 16, W * BS - 1, 40, 63], dtype=torch.int32,
-                       device=hopper)
+    pos = torch.tensor([0, 15, 16, W16 * BS - 1, 40, 63, 100],
+                       dtype=torch.int32, device=hopper)
     q = torch.randn(S, H, D, generator=g, device=hopper).to(qdtype)
+    before = PD.LAUNCHES
     o = PD.paged_flash_decode(q, kc, vc, tables, pos, k_scale=ks,
                               v_scale=vs, num_splits=splits)
     ro = PD.paged_decode_plain(q, kc, vc, tables, pos, k_scale=ks,
                                v_scale=vs)
     torch.cuda.synchronize()
+    assert PD.LAUNCHES == before + 1
+    assert PD.decode_plan(S, HKV, H // HKV, D, BS, W16, kc.element_size(),
+                          PD.resolve_num_splits(W16, splits)).ctas == \
+        min(PD.resolve_num_splits(W16, splits), 8)
     assert o.dtype == qdtype
     assert _err(o, ro) <= TOL[qdtype]
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("group", [1, 4, 8, 16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_decode_kernel_shapes(hopper, kind, group, d, bs):
+    """Query heads a kv head G = 1 .. 16, head dims 64 and 128, block
+    sizes 8, 16 and 32 (chunks of a whole block or of part of one);
+    positions at 0, both sides of a block edge and the table's end."""
+    from zoo_tpu_torch.ops.kernels import paged_decode as PD
+    from zoo_tpu_torch.util.quantize import absmax_scale, narrow_int8
+    g = _gen(hopper, 2)
+    hkv, nb, w8 = 2, 20, 8
+    kc = torch.randn(nb, bs, hkv, d, generator=g, device=hopper)
+    vc = torch.randn(nb, bs, hkv, d, generator=g, device=hopper)
+    ks = vs = None
+    if kind == "int8":
+        ks, vs = absmax_scale(kc, dim=-1), absmax_scale(vc, dim=-1)
+        kc, vc = narrow_int8(kc, ks[..., None]), narrow_int8(vc, vs[..., None])
+    elif kind == "bf16":
+        kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    tables = torch.randint(1, nb, (5, w8), generator=g, device=hopper,
+                           dtype=torch.int32)
+    pos = torch.tensor([0, bs - 1, bs, w8 * bs - 1, 3 * bs + 1],
+                       dtype=torch.int32, device=hopper)
+    q = torch.randn(5, hkv * group, d, generator=g, device=hopper)
+    before = PD.LAUNCHES
+    o = PD.paged_flash_decode(q, kc, vc, tables, pos, k_scale=ks, v_scale=vs)
+    ro = PD.paged_decode_plain(q, kc, vc, tables, pos, k_scale=ks,
+                               v_scale=vs)
+    torch.cuda.synchronize()
+    assert PD.LAUNCHES == before + 1
+    assert _err(o, ro) <= TOL[torch.float32]
 
 
 # (kv heads, query heads a kv head, head dim): the module's shape, then
@@ -477,13 +519,14 @@ def test_int8_conv_layer_uses_the_attached_kmajor_copy(hopper):
 def test_bf16_conv_on_an_unaligned_view(hopper):
     """A contiguous view two bytes off a 16-byte boundary takes 2-byte
     copies of the same kernel."""
+    from zoo_tpu_torch.ops.kernels import _launch as L
     from zoo_tpu_torch.ops.kernels import conv
     g = _gen(hopper, 15)
     base = torch.randn(1 + 2 * 8 * 8 * 64, generator=g,
                        device=hopper).bfloat16()
     x = base[1:].view(2, 8, 8, 64)
     wt = torch.randn(3, 3, 64, 64, generator=g, device=hopper).bfloat16()
-    assert conv._alignment(x, wt) == 2
+    assert L.alignment(x, wt) == 2
     y = conv.implicit_gemm_conv2d(x, wt)
     ref = conv.conv2d_plain(x, wt)
     torch.cuda.synchronize()
@@ -833,9 +876,10 @@ def test_reference_conv_fit_takes_f32_gradients(hopper):
 @pytest.mark.parametrize("h,w,cin,cmid", [
     (56, 56, 256, 64), (28, 28, 512, 128), (14, 14, 1024, 256),
     (7, 7, 2048, 512),
-    # ragged tiles (12 and 10 are not multiples of the 8-pixel tile) and
-    # channel counts that are not multiples of the 32-deep slice
-    (12, 10, 48, 12), (9, 9, 40, 24)])
+    # Cmid 12 and 24, which the kernel pads to 16 and 32, and Cin 40 and
+    # 48, not multiples of the 64-channel slice; ragged tiles (30 pixels
+    # in 16-pixel tiles)
+    (12, 10, 48, 12), (9, 9, 40, 24), (30, 30, 64, 64)])
 def test_fused_bottleneck_kernel_matches_plain(hopper, dtype, h, w, cin,
                                                cmid):
     from zoo_tpu_torch.ops.kernels import fused_block as FB
@@ -859,6 +903,28 @@ def test_fused_bottleneck_kernel_matches_plain(hopper, dtype, h, w, cin,
     # 0.999, the limit chip_smoke.py holds B=128 to). z3 left unrounded
     # or a tap wrong on each tile's border row changes far more.
     assert float((y == ref).float().mean()) >= 0.99
+
+
+def test_fused_bottleneck_kernel_b128_conv2_x(hopper):
+    """conv2_x at ResNet-50's batch, 14 x 14 tiles: at least 0.999 of the
+    outputs equal the plain version's bit for bit, all within 2**-6 of
+    the largest."""
+    from zoo_tpu_torch.ops.kernels import fused_block as FB
+    g = _gen(hopper, 18)
+    x = torch.randn(128, 56, 56, 256, generator=g,
+                    device=hopper).to(torch.bfloat16)
+    ws = [torch.randn(s, generator=g, device=hopper) / math.sqrt(fan)
+          for s, fan in (((256, 64), 256), ((3, 3, 64, 64), 576),
+                         ((64, 256), 64))]
+    assert (FB.plan(56, 56, 256, 64).th, FB.plan(56, 56, 256, 64).tw) == \
+        (14, 14)
+    before = FB.LAUNCHES
+    y = FB.fused_bottleneck(x, *ws, impl="kernel")
+    ref = FB.fused_bottleneck_plain(x, *ws)
+    torch.cuda.synchronize()
+    assert FB.LAUNCHES == before + 1
+    assert _err(y, ref) <= 2 ** -6 * float(ref.float().abs().max())
+    assert float((y == ref).float().mean()) >= 0.999
 
 
 def test_fused_bottleneck_gradients_on_the_card(hopper):

@@ -1,11 +1,13 @@
-"""Launch plans of the port's tensor-core kernels, on the CPU.
+"""Launch plans of the port's hand-written kernels, on the CPU.
 
 ``conv_plan`` (the bf16 conv kernel, ``csrc/conv2d_tc.cuh``),
 ``conv_int8_plan`` (the int8 conv kernel, ``csrc/conv2d_int8_tc.cuh``),
 ``flash_plan`` (the bf16 flash forward, ``csrc/flash_attention_fwd.cu``),
 ``flash_bwd_plan`` (the bf16 flash backward,
-``csrc/flash_attention_bwd.cu``) and ``prefill_plan`` (the paged
-prefill, ``csrc/paged_prefill.cu``) are counted in Python only; the C
+``csrc/flash_attention_bwd.cu``), ``prefill_plan`` (the paged
+prefill, ``csrc/paged_prefill.cu``), ``decode_plan`` (the paged decode,
+``csrc/paged_decode.cu``) and ``fused_block.plan`` (the fused
+bottleneck, ``csrc/fused_block.cu``) are counted in Python only; the C
 entries take them as given and check the shared memory only against a
 block's limit. These tests hold the plans to the kernels' layouts, to
 what a Hopper block can have and to the shapes the main paths give them: every
@@ -14,6 +16,8 @@ enumerates them) at B=128, the ragged shapes of the card tests, and
 every head dim. The wrappers are driven with a stand-in C entry, so the
 order in which they pass the plan is checked too.
 """
+
+import math
 
 import pytest
 import torch
@@ -513,3 +517,270 @@ def test_prefill_wrapper_passes_the_plan(monkeypatch, s, c, cache_dtype):
     # split partials only where the key axis is split
     assert (args[8] is None) == (plan.splits == 1)
     assert (args[9] is None) == (plan.splits == 1)
+
+
+# -- the paged-decode kernel (csrc/paged_decode.cu) -----------------------
+
+from zoo_tpu_torch.ops.kernels import fused_block as FB  # noqa: E402
+from zoo_tpu_torch.ops.kernels import paged_decode as PD  # noqa: E402
+
+def _decode_smem(plan, G, D, itemsize):
+    """The kernel's layout: the warps' rings of 16-byte rows (and int8
+    scales), overwritten by the partials, then the p buffers."""
+    row = -(-D * itemsize // 16) * 16
+    slot = 2 * plan.chunk_rows * row + (8 * plan.chunk_rows
+                                        if itemsize == 1 else 0)
+    slot = -(-slot // 16) * 16
+    ring = plan.warps * plan.stages * slot
+    partials = (plan.warps * G * (D + 2) + 2 * G) * 4
+    heads = 4 if G <= 4 else 16
+    return -(-max(ring, partials) // 16) * 16 + \
+        plan.warps * plan.chunk_rows * heads * 4
+
+
+# (S, n_kv, G, D, block_size, W): chip_smoke.py phase 3's shape, which is
+# also the 8B engine's tick (8 slots, 32 query heads over 8 kv heads, a
+# 32-entry table of 16-row blocks), G = 16 with 32-row blocks, and MQA
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+@pytest.mark.parametrize("shape", [(8, 8, 4, 128, 16, 32),
+                                   (8, 8, 16, 128, 32, 16),
+                                   (5, 2, 1, 64, 8, 8)])
+def test_decode_plan_fits_and_clusters(shape, itemsize):
+    S, n_kv, G, D, bs, W = shape
+    for splits in range(1, W + 1):
+        plan = PD.decode_plan(S, n_kv, G, D, bs, W, itemsize,
+                              PD.resolve_num_splits(W, splits))
+        # every knob value maps onto a portable cluster of at most 8 CTAs
+        assert 1 <= plan.ctas <= 8
+        assert plan.ctas == min(PD.resolve_num_splits(W, splits), 8)
+        assert plan.blocks == S * n_kv * plan.ctas
+        assert plan.stages >= 2 and plan.warps == 4
+        assert plan.smem == _decode_smem(plan, G, D, itemsize) <= MAX_SMEM
+        # a chunk is at most 4 KB of K and of V, within one cache block
+        assert 1 <= plan.chunk_rows <= bs
+        assert plan.chunk_rows * D * itemsize <= 4096 or plan.chunk_rows == 1
+        assert plan.copy_bytes in (16, 8, 4, 0)
+
+
+def test_decode_plan_at_the_serving_shape():
+    # f32 rows of 512 bytes: 8-row chunks, 16-byte copies, three CTAs an
+    # SM (233,472 bytes of shared memory an SM); 4 CTAs per (slot, kv
+    # head) by default, 256 CTAs for the 132 SMs
+    plan = PD.decode_plan(8, 8, 4, 128, 16, 32, 4, 4)
+    assert (plan.ctas, plan.chunk_rows, plan.copy_bytes) == (4, 8, 16)
+    assert plan.blocks == 256 and 3 * plan.smem <= 233_472
+    # bf16 and int8 rows: a chunk is the whole 16-row block
+    assert PD.decode_plan(8, 8, 4, 128, 16, 32, 2, 4).chunk_rows == 16
+    assert PD.decode_plan(8, 8, 4, 128, 16, 32, 1, 4).chunk_rows == 16
+
+
+@pytest.mark.parametrize("d,itemsize,align,want", [
+    (128, 4, 16, 16), (128, 1, 8, 8), (6, 2, 16, 4), (6, 1, 16, 0),
+    (2, 4, 16, 8), (3, 1, 16, 0)])
+def test_decode_plan_narrows_the_copy(d, itemsize, align, want):
+    assert PD.decode_plan(1, 1, 1, d, 4, 2, itemsize, 1,
+                          align).copy_bytes == want
+
+
+def test_decode_plan_refuses_outside_the_envelope():
+    for bs, d, g in ((33, 64, 4), (16, 130, 4), (16, 64, 17)):
+        with pytest.raises(ValueError, match="paged decode kernel"):
+            PD.decode_plan(2, 2, g, d, bs, 4, 4, 1)
+
+
+@pytest.mark.parametrize("cache_dtype,splits", [
+    (torch.float32, None), (torch.bfloat16, 3), (torch.int8, 12)])
+def test_decode_wrapper_makes_one_entry_call(monkeypatch, cache_dtype,
+                                             splits):
+    fn = _Entry()
+    monkeypatch.setattr(PD, "_entry", lambda: (None, fn))
+    monkeypatch.setattr(L, "stream", lambda dev: 7)
+    S, H, n_kv, D, bs, W, nb = 8, 32, 8, 128, 16, 32, 40
+    q = _meta(S, H, D, dtype=torch.float32)
+    kc = _meta(nb, bs, n_kv, D, dtype=cache_dtype)
+    sc = _meta(nb, bs, n_kv, dtype=torch.float32) \
+        if cache_dtype == torch.int8 else None
+    before = PD.LAUNCHES
+    out = PD.paged_flash_decode(q, kc, kc, _meta(S, W, dtype=torch.int32),
+                                _meta(S, dtype=torch.int32), k_scale=sc,
+                                v_scale=sc, num_splits=splits)
+    # one entry call, one launch: the split merge runs in the kernel and
+    # the wrapper allocates only the output
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert PD.LAUNCHES == before + 1
+    (args,) = fn.calls
+    assert len(args) == 8 + 6 + 1 + 2 + 6 + 1 and args[-1] == 7
+    assert args[7] == out.data_ptr()
+    assert args[8:14] == (S, n_kv, H // n_kv, D, bs, W)
+    assert args[15:17] == (0, L.DTYPE_CODES[cache_dtype])
+    plan = PD.decode_plan(S, n_kv, H // n_kv, D, bs, W, kc.element_size(),
+                          PD.resolve_num_splits(W, splits))
+    assert args[17:23] == (plan.ctas, plan.warps, plan.stages,
+                           plan.chunk_rows, plan.copy_bytes, plan.smem)
+
+
+def _kernel_partials(q, kc, vc, bt, pos, plan, bs, scale):
+    """The kernel's division of the work, in plain PyTorch: the slot's
+    live rows cut into chunks of ``plan.chunk_rows`` rows of one block,
+    equal runs of chunks for the cluster's CTAs, every ``warps``-th chunk
+    of a run for a warp, each warp's online softmax as a partial
+    (acc, m, l) in (CTA, warp) order."""
+    S, H, D = q.shape
+    n_kv = kc.shape[2]
+    G, W = H // n_kv, bt.shape[1]
+    cpb = -(-bs // plan.chunk_rows)
+    parts = plan.ctas * plan.warps
+    acc = torch.zeros(S, n_kv, parts, G, D, dtype=torch.float64)
+    m = torch.full((S, n_kv, parts, G), -math.inf, dtype=torch.float64)
+    l = torch.zeros(S, n_kv, parts, G, dtype=torch.float64)
+    for s in range(S):
+        p = int(pos[s])
+        last = min(p, W * bs - 1)
+        n_units = (last // bs) * cpb + (last % bs) // plan.chunk_rows + 1
+        for c in range(plan.ctas):
+            u0, u1 = c * n_units // plan.ctas, (c + 1) * n_units // plan.ctas
+            for u in range(u0, u1):
+                w = (u - u0) % plan.warps
+                j, row0 = u // cpb, (u % cpb) * plan.chunk_rows
+                rows = range(row0, min(row0 + plan.chunk_rows, bs))
+                rows = [r for r in rows if j * bs + r <= p]
+                blk = int(bt[s, j])
+                for h in range(n_kv):
+                    k = kc[blk, rows, h].double()
+                    v = vc[blk, rows, h].double()
+                    qs = q[s, h * G:(h + 1) * G].double()
+                    sc = qs @ k.T * scale                       # (G, rows)
+                    pi = c * plan.warps + w
+                    m_new = torch.maximum(m[s, h, pi], sc.amax(-1))
+                    corr = torch.exp(m[s, h, pi] - m_new)
+                    pe = torch.exp(sc - m_new[:, None])
+                    l[s, h, pi] = corr * l[s, h, pi] + pe.sum(-1)
+                    acc[s, h, pi] = corr[:, None] * acc[s, h, pi] + pe @ v
+                    m[s, h, pi] = m_new
+    return acc, m, l
+
+
+@pytest.mark.parametrize("splits", [1, 3, 4, 8])
+def test_merged_partials_equal_the_plain_version(splits):
+    """merge_splits, the plain model of the kernel's in-cluster merge, over
+    partials divided as the kernel divides the live rows (dead warps and
+    CTAs included), equals paged_decode_plain."""
+    g = torch.Generator().manual_seed(splits)
+    S, H, n_kv, D, bs, W, nb = 5, 8, 2, 16, 8, 8, 20
+    q = torch.randn(S, H, D, generator=g)
+    kc = torch.randn(nb, bs, n_kv, D, generator=g)
+    vc = torch.randn(nb, bs, n_kv, D, generator=g)
+    bt = torch.randint(1, nb, (S, W), generator=g, dtype=torch.int32)
+    pos = torch.tensor([0, 7, 8, W * bs - 1, 21], dtype=torch.int32)
+    scale = 1.0 / math.sqrt(D)
+    plan = PD.decode_plan(S, n_kv, H // n_kv, D, bs, W, 4,
+                          PD.resolve_num_splits(W, splits))
+    acc, m, l = _kernel_partials(q, kc, vc, bt, pos, plan, bs, scale)
+    assert bool((m == -math.inf).any())          # some partials are dead
+    got = PD.merge_splits(acc, m, l).reshape(S, H, D)
+    want = PD.paged_decode_plain(q, kc, vc, bt, pos, scale=scale)
+    assert float((got - want.double()).abs().max()) <= 1e-6
+
+
+# -- the fused bottleneck (csrc/fused_block.cu) ---------------------------
+
+RESNET50_BLOCKS = [(56, 56, 256, 64), (28, 28, 512, 128),
+                   (14, 14, 1024, 256), (7, 7, 2048, 512)]
+# the ragged cases of tests/test_torch_gpu.py's fused bottleneck test
+RAGGED_BLOCKS = [(12, 10, 48, 12), (9, 9, 40, 24), (30, 30, 64, 64)]
+
+
+def _block_smem(plan, h, w, cin):
+    """The kernel's layout: the ring of the largest item (a band of x
+    rows and a w1 slice, or a w2 / w3 slice), t1 on the halo or the
+    expand's staging tile, t2 in 32-row steps or the reduce's near-tie
+    fix-up state before it (a count, the halo rows' norms, 256 ties),
+    the pixel tables."""
+    th, tw, cp = plan.th, plan.tw, plan.cmid
+    p, p1 = th * tw, (th + 2) * (tw + 2)
+    kb = min(64, cp)
+    stage, items = 0, 0
+    for ph, (m, n, k) in enumerate(((p1, cp, -(-cin // 64)),
+                                    (p, cp, 9 * cp // kb),
+                                    (p, cin, cp // kb))):
+        band, chunk = 32 * (8 // plan.wn[ph]), 64 * plan.wn[ph]
+        stage = max(stage, band * 128 + 64 * chunk * 2 if ph == 0
+                    else kb * chunk * 2)
+        items += -(-m // band) * -(-n // chunk) * k
+    staging = 32 * (8 // plan.wn[2]) * (64 * plan.wn[2] * 2 + 16)
+    t1 = p1 * cp * 2
+    t2 = max(-(-p // 32) * 32 * cp * 2, 16 + -(-4 * p1 // 16) * 16 + 1024)
+    tables = -(-4 * (p1 + 2 * p) // 16) * 16
+    return plan.stages * stage + max(t1, staging) + t2 + tables, items
+
+
+@pytest.mark.parametrize("h,w,cin,cmid", RESNET50_BLOCKS + RAGGED_BLOCKS)
+def test_block_plan_fits_and_covers_the_image(h, w, cin, cmid):
+    assert FB.fused_bottleneck_supported(h, w, cin, cmid)
+    plan = FB.plan(h, w, cin, cmid)
+    smem, items = _block_smem(plan, h, w, cin)
+    assert (plan.smem, plan.items) == (smem, items)
+    assert plan.smem <= MAX_SMEM and plan.stages in (2, 3)
+    assert plan.warps == 8 and all(n in (1, 2, 4, 8) for n in plan.wn)
+    # the tiles cover the image, none wholly outside it
+    ty, tx = -(-h // plan.th), -(-w // plan.tw)
+    assert plan.tiles == ty * tx
+    assert (ty - 1) * plan.th < h <= ty * plan.th
+    assert (tx - 1) * plan.tw < w <= tx * plan.tw
+    # Cmid padded to 16, 32 or a multiple of 64 (2, 4 or 8k swizzled
+    # 16-byte units a t1 / t2 row)
+    assert plan.cmid >= cmid and (plan.cmid in (16, 32)
+                                  or plan.cmid % 64 == 0)
+
+
+def test_block_plan_takes_large_tiles_at_resnet50():
+    # the halo recompute falls from 1.56x (8x8) to 1.31x (14x14) at
+    # conv2_x and conv3_x; conv4_x takes 7x14, conv5_x the whole image
+    tiles = [(FB.plan(*g).th, FB.plan(*g).tw) for g in RESNET50_BLOCKS]
+    assert tiles == [(14, 14), (14, 14), (7, 14), (7, 7)]
+    # one block an SM at most: 8 warps and over 116 KB each
+    assert all(FB.plan(*g).smem > 233_472 // 2 for g in RESNET50_BLOCKS)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_block_wrapper_passes_the_plan(monkeypatch, x_dtype):
+    fn = _Entry()
+    monkeypatch.setattr(FB, "_entries", lambda: (None, fn))
+    monkeypatch.setattr(L, "stream", lambda dev: 7)
+    x = _meta(4, 9, 9, 40, dtype=x_dtype)
+    ws = (_meta(40, 24, dtype=torch.float32),
+          _meta(3, 3, 24, 24, dtype=torch.float32),
+          _meta(24, 40, dtype=torch.float32))
+    before = FB.LAUNCHES
+    y = FB._launch(x, *ws)
+    assert y.shape == x.shape and y.dtype == x_dtype
+    assert FB.LAUNCHES == before + 1
+    (args,) = fn.calls
+    # x, w1, w2, w3, w1 transposed, its column norms, y; then the shapes
+    # and the plan; the stream
+    assert len(args) == 7 + 13 + 1 and args[-1] == 7
+    assert args[6] == y.data_ptr() and args[7] == L.DTYPE_CODES[x_dtype]
+    p = FB.plan(9, 9, 40, 24)
+    # Cmid 24 reaches the kernel padded to 32
+    assert args[8:20] == (4, 9, 9, 40, 32, p.th, p.tw, *p.wn, p.stages,
+                          p.smem)
+
+
+def test_block_weights_are_padded_with_zeros():
+    g = torch.Generator().manual_seed(3)
+    w1, w2, w3 = (torch.randn(s, generator=g)
+                  for s in ((40, 24), (3, 3, 24, 24), (24, 40)))
+    p1, p2, p3, p1t, norms = FB._kernel_weights(w1, w2, w3, 32)
+    assert p1.shape == (40, 32) and p2.shape == (3, 3, 32, 32)
+    assert p3.shape == (32, 40)
+    assert all(t.dtype == torch.bfloat16 and t.is_contiguous()
+               for t in (p1, p2, p3, p1t))
+    # the reduce's fix-up reads w1 by columns, with their f32 norms
+    assert p1t.shape == (32, 40) and torch.equal(p1t, p1.t())
+    assert norms.dtype == torch.float32 and norms.shape == (32,)
+    torch.testing.assert_close(norms, p1.float().norm(dim=0))
+    assert torch.equal(p1[:, :24], w1.to(torch.bfloat16))
+    assert torch.equal(p2[:, :, :24, :24], w2.to(torch.bfloat16))
+    assert torch.equal(p3[:24], w3.to(torch.bfloat16))
+    assert not p1[:, 24:].any() and not p3[24:].any()
+    assert not p2[:, :, 24:].any() and not p2[:, :, :, 24:].any()

@@ -35,6 +35,16 @@ def require(tensor: Optional[torch.Tensor], name: str,
         raise ValueError(f"{name} must be contiguous")
 
 
+def alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two, at most 16, dividing every data
+    pointer (the widest copy the kernels may make of them)."""
+    a = 16
+    for t in tensors:
+        while t.data_ptr() % a:
+            a //= 2
+    return a
+
+
 def ptr(tensor: Optional[torch.Tensor]):
     return None if tensor is None else tensor.data_ptr()
 

@@ -251,16 +251,6 @@ def _forget(key, ref) -> None:
         del _KMAJOR[key]
 
 
-def _alignment(*tensors) -> int:
-    """The largest power of two, at most 16, dividing every data
-    pointer."""
-    a = 16
-    for t in tensors:
-        while t.data_ptr() % a:
-            a //= 2
-    return a
-
-
 def pallas_conv_supported(kernel: Tuple[int, int],
                           strides: Tuple[int, int] = (1, 1),
                           dilation: Tuple[int, int] = (1, 1)) -> bool:
@@ -478,7 +468,7 @@ def _launch_conv2d(x, w, strides, padding) -> torch.Tensor:
     y = torch.empty((n, oh, ow, o), dtype=x.dtype, device=dev)
     plan = (0,) * 4                     # the f32 SIMT kernel takes none
     if x.dtype == torch.bfloat16:
-        p = conv_plan(n * oh * ow, c, o, _alignment(x, w))
+        p = conv_plan(n * oh * ow, c, o, L.alignment(x, w))
         plan = (p.bn, p.stages, p.vec, p.smem)
     lib, fl, _ = _entries()
     rc = fl(L.ptr(x), L.ptr(w), L.ptr(y), L.DTYPE_CODES[x.dtype], *args,
@@ -544,7 +534,7 @@ def implicit_gemm_conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor,
     y = torch.empty((n, args[11], args[12], o), dtype=torch.float32,
                     device=dev)
     p = conv_int8_plan(n * args[11] * args[12], c, o,
-                       _alignment(x_q, w_kmajor), _alignment(y, ws))
+                       L.alignment(x_q, w_kmajor), L.alignment(y, ws))
     lib, _, q = _entries()
     rc = q(L.ptr(x_q), L.ptr(w_kmajor), L.ptr(xs), L.ptr(ws), L.ptr(y),
            *args, p.bn, p.bk, p.stages, p.vec, p.out_vec, p.smem,

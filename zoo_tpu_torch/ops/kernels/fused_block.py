@@ -25,6 +25,9 @@ bf16 as the Pallas kernel casts them.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
+import itertools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,11 +49,12 @@ LAUNCHES = 0
 REFERENCE_DISPATCHES = 0
 _fns = None
 
-# the plan's shared memory, the one count of the kernel's layout (which
-# takes it as an argument): zt_gemm.cuh's FloatTile (f32 a[32][65] and
-# b[32][64]) + t1 and t2 in bf16, under the H100's 227 KB a block may use
-_STAGING_BYTES = 4 * (32 * 65 + 32 * 64)
+# the kernel's fixed shape (csrc/fused_block.cu): 8 warps, each on a
+# 32 x 64 output tile of a product; 64 channels of x in a reduce k-slice;
+# the shared memory an H100 block may use
+WARPS, WARP_ROWS, WARP_COLS, REDUCE_SLICE = 8, 32, 64, 64
 MAX_SMEM = 232448
+_SIDES = (7, 8, 14, 16)
 
 
 def _entries():
@@ -59,36 +63,111 @@ def _entries():
         from zoo_tpu_torch.ops.kernels._build import library
         lib = library("fused_block")
         fn = lib.zt_fused_bottleneck
-        fn.argtypes = [L.P] * 5 + [L.I] * 9 + [L.P]
+        fn.argtypes = [L.P] * 7 + [L.I] * 13 + [L.P]
         fn.restype = L.I
         _fns = (lib, fn)
     return _fns
 
 
-def _side_tile(n: int) -> int:
-    """The output tile along a side of ``n`` pixels: 8 where ``n`` is a
-    multiple of 8, else 7 where it is one of 7, else min(n, 8)."""
-    if n % 8 == 0:
-        return 8
-    if n % 7 == 0:
-        return 7
-    return min(n, 8)
+def padded_cmid(cmid: int) -> int:
+    """Cmid as the kernel takes it: 16, 32 or a multiple of 64, so a
+    t1/t2 row is 2, 4 or a multiple of 8 swizzled 16-byte units (the
+    wrapper pads the weights with zeros)."""
+    return 16 if cmid <= 16 else 32 if cmid <= 32 else -(-cmid // 64) * 64
 
 
-def plan(h: int, w: int, cmid: int) -> Tuple[int, int, int]:
-    """``(th, tw, shared-memory bytes)`` of the kernel's plan."""
-    th, tw = _side_tile(h), _side_tile(w)
-    return th, tw, _STAGING_BYTES + ((th + 2) * (tw + 2) + th * tw) * \
-        cmid * 2
+@dataclasses.dataclass(frozen=True)
+class BlockPlan:
+    """Launch plan of the fused bottleneck kernel: the output tile
+    ``th`` x ``tw`` (``tiles`` of them cover the image), ``warps`` a
+    block, ``wn`` the warps across N in the reduce, 3x3 and expand
+    products, ``stages`` ring slots, ``smem`` bytes of dynamic shared
+    memory, ``cmid`` the padded Cmid, ``items`` the k-slices a block
+    runs (its cost)."""
+    th: int
+    tw: int
+    tiles: int
+    warps: int
+    wn: Tuple[int, int, int]
+    stages: int
+    smem: int
+    cmid: int
+    items: int
+
+
+def _layout(th: int, tw: int, cin: int, cmid: int, wn, stages: int):
+    """(items, shared memory) of one tile, as the kernel lays it out: the
+    ring (``stages`` slots of the largest item: a band of x rows and a
+    w1 slice, or a w2 / w3 slice), t1 on the halo (or the expand's
+    staging tile, if larger), t2 on the tile in 32-row steps (or, if
+    larger, the reduce's fix-up state that precedes it there: a count,
+    the halo rows' norms and room for 256 near ties), then the tile's
+    pixel tables (a pixel of x for each halo pixel, of y and a row of t1
+    for each output pixel)."""
+    p, p1 = th * tw, (th + 2) * (tw + 2)
+    kb = min(64, cmid)
+    kitems = (-(-cin // REDUCE_SLICE), 9 * (cmid // kb), cmid // kb)
+    items, stage, staging = 0, 0, 0
+    for ph, (m, n) in enumerate(((p1, cmid), (p, cmid), (p, cin))):
+        band = WARP_ROWS * (WARPS // wn[ph])
+        chunk = WARP_COLS * wn[ph]
+        items += -(-m // band) * -(-n // chunk) * kitems[ph]
+        stage = max(stage, band * 128 + REDUCE_SLICE * chunk * 2 if ph == 0
+                    else kb * chunk * 2)
+        if ph == 2:
+            staging = band * (chunk * 2 + 16)
+    ties = 16 + -(-4 * p1 // 16) * 16 + 4 * 256
+    t1, t2 = p1 * cmid * 2, max(-(-p // 32) * 32 * cmid * 2, ties)
+    tables = -(-4 * (p1 + 2 * p) // 16) * 16
+    return items, stages * stage + max(t1, staging) + t2 + tables
+
+
+@functools.lru_cache(maxsize=256)
+def _search(h: int, w: int, cin: int, cmid: int) -> Optional[BlockPlan]:
+    if min(h, w, cin, cmid) <= 0 or cin % 8:
+        return None
+    cp = padded_cmid(cmid)
+    best, best_key = None, None
+    for th in sorted({min(s, h) for s in _SIDES}):
+        for tw in sorted({min(s, w) for s in _SIDES}):
+            tiles = -(-h // th) * -(-w // tw)
+            for wn in itertools.product((1, 2, 4, 8), repeat=3):
+                for stages in (3, 2):
+                    items, smem = _layout(th, tw, cin, cp, wn, stages)
+                    if smem > MAX_SMEM:
+                        continue
+                    key = (tiles * items, -stages, smem)
+                    if best_key is None or key < best_key:
+                        best_key = key
+                        best = BlockPlan(th, tw, tiles, WARPS, wn, stages,
+                                         smem, cp, items)
+    return best
+
+
+def plan(h: int, w: int, cin: int, cmid: int) -> BlockPlan:
+    """The kernel's plan for an (h, w) image with ``cin`` -> ``cmid``
+    channels: of the tiles with sides 7, 8, 14 or 16 (capped at the
+    image), the warps across N of each product and 3 or 2
+    ring slots, the one whose shared memory fits a block and whose
+    k-slices over the image (tiles x items) are fewest; then more slots,
+    then less memory. Larger tiles cut the halo's recompute and re-read
+    the weights less; 8 warps of 32 x 64 tiles fill the tensor cores
+    best where a product's rows and columns cover them. Raises outside
+    the envelope (:func:`fused_bottleneck_supported`)."""
+    p = _search(h, w, cin, cmid)
+    if p is None:
+        raise ValueError(f"fused_bottleneck: {h}x{w} {cin}->{cmid} is "
+                         "outside the kernel's envelope (Cin a multiple of "
+                         "8, and a plan that fits the "
+                         f"{MAX_SMEM} B of shared memory of a block)")
+    return p
 
 
 def fused_bottleneck_supported(h: int, w: int, cin: int, cmid: int) -> bool:
-    """True when the kernel's plan for an (h, w) image with ``cin`` ->
-    ``cmid`` channels fits a block's shared memory. ``cin`` bounds
-    nothing: the kernel walks it in slices."""
-    if min(h, w, cin, cmid) <= 0:
-        return False
-    return plan(h, w, cmid)[2] <= MAX_SMEM
+    """True when the kernel takes an (h, w) image with ``cin`` ->
+    ``cmid`` channels: ``cin`` a multiple of 8 (x is copied 16 bytes at
+    a time) and a plan that fits a block's shared memory."""
+    return _search(h, w, cin, cmid) is not None
 
 
 @contextlib.contextmanager
@@ -148,28 +227,43 @@ def fused_bottleneck_plain(x: torch.Tensor, w1: torch.Tensor,
     return y.reshape(b, h, w, cin).to(x.dtype)
 
 
+def _kernel_weights(w1, w2, w3, cp: int):
+    """What the kernel reads of the weights: w1, w2 and w3 in bf16,
+    zero-padded to its Cmid ``cp``; w1 transposed (cp, Cin) and the f32
+    norms of its rows, w1's columns (the reduce's near-tie fix-up reads
+    them); all contiguous and 16-byte aligned."""
+    cmid = w1.shape[1]
+    ws = [t.to(torch.bfloat16).contiguous() for t in (w1, w2, w3)]
+    if cp != cmid:
+        pad = cp - cmid
+        ws = [F.pad(ws[0], (0, pad)), F.pad(ws[1], (0, pad, 0, pad)),
+              F.pad(ws[2], (0, 0, 0, pad))]
+    w1t = ws[0].t().contiguous()
+    ws += [w1t, torch.linalg.vector_norm(w1t, dim=1, dtype=torch.float32)]
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ws]
+
+
 def _launch(x, w1, w2, w3) -> torch.Tensor:
     global LAUNCHES
     b, h, w, cin = x.shape
     cmid = w1.shape[1]
-    if not fused_bottleneck_supported(h, w, cin, cmid):
-        raise ValueError(f"fused_bottleneck: {h}x{w} {cin}->{cmid} is "
-                         "outside the kernel's envelope (its plan needs "
-                         f"{plan(h, w, cmid)[2]} B of shared memory, a "
-                         f"block has {MAX_SMEM})")
+    p = plan(h, w, cin, cmid)
     dev = x.device
     L.require(x, "x", dev, (torch.float32, torch.bfloat16))
-    ws = [t.to(torch.bfloat16).contiguous() for t in (w1, w2, w3)]
-    for name, t, shape in (("w1", ws[0], (cin, cmid)),
-                           ("w2", ws[1], (3, 3, cmid, cmid)),
-                           ("w3", ws[2], (cmid, cin))):
-        L.require(t, name, dev, (torch.bfloat16,), shape)
-    th, tw, smem = plan(h, w, cmid)
+    for name, t, shape in (("w1", w1, (cin, cmid)),
+                           ("w2", w2, (3, 3, cmid, cmid)),
+                           ("w3", w3, (cmid, cin))):
+        if tuple(t.shape) != shape or t.device != dev:
+            raise ValueError(f"{name} has shape {tuple(t.shape)} on "
+                             f"{t.device}, expected {shape} on {dev}")
+    ws = _kernel_weights(w1, w2, w3, p.cmid)
+    if x.data_ptr() % 16:
+        x = x.clone()
     y = torch.empty_like(x)
     lib, fn = _entries()
     rc = fn(L.ptr(x), *(L.ptr(t) for t in ws), L.ptr(y),
-            L.DTYPE_CODES[x.dtype], b, h, w, cin, cmid, th, tw, smem,
-            L.stream(dev))
+            L.DTYPE_CODES[x.dtype], b, h, w, cin, p.cmid, p.th, p.tw,
+            *p.wn, p.stages, p.smem, L.stream(dev))
     L.check(lib, rc, "fused_bottleneck")
     LAUNCHES += 1
     return y
