@@ -14,15 +14,17 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 2b. sass — how each kernel multiplies, read from the built libraries'
    SASS (``cuobjdump -sass``): ``wgmma`` (HGMMA, IGMMA), ``mma.sync``
    (HMMA, IMMA) or ``simt``; fails unless the bf16 conv, the bf16
-   flash forward and backward (dK/dV, dQ) and the fused bottleneck run
-   on the tensor cores, the bf16 and int8 convs on ``wgmma``, and the
-   paged decode's shuffles all on the fast path (no
+   flash forward and backward (dK/dV, dQ), the fused bottleneck and
+   the fused int8 GEMM run on the tensor cores, the bf16 and int8 convs
+   on ``wgmma``, and the shuffles of the paged decode, the fused int8
+   GEMM and the f32 flash forward all on the fast path (no
    ``WARPSYNC.COLLECTIVE``);
 3. kernels — each kernel against its plain PyTorch version at the
    Llama-3-8B serving shapes, for f32, bf16 and int8 caches and the
    position edges, then timed (device time per call from
    ``torch.profiler``, and CUDA-event wall time; for the paged decode
-   also the device launches per call, which must be one) beside its plain
+   and the fused int8 GEMM also the device launches per call, which
+   must be one) beside its plain
    version, its least possible time on the card, and (flash only)
    ``scaled_dot_product_attention`` as a yardstick the port never calls;
 4. tiny — ``llama:tiny`` greedy streams through the engine with the
@@ -102,9 +104,11 @@ a yardstick the port never calls.
 
 The bf16 and int8 convs (per shape and summed), the f32 conv at one
 shape, the bf16 flash forward and backward kernels at the training
-shape and the paged prefill at the serving shape also print TFLOP/s
+shape, the f32 flash forward and the paged prefill at the serving
+shape and the fused int8 GEMM at both GEMM shapes also print TFLOP/s
 (TOP/s for int8), the share of their bound they reach and, where there
-is one, their time over the library call's. The paged prefill is also
+is one, their time over the library call's; the f32 flash forward and
+the fused int8 GEMM also print their launch plans. The paged prefill is also
 held to its plain version at a one-row and a 17-row chunk of three
 sequences.
 
@@ -225,12 +229,16 @@ F32_ROUTES = {"flash_attention": ("flash_attention", "flash_fwd_kernel"),
               "conv2d": ("conv2d", "conv2d_kernel")}
 # kernels whose main-path route must run on the tensor cores
 TENSOR_CORE_KERNELS = ("conv2d", "flash_attention", "flash_attention_dkdv",
-                       "flash_attention_dq", "fused_bottleneck")
+                       "flash_attention_dq", "fused_bottleneck",
+                       "fused_quantized_matmul")
 # ... and on wgmma (HGMMA for bf16, IGMMA for int8)
 WGMMA_KERNELS = ("conv2d", "conv2d_int8")
-# kernels whose warp shuffles must all take the fast path (each key row's
-# scores are reduced across the warp)
-FAST_SHUFFLE_KERNELS = ("paged_decode",)
+# kernels whose warp shuffles must all take the fast path (the decode
+# reduces each key row's scores across the warp, the fused int8 GEMM each
+# row's absmax); F32_FAST_SHUFFLE: the same of F32_ROUTES (the f32 flash
+# forward reduces each row's max over 8 lanes)
+FAST_SHUFFLE_KERNELS = ("paged_decode", "fused_quantized_matmul")
+F32_FAST_SHUFFLE = ("flash_attention",)
 
 
 def emit(obj):
@@ -315,11 +323,13 @@ def mma_route(funcs, function):
 
 def phase_sass(built):
     """Each kernel's multiply route from the built libraries' SASS; fails
-    unless the bf16 routes of conv2d and the flash forward and backward
-    and the fused bottleneck run on the tensor cores, unless conv2d
-    (bf16) and conv2d_int8 run on ``wgmma``, and unless the paged decode
-    is free of ``WARPSYNC.COLLECTIVE`` (slow-path shuffles). The paged kernels, the
-    optimizers and the int8 GEMMs read ``simt``; the paged kernels by
+    unless the bf16 routes of conv2d and the flash forward and backward,
+    the fused bottleneck and the fused int8 GEMM run on the tensor
+    cores, unless conv2d (bf16) and conv2d_int8 run on ``wgmma``, and
+    unless the paged decode, the fused int8 GEMM and the f32 flash
+    forward are free of ``WARPSYNC.COLLECTIVE`` (slow-path shuffles).
+    The paged kernels, the optimizers, ``quantized_matmul`` and the f32
+    routes read ``simt``; the paged kernels and the f32 flash forward by
     design: the serving path is f32 (the tensor cores would mean TF32)
     and the decode does ~4 flops a cache element."""
     sass = {lib: sass_functions(r.path) for lib, r in built.items()}
@@ -330,11 +340,12 @@ def phase_sass(built):
     emit({"phase": "sass", "kernels": routes, "f32_routes": f32})
     for k in TENSOR_CORE_KERNELS:
         if routes[k]["mma"] == "simt":
-            raise AssertionError(f"{k}: its bf16 route has no tensor-core "
-                                 f"instruction in its SASS")
-    for k in FAST_SHUFFLE_KERNELS:
-        if routes[k]["collective_syncs"]:
-            raise AssertionError(f"{k}: {routes[k]['collective_syncs']} "
+            raise AssertionError(f"{k}: its main-path route has no "
+                                 "tensor-core instruction in its SASS")
+    for k, route in [(k, routes[k]) for k in FAST_SHUFFLE_KERNELS] + \
+            [(f"{k} (f32 route)", f32[k]) for k in F32_FAST_SHUFFLE]:
+        if route["collective_syncs"]:
+            raise AssertionError(f"{k}: {route['collective_syncs']} "
                                  "WARPSYNC.COLLECTIVE in its SASS")
     for k in WGMMA_KERNELS:
         if routes[k]["mma"] != "wgmma":
@@ -346,8 +357,9 @@ def phase_sass(built):
 
 def _profiled(torch, fn, iters, kernel):
     """One ``torch.profiler`` pass over ``iters`` calls: the device us of
-    all events, of those whose name holds ``kernel``, and ms per call by
-    device and by host event name."""
+    all events, of those whose name holds ``kernel``, ms per call by
+    device and by host event name, device launches per call, and the
+    launches per call of the events whose name holds ``kernel``."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -355,7 +367,7 @@ def _profiled(torch, fn, iters, kernel):
             fn()
         torch.cuda.synchronize()
     total = only = 0.0
-    launches = 0
+    launches = kernel_launches = 0
     by_name, host_by_name = {}, {}
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -368,9 +380,11 @@ def _profiled(torch, fn, iters, kernel):
         by_name[e.key] = by_name.get(e.key, 0.0) + us / iters / 1e3
         if kernel is not None and kernel in e.key:
             only += us
+            kernel_launches += e.count
         if not e.key.startswith(("Memcpy", "Memset")):
             launches += e.count
-    return total, only, by_name, host_by_name, launches / iters
+    return (total, only, by_name, host_by_name, launches / iters,
+            kernel_launches / iters)
 
 
 def timed(torch, fn, iters, kernel=None, warmup=3, attempts=3):
@@ -389,9 +403,15 @@ def timed(torch, fn, iters, kernel=None, warmup=3, attempts=3):
     (copies and memsets not counted).
 
     The profiler now and then returns no device event at all on the
-    card's machine; a pass that does is repeated, up to ``attempts``
-    passes. If none records device time, ``device_ms`` is CUDA-event
-    time from just before to just after each call (an upper bound: it
+    card's machine, or drops some of a pass's kernel records (passes
+    have read 0.2, 0.64 and 0.8 launches a call of a kernel that
+    launches once, with device time short by as much, where the launch
+    counters, the outputs and the CUDA-event times were right); a pass
+    that records no device time, or, given ``kernel``, a part of a
+    launch of it per call (records of it, but not a whole number a
+    call), is repeated, up to ``attempts`` passes. If none passes,
+    ``device_ms`` is CUDA-event time from just before to just after
+    each call (an upper bound: it
     also holds the host's launch of the call when the device waits for
     it), ``device_source`` says ``cuda_events``, and ``kernel_ms``,
     ``by_name`` and ``device_busy_share`` are empty."""
@@ -409,9 +429,10 @@ def timed(torch, fn, iters, kernel=None, warmup=3, attempts=3):
     torch.cuda.synchronize()
     wall = start.elapsed_time(end) / iters
     for attempt in range(1, attempts + 1):
-        total, only, by_name, host_by_name, launches = _profiled(
+        total, only, by_name, host_by_name, launches, own = _profiled(
             torch, fn, iters, kernel)
-        if total > 0:
+        dropped = own > 0 and abs(own - round(own)) > 1e-9
+        if total > 0 and not dropped:
             device = total / iters / 1e3
             return {"device_ms": device, "wall_ms": wall, "host_ms": host,
                     "kernel_ms": only / iters / 1e3 if kernel else None,
@@ -420,7 +441,9 @@ def timed(torch, fn, iters, kernel=None, warmup=3, attempts=3):
                     "device_launches": launches,
                     "device_source": "profiler"}
         emit({"phase": "timing", "kernel": kernel, "attempt": attempt,
-              "note": "torch.profiler recorded no device time"})
+              "kernel_launches_per_call": own,
+              "note": "torch.profiler recorded no device time" if not total
+              else "torch.profiler dropped kernel records"})
     pairs = []
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
@@ -447,6 +470,17 @@ def timing(torch, kernel, fn, plain, library, iters):
             "plain_ms": timed(torch, plain, max(3, iters // 5))["device_ms"],
             "library_ms": None if library is None else
             timed(torch, library, iters)["device_ms"]}
+
+
+def timing_one_launch(torch, name, kernel, fn, plain, library, iters):
+    """:func:`timing` of a wrapper that must make one device launch a
+    call; fails when the profiler counts another number."""
+    t = timing(torch, kernel, fn, plain, library, iters)
+    n_dev = t["device_launches_per_call"]
+    if n_dev not in (None, 1.0):
+        raise AssertionError(f"{name}: {n_dev} device launches per call, "
+                             "expected 1")
+    return t
 
 
 def bound(nbytes, flops, peak=PEAK_F32_FLOPS):
@@ -541,7 +575,10 @@ def phase_kernels(torch):
     results["flash_attention"]["f32_route"] = dict(
         t, bound_ms=b_ms, bound_by=b_by,
         shape=f"B=1 H={H} Hkv={HKV} T=512 D={D} f32 causal",
+        plan=FA.flash_f32_plan(D, causal=True)._asdict(),
         **rates(4 * D * pairs * H, t["ms"], b_ms, t["library_ms"]))
+    emit({"phase": "kernels", "kernel": "flash_attention",
+          "timing_f32": results["flash_attention"]["f32_route"]})
 
     # -- paged caches: 128 blocks of 16 rows, 8 kv heads, f32/bf16/int8 --
     def cache(kind):
@@ -587,17 +624,13 @@ def phase_kernels(torch):
             b_ms, b_by = bound(
                 cache_bytes(c, live) + 2 * qd.numel() * 4
                 + tables.numel() * 4 + S * 4, 4 * live * H * D)
-            t = timing(
-                torch, "paged_decode_kernel",
+            # the split merge runs in the kernel: one device launch a call
+            t = timing_one_launch(
+                torch, "paged_decode", "paged_decode_kernel",
                 lambda: PD.paged_flash_decode(qd, c[0], c[1], tables,
                                               positions),
                 lambda: PD.paged_decode_plain(qd, c[0], c[1], tables,
                                               positions), None, 100)
-            # the split merge runs in the kernel: one device launch a call
-            if t["device_launches_per_call"] not in (None, 1.0):
-                raise AssertionError(
-                    f"paged_decode: {t['device_launches_per_call']} device "
-                    "launches per call, expected 1")
             plan = PD.decode_plan(S, HKV, H // HKV, D, BS, W, 4,
                                   PD.resolve_num_splits(W))
             results["paged_decode"].update(
@@ -1195,13 +1228,19 @@ def phase_inference_kernels(torch, record, err, results):
             bound_by=b_q[1]))
         b_f = bound(2 * m * k + k * n + 4 * n + 2 * m * n, ops,
                     PEAK_INT8_OPS)
-        t = timing(torch, "::fqmm_kernel",
-                   lambda: Q.fused_quantized_matmul(x, wq, ws),
-                   lambda: Q.fused_quantized_matmul_plain(x, wq, ws),
-                   libs["fused_quantized_matmul"], 50)
+        # quantize, product and epilogue in one device launch a call
+        t = timing_one_launch(
+            torch, f"fused_quantized_matmul {shape}", "::fqmm_kernel",
+            lambda: Q.fused_quantized_matmul(x, wq, ws),
+            lambda: Q.fused_quantized_matmul_plain(x, wq, ws),
+            libs["fused_quantized_matmul"], 50)
+        plan = Q.fqmm_plan(m, k, n, x.element_size(), 16, 16)
         per["fused_quantized_matmul"].append(dict(
             t, shape=shape + " bf16 in and out", bound_ms=b_f[0],
-            bound_by=b_f[1]))
+            bound_by=b_f[1], plan=plan._asdict(),
+            **rates(ops, t["ms"], b_f[0], t["library_ms"])))
+        emit({"phase": "kernels", "kernel": "fused_quantized_matmul",
+              "timing": per["fused_quantized_matmul"][-1]})
     for name in ("conv2d", "conv2d_int8"):
         results[name].update(_sum_timing(per[name]))
         r = results[name]
@@ -2278,6 +2317,9 @@ def main():
                         "ms", "plain_ms", "library_ms", "bound_ms",
                         "bound_by", "tflops", "bound_ratio",
                         "library_ratio", "shape", "max_abs_err")},
+                    **{key: t["f32_route"][key] for key in (
+                        "plan", "device_launches_per_call")
+                       if key in t["f32_route"]},
                     mma=f32_mma[k]["mma"])}
                    if "f32_route" in t else {})})
         emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -695,6 +695,90 @@ def test_quant_gemm_kernels_equal_plain(hopper, m, k, n, out):
         assert y.dtype == out and torch.equal(y, ref)
 
 
+# the fused int8 GEMM on the tensor cores: the head (and M = 1), a ragged
+# tile in every dimension with K and N off every copy width,
+# bench_int8_matmul's shape, and the largest fused K
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 1000), (128, 2048, 1000),
+                                   (130, 260, 17), (512, 1024, 1024),
+                                   (3, 8192, 1000), (67, 8192, 130)])
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_fused_int8_gemm_tensor_core_edges(hopper, m, k, n, xdt, out):
+    from zoo_tpu_torch.ops.kernels import quant
+    g = _gen(hopper, 14)
+    x = torch.randn(m, k, generator=g, device=hopper).to(xdt)
+    x[0] = 0                               # an all-zero row: scale 1
+    if m > 1:
+        # amax 127: scale exactly 1, so every other value, k + 0.5, lands
+        # on a tie that rounds half to even
+        x[1] = (torch.arange(k, device=hopper) % 253 - 126).float() + 0.5
+        x[1, 0] = 127.0
+    wq = _int8((k, n), g, hopper)
+    ws = torch.rand(n, generator=g, device=hopper) + 0.01
+    before = quant.FQMM_LAUNCHES
+    y = quant.fused_quantized_matmul(x, wq, ws, out_dtype=out)
+    ref = quant.fused_quantized_matmul_plain(x, wq, ws, out_dtype=out)
+    torch.cuda.synchronize()
+    assert quant.FQMM_LAUNCHES == before + 1
+    assert y.dtype == out and torch.equal(y, ref)
+
+
+def test_fused_int8_gemm_on_unaligned_views(hopper):
+    # x and w views off every copy width take element copies
+    from zoo_tpu_torch.ops.kernels import quant
+    g = _gen(hopper, 15)
+    m, k, n = 70, 300, 200
+    x = torch.randn(m * k + 1, generator=g, device=hopper)[1:].view(m, k)
+    wq = _int8((k * n + 3,), g, hopper)[3:].view(k, n)
+    ws = torch.rand(n, generator=g, device=hopper) + 0.01
+    p = quant.fqmm_plan(m, k, n, 4, 4, 1)
+    assert (p.x_vec, p.w_vec) == (4, 0)
+    y = quant.fused_quantized_matmul(x, wq, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(y, quant.fused_quantized_matmul_plain(x, wq, ws))
+
+
+# the f32 flash forward: Tq < Tk and Tq > Tk causal (rows with no live
+# column: o = 0, lse = -inf), ragged Tq and Tk, every head dim, B=2 with
+# GQA 4:1 and MHA
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("causal,h,hkv,tq,tk", [
+    (True, 8, 2, 5, 5), (True, 8, 2, 33, 130), (True, 8, 2, 130, 45),
+    (False, 8, 2, 100, 77), (True, 4, 4, 200, 200), (False, 4, 4, 65, 191),
+    (True, 8, 2, 257, 300)])
+def test_f32_flash_forward_edges(hopper, d, causal, h, hkv, tq, tk):
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 17)
+    q = torch.randn(2, h, tq, d, generator=g, device=hopper)
+    k = torch.randn(2, hkv, tk, d, generator=g, device=hopper)
+    v = torch.randn(2, hkv, tk, d, generator=g, device=hopper)
+    before = FA.LAUNCHES
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+    ro, rlse = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES == before + 1
+    live = torch.arange(tq, device=hopper) + (tk - tq) >= 0 if causal \
+        else torch.ones(tq, dtype=torch.bool, device=hopper)
+    assert _err(o[:, :, live], ro[:, :, live]) <= TOL[torch.float32]
+    assert _err(lse[:, :, live], rlse[:, :, live]) <= TOL[torch.float32]
+    assert torch.all(o[:, :, ~live] == 0)
+    assert torch.all(lse[:, :, ~live] == -math.inf)
+
+
+def test_f32_flash_forward_on_an_unaligned_view(hopper):
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 18)
+    n = 2 * 8 * 70 * 64
+    q = torch.randn(n + 1, generator=g, device=hopper)[1:].view(2, 8, 70, 64)
+    k = torch.randn(2, 2, 70, 64, generator=g, device=hopper)
+    assert q.data_ptr() % 16 == 4
+    o, lse = FA.flash_attention_fwd(q, k, k, causal=True)
+    ro, rlse = FA.flash_attention_plain(q, k, k, causal=True)
+    torch.cuda.synchronize()
+    assert _err(o, ro) <= TOL[torch.float32]
+    assert _err(lse, rlse) <= TOL[torch.float32]
+
+
 def test_fused_gemm_past_max_k_runs_the_two_pass_kernel(hopper):
     from zoo_tpu_torch.ops.kernels import quant
     g = _gen(hopper, 13)

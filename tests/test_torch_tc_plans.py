@@ -3,8 +3,10 @@
 ``conv_plan`` (the bf16 conv kernel, ``csrc/conv2d_tc.cuh``),
 ``conv_int8_plan`` (the int8 conv kernel, ``csrc/conv2d_int8_tc.cuh``),
 ``flash_plan`` (the bf16 flash forward, ``csrc/flash_attention_fwd.cu``),
+``flash_f32_plan`` (the f32 flash forward, same file),
 ``flash_bwd_plan`` (the bf16 flash backward,
-``csrc/flash_attention_bwd.cu``), ``prefill_plan`` (the paged
+``csrc/flash_attention_bwd.cu``), ``fqmm_plan`` (the fused int8 GEMM,
+``csrc/quant_matmul.cu``), ``prefill_plan`` (the paged
 prefill, ``csrc/paged_prefill.cu``), ``decode_plan`` (the paged decode,
 ``csrc/paged_decode.cu``) and ``fused_block.plan`` (the fused
 bottleneck, ``csrc/fused_block.cu``) are counted in Python only; the C
@@ -19,6 +21,7 @@ order in which they pass the plan is checked too.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -136,6 +139,200 @@ def test_flash_bwd_plan_refuses_other_head_dims():
         FA.flash_bwd_plan(96)
 
 
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_flash_f32_plan_at_every_head_dim(d):
+    p = FA.flash_f32_plan(d, causal=True)
+    assert (p.block_q, p.block_k, p.threads, p.stages) == (64, 64, 256, 2)
+    # Q and a 2-slot ring of K and V tiles in rows of d + 4 floats, then
+    # 8 warps' P buffers (32 keys x 20 floats); half 1's partials, 4 rows
+    # x (d / 8 + 2) floats a thread, fit the drained ring
+    ring = 2 * 2 * 64 * (d + 4) * 4
+    assert p.smem == 64 * (d + 4) * 4 + ring + 8 * 32 * 20 * 4 <= MAX_SMEM
+    assert (4 * (d // 8) + 8) * 128 * 4 <= ring
+    assert p.pair == 1 and FA.flash_f32_plan(d).pair == 0
+
+
+def test_flash_f32_plan_refuses_other_head_dims():
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_f32_plan(80)
+
+
+def _f32_schedule(tq, tk, causal, plan):
+    """The f32 flash kernel's division of the work, as it computes it
+    (csrc/flash_attention_fwd.cu, f32::flash_fwd_kernel): for each block
+    of the grid's x axis, the ``(q tile, key tiles)`` it walks, in
+    order. Paired, block x takes q tile n-1-x, then q tile x; a causal q
+    tile walks the key tiles up to its last live column, none when no
+    row of it has one."""
+    n_q = -(-tq // plan.block_q)
+    n_kt = -(-tk // plan.block_k)
+    blocks = []
+    for x in range((n_q + 1) // 2 if plan.pair else n_q):
+        tiles = [n_q - 1 - x] + ([x] if plan.pair and x != n_q - 1 - x
+                                 else [])
+        walk = []
+        for t in tiles:
+            n_k = n_kt
+            if causal:
+                last = t * plan.block_q + plan.block_q - 1 + tk - tq
+                n_k = 0 if last < 0 else min(n_kt, last // plan.block_k + 1)
+            walk.append((t, n_k))
+        blocks.append(walk)
+    return blocks
+
+
+def _live_key_tiles(qt, tq, tk, causal, bq=64, bk=64):
+    """The key tiles holding at least one live column of a row of q tile
+    ``qt`` (end-aligned causal), counted from the mask."""
+    rows = range(qt * bq, min(tq, qt * bq + bq))
+    cols = [c for c in range(tk)
+            if any(not causal or c <= r + tk - tq for r in rows)]
+    return {c // bk for c in cols}
+
+
+# the 8B serving shape, ragged and odd tile counts, Tq > Tk (tiles with
+# no live row) and Tq < Tk
+@pytest.mark.parametrize("tq,tk", [(512, 512), (100, 300), (77, 333),
+                                   (130, 45), (33, 130), (1, 1),
+                                   (257, 300), (1024, 1024), (200, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_f32_schedule_covers_every_live_tile_once(tq, tk, causal):
+    plan = FA.flash_f32_plan(128, causal)
+    blocks = _f32_schedule(tq, tk, causal, plan)
+    n_q = -(-tq // 64)
+    # the grid the kernel launches: pairs when causal
+    assert len(blocks) == ((n_q + 1) // 2 if causal else n_q)
+    walked = [t for b in blocks for t in b]
+    assert sorted(t for t, _ in walked) == list(range(n_q))
+    for qt, n_k in walked:
+        # key tiles 0 .. n_k - 1, exactly the ones with a live column
+        assert set(range(n_k)) == _live_key_tiles(qt, tq, tk, causal)
+    if causal and tq == tk:
+        # every pair walks n_q + 1 key tiles; where n_q is odd, the middle
+        # tile stands alone and walks (n_q + 1) / 2
+        for b in blocks:
+            assert sum(n for _, n in b) == (n_q + 1 if len(b) == 2
+                                            else (n_q + 1) // 2)
+
+
+# (m, k, n): the ResNet-50 head (bf16 and f32 x), bench_int8_matmul's,
+# M = 1, the largest fused K, and a ragged tile in every dimension
+FQMM_SHAPES = [(128, 2048, 1000), (512, 1024, 1024), (1, 2048, 1000),
+               (1, 8192, 1000), (128, 8192, 1000), (130, 260, 17),
+               (5, 33, 70), (64, 96, 64), (3, 1, 1)]
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("m,k,n", FQMM_SHAPES)
+def test_fqmm_plan_fits_and_covers_k(m, k, n, itemsize):
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    p = Q.fqmm_plan(m, k, n, itemsize)
+    # a portable cluster splits K into 64-deep chunks, each CTA >= 1
+    assert p.ctas in (1, 2, 4, 8) and p.k_slice % 64 == 0
+    assert p.ctas * p.k_slice >= k > (p.ctas - 1) * p.k_slice - 64 * p.ctas
+    assert p.ctas == 1 or (p.ctas // 2) * 128 < -(-k // 64) * 64 * 2
+    tiles = -(-m // 64) * -(-n // 128)
+    assert p.blocks == tiles * p.ctas
+    # grow the split only while the grid is under 128 CTAs
+    assert p.ctas == 8 or p.blocks >= 128 or 2 * p.ctas > -(-k // 64)
+    # a 5-slot ring of 64-deep x and w chunks, over which the int32 C
+    # tile (rows of 132) goes at the end; the int8 x chunk; 3 x 64 f32
+    assert p.stages == 5
+    ring = 5 * (64 * 64 * itemsize + 64 * 128)
+    assert p.smem == max(ring, 64 * 132 * 4) + 64 * 64 + 768 <= MAX_SMEM
+    assert (k * itemsize) % max(p.x_vec, 1) == 0
+    assert n % max(p.w_vec, 1) == 0
+
+
+def test_fqmm_plan_at_the_head():
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    # 2 x 8 output tiles split 8 ways: 128 CTAs of 256 columns of K;
+    # 16-byte copies of x, 8-byte copies of 1000-byte w rows
+    p = Q.fqmm_plan(128, 2048, 1000, 2)
+    assert (p.ctas, p.k_slice, p.blocks, p.x_vec, p.w_vec) == \
+        (8, 256, 128, 16, 8)
+    assert Q.fqmm_plan(1, 2048, 1000, 2).blocks == 64
+
+
+@pytest.mark.parametrize("align,x_vec,w_vec", [(16, 16, 8), (8, 8, 8),
+                                               (4, 4, 4), (2, 0, 0),
+                                               (1, 0, 0)])
+def test_fqmm_plan_narrows_the_copies(align, x_vec, w_vec):
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    p = Q.fqmm_plan(128, 2048, 1000, 4, align, align)
+    assert (p.x_vec, p.w_vec) == (x_vec, w_vec)
+    # bf16 rows of an odd length and odd-width w rows: element copies
+    assert Q.fqmm_plan(4, 33, 17, 2).x_vec == 0
+    assert Q.fqmm_plan(4, 33, 17, 2).w_vec == 0
+
+
+def test_fqmm_plan_refuses_what_the_kernel_does_not_take():
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    with pytest.raises(ValueError, match="empty"):
+        Q.fqmm_plan(0, 64, 64)
+    with pytest.raises(ValueError, match="bytes"):
+        Q.fqmm_plan(4, 64, 64, 1)
+
+
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_fqmm_wrapper_makes_one_entry_call(monkeypatch, x_dtype, out_dtype):
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    fn = _Entry()
+    monkeypatch.setattr(Q, "_entries", lambda: (None, None, fn))
+    monkeypatch.setattr(L, "stream", lambda dev: 7)
+    x = _meta(128, 2048, dtype=x_dtype)
+    w = _meta(2048, 1000, dtype=torch.int8)
+    ws = _meta(1000, dtype=torch.float32)
+    before = Q.FQMM_LAUNCHES
+    y = Q.fused_quantized_matmul(x, w, ws, out_dtype)
+    # one entry call: the wrapper allocates only the output
+    assert y.shape == (128, 1000) and y.dtype == out_dtype
+    assert Q.FQMM_LAUNCHES == before + 1
+    (args,) = fn.calls
+    assert len(args) == 5 + 4 + 6 + 1 and args[-1] == 7
+    assert args[0] == x.data_ptr() and args[4] == y.data_ptr()
+    assert (args[1], args[5]) == (L.DTYPE_CODES[x_dtype],
+                                  L.DTYPE_CODES[out_dtype])
+    assert args[6:9] == (128, 2048, 1000)
+    p = Q.fqmm_plan(128, 2048, 1000, x.element_size(), L.alignment(x),
+                    L.alignment(w))
+    assert args[9:15] == (p.ctas, p.k_slice, p.stages, p.x_vec, p.w_vec,
+                          p.smem)
+
+
+def _round_quotient(v, s):
+    """The fused int8 kernel's rounding (``near_tie`` in
+    csrc/quant_matmul.cu) in f32 numpy: rint(v * (1 / s)) unless that
+    product lies within 1e-4 of a tie or is not finite, else rint of
+    the IEEE quotient."""
+    with np.errstate(all="ignore"):
+        t = v * (np.float32(1) / s)
+        r = np.rint(t)
+        return np.where(np.abs(t - r) < np.float32(0.4999), r, np.rint(v / s))
+
+
+def test_fqmm_fast_rounding_equals_the_division():
+    # rows' scales from absmax over 60 decades, values anywhere up to
+    # the absmax, the absmax itself, exact ties (scale 1, k + 0.5) and
+    # their neighbours one ulp away, zeros, subnormal scales
+    rs = np.random.RandomState(9)
+    n = 400_000
+    amax = (10.0 ** rs.uniform(-30, 30, n)).astype(np.float32)
+    scale = np.where(amax == 0, 1, amax / np.float32(127)).astype(np.float32)
+    v = (amax * rs.uniform(-1, 1, n).astype(np.float32)).astype(np.float32)
+    v[::7] = amax[::7]
+    ties = (np.arange(-127, 127) + 0.5).astype(np.float32)
+    v = np.concatenate([v, ties, np.nextafter(ties, np.float32(200)),
+                        np.nextafter(ties, np.float32(-200)),
+                        np.zeros(4, np.float32),
+                        np.float32([1e-44, -3e-44, 5e-45, 1e-45])])
+    s = np.concatenate([scale, np.ones(3 * len(ties) + 4, np.float32),
+                        np.float32([1e-45, 3e-45, 1e-44, 1e-45])])
+    want = np.rint(v / s)
+    assert np.array_equal(_round_quotient(v, s), want)
+
+
 class _Entry:
     """Stands in for a C entry: records its arguments, returns 0."""
 
@@ -171,22 +368,26 @@ def test_conv_wrapper_passes_the_plan(monkeypatch, dtype):
     assert args[17:21] == want
 
 
+@pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_wrapper_passes_the_plan(monkeypatch, dtype):
+def test_flash_wrapper_passes_the_plan(monkeypatch, dtype, causal):
     fn = _Entry()
     monkeypatch.setattr(FA, "_entry", lambda: (None, fn))
     monkeypatch.setattr(L, "stream", lambda dev: 7)
     q = _meta(2, 12, 100, 64, dtype=dtype)
     kv = _meta(2, 4, 100, 64, dtype=dtype)
-    o, lse = FA.flash_attention_fwd(q, kv, kv, causal=True)
+    o, lse = FA.flash_attention_fwd(q, kv, kv, causal=causal)
     assert o.shape == q.shape and lse.dtype == torch.float32
     (args,) = fn.calls
     assert args[5:11] == (2, 12, 4, 100, 100, 64)
-    assert args[12:14] == (1, L.DTYPE_CODES[dtype])
-    assert len(args) == 16 and args[15] == 7
-    assert args[14] == (FA.flash_plan(64) if dtype == torch.bfloat16
-                        else 0)
-
+    assert args[12:14] == (int(causal), L.DTYPE_CODES[dtype])
+    # the plan's bytes and pairing (the bf16 kernel takes no pairing)
+    assert len(args) == 17 and args[16] == 7
+    if dtype == torch.bfloat16:
+        assert args[14:16] == (FA.flash_plan(64), 0)
+    else:
+        p = FA.flash_f32_plan(64, causal)
+        assert args[14:16] == (p.smem, p.pair) == (p.smem, int(causal))
 
 
 def test_flash_wrapper_copies_an_unaligned_input(monkeypatch):

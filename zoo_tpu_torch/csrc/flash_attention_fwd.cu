@@ -40,191 +40,309 @@
 // flash_plan() in ops/kernels/flash_attention.py and passed here, checked
 // only against the block limit.
 //
-// f32: flash_fwd_kernel, on the SIMT units (f32 FMAs; tensor cores would
-// mean TF32, and the serving streams must stay token-identical to the
-// plain path). At the 8B serving shape (B=1, H=32, T=512, D=128) it does
-// ~2 GFLOP against ~17 MB, above the f32 balance (67 TFLOP/s over
-// 3.35 TB/s = 20): operations bound it.
-// - One block per (batch*head, 64-row q tile); the loop over 32-row
-//   k tiles inside the block replaces the TPU's sequential grid axis.
-// - The q tile and each k/v tile sit in shared memory (rows padded by
-//   one float, so the strided reads of the score product do not
-//   conflict on banks); each thread owns a 4x4 block of scores and a
-//   4 x D/8 block of the output in registers.
+// f32: f32::flash_fwd_kernel, on the SIMT units (f32 FMAs; tensor cores
+// would mean TF32, and the serving streams must stay token-identical to
+// the plain path). At the 8B serving shape (B=1, H=32, Hkv=8, T=512,
+// D=128, causal) it does 2.15 GFLOP against ~17 MB, above the f32
+// balance (67 TFLOP/s over 3.35 TB/s = 20): the FMA pipes bound it. The
+// design keeps them fed:
+// - a block of 8 warps per 64-row q tile: warp w owns rows 16 (w % 4) ..
+//   +15 and one half (32 keys) of every 64-key K/V tile, so the two
+//   halves of the block run the online softmax side by side and are
+//   merged once, through shared memory, at the end of the q tile;
+// - K/V tiles arrive by 16-byte cp.async into a 2-slot ring (tile t+1
+//   loads while tile t computes; one block barrier a tile); Q, K and V
+//   rows are padded by 16 bytes, so 8 neighbouring rows at one 16-byte
+//   column are 8 different bank groups;
+// - a thread owns a 4 x 4 tile of S (rows r + 4i, keys c + 8j of its
+//   warp) and 4 rows x D/8 columns of O: the score product reads Q and K
+//   as float4 along d (8 LDS.128 for 64 FMAs), P.V reads P as a float4
+//   of its 4 rows and V as float4 rows (5 LDS.128 for 64 FMAs at D=128);
+// - the softmax stays in registers: the row max over the 8 lanes of a
+//   row by xor shuffles, the row sum per thread until the end; P goes to
+//   a buffer of the warp's own (its 16 rows x 32 keys), behind
+//   __syncwarp, never a block barrier; the causal skip of a warp's half
+//   goes through a vote, so no shuffle sits under a branch the compiler
+//   cannot prove uniform;
+// - causal work is balanced: a block takes the heaviest q tile and the
+//   lightest (n-1-x and x), so every block walks n+1 key tiles.
+// The plan (tile rows, threads, slots, shared memory, the pairing) is
+// counted by flash_f32_plan() in ops/kernels/flash_attention.py and
+// passed here; the entry checks the bytes only against the block limit.
 #include "zt_mma.cuh"
 
 namespace zt {
 
-constexpr int kBQ = 64;   // query rows per block
-constexpr int kBK = 32;   // key rows per tile (= warp width: lane = column)
-constexpr int kFlashThreads = 128;
+namespace f32 {
+
+constexpr int kBQ = 64, kBK = 64, kWarps = 8, kThreads = 32 * kWarps;
+constexpr int kStages = 2;
+constexpr int kHalf = kBK / 2;   // keys of a warp's half of a K/V tile
+constexpr int kPLd = 16 + 4;     // a warp's P buffer: its 16 rows, padded
 
 template <int D>
-constexpr size_t flash_smem_bytes() {
-  return sizeof(float) * (kBQ * (D + 1) + kBK * (D + 1) + kBK * D +
-                          kBQ * (kBK + 1) + 3 * kBQ);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kFlashThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int H, int Hkv, int Tq, int Tk,
-                     float scale, int causal) {
-  constexpr int LDQ = D + 1, LDK = D + 1, LDP = kBK + 1, OC = D / 8;
-  extern __shared__ float smem[];
-  float* qs = smem;                  // kBQ x LDQ
-  float* ks = qs + kBQ * LDQ;        // kBK x LDK
-  float* vs = ks + kBK * LDK;        // kBK x D
-  float* ps = vs + kBK * D;          // kBQ x LDP: scores, then probs
-  float* row_m = ps + kBQ * LDP;
-  float* row_l = row_m + kBQ;
-  float* row_c = row_l + kBQ;
+                     float scale, int causal, int pair) {
+  using namespace mma;
+  constexpr int LD = D + 4;              // floats a Q, K or V row takes
+  constexpr int U = D / 4;               // 16-byte units of a row
+  constexpr int OC = D / 8;              // output columns of a thread
+  constexpr int VW = OC < 4 ? OC : 4;    // ... read as vectors of VW
+  constexpr int NV = OC / VW;
+  extern __shared__ __align__(16) float fsmem[];
+  float* qs = fsmem;                             // kBQ rows
+  float* ring = qs + kBQ * LD;                   // per slot: K, V kBK rows
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows0 = (warp & 3) * 16;             // the warp's 16 rows
+  const int half = warp >> 2;                    // ... and key half
+  const int rg = lane >> 3, cg = lane & 7;       // rows rg + 4i, keys cg + 8j
+  float* ps = ring + kStages * 2 * kBK * LD + warp * kHalf * kPLd;
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int b = bh / H, hh = bh % H;
+  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
   const int kvh = b * Hkv + hh / (H / Hkv);
-  const T* qb = q + static_cast<size_t>(bh) * Tq * D;
-  const T* kb = k + static_cast<size_t>(kvh) * Tk * D;
-  const T* vb = v + static_cast<size_t>(kvh) * Tk * D;
+  const float* qb = q + static_cast<size_t>(bh) * Tq * D;
+  const float* kb = k + static_cast<size_t>(kvh) * Tk * D;
+  const float* vb = v + static_cast<size_t>(kvh) * Tk * D;
   const int off = Tk - Tq;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int tr = tid >> 3, tc = tid & 7;   // rows tr+16i, cols tc+8j
+  const int n_q = (Tq + kBQ - 1) / kBQ, n_kt = (Tk + kBK - 1) / kBK;
+  const int x = blockIdx.x;
+  const int n_tiles = pair && x != n_q - 1 - x ? 2 : 1;
 
-  for (int i = tid; i < kBQ * D; i += kFlashThreads) {
-    const int r = i / D, d = i % D;
-    qs[r * LDQ + d] = q0 + r < Tq ? to_f32(qb[(q0 + r) * D + d]) : 0.f;
-  }
-  for (int i = tid; i < kBQ; i += kFlashThreads) {
-    row_m[i] = -INFINITY;
-    row_l[i] = 0.f;
-  }
-
-  float oacc[4][OC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < OC; ++j) oacc[i][j] = 0.f;
-
-  int n_k = (Tk + kBK - 1) / kBK;
-  if (causal) {
-    const int last = q0 + kBQ - 1 + off;   // highest live column here
-    n_k = last < 0 ? 0 : min(n_k, last / kBK + 1);
-  }
-
-  for (int kt = 0; kt < n_k; ++kt) {
+  auto load_kv = [&](int kt, int slot) {
     const int k0 = kt * kBK;
-    __syncthreads();   // previous tile fully consumed (and q loaded)
-    for (int i = tid; i < kBK * D; i += kFlashThreads) {
-      const int r = i / D, d = i % D;
-      const bool in = k0 + r < Tk;
-      ks[r * LDK + d] = in ? to_f32(kb[(k0 + r) * D + d]) : 0.f;
-      vs[r * D + d] = in ? to_f32(vb[(k0 + r) * D + d]) : 0.f;
+    float* ks = ring + slot * 2 * kBK * LD;
+    float* vs = ks + kBK * LD;
+    for (int e = tid; e < kBK * U; e += kThreads) {
+      const int r = e / U, u = e % U;
+      const bool ok = k0 + r < Tk;
+      const size_t g = static_cast<size_t>(k0 + r) * D + u * 4;
+      cp_async<16>(smem_addr(ks + r * LD + u * 4), ok ? kb + g : kb, ok);
+      cp_async<16>(smem_addr(vs + r * LD + u * 4), ok ? vb + g : vb, ok);
     }
-    __syncthreads();
+  };
 
-    // scores S = q k^T * scale, masked to -inf
-    float sacc[4][4];
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const int q0 = (ti == 0 ? n_q - 1 - x : x) * kBQ;
+    int n_k = n_kt;
+    if (causal) {
+      const int last = q0 + kBQ - 1 + off;   // highest live column here
+      n_k = last < 0 ? 0 : min(n_k, last / kBK + 1);
+    }
+    for (int e = tid; e < kBQ * U; e += kThreads) {
+      const int r = e / U, u = e % U;
+      const bool ok = q0 + r < Tq;
+      cp_async<16>(smem_addr(qs + r * LD + u * 4),
+                   ok ? qb + static_cast<size_t>(q0 + r) * D + u * 4 : qb,
+                   ok);
+    }
+    if (n_k > 0) load_kv(0, 0);
+    cp_async_commit();
+
+    float oacc[4][OC], m[4], l[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sacc[i][j] = 0.f;
+      for (int c = 0; c < OC; ++c) oacc[i][c] = 0.f;
+    }
+    const int wrow0 = q0 + rows0;   // the warp's first row
+
+    for (int kt = 0; kt < n_k; ++kt) {
+      cp_async_wait<0>();
+      __syncthreads();   // tile kt landed; every warp is done with kt - 1
+      if (kt + 1 < n_k) load_kv(kt + 1, (kt + 1) & 1);
+      cp_async_commit();
+      const int k0 = kt * kBK + half * kHalf;   // the warp's first key
+      const float* ks = ring + (kt & 1) * 2 * kBK * LD + half * kHalf * LD;
+      const float* vs = ks + kBK * LD;
+      // a half wholly in the causal future of the warp's rows is skipped
+      if (__any_sync(0xffffffffu, !causal || k0 <= wrow0 + 15 + off)) {
+        float s[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], bb[4];
+        for (int u = 0; u < U; ++u) {
+          float4 a[4], kk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(tr + 16 * i) * LDQ + d];
+          for (int i = 0; i < 4; ++i)
+            a[i] = *reinterpret_cast<const float4*>(
+                qs + (rows0 + rg + 4 * i) * LD + 4 * u);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bb[j] = ks[(tc + 8 * j) * LDK + d];
+          for (int j = 0; j < 4; ++j)
+            kk[j] = *reinterpret_cast<const float4*>(
+                ks + (cg + 8 * j) * LD + 4 * u);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) sacc[i][j] = fmaf(a[i], bb[j], sacc[i][j]);
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(a[i].x, kk[j].x, s[i][j]);
+              s[i][j] = fmaf(a[i].y, kk[j].y, s[i][j]);
+              s[i][j] = fmaf(a[i].z, kk[j].z, s[i][j]);
+              s[i][j] = fmaf(a[i].w, kk[j].w, s[i][j]);
+            }
+        }
+        const bool edge =
+            k0 + kHalf > Tk || (causal && k0 + kHalf - 1 > wrow0 + off);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] *= scale;
+            if (edge) {
+              const int col = k0 + cg + 8 * j, row = wrow0 + rg + 4 * i;
+              if (col >= Tk || (causal && col > row + off))
+                s[i][j] = -INFINITY;
+            }
+          }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+          const float m_new = fmaxf(m[i], mx);
+          // all-masked rows keep m = -inf; exp(-inf - -inf) would be NaN
+          const float safe = m_new == -INFINITY ? 0.f : m_new;
+          const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - safe);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = expf(s[i][j] - safe);
+            sum += s[i][j];
+          }
+          l[i] = corr * l[i] + sum;
+          m[i] = m_new;
+#pragma unroll
+          for (int c = 0; c < OC; ++c) oacc[i][c] *= corr;
+        }
+        // P key-major in the warp's buffer: a thread's 4 rows side by side
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(ps + (cg + 8 * j) * kPLd + 4 * rg) =
+              make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+        __syncwarp();
+#pragma unroll 8
+        for (int c = 0; c < kHalf; ++c) {
+          const float4 p = *reinterpret_cast<const float4*>(
+              ps + c * kPLd + 4 * rg);
+          const float pr[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+          for (int t = 0; t < NV; ++t) {
+            float vv[VW];
+            const float* vp = vs + c * LD + t * 8 * VW + cg * VW;
+            if constexpr (VW == 4) {
+              const float4 w4 = *reinterpret_cast<const float4*>(vp);
+              vv[0] = w4.x, vv[1] = w4.y, vv[2] = w4.z, vv[3] = w4.w;
+            } else if constexpr (VW == 2) {
+              const float2 w2 = *reinterpret_cast<const float2*>(vp);
+              vv[0] = w2.x, vv[1] = w2.y;
+            } else {
+              vv[0] = vp[0];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int e = 0; e < VW; ++e)
+                oacc[i][t * VW + e] = fmaf(pr[i], vv[e], oacc[i][t * VW + e]);
+          }
+        }
+        __syncwarp();   // P read before the next tile overwrites it
+      }
     }
+
+    // the row sums over the 8 lanes of a row; then half 1 hands its
+    // partials (m, l, O) to half 0 through the drained ring
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = tr + 16 * i, row = q0 + r;
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    float* part = ring;   // (4 OC + 8) x 128 floats, thread-interleaved
+    const int t128 = tid & 127;
+    if (half == 1) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tc + 8 * j, col = k0 + c;
-        const bool live = col < Tk && (!causal || col <= row + off);
-        ps[r * LDP + c] = live ? sacc[i][j] * scale : -INFINITY;
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < OC; ++c)
+          part[(i * OC + c) * 128 + t128] = oacc[i][c];
+        part[(4 * OC + i) * 128 + t128] = m[i];
+        part[(4 * OC + 4 + i) * 128 + t128] = l[i];
       }
     }
     __syncthreads();
-
-    // online softmax: warp w owns rows 16w .. 16w+15, lane = column
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const float s = ps[r * LDP + lane];
-      const float m_prev = row_m[r];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float safe = m_new == -INFINITY ? 0.f : m_new;
-      const float p = s == -INFINITY ? 0.f : expf(s - safe);
-      const float corr = m_prev == -INFINITY ? 0.f : expf(m_prev - safe);
-      const float psum = warp_sum(p);
-      ps[r * LDP + lane] = to_f32(from_f32<T>(p));
-      if (lane == 0) {
-        row_m[r] = m_new;
-        row_l[r] = corr * row_l[r] + psum;
-        row_c[r] = corr;
+    if (half == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float m1 = part[(4 * OC + i) * 128 + t128];
+        const float l1 = part[(4 * OC + 4 + i) * 128 + t128];
+        const float mx = fmaxf(m[i], m1);
+        const float safe = mx == -INFINITY ? 0.f : mx;
+        const float c0 = m[i] == -INFINITY ? 0.f : expf(m[i] - safe);
+        const float c1 = m1 == -INFINITY ? 0.f : expf(m1 - safe);
+        const float ll = c0 * l[i] + c1 * l1;
+        const float den = ll == 0.f ? 1.f : ll;
+        const int row = wrow0 + rg + 4 * i;
+        if (row >= Tq) continue;
+        float* orow = o + (static_cast<size_t>(bh) * Tq + row) * D;
+#pragma unroll
+        for (int t = 0; t < NV; ++t) {
+          float r[VW];
+#pragma unroll
+          for (int e = 0; e < VW; ++e) {
+            const int c = t * VW + e;
+            r[e] = (c0 * oacc[i][c] + c1 * part[(i * OC + c) * 128 + t128]) /
+                   den;
+          }
+          float* op = orow + t * 8 * VW + cg * VW;
+          if constexpr (VW == 4) {
+            *reinterpret_cast<float4*>(op) =
+                make_float4(r[0], r[1], r[2], r[3]);
+          } else if constexpr (VW == 2) {
+            *reinterpret_cast<float2*>(op) = make_float2(r[0], r[1]);
+          } else {
+            op[0] = r[0];
+          }
+        }
+        if (cg == 0)
+          lse[static_cast<size_t>(bh) * Tq + row] =
+              mx == -INFINITY ? -INFINITY : mx + logf(den);
       }
     }
-    __syncthreads();
-
-    // o = o * corr + P V
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float c = row_c[tr + 16 * i];
-#pragma unroll
-      for (int j = 0; j < OC; ++j) oacc[i][j] *= c;
-    }
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ps[(tr + 16 * i) * LDP + c];
-#pragma unroll
-      for (int j = 0; j < OC; ++j) {
-        const float vv = vs[c * D + tc + 8 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) oacc[i][j] = fmaf(pv[i], vv, oacc[i][j]);
-      }
-    }
-  }
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = tr + 16 * i, row = q0 + r;
-    if (row >= Tq) continue;
-    const float l = row_l[r], m = row_m[r];
-    const float den = l == 0.f ? 1.f : l;
-    T* orow = o + (static_cast<size_t>(bh) * Tq + row) * D;
-#pragma unroll
-    for (int j = 0; j < OC; ++j) orow[tc + 8 * j] = from_f32<T>(oacc[i][j] / den);
-    if (tc == 0)
-      lse[static_cast<size_t>(bh) * Tq + row] =
-          m == -INFINITY ? -INFINITY : m + logf(den);
+    __syncthreads();   // the Q tile and the ring are free for the next tile
   }
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int B, int H, int Hkv, int Tq, int Tk,
-                       float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = flash_smem_bytes<D>();
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int B, int H, int Hkv, int Tq, int Tk,
+                   float scale, int causal, int smem, int pair,
+                   cudaStream_t stream) {
+  if (smem <= 0 || smem > mma::kMaxSmem) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<float, D><<<grid, kFlashThreads, smem, stream>>>(
+  const int n_q = (Tq + kBQ - 1) / kBQ;
+  const dim3 grid(pair ? (n_q + 1) / 2 : n_q, B * H);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, H, Hkv, Tq,
-      Tk, scale, causal);
+      Tk, scale, causal, pair);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 // ------------------------------------------------ bf16, tensor cores
 
@@ -441,14 +559,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace zt
 
 // q and o (B*H, Tq, D); k and v (B*Hkv, Tk, D); lse (B*H, Tq) f32.
-// D in {16, 32, 64, 128}; dtype 0 = f32 (SIMT kernel), 1 = bf16 (tensor
-// cores, with the shared-memory bytes flash_plan() gives; f32 ignores
-// them). q, k, v, o 16-byte aligned for bf16.
+// D in {16, 32, 64, 128}; dtype 0 = f32 (SIMT kernel, with the bytes and
+// the q-tile pairing flash_f32_plan() gives), 1 = bf16 (tensor cores,
+// with the bytes flash_plan() gives; pair is ignored). q, k, v, o
+// 16-byte aligned.
 extern "C" int zt_flash_attention_fwd(const void* q, const void* k,
                                       const void* v, void* o, float* lse,
                                       int B, int H, int Hkv, int Tq, int Tk,
                                       int D, float scale, int causal,
-                                      int dtype, int smem,
+                                      int dtype, int smem, int pair,
                                       void* stream) {
   using namespace zt;
   if (Hkv < 1 || H % Hkv != 0 || Tq < 1 || Tk < 1)
@@ -457,8 +576,8 @@ extern "C" int zt_flash_attention_fwd(const void* q, const void* k,
 #define ZT_CASE(d)                                                          \
   if (D == d)                                                               \
     return dtype == kF32                                                    \
-               ? launch_f32<d>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, scale,   \
-                               causal, st)                                  \
+               ? f32::launch<d>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, scale,  \
+                                causal, smem, pair, st)                     \
                : tc::launch<d>(q, k, v, o, lse, B, H, Hkv, Tq, Tk, scale,   \
                                causal, smem, st);
   if (dtype == kF32 || dtype == kBF16) {

@@ -1,7 +1,9 @@
-// Tensor-core building blocks of the bf16 kernels: asynchronous copies
-// into shared memory with zero fill and the 16-byte swizzle their tiles
-// are stored in (conv2d_tc.cuh, flash_attention_fwd.cu); ldmatrix and
-// mma.sync.m16n8k16, bf16 x bf16 -> f32 (flash_attention_fwd.cu).
+// Tensor-core building blocks of the bf16 and int8 kernels: asynchronous
+// copies into shared memory with zero fill and the 16-byte swizzle their
+// tiles are stored in (conv2d_tc.cuh, flash_attention_fwd.cu,
+// quant_matmul.cu); ldmatrix, mma.sync.m16n8k16, bf16 x bf16 -> f32
+// (flash_attention_fwd.cu), and mma.sync.m16n8k32, s8 x s8 -> s32
+// (quant_matmul.cu).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 // - A (16 x 16, row-major): reg 0 = (row g, cols 2t, 2t+1), reg 1 = (row
@@ -12,6 +14,16 @@
 // - C/D (16 x 8, f32): c0, c1 = (row g, cols 2t, 2t+1), c2, c3 = (row g+8,
 //   same cols). The C layout of two neighbouring n-tiles, rounded to bf16,
 //   is the A layout of the next product over those 16 columns.
+//
+// Fragment layouts of mma.m16n8k32 with s8 operands (four int8 a 32-bit
+// register, the lowest k in the lowest byte):
+// - A (16 x 32, row-major): reg 0 = (row g, k 4t..4t+3), reg 1 = (row
+//   g+8, same k), reg 2 = (row g, k 16+4t..), reg 3 = (row g+8, k
+//   16+4t..): the same registers ldmatrix.x4 gives for a 16 x 32-byte
+//   tile read as b16.
+// - B (32 x 8, k by n): reg 0 = (k 4t..4t+3; n g), reg 1 = (k 16+4t..;
+//   n g).
+// - C/D (16 x 8, s32): as m16n8k16's.
 #pragma once
 
 #include "zt_common.cuh"
@@ -91,6 +103,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b on the tensor cores, s8 operands, exact s32 accumulation
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

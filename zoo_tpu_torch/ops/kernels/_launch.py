@@ -45,6 +45,14 @@ def alignment(*tensors: torch.Tensor) -> int:
     return a
 
 
+def copy_bytes(row_bytes: int, align: int) -> int:
+    """The widest ``cp.async`` copy (16, 8 or 4 bytes) that divides a
+    row of ``row_bytes`` and a pointer aligned to ``align``; 0 when none
+    does (the kernels then copy element by element)."""
+    return next((c for c in (16, 8, 4)
+                 if row_bytes % c == 0 and align % c == 0), 0)
+
+
 def ptr(tensor: Optional[torch.Tensor]):
     return None if tensor is None else tensor.data_ptr()
 

@@ -3,7 +3,8 @@
 
 The kernels are ``zoo_tpu_torch/csrc/flash_attention_fwd.cu`` (forward,
 returning the logsumexp: bf16 on the tensor cores with the plan
-:func:`flash_plan` counts, f32 on the SIMT units) and
+:func:`flash_plan` counts, f32 on the SIMT units with the plan
+:func:`flash_f32_plan` counts) and
 ``zoo_tpu_torch/csrc/flash_attention_bwd.cu`` (dK/dV, then dQ,
 recomputed from that logsumexp: bf16 on the tensor cores with the plan
 :func:`flash_bwd_plan` counts, f32 on the SIMT units); their headers say
@@ -37,6 +38,12 @@ HEAD_DIMS = (16, 32, 64, 128)
 _TC_BQ, _TC_BKV, _TC_STAGES = 64, 64, 2
 # slots of the bf16 backward kernels' rings (flash_bwd_plan)
 _TC_BWD_STAGES = 2
+# the f32 SIMT kernel (csrc/flash_attention_fwd.cu, f32::): query rows of
+# a block, rows of a K/V tile, warps (4 row groups of 16 rows x 2 key
+# halves), slots of its ring; a warp's P buffer holds its 16 rows (+4
+# floats of padding) for each key of its half
+_F32_BQ, _F32_BKV, _F32_WARPS, _F32_STAGES = 64, 64, 8, 2
+_F32_P_ROW = 16 + 4
 
 
 def flash_plan(head_dim: int) -> int:
@@ -46,6 +53,35 @@ def flash_plan(head_dim: int) -> int:
     64-row K and V tiles, 2 stages."""
     _require_head_dim(head_dim)
     return 2 * head_dim * (_TC_BQ + 2 * _TC_STAGES * _TC_BKV)
+
+
+class FlashF32Plan(NamedTuple):
+    """The f32 forward kernel's launch plan: ``block_q`` query rows and
+    ``block_k``-row K/V tiles, ``threads`` a block, ``stages`` ring
+    slots, ``smem`` bytes of dynamic shared memory, and ``pair``: 1 when
+    a block takes two q tiles, the heaviest and the lightest left
+    (causal), 0 when it takes one."""
+    block_q: int
+    block_k: int
+    threads: int
+    stages: int
+    smem: int
+    pair: int
+
+
+def flash_f32_plan(head_dim: int, causal: bool = False) -> FlashF32Plan:
+    """The f32 forward kernel's plan at ``head_dim``. Shared memory, as
+    the kernel lays it out: the Q tile and the ring's K and V tiles in
+    rows of ``head_dim + 4`` floats (16 bytes of padding), then each
+    warp's P buffer (its half of the keys x 20 floats). Causal q tiles
+    are paired: block x takes q tile n-1-x, then q tile x (one tile
+    where they meet), so every block walks n+1 key tiles."""
+    _require_head_dim(head_dim)
+    row = 4 * (head_dim + 4)
+    smem = (_F32_BQ + 2 * _F32_STAGES * _F32_BKV) * row \
+        + _F32_WARPS * (_F32_BKV // 2) * _F32_P_ROW * 4
+    return FlashF32Plan(_F32_BQ, _F32_BKV, 32 * _F32_WARPS, _F32_STAGES,
+                        smem, int(bool(causal)))
 
 
 class FlashBwdPlan(NamedTuple):
@@ -89,7 +125,7 @@ def _entry():
         from zoo_tpu_torch.ops.kernels._build import library
         lib = library("flash_attention")
         fn = lib.zt_flash_attention_fwd
-        fn.argtypes = [L.P] * 5 + [L.I] * 6 + [L.F] + [L.I] * 3 + [L.P]
+        fn.argtypes = [L.P] * 5 + [L.I] * 6 + [L.F] + [L.I] * 4 + [L.P]
         fn.restype = L.I
         _fn = (lib, fn)
     return _fn
@@ -130,7 +166,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention over (B, H, T, D) returning ``(o, lse)``: ``o`` in
     ``q``'s dtype, ``lse`` (B, H, Tq) f32. ``k``/``v`` may carry fewer
     heads than ``q`` (GQA, never repeated). Causal masking is
-    end-aligned (column <= row + Tk - Tq). A bf16 input that is not
+    end-aligned (column <= row + Tk - Tq). An input that is not
     16-byte aligned is copied to an aligned buffer for the kernel.
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch
@@ -148,17 +184,18 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _require_head_dim(D)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Tq), device=dev, dtype=torch.float32)
-    smem = 0                            # the f32 SIMT kernel takes none
+    # the kernels copy 16 bytes at a time: a view off a 16-byte boundary
+    # is copied into a fresh (aligned) buffer first
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     if q.dtype == torch.bfloat16:
-        # the kernel copies 16 bytes at a time: a view off a 16-byte
-        # boundary is copied into a fresh (aligned) buffer first
-        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
-                   for t in (q, k, v))
-        smem = flash_plan(D)
+        smem, pair = flash_plan(D), 0
+    else:
+        plan = flash_f32_plan(D, causal)
+        smem, pair = plan.smem, plan.pair
     lib, fn = _entry()
     rc = fn(L.ptr(q), L.ptr(k), L.ptr(v), L.ptr(o), L.ptr(lse), B, H, Hkv,
             Tq, Tk, D, float(scale), int(bool(causal)),
-            L.DTYPE_CODES[q.dtype], smem, L.stream(dev))
+            L.DTYPE_CODES[q.dtype], smem, pair, L.stream(dev))
     L.check(lib, rc, "flash_attention")
     LAUNCHES += 1
     return o, lse

@@ -110,8 +110,7 @@ def decode_plan(S: int, n_kv: int, G: int, D: int, bs: int, W: int,
     ctas = min(resolve_num_splits(W, splits), MAX_CLUSTER)
     row = D * itemsize
     chunk_rows = max(1, min(bs, CHUNK_BYTES // row))
-    copy_bytes = next((c for c in (16, 8, 4)
-                       if row % c == 0 and align % c == 0), 0)
+    copy_bytes = L.copy_bytes(row, align)
     slot = _round16(2 * chunk_rows * _round16(row)
                     + (8 * chunk_rows if itemsize == 1 else 0))
     ring = WARPS * RING_STAGES * slot

@@ -7,7 +7,8 @@ runs int8 x int8 -> int32 with the dequant fused into the epilogue. The
 kernels are ``zoo_tpu_torch/csrc/quant_matmul.cu`` (its header says
 what bounds them): :func:`quantized_matmul` takes quantized activations
 and their scales, :func:`fused_quantized_matmul` quantizes float
-activations inside the kernel. Beside each is its plain PyTorch
+activations inside the kernel, on the int8 tensor cores with the plan
+:func:`fqmm_plan` counts. Beside each is its plain PyTorch
 version, which sums the integer products in float64 (exact) and applies
 the same f32 epilogue, so kernel and plain version agree bit for bit.
 
@@ -18,7 +19,8 @@ through :func:`zoo_tpu_torch.ops.kernels.conv.conv2d_int8`.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -36,6 +38,67 @@ _fns = None
 _FUSED_MAX_K = 8192
 
 
+# the fused kernel's tiles (csrc/quant_matmul.cu, fq::): output rows and
+# columns of a tile, K depth of a chunk, ring slots; at most 8 CTAs (the
+# portable cluster size) split K, until the grid reaches FQMM_TARGET_CTAS
+FQMM_BM, FQMM_BN, FQMM_BK, FQMM_STAGES = 64, 128, 64, 5
+FQMM_MAX_CTAS, FQMM_TARGET_CTAS = 8, 128
+
+
+class FqmmPlan(NamedTuple):
+    """Launch plan of the fused int8 GEMM: ``ctas`` CTAs (a cluster)
+    split K for each 64 x 128 output tile, each taking ``k_slice``
+    columns of x; ``stages`` ring slots; ``x_vec`` and ``w_vec`` bytes a
+    copy of x and w (16, 8 or 4 by ``cp.async``; 0: element copies);
+    ``smem`` bytes of dynamic shared memory; ``blocks`` CTAs in the
+    grid."""
+    ctas: int
+    k_slice: int
+    stages: int
+    x_vec: int
+    w_vec: int
+    smem: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def fqmm_plan(m: int, k: int, n: int, x_itemsize: int = 4,
+              x_align: int = 16, w_align: int = 16) -> FqmmPlan:
+    """The fused kernel's plan for (m, k) x (k, n), x elements of
+    ``x_itemsize`` bytes (4 f32, 2 bf16), x and w pointers aligned to
+    ``x_align`` and ``w_align`` bytes.
+
+    - K split: CTAs per output tile double (1, 2, 4, 8) while the grid
+      is under 128 CTAs and every CTA keeps at least one 64-deep chunk;
+      each takes ``k_slice`` columns, a multiple of 64.
+    - Copies: the widest of 16, 8 and 4 bytes that divides a row (of x:
+      k elements; of w: n bytes) and the pointer, else element copies.
+    - Shared memory, as the kernel lays it out: the ring (per slot a
+      64 x 64 x chunk and a 64 x 128 w chunk), which the int32 C tile
+      (rows padded by 16 bytes) overwrites at the end; the int8 x chunk;
+      the rows' partial absmax, scales and reciprocal scales (f32).
+    """
+    if min(m, k, n) < 1:
+        raise ValueError(f"empty int8 GEMM ({m}, {k}) x ({k}, {n})")
+    if x_itemsize not in (2, 4):
+        raise ValueError(f"x elements of {x_itemsize} bytes: the kernel "
+                         "takes f32 or bf16")
+    tiles = -(-m // FQMM_BM) * -(-n // FQMM_BN)
+    chunks = -(-k // FQMM_BK)
+    ctas = 1
+    while (ctas < FQMM_MAX_CTAS and tiles * ctas < FQMM_TARGET_CTAS
+           and 2 * ctas <= chunks):
+        ctas *= 2
+    k_slice = -(-chunks // ctas) * FQMM_BK
+    ring = FQMM_STAGES * (FQMM_BM * FQMM_BK * x_itemsize
+                          + FQMM_BK * FQMM_BN)
+    c_tile = FQMM_BM * (FQMM_BN + 4) * 4
+    smem = max(ring, c_tile) + FQMM_BM * FQMM_BK + 3 * FQMM_BM * 4
+    return FqmmPlan(ctas, k_slice, FQMM_STAGES,
+                    L.copy_bytes(k * x_itemsize, x_align),
+                    L.copy_bytes(n, w_align), smem, tiles * ctas)
+
+
 def _entries():
     global _fns
     if _fns is None:
@@ -43,7 +106,7 @@ def _entries():
         lib = library("quant_matmul")
         qmm, fqmm = lib.zt_quantized_matmul, lib.zt_fused_quantized_matmul
         qmm.argtypes = [L.P] * 5 + [L.I] * 4 + [L.P]
-        fqmm.argtypes = [L.P, L.I, L.P, L.P, L.P] + [L.I] * 4 + [L.P]
+        fqmm.argtypes = [L.P, L.I, L.P, L.P, L.P] + [L.I] * 10 + [L.P]
         qmm.restype = fqmm.restype = L.I
         _fns = (lib, qmm, fqmm)
     return _fns
@@ -141,7 +204,8 @@ def fused_quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
     package does.
 
     CPU tensors take :func:`fused_quantized_matmul_plain`; CUDA tensors
-    launch the kernel (or raise)."""
+    launch the kernel once, with the plan :func:`fqmm_plan` counts (or
+    raise)."""
     global FQMM_LAUNCHES
     m, k = x.shape
     k2, n = w_q.shape
@@ -163,9 +227,12 @@ def fused_quantized_matmul(x: torch.Tensor, w_q: torch.Tensor,
         raise TypeError(f"out_dtype {out_dtype}: the kernel writes f32 or "
                         "bf16")
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    p = fqmm_plan(m, k, n, x.element_size(), L.alignment(x),
+                  L.alignment(w_q))
     lib, _, fqmm = _entries()
     rc = fqmm(L.ptr(x), L.DTYPE_CODES[x.dtype], L.ptr(w_q), L.ptr(ws),
-              L.ptr(y), L.DTYPE_CODES[out_dtype], m, k, n, L.stream(dev))
+              L.ptr(y), L.DTYPE_CODES[out_dtype], m, k, n, p.ctas,
+              p.k_slice, p.stages, p.x_vec, p.w_vec, p.smem, L.stream(dev))
     L.check(lib, rc, "fused_quantized_matmul")
     FQMM_LAUNCHES += 1
     return y
