@@ -10,15 +10,16 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 
 1. device — name, capability, count, power limit (fails off Hopper);
 2. build — nvcc wall time and each kernel function's ``-Xptxas -v``
-   registers, shared memory and spills;
+   registers, shared memory and spills (fails if an instance of the f32
+   conv or the f32 flash backward spills);
 2b. sass — how each kernel multiplies, read from the built libraries'
    SASS (``cuobjdump -sass``): ``wgmma`` (HGMMA, IGMMA), ``mma.sync``
    (HMMA, IMMA) or ``simt``; fails unless the bf16 conv, the bf16
    flash forward and backward (dK/dV, dQ), the fused bottleneck and
-   the fused int8 GEMM run on the tensor cores, the bf16 and int8 convs
-   on ``wgmma``, and the shuffles of the paged decode, the fused int8
-   GEMM and the f32 flash forward all on the fast path (no
-   ``WARPSYNC.COLLECTIVE``);
+   the fused int8 GEMM run on the tensor cores, the bf16, f32 (3xTF32)
+   and int8 convs on ``wgmma``, and the shuffles of the paged decode,
+   the fused int8 GEMM and the f32 flash forward and backward (dK/dV,
+   dQ) all on the fast path (no ``WARPSYNC.COLLECTIVE``);
 3. kernels — each kernel against its plain PyTorch version at the
    Llama-3-8B serving shapes, for f32, bf16 and int8 caches and the
    position edges, then timed (device time per call from
@@ -81,18 +82,28 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    per forward, losses finite, 49 ``conv2d`` per forward and one SGD
    launch per trainable leaf per step, running stats moved), then
    ``evaluate(metrics=["accuracy"])`` on 256 images and a
-   ``train-image-step`` line profiling steps by kernel group.
+   ``train-image-step`` line profiling steps by kernel group;
+11. train-f32-main — the same two training configs (``bench_llama``
+   at S=512, B=64, ``remat="dots"``, fused AdamW; ``bench_resnet50`` at
+   B=128, ``SGD(0.1, 0.9)``) through Keras ``fit`` with ``compile``
+   given no ``dtype_policy``: the ``float32`` default a user gets, which
+   runs the f32 routes (the f32 flash forward, dK/dV and dQ; the f32
+   conv). Each: a warm-up step, then 4 timed steps on one batch (step
+   ms, tokens/s or samples/s, losses finite and falling, peak memory;
+   12 flash forward, 12 dK/dV and 12 dQ launches a step, or 49 ``conv2d``
+   a forward), and a ``train-f32-step`` line profiling steps by kernel
+   group.
 
 Phase 3 also holds the flash forward (o, lse) and backward kernels
 (dK/dV, dQ) against their plain versions, and the gradients against
 autograd of the dense path, at B=8 and B=64, H=12, Hkv=4, T=512, D=64
-(the f32 backward route timed at B=8), checks that the reference
+(the f32 backward route timed at B=8 and B=64), checks that the reference
 conv's f32 gradients do not change with cuDNN's TF32 switched on, and
 holds the fused AdamW and SGD kernels against theirs, then times them at the
 training config's shapes beside their bounds and a library yardstick
 (``scaled_dot_product_attention`` and its backward, ``torch.optim``'s
 fused AdamW and SGD) the port never calls; and the implicit-GEMM conv
-kernels (bf16, int8) at four ResNet-50 shapes, B=128 (int8 on the
+kernels (bf16, f32, int8) at four ResNet-50 shapes, B=128 (int8 on the
 K-major weight copy a quantized layer carries, the copy's one-time cost
 printed apart), and the int8
 GEMMs at the ResNet-50 head and at ``bench_int8_matmul``'s shape,
@@ -102,8 +113,8 @@ and f32 at conv2_x) with its gradients at conv2_x, timed beside the
 unfused cuDNN composition (three ``F.conv2d``, the ReLUs and the add),
 a yardstick the port never calls.
 
-The bf16 and int8 convs (per shape and summed), the f32 conv at one
-shape, the bf16 flash forward and backward kernels at the training
+The bf16, f32 and int8 convs (per shape and summed; the f32 conv also
+beside its 3xTF32 bound), the bf16 flash forward and backward kernels at the training
 shape, the f32 flash forward and the paged prefill at the serving
 shape and the fused int8 GEMM at both GEMM shapes also print TFLOP/s
 (TOP/s for int8), the share of their bound they reach and, where there
@@ -138,6 +149,7 @@ N_BLOCK = 32
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3, bytes/s
 PEAK_F32_FLOPS = 67e12            # H100 SXM f32, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
+PEAK_TF32_FLOPS = 495e12          # H100 SXM TF32 tensor cores, dense
 PEAK_INT8_OPS = 1979e12           # H100 SXM int8 tensor cores, dense
 LOSS = "sparse_categorical_crossentropy_from_logits"
 # the training config: bench.py bench_llama, full width and depth
@@ -149,8 +161,6 @@ INFER_B, INFER_STEPS = 128, 8
 # ResNet-50 convs inside the kernels' envelope, (spatial, C, k, O, stride)
 CONV_SHAPES = ((56, 256, 1, 64, 1), (28, 128, 3, 128, 1),
                (56, 256, 1, 512, 2), (7, 512, 3, 512, 1))
-# the one shape the f32 conv route (the SIMT body) is timed at
-CONV_F32_TIMED = CONV_SHAPES[1]
 # (M, K, N): the ResNet-50 head at B=128, bench.py bench_int8_matmul
 GEMM_SHAPES = ((128, 2048, 1000), (512, 1024, 1024))
 # ResNet-50's identity bottlenecks per stage: (name, spatial, Cin, Cmid)
@@ -160,6 +170,8 @@ BLOCK_B, BLOCK_GRAD_B = 128, 32
 # the image-training path: bench.py bench_resnet50 (:371-384)
 TRAIN_IMG_B, TRAIN_IMG_STEPS, TRAIN_IMG_N = 128, 8, 1024
 RESNET50_FWD_FLOPS = 8.0e9          # bench.py:65, per image
+# the f32 training path (the default policy): timed steps of each model
+TRAIN_F32_STEPS = 4
 
 # tolerances of kernel vs plain version, max absolute error:
 # f32 outputs 1e-4 (the same f32 math summed in another order, expf vs
@@ -226,19 +238,28 @@ F32_ROUTES = {"flash_attention": ("flash_attention", "flash_fwd_kernel"),
                                        "flash_bwd_dkdv_kernel"),
               "flash_attention_dq": ("flash_attention_bwd",
                                      "flash_bwd_dq_kernel"),
-              "conv2d": ("conv2d", "conv2d_kernel")}
+              "conv2d": ("conv2d", "conv_f32_tc_kernel")}
 # kernels whose main-path route must run on the tensor cores
 TENSOR_CORE_KERNELS = ("conv2d", "flash_attention", "flash_attention_dkdv",
                        "flash_attention_dq", "fused_bottleneck",
                        "fused_quantized_matmul")
-# ... and on wgmma (HGMMA for bf16, IGMMA for int8)
+# ... and on wgmma (HGMMA for bf16, IGMMA for int8); F32_WGMMA: the same
+# of F32_ROUTES (the f32 conv, as 3xTF32)
 WGMMA_KERNELS = ("conv2d", "conv2d_int8")
+F32_WGMMA = ("conv2d",)
 # kernels whose warp shuffles must all take the fast path (the decode
 # reduces each key row's scores across the warp, the fused int8 GEMM each
 # row's absmax); F32_FAST_SHUFFLE: the same of F32_ROUTES (the f32 flash
-# forward reduces each row's max over 8 lanes)
+# forward reduces each row's max over 8 lanes; the backward kernels vote
+# on their causal skips)
 FAST_SHUFFLE_KERNELS = ("paged_decode", "fused_quantized_matmul")
-F32_FAST_SHUFFLE = ("flash_attention",)
+F32_FAST_SHUFFLE = ("flash_attention", "flash_attention_dkdv",
+                    "flash_attention_dq")
+# __global__ functions whose ptxas report must show no spills: the f32
+# conv and the f32 flash backward, redesigned to keep their sums in
+# registers
+NO_SPILL_FUNCTIONS = ("conv_f32_tc_kernel", "f3221flash_bwd_dkdv_kernel",
+                      "f3219flash_bwd_dq_kernel")
 
 
 def emit(obj):
@@ -321,17 +342,40 @@ def mma_route(funcs, function):
             "collective_syncs": collective}
 
 
+def check_no_spills(built):
+    """Raise unless each of :data:`NO_SPILL_FUNCTIONS` has instances in
+    the ``-Xptxas -v`` reports and every one reports 0 bytes of spill
+    stores and loads."""
+    seen = set()
+    for r in built.values():
+        fn = None
+        for ln in r.ptxas.splitlines():
+            if "Compiling entry function" in ln:
+                fn = ln.split("'")[1] if ln.count("'") >= 2 else ln
+            elif "spill" in ln and fn:
+                for k in NO_SPILL_FUNCTIONS:
+                    if k not in fn:
+                        continue
+                    seen.add(k)
+                    if "0 bytes spill stores, 0 bytes spill loads" not in ln:
+                        raise AssertionError(f"{fn} spills: {ln.strip()}")
+    if seen != set(NO_SPILL_FUNCTIONS):
+        raise AssertionError("no ptxas report of "
+                             f"{set(NO_SPILL_FUNCTIONS) - seen}")
+
+
 def phase_sass(built):
     """Each kernel's multiply route from the built libraries' SASS; fails
     unless the bf16 routes of conv2d and the flash forward and backward,
     the fused bottleneck and the fused int8 GEMM run on the tensor
-    cores, unless conv2d (bf16) and conv2d_int8 run on ``wgmma``, and
-    unless the paged decode, the fused int8 GEMM and the f32 flash
-    forward are free of ``WARPSYNC.COLLECTIVE`` (slow-path shuffles).
-    The paged kernels, the optimizers, ``quantized_matmul`` and the f32
-    routes read ``simt``; the paged kernels and the f32 flash forward by
-    design: the serving path is f32 (the tensor cores would mean TF32)
-    and the decode does ~4 flops a cache element."""
+    cores, unless conv2d (bf16 and f32) and conv2d_int8 run on
+    ``wgmma``, and unless the paged decode, the fused int8 GEMM and the
+    f32 flash forward and backward are free of ``WARPSYNC.COLLECTIVE``
+    (slow-path shuffles). The paged kernels, the optimizers,
+    ``quantized_matmul`` and the f32 flash routes read ``simt``; the
+    paged kernels and the f32 flash kernels by design: the f32 paths
+    stay on f32 FMAs (one TF32 product would break their tolerance) and
+    the decode does ~4 flops a cache element."""
     sass = {lib: sass_functions(r.path) for lib, r in built.items()}
     routes = {k: mma_route(sass[lib], fn)
               for k, (lib, fn) in MMA_FUNCTIONS.items()}
@@ -347,11 +391,11 @@ def phase_sass(built):
         if route["collective_syncs"]:
             raise AssertionError(f"{k}: {route['collective_syncs']} "
                                  "WARPSYNC.COLLECTIVE in its SASS")
-    for k in WGMMA_KERNELS:
-        if routes[k]["mma"] != "wgmma":
-            raise AssertionError(f"{k}: its main-path route reads "
-                                 f"{routes[k]['mma']}, not wgmma, in its "
-                                 f"SASS ({routes[k]['counts']})")
+    for k, route in [(k, routes[k]) for k in WGMMA_KERNELS] + \
+            [(f"{k} (f32 route)", f32[k]) for k in F32_WGMMA]:
+        if route["mma"] != "wgmma":
+            raise AssertionError(f"{k}: reads {route['mma']}, not wgmma, in "
+                                 f"its SASS ({route['counts']})")
     return routes, f32
 
 
@@ -695,7 +739,7 @@ def phase_kernels(torch):
     phase_inference_kernels(torch, record, err, results)
     phase_block_kernels(torch, record, err, results)
     # conv2d and the flash kernels: the line's numbers are the bf16
-    # (tensor-core) route's, the f32 (SIMT) route's sit under f32_route
+    # route's, the f32 route's sit under f32_route
     for k, bf, f32 in (("flash_attention", "bfloat16", "float32"),
                        ("flash_attention_dkdv", "bfloat16", "float32"),
                        ("flash_attention_dq", "bfloat16", "float32"),
@@ -911,8 +955,7 @@ def phase_training_kernels(torch, record, err, results):
                float(dense[i].abs().max()))
     del got, leaves, dense
     torch.cuda.empty_cache()
-    # the bf16 (tensor-core) route at the main path's shape; the f32
-    # (SIMT) route at B=8, its time kept under f32_route
+    # the bf16 (tensor-core) route at the main path's shape
     for kernel, t in _bwd_timing(torch, FA, q, k, v, o, lse, do).items():
         results[kernel].update(
             t, shape=f"B={B} H={H} Hkv={HKV} T={S} D={D} bf16 causal")
@@ -920,15 +963,57 @@ def phase_training_kernels(torch, record, err, results):
             key: results[kernel][key] for key in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "tflops",
                 "bound_ratio", "library_ratio", "shape")}})
+    # the f32 route at the main path's shape too (the default float32
+    # policy's), on f32 inputs: forward and backward against their plain
+    # versions, then timed
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
-    B32 = 8
-    q, do = randn(B32, H, S, D), randn(B32, H, S, D)
-    k, v = randn(B32, HKV, S, D), randn(B32, HKV, S, D)
+    qf, dof = randn(B, H, S, D), randn(B, H, S, D)
+    kf, vf = randn(B, HKV, S, D), randn(B, HKV, S, D)
+    of, lsef = FA.flash_attention_fwd(qf, kf, vf, causal=True)
+    ro, rlse = FA.flash_attention_plain(qf, kf, vf, True)
+    torch.cuda.synchronize()
+    shape = f"float32 causal=True Tq={S} Tk={S} D={D} B={B}"
+    record("flash_attention", "o " + shape, err(of, ro), "float32")
+    record("flash_attention", "lse " + shape, err(lsef, rlse), "float32")
+    del ro, rlse
+    torch.cuda.empty_cache()
+    got = FA.flash_attention_bwd(qf, kf, vf, of, lsef, dof, causal=True)
+    plain = FA.flash_attention_bwd_plain(qf, kf, vf, of, lsef, dof, True)
+    torch.cuda.synchronize()
+    for i, part in enumerate(("dq", "dk", "dv")):
+        kernel = "flash_attention_dq" if part == "dq" else \
+            "flash_attention_dkdv"
+        record(kernel, f"{part} {shape}", err(got[i], plain[i]), "float32")
+    del got, plain
+    torch.cuda.empty_cache()
+    b64 = _bwd_timing(torch, FA, qf, kf, vf, of, lsef, dof)
+    del qf, kf, vf, dof, of, lsef
+    torch.cuda.empty_cache()
+    # ... and at B=8, where earlier PRs timed it: the kernels line's
+    # f32_route
+    B8 = 8
+    q, do = randn(B8, H, S, D), randn(B8, H, S, D)
+    k, v = randn(B8, HKV, S, D), randn(B8, HKV, S, D)
     o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "tflops", "bound_ratio", "library_ratio")
     for kernel, t in _bwd_timing(torch, FA, q, k, v, o, lse, do).items():
         results[kernel]["f32_route"] = dict(
-            t, shape=f"B={B32} H={H} Hkv={HKV} T={S} D={D} f32 causal")
+            t, shape=f"B={B8} H={H} Hkv={HKV} T={S} D={D} f32 causal",
+            b64=dict({key: b64[kernel][key] for key in keys},
+                     shape=f"B={B} H={H} Hkv={HKV} T={S} D={D} f32 "
+                           "causal"))
+    for b, by in ((B8, {k_: results[k_]["f32_route"] for k_ in b64}),
+                  (B, b64)):
+        ms = sum(t["ms"] for t in by.values())
+        lib = by["flash_attention_dq"]["library_ms"]
+        emit({"phase": "kernels", "kernel": "flash_attention_bwd",
+              "f32_summed": {"batch": b, "ms": ms, "library_ms": lib,
+                             "library_ratio": ms / lib,
+                             "bound_ms": sum(t["bound_ms"]
+                                             for t in by.values()),
+                             **{k_: t["ms"] for k_, t in by.items()}}})
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     _check_reference_conv_grads(torch, record, err)
@@ -1055,8 +1140,8 @@ def phase_inference_kernels(torch, record, err, results):
         return torch.rand(n, generator=g, device=dev) * 1e-2 + 1e-3
 
     B = INFER_B
-    per = {k: [] for k in ("conv2d", "conv2d_int8", "quantized_matmul",
-                           "fused_quantized_matmul")}
+    per = {k: [] for k in ("conv2d", "conv2d_f32", "conv2d_int8",
+                           "quantized_matmul", "fused_quantized_matmul")}
     for h, c, k, o, s in CONV_SHAPES:
         oh = -(-h // s)
         shape = f"{h}x{h} {c}->{o} {k}x{k} stride {s}"
@@ -1095,25 +1180,54 @@ def phase_inference_kernels(torch, record, err, results):
                                           t["library_ms"])))
         emit({"phase": "kernels", "kernel": "conv2d",
               "timing": per["conv2d"][-1]})
-        if (h, c, k, o, s) == CONV_F32_TIMED:
-            # the f32 route (SIMT body) keeps a time on record
-            # beside one f32 F.conv2d (TF32 is off for the whole run)
-            xf, wf = x.float(), w.float()
-            xnf, wnf = xf.permute(0, 3, 1, 2), wn.float()
-            b_f = bound(4 * (x_read + w.numel() + B * oh * oh * o), ops)
-            tf = timing(torch, "conv2d_kernel",
-                        lambda: CV.implicit_gemm_conv2d(xf, wf, (s, s)),
-                        lambda: CV.conv2d_plain(xf, wf, (s, s)),
-                        lambda: F.conv2d(xnf, wnf, stride=s,
-                                         padding=(k - 1) // 2), 5)
-            f32_route = dict(tf, shape=f"B={B} f32 {shape}",
-                             bound_ms=b_f[0], bound_by=b_f[1],
-                             **rates(ops, tf["ms"], b_f[0],
-                                     tf["library_ms"]))
-            emit({"phase": "kernels", "kernel": "conv2d",
-                  "timing_f32": f32_route})
-            del xf, wf, xnf, wnf
+        # the f32 route (3xTF32 on wgmma) at B=128 on f32 inputs (not
+        # bf16 ones: their TF32 split would leave no low part), against
+        # its plain version, then timed beside one f32 F.conv2d (TF32 is
+        # off for the whole run); its bound at the rate of the route it
+        # runs, three TF32 products a term, and the f32 FMA one beside it
         del x, w, xn, wn
+        torch.cuda.empty_cache()
+        xf, wf = randn(B, h, h, c, dtype=torch.float32), \
+            randn(k, k, c, o, dtype=torch.float32)
+        y = CV.implicit_gemm_conv2d(xf, wf, (s, s))
+        ref = CV.conv2d_plain(xf, wf, (s, s))
+        torch.cuda.synchronize()
+        mag = float(ref.abs().max())
+        record("conv2d", f"f32 B={B} {shape}", err(y, ref), "conv_f32", mag)
+        # control: one TF32 product a term (operands rounded to TF32,
+        # products exact, f32 sums) must fail the same gate
+        one = CV.conv2d_plain(tf32_round(torch, xf), tf32_round(torch, wf),
+                              (s, s))
+        torch.cuda.synchronize()
+        control = err(one, ref) / mag
+        emit({"phase": "kernels", "kernel": "conv2d", "control_single_tf32":
+              {"shape": f"B={B} f32 {shape}", "err_rel": control,
+               "tol": TOL["conv_f32"]}})
+        if not control > TOL["conv_f32"]:
+            raise AssertionError(f"conv2d f32 {shape}: one TF32 product "
+                                 f"({control}) passes the f32 gate")
+        del y, ref, one
+        xnf = xf.permute(0, 3, 1, 2)
+        wnf = wf.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        nbytes = 4 * (x_read + wf.numel() + B * oh * oh * o)
+        b_f = bound(nbytes, 3 * ops, PEAK_TF32_FLOPS)
+        tf = timing(torch, "conv_f32_tc_kernel",
+                    lambda: CV.implicit_gemm_conv2d(xf, wf, (s, s)),
+                    lambda: CV.conv2d_plain(xf, wf, (s, s)),
+                    lambda: F.conv2d(xnf, wnf, stride=s,
+                                     padding=(k - 1) // 2), 10)
+        plan = CV.conv_f32_plan(B * oh * oh, c, o)
+        per["conv2d_f32"].append(dict(
+            tf, shape=f"B={B} f32 {shape}", bound_ms=b_f[0],
+            bound_by=b_f[1], ops=ops, bound_fma_ms=bound(nbytes, ops)[0],
+            plan={"bm": plan.bm, "bn": plan.bn, "stages": plan.stages,
+                  "vec": plan.vec, "smem": plan.smem,
+                  "blocks": plan.blocks},
+            **rates(ops, tf["ms"], b_f[0], tf["library_ms"])))
+        emit({"phase": "kernels", "kernel": "conv2d",
+              "timing_f32": per["conv2d_f32"][-1]})
+        del xf, wf, xnf, wnf
         xq, wq, xs, ws = int8(B, h, h, c), int8(k, k, c, o), scales(B), \
             scales(o)
         # the K-major weight copy the kernel reads, made once per layer
@@ -1166,6 +1280,14 @@ def phase_inference_kernels(torch, record, err, results):
         torch.cuda.synchronize()
         record("conv2d", f"bf16 B={B} {shape}", err(y, ref), "conv_bf16",
                float(ref.float().abs().max()))
+        del x, w, y, ref
+        x, w = randn(B, h, h, c, dtype=torch.float32), \
+            randn(k, k, c, o, dtype=torch.float32)
+        y, ref = CV.implicit_gemm_conv2d(x, w, (s, s)), \
+            CV.conv2d_plain(x, w, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d", f"f32 B={B} {shape}", err(y, ref), "conv_f32",
+               float(ref.abs().max()))
         xq, wq, xs, ws = int8(B, h, h, c), int8(k, k, c, o), scales(B), \
             scales(o)
         y = CV.implicit_gemm_conv2d_int8(xq, wq, xs, ws, (s, s))
@@ -1249,6 +1371,20 @@ def phase_inference_kernels(torch, record, err, results):
         emit({"phase": "kernels", "kernel": name, "summed": {
             k: r[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                               "tflops", "bound_ratio", "library_ratio")}})
+    # the f32 route summed over the four shapes, bound at 3xTF32, with
+    # the f32 FMA bound beside it
+    f32_route = _sum_timing(per["conv2d_f32"])
+    f32_route.update(
+        rates(sum(t["ops"] for t in per["conv2d_f32"]), f32_route["ms"],
+              f32_route["bound_ms"], f32_route["library_ms"]),
+        shape=f"B={B} f32, the {len(CONV_SHAPES)} shapes summed",
+        bound_fma_ms=sum(t["bound_fma_ms"] for t in per["conv2d_f32"]))
+    f32_route["bound_fma_ratio"] = f32_route["bound_fma_ms"] / f32_route["ms"]
+    emit({"phase": "kernels", "kernel": "conv2d", "summed_f32": {
+        k: f32_route[k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_fma_ms",
+            "tflops", "bound_ratio", "bound_fma_ratio",
+            "library_ratio", "shape")}})
     results["conv2d"]["f32_route"] = f32_route
     for name in ("quantized_matmul", "fused_quantized_matmul"):
         # the kernels line carries the head's shape, the main path's
@@ -1408,6 +1544,35 @@ def plain_kernels():
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+def tf32_round(torch, t):
+    """f32 ``t`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    bits = (t.contiguous().view(torch.int32) + 0x1000) & -0x2000
+    return bits.view(torch.float32)
+
+
+@contextlib.contextmanager
+def single_tf32_plain(torch):
+    """The plain path (:func:`plain_kernels`) with the float conv routed
+    to a control of lower precision: one TF32 product a term (operands
+    rounded to TF32, f32 sums), the plain version's gradients passed
+    straight through the rounding."""
+    from zoo_tpu_torch.ops.kernels import conv as CV
+
+    def conv(x, w, strides=(1, 1), padding="SAME"):
+        def rounded(t):
+            return t + (tf32_round(torch, t.detach()) - t).detach()
+        return CV.conv2d_plain(rounded(x), rounded(w), strides, padding)
+
+    with plain_kernels():
+        saved = CV.implicit_gemm_conv2d
+        CV.implicit_gemm_conv2d = conv
+        try:
+            yield
+        finally:
+            CV.implicit_gemm_conv2d = saved
 
 
 def redraw_batchnorm(torch, params, seed):
@@ -1582,7 +1747,7 @@ def phase_infer_main(torch, K, card):
             n = name.lower()
             label = ("conv2d_int8" if "conv_i8_tc_kernel" in n else
                      "conv2d" if "conv_tc_kernel" in n
-                     or "conv2d_kernel" in n else
+                     or "conv_f32_tc_kernel" in n else
                      "int8_gemm" if "qmm_kernel" in n else
                      "cudnn_conv" if "conv" in n or "cudnn" in n
                      or "xmma" in n or "implicit" in n else
@@ -1753,12 +1918,15 @@ def phase_train_image_tiny(torch, K):
     x = rs.randn(8, 32, 32, 3).astype(np.float32)
     y = rs.randint(0, 10, 8).astype(np.int32)
     out = {}
-    for label in ("kernels", "plain"):
+    # the control: the plain path with one TF32 product a conv term, a
+    # lower precision than the f32 route's, which the gate must refuse
+    for label, ctx in (("kernels", contextlib.nullcontext),
+                       ("plain", plain_kernels),
+                       ("single_tf32", lambda: single_tf32_plain(torch))):
         m.compile(SGD(lr=0.1, momentum=0.9),
                   "sparse_categorical_crossentropy")
         m.params = tree_map(torch.clone, start)
-        with (plain_kernels() if label == "plain"
-              else contextlib.nullcontext()):
+        with ctx():
             K.reset_launch_counts()
             hist = m.fit(x, y, batch_size=4, nb_epoch=2, shuffle=True,
                          seed=0, verbose=0, device="cuda")
@@ -1767,14 +1935,21 @@ def phase_train_image_tiny(torch, K):
         out[label] = (hist["loss"], tree_leaves(m.params), counts)
     (lk, pk, ck), (lp, pp, cp) = out["kernels"], out["plain"]
     n_train = sum(1 for t in pk if t.requires_grad)
-    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
-    param_rel = max(float((a.detach() - b.detach()).norm()
-                          / b.detach().norm()) for a, b in zip(pk, pp))
+
+    def drift(losses, leaves):
+        return (max(abs(a - b) / abs(b) for a, b in zip(losses, lp)),
+                max(float((a.detach() - b.detach()).norm()
+                          / b.detach().norm()) for a, b in zip(leaves, pp)))
+
+    loss_rel, param_rel = drift(lk, pk)
+    control = drift(*out["single_tf32"][:2])
     moved = min(float((a.detach() - b).abs().max())
                 for a, b in zip(pk, tree_leaves(start)))
     emit({"phase": "train-image-tiny", "loss_kernels": lk, "loss_plain": lp,
           "loss_max_rel": loss_rel, "param_and_stat_max_rel": param_rel,
           "least_leaf_move": moved, "tol": TOL_TRAIN_TINY,
+          "control_single_tf32": {"loss_max_rel": control[0],
+                                  "param_and_stat_max_rel": control[1]},
           "launches": {k: ck[k] for k in ("conv2d", "fused_sgd")},
           "launches_plain": {k: cp[k] for k in ("conv2d", "fused_sgd")}})
     if not (np.isfinite(lk).all() and loss_rel <= TOL_TRAIN_TINY
@@ -1782,6 +1957,9 @@ def phase_train_image_tiny(torch, K):
         raise AssertionError(f"train-image-tiny: kernel path differs from "
                              f"plain: loss {loss_rel}, params {param_rel}, "
                              f"least move {moved}")
+    if not max(control) > TOL_TRAIN_TINY:
+        raise AssertionError(f"train-image-tiny: one TF32 product a conv "
+                             f"term ({control}) passes the gate")
     steps = 4
     if (ck["conv2d"], ck["fused_sgd"]) != (n_conv * steps,
                                            n_train * steps) \
@@ -1868,28 +2046,11 @@ def phase_train_image_main(torch, K, card):
             and np.isfinite(ev["loss"])):
         raise AssertionError(f"train-image-main: evaluate gave {ev}")
 
-    def group(name):
-        n = name.lower()
-        if "conv_tc_kernel" in n or "conv2d_kernel" in n:
-            return "conv2d_kernel"
-        if "sgd_kernel" in n:
-            return "fused_sgd"
-        if any(k in n for k in ("conv", "cudnn", "xmma", "implicit",
-                                "dgrad", "wgrad", "fprop")):
-            return "cudnn_conv"
-        if "memcpy" in n.replace(" ", ""):
-            return "copies"
-        if any(k in n for k in ("gemm", "gemv", "cutlass", "nvjet")):
-            return "matmul"
-        return "elementwise"
-
     xb, yb = x[:B], y[:B]
     t = timed(torch, lambda: m.fit(xb, yb, batch_size=B, nb_epoch=1,
                                    shuffle=False, verbose=0, device="cuda"),
               3, warmup=1)
-    groups = {}
-    for name, ms in t["by_name"].items():
-        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    groups = _grouped(t["by_name"], _image_group)
     top = sorted(t["by_name"].items(), key=lambda kv: -kv[1])[:12]
     emit({"phase": "train-image-step", "card": card, "steps": 3,
           "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
@@ -2008,26 +2169,10 @@ def phase_train_main(torch, K, card):
         if counts[k] <= 0:
             raise AssertionError(f"train-main: {k} never launched")
 
-    def group(name):
-        n = name.lower()
-        for key, label in (("flash_fwd_tc_kernel", "flash_fwd"),
-                           ("flash_fwd_kernel", "flash_fwd"),
-                           ("flash_bwd_dkdv", "flash_dkdv"),
-                           ("flash_bwd_dq", "flash_dq"),
-                           ("adam_kernel", "fused_adam")):
-            if key in n:
-                return label
-        if any(s in n for s in ("gemm", "gemv", "cutlass", "matmul",
-                                "xmma", "nvjet")):
-            return "matmul"
-        return "other"
-
     t = timed(torch, lambda: m.fit(*batch, batch_size=B, nb_epoch=1,
                                    shuffle=False, verbose=0, device="cuda"),
               3, warmup=1)
-    groups = {}
-    for name, ms in t["by_name"].items():
-        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    groups = _grouped(t["by_name"], _llama_group)
     top = sorted(t["by_name"].items(), key=lambda kv: -kv[1])[:16]
     emit({"phase": "step", "card": card, "steps": 3,
           "wall_ms": t["wall_ms"], "device_ms": t["device_ms"],
@@ -2037,6 +2182,167 @@ def phase_train_main(torch, K, card):
     return {k: counts[k] for k in ("flash_attention", "flash_attention_dkdv",
                                    "flash_attention_dq", "fused_adam",
                                    "fused_sgd")}
+
+
+def _llama_group(name):
+    """The kernel group of a device event of a Llama training step."""
+    n = name.lower()
+    for key, label in (("flash_fwd_tc_kernel", "flash_fwd"),
+                       ("flash_fwd_kernel", "flash_fwd"),
+                       ("flash_bwd_dkdv", "flash_dkdv"),
+                       ("flash_bwd_dq", "flash_dq"),
+                       ("adam_kernel", "fused_adam")):
+        if key in n:
+            return label
+    if any(s in n for s in ("gemm", "gemv", "cutlass", "matmul",
+                            "xmma", "nvjet")):
+        return "matmul"
+    return "other"
+
+
+def _image_group(name):
+    """The kernel group of a device event of a ResNet training step."""
+    n = name.lower()
+    if "conv_tc_kernel" in n or "conv_f32_tc_kernel" in n:
+        return "conv2d_kernel"
+    if "sgd_kernel" in n:
+        return "fused_sgd"
+    if any(k in n for k in ("conv", "cudnn", "xmma", "implicit",
+                            "dgrad", "wgrad", "fprop")):
+        return "cudnn_conv"
+    if "memcpy" in n.replace(" ", ""):
+        return "copies"
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "nvjet")):
+        return "matmul"
+    return "elementwise"
+
+
+def _grouped(by_name, group):
+    """Device ms per call summed by ``group(event name)``."""
+    groups = {}
+    for name, ms in by_name.items():
+        groups[group(name)] = groups.get(group(name), 0.0) + ms
+    return groups
+
+
+def phase_train_f32_main(torch, K, card):
+    """Keras ``fit`` under the default ``float32`` policy (``compile``
+    given no ``dtype_policy``) at full width and depth: the Llama training
+    config, then ResNet-50; each a warm-up step and TRAIN_F32_STEPS timed
+    steps on one batch, then a profile. Returns the path's launches."""
+    import numpy as np
+    from zoo_tpu_torch.models.image import resnet50
+    from zoo_tpu_torch.models.llm.llama import Llama, LlamaConfig
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    from zoo_tpu_torch.pipeline.api.keras.engine.topology import (
+        _split_state)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import (AdamWeightDecay,
+                                                             SGD)
+
+    steps = TRAIN_F32_STEPS
+    total = {}
+
+    def run(label, m, x, y, batch, flops_per_step, want, rate, unit,
+            group):
+        """Warm-up step, timed steps, checks and a profile of one model;
+        ``want`` maps kernel -> launches a step."""
+        t0 = time.perf_counter()
+        m.build(torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+        if m.dtype_policy != "float32":
+            raise AssertionError(f"train-f32-main {label}: policy "
+                                 f"{m.dtype_policy}, not the default")
+        m.fit(x[:batch], y[:batch], batch_size=batch, nb_epoch=1,
+              shuffle=False, verbose=0, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        xb, yb = x[batch:2 * batch], y[batch:2 * batch]
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = m.fit(xb, yb, batch_size=batch, nb_epoch=steps,
+                     shuffle=False, verbose=0, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        losses = hist["loss"]
+        step_s = wall / steps
+        emit({"phase": "train-f32-main", "model": label,
+              "policy": "float32 (compile's default)", "card": card,
+              "batch": batch, "steps": steps, "setup_s": setup_s,
+              "wall_s": wall, "step_ms": step_s * 1e3,
+              unit: rate / step_s,
+              "tflops_per_s": flops_per_step / step_s / 1e12,
+              "mfu_f32": flops_per_step / step_s / PEAK_F32_FLOPS,
+              "losses": losses,
+              "launches_per_step": {k: v / steps for k, v in
+                                    counts.items() if v},
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"train-f32-main {label}: losses {losses}")
+        got = {k: counts[k] for k in want}
+        if got != {k: n * steps for k, n in want.items()}:
+            raise AssertionError(f"train-f32-main {label}: launches {got}, "
+                                 f"expected {want} a step")
+        t = timed(torch, lambda: m.fit(xb, yb, batch_size=batch,
+                                       nb_epoch=1, shuffle=False,
+                                       verbose=0, device="cuda"),
+                  2, warmup=0)
+        emit({"phase": "train-f32-step", "model": label, "card": card,
+              "steps": 2, "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
+              "device_ms": t["device_ms"],
+              "device_busy_share": t["device_busy_share"],
+              "device_ms_by_group": _grouped(t["by_name"], group),
+              "top_device_ms": [[k[:80], v] for k, v in sorted(
+                  t["by_name"].items(), key=lambda kv: -kv[1])[:10]]})
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # the Llama training config (bench.py bench_llama), f32
+    cfg = LlamaConfig(**TRAIN_CFG)
+    B, S = TRAIN_B, TRAIN_S
+    m = Sequential().add(Llama(cfg, remat="dots", input_shape=(S,)))
+    m.compile(optimizer=AdamWeightDecay(lr=1e-4, fused=True), loss=LOSS)
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab, (2 * B, S)).astype(np.int32)
+    h, kv = cfg.hidden, cfg.n_kv_head * cfg.head_dim
+    fwd_per_token = cfg.n_block * (
+        2 * (h * h * 2 + 2 * h * kv) + 2 * 3 * h * cfg.intermediate
+        + 4 * S * h) + 2 * h * cfg.vocab            # bench.py:447-453
+    n_block = cfg.n_block
+    run("llama (bench.py bench_llama, S=512, B=64, remat=dots)", m, ids,
+        np.roll(ids, -1, axis=1), B, 3 * fwd_per_token * S * B,
+        {"flash_attention": n_block, "flash_attention_dkdv": n_block,
+         "flash_attention_dq": n_block}, B * S, "tokens_per_s",
+        _llama_group)
+    if m.layers[0].last_attention_impl != "flash":
+        raise AssertionError("train-f32-main: the Llama layer took "
+                             f"{m.layers[0].last_attention_impl}")
+    del m
+    torch.cuda.empty_cache()
+
+    # ResNet-50 (bench.py bench_resnet50), f32
+    B = TRAIN_IMG_B
+    m = resnet50(1000, (224, 224, 3))
+    m.compile(optimizer=SGD(lr=0.1, momentum=0.9),
+              loss="sparse_categorical_crossentropy")
+    rs = np.random.RandomState(0)                          # bench.py:379
+    x = rs.randn(2 * B, 224, 224, 3).astype(np.float32)
+    y = rs.randint(0, 1000, 2 * B).astype(np.int32)
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    n_conv = len(envelope_convs(m))
+    n_train = len(tree_leaves(_split_state(m.params)[0]))
+    run("resnet50(1000, (224, 224, 3)) (bench.py bench_resnet50, B=128, "
+        "SGD(0.1, 0.9))", m, x, y, B, 3 * RESNET50_FWD_FLOPS * B,
+        {"conv2d": n_conv, "fused_sgd": n_train}, B, "samples_per_s",
+        _image_group)
+    del m, x
+    torch.cuda.empty_cache()
+    return {k: total.get(k, 0) for k in (
+        "conv2d", "flash_attention", "flash_attention_dkdv",
+        "flash_attention_dq", "fused_adam", "fused_sgd")}
 
 
 def drive(engine, prompts, n_new, budget=600.0):
@@ -2262,6 +2568,7 @@ def main():
               "kernels": {k: {"reused": r.reused,
                               "ptxas": ptxas_lines(r.ptxas)}
                           for k, r in built.items()}})
+        check_no_spills(built)
         mma, f32_mma = phase_sass(built)
 
         timing = phase_kernels(torch)
@@ -2274,7 +2581,8 @@ def main():
                    "train": phase_train_main(torch, K, card),
                    "infer": phase_infer_main(torch, K, card),
                    "block": phase_bottleneck_main(torch, K, card),
-                   "train_image": phase_train_image_main(torch, K, card)}
+                   "train_image": phase_train_image_main(torch, K, card),
+                   "train_f32": phase_train_f32_main(torch, K, card)}
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"
@@ -2318,7 +2626,8 @@ def main():
                         "bound_by", "tflops", "bound_ratio",
                         "library_ratio", "shape", "max_abs_err")},
                     **{key: t["f32_route"][key] for key in (
-                        "plan", "device_launches_per_call")
+                        "plan", "device_launches_per_call",
+                        "bound_fma_ms", "bound_fma_ratio", "b64")
                        if key in t["f32_route"]},
                     mma=f32_mma[k]["mma"])}
                    if "f32_route" in t else {})})

@@ -428,6 +428,54 @@ def test_conv_kernels_match_plain(hopper, dtype, n, h, w, c, k, o, s,
     assert torch.equal(y, ref)
 
 
+# -- the f32 conv on the tensor cores (3xTF32) at its edges ---------------
+#
+# Against the plain version (cuDNN in f32, TF32 off) within 1e-5 of the
+# largest output, the f32 gate.
+
+@pytest.mark.parametrize("n,h,w,c,k,o,s,vec", [
+    (1, 5, 7, 64, 1, 64, 1, 4),      # B = 1, 35 rows: a ragged M tile
+    (2, 6, 6, 64, 3, 200, 1, 4),     # O = 200: a ragged N tile
+    (2, 7, 9, 40, 3, 72, 1, 4),      # C = 40: a ragged 32-channel step
+    (2, 6, 6, 10, 3, 16, 1, 1),      # C % 4 == 2: 4-byte copies
+    (1, 5, 6, 3, 3, 8, 1, 1),        # C = 3
+    (2, 6, 6, 16, 3, 33, 1, 1),      # odd O: element stores
+    (2, 9, 9, 128, 1, 130, 2, 1),    # 1x1 at stride 2; O % 4 == 2
+    (3, 7, 7, 130, 3, 96, 1, 1),     # C % 32 == 2 and C % 4 == 2
+    (2, 7, 7, 512, 3, 512, 1, 4)])   # ResNet-50's 7x7 512 -> 512 at B = 2
+def test_f32_conv_tensor_core_edges(hopper, n, h, w, c, k, o, s, vec):
+    from zoo_tpu_torch.ops.kernels import conv
+    g = _gen(hopper, 21)
+    x = torch.randn(n, h, w, c, generator=g, device=hopper)
+    wt = torch.randn(k, k, c, o, generator=g, device=hopper)
+    _, _, oh, ow = conv._spatial_pads(h, w, k, k, (s, s), "SAME")
+    assert conv.conv_f32_plan(n * oh * ow, c, o).vec == vec
+    before = conv.LAUNCHES
+    y = conv.implicit_gemm_conv2d(x, wt, (s, s))
+    ref = conv.conv2d_plain(x, wt, (s, s))
+    torch.cuda.synchronize()
+    assert conv.LAUNCHES == before + 1
+    assert y.shape == ref.shape and y.dtype == torch.float32
+    assert _rel_err(y, ref) <= 1e-5
+
+
+def test_f32_conv_on_an_unaligned_view(hopper):
+    """A contiguous view four bytes off a 16-byte boundary takes 4-byte
+    copies of the same kernel."""
+    from zoo_tpu_torch.ops.kernels import _launch as L
+    from zoo_tpu_torch.ops.kernels import conv
+    g = _gen(hopper, 22)
+    base = torch.randn(1 + 2 * 8 * 8 * 64, generator=g, device=hopper)
+    x = base[1:].view(2, 8, 8, 64)
+    wt = torch.randn(3, 3, 64, 64, generator=g, device=hopper)
+    assert L.alignment(x, wt) == 4
+    assert conv.conv_f32_plan(128, 64, 64, L.alignment(x, wt)).vec == 1
+    y = conv.implicit_gemm_conv2d(x, wt)
+    ref = conv.conv2d_plain(x, wt)
+    torch.cuda.synchronize()
+    assert _rel_err(y, ref) <= 1e-5
+
+
 # -- the bf16 tensor-core conv kernel at its edges ------------------------
 #
 # Against the plain version within 2**-7 of the largest output, as above:
@@ -669,6 +717,69 @@ def test_bf16_flash_backward_on_an_unaligned_view(hopper):
                                                   before[1] + 1)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         assert _err(a, b) <= TOL[bf16], name
+
+
+# -- the f32 flash backward at its edges ----------------------------------
+#
+# dK/dV and dQ of the f32 route against the plain version within 1e-4,
+# fed the f32 forward's o and lse (rows with no live column have
+# lse = -inf there and get no gradient from either), and against
+# autograd of the dense path where every row has a live column.
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("h,hkv,causal,tq,tk", [
+    (8, 8, True, 5, 5),         # rep 1, one ragged tile of either
+    (6, 2, True, 33, 130),      # rep 3, causal with Tq < Tk (end-aligned)
+    (8, 2, False, 100, 77),     # rep 4, Tq != Tk, T not a multiple of 64
+    (6, 2, True, 130, 45),      # Tq > Tk: rows whose lse is -inf
+    (4, 1, True, 192, 192),     # rep 4, whole tiles: the causal pairs
+    (8, 2, True, 257, 300)])    # an odd tile count: one tile unpaired
+def test_f32_flash_backward_edges(hopper, d, h, hkv, causal, tq, tk):
+    from zoo_tpu_torch.ops.attention import dense_attention
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 23)
+    q, do = (torch.randn(2, h, tq, d, generator=g, device=hopper)
+             for _ in "ab")
+    k, v = (torch.randn(2, hkv, tk, d, generator=g, device=hopper)
+            for _ in "ab")
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=causal)
+    before = (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert (FA.DKDV_LAUNCHES, FA.DQ_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all(), name
+        assert _err(a, b) <= TOL[torch.float32], name
+    empty = torch.isinf(lse)
+    assert bool(empty.any()) == (causal and tq > tk)
+    assert torch.all(got[0][empty] == 0)
+    if not empty.any():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        dense = torch.autograd.grad(
+            dense_attention(*leaves, causal=causal)[0], leaves, do)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dk", "dv"), got, dense):
+            assert _err(a, b) <= TOL[torch.float32], name
+
+
+def test_f32_flash_backward_on_an_unaligned_view(hopper):
+    """q and dO four bytes off a 16-byte boundary are copied to aligned
+    buffers for the f32 kernels."""
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 24)
+    q, do = (torch.randn(1 + 2 * H * 70 * 64, generator=g, device=hopper)
+             [1:].view(2, H, 70, 64) for _ in "ab")
+    k, v = (torch.randn(2, HKV, 70, 64, generator=g, device=hopper)
+            for _ in "ab")
+    assert q.data_ptr() % 16 == 4 and do.data_ptr() % 16 == 4
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _err(a, b) <= TOL[torch.float32], name
 
 
 @pytest.mark.parametrize("m,k,n", [(128, 2048, 1000), (5, 33, 70),

@@ -1,11 +1,12 @@
 """Launch plans of the port's hand-written kernels, on the CPU.
 
 ``conv_plan`` (the bf16 conv kernel, ``csrc/conv2d_tc.cuh``),
+``conv_f32_plan`` (the f32 conv kernel, ``csrc/conv2d_f32_tc.cuh``),
 ``conv_int8_plan`` (the int8 conv kernel, ``csrc/conv2d_int8_tc.cuh``),
 ``flash_plan`` (the bf16 flash forward, ``csrc/flash_attention_fwd.cu``),
 ``flash_f32_plan`` (the f32 flash forward, same file),
-``flash_bwd_plan`` (the bf16 flash backward,
-``csrc/flash_attention_bwd.cu``), ``fqmm_plan`` (the fused int8 GEMM,
+``flash_bwd_plan`` and ``flash_bwd_f32_plan`` (the bf16 and f32 flash
+backward, ``csrc/flash_attention_bwd.cu``), ``fqmm_plan`` (the fused int8 GEMM,
 ``csrc/quant_matmul.cu``), ``prefill_plan`` (the paged
 prefill, ``csrc/paged_prefill.cu``), ``decode_plan`` (the paged decode,
 ``csrc/paged_decode.cu``) and ``fused_block.plan`` (the fused
@@ -16,7 +17,8 @@ what a Hopper block can have and to the shapes the main paths give them: every
 in-envelope conv of the port's own ResNet-50 (as ``chip_smoke.py``
 enumerates them) at B=128, the ragged shapes of the card tests, and
 every head dim. The wrappers are driven with a stand-in C entry, so the
-order in which they pass the plan is checked too.
+order in which they pass the plan is checked too. The f32 conv's
+3xTF32 arithmetic is modelled here too, against a float64 conv.
 """
 
 import math
@@ -105,6 +107,165 @@ def test_conv_plan_narrows_the_copy_to_the_pointers(align, vec):
 def test_conv_plan_refuses_an_empty_conv():
     with pytest.raises(ValueError, match="empty"):
         CV.conv_plan(0, 64, 64)
+
+
+# -- the f32 conv as 3xTF32 (csrc/conv2d_f32_tc.cuh) -----------------------
+
+def _check_f32(plan, rows, c, o):
+    assert plan.smem <= MAX_SMEM
+    assert plan.m_tiles * plan.bm >= rows > (plan.m_tiles - 1) * plan.bm
+    assert plan.n_tiles * plan.bn >= o > (plan.n_tiles - 1) * plan.bn
+    assert c % plan.vec == 0 and o % plan.vec == 0
+    assert plan.copy_bytes == 4 * plan.vec in (16, 4)
+    # two warpgroups of 64 output channels x 128 pixels
+    assert plan.threads == 256 and plan.bm * plan.bn == 2 * 64 * 128
+    # ring slots of an activation tile and its TF32 lo part in 128-byte
+    # rows and a weight tile of 32 rows of bn + 8 floats, then 16 bytes of
+    # row origins a pixel and 1024 of slack to align the ring
+    stage = 2 * plan.bm * 128 + 32 * (plan.bn + 8) * 4
+    assert stage % 1024 == 0
+    assert plan.stages == (4 if plan.bn == 128 else 3)
+    assert plan.smem == 1024 + plan.stages * stage + 16 * plan.bm
+
+
+def test_every_resnet50_conv_gets_an_f32_plan(resnet50_convs):
+    for h, c, k, o, s in resnet50_convs:
+        oh = -(-h // s)
+        rows = B * oh * oh
+        plan = CV.conv_f32_plan(rows, c, o)
+        _check_f32(plan, rows, c, o)
+        assert plan.vec == 4, (h, c, k, o, s)
+        # O <= 64 is one 64-channel O tile of 256 pixels: the activation
+        # is read once
+        assert (plan.bm, plan.bn) == ((256, 64) if o <= 64 else (128, 128))
+
+
+@pytest.mark.parametrize("n,h,w,c,k,o,s,padding", RAGGED + [
+    (1, 7, 9, 40, 3, 200, 1, "SAME"), (1, 9, 9, 64, 1, 33, 2, "SAME")])
+def test_ragged_convs_get_an_f32_plan(n, h, w, c, k, o, s, padding):
+    _, _, oh, ow = CV._spatial_pads(h, w, k, k, (s, s), padding)
+    rows = n * oh * ow
+    plan = CV.conv_f32_plan(rows, c, o)
+    _check_f32(plan, rows, c, o)
+    # 16-byte copies only where both C and O are multiples of 4
+    assert plan.vec == (4 if c % 4 == 0 and o % 4 == 0 else 1)
+
+
+@pytest.mark.parametrize("align,vec", [(16, 4), (8, 1), (4, 1)])
+def test_f32_plan_narrows_the_copy_to_the_pointers(align, vec):
+    assert CV.conv_f32_plan(1000, 64, 64, align=align).vec == vec
+
+
+def test_f32_plan_refuses_an_empty_conv():
+    with pytest.raises(ValueError, match="empty"):
+        CV.conv_f32_plan(10, 0, 64)
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as the kernel rounds it (rna_tf32): half a unit
+    of the 13 dropped bits added to the magnitude, then the bits
+    masked."""
+    b = x.contiguous().view(torch.int32)
+    return ((b + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_rna_tf32_rounds_to_nearest_with_ties_away():
+    one = 1.0 + 2.0 ** -10                  # a TF32 number
+    half = 2.0 ** -11                       # half its last unit
+    x = torch.tensor([one, one + half, -(one + half), 1.0 + half,
+                      one + half * 0.99], dtype=torch.float32)
+    want = torch.tensor([one, one + 2 * half, -(one + 2 * half),
+                         1.0 + 2 * half, one], dtype=torch.float32)
+    assert torch.equal(_rna_tf32(x), want)
+    # hi + lo recovers x to within 2**-22 of it
+    rs = np.random.RandomState(0)
+    v = torch.tensor((rs.randn(10_000) * 10.0 ** rs.randint(-8, 8, 10_000))
+                     .astype(np.float32))
+    hi = _rna_tf32(v)
+    lo = _rna_tf32(v - hi)
+    rel = ((hi.double() + lo.double() - v.double()).abs()
+           / v.double().abs()).max()
+    assert float(rel) <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("shape", [(56, 256, 1, 64, 1), (28, 128, 3, 128, 1),
+                                   (56, 256, 1, 512, 2),
+                                   (7, 512, 3, 512, 1)])
+def test_3xtf32_conv_model_holds_the_f32_gate(shape):
+    """The f32 kernel's arithmetic in plain torch at chip_smoke.py's four
+    timed conv shapes, B=2: each operand split into TF32 hi and lo by bit
+    masks, the three products x_lo w_hi + x_hi w_lo + x_hi w_hi taken
+    exactly (float64) and rounded to f32 once, against the float64 conv.
+    The gate on the card is 1e-5 of the largest output; the model stays
+    under a twentieth of it, the margin the kernel's own f32 sums and
+    the plain version's rounding have to live in."""
+    import chip_smoke
+    assert shape in chip_smoke.CONV_SHAPES
+    h, c, k, o, s = shape
+    rs = np.random.RandomState(7)
+    x = torch.tensor(rs.randn(2, h, h, c).astype(np.float32))
+    w = torch.tensor(rs.randn(k, k, c, o).astype(np.float32))
+    xh, wh = _rna_tf32(x), _rna_tf32(w)
+    xl, wl = _rna_tf32(x - xh), _rna_tf32(w - wh)
+    pads = CV._pads(x, w, (s, s), "SAME")
+
+    def conv64(a, b):
+        return CV._conv_nhwc(a, b, (s, s), pads, torch.float64)
+
+    got = (conv64(xl, wh) + conv64(xh, wl) + conv64(xh, wh)).float()
+    ref = conv64(x, w)
+    rel = float((got.double() - ref).abs().max() / ref.abs().max())
+    assert rel <= 1e-5 / 20, rel
+    # and one TF32 product alone would not hold the gate
+    one = float((conv64(xh, wh) - ref).abs().max() / ref.abs().max())
+    assert one > 1e-5
+
+
+def _rz_f32(x: np.ndarray) -> np.ndarray:
+    """float64 -> f32 rounded toward zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _mma_chain(a, b, steps_per_chain):
+    """3xTF32 sums of a (M, K) x (K, N) product as the kernel takes them,
+    with the tensor cores modelled as exact 8-deep products added to
+    their accumulator rounded toward zero: chains of ``steps_per_chain``
+    8-deep steps (0: one chain over K) start from zero and are added to
+    an f32 sum by a rounding add."""
+    def tf32(v):
+        return _rna_tf32(torch.from_numpy(v)).numpy()
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    part = np.zeros_like(acc)
+    for step, k0 in enumerate(range(0, a.shape[1], 8)):
+        sl = slice(k0, k0 + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            prod = x[:, sl].astype(np.float64) @ y[sl].astype(np.float64)
+            part = _rz_f32(part.astype(np.float64) + prod)
+        if steps_per_chain and (step + 1) % steps_per_chain == 0:
+            acc, part = acc + part, np.zeros_like(acc)
+    return acc + part
+
+
+def test_3xtf32_short_chains_keep_truncation_off_the_gate():
+    """Why the kernel starts each 32-deep step's 12 products from zero:
+    the tensor cores' f32 accumulation truncates, and over one chain of
+    4608 terms (ResNet-50's 7x7 512 -> 512) its bias reaches several
+    times the steps' error; added in f32 step by step, the short chains'
+    errors of either sign stay far under the 1e-5 gate."""
+    rs = np.random.RandomState(3)
+    a = rs.randn(24, 9 * 512).astype(np.float32)
+    b = rs.randn(9 * 512, 24).astype(np.float32)
+    ref = a.astype(np.float64) @ b.astype(np.float64)
+    mag = np.abs(ref).max()
+    steps = float(np.abs(_mma_chain(a, b, 4) - ref).max() / mag)
+    one = float(np.abs(_mma_chain(a, b, 0) - ref).max() / mag)
+    assert steps <= 1e-5 / 10, steps
+    assert one > 5 * steps, (one, steps)
 
 
 @pytest.mark.parametrize("d", FA.HEAD_DIMS)
@@ -213,6 +374,94 @@ def test_flash_f32_schedule_covers_every_live_tile_once(tq, tk, causal):
         for b in blocks:
             assert sum(n for _, n in b) == (n_q + 1 if len(b) == 2
                                             else (n_q + 1) // 2)
+
+
+@pytest.mark.parametrize("d", FA.HEAD_DIMS)
+def test_flash_bwd_f32_plan_at_every_head_dim(d):
+    p = FA.flash_bwd_f32_plan(d, causal=True)
+    assert (p.block_q, p.block_k, p.threads, p.stages) == (64, 64, 256, 2)
+    tile = 64 * (d + 4) * 4          # a 64-row tile, rows of d + 4 floats
+    stats = 2 * 64 * 4               # the tile's lse and delta
+    buffers = 8 * 64 * 8 * 4         # each warp's 64 x 8 P/dS buffer
+    # dK/dV: K and V, then a 2-slot ring of Q, dO, lse, delta; dQ: Q, dO,
+    # lse, delta, then a 2-slot ring of K and V
+    assert p.dkdv_smem == 2 * tile + 2 * (2 * tile + stats) + buffers
+    assert p.dq_smem == 2 * tile + stats + 2 * 2 * tile + buffers
+    assert max(p.dkdv_smem, p.dq_smem) <= MAX_SMEM
+    assert p.pair == 1 and FA.flash_bwd_f32_plan(d).pair == 0
+
+
+def test_flash_bwd_f32_plan_refuses_other_head_dims():
+    with pytest.raises(ValueError, match="head_dim"):
+        FA.flash_bwd_f32_plan(40)
+
+
+def _bwd_f32_schedule(tq, tk, causal, plan):
+    """The f32 backward kernels' division of the work, as they compute
+    it (csrc/flash_attention_bwd.cu, f32::): for each block of each
+    kernel's grid x axis, the ``(tile, tiles of the other side)`` it
+    walks. dK/dV block x takes key tile x, then (paired) n-1-x, each
+    over the q tiles from the first one a row of which sees the key
+    tile; dQ block x takes q tile n-1-x, then (paired) x, each over the
+    key tiles up to its last live column."""
+    n_q, n_kt = -(-tq // plan.block_q), -(-tk // plan.block_k)
+    off = tk - tq
+    dkdv, dq = [], []
+    for x in range((n_kt + 1) // 2 if plan.pair else n_kt):
+        walk = []
+        for kt in [x] + ([n_kt - 1 - x] if plan.pair and x != n_kt - 1 - x
+                         else []):
+            first = kt * plan.block_k - off if causal else 0
+            qt0 = 0 if first <= 0 else first // plan.block_q
+            walk.append((kt, list(range(qt0, n_q))))
+        dkdv.append(walk)
+    for x in range((n_q + 1) // 2 if plan.pair else n_q):
+        walk = []
+        for qt in [n_q - 1 - x] + ([x] if plan.pair and x != n_q - 1 - x
+                                   else []):
+            n_k = n_kt
+            if causal:
+                last = qt * plan.block_q + plan.block_q - 1 + off
+                n_k = 0 if last < 0 else min(n_kt, last // plan.block_k + 1)
+            walk.append((qt, list(range(n_k))))
+        dq.append(walk)
+    return dkdv, dq
+
+
+def _live_q_tiles(kt, tq, tk, causal, bq=64, bk=64):
+    """The q tiles holding at least one row that sees a key of key tile
+    ``kt`` (end-aligned causal), counted from the mask."""
+    keys = range(kt * bk, min(tk, kt * bk + bk))
+    rows = [r for r in range(tq)
+            if any(not causal or c <= r + tk - tq for c in keys)]
+    return {r // bq for r in rows}
+
+
+@pytest.mark.parametrize("tq,tk", [(512, 512), (100, 300), (77, 333),
+                                   (130, 45), (33, 130), (1, 1),
+                                   (257, 300), (1024, 1024), (200, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_f32_schedule_covers_every_live_tile_once(tq, tk, causal):
+    plan = FA.flash_bwd_f32_plan(64, causal)
+    dkdv, dq = _bwd_f32_schedule(tq, tk, causal, plan)
+    n_q, n_kt = -(-tq // 64), -(-tk // 64)
+    # dK/dV: every key tile once, over exactly the q tiles that see it
+    walked = [t for blk in dkdv for t in blk]
+    assert sorted(kt for kt, _ in walked) == list(range(n_kt))
+    for kt, qts in walked:
+        assert set(qts) == _live_q_tiles(kt, tq, tk, causal)
+    # dQ: every q tile once, over exactly the key tiles it sees
+    walked = [t for blk in dq for t in blk]
+    assert sorted(qt for qt, _ in walked) == list(range(n_q))
+    for qt, kts in walked:
+        assert set(kts) == _live_key_tiles(qt, tq, tk, causal)
+    if causal and tq == tk:
+        # paired, every block walks n + 1 tiles of the other side; where n
+        # is odd, the middle tile stands alone and walks (n + 1) / 2
+        for sched, n in ((dkdv, n_kt), (dq, n_q)):
+            for blk in sched:
+                assert sum(len(t) for _, t in blk) == (
+                    n + 1 if len(blk) == 2 else (n + 1) // 2)
 
 
 # (m, k, n): the ResNet-50 head (bf16 and f32 x), bench_int8_matmul's,
@@ -362,10 +611,9 @@ def test_conv_wrapper_passes_the_plan(monkeypatch, dtype):
     assert len(args) == 3 + 18 + 1 and args[-1] == 7
     assert args[3] == L.DTYPE_CODES[dtype]
     assert args[4:17] == (128, 7, 7, 512, 3, 3, 512, 1, 1, 1, 1, 7, 7)
-    p = CV.conv_plan(128 * 49, 512, 512)
-    want = (p.bn, p.stages, p.vec, p.smem) \
-        if dtype == torch.bfloat16 else (0,) * 4
-    assert args[17:21] == want
+    planner = CV.conv_plan if dtype == torch.bfloat16 else CV.conv_f32_plan
+    p = planner(128 * 49, 512, 512)
+    assert args[17:21] == (p.bn, p.stages, p.vec, p.smem)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -425,23 +673,26 @@ def test_flash_bwd_wrapper_passes_the_plan(monkeypatch, dtype):
                                                   before[1] + 1)
     (a,), (b,) = dkdv.calls, dq.calls
     # 8 (dK/dV) or 7 (dQ) pointers, the shapes, scale, causal, dtype,
-    # the plan and the stream
+    # the plan (step, stages, smem) and the stream
     assert len(a) == 8 + 6 + 1 + 2 + 3 + 1 and len(b) == len(a) - 1
     for args, n in ((a, 8), (b, 7)):
         assert args[n:n + 6] == (2, 12, 4, 100, 100, 64)
         assert args[n + 7:n + 9] == (1, L.DTYPE_CODES[dtype])
         assert args[-1] == 7
-    p = FA.flash_bwd_plan(64)
-    bf16 = dtype == torch.bfloat16
-    assert a[-4:-1] == ((p.step, p.stages, p.dkdv_smem) if bf16
-                        else (0, 0, 0))
-    assert b[-4:-1] == ((p.step, p.stages, p.dq_smem) if bf16
-                        else (0, 0, 0))
+    if dtype == torch.bfloat16:
+        p = FA.flash_bwd_plan(64)
+        assert a[-4:-1] == (p.step, p.stages, p.dkdv_smem)
+        assert b[-4:-1] == (p.step, p.stages, p.dq_smem)
+    else:
+        p = FA.flash_bwd_f32_plan(64, causal=True)
+        assert a[-4:-1] == (64, 2, p.dkdv_smem)
+        assert b[-4:-1] == (64, 2, p.dq_smem)
 
 
 def test_flash_bwd_wrapper_copies_an_unaligned_input(monkeypatch):
-    # the bf16 kernels copy 16 bytes at a time: a q and a dO two bytes off
-    # a boundary reach them as aligned copies, aligned inputs as they are
+    # the kernels copy 16 bytes at a time: a q and a dO off a boundary
+    # (two bytes in bf16, four in f32) reach them as aligned copies,
+    # aligned inputs as they are
     dkdv, dq = _Entry(), _Entry()
     monkeypatch.setattr(FA, "_bwd_entries", lambda: (None, dkdv, dq))
     monkeypatch.setattr(L, "stream", lambda dev: 7)
@@ -453,10 +704,16 @@ def test_flash_bwd_wrapper_copies_an_unaligned_input(monkeypatch):
         assert args[0] % 16 == 0 and args[3] % 16 == 0
         assert args[0] != q.data_ptr() and args[3] != do.data_ptr()
         assert args[1:3] == (kv.data_ptr(),) * 2
-    # the f32 route takes no copy
+    # an aligned f32 input reaches the kernels as it is, an unaligned one
+    # as an aligned copy
     q32, kv32, lse32 = _bwd_inputs(torch.float32)
     FA.flash_attention_bwd(q32, kv32, kv32, q32, lse32, q32, causal=True)
     assert dkdv.calls[1][0] == q32.data_ptr()
+    u32 = _bwd_inputs(torch.float32, q_off=1)[0]
+    assert u32.data_ptr() % 16 == 4
+    FA.flash_attention_bwd(u32, kv32, kv32, u32, lse32, u32, causal=True)
+    for args in (dkdv.calls[2], dq.calls[2]):
+        assert args[0] % 16 == 0 and args[0] != u32.data_ptr()
 
 
 # -- the int8 conv on the int8 tensor cores (csrc/conv2d_int8_tc.cuh) -----

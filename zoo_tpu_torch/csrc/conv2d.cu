@@ -19,115 +19,19 @@
 // Three kernels:
 // - bf16: conv_tc::conv_tc_kernel (conv2d_tc.cuh), on the tensor cores
 //   (wgmma, a cp.async ring); its header says what bounds it.
-// - f32: conv2d_kernel below, on the SIMT units (f32 FMAs). Tensor cores
-//   would mean TF32, which keeps ~3 decimal digits where the f32 path is
-//   held to 1e-5; so it stays a SIMT kernel: 64 x 64 output tiles,
-//   32-deep slices staged in shared memory, a 4 x 4 register micro-tile
-//   per thread (zt_gemm.cuh).
+// - f32: conv_f32::conv_f32_tc_kernel (conv2d_f32_tc.cuh), on the tensor
+//   cores as 3xTF32 (wgmma on the transposed product y^T = w^T x^T, each
+//   f32 operand split into two TF32 numbers, short chains added in f32);
+//   its header says why that holds the f32 tolerance and what bounds it.
 // - int8: conv_i8::conv_i8_tc_kernel (conv2d_int8_tc.cuh), on the int8
 //   tensor cores (wgmma s8) over a K-major copy of the weights; its
 //   header says what bounds it. Epilogue: f32(acc) * xs[image] * ws[o],
 //   in that order, as _conv_kernel_q applies it (conv.py:139).
+#include "conv2d_f32_tc.cuh"
 #include "conv2d_int8_tc.cuh"
 #include "conv2d_tc.cuh"
-#include "zt_gemm.cuh"
 
 namespace zt {
-
-using namespace gemm;
-
-// The A rows this thread loads: per row its image (-1 past the last
-// row) and the top-left input pixel of its window, which may lie in the
-// halo.
-struct RowOrigins {
-  int img[kLoads], iy[kLoads], ix[kLoads];
-};
-
-__device__ __forceinline__ void row_origins(const ConvArgs& a, long long m0,
-                                            int r0, RowOrigins& ro) {
-  const long long rows = static_cast<long long>(a.n) * a.oh * a.ow;
-  const int hw = a.oh * a.ow;
-#pragma unroll
-  for (int i = 0; i < kLoads; ++i) {
-    const long long m = m0 + r0 + kARowStep * i;
-    if (m < rows) {
-      const int img = static_cast<int>(m / hw);
-      const int rem = static_cast<int>(m - static_cast<long long>(img) * hw);
-      const int oy = rem / a.ow, ox = rem - oy * a.ow;
-      ro.img[i] = img;
-      ro.iy[i] = oy * a.sh - a.ph;
-      ro.ix[i] = ox * a.sw - a.pw;
-    } else {
-      ro.img[i] = -1;
-      ro.iy[i] = ro.ix[i] = 0;
-    }
-  }
-}
-
-// Offset of input element (row origin i, tap (dy, dx), channel c), or
-// -1 where it lies in the halo, past the last row or past C.
-__device__ __forceinline__ long long x_offset(const ConvArgs& a,
-                                              const RowOrigins& ro, int i,
-                                              int dy, int dx, int c) {
-  const int iy = ro.iy[i] + dy, ix = ro.ix[i] + dx;
-  if (ro.img[i] < 0 || c >= a.c || iy < 0 || iy >= a.h || ix < 0 ||
-      ix >= a.w)
-    return -1;
-  return ((static_cast<long long>(ro.img[i]) * a.h + iy) * a.w + ix) * a.c +
-         c;
-}
-
-// Offset of weight element (tap, channel c, output o), or -1 outside.
-__device__ __forceinline__ long long w_offset(const ConvArgs& a, int tap,
-                                              int c, int o) {
-  if (c >= a.c || o >= a.o) return -1;
-  return (static_cast<long long>(tap) * a.c + c) * a.o + o;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kGemmThreads)
-    conv2d_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  T* __restrict__ y, ConvArgs a) {   // T = float only
-  __shared__ FloatTile t;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kBM;
-  const int n0 = blockIdx.y * kBN;
-  const int ak = tid % kBK, ar = tid / kBK;
-  const int bn = tid % kBN, bk = tid / kBN;
-  RowOrigins ro;
-  row_origins(a, m0, ar, ro);
-  float acc[4][4] = {};
-  for (int tap = 0; tap < a.kh * a.kw; ++tap) {
-    const int dy = tap / a.kw, dx = tap - (tap / a.kw) * a.kw;
-    for (int c0 = 0; c0 < a.c; c0 += kBK) {
-#pragma unroll
-      for (int i = 0; i < kLoads; ++i) {
-        const long long off = x_offset(a, ro, i, dy, dx, c0 + ak);
-        t.a[ak][ar + kARowStep * i] = off < 0 ? 0.f : to_f32(x[off]);
-      }
-#pragma unroll
-      for (int i = 0; i < kLoads; ++i) {
-        const int k = bk + kBRowStep * i;
-        const long long off = w_offset(a, tap, c0 + k, n0 + bn);
-        t.b[k][bn] = off < 0 ? 0.f : to_f32(w[off]);
-      }
-      __syncthreads();
-      fma_slice(t, tx, ty, acc);
-      __syncthreads();
-    }
-  }
-  const long long rows = static_cast<long long>(a.n) * a.oh * a.ow;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = m0 + ty + 16 * i;
-    if (m >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = n0 + tx + 16 * j;
-      if (o < a.o) y[m * a.o + o] = from_f32<T>(acc[i][j]);
-    }
-  }
-}
 
 inline bool valid(const ConvArgs& a) {
   return a.n > 0 && a.h > 0 && a.w > 0 && a.c > 0 && a.kh > 0 && a.kw > 0 &&
@@ -138,9 +42,9 @@ inline bool valid(const ConvArgs& a) {
 }  // namespace zt
 
 // Float conv: x (n, h, w, c) and wt (kh, kw, c, o) of dtype (0 = f32,
-// 1 = bf16), y (n, oh, ow, o) of the same dtype; all contiguous. bf16
-// takes the tensor-core kernel with the plan (bn, stages, vec, smem)
-// that conv_plan() gives; f32 takes the SIMT kernel and ignores the plan.
+// 1 = bf16), y (n, oh, ow, o) of the same dtype; all contiguous. The
+// plan (bn, stages, vec, smem) is conv_plan()'s for bf16 and
+// conv_f32_plan()'s for f32.
 extern "C" int zt_conv2d(const void* x, const void* wt, void* y, int dtype,
                          int n, int h, int w, int c, int kh, int kw, int o,
                          int sh, int sw, int ph, int pw, int oh, int ow,
@@ -152,12 +56,9 @@ extern "C" int zt_conv2d(const void* x, const void* wt, void* y, int dtype,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16)
     return conv_tc::conv2d_bf16(x, wt, y, a, bn, stages, vec, smem, s);
-  if (dtype != kF32) return cudaErrorInvalidValue;
-  const dim3 grid = grid_for(static_cast<long long>(n) * oh * ow, o);
-  conv2d_kernel<float><<<grid, kGemmThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wt),
-      static_cast<float*>(y), a);
-  return cudaGetLastError();
+  if (dtype == kF32)
+    return conv_f32::conv2d_f32(x, wt, y, a, bn, stages, vec, smem, s);
+  return cudaErrorInvalidValue;
 }
 
 // Int8 conv: x (n, h, w, c) int8, wk (o, kh * kw * c) int8, the K-major

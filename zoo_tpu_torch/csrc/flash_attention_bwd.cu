@@ -63,299 +63,51 @@
 // passed here; an entry launches the instance compiled for them and
 // checks the shared memory only against the block limit.
 //
-// f32: flash_bwd_dkdv_kernel and flash_bwd_dq_kernel, on the SIMT units
-// (f32 FMAs; the tensor cores would mean TF32, outside the f32
-// tolerance):
-// - The TPU grid carries dK/dV in scratch across its sequential (rep,
-//   q block) axes. Here one block owns one (batch, kv head, k tile) and
-//   loops over the rep query heads and, inside, over the q tiles from
-//   the first one that can see the k tile; dK/dV stay in registers and
-//   are written once.
-// - One dQ block owns one (batch, q head, 64-row q tile) and loops over
-//   the k tiles up to the causal limit, dQ in registers.
-// - Each 128-thread block holds its tiles in shared memory (rows padded
-//   by one float, so the strided reads stay off bank conflicts); a
-//   thread owns an 8 x (BK/16) block of scores and of the gradient tile
-//   it accumulates. S and dP share one pass over D.
+// f32: f32::flash_bwd_dkdv_kernel and f32::flash_bwd_dq_kernel, on the
+// SIMT units (f32 FMAs; one TF32 product keeps ~3 decimal digits, outside
+// the f32 tolerance). At the training shape in f32 the two do 14*D flops
+// a live pair, 90.4 GFLOP against ~0.44 GB, ~200 flops a byte:
+// operations, far above the f32 balance (67 TFLOP/s over 3.35 TB/s =
+// 20). The design is the f32 forward's
+// (flash_attention_fwd.cu, f32::flash_fwd_kernel), which keeps the FMA
+// pipes fed:
+// - dK/dV: one block of 8 warps per (batch, kv head, 64-key tile); warp
+//   w owns keys 8w .. 8w+7 of the tile in both of its products. The K
+//   and V tiles are loaded once; the block loops over the rep query
+//   heads and, inside, over the q tiles from the first one that can see
+//   the key tile; each 64-row q tile, its dO tile and their lse and delta
+//   stream through a 2-slot 16-byte cp.async ring (one block barrier a
+//   tile). S^T and dP^T for the warp's keys over the tile's 64 rows come
+//   out of one pass over D: a thread owns 4 rows x 4 keys of each and
+//   reads Q, dO, K and V as float4 along d. P^T goes to a buffer of the
+//   warp's own (64 rows x 8 keys) behind __syncwarp for dV += P^T dO,
+//   then dS^T takes its place for dK += dS^T Q; a thread owns 4 keys x
+//   D/16 columns of dK and dV, in registers until the key tile ends.
+// - dQ: one block of 8 warps per (batch*head, 64-row q tile); warp w
+//   owns q rows 8w .. 8w+7. The Q and dO tiles and their lse and delta
+//   are loaded once; K and V tiles stream through the ring up to the
+//   causal limit. S and dP for the warp's rows over the tile's 64 keys
+//   in one pass over D (4 rows x 4 keys a thread); dS goes to the warp's
+//   buffer (64 keys x 8 rows) behind __syncwarp for dQ += dS K.
+// - Q, K, V and dO rows are padded by 16 bytes, so float4 reads of 8
+//   neighbouring rows at one column fall in 8 different bank groups.
+// - A warp whose rows and keys are wholly apart by the causal mask
+//   skips the tile, through a vote (no shuffle sits under a branch the
+//   compiler cannot prove uniform); masks are applied only on edge
+//   tiles.
+// - Causal work is balanced: a block takes two tiles, the heaviest and
+//   the lightest left (key tiles x and n-1-x for dK/dV, q tiles n-1-x
+//   and x for dQ), so every block walks n+1 tiles of the other side.
+// - p is taken as 2^(s * scale * log2 e - lse * log2 e) by ex2.approx,
+//   as the bf16 route takes it.
+// The plan (tile rows, threads, slots, shared memory, the pairing) is
+// counted by flash_bwd_f32_plan() in ops/kernels/flash_attention.py; the
+// tile rows, slots and bytes are passed here, the pairing follows from
+// causal. An entry refuses other tiles and checks the bytes only against
+// the block limit.
 #include "zt_mma.cuh"
 
 namespace zt {
-
-constexpr int kBwdThreads = 128;   // 8 row groups x 16 column lanes
-constexpr int kBwdBQ = 64;         // query rows per tile
-
-// key rows per tile: 64, or 32 at D = 128 to keep the accumulators in
-// registers
-template <int D>
-__host__ __device__ constexpr int bwd_bk() {
-  return D > 64 ? 32 : 64;
-}
-
-template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  constexpr int BK = bwd_bk<D>();
-  return sizeof(float) * (2 * BK * (D + 1) + 2 * kBwdBQ * (D + 1) +
-                          2 * kBwdBQ * (BK + 1) + 2 * kBwdBQ);
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  constexpr int BK = bwd_bk<D>();
-  return sizeof(float) * (2 * BK * (D + 1) + 2 * kBwdBQ * (D + 1) +
-                          kBwdBQ * (BK + 1) + 2 * kBwdBQ);
-}
-
-// Rows [r0, r0 + rows) of a (T, D) matrix into shared memory (row stride
-// D + 1), widened to f32; rows at or past T read as zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, int r0,
-                                          int rows, int T_len, float* dst) {
-  for (int i = threadIdx.x; i < rows * D; i += kBwdThreads) {
-    const int r = i / D, d = i % D;
-    dst[r * (D + 1) + d] =
-        r0 + r < T_len ? to_f32(src[static_cast<size_t>(r0 + r) * D + d])
-                       : 0.f;
-  }
-}
-
-// lse and delta of q rows [q0, q0 + kBwdBQ): rows past Tq get lse = -inf,
-// which masks them.
-__device__ __forceinline__ void load_row_stats(const float* __restrict__ lse,
-                                               const float* __restrict__ delta,
-                                               int q0, int Tq, float* lse_s,
-                                               float* delta_s) {
-  for (int i = threadIdx.x; i < kBwdBQ; i += kBwdThreads) {
-    const bool in = q0 + i < Tq;
-    lse_s[i] = in ? lse[q0 + i] : -INFINITY;
-    delta_s[i] = in ? delta[q0 + i] : 0.f;
-  }
-}
-
-// One (kBwdBQ x BK) tile: this thread's scores at rows tr + 8i, columns
-// tc + 16j; writes p (if kWriteP) and ds, rounded to T, into ps / dss
-// (row stride BK + 1).
-template <typename T, int D, int BK, bool kWriteP>
-__device__ __forceinline__ void tile_p_ds(
-    const float* qs, const float* dos, const float* ks, const float* vs,
-    const float* lse_s, const float* delta_s, float* ps, float* dss, int q0,
-    int k0, int Tk, int off, int causal, float scale) {
-  constexpr int LD = D + 1, LP = BK + 1, NI = kBwdBQ / 8, NJ = BK / 16;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  float s[NI][NJ], dp[NI][NJ];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float a[NI], o[NI], kk[NJ], vv[NJ];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      a[i] = qs[(tr + 8 * i) * LD + d];
-      o[i] = dos[(tr + 8 * i) * LD + d];
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      kk[j] = ks[(tc + 16 * j) * LD + d];
-      vv[j] = vs[(tc + 16 * j) * LD + d];
-    }
-#pragma unroll
-    for (int i = 0; i < NI; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        s[i][j] = fmaf(a[i], kk[j], s[i][j]);
-        dp[i][j] = fmaf(o[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int r = tr + 8 * i, row = q0 + r;
-    const float lse = lse_s[r], delta = delta_s[r];
-    const bool row_live = lse != -INFINITY;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = tc + 16 * j, col = k0 + c;
-      const bool live =
-          row_live && col < Tk && (!causal || col <= row + off);
-      const float p = live ? expf(s[i][j] * scale - lse) : 0.f;
-      const float ds = p * (dp[i][j] - delta) * scale;
-      if (kWriteP) ps[r * LP + c] = to_f32(from_f32<T>(p));
-      dss[r * LP + c] = to_f32(from_f32<T>(ds));
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          T* __restrict__ dk, T* __restrict__ dv, int H,
-                          int Hkv, int Tq, int Tk, float scale, int causal) {
-  constexpr int BK = bwd_bk<D>(), LD = D + 1, LP = BK + 1;
-  constexpr int NR = BK / 8, NC = D / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;                    // BK x LD
-  float* vs = ks + BK * LD;            // BK x LD
-  float* qs = vs + BK * LD;            // kBwdBQ x LD
-  float* dos = qs + kBwdBQ * LD;       // kBwdBQ x LD
-  float* ps = dos + kBwdBQ * LD;       // kBwdBQ x LP
-  float* dss = ps + kBwdBQ * LP;       // kBwdBQ x LP
-  float* lse_s = dss + kBwdBQ * LP;
-  float* delta_s = lse_s + kBwdBQ;
-
-  const int bkv = blockIdx.y, k0 = blockIdx.x * BK;
-  const int b = bkv / Hkv, g = bkv % Hkv, rep = H / Hkv;
-  const int off = Tk - Tq;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  const size_t kv_base = static_cast<size_t>(bkv) * Tk * D;
-
-  load_rows<T, D>(k + kv_base, k0, BK, Tk, ks);
-  load_rows<T, D>(v + kv_base, k0, BK, Tk, vs);
-
-  float dka[NR][NC], dva[NR][NC];
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dka[i][j] = dva[i][j] = 0.f;
-
-  // first q tile holding a row that sees a column of this k tile
-  const int first_row = causal ? k0 - off : 0;
-  const int qt0 = first_row <= 0 ? 0 : first_row / kBwdBQ;
-  const int n_q = (Tq + kBwdBQ - 1) / kBwdBQ;
-
-  for (int r = 0; r < rep; ++r) {
-    const int bh = b * H + g * rep + r;
-    const size_t q_base = static_cast<size_t>(bh) * Tq * D;
-    for (int qt = qt0; qt < n_q; ++qt) {
-      const int q0 = qt * kBwdBQ;
-      __syncthreads();   // the previous tile is consumed (k/v loaded)
-      load_rows<T, D>(q + q_base, q0, kBwdBQ, Tq, qs);
-      load_rows<T, D>(dout + q_base, q0, kBwdBQ, Tq, dos);
-      load_row_stats(lse + static_cast<size_t>(bh) * Tq,
-                     delta + static_cast<size_t>(bh) * Tq, q0, Tq, lse_s,
-                     delta_s);
-      __syncthreads();
-      tile_p_ds<T, D, BK, true>(qs, dos, ks, vs, lse_s, delta_s, ps, dss,
-                                q0, k0, Tk, off, causal, scale);
-      __syncthreads();
-      // dV += p^T dO and dK += ds^T q over the tile's rows
-#pragma unroll 2
-      for (int qr = 0; qr < kBwdBQ; ++qr) {
-        float pv[NR], dsv[NR], dov[NC], qv[NC];
-#pragma unroll
-        for (int i = 0; i < NR; ++i) {
-          pv[i] = ps[qr * LP + tr + 8 * i];
-          dsv[i] = dss[qr * LP + tr + 8 * i];
-        }
-#pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          dov[j] = dos[qr * LD + tc + 16 * j];
-          qv[j] = qs[qr * LD + tc + 16 * j];
-        }
-#pragma unroll
-        for (int i = 0; i < NR; ++i)
-#pragma unroll
-          for (int j = 0; j < NC; ++j) {
-            dva[i][j] = fmaf(pv[i], dov[j], dva[i][j]);
-            dka[i][j] = fmaf(dsv[i], qv[j], dka[i][j]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int row = k0 + tr + 8 * i;
-    if (row >= Tk) continue;
-    const size_t o = kv_base + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      dk[o + tc + 16 * j] = from_f32<T>(dka[i][j]);
-      dv[o + tc + 16 * j] = from_f32<T>(dva[i][j]);
-    }
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ dout,
-                        const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq,
-                        int H, int Hkv, int Tq, int Tk, float scale,
-                        int causal) {
-  constexpr int BK = bwd_bk<D>(), LD = D + 1, LP = BK + 1;
-  constexpr int NI = kBwdBQ / 8, NC = D / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;                    // kBwdBQ x LD
-  float* dos = qs + kBwdBQ * LD;       // kBwdBQ x LD
-  float* ks = dos + kBwdBQ * LD;       // BK x LD
-  float* vs = ks + BK * LD;            // BK x LD
-  float* dss = vs + BK * LD;           // kBwdBQ x LP
-  float* lse_s = dss + kBwdBQ * LP;
-  float* delta_s = lse_s + kBwdBQ;
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * kBwdBQ;
-  const int b = bh / H, hh = bh % H;
-  const int kvh = b * Hkv + hh / (H / Hkv);
-  const int off = Tk - Tq;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  const size_t q_base = static_cast<size_t>(bh) * Tq * D;
-  const size_t kv_base = static_cast<size_t>(kvh) * Tk * D;
-
-  load_rows<T, D>(q + q_base, q0, kBwdBQ, Tq, qs);
-  load_rows<T, D>(dout + q_base, q0, kBwdBQ, Tq, dos);
-  load_row_stats(lse + static_cast<size_t>(bh) * Tq,
-                 delta + static_cast<size_t>(bh) * Tq, q0, Tq, lse_s,
-                 delta_s);
-
-  float dqa[NI][NC];
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dqa[i][j] = 0.f;
-
-  int n_k = (Tk + BK - 1) / BK;
-  if (causal) {
-    const int last = q0 + kBwdBQ - 1 + off;   // highest live column here
-    n_k = last < 0 ? 0 : min(n_k, last / BK + 1);
-  }
-
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the previous tile is consumed (q/dO loaded)
-    load_rows<T, D>(k + kv_base, k0, BK, Tk, ks);
-    load_rows<T, D>(v + kv_base, k0, BK, Tk, vs);
-    __syncthreads();
-    tile_p_ds<T, D, BK, false>(qs, dos, ks, vs, lse_s, delta_s, nullptr,
-                               dss, q0, k0, Tk, off, causal, scale);
-    __syncthreads();
-    // dQ += ds k over the tile's columns
-#pragma unroll 2
-    for (int c = 0; c < BK; ++c) {
-      float dsv[NI], kv[NC];
-#pragma unroll
-      for (int i = 0; i < NI; ++i) dsv[i] = dss[(tr + 8 * i) * LP + c];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) kv[j] = ks[c * LD + tc + 16 * j];
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) dqa[i][j] = fmaf(dsv[i], kv[j], dqa[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < NI; ++i) {
-    const int row = q0 + tr + 8 * i;
-    if (row >= Tq) continue;
-    const size_t o = q_base + static_cast<size_t>(row) * D;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dq[o + tc + 16 * j] = from_f32<T>(dqa[i][j]);
-  }
-}
 
 struct BwdArgs {
   const void *q, *k, *v, *dout;
@@ -365,39 +117,464 @@ struct BwdArgs {
   int causal;
 };
 
-template <typename T, int D>
-cudaError_t launch_dkdv(const BwdArgs& a, void* dk, void* dv,
-                        cudaStream_t st) {
-  constexpr size_t smem = dkdv_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// 2^x on the special-function unit (-inf gives 0): p = exp(s * scale -
+// lse) is taken as 2^(s * scale * log2 e - lse * log2 e), one FFMA and
+// one MUFU.EX2 in place of expf's range reduction
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------ f32, SIMT
+
+namespace f32 {
+
+constexpr int kBQ = 64, kBK = 64, kWarps = 8, kThreads = 32 * kWarps;
+constexpr int kStages = 2;
+constexpr int kWK = kBK / kWarps;   // keys a dK/dV warp owns
+constexpr int kWQ = kBQ / kWarps;   // q rows a dQ warp owns
+
+template <int D>
+struct Layout {
+  static constexpr int LD = D + 4;        // floats a Q, K, V or dO row takes
+  static constexpr int U = D / 4;         // 16-byte units of a row
+  static constexpr int TILE = 64 * LD;    // floats of a 64-row tile
+  static constexpr int OC = D / 16;       // dK, dV or dQ columns of a thread
+  static constexpr int VW = OC < 4 ? OC : 4;   // ... read as vectors of VW
+  static constexpr int NV = OC / VW;
+};
+
+// rows [r0, r0 + 64) of a (T, D) f32 matrix into rows of D + 4 floats;
+// rows at or past T are zero-filled
+template <int D>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src,
+                                          int r0, int T) {
+  using Lt = Layout<D>;
+  for (int e = threadIdx.x; e < 64 * Lt::U; e += kThreads) {
+    const int r = e / Lt::U, u = e % Lt::U;
+    const bool ok = r0 + r < T;
+    mma::cp_async<16>(
+        mma::smem_addr(dst + r * Lt::LD + 4 * u),
+        ok ? src + static_cast<size_t>(r0 + r) * D + 4 * u : src, ok);
+  }
+}
+
+// lse and delta of q rows [q0, q0 + 64) of the head at `base` into
+// dst[0 .. 64) and dst[64 .. 128); rows past Tq read 0 (masked by row)
+__device__ __forceinline__ void copy_stats(float* dst, const float* lse,
+                                           const float* delta, size_t base,
+                                           int q0, int Tq) {
+  for (int e = threadIdx.x; e < 2 * kBQ; e += kThreads) {
+    const int r = e % kBQ;
+    const bool ok = q0 + r < Tq;
+    const float* src = e < kBQ ? lse : delta;
+    mma::cp_async<4>(mma::smem_addr(dst + e), ok ? src + base + q0 + r : src,
+                     ok);
+  }
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float c) {
+  c = fmaf(a.x, b.x, c);
+  c = fmaf(a.y, b.y, c);
+  c = fmaf(a.z, b.z, c);
+  return fmaf(a.w, b.w, c);
+}
+
+// acc[c] += s * (VW floats at p), c over one vector of a thread's columns
+template <int VW>
+__device__ __forceinline__ void axpy(float* acc, float s, const float* p) {
+  if constexpr (VW == 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p);
+    acc[0] = fmaf(s, w.x, acc[0]);
+    acc[1] = fmaf(s, w.y, acc[1]);
+    acc[2] = fmaf(s, w.z, acc[2]);
+    acc[3] = fmaf(s, w.w, acc[3]);
+  } else if constexpr (VW == 2) {
+    const float2 w = *reinterpret_cast<const float2*>(p);
+    acc[0] = fmaf(s, w.x, acc[0]);
+    acc[1] = fmaf(s, w.y, acc[1]);
+  } else {
+    acc[0] = fmaf(s, p[0], acc[0]);
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store(float* dst, const float* v) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VW == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    dst[0] = v[0];
+  }
+}
+
+// s[i][j] = a_i . b_j and t[i][j] = c_i . d_j over D, for rows a_i, c_i
+// at a + i * sa (c + i * sa) and b_j, d_j at b + j * sb (d + j * sb):
+// the score and dP tiles of a thread in one pass over D
+template <int D>
+__device__ __forceinline__ void two_products(const float* a, const float* c,
+                                             int sa, const float* b,
+                                             const float* d, int sb,
+                                             float (&s)[4][4],
+                                             float (&t)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = t[i][j] = 0.f;
+#pragma unroll 4
+  for (int u = 0; u < D / 4; ++u) {
+    float4 x[4], y[4], z[4], w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      x[i] = *reinterpret_cast<const float4*>(a + i * sa + 4 * u);
+      y[i] = *reinterpret_cast<const float4*>(c + i * sa + 4 * u);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      z[j] = *reinterpret_cast<const float4*>(b + j * sb + 4 * u);
+      w[j] = *reinterpret_cast<const float4*>(d + j * sb + 4 * u);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = dot4(x[i], z[j], s[i][j]);
+        t[i][j] = dot4(y[i], w[j], t[i][j]);
+      }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkdv_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int H, int Hkv, int Tq, int Tk, float scale,
+                          int causal) {
+  using Lt = Layout<D>;
+  constexpr int LD = Lt::LD, TILE = Lt::TILE, OC = Lt::OC, VW = Lt::VW;
+  constexpr int SLOT = 2 * TILE + 2 * kBQ;   // Q, dO, lse, delta
+  extern __shared__ __align__(16) float bsmem[];
+  float* ks = bsmem;
+  float* vs = ks + TILE;
+  float* ring = vs + TILE;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the warp's P^T, then dS^T: its 8 keys for each of the tile's rows
+  float* pb = ring + kStages * SLOT + warp * kBQ * kWK;
+  // scores: rows rg + 16 i, keys 4 kh + j of the warp's; dK/dV: keys
+  // 4 kh + j, columns t * 16 VW + rg * VW + e
+  const int kh = lane & 1, rg = lane >> 1;
+
+  const int bkv = blockIdx.y, b = bkv / Hkv, g = bkv % Hkv, rep = H / Hkv;
+  const int off = Tk - Tq;
+  const size_t kv_base = static_cast<size_t>(bkv) * Tk * D;
+  const int n_q = (Tq + kBQ - 1) / kBQ, n_kt = (Tk + kBK - 1) / kBK;
+  const int x = blockIdx.x;
+  const int n_tiles = causal && x != n_kt - 1 - x ? 2 : 1;
+  const float scale2 = scale * kLog2e;
+
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const int k0 = (ti == 0 ? x : n_kt - 1 - x) * kBK;
+    const int wk0 = k0 + warp * kWK;   // the warp's first key
+    // first q tile holding a row that sees a key of this tile; every key
+    // (< Tk) is seen by the last row, so each head has a step
+    const int first_row = causal ? k0 - off : 0;
+    const int qt0 = first_row <= 0 ? 0 : first_row / kBQ;
+    const int per_head = n_q - qt0;
+    const int n_it = rep * per_head;
+
+    auto load_q = [&](int it, int slot) {
+      const size_t base =
+          static_cast<size_t>(b * H + g * rep + it / per_head) * Tq;
+      const int q0 = (qt0 + it % per_head) * kBQ;
+      float* qs = ring + slot * SLOT;
+      copy_rows<D>(qs, q + base * D, q0, Tq);
+      copy_rows<D>(qs + TILE, dout + base * D, q0, Tq);
+      copy_stats(qs + 2 * TILE, lse, delta, base, q0, Tq);
+    };
+    copy_rows<D>(ks, k + kv_base, k0, Tk);
+    copy_rows<D>(vs, v + kv_base, k0, Tk);
+    load_q(0, 0);
+    mma::cp_async_commit();   // the first group also holds the K and V tiles
+
+    float dka[4][OC], dva[4][OC];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < OC; ++c) dka[j][c] = dva[j][c] = 0.f;
+
+    for (int it = 0; it < n_it; ++it) {
+      mma::cp_async_wait<0>();
+      __syncthreads();   // step it landed; every warp is done with it - 1
+      if (it + 1 < n_it) load_q(it + 1, (it + 1) & 1);
+      mma::cp_async_commit();
+      const int q0 = (qt0 + it % per_head) * kBQ;
+      const float* qs = ring + (it & 1) * SLOT;
+      const float* dos = qs + TILE;
+      const float* ls = qs + 2 * TILE;
+      // the warp's keys wholly in the causal future of the tile's rows
+      if (!__any_sync(0xffffffffu, !causal || wk0 <= q0 + kBQ - 1 + off))
+        continue;
+      float s[4][4], dp[4][4];
+      two_products<D>(qs + rg * LD, dos + rg * LD, 16 * LD,
+                      ks + (warp * kWK + 4 * kh) * LD,
+                      vs + (warp * kWK + 4 * kh) * LD, LD, s, dp);
+      const bool edge = q0 + kBQ > Tq || wk0 + kWK > Tk ||
+                        (causal && wk0 + kWK - 1 > q0 + off);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = rg + 16 * i, row = q0 + r;
+        const float l2 = ls[r] * kLog2e, dl = ls[kBQ + r];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = wk0 + 4 * kh + j;
+          float p = exp2_approx(s[i][j] * scale2 - l2);
+          if (edge && (row >= Tq || col >= Tk || (causal && col > row + off)))
+            p = 0.f;
+          s[i][j] = p;
+          dp[i][j] = p * (dp[i][j] - dl) * scale;
+        }
+      }
+      // dV += P^T dO, then dK += dS^T Q, over the tile's rows
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(pb + (rg + 16 * i) * kWK + 4 * kh) =
+            make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      __syncwarp();
+#pragma unroll 8
+      for (int r = 0; r < kBQ; ++r) {
+        const float4 p = *reinterpret_cast<const float4*>(pb + r * kWK +
+                                                          4 * kh);
+        const float pr[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int t = 0; t < Lt::NV; ++t) {
+          const float* src = dos + r * LD + t * 16 * VW + rg * VW;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) axpy<VW>(dva[j] + t * VW, pr[j], src);
+        }
+      }
+      __syncwarp();   // P^T read before dS^T takes its place
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(pb + (rg + 16 * i) * kWK + 4 * kh) =
+            make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+      __syncwarp();
+#pragma unroll 8
+      for (int r = 0; r < kBQ; ++r) {
+        const float4 d4 = *reinterpret_cast<const float4*>(pb + r * kWK +
+                                                           4 * kh);
+        const float dr[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int t = 0; t < Lt::NV; ++t) {
+          const float* src = qs + r * LD + t * 16 * VW + rg * VW;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) axpy<VW>(dka[j] + t * VW, dr[j], src);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = wk0 + 4 * kh + j;
+      if (key >= Tk) continue;
+      const size_t o = kv_base + static_cast<size_t>(key) * D + rg * VW;
+#pragma unroll
+      for (int t = 0; t < Lt::NV; ++t) {
+        store<VW>(dk + o + t * 16 * VW, dka[j] + t * VW);
+        store<VW>(dv + o + t * 16 * VW, dva[j] + t * VW);
+      }
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();   // the K/V tiles and the ring are free for the next
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int H, int Hkv, int Tq,
+                        int Tk, float scale, int causal) {
+  using Lt = Layout<D>;
+  constexpr int LD = Lt::LD, TILE = Lt::TILE, OC = Lt::OC, VW = Lt::VW;
+  extern __shared__ __align__(16) float bsmem[];
+  float* qs = bsmem;
+  float* dos = qs + TILE;
+  float* ls = dos + TILE;             // lse, then delta
+  float* ring = ls + 2 * kBQ;         // per slot: K, V tiles
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the warp's dS: its 8 rows for each of the tile's keys
+  float* sb = ring + kStages * 2 * TILE + warp * kBK * kWQ;
+  // scores: rows 4 rh + i of the warp's, keys kg + 16 j; dQ: rows
+  // 4 rh + i, columns t * 16 VW + kg * VW + e
+  const int rh = lane & 1, kg = lane >> 1;
+
+  const int bh = blockIdx.y, b = bh / H, hh = bh % H;
+  const int kvh = b * Hkv + hh / (H / Hkv);
+  const size_t q_base = static_cast<size_t>(bh) * Tq;
+  const float* kb = k + static_cast<size_t>(kvh) * Tk * D;
+  const float* vb = v + static_cast<size_t>(kvh) * Tk * D;
+  const int off = Tk - Tq;
+  const int n_q = (Tq + kBQ - 1) / kBQ, n_kt = (Tk + kBK - 1) / kBK;
+  const int x = blockIdx.x;
+  const int n_tiles = causal && x != n_q - 1 - x ? 2 : 1;
+  const float scale2 = scale * kLog2e;
+  const int wr = warp * kWQ + 4 * rh;   // the thread's first row of the tile
+
+  auto load_kv = [&](int kt, int slot) {
+    float* kvs = ring + slot * 2 * TILE;
+    copy_rows<D>(kvs, kb, kt * kBK, Tk);
+    copy_rows<D>(kvs + TILE, vb, kt * kBK, Tk);
+  };
+
+  for (int ti = 0; ti < n_tiles; ++ti) {
+    const int q0 = (ti == 0 ? n_q - 1 - x : x) * kBQ;
+    const int wq0 = q0 + warp * kWQ;   // the warp's first row
+    int n_k = n_kt;
+    if (causal) {
+      const int last = q0 + kBQ - 1 + off;   // highest live column here
+      n_k = last < 0 ? 0 : min(n_k, last / kBK + 1);
+    }
+    copy_rows<D>(qs, q + q_base * D, q0, Tq);
+    copy_rows<D>(dos, dout + q_base * D, q0, Tq);
+    copy_stats(ls, lse, delta, q_base, q0, Tq);
+    if (n_k > 0) load_kv(0, 0);
+    mma::cp_async_commit();
+
+    float dqa[4][OC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < OC; ++c) dqa[i][c] = 0.f;
+
+    for (int kt = 0; kt < n_k; ++kt) {
+      mma::cp_async_wait<0>();
+      __syncthreads();   // tile kt landed; every warp is done with kt - 1
+      if (kt + 1 < n_k) load_kv(kt + 1, (kt + 1) & 1);
+      mma::cp_async_commit();
+      const int k0 = kt * kBK;
+      const float* kts = ring + (kt & 1) * 2 * TILE;
+      const float* vts = kts + TILE;
+      // the tile wholly in the causal future of the warp's rows
+      if (!__any_sync(0xffffffffu, !causal || k0 <= wq0 + kWQ - 1 + off))
+        continue;
+      float s[4][4], dp[4][4];
+      two_products<D>(qs + wr * LD, dos + wr * LD, LD, kts + kg * LD,
+                      vts + kg * LD, 16 * LD, s, dp);
+      const bool edge = wq0 + kWQ > Tq || k0 + kBK > Tk ||
+                        (causal && k0 + kBK - 1 > wq0 + off);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + wr + i;
+        const float l2 = ls[wr + i] * kLog2e, dl = ls[kBQ + wr + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + kg + 16 * j;
+          float p = exp2_approx(s[i][j] * scale2 - l2);
+          if (edge && (row >= Tq || col >= Tk || (causal && col > row + off)))
+            p = 0.f;
+          dp[i][j] = p * (dp[i][j] - dl) * scale;
+        }
+      }
+      // dQ += dS K over the tile's keys
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(sb + (kg + 16 * j) * kWQ + 4 * rh) =
+            make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
+      __syncwarp();
+#pragma unroll 8
+      for (int c = 0; c < kBK; ++c) {
+        const float4 d4 = *reinterpret_cast<const float4*>(sb + c * kWQ +
+                                                           4 * rh);
+        const float dr[4] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+        for (int t = 0; t < Lt::NV; ++t) {
+          const float* src = kts + c * LD + t * 16 * VW + kg * VW;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) axpy<VW>(dqa[i] + t * VW, dr[i], src);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + wr + i;
+      if (row >= Tq) continue;
+      float* o = dq + (q_base + row) * D + kg * VW;
+#pragma unroll
+      for (int t = 0; t < Lt::NV; ++t)
+        store<VW>(o + t * 16 * VW, dqa[i] + t * VW);
+    }
+    mma::cp_async_wait<0>();
+    __syncthreads();   // the Q/dO tiles and the ring are free for the next
+  }
+}
+
+// The plan's tiles must be the ones compiled: 64-row tiles, 2 slots;
+// its shared memory is checked against the block limit.
+inline cudaError_t check_plan(const BwdArgs& a, int step, int stages,
+                              int smem) {
+  if (smem <= 0 || smem > mma::kMaxSmem || step != kBQ ||
+      stages != kStages)
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(a.q) | reinterpret_cast<uintptr_t>(a.k) |
+       reinterpret_cast<uintptr_t>(a.v) |
+       reinterpret_cast<uintptr_t>(a.dout)) % 16)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dkdv(const BwdArgs& a, void* dk, void* dv, int step,
+                        int stages, int smem, cudaStream_t st) {
+  cudaError_t err = check_plan(a, step, stages, smem);
   if (err != cudaSuccess) return err;
-  constexpr int BK = bwd_bk<D>();
-  const dim3 grid((a.Tk + BK - 1) / BK, a.B * a.Hkv);
-  flash_bwd_dkdv_kernel<T, D><<<grid, kBwdThreads, smem, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dk), static_cast<T*>(dv), a.H, a.Hkv, a.Tq,
-      a.Tk, a.scale, a.causal);
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (a.Tk + kBK - 1) / kBK;
+  const dim3 grid(a.causal ? (n_kt + 1) / 2 : n_kt, a.B * a.Hkv);
+  flash_bwd_dkdv_kernel<D><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(dk), static_cast<float*>(dv), a.H,
+      a.Hkv, a.Tq, a.Tk, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const BwdArgs& a, void* dq, cudaStream_t st) {
-  constexpr size_t smem = dq_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+template <int D>
+cudaError_t launch_dq(const BwdArgs& a, void* dq, int step, int stages,
+                      int smem, cudaStream_t st) {
+  cudaError_t err = check_plan(a, step, stages, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Tq + kBwdBQ - 1) / kBwdBQ, a.B * a.H);
-  flash_bwd_dq_kernel<T, D><<<grid, kBwdThreads, smem, st>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(dq), a.H, a.Hkv, a.Tq, a.Tk, a.scale,
-      a.causal);
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const int n_q = (a.Tq + kBQ - 1) / kBQ;
+  const dim3 grid(a.causal ? (n_q + 1) / 2 : n_q, a.B * a.H);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(dq), a.H, a.Hkv, a.Tq, a.Tk,
+      a.scale, a.causal);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 // ------------------------------------------------ bf16, tensor cores
 
@@ -459,17 +636,6 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[2] = mma::pack_bf16(c1[0], c1[1]);
   a[3] = mma::pack_bf16(c1[2], c1[3]);
 }
-
-// 2^x on the special-function unit (-inf gives 0): p = exp(s * scale -
-// lse) is taken as 2^(s * scale * log2 e - lse * log2 e), one FFMA and
-// one MUFU.EX2 in place of expf's range reduction
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
 
 // rows [r0, r0 + rows) of a (T, D) bf16 matrix into a swizzled tile;
 // rows at or past T are zero-filled
@@ -885,15 +1051,16 @@ cudaError_t launch_dq(const BwdArgs& a, void* dq, int step, int stages,
 
 }  // namespace tc
 
-// which = 0: dK/dV into out0/out1; which = 1: dQ into out0. The bf16
-// route takes the plan (step, stages, smem); the f32 route none.
+// which = 0: dK/dV into out0/out1; which = 1: dQ into out0. Each route
+// takes its plan (step, stages, smem).
 template <int D>
 cudaError_t launch_one(int which, int dtype, const BwdArgs& a, void* out0,
                        void* out1, int step, int stages, int smem,
                        cudaStream_t st) {
   if (dtype == kF32)
-    return which == 0 ? launch_dkdv<float, D>(a, out0, out1, st)
-                      : launch_dq<float, D>(a, out0, st);
+    return which == 0
+               ? f32::launch_dkdv<D>(a, out0, out1, step, stages, smem, st)
+               : f32::launch_dq<D>(a, out0, step, stages, smem, st);
   if (dtype == kBF16)
     return which == 0
                ? tc::launch_dkdv<D>(a, out0, out1, step, stages, smem, st)
@@ -931,10 +1098,11 @@ int launch_bwd(int which, const void* q, const void* k, const void* v,
 }  // namespace zt
 
 // q, dout (B*H, Tq, D); k, v, dk, dv (B*Hkv, Tk, D); lse, delta (B*H, Tq)
-// f32. D in {16, 32, 64, 128}; dtype 0 = f32 (SIMT kernel; step, stages
-// and smem 0), 1 = bf16 (tensor cores, with the q step, ring slots and
-// shared-memory bytes flash_bwd_plan() gives; q, k, v, dout 16-byte
-// aligned).
+// f32; q, k, v, dout 16-byte aligned. D in {16, 32, 64, 128}; dtype 0 =
+// f32 (the SIMT kernels, with the tile rows, ring slots and shared-memory
+// bytes flash_bwd_f32_plan() gives; causal tiles are paired), 1 = bf16
+// (the tensor cores, with the q step, ring slots and shared-memory bytes
+// flash_bwd_plan() gives).
 extern "C" int zt_flash_bwd_dkdv(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dk, void* dv,
@@ -947,7 +1115,7 @@ extern "C" int zt_flash_bwd_dkdv(const void* q, const void* k, const void* v,
 }
 
 // dq (B*H, Tq, D); the other operands and the plan as for
-// zt_flash_bwd_dkdv (the step counts key rows here).
+// zt_flash_bwd_dkdv (the bf16 step counts key rows here).
 extern "C" int zt_flash_bwd_dq(const void* q, const void* k, const void* v,
                                const void* dout, const float* lse,
                                const float* delta, void* dq, int B, int H,

@@ -1,5 +1,6 @@
-// Tile machinery shared by the implicit-GEMM convolutions (conv2d.cu)
-// and the int8 GEMMs (quant_matmul.cu).
+// Tile machinery of the SIMT int8 GEMM (quant_matmul.cu, qmm_kernel) and
+// the dequant epilogue every int8 kernel shares (quant_matmul.cu,
+// conv2d_int8_tc.cuh).
 //
 // One block of kGemmThreads threads computes a kBM x kBN tile of the output
 // (rows x columns). The reduction walks kBK-deep slices: every thread
@@ -27,14 +28,6 @@ constexpr int kBRowStep = kGemmThreads / kBN;      // 4
 static_assert(kLoads * kARowStep == kBM, "A slice covered once");
 static_assert(kLoads * kBRowStep == kBK, "B slice covered once");
 
-// Float slices in f32, k-major. A is stored transposed (a[k][m]) and
-// padded by one column, so the 32 lanes of a warp, which hold 32
-// different k of one row, store into 32 different banks.
-struct FloatTile {
-  float a[kBK][kBM + 1];
-  float b[kBK][kBN];
-};
-
 // Int8 slices with k contiguous per row of A and per column of B, so 4
 // consecutive k read as one 32-bit word for __dp4a. Rows are padded to
 // 36 bytes (9 words): the 16 columns a half-warp reads then fall in 16
@@ -44,22 +37,6 @@ struct Int8Tile {
   int8_t a[kBM][kI8Stride];
   int8_t b[kBN][kI8Stride];
 };
-
-__device__ __forceinline__ void fma_slice(const FloatTile& t, int tx, int ty,
-                                          float (&acc)[4][4]) {
-#pragma unroll 8
-  for (int k = 0; k < kBK; ++k) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = t.a[k][ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = t.b[k][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
 
 // int8 x int8 -> int32, four products per __dp4a. Exact: the caller
 // keeps the reduction short enough that no sum passes 2^31.

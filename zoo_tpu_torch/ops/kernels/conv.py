@@ -2,10 +2,12 @@
 (counterpart of ``zoo_tpu/ops/pallas/conv.py``).
 
 Layouts are the JAX package's: NHWC activations, HWIO weights. The
-kernels are ``zoo_tpu_torch/csrc/conv2d.cu``, ``conv2d_tc.cuh`` and
-``conv2d_int8_tc.cuh`` (their headers say what bounds them): a float one (f32 or bf16 in, f32
-accumulation, output in the input type; bf16 on the tensor cores with
-the tiles :func:`conv_plan` picks, f32 on the SIMT units) and an int8
+kernels are ``zoo_tpu_torch/csrc/conv2d.cu``, ``conv2d_tc.cuh``,
+``conv2d_f32_tc.cuh`` and ``conv2d_int8_tc.cuh`` (their headers say
+what bounds them): a float one (f32 or bf16 in, f32 accumulation,
+output in the input type; bf16 on the tensor cores with the tiles
+:func:`conv_plan` picks, f32 on the tensor cores as 3xTF32 with the
+tiles :func:`conv_f32_plan` picks) and an int8
 one on the int8 tensor cores (int32 accumulation, dequantized to f32 in
 the epilogue, tiles from :func:`conv_int8_plan`). The int8 kernel reads
 the weights as a K-major (O, KH*KW*C) copy: :func:`attach_kmajor` makes
@@ -44,7 +46,8 @@ from zoo_tpu_torch.ops.kernels import _launch as L
 from zoo_tpu_torch.ops.kernels import on_cuda
 
 __all__ = ["conv2d", "conv2d_int8", "resolve_conv_impl",
-           "pallas_conv_supported", "conv_plan", "conv_int8_plan",
+           "pallas_conv_supported", "conv_plan", "conv_f32_plan",
+           "conv_int8_plan",
            "int8_weights_kmajor", "attach_kmajor", "kmajor_of"]
 
 # kernel launches since the last reset (see ops.kernels.launch_counts)
@@ -75,10 +78,11 @@ _TC_BM, _TC_BK = 128, 64
 
 @dataclasses.dataclass(frozen=True)
 class ConvPlan:
-    """Launch plan of the bf16 conv kernel: a ``bm`` x ``bn`` output tile
-    per block of ``threads``, a ring of ``stages`` slots filled by copies
-    of ``vec`` channels (``2 * vec`` bytes), ``smem`` bytes of dynamic
-    shared memory, ``m_tiles`` x ``n_tiles`` blocks."""
+    """Launch plan of the float conv kernels (bf16 and f32): a ``bm`` x
+    ``bn`` output tile per block of ``threads``, a ring of ``stages``
+    slots filled by copies of ``vec`` channels of ``item`` bytes each,
+    ``smem`` bytes of dynamic shared memory, ``m_tiles`` x ``n_tiles``
+    blocks."""
     bm: int
     bn: int
     stages: int
@@ -87,10 +91,11 @@ class ConvPlan:
     threads: int
     m_tiles: int
     n_tiles: int
+    item: int = 2
 
     @property
     def copy_bytes(self) -> int:
-        return 2 * self.vec
+        return self.item * self.vec
 
     @property
     def blocks(self) -> int:
@@ -125,6 +130,42 @@ def conv_plan(rows: int, c: int, o: int, align: int = 16) -> ConvPlan:
     smem = 1024 + max(stages * stage, bm * (bn + 8) * 2) + 16 * bm
     return ConvPlan(bm, bn, stages, vec, smem, 2 * bm, _cdiv(rows, bm),
                     _cdiv(o, bn))
+
+
+# the f32 3xTF32 kernel (csrc/conv2d_f32_tc.cuh): channels a reduction
+# step (one 128-byte activation row), pixels a warpgroup takes
+_F32_BK, _F32_WG_PIXELS = 32, 128
+
+
+def conv_f32_plan(rows: int, c: int, o: int, align: int = 16) -> ConvPlan:
+    """The f32 (3xTF32, ``wgmma``) kernel's plan for ``rows`` = N*OH*OW
+    output pixels, ``c`` input and ``o`` output channels, pointers
+    aligned to ``align`` bytes. ``bm`` counts pixels and ``bn`` output
+    channels, as for the bf16 kernel, though the kernel takes the product
+    transposed (output channels on wgmma's M side).
+
+    - Copy width: 4 floats (16 bytes) where ``c`` and ``o`` are
+      multiples of 4 and the pointers 16-byte aligned, else 1 (4-byte
+      copies).
+    - Tile: two warpgroups of 64 output channels x 128 pixels: 128 x 128
+      where ``o > 64``, else 64 channels x 256 pixels (one O tile covers
+      O, so the activation is read once).
+    - Shared memory: ring slots (4 at 128 x 128, 3 at 256 x 64) of an
+      activation tile and its TF32 lo part (128-byte rows) and a weight
+      tile (32 rows of ``bn + 8`` floats), 16 bytes of row origins a
+      pixel, and 1024 bytes of slack to align the ring: 203,776 bytes at
+      128 x 128, 229,376 at 256 x 64; one block an SM either way.
+    """
+    if min(rows, c, o) <= 0:
+        raise ValueError(f"empty conv: rows={rows} c={c} o={o}")
+    vec = 4 if c % 4 == 0 and o % 4 == 0 and align % 16 == 0 else 1
+    bn = 64 if o <= 64 else 128
+    bm = _F32_WG_PIXELS * (2 if bn == 64 else 1)
+    stages = 4 if bn == 128 else 3
+    stage = 2 * bm * _F32_BK * 4 + _F32_BK * (bn + 8) * 4
+    smem = 1024 + stages * stage + 16 * bm
+    return ConvPlan(bm, bn, stages, vec, smem, 256, _cdiv(rows, bm),
+                    _cdiv(o, bn), item=4)
 
 
 # the int8 tensor-core kernel (csrc/conv2d_int8_tc.cuh): output rows of
@@ -466,13 +507,11 @@ def _launch_conv2d(x, w, strides, padding) -> torch.Tensor:
     args = _conv_args(x, w, strides, padding)
     n, c, o, oh, ow = args[0], args[3], args[6], args[11], args[12]
     y = torch.empty((n, oh, ow, o), dtype=x.dtype, device=dev)
-    plan = (0,) * 4                     # the f32 SIMT kernel takes none
-    if x.dtype == torch.bfloat16:
-        p = conv_plan(n * oh * ow, c, o, L.alignment(x, w))
-        plan = (p.bn, p.stages, p.vec, p.smem)
+    planner = conv_plan if x.dtype == torch.bfloat16 else conv_f32_plan
+    p = planner(n * oh * ow, c, o, L.alignment(x, w))
     lib, fl, _ = _entries()
     rc = fl(L.ptr(x), L.ptr(w), L.ptr(y), L.DTYPE_CODES[x.dtype], *args,
-            *plan, L.stream(dev))
+            p.bn, p.stages, p.vec, p.smem, L.stream(dev))
     L.check(lib, rc, "conv2d")
     LAUNCHES += 1
     return y

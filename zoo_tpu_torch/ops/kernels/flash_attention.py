@@ -7,7 +7,8 @@ returning the logsumexp: bf16 on the tensor cores with the plan
 :func:`flash_f32_plan` counts) and
 ``zoo_tpu_torch/csrc/flash_attention_bwd.cu`` (dK/dV, then dQ,
 recomputed from that logsumexp: bf16 on the tensor cores with the plan
-:func:`flash_bwd_plan` counts, f32 on the SIMT units); their headers say
+:func:`flash_bwd_plan` counts, f32 on the SIMT units with the plan
+:func:`flash_bwd_f32_plan` counts); their headers say
 what bounds them and how they are laid out. This module holds the wrappers,
 the plain versions and :class:`FlashAttention`, the autograd function
 that makes :func:`flash_attention` differentiable, as the JAX package's
@@ -38,10 +39,11 @@ HEAD_DIMS = (16, 32, 64, 128)
 _TC_BQ, _TC_BKV, _TC_STAGES = 64, 64, 2
 # slots of the bf16 backward kernels' rings (flash_bwd_plan)
 _TC_BWD_STAGES = 2
-# the f32 SIMT kernel (csrc/flash_attention_fwd.cu, f32::): query rows of
-# a block, rows of a K/V tile, warps (4 row groups of 16 rows x 2 key
-# halves), slots of its ring; a warp's P buffer holds its 16 rows (+4
-# floats of padding) for each key of its half
+# the f32 SIMT kernels (f32:: in csrc/flash_attention_fwd.cu and
+# flash_attention_bwd.cu): query rows of a tile, rows of a K/V tile,
+# warps (the forward's: 4 row groups of 16 rows x 2 key halves), slots of
+# the ring; a forward warp's P buffer holds its 16 rows (+4 floats of
+# padding) for each key of its half
 _F32_BQ, _F32_BKV, _F32_WARPS, _F32_STAGES = 64, 64, 8, 2
 _F32_P_ROW = 16 + 4
 
@@ -108,6 +110,43 @@ def flash_bwd_plan(head_dim: int) -> FlashBwdPlan:
     dkdv = 2 * _TC_BKV * row + _TC_BWD_STAGES * step * (2 * row + 2 * 4)
     dq = 2 * _TC_BQ * row + _TC_BWD_STAGES * 2 * step * row
     return FlashBwdPlan(step, _TC_BWD_STAGES, dkdv, dq)
+
+
+class FlashBwdF32Plan(NamedTuple):
+    """The f32 backward kernels' launch plan: ``block_q`` query rows and
+    ``block_k`` keys a tile, ``threads`` a block, ``stages`` ring slots,
+    the bytes of dynamic shared memory each kernel takes, and ``pair``:
+    1 when a block takes two tiles, the heaviest and the lightest left
+    (causal), 0 when it takes one. The kernels take the first three
+    numbers and the bytes; they pair tiles exactly when causal."""
+    block_q: int
+    block_k: int
+    threads: int
+    stages: int
+    dkdv_smem: int
+    dq_smem: int
+    pair: int
+
+
+def flash_bwd_f32_plan(head_dim: int, causal: bool = False
+                       ) -> FlashBwdF32Plan:
+    """The f32 backward kernels' plan at ``head_dim``, 8 warps a block.
+    Shared memory, as the kernels lay it out, in rows of ``head_dim + 4``
+    floats (16 bytes of padding). dK/dV: the 64-row K and V tiles, a
+    2-slot ring of a Q and a dO tile with their lse and delta, then each
+    warp's P/dS buffer (64 rows x its 8 keys). dQ: the Q and dO tiles
+    with their lse and delta, a 2-slot ring of a K and a V tile, then
+    each warp's dS buffer (64 keys x its 8 rows). Causal tiles are
+    paired: dK/dV block x takes key tile x, then key tile n-1-x; dQ block
+    x takes q tile n-1-x, then q tile x (one tile where they meet)."""
+    _require_head_dim(head_dim)
+    tile = _F32_BQ * (head_dim + 4) * 4
+    stats = 2 * _F32_BQ * 4
+    buffers = _F32_WARPS * _F32_BQ * (_F32_BKV // _F32_WARPS) * 4
+    dkdv = 2 * tile + _F32_STAGES * (2 * tile + stats) + buffers
+    dq = 2 * tile + stats + _F32_STAGES * 2 * tile + buffers
+    return FlashBwdF32Plan(_F32_BQ, _F32_BKV, 32 * _F32_WARPS, _F32_STAGES,
+                           dkdv, dq, int(bool(causal)))
 
 
 def flash_attention_plain(q, k, v, causal=False, scale=None
@@ -284,9 +323,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CPU tensors take :func:`flash_attention_bwd_plain`; CUDA tensors
     launch the dK/dV kernel, then the dQ kernel (or raise): for bf16 the
-    tensor-core bodies with the plan :func:`flash_bwd_plan` counts (a
-    bf16 input off a 16-byte boundary is copied to an aligned buffer),
-    for f32 the SIMT bodies."""
+    tensor-core bodies with the plan :func:`flash_bwd_plan` counts, for
+    f32 the SIMT bodies with the plan :func:`flash_bwd_f32_plan` counts.
+    An input off a 16-byte boundary is copied to an aligned buffer."""
     global DKDV_LAUNCHES, DQ_LAUNCHES
     B, H, Hkv, Tq, Tk, D = _check_shapes(q, k)
     if scale is None:
@@ -304,16 +343,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = _delta(o, do)
     dq, dk, dv = (torch.empty_like(q), torch.empty_like(k),
                   torch.empty_like(v))
-    # the f32 SIMT kernels take no plan
-    dkdv_plan = dq_plan = (0, 0, 0)
+    # the kernels copy 16 bytes at a time: a view off a 16-byte boundary
+    # is copied into a fresh (aligned) buffer first
+    q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v, do))
     if q.dtype == torch.bfloat16:
-        # the kernels copy 16 bytes at a time: a view off a 16-byte
-        # boundary is copied into a fresh (aligned) buffer first
-        q, k, v, do = (t if t.data_ptr() % 16 == 0 else t.clone()
-                       for t in (q, k, v, do))
         p = flash_bwd_plan(D)
         dkdv_plan = (p.step, p.stages, p.dkdv_smem)
         dq_plan = (p.step, p.stages, p.dq_smem)
+    else:
+        # the kernels pair causal tiles themselves
+        p = flash_bwd_f32_plan(D, causal)
+        dkdv_plan = (p.block_q, p.stages, p.dkdv_smem)
+        dq_plan = (p.block_q, p.stages, p.dq_smem)
     lib, dkdv_fn, dq_fn = _bwd_entries()
     args = (B, H, Hkv, Tq, Tk, D, float(scale), int(bool(causal)),
             L.DTYPE_CODES[q.dtype])
