@@ -11,21 +11,22 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 1. device — name, capability, count, power limit (fails off Hopper);
 2. build — nvcc wall time and each kernel function's ``-Xptxas -v``
    registers, shared memory and spills (fails if an instance of the f32
-   conv or the f32 flash backward spills);
+   conv, the f32 flash backward or the two-pass int8 GEMM spills);
 2b. sass — how each kernel multiplies, read from the built libraries'
    SASS (``cuobjdump -sass``): ``wgmma`` (HGMMA, IGMMA), ``mma.sync``
    (HMMA, IMMA) or ``simt``; fails unless the bf16 conv, the bf16
    flash forward and backward (dK/dV, dQ), the fused bottleneck and
-   the fused int8 GEMM run on the tensor cores, the bf16, f32 (3xTF32)
-   and int8 convs on ``wgmma``, and the shuffles of the paged decode,
-   the fused int8 GEMM and the f32 flash forward and backward (dK/dV,
-   dQ) all on the fast path (no ``WARPSYNC.COLLECTIVE``);
+   both int8 GEMMs run on the tensor cores, the bf16, f32 (3xTF32)
+   and int8 convs and the two-pass int8 GEMM on ``wgmma``, and the
+   shuffles of the paged decode, both int8 GEMMs and the f32 flash
+   forward and backward (dK/dV, dQ) all on the fast path (no
+   ``WARPSYNC.COLLECTIVE``);
 3. kernels — each kernel against its plain PyTorch version at the
    Llama-3-8B serving shapes, for f32, bf16 and int8 caches and the
    position edges, then timed (device time per call from
    ``torch.profiler``, and CUDA-event wall time; for the paged decode
-   and the fused int8 GEMM also the device launches per call, which
-   must be one) beside its plain
+   and both int8 GEMMs also the device launches per call, which must
+   be one) beside its plain
    version, its least possible time on the card, and (flash only)
    ``scaled_dot_product_attention`` as a yardstick the port never calls;
 4. tiny — ``llama:tiny`` greedy streams through the engine with the
@@ -68,7 +69,9 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 8b. train-image-tiny — the tiny ResNet of phase 7 ``fit`` with
    ``SGD(0.1, 0.9)``, f32, 8 images, two shuffled epochs at B=4,
    through the conv kernel and the SGD kernel, equals the same ``fit``
-   through their plain versions;
+   through their plain versions, and repeats itself bit for bit in
+   three runs (beside three runs with the reference conv's backward
+   free to take cuDNN's nondeterministic algorithms, a control);
 9. bottleneck-main — ``fused_bottleneck`` at the geometries of
    ResNet-50's twelve identity blocks (four stages, B=128, bf16),
    forward and forward+backward, one kernel launch per call and no
@@ -106,8 +109,13 @@ fused AdamW and SGD) the port never calls; and the implicit-GEMM conv
 kernels (bf16, f32, int8) at four ResNet-50 shapes, B=128 (int8 on the
 K-major weight copy a quantized layer carries, the copy's one-time cost
 printed apart), and the int8
-GEMMs at the ResNet-50 head and at ``bench_int8_matmul``'s shape,
-beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks; and the
+GEMMs at the ResNet-50 head, at ``bench_int8_matmul``'s shape and (the
+two-pass one, and the fused op's hand-over to it past K = 8192: one
+``quantized_matmul`` launch, no fused one) at VGG-16's fc6, B=128,
+beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks; the reference
+conv's gradients (``conv2d_plain_grads``, the float conv's backward)
+repeat bit for bit on the same inputs at the four timed conv shapes,
+B=128, f32 and bf16; and the
 fused bottleneck at ResNet-50's four identity geometries (B=128, bf16,
 and f32 at conv2_x) with its gradients at conv2_x, timed beside the
 unfused cuDNN composition (three ``F.conv2d``, the ReLUs and the add),
@@ -116,10 +124,10 @@ a yardstick the port never calls.
 The bf16, f32 and int8 convs (per shape and summed; the f32 conv also
 beside its 3xTF32 bound), the bf16 flash forward and backward kernels at the training
 shape, the f32 flash forward and the paged prefill at the serving
-shape and the fused int8 GEMM at both GEMM shapes also print TFLOP/s
+shape and the int8 GEMMs at their GEMM shapes also print TFLOP/s
 (TOP/s for int8), the share of their bound they reach and, where there
 is one, their time over the library call's; the f32 flash forward and
-the fused int8 GEMM also print their launch plans. The paged prefill is also
+the int8 GEMMs also print their launch plans. The paged prefill is also
 held to its plain version at a one-row and a 17-row chunk of three
 sequences.
 
@@ -161,8 +169,12 @@ INFER_B, INFER_STEPS = 128, 8
 # ResNet-50 convs inside the kernels' envelope, (spatial, C, k, O, stride)
 CONV_SHAPES = ((56, 256, 1, 64, 1), (28, 128, 3, 128, 1),
                (56, 256, 1, 512, 2), (7, 512, 3, 512, 1))
-# (M, K, N): the ResNet-50 head at B=128, bench.py bench_int8_matmul
-GEMM_SHAPES = ((128, 2048, 1000), (512, 1024, 1024))
+# (M, K, N): the ResNet-50 head at B=128, bench.py bench_int8_matmul, and
+# VGG-16's fc6 at B=128 (7x7x512 = 25088 features into Dense(4096)), where
+# the fused path hands over to the two-pass path (K > 8192): 103 MB of
+# int8 weights, 12.8 MB of f32 x and an 822 MB float64 copy of w for the
+# plain version, all freed after the shape
+GEMM_SHAPES = ((128, 2048, 1000), (512, 1024, 1024), (128, 25088, 4096))
 # ResNet-50's identity bottlenecks per stage: (name, spatial, Cin, Cmid)
 BLOCK_STAGES = (("conv2_x", 56, 256, 64), ("conv3_x", 28, 512, 128),
                 ("conv4_x", 14, 1024, 256), ("conv5_x", 7, 2048, 512))
@@ -242,24 +254,26 @@ F32_ROUTES = {"flash_attention": ("flash_attention", "flash_fwd_kernel"),
 # kernels whose main-path route must run on the tensor cores
 TENSOR_CORE_KERNELS = ("conv2d", "flash_attention", "flash_attention_dkdv",
                        "flash_attention_dq", "fused_bottleneck",
-                       "fused_quantized_matmul")
+                       "quantized_matmul", "fused_quantized_matmul")
 # ... and on wgmma (HGMMA for bf16, IGMMA for int8); F32_WGMMA: the same
 # of F32_ROUTES (the f32 conv, as 3xTF32)
-WGMMA_KERNELS = ("conv2d", "conv2d_int8")
+WGMMA_KERNELS = ("conv2d", "conv2d_int8", "quantized_matmul")
 F32_WGMMA = ("conv2d",)
 # kernels whose warp shuffles must all take the fast path (the decode
 # reduces each key row's scores across the warp, the fused int8 GEMM each
-# row's absmax); F32_FAST_SHUFFLE: the same of F32_ROUTES (the f32 flash
-# forward reduces each row's max over 8 lanes; the backward kernels vote
-# on their causal skips)
-FAST_SHUFFLE_KERNELS = ("paged_decode", "fused_quantized_matmul")
+# row's absmax; the two-pass int8 GEMM has none, and keeps it so);
+# F32_FAST_SHUFFLE: the same of F32_ROUTES (the f32 flash forward reduces
+# each row's max over 8 lanes; the backward kernels vote on their causal
+# skips)
+FAST_SHUFFLE_KERNELS = ("paged_decode", "quantized_matmul",
+                        "fused_quantized_matmul")
 F32_FAST_SHUFFLE = ("flash_attention", "flash_attention_dkdv",
                     "flash_attention_dq")
 # __global__ functions whose ptxas report must show no spills: the f32
-# conv and the f32 flash backward, redesigned to keep their sums in
-# registers
+# conv, the f32 flash backward and the two-pass int8 GEMM, redesigned to
+# keep their sums in registers
 NO_SPILL_FUNCTIONS = ("conv_f32_tc_kernel", "f3221flash_bwd_dkdv_kernel",
-                      "f3219flash_bwd_dq_kernel")
+                      "f3219flash_bwd_dq_kernel", "10qmm_kernel")
 
 
 def emit(obj):
@@ -367,15 +381,15 @@ def check_no_spills(built):
 def phase_sass(built):
     """Each kernel's multiply route from the built libraries' SASS; fails
     unless the bf16 routes of conv2d and the flash forward and backward,
-    the fused bottleneck and the fused int8 GEMM run on the tensor
-    cores, unless conv2d (bf16 and f32) and conv2d_int8 run on
-    ``wgmma``, and unless the paged decode, the fused int8 GEMM and the
-    f32 flash forward and backward are free of ``WARPSYNC.COLLECTIVE``
-    (slow-path shuffles). The paged kernels, the optimizers,
-    ``quantized_matmul`` and the f32 flash routes read ``simt``; the
-    paged kernels and the f32 flash kernels by design: the f32 paths
-    stay on f32 FMAs (one TF32 product would break their tolerance) and
-    the decode does ~4 flops a cache element."""
+    the fused bottleneck and both int8 GEMMs run on the tensor cores,
+    unless conv2d (bf16 and f32), conv2d_int8 and ``quantized_matmul``
+    run on ``wgmma``, and unless the paged decode, both int8 GEMMs and
+    the f32 flash forward and backward are free of
+    ``WARPSYNC.COLLECTIVE`` (slow-path shuffles). The paged kernels, the
+    optimizers and the f32 flash routes read ``simt``; the paged kernels
+    and the f32 flash kernels by design: the f32 paths stay on f32 FMAs
+    (one TF32 product would break their tolerance) and the decode does
+    ~4 flops a cache element."""
     sass = {lib: sass_functions(r.path) for lib, r in built.items()}
     routes = {k: mma_route(sass[lib], fn)
               for k, (lib, fn) in MMA_FUNCTIONS.items()}
@@ -850,6 +864,69 @@ def _check_reference_conv_grads(torch, record, err):
                err(a, b) / mag, "conv_f32")
 
 
+@contextlib.contextmanager
+def cudnn_deterministic(torch, value):
+    """Every ``torch.backends.cudnn.flags`` entry made with
+    ``deterministic=value``, whatever its caller asks: with False, the
+    control, the reference conv's backward as it was before it asked
+    cuDNN for deterministic algorithms."""
+    cudnn = torch.backends.cudnn
+    real = cudnn.flags
+
+    def flags(**kw):
+        return real(**dict(kw, deterministic=value))
+
+    cudnn.flags = flags
+    try:
+        yield
+    finally:
+        cudnn.flags = real
+
+
+def _check_reference_conv_determinism(torch):
+    """``conv2d_plain_grads`` (the float conv's backward on both the
+    kernel path and the plain path) run twice on the same inputs at the
+    timed ResNet-50 shapes, B=128, f32 and bf16: as shipped, its ``dx``
+    and ``dw`` must repeat bit for bit; under the control
+    (:func:`cudnn_deterministic` False) whether they do is printed."""
+    from zoo_tpu_torch.ops.kernels import conv as CV
+    g = torch.Generator(device="cuda").manual_seed(77)
+    B = INFER_B
+    seen = {"reference": [], "control": []}
+    for h, c, k, o, s in CONV_SHAPES:
+        oh = -(-h // s)
+        shape = f"{h}x{h} {c}->{o} {k}x{k} stride {s}"
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(B, h, h, c, generator=g, device="cuda").to(dt)
+            w = (torch.randn(k, k, c, o, generator=g, device="cuda")
+                 / math.sqrt(k * k * c)).to(dt)
+            dy = torch.randn(B, oh, oh, o, generator=g, device="cuda").to(dt)
+            for label, ctx in (("reference", contextlib.nullcontext),
+                               ("control", lambda: cudnn_deterministic(
+                                   torch, False))):
+                with ctx():
+                    a = CV.conv2d_plain_grads(x, w, dy, (s, s))
+                    b = CV.conv2d_plain_grads(x, w, dy, (s, s))
+                torch.cuda.synchronize()
+                same = {n: bool(torch.equal(p, q))
+                        for n, p, q in zip(("dx", "dw"), a, b)}
+                seen[label].append(all(same.values()))
+                emit({"phase": "kernels", "check": "reference_conv_repeat",
+                      "path": label, "shape": f"B={B} {shape}",
+                      "dtype": str(dt).split(".")[-1], "bit_equal": same,
+                      "max_abs_diff": {n: float((p.float() - q.float())
+                                                .abs().max())
+                                       for n, p, q in zip(("dx", "dw"),
+                                                          a, b)}})
+            del x, w, dy, a, b
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "check": "reference_conv_repeat",
+          "repeats": {k: f"{sum(v)}/{len(v)}" for k, v in seen.items()}})
+    if not all(seen["reference"]):
+        raise AssertionError("conv2d_plain_grads: a second run on the "
+                             "same inputs gave other bits")
+
+
 def phase_training_kernels(torch, record, err, results):
     """The flash backward and fused optimizer kernels against their
     plain versions, then timed at the training config's shapes (into
@@ -1017,6 +1094,7 @@ def phase_training_kernels(torch, record, err, results):
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     _check_reference_conv_grads(torch, record, err)
+    _check_reference_conv_determinism(torch)
 
     # -- E: fused AdamW and SGD ------------------------------------------
     # every input at a scale where one step moves each output (p, m, v,
@@ -1115,6 +1193,23 @@ def _sum_timing(per):
             "bound_ms": sum(t["bound_ms"] for t in per),
             "bound_by": max(per, key=lambda t: t["bound_ms"])["bound_by"],
             "shapes": per}
+
+
+def qmm_timing(torch, Q, xq, wq, xs, ws, library):
+    """``quantized_matmul`` timed at the main path's output type (bf16),
+    one device launch a call, beside its plain version, its bound and
+    ``library`` (``torch._int_mm`` + dequant, or None)."""
+    (m, k), n = xq.shape, wq.shape[1]
+    ops = 2 * m * k * n
+    b_ms, b_by = bound(m * k + k * n + 4 * (m + n) + 2 * m * n, ops,
+                       PEAK_INT8_OPS)
+    bf16 = torch.bfloat16
+    t = timing_one_launch(
+        torch, f"quantized_matmul M={m} K={k} N={n}", "::qmm_kernel",
+        lambda: Q.quantized_matmul(xq, wq, xs, ws, bf16),
+        lambda: Q.quantized_matmul_plain(xq, wq, xs, ws, bf16), library, 50)
+    return dict(t, shape=f"M={m} K={k} N={n} bf16 out", bound_ms=b_ms,
+                bound_by=b_by, **rates(ops, t["ms"], b_ms, t["library_ms"]))
 
 
 def phase_inference_kernels(torch, record, err, results):
@@ -1301,6 +1396,7 @@ def phase_inference_kernels(torch, record, err, results):
 
     for m, k, n in GEMM_SHAPES:
         shape = f"M={m} K={k} N={n}"
+        two_pass = k > Q._FUSED_MAX_K
         x, wq, ws = randn(m, k), int8(k, n), scales(n)
         x[0] = 0                                   # a zero row: scale 1
         xq, xs = Q.quantize_int8(x, axis=-1)
@@ -1310,12 +1406,35 @@ def phase_inference_kernels(torch, record, err, results):
             torch.cuda.synchronize()
             record("quantized_matmul", f"{shape} out {out}", err(y, ref),
                    "int8")
+            del y, ref
             for xdt in (torch.float32, bf16):
-                y = Q.fused_quantized_matmul(x.to(xdt), wq, ws, out)
-                ref = Q.fused_quantized_matmul_plain(x.to(xdt), wq, ws, out)
+                xx = x.to(xdt)
+                before = (Q.QMM_LAUNCHES, Q.FQMM_LAUNCHES)
+                y = Q.fused_quantized_matmul(xx, wq, ws, out)
                 torch.cuda.synchronize()
+                launched = (Q.QMM_LAUNCHES - before[0],
+                            Q.FQMM_LAUNCHES - before[1])
+                if two_pass:
+                    # past _FUSED_MAX_K the fused op takes the two-pass
+                    # route: quantize_int8, then one quantized_matmul
+                    q, sc = Q.quantize_int8(xx, axis=-1)
+                    ref = Q.quantized_matmul_plain(q, wq, sc, ws, out)
+                    want = (1, 0)
+                else:
+                    ref = Q.fused_quantized_matmul_plain(xx, wq, ws, out)
+                    want = (0, 1)
+                torch.cuda.synchronize()
+                if launched != want:
+                    raise AssertionError(
+                        f"fused_quantized_matmul {shape}: launches "
+                        f"(quantized_matmul, fused_quantized_matmul) = "
+                        f"{launched}, expected {want}")
                 record("fused_quantized_matmul",
-                       f"{shape} x {xdt} out {out}", err(y, ref), "int8")
+                       f"{shape} x {xdt} out {out}"
+                       + (" (two-pass route)" if two_pass else ""),
+                       err(y, ref), "int8")
+                del xx, y, ref
+        torch.cuda.empty_cache()
         ops = 2 * m * k * n
 
         def int_mm_dequant(q, sc):
@@ -1338,31 +1457,30 @@ def phase_inference_kernels(torch, record, err, results):
                 emit({"phase": "kernels", "kernel": name,
                       "library": f"torch._int_mm unavailable: {e!r}"})
                 libs[name] = None
-        # timed at the main path's types: bf16 activations, bf16 out
-        b_q = bound(m * k + k * n + 4 * (m + n) + 2 * m * n, ops,
-                    PEAK_INT8_OPS)
-        t = timing(torch, "::qmm_kernel",
-                   lambda: Q.quantized_matmul(xq, wq, xs, ws, bf16),
-                   lambda: Q.quantized_matmul_plain(xq, wq, xs, ws, bf16),
-                   libs["quantized_matmul"], 50)
+        plan = Q.qmm_plan(m, k, n, 16, 16, clusters=Q.cluster_limits(dev))
         per["quantized_matmul"].append(dict(
-            t, shape=shape + " bf16 out", bound_ms=b_q[0],
-            bound_by=b_q[1]))
-        b_f = bound(2 * m * k + k * n + 4 * n + 2 * m * n, ops,
-                    PEAK_INT8_OPS)
-        # quantize, product and epilogue in one device launch a call
-        t = timing_one_launch(
-            torch, f"fused_quantized_matmul {shape}", "::fqmm_kernel",
-            lambda: Q.fused_quantized_matmul(x, wq, ws),
-            lambda: Q.fused_quantized_matmul_plain(x, wq, ws),
-            libs["fused_quantized_matmul"], 50)
-        plan = Q.fqmm_plan(m, k, n, x.element_size(), 16, 16)
-        per["fused_quantized_matmul"].append(dict(
-            t, shape=shape + " bf16 in and out", bound_ms=b_f[0],
-            bound_by=b_f[1], plan=plan._asdict(),
-            **rates(ops, t["ms"], b_f[0], t["library_ms"])))
-        emit({"phase": "kernels", "kernel": "fused_quantized_matmul",
-              "timing": per["fused_quantized_matmul"][-1]})
+            qmm_timing(torch, Q, xq, wq, xs, ws, libs["quantized_matmul"]),
+            plan=plan._asdict()))
+        emit({"phase": "kernels", "kernel": "quantized_matmul",
+              "timing": per["quantized_matmul"][-1]})
+        if not two_pass:
+            b_f = bound(2 * m * k + k * n + 4 * n + 2 * m * n, ops,
+                        PEAK_INT8_OPS)
+            # quantize, product and epilogue in one device launch a call
+            t = timing_one_launch(
+                torch, f"fused_quantized_matmul {shape}", "::fqmm_kernel",
+                lambda: Q.fused_quantized_matmul(x, wq, ws),
+                lambda: Q.fused_quantized_matmul_plain(x, wq, ws),
+                libs["fused_quantized_matmul"], 50)
+            plan = Q.fqmm_plan(m, k, n, x.element_size(), 16, 16)
+            per["fused_quantized_matmul"].append(dict(
+                t, shape=shape + " bf16 in and out", bound_ms=b_f[0],
+                bound_by=b_f[1], plan=plan._asdict(),
+                **rates(ops, t["ms"], b_f[0], t["library_ms"])))
+            emit({"phase": "kernels", "kernel": "fused_quantized_matmul",
+                  "timing": per["fused_quantized_matmul"][-1]})
+        del x, wq, ws, xq, xs, libs
+        torch.cuda.empty_cache()
     for name in ("conv2d", "conv2d_int8"):
         results[name].update(_sum_timing(per[name]))
         r = results[name]
@@ -1919,10 +2037,18 @@ def phase_train_image_tiny(torch, K):
     y = rs.randint(0, 10, 8).astype(np.int32)
     out = {}
     # the control: the plain path with one TF32 product a conv term, a
-    # lower precision than the f32 route's, which the gate must refuse
-    for label, ctx in (("kernels", contextlib.nullcontext),
+    # lower precision than the f32 route's, which the gate must refuse;
+    # the kernel path three times as shipped, and three times with the
+    # reference conv's backward free to take cuDNN's nondeterministic
+    # algorithms (the determinism control)
+    repeats = ("kernels", "kernels_2", "kernels_3")
+    controls = ("nondeterministic_1", "nondeterministic_2",
+                "nondeterministic_3")
+    for label, ctx in (*((r, contextlib.nullcontext) for r in repeats),
                        ("plain", plain_kernels),
-                       ("single_tf32", lambda: single_tf32_plain(torch))):
+                       ("single_tf32", lambda: single_tf32_plain(torch)),
+                       *((r, lambda: cudnn_deterministic(torch, False))
+                         for r in controls)):
         m.compile(SGD(lr=0.1, momentum=0.9),
                   "sparse_categorical_crossentropy")
         m.params = tree_map(torch.clone, start)
@@ -1943,6 +2069,23 @@ def phase_train_image_tiny(torch, K):
 
     loss_rel, param_rel = drift(lk, pk)
     control = drift(*out["single_tf32"][:2])
+
+    def repeat(labels):
+        """Runs of ``labels`` whose losses and leaves equal the first's
+        bit for bit, and the largest leaf difference from it."""
+        first = out[labels[0]]
+        same, diff = 1, 0.0
+        for r in labels[1:]:
+            losses, leaves = out[r][:2]
+            d = max(float((a.detach() - b.detach()).abs().max())
+                    for a, b in zip(leaves, first[1]))
+            same += losses == first[0] and d == 0.0
+            diff = max(diff, d)
+        return {"bit_equal_runs": f"{same}/{len(labels)}",
+                "max_leaf_diff": diff}
+
+    determinism = {"shipped": repeat(repeats),
+                   "control_nondeterministic": repeat(controls)}
     moved = min(float((a.detach() - b).abs().max())
                 for a, b in zip(pk, tree_leaves(start)))
     emit({"phase": "train-image-tiny", "loss_kernels": lk, "loss_plain": lp,
@@ -1950,6 +2093,7 @@ def phase_train_image_tiny(torch, K):
           "least_leaf_move": moved, "tol": TOL_TRAIN_TINY,
           "control_single_tf32": {"loss_max_rel": control[0],
                                   "param_and_stat_max_rel": control[1]},
+          "repeats": determinism,
           "launches": {k: ck[k] for k in ("conv2d", "fused_sgd")},
           "launches_plain": {k: cp[k] for k in ("conv2d", "fused_sgd")}})
     if not (np.isfinite(lk).all() and loss_rel <= TOL_TRAIN_TINY
@@ -1960,6 +2104,10 @@ def phase_train_image_tiny(torch, K):
     if not max(control) > TOL_TRAIN_TINY:
         raise AssertionError(f"train-image-tiny: one TF32 product a conv "
                              f"term ({control}) passes the gate")
+    if determinism["shipped"]["max_leaf_diff"] != 0.0 or \
+            determinism["shipped"]["bit_equal_runs"] != "3/3":
+        raise AssertionError(f"train-image-tiny: the kernel path does not "
+                             f"repeat itself: {determinism['shipped']}")
     steps = 4
     if (ck["conv2d"], ck["fused_sgd"]) != (n_conv * steps,
                                            n_train * steps) \
@@ -2561,7 +2709,6 @@ def main():
         if tuple(cap) != (9, 0):
             raise AssertionError(f"{name} is compute capability {cap}; the "
                                  "kernels are built for sm_90a (Hopper)")
-
         t0 = time.perf_counter()
         built = _build.build()
         emit({"phase": "build", "seconds": time.perf_counter() - t0,

@@ -201,3 +201,36 @@ def test_cpu_tensors_launch_no_kernel():
     after = launch_counts()
     assert after["conv2d"] == before["conv2d"]
     assert after["conv2d_int8"] == before["conv2d_int8"]
+
+
+@pytest.mark.parametrize("needs", [(True, True), (True, False),
+                                   (False, True)])
+def test_reference_backward_asks_cudnn_for_deterministic_algorithms(
+        monkeypatch, needs):
+    """``conv2d_plain_grads`` enters cuDNN's flags with deterministic
+    algorithms and TF32 off, so a ``fit`` on the card repeats itself; its
+    gradients are those it computes under the caller's flags."""
+    real = torch.backends.cudnn.flags
+    entered = []
+
+    def flags(**kw):
+        entered.append(kw)
+        return real(**kw)
+
+    x, wts = _xw(8, 8, 8, 3, seed=3)
+    dy = np.random.RandomState(4).randn(2, 8, 8, 24).astype(np.float32)
+    want = conv.conv2d_plain_grads(_t(x), _t(wts), _t(dy), needs=needs)
+    monkeypatch.setattr(torch.backends.cudnn, "flags", flags)
+    got = conv.conv2d_plain_grads(_t(x), _t(wts), _t(dy), needs=needs)
+    assert len(entered) == 1
+    assert entered[0]["deterministic"] is True
+    assert entered[0]["allow_tf32"] is False
+    for a, b, need in zip(got, want, needs):
+        assert (a is None) == (not need)
+        if need:
+            assert torch.equal(a, b)
+    # the forward keeps the caller's setting
+    entered.clear()
+    conv.conv2d_plain(_t(x), _t(wts))
+    assert entered[0]["deterministic"] is torch.backends.cudnn.deterministic
+    assert entered[0]["allow_tf32"] is False

@@ -907,6 +907,146 @@ def test_fused_gemm_past_max_k_runs_the_two_pass_kernel(hopper):
     assert torch.equal(y, ref)
 
 
+# the two-pass int8 GEMM on wgmma: chip_smoke.py's three shapes (the
+# head, bench_int8_matmul's, VGG-16's fc6), M = 1 (64-row tiles) at the
+# head and at fc6, a ragged tile in every dimension with K and N off
+# every copy width (byte copies), a ragged 128-row tile, a batch of 256
+# past the fused path's K, and splits of 1, 2, 3, 5, 6 and 8 CTAs a
+# cluster (5 and 6: rows shared unevenly among the cluster's CTAs)
+@pytest.mark.parametrize("m,k,n", [(128, 2048, 1000), (512, 1024, 1024),
+                                   (128, 25088, 4096), (1, 2048, 1000),
+                                   (1, 25088, 4096), (4, 33, 17),
+                                   (130, 260, 17), (65, 1000, 1003),
+                                   (256, 8200, 4100), (64, 4096, 640),
+                                   (128, 2560, 2560), (128, 2048, 2048)])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_quantized_matmul_tensor_core_edges(hopper, m, k, n, out):
+    from zoo_tpu_torch.ops.kernels import quant
+    g = _gen(hopper, 16)
+    xq, wq = _int8((m, k), g, hopper), _int8((k, n), g, hopper)
+    xq[0] = 0                              # an all-zero row: scale 1
+    xs = torch.rand(m, generator=g, device=hopper) + 0.01
+    xs[0] = 1
+    ws = torch.rand(n, generator=g, device=hopper) + 0.01
+    before = quant.QMM_LAUNCHES
+    y = quant.quantized_matmul(xq, wq, xs, ws, out_dtype=out)
+    ref = quant.quantized_matmul_plain(xq, wq, xs, ws, out_dtype=out)
+    torch.cuda.synchronize()
+    assert quant.QMM_LAUNCHES == before + 1
+    assert y.dtype == out and torch.equal(y, ref)
+
+
+def test_quantized_matmul_on_unaligned_views(hopper):
+    # x and w views off every copy width take byte copies
+    from zoo_tpu_torch.ops.kernels import quant
+    g = _gen(hopper, 19)
+    m, k, n = 70, 300, 200
+    xq = _int8((m * k + 3,), g, hopper)[3:].view(m, k)
+    wq = _int8((k * n + 5,), g, hopper)[5:].view(k, n)
+    xs = torch.rand(m, generator=g, device=hopper) + 0.01
+    ws = torch.rand(n, generator=g, device=hopper) + 0.01
+    p = quant.qmm_plan(m, k, n, 1, 1, clusters=quant.cluster_limits(hopper))
+    assert (p.x_vec, p.w_vec) == (0, 0)
+    y = quant.quantized_matmul(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    assert torch.equal(y, quant.quantized_matmul_plain(xq, wq, xs, ws))
+
+
+def test_quantized_matmul_cluster_limits_are_the_cards(hopper):
+    # the CPU plan tests' H100 SXM table, where the card is one
+    from test_torch_tc_plans import H100_CLUSTERS
+
+    from zoo_tpu_torch.ops.kernels import quant
+    limits = quant.cluster_limits(hopper)
+    assert len(limits) == 8 and limits[0] >= limits[-1] >= 1
+    if torch.cuda.get_device_properties(hopper).multi_processor_count == 132:
+        assert limits == H100_CLUSTERS
+
+
+# K past 131071, where int8 data could carry an int32 sum out of range:
+# a Dense on a flattened 224 x 224 x 3 image (K = 150528) and a ragged K
+# (byte copies); on random data the sums stay in range, and the kernel
+# is bit-equal to its plain version, as the JAX kernel is exact there
+@pytest.mark.parametrize("m,k,n", [(128, 150528, 1000), (4, 262147, 17)])
+def test_quantized_matmul_past_k_131071(hopper, m, k, n):
+    from zoo_tpu_torch.ops.kernels import quant
+    g = _gen(hopper, 22)
+    xq, wq = _int8((m, k), g, hopper), _int8((k, n), g, hopper)
+    xs = torch.rand(m, generator=g, device=hopper) + 0.01
+    ws = torch.rand(n, generator=g, device=hopper) + 0.01
+    acc = xq.double() @ wq.double()
+    assert float(acc.abs().max()) < 2 ** 31        # the sums in range
+    before = quant.QMM_LAUNCHES
+    y = quant.quantized_matmul(xq, wq, xs, ws)
+    ref = quant.quantized_matmul_plain(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    assert quant.QMM_LAUNCHES == before + 1
+    assert torch.equal(y, ref)
+
+
+# every product 127 * 127: over K = 140000 the cluster's CTAs each sum
+# in range and their adds pass 2**31; over K = 1200000 each CTA's own
+# s32 wgmma sums do. Both wrap (two's complement), as int32 sums do in
+# the JAX kernel, and nothing saturates
+@pytest.mark.parametrize("k", [140000, 1200000])
+def test_quantized_matmul_int32_sums_wrap_past_their_range(hopper, k):
+    from zoo_tpu_torch.ops.kernels import quant
+    m, n = 2, 8
+    xq = torch.full((m, k), 127, dtype=torch.int8, device=hopper)
+    wq = torch.full((k, n), 127, dtype=torch.int8, device=hopper)
+    ones_m = torch.ones(m, device=hopper)
+    ones_n = torch.ones(n, device=hopper)
+    y = quant.quantized_matmul(xq, wq, ones_m, ones_n)
+    torch.cuda.synchronize()
+    wrapped = (127 * 127 * k + 2 ** 31) % 2 ** 32 - 2 ** 31
+    assert torch.equal(y, torch.full((m, n), float(wrapped), device=hopper))
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_fused_gemm_at_vgg16_fc6_takes_the_two_pass_kernel(hopper, xdt):
+    # VGG-16's fc6 at B=128: K = 25088 > _FUSED_MAX_K, so the fused op
+    # quantizes, then launches quantized_matmul once and no fused kernel
+    from zoo_tpu_torch.ops.kernels import quant
+    g = _gen(hopper, 20)
+    m, k, n = 128, 25088, 4096
+    x = torch.randn(m, k, generator=g, device=hopper).to(xdt)
+    x[0] = 0
+    wq = _int8((k, n), g, hopper)
+    ws = torch.rand(n, generator=g, device=hopper) * 1e-2 + 1e-3
+    before = (quant.QMM_LAUNCHES, quant.FQMM_LAUNCHES)
+    y = quant.fused_quantized_matmul(x, wq, ws)
+    x_q, x_s = quant.quantize_int8(x, axis=-1)
+    ref = quant.quantized_matmul_plain(x_q, wq, x_s, ws, out_dtype=xdt)
+    torch.cuda.synchronize()
+    assert (quant.QMM_LAUNCHES, quant.FQMM_LAUNCHES) == \
+        (before[0] + 1, before[1])
+    assert y.dtype == xdt and torch.equal(y, ref)
+
+
+# the reference conv's backward (the float conv kernel's backward too):
+# deterministic cuDNN algorithms, so two calls on the same inputs give
+# the same bits; at ResNet-50's four timed conv shapes, B=32
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c,k,o,s", [(56, 256, 1, 64, 1),
+                                       (28, 128, 3, 128, 1),
+                                       (56, 256, 1, 512, 2),
+                                       (7, 512, 3, 512, 1)])
+def test_reference_conv_gradients_repeat_bit_for_bit(hopper, dtype, h, c, k,
+                                                     o, s):
+    from zoo_tpu_torch.ops.kernels import conv
+    g = _gen(hopper, 21)
+    oh = -(-h // s)
+    x = torch.randn(32, h, h, c, generator=g, device=hopper).to(dtype)
+    w = (torch.randn(k, k, c, o, generator=g, device=hopper)
+         / math.sqrt(k * k * c)).to(dtype)
+    dy = torch.randn(32, oh, oh, o, generator=g, device=hopper).to(dtype)
+    first = conv.conv2d_plain_grads(x, w, dy, (s, s))
+    second = conv.conv2d_plain_grads(x, w, dy, (s, s))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_inference_wrappers_reject_what_the_kernels_do_not_take(hopper):
     from zoo_tpu_torch.ops.kernels import conv, quant
     x = torch.randn(1, 4, 4, 8, device=hopper)

@@ -6,7 +6,8 @@
 ``flash_plan`` (the bf16 flash forward, ``csrc/flash_attention_fwd.cu``),
 ``flash_f32_plan`` (the f32 flash forward, same file),
 ``flash_bwd_plan`` and ``flash_bwd_f32_plan`` (the bf16 and f32 flash
-backward, ``csrc/flash_attention_bwd.cu``), ``fqmm_plan`` (the fused int8 GEMM,
+backward, ``csrc/flash_attention_bwd.cu``), ``fqmm_plan`` and
+``qmm_plan`` (the fused and the two-pass int8 GEMMs,
 ``csrc/quant_matmul.cu``), ``prefill_plan`` (the paged
 prefill, ``csrc/paged_prefill.cu``), ``decode_plan`` (the paged decode,
 ``csrc/paged_decode.cu``) and ``fused_block.plan`` (the fused
@@ -18,7 +19,9 @@ in-envelope conv of the port's own ResNet-50 (as ``chip_smoke.py``
 enumerates them) at B=128, the ragged shapes of the card tests, and
 every head dim. The wrappers are driven with a stand-in C entry, so the
 order in which they pass the plan is checked too. The f32 conv's
-3xTF32 arithmetic is modelled here too, against a float64 conv.
+3xTF32 arithmetic is modelled here too, against a float64 conv, and
+the two-pass int8 GEMM's turn of w into the K-major tile ``wgmma``
+reads, thread by thread.
 """
 
 import math
@@ -33,6 +36,12 @@ from zoo_tpu_torch.ops.kernels import flash_attention as FA
 
 MAX_SMEM = 232_448            # dynamic shared memory of one H100 block
 NUM_SMS = 132                 # H100 SXM
+# clusters of 1 .. 8 CTAs of the two-pass int8 GEMM that an H100 SXM runs
+# at once (cudaOccupancyMaxActiveClusters, one CTA an SM): its GPCs' SM
+# counts leave 30 clusters of 4 and 15 of 8, not 33 and 16; a card's own
+# counts come from quant.cluster_limits (tests/test_torch_gpu.py holds
+# this table to the card's)
+H100_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15)
 B = 128                       # ResNet-50's batch on the main paths
 # (n, h, w, c, k, o, stride, padding): the ragged conv cases of
 # tests/test_torch_gpu.py, and C % 8 in {2, 3, 6}
@@ -548,6 +557,188 @@ def test_fqmm_wrapper_makes_one_entry_call(monkeypatch, x_dtype, out_dtype):
                     L.alignment(w))
     assert args[9:15] == (p.ctas, p.k_slice, p.stages, p.x_vec, p.w_vec,
                           p.smem)
+
+
+# (m, k, n): the ResNet-50 head, bench_int8_matmul's, VGG-16's fc6 at
+# B=128 and at M = 1, a batch of 256 at fc6, the fused path's largest K
+# and the two-pass path's first, ragged tiles in every dimension, K and N
+# off every copy width, splits of 5 and 6 CTAs, a GEMM of more tiles than
+# the card has SMs, and Dense layers on a flattened 224 x 224 x 3 image
+# (K = 150528, past the 131071 up to which any int8 data's int32 sums
+# are exact) and at a ragged K past it
+QMM_SHAPES = [(128, 2048, 1000), (512, 1024, 1024), (128, 25088, 4096),
+              (1, 25088, 4096), (256, 25088, 4096), (1, 2048, 1000),
+              (4, 33, 17), (8, 8256, 40), (130, 260, 17), (5, 33, 70),
+              (64, 96, 64), (65, 1000, 1003), (3, 1, 1), (128, 2560, 2560),
+              (128, 2048, 2048), (2048, 4096, 4096), (8, 150528, 1000),
+              (128, 150528, 4096), (4, 262147, 17)]
+
+
+def _qmm_ok(tiles, chunks, ctas, clusters):
+    """The constraints _qmm_split holds a K split to."""
+    slice_ = -(-chunks // ctas)
+    return ctas == 1 or (tiles * ctas <= clusters[0]
+                         and tiles <= clusters[ctas - 1]
+                         and (ctas - 1) * slice_ < chunks)
+
+
+@pytest.mark.parametrize("m,k,n", QMM_SHAPES)
+def test_qmm_plan_fits_and_covers_k(m, k, n):
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    p = Q.qmm_plan(m, k, n, clusters=H100_CLUSTERS)
+    assert p.bm == (128 if m > 64 else 64)
+    chunks = -(-k // 128)
+    tiles = -(-m // p.bm) * -(-n // 128)
+    # 128-deep chunks split over 1 .. 8 CTAs, every CTA with one or more
+    assert 1 <= p.ctas <= 8 and p.k_slice % 128 == 0
+    assert p.ctas * p.k_slice >= k > (p.ctas - 1) * p.k_slice
+    assert p.blocks == tiles * p.ctas
+    # every cluster of the grid resident at once on an H100 SXM, and the
+    # split the largest that keeps it so
+    assert _qmm_ok(tiles, chunks, p.ctas, H100_CLUSTERS)
+    assert not any(_qmm_ok(tiles, chunks, c, H100_CLUSTERS)
+                   and tiles * c > p.blocks for c in range(1, 9))
+    # the ring (x chunk + w chunk a slot), two turned w chunks, 1 KB to
+    # align; the int32 C tile (rows of 132) fits over the ring
+    assert p.stages == {64: 7, 128: 5}[p.bm]
+    ring = p.stages * (p.bm * 128 + 128 * 128)
+    assert p.smem == 1024 + ring + 2 * 128 * 128 <= MAX_SMEM
+    assert p.bm * 132 * 4 <= ring
+    assert k % max(p.x_vec, 1) == 0 and n % max(p.w_vec, 1) == 0
+
+
+def test_qmm_plan_fills_the_card():
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    # the head: 8 tiles split 8 ways, 256 columns of K a CTA
+    p = Q.qmm_plan(128, 2048, 1000, clusters=H100_CLUSTERS)
+    assert p[:3] == (128, 8, 256) and p.blocks == 64
+    # fc6: one 128-row tile covers M, so w streams once; 32 tiles in
+    # clusters of 3 (96 CTAs): 4 would leave 2 clusters to a second
+    # wave, as an H100 runs 30 clusters of 4 at once
+    p = Q.qmm_plan(128, 25088, 4096, clusters=H100_CLUSTERS)
+    assert (p.bm, p.ctas, p.k_slice, p.blocks, p.x_vec, p.w_vec) == \
+        (128, 3, 8448, 96, 16, 16)
+    assert 32 > H100_CLUSTERS[3]
+    # a card that runs 32 clusters of 4 gets 128 CTAs there
+    more = (132, 66, 44, 33, 26, 22, 18, 16)
+    assert Q.qmm_plan(128, 25088, 4096, clusters=more)[:2] == (128, 4)
+    assert Q.qmm_plan(512, 1024, 1024, clusters=H100_CLUSTERS)[:2] == (128, 3)
+    assert Q.qmm_plan(1, 25088, 4096, clusters=H100_CLUSTERS)[:2] == (64, 3)
+    # 16 and 20 tiles: 8 or 6 would not all be resident
+    assert Q.qmm_plan(128, 2048, 2048, clusters=H100_CLUSTERS)[:2] == (128, 6)
+    assert Q.qmm_plan(128, 2560, 2560, clusters=H100_CLUSTERS)[:2] == (128, 5)
+
+
+@pytest.mark.parametrize("align,x_vec,w_vec", [(16, 16, 8), (8, 8, 8),
+                                               (4, 4, 4), (2, 0, 0),
+                                               (1, 0, 0)])
+def test_qmm_plan_narrows_the_copies(align, x_vec, w_vec):
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    p = Q.qmm_plan(128, 2048, 1000, align, align, clusters=H100_CLUSTERS)
+    assert (p.x_vec, p.w_vec) == (x_vec, w_vec)
+    # odd K and N: byte copies; K of 8 bytes a row: 8-byte copies
+    assert Q.qmm_plan(4, 33, 17, clusters=H100_CLUSTERS)[4:6] == (0, 0)
+    assert Q.qmm_plan(4, 8, 12, clusters=H100_CLUSTERS)[4:6] == (8, 4)
+
+
+def test_qmm_plan_refuses_what_the_kernel_does_not_take():
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    with pytest.raises(ValueError, match="empty"):
+        Q.qmm_plan(0, 64, 64, clusters=H100_CLUSTERS)
+    with pytest.raises(ValueError, match="empty"):
+        Q.qmm_plan(4, 64, 0, clusters=H100_CLUSTERS)
+    # no K limit (the int32 sums wrap past their range, as the JAX
+    # kernel's do): a Dense on a flattened 224 x 224 x 3 image plans
+    p = Q.qmm_plan(128, 150528, 1000, clusters=H100_CLUSTERS)
+    assert p.ctas * p.k_slice >= 150528 > (p.ctas - 1) * p.k_slice
+    # the card's cluster counts are an argument, never a default
+    with pytest.raises(TypeError):
+        Q.qmm_plan(128, 2048, 1000)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(128, 2048, 1000), (128, 25088, 4096),
+                                   (4, 33, 17)])
+def test_qmm_wrapper_makes_one_entry_call(monkeypatch, out_dtype, m, k, n):
+    from zoo_tpu_torch.ops.kernels import quant as Q
+    fn = _Entry()
+    monkeypatch.setattr(Q, "_entries", lambda: (None, fn, None))
+    monkeypatch.setattr(Q, "cluster_limits", lambda dev: H100_CLUSTERS)
+    monkeypatch.setattr(L, "stream", lambda dev: 7)
+    x = _meta(m, k, dtype=torch.int8)
+    w = _meta(k, n, dtype=torch.int8)
+    xs, ws = _meta(m, 1, dtype=torch.float32), _meta(1, n,
+                                                      dtype=torch.float32)
+    before = Q.QMM_LAUNCHES
+    y = Q.quantized_matmul(x, w, xs, ws, out_dtype)
+    # one entry call: the wrapper allocates only the output
+    assert y.shape == (m, n) and y.dtype == out_dtype
+    assert Q.QMM_LAUNCHES == before + 1
+    (args,) = fn.calls
+    assert len(args) == 5 + 4 + 5 + 1 and args[-1] == 7
+    assert args[0] == x.data_ptr() and args[4] == y.data_ptr()
+    assert args[5] == L.DTYPE_CODES[out_dtype]
+    assert args[6:9] == (m, k, n)
+    # the kernel derives its ring slots and shared memory from bm
+    p = Q.qmm_plan(m, k, n, L.alignment(x), L.alignment(w),
+                   clusters=H100_CLUSTERS)
+    assert args[9:14] == (p.bm, p.ctas, p.k_slice, p.x_vec, p.w_vec)
+
+
+def _turn_model(w):
+    """csrc/quant_matmul.cu's qm::turn_w on a 128 x 128 int8 chunk ``w``
+    (k rows, as it lies), thread by thread: the chunk as load_w places
+    it (RawUnit), each thread's 16 4-byte reads, its transpose4 and its
+    4 16-byte writes; returns the turned tile and, per warp, the banks of
+    each read instruction and the (row, unit) of each quarter-warp's
+    16-byte stores."""
+    raw = np.zeros(128 * 128, np.uint8)
+    for k in range(128):
+        for u in range(8):
+            dst = k * 128 + (u ^ ((k >> 4) & 7)) * 16
+            raw[dst:dst + 16] = w[k, 16 * u:16 * u + 16]
+    bt = np.full(128 * 128, 255, np.uint8)
+    reads, writes = {}, {}
+    for warp in range(8):
+        for lane in range(32):
+            kg, word = lane & 7, lane >> 3
+            ng = 4 * warp + word
+            v = np.zeros((4, 4, 4), np.uint8)     # [q][i] 4 bytes
+            for q in range(4):
+                for i in range(4):
+                    k = 16 * kg + 4 * q + i
+                    a = k * 128 + (warp ^ ((k >> 4) & 7)) * 16 + word * 4
+                    v[q, i] = raw[a:a + 4]
+                    reads.setdefault((warp, q, i), []).append(a // 4 % 32)
+            for j in range(4):
+                n = 4 * ng + j
+                # transpose4: byte j of rows 4q .. 4q+3, lowest k first
+                unit = np.concatenate([v[q, :, j] for q in range(4)])
+                a = n * 128 + (kg ^ (n & 7)) * 16
+                bt[a:a + 16] = unit
+                writes.setdefault((warp, j, word), []).append(
+                    (n, a // 16 % 8))
+    return bt.reshape(128, 128), reads, writes
+
+
+def test_qmm_turn_gives_the_k_major_tile_wgmma_reads():
+    rs = np.random.RandomState(3)
+    w = rs.randint(0, 256, (128, 128)).astype(np.uint8)
+    bt, reads, writes = _turn_model(w)
+    # row n holds column n of w over the chunk's 128 k, its 16-byte unit
+    # j at j ^ (n % 8): the 128-byte swizzle of a K-major wgmma operand
+    want = np.zeros((128, 128), np.uint8)
+    for n in range(128):
+        for j in range(8):
+            p = j ^ (n & 7)
+            want[n, 16 * p:16 * p + 16] = w[16 * j:16 * j + 16, n]
+    assert np.array_equal(bt, want)
+    # each read instruction of a warp touches 32 different banks; each
+    # quarter-warp's 16-byte stores fill one row's 8 units
+    assert all(sorted(b) == list(range(32)) for b in reads.values())
+    for stores in writes.values():
+        assert len({n for n, _ in stores}) == 1
+        assert sorted(u for _, u in stores) == list(range(8))
 
 
 def _round_quotient(v, s):

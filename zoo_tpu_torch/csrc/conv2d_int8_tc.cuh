@@ -9,8 +9,9 @@
 //
 // The product: rows are the N*OH*OW output pixels, columns the O output
 // channels, the reduction runs over taps x C (tap-major, BK channels a
-// step), as in the bf16 kernel (conv2d_tc.cuh), whose descriptor,
-// swizzle, row-origin and wgmma-group helpers this one uses.
+// step), as in the bf16 kernel (conv2d_tc.cuh), whose swizzle and
+// row-origin helpers this one uses, with zt_mma.cuh's descriptor,
+// wgmma-group and s8 wgmma helpers.
 //
 // What bounds it on an H100 (1979 TOP/s int8, 3.35 TB/s): bytes for
 // ResNet-50's 1x1 convs at 56x56 (about 100 int8 operations per byte),
@@ -49,66 +50,6 @@ namespace zt {
 namespace conv_i8 {
 
 using conv_tc::desc;
-
-// d (this warpgroup's 64 x N s32 fragment) += A (64 x 32, K-major) *
-// B (32 x N, K-major)
-__device__ __forceinline__ void wgmma_n64(int (&d)[32], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_n128(int (&d)[64], uint64_t a,
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma(int (&d)[BN / 2], uint64_t a,
-                                      uint64_t b) {
-  if constexpr (BN == 128) {
-    wgmma_n128(d, a, b);
-  } else {
-    static_assert(BN == 64, "BN: 64 or 128");
-    wgmma_n64(d, a, b);
-  }
-}
 
 constexpr int kBM = 128;                 // output rows of a block
 constexpr int kThreads = 2 * kBM;        // a warpgroup per 64 rows
@@ -242,10 +183,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int kk = 0; kk < BK / 32; ++kk)
       // A: this warpgroup's 64 rows, B: BN rows; both K-major, 8-row
       // groups kGroupBytes apart, k32 steps 32 bytes along the row
-      wgmma<BN>(acc,
-                desc(a_base + wg * 64 * BK + kk * 32, 0, T::kGroupBytes,
-                     T::kMode),
-                desc(b_base + kk * 32, 0, T::kGroupBytes, T::kMode));
+      mma::wgmma_s8<BN>(acc,
+                        desc(a_base + wg * 64 * BK + kk * 32, 0,
+                             T::kGroupBytes, T::kMode),
+                        desc(b_base + kk * 32, 0, T::kGroupBytes, T::kMode));
     conv_tc::wgmma_commit();
     conv_tc::wgmma_wait<T::kInflight>();
   }

@@ -69,41 +69,15 @@ using bf16 = __nv_bfloat16;
 
 // ----------------------------------------------------------- wgmma
 
-// Swizzle modes of a matrix descriptor (bits 62-63)
-constexpr uint64_t kSwizzle128 = 1, kSwizzle64 = 2;
-
-// Shared-memory matrix descriptor: start address, leading- and
-// stride-dimension byte offsets (each >> 4), swizzle mode (128-byte by
-// default; the int8 conv also reads 64-byte rows in the 64-byte one).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo,
-                                         uint64_t mode = kSwizzle128) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16 |
-         static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32 | mode << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N of this warpgroup's wgmma groups are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() { wgmma_wait<0>(); }
-
-// make this thread's generic-proxy writes to shared memory (cp.async,
-// st.shared) visible to the async proxy wgmma reads through
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
+// the descriptor, fence and group helpers of zt_mma.cuh
+using mma::desc;
+using mma::fence_proxy_async;
+using mma::kSwizzle128;
+using mma::kSwizzle64;
+using mma::wgmma_commit;
+using mma::wgmma_fence;
+using mma::wgmma_wait;
+using mma::wgmma_wait_all;
 
 // d (this warpgroup's 64 x N f32 fragment) += A (64 x 16, K-major) *
 // B (16 x N, MN-major: the trans-b flag is 1)

@@ -362,12 +362,15 @@ def _pads(x, w, strides, padding: Union[str, Pads]) -> Pads:
     return tuple(map(tuple, padding))
 
 
-def _no_tf32():
+def _no_tf32(deterministic=None):
     """Full f32 products: cuDNN would otherwise take TF32 for f32
-    convs."""
+    convs. ``deterministic=True`` also keeps cuDNN to algorithms that
+    give the same bits every run (None: the caller's setting)."""
     cudnn = torch.backends.cudnn
+    if deterministic is None:
+        deterministic = cudnn.deterministic
     return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+                       deterministic=deterministic, allow_tf32=False)
 
 
 def _padded_nchw(x, pads: Pads, dtype) -> torch.Tensor:
@@ -395,7 +398,13 @@ def conv2d_plain_grads(x, w, dy, strides: Tuple[int, int] = (1, 1),
     """``(dx, dw)``, the gradients of the reference conv in ``x``'s
     dtype (f32 sums, TF32 off) at ``x``, ``w`` for the output gradient
     ``dy``: the float kernel's backward. A gradient whose ``needs`` flag
-    is False is not computed (None)."""
+    is False is not computed (None).
+
+    cuDNN runs it with deterministic algorithms: its default ones split
+    f32 ``dw`` sums (1x1 convs) and ``dx`` sums (7x7 3x3) across blocks
+    in an order that changes from run to run, so two ``fit`` runs of one
+    seed on the card ended apart; with them, a ``fit`` repeats itself
+    bit for bit, as JAX's does."""
     strides = tuple(strides)
     pads = _pads(x, w, strides, padding)
     (pt, _), (pl, _) = pads
@@ -404,7 +413,7 @@ def conv2d_plain_grads(x, w, dy, strides: Tuple[int, int] = (1, 1),
     wn = w.to(dt).permute(3, 2, 0, 1)
     dyn = dy.to(dt).permute(0, 3, 1, 2)
     dx = dw = None
-    with _no_tf32():
+    with _no_tf32(deterministic=True):
         if needs[0]:
             dx = torch.nn.grad.conv2d_input(xn.shape, wn, dyn,
                                             stride=strides)

@@ -4,13 +4,19 @@
 Weights are int8 per output channel, symmetric; activations are
 quantized per row (Dense) or per image (conv) at run time; the product
 runs int8 x int8 -> int32 with the dequant fused into the epilogue. The
-kernels are ``zoo_tpu_torch/csrc/quant_matmul.cu`` (its header says
-what bounds them): :func:`quantized_matmul` takes quantized activations
-and their scales, :func:`fused_quantized_matmul` quantizes float
-activations inside the kernel, on the int8 tensor cores with the plan
-:func:`fqmm_plan` counts. Beside each is its plain PyTorch
-version, which sums the integer products in float64 (exact) and applies
-the same f32 epilogue, so kernel and plain version agree bit for bit.
+kernels are ``zoo_tpu_torch/csrc/quant_matmul.cu``, both on the int8
+tensor cores with the K split over a thread-block cluster:
+:func:`quantized_matmul` takes quantized activations and their scales
+(``wgmma`` s8, plan :func:`qmm_plan`), :func:`fused_quantized_matmul`
+quantizes float activations inside the kernel (``mma.sync`` s8, plan
+:func:`fqmm_plan`). Both are bound by the bytes of the weights, which
+they stream once: the plans split K until the grid fills the card in
+one wave, and the two-pass kernel takes 128-row tiles where M > 64, so
+at VGG-16's fc6 (M=128, K=25088, the path every Dense past
+``_FUSED_MAX_K`` takes) one row tile covers the batch and no weight
+byte is fetched twice. Beside each kernel is its plain PyTorch version,
+which sums the integer products in float64 (exact) and applies the same
+f32 epilogue, so kernel and plain version agree bit for bit.
 
 The per-image activation quantization of :func:`quantized_conv2d` stays
 plain PyTorch, as it is XLA in the JAX package; its integer conv goes
@@ -99,17 +105,124 @@ def fqmm_plan(m: int, k: int, n: int, x_itemsize: int = 4,
                     L.copy_bytes(n, w_align), smem, tiles * ctas)
 
 
+# the two-pass kernel's tiles (csrc/quant_matmul.cu, qm::): 128 output
+# rows where M > 64, else 64; 128 columns; 128-deep chunks; ring slots by
+# tile rows, beside two K-major w chunks and 1 KB to align the ring
+QMM_BN, QMM_BK = 128, 128
+QMM_STAGES = {64: 7, 128: 5}
+
+
+class QmmPlan(NamedTuple):
+    """Launch plan of the two-pass int8 GEMM: ``bm`` rows (64 or 128)
+    and 128 columns a tile, ``ctas`` CTAs (a cluster) splitting K for
+    it, each taking ``k_slice`` columns of x; ``stages`` ring slots;
+    ``x_vec`` and ``w_vec`` bytes a copy of x and w (16, 8 or 4 by
+    ``cp.async``; 0: element copies); ``smem`` bytes of dynamic shared
+    memory; ``blocks`` CTAs in the grid."""
+    bm: int
+    ctas: int
+    k_slice: int
+    stages: int
+    x_vec: int
+    w_vec: int
+    smem: int
+    blocks: int
+
+
+def qmm_smem(bm: int) -> int:
+    """Shared memory of the two-pass kernel's ``bm``-row tiles: the ring
+    (per slot a bm x 128 x chunk and a 128 x 128 w chunk as it lies),
+    two w chunks turned K-major, 1 KB to align the ring; the int32 C
+    tile goes over the ring at the end."""
+    return 1024 + QMM_STAGES[bm] * (bm + QMM_BN) * QMM_BK \
+        + 2 * QMM_BN * QMM_BK
+
+
+def _qmm_split(tiles: int, chunks: int, clusters) -> int:
+    """CTAs a cluster (1 .. 8) for ``tiles`` output tiles over ``chunks``
+    128-deep chunks: the most CTAs in one wave, every cluster resident
+    at once (``clusters[c - 1]`` of c CTAs fit the card) and every CTA
+    with at least one chunk."""
+    best = 1
+    for c in range(2, FQMM_MAX_CTAS + 1):
+        slice_ = -(-chunks // c)
+        if (tiles * c <= clusters[0] and tiles <= clusters[c - 1]
+                and (c - 1) * slice_ < chunks):
+            best = c
+    return best
+
+
+@functools.lru_cache(maxsize=256)
+def qmm_plan(m: int, k: int, n: int, x_align: int = 16,
+             w_align: int = 16, *, clusters: Tuple[int, ...]) -> QmmPlan:
+    """The two-pass kernel's plan for (m, k) int8 x (k, n) int8, x and w
+    pointers aligned to ``x_align`` and ``w_align`` bytes, on a card
+    that runs ``clusters[c - 1]`` clusters of c CTAs at once (the card's
+    counts: :func:`cluster_limits`).
+
+    - Tiles: 128 rows where m > 64 (at M = 128 one tile covers the
+      batch, so each weight byte is fetched once), else 64; 128 columns.
+    - K split: the cluster size that puts the most CTAs in one wave
+      (:func:`_qmm_split`); each CTA takes ``k_slice`` columns, a
+      multiple of 128. At VGG-16's fc6 (M=128, K=25088, N=4096): 32
+      tiles in clusters of 3, 96 CTAs, where 4 would leave 2 of the 32
+      clusters to a second wave.
+    - Copies: the widest of 16, 8 and 4 bytes that divides a row (of x:
+      k bytes; of w: n bytes) and the pointer, else element copies; the
+      x copies land straight in the A tile.
+    - Shared memory: :func:`qmm_smem` (the kernel derives the ring
+      slots and the bytes from ``bm``; the plan keeps them for the fit
+      checks).
+
+    K has no limit: the int32 sums are exact for any int8 data while K
+    * 128 * 128 < 2**31 (K <= 131071) and, past that, wherever the data
+    keep them in range; beyond it they wrap, as the JAX kernel's int32
+    sums do.
+    """
+    if min(m, k, n) < 1:
+        raise ValueError(f"empty int8 GEMM ({m}, {k}) x ({k}, {n})")
+    bm = 128 if m > 64 else 64
+    chunks = -(-k // QMM_BK)
+    tiles = -(-m // bm) * -(-n // QMM_BN)
+    ctas = _qmm_split(tiles, chunks, clusters)
+    return QmmPlan(bm, ctas, -(-chunks // ctas) * QMM_BK, QMM_STAGES[bm],
+                   L.copy_bytes(k, x_align), L.copy_bytes(n, w_align),
+                   qmm_smem(bm), tiles * ctas)
+
+
 def _entries():
     global _fns
     if _fns is None:
         from zoo_tpu_torch.ops.kernels._build import library
         lib = library("quant_matmul")
         qmm, fqmm = lib.zt_quantized_matmul, lib.zt_fused_quantized_matmul
-        qmm.argtypes = [L.P] * 5 + [L.I] * 4 + [L.P]
+        qmm.argtypes = [L.P] * 5 + [L.I] * 9 + [L.P]
         fqmm.argtypes = [L.P, L.I, L.P, L.P, L.P] + [L.I] * 10 + [L.P]
+        lib.zt_quantized_matmul_clusters.argtypes = [L.I] * 2
         qmm.restype = fqmm.restype = L.I
+        lib.zt_quantized_matmul_clusters.restype = L.I
         _fns = (lib, qmm, fqmm)
     return _fns
+
+
+def cluster_limits(device: torch.device) -> Tuple[int, ...]:
+    """Clusters of 1 .. 8 CTAs of the two-pass kernel that CUDA
+    ``device`` runs at once (128-row tiles' shared memory; 64-row ones
+    also take one CTA an SM), as the CUDA runtime counts them."""
+    index = device.index
+    return _cluster_limits(torch.cuda.current_device() if index is None
+                           else index)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_limits(index: int) -> Tuple[int, ...]:
+    lib = _entries()[0]
+    with torch.cuda.device(index):
+        out = tuple(lib.zt_quantized_matmul_clusters(128, c)
+                    for c in range(1, FQMM_MAX_CTAS + 1))
+    if min(out) < 1:
+        raise RuntimeError(f"cluster occupancy query failed: {out}")
+    return out
 
 
 def absmax_scale(amax: torch.Tensor) -> torch.Tensor:
@@ -155,7 +268,7 @@ def quantized_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     ``w_scale`` (1, N) or (N,) per output channel.
 
     CPU tensors take :func:`quantized_matmul_plain`; CUDA tensors launch
-    the kernel (or raise)."""
+    the kernel once, with the plan :func:`qmm_plan` counts (or raise)."""
     global QMM_LAUNCHES
     m, k = x_q.shape
     k2, n = w_q.shape
@@ -173,9 +286,12 @@ def quantized_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
         raise TypeError(f"out_dtype {out_dtype}: the kernel writes f32 or "
                         "bf16")
     y = torch.empty((m, n), dtype=out_dtype, device=dev)
+    p = qmm_plan(m, k, n, L.alignment(x_q), L.alignment(w_q),
+                 clusters=cluster_limits(dev))
     lib, qmm, _ = _entries()
     rc = qmm(L.ptr(x_q), L.ptr(w_q), L.ptr(xs), L.ptr(ws), L.ptr(y),
-             L.DTYPE_CODES[out_dtype], m, k, n, L.stream(dev))
+             L.DTYPE_CODES[out_dtype], m, k, n, p.bm, p.ctas, p.k_slice,
+             p.x_vec, p.w_vec, L.stream(dev))
     L.check(lib, rc, "quantized_matmul")
     QMM_LAUNCHES += 1
     return y
