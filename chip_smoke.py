@@ -31,7 +31,12 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    ``scaled_dot_product_attention`` as a yardstick the port never calls;
 4. tiny — ``llama:tiny`` greedy streams through the engine with the
    kernels equal the streams with every plain version, token for
-   token, on the bucket and ``chunk=4`` paths;
+   token, on the bucket and ``chunk=4`` paths; then
+   ``llama:tiny:spec_k=4`` (speculative decoding) on prompts tiled from
+   a 16-token motif, greedy and seeded (temperature 0.9, top_k 16): the
+   kernel streams equal the plain path's and the same model's with the
+   engine at ``spec_k=0``, and the verify passes launch the paged
+   prefill and no paged decode;
 4b. train-tiny — a tiny Llama ``fit`` (T=32, B=4, 2 shuffled epochs,
    f32) through the flash kernels and the fused AdamW kernel equals the
    same ``fit`` through the dense attention and the plain update;
@@ -43,7 +48,15 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    run and must show each kernel of that path. After the bucket run,
    ``tick`` lines profile decode ticks of the same model, with the
    paged-decode kernel and with its plain version (device time by group,
-   device launches per tick);
+   device launches per tick). Then a ``spec_k=4`` model on prompts of
+   the same lengths tiled from a 16-token motif, its engine at
+   ``spec_k=4`` (the verify pass: paged prefill, no paged decode) and
+   at ``spec_k=0`` (plain decode), each line with TTFTs, decode
+   tokens/s, the drafter's counters and peak memory, and whether the
+   two runs' streams are equal (printed, not asserted), with ``tick``
+   lines (``"path": "verify"``) profiling verify passes of 8 slots x 5
+   rows of that model, through the paged-prefill kernel and its plain
+   version;
 6. train-main — Keras ``fit`` of the repo's Llama training config
    (``bench.py`` ``bench_llama``: vocab 32000, hidden 768, 12 blocks, 12
    heads, 4 kv heads, intermediate 2048) at full width and depth, S=512,
@@ -124,14 +137,18 @@ a yardstick the port never calls.
 The bf16, f32 and int8 convs (per shape and summed; the f32 conv also
 beside its 3xTF32 bound), the bf16 flash forward and backward kernels at the training
 shape, the f32 flash forward and the paged prefill at the serving
-shape and the int8 GEMMs at their GEMM shapes also print TFLOP/s
+shape (and at the speculative verify pass's: 8 slots x 5 rows, starts
+200-263 and one slot past the context, held to its plain version for
+f32 and int8 caches, under ``verify_shape``) and the int8 GEMMs at
+their GEMM shapes also print TFLOP/s
 (TOP/s for int8), the share of their bound they reach and, where there
 is one, their time over the library call's; the f32 flash forward and
 the int8 GEMMs also print their launch plans. The paged prefill is also
 held to its plain version at a one-row and a 17-row chunk of three
 sequences.
 
-Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route;
+Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route
+and its launches by main path, ``serve_spec`` the speculative run's;
 for ``conv2d`` and the three flash kernels the numbers are the bf16
 route's, the f32 route's sit under ``f32_route``), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device":
@@ -205,6 +222,9 @@ TOL = {"float32": 1e-4, "bfloat16": 3e-2, "update": 1e-6,
        "conv_f32": 1e-5, "conv_bf16": 2.0 ** -7, "int8": 0.0,
        "block": 2.0 ** -6, "block_grad": 2e-2}
 TOL_TINY_F32 = 1e-5
+# the engine's speculative counters, printed for each speculative run
+SPEC_STATS = ("spec_k", "spec_proposed_tokens", "spec_accepted_tokens",
+              "spec_accept_rate", "spec_draft_hit_rate")
 # The fused bottleneck against its plain version ("block"): within 2**-6
 # of the largest output (both round t1, t2, z3 and y to bf16 and may land
 # on either side of a tie after summing in another order); its gradients
@@ -749,6 +769,51 @@ def phase_kernels(torch):
                 plan={"splits": plan.splits, "blocks": plan.blocks,
                       "smem": plan.smem},
                 **rates(flops, t["ms"], b_ms, None))
+
+    # -- C2: the speculative verify pass, 8 slots x k + 1 = 5 rows ------
+    # per-slot starts across 200-263 and one slot whose rows run past
+    # the 512-token context (clamped: they repeat position 511)
+    CV = 5
+    starts = torch.tensor([200, 209, 218, 227, 236, 245, 263, 509],
+                          device=dev)
+    pos_v = (starts[:, None] + torch.arange(CV, device=dev)[None]).clamp(
+        max=W * BS - 1).to(torch.int32)
+    qv = randn(S, CV, H, D)
+    verify_err = 0.0
+    for kind in ("f32", "int8"):
+        c = cache(kind)
+        o = PP.paged_flash_prefill(qv, c[0], c[1], tables, pos_v,
+                                   k_scale=c[2], v_scale=c[3])
+        ro = PP.paged_prefill_plain(qv, c[0], c[1], tables, pos_v,
+                                    k_scale=c[2], v_scale=c[3])
+        torch.cuda.synchronize()
+        e = err(o, ro)
+        verify_err = max(verify_err, e)
+        record("paged_prefill", f"verify S={S} C={CV} cache {kind}", e,
+               "float32")
+        if kind == "f32":
+            rows = int((pos_v.max(dim=1).values.long() + 1).sum())
+            pairs = int((pos_v.long() + 1).sum())
+            flops = 4 * pairs * H * D
+            b_ms, b_by = bound(
+                cache_bytes(c, rows) + 2 * qv.numel() * 4 + S * CV * 4
+                + S * W * 4, flops)
+            t = timing(
+                torch, "paged_prefill",
+                lambda: PP.paged_flash_prefill(qv, c[0], c[1], tables,
+                                               pos_v),
+                lambda: PP.paged_prefill_plain(qv, c[0], c[1], tables,
+                                               pos_v), None, 100)
+            plan = PP.prefill_plan(S, CV, HKV, H // HKV, D, BS, W, 4)
+            verify_shape = dict(
+                t, bound_ms=b_ms, bound_by=b_by,
+                shape=f"S={S} C={CV} H={H} Hkv={HKV} D={D} f32, starts "
+                      f"{starts.tolist()}, rows past 511 clamped",
+                plan={"splits": plan.splits, "blocks": plan.blocks,
+                      "smem": plan.smem},
+                **rates(flops, t["ms"], b_ms, None))
+    results["paged_prefill"]["verify_shape"] = dict(
+        verify_shape, max_abs_err=verify_err)
     phase_training_kernels(torch, record, err, results)
     phase_inference_kernels(torch, record, err, results)
     phase_block_kernels(torch, record, err, results)
@@ -2493,12 +2558,12 @@ def phase_train_f32_main(torch, K, card):
         "flash_attention_dq", "fused_adam", "fused_sgd")}
 
 
-def drive(engine, prompts, n_new, budget=600.0):
+def drive(engine, prompts, n_new, budget=600.0, sampling=None):
     """Submit every prompt at once, wait for all streams; returns the
     handles and the wall time."""
     t0 = time.perf_counter()
-    hs = [engine.submit(p, n_new, rid=f"q{i}") for i, p in
-          enumerate(prompts)]
+    hs = [engine.submit(p, n_new, rid=f"q{i}", sampling=sampling)
+          for i, p in enumerate(prompts)]
     end = time.monotonic() + budget
     for h in hs:
         while not h.done:
@@ -2544,47 +2609,124 @@ def phase_tiny(torch, K):
         for k in need + ("paged_decode",):
             if counts[k] <= 0:
                 raise AssertionError(f"{spec}: {k} never launched")
+    phase_tiny_spec(torch, K, plain)
 
 
-def phase_tick(torch, m, card, ticks=10):
-    """Where a decode tick's time goes: every slot prefilled with a
-    200-token prompt, then ticks of all slots straight through ``m`` (no
-    engine threads), with the paged-decode kernel and with its plain
-    version. Per tick: CUDA-event wall time back to back, device time by
-    group (matrix products, the paged-decode kernel, the rest) and the
-    device's busy share of the wall time."""
+def motif_prompts(vocab, lengths, seed):
+    """Prompts of the given lengths tiled from one 16-token motif: text
+    that repeats itself, which the prompt-lookup drafter can draft."""
+    import numpy as np
+    motif = np.random.RandomState(seed).randint(0, vocab, (16,))
+    return [np.resize(motif, n) for n in lengths]
+
+
+def phase_tiny_spec(torch, K, plain):
+    """``llama:tiny:spec_k=4`` on motif-tiled prompts: the kernel streams
+    equal the plain path's, greedy and seeded (temperature 0.9, top_k
+    16), and the same model's with the engine at ``spec_k=0``."""
+    from zoo_tpu_torch.serving.llm import LLMEngine, build_llm_engine
+
+    spec = "llama:tiny:spec_k=4"
+    prompts = motif_prompts(256, (5, 40, 200), 5)
+    seeded = {"temperature": 0.9, "top_k": 16}
+    for leg, sampling in (("greedy", None), ("seeded", seeded)):
+        eng = build_llm_engine(spec, device="cuda", start=False)
+        model = eng.model
+        engines = (("kernels", eng),
+                   ("plain", build_llm_engine(spec, device="cuda",
+                                              start=False,
+                                              params=model.params, **plain)),
+                   ("kernels_spec_k=0", LLMEngine(model, spec_k=0)))
+        streams, counts, stats = {}, None, None
+        for label, eng in engines:
+            K.reset_launch_counts()
+            eng.start()
+            try:
+                hs, _ = drive(eng, prompts, 16, sampling=sampling)
+                st = eng.stats()
+            finally:
+                eng.stop()
+            if label == "kernels":
+                counts, stats = K.launch_counts(), st
+            bad = [(h.outcome, h.error) for h in hs if h.outcome != "ok"]
+            if bad or eng.allocator.used_blocks:
+                raise AssertionError(f"{spec} {leg} {label}: {bad}, "
+                                     f"{eng.allocator.used_blocks} blocks "
+                                     "leaked")
+            streams[label] = [h.tokens for h in hs]
+        equal = streams["kernels"] == streams["plain"]
+        equal_nospec = streams["kernels"] == streams["kernels_spec_k=0"]
+        emit({"phase": "tiny", "spec": spec, "leg": leg,
+              "streams_equal": equal, "streams_equal_nospec": equal_nospec,
+              "launches": counts, "compiles": stats["compiles"],
+              **{k: stats[k] for k in SPEC_STATS}})
+        if not (equal and equal_nospec):
+            raise AssertionError(f"{spec} {leg}: kernel streams differ: "
+                                 f"{streams}")
+        passes = stats["compiles"]["verify"]
+        if passes <= 0 or counts["paged_decode"] or \
+                counts["paged_prefill"] != model.cfg.n_block * passes:
+            raise AssertionError(f"{spec} {leg}: the verify passes must "
+                                 "launch paged_prefill once a layer and "
+                                 f"paged_decode never: {counts}, "
+                                 f"{stats['compiles']}")
+
+
+def phase_tick(torch, m, card, ticks=10, path="decode"):
+    """Where a decode tick's (``path="decode"``) or a speculative verify
+    pass's (``path="verify"``: (slots, spec_k + 1) rows, greedy, rows
+    rewritten at the same positions each cycle of 6 passes) time goes:
+    every slot prefilled with a 200-token prompt, then passes of all
+    slots straight through ``m`` (no engine threads), with the paged
+    kernel (decode or prefill) and with its plain version. Per pass:
+    CUDA-event wall time back to back, device time by group (matrix
+    products, the paged kernel, the rest) and the device's busy share
+    of the wall time."""
     import numpy as np
     S, W, n_prompt = m.num_slots, m.max_blocks_per_seq, 200
-    per_slot = (n_prompt + 2 * ticks + 3) // m.block_size + 1
+    T = m.spec_k + 1 if path == "verify" else 1
+    span = T * 6 if path == "verify" else 2 * ticks + 3
+    per_slot = (n_prompt + span) // m.block_size + 1
     tables = np.zeros((S, W), np.int32)
     for i in range(S):                       # private blocks, 0 is trash
         tables[i, :per_slot] = 1 + per_slot * i + np.arange(per_slot)
     rs = np.random.RandomState(11)
     first = np.array([m.prefill(rs.randint(0, m.cfg.vocab, (n_prompt,)),
                                 tables[i]) for i in range(S)], np.int32)
+    rows = rs.randint(0, m.cfg.vocab, (S, T)).astype(np.int32)
+    rows[:, 0] = first
     lanes = (np.zeros(S, np.float32), np.zeros(S, np.int32),
              np.ones(S, np.float32), np.zeros(S, np.uint32))
     fresh = np.ones(S, bool)
+    kernel = "paged_decode" if path == "decode" else "paged_prefill"
+    attr = f"{'decode' if path == 'decode' else 'prefill'}_attention_impl"
 
     def group(name):
         n = name.lower()
-        if "paged_decode_kernel" in n:
-            return "paged_decode"
+        if kernel + "_kernel" in n or kernel + "_merge" in n:
+            return kernel
         if any(s in n for s in ("gemm", "gemv", "cutlass", "matmul")):
             return "matmul"
         return "other"
 
-    impl0 = m.decode_attention_impl
+    impl0 = getattr(m, attr)
     try:
         for impl in ("flash", "dense"):
-            m.decode_attention_impl = impl
+            setattr(m, attr, impl)
             st = {"prev": None, "t": 0}
 
             def tick():
                 prev = st["prev"]
-                st["prev"] = m.decode_step(
-                    prev, first, fresh if prev is None else ~fresh, tables,
-                    np.full(S, n_prompt + st["t"], np.int32), lanes)
+                if path == "verify":
+                    st["prev"] = m.verify_step(
+                        rows, tables,
+                        np.full(S, n_prompt + T * (st["t"] % 6), np.int32),
+                        lanes)
+                else:
+                    st["prev"] = m.decode_step(
+                        prev, first, fresh if prev is None else ~fresh,
+                        tables, np.full(S, n_prompt + st["t"], np.int32),
+                        lanes)
                 st["t"] += 1
 
             t = timed(torch, tick, ticks)
@@ -2595,8 +2737,9 @@ def phase_tick(torch, m, card, ticks=10):
             top = sorted(t["by_name"].items(), key=lambda kv: -kv[1])[:6]
             host = sorted(t["host_by_name"].items(),
                           key=lambda kv: -kv[1])[:8]
-            emit({"phase": "tick", "decode_impl": impl, "card": card,
-                  "slots": S, "context": n_prompt, "ticks": ticks,
+            emit({"phase": "tick", "path": path, "impl": impl,
+                  "card": card, "slots": S, "rows_per_slot": T,
+                  "context": n_prompt, "ticks": ticks,
                   "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
                   "device_ms": t["device_ms"],
                   "device_busy_share": t["device_busy_share"],
@@ -2605,13 +2748,52 @@ def phase_tick(torch, m, card, ticks=10):
                   "top_device_ms": [[k[:80], v] for k, v in top],
                   "top_host_self_ms": [[k[:80], v] for k, v in host]})
     finally:
-        m.decode_attention_impl = impl0
+        setattr(m, attr, impl0)
+
+
+def serve_run(torch, K, eng, prompts, label, card, setup_s, extra=None):
+    """Drive ``eng`` with ``prompts`` (32 new tokens each) from launch
+    counts of 0, check the outcomes, and print the run's line; returns
+    the launch counts, the stats and the streams."""
+    K.reset_launch_counts()
+    try:
+        hs, wall = drive(eng, prompts, 32)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        stats = eng.stats()
+    finally:
+        eng.stop()
+    used = eng.allocator.used_blocks
+    bad = [(h.outcome, h.error) for h in hs if h.outcome != "ok"]
+    toks = [h.tokens for h in hs]
+    ok_tokens = all(len(t) == 32 and all(0 <= x < 128256 for x in t)
+                    for t in toks)
+    if bad or not ok_tokens:
+        raise AssertionError(f"{label}: outcomes {bad}, tokens {toks}")
+    t_first = min(h.first_token_at for h in hs)
+    t_last = max(h.last_token_at for h in hs)
+    decode_tps = sum(len(t) - 1 for t in toks) / (t_last - t_first)
+    emit({"phase": "main", "run": label, "card": card,
+          "setup_s": setup_s, "wall_s": wall,
+          "ttft_s": [h.ttft() for h in hs],
+          "decode_tokens_per_s": decode_tps,
+          "launches": counts, "used_blocks_after": used,
+          "compiles": stats["compiles"],
+          "kv_cache_dtype": stats["kv_cache_dtype"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          **(extra(stats) if extra else {})})
+    if used != 0:
+        raise AssertionError(f"{label}: {used} KV blocks leaked")
+    return counts, stats, toks
 
 
 def phase_main(torch, K, card):
-    """The 8B-width engine on the bucket, chunk=64 and int8 paths."""
+    """The 8B-width engine on the bucket, chunk=64 and int8 paths, then
+    with speculation (``spec_k=4``) and the same model's engine at
+    ``spec_k=0``. Returns the plain runs' launches and the speculative
+    run's."""
     import numpy as np
-    from zoo_tpu_torch.serving.llm import build_llm_engine
+    from zoo_tpu_torch.serving.llm import LLMEngine, build_llm_engine
 
     rs = np.random.RandomState(7)
     prompts = [rs.randint(0, 128256, (n,)) for n in (20, 100, 300, 480)]
@@ -2629,35 +2811,8 @@ def phase_main(torch, K, card):
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         params = eng.model.params
-        K.reset_launch_counts()
-        try:
-            hs, wall = drive(eng, prompts, 32)
-            torch.cuda.synchronize()
-            counts = K.launch_counts()
-            stats = eng.stats()
-        finally:
-            eng.stop()
-        used = eng.allocator.used_blocks
-        bad = [(h.outcome, h.error) for h in hs if h.outcome != "ok"]
-        toks = [h.tokens for h in hs]
-        ok_tokens = all(len(t) == 32 and all(0 <= x < 128256 for x in t)
-                        for t in toks)
-        t_first = min(h.first_token_at for h in hs)
-        t_last = max(h.last_token_at for h in hs)
-        decode_tps = sum(len(t) - 1 for t in toks) / (t_last - t_first)
-        emit({"phase": "main", "run": label, "card": card,
-              "setup_s": setup_s, "wall_s": wall,
-              "ttft_s": [h.ttft() for h in hs],
-              "decode_tokens_per_s": decode_tps,
-              "launches": counts, "used_blocks_after": used,
-              "compiles": stats["compiles"],
-              "kv_cache_dtype": stats["kv_cache_dtype"],
-              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
-        if bad or not ok_tokens:
-            raise AssertionError(f"{label}: outcomes {bad}, tokens "
-                                 f"{toks}")
-        if used != 0:
-            raise AssertionError(f"{label}: {used} KV blocks leaked")
+        counts, stats, toks = serve_run(torch, K, eng, prompts, label, card,
+                                        setup_s)
         for k in need:
             if counts[k] <= 0:
                 raise AssertionError(f"{label}: {k} never launched")
@@ -2675,7 +2830,43 @@ def phase_main(torch, K, card):
                   "streams_equal_bucket": toks == first})
         del eng
         torch.cuda.empty_cache()
-    return launches
+
+    # speculation: a spec_k=4 model, its engine at spec_k=4 and then at
+    # spec_k=0 (the A/B rig), on motif-tiled prompts of the same lengths
+    prompts = motif_prompts(128256, (20, 100, 300, 480), 7)
+    t0 = time.perf_counter()
+    eng = build_llm_engine(spec, device="cuda", params=params, spec_k=4)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    model = eng.model
+
+    def spec_stats(stats):
+        return {k: stats[k] for k in SPEC_STATS}
+
+    spec_counts, st, spec_toks = serve_run(
+        torch, K, eng, prompts, "spec_k=4", card, setup_s, spec_stats)
+    passes = st["compiles"]["verify"]
+    if passes <= 0 or spec_counts["paged_decode"] or \
+            spec_counts["paged_prefill"] != N_BLOCK * passes:
+        raise AssertionError(f"spec_k=4: the verify passes must launch "
+                             f"paged_prefill once a layer and paged_decode "
+                             f"never: {spec_counts}, {passes} passes")
+    phase_tick(torch, model, card, path="verify")
+    eng = LLMEngine(model, spec_k=0)
+    nospec_counts, _, nospec_toks = serve_run(
+        torch, K, eng.start(), prompts, "spec_k=4 model, engine spec_k=0",
+        card, 0.0, spec_stats)
+    if nospec_counts["paged_decode"] <= 0:
+        raise AssertionError("engine spec_k=0: paged_decode never launched")
+    # information only, not asserted: a verify pass runs its GEMMs over
+    # 40 rows where a decode tick runs 8, and random 8B weights leave
+    # near-tied logits whose argmax may flip
+    emit({"phase": "main", "run": "spec_k=4",
+          "streams_equal_nospec": spec_toks == nospec_toks})
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches, {k: spec_counts[k] for k in ("flash_attention",
+                                                  "paged_prefill")}
 
 
 def main():
@@ -2724,7 +2915,8 @@ def main():
         # each main path's launches, counted from 0 just before it runs
         phase_infer_tiny(torch, K)
         phase_train_image_tiny(torch, K)
-        by_path = {"serve": phase_main(torch, K, card),
+        serve, serve_spec = phase_main(torch, K, card)
+        by_path = {"serve": serve, "serve_spec": serve_spec,
                    "train": phase_train_main(torch, K, card),
                    "infer": phase_infer_main(torch, K, card),
                    "block": phase_bottleneck_main(torch, K, card),
@@ -2767,6 +2959,10 @@ def main():
                                            "composition_ratio", "shape",
                                            "plan", "device_launches_per_call")
                    if key in t},
+                **({"verify_shape": {key: t["verify_shape"][key] for key in (
+                    "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                    "tflops", "bound_ratio", "shape", "plan",
+                    "max_abs_err")}} if "verify_shape" in t else {}),
                 **({"f32_route": dict(
                     {key: t["f32_route"][key] for key in (
                         "ms", "plain_ms", "library_ms", "bound_ms",

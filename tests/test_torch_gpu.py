@@ -151,9 +151,14 @@ PREFILL_HEADS = [(HKV, H // HKV, D), (8, 1, 128), (4, 4, 128), (2, 8, 128)]
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+# the last case is the speculative verify pass's shape: 8 slots of k + 1
+# = 5 rows at unrelated starts, the last two slots' rows clamped to the
+# table's last position (a clamped row repeats it)
 @pytest.mark.parametrize("S,C,starts", [(1, 64, [20]), (3, 5, [0, 7, 91]),
                                         (2, 1, [0, 95]), (3, 17, [0, 40, 79]),
-                                        (1, 64, [32])])
+                                        (1, 64, [32]),
+                                        (8, 5, [0, 13, 29, 47, 60, 77, 93,
+                                                95])])
 @pytest.mark.parametrize("hkv,g,d", PREFILL_HEADS)
 def test_paged_prefill_kernel_matches_plain(hopper, kind, S, C, starts, hkv,
                                             g, d):
@@ -228,6 +233,67 @@ def test_wrappers_reject_what_the_kernels_do_not_take(hopper):
                                           device=hopper),
                               torch.zeros(2, dtype=torch.int32,
                                           device=hopper))
+
+
+def _streams(eng, prompts, n, sampling):
+    eng.start()
+    try:
+        hs = [eng.submit(p, n, rid=str(i), sampling=sampling[i])
+              for i, p in enumerate(prompts)]
+        for h in hs:
+            while not h.done:
+                h.wait_new(len(h.tokens), 1.0)
+        assert all(h.outcome == "ok" for h in hs), \
+            [(h.outcome, h.error) for h in hs]
+        assert eng.allocator.used_blocks == 0
+        return [h.tokens for h in hs]
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize("spec", ["llama:tiny:spec_k=4",
+                                  "llama:tiny:spec_k=4,chunk=8,kv=int8"])
+def test_spec_engine_streams_equal_plain_and_nospec(hopper, spec):
+    """The tiny engine with speculation on motif-tiled prompts, greedy
+    and seeded: the kernel streams equal the plain path's and the same
+    model's with the engine at spec_k=0; every decode seat rides the
+    verify pass, which launches the paged-prefill kernel."""
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.serving.llm import LLMEngine, build_llm_engine
+
+    motif = np.random.RandomState(4).randint(0, 256, (16,))
+    prompts = [np.tile(motif, n) for n in (1, 3, 9)]
+    sampling = [None, {"temperature": 0.9, "top_k": 16, "seed": 3}, None]
+    plain = dict(decode_impl="dense", prefill_impl="dense",
+                 attention_impl="dense")
+    eng = build_llm_engine(spec, device=hopper, start=False)
+    reset_launch_counts()
+    got = _streams(eng, prompts, 12, sampling)
+    counts, st = launch_counts(), eng.stats()
+    assert counts["paged_prefill"] > 0 and counts["paged_decode"] == 0
+    assert st["compiles"]["verify"] > 0 and st["spec_accepted_tokens"] > 0
+    ref = _streams(build_llm_engine(spec, device=hopper, start=False,
+                                    params=eng.model.params, **plain),
+                   prompts, 12, sampling)
+    nospec = _streams(LLMEngine(eng.model, spec_k=0), prompts, 12, sampling)
+    assert got == ref == nospec
+
+
+def test_threefry_bits_on_the_card_equal_the_cpus(hopper):
+    from zoo_tpu_torch.serving.llm.model import gumbel_noise, threefry_bits
+    rs = np.random.RandomState(6)
+    seeds = torch.from_numpy(rs.randint(0, 2 ** 32, 40, dtype=np.uint64)
+                             .astype(np.int64))
+    idx = torch.from_numpy(rs.randint(0, 1 << 20, 40))
+    cpu = threefry_bits(seeds, idx, 128256)
+    assert torch.equal(threefry_bits(seeds.to(hopper), idx.to(hopper),
+                                     128256).cpu(), cpu)
+    # the card's log may round to the other neighbour: 2 ulp of
+    # max(|x|, 1), as against the JAX draw on the CPU
+    noise = gumbel_noise(seeds.to(hopper), idx.to(hopper), 4096).cpu()
+    ref = gumbel_noise(seeds, idx, 4096).numpy()
+    ulp = np.spacing(np.maximum(np.abs(ref), np.float32(1.0)))
+    assert (np.abs(noise.numpy() - ref) <= 2 * ulp).all()
 
 
 def test_engine_streams_equal_plain_path(hopper):

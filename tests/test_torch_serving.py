@@ -198,6 +198,30 @@ def test_sampled_streams_replay_across_prefill_paths(weights, prompts):
     assert a == b
 
 
+@pytest.mark.parametrize("variant", [{}, {"prefill_chunk": 4}],
+                         ids=["bucket", "chunk4"])
+def test_seeded_streams_equal_jax(weights, prompts, variant):
+    """Seeded sampling draws JAX's threefry noise: the same request ids
+    and sampling give the JAX engine's tokens, bucket and chunked."""
+    samp = [{"temperature": 0.9, "top_k": 16, "top_p": 0.95},
+            {"temperature": 1.3, "seed": 2 ** 32 - 7},
+            {"temperature": 0.7, "top_p": 0.8, "seed": 5}]
+
+    def run(engine):
+        eng = engine.start()
+        try:
+            hs = [eng.submit(p, 7, rid=f"s{i}", sampling=samp[i])
+                  for i, p in enumerate(prompts)]
+            _drain(hs)
+            assert all(h.outcome == "ok" for h in hs)
+            return [h.tokens for h in hs]
+        finally:
+            eng.stop()
+
+    ref = run(JaxEngine(_jax(weights, **variant)))
+    assert run(LLMEngine(_port(weights, **variant))) == ref
+
+
 def test_kv_export_import_round_trip(weights):
     model = _port(weights, kv_dtype="bf16")
     model._cache["k"][:, 3] = torch.randn_like(
@@ -229,6 +253,51 @@ def test_sample_one_matches_jax_with_the_same_noise(monkeypatch, temp,
         got = int(tmodel._sample_one(torch.from_numpy(logits), temp, topk,
                                      topp, torch.from_numpy(noise)))
         assert got == ref, (trial, temp, topk, topp)
+
+
+def test_jax_threefry_is_partitionable():
+    """The port draws the partitionable mode's bits; a jax whose default
+    flips this flag draws others, and this fails first."""
+    assert jax.config.jax_threefry_partitionable is True
+
+
+def _jax_keys(seeds, idx):
+    return jax_model_mod._slot_keys(jnp.asarray(seeds, jnp.uint32),
+                                    jnp.asarray(idx, jnp.int32))
+
+
+def test_threefry_bits_equal_jax():
+    """Bit for bit, for seeds across the uint32 range (0 and 2**32 - 1
+    included) and token indices from 0 up."""
+    rs = np.random.RandomState(0)
+    seeds = np.concatenate([[0, 1, 2 ** 31, 2 ** 32 - 1],
+                            rs.randint(0, 2 ** 32, 60, dtype=np.uint64)]
+                           ).astype(np.uint32)
+    idx = np.concatenate([[0, 1, 7, 2 ** 20],
+                          rs.randint(0, 1 << 16, 60)]).astype(np.int32)
+    ref = np.stack([np.asarray(jax.random.bits(k, (1000,), jnp.uint32))
+                    for k in _jax_keys(seeds, idx)]).astype(np.int64)
+    got = tmodel.threefry_bits(torch.from_numpy(seeds.astype(np.int64)),
+                               torch.from_numpy(idx), 1000).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_gumbel_noise_matches_jax_within_two_ulp():
+    """``-log(-log(u))`` from the same uniforms: each ``log`` may round
+    to the other neighbour, so the noise agrees within 2 ulp of
+    ``max(|x|, 1)`` (near 0 an ulp of the value is no measure); most
+    elements agree bit for bit."""
+    rs = np.random.RandomState(1)
+    seeds = rs.randint(0, 2 ** 32, 32, dtype=np.uint64).astype(np.uint32)
+    idx = rs.randint(0, 100000, 32).astype(np.int32)
+    draw = jax.jit(jax.vmap(
+        lambda k: jax.random.gumbel(k, (4096,), jnp.float32)))
+    ref = np.asarray(draw(_jax_keys(seeds, idx)))
+    got = tmodel.gumbel_noise(torch.from_numpy(seeds.astype(np.int64)),
+                              torch.from_numpy(idx), 4096).numpy()
+    ulp = np.spacing(np.maximum(np.abs(ref), np.float32(1.0)))
+    assert (np.abs(got - ref) <= 2 * ulp).all()
+    assert (got == ref).mean() > 0.5
 
 
 def test_gumbel_noise_is_stateless_per_token():

@@ -66,6 +66,11 @@ _k("ZOO_LLM_OVERLAP", "bool", True, "the double-buffered tick pipeline")
 _k("ZOO_LLM_PREFIX_CACHE", "bool", False,
    "content-hash block reuse with copy-on-write")
 _k("ZOO_LLM_KV_DTYPE", "str", "f32", "KV cache dtype: f32 / bf16 / int8")
+_k("ZOO_LLM_SPEC_K", "int", 0,
+   "speculative decoding: the verify pass scores up to N drafted tokens "
+   "a slot (0 = off)")
+_k("ZOO_LLM_SPEC_NGRAM", "int", 3,
+   "longest suffix n-gram the prompt-lookup drafter matches")
 _k("ZOO_LLM_DECODE_IMPL", "str", "auto",
    "decode attention: flash (CUDA kernel) / dense (plain PyTorch)")
 _k("ZOO_LLM_PREFILL_IMPL", "str", "auto",

@@ -20,12 +20,19 @@ tick runs over whatever mix of old and new sequences the slots hold.
   prompt + generated tokens; its resumed stream is byte-identical.
 * **Prefix cache** (``ZOO_LLM_PREFIX_CACHE``): a shared prompt prefix
   costs its KV blocks once, with copy-on-write of a shared last block.
+* **Speculative decoding** (model ``spec_k`` / ``ZOO_LLM_SPEC_K``): the
+  n-gram prompt-lookup drafter proposes up to k tokens a slot, one
+  verify pass scores them, and the longest accepted prefix plus the
+  model's own next token is emitted. Every emitted token is the one
+  plain decode draws at its position, so speculative streams equal
+  plain ones, greedy and seeded. Drafts are funded from free blocks
+  only (never by preempting).
 * Deadlines are checked at submission, admission and every scheduler
   pass; the waiting queue is bounded; a duplicate request id joins the
   live stream.
 
-This copy leaves out the reference's tenancy, disaggregated handoff,
-speculative ticks and telemetry; later slices of the port bring them.
+This copy leaves out the reference's tenancy, disaggregated handoff
+and telemetry; later slices of the port bring them.
 The model is any object with the
 :class:`~zoo_tpu_torch.serving.llm.model.PagedLlamaModel` surface.
 """
@@ -46,6 +53,7 @@ from zoo_tpu_torch.serving.llm.kv_cache import (
     BlockAllocator,
     prefix_block_hashes,
 )
+from zoo_tpu_torch.serving.llm.speculative import PromptLookup, accept_length
 from zoo_tpu_torch.util.resilience import Deadline, env_int
 
 
@@ -107,11 +115,20 @@ class GenHandle:
 
     def __init__(self, rid: str, prompt: np.ndarray, max_new: int,
                  deadline: Optional[Deadline],
-                 sampling: Tuple[float, int, float, int] = None):
+                 sampling: Tuple[float, int, float, int] = None,
+                 spec_k: Optional[int] = None):
         self.id = rid
         self.prompt = np.asarray(prompt, np.int32)
         self.max_new = int(max_new)
         self.deadline = deadline
+        # speculative budget: None = the engine's, 0 = no drafts (the
+        # stream still rides the verify pass with an empty draft), 1..k
+        # a cap
+        self.spec_k = spec_k
+        # the drafter's incremental index, built at the first draft and
+        # extended as tokens land (engine-owned, under its lock)
+        self.lookup: Optional[PromptLookup] = None
+        self.lookup_len = 0   # generated tokens already indexed
         self.sampling = sampling if sampling is not None else \
             (0.0, 0, 1.0, stream_seed(rid))
         self.tokens: List[int] = []
@@ -154,6 +171,8 @@ class GenHandle:
                 return
             self.outcome = outcome
             self.error = error
+            # finished handles live on in the dedup LRU: drop the index
+            self.lookup = None
             self._cond.notify_all()
 
     def cancel(self):
@@ -187,11 +206,13 @@ class GenHandle:
 class _Slot:
     __slots__ = ("handle", "last_token", "position", "phase",
                  "prefill_pos", "epoch", "host_token", "use_host",
-                 "pending_copy")
+                 "pending_copy", "spec_inflight")
 
     def __init__(self):
         self.handle: Optional[GenHandle] = None
         self.last_token = 0
+        self.spec_inflight = False  # a verify pass for this seat is
+        #                           dispatched and not applied yet
         self.position = 0        # cache index the NEXT token is written at
         self.phase = "decode"    # "prefill" while chunks are pending
         self.prefill_pos = 0     # prompt tokens already fed
@@ -207,16 +228,32 @@ class LLMEngine:
     """``LLMEngine(model).start()`` -> ``submit()`` streams until
     ``stop()``. ``mode="oneshot"`` is the request-level baseline: a wave
     is admitted only when every slot is empty. ``overlap=None`` reads
-    ``ZOO_LLM_OVERLAP`` (continuous mode only)."""
+    ``ZOO_LLM_OVERLAP`` (continuous mode only). ``spec_k=None`` takes
+    the model's verify width, and any value is clamped to it (0 runs
+    plain decode on a speculative model); ``spec_ngram=None`` reads
+    ``ZOO_LLM_SPEC_NGRAM``."""
 
     def __init__(self, model, mode: str = "continuous",
                  max_waiting: Optional[int] = None,
                  overlap: Optional[bool] = None,
-                 prefix_cache: Optional[bool] = None):
+                 prefix_cache: Optional[bool] = None,
+                 spec_k: Optional[int] = None,
+                 spec_ngram: Optional[int] = None):
         if mode not in ("continuous", "oneshot"):
             raise ValueError(f"unknown scheduling mode {mode!r}")
         self.model = model
         self.mode = mode
+        model_k = int(getattr(model, "spec_k", 0) or 0)
+        self.spec_k = max(0, min(model_k if spec_k is None else int(spec_k),
+                                 model_k))
+        self._spec = self.spec_k > 0 and hasattr(model, "verify_step")
+        if spec_ngram is None:
+            spec_ngram = knob_value("ZOO_LLM_SPEC_NGRAM")
+        self.spec_ngram = max(1, int(spec_ngram))
+        self._spec_lanes = 0           # verify lanes applied
+        self._spec_drafted_lanes = 0   # ... with a non-empty draft
+        self._spec_proposed_n = 0
+        self._spec_accepted_n = 0
         if overlap is None:
             overlap = knob_value("ZOO_LLM_OVERLAP")
         self.overlap = bool(overlap) and mode == "continuous"
@@ -283,10 +320,14 @@ class LLMEngine:
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, rid: Optional[str] = None,
                deadline: Optional[Deadline] = None,
-               sampling=None) -> GenHandle:
-        """Queue one generation (``sampling`` as :func:`parse_sampling`).
-        Raises :class:`AdmissionError` when the waiting queue is full and
+               sampling=None, spec_k: Optional[int] = None) -> GenHandle:
+        """Queue one generation (``sampling`` as :func:`parse_sampling`;
+        ``spec_k`` caps this stream's drafts, None = the engine's, 0 =
+        none, and never raises the engine's width). Raises
+        :class:`AdmissionError` when the waiting queue is full and
         ``ValueError`` for a prompt no prefill path can hold."""
+        if spec_k is not None and int(spec_k) < 0:
+            raise ValueError("spec_k must be >= 0")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -316,7 +357,8 @@ class LLMEngine:
                     f"bound {self.max_waiting}); retry another replica",
                     retry_after_ms=200)
             h = GenHandle(rid, prompt, max_new_tokens, deadline,
-                          sampling=params)
+                          sampling=params,
+                          spec_k=None if spec_k is None else int(spec_k))
             self._by_id[rid] = h
             self._trim_finished_locked()
             self._wait.append(h)
@@ -350,6 +392,7 @@ class LLMEngine:
         h = slot.handle
         slot.handle = None
         slot.epoch += 1   # any in-flight lane for this seat is stale now
+        slot.spec_inflight = False
         self.allocator.free(h.id)
         h.finish(outcome, error)
 
@@ -628,6 +671,7 @@ class LLMEngine:
         self._preempt_count += 1
         slot.handle = None
         slot.epoch += 1
+        slot.spec_inflight = False
         self.allocator.free(h.id)
         with self._lock:
             self._wait.appendleft(h)
@@ -677,8 +721,9 @@ class LLMEngine:
 
     def _fail_lanes(self, snapshot, err: BaseException):
         """A dispatched batch's tokens are lost: end its streams loudly
-        and have the device chain re-seeded. Under the lock."""
-        for i, h, epoch in snapshot:
+        and have the device chain re-seeded. Under the lock. A decode
+        lane is (slot, handle, epoch); a verify lane adds its draft."""
+        for i, h, epoch, *_ in snapshot:
             slot = self._slots[i]
             if slot.handle is h and slot.epoch == epoch and not h.done:
                 self._finish_slot(
@@ -723,13 +768,126 @@ class LLMEngine:
             self._apply_tokens(snapshot, arr)
         return True
 
+    # -- speculative decoding ----------------------------------------------
+    def _draft_for(self, h: GenHandle) -> np.ndarray:
+        """Up to the stream's budget of drafted tokens continuing prompt +
+        generated (which ends with the verify pass's row 0), from the
+        stream's incremental prompt-lookup index. Under the lock."""
+        k = self.spec_k if h.spec_k is None else min(h.spec_k, self.spec_k)
+        if k <= 0:
+            return np.zeros((0,), np.int32)
+        if h.lookup is None:
+            h.lookup = PromptLookup(h.prompt, self.spec_ngram)
+        if h.lookup_len < len(h.tokens):
+            h.lookup.extend(h.tokens[h.lookup_len:])
+            h.lookup_len = len(h.tokens)
+        return h.lookup.propose(k)
+
+    def _build_spec_tick(self):
+        """Under the lock: one fixed-shape verify batch, (slots, spec_k +
+        1) rows, row 0 the incoming token and rows 1.. the draft,
+        zero-padded. The draft is funded from free blocks only
+        (``grow_to``) and clamped to owned blocks, the context and the
+        stream's remaining budget, so every token the accept step can
+        emit has a real cache row. A seat whose verify pass is still in
+        flight idles: the accept length decides its next position. None
+        when no lane verifies."""
+        m = self.model
+        S, T = m.num_slots, self.spec_k + 1
+        ctx = m.max_blocks_per_seq * m.block_size
+        tokens = np.zeros((S, T), np.int32)
+        tables = np.zeros((S, m.max_blocks_per_seq), np.int32)
+        positions = np.zeros((S,), np.int32)
+        temps = np.zeros((S,), np.float32)
+        topks = np.zeros((S,), np.int32)
+        topps = np.ones((S,), np.float32)
+        seeds = np.zeros((S,), np.uint32)
+        snapshot = []
+        for i, slot in enumerate(self._slots):
+            h = slot.handle
+            if h is None or slot.phase != "decode" or h.done or \
+                    slot.spec_inflight:
+                continue
+            if h.sched_count >= h.max_new or slot.position >= ctx:
+                continue
+            draft = self._draft_for(h)
+            if len(draft):
+                cap_tokens = self.allocator.grow_to(
+                    h.id, min(slot.position + len(draft) + 1, ctx))
+                cap = min(cap_tokens - 1 - slot.position,
+                          ctx - 1 - slot.position,
+                          h.max_new - h.gen_count - 1)
+                draft = draft[:max(0, cap)]
+            tokens[i, 0] = slot.last_token
+            tokens[i, 1:1 + len(draft)] = draft
+            tables[i] = self._table_row(self.allocator.blocks_of(h.id))
+            positions[i] = slot.position
+            temps[i], topks[i], topps[i], seeds[i] = h.sampling
+            slot.spec_inflight = True
+            snapshot.append((i, h, slot.epoch, [int(x) for x in draft]))
+        if not snapshot:
+            return None
+        return (tokens, tables, positions, (temps, topks, topps, seeds),
+                snapshot)
+
+    def _apply_spec(self, snapshot, arr: np.ndarray):
+        """Apply one verify readback: each lane emits its longest accepted
+        draft prefix plus the model's own next token (``arr[i, j]`` is the
+        canonical token after the draft's first ``j`` tokens), stopping at
+        eos or the budget. A lane whose slot moved on is discarded."""
+        eos = getattr(self.model, "eos_id", None)
+        for i, h, epoch, draft in snapshot:
+            slot = self._slots[i]
+            if slot.handle is not h or slot.epoch != epoch or h.done:
+                continue
+            slot.spec_inflight = False
+            out = arr[i]
+            accept = accept_length(draft, out)
+            self._spec_lanes += 1
+            if draft:
+                self._spec_drafted_lanes += 1
+                self._spec_proposed_n += len(draft)
+                self._spec_accepted_n += accept
+            for tok in (int(t) for t in out[:accept + 1]):
+                slot.position += 1
+                slot.last_token = tok
+                h.push(tok)
+                h.gen_count += 1
+                h.sched_count = h.gen_count
+                self._generated += 1
+                if h.gen_count >= h.max_new or (eos is not None and
+                                                tok == eos):
+                    self._finish_slot(slot, "ok")
+                    break
+
+    def _spec_tick(self) -> bool:
+        """The synchronous verify tick: build, dispatch, block on the
+        readback, apply."""
+        with self._lock:
+            built = self._build_spec_tick()
+        if built is None:
+            return False
+        tokens, tables, positions, lanes, snapshot = built
+        try:
+            batch = self.model.verify_step(tokens, tables, positions, lanes)
+            arr = self.model.read_tokens(batch)
+        except Exception as e:  # noqa: BLE001 — lost lanes end their
+            # streams loudly, as a decode tick's do
+            with self._lock:
+                self._fail_lanes(snapshot, e)
+            return True
+        self._decode_steps += 1
+        with self._lock:
+            self._apply_spec(snapshot, arr)
+        return True
+
     # -- overlap pipeline --------------------------------------------------
     def _readback_loop(self):
         while True:
             item = self._rbq.get()
             if item is None:
                 return
-            batch, snapshot = item
+            kind, batch, snapshot = item
             try:
                 arr = self.model.read_tokens(batch)
             except Exception as e:  # noqa: BLE001 — these lanes' tokens
@@ -740,7 +898,10 @@ class LLMEngine:
                 self._wake.set()
                 continue
             with self._lock:
-                self._apply_tokens(snapshot, arr)
+                if kind == "spec":
+                    self._apply_spec(snapshot, arr)
+                else:
+                    self._apply_tokens(snapshot, arr)
             self._decode_steps += 1
             self._inflight.release()
             self._wake.set()
@@ -783,7 +944,8 @@ class LLMEngine:
                 self._prefill_tick()
                 with self._lock:
                     self._grow_or_preempt()
-                    built = self._build_tick(device_chain=True)
+                    built = self._build_spec_tick() if self._spec \
+                        else self._build_tick(device_chain=True)
                 if built is None:
                     prev_batch = None
                     self._wake.wait(0.005)
@@ -792,6 +954,24 @@ class LLMEngine:
                 while not self._inflight.acquire(timeout=0.5):
                     if self._stop.is_set():
                         return
+                if self._spec:
+                    # verify passes are host-fed and never chain on the
+                    # device (the accept length decides each seat's next
+                    # position); every ready seat rides one pass, so in
+                    # steady state one pass is in flight, and a seat
+                    # entering decode mid-pass rides a second
+                    tokens, tables, positions, lanes, snapshot = built
+                    try:
+                        batch = self.model.verify_step(
+                            tokens, tables, positions, lanes)
+                    except Exception as e:  # noqa: BLE001
+                        with self._lock:
+                            self._fail_lanes(snapshot, e)
+                        self._inflight.release()
+                        continue
+                    self._rbq.put(("spec", batch, snapshot))
+                    prev_batch = None
+                    continue
                 host, use, tables, positions, lanes, snapshot = built
                 try:
                     prev_batch = self.model.decode_step(
@@ -802,7 +982,7 @@ class LLMEngine:
                         self._fail_lanes(snapshot, e)
                     self._inflight.release()
                     continue
-                self._rbq.put((prev_batch, snapshot))
+                self._rbq.put(("decode", prev_batch, snapshot))
         finally:
             self._rbq.put(None)
             if self._rb_thread is not None:
@@ -816,7 +996,8 @@ class LLMEngine:
             self._prefill_tick()
             with self._lock:
                 self._grow_or_preempt()
-            if not self._decode_tick():
+            if not (self._spec_tick() if self._spec else
+                    self._decode_tick()):
                 # also parks the loop while the queue is only KV-gated
                 self._wake.wait(0.005)
                 self._wake.clear()
@@ -847,7 +1028,17 @@ class LLMEngine:
                "active": sum(1 for s in self._slots if s.handle),
                "waiting": len(self._wait),
                "decode_steps": self._decode_steps,
-               "generated_tokens": self._generated}
+               "generated_tokens": self._generated,
+               "spec_k": self.spec_k if self._spec else 0,
+               "spec_ngram": self.spec_ngram,
+               "spec_proposed_tokens": self._spec_proposed_n,
+               "spec_accepted_tokens": self._spec_accepted_n,
+               "spec_accept_rate": (
+                   self._spec_accepted_n / self._spec_proposed_n
+                   if self._spec_proposed_n else 0.0),
+               "spec_draft_hit_rate": (
+                   self._spec_drafted_lanes / self._spec_lanes
+                   if self._spec_lanes else 0.0)}
         out.update(self.allocator.stats())
         if hasattr(m, "compile_counts"):
             out["compiles"] = m.compile_counts()

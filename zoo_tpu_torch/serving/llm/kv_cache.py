@@ -1,7 +1,7 @@
 """Paged KV-cache block allocator with content-hash prefix sharing and
 copy-on-write (counterpart of ``zoo_tpu/serving/llm/kv_cache.py``,
-without its tenant partitions, metric gauges, migration adoption and
-speculative growth, which later slices of the port bring).
+without its tenant partitions, metric gauges and migration adoption,
+which later slices of the port bring).
 
 KV memory is a pool of fixed-size token blocks handed out from a free
 list: a sequence owns ``ceil(tokens / block_size)`` blocks listed in its
@@ -165,6 +165,26 @@ class BlockAllocator:
                 self._ref[b] = 1
             self._owners.setdefault(seq_id, []).extend(got)
             return got
+
+    def grow_to(self, seq_id: str, n_tokens: int) -> int:
+        """Grow ``seq_id``, one free (or evictable cached-free) block at
+        a time, until it holds ``n_tokens``, stopping quietly when the
+        pool runs dry; never preempts. Returns the token capacity (owned
+        blocks x block_size), 0 for an unknown sequence. Speculation
+        funds its draft rows through this and clamps the draft to what
+        it got."""
+        with self._lock:
+            blocks = self._owners.get(seq_id)
+            if blocks is None:
+                return 0
+            want = self.blocks_for_tokens(n_tokens)
+            while len(blocks) < want:
+                got = self._take_free(1)
+                if got is None:
+                    break
+                self._ref[got[0]] = 1
+                blocks.extend(got)
+            return len(blocks) * self.block_size
 
     # -- prefix cache ------------------------------------------------------
     def match_prefix(self, hashes: Sequence[bytes]) -> int:

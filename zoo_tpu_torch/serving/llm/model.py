@@ -13,6 +13,11 @@
   incoming token's K/V through the block tables, run paged attention
   over the cache (the paged-decode kernel), and sample the next token
   on the device. Only ``slots x 1`` int32 ids cross to the host.
+* **Verify** (``spec_k > 0``, speculative decoding) — ``num_slots``
+  sequences x ``spec_k + 1`` candidate rows per pass: each row's K/V is
+  written at its own position, the rows attend through the paged-prefill
+  kernel, and each row samples the token plain decode would draw there.
+  Only ``slots x (spec_k + 1)`` int32 ids cross to the host.
 
 Each attention has two implementations: ``"flash"`` (the CUDA kernel,
 the default on a CUDA device) and ``"dense"`` (the plain PyTorch
@@ -26,8 +31,9 @@ without the last axis), **written in place**: the JAX package donates
 the cache to each executable so XLA aliases it; here the same tensors
 are updated with indexed assignment.
 
-A decode tick's ids are returned as a :class:`TokenBatch` that the next
-tick accepts back, so back-to-back ticks chain on the device; only
+A decode tick's or verify pass's ids are returned as a
+:class:`TokenBatch`; a decode tick's is accepted back by the next tick,
+so back-to-back ticks chain on the device; only
 :meth:`PagedLlamaModel.read_tokens` waits for the device. Per-tick host
 inputs (tokens, tables, positions, sampling lanes) travel in one packed
 int32 buffer, copied without a host sync.
@@ -130,31 +136,63 @@ def _pick_bucket(buckets: Sequence[int], n: int) -> Optional[int]:
 
 GREEDY = (0.0, 0, 1.0, 0)  # (temperature, top_k, top_p, seed)
 _M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_F32_TINY = float(torch.finfo(torch.float32).tiny)
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash on int64 tensors holding uint32 values.
-    The multipliers are below 2**31, so no product leaves int64."""
-    x = x ^ (x >> 16)
-    x = (x * 0x21F0AAAD) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x735A2D97) & _M32
-    return x ^ (x >> 15)
+def threefry2x32(k1, k2, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block cipher, 20 rounds, on int64 tensors (or
+    ints) holding uint32 values, broadcast together: key ``(k1, k2)``,
+    counter ``(x0, x1)``; the rounds of ``jax._src.prng``'s threefry
+    lowering. Every sum is taken mod 2**32 by a mask, so nothing leaves
+    int64; the two counter words update in place after the first add."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x0, x1 = torch.broadcast_tensors(torch.as_tensor((x0 + ks[0]) & _M32),
+                                     torch.as_tensor((x1 + ks[1]) & _M32))
+    x0, x1 = x0.clone(), x1.clone()
+    hi = torch.empty_like(x1)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0.add_(x1).bitwise_and_(_M32)
+            torch.bitwise_left_shift(x1, r, out=hi).bitwise_and_(_M32)
+            x1.bitwise_right_shift_(32 - r).bitwise_or_(hi).bitwise_xor_(x0)
+        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
+        x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(_M32)
+    return x0, x1
+
+
+def threefry_bits(seeds: torch.Tensor, token_index: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """(N, n) uint32 values (in int64) of JAX's
+    ``random_bits(fold_in(key, token_index), 32, (n,))`` for the raw
+    threefry key ``key = [0, seed]`` of each row, in the
+    ``jax_threefry_partitionable`` mode: ``fold_in`` enciphers the
+    counter ``(0, index)`` under the key, and bit ``j`` is the xor of
+    the two words of counter ``(0, j)`` under the folded key."""
+    s = seeds.long() & _M32
+    zero = torch.zeros_like(s)
+    k1, k2 = threefry2x32(zero, s, zero, token_index.long() & _M32)
+    col = torch.arange(n, device=seeds.device, dtype=torch.int64)
+    b1, b2 = threefry2x32(k1[:, None], k2[:, None], 0, col[None, :])
+    return b1.bitwise_xor_(b2)
 
 
 def gumbel_noise(seeds: torch.Tensor, token_index: torch.Tensor,
                  vocab: int) -> torch.Tensor:
-    """(N, vocab) f32 Gumbel noise from a stateless counter-based
-    generator keyed by ``(seed, token_index)`` per row: the draw for a
-    token depends only on the stream's seed and the token's position,
-    never on scheduling history, so a preempted stream resumed on any
-    replica redraws the same tokens. (The JAX package draws
-    threefry bits, which this generator does not reproduce.)"""
-    key = _mix32(_mix32(seeds.long() & _M32) ^ (token_index.long() & _M32))
-    col = torch.arange(vocab, device=seeds.device, dtype=torch.int64)
-    h = _mix32((key[:, None] + col[None, :] * 0x9E3779B9) & _M32)
-    u = ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))   # (0, 1)
-    return -torch.log(-torch.log(u))
+    """(N, vocab) f32 Gumbel noise keyed by ``(seed, token_index)`` per
+    row, bit for bit JAX's ``gumbel(fold_in([0, seed], token_index),
+    (vocab,))`` (``zoo_tpu/serving/llm/model.py`` ``_slot_keys``) up to
+    the last ulp of ``log``: the draw depends only on the stream's seed
+    and the token's position, never on scheduling history, so a
+    preempted stream resumed on any replica, of either package, redraws
+    the same tokens. The uniform is JAX's: the top 23 bits as the
+    mantissa of a float in [1, 2), minus 1, floored at the smallest
+    normal float (``(maxval - minval)`` rounds to 1 in f32, and adding
+    ``tiny`` moves only a zero)."""
+    bits = threefry_bits(seeds, token_index, vocab)
+    f = bits.bitwise_right_shift_(9).bitwise_or_(0x3F800000).to(
+        torch.int32).view(torch.float32) - 1.0
+    return -torch.log(-torch.log(f.clamp_min_(_F32_TINY)))
 
 
 def _sample_rows(logits, temps, topks, topps, noise) -> torch.Tensor:
@@ -192,9 +230,10 @@ def _sample_one(logits, temp, topk, topp, noise) -> torch.Tensor:
 
 
 class TokenBatch:
-    """One dispatched tick's (S,) int32 ids: ``dev`` chains into the
-    next tick; ``host`` (pinned) receives a copy ordered after the tick,
-    and ``event`` marks when it has landed."""
+    """One dispatched tick's (S,) or verify pass's (S, spec_k + 1) int32
+    ids: ``dev`` chains into the next decode tick; ``host`` (pinned, of
+    ``dev``'s shape) receives a copy ordered after the pass, and
+    ``event`` marks when it has landed."""
 
     __slots__ = ("dev", "host", "event")
 
@@ -223,7 +262,9 @@ class PagedLlamaModel:
     current CUDA device; pass ``device="cpu"`` for the plain path.
     ``attention_impl`` selects the bucket-prefill attention
     (``auto``/``dense``/``flash``) as ``decode_impl``/``prefill_impl``
-    select the paged paths."""
+    select the paged paths (``prefill_impl`` also the verify pass's).
+    ``spec_k`` is the verify pass's draft width (``None`` reads
+    ``ZOO_LLM_SPEC_K``; 0 = no verify path)."""
 
     def __init__(self, config: LlamaConfig, *,
                  params=None, seed: int = 0,
@@ -237,6 +278,7 @@ class PagedLlamaModel:
                  prefill_impl: str = "auto",
                  attention_impl: str = "auto",
                  kv_dtype: Optional[str] = None,
+                 spec_k: Optional[int] = None,
                  eos_id: Optional[int] = None,
                  device=None):
         self.device = resolve_device(device)
@@ -253,6 +295,13 @@ class PagedLlamaModel:
         self.prefill_chunk_size = int(prefill_chunk)
         if self.prefill_chunk_size < 0:
             raise ValueError("prefill_chunk must be >= 0 (0 = off)")
+        # the verify pass scores spec_k + 1 rows a slot: the incoming
+        # token and up to spec_k drafted ones; 0 = plain decode only
+        if spec_k is None:
+            spec_k = int(knob_value("ZOO_LLM_SPEC_K"))
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError("spec_k must be >= 0 (0 = off)")
         self.decode_attention_impl = resolve_decode_impl(decode_impl,
                                                          self.device)
         self.prefill_attention_impl = resolve_prefill_impl(prefill_impl,
@@ -314,7 +363,7 @@ class PagedLlamaModel:
         self._zero_tokens = torch.zeros((self.num_slots,), dtype=torch.int32,
                                         device=self.device)
         self._calls = {"decode": 0, "prefill": 0, "prefill_chunk": 0,
-                       "copy_block": 0}
+                       "verify": 0, "copy_block": 0}
 
     # -- host -> device ----------------------------------------------------
     def _to_device(self, *arrays):
@@ -489,6 +538,47 @@ class PagedLlamaModel:
         logits = self._lm_head(h[0, last])
         return self._sample_row(logits, sampling, length)
 
+    @torch.no_grad()
+    def _verify_fn(self, tokens, tables, positions, lanes, sampled: bool):
+        """Score ``tokens`` (S, T) in one pass: row ``j`` of slot ``s`` is
+        written at cache index ``positions[s] + j`` and attends every
+        column at or before it, so its logits are what plain decode
+        computes after accepting rows ``< j``; it samples with the key
+        plain decode uses there, ``(seed, positions[s] + j + 1)``.
+        Rejected rows' K/V stay as garbage the position mask hides until
+        the next write. Rows past the pageable context take the last
+        rope row (a NaN written to the trash block would poison later
+        layers) and write to trash block 0; the engine never accepts
+        them."""
+        c = self.cfg
+        bs = self.block_size
+        S, T = tokens.shape
+        ctx = self.max_context
+        raw = positions.long()[:, None] + torch.arange(
+            T, device=tokens.device)[None, :]                  # (S, T)
+        pos = raw.clamp_max(ctx - 1)
+        cos, sin = self._cos[pos], self._sin[pos]              # (S, T, D/2)
+        blk = torch.where(raw < ctx, tables.long().gather(1, pos // bs), 0)
+        off = pos % bs
+        pos32 = pos.to(torch.int32)
+        h = self.params["embed"][tokens.long()]               # (S, T, hidden)
+        for i in range(c.n_block):
+            p = self._layer(i)
+            x = rms_norm(h, p["attn_norm"], c.rms_eps)
+            q, k, v = self._attn_proj(p, x)                   # (S, T, H, D)
+            q = _rope_rows(q, cos, sin)
+            k = _rope_rows(k, cos, sin)
+            self._append_rows(i, "k", blk, off, k)
+            self._append_rows(i, "v", blk, off, v)
+            a = self._prefill_attend(q, i, tables, pos32)
+            h = self._mlp(p, h + a @ p["wo"])
+        logits = self._lm_head(h).reshape(S * T, -1)          # (S*T, vocab)
+        if not sampled:
+            return logits.argmax(dim=-1).to(torch.int32).reshape(S, T)
+        temps, topks, topps, seeds = (x.repeat_interleave(T) for x in lanes)
+        noise = gumbel_noise(seeds, (raw + 1).reshape(-1), logits.shape[-1])
+        return _sample_rows(logits, temps, topks, topps, noise).reshape(S, T)
+
     # -- host-facing API (what the engine calls) ---------------------------
     @staticmethod
     def _sampling_tuple(sampling) -> Tuple[float, int, float, int]:
@@ -628,20 +718,55 @@ class PagedLlamaModel:
                 temps, np.asarray(topps, np.float32))
             prev = self._zero_tokens if prev_batch is None \
                 else prev_batch.dev
-            out = self._decode_fn(prev, host, use, tables, pos,
-                                  (tp, tk, tpp, sd), sampled)
-            if self.device.type != "cuda":
-                return TokenBatch(out, out, None)
-            host_out = torch.empty(out.shape, dtype=out.dtype,
-                                   pin_memory=True)
-            host_out.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            return TokenBatch(out, host_out, event)
+            return self._token_batch(self._decode_fn(
+                prev, host, use, tables, pos, (tp, tk, tpp, sd), sampled))
+
+    def verify_step(self, tokens: np.ndarray, block_tables: np.ndarray,
+                    positions: np.ndarray, sampling_lanes) -> TokenBatch:
+        """Dispatch ONE speculative verify pass WITHOUT a host sync:
+        ``tokens`` (num_slots, spec_k + 1), row 0 the slot's incoming
+        token and rows 1.. its drafted continuation (zero-padded),
+        written from each slot's ``positions`` entry on. Returns the
+        pass's :class:`TokenBatch` of (num_slots, spec_k + 1) canonical
+        ids; the engine emits the longest accepted prefix. One fixed
+        shape; a greedy-only pass skips the sampling pipeline."""
+        tokens = np.asarray(tokens, np.int32)
+        if self.spec_k < 1:
+            raise RuntimeError("verify_step needs spec_k >= 1 at model "
+                               "construction")
+        if tokens.shape != (self.num_slots, self.spec_k + 1):
+            raise ValueError(
+                f"verify batch {tokens.shape} != the fixed "
+                f"{(self.num_slots, self.spec_k + 1)} census shape")
+        temps, topks, topps, seeds = sampling_lanes
+        temps = np.asarray(temps, np.float32)
+        sampled = bool((temps > 0.0).any())
+        with self._lock:
+            self._calls["verify"] += 1
+            toks, tables, pos, tk, sd, tp, tpp = self._to_device(
+                tokens, np.asarray(block_tables, np.int32),
+                np.asarray(positions, np.int32),
+                np.asarray(topks, np.int32),
+                np.asarray(seeds, np.uint32).view(np.int32),
+                temps, np.asarray(topps, np.float32))
+            return self._token_batch(self._verify_fn(
+                toks, tables, pos, (tp, tk, tpp, sd), sampled))
+
+    def _token_batch(self, out: torch.Tensor) -> TokenBatch:
+        """Wrap a dispatched pass's ids, with a pinned host copy ordered
+        after it on a CUDA device."""
+        if self.device.type != "cuda":
+            return TokenBatch(out, out, None)
+        host_out = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host_out.copy_(out, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return TokenBatch(out, host_out, event)
 
     def read_tokens(self, batch: TokenBatch) -> np.ndarray:
-        """Block until a dispatched tick's ids are on the host: the ONLY
-        device -> host transfer of the decode path (slots x 1 int32)."""
+        """Block until a dispatched pass's ids are on the host: the ONLY
+        device -> host transfer of the decode and verify paths (slots x
+        1, or slots x (spec_k + 1), int32; never logits)."""
         if batch.event is not None:
             batch.event.synchronize()
         return batch.host.numpy().copy()

@@ -6,7 +6,9 @@
 * ``llama:tiny:seed=3,slots=4,block=8,blocks=64,buckets=16/64`` —
   key=value overrides after the preset (also ``chunk=N``,
   ``overlap=0/1``, ``prefix_cache=0/1``, ``kv=f32|bf16|int8``,
-  ``prefill_impl=``);
+  ``prefill_impl=``, and ``spec_k=N`` / ``spec_ngram=N`` for
+  speculative decoding: ``spec_k`` is a model shape, the verify pass's
+  width, ``spec_ngram`` the engine's drafter policy);
 * ``llama:vocab=128256,hidden=4096,n_block=32,n_head=32,n_kv_head=8,``
   ``intermediate=14336`` — explicit architecture (``rope_theta`` keeps
   the :class:`LlamaConfig` default, 500000).
@@ -28,7 +30,8 @@ _ARCH_KEYS = ("vocab", "hidden", "n_block", "n_head", "n_kv_head",
 _ENGINE_KEYS = {"slots": "num_slots", "block": "block_size",
                 "blocks": "num_blocks", "tables": "max_blocks_per_seq",
                 "seed": "seed", "eos": "eos_id", "chunk": "prefill_chunk",
-                "overlap": "overlap", "prefix_cache": "prefix_cache"}
+                "overlap": "overlap", "prefix_cache": "prefix_cache",
+                "spec_k": "spec_k", "spec_ngram": "spec_ngram"}
 _STR_KEYS = {"kv": "kv_dtype", "prefill_impl": "prefill_impl"}
 
 
@@ -128,9 +131,13 @@ def build_llm_engine(spec: str, mode: Optional[str] = None,
     prefix_cache = merged.pop("prefix_cache", None)
     if prefix_cache is not None:
         prefix_cache = bool(int(prefix_cache))
+    # spec_k stays in `merged` (the model's verify width); spec_ngram is
+    # the engine's drafter policy
+    spec_ngram = merged.pop("spec_ngram", None)
     model = PagedLlamaModel(LlamaConfig(**cfg_kwargs), device=device,
                             **merged)
     engine = LLMEngine(model, mode=mode or knob_value("ZOO_LLM_MODE"),
                        max_waiting=overrides.get("max_waiting"),
-                       overlap=overlap, prefix_cache=prefix_cache)
+                       overlap=overlap, prefix_cache=prefix_cache,
+                       spec_ngram=spec_ngram)
     return engine.start() if start else engine
