@@ -36,7 +36,16 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    a 16-token motif, greedy and seeded (temperature 0.9, top_k 16): the
    kernel streams equal the plain path's and the same model's with the
    engine at ``spec_k=0``, and the verify passes launch the paged
-   prefill and no paged decode;
+   prefill and no paged decode; then over the wire (``tiny-wire``):
+   two ``ServingServer``s, each over an engine with its own model on one
+   params tree, an ``HAServingClient`` (``hedge=False``) streaming the
+   prompts, the first server stopped after stream 0's third token —
+   every stream equals the kernel engine's direct one, greedy and
+   seeded, no block held after — and the ``check_llm_serving`` copy
+   with ``--device cuda``: two replica processes on the card, one
+   SIGKILLed mid-storm, zero client-visible failures, the seat
+   respawned, no leaked block and the paged-decode kernel in each
+   replica's ``llm_stats``;
 4b. train-tiny — a tiny Llama ``fit`` (T=32, B=4, 2 shuffled epochs,
    f32) through the flash kernels and the fused AdamW kernel equals the
    same ``fit`` through the dense attention and the plain update;
@@ -56,7 +65,21 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    two runs' streams are equal (printed, not asserted), with ``tick``
    lines (``"path": "verify"``) profiling verify passes of 8 slots x 5
    rows of that model, through the paged-prefill kernel and its plain
-   version;
+   version. After the bucket run, on its weights, the wire runs:
+   the same four prompts through ``ServingServer``s on 127.0.0.1 and an
+   ``HAServingClient`` — one server (``wire_1_server``, beside the
+   direct run), two (``wire_2_servers``), and two with the first
+   stopped at the 480-token stream's 8th token (``wire_failover``, with
+   the failover pause and the HA client's failover count); client-side
+   TTFTs and decode tokens/s, streams equal to the bucket run's, no
+   block held, the flash forward and the paged decode launched. Last,
+   with this process's weights freed, the same prompts through a
+   ``ReplicaGroup`` of one 8B ``python -m zoo_tpu_torch.serving.replica
+   --device cuda`` process and ``group.client()``
+   (``wire_replica_process``: the client in another process than the
+   engine; a cold and a warm pass with the first-token hedge on, a warm
+   one without; streams equal to the bucket run's, the kernels in
+   ``llm_stats``, no block held);
 6. train-main — Keras ``fit`` of the repo's Llama training config
    (``bench.py`` ``bench_llama``: vocab 32000, hidden 768, 12 blocks, 12
    heads, 4 kv heads, intermediate 2048) at full width and depth, S=512,
@@ -148,7 +171,8 @@ held to its plain version at a one-row and a 17-row chunk of three
 sequences.
 
 Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route
-and its launches by main path, ``serve_spec`` the speculative run's;
+and its launches by main path, ``serve_spec`` the speculative run's,
+``serve_wire`` the wire runs';
 for ``conv2d`` and the three flash kernels the numbers are the bf16
 route's, the f32 route's sit under ``f32_route``), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device":
@@ -2610,6 +2634,167 @@ def phase_tiny(torch, K):
             if counts[k] <= 0:
                 raise AssertionError(f"{spec}: {k} never launched")
     phase_tiny_spec(torch, K, plain)
+    phase_tiny_wire(torch, K)
+
+
+def wire_streams(clients, prompts, n_new, sampling=None, stop_at=None):
+    """Stream every prompt concurrently, one thread each, stream ``i``
+    through ``clients[i]`` (an ``HAServingClient``). ``sampling`` is
+    None or a list of per-stream dicts. ``stop_at = (i, k, fn)`` runs
+    ``fn()`` on a thread of its own once stream ``i`` has received ``k``
+    tokens (and joins it before returning). Returns per stream (tokens,
+    arrival times, start time) and the moment ``fn`` started."""
+    import threading
+    out = [None] * len(prompts)
+    errors, fired = [], {}
+
+    def run(i):
+        toks, times = [], []
+        kw = sampling[i] if sampling else {}
+        t0 = time.perf_counter()
+        try:
+            for tok in clients[i].generate(prompts[i], n_new, **kw):
+                toks.append(tok)
+                times.append(time.perf_counter())
+                if stop_at and stop_at[0] == i and len(toks) == stop_at[1]:
+                    fired["t"] = time.perf_counter()
+                    fired["thread"] = threading.Thread(target=stop_at[2],
+                                                       daemon=True)
+                    fired["thread"].start()
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"stream {i}: {e!r}")
+        out[i] = (toks, times, t0)
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if "thread" in fired:
+        fired["thread"].join(60)
+    if errors or any(o is None for o in out):
+        raise AssertionError(f"wire streams failed: {errors}")
+    return out, fired.get("t")
+
+
+def serve_group(spec, params, n=2):
+    """``n`` ``ServingServer``s on 127.0.0.1, each over an engine with
+    its own ``PagedLlamaModel`` on the one ``params`` tree (``.to`` on
+    the same device copies nothing)."""
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+    from zoo_tpu_torch.serving.server import ServingServer
+
+    engines = [build_llm_engine(spec, device="cuda", params=params)
+               for _ in range(n)]
+    servers = [ServingServer(None, llm_engine=e, port=0).start()
+               for e in engines]
+    return engines, servers
+
+
+def wire_clients(servers, n_streams, pinned):
+    """One ``HAServingClient`` (``hedge=False``) per stream: stream
+    ``pinned`` gets a client of its own whose first endpoint is server
+    0, and a fresh client's first plan starts at its first endpoint (no
+    affinity, occupancy or ejection state yet), so that stream lands on
+    server 0 — the one a failover run stops. The other streams share a
+    client over the servers from server 1 on, so round-robin spreads
+    them over all servers. Returns (per-stream clients, every client)."""
+    from zoo_tpu_torch.serving.ha_client import HAServingClient
+
+    eps = [(s.host, s.port) for s in servers]
+
+    def client(order):
+        return HAServingClient(order, hedge=False, deadline_ms=900_000)
+
+    shared = client(eps[1:] + eps[:1])
+    own = client(eps) if len(eps) > 1 else shared
+    per = [own if i == pinned else shared for i in range(n_streams)]
+    return per, list({id(c): c for c in per}.values())
+
+
+def failovers():
+    """The HA client's ``zoo_serve_failover_total`` count."""
+    from zoo_tpu_torch.serving import ha_client
+    return ha_client._failover.value
+
+
+def used_blocks_over_wire(servers, engines):
+    """Each engine's ``used_blocks`` read over ``llm_stats`` (a stopped
+    server's engine is read directly: its door is closed)."""
+    from zoo_tpu_torch.serving.tcp_client import _Connection
+    out = []
+    for srv, eng in zip(servers, engines):
+        if srv._stop.is_set():
+            out.append(eng.stats()["blocks_used"])
+            continue
+        conn = _Connection(srv.host, srv.port)
+        out.append(conn.rpc({"op": "llm_stats"})["stats"]["blocks_used"])
+        conn.close()
+    return out
+
+
+def phase_tiny_wire(torch, K):
+    """``llama:tiny`` over the wire on the card. In process: two servers
+    over two models on one params tree, an ``HAServingClient``
+    (``hedge=False``) streams phase 4's prompts, the first server stops
+    after stream 0's third token, and every stream equals the kernel
+    engine's direct one, greedy and seeded (temperature 0.9, top_k 16,
+    a seed per stream); neither engine holds a block afterwards. Then
+    the ``check_llm_serving`` copy with ``--device cuda``: two replica
+    processes, one SIGKILLed mid-storm."""
+    import numpy as np
+    from zoo_tpu_torch.scripts import check_llm_serving
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, 256, (n,)) for n in (5, 40, 200)]
+    for leg, sampling in (("greedy", None),
+                          ("seeded", [{"temperature": 0.9, "top_k": 16,
+                                       "seed": 100 + i}
+                                      for i in range(len(prompts))])):
+        direct = build_llm_engine("llama:tiny", device="cuda")
+        try:
+            hs = [direct.submit(p, 16, rid=f"q{i}",
+                                sampling=sampling and sampling[i])
+                  for i, p in enumerate(prompts)]
+            for h in hs:
+                while not h.done:
+                    h.wait_new(len(h.tokens), 1.0)
+        finally:
+            direct.stop()
+        ref = [h.tokens for h in hs]
+        engines, servers = serve_group("llama:tiny", direct.model.params)
+        clients, every = wire_clients(servers, len(prompts), pinned=0)
+        f0 = failovers()
+        K.reset_launch_counts()
+        try:
+            out, _ = wire_streams(clients, prompts, 16, sampling,
+                                  stop_at=(0, 3, servers[0].stop))
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            moved = failovers() - f0
+            for c in every:
+                c.close()
+            used = used_blocks_over_wire(servers, engines)
+        finally:
+            for srv in servers:
+                srv.stop()
+        got = [o[0] for o in out]
+        emit({"phase": "tiny-wire", "leg": leg,
+              "streams_equal_direct": got == ref, "used_blocks": used,
+              "failovers": moved, "launches": counts})
+        if got != ref or any(used) or counts["paged_decode"] <= 0 or \
+                moved < 1:
+            raise AssertionError(f"tiny wire {leg}: streams {got} vs "
+                                 f"{ref}, used blocks {used}, {moved} "
+                                 f"failovers, {counts}")
+    t0 = time.perf_counter()
+    rc = check_llm_serving.check(verbose=True, device="cuda")
+    emit({"phase": "tiny-wire", "check_llm_serving": "--device cuda",
+          "rc": rc, "seconds": time.perf_counter() - t0})
+    if rc != 0:
+        raise AssertionError(f"check_llm_serving --device cuda: rc {rc}")
 
 
 def motif_prompts(vocab, lengths, seed):
@@ -2797,6 +2982,7 @@ def phase_main(torch, K, card):
 
     rs = np.random.RandomState(7)
     prompts = [rs.randint(0, 128256, (n,)) for n in (20, 100, 300, 480)]
+    bucket_prompts = prompts
     spec = SPEC_8B.replace("n_block=32", f"n_block={N_BLOCK}")
     emit({"phase": "main", "spec": spec, "depth_cut": N_BLOCK != 32})
     runs = (("bucket", {}, ("flash_attention", "paged_decode")),
@@ -2821,6 +3007,8 @@ def phase_main(torch, K, card):
             launches.update(flash_attention=counts["flash_attention"],
                             paged_decode=counts["paged_decode"])
             phase_tick(torch, eng.model, card)
+            wire = phase_main_wire(torch, K, card, spec, params, prompts,
+                                   first)
         elif label == "chunk=64":
             launches["paged_prefill"] = counts["paged_prefill"]
             # information only, not asserted: the two paths sum attention
@@ -2863,10 +3051,202 @@ def phase_main(torch, K, card):
     # near-tied logits whose argmax may flip
     emit({"phase": "main", "run": "spec_k=4",
           "streams_equal_nospec": spec_toks == nospec_toks})
-    del eng, model
-    torch.cuda.empty_cache()
+    del eng, model, params
+    phase_main_replica(torch, card, spec, bucket_prompts, first)
     return launches, {k: spec_counts[k] for k in ("flash_attention",
-                                                  "paged_prefill")}
+                                                  "paged_prefill")}, wire
+
+
+def phase_main_wire(torch, K, card, spec, params, prompts, direct):
+    """The bucket run's four prompts over the wire at 8B width:
+    ``ServingServer``s on 127.0.0.1 over models on the bucket run's
+    ``params``, an ``HAServingClient`` streaming all four at once.
+    ``direct_warm``: the four prompts through an engine on those weights
+    with no wire, after the bucket run warmed its shapes.
+    ``wire_1_server``: one server, so one engine holds the four streams
+    as ``direct_warm``'s does — its client-side TTFTs and decode
+    tokens/s stand beside that run's and show what the wire costs.
+    ``wire_2_servers``: two servers, no fault. ``wire_failover``: two
+    servers, the first stopped once the 480-token stream (pinned to that
+    server by ``wire_clients``) has its 8th token; the HA client's
+    failover count must rise; the failover pause is the
+    largest gap between two tokens of one stream from its last token
+    before the stop on (a stream resumed on the second server emits
+    nothing while that server re-prefills it and re-decodes what it had
+    sent). Every run's streams must equal the direct bucket run's (the HA
+    contract's premise), end ``ok`` with 32 tokens, and leave no block;
+    launch counts, reset before the first run and read after the last,
+    must show the flash forward and the paged decode. Returns them."""
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+
+    eng = build_llm_engine(spec, device="cuda", params=params)
+    try:
+        hs, wall = drive(eng, prompts, 32)
+    finally:
+        eng.stop()
+    toks = [h.tokens for h in hs]
+    emit({"phase": "main", "run": "direct_warm", "card": card,
+          "wall_s": wall, "decode_steps": [eng.stats()["decode_steps"]],
+          "ttft_s": [h.ttft() for h in hs],
+          "decode_tokens_per_s": sum(len(t) - 1 for t in toks) / (
+              max(h.last_token_at for h in hs) -
+              min(h.first_token_at for h in hs)),
+          "streams_equal_bucket": toks == direct})
+    del eng, hs
+    K.reset_launch_counts()
+    for label, n in (("wire_1_server", 1), ("wire_2_servers", 2),
+                     ("wire_failover", 2)):
+        engines, servers = serve_group(spec, params, n)
+        clients, every = wire_clients(servers, len(prompts), pinned=3)
+        stop_at = (3, 8, servers[0].stop) if label == "wire_failover" \
+            else None
+        f0 = failovers()
+        try:
+            t0 = time.perf_counter()
+            out, t_stop = wire_streams(clients, prompts, 32, None,
+                                       stop_at=stop_at)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            moved = failovers() - f0
+            for c in every:
+                c.close()
+            used = used_blocks_over_wire(servers, engines)
+            stats = [e.stats() for e in engines]
+            impl = [st["decode_attention_impl"] for st in stats]
+        finally:
+            for srv in servers:
+                srv.stop()
+        toks = [o[0] for o in out]
+        ttft = [o[1][0] - o[2] for o in out]
+        t_first = min(o[1][0] for o in out)
+        t_last = max(o[1][-1] for o in out)
+        # decode_steps per engine over the wall: ticks of one engine
+        # interleave with the other's on the one card and the one GIL
+        line = {"phase": "main", "run": label, "card": card,
+                "wall_s": wall,
+                "decode_steps": [st["decode_steps"] for st in stats],
+                "ttft_s": ttft,
+                "decode_tokens_per_s": sum(len(t) - 1 for t in toks) /
+                (t_last - t_first),
+                "streams_equal_bucket": toks == direct,
+                "used_blocks_after": used, "decode_attention_impl": impl,
+                "failovers": moved}
+        if t_stop is not None:
+            gaps, cadence = [], []
+            for t, times, _ in out:
+                before = [x for x in times if x <= t_stop]
+                after = [x for x in times if x > t_stop]
+                if before and after:
+                    seq = [before[-1]] + after
+                    gaps.append(max(b - a for a, b in zip(seq, seq[1:])))
+                if len(before) > 2:
+                    cadence.append(sorted(b - a for a, b in zip(
+                        before[1:], before[2:]))[(len(before) - 2) // 2])
+            line["failover_pause_s"] = max(gaps)
+            line["largest_gap_after_stop_s"] = gaps
+            line["median_gap_before_stop_s"] = cadence
+        emit(line)
+        del engines, servers, clients, every
+        torch.cuda.empty_cache()
+        bad = [len(t) for t in toks if len(t) != 32]
+        if bad or any(used) or toks != direct or impl != ["flash"] * n \
+                or (t_stop is None) != (moved == 0):
+            raise AssertionError(
+                f"{label}: lengths {bad}, used blocks {used}, impl "
+                f"{impl}, {moved} failovers, streams equal the bucket "
+                f"run's: {toks == direct}")
+    counts = K.launch_counts()
+    for k in ("flash_attention", "paged_decode"):
+        if counts[k] <= 0:
+            raise AssertionError(f"serve_wire: {k} never launched")
+    return {k: counts[k] for k in ("flash_attention", "paged_decode")}
+
+
+def phase_main_replica(torch, card, spec, prompts, direct):
+    """The bucket run's four prompts through the entry points users
+    serve with: a ``ReplicaGroup`` of one ``python -m
+    zoo_tpu_torch.serving.replica --device cuda`` process at 8B width
+    (it loads the prebuilt serving kernels and builds the spec's seeded
+    weights, the bucket run's, from its command line) and
+    ``group.client()``. This process frees its own weights first, so one
+    copy is on the card. Three passes: ``cold`` (the replica's first
+    requests) and ``warm`` through the client's defaults, the
+    first-token hedge on (with one seat the hedge lands on the same seat
+    and joins the live stream), then ``warm_no_hedge``, the client
+    ``wire_1_server`` uses. The client runs here and the engine in the
+    replica, so the warm passes' decode tokens/s, beside
+    ``wire_1_server``'s (client and engine in one process), show what
+    sharing the process costs the wire. Required of every pass: each
+    stream ends with 32 tokens equal to the bucket run's, the replica's
+    ``llm_stats`` read the kernels (``decode_attention_impl`` and
+    ``prefill_attention_impl`` both ``flash``), and no block is held.
+    The replica's launches are counted in its own process, so
+    ``serve_wire`` does not hold them."""
+    import gc
+    import tempfile
+
+    from zoo_tpu_torch.serving import ha_client
+    from zoo_tpu_torch.serving.ha import ReplicaGroup
+
+    def hedge_counts():
+        return {e: ha_client._hedge.labels(event=e).value
+                for e in ("fired", "won")}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    log_dir = tempfile.mkdtemp(prefix="zoo-smoke-replica-")
+    group = ReplicaGroup(spec, num_replicas=1, max_restarts=0,
+                         log_dir=log_dir, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        group.start(timeout=300)
+        setup_s = time.perf_counter() - t0
+        steps = 0
+        for label, hedge in (("cold", None), ("warm", None),
+                             ("warm_no_hedge", False)):
+            client = group.client(deadline_ms=900_000, hedge=hedge)
+            h0 = hedge_counts()
+            try:
+                t0 = time.perf_counter()
+                out, _ = wire_streams([client] * len(prompts), prompts, 32)
+                wall = time.perf_counter() - t0
+                hedges = {e: v - h0[e] for e, v in hedge_counts().items()}
+                (stats,) = client.update_topology().values()
+            finally:
+                client.close()
+            toks = [o[0] for o in out]
+            impl = (stats["decode_attention_impl"],
+                    stats["prefill_attention_impl"])
+            emit({"phase": "main", "run": "wire_replica_process",
+                  "pass": label, "card": card,
+                  "this_process_held_gb": held_gb, "setup_s": setup_s,
+                  "wall_s": wall,
+                  "decode_steps": [stats["decode_steps"] - steps],
+                  "ttft_s": [o[1][0] - o[2] for o in out],
+                  "decode_tokens_per_s": sum(len(t) - 1 for t in toks) /
+                  (max(o[1][-1] for o in out) - min(o[1][0] for o in out)),
+                  "streams_equal_bucket": toks == direct,
+                  "used_blocks_after": stats["blocks_used"],
+                  "decode_attention_impl": impl[0],
+                  "prefill_attention_impl": impl[1], "hedges": hedges})
+            bad = [len(t) for t in toks if len(t) != 32]
+            if bad or stats["blocks_used"] or toks != direct or \
+                    impl != ("flash", "flash"):
+                raise AssertionError(
+                    f"wire_replica_process {label}: lengths {bad}, used "
+                    f"blocks {stats['blocks_used']}, impl {impl}, streams "
+                    f"equal the bucket run's: {toks == direct}")
+            steps = stats["decode_steps"]
+    except Exception:
+        log = os.path.join(log_dir, "serving-replica-0.log")
+        if os.path.exists(log):
+            with open(log, "rb") as f:
+                sys.stderr.write(f.read()[-8000:].decode("utf-8",
+                                                         "replace"))
+        raise
+    finally:
+        group.stop()
 
 
 def main():
@@ -2915,8 +3295,9 @@ def main():
         # each main path's launches, counted from 0 just before it runs
         phase_infer_tiny(torch, K)
         phase_train_image_tiny(torch, K)
-        serve, serve_spec = phase_main(torch, K, card)
+        serve, serve_spec, serve_wire = phase_main(torch, K, card)
         by_path = {"serve": serve, "serve_spec": serve_spec,
+                   "serve_wire": serve_wire,
                    "train": phase_train_main(torch, K, card),
                    "infer": phase_infer_main(torch, K, card),
                    "block": phase_bottleneck_main(torch, K, card),

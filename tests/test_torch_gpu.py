@@ -1376,3 +1376,94 @@ def test_sgd_through_the_kernel_matches_plain(hopper, kw):
     for k, a in out["cuda"].items():
         assert _err(out["cpu"][k], params[int(k)]) > 1e-3
         assert _err(a.cpu(), out["cpu"][k]) <= TOL["update"]
+
+
+def _drain_tokens(eng, prompts, n, sampling):
+    eng.start()
+    try:
+        hs = [eng.submit(p, n, rid=f"d{i}", sampling=sampling)
+              for i, p in enumerate(prompts)]
+        for h in hs:
+            while not h.done:
+                h.wait_new(len(h.tokens), 1.0)
+        assert all(h.outcome == "ok" for h in hs)
+        return [h.tokens for h in hs]
+    finally:
+        eng.stop()
+
+
+@pytest.mark.parametrize("sampling", [None, {"temperature": 0.9,
+                                             "top_k": 16, "seed": 5}],
+                         ids=["greedy", "seeded"])
+def test_wire_failover_streams_equal_direct_on_the_card(hopper, sampling):
+    """Two ServingServers, each over an engine with its own
+    PagedLlamaModel on one params tree; the HA client streams, the first
+    server stops after a stream's third token, and every stream equals
+    the kernel engine's direct one. No block is held afterwards."""
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.serving.ha_client import HAServingClient
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+    from zoo_tpu_torch.serving.server import ServingServer
+
+    rs = np.random.RandomState(8)
+    prompts = [rs.randint(0, 256, (n,)) for n in (5, 40, 120)]
+    direct = build_llm_engine("llama:tiny", device=hopper, start=False)
+    params = direct.model.params
+    ref = _drain_tokens(direct, prompts, 16, sampling)
+    engines = [build_llm_engine("llama:tiny", device=hopper, params=params)
+               for _ in range(2)]
+    servers = [ServingServer(None, llm_engine=e, port=0).start()
+               for e in engines]
+    reset_launch_counts()
+    try:
+        cli = HAServingClient([(s.host, s.port) for s in servers],
+                              hedge=False, deadline_ms=120_000)
+        got = []
+        for i, p in enumerate(prompts):
+            toks = []
+            for tok in cli.generate(p, 16, **(sampling or {})):
+                toks.append(tok)
+                if i == 0 and len(toks) == 3:
+                    servers[0].stop()
+            got.append(toks)
+        cli.close()
+    finally:
+        for s in servers:
+            s.stop()
+    assert got == ref
+    assert launch_counts()["paged_decode"] > 0
+    assert [e.allocator.used_blocks for e in engines] == [0, 0]
+
+
+def test_replica_process_serves_through_the_kernels(hopper):
+    """One ``--device cuda`` replica process: it streams a generate and
+    its ``llm_stats`` name the kernel routes."""
+    import os
+    import subprocess
+    import sys
+
+    from zoo_tpu_torch.orca.bootstrap import free_port
+    from zoo_tpu_torch.serving.tcp_client import _Connection
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "zoo_tpu_torch.serving.replica", "--model",
+         "llama:tiny", "--device", "cuda", "--metrics-port", "-1",
+         "--port", str(port)], cwd=root, stdout=subprocess.PIPE,
+        text=True, env={**os.environ, "PYTHONPATH": root})
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("REPLICA READY"), line
+        conn = _Connection("127.0.0.1", port)
+        frames = list(conn.stream({"op": "generate", "prompt": [1, 2, 3],
+                                   "max_new_tokens": 8}))
+        stats = conn.rpc({"op": "llm_stats"})["stats"]
+        conn.close()
+    finally:
+        proc.terminate()
+        proc.wait(30)
+    assert frames[-1]["outcome"] == "ok" and frames[-1]["n_tokens"] == 8
+    assert stats["decode_attention_impl"] == "flash"
+    assert stats["prefill_attention_impl"] == "flash"
+    assert stats["blocks_used"] == 0

@@ -1,4 +1,5 @@
-"""The ``ZOO_*`` knobs the port reads (serving, training, inference).
+"""The ``ZOO_*`` knobs the port reads (serving and its wire path,
+training, inference).
 
 A copy of the entries of ``zoo_tpu/common/knobs.py`` that this package
 needs, with the same names, types and defaults, so one environment
@@ -104,6 +105,72 @@ _k("ZOO_CONV_IMPL", "str", "auto",
 _k("ZOO_INT8_MATMUL", "str", "auto",
    "int8 GEMM backend: `auto`/`fused` (one-kernel quantize+dot+"
    "dequant), `unfused` (quantize pass + dequant matmul kernel)")
+
+# -- the wire path: serving door, HA client, supervision ---------------------
+_k("ZOO_SERVE_REQUEST_TIMEOUT", "float", 120.0,
+   "server reply bound (seconds) for requests with **no** propagated "
+   "deadline")
+_k("ZOO_SERVE_HANDSHAKE_TIMEOUT", "float", 10.0,
+   "TLS handshake bound (seconds)")
+_k("ZOO_SERVE_DEADLINE_MS", "float", 30000.0,
+   "HA client default end-to-end budget; `<= 0` = none")
+_k("ZOO_SERVE_HEDGE", "bool", True, "HA client hedging on/off")
+_k("ZOO_SERVE_HEDGE_DELAY_MS", "float", 0.0,
+   "hedge delay; `0` = track p95 (50 ms until warmed)")
+_k("ZOO_SERVE_BREAKER_RECOVERY", "float", 1.0,
+   "client-side per-replica breaker recovery (seconds)")
+_k("ZOO_SERVE_AB_SPLIT", "str", "",
+   "client A/B split, e.g. `v2=0.1,v3=0.05` (rest unpinned); the port "
+   "refuses a non-empty split until the registry is ported")
+_k("ZOO_LLM_ROLE", "str", "mixed",
+   "replica role: `prefill` / `decode` / `mixed`; the port serves "
+   "`mixed` only until disaggregation (ROADMAP A.5)")
+_k("ZOO_ROUTE_PREFIX_WEIGHT", "float", 1.0,
+   "routing weight of the prefix-affinity signal in the HA client's "
+   "plan order")
+_k("ZOO_ROUTE_OCC_WEIGHT", "float", 0.5,
+   "routing weight of decode occupancy (busy slots / total slots from "
+   "`llm_stats`) — penalizes loaded seats")
+_k("ZOO_TENANT_CONFIG", "str", "",
+   "tenant spec; empty = tenancy off (the port refuses a non-empty one "
+   "until tenancy, ROADMAP A.4)")
+_k("ZOO_TENANT", "str", None,
+   "the tenant id `HAServingClient` stamps on every request it sends "
+   "(per-call `tenant=` overrides)")
+_k("ZOO_TENANT_AB_PINS", "str", "",
+   "per-tenant version pins for the HA client, `gold=v2,free=v1`")
+_k("ZOO_WIRE_CRC", "bool", True,
+   "CRC trailer on every serving frame (negotiated per connection; `0` "
+   "disables)")
+_k("ZOO_EJECT", "bool", True, "gray-failure ejection in the HA client")
+_k("ZOO_EJECT_FACTOR", "float", 3.0,
+   "outlier bar: multiple of the healthy-peer median EWMA")
+_k("ZOO_EJECT_MIN_MS", "float", 25.0,
+   "absolute floor — nothing under it is an outlier")
+_k("ZOO_EJECT_MIN_SAMPLES", "int", 5,
+   "samples before a seat can be classified")
+_k("ZOO_EJECT_EWMA_ALPHA", "float", 0.35, "latency/error EWMA smoothing")
+_k("ZOO_EJECT_PROBATION_S", "float", 1.5,
+   "sustained degradation before probation → ejected")
+_k("ZOO_EJECT_PROBE_S", "float", 0.5, "canary cadence on probation seats")
+_k("ZOO_EJECT_READMIT_S", "float", 1.0,
+   "ejected → probation backoff base (doubles per consecutive ejection)")
+_k("ZOO_EJECT_READMIT_MAX_S", "float", 30.0, "backoff cap")
+_k("ZOO_EJECT_ERROR_RATE", "float", 0.6,
+   "EWMA error rate that triggers probation on its own")
+_k("ZOO_QUARANTINE_PROBE_S", "float", 5.0,
+   "quarantine probe-respawn backoff base")
+_k("ZOO_QUARANTINE_PROBE_MAX_S", "float", 60.0, "probe backoff cap")
+_k("ZOO_QUARANTINE_HEAL_S", "float", 30.0,
+   "probe uptime that re-admits the seat")
+_k("ZOO_FAULT_SEED", "int", None,
+   "deterministic seed for the fault-injection registry's p-draws")
+_k("ZOO_HEARTBEAT_FILE", "str", None,
+   "per-process heartbeat stamp file (set by the supervisor for every "
+   "worker; hung-worker detection reads its age)")
+_k("ZOO_HEARTBEAT_INTERVAL", "float", 1.0,
+   "heartbeat stamp cadence (seconds)")
+_k("ZOO_OBS_SNAPSHOT", "str", None, "metrics JSONL flushed on drain")
 
 
 def get(name: str) -> Knob:

@@ -31,8 +31,10 @@ tick runs over whatever mix of old and new sequences the slots hold.
   pass; the waiting queue is bounded; a duplicate request id joins the
   live stream.
 
-This copy leaves out the reference's tenancy, disaggregated handoff
-and telemetry; later slices of the port bring them.
+This copy leaves out the reference's tenancy (ROADMAP A.4), the
+disaggregated handoff (A.5) and telemetry (A.6). Streams are read by
+cursor; ``GenHandle.subscribe``/``unsubscribe`` count the readers, so
+the serving door cancels a stream only when its last reader drops.
 The model is any object with the
 :class:`~zoo_tpu_torch.serving.llm.model.PagedLlamaModel` surface.
 """
@@ -142,6 +144,7 @@ class GenHandle:
         self.preempts = 0
         self.cancelled = threading.Event()
         self._cond = threading.Condition()
+        self._subs = 0            # streaming readers (subscribe)
         # scheduler-side state (owned by the engine under its lock)
         self.gen_count = 0        # tokens applied so far
         self.sched_count = 0      # tokens dispatched (>= gen_count)
@@ -198,6 +201,20 @@ class GenHandle:
                     return [], False
                 self._cond.wait(rem if rem is None or rem < 0.5 else 0.5)
 
+    def subscribe(self) -> int:
+        """Register a streaming reader (a server handler, a joined
+        duplicate, a hedge). The stream is only auto-cancelled when the
+        LAST reader drops — a hedge loser's disconnect must not kill
+        the winner's stream."""
+        with self._cond:
+            self._subs += 1
+            return self._subs
+
+    def unsubscribe(self) -> int:
+        with self._cond:
+            self._subs -= 1
+            return self._subs
+
     def ttft(self) -> Optional[float]:
         return None if self.first_token_at is None else \
             self.first_token_at - self.created
@@ -231,16 +248,32 @@ class LLMEngine:
     ``ZOO_LLM_OVERLAP`` (continuous mode only). ``spec_k=None`` takes
     the model's verify width, and any value is clamped to it (0 runs
     plain decode on a speculative model); ``spec_ngram=None`` reads
-    ``ZOO_LLM_SPEC_NGRAM``."""
+    ``ZOO_LLM_SPEC_NGRAM``. ``role=None`` reads ``ZOO_LLM_ROLE``: the
+    replica's role in a disaggregated pool, advertised on every reply
+    frame; only ``mixed`` is served until ROADMAP A.5 ports the
+    prefill/decode handoff."""
 
     def __init__(self, model, mode: str = "continuous",
                  max_waiting: Optional[int] = None,
                  overlap: Optional[bool] = None,
                  prefix_cache: Optional[bool] = None,
                  spec_k: Optional[int] = None,
-                 spec_ngram: Optional[int] = None):
+                 spec_ngram: Optional[int] = None,
+                 role: Optional[str] = None):
         if mode not in ("continuous", "oneshot"):
             raise ValueError(f"unknown scheduling mode {mode!r}")
+        if role is None:
+            role = knob_value("ZOO_LLM_ROLE")
+        if role in ("prefill", "decode"):
+            raise ValueError(
+                f"replica role {role!r} needs the prefill/decode KV "
+                "handoff, which the port does not have yet (ROADMAP A.5, "
+                "disaggregation); serve role 'mixed'")
+        if role != "mixed":
+            raise ValueError(
+                f"unknown replica role {role!r} (expected prefill, "
+                "decode, or mixed)")
+        self.role = role
         self.model = model
         self.mode = mode
         model_k = int(getattr(model, "spec_k", 0) or 0)
@@ -1012,6 +1045,7 @@ class LLMEngine:
     def stats(self) -> Dict:
         m = self.model
         out = {"mode": self.mode,
+               "role": self.role,
                "overlap": self.overlap,
                "slots": m.num_slots,
                "prefill_chunk": self._chunk,

@@ -1,1 +1,2 @@
-"""Small helpers the serving path needs: int8 narrowing and deadlines."""
+"""Small helpers of the port: int8 narrowing, deadlines, retries,
+circuit breaking, fault injection, heartbeats and wire-frame CRCs."""
