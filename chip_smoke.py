@@ -49,6 +49,11 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 4b. train-tiny — a tiny Llama ``fit`` (T=32, B=4, 2 shuffled epochs,
    f32) through the flash kernels and the fused AdamW kernel equals the
    same ``fit`` through the dense attention and the plain update;
+4c. train-bert-tiny — a tiny BERT (2 blocks, hidden 64, 4 heads, S=512,
+   so that ``auto`` takes the non-causal flash kernels) ``fit`` for two
+   shuffled epochs with the fused AdamW, f32 and ``mixed_bfloat16``,
+   equals the same ``fit`` through the dense attention and the plain
+   update (f32 to 4b's tolerances, bf16 losses within rtol 2e-2);
 5. main path — the Llama-3-8B-width engine answers four concurrent
    greedy requests (20/100/300/480-token prompts, 32 new tokens each:
    480 + 32 fills the 512-token context of the default 32 x 16-token
@@ -131,7 +136,28 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    ms, tokens/s or samples/s, losses finite and falling, peak memory;
    12 flash forward, 12 dK/dV and 12 dQ launches a step, or 49 ``conv2d``
    a forward), and a ``train-f32-step`` line profiling steps by kernel
-   group.
+   group;
+12. train-rec-main — Keras ``fit`` of the NCF flagship
+   (``__graft_entry__.py`` ``_flagship()``'s config: 6040 users, 3706
+   items, 5 classes, embeddings 64, MLP (128, 64, 32), ``Adam(lr=
+   0.001)``) at ``bench.py`` ``bench_ncf``'s size: B=8192, 96 steps an
+   epoch of ``RandomState(0)`` ids and labels, host-fed, unshuffled; a
+   warm-up epoch, then timed epochs (samples/s), per-step losses finite
+   and falling, two runs from one start equal bit for bit, no kernel
+   launched (NCF runs none in the JAX package either),
+   ``recommend_for_user`` on three users, and a ``train-rec-step`` line
+   profiling steps by kernel group with the device's busy share;
+13. train-bert-main — Keras ``fit`` of ``bench.py`` ``bench_bert``'s
+   BERT-base (vocab 30522, hidden 768, 12 blocks, 12 heads,
+   intermediate 3072, no dropout, ``remat="dots"``, ``mixed_bfloat16``,
+   ``Lambda(h[:, 0])`` + ``Dense(2)``, from-logits loss): run (a)
+   exactly ``bench_bert`` (S=128, B=64, the dense attention, AdamW at
+   the knob's default, unfused), run (b) S=512, B=16 with the fused
+   AdamW (12 non-causal flash forward, dK/dV and dQ launches and one
+   AdamW launch a leaf, every step); each a warm-up fit, 8 timed steps
+   (step ms, samples/s, ``mfu`` from ``bench_bert``'s analytic FLOPs
+   over the bf16 peak, finite losses) and a ``train-bert-step``
+   profile.
 
 Phase 3 also holds the flash forward (o, lse) and backward kernels
 (dK/dV, dQ) against their plain versions, and the gradients against
@@ -155,7 +181,12 @@ B=128, f32 and bf16; and the
 fused bottleneck at ResNet-50's four identity geometries (B=128, bf16,
 and f32 at conv2_x) with its gradients at conv2_x, timed beside the
 unfused cuDNN composition (three ``F.conv2d``, the ReLUs and the add),
-a yardstick the port never calls.
+a yardstick the port never calls; and the non-causal bf16
+flash forward and backward at BERT run (b)'s shape (B=16, H = Hkv = 12,
+T=512, D=64) against their plain versions and dense autograd, timed
+beside their bounds and the non-causal SDPA (``bert_shape``), and the
+``Embedding`` gather's gradient at NCF's shape repeating bit for bit
+(beside ``index_add_``, a control).
 
 The bf16, f32 and int8 convs (per shape and summed; the f32 conv also
 beside its 3xTF32 bound), the bf16 flash forward and backward kernels at the training
@@ -172,7 +203,7 @@ sequences.
 
 Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route
 and its launches by main path, ``serve_spec`` the speculative run's,
-``serve_wire`` the wire runs';
+``serve_wire`` the wire runs', ``train_bert`` BERT run (b)'s;
 for ``conv2d`` and the three flash kernels the numbers are the bf16
 route's, the f32 route's sit under ``f32_route``), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device":
@@ -225,6 +256,21 @@ TRAIN_IMG_B, TRAIN_IMG_STEPS, TRAIN_IMG_N = 128, 8, 1024
 RESNET50_FWD_FLOPS = 8.0e9          # bench.py:65, per image
 # the f32 training path (the default policy): timed steps of each model
 TRAIN_F32_STEPS = 4
+# the NCF flagship: __graft_entry__.py _flagship() (:17-32), trained as
+# bench.py bench_ncf (:331-341) trains it, on synthetic ids
+NCF_CFG = dict(user_count=6040, item_count=3706, class_num=5,
+               user_embed=64, item_embed=64, hidden_layers=(128, 64, 32),
+               mf_embed=64)
+NCF_B, NCF_STEPS, NCF_EPOCHS = 8192, 96, 3
+# BERT-base: bench.py bench_bert (:387-424); run (a) its exact config at
+# S=128, B=64, run (b) the same model at S=512 (max_position_len, BERT's
+# pre-training length), B=16: the same 8192 tokens a step
+BERT_CFG = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
+                intermediate_size=3072, hidden_p_drop=0.0, attn_p_drop=0.0,
+                remat="dots")
+BERT_RUNS = (("a", 128, 64), ("b", 512, 16))
+BERT_S, BERT_B = BERT_RUNS[1][1:]
+BERT_STEPS = 8
 
 # tolerances of kernel vs plain version, max absolute error:
 # f32 outputs 1e-4 (the same f32 math summed in another order, expf vs
@@ -867,24 +913,24 @@ def _train_leaf_shapes():
             (L, c["intermediate"], h)]
 
 
-def _bwd_timing(torch, FA, q, k, v, o, lse, do):
+def _bwd_timing(torch, FA, q, k, v, o, lse, do, causal=True):
     """The two backward kernels timed in one ``flash_attention_bwd``
-    call (causal), each beside its plain version, its bound (bf16 at the
+    call, each beside its plain version, its bound (bf16 at the
     tensor cores' peak, f32 at the SIMT peak) and SDPA's backward (all
     three gradients, one call; the same for both), with its TFLOP/s,
     share of its bound and factor over SDPA's backward."""
     import torch.nn.functional as F
     B, H, S, D = q.shape
-    pairs = B * H * S * (S + 1) // 2
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
     item = q.element_size()
     qb, kb = q.numel() * item, k.numel() * item
     stats = 2 * B * H * S * 4                      # lse + delta, f32
     peak = PEAK_BF16_FLOPS if q.dtype == torch.bfloat16 else PEAK_F32_FLOPS
     delta = (do.float() * o.float()).sum(-1)
     t = timed(torch, lambda: FA.flash_attention_bwd(q, k, v, o, lse, do,
-                                                    True), 10)
+                                                    causal), 10)
     lq, lk, ls = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    lo = F.scaled_dot_product_attention(lq, lk, ls, is_causal=True,
+    lo = F.scaled_dot_product_attention(lq, lk, ls, is_causal=causal,
                                         enable_gqa=True)
     lib = timed(torch, lambda: torch.autograd.grad(
         lo, (lq, lk, ls), do, retain_graph=True), 10)["device_ms"]
@@ -894,12 +940,12 @@ def _bwd_timing(torch, FA, q, k, v, o, lse, do):
             ("flash_attention_dkdv",
              "flash_bwd_dkdv_tc_kernel" if tc else "flash_bwd_dkdv_kernel",
              lambda: FA.flash_attention_dkdv_plain(q, k, v, do, lse, delta,
-                                                   True),
+                                                   causal),
              2 * qb + 2 * kb + stats + 2 * kb, 8 * D * pairs),
             ("flash_attention_dq",
              "flash_bwd_dq_tc_kernel" if tc else "flash_bwd_dq_kernel",
              lambda: FA.flash_attention_dq_plain(q, k, v, do, lse, delta,
-                                                 True),
+                                                 causal),
              2 * qb + 2 * kb + stats + qb, 6 * D * pairs)):
         ms = sum(v_ for n, v_ in t["by_name"].items() if name in n)
         if not ms > 0:
@@ -911,6 +957,100 @@ def _bwd_timing(torch, FA, q, k, v, o, lse, do):
             plain_ms=timed(torch, plain, 3)["device_ms"], library_ms=lib,
             bound_ms=b_ms, bound_by=b_by, **rates(flops, ms, b_ms, lib))
     return out
+
+
+def _bert_flash_kernels(torch, FA, randn, record, err, results):
+    """The bf16 flash kernels at BERT's run (b) shape (``BERT_B``,
+    H = Hkv = 12, S=512, D=64, NON-causal): forward (o, lse) and backward
+    against their plain versions and the gradients against autograd of
+    the dense path, then timed beside their bounds and the non-causal
+    SDPA (into ``results[kernel]["bert_shape"]``)."""
+    import torch.nn.functional as F
+    from zoo_tpu_torch.ops.attention import dense_attention
+    B, H, S, D = BERT_B, BERT_CFG["n_head"], BERT_S, 64
+    bf = torch.bfloat16
+    q, k, v, do = (randn(B, H, S, D, dtype=bf) for _ in range(4))
+    shape = f"bfloat16 causal=False B={B} H={H} Hkv={H} T={S} D={D}"
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=False)
+    ro, rlse = FA.flash_attention_plain(q, k, v, False)
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=False)
+    plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, False)
+    torch.cuda.synchronize()
+    record("flash_attention", "o " + shape, err(o, ro), "bfloat16")
+    record("flash_attention", "lse " + shape, err(lse, rlse), "bfloat16")
+    for i, part in enumerate(("dq", "dk", "dv")):
+        kernel = "flash_attention_dq" if part == "dq" else \
+            "flash_attention_dkdv"
+        record(kernel, f"{part} {shape}", err(got[i], plain[i]), "bfloat16")
+    del ro, rlse, plain
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    dense = torch.autograd.grad(dense_attention(*leaves)[0], leaves,
+                                do.float())
+    torch.cuda.synchronize()
+    for i, part in enumerate(("dq", "dk", "dv")):
+        kernel = "flash_attention_dq" if part == "dq" else \
+            "flash_attention_dkdv"
+        record(kernel, f"{part} {shape} vs dense autograd",
+               err(got[i], dense[i]), "bfloat16",
+               float(dense[i].abs().max()))
+    del got, leaves, dense
+    torch.cuda.empty_cache()
+    pairs = B * H * S * S
+    qb = q.numel() * 2
+    b_ms, b_by = bound(4 * qb + B * H * S * 4, 4 * D * pairs,
+                       PEAK_BF16_FLOPS)
+    t = timing(torch, "flash_fwd_tc_kernel",
+               lambda: FA.flash_attention_fwd(q, k, v, False),
+               lambda: FA.flash_attention_plain(q, k, v, False),
+               lambda: F.scaled_dot_product_attention(q, k, v), 10)
+    label = f"B={B} H={H} Hkv={H} T={S} D={D} bf16 non-causal"
+    results["flash_attention"]["bert_shape"] = dict(
+        t, bound_ms=b_ms, bound_by=b_by, shape=label,
+        **rates(4 * D * pairs, t["ms"], b_ms, t["library_ms"]))
+    for kernel, tb in _bwd_timing(torch, FA, q, k, v, o, lse, do,
+                                  causal=False).items():
+        results[kernel]["bert_shape"] = dict(tb, shape=label)
+    for kernel in ("flash_attention", "flash_attention_dkdv",
+                   "flash_attention_dq"):
+        emit({"phase": "kernels", "kernel": kernel, "bert_shape": {
+            key: results[kernel]["bert_shape"][key] for key in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "tflops", "bound_ratio", "library_ratio", "shape")}})
+    del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+
+
+def _check_embedding_determinism(torch):
+    """The gradient of the port's ``Embedding`` gather (``take_rows``,
+    whose backward sums the rows of repeated ids) at NCF's shape, B=8192
+    ids into the 6040 x 64 user table, twice on the same inputs: must
+    repeat bit for bit, beside ``index_add_`` (atomic adds), a control
+    whose order may change from run to run."""
+    from zoo_tpu_torch.pipeline.api.keras.layers.core import take_rows
+    g = torch.Generator(device="cuda").manual_seed(55)
+    rows, dim, b = NCF_CFG["user_count"], NCF_CFG["user_embed"], NCF_B
+    table = torch.randn(rows, dim, generator=g, device="cuda")
+    ids = torch.randint(0, rows, (b,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    dy = torch.randn(b, dim, generator=g, device="cuda")
+
+    def grad():
+        e = table.clone().requires_grad_()
+        return torch.autograd.grad(take_rows(e, ids), e, dy)[0]
+
+    def control():
+        return torch.zeros_like(table).index_add_(0, ids.long(), dy)
+
+    same = {}
+    for label, fn in (("take_rows", grad), ("index_add_control", control)):
+        a, b2 = fn(), fn()
+        torch.cuda.synchronize()
+        same[label] = bool(torch.equal(a, b2))
+    emit({"phase": "kernels", "check": "embedding_grad_repeat",
+          "shape": f"{b} ids into {rows} x {dim}", "bit_equal": same})
+    if not same["take_rows"]:
+        raise AssertionError("Embedding's gradient: a second run on the "
+                             "same inputs gave other bits")
 
 
 def _check_reference_conv_grads(torch, record, err):
@@ -1182,6 +1322,8 @@ def phase_training_kernels(torch, record, err, results):
                              **{k_: t["ms"] for k_, t in by.items()}}})
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
+    _bert_flash_kernels(torch, FA, randn, record, err, results)
+    _check_embedding_determinism(torch)
     _check_reference_conv_grads(torch, record, err)
     _check_reference_conv_determinism(torch)
 
@@ -2422,7 +2564,8 @@ def phase_train_main(torch, K, card):
 
 
 def _llama_group(name):
-    """The kernel group of a device event of a Llama training step."""
+    """The kernel group of a device event of a Llama or BERT training
+    step."""
     n = name.lower()
     for key, label in (("flash_fwd_tc_kernel", "flash_fwd"),
                        ("flash_fwd_kernel", "flash_fwd"),
@@ -2580,6 +2723,315 @@ def phase_train_f32_main(torch, K, card):
     return {k: total.get(k, 0) for k in (
         "conv2d", "flash_attention", "flash_attention_dkdv",
         "flash_attention_dq", "fused_adam", "fused_sgd")}
+
+
+def _bert_sequential(seq_len, attention_impl="auto", **cfg):
+    """``bench.py`` ``bench_bert``'s model (:400-411) at ``cfg``'s
+    widths: BERT, ``Lambda(h[:, 0])``, ``Dense(2)``."""
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense, Lambda
+    m = Sequential()
+    m.add(BERT(seq_len=seq_len, max_position_len=max(seq_len, 512),
+               attention_impl=attention_impl, input_shape=(seq_len,),
+               **cfg))
+    m.add(Lambda(lambda h: h[:, 0], output_shape=(cfg["hidden_size"],)))
+    m.add(Dense(2))
+    return m
+
+
+def phase_train_bert_tiny(torch, K):
+    """Kernel path == plain path through a tiny BERT ``fit`` at S=512,
+    where ``auto`` takes the flash kernels (non-causal), with the fused
+    AdamW kernel, against the dense attention and the plain update; f32
+    and ``mixed_bfloat16``. Returns the kernel path's launches."""
+    import numpy as np
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import AdamWeightDecay
+    cfg = dict(vocab=256, hidden_size=64, n_block=2, n_head=4,
+               intermediate_size=128, hidden_p_drop=0.0, attn_p_drop=0.0)
+    S, B, N = 512, 4, 8
+    rs = np.random.RandomState(3)
+    ids = rs.randint(0, cfg["vocab"], (N, S)).astype(np.int32)
+    y = rs.randint(0, 2, N).astype(np.int32)
+    steps = 2 * (N // B)
+    total = {}
+    for policy in ("float32", "mixed_bfloat16"):
+        start = None
+        out = {}
+        for label, impl, fused in (("kernels", "auto", True),
+                                   ("plain", "dense", False)):
+            m = _bert_sequential(S, impl, **cfg)
+            m.compile(AdamWeightDecay(lr=1e-3, fused=fused), LOSS,
+                      dtype_policy=policy)
+            if start is None:
+                start = tree_map(torch.clone, m.build(
+                    torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda"))
+            m.params = tree_map(torch.clone, start)
+            K.reset_launch_counts()
+            hist = m.fit(ids, y, batch_size=B, nb_epoch=2, shuffle=True,
+                         seed=0, verbose=0, device="cuda")
+            torch.cuda.synchronize()
+            out[label] = (hist["loss"], m.params, K.launch_counts(),
+                          m.layers[0].last_attention_impl)
+        (lk, pk, ck, ik), (lp, pp, cp, ip) = out["kernels"], out["plain"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+        param_err = max(float((a.detach() - b.detach()).abs().max())
+                        for a, b in zip(tree_leaves(pk), tree_leaves(pp)))
+        n_leaves = len(tree_leaves(pk))
+        emit({"phase": "train-bert-tiny", "policy": policy,
+              "loss_kernels": lk, "loss_plain": lp,
+              "loss_max_rel": loss_rel, "param_max_abs": param_err,
+              "attention_impl": [ik, ip], "leaves": n_leaves,
+              "launches": {k: v for k, v in ck.items() if v},
+              "launches_plain": {k: v for k, v in cp.items() if v}})
+        # f32: train-tiny's tolerances; bf16: the losses within
+        # tests/test_torch_keras.py's bf16 rtol (the kernel rounds p and
+        # dS to bf16 where the dense path keeps f32, and AdamW turns a
+        # sign change of a small bf16 gradient into a full step)
+        if policy == "float32":
+            ok = loss_rel <= 1e-4 and param_err <= 1e-4
+        else:
+            ok = loss_rel <= 2e-2 and all(np.isfinite(lk))
+        if not ok or (ik, ip) != ("flash", "dense"):
+            raise AssertionError(
+                f"train-bert-tiny {policy}: kernel path differs from "
+                f"plain: loss rel {loss_rel}, params {param_err}, "
+                f"impls {ik}, {ip}")
+        want = {"flash_attention": cfg["n_block"] * steps,
+                "flash_attention_dkdv": cfg["n_block"] * steps,
+                "flash_attention_dq": cfg["n_block"] * steps,
+                "fused_adam": n_leaves * steps}
+        got = {k: ck[k] for k in want}
+        if got != want or any(cp[k] for k in want):
+            raise AssertionError(f"train-bert-tiny {policy}: launches "
+                                 f"{got} (plain {cp}), expected {want}")
+        for k, v in ck.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _rec_group(name):
+    """The kernel group of a device event of an NCF training step."""
+    n = name.lower()
+    if "memcpy" in n.replace(" ", ""):
+        return "copies"
+    if any(s in n for s in ("embedding", "index", "gather", "scatter",
+                            "radix", "sort", "segment", "grad_weight",
+                            "unique")):
+        return "embedding"
+    if any(s in n for s in ("gemm", "gemv", "cutlass", "matmul", "xmma",
+                            "nvjet")):
+        return "matmul"
+    return "elementwise"
+
+
+def phase_train_rec_main(torch, K, card):
+    """Keras ``fit`` of the NCF flagship (``_flagship()``'s config) at
+    ``bench_ncf``'s size: B=8192, 96 steps an epoch, host-fed numpy,
+    ``shuffle=False``; a warm-up epoch, then NCF_EPOCHS timed epochs
+    (samples/s each), per-step losses of 8 steps on one batch (finite,
+    falling), two runs from one start repeating bit for bit,
+    ``recommend_for_user`` on a few users, and a ``train-rec-step``
+    profile. NCF runs no Pallas kernel in the JAX package, and no
+    kernel here: every count must stay 0."""
+    import numpy as np
+    from zoo_tpu_torch.models.recommendation import (NeuralCF,
+                                                     UserItemFeature)
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    def model():
+        m = NeuralCF(**NCF_CFG)
+        return m.compile(optimizer=Adam(lr=0.001),
+                         loss="sparse_categorical_crossentropy",
+                         metrics=["accuracy"])
+
+    B, n = NCF_B, NCF_B * NCF_STEPS
+    rs = np.random.RandomState(0)                           # bench.py:338
+    x = np.stack([rs.randint(0, NCF_CFG["user_count"], n),
+                  rs.randint(0, NCF_CFG["item_count"], n)],
+                 axis=1).astype(np.int32)
+    y = rs.randint(0, NCF_CFG["class_num"], n).astype(np.int32)
+    m = model()
+    t0 = time.perf_counter()
+    start = tree_map(torch.clone, m.build(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    n_params = sum(t.numel() for t in tree_leaves(start))
+    m.fit(x, y, batch_size=B, nb_epoch=1, shuffle=False, verbose=0,
+          device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rates_, losses = [], []
+    for _ in range(NCF_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = m.fit(x, y, batch_size=B, nb_epoch=1, shuffle=False,
+                     verbose=0, device="cuda")
+        torch.cuda.synchronize()
+        rates_.append(n / (time.perf_counter() - t0))
+        losses += hist["loss"]
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # per-step losses: 8 steps on one batch, each an epoch of its own
+    steps = m.fit(x[:B], y[:B], batch_size=B, nb_epoch=8, shuffle=False,
+                  verbose=0, device="cuda")["loss"]
+    # two runs of 8 steps from one start: the Embedding gradients (and
+    # everything else) repeat bit for bit
+    runs = []
+    for _ in range(2):
+        r = model()
+        r.params = tree_map(torch.clone, start)
+        r.fit(x[:8 * B], y[:8 * B], batch_size=B, nb_epoch=1,
+              shuffle=False, verbose=0, device="cuda")
+        runs.append(tree_leaves(r.params))
+    torch.cuda.synchronize()
+    repeats = all(torch.equal(a, b) for a, b in zip(*runs))
+    users = [1, 17, 4242]
+    cands = [UserItemFeature(u, i) for u in users
+             for i in range(0, NCF_CFG["item_count"], 97)]
+    recs = m.recommend_for_user(cands, 5)
+    emit({"phase": "train-rec-main", "config": NCF_CFG, "card": card,
+          "batch": B, "steps_per_epoch": NCF_STEPS, "params": n_params,
+          "setup_s": setup_s, "samples_per_s": rates_,
+          "samples_per_s_median": sorted(rates_)[len(rates_) // 2],
+          "step_ms": [B / r * 1e3 for r in rates_],
+          "epoch_losses": losses, "step_losses": steps,
+          "repeats_bit_for_bit": repeats, "peak_mem_gb": peak,
+          "launches": {k: v for k, v in counts.items() if v},
+          "recommend_for_user": [[p.user_id, p.item_id, p.probability]
+                                 for p in recs]})
+    if not (all(np.isfinite(losses + steps)) and steps[-1] < steps[0]):
+        raise AssertionError(f"train-rec-main: losses {losses} {steps}")
+    if any(counts.values()):
+        raise AssertionError(f"train-rec-main: kernels launched {counts}; "
+                             "NCF's path runs none")
+    if not repeats:
+        raise AssertionError("train-rec-main: two runs from one start "
+                             "gave other bits")
+    if [p.user_id for p in recs] != [u for u in users for _ in range(5)] \
+            or not all(0.0 < p.probability <= 1.0 for p in recs):
+        raise AssertionError(f"train-rec-main: recommend_for_user {recs}")
+    xb, yb = x[:4 * B], y[:4 * B]
+    t = timed(torch, lambda: m.fit(xb, yb, batch_size=B, nb_epoch=1,
+                                   shuffle=False, verbose=0, device="cuda"),
+              2, warmup=1)
+    emit({"phase": "train-rec-step", "card": card, "steps_per_call": 4,
+          "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
+          "device_ms": t["device_ms"],
+          "device_busy_share": t["device_busy_share"],
+          "device_launches": t["device_launches"],
+          "device_ms_by_group": _grouped(t["by_name"], _rec_group),
+          "top_device_ms": [[k[:80], v] for k, v in sorted(
+              t["by_name"].items(), key=lambda kv: -kv[1])[:10]],
+          "top_host_ms": [[k[:80], v] for k, v in sorted(
+              t["host_by_name"].items(), key=lambda kv: -kv[1])[:10]]})
+    del m, runs
+    torch.cuda.empty_cache()
+
+
+def phase_train_bert_main(torch, K, card):
+    """Keras ``fit`` of ``bench.py``'s BERT-base at full width and depth,
+    ``mixed_bfloat16``, ``remat="dots"``: run (a) ``bench_bert`` exactly
+    (S=128, B=64, dense attention, ``AdamWeightDecay(lr=1e-4)`` at the
+    knob's default), run (b) S=512, B=16 with the fused AdamW (the
+    non-causal bf16 flash kernels, 12 each a step, one AdamW launch a
+    leaf a step). Each: a warm-up fit of two steps, BERT_STEPS timed
+    steps on one batch (step ms, samples/s, ``mfu`` from ``bench_bert``'s
+    analytic FLOPs, losses finite), then a ``train-bert-step`` profile.
+    Returns run (b)'s launches."""
+    import numpy as np
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import AdamWeightDecay
+
+    L, h = BERT_CFG["n_block"], BERT_CFG["hidden_size"]
+    inter = BERT_CFG["intermediate_size"]
+    out = {}
+    for run, S, B in BERT_RUNS:
+        fused = run == "b"
+        m = _bert_sequential(S, **BERT_CFG)
+        opt = AdamWeightDecay(lr=1e-4, fused=True) if fused else \
+            AdamWeightDecay(lr=1e-4)
+        m.compile(optimizer=opt, loss=LOSS, dtype_policy="mixed_bfloat16")
+        rs = np.random.RandomState(0)                      # bench.py:415
+        ids = rs.randint(0, BERT_CFG["vocab"], (3 * B, S)).astype(np.int32)
+        y = rs.randint(0, 2, 3 * B).astype(np.int32)
+        t0 = time.perf_counter()
+        m.build(torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+        n_leaves = len(tree_leaves(m.params))
+        n_params = sum(t.numel() for t in tree_leaves(m.params))
+        m.fit(ids[:2 * B], y[:2 * B], batch_size=B, nb_epoch=1,
+              shuffle=False, verbose=0, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        xb, yb = ids[2 * B:], y[2 * B:]
+        K.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = m.fit(xb, yb, batch_size=B, nb_epoch=BERT_STEPS,
+                     shuffle=False, verbose=0, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        losses = hist["loss"]
+        step_s = wall / BERT_STEPS
+        fwd_per_token = L * (8 * h ** 2 + 4 * h * inter + 4 * S * h)
+        flops_per_sample = 3 * fwd_per_token * S          # bench.py:419-423
+        impl = m.layers[0].last_attention_impl
+        emit({"phase": "train-bert-main", "run": run, "card": card,
+              "config": dict(BERT_CFG, seq_len=S), "batch": B,
+              "steps": BERT_STEPS, "params": n_params, "leaves": n_leaves,
+              "optimizer_fused": m.optimizer.fused,
+              "attention_impl": impl, "setup_s": setup_s, "wall_s": wall,
+              "step_ms": step_s * 1e3, "samples_per_s": B / step_s,
+              "tokens_per_s": B * S / step_s,
+              "mfu": flops_per_sample * B / step_s / PEAK_BF16_FLOPS,
+              "losses": losses,
+              "launches_per_step": {k: v / BERT_STEPS for k, v in
+                                    counts.items() if v},
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"train-bert-main ({run}): losses {losses}")
+        flash = ("flash_attention", "flash_attention_dkdv",
+                 "flash_attention_dq")
+        if fused:
+            want = dict({k: L * BERT_STEPS for k in flash},
+                        fused_adam=n_leaves * BERT_STEPS)
+            want_impl = "flash"
+        else:
+            want = dict({k: 0 for k in flash}, fused_adam=0)
+            want_impl = "dense"
+        got = {k: counts[k] for k in want}
+        if got != want or impl != want_impl:
+            raise AssertionError(f"train-bert-main ({run}): launches {got}, "
+                                 f"attention {impl}; expected {want}, "
+                                 f"{want_impl}")
+        out[run] = counts
+        t = timed(torch, lambda: m.fit(xb[:B], yb[:B], batch_size=B,
+                                       nb_epoch=1, shuffle=False,
+                                       verbose=0, device="cuda"),
+                  3, warmup=1)
+        emit({"phase": "train-bert-step", "run": run, "card": card,
+              "steps": 3, "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
+              "device_ms": t["device_ms"],
+              "device_busy_share": t["device_busy_share"],
+              "device_launches": t["device_launches"],
+              "device_ms_by_group": _grouped(t["by_name"], _llama_group),
+              "top_device_ms": [[k[:80], v] for k, v in sorted(
+                  t["by_name"].items(), key=lambda kv: -kv[1])[:12]],
+              "top_host_ms": [[k[:80], v] for k, v in sorted(
+                  t["host_by_name"].items(), key=lambda kv: -kv[1])[:12]]})
+        del m
+        torch.cuda.empty_cache()
+    return {k: out["b"][k] for k in ("flash_attention",
+                                     "flash_attention_dkdv",
+                                     "flash_attention_dq", "fused_adam")}
 
 
 def drive(engine, prompts, n_new, budget=600.0, sampling=None):
@@ -3292,6 +3744,7 @@ def main():
         timing = phase_kernels(torch)
         phase_tiny(torch, K)
         phase_train_tiny(torch, K)
+        phase_train_bert_tiny(torch, K)
         # each main path's launches, counted from 0 just before it runs
         phase_infer_tiny(torch, K)
         phase_train_image_tiny(torch, K)
@@ -3303,6 +3756,8 @@ def main():
                    "block": phase_bottleneck_main(torch, K, card),
                    "train_image": phase_train_image_main(torch, K, card),
                    "train_f32": phase_train_f32_main(torch, K, card)}
+        phase_train_rec_main(torch, K, card)
+        by_path["train_bert"] = phase_train_bert_main(torch, K, card)
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"
@@ -3344,6 +3799,10 @@ def main():
                     "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                     "tflops", "bound_ratio", "shape", "plan",
                     "max_abs_err")}} if "verify_shape" in t else {}),
+                **({"bert_shape": {key: t["bert_shape"][key] for key in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "tflops", "bound_ratio", "library_ratio", "shape")}}
+                   if "bert_shape" in t else {}),
                 **({"f32_route": dict(
                     {key: t["f32_route"][key] for key in (
                         "ms", "plain_ms", "library_ms", "bound_ms",

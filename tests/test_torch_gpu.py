@@ -1467,3 +1467,115 @@ def test_replica_process_serves_through_the_kernels(hopper):
     assert stats["decode_attention_impl"] == "flash"
     assert stats["prefill_attention_impl"] == "flash"
     assert stats["blocks_used"] == 0
+
+
+# -- the NCF and BERT slice -------------------------------------------------
+
+@pytest.mark.parametrize("policy", ["float32", "mixed_bfloat16"])
+def test_tiny_bert_fit_kernels_equal_plain(hopper, policy):
+    """A tiny BERT ``fit`` at S=512 on the card: ``auto`` takes the
+    non-causal flash kernels, with the fused AdamW kernel, against the
+    dense attention and the plain update. f32 within the tiny Llama
+    fit's tolerances; bf16 losses within rtol 2e-2 (the kernel rounds p
+    and dS to bf16 where the dense path keeps f32)."""
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.layers import BERT, Dense, Lambda
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import AdamWeightDecay
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, 128, (8, 512)).astype(np.int32)
+    y = rs.randint(0, 2, 8).astype(np.int32)
+    start, out = None, {}
+    for impl, fused in (("auto", True), ("dense", False)):
+        m = Sequential()
+        m.add(BERT(vocab=128, hidden_size=64, n_block=2, n_head=4,
+                   seq_len=512, intermediate_size=128, hidden_p_drop=0.0,
+                   attn_p_drop=0.0, attention_impl=impl,
+                   input_shape=(512,)))
+        m.add(Lambda(lambda h: h[:, 0], output_shape=(64,)))
+        m.add(Dense(2))
+        m.compile(AdamWeightDecay(lr=1e-3, fused=fused),
+                  "sparse_categorical_crossentropy_from_logits",
+                  dtype_policy=policy)
+        if start is None:
+            start = tree_map(torch.clone, m.build(_gen(hopper, 9)))
+        m.params = tree_map(torch.clone, start)
+        reset_launch_counts()
+        hist = m.fit(ids, y, batch_size=4, nb_epoch=2, verbose=0)
+        torch.cuda.synchronize()
+        out[impl] = (hist["loss"], tree_leaves(m.params), launch_counts(),
+                     m.layers[0].last_attention_impl)
+    (lk, pk, ck, ik), (lp, pp, cp, ip) = out["auto"], out["dense"]
+    assert (ik, ip) == ("flash", "dense")
+    for k in ("flash_attention", "flash_attention_dkdv",
+              "flash_attention_dq"):
+        assert ck[k] == 2 * 4 and cp[k] == 0, k
+    assert ck["fused_adam"] == len(pk) * 4 and cp["fused_adam"] == 0
+    if policy == "mixed_bfloat16":
+        np.testing.assert_allclose(lk, lp, rtol=2e-2)
+        return
+    np.testing.assert_allclose(lk, lp, rtol=1e-4)
+    for a, b in zip(pk, pp):
+        assert _err(a.detach(), b.detach()) <= 1e-4
+
+
+def test_embedding_gradient_repeats_and_fills_past_the_table(hopper):
+    """``take_rows`` on the card: its gradient over repeated ids (NCF's
+    B=8192 into 6040 rows) repeats bit for bit and equals the CPU's
+    within f32 summation order; an id past the table gives a NaN row,
+    not a device-side assert."""
+    from zoo_tpu_torch.pipeline.api.keras.layers.core import take_rows
+    g = _gen(hopper, 21)
+    table = torch.randn(6040, 64, generator=g, device=hopper)
+    ids = torch.randint(0, 6040, (8192,), generator=g, device=hopper)
+    dy = torch.randn(8192, 64, generator=g, device=hopper)
+
+    def grad(t, i, d):
+        e = t.clone().requires_grad_()
+        return torch.autograd.grad(take_rows(e, i), e, d)[0]
+
+    a, b = grad(table, ids, dy), grad(table, ids, dy)
+    cpu = grad(table.cpu(), ids.cpu(), dy.cpu())
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert _err(a.cpu(), cpu) <= 1e-5 * max(1.0, float(cpu.abs().max()))
+    out = take_rows(table, torch.tensor([0, 6040, -1, -6041],
+                                        device=hopper))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], table[0]) and torch.equal(out[2], table[-1])
+    assert bool(out[1].isnan().all()) and bool(out[3].isnan().all())
+
+
+def test_ncf_fit_on_the_card_equals_the_cpu(hopper):
+    """A small NCF ``fit`` with ``Adam`` on the card and on the CPU from
+    one start: the losses within rtol 1e-5 and every parameter within
+    1e-5 (the same f32 math; cuBLAS and the embedding backward sum in
+    another order)."""
+    from zoo_tpu_torch.models.recommendation import NeuralCF
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    rs = np.random.RandomState(1)
+    x = np.stack([rs.randint(0, 300, 1024), rs.randint(0, 200, 1024)],
+                 1).astype(np.int32)
+    y = rs.randint(0, 5, 1024).astype(np.int32)
+    start, out = None, {}
+    for dev in ("cpu", "cuda"):
+        m = NeuralCF(300, 200, 5, user_embed=16, item_embed=16,
+                     hidden_layers=(32, 16), mf_embed=16)
+        m.compile(Adam(lr=0.001), "sparse_categorical_crossentropy")
+        if start is None:
+            start = tree_map(torch.clone, m.build(device="cpu"))
+        m.params = tree_map(lambda t: t.clone().to(dev), start)
+        reset_launch_counts()
+        hist = m.fit(x, y, batch_size=256, nb_epoch=2, verbose=0,
+                     device=dev)
+        out[dev] = (hist["loss"], [t.detach().cpu()
+                                   for t in tree_leaves(m.params)])
+        assert not any(launch_counts().values())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert _err(a, b) <= 1e-5

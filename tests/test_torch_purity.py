@@ -129,3 +129,34 @@ def test_flash_paths_refuse_cpu_tensors():
             PagedLlamaModel(tiny_llama_config(), device="cpu",
                             num_blocks=8, max_blocks_per_seq=4,
                             block_size=4, prefill_buckets=(8,), **kw)
+
+
+def test_ncf_and_bert_entry_points_raise_without_a_card(monkeypatch):
+    """The NCF and BERT slice: no GPU and no ``device=`` raises."""
+    from zoo_tpu_torch.models.recommendation import (NeuralCF,
+                                                     UserItemFeature)
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.layers import BERT
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ncf = NeuralCF(8, 8, 2, user_embed=4, item_embed=4, hidden_layers=(4,),
+                   mf_embed=4)
+    ncf.compile("adam", "sparse_categorical_crossentropy")
+    bert = Sequential().add(BERT(vocab=16, hidden_size=8, n_block=1,
+                                 n_head=2, seq_len=4, intermediate_size=8,
+                                 hidden_p_drop=0.0, attn_p_drop=0.0,
+                                 input_shape=(4,)))
+    bert.compile("adamw", "mse")
+    pairs = np.zeros((4, 2), np.int32)
+    ids = np.zeros((4, 4), np.int32)
+    for call in (lambda: ncf.build(),
+                 lambda: ncf.fit(pairs, np.zeros(4, np.int32), batch_size=4,
+                                 verbose=0),
+                 lambda: ncf.predict(pairs),
+                 lambda: ncf.recommend_for_user([UserItemFeature(1, 2)], 1),
+                 lambda: bert.build(),
+                 lambda: bert.predict(ids)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert ncf.predict(pairs, device="cpu").shape == (4, 2)
+    assert bert.predict(ids, device="cpu").shape == (4, 4, 8)

@@ -1,1 +1,2 @@
-"""Models of the port."""
+"""Models of the port: ``llm`` (Llama), ``image`` (ResNet) and
+``recommendation`` (NeuralCF)."""

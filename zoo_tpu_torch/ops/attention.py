@@ -79,3 +79,15 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"unknown attention impl {impl!r} "
                          "(dense / flash / auto)")
     return dense_attention(q, k, v, mask, causal, scale)[0]
+
+
+def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:
+    """(B, T, H*D) -> (B, H, T, D), a view."""
+    b, t, hd = x.shape
+    return x.reshape(b, t, n_head, hd // n_head).transpose(1, 2)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, T, D) -> (B, T, H*D)."""
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d)

@@ -79,10 +79,30 @@ def _const(value: float):
     return init
 
 
+def uniform(scale: float):
+    """U[0, scale), as ``jax.nn.initializers.uniform(scale)``."""
+    def init(generator: torch.Generator, shape) -> torch.Tensor:
+        out = torch.empty(tuple(shape), dtype=torch.float32,
+                          device=generator.device)
+        return out.uniform_(0.0, scale, generator=generator)
+    return init
+
+
+def normal(stddev: float):
+    """N(0, stddev**2), as ``jax.nn.initializers.normal(stddev)``."""
+    def init(generator: torch.Generator, shape) -> torch.Tensor:
+        out = torch.empty(tuple(shape), dtype=torch.float32,
+                          device=generator.device)
+        return out.normal_(0.0, stddev, generator=generator)
+    return init
+
+
 _INITIALIZERS = {
     "glorot_uniform": _uniform(lambda fi, fo: math.sqrt(6.0 / (fi + fo))),
     "he_uniform": _uniform(lambda fi, fo: math.sqrt(6.0 / fi)),
     "lecun_uniform": _uniform(lambda fi, fo: math.sqrt(3.0 / fi)),
+    "uniform": uniform(0.05),
+    "normal": normal(0.05),
     "zero": _const(0.0),
     "zeros": _const(0.0),
     "one": _const(1.0),
@@ -137,6 +157,14 @@ def get_activation_fn(name: Union[str, Callable, None]
     if name not in _ACTIVATIONS:
         raise ValueError(f"unknown activation: {name}")
     return _ACTIVATIONS[name]
+
+
+def normalize_shape(shape) -> Tuple:
+    """``(None, ...)`` or ``(...)`` as a ``(None, ...)`` shape."""
+    shape = tuple(shape)
+    if not shape or shape[0] is not None:
+        return (None,) + shape
+    return shape
 
 
 class KTensor:

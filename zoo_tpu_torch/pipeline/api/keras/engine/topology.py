@@ -213,7 +213,11 @@ class KerasNet:
                     and preds.dtype == torch.bfloat16:
                 preds = preds.float()
             loss = self.loss_fn(ys, preds)
-        grads = iter(torch.autograd.grad(loss, tree_leaves(trainable)))
+        # a leaf the loss does not reach (BERT's pooler, the segment
+        # table without segment ids) gets zeros, as jax.grad gives it
+        grads = iter(torch.autograd.grad(loss, tree_leaves(trainable),
+                                         allow_unused=True,
+                                         materialize_grads=True))
         grad_tree = tree_map(lambda _: next(grads), trainable)
         _, opt_state = self.optimizer.apply(grad_tree, opt_state, trainable)
         self.params = _merge_state(trainable, collect or state)

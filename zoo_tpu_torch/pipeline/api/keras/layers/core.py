@@ -1,9 +1,9 @@
 """Core keras-1 layers (counterpart of the layers of
-``zoo_tpu/pipeline/api/keras/layers/core.py`` that the image models
-need): ``Dense`` (with its int8 path), ``Activation``,
-``BatchNormalization`` and ``Merge``/``merge``. Keras-1
-argument names are kept. Parameters are held by the model, as
-``engine.base`` describes.
+``zoo_tpu/pipeline/api/keras/layers/core.py`` that the image models and
+NCF need): ``Dense`` (with its int8 path), ``Activation``,
+``BatchNormalization``, ``Merge``/``merge``, ``Lambda`` and
+``Embedding``. Keras-1 argument names are kept. Parameters are held by
+the model, as ``engine.base`` describes.
 """
 
 from __future__ import annotations
@@ -11,12 +11,14 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from zoo_tpu_torch.pipeline.api.keras.engine.base import (
     KTensor,
     Layer,
     get_activation_fn,
     get_initializer,
+    normalize_shape,
 )
 
 
@@ -65,6 +67,69 @@ class Activation(Layer):
 
     def call(self, params, inputs, *, training=False):
         return self.activation(inputs)
+
+
+class Lambda(Layer):
+    """An arbitrary function of the inputs, applied as is. Without
+    ``output_shape`` the shape is inferred by calling the function on
+    f32 tensors of batch 1 on the ``meta`` device (the JAX package's
+    ``jax.eval_shape``)."""
+
+    def __init__(self, function, output_shape=None, **kwargs):
+        super().__init__(**kwargs)
+        self.function = function
+        self._output_shape = output_shape
+
+    def call(self, params, inputs, *, training=False):
+        return self.function(inputs)
+
+    def compute_output_shape(self, input_shape):
+        if self._output_shape is not None:
+            return normalize_shape(self._output_shape)
+        single = not isinstance(input_shape, list)
+        shapes = [input_shape] if single else input_shape
+        args = [torch.empty((1,) + tuple(s[1:]), dtype=torch.float32,
+                            device="meta") for s in shapes]
+        out = self.function(*args)
+        return (None,) + tuple(out.shape[1:])
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)`` in JAX's default ``fill`` mode:
+    an id in [-n, n) picks its row (a negative one from the end), any
+    other gives a row of NaN and no gradient, where a plain gather would
+    fault on the device. The gather is ``F.embedding``, whose backward
+    sums the rows of repeated ids in a fixed order on the card too."""
+    n = table.shape[0]
+    ids = ids.long()
+    inside = (ids >= -n) & (ids < n)
+    rows = F.embedding(ids.remainder(n), table)     # in [0, n)
+    return torch.where(inside[..., None], rows, float("nan"))
+
+
+class Embedding(Layer):
+    """Trainable lookup table ``E`` (``input_dim``, ``output_dim``):
+    int ids ``(batch, ...)`` gain a trailing ``output_dim`` axis. Ids
+    stay integers under ``mixed_bfloat16`` (the compute cast touches f32
+    tensors only); out-of-table ids as :func:`take_rows` says."""
+
+    def __init__(self, input_dim: int, output_dim: int, init="uniform",
+                 input_length: Optional[int] = None, **kwargs):
+        if input_length is not None and kwargs.get("input_shape") is None:
+            kwargs["input_shape"] = (input_length,)
+        super().__init__(**kwargs)
+        self.input_dim = int(input_dim)
+        self.output_dim = int(output_dim)
+        self.init = get_initializer(init)
+
+    def build(self, generator, input_shape):
+        return {"E": self.init(generator, (self.input_dim, self.output_dim))}
+
+    def call(self, params, inputs, *, training=False):
+        return take_rows(params["E"], inputs)
+
+    def compute_output_shape(self, input_shape):
+        return tuple(input_shape) + (self.output_dim,)
 
 
 class BatchNormalization(Layer):
