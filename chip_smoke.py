@@ -157,7 +157,38 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    AdamW launch a leaf, every step); each a warm-up fit, 8 timed steps
    (step ms, samples/s, ``mfu`` from ``bench_bert``'s analytic FLOPs
    over the bf16 peak, finite losses) and a ``train-bert-step``
-   profile.
+   profile;
+14. predict-mlp — ``bench.py`` ``bench_serving`` in the port: an MLP
+   (``Dense(128, relu)``, ``Dense(10, softmax)``, 64 features) behind
+   ``ServingServer`` (two batcher threads, ``max_wait_ms=2``) at batch
+   sizes 8 and 32, 8 ``TCPInputQueue`` clients, a warm-up storm, then
+   200 timed requests: p50, p99, req/s, and the JAX guard (p99 at most
+   10x p50, or under 250 ms). No kernel: the door's own cost;
+15. predict-main — ResNet-50 of phase 8 (``mixed_bfloat16``, BatchNorm
+   drawn from a seed) saved as a model file and published to a
+   ``ModelRegistry`` as v1 (alias ``prod``), and int8 after
+   ``quantize_model(mode="force")`` as v2; ``resolve_model_spec(
+   "registry:<root>:prod", batch_size=32)`` into a ``ServingServer``
+   (``max_wait_ms=5``); 32 client threads x 16 single-image requests
+   (1, 224, 224, 3) through ``HAServingClient``, a ``reload`` to v2
+   once half are answered: zero failures, every reply within 4e-3 of
+   its echoed version's direct ``predict`` of the image in a
+   zero-padded batch of 32 (bit-equal ones counted), launches exactly
+   49 ``conv2d`` a v1 batch and 49 ``conv2d_int8`` + 1
+   ``fused_quantized_matmul`` a v2 batch (load and reload warm-ups
+   included); p50/p99, req/s, mean batch occupancy, a ``predict-step``
+   profile of one batch per version and the device's busy share over a
+   profiled storm. Then a ``ReplicaGroup`` of two ``python -m
+   zoo_tpu_torch.serving.replica --device cuda`` processes booted from
+   the registry spec (prod at v2): boot seconds, ``version_info()``,
+   ``healthz()``, then prod moved to v1 and ``rolling_update()`` under
+   client load: zero failures, every reply within tolerance of its
+   version, the group all on v1.
+
+Phase 7 is followed by predict-tiny: the tiny ResNet served through
+``ServingServer`` (``batch_size=4``) and ``HAServingClient.predict``,
+float and int8, the kernel replies equal to the plain ones within phase
+7's tolerances.
 
 Phase 3 also holds the flash forward (o, lse) and backward kernels
 (dK/dV, dQ) against their plain versions, and the gradients against
@@ -203,7 +234,8 @@ sequences.
 
 Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route
 and its launches by main path, ``serve_spec`` the speculative run's,
-``serve_wire`` the wire runs', ``train_bert`` BERT run (b)'s;
+``serve_wire`` the wire runs', ``train_bert`` BERT run (b)'s,
+``predict`` predict-main's in-process run;
 for ``conv2d`` and the three flash kernels the numbers are the bf16
 route's, the f32 route's sit under ``f32_route``), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device":
@@ -3701,6 +3733,517 @@ def phase_main_replica(torch, card, spec, prompts, direct):
         group.stop()
 
 
+# the replies of the served ResNet-50 against its direct predict:
+# mixed_bfloat16's tolerance of tests/test_torch_resnet.py (TOL, :41)
+TOL_PREDICT_BF16 = 4e-3
+PREDICT_B, PREDICT_CLIENTS, PREDICT_PER_CLIENT = 32, 32, 16
+# bench.py bench_serving: an MLP behind the micro-batcher, 8 clients,
+# 200 requests a batch size, batch sizes 8 and 32
+MLP_FEAT, MLP_CLIENTS, MLP_REQUESTS = 64, 8, 200
+
+
+def phase_predict_tiny(torch, K):
+    """The tiny ResNet of phase 7 served through ``ServingServer``
+    (``batch_size=4``) and ``HAServingClient.predict``: float and int8
+    replies through the kernels equal the same server's replies with
+    every plain version, within phase 7's tolerances."""
+    import numpy as np
+    from zoo_tpu_torch.models.image import ResNet
+    from zoo_tpu_torch.pipeline.inference import (InferenceModel,
+                                                  quantize_model)
+    from zoo_tpu_torch.serving.ha_client import HAServingClient
+    from zoo_tpu_torch.serving.server import ServingServer
+
+    m = ResNet(10, (1, 1), bottleneck=True, input_shape=(32, 32, 3))
+    m.compile("adamw", "sparse_categorical_crossentropy")
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    redraw_batchnorm(torch, m.params, 1)
+    n_conv = len(envelope_convs(m))
+    x = np.random.RandomState(5).randn(12, 32, 32, 3).astype(np.float32)
+    im = InferenceModel().load_keras(m, batch_size=4)
+    server = ServingServer(im, batch_size=4, max_wait_ms=2.0).start()
+    client = HAServingClient([(server.host, server.port)], hedge=False,
+                             deadline_ms=120_000)
+
+    def serve():
+        # one request at a time: each reply a batch of its own
+        return np.concatenate([client.predict(x[i:i + 1])
+                               for i in range(len(x))])
+
+    try:
+        for path in ("float", "int8"):
+            if path == "int8":
+                quantize_model(m, mode="force")
+            K.reset_launch_counts()
+            got = serve()
+            counts = K.launch_counts()
+            with plain_kernels():
+                K.reset_launch_counts()
+                ref = serve()
+                _launched(K.launch_counts())
+            diff = float(np.abs(got - ref).max())
+            tol = TOL_TINY_F32 if path == "float" else 0.0
+            emit({"phase": "predict-tiny", "path": path,
+                  "requests": len(x), "max_abs_err": diff, "tol": tol,
+                  "launches": {k: counts[k] for k in INFER_KERNELS}})
+            if not (np.isfinite(got).all() and got.shape == (12, 10)):
+                raise AssertionError(f"predict-tiny {path}: {got}")
+            if path == "float":
+                _launched(counts, conv2d=len(x) * n_conv)
+            else:
+                _launched(counts, conv2d_int8=len(x) * n_conv,
+                          fused_quantized_matmul=len(x))
+            if not diff <= tol:
+                raise AssertionError(f"predict-tiny {path}: served "
+                                     f"replies differ by {diff}")
+    finally:
+        client.close()
+        server.stop()
+
+
+def phase_predict_mlp(torch, card):
+    """``bench.py`` ``bench_serving`` in the port: ``Dense(128, relu)``
+    -> ``Dense(10, softmax)`` over 64 features behind
+    ``InferenceModel(supported_concurrent_num=2)`` and a
+    ``ServingServer`` with two batcher threads and ``max_wait_ms=2.0``,
+    at batch sizes 8 and 32: a concurrent warm-up storm, then 200
+    requests from 8 ``TCPInputQueue`` clients; p50, p99 and req/s, and
+    the JAX guard (p99 at most 10x p50, or under 250 ms). The MLP runs
+    no kernel of the port: the row is the door's own cost."""
+    import gc
+    import threading
+
+    import numpy as np
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from zoo_tpu_torch.pipeline.inference import InferenceModel
+    from zoo_tpu_torch.serving.server import ServingServer
+    from zoo_tpu_torch.serving.tcp_client import TCPInputQueue
+
+    m = Sequential()
+    m.add(Dense(128, input_shape=(MLP_FEAT,), activation="relu"))
+    m.add(Dense(10, activation="softmax"))
+    m.compile(optimizer="sgd", loss="mse")
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    model = InferenceModel(supported_concurrent_num=2).load_keras(m)
+    rs = np.random.RandomState(0)
+    guard = []
+    for srv_bs in (8, 32):
+        server = ServingServer(model, port=0, batch_size=srv_bs,
+                               max_wait_ms=2.0, num_replicas=2).start()
+        try:
+            def storm(count, record=None):
+                lock = threading.Lock()
+                xs = [rs.randn(1, MLP_FEAT).astype(np.float32)
+                      for _ in range(MLP_CLIENTS)]
+
+                def client(k):
+                    q = TCPInputQueue(server.host, server.port)
+                    mine = []
+                    for _ in range(count // MLP_CLIENTS):
+                        t0 = time.perf_counter()
+                        y = q.predict(xs[k])
+                        mine.append(time.perf_counter() - t0)
+                    q.close()
+                    if y.shape != (1, 10) or not np.isfinite(y).all():
+                        raise AssertionError(f"predict-mlp: reply {y}")
+                    with lock:
+                        if record is not None:
+                            record.extend(mine)
+
+                threads = [threading.Thread(target=client, args=(k,))
+                           for k in range(MLP_CLIENTS)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                return time.perf_counter() - t0
+
+            storm(MLP_CLIENTS * 4)
+            gc.collect()
+            lats = []
+            wall = storm(MLP_REQUESTS, record=lats)
+            lat_ms = np.asarray(sorted(lats)) * 1e3
+            p50 = float(np.percentile(lat_ms, 50))
+            p99 = float(np.percentile(lat_ms, 99))
+            emit({"phase": "predict-mlp", "batch_size": srv_bs,
+                  "card": card, "clients": MLP_CLIENTS,
+                  "requests": len(lats), "p50_ms": p50, "p99_ms": p99,
+                  "p99_over_p50": p99 / p50,
+                  "req_per_s": len(lats) / wall,
+                  "batches": server.timers["inference"].n,
+                  "stats": {k: t.stats()
+                            for k, t in server.timers.items()}})
+            if len(lats) != MLP_REQUESTS:
+                raise AssertionError(f"predict-mlp bs{srv_bs}: "
+                                     f"{len(lats)} replies")
+            if p99 > 10 * max(p50, 0.1) and p99 > 250.0:
+                guard.append(f"bs{srv_bs}: p99 {p99:.1f} ms > 10x p50 "
+                             f"{p50:.1f} ms")
+        finally:
+            server.stop()
+    if guard:
+        raise AssertionError("predict-mlp latency guard: "
+                             + "; ".join(guard))
+
+
+class _CountedModel:
+    """A served model that counts its ``predict`` calls (the batches it
+    ran, and a reload's warm-up batches)."""
+
+    def __init__(self, model, calls=0):
+        self.model, self.calls = model, calls
+        self._device = getattr(model, "_device", None)
+
+    def predict(self, x, batch_size=None):
+        self.calls += 1
+        return self.model.predict(x, batch_size=batch_size)
+
+
+def _predict_storm(client, images, n_clients, per_client, at=None,
+                   stop=None):
+    """``n_clients`` threads, each sending ``per_client`` single-image
+    requests (client ``c``'s ``i``-th is image ``(c + i) % len``; with
+    ``stop``, until it is set) through ``client.predict``; ``at`` =
+    ``(count, fn)`` calls ``fn`` on a thread of its own once ``count``
+    replies are in. Returns ``(replies, errors, wall_s)``, each reply
+    ``(image, version, output, latency_s)``."""
+    import threading
+
+    import numpy as np
+    replies, errors = [], []
+    lock = threading.Lock()
+    fired = threading.Event()
+
+    def worker(c):
+        i = 0
+        while (stop is None and i < per_client) or \
+                (stop is not None and not stop.is_set()):
+            k = (c + i) % len(images)
+            t0 = time.perf_counter()
+            try:
+                resp = client.rpc({"op": "predict", "uri": f"c{c}-{i}",
+                                   "data": images[k:k + 1]})
+                if "error" in resp:
+                    raise RuntimeError(resp["error"])
+                rec = (k, resp.get("version"), np.asarray(resp["result"]),
+                       time.perf_counter() - t0)
+                with lock:
+                    replies.append(rec)
+                    due = at is not None and len(replies) >= at[0] and \
+                        not fired.is_set()
+                    if due:
+                        fired.set()
+                if due:
+                    threading.Thread(target=at[1], daemon=True).start()
+            except Exception as e:  # noqa: BLE001 — every failure counts
+                with lock:
+                    errors.append(f"client {c} request {i}: {e!r}")
+            i += 1
+
+    threads = [threading.Thread(target=worker, args=(c,))
+               for c in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return replies, errors, time.perf_counter() - t0
+
+
+def _direct_outputs(model, images, batch):
+    """Each image's output through ``model.predict`` in a batch of
+    ``batch`` rows, the image first and zeros after."""
+    import numpy as np
+    out = []
+    for k in range(len(images)):
+        xb = np.zeros((batch,) + images.shape[1:], images.dtype)
+        xb[0] = images[k]
+        out.append(np.asarray(model.predict(xb, batch_size=batch))[0])
+    return np.stack(out)
+
+
+def _check_replies(label, replies, direct):
+    """Every reply against its version's direct output: within
+    ``TOL_PREDICT_BF16``; returns (max error, bit-equal count, replies
+    by version)."""
+    import numpy as np
+    worst, equal, by_version = 0.0, 0, {}
+    for k, version, y, _ in replies:
+        if version not in direct:
+            raise AssertionError(f"{label}: a reply echoes {version!r}")
+        by_version[version] = by_version.get(version, 0) + 1
+        ref = direct[version][k]
+        if y.shape != (1,) + ref.shape or not np.isfinite(y).all():
+            raise AssertionError(f"{label}: reply of shape {y.shape}")
+        worst = max(worst, float(np.abs(y[0] - ref).max()))
+        equal += int(np.array_equal(y[0], ref))
+    if not worst <= TOL_PREDICT_BF16:
+        raise AssertionError(f"{label}: a reply differs from its "
+                             f"version's direct predict by {worst}")
+    return worst, equal, by_version
+
+
+def _latency_line(replies, wall):
+    import numpy as np
+    lat = np.asarray(sorted(r[3] for r in replies)) * 1e3
+    return {"requests": len(replies), "wall_s": wall,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "req_per_s": len(replies) / wall}
+
+
+def phase_predict_main(torch, K, card):
+    """ResNet-50 at full width and depth served from a model registry:
+    v1 float and v2 int8 (``quantize_model(mode="force")``) published
+    as model files, ``resolve_model_spec("registry:<root>:prod")`` into
+    a ``ServingServer`` (``batch_size=32``, ``max_wait_ms=5``), 32
+    client threads x 16 single-image requests through
+    ``HAServingClient.predict``, a ``reload`` to v2 midway. Then a
+    ``ReplicaGroup`` of two ``--device cuda`` replica processes booted
+    from the same registry spec, rolled from v2 back to v1 with
+    ``rolling_update()`` under client load. Returns the in-process
+    run's kernel launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.models.image import resnet50
+    from zoo_tpu_torch.pipeline.inference import quantize_model
+    from zoo_tpu_torch.serving.ha import resolve_model_spec
+    from zoo_tpu_torch.serving.ha_client import HAServingClient
+    from zoo_tpu_torch.serving.registry import ModelRegistry
+    from zoo_tpu_torch.serving.server import ServingServer
+    from zoo_tpu_torch.serving.tcp_client import _Connection
+    from zoo_tpu_torch.util.resilience import Deadline
+
+    B = PREDICT_B
+    root = tempfile.mkdtemp(prefix="zoo-smoke-registry-")
+    try:
+        t0 = time.perf_counter()
+        m = resnet50(1000, (224, 224, 3))
+        m.compile("sgd", "sparse_categorical_crossentropy",
+                  dtype_policy="mixed_bfloat16")
+        m.build(torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+        redraw_batchnorm(torch, m.params, 1)
+        n_conv = len(envelope_convs(m))
+        reg = ModelRegistry(os.path.join(root, "registry"))
+        m.save(os.path.join(root, "model.zoo"))
+        v1 = reg.publish(os.path.join(root, "model.zoo"), alias="prod")
+        quantize_model(m, mode="force")
+        m.save(os.path.join(root, "model.zoo"))
+        v2 = reg.publish(os.path.join(root, "model.zoo"))
+        publish_s = time.perf_counter() - t0
+        del m
+        torch.cuda.empty_cache()
+        spec = f"registry:{reg.root}:prod"
+        models = {}
+
+        def loader(s):
+            # InferenceModel.load runs one warm-up batch at batch_size
+            im, version = resolve_model_spec(s, batch_size=B)
+            models[version] = _CountedModel(im, calls=1)
+            return models[version], version
+
+        t0 = time.perf_counter()
+        model, version = loader(spec)
+        load_s = time.perf_counter() - t0
+        images = np.random.RandomState(0).randn(
+            16, 224, 224, 3).astype(np.float32)
+        server = ServingServer(model, batch_size=B, max_wait_ms=5.0,
+                               version=version, model_spec=spec,
+                               model_loader=loader).start()
+        client = HAServingClient([(server.host, server.port)],
+                                 deadline_ms=600_000)
+        reload_info = {}
+
+        def reload_v2():
+            # one attempt on a connection of its own: a hedged duplicate
+            # of a reload would load the version twice
+            conn = _Connection(server.host, server.port)
+            try:
+                reload_info.update(conn.rpc(
+                    {"op": "reload", "spec": f"registry:{reg.root}:{v2}"},
+                    deadline=Deadline(600.0)))
+            finally:
+                conn.close()
+
+        try:
+            # one warm-up window, uncounted
+            _predict_storm(client, images, B, 1)
+            for mod in models.values():
+                mod.calls = 0
+            served0 = server.timers["inference"].n
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            n = PREDICT_CLIENTS * PREDICT_PER_CLIENT
+            replies, errors, wall = _predict_storm(
+                client, images, PREDICT_CLIENTS, PREDICT_PER_CLIENT,
+                at=(n // 2, reload_v2))
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            batches = {v: mod.calls for v, mod in models.items()}
+            direct = {v: _direct_outputs(mod.model, images, B)
+                      for v, mod in models.items()}
+            worst, equal, by_version = _check_replies(
+                "predict-main", replies, direct)
+            served = server.timers["inference"].n - served0
+            occupancy = n / max(1, served)
+            emit({"phase": "predict-main", "run": "in_process",
+                  "model": "resnet50(1000, (224, 224, 3))",
+                  "policy": "mixed_bfloat16", "card": card,
+                  "batch_size": B, "clients": PREDICT_CLIENTS,
+                  "publish_s": publish_s, "load_s": load_s,
+                  **_latency_line(replies, wall),
+                  "errors": len(errors), "replies_by_version": by_version,
+                  "batches_by_version": batches,
+                  "served_batches": served,
+                  "mean_batch_occupancy": occupancy,
+                  "launches": {k: counts[k] for k in INFER_KERNELS},
+                  "launches_per_batch": {
+                      v1: {"conv2d": counts["conv2d"] / batches[v1]},
+                      v2: {k: counts[k] / batches[v2] for k in (
+                          "conv2d_int8", "fused_quantized_matmul")}},
+                  "reload": {k: reload_info.get(k) for k in (
+                      "ok", "version", "previous", "warmed",
+                      "reload_seconds")},
+                  "max_abs_err_vs_direct": worst,
+                  "bit_equal_replies": equal, "tol": TOL_PREDICT_BF16,
+                  "stats": {k: t.stats()
+                            for k, t in server.timers.items()}})
+            if errors:
+                raise AssertionError(
+                    f"predict-main: {len(errors)} failed request(s): "
+                    + "; ".join(errors[:5]))
+            if len(replies) != n or reload_info.get("version") != v2 or \
+                    set(by_version) != {v1, v2}:
+                raise AssertionError(
+                    f"predict-main: {len(replies)} replies of {n}, "
+                    f"reload {reload_info}, versions {by_version}")
+            _launched(counts, conv2d=n_conv * batches[v1],
+                      conv2d_int8=n_conv * batches[v2],
+                      fused_quantized_matmul=batches[v2])
+            # where a served batch's time goes, per version, and the
+            # device's busy share over a storm
+            for v in (v1, v2):
+                xb = np.zeros((B, 224, 224, 3), np.float32)
+                xb[:16] = images
+                t = timed(torch, lambda: models[v].model.predict(
+                    xb, batch_size=B), 4, warmup=1)
+                emit({"phase": "predict-step", "version": v, "card": card,
+                      "batch": B, "wall_ms": t["wall_ms"],
+                      "host_ms": t["host_ms"],
+                      "device_ms": t["device_ms"],
+                      "device_busy_share": t["device_busy_share"],
+                      "device_launches": t["device_launches"],
+                      "top_device_ms": [[k[:80], ms] for k, ms in sorted(
+                          t["by_name"].items(), key=lambda kv: -kv[1])[
+                              :8]]})
+            acts = [torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]
+            with torch.profiler.profile(activities=acts) as prof:
+                t0 = time.perf_counter()
+                sampled, _, _ = _predict_storm(client, images,
+                                               PREDICT_CLIENTS, 4)
+                torch.cuda.synchronize()
+                busy_wall = time.perf_counter() - t0
+            device_s = sum(
+                (getattr(e, "self_device_time_total", None) or 0.0)
+                for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")
+            ) / 1e6
+            emit({"phase": "predict-main", "run": "busy_share",
+                  "card": card, "requests": len(sampled),
+                  "wall_s": busy_wall, "device_s": device_s,
+                  "device_busy_share": device_s / busy_wall,
+                  "note": "under torch.profiler"})
+        finally:
+            client.close()
+            server.stop()
+        del server, client, models, model
+        torch.cuda.empty_cache()
+        _predict_group(reg, v1, v2, images, direct, card)
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _predict_group(reg, v1, v2, images, direct, card):
+    """Two ``--device cuda`` replica processes booted from
+    ``registry:<root>:prod`` (prod moved to v2 first), their versions
+    and ``/healthz``, then prod moved to v1 and ``rolling_update()``
+    under client load: zero failed requests, every reply within
+    tolerance of its version's direct output, and the group ends on v1
+    with no mixed versions."""
+    import tempfile
+    import threading
+
+    from zoo_tpu_torch.serving.ha import ReplicaGroup
+
+    reg.set_alias("prod", v2)
+    log_dir = tempfile.mkdtemp(prefix="zoo-smoke-predict-group-")
+    group = ReplicaGroup(f"registry:{reg.root}:prod", num_replicas=2,
+                         batch_size=PREDICT_B, max_wait_ms=5.0,
+                         max_restarts=0, log_dir=log_dir, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        group.start(timeout=300)
+        boot_s = time.perf_counter() - t0
+        before = [d and d.get("version") for d in group.version_info()]
+        health = group.healthz()
+        if before != [v2, v2] or not all(h and h.get("ok")
+                                         for h in health):
+            raise AssertionError(f"predict-group: versions {before}, "
+                                 f"healthz {health}")
+        client = group.client(deadline_ms=600_000)
+        _predict_storm(client, images, 8, 2)     # warm both seats
+        stop = threading.Event()
+        result = {}
+
+        def roll():
+            try:
+                reg.set_alias("prod", v1)
+                t = time.perf_counter()
+                result["update"] = group.rolling_update()
+                result["seconds"] = time.perf_counter() - t
+            except Exception as e:  # noqa: BLE001 — reported below
+                result["error"] = repr(e)
+            finally:
+                stop.set()
+
+        replies, errors, wall = _predict_storm(
+            client, images, 16, 0, at=(16, roll), stop=stop)
+        after = [d and d.get("version") for d in group.version_info()]
+        worst, equal, by_version = _check_replies(
+            "predict-group", replies, direct)
+        emit({"phase": "predict-main", "run": "replica_group",
+              "card": card, "replicas": 2, "boot_s": boot_s,
+              "versions_before": before, "healthz": health,
+              **_latency_line(replies, wall), "errors": len(errors),
+              "rolling_update": result, "versions_after": after,
+              "replies_by_version": by_version,
+              "max_abs_err_vs_direct": worst, "bit_equal_replies": equal,
+              "restarts": group.restarts()})
+        client.close()
+        if errors or "error" in result or after != [v1, v1]:
+            raise AssertionError(
+                f"predict-group: {len(errors)} failed request(s) "
+                f"{errors[:3]}, rolling update {result}, versions "
+                f"{after}")
+    except Exception:
+        for i in range(2):
+            log = os.path.join(log_dir, f"serving-replica-{i}.log")
+            if os.path.exists(log):
+                with open(log, "rb") as f:
+                    sys.stderr.write(f.read()[-6000:].decode("utf-8",
+                                                             "replace"))
+        raise
+    finally:
+        group.stop()
+
+
 def main():
     try:
         import torch
@@ -3747,6 +4290,7 @@ def main():
         phase_train_bert_tiny(torch, K)
         # each main path's launches, counted from 0 just before it runs
         phase_infer_tiny(torch, K)
+        phase_predict_tiny(torch, K)
         phase_train_image_tiny(torch, K)
         serve, serve_spec, serve_wire = phase_main(torch, K, card)
         by_path = {"serve": serve, "serve_spec": serve_spec,
@@ -3758,6 +4302,8 @@ def main():
                    "train_f32": phase_train_f32_main(torch, K, card)}
         phase_train_rec_main(torch, K, card)
         by_path["train_bert"] = phase_train_bert_main(torch, K, card)
+        phase_predict_mlp(torch, card)
+        by_path["predict"] = phase_predict_main(torch, K, card)
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"

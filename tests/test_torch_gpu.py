@@ -1469,6 +1469,57 @@ def test_replica_process_serves_through_the_kernels(hopper):
     assert stats["blocks_used"] == 0
 
 
+
+# -- the predict door ---------------------------------------------------------
+
+@pytest.mark.parametrize("path", ["float", "int8"])
+def test_served_tiny_resnet_kernels_equal_plain(hopper, path, monkeypatch):
+    """The smoke's predict-tiny: a tiny ResNet behind ``ServingServer``
+    (``batch_size=4``) and ``HAServingClient.predict`` on the card; the
+    replies through the kernels equal the replies with every plain
+    version (f32 within 1e-5, int8 bit for bit), one padded batch of 4
+    a request."""
+    from zoo_tpu_torch.models.image import ResNet
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.inference import (InferenceModel,
+                                                  quantize_model)
+    from zoo_tpu_torch.serving.ha_client import HAServingClient
+    from zoo_tpu_torch.serving.server import ServingServer
+
+    m = ResNet(10, (1, 1), bottleneck=True, input_shape=(32, 32, 3))
+    m.compile("adamw", "sparse_categorical_crossentropy")
+    m.build(_gen(hopper, 14))
+    if path == "int8":
+        quantize_model(m, mode="force")
+    x = np.random.RandomState(0).randn(6, 32, 32, 3).astype(np.float32)
+    server = ServingServer(InferenceModel().load_keras(m, batch_size=4),
+                           batch_size=4, max_wait_ms=1.0).start()
+    client = HAServingClient([(server.host, server.port)], hedge=False,
+                             deadline_ms=120_000)
+    try:
+        def serve():
+            return np.concatenate([client.predict(x[i:i + 1])
+                                   for i in range(len(x))])
+        reset_launch_counts()
+        got = serve()
+        counts = launch_counts()
+        with monkeypatch.context() as mp:
+            _plain_kernels(mp)
+            reset_launch_counts()
+            ref = serve()
+            assert not any(launch_counts().values())
+    finally:
+        client.close()
+        server.stop()
+    if path == "float":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+        assert counts["conv2d"] == 6 * 7 and counts["conv2d_int8"] == 0
+    else:
+        np.testing.assert_array_equal(got, ref)
+        assert counts["conv2d_int8"] == 6 * 7 and counts["conv2d"] == 0
+        assert counts["fused_quantized_matmul"] == 6
+
+
 # -- the NCF and BERT slice -------------------------------------------------
 
 @pytest.mark.parametrize("policy", ["float32", "mixed_bfloat16"])

@@ -4,9 +4,12 @@ same sequences on a fixed seed and a fake clock; ``HAServingClient``
 failover with resume equals the reference stream (greedy and seeded);
 the first-token hedge joins the live stream on a same-seat landing; a
 whole-stream deadline raises; no KV block leaks; the supervisor respawns
-a killed worker; the replica entry refuses what waits; and the three
-chaos-smoke copies (``zoo_tpu_torch/scripts``) run as subprocesses with
-``--device cpu`` under their JAX originals' markers.
+a killed worker; the client's request ops, the group's predict specs,
+health and lifecycle calls and the replica entry behave as the JAX
+package's on the same inputs (what still waits refuses, naming its
+ROADMAP item); and the four chaos-smoke copies (``zoo_tpu_torch/scripts``)
+run as subprocesses with ``--device cpu`` under their JAX originals'
+markers.
 
 Every test keeps a time limit of its own (``timeout`` marker, enforced
 by SIGALRM; subprocesses by their own timeout), so a hung replica fails
@@ -16,6 +19,7 @@ its test and never stalls the run.
 import os
 import random
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -26,6 +30,8 @@ import pytest
 
 from zoo_tpu.models.llm.llama import LlamaConfig as JaxConfig
 from zoo_tpu.serving import ejection as jax_ejection
+from zoo_tpu.serving import ha as jax_ha
+from zoo_tpu.serving import ha_client as jax_ha_client
 from zoo_tpu.serving.llm.model import PagedLlamaModel as JaxModel
 from zoo_tpu.util import resilience as jax_resilience
 
@@ -308,25 +314,37 @@ def test_whole_stream_deadline_raises(params):
 
 @pytest.mark.timeout(60)
 def test_client_rpc_update_topology_and_refusals(params):
+    """The request ops of both packages' clients against one llm-only
+    port replica: the same answers (stage timers, the routing error of
+    a predict, the A/B split)."""
     eng, srv = serve(params)
     try:
-        cli = HAServingClient([(srv.host, srv.port)], hedge=False,
-                              deadline_ms=10_000)
+        ep = [(srv.host, srv.port)]
+        cli = HAServingClient(ep, hedge=False, deadline_ms=10_000)
+        ref = jax_ha_client.HAServingClient(ep, hedge=False,
+                                            deadline_ms=10_000)
         assert cli.rpc({"op": "ping"})["ok"] is True
         topo = cli.update_topology()
         assert topo[f"{srv.host}:{srv.port}"]["role"] == "mixed"
-        with pytest.raises(NotImplementedError, match="A.3b"):
-            cli.stats()      # the predict door's stage timers
+        got, want = cli.stats(), ref.stats()
+        assert [sorted(s) for s in got] == [sorted(s) for s in want] == \
+            [["batch", "inference", "role", "total"]]
+        assert got[0]["inference"]["count"] == 0
         assert list(cli.ejection_states().values())[0]["role"] == "mixed"
-        with pytest.raises(NotImplementedError, match="A.3b"):
-            cli.predict(np.zeros(2))
-        with pytest.raises(NotImplementedError, match="A.3b"):
-            cli.rpc({"op": "predict", "data": np.zeros(2)})
-        cli.refresh_endpoints([(srv.host, srv.port), (srv.host, 1)])
+        for c in (cli, ref):
+            with pytest.raises(RuntimeError, match="generate op only"):
+                c.predict(np.zeros(2))
+        msg = {"op": "predict", "data": np.zeros(2)}
+        assert cli.rpc(msg)["error"] == ref.rpc(msg)["error"]
+        cli.refresh_endpoints(ep + [(srv.host, 1)])
         assert len(cli.ejection_states()) == 2
         cli.close()
-        with pytest.raises(NotImplementedError, match="A.3b"):
-            HAServingClient([(srv.host, srv.port)], ab_split={"v2": 0.1})
+        ref.close()
+        ab = HAServingClient(ep, ab_split={"v2": 0.1})
+        jab = jax_ha_client.HAServingClient(ep, ab_split={"v2": 0.1})
+        assert ab._ab_split == jab._ab_split == {"v2": 0.1}
+        ab.close()
+        jab.close()
     finally:
         srv.stop()
 
@@ -353,23 +371,31 @@ def test_process_monitor_respawns_a_killed_worker():
 
 
 def test_replica_group_and_specs_refuse_what_waits():
+    """Both packages' ReplicaGroup on the same specs: predict specs and
+    the batcher's settings reach the replica command line, an unstarted
+    group probes as all down, a group off the registry has no lifecycle
+    API; roles other than mixed (A.5) still refuse in the port."""
     with pytest.raises(ValueError, match="llm spec"):
         port_ha.resolve_model_spec("llama:tiny")
-    with pytest.raises(NotImplementedError, match="A.3b"):
-        port_ha.ReplicaGroup("synthetic:double", num_replicas=1)
+    for pkg in (port_ha, jax_ha):
+        g = pkg.ReplicaGroup("synthetic:double", num_replicas=1,
+                             batch_size=32, max_wait_ms=1.0)
+        cmd = g._monitor.workers[0].cmd
+        for flag, value in (("--batch-size", "32"),
+                            ("--max-wait-ms", "1.0"),
+                            ("--metrics-port", str(g.metrics_ports[0]))):
+            assert cmd[cmd.index(flag) + 1] == value
     with pytest.raises(NotImplementedError, match="A.5"):
         port_ha.ReplicaGroup("llama:tiny", num_replicas=2,
                              roles=["prefill", "decode"])
-    # the predict batcher's settings (A.3b) are not accepted
-    for kw in ({"batch_size": 32}, {"max_wait_ms": 1.0}):
-        with pytest.raises(TypeError):
-            port_ha.ReplicaGroup("llama:tiny", num_replicas=1, **kw)
     g = port_ha.ReplicaGroup("llama:tiny", num_replicas=2, device="cpu")
+    ref = jax_ha.ReplicaGroup("llama:tiny", num_replicas=2)
     assert "--device" in g._monitor.workers[0].cmd
-    with pytest.raises(NotImplementedError, match="A.6"):
-        g.healthz()
-    with pytest.raises(NotImplementedError, match="A.3b"):
-        g.rolling_update("v2")
+    assert g.healthz(timeout=0.5) == ref.healthz(timeout=0.5) == \
+        [None, None]
+    for group in (g, ref):
+        with pytest.raises(RuntimeError, match="model registry"):
+            group.rolling_update("v2")
     with pytest.raises(ValueError, match="A.5"):
         LLMEngine(PagedLlamaModel(LlamaConfig(**ARCH), device="cpu",
                                   **SHAPE), role="prefill")
@@ -378,20 +404,80 @@ def test_replica_group_and_specs_refuse_what_waits():
 @pytest.mark.timeout(120)
 @pytest.mark.parametrize("args,needle", [
     ([], "no CUDA device"),
-    (["--device", "cpu", "--metrics-port", "0"], "ROADMAP A.6"),
-    (["--device", "cpu", "--batch-size", "32"], "unrecognized arguments"),
+    (["--metrics-port", "BUSY"], "Address already in use"),
+    (["--batch-size", "eight"], "invalid int value"),
 ], ids=["no-device-no-card", "metrics-port", "batch-size"])
 def test_replica_entry_refuses_loudly(args, needle):
+    """Boots that cannot serve fail loudly, as the JAX replica's do on
+    the same arguments: a metrics port already taken, a batch size that
+    is not a number (and, in the port, no card without ``--device``)."""
     if args == [] and __import__("torch").cuda.is_available():
         pytest.skip("a card is present: --device unset serves on it")
-    cmd = [sys.executable, "-m", "zoo_tpu_torch.serving.replica",
-           "--model", "llama:tiny"]
+    busy = socket.socket()
+    busy.bind(("127.0.0.1", 0))
+    busy.listen(1)
+    args = [str(busy.getsockname()[1]) if a == "BUSY" else a
+            for a in args]
     if "--metrics-port" not in args:
-        cmd += ["--metrics-port", "-1"]
-    r = subprocess.run(cmd + args, cwd=ROOT, capture_output=True,
-                       text=True, timeout=100)
-    assert r.returncode != 0 and needle in r.stderr, r.stderr[-2000:]
-    assert "REPLICA READY" not in r.stdout
+        args = args + ["--metrics-port", "-1"]
+    try:
+        entries = [("zoo_tpu_torch",
+                    [] if needle == "no CUDA device" else
+                    ["--device", "cpu"])]
+        if needle != "no CUDA device":
+            entries.append(("zoo_tpu", []))
+        for pkg, extra in entries:
+            cmd = [sys.executable, "-m", f"{pkg}.serving.replica",
+                   "--model", "synthetic:double"] + extra + args
+            r = subprocess.run(cmd, cwd=ROOT, capture_output=True,
+                               text=True, timeout=100)
+            assert r.returncode != 0 and needle in r.stderr, \
+                (pkg, r.stderr[-2000:])
+            assert "REPLICA READY" not in r.stdout
+    finally:
+        busy.close()
+
+
+@pytest.mark.timeout(120)
+def test_replica_serves_predict_with_its_exporter():
+    """``--metrics-port 0 --batch-size 4``: the replica reports its
+    metrics port, answers predict through the batcher and its
+    ``/healthz`` and ``/metrics`` doors, as the JAX replica does."""
+    import json
+    import urllib.request
+
+    from zoo_tpu_torch.obs.exporters import validate_prometheus_text
+    from zoo_tpu_torch.serving.tcp_client import TCPInputQueue
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "zoo_tpu_torch.serving.replica",
+         "--model", "synthetic:double", "--device", "cpu",
+         "--metrics-port", "0", "--batch-size", "4",
+         "--max-wait-ms", "1"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline().split()
+        assert line[:2] == ["REPLICA", "READY"], line
+        host, port = line[2].rsplit(":", 1)
+        mport = int(line[3].split("=")[1])
+        q = TCPInputQueue(host, int(port))
+        x = np.arange(6, dtype=np.float32).reshape(2, 3)
+        np.testing.assert_array_equal(q.predict(x), 2 * x)
+        assert q.stats()["inference"]["count"] == 1
+        q.close()
+        base = f"http://{host}:{mport}"
+        with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+            assert json.loads(r.read())["ok"] is True
+        with urllib.request.urlopen(base + "/metrics", timeout=5) as r:
+            text = r.read().decode()
+        assert not validate_prometheus_text(text)
+        assert 'zoo_serving_requests_total{outcome="ok"} 1' in text
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
 
 
 def test_replica_refuses_to_serve_without_its_kernels(monkeypatch,
@@ -440,4 +526,13 @@ def test_check_spec_decode_copy_runs_on_cpu():
 @pytest.mark.timeout(320)
 def test_check_prefix_cache_copy_runs_on_cpu():
     _script("check_prefix_cache", "PREFIX CACHE OK")
+
+
+@pytest.mark.chaos
+@pytest.mark.timeout(180)
+def test_check_serving_ha_copy_runs_on_cpu():
+    """The 3-replica SIGKILL smoke of the predict door
+    (``scripts/check_serving_ha.py``'s copy), under its JAX original's
+    marker and time limit."""
+    _script("check_serving_ha", "SERVING HA OK")
 

@@ -160,3 +160,33 @@ def test_ncf_and_bert_entry_points_raise_without_a_card(monkeypatch):
             call()
     assert ncf.predict(pairs, device="cpu").shape == (4, 2)
     assert bert.predict(ids, device="cpu").shape == (4, 4, 8)
+
+
+def test_predict_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The predict-door slice: no GPU and no ``device=`` raises at every
+    loader of a model file; ``device="cpu"`` serves."""
+    from zoo_tpu_torch.models.image import ResNet
+    from zoo_tpu_torch.pipeline.api.keras.engine.topology import KerasNet
+    from zoo_tpu_torch.pipeline.inference import InferenceModel
+    from zoo_tpu_torch.serving.ha import resolve_model_spec
+    from zoo_tpu_torch.serving.registry import ModelRegistry
+
+    m = ResNet(10, (1, 1), bottleneck=True, input_shape=(32, 32, 3))
+    m.build(device="cpu")
+    path = m.save(str(tmp_path / "m.zoo"))
+    m.save_weights(str(tmp_path / "w.pkl"))
+    reg = ModelRegistry(str(tmp_path / "registry"))
+    reg.publish(path, alias="prod")
+    spec = f"registry:{reg.root}:prod"
+    fresh = ResNet(10, (1, 1), bottleneck=True, input_shape=(32, 32, 3))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: KerasNet.load(path),
+                 lambda: InferenceModel().load(path),
+                 lambda: resolve_model_spec(path),
+                 lambda: resolve_model_spec(spec),
+                 lambda: fresh.load_weights(str(tmp_path / "w.pkl"))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    model, version = resolve_model_spec(spec, batch_size=2, device="cpu")
+    assert version == "v1" and model.predict(
+        np.zeros((2, 32, 32, 3), np.float32)).shape == (2, 10)

@@ -1,7 +1,8 @@
 """The port's wire path against the JAX package's: the codec, the
 framing (CRC trailer included), the ``generate`` frame sequence of
 ``ServingServer``, the rest of the wire contract (resume, deadlines,
-disconnects, duplicate ids, the small ops and the refused ones),
+disconnects, duplicate ids, the small ops, the constructor's predict
+settings as the JAX door takes them, and the ops that still wait),
 streams across packages in both directions, and the metrics registry's
 text exposition.
 
@@ -335,10 +336,14 @@ def test_ping_version_stats_and_llm_stats_answer(servers):
                                                 "role": "mixed"}
     v = rpc("port", srv, {"op": "version"})
     assert v["ok"] is True and v["version"] is None
-    # the stats op reads the predict door's stage timers: it answers
-    # with an error naming the item that brings them, never empty timers
+    # the stats op reads the predict door's stage timers, as the JAX
+    # door answers it on an llm-only replica
     st = rpc("port", srv, {"op": "stats"})
-    assert "ROADMAP A.3b" in st["error"] and not st.get("ok")
+    ref = rpc("port", servers["jax"], {"op": "stats"})
+    assert {k: sorted(v) if isinstance(v, dict) else v
+            for k, v in st.items()} == \
+        {k: sorted(v) if isinstance(v, dict) else v for k, v in ref.items()}
+    assert st["total"]["count"] == 0
     st_port = rpc("port", srv, {"op": "llm_stats"})["stats"]
     st_jax = rpc("port", servers["jax"], {"op": "llm_stats"})["stats"]
     assert st_port["role"] == st_jax["role"] == "mixed"
@@ -348,16 +353,15 @@ def test_ping_version_stats_and_llm_stats_answer(servers):
     assert st_port["decode_attention_impl"] == "dense"   # CPU: plain
 
 
+# (the reload and stats cases became cases of the frame-parity test in
+# tests/test_torch_predict.py: both ops are served now)
 @pytest.mark.parametrize("msg,needle", [
     ({"op": "kv_migrate", "phase": "commit", "id": "m"}, "ROADMAP A.5"),
-    ({"op": "reload", "spec": "registry:/x:v2"}, "ROADMAP A.3b"),
-    ({"op": "stats"}, "ROADMAP A.3b"),
     ({"op": "debug_dump"}, "ROADMAP A.6"),
     ({"op": "chaos", "site": "s", "delay_ms": 5}, "ROADMAP A.6"),
     ({"op": "generate", "id": "h", "prompt": [1, 2], "max_new_tokens": 2,
       "handoff": ["127.0.0.1", 1]}, "ROADMAP A.5"),
-], ids=["kv_migrate", "reload", "stats", "debug_dump", "chaos",
-        "handoff"])
+], ids=["kv_migrate", "debug_dump", "chaos", "handoff"])
 def test_refused_ops_name_their_roadmap_item(servers, msg, needle):
     conn = port_tcp._Connection(servers["port"].host, servers["port"].port)
     try:
@@ -377,14 +381,26 @@ def test_predict_answers_with_the_jax_routing_error(servers):
 
 
 def test_constructor_refuses_what_waits(weights, monkeypatch):
-    with pytest.raises(NotImplementedError, match="A.3b"):
-        port_server.ServingServer(object(), port=0)
-    with pytest.raises(NotImplementedError, match="A.3b"):
-        port_server.ServingServer(None, llm_engine=object(), port=0,
-                                  model_loader=lambda s: None)
+    """A predict model and a reload loader are taken as the JAX door
+    takes them; tenant admission still waits for ROADMAP A.4."""
+    from zoo_tpu_torch.serving.ha import SyntheticModel
+
+    loader = lambda s: (SyntheticModel(), "v2")  # noqa: E731
+    for mod in (port_server, jax_server):
+        srv = mod.ServingServer(SyntheticModel(), port=0,
+                                model_loader=loader, version="v1")
+        assert srv.reload_model("any", warm=False)["version"] == "v2"
+        srv._server.server_close()
     monkeypatch.setenv("ZOO_TENANT_CONFIG", "gold:weight=2")
     with pytest.raises(NotImplementedError, match="A.4"):
         port_server.ServingServer(None, llm_engine=object(), port=0)
+
+
+def _door_settings(srv):
+    return {"batch_size": srv.batch_size, "max_wait_ms": srv.max_wait_ms,
+            "num_replicas": len(srv._replicas), "max_queue": srv.max_queue,
+            "dedup_cache": None if srv._dedup_cache is None
+            else srv._dedup_cache._cap}
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -393,16 +409,29 @@ def test_constructor_refuses_what_waits(weights, monkeypatch):
     ids=["batch_size", "max_wait_ms", "num_replicas", "max_queue",
          "dedup_cache"])
 def test_predict_door_settings_are_refused_not_ignored(kwargs):
-    # what only shapes the predict door (ROADMAP A.3b) is not accepted
-    with pytest.raises(TypeError):
-        port_server.ServingServer(None, llm_engine=object(), port=0,
-                                  **kwargs)
+    # each predict-door setting takes effect as in the JAX door
+    from zoo_tpu_torch.serving.ha import SyntheticModel
+    got = port_server.ServingServer(SyntheticModel(), port=0, **kwargs)
+    ref = jax_server.ServingServer(SyntheticModel(), port=0, **kwargs)
+    assert _door_settings(got) == _door_settings(ref)
+    (key, value), = kwargs.items()
+    assert _door_settings(got)[key] == (None if key == "dedup_cache"
+                                        else value)
+    for srv in (got, ref):
+        srv._server.server_close()
 
 
 def test_positional_jax_arguments_past_port_are_refused():
-    # JAX's fourth positional argument is batch_size
-    with pytest.raises(TypeError):
-        port_server.ServingServer(None, "127.0.0.1", 0, 8)
+    # the JAX signature is kept: its fourth positional is batch_size
+    from zoo_tpu_torch.serving.ha import SyntheticModel
+    got = port_server.ServingServer(SyntheticModel(), "127.0.0.1", 0, 8,
+                                    2.5, 3)
+    ref = jax_server.ServingServer(SyntheticModel(), "127.0.0.1", 0, 8,
+                                   2.5, 3)
+    assert _door_settings(got) == _door_settings(ref)
+    assert (got.batch_size, got.max_wait_ms) == (8, 2.5)
+    for srv in (got, ref):
+        srv._server.server_close()
 
 
 def test_dedup_cache_evicts_like_jax():

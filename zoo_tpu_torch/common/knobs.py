@@ -95,9 +95,9 @@ _k("ZOO_FUSED_OPTIM", "bool", False,
    "AdamW takes the fused direct-apply path")
 _k("ZOO_INT8_MODE", "str", "auto",
    "int8 quantization policy: `auto` microbenches int8 vs float and "
-   "keeps the winner, `force`, `off`. The default `auto` is that of the "
-   "`InferenceModel` file loaders (not ported yet); `quantize_model` "
-   "with no `mode=` and the knob unset forces, as in the JAX package")
+   "keeps the winner, `force`, `off`. The default `auto` is that of "
+   "`InferenceModel.load`; `quantize_model` with no `mode=` and the "
+   "knob unset forces, as in the JAX package")
 _k("ZOO_CONV_IMPL", "str", "auto",
    "conv2d backend: `auto` (the implicit-GEMM CUDA kernel on a CUDA "
    "device for supported shapes, the reference conv elsewhere), "
@@ -120,8 +120,16 @@ _k("ZOO_SERVE_HEDGE_DELAY_MS", "float", 0.0,
 _k("ZOO_SERVE_BREAKER_RECOVERY", "float", 1.0,
    "client-side per-replica breaker recovery (seconds)")
 _k("ZOO_SERVE_AB_SPLIT", "str", "",
-   "client A/B split, e.g. `v2=0.1,v3=0.05` (rest unpinned); the port "
-   "refuses a non-empty split until the registry is ported")
+   "client A/B split, e.g. `v2=0.1,v3=0.05` (rest unpinned)")
+_k("ZOO_SERVE_MAX_QUEUE", "int", 1024,
+   "batcher queue bound; `0` = unbounded (no early shed)")
+_k("ZOO_SERVE_DEDUP_CACHE", "int", 1024,
+   "request-id LRU entries; `0` disables dedup")
+_k("ZOO_SERVE_DRAIN_TIMEOUT_S", "float", 30.0,
+   "graceful-drain budget; also the per-replica in-flight budget in "
+   "`rolling_update`")
+_k("ZOO_REGISTRY_KEEP", "int", 8,
+   "registry retention bound (never evicts aliased/pinned versions)")
 _k("ZOO_LLM_ROLE", "str", "mixed",
    "replica role: `prefill` / `decode` / `mixed`; the port serves "
    "`mixed` only until disaggregation (ROADMAP A.5)")

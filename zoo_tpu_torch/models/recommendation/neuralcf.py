@@ -23,6 +23,14 @@ from zoo_tpu_torch.pipeline.api.keras.layers import (
 )
 
 
+def _user_ids(pairs):
+    return pairs[:, 0]
+
+
+def _item_ids(pairs):
+    return pairs[:, 1]
+
+
 class NeuralCF(Model, Recommender):
     def __init__(self, user_count: int, item_count: int, class_num: int,
                  user_embed: int = 20, item_embed: int = 20,
@@ -36,8 +44,9 @@ class NeuralCF(Model, Recommender):
         offset = 0 if zero_based_ids else 1
 
         pair = Input(shape=(2,), name="user_item")
-        user_id = Lambda(lambda x: x[:, 0], output_shape=(None,))(pair)
-        item_id = Lambda(lambda x: x[:, 1], output_shape=(None,))(pair)
+        # module-level functions, so the model saves to a model file
+        user_id = Lambda(_user_ids, output_shape=(None,))(pair)
+        item_id = Lambda(_item_ids, output_shape=(None,))(pair)
 
         mlp_user = Embedding(user_count + offset, user_embed)(user_id)
         mlp_item = Embedding(item_count + offset, item_embed)(item_id)

@@ -63,50 +63,67 @@ def _fans(shape) -> Tuple[float, float]:
     return fan_in, shape[-1] * receptive
 
 
-def _uniform(limit_of: Callable[[float, float], float]):
-    def init(generator: torch.Generator, shape) -> torch.Tensor:
-        limit = limit_of(*_fans(tuple(shape)))
+class _Uniform:
+    """U(-limit, limit) with the limit a function of the fans: keras-1's
+    ``glorot_uniform`` (6 / (in + out)), ``he_uniform`` (6 / in) and
+    ``lecun_uniform`` (3 / in), under the square root. A class, not a
+    closure, so a layer holding it pickles into a model file."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __call__(self, generator: torch.Generator, shape) -> torch.Tensor:
+        fi, fo = _fans(tuple(shape))
+        limit = math.sqrt({"glorot": 6.0 / (fi + fo), "he": 6.0 / fi,
+                           "lecun": 3.0 / fi}[self.kind])
         out = torch.empty(tuple(shape), dtype=torch.float32,
                           device=generator.device)
         return out.uniform_(-limit, limit, generator=generator)
-    return init
 
 
-def _const(value: float):
-    def init(generator: torch.Generator, shape) -> torch.Tensor:
-        return torch.full(tuple(shape), value, dtype=torch.float32,
+class _Const:
+    def __init__(self, value: float):
+        self.value = value
+
+    def __call__(self, generator: torch.Generator, shape) -> torch.Tensor:
+        return torch.full(tuple(shape), self.value, dtype=torch.float32,
                           device=generator.device)
-    return init
 
 
-def uniform(scale: float):
+class uniform:
     """U[0, scale), as ``jax.nn.initializers.uniform(scale)``."""
-    def init(generator: torch.Generator, shape) -> torch.Tensor:
+
+    def __init__(self, scale: float):
+        self.scale = scale
+
+    def __call__(self, generator: torch.Generator, shape) -> torch.Tensor:
         out = torch.empty(tuple(shape), dtype=torch.float32,
                           device=generator.device)
-        return out.uniform_(0.0, scale, generator=generator)
-    return init
+        return out.uniform_(0.0, self.scale, generator=generator)
 
 
-def normal(stddev: float):
+class normal:
     """N(0, stddev**2), as ``jax.nn.initializers.normal(stddev)``."""
-    def init(generator: torch.Generator, shape) -> torch.Tensor:
+
+    def __init__(self, stddev: float):
+        self.stddev = stddev
+
+    def __call__(self, generator: torch.Generator, shape) -> torch.Tensor:
         out = torch.empty(tuple(shape), dtype=torch.float32,
                           device=generator.device)
-        return out.normal_(0.0, stddev, generator=generator)
-    return init
+        return out.normal_(0.0, self.stddev, generator=generator)
 
 
 _INITIALIZERS = {
-    "glorot_uniform": _uniform(lambda fi, fo: math.sqrt(6.0 / (fi + fo))),
-    "he_uniform": _uniform(lambda fi, fo: math.sqrt(6.0 / fi)),
-    "lecun_uniform": _uniform(lambda fi, fo: math.sqrt(3.0 / fi)),
+    "glorot_uniform": _Uniform("glorot"),
+    "he_uniform": _Uniform("he"),
+    "lecun_uniform": _Uniform("lecun"),
     "uniform": uniform(0.05),
     "normal": normal(0.05),
-    "zero": _const(0.0),
-    "zeros": _const(0.0),
-    "one": _const(1.0),
-    "ones": _const(1.0),
+    "zero": _Const(0.0),
+    "zeros": _Const(0.0),
+    "one": _Const(1.0),
+    "ones": _Const(1.0),
 }
 
 

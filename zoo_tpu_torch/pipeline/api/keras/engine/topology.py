@@ -23,12 +23,24 @@ is cast to bf16 (:func:`_split_state`) and bf16 outputs come back f32.
 and each compiled metric's ``(sum, count)`` on the device, read once at
 the end (the JAX package's ``_evaluate_arrays``).
 
+Persistence: ``save_weights``/``load_weights`` use the JAX package's
+weight file (a plain pickle of ``{"params": numpy tree, "step"}`` under
+the same layer keys), so either package reads the other's. ``save``/
+``load`` write the port's own whole-model file (:data:`MODEL_MAGIC`,
+then a standard-library pickle of the model with its params as numpy);
+``load`` checks the header before it unpickles and resolves only the
+port's, numpy's and torch's classes, so it refuses a JAX ``.zoo`` file
+without importing either JAX package.
+
 Not ported yet: validation data, meshes and plans, the training guard,
 checkpoints and summaries.
 """
 
 from __future__ import annotations
 
+import io
+import pickle
+import types
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -36,6 +48,7 @@ import torch
 
 from zoo_tpu_torch.common.device import resolve_device
 from zoo_tpu_torch.pipeline.api.keras.engine import data_utils
+from zoo_tpu_torch.pipeline.api.keras.engine import base as _base
 from zoo_tpu_torch.pipeline.api.keras.engine.base import (
     KTensor,
     Layer,
@@ -99,6 +112,81 @@ def _call(layer, key: str, params: Dict, h, training: bool,
         collect[key] = {"stats": stats}
         return out
     return layer.call(p, h, training=training)
+
+
+#: the first bytes of a whole-model file of the port; ``KerasNet.load``
+#: reads nothing past them unless they match
+MODEL_MAGIC = b"ZOO_TPU_TORCH MODEL v1\n"
+
+# what a model file may name besides the port's, numpy's and torch's
+# own classes and functions: the hook dicts of an nn.Module
+_SAFE_GLOBALS = {("collections", "OrderedDict")}
+
+
+def _allowed(module: str, name: str) -> bool:
+    return module.split(".")[0] in ("zoo_tpu_torch", "numpy", "torch") \
+        or (module, name) in _SAFE_GLOBALS
+
+
+class _ModelPickler(pickle.Pickler):
+    """Standard pickle with two substitutions: an activation of the
+    keras registry is stored by its name (several are lambdas or torch
+    builtins), and a tensor held outside the params tree as a CPU numpy
+    array. A class or function that ``load`` would not resolve is
+    refused here, at save."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, (type, types.FunctionType,
+                            types.BuiltinFunctionType)):
+            module = getattr(obj, "__module__", None) or ""
+            if not _allowed(module, obj.__qualname__):
+                raise pickle.PicklingError(
+                    f"{module}.{obj.__qualname__} is not a class or "
+                    "function of zoo_tpu_torch, numpy or torch")
+        return NotImplemented
+
+    def persistent_id(self, obj):
+        if isinstance(obj, torch.Tensor):
+            return ("tensor", obj.detach().cpu().numpy())
+        if callable(obj) and not isinstance(obj, type):
+            for name, fn in _base._ACTIVATIONS.items():
+                if fn is obj:
+                    return ("activation", name)
+        return None
+
+
+class _ModelUnpickler(pickle.Unpickler):
+    def __init__(self, f, device: torch.device):
+        super().__init__(f)
+        self._device = device
+
+    def find_class(self, module, name):
+        if _allowed(module, name):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"a model file of the port may not name {module}.{name}")
+
+    def persistent_load(self, pid):
+        kind, value = pid
+        if kind == "tensor":
+            return torch.from_numpy(np.array(value, copy=True)).to(
+                self._device)
+        if kind == "activation":
+            return _base._ACTIVATIONS[value]
+        raise pickle.UnpicklingError(f"unknown persistent id {kind!r}")
+
+
+def _numpy_tree(tree):
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _leaf_shapes(tree, prefix=()) -> Dict[Tuple, Tuple]:
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaf_shapes(v, prefix + (k,)))
+        return out
+    return {prefix: tuple(np.shape(tree))}
 
 
 class KerasNet:
@@ -382,6 +470,122 @@ class KerasNet:
             return tuple(torch.cat([o[i] for o in outs]).cpu().numpy()
                          for i in range(len(outs[0])))
         return torch.cat(outs).cpu().numpy()
+
+
+    # -- persistence -------------------------------------------------------
+    def to_bytes(self) -> bytes:
+        """The whole model (architecture and weights) as the port's
+        model file: :data:`MODEL_MAGIC`, then a standard-library pickle
+        of the model with its params as CPU numpy. What only a live
+        model holds is left out, as the JAX package's ``to_bytes``
+        leaves out its jit caches: the optimizer state and the
+        layer-id key cache. A layer holding an object pickle cannot
+        store (a ``Lambda`` around a ``lambda``) raises, naming it."""
+        live = {k: getattr(self, k) for k in ("params", "_opt_state",
+                                              "_keys")}
+        try:
+            self._opt_state = None
+            self._keys = None
+            if live["params"] is not None:
+                self.params = _numpy_tree(live["params"])
+            buf = io.BytesIO()
+            buf.write(MODEL_MAGIC)
+            try:
+                _ModelPickler(buf, protocol=4).dump(self)
+            except (pickle.PicklingError, AttributeError, TypeError) as e:
+                raise ValueError(
+                    f"{self.name} cannot be saved: "
+                    f"{self._unpicklable_layer()} holds an object a model "
+                    f"file cannot store ({e}); give it a module-level "
+                    "function instead of a lambda or closure") from e
+            return buf.getvalue()
+        finally:
+            for k, v in live.items():
+                setattr(self, k, v)
+
+    def _unpicklable_layer(self) -> str:
+        for layer in self.layers:
+            try:
+                _ModelPickler(io.BytesIO(), protocol=4).dump(layer)
+            except (pickle.PicklingError, AttributeError, TypeError):
+                return f"layer {layer.name!r} ({type(layer).__name__})"
+        return "the model"
+
+    def save(self, path: str) -> str:
+        data = self.to_bytes()
+        with open(path, "wb") as f:
+            f.write(data)
+        return path
+
+    @staticmethod
+    def load(path: str, device=None) -> "KerasNet":
+        """A model written by :meth:`save`, its params on the current
+        CUDA device unless ``device`` names another. The header is
+        checked before anything is unpickled: a JAX ``.zoo`` file (a
+        cloudpickle of the JAX package's model) or any other file is
+        refused. Int8 conv weights get their kernel's K-major copies
+        again (:func:`~zoo_tpu_torch.convert.keras_params_from_jax`)."""
+        from zoo_tpu_torch.convert import keras_params_from_jax
+        dev = resolve_device(device)
+        with open(path, "rb") as f:
+            head = f.read(len(MODEL_MAGIC))
+            if head != MODEL_MAGIC:
+                raise ValueError(
+                    f"{path} is not a model file of zoo_tpu_torch (no "
+                    f"{MODEL_MAGIC!r} header). A JAX package .zoo file "
+                    "is a cloudpickle of that package's model and is not "
+                    "read here: build the same model in the port and "
+                    "read the JAX package's save_weights file with "
+                    "load_weights")
+            model = _ModelUnpickler(f, dev).load()
+        if not isinstance(model, KerasNet):
+            raise ValueError(f"{path} holds a {type(model).__name__}, "
+                             "not a model")
+        if model.params is not None:
+            model.params = keras_params_from_jax(model.params, dev)
+        return model
+
+    def save_weights(self, path: str):
+        """The JAX package's weight file: a pickle of ``{"params":
+        numpy tree, "step"}``, layer keys as both packages make them."""
+        with open(path, "wb") as f:
+            pickle.dump({"params": _numpy_tree(self.params),
+                         "step": int(self._step)}, f)
+
+    def load_weights(self, path: str, device=None):
+        """Restore a ``save_weights`` file of either package onto the
+        params' device (else the current CUDA device, or ``device``).
+        Params are keyed by layer position and type, so a file restores
+        only into a structurally identical model: a mismatch is a hard
+        error, as in the JAX package, never a silent mis-restore."""
+        from zoo_tpu_torch.convert import keras_params_from_jax
+        with open(path, "rb") as f:
+            blob = _ModelUnpickler(f, torch.device("cpu")).load()
+        loaded = blob["params"]
+        if self.params is None:
+            try:   # the model's own structure, to validate against
+                self.build(device=device)
+            except ValueError:
+                pass   # input shape unknowable here: accept unvalidated
+        if self.params is not None:
+            have, got = _leaf_shapes(self.params), _leaf_shapes(loaded)
+            if have != got:
+                missing = sorted(map(str, set(have) - set(got)))
+                extra = sorted(map(str, set(got) - set(have)))
+                changed = sorted(str(k) for k in have
+                                 if k in got and have[k] != got[k])
+                raise ValueError(
+                    "checkpoint does not match this model's structure "
+                    "(params are keyed by layer position+type, so layers "
+                    "must match one-for-one). "
+                    f"missing={missing[:5]} unexpected={extra[:5]} "
+                    f"shape-changed={changed[:5]}")
+            dev = self._params_device()
+        else:
+            dev = resolve_device(device)
+        self.params = keras_params_from_jax(loaded, dev)
+        self._step = int(blob.get("step", 0))
+        return self
 
 
 class Sequential(KerasNet):

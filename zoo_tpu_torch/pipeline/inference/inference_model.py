@@ -10,8 +10,10 @@ keeps int8 only where it measures faster than the float forward.
 
 The chosen path is recorded on the model (``_quant_path``,
 ``_quant_speedup``); the JAX package also publishes it as a metrics
-gauge, which waits here for the port of its metrics registry. The file
-loaders (``load``, ``load_*``) are not ported yet either.
+gauge, which waits for ROADMAP A.6. ``InferenceModel.load`` reads the
+port's own model file (``KerasNet.save``); the other file loaders
+(``load_tf``, ``load_onnx``, ``load_caffe``, ``load_encrypted``) raise,
+naming the ROADMAP item that brings each.
 """
 
 from __future__ import annotations
@@ -59,6 +61,45 @@ class InferenceModel:
                               else example_input[0], batch_size=batch_size,
                               device=self._device)
         return self
+
+    def load(self, path: str, batch_size: Optional[int] = None,
+             quantize: bool = False, device=None):
+        """Load a whole model written by ``KerasNet.save`` onto the
+        current CUDA device (or ``device``). ``quantize=True`` is the
+        int8 path, in the mode ``ZOO_INT8_MODE`` gives (default
+        ``auto``: int8 is kept only where it measures faster), as the
+        JAX package's loader quantizes. A model saved quantized loads
+        with its int8 weights, the int8 convs' K-major copies rebuilt.
+        A JAX package ``.zoo`` file is refused before anything in it is
+        read (``load_weights`` takes that package's weight file)."""
+        from zoo_tpu_torch.pipeline.api.keras.engine.topology import (
+            KerasNet,
+        )
+        model = KerasNet.load(path, device=device)
+        if quantize:
+            model = quantize_model(model,
+                                   mode=knobs.value("ZOO_INT8_MODE"))
+        return self.load_keras(model, batch_size=batch_size, device=device)
+
+    def load_tf(self, *args, **kwargs):
+        raise NotImplementedError(
+            "InferenceModel.load_tf needs the TF graph bridge, which "
+            "waits for ROADMAP A.16 in the port")
+
+    def load_onnx(self, *args, **kwargs):
+        raise NotImplementedError(
+            "InferenceModel.load_onnx needs the ONNX loader, which waits "
+            "for ROADMAP A.16 in the port")
+
+    def load_caffe(self, *args, **kwargs):
+        raise NotImplementedError(
+            "InferenceModel.load_caffe waits for ROADMAP A.12 (the rest "
+            "of the image-inference slice) in the port")
+
+    def load_encrypted(self, *args, **kwargs):
+        raise NotImplementedError(
+            "InferenceModel.load_encrypted (and save_encrypted) wait for "
+            "ROADMAP A.12 in the port")
 
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
         """Outputs of the held model for numpy ``x``, at most

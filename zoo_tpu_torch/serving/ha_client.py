@@ -16,11 +16,17 @@ replica group (counterpart of ``zoo_tpu/serving/ha_client.py``).
   p95-tracked hedge delay, ONE duplicate stream (same request id) starts
   on the next replica and the first content frame wins.
 
-Every request carries one id and one :class:`Deadline` end to end.
-What waits, each for its ROADMAP item: ``predict``, the A/B split and
-version pins (A.3b, the predict door and the registry), the per-tenant
-shed backoff (A.4), the prefill→decode handoff pair (A.5; the plan never
-pairs), and the client spans (A.6).
+``predict`` and the other request/response ops take the same failover
+and a hedge of the whole request (same id, so the server's dedup cache
+absorbs a same-seat landing). Every request carries one id and one
+:class:`Deadline` end to end. A/B routing: ``ab_split`` /
+``ZOO_SERVE_AB_SPLIT`` pins fractions of predict traffic to registry
+versions, ``tenant_pins`` / ``ZOO_TENANT_AB_PINS`` one tenant's, and
+:meth:`HAServingClient.pin_version` either; a pinned request bounced by
+a replica serving another version fails over to one that serves it.
+What waits, each for its ROADMAP item: the per-tenant shed backoff
+(A.4), the prefill→decode handoff pair (A.5; the plan never pairs), and
+the client spans (A.6).
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ from __future__ import annotations
 import hashlib
 import os
 import queue as _queue
+import random
 import threading
 import time
 import uuid
@@ -56,8 +63,6 @@ from zoo_tpu_torch.util.resilience import (
 
 __all__ = ["HAServingClient", "NoReplicaAvailable"]
 
-PREDICT_ITEM = "ROADMAP A.3b (the predict door and the model registry)"
-
 _hedge = counter(
     "zoo_serve_hedge_total", "Hedged duplicates, by event (fired = "
     "duplicate sent after the hedge delay; won = the duplicate's answer "
@@ -70,6 +75,18 @@ _attempt_seconds = histogram(
     "zoo_serve_client_attempt_seconds",
     "Per-attempt client-observed RPC latency (successful attempts; "
     "feeds the hedge-delay p95)")
+# A/B routing families: per-pinned-version outcome and end-to-end
+# latency, what a promotion gate compares a canary against the
+# incumbent on
+_ab_requests = counter(
+    "zoo_serve_ab_requests_total",
+    "Logical client requests by pinned model version and outcome "
+    "(version=unpinned for traffic the A/B split left on the "
+    "incumbent)", labels=("version", "outcome"))
+_ab_latency = histogram(
+    "zoo_serve_ab_latency_seconds",
+    "End-to-end client-observed request latency by pinned model "
+    "version (includes failover/hedging)", labels=("version",))
 _route_affinity = counter(
     "zoo_serve_route_affinity_total",
     "Generate routing decisions by decisive reason (prefix affinity, "
@@ -78,6 +95,51 @@ _route_affinity = counter(
 
 #: prompt tokens hashed into the routing prefix signature
 _AFFINITY_PREFIX_TOKENS = 16
+
+
+def _parse_ab_split(text: str) -> Dict[str, float]:
+    """``"v2=0.1,v3=0.05"`` → ``{"v2": 0.1, "v3": 0.05}``."""
+    out: Dict[str, float] = {}
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        version, sep, frac = part.partition("=")
+        try:
+            if not sep:
+                raise ValueError("missing '='")
+            out[version.strip()] = float(frac)
+        except ValueError as e:
+            raise ValueError(
+                f"malformed ZOO_SERVE_AB_SPLIT entry {part!r} "
+                f"(expected e.g. \"v2=0.1,v3=0.05\"): {e}") from None
+    return out
+
+
+def _validate_ab_split(split: Dict[str, float]):
+    for v, f in split.items():
+        if not (0.0 <= f <= 1.0):
+            raise ValueError(f"A/B fraction for {v!r} out of [0,1]: {f}")
+    if sum(split.values()) > 1.0 + 1e-9:
+        raise ValueError(f"A/B fractions sum past 1.0: {split}")
+
+
+def _parse_tenant_pins(text: str) -> Dict[str, str]:
+    """``ZOO_TENANT_AB_PINS="gold=v2,free=v1"`` → per-tenant version
+    pins: the named tenant's traffic is pinned to that registry version
+    ahead of the fractional A/B split."""
+    out: Dict[str, str] = {}
+    for part in text.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        tenant, sep, version = part.partition("=")
+        if not sep or not tenant.strip() or not version.strip():
+            raise ValueError(
+                f"malformed ZOO_TENANT_AB_PINS entry {part!r} "
+                "(expected e.g. \"gold=v2,free=v1\")")
+        out[tenant.strip()] = version.strip()
+    return out
 
 
 class NoReplicaAvailable(ConnectionError):
@@ -134,6 +196,10 @@ class _Endpoint:
         # latency/error per seat, walked through probation/ejection by
         # the client's EjectionController
         self.score = score
+        # the registry version this seat last echoed ("vN"); None until
+        # a reply teaches us — steers version-pinned routing without
+        # probe round-trips, and is only a HINT (the server enforces)
+        self.seen_version: Optional[str] = None
         # the replica role this seat last advertised (prefill/decode/
         # mixed, docs/disaggregated_serving.md) — learned from reply
         # frames; a prefill seat sheds plain generates, so the planner
@@ -173,8 +239,9 @@ class _Endpoint:
 
 
 class HAServingClient:
-    """``HAServingClient(group.endpoints()).generate(prompt, n)`` — one
-    logical token stream over N replicas.
+    """``HAServingClient(group.endpoints()).predict(x)`` — one logical
+    request over N replicas; ``.generate(prompt, n)`` one logical token
+    stream.
 
     Knob defaults come from the ``ZOO_SERVE_*`` env: ``deadline_ms``
     (``ZOO_SERVE_DEADLINE_MS``, default 30 000; <= 0 disables),
@@ -208,16 +275,13 @@ class HAServingClient:
         ``ZOO_ROUTE_OCC_WEIGHT``, the plan re-ranking weights for prefix
         affinity and decode occupancy (0 disables a signal).
         ``migrate_min_tokens`` gates the prefill→decode handoff pair,
-        which waits for ROADMAP A.5: the plan never pairs. ``ab_split`` /
-        ``ZOO_SERVE_AB_SPLIT`` and ``tenant_pins`` /
-        ``ZOO_TENANT_AB_PINS`` wait for A.3b and raise when set."""
+        which waits for ROADMAP A.5: the plan never pairs. ``ab_split``
+        (default ``ZOO_SERVE_AB_SPLIT``) pins fractions of predict
+        traffic to registry versions; ``tenant_pins`` (default
+        ``ZOO_TENANT_AB_PINS``) pins named tenants' traffic ahead of
+        the split."""
         if not endpoints:
             raise ValueError("HAServingClient needs at least one endpoint")
-        if ab_split or os.environ.get("ZOO_SERVE_AB_SPLIT") or \
-                tenant_pins or os.environ.get("ZOO_TENANT_AB_PINS"):
-            raise NotImplementedError(
-                f"A/B version pinning waits for {PREDICT_ITEM} in the "
-                "port")
         self._ejector = EjectionController(
             ejection_config or EjectionConfig(enabled=eject))
         if deadline_ms is None:
@@ -239,10 +303,25 @@ class HAServingClient:
         self._rr = 0
         self._rr_lock = threading.Lock()
         self._lat = _LatencyTracker()
+        # A/B version pinning: fractions of traffic stamped with the
+        # wire field ``model_version``; the remainder rides unpinned on
+        # whatever the replicas serve
+        if ab_split is None:
+            ab_split = _parse_ab_split(
+                os.environ.get("ZOO_SERVE_AB_SPLIT", ""))
+        self._ab_lock = threading.Lock()
+        self._ab_split = dict(ab_split or {})
+        _validate_ab_split(self._ab_split)
+        self._ab_rng = random.Random()
         # the tenant stamped on every request (ZOO_TENANT; per-call
-        # tenant= overrides); the server echoes it
+        # tenant= overrides); the server echoes it. Per-tenant version
+        # pins are consulted ahead of the fractional split
         self.tenant = tenant if tenant is not None \
             else (os.environ.get("ZOO_TENANT") or None)
+        if tenant_pins is None:
+            tenant_pins = _parse_tenant_pins(
+                os.environ.get("ZOO_TENANT_AB_PINS", ""))
+        self._ab_pins: Dict[str, str] = dict(tenant_pins or {})
         self._route_prefix_w = float(
             route_prefix_weight if route_prefix_weight is not None
             else _knob_value("ZOO_ROUTE_PREFIX_WEIGHT"))
@@ -281,12 +360,63 @@ class HAServingClient:
         for ep in old.values():  # seats no longer in the group
             ep.close()
 
+    def set_ab_split(self, split: Optional[Dict[str, float]]):
+        """Replace the A/B split (``{"v2": 0.1}`` = pin 10% of traffic
+        to v2); None/{} returns all traffic to unpinned."""
+        split = dict(split or {})
+        _validate_ab_split(split)
+        with self._ab_lock:
+            self._ab_split = split
+
+    def pin_version(self, version: Optional[str], fraction: float = 1.0,
+                    tenant: Optional[str] = None):
+        """Shorthand: route ``fraction`` of traffic to ``version``
+        (1.0 = everything; ``None`` clears the split). With
+        ``tenant=``, pin (or clear) that ONE tenant's traffic instead
+        — a per-tenant pin wins over the fractional split, so a gold
+        tier can ride the stable version while the split canaries
+        everyone else."""
+        if tenant is not None:
+            with self._ab_lock:
+                if version is None:
+                    self._ab_pins.pop(tenant, None)
+                else:
+                    self._ab_pins[tenant] = version
+            return
+        self.set_ab_split(
+            {version: float(fraction)} if version is not None else {})
+
+    def _draw_version(self, tenant: Optional[str] = None
+                      ) -> Optional[str]:
+        with self._ab_lock:
+            if tenant and tenant in self._ab_pins:
+                return self._ab_pins[tenant]
+            if not self._ab_split:
+                return None
+            split = list(self._ab_split.items())
+        r = self._ab_rng.random()
+        acc = 0.0
+        for version, frac in split:
+            acc += frac
+            if r < acc:
+                return version
+        return None
+
     # -- public API --------------------------------------------------------
     def predict(self, x, deadline_ms: Optional[float] = None,
                 uri: str = "_sync_",
                 model_version: Optional[str] = None) -> np.ndarray:
-        raise NotImplementedError(
-            f"predict waits for {PREDICT_ITEM} in the port")
+        """``model_version`` pins this request to one registry version
+        (bypassing the A/B split); unset, the split decides. A pinned
+        request is bounced retryable by replicas serving a different
+        version, so failover lands it on one that matches."""
+        msg = {"op": "predict", "uri": uri, "data": np.asarray(x)}
+        if model_version is not None:
+            msg["model_version"] = model_version
+        resp = self.rpc(msg, deadline_ms=deadline_ms)
+        if "error" in resp:
+            raise RuntimeError(resp["error"])
+        return resp["result"]
 
     def generate(self, prompt, max_new_tokens: int,
                  deadline_ms: Optional[float] = None,
@@ -620,18 +750,28 @@ class HAServingClient:
             return list(self._ejector.events)
 
     def stats(self) -> List[Optional[Dict]]:
-        """Per-replica stage-timer stats: the timers are the predict
-        door's, so this waits for it; a seat's stream state is its
-        ``llm_stats`` (:meth:`update_topology`)."""
-        raise NotImplementedError(
-            f"per-replica stage timers (stats) wait for {PREDICT_ITEM} "
-            "in the port; read llm_stats through update_topology()")
+        """Per-replica stage-timer stats (None for a down replica)."""
+        out = []
+        for ep in self._eps:
+            conn = None
+            try:
+                conn = ep.acquire()
+                out.append(conn.rpc({"op": "stats"}))
+                ep.release(conn, healthy=True)
+            except (OSError, RetryError):
+                # a single-attempt connection reports a transport
+                # failure as RetryError; the conn must not return to
+                # the idle stack
+                if conn is not None:
+                    ep.release(conn, healthy=False)
+                out.append(None)
+        return out
 
     def close(self):
         for ep in self._eps:
             ep.close()
 
-    def _plan(self) -> List[_Endpoint]:
+    def _plan(self, version: Optional[str] = None) -> List[_Endpoint]:
         """Rotation for one request: every endpoint exactly once,
         healthy (breaker-admitted, not gray-degraded) seats first,
         starting at the round-robin cursor. Gray-failure states
@@ -640,8 +780,11 @@ class HAServingClient:
         when their canary probe is due — then ONE probation seat is
         deliberately planned FIRST so live traffic can prove its
         recovery; open-breaker seats follow; EJECTED seats come dead
-        last, reached only when everything else failed. (Preferring
-        seats by a pinned version waits for ROADMAP A.3b.)"""
+        last, reached only when everything else failed. A pinned
+        ``version`` additionally floats seats KNOWN to serve it (or not
+        yet known) ahead of seats last seen on a different version,
+        within each health tier — a hint only; mismatched seats stay in
+        the plan because a hot-swap may have moved them since."""
         with self._rr_lock:
             eps = list(self._eps)
             start = self._rr
@@ -668,7 +811,19 @@ class HAServingClient:
                 probation.append(ep)
             else:
                 active.append(ep)
-        return canary + active + probation + dark + ejected
+        tiers = [t for t in (canary, active, probation, dark, ejected)
+                 if t]
+        if version is None:
+            return [ep for tier in tiers for ep in tier]
+        # version preference WITHIN each health tier: a dead seat last
+        # seen on the pinned version must never outrank a healthy seat
+        # that merely bounced us once
+        out = []
+        for tier in tiers:
+            match = [ep for ep in tier
+                     if ep.seen_version in (None, version)]
+            out += match + [ep for ep in tier if ep not in match]
+        return out
 
     # -- disaggregated routing (docs/disaggregated_serving.md) -------------
     def _learn_role(self, ep: _Endpoint, role):
@@ -780,27 +935,49 @@ class HAServingClient:
         return p95 if p95 is not None else 0.05
 
     def rpc(self, msg: Dict, deadline_ms: Optional[float] = None) -> Dict:
-        """One request/response op (``ping``, ``version``, ``stats``,
-        ``llm_stats``) over the group, with the failover and hedge of
-        :meth:`generate`'s first frame. ``predict`` and a pinned
-        ``model_version`` wait for ROADMAP A.3b."""
-        if msg.get("op") == "predict" or "model_version" in msg:
-            raise NotImplementedError(
-                f"predict and version pins wait for {PREDICT_ITEM} in "
-                "the port")
+        """One request/response op (``predict``, ``ping``, ``version``,
+        ``stats``, ``llm_stats``) over the group, with failover and a
+        hedged duplicate. A predict without ``model_version`` draws one
+        from the tenant's pin, then the A/B split; the pin (or its
+        absence) holds across every attempt of the request."""
         # own copy: the shared id must ride EVERY attempt of this call,
         # but never leak into the caller's dict
         msg = dict(msg)
         msg.setdefault("id", uuid.uuid4().hex)
         if self.tenant is not None and "tenant" not in msg:
             msg["tenant"] = self.tenant
-        return self._rpc_attempts(msg, deadline_ms)
+        is_predict = msg.get("op") == "predict"
+        if is_predict and "model_version" not in msg:
+            drawn = self._draw_version(msg.get("tenant"))
+            if drawn is not None:
+                msg["model_version"] = drawn
+        want = msg.get("model_version")
+        if not is_predict:
+            # probes must not pollute the per-version series
+            return self._rpc_attempts(msg, deadline_ms, want)
+        ab_label = want if want is not None else "unpinned"
+        t_req = time.perf_counter()
+        try:
+            resp = self._rpc_attempts(msg, deadline_ms, want)
+        except DeadlineExceeded:
+            _ab_requests.labels(version=ab_label,
+                                outcome="expired").inc()
+            raise
+        except Exception:
+            _ab_requests.labels(version=ab_label, outcome="failed").inc()
+            raise
+        _ab_requests.labels(
+            version=ab_label,
+            outcome="error" if "error" in resp else "ok").inc()
+        _ab_latency.labels(version=ab_label).observe(
+            time.perf_counter() - t_req)
+        return resp
 
-    def _rpc_attempts(self, msg: Dict,
-                      deadline_ms: Optional[float]) -> Dict:
+    def _rpc_attempts(self, msg: Dict, deadline_ms: Optional[float],
+                      want: Optional[str] = None) -> Dict:
         dl = Deadline.from_ms(
             deadline_ms if deadline_ms is not None else self.deadline_ms)
-        plan = self._plan()
+        plan = self._plan(version=want)
         # every seat may be tried twice (once pre-, once post-failure)
         # before the request gives up — the same budget generate() has
         # always had. One corrupt frame / reset per seat must not
@@ -878,11 +1055,16 @@ class HAServingClient:
             in_flight -= 1
             if item[0] == "ok":
                 _kind, ep, resp, dt = item
+                if resp.get("version") is not None:
+                    # every frame teaches us what this seat serves —
+                    # version-mismatch bounces included, so the NEXT
+                    # pinned request plans around it
+                    ep.seen_version = resp["version"]
                 if resp.get("role") is not None:
                     self._learn_role(ep, resp["role"])
                 if resp.get("shed") and resp.get("retryable"):
-                    # overload shed: the replica is alive but full —
-                    # fail over without charging its breaker
+                    # overload shed or version bounce: the replica is
+                    # alive — fail over without charging its breaker
                     last_err = NoReplicaAvailable(
                         resp.get("error", "shed"), None)
                     if candidates and (dl is None or not dl.expired()):

@@ -1,13 +1,14 @@
-"""The serving TCP client connection (counterpart of
-``zoo_tpu/serving/tcp_client.py``'s ``_Connection``).
+"""The serving TCP client (counterpart of
+``zoo_tpu/serving/tcp_client.py``).
 
-One RPC/stream connection to a :class:`ServingServer` door of either
-package: reconnects under a :class:`RetryPolicy`, CRC frames negotiated
-per connection, request ids echoed and checked. The predict-side
-``TCPInputQueue``/``TCPOutputQueue`` wait for ROADMAP A.3b (the predict
-door), and the ambient trace context that ``_stamp_trace`` reads in the
-JAX package waits for A.6 (observability): here a frame carries the
-caller's own ``trace`` field and none is minted.
+``_Connection`` is one RPC/stream connection to a
+:class:`ServingServer` door of either package: reconnects under a
+:class:`RetryPolicy`, CRC frames negotiated per connection, request ids
+echoed and checked. ``TCPInputQueue``/``TCPOutputQueue`` are the
+predict-side API (``enqueue``/``predict``/``query``, the reference's
+``InputQueue``/``OutputQueue`` shape). The ambient trace context that
+``_stamp_trace`` reads in the JAX package waits for ROADMAP A.6: here a
+frame carries the caller's own ``trace`` field and none is minted.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import threading
 import time
 import uuid
 from typing import Dict, Optional
+
+import numpy as np
 
 from zoo_tpu_torch.serving.server import _recv_frame, _send_msg
 from zoo_tpu_torch.util.integrity import wire_crc_enabled
@@ -236,3 +239,79 @@ class _Connection:
 
     def close(self):
         self._drop(poisoned=False)  # deliberate: no reconnect jitter
+
+
+class TCPInputQueue:
+    def __init__(self, host: str = "127.0.0.1", port: int = 8980,
+                 tls: bool = False, cafile: str = None,
+                 verify: bool = True):
+        """``tls=True`` encrypts the connection; the server cert is
+        verified against ``cafile`` (or the system store). Pass
+        ``verify=False`` ONLY for self-signed dev certs."""
+        self._conn = _Connection(host, port, tls=tls, cafile=cafile,
+                                 verify=verify)
+        self._results: Dict[str, np.ndarray] = {}
+
+    def enqueue(self, uri: str, **data) -> None:
+        """Enqueue one record (reference: ``InputQueue.enqueue(uri, t=...)``);
+        the single tensor value is the model input."""
+        if len(data) != 1:
+            raise ValueError("enqueue expects exactly one named tensor")
+        (_, value), = data.items()
+        arr = np.asarray(value)
+        resp = self._conn.rpc({"op": "predict", "uri": uri,
+                               "data": arr[None] if arr.ndim > 0 and
+                               self._needs_batch(arr) else arr})
+        if "error" in resp:
+            raise RuntimeError(resp["error"])
+        self._results[uri] = resp["result"]
+
+    @staticmethod
+    def _needs_batch(arr: np.ndarray) -> bool:
+        return True  # single-record enqueue always adds the batch dim
+
+    def predict(self, x: np.ndarray,
+                deadline_ms: Optional[float] = None,
+                model_version: Optional[str] = None) -> np.ndarray:
+        """Synchronous batch predict (reference: ``InputQueue.predict``).
+
+        ``deadline_ms``: optional end-to-end budget propagated to the
+        server, which enforces it at admission, batch formation and
+        reply (docs/serving_ha.md); an exhausted budget raises.
+        ``model_version`` pins the request to one registry version —
+        a replica serving a different version bounces it retryable
+        (docs/model_lifecycle.md; single-endpoint clients surface that
+        as an error, the HA client fails over instead)."""
+        msg = {"op": "predict", "uri": "_sync_", "data": np.asarray(x)}
+        if model_version is not None:
+            msg["model_version"] = model_version
+        resp = self._conn.rpc(msg, deadline=Deadline.from_ms(deadline_ms))
+        if "error" in resp:
+            raise RuntimeError(resp["error"])
+        return resp["result"]
+
+    def version(self) -> Dict:
+        """The replica's lifecycle identity:
+        ``{"version": "vN" | None, "model_spec": ...}``."""
+        return self._conn.rpc({"op": "version"})
+
+    def pop_result(self, uri: str) -> Optional[np.ndarray]:
+        return self._results.pop(uri, None)
+
+    def stats(self) -> Dict:
+        return self._conn.rpc({"op": "stats"})
+
+    def close(self):
+        self._conn.close()
+
+
+class TCPOutputQueue:
+    """Result fetch API (reference: ``OutputQueue.query``). With the TCP
+    front door responses come back on the request connection, so this wraps
+    the same client-side result store."""
+
+    def __init__(self, input_queue: TCPInputQueue):
+        self._iq = input_queue
+
+    def query(self, uri: str) -> Optional[np.ndarray]:
+        return self._iq.pop_result(uri)
