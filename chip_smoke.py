@@ -161,9 +161,10 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
 14. predict-mlp — ``bench.py`` ``bench_serving`` in the port: an MLP
    (``Dense(128, relu)``, ``Dense(10, softmax)``, 64 features) behind
    ``ServingServer`` (two batcher threads, ``max_wait_ms=2``) at batch
-   sizes 8 and 32, 8 ``TCPInputQueue`` clients, a warm-up storm, then
-   200 timed requests: p50, p99, req/s, and the JAX guard (p99 at most
-   10x p50, or under 250 ms). No kernel: the door's own cost;
+   sizes 8 and 32, 8 clients on connections of their own, a warm-up
+   storm, then 200 timed requests: p50, p99, req/s, and the JAX guard
+   (p99 at most 10x p50, or under 250 ms). No kernel: the door's own
+   cost;
 15. predict-main — ResNet-50 of phase 8 (``mixed_bfloat16``, BatchNorm
    drawn from a seed) saved as a model file and published to a
    ``ModelRegistry`` as v1 (alias ``prod``), and int8 after
@@ -173,8 +174,10 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    (1, 224, 224, 3) through ``HAServingClient``, a ``reload`` to v2
    once half are answered: zero failures, every reply within 4e-3 of
    its echoed version's direct ``predict`` of the image in a
-   zero-padded batch of 32 (bit-equal ones counted), launches exactly
-   49 ``conv2d`` a v1 batch and 49 ``conv2d_int8`` + 1
+   zero-padded batch of 32 (bit-equal ones counted), those direct
+   outputs against the same batches under the plain versions (v1
+   within 4e-3, v2 bit-equal), launches exactly 49 ``conv2d`` a v1
+   batch and 49 ``conv2d_int8`` + 1
    ``fused_quantized_matmul`` a v2 batch (load and reload warm-ups
    included); p50/p99, req/s, mean batch occupancy, a ``predict-step``
    profile of one batch per version and the device's busy share over a
@@ -3807,18 +3810,18 @@ def phase_predict_mlp(torch, card):
     ``InferenceModel(supported_concurrent_num=2)`` and a
     ``ServingServer`` with two batcher threads and ``max_wait_ms=2.0``,
     at batch sizes 8 and 32: a concurrent warm-up storm, then 200
-    requests from 8 ``TCPInputQueue`` clients; p50, p99 and req/s, and
+    requests from 8 clients, each on a connection of its own (the
+    ``_Connection`` a ``TCPInputQueue`` holds); p50, p99 and req/s, and
     the JAX guard (p99 at most 10x p50, or under 250 ms). The MLP runs
     no kernel of the port: the row is the door's own cost."""
     import gc
-    import threading
 
     import numpy as np
     from zoo_tpu_torch.pipeline.api.keras import Sequential
     from zoo_tpu_torch.pipeline.api.keras.layers import Dense
     from zoo_tpu_torch.pipeline.inference import InferenceModel
     from zoo_tpu_torch.serving.server import ServingServer
-    from zoo_tpu_torch.serving.tcp_client import TCPInputQueue
+    from zoo_tpu_torch.serving.tcp_client import _Connection
 
     m = Sequential()
     m.add(Dense(128, input_shape=(MLP_FEAT,), activation="relu"))
@@ -3826,62 +3829,39 @@ def phase_predict_mlp(torch, card):
     m.compile(optimizer="sgd", loss="mse")
     m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     model = InferenceModel(supported_concurrent_num=2).load_keras(m)
-    rs = np.random.RandomState(0)
+    xs = np.random.RandomState(0).randn(
+        MLP_CLIENTS, MLP_FEAT).astype(np.float32)
     guard = []
     for srv_bs in (8, 32):
         server = ServingServer(model, port=0, batch_size=srv_bs,
                                max_wait_ms=2.0, num_replicas=2).start()
+        conns = [_Connection(server.host, server.port)
+                 for _ in range(MLP_CLIENTS)]
         try:
-            def storm(count, record=None):
-                lock = threading.Lock()
-                xs = [rs.randn(1, MLP_FEAT).astype(np.float32)
-                      for _ in range(MLP_CLIENTS)]
-
-                def client(k):
-                    q = TCPInputQueue(server.host, server.port)
-                    mine = []
-                    for _ in range(count // MLP_CLIENTS):
-                        t0 = time.perf_counter()
-                        y = q.predict(xs[k])
-                        mine.append(time.perf_counter() - t0)
-                    q.close()
-                    if y.shape != (1, 10) or not np.isfinite(y).all():
-                        raise AssertionError(f"predict-mlp: reply {y}")
-                    with lock:
-                        if record is not None:
-                            record.extend(mine)
-
-                threads = [threading.Thread(target=client, args=(k,))
-                           for k in range(MLP_CLIENTS)]
-                t0 = time.perf_counter()
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join()
-                return time.perf_counter() - t0
-
-            storm(MLP_CLIENTS * 4)
+            _predict_storm(conns, xs, MLP_CLIENTS, 4)
             gc.collect()
-            lats = []
-            wall = storm(MLP_REQUESTS, record=lats)
-            lat_ms = np.asarray(sorted(lats)) * 1e3
-            p50 = float(np.percentile(lat_ms, 50))
-            p99 = float(np.percentile(lat_ms, 99))
+            replies, errors, wall = _predict_storm(
+                conns, xs, MLP_CLIENTS, MLP_REQUESTS // MLP_CLIENTS)
+            line = _latency_line(replies, wall)
+            p50, p99 = line["p50_ms"], line["p99_ms"]
             emit({"phase": "predict-mlp", "batch_size": srv_bs,
-                  "card": card, "clients": MLP_CLIENTS,
-                  "requests": len(lats), "p50_ms": p50, "p99_ms": p99,
-                  "p99_over_p50": p99 / p50,
-                  "req_per_s": len(lats) / wall,
+                  "card": card, "clients": MLP_CLIENTS, **line,
+                  "p99_over_p50": p99 / p50, "errors": len(errors),
                   "batches": server.timers["inference"].n,
                   "stats": {k: t.stats()
                             for k, t in server.timers.items()}})
-            if len(lats) != MLP_REQUESTS:
-                raise AssertionError(f"predict-mlp bs{srv_bs}: "
-                                     f"{len(lats)} replies")
+            bad = [y for _, _, y, _ in replies
+                   if y.shape != (1, 10) or not np.isfinite(y).all()]
+            if errors or bad or len(replies) != MLP_REQUESTS:
+                raise AssertionError(
+                    f"predict-mlp bs{srv_bs}: {len(replies)} replies, "
+                    f"errors {errors[:3]}, bad replies {bad[:1]}")
             if p99 > 10 * max(p50, 0.1) and p99 > 250.0:
                 guard.append(f"bs{srv_bs}: p99 {p99:.1f} ms > 10x p50 "
                              f"{p50:.1f} ms")
         finally:
+            for conn in conns:
+                conn.close()
             server.stop()
     if guard:
         raise AssertionError("predict-mlp latency guard: "
@@ -3905,7 +3885,9 @@ def _predict_storm(client, images, n_clients, per_client, at=None,
                    stop=None):
     """``n_clients`` threads, each sending ``per_client`` single-image
     requests (client ``c``'s ``i``-th is image ``(c + i) % len``; with
-    ``stop``, until it is set) through ``client.predict``; ``at`` =
+    ``stop``, until it is set) as ``predict`` ops through
+    ``client.rpc``, or through ``client[c].rpc`` where ``client`` is a
+    list, one a thread; ``at`` =
     ``(count, fn)`` calls ``fn`` on a thread of its own once ``count``
     replies are in. Returns ``(replies, errors, wall_s)``, each reply
     ``(image, version, output, latency_s)``."""
@@ -3917,14 +3899,15 @@ def _predict_storm(client, images, n_clients, per_client, at=None,
     fired = threading.Event()
 
     def worker(c):
+        mine = client[c] if isinstance(client, list) else client
         i = 0
         while (stop is None and i < per_client) or \
                 (stop is not None and not stop.is_set()):
             k = (c + i) % len(images)
             t0 = time.perf_counter()
             try:
-                resp = client.rpc({"op": "predict", "uri": f"c{c}-{i}",
-                                   "data": images[k:k + 1]})
+                resp = mine.rpc({"op": "predict", "uri": f"c{c}-{i}",
+                                 "data": images[k:k + 1]})
                 if "error" in resp:
                     raise RuntimeError(resp["error"])
                 rec = (k, resp.get("version"), np.asarray(resp["result"]),
@@ -4000,7 +3983,8 @@ def phase_predict_main(torch, K, card):
     as model files, ``resolve_model_spec("registry:<root>:prod")`` into
     a ``ServingServer`` (``batch_size=32``, ``max_wait_ms=5``), 32
     client threads x 16 single-image requests through
-    ``HAServingClient.predict``, a ``reload`` to v2 midway. Then a
+    ``HAServingClient.predict``, a ``reload`` to v2 midway; each
+    version's kernels held to their plain versions at batch 32. Then a
     ``ReplicaGroup`` of two ``--device cuda`` replica processes booted
     from the same registry spec, rolled from v2 back to v1 with
     ``rolling_update()`` under client load. Returns the in-process
@@ -4087,6 +4071,17 @@ def phase_predict_main(torch, K, card):
             batches = {v: mod.calls for v, mod in models.items()}
             direct = {v: _direct_outputs(mod.model, images, B)
                       for v, mod in models.items()}
+            # each version's kernels against their plain versions at the
+            # served shapes (B = 32: a part-filled GEMM tile, a 7x7
+            # stage of 1568 rows), which the replies alone cannot show:
+            # a reply is held to the same kernels' direct predict
+            with plain_kernels():
+                K.reset_launch_counts()
+                plain = {v: _direct_outputs(mod.model, images, B)
+                         for v, mod in models.items()}
+                _launched(K.launch_counts())
+            vs_plain = {v: float(np.abs(direct[v] - plain[v]).max())
+                        for v in direct}
             worst, equal, by_version = _check_replies(
                 "predict-main", replies, direct)
             served = server.timers["inference"].n - served0
@@ -4111,6 +4106,8 @@ def phase_predict_main(torch, K, card):
                       "reload_seconds")},
                   "max_abs_err_vs_direct": worst,
                   "bit_equal_replies": equal, "tol": TOL_PREDICT_BF16,
+                  "vs_plain_max_abs": vs_plain,
+                  "vs_plain_tol": {v1: TOL_PREDICT_BF16, v2: 0.0},
                   "stats": {k: t.stats()
                             for k, t in server.timers.items()}})
             if errors:
@@ -4125,6 +4122,11 @@ def phase_predict_main(torch, K, card):
             _launched(counts, conv2d=n_conv * batches[v1],
                       conv2d_int8=n_conv * batches[v2],
                       fused_quantized_matmul=batches[v2])
+            if not (vs_plain[v1] <= TOL_PREDICT_BF16
+                    and np.array_equal(direct[v2], plain[v2])):
+                raise AssertionError(
+                    f"predict-main: the kernels differ from their plain "
+                    f"versions at batch {B} by {vs_plain}")
             # where a served batch's time goes, per version, and the
             # device's busy share over a storm
             for v in (v1, v2):

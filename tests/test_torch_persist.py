@@ -14,6 +14,7 @@
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -162,12 +163,13 @@ def test_other_loaders_name_their_roadmap_items():
             call("x")
 
 
-@pytest.mark.parametrize("fn", [lambda h: h * 2.0, _double],
-                         ids=["lambda", "foreign-module"])
+@pytest.mark.parametrize("fn", [lambda h: h * 2.0, _double, torch.sin],
+                         ids=["lambda", "foreign-module", "torch-function"])
 def test_unpicklable_layer_fails_at_save_naming_it(fn, tmp_path):
     """A function the model file cannot hold (a lambda), or one that
-    ``load`` would refuse to resolve (outside zoo_tpu_torch, numpy and
-    torch), fails at ``save``; a registered activation saves and loads."""
+    ``load`` would refuse to resolve (not a part of a model that the
+    port registers), fails at ``save``; a registered activation saves
+    and loads."""
     bad = Sequential().add(Dense(4, input_shape=(3,))).add(
         Lambda(fn, name="doubler"))
     bad.build(device="cpu")
@@ -218,6 +220,46 @@ def test_a_model_file_naming_a_foreign_class_is_refused(tmp_path):
     f = tmp_path / "evil.zoo"
     f.write_bytes(MODEL_MAGIC + pickle.dumps(os.getcwd, protocol=4))
     with pytest.raises(pickle.UnpicklingError, match="posix.getcwd"):
+        KerasNet.load(str(f), device="cpu")
+
+
+def _naming(module, name):
+    """A protocol-4 stream that looks ``module`` / ``name`` up
+    (STACK_GLOBAL) and stops."""
+    def text(s):
+        b = s.encode()
+        return b"\x8c" + bytes([len(b)]) + b
+    return b"\x80\x04" + text(module) + text(name) + b"\x93."
+
+
+@pytest.mark.parametrize("module,name", [
+    ("torch", "os.system"),                        # dotted: followed out
+    ("zoo_tpu_torch.serving.ha", "subprocess.Popen"),
+    ("torch", "load"),                             # a function of torch
+    ("numpy", "memmap"),                           # a class of numpy
+    ("zoo_tpu_torch.util.manifest", "write_durable"),   # of the port
+    ("zoo_tpu_torch.serving.registry", "ModelRegistry"),
+    ("zoo_tpu_torch.pipeline.api.keras.engine.topology", "pickle"),
+    ("zoo_tpu_torch.models.recommendation.neuralcf", "Dense"),  # imported
+    ("builtins", "eval"),
+], ids=lambda v: v)
+def test_a_model_file_naming_what_is_not_a_model_part_is_refused(
+        module, name, tmp_path):
+    """``load`` resolves only undotted names of the parts of a model
+    (:func:`model_file_part`) where the port defines them, numpy's array
+    parts and torch's dtypes: the module attributes a dotted name would
+    reach, other functions and classes of the port, numpy and torch,
+    and the port's re-exports are refused before anything is called."""
+    f = tmp_path / "evil.zoo"
+    f.write_bytes(MODEL_MAGIC + _naming(module, name))
+    import pickle
+    with pytest.raises(pickle.UnpicklingError,
+                       match=re.escape(f"{module}.{name}")):
+        KerasNet.load(str(f), device="cpu")
+    # the same stream naming a part of a model resolves it
+    f.write_bytes(MODEL_MAGIC + _naming(
+        "zoo_tpu_torch.pipeline.api.keras.layers.core", "Dense"))
+    with pytest.raises(ValueError, match="holds a type"):
         KerasNet.load(str(f), device="cpu")
 
 

@@ -29,12 +29,16 @@ import torch.nn.functional as F
 from zoo_tpu_torch.common.device import resolve_device
 from zoo_tpu_torch.common.knobs import value as knob_value
 from zoo_tpu_torch.ops.attention import dot_product_attention
-from zoo_tpu_torch.pipeline.api.keras.engine.base import Layer
+from zoo_tpu_torch.pipeline.api.keras.engine.base import (
+    Layer,
+    model_file_part,
+)
 
 BLOCK_KEYS = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm", "w_gate",
               "w_up", "w_down")
 
 
+@model_file_part
 @dataclass(frozen=True)
 class LlamaConfig:
     vocab: int = 32000

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Sequence
 
 from zoo_tpu_torch.models.recommendation.recommender import Recommender
+from zoo_tpu_torch.pipeline.api.keras.engine.base import model_file_part
 from zoo_tpu_torch.pipeline.api.keras.engine.topology import Input, Model
 from zoo_tpu_torch.pipeline.api.keras.layers import (
     Dense,
@@ -23,10 +24,12 @@ from zoo_tpu_torch.pipeline.api.keras.layers import (
 )
 
 
+@model_file_part
 def _user_ids(pairs):
     return pairs[:, 0]
 
 
+@model_file_part
 def _item_ids(pairs):
     return pairs[:, 1]
 

@@ -19,12 +19,33 @@ from __future__ import annotations
 
 import collections
 import math
+import types
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 _NAME_COUNTERS: Dict[str, int] = collections.defaultdict(int)
+
+
+#: the classes (with their subclasses) and module-level functions of
+#: the port that a model file may name (:func:`model_file_part`)
+_MODEL_FILE_PARTS: set = set()
+
+
+def model_file_part(obj):
+    """Let a model file of the port name ``obj``, a class (and so its
+    subclasses) or a module-level function; ``KerasNet.load`` resolves
+    nothing else of the port, and ``save`` refuses anything else."""
+    _MODEL_FILE_PARTS.add(obj)
+    return obj
+
+
+def is_model_file_part(obj) -> bool:
+    if isinstance(obj, type):
+        return any(isinstance(c, type) and issubclass(obj, c)
+                   for c in _MODEL_FILE_PARTS)
+    return isinstance(obj, types.FunctionType) and obj in _MODEL_FILE_PARTS
 
 
 def _auto_name(cls_name: str) -> str:
@@ -63,6 +84,7 @@ def _fans(shape) -> Tuple[float, float]:
     return fan_in, shape[-1] * receptive
 
 
+@model_file_part
 class _Uniform:
     """U(-limit, limit) with the limit a function of the fans: keras-1's
     ``glorot_uniform`` (6 / (in + out)), ``he_uniform`` (6 / in) and
@@ -81,6 +103,7 @@ class _Uniform:
         return out.uniform_(-limit, limit, generator=generator)
 
 
+@model_file_part
 class _Const:
     def __init__(self, value: float):
         self.value = value
@@ -90,6 +113,7 @@ class _Const:
                           device=generator.device)
 
 
+@model_file_part
 class uniform:
     """U[0, scale), as ``jax.nn.initializers.uniform(scale)``."""
 
@@ -102,6 +126,7 @@ class uniform:
         return out.uniform_(0.0, self.scale, generator=generator)
 
 
+@model_file_part
 class normal:
     """N(0, stddev**2), as ``jax.nn.initializers.normal(stddev)``."""
 
@@ -184,6 +209,7 @@ def normalize_shape(shape) -> Tuple:
     return shape
 
 
+@model_file_part
 class KTensor:
     """Symbolic tensor node of the functional graph: its shape (with a
     None batch dim), the layer that made it and that layer's inputs."""
@@ -199,6 +225,7 @@ class KTensor:
         return f"KTensor(shape={self.shape}, from={lname})"
 
 
+@model_file_part
 class Layer(nn.Module):
     """Base layer. Subclasses implement ``build``/``call``/
     ``compute_output_shape`` as functions of the params they are given."""

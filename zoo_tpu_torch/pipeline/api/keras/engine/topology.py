@@ -29,8 +29,13 @@ the same layer keys), so either package reads the other's. ``save``/
 ``load`` write the port's own whole-model file (:data:`MODEL_MAGIC`,
 then a standard-library pickle of the model with its params as numpy);
 ``load`` checks the header before it unpickles and resolves only the
-port's, numpy's and torch's classes, so it refuses a JAX ``.zoo`` file
-without importing either JAX package.
+parts of a model (undotted names of the port's layers, models,
+initializers, optimizers, metrics and losses, numpy's array parts and
+torch's dtypes), so it refuses a JAX ``.zoo`` file without importing
+either JAX package, and a file that names any other function or class.
+Even so, a model file is code to trust as far as its source: a
+registry's directory is the deployment's, as the JAX package's
+cloudpickle files are.
 
 Not ported yet: validation data, meshes and plans, the training guard,
 checkpoints and summaries.
@@ -118,14 +123,42 @@ def _call(layer, key: str, params: Dict, h, training: bool,
 #: reads nothing past them unless they match
 MODEL_MAGIC = b"ZOO_TPU_TORCH MODEL v1\n"
 
-# what a model file may name besides the port's, numpy's and torch's
-# own classes and functions: the hook dicts of an nn.Module
-_SAFE_GLOBALS = {("collections", "OrderedDict")}
+# what a model file may name outside the port: the hook dicts of an
+# nn.Module and a numpy array's parts (numpy's core module under both
+# of its names, 1.x and 2.x)
+_SAFE_GLOBALS = {("collections", "OrderedDict"), ("numpy", "ndarray"),
+                 ("numpy", "dtype")} | {
+    (f"numpy.{core}.multiarray", fn) for core in ("core", "_core")
+    for fn in ("_reconstruct", "scalar")}
+_ROOTS = ("zoo_tpu_torch", "numpy", "torch")
 
 
-def _allowed(module: str, name: str) -> bool:
-    return module.split(".")[0] in ("zoo_tpu_torch", "numpy", "torch") \
-        or (module, name) in _SAFE_GLOBALS
+def _nameable(module: str, name: str) -> bool:
+    """Whether ``load`` looks ``module.name`` up at all: never a dotted
+    name, which pickle would follow attribute by attribute out of the
+    module, and never a module outside the port, numpy and torch."""
+    return "." not in name and (
+        (module, name) in _SAFE_GLOBALS or module.split(".")[0] in _ROOTS)
+
+
+def _allowed(module: str, name: str, obj) -> bool:
+    """Whether a model file may name ``obj`` as ``module.name``: the
+    globals above, numpy's scalar types, torch's dtypes, and the parts
+    of a model that the port defines in ``module`` (its layers, models,
+    initializers, optimizers, metrics and losses:
+    :func:`~.base.model_file_part`). Nothing else, so loading a file
+    calls no function that a model does not need to be rebuilt."""
+    if not _nameable(module, name):
+        return False
+    if (module, name) in _SAFE_GLOBALS:
+        return True
+    root = module.split(".")[0]
+    if root == "numpy":
+        return isinstance(obj, type) and issubclass(obj, np.generic)
+    if root == "torch":
+        return isinstance(obj, torch.dtype)
+    return getattr(obj, "__module__", None) == module and \
+        _base.is_model_file_part(obj)
 
 
 class _ModelPickler(pickle.Pickler):
@@ -139,10 +172,11 @@ class _ModelPickler(pickle.Pickler):
         if isinstance(obj, (type, types.FunctionType,
                             types.BuiltinFunctionType)):
             module = getattr(obj, "__module__", None) or ""
-            if not _allowed(module, obj.__qualname__):
+            if not _allowed(module, obj.__qualname__, obj):
                 raise pickle.PicklingError(
-                    f"{module}.{obj.__qualname__} is not a class or "
-                    "function of zoo_tpu_torch, numpy or torch")
+                    f"{module}.{obj.__qualname__} is not a part of a "
+                    "model that a model file may name (see "
+                    "model_file_part)")
         return NotImplemented
 
     def persistent_id(self, obj):
@@ -161,8 +195,10 @@ class _ModelUnpickler(pickle.Unpickler):
         self._device = device
 
     def find_class(self, module, name):
-        if _allowed(module, name):
-            return super().find_class(module, name)
+        if _nameable(module, name):
+            obj = super().find_class(module, name)
+            if _allowed(module, name, obj):
+                return obj
         raise pickle.UnpicklingError(
             f"a model file of the port may not name {module}.{name}")
 
@@ -189,6 +225,7 @@ def _leaf_shapes(tree, prefix=()) -> Dict[Tuple, Tuple]:
     return {prefix: tuple(np.shape(tree))}
 
 
+@_base.model_file_part
 class KerasNet:
     """Engine shared by the Keras models."""
 

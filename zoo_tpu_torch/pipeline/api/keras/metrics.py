@@ -13,12 +13,15 @@ from typing import Union
 
 import torch
 
+from zoo_tpu_torch.pipeline.api.keras.engine.base import model_file_part
+
 
 def _count(n, like: torch.Tensor) -> torch.Tensor:
     """``n`` as an f32 scalar on ``like``'s device."""
     return torch.tensor(float(n), dtype=torch.float32, device=like.device)
 
 
+@model_file_part
 class Metric:
     name = "metric"
 

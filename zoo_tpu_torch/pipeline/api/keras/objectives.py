@@ -10,13 +10,17 @@ from typing import Callable, Union
 
 import torch
 
+from zoo_tpu_torch.pipeline.api.keras.engine.base import model_file_part
+
 _EPS = 1e-7
 
 
+@model_file_part
 def mean_squared_error(y_true, y_pred):
     return torch.mean((y_pred - y_true) ** 2)
 
 
+@model_file_part
 def sparse_categorical_crossentropy(y_true, y_pred):
     """``y_pred`` are probabilities (keras-1 contract)."""
     p = torch.clamp(y_pred, _EPS, 1.0)
@@ -40,6 +44,7 @@ def _class_last(y_true, t):
     return idx, t
 
 
+@model_file_part
 def sparse_categorical_crossentropy_from_logits(y_true, logits):
     """torch ``nn.CrossEntropyLoss`` semantics (logits in, int labels;
     channel-first layouts and ``ignore_index=-100`` respected).

@@ -30,7 +30,11 @@ from zoo_tpu_torch.ops.kernels.fused_optim import (
     fused_apply_sgd,
     reference_apply_adam,
 )
-from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves, tree_map
+from zoo_tpu_torch.pipeline.api.keras.engine.base import (
+    model_file_part,
+    tree_leaves,
+    tree_map,
+)
 
 
 def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
@@ -39,6 +43,7 @@ def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
                             memory_format=torch.contiguous_format)
 
 
+@model_file_part
 class Optimizer:
     """Base optimizer: ``init(trainable) -> state`` and ``apply(grads,
     state, trainable) -> (trainable, state)``, updating ``trainable`` in

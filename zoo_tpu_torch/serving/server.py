@@ -949,6 +949,11 @@ class ServingServer:
                 offset = 0
                 for r, a in zip(batch, arrays):
                     r.result = np.asarray(preds[offset:offset + len(a)])
+                    # a deliberate break from the JAX door's frames: its
+                    # reply echoes the version live when it replies, which
+                    # a reload may have moved past the one that computed
+                    # the batch; this one names the computing version
+                    # (test_a_reply_echoes_the_version_that_computed_it)
                     r.version = version
                     offset += len(a)
                 if self.breaker is not None:
