@@ -45,7 +45,9 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    with ``--device cuda``: two replica processes on the card, one
    SIGKILLed mid-storm, zero client-visible failures, the seat
    respawned, no leaked block and the paged-decode kernel in each
-   replica's ``llm_stats``;
+   replica's ``llm_stats``; then ``disagg-tiny`` and ``tenancy-tiny``,
+   phase 5's disaggregation and tenancy runs at ``llama:tiny`` (the
+   same functions, which also run on the CPU: ``device="cpu"``);
 4b. train-tiny — a tiny Llama ``fit`` (T=32, B=4, 2 shuffled epochs,
    f32) through the flash kernels and the fused AdamW kernel equals the
    same ``fit`` through the dense attention and the plain update;
@@ -84,7 +86,28 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    (``wire_replica_process``: the client in another process than the
    engine; a cold and a warm pass with the first-token hedge on, a warm
    one without; streams equal to the bucket run's, the kernels in
-   ``llm_stats``, no block held);
+   ``llm_stats``, no block held); between the int8 run and speculation,
+   on the bucket run's weights: ``disagg-main`` — a ``role=prefill`` and
+   a ``role=decode`` ``ServingServer`` in this process and an
+   ``HAServingClient`` (``migrate_min_tokens`` 64) streaming the four
+   prompts: the three long ones prefill on the prefill seat, push their
+   KV over ``kv_migrate`` and decode on the decode seat with no prefill
+   call there, the 20-token one streams plainly on the decode seat;
+   streams equal the bucket run's (f32 cache) or the int8 run's (int8
+   cache); per handoff blocks, bytes, push seconds and client TTFT
+   beside the direct run's; then a push made to fail falls back to a
+   re-prefill with the same stream and no leaked block — and
+   ``tenancy-main``: one engine of the 8B spec's 8 slots, 24 seeded
+   300-token ``greedy`` prompts (rate 4/s, burst 8, at most 6 slots,
+   class 1) flooding against four 20-token ``victim`` prompts (class 0)
+   one after another, with tenancy off and on, beside the victim alone;
+   every stream equals its unpreempted reference, greedy is shed with
+   its own bucket's hint and never holds more than 6 slots, each victim
+   is admitted ahead of the greedy streams waiting at its submission;
+   then a class preemption (greedy 100-token streams on every slot, a
+   victim arrives) and a weighted-fair run (weights 4 and 1); the
+   victim's TTFT p50/p99 and inter-token p99 beside its unloaded run's
+   and ``bench_tenancy``'s 2x bar (printed, not asserted);
 6. train-main — Keras ``fit`` of the repo's Llama training config
    (``bench.py`` ``bench_llama``: vocab 32000, hidden 768, 12 blocks, 12
    heads, 4 kv heads, intermediate 2048) at full width and depth, S=512,
@@ -237,7 +260,9 @@ sequences.
 
 Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route
 and its launches by main path, ``serve_spec`` the speculative run's,
-``serve_wire`` the wire runs', ``train_bert`` BERT run (b)'s,
+``serve_wire`` the wire runs', ``serve_disagg`` the disaggregated runs'
+(f32 and int8), ``serve_tenancy`` the tenancy runs', ``train_bert`` BERT
+run (b)'s,
 ``predict`` predict-main's in-process run;
 for ``conv2d`` and the three flash kernels the numbers are the bf16
 route's, the f32 route's sit under ``f32_route``), the card's name and power
@@ -3075,12 +3100,7 @@ def drive(engine, prompts, n_new, budget=600.0, sampling=None):
     t0 = time.perf_counter()
     hs = [engine.submit(p, n_new, rid=f"q{i}", sampling=sampling)
           for i, p in enumerate(prompts)]
-    end = time.monotonic() + budget
-    for h in hs:
-        while not h.done:
-            if time.monotonic() > end:
-                raise TimeoutError("streams did not finish in time")
-            h.wait_new(len(h.tokens), 1.0)
+    _wait_done(hs, budget)
     return hs, time.perf_counter() - t0
 
 
@@ -3122,6 +3142,8 @@ def phase_tiny(torch, K):
                 raise AssertionError(f"{spec}: {k} never launched")
     phase_tiny_spec(torch, K, plain)
     phase_tiny_wire(torch, K)
+    phase_tiny_disagg(torch, K)
+    phase_tiny_tenancy(torch, K)
 
 
 def wire_streams(clients, prompts, n_new, sampling=None, stop_at=None):
@@ -3426,7 +3448,7 @@ def phase_tick(torch, m, card, ticks=10, path="decode"):
 def serve_run(torch, K, eng, prompts, label, card, setup_s, extra=None):
     """Drive ``eng`` with ``prompts`` (32 new tokens each) from launch
     counts of 0, check the outcomes, and print the run's line; returns
-    the launch counts, the stats and the streams."""
+    the launch counts, the stats, the streams and their TTFTs."""
     K.reset_launch_counts()
     try:
         hs, wall = drive(eng, prompts, 32)
@@ -3456,14 +3478,16 @@ def serve_run(torch, K, eng, prompts, label, card, setup_s, extra=None):
           **(extra(stats) if extra else {})})
     if used != 0:
         raise AssertionError(f"{label}: {used} KV blocks leaked")
-    return counts, stats, toks
+    return counts, stats, toks, [h.ttft() for h in hs]
 
 
 def phase_main(torch, K, card):
     """The 8B-width engine on the bucket, chunk=64 and int8 paths, then
-    with speculation (``spec_k=4``) and the same model's engine at
-    ``spec_k=0``. Returns the plain runs' launches and the speculative
-    run's."""
+    disaggregation (``disagg-main``, f32 and int8 caches) and tenancy
+    (``tenancy-main``) on the bucket run's weights, then speculation
+    (``spec_k=4``) and the same model's engine at ``spec_k=0``. Returns
+    the launches of the plain runs, the speculative run, the wire runs,
+    the disaggregated runs and the tenancy runs."""
     import numpy as np
     from zoo_tpu_torch.serving.llm import LLMEngine, build_llm_engine
 
@@ -3477,15 +3501,15 @@ def phase_main(torch, K, card):
              ("paged_prefill", "paged_decode")),
             ("kv=int8", {"kv_dtype": "int8"},
              ("flash_attention", "paged_decode")))
-    params, launches, first = None, {}, None
+    params, launches, first, int8 = None, {}, None, None
     for label, kw, need in runs:
         t0 = time.perf_counter()
         eng = build_llm_engine(spec, device="cuda", params=params, **kw)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         params = eng.model.params
-        counts, stats, toks = serve_run(torch, K, eng, prompts, label, card,
-                                        setup_s)
+        counts, stats, toks, ttft = serve_run(torch, K, eng, prompts,
+                                              label, card, setup_s)
         for k in need:
             if counts[k] <= 0:
                 raise AssertionError(f"{label}: {k} never launched")
@@ -3494,8 +3518,8 @@ def phase_main(torch, K, card):
             launches.update(flash_attention=counts["flash_attention"],
                             paged_decode=counts["paged_decode"])
             phase_tick(torch, eng.model, card)
-            wire = phase_main_wire(torch, K, card, spec, params, prompts,
-                                   first)
+            wire, warm_ttft = phase_main_wire(torch, K, card, spec, params,
+                                              prompts, first)
         elif label == "chunk=64":
             launches["paged_prefill"] = counts["paged_prefill"]
             # information only, not asserted: the two paths sum attention
@@ -3503,8 +3527,28 @@ def phase_main(torch, K, card):
             # logits whose argmax may flip
             emit({"phase": "main", "run": label,
                   "streams_equal_bucket": toks == first})
+        else:
+            int8 = (toks, ttft)
         del eng
         torch.cuda.empty_cache()
+
+    # disaggregation: f32 streams held to the bucket run's (TTFTs beside
+    # direct_warm's), int8 ones to the kv=int8 run's
+    disagg = {}
+    for kv, (direct, d_ttft) in (("f32", (first, warm_ttft)),
+                                 ("int8", int8)):
+        counts = disagg_run(torch, K, spec, params, prompts, 32, direct,
+                            d_ttft, kv, "cuda", "disagg-main", card)
+        for k, n in counts.items():
+            disagg[k] = disagg.get(k, 0) + n
+        torch.cuda.empty_cache()
+    disagg = {k: disagg[k] for k in ("flash_attention", "paged_decode",
+                                     "paged_prefill") if disagg[k]}
+    tenancy = tenancy_run(torch, K, spec, params, 128256, "cuda",
+                          "tenancy-main", card)
+    tenancy = {k: tenancy[k] for k in ("flash_attention", "paged_decode",
+                                       "paged_prefill") if tenancy[k]}
+    torch.cuda.empty_cache()
 
     # speculation: a spec_k=4 model, its engine at spec_k=4 and then at
     # spec_k=0 (the A/B rig), on motif-tiled prompts of the same lengths
@@ -3518,7 +3562,7 @@ def phase_main(torch, K, card):
     def spec_stats(stats):
         return {k: stats[k] for k in SPEC_STATS}
 
-    spec_counts, st, spec_toks = serve_run(
+    spec_counts, st, spec_toks, _ = serve_run(
         torch, K, eng, prompts, "spec_k=4", card, setup_s, spec_stats)
     passes = st["compiles"]["verify"]
     if passes <= 0 or spec_counts["paged_decode"] or \
@@ -3528,7 +3572,7 @@ def phase_main(torch, K, card):
                              f"never: {spec_counts}, {passes} passes")
     phase_tick(torch, model, card, path="verify")
     eng = LLMEngine(model, spec_k=0)
-    nospec_counts, _, nospec_toks = serve_run(
+    nospec_counts, _, nospec_toks, _ = serve_run(
         torch, K, eng.start(), prompts, "spec_k=4 model, engine spec_k=0",
         card, 0.0, spec_stats)
     if nospec_counts["paged_decode"] <= 0:
@@ -3541,7 +3585,8 @@ def phase_main(torch, K, card):
     del eng, model, params
     phase_main_replica(torch, card, spec, bucket_prompts, first)
     return launches, {k: spec_counts[k] for k in ("flash_attention",
-                                                  "paged_prefill")}, wire
+                                                  "paged_prefill")}, wire, \
+        disagg, tenancy
 
 
 def phase_main_wire(torch, K, card, spec, params, prompts, direct):
@@ -3563,7 +3608,8 @@ def phase_main_wire(torch, K, card, spec, params, prompts, direct):
     sent). Every run's streams must equal the direct bucket run's (the HA
     contract's premise), end ``ok`` with 32 tokens, and leave no block;
     launch counts, reset before the first run and read after the last,
-    must show the flash forward and the paged decode. Returns them."""
+    must show the flash forward and the paged decode. Returns them and
+    ``direct_warm``'s TTFTs."""
     from zoo_tpu_torch.serving.llm import build_llm_engine
 
     eng = build_llm_engine(spec, device="cuda", params=params)
@@ -3579,6 +3625,7 @@ def phase_main_wire(torch, K, card, spec, params, prompts, direct):
               max(h.last_token_at for h in hs) -
               min(h.first_token_at for h in hs)),
           "streams_equal_bucket": toks == direct})
+    warm_ttft = [h.ttft() for h in hs]
     del eng, hs
     K.reset_launch_counts()
     for label, n in (("wire_1_server", 1), ("wire_2_servers", 2),
@@ -3646,7 +3693,8 @@ def phase_main_wire(torch, K, card, spec, params, prompts, direct):
     for k in ("flash_attention", "paged_decode"):
         if counts[k] <= 0:
             raise AssertionError(f"serve_wire: {k} never launched")
-    return {k: counts[k] for k in ("flash_attention", "paged_decode")}
+    return {k: counts[k] for k in ("flash_attention", "paged_decode")}, \
+        warm_ttft
 
 
 def phase_main_replica(torch, card, spec, prompts, direct):
@@ -3734,6 +3782,527 @@ def phase_main_replica(torch, card, spec, prompts, direct):
         raise
     finally:
         group.stop()
+
+
+# disaggregation and tenancy (phases disagg-main and tenancy-main): the
+# client's handoff floor, and the tenancy mix — a class-0 victim against
+# a rate-limited, slot-capped class-1 flood
+MIGRATE_MIN_TOKENS = 64
+TENANT_CONFIG = ("victim:class=0,weight=4,rate=0;"
+                 "greedy:class=1,weight=1,rate=4,burst=8,slots=6")
+# the class-preemption run: the same classes without the flood's slot
+# cap and rate, and prompts short enough that greedy streams on every
+# slot fit the pool (300-token streams fill it at 6 slots, so a waiter
+# never finds every slot held), when a victim arrives
+CLASS_CONFIG = "victim:class=0,weight=4,rate=0;greedy:class=1,weight=1"
+CLASS_LEN = 100
+FAIR_CONFIG = "a:weight=4,rate=0;b:weight=1,rate=0"
+GREEDY_STREAMS, GREEDY_LEN, GREEDY_SLOTS = 24, 300, 6
+VICTIM_STREAMS, VICTIM_LEN, TENANCY_NEW = 4, 20, 32
+GREEDY_RATE = 4.0
+# bench.py bench_tenancy's bar: the victim's p99 within 2x its unloaded
+# p99 through the flood (printed, not asserted here)
+TENANCY_BAR = 2.0
+
+
+def _sync(torch, device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _wait_done(handles, budget=900.0):
+    end = time.monotonic() + budget
+    for h in handles:
+        while not h.done:
+            if time.monotonic() > end:
+                raise TimeoutError("streams did not finish in time")
+            h.wait_new(len(h.tokens), 1.0)
+
+
+def _settled_blocks(engines, budget=10.0):
+    """Each engine's used blocks once its streams let go of them (a
+    decode seat frees a stream's blocks as it finishes; wait briefly)."""
+    end = time.monotonic() + budget
+    while True:
+        used = [e.allocator.used_blocks for e in engines]
+        if not any(used) or time.monotonic() > end:
+            return used
+        time.sleep(0.02)
+
+
+def _prefill_calls(model):
+    c = model.compile_counts()
+    return c["prefill"] + c["prefill_chunk"]
+
+
+def direct_streams(spec, params, prompts, n_new, device, **kw):
+    """``prompts`` through one engine on ``params`` with no wire, all at
+    once: (tokens, TTFTs) per prompt."""
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+    eng = build_llm_engine(spec, device=device, params=params, **kw)
+    try:
+        hs, _ = drive(eng, prompts, n_new)
+    finally:
+        eng.stop()
+    bad = [(h.outcome, h.error) for h in hs if h.outcome != "ok"]
+    if bad:
+        raise AssertionError(f"direct run: {bad}")
+    return [h.tokens for h in hs], [h.ttft() for h in hs]
+
+
+def disagg_run(torch, K, spec, params, prompts, n_new, direct, direct_ttft,
+               kv, device, phase, card=None):
+    """One prefill seat and one decode seat, two ``ServingServer``s in
+    this process over engines on ``params`` (``role="prefill"`` and
+    ``role="decode"``, cache ``kv``), and an ``HAServingClient``
+    (``migrate_min_tokens`` 64, after ``update_topology()``) streaming
+    ``prompts`` at once: the prompts from 64 tokens on take the two-leg
+    handoff (prefill seat, ``kv_migrate`` push, adoption on the decode
+    seat), the shorter ones stream plainly on the decode seat. Checked:
+    every stream equals its direct run (``direct``), the seats count one
+    handoff out and in per long prompt, the decode engine's prefill
+    calls rise by the short prompts only, no block is held afterwards,
+    and on the card the paged decode and a prefill kernel launched.
+    Per handoff: blocks, bytes and the push's seconds (from the push's
+    fault seam, after the blocks are taken, to the decode seat staging
+    the payload), beside the client-side TTFT and the direct run's.
+    Then the push of the longest prompt fails (an injected connection
+    reset at ``serving.kv_migrate.push``): the client re-prefills it on
+    the decode seat, the stream still equals its direct run, and no
+    block leaks. Returns the launch counts of the first leg."""
+    from zoo_tpu_torch.serving.ha_client import HAServingClient
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+    from zoo_tpu_torch.serving.server import ServingServer
+    from zoo_tpu_torch.util.resilience import inject
+
+    P = build_llm_engine(spec, device=device, params=params,
+                         role="prefill", kv_dtype=kv)
+    D = build_llm_engine(spec, device=device, params=params,
+                         role="decode", kv_dtype=kv)
+    servers = [ServingServer(None, llm_engine=e, port=0).start()
+               for e in (P, D)]
+    starts, pushes = {}, []
+
+    def note_push(site, rid, blocks):
+        starts[rid] = time.perf_counter()
+
+    offer = D.offer_adopted
+
+    def offer_timed(payload):
+        ok = offer(payload)
+        t0 = starts.get(payload["rid"])
+        kvp = payload.get("kv") or {}
+        pushes.append({
+            "prompt_tokens": len(payload["prompt"]),
+            "blocks": int(next(iter(kvp.values())).shape[1]) if kvp
+            else 0,
+            "bytes": sum(int(a.nbytes) for a in kvp.values()),
+            "push_s": None if t0 is None else time.perf_counter() - t0,
+            "adopted": ok})
+        return ok
+
+    D.offer_adopted = offer_timed
+    cli = HAServingClient([(s.host, s.port) for s in servers], hedge=False,
+                          deadline_ms=900_000,
+                          migrate_min_tokens=MIGRATE_MIN_TOKENS)
+    long_ = [len(p) >= MIGRATE_MIN_TOKENS for p in prompts]
+    try:
+        roles = sorted(st["role"] for st in cli.update_topology().values())
+        calls0 = _prefill_calls(D.model)
+        K.reset_launch_counts()
+        with inject("serving.kv_migrate.push", action=note_push):
+            t0 = time.perf_counter()
+            out, _ = wire_streams([cli] * len(prompts), prompts, n_new)
+            _sync(torch, device)
+            wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        toks = [o[0] for o in out]
+        ttft = [o[1][0] - o[2] for o in out]
+        st_p, st_d = P.stats(), D.stats()
+        calls = _prefill_calls(D.model) - calls0
+        used = _settled_blocks([P, D])
+        by_len = {p["prompt_tokens"]: p for p in pushes}
+        handoffs = [dict(by_len.get(len(p), {}), ttft_s=t,
+                         direct_ttft_s=d)
+                    for p, t, d, lg in zip(prompts, ttft, direct_ttft,
+                                           long_) if lg]
+        line = {"phase": phase, "run": f"kv={kv}", "card": card,
+                "roles": roles, "wall_s": wall,
+                "streams_equal_direct": toks == direct,
+                "handoffs_out": st_p["handoffs_out"],
+                "handoffs_in": st_d["handoffs_in"],
+                "decode_prefill_calls": calls,
+                "kv_cache_dtype": st_d["kv_cache_dtype"],
+                "handoffs": handoffs, "ttft_s": ttft,
+                "direct_ttft_s": direct_ttft,
+                "decode_tokens_per_s": sum(len(t) - 1 for t in toks) / (
+                    max(o[1][-1] for o in out) -
+                    min(o[1][0] for o in out)),
+                "used_blocks_after": used, "launches": counts}
+        emit(line)
+        n_long = sum(long_)
+        kernels_ok = device != "cuda" or (
+            counts["paged_decode"] > 0 and
+            counts["flash_attention"] + counts["paged_prefill"] > 0)
+        if toks != direct or st_p["handoffs_out"] != n_long or \
+                st_d["handoffs_in"] != n_long or \
+                calls != len(prompts) - n_long or any(used) or \
+                len(pushes) != n_long or \
+                not all(p["adopted"] for p in pushes) or not kernels_ok:
+            raise AssertionError(f"{phase} kv={kv}: {line}")
+
+        # the push of the longest prompt fails: plain re-prefill on the
+        # decode seat, same stream, no leak
+        i = max(range(len(prompts)), key=lambda j: len(prompts[j]))
+        f0, calls0 = failovers(), _prefill_calls(D.model)
+        with inject("serving.kv_migrate.push",
+                    exc=ConnectionResetError("injected push failure")) \
+                as armed:
+            out, _ = wire_streams([cli], [prompts[i]], n_new)
+        got = out[0][0]
+        used = _settled_blocks([P, D])
+        line = {"phase": phase, "run": f"kv={kv} push_fails",
+                "card": card, "pushes_failed": armed.fired,
+                "stream_equal_direct": got == direct[i],
+                "failovers": failovers() - f0,
+                "decode_prefill_calls": _prefill_calls(D.model) - calls0,
+                "handoffs_out": P.stats()["handoffs_out"],
+                "handoffs_in": D.stats()["handoffs_in"],
+                "ttft_s": out[0][1][0] - out[0][2],
+                "used_blocks_after": used}
+        emit(line)
+        if got != direct[i] or armed.fired != 1 or any(used) or \
+                line["decode_prefill_calls"] != 1 or \
+                line["handoffs_in"] != n_long or line["failovers"] < 1:
+            raise AssertionError(f"{phase} kv={kv} push_fails: {line}")
+        return counts
+    finally:
+        cli.close()
+        for srv in servers:
+            srv.stop()
+        for e in (P, D):
+            e.stop()
+
+
+def _pct(xs, q):
+    import numpy as np
+    return float(np.percentile(np.asarray(xs, float), q)) if xs else None
+
+
+def _victim_leg(eng, victims, n_new, qos):
+    """The victim's prompts, one after another, each submitted when the
+    previous one ended, reading its tokens as they land. With ``qos``,
+    the greedy streams waiting at each victim's submission are noted
+    (the victim must be admitted ahead of all of them)."""
+    out = []
+    for i, p in enumerate(victims):
+        t0 = time.perf_counter()
+        h = eng.submit(p, n_new, rid=f"victim{i}", tenant="victim")
+        waiting = []
+        if qos:
+            with eng._lock:
+                waiting = [g for g in eng._wait if g.tenant == "greedy"]
+        times, cursor = [], 0
+        while True:
+            toks, done = h.wait_new(cursor, 1.0)
+            now = time.perf_counter()
+            times += [now] * len(toks)
+            cursor += len(toks)
+            if done:
+                break
+        out.append({"h": h, "t0": t0, "times": times, "waiting": waiting})
+    return out
+
+
+def _victim_numbers(leg):
+    ttft = [v["times"][0] - v["t0"] for v in leg]
+    gaps = [b - a for v in leg for a, b in zip(v["times"], v["times"][1:])]
+    return {"ttft_s": ttft, "ttft_p50_s": _pct(ttft, 50),
+            "ttft_p99_s": _pct(ttft, 99), "inter_token_p99_s": _pct(gaps, 99)}
+
+
+def _flood(eng, prompts, tenant, handles, sheds):
+    """Submit ``prompts`` as ``tenant`` one after another, each shed
+    retried after its own hint."""
+    from zoo_tpu_torch.serving.llm.engine import AdmissionError
+    for i, p in enumerate(prompts):
+        while True:
+            try:
+                handles.append(eng.submit(p, TENANCY_NEW,
+                                          rid=f"{tenant}{i}", tenant=tenant))
+                break
+            except AdmissionError as e:
+                sheds.append((e.tenant, e.reason, e.retry_after_ms))
+                time.sleep(max(e.retry_after_ms, 1) / 1000.0)
+
+
+def tenancy_run(torch, K, spec, params, vocab, device, phase, card=None):
+    """Multi-tenant QoS on one engine (the spec's slots) over ``params``:
+    24 seeded 300-token ``greedy`` prompts and four 20-token ``victim``
+    prompts, 32 new tokens each. References: each prompt's stream
+    through a tenancy-off engine in groups small enough that no stream
+    is preempted. Runs: ``unloaded`` (the victim alone, tenancy on),
+    ``flood_qos_off`` (the greedy flood, tenancy off: FIFO),
+    ``flood_qos_on`` (the flood under ``TENANT_CONFIG``: greedy rate 4/s,
+    burst 8, at most 6 slots), in each the victim's prompts one after
+    another once the flood has its first token; ``class_preempt`` (8
+    greedy streams on every slot, tenancy on without the slot cap, then
+    a victim); ``fair_share`` (tenants ``a`` weight 4 and ``b`` weight 1,
+    12 greedy prompts each at once; served tokens read when half the
+    streams are done). Checked: every stream equals its reference
+    (preempted and resumed ones included), greedy is shed with its own
+    bucket's hint and the victim never, each victim is admitted ahead of
+    every greedy stream waiting when it was submitted, greedy never
+    holds more than 6 slots, class preemptions happen in
+    ``class_preempt``, no block is held after a run, and on the card the
+    flash forward and the paged decode launched. Printed, not asserted:
+    the victim's TTFT p50/p99 and inter-token p99 per run beside the
+    unloaded run's, against bench_tenancy's 2x bar, and the fair share
+    normalised as bench_tenancy normalises it. Returns the launch counts
+    of the runs."""
+    import threading
+
+    import numpy as np
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+    from zoo_tpu_torch.serving.llm.engine import _tenant_preempted
+    from zoo_tpu_torch.serving.tenancy import TenantRegistry
+
+    rs = np.random.RandomState(16)
+    greedy = [rs.randint(0, vocab, (GREEDY_LEN,))
+              for _ in range(GREEDY_STREAMS)]
+    victims = [rs.randint(0, vocab, (VICTIM_LEN,))
+               for _ in range(VICTIM_STREAMS)]
+
+    def engine(cfg):
+        return build_llm_engine(spec, device=device, params=params,
+                                tenancy=TenantRegistry(spec=cfg, qos=True))
+
+    # references: groups of GREEDY_SLOTS greedy streams never run out of
+    # blocks, so none of them is preempted
+    ref_eng = engine("")
+    slots = ref_eng.model.num_slots
+    short = [rs.randint(0, vocab, (CLASS_LEN,)) for _ in range(slots)]
+    try:
+        refs = {}
+        groups = [[("victim", i, p) for i, p in enumerate(victims)],
+                  [("class", i, p) for i, p in enumerate(short)]] + [
+            [("greedy", i, greedy[i])
+             for i in range(j, min(j + GREEDY_SLOTS, len(greedy)))]
+            for j in range(0, len(greedy), GREEDY_SLOTS)]
+        for g in groups:
+            hs = [ref_eng.submit(p, TENANCY_NEW, rid=f"ref-{t}{i}")
+                  for t, i, p in g]
+            _wait_done(hs)
+            for (t, i, _), h in zip(g, hs):
+                if h.outcome != "ok" or h.preempts:
+                    raise AssertionError(f"{phase} reference {t}{i}: "
+                                         f"{h.outcome} {h.preempts}")
+                refs[(t, i)] = h.tokens
+    finally:
+        ref_eng.stop()
+
+    half = len(greedy) // 2
+
+    def ref_of(rid):
+        """The reference of a stream by its id: ``victim<i>``,
+        ``greedy<i>``, ``class<i>``, or the fair run's ``a<i>`` (greedy
+        prompt i) and ``b<i>`` (greedy prompt half + i)."""
+        for prefix, t, off in (("victim", "victim", 0),
+                               ("greedy", "greedy", 0),
+                               ("class", "class", 0),
+                               ("a", "greedy", 0), ("b", "greedy", half)):
+            if rid.startswith(prefix):
+                return refs[(t, off + int(rid[len(prefix):]))]
+        raise KeyError(rid)
+
+    def check_streams(label, handles):
+        bad = [(h.id, h.outcome, h.preempts) for h in handles
+               if h.outcome != "ok" or h.tokens != ref_of(h.id)]
+        if bad:
+            raise AssertionError(f"{phase} {label}: streams differ from "
+                                 f"their references: {bad}")
+
+    results = {}
+    K.reset_launch_counts()
+    # the victim alone
+    eng = engine(TENANT_CONFIG)
+    try:
+        leg = _victim_leg(eng, victims, TENANCY_NEW, qos=False)
+        check_streams("unloaded", [v["h"] for v in leg])
+        results["unloaded"] = _victim_numbers(leg)
+        used = _settled_blocks([eng])
+    finally:
+        eng.stop()
+    emit({"phase": phase, "run": "unloaded", "card": card,
+          **results["unloaded"], "used_blocks_after": used})
+
+    for label, cfg in (("flood_qos_off", ""), ("flood_qos_on",
+                                                TENANT_CONFIG)):
+        qos = bool(cfg)
+        eng = engine(cfg)
+        handles, sheds, most = [], [], [0]
+        stop = threading.Event()
+
+        def watch():
+            while not stop.is_set():
+                with eng._lock:
+                    n = eng._slots_by_tenant().get("greedy", 0)
+                most[0] = max(most[0], n)
+                time.sleep(0.002)
+
+        c0 = {r: _tenant_preempted.labels(tenant="greedy", reason=r).value
+              for r in ("class", "kv")}
+        watcher = threading.Thread(target=watch, daemon=True)
+        flooder = threading.Thread(target=_flood, daemon=True, args=(
+            eng, greedy, "greedy", handles, sheds))
+        try:
+            t0 = time.perf_counter()
+            watcher.start()
+            flooder.start()
+            while not handles or handles[0].first_token_at is None:
+                time.sleep(0.001)
+            leg = _victim_leg(eng, victims, TENANCY_NEW, qos)
+            flooder.join(900)
+            _wait_done(handles)
+            wall = time.perf_counter() - t0
+            stop.set()
+            watcher.join(10)
+            check_streams(label, handles + [v["h"] for v in leg])
+            used = _settled_blocks([eng])
+            st = eng.stats()
+        finally:
+            stop.set()
+            eng.stop()
+        nums = _victim_numbers(leg)
+        results[label] = nums
+        hints = sorted({s[2] for s in sheds})
+        ahead = all(v["h"].admit_seq < g.admit_seq
+                    for v in leg for g in v["waiting"])
+        line = {"phase": phase, "run": label, "card": card, "wall_s": wall,
+                **nums, "greedy_sheds": len(sheds),
+                "greedy_shed_hints_ms": hints[:3] + hints[-3:],
+                "max_greedy_slots": most[0], "preempts": st["preempts"],
+                "greedy_preempts": {
+                    r: _tenant_preempted.labels(tenant="greedy",
+                                                reason=r).value - c0[r]
+                    for r in c0},
+                "victim_admitted_ahead": ahead,
+                "victim_waited_behind": [len(v["waiting"]) for v in leg],
+                "used_blocks_after": used}
+        if qos:
+            line["tenants"] = st.get("tenants")
+        emit(line)
+        bad_sheds = [s for s in sheds if s[0] != "greedy" or s[1] != "rate"
+                     or not 0 < s[2] <= 1000.0 / GREEDY_RATE + 1]
+        if any(used) or (qos and (not sheds or bad_sheds or not ahead or
+                                  most[0] > GREEDY_SLOTS)) or \
+                (not qos and sheds):
+            raise AssertionError(f"{phase} {label}: {line}, bad sheds "
+                                 f"{bad_sheds[:3]}")
+
+    # class preemption: greedy on every slot, then a victim arrives
+    eng = engine(CLASS_CONFIG)
+    c0 = _tenant_preempted.labels(tenant="greedy", reason="class").value
+    try:
+        hs = [eng.submit(p, TENANCY_NEW, rid=f"class{i}", tenant="greedy")
+              for i, p in enumerate(short)]
+        while sum(1 for h in hs if len(h.tokens) >= 2) < slots:
+            if all(h.done for h in hs):
+                break
+            time.sleep(0.001)
+        v = eng.submit(victims[0], TENANCY_NEW, rid="victim0",
+                       tenant="victim")
+        _wait_done(hs + [v])
+        check_streams("class_preempt", hs + [v])
+        used = _settled_blocks([eng])
+    finally:
+        eng.stop()
+    moved = _tenant_preempted.labels(tenant="greedy",
+                                     reason="class").value - c0
+    resumed = [h.id for h in hs if h.preempts]
+    line = {"phase": phase, "run": "class_preempt", "card": card,
+            "class_preemptions": moved, "resumed_streams": resumed,
+            "victim_ttft_s": v.ttft(), "used_blocks_after": used}
+    emit(line)
+    if moved < 1 or not resumed or any(used):
+        raise AssertionError(f"{phase} class_preempt: {line}")
+
+    # weighted-fair share: both tenants backlogged
+    eng = engine(FAIR_CONFIG)
+    try:
+        hs = []
+        for i in range(half):
+            hs.append(eng.submit(greedy[i], TENANCY_NEW, rid=f"a{i}",
+                                 tenant="a"))
+            hs.append(eng.submit(greedy[half + i], TENANCY_NEW,
+                                 rid=f"b{i}", tenant="b"))
+        while sum(1 for h in hs if h.done) < half:
+            time.sleep(0.002)
+        served = {t: v["served_tokens"]
+                  for t, v in eng.stats()["tenants"].items()}
+        _wait_done(hs)
+        check_streams("fair_share", hs)
+        used = _settled_blocks([eng])
+    finally:
+        eng.stop()
+    _sync(torch, device)
+    counts = K.launch_counts()
+    raw = served["a"] / max(served["b"], 1)
+    emit({"phase": phase, "run": "fair_share", "card": card,
+          "served_tokens": served,
+          "served_per_weight": {"a": served["a"] / 4.0, "b": served["b"]},
+          "fair_share_ratio": raw, "fair_share_normalized": raw / 4.0,
+          "used_blocks_after": used})
+    if any(used):
+        raise AssertionError(f"{phase} fair_share: {used} blocks held")
+
+    base = results["unloaded"]
+    summary = {"phase": phase, "run": "victim_ratios", "card": card,
+               "bar": TENANCY_BAR}
+    for label in ("flood_qos_off", "flood_qos_on"):
+        r = results[label]
+        summary[label] = {
+            k: (r[k] / base[k] if base[k] else None)
+            for k in ("ttft_p50_s", "ttft_p99_s", "inter_token_p99_s")}
+    summary["bar_holds_qos_on"] = \
+        summary["flood_qos_on"]["ttft_p99_s"] is not None and \
+        summary["flood_qos_on"]["ttft_p99_s"] <= TENANCY_BAR
+    summary["launches"] = counts
+    emit(summary)
+    if device == "cuda" and (counts["flash_attention"] <= 0 or
+                             counts["paged_decode"] <= 0):
+        raise AssertionError(f"{phase}: kernels not launched: {counts}")
+    return counts
+
+
+def tiny_prompts():
+    """The serving phases' prompt lengths at ``llama:tiny``'s vocab."""
+    import numpy as np
+    rs = np.random.RandomState(7)
+    return [rs.randint(0, 256, (n,)) for n in (20, 100, 300, 480)]
+
+
+def phase_tiny_disagg(torch, K, device="cuda"):
+    """``disagg_run`` at ``llama:tiny`` (the prompts of the main path's
+    lengths), f32 and int8 caches."""
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+    prompts = tiny_prompts()
+    params = build_llm_engine("llama:tiny", device=device,
+                              start=False).model.params
+    for kv in ("f32", "int8"):
+        direct, ttft = direct_streams("llama:tiny", params, prompts, 16,
+                                      device, kv_dtype=kv)
+        disagg_run(torch, K, "llama:tiny", params, prompts, 16, direct,
+                   ttft, kv, device, "disagg-tiny")
+
+
+def phase_tiny_tenancy(torch, K, device="cuda"):
+    """``tenancy_run`` at ``llama:tiny``."""
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+    params = build_llm_engine("llama:tiny", device=device,
+                              start=False).model.params
+    tenancy_run(torch, K, "llama:tiny", params, 256, device,
+                "tenancy-tiny")
 
 
 # the replies of the served ResNet-50 against its direct predict:
@@ -4294,9 +4863,11 @@ def main():
         phase_infer_tiny(torch, K)
         phase_predict_tiny(torch, K)
         phase_train_image_tiny(torch, K)
-        serve, serve_spec, serve_wire = phase_main(torch, K, card)
+        serve, serve_spec, serve_wire, serve_disagg, serve_tenancy = \
+            phase_main(torch, K, card)
         by_path = {"serve": serve, "serve_spec": serve_spec,
-                   "serve_wire": serve_wire,
+                   "serve_wire": serve_wire, "serve_disagg": serve_disagg,
+                   "serve_tenancy": serve_tenancy,
                    "train": phase_train_main(torch, K, card),
                    "infer": phase_infer_main(torch, K, card),
                    "block": phase_bottleneck_main(torch, K, card),

@@ -2,9 +2,11 @@
 scenario, on one deterministic fake model.
 
 ``zoo_tpu_torch.serving.llm.engine`` is an own copy of
-``zoo_tpu.serving.llm.engine`` (no tenancy, handoff, speculation or
-telemetry). Each scenario here runs on BOTH engines over the same fake
-model, which has the ``PagedLlamaModel`` surface but no framework at all,
+``zoo_tpu.serving.llm.engine`` (without its telemetry; tenancy and the
+handoff are held to the JAX engine in ``tests/test_torch_tenancy.py``
+and ``tests/test_torch_disagg.py``). Each scenario here runs on BOTH
+engines over the same fake model, which has the ``PagedLlamaModel``
+surface but no framework at all,
 and checks the same outcomes: tokens against the closed-form reference,
 outcomes, freed blocks, and — for the white-box ticked scenarios — the
 exact sequence of model calls, which must be identical between the two

@@ -374,7 +374,8 @@ def test_replica_group_and_specs_refuse_what_waits():
     """Both packages' ReplicaGroup on the same specs: predict specs and
     the batcher's settings reach the replica command line, an unstarted
     group probes as all down, a group off the registry has no lifecycle
-    API; roles other than mixed (A.5) still refuse in the port."""
+    API; per-seat roles reach each replica's ``ZOO_LLM_ROLE`` as in the
+    JAX group, and an engine takes the prefill role."""
     with pytest.raises(ValueError, match="llm spec"):
         port_ha.resolve_model_spec("llama:tiny")
     for pkg in (port_ha, jax_ha):
@@ -385,9 +386,17 @@ def test_replica_group_and_specs_refuse_what_waits():
                             ("--max-wait-ms", "1.0"),
                             ("--metrics-port", str(g.metrics_ports[0]))):
             assert cmd[cmd.index(flag) + 1] == value
-    with pytest.raises(NotImplementedError, match="A.5"):
+    roles = ["prefill", "decode"]
+    got = port_ha.ReplicaGroup("llama:tiny", num_replicas=2, roles=roles,
+                               device="cpu")
+    ref = jax_ha.ReplicaGroup("llama:tiny", num_replicas=2, roles=roles)
+    for group in (got, ref):
+        assert group.roles == roles
+        assert [w.env["ZOO_LLM_ROLE"] for w in group._monitor.workers] == \
+            roles
+    with pytest.raises(ValueError, match="roles has 1 entries"):
         port_ha.ReplicaGroup("llama:tiny", num_replicas=2,
-                             roles=["prefill", "decode"])
+                             roles=["prefill"])
     g = port_ha.ReplicaGroup("llama:tiny", num_replicas=2, device="cpu")
     ref = jax_ha.ReplicaGroup("llama:tiny", num_replicas=2)
     assert "--device" in g._monitor.workers[0].cmd
@@ -396,9 +405,11 @@ def test_replica_group_and_specs_refuse_what_waits():
     for group in (g, ref):
         with pytest.raises(RuntimeError, match="model registry"):
             group.rolling_update("v2")
-    with pytest.raises(ValueError, match="A.5"):
-        LLMEngine(PagedLlamaModel(LlamaConfig(**ARCH), device="cpu",
-                                  **SHAPE), role="prefill")
+    eng = LLMEngine(PagedLlamaModel(LlamaConfig(**ARCH), device="cpu",
+                                    **SHAPE), role="prefill")
+    assert eng.stats()["role"] == "prefill"
+    with pytest.raises(ValueError, match="unknown replica role"):
+        LLMEngine(eng.model, role="router")
 
 
 @pytest.mark.timeout(120)

@@ -374,11 +374,25 @@ def test_scripted_door_sequences_reply_as_jax(name):
 
 
 def test_tenancy_still_waits_for_its_item(monkeypatch):
-    with pytest.raises(NotImplementedError, match="A.4"):
-        port_server.ServingServer(_Gate(), port=0, tenancy=object())
+    """Tenant admission is served: a given registry is the door's, and
+    ``ZOO_TENANT_CONFIG`` arms the process registry, in both doors."""
+    from zoo_tpu.serving import tenancy as jax_tenancy
+    from zoo_tpu_torch.serving import tenancy as port_tenancy
+    reg = port_tenancy.TenantRegistry(spec="gold:weight=2", qos=True)
+    srv = port_server.ServingServer(_Gate(), port=0, tenancy=reg)
+    assert srv.tenancy is reg
+    srv._server.server_close()
     monkeypatch.setenv("ZOO_TENANT_CONFIG", "gold:weight=2")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        port_server.ServingServer(_Gate(), port=0)
+    for tenancy, mod in ((port_tenancy, port_server),
+                         (jax_tenancy, jax_server)):
+        tenancy.reset_registry(None)
+        try:
+            srv = mod.ServingServer(_Gate(), port=0)
+            assert srv.tenancy.enabled
+            assert srv.tenancy.config("gold").weight == 2.0
+            srv._server.server_close()
+        finally:
+            tenancy.reset_registry(None)
 
 
 def _versions_across_a_swap(srv_mod):

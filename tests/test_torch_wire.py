@@ -356,21 +356,38 @@ def test_ping_version_stats_and_llm_stats_answer(servers):
 # (the reload and stats cases became cases of the frame-parity test in
 # tests/test_torch_predict.py: both ops are served now)
 @pytest.mark.parametrize("msg,needle", [
-    ({"op": "kv_migrate", "phase": "commit", "id": "m"}, "ROADMAP A.5"),
+    ({"op": "kv_migrate", "phase": "commit", "id": "m"}, None),
     ({"op": "debug_dump"}, "ROADMAP A.6"),
     ({"op": "chaos", "site": "s", "delay_ms": 5}, "ROADMAP A.6"),
     ({"op": "generate", "id": "h", "prompt": [1, 2], "max_new_tokens": 2,
-      "handoff": ["127.0.0.1", 1]}, "ROADMAP A.5"),
+      "handoff": ["127.0.0.1", 1]}, None),
 ], ids=["kv_migrate", "debug_dump", "chaos", "handoff"])
 def test_refused_ops_name_their_roadmap_item(servers, msg, needle):
-    conn = port_tcp._Connection(servers["port"].host, servers["port"].port)
-    try:
-        resp = next(conn.stream(dict(msg))) if msg["op"] == "generate" \
-            else conn.rpc(dict(msg))
-    finally:
-        conn.close()
-    assert needle in resp["error"]
-    assert not resp.get("ok")
+    """The flight recorder's and the chaos harness's ops refuse, naming
+    their item; ``kv_migrate`` and a ``handoff`` generate are served and
+    answered as the JAX door answers them: a commit with no begin on the
+    connection is refused, and a handoff whose push finds no peer ends
+    ``handoff`` with ``migrated`` false."""
+    def ask(pkg):
+        conn = port_tcp._Connection(servers[pkg].host, servers[pkg].port)
+        try:
+            return list(conn.stream(dict(msg))) \
+                if msg["op"] == "generate" else conn.rpc(dict(msg))
+        finally:
+            conn.close()
+
+    resp = ask("port")
+    if needle is not None:
+        assert needle in resp["error"]
+        assert not resp.get("ok")
+        return
+    assert resp == ask("jax")
+    if msg["op"] == "generate":
+        assert resp[-1]["outcome"] == "handoff"
+        assert resp[-1]["migrated"] is False
+    else:
+        assert resp["adopted"] is False and not resp["ok"]
+        assert "commit without a begin" in resp["error"]
 
 
 def test_predict_answers_with_the_jax_routing_error(servers):
@@ -382,7 +399,7 @@ def test_predict_answers_with_the_jax_routing_error(servers):
 
 def test_constructor_refuses_what_waits(weights, monkeypatch):
     """A predict model and a reload loader are taken as the JAX door
-    takes them; tenant admission still waits for ROADMAP A.4."""
+    takes them, and so is a tenant config."""
     from zoo_tpu_torch.serving.ha import SyntheticModel
 
     loader = lambda s: (SyntheticModel(), "v2")  # noqa: E731
@@ -391,9 +408,19 @@ def test_constructor_refuses_what_waits(weights, monkeypatch):
                                 model_loader=loader, version="v1")
         assert srv.reload_model("any", warm=False)["version"] == "v2"
         srv._server.server_close()
+    from zoo_tpu.serving import tenancy as jax_tenancy
+    from zoo_tpu_torch.serving import tenancy as port_tenancy
     monkeypatch.setenv("ZOO_TENANT_CONFIG", "gold:weight=2")
-    with pytest.raises(NotImplementedError, match="A.4"):
-        port_server.ServingServer(None, llm_engine=object(), port=0)
+    for tenancy, mod in ((port_tenancy, port_server),
+                         (jax_tenancy, jax_server)):
+        tenancy.reset_registry(None)
+        try:
+            srv = mod.ServingServer(None, llm_engine=object(), port=0)
+            assert srv.tenancy.enabled
+            assert srv.tenancy.config("gold").weight == 2.0
+            srv._server.server_close()
+        finally:
+            tenancy.reset_registry(None)
 
 
 def _door_settings(srv):

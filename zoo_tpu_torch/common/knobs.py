@@ -1,5 +1,5 @@
-"""The ``ZOO_*`` knobs the port reads (serving and its wire path,
-training, inference).
+"""The ``ZOO_*`` knobs the port reads (serving, its wire path, tenancy
+and disaggregation, training, inference).
 
 A copy of the entries of ``zoo_tpu/common/knobs.py`` that this package
 needs, with the same names, types and defaults, so one environment
@@ -131,22 +131,47 @@ _k("ZOO_SERVE_DRAIN_TIMEOUT_S", "float", 30.0,
 _k("ZOO_REGISTRY_KEEP", "int", 8,
    "registry retention bound (never evicts aliased/pinned versions)")
 _k("ZOO_LLM_ROLE", "str", "mixed",
-   "replica role: `prefill` / `decode` / `mixed`; the port serves "
-   "`mixed` only until disaggregation (ROADMAP A.5)")
+   "replica role (spec: `role=`): `prefill` parks finished prompts "
+   "for `kv_migrate` handoff instead of decoding, `decode` adopts "
+   "migrated KV, `mixed` does both")
+_k("ZOO_KV_MIGRATE_TTL_MS", "float", 2000.0,
+   "how long a parked handoff (prefill side) or a staged adoption "
+   "payload (decode side) survives before the sweep frees its blocks")
+_k("ZOO_KV_MIGRATE_MIN_TOKENS", "int", 16,
+   "prompts shorter than this skip the handoff path and run "
+   "mixed/decode-local prefill")
+_k("ZOO_KV_MIGRATE_CHUNK_BLOCKS", "int", 4,
+   "KV blocks packed per `kv_migrate` block frame on the wire")
 _k("ZOO_ROUTE_PREFIX_WEIGHT", "float", 1.0,
    "routing weight of the prefix-affinity signal in the HA client's "
    "plan order")
 _k("ZOO_ROUTE_OCC_WEIGHT", "float", 0.5,
    "routing weight of decode occupancy (busy slots / total slots from "
    "`llm_stats`) — penalizes loaded seats")
+_k("ZOO_QOS", "bool", True,
+   "`0` disables the whole tenancy layer even with a tenant config")
 _k("ZOO_TENANT_CONFIG", "str", "",
-   "tenant spec; empty = tenancy off (the port refuses a non-empty one "
-   "until tenancy, ROADMAP A.4)")
+   "tenant spec: `name:field=..,..;name2:..` with fields `weight` "
+   "(fair-share), `class` (priority, lower preempts higher), `rate` "
+   "(req/s token bucket, 0 = unlimited), `burst` (bucket depth), `kv` "
+   "(live KV-block quota), `slots` (decode-slot quota); empty = "
+   "tenancy off")
+_k("ZOO_TENANT_DEFAULT_WEIGHT", "float", 1.0,
+   "fair-share weight for unlisted/unlabeled tenants")
+_k("ZOO_TENANT_DEFAULT_CLASS", "int", 1,
+   "priority class for unlisted/unlabeled tenants (lower = more "
+   "important)")
+_k("ZOO_TENANT_DEFAULT_RATE", "float", 0.0,
+   "admission rate (req/s) for unlisted/unlabeled tenants (0 = "
+   "unlimited)")
 _k("ZOO_TENANT", "str", None,
    "the tenant id `HAServingClient` stamps on every request it sends "
    "(per-call `tenant=` overrides)")
 _k("ZOO_TENANT_AB_PINS", "str", "",
    "per-tenant version pins for the HA client, `gold=v2,free=v1`")
+_k("ZOO_TENANT_BACKOFF_CAP_MS", "float", 2000.0,
+   "ceiling on how long the HA client honors a rate-shed "
+   "`retry_after_ms` hint before retrying")
 _k("ZOO_WIRE_CRC", "bool", True,
    "CRC trailer on every serving frame (negotiated per connection; `0` "
    "disables)")

@@ -19,9 +19,11 @@ Model specs (:func:`resolve_model_spec`): ``synthetic:<kind>[:delay_ms]``
 of the port (``KerasNet.save``), and ``llama:*`` (the streaming engine,
 mounted by the replica process itself).
 
-What waits, each for its ROADMAP item: per-seat ``prefill``/``decode``
-roles (A.5); the postmortem harvest, the SLO verdict on ``/healthz`` and
-the wire chaos op (A.6); TF SavedModel directories (A.16).
+``ReplicaGroup(roles=[...])`` gives each seat its ``ZOO_LLM_ROLE``
+(``prefill``/``decode``/``mixed``), kept across a respawn. What waits,
+each for its ROADMAP item: the postmortem harvest, the SLO verdict on
+``/healthz`` and the wire chaos op (A.6); TF SavedModel directories
+(A.16).
 """
 
 from __future__ import annotations
@@ -202,10 +204,12 @@ class ReplicaGroup:
                  heartbeat_timeout: Optional[float] = None,
                  roles: Optional[Sequence[str]] = None,
                  device: Optional[str] = None):
-        """``roles``: per-seat disaggregation roles; every seat serves
-        ``mixed`` until ROADMAP A.5 (other roles raise). ``device`` is
-        passed on to every replica (``--device``; ``None`` = the
-        replica's current CUDA device, which raises without a card)."""
+        """``roles``: per-seat disaggregation roles, e.g. ``["prefill",
+        "decode"]``, injected as each replica's ``ZOO_LLM_ROLE`` so a
+        respawned seat keeps its role (``None`` = every seat
+        ``mixed``). ``device`` is passed on to every replica
+        (``--device``; ``None`` = the replica's current CUDA device,
+        which raises without a card)."""
         from zoo_tpu_torch.orca.bootstrap import (
             ProcessMonitor,
             WorkerProcess,
@@ -217,10 +221,6 @@ class ReplicaGroup:
             raise ValueError(
                 f"roles has {len(roles)} entries for "
                 f"{num_replicas} replicas")
-        if roles is not None and any(r != "mixed" for r in roles):
-            raise NotImplementedError(
-                "prefill/decode replica roles wait for ROADMAP A.5 "
-                "(disaggregation) in the port; every seat serves 'mixed'")
         self.roles = list(roles) if roles is not None else None
         self.model = model
         self.host = host

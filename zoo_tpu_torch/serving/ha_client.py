@@ -24,9 +24,17 @@ absorbs a same-seat landing). Every request carries one id and one
 versions, ``tenant_pins`` / ``ZOO_TENANT_AB_PINS`` one tenant's, and
 :meth:`HAServingClient.pin_version` either; a pinned request bounced by
 a replica serving another version fails over to one that serves it.
-What waits, each for its ROADMAP item: the per-tenant shed backoff
-(A.4), the prefill→decode handoff pair (A.5; the plan never pairs), and
-the client spans (A.6).
+
+Tenancy: a rate shed (``reason: rate``) arms the shedding tenant's own
+backoff clock with the shed's hint (capped by
+``ZOO_TENANT_BACKOFF_CAP_MS``); that tenant's next attempts wait it out,
+other tenants' never do. Disaggregation: when the plan knows a
+``prefill`` seat and a decode-capable one and the prompt has at least
+``migrate_min_tokens`` tokens, leg 1 goes to the prefill seat with the
+decode target's address (``handoff``); its terminal ``handoff`` frame
+fires leg 2, a plain generate with the same id, at the target, which
+binds the migrated KV, or at any seat when the push failed. What waits
+for its ROADMAP item: the client spans (A.6).
 """
 
 from __future__ import annotations
@@ -274,8 +282,9 @@ class HAServingClient:
         ``route_occ_weight`` override ``ZOO_ROUTE_PREFIX_WEIGHT`` /
         ``ZOO_ROUTE_OCC_WEIGHT``, the plan re-ranking weights for prefix
         affinity and decode occupancy (0 disables a signal).
-        ``migrate_min_tokens`` gates the prefill→decode handoff pair,
-        which waits for ROADMAP A.5: the plan never pairs. ``ab_split``
+        ``migrate_min_tokens`` (``ZOO_KV_MIGRATE_MIN_TOKENS``) is the
+        shortest prompt the prefill→decode handoff pair carries.
+        ``ab_split``
         (default ``ZOO_SERVE_AB_SPLIT``) pins fractions of predict
         traffic to registry versions; ``tenant_pins`` (default
         ``ZOO_TENANT_AB_PINS``) pins named tenants' traffic ahead of
@@ -322,6 +331,15 @@ class HAServingClient:
             tenant_pins = _parse_tenant_pins(
                 os.environ.get("ZOO_TENANT_AB_PINS", ""))
         self._ab_pins: Dict[str, str] = dict(tenant_pins or {})
+        # per-tenant rate-shed backoff: a rate shed arms THAT tenant's
+        # clock with its own bucket's refill hint
+        self._tenant_backoff_cap_s = env_float(
+            "ZOO_TENANT_BACKOFF_CAP_MS", 2000.0) / 1000.0
+        self._tenant_retry_at: Dict[str, float] = {}
+        self._tenant_lock = threading.Lock()
+        self._migrate_min = int(
+            migrate_min_tokens if migrate_min_tokens is not None
+            else _knob_value("ZOO_KV_MIGRATE_MIN_TOKENS"))
         self._route_prefix_w = float(
             route_prefix_weight if route_prefix_weight is not None
             else _knob_value("ZOO_ROUTE_PREFIX_WEIGHT"))
@@ -403,6 +421,39 @@ class HAServingClient:
         return None
 
     # -- public API --------------------------------------------------------
+    # -- per-tenant shed backoff -------------------------------------------
+    def _note_tenant_backoff(self, tenant: Optional[str], frame: Dict):
+        """A rate shed carries the SHEDDING tenant's own bucket-refill
+        hint: arm that tenant's backoff clock with it (capped by
+        ``ZOO_TENANT_BACKOFF_CAP_MS``). Queue and breaker sheds do not
+        arm it: another seat may have room."""
+        if frame.get("reason") != "rate":
+            return
+        hint_ms = frame.get("retry_after_ms")
+        if not hint_ms:
+            return
+        until = time.monotonic() + min(
+            float(hint_ms) / 1000.0, self._tenant_backoff_cap_s)
+        key = tenant or ""
+        with self._tenant_lock:
+            if until > self._tenant_retry_at.get(key, 0.0):
+                self._tenant_retry_at[key] = until
+
+    def _tenant_backoff_wait(self, tenant: Optional[str], dl):
+        """Wait out the tenant's armed backoff (never past the request's
+        deadline) before an attempt; a no-op for a tenant never
+        rate-shed."""
+        key = tenant or ""
+        with self._tenant_lock:
+            until = self._tenant_retry_at.get(key, 0.0)
+        wait = until - time.monotonic()
+        if wait <= 0:
+            return
+        if dl is not None:
+            wait = min(wait, max(0.0, dl.remaining()))
+        if wait > 0:
+            time.sleep(wait)
+
     def predict(self, x, deadline_ms: Optional[float] = None,
                 uri: str = "_sync_",
                 model_version: Optional[str] = None) -> np.ndarray:
@@ -475,9 +526,11 @@ class HAServingClient:
         received = 0
         results: "_queue.Queue" = _queue.Queue()
         attempts: List[Dict] = []
-        # the plan never pairs a prefill->decode handoff: that waits
-        # for ROADMAP A.5 (disaggregation)
         order, sig = self._plan_generate(prompt)
+        # disaggregation: with a known prefill seat and a long enough
+        # prompt, leg 1 goes there carrying the decode target's address
+        # (``handoff``); its terminal ``handoff`` frame fires leg 2
+        pair = self._handoff_pair(order, int(prompt.size))
         # every endpoint may be tried twice (once pre-, once post-
         # failure) before the stream gives up
         budget = 2 * len(order)
@@ -493,10 +546,12 @@ class HAServingClient:
                 conn, att["conn"] = att["conn"], None
             return conn
 
-        def fire(ep: _Endpoint, is_hedge: bool = False):
+        def fire(ep: _Endpoint, is_hedge: bool = False,
+                 handoff_to: Optional[_Endpoint] = None):
             att = {"ep": ep, "stop": threading.Event(), "conn": None,
                    "hedge": is_hedge, "dead": False,
                    "resume_from": received,
+                   "handoff_to": handoff_to,
                    "t0": time.perf_counter(),
                    # exactly-once connection ownership: the attempt
                    # thread RELEASES (pool) and kill() CLOSES — whoever
@@ -534,6 +589,8 @@ class HAServingClient:
                                  ("seed", seed), ("spec_k", spec_k)):
                     if val is not None:
                         msg[key] = val
+                if handoff_to is not None:
+                    msg["handoff"] = [handoff_to.host, handoff_to.port]
                 try:
                     for frame in conn.stream(dict(msg), deadline=dl):
                         results.put(("frame", att, frame))
@@ -583,7 +640,14 @@ class HAServingClient:
 
         in_flight = 1
         budget -= 1
-        fire(candidates.pop(0))
+        # an earlier rate shed of THIS tenant armed its clock: wait it
+        # out before the first attempt
+        self._tenant_backoff_wait(ten, dl)
+        if pair is not None:
+            _route_affinity.labels(reason="handoff").inc()
+            fire(pair[0], handoff_to=pair[1])
+        else:
+            fire(candidates.pop(0))
         hedged = False
         try:
             while in_flight:
@@ -640,6 +704,9 @@ class HAServingClient:
                     continue
                 if frame.get("shed") and frame.get("retryable"):
                     kill(att)
+                    # a rate shed means this tenant's bucket is dry on
+                    # every seat (the config is shared): honour its hint
+                    self._note_tenant_backoff(ten, frame)
                     last_err = NoReplicaAvailable(
                         frame.get("error", "shed"), None)
                     if att is chosen:
@@ -648,6 +715,7 @@ class HAServingClient:
                         _failover.inc()
                         budget -= 1
                         in_flight += 1
+                        self._tenant_backoff_wait(ten, dl)
                         fire(candidates.pop(0))
                     continue
                 if frame.get("done") and \
@@ -680,6 +748,41 @@ class HAServingClient:
                         budget -= 1
                         in_flight += 1
                         fire(candidates.pop(0))
+                    continue
+                if frame.get("done") and \
+                        frame.get("outcome") == "handoff":
+                    # leg 1 done: the prefill seat parked the KV and,
+                    # when ``migrated``, pushed it to the target, which
+                    # holds an adoption staged under this rid. Kill the
+                    # racers (their resume_from predates this) and fire
+                    # leg 2 at the target; if the push failed, any seat
+                    # re-prefills. Every path gives the same stream.
+                    att["ep"].breaker.record_success()
+                    self._score_ok(att["ep"],
+                                   time.perf_counter() - att["t0"])
+                    for other in attempts:
+                        if other is not att and not other["dead"] \
+                                and not other["stop"].is_set():
+                            kill(other)
+                    kill(att)
+                    if att is chosen:
+                        chosen = None
+                    target = att.get("handoff_to") \
+                        if frame.get("migrated") else None
+                    if target is not None and budget > 0 and \
+                            (dl is None or not dl.expired()):
+                        budget -= 1
+                        in_flight += 1
+                        fire(target)
+                    elif can_fire():
+                        _failover.inc()
+                        budget -= 1
+                        in_flight += 1
+                        fire(candidates.pop(0))
+                    else:
+                        last_err = NoReplicaAvailable(
+                            "handoff leg 1 finished but no seat "
+                            "available for the decode leg", None)
                     continue
                 if chosen is None and (frame.get("tokens")
                                        or frame.get("done")):
@@ -893,6 +996,22 @@ class HAServingClient:
                 reason = "role"
         _route_affinity.labels(reason=reason).inc()
         return serve + prefill, sig
+
+    def _handoff_pair(self, order: List[_Endpoint], n_prompt: int
+                      ) -> Optional[Tuple[_Endpoint, _Endpoint]]:
+        """``(prefill_seat, decode_target)`` when a prefill→decode
+        handoff should carry this stream: the prompt has at least
+        ``migrate_min_tokens`` tokens and the plan knows a prefill-role
+        seat and a decode-capable one. ``order`` comes from
+        :meth:`_plan_generate`: the front is the best decode target,
+        prefill seats ride the back."""
+        if n_prompt < self._migrate_min:
+            return None
+        prefill = [ep for ep in order if ep.seen_role == "prefill"]
+        serve = [ep for ep in order if ep.seen_role != "prefill"]
+        if not prefill or not serve:
+            return None
+        return prefill[0], serve[0]
 
     def update_topology(self, deadline_ms: float = 2000.0
                         ) -> Dict[str, Optional[Dict]]:

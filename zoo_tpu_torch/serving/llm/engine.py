@@ -30,11 +30,26 @@ tick runs over whatever mix of old and new sequences the slots hold.
 * Deadlines are checked at submission, admission and every scheduler
   pass; the waiting queue is bounded; a duplicate request id joins the
   live stream.
+* **Tenancy** (``tenancy=`` / ``ZOO_TENANT_CONFIG``, see
+  :mod:`zoo_tpu_torch.serving.tenancy`): each tenant's token bucket
+  gates submission with its own retry hint; the next waiter is the
+  lowest priority class, then the lowest served tokens / weight, then
+  FIFO, skipping tenants over their slot or KV quota; a waiter of a
+  higher class preempts the youngest stream of the lowest class; the
+  prefix cache is salted and partitioned per tenant. Without a config
+  every decision is the single-tenant FIFO one.
+* **Disaggregation** (``role=`` / ``ZOO_LLM_ROLE``): a ``handoff``
+  stream prefills only and parks its blocks for the door to push to a
+  decode replica (:meth:`LLMEngine.take_handoff`); a staged
+  ``kv_migrate`` payload (:meth:`LLMEngine.offer_adopted`) is bound at
+  admission and enters decode with the prefill seat's first token,
+  running no prefill call here.
 
-This copy leaves out the reference's tenancy (ROADMAP A.4), the
-disaggregated handoff (A.5) and telemetry (A.6). Streams are read by
-cursor; ``GenHandle.subscribe``/``unsubscribe`` count the readers, so
-the serving door cancels a stream only when its last reader drops.
+This copy leaves out the reference's telemetry: spans, the flight ring
+and the engine's own gauges (the ``zoo_tenant_*`` families are kept).
+Streams are read by cursor; ``GenHandle.subscribe``/``unsubscribe``
+count the readers, so the serving door cancels a stream only when its
+last reader drops.
 The model is any object with the
 :class:`~zoo_tpu_torch.serving.llm.model.PagedLlamaModel` surface.
 """
@@ -51,20 +66,51 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from zoo_tpu_torch.common.knobs import value as knob_value
+from zoo_tpu_torch.obs.metrics import counter, gauge
 from zoo_tpu_torch.serving.llm.kv_cache import (
     BlockAllocator,
     prefix_block_hashes,
 )
 from zoo_tpu_torch.serving.llm.speculative import PromptLookup, accept_length
+from zoo_tpu_torch.serving.tenancy import registry as tenant_registry
 from zoo_tpu_torch.util.resilience import Deadline, env_int
+
+# per-tenant admission, shedding, preemption and live occupancy
+_tenant_admitted = counter(
+    "zoo_tenant_admitted_total",
+    "Requests admitted past the tenant token bucket, per tenant",
+    labels=("tenant",))
+_tenant_shed = counter(
+    "zoo_tenant_shed_total",
+    "Requests shed per tenant and reason (rate = the tenant's own "
+    "token bucket ran dry, queue_full = the shared waiting queue was "
+    "at bound, slots/kv = per-tenant quota)", labels=("tenant", "reason"))
+_tenant_preempted = counter(
+    "zoo_tenant_preempted_total",
+    "Streams preempted per OWNING tenant and reason (kv = pool "
+    "pressure, class = displaced by a higher-priority tenant)",
+    labels=("tenant", "reason"))
+_tenant_kv = gauge(
+    "zoo_tenant_kv_blocks",
+    "Live KV blocks owned per tenant partition",
+    labels=("tenant",))
+_tenant_slots = gauge(
+    "zoo_tenant_decode_slots",
+    "Decode slots held per tenant right now", labels=("tenant",))
 
 
 class AdmissionError(RuntimeError):
-    """Retryable door rejection: the waiting queue is full."""
+    """Retryable door rejection: the waiting queue is full, or the
+    tenant's admission bucket ran dry. With tenancy on,
+    ``retry_after_ms`` comes from the SHEDDING tenant's own bucket
+    refill; ``reason`` is ``rate`` or ``queue_full``."""
 
-    def __init__(self, msg: str, retry_after_ms: int = 100):
+    def __init__(self, msg: str, retry_after_ms: int = 100,
+                 tenant: str = "", reason: str = "queue_full"):
         super().__init__(msg)
         self.retry_after_ms = retry_after_ms
+        self.tenant = tenant
+        self.reason = reason
 
 
 def stream_seed(rid: str) -> int:
@@ -118,11 +164,15 @@ class GenHandle:
     def __init__(self, rid: str, prompt: np.ndarray, max_new: int,
                  deadline: Optional[Deadline],
                  sampling: Tuple[float, int, float, int] = None,
-                 spec_k: Optional[int] = None):
+                 spec_k: Optional[int] = None, tenant: str = ""):
         self.id = rid
         self.prompt = np.asarray(prompt, np.int32)
         self.max_new = int(max_new)
         self.deadline = deadline
+        # the tenant whose bucket admitted the stream, whose quotas its
+        # slot and blocks count against and whose class orders
+        # preemption ("" = unlabeled)
+        self.tenant = tenant or ""
         # speculative budget: None = the engine's, 0 = no drafts (the
         # stream still rides the verify pass with an empty draft), 1..k
         # a cap
@@ -154,6 +204,12 @@ class GenHandle:
         self.block_hashes: list = []
         self.hashed_len = -1
         self.cache_hit_tokens = 0
+        # disaggregation: hold_handoff parks the stream after prefill
+        # (outcome "handoff") instead of decoding; adopt carries a
+        # staged kv_migrate payload that admission binds instead of
+        # prefilling
+        self.hold_handoff = False
+        self.adopt: Optional[Dict] = None
 
     @property
     def done(self) -> bool:
@@ -249,9 +305,11 @@ class LLMEngine:
     the model's verify width, and any value is clamped to it (0 runs
     plain decode on a speculative model); ``spec_ngram=None`` reads
     ``ZOO_LLM_SPEC_NGRAM``. ``role=None`` reads ``ZOO_LLM_ROLE``: the
-    replica's role in a disaggregated pool, advertised on every reply
-    frame; only ``mixed`` is served until ROADMAP A.5 ports the
-    prefill/decode handoff."""
+    replica's role in a disaggregated pool (``prefill`` parks finished
+    prompts for the handoff, ``decode`` adopts migrated KV, ``mixed``
+    does both), advertised on every reply frame. ``tenancy=None`` takes
+    the process registry (:func:`~zoo_tpu_torch.serving.tenancy.
+    registry`, ``ZOO_TENANT_CONFIG``)."""
 
     def __init__(self, model, mode: str = "continuous",
                  max_waiting: Optional[int] = None,
@@ -259,17 +317,13 @@ class LLMEngine:
                  prefix_cache: Optional[bool] = None,
                  spec_k: Optional[int] = None,
                  spec_ngram: Optional[int] = None,
-                 role: Optional[str] = None):
+                 role: Optional[str] = None,
+                 tenancy=None):
         if mode not in ("continuous", "oneshot"):
             raise ValueError(f"unknown scheduling mode {mode!r}")
         if role is None:
             role = knob_value("ZOO_LLM_ROLE")
-        if role in ("prefill", "decode"):
-            raise ValueError(
-                f"replica role {role!r} needs the prefill/decode KV "
-                "handoff, which the port does not have yet (ROADMAP A.5, "
-                "disaggregation); serve role 'mixed'")
-        if role != "mixed":
+        if role not in ("prefill", "decode", "mixed"):
             raise ValueError(
                 f"unknown replica role {role!r} (expected prefill, "
                 "decode, or mixed)")
@@ -295,6 +349,14 @@ class LLMEngine:
         self.prefix_cache = bool(prefix_cache)
         self.max_waiting = max_waiting if max_waiting is not None else \
             env_int("ZOO_LLM_MAX_WAITING", 256)
+        # the QoS registry every admission and scheduling decision
+        # consults; disabled (no tenant config) it is inert
+        self.tenancy = tenancy if tenancy is not None \
+            else tenant_registry()
+        # served prefill + decode tokens per tenant, the weighted-fair
+        # pick's numerator (guarded-by: _lock)
+        self._tenant_served: Dict[str, int] = {}
+        self._tenant_gauged: set = set()
         self.allocator = BlockAllocator(model.num_blocks, model.block_size,
                                         prefix_cache=self.prefix_cache)
         self._hit_tokens = 0
@@ -324,6 +386,20 @@ class LLMEngine:
         # set when a dispatch or readback failed: the device token chain
         # must be re-seeded from host state before the next dispatch
         self._chain_broken = False
+        # disaggregation (guarded-by: _lock): _handoffs parks prefilled
+        # sequences (blocks still OWNED) until the door pushes and
+        # releases them; _adopted stages incoming kv_migrate payloads
+        # until their generate arrives. Both age out on the migrate TTL,
+        # so a dead peer never pins blocks.
+        self._handoffs: "collections.OrderedDict[str, Dict]" = \
+            collections.OrderedDict()
+        self._adopted: "collections.OrderedDict[str, Dict]" = \
+            collections.OrderedDict()
+        self._handoff_ttl = max(
+            0.05, float(knob_value("ZOO_KV_MIGRATE_TTL_MS")) / 1000.0)
+        self._adopted_cap = 64
+        self._handoffs_out = 0
+        self._handoffs_in = 0
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "LLMEngine":
@@ -349,16 +425,32 @@ class LLMEngine:
         for h in live:
             self.allocator.free(h.id)
             h.finish("cancelled", "engine stopped")
+        # parked handoffs hold blocks with no slot: free them too
+        with self._lock:
+            parked = list(self._handoffs)
+            self._handoffs.clear()
+            self._adopted.clear()
+        for rid in parked:
+            self.allocator.free(rid)
+        self._publish()
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt, max_new_tokens: int, rid: Optional[str] = None,
                deadline: Optional[Deadline] = None,
-               sampling=None, spec_k: Optional[int] = None) -> GenHandle:
+               sampling=None, spec_k: Optional[int] = None,
+               handoff: bool = False, adopt: Optional[Dict] = None,
+               tenant: Optional[str] = None) -> GenHandle:
         """Queue one generation (``sampling`` as :func:`parse_sampling`;
         ``spec_k`` caps this stream's drafts, None = the engine's, 0 =
         none, and never raises the engine's width). Raises
-        :class:`AdmissionError` when the waiting queue is full and
-        ``ValueError`` for a prompt no prefill path can hold."""
+        :class:`AdmissionError` when the waiting queue is full or the
+        tenant's bucket is dry, and ``ValueError`` for a prompt no
+        prefill path can hold.
+
+        ``handoff=True`` prefills only: the stream ends with outcome
+        ``"handoff"`` and its blocks parked for :meth:`take_handoff`.
+        ``adopt`` (from :meth:`pop_adopted`) binds a migrated payload
+        instead of prefilling. ``tenant`` names the stream's tenant."""
         if spec_k is not None and int(spec_k) < 0:
             raise ValueError("spec_k must be >= 0")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -380,18 +472,43 @@ class LLMEngine:
             import uuid
             rid = uuid.uuid4().hex
         params = parse_sampling(sampling, rid)
+        tenant = tenant or ""
         with self._lock:
             prior = self._by_id.get(rid)
             if prior is not None:
-                return prior   # a duplicate id joins the live stream
+                # a duplicate id joins the live stream, never charged to
+                # the tenant's bucket again
+                return prior
+            if self.tenancy.enabled:
+                ok, hint = self.tenancy.admit(tenant)
+                if not ok:
+                    label = tenant or "default"
+                    _tenant_shed.labels(tenant=label, reason="rate").inc()
+                    raise AdmissionError(
+                        f"tenant {label!r} rate limited "
+                        f"(refill in {hint}ms)",
+                        retry_after_ms=hint, tenant=tenant, reason="rate")
             if len(self._wait) >= self.max_waiting:
+                hint = 200
+                if self.tenancy.enabled:
+                    # THIS tenant's refill when it is rate-limited, the
+                    # generic hint for a tenant within its rate
+                    own = self.tenancy.bucket(tenant).retry_after_ms()
+                    hint = own if own > 1 else 200
+                    _tenant_shed.labels(tenant=tenant or "default",
+                                        reason="queue_full").inc()
                 raise AdmissionError(
                     f"llm waiting queue full ({len(self._wait)} streams, "
                     f"bound {self.max_waiting}); retry another replica",
-                    retry_after_ms=200)
+                    retry_after_ms=hint, tenant=tenant)
+            if self.tenancy.enabled:
+                _tenant_admitted.labels(tenant=tenant or "default").inc()
             h = GenHandle(rid, prompt, max_new_tokens, deadline,
                           sampling=params,
-                          spec_k=None if spec_k is None else int(spec_k))
+                          spec_k=None if spec_k is None else int(spec_k),
+                          tenant=tenant)
+            h.hold_handoff = bool(handoff)
+            h.adopt = adopt
             self._by_id[rid] = h
             self._trim_finished_locked()
             self._wait.append(h)
@@ -420,6 +537,26 @@ class LLMEngine:
                 return
 
     # -- scheduler ---------------------------------------------------------
+    def _publish(self):
+        """Republish the per-tenant slot and KV gauges (tenancy on)."""
+        if not self.tenancy.enabled:
+            return
+        with self._lock:
+            slots_by: Dict[str, int] = {}
+            for t, n in self._slots_by_tenant().items():
+                k = t or "default"
+                slots_by[k] = slots_by.get(k, 0) + n
+            kv_by: Dict[str, int] = {}
+            for t, n in self.allocator.used_by_tenant().items():
+                k = t or "default"
+                kv_by[k] = kv_by.get(k, 0) + n
+            live = set(slots_by) | set(kv_by)
+            # tenants gauged before are set to 0, not left stale
+            for t in self._tenant_gauged | live:
+                _tenant_slots.labels(tenant=t).set(slots_by.get(t, 0))
+                _tenant_kv.labels(tenant=t).set(kv_by.get(t, 0))
+            self._tenant_gauged |= live
+
     def _finish_slot(self, slot: _Slot, outcome: str,
                      error: Optional[str] = None):
         h = slot.handle
@@ -434,7 +571,8 @@ class LLMEngine:
 
     def _sweep(self):
         """Free slots whose stream ended out of band (client cancel,
-        deadline expiry)."""
+        deadline expiry), and expire parked handoffs and staged
+        adoptions past the migrate TTL."""
         for slot in self._slots:
             h = slot.handle
             if h is None:
@@ -446,6 +584,61 @@ class LLMEngine:
                     slot, "expired",
                     "deadline expired mid-stream (generation stopped, "
                     f"{h.gen_count} tokens emitted)")
+        now = time.perf_counter()
+        for rid in [r for r, p in self._handoffs.items()
+                    if not p.get("taken")
+                    and now - p["t0"] > self._handoff_ttl]:
+            self._handoffs.pop(rid, None)
+            self.allocator.free(rid)
+        for rid in [r for r, p in self._adopted.items()
+                    if now - p["staged_at"] > self._handoff_ttl]:
+            self._adopted.pop(rid, None)
+
+    def _slots_by_tenant(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for s in self._slots:
+            if s.handle is not None:
+                t = s.handle.tenant
+                out[t] = out.get(t, 0) + 1
+        return out
+
+    def _pop_next_waiter(self) -> Optional[GenHandle]:
+        """Under the lock: the next stream to admit. Tenancy off: FIFO.
+        Tenancy on: among waiters whose tenant has slot and KV headroom,
+        the lowest priority class, then the lowest served tokens /
+        weight, then the oldest (FIFO within a tenant). A tenant over
+        quota is skipped, so its backlog never blocks the queue."""
+        if not self._wait:
+            return None
+        reg = self.tenancy
+        if not reg.enabled:
+            return self._wait.popleft()
+        slots_by = self._slots_by_tenant()
+        kv_by = self.allocator.used_by_tenant()
+        best = None
+        best_key = None
+        for h in self._wait:
+            cfg = reg.config(h.tenant)
+            if h.cancelled.is_set() or self._expired(h):
+                # dead anyway: let admission finish it
+                best = h
+                break
+            if cfg.max_slots and \
+                    slots_by.get(h.tenant, 0) >= cfg.max_slots:
+                continue
+            if cfg.max_kv_blocks:
+                prompt = h.effective_prompt \
+                    if h.effective_prompt is not None else h.prompt
+                need = self.allocator.blocks_for_tokens(len(prompt) + 1)
+                if kv_by.get(h.tenant, 0) + need > cfg.max_kv_blocks:
+                    continue
+            key = (cfg.priority,
+                   self._tenant_served.get(h.tenant, 0) / cfg.weight)
+            if best_key is None or key < best_key:
+                best, best_key = h, key
+        if best is not None:
+            self._wait.remove(best)
+        return best
 
     def _admit(self):
         if self.mode == "oneshot" and any(s.handle is not None
@@ -455,7 +648,7 @@ class LLMEngine:
             if slot.handle is not None:
                 continue
             with self._lock:
-                h = self._wait.popleft() if self._wait else None
+                h = self._pop_next_waiter()
             if h is None:
                 break
             if h.cancelled.is_set():
@@ -473,16 +666,29 @@ class LLMEngine:
                          f"resumed context of {len(prompt)} tokens "
                          "exceeds the whole KV pool")
                 continue
-            # prefix cache: hash the prompt's full blocks and probe for
-            # the longest cached run; the LAST prompt token is always
-            # recomputed (its forward produces the first generated token)
+            if self.tenancy.enabled and h.tenant:
+                # the tenant partition is set BEFORE any block moves
+                self.allocator.set_tenant(h.id, h.tenant)
+            if h.adopt is not None:
+                # a migrated stream binds its adopted table and enters
+                # decode directly, with no prefill work
+                if not self._bind_adopted(slot, h, prompt):
+                    with self._lock:
+                        self._wait.appendleft(h)
+                    break
+                continue
+            # prefix cache: hash the prompt's full blocks (tenant-salted)
+            # and probe for the longest cached run; the LAST prompt token
+            # is always recomputed (its forward produces the first
+            # generated token)
             hashes = []
             if self.prefix_cache:
                 if h.block_hashes and h.hashed_len == len(prompt):
                     hashes = h.block_hashes
                 else:
-                    hashes = prefix_block_hashes(prompt,
-                                                 self.allocator.block_size)
+                    hashes = prefix_block_hashes(
+                        prompt, self.allocator.block_size,
+                        salt=self.tenancy.salt(h.tenant))
                     h.block_hashes = hashes
                     h.hashed_len = len(prompt)
             matched = self.allocator.match_prefix(hashes)
@@ -506,11 +712,61 @@ class LLMEngine:
             self._admit_counter += 1
             h.admit_seq = self._admit_counter
             h.admitted_at = time.perf_counter()
+            self._note_served(h, len(prompt) - h.cache_hit_tokens)
             # admission only BINDS; the device prefill runs in
             # _prefill_tick outside the engine lock
             slot.phase = "prefill"
             slot.prefill_pos = h.cache_hit_tokens
             slot.position = 0
+        if self.tenancy.enabled:
+            self._preempt_for_class()
+        self._publish()
+
+    def _note_served(self, h: GenHandle, n: int):
+        """Charge ``n`` tokens of service to the stream's tenant."""
+        if n > 0 and self.tenancy.enabled:
+            self._tenant_served[h.tenant] = \
+                self._tenant_served.get(h.tenant, 0) + int(n)
+
+    def _preempt_for_class(self):
+        """When every slot is held and an eligible waiter (within its
+        slot quota) is of a strictly higher priority class, preempt the
+        youngest stream of the lowest class below it: a paid tier
+        displaces best-effort streams, never a peer. One victim a pass;
+        the freed slot admits the waiter on the next pass, and the
+        victim resumes by re-prefill."""
+        reg = self.tenancy
+        with self._lock:
+            if not self._wait or \
+                    any(s.handle is None for s in self._slots):
+                return
+            slots_by = self._slots_by_tenant()
+            best_cls = None
+            for h in self._wait:
+                if h.cancelled.is_set() or self._expired(h):
+                    continue
+                cfg = reg.config(h.tenant)
+                if cfg.max_slots and \
+                        slots_by.get(h.tenant, 0) >= cfg.max_slots:
+                    continue
+                if best_cls is None or cfg.priority < best_cls:
+                    best_cls = cfg.priority
+            if best_cls is None:
+                return
+            victim = None
+            victim_key = None
+            for slot in self._slots:
+                hh = slot.handle
+                if hh is None:
+                    continue
+                c = reg.config(hh.tenant).priority
+                if c <= best_cls:
+                    continue   # same or higher priority: never evicted
+                key = (c, hh.admit_seq)
+                if victim_key is None or key > victim_key:
+                    victim, victim_key = slot, key
+            if victim is not None:
+                self._preempt(victim, reason="class")
 
     def _bind_blocks(self, slot: _Slot, h: GenHandle, prompt: np.ndarray,
                      hashes: list) -> bool:
@@ -542,7 +798,11 @@ class LLMEngine:
     def _enter_decode(self, slot: _Slot, h: GenHandle, first: int,
                       prompt_len: int):
         """Prompt fully prefilled: publish its blocks to the prefix
-        cache, push the first token and arm the decode chain."""
+        cache, push the first token and arm the decode chain (or park
+        the stream for its handoff)."""
+        if h.hold_handoff:
+            self._park_handoff(slot, h, first, prompt_len)
+            return
         self.allocator.register_blocks(h.id, h.block_hashes)
         slot.phase = "decode"
         slot.position = prompt_len
@@ -553,9 +813,137 @@ class LLMEngine:
         h.gen_count += 1
         h.sched_count += 1
         self._generated += 1
+        self._note_served(h, 1)
         eos = getattr(self.model, "eos_id", None)
         if h.gen_count >= h.max_new or (eos is not None and first == eos):
             self._finish_slot(slot, "ok")
+
+    # -- disaggregated handoff ---------------------------------------------
+    def _park_handoff(self, slot: _Slot, h: GenHandle, first: int,
+                      prompt_len: int):
+        """A handoff stream finished its prefill: publish the prefix
+        locally, park the migration payload with the blocks still OWNED,
+        free the slot and end the stream with outcome ``"handoff"``. The
+        door then pushes the payload and calls :meth:`release_handoff`.
+        Under the lock."""
+        self.allocator.register_blocks(h.id, h.block_hashes)
+        prompt = h.effective_prompt if h.effective_prompt is not None \
+            else h.prompt
+        self._handoffs[h.id] = {
+            "rid": h.id,
+            "prompt": [int(t) for t in prompt],
+            "first": int(first),
+            "sampling": list(h.sampling),
+            "hashes": list(h.block_hashes),
+            "blocks": self.allocator.blocks_of(h.id),
+            "block_size": self.allocator.block_size,
+            "aux": self.allocator.get_aux(h.id),
+            "max_new": h.max_new,
+            "tenant": h.tenant,
+            "t0": time.perf_counter(),
+        }
+        slot.handle = None
+        slot.epoch += 1
+        slot.spec_inflight = False
+        self._handoffs_out += 1
+        h.finish("handoff")
+        self._publish()
+
+    def take_handoff(self, rid: str) -> Optional[Dict]:
+        """The parked payload for ``rid``, marked in-push so the TTL
+        sweep leaves its blocks alone until :meth:`release_handoff`;
+        None when nothing is parked (expired, already released)."""
+        with self._lock:
+            payload = self._handoffs.get(rid)
+            if payload is not None:
+                payload["taken"] = True
+            return payload
+
+    def release_handoff(self, rid: str) -> bool:
+        """Free a parked handoff's blocks (pushed, or the push failed
+        and the client re-prefills elsewhere)."""
+        with self._lock:
+            payload = self._handoffs.pop(rid, None)
+        if payload is None:
+            return False
+        self.allocator.free(rid)
+        return True
+
+    def offer_adopted(self, payload: Dict) -> bool:
+        """Stage an incoming kv_migrate payload until its generate
+        arrives (bounded LRU; ages out on the migrate TTL). The
+        allocator is not touched here. Refused (False) on a block size
+        mismatch, or when this model holds KV state and the payload
+        carries none."""
+        if int(payload.get("block_size") or 0) != \
+                self.allocator.block_size:
+            return False
+        if hasattr(self.model, "import_kv_blocks") and \
+                payload.get("kv") is None:
+            return False
+        payload = dict(payload)
+        payload["staged_at"] = time.perf_counter()
+        with self._lock:
+            self._adopted[str(payload["rid"])] = payload
+            while len(self._adopted) > self._adopted_cap:
+                self._adopted.popitem(last=False)
+        return True
+
+    def pop_adopted(self, rid: str) -> Optional[Dict]:
+        """Claim the staged payload for ``rid`` (None = never staged or
+        aged out: the caller submits a plain re-prefill, which yields
+        the same stream)."""
+        with self._lock:
+            payload = self._adopted.pop(rid, None)
+        if payload is None:
+            return None
+        if time.perf_counter() - payload["staged_at"] > self._handoff_ttl:
+            return None
+        return payload
+
+    def _bind_adopted(self, slot: _Slot, h: GenHandle,
+                      prompt: np.ndarray) -> bool:
+        """Admission of a migrated stream: bind the adopted table
+        (aliasing a locally matchable prefix), import the wire KV rows
+        into the fresh blocks and enter decode with the prefill seat's
+        first token, with no prefill call. False when the pool cannot
+        fund the table yet (requeue). Under the lock."""
+        payload = h.adopt
+        hashes = [bytes(x) for x in payload.get("hashes") or ()]
+        n_blocks = self.allocator.blocks_for_tokens(len(prompt) + 1)
+        got = self.allocator.adopt_blocks(h.id, hashes, n_blocks)
+        if got is None:
+            return False
+        table, n_reused = got
+        h.adopt = None
+        h.block_hashes = hashes
+        h.hashed_len = len(prompt)
+        kv = payload.get("kv")
+        fn = getattr(self.model, "import_kv_blocks", None)
+        if kv is not None and fn is not None:
+            # fresh rows only: aliased prefix blocks already hold the
+            # same K/V (the hash-match guarantee). The payload holds the
+            # prompt's blocks; a prompt that ends on a block boundary
+            # has one more row in this table, its empty decode frontier
+            n_kv = min(len(table), int(next(iter(kv.values())).shape[1]))
+            fn(table[n_reused:n_kv], kv, start=n_reused)
+        bs = self.allocator.block_size
+        local_hit = min(n_reused * bs, len(prompt) - 1)
+        h.cache_hit_tokens = local_hit
+        if self.prefix_cache and local_hit:
+            self._hit_tokens += local_hit
+        self.allocator.set_aux(h.id, seed=h.sampling[3],
+                               resumed_at=len(prompt))
+        slot.handle = h
+        slot.epoch += 1
+        slot.spec_inflight = False
+        slot.pending_copy = None
+        self._admit_counter += 1
+        h.admit_seq = self._admit_counter
+        h.admitted_at = time.perf_counter()
+        self._handoffs_in += 1
+        self._enter_decode(slot, h, int(payload["first"]), len(prompt))
+        return True
 
     def _select_prefill(self) -> List[tuple]:
         """Under the lock: claim this tick's prefill work (whole prompts,
@@ -632,6 +1020,7 @@ class LLMEngine:
                 continue
             if start + take >= n:
                 self._enter_decode(slot, h, tok, n)
+        self._publish()
 
     def _prefill_tick(self):
         with self._lock:
@@ -670,6 +1059,14 @@ class LLMEngine:
                     continue
                 victim = self._pick_victim(exclude=h)
                 if victim is None:
+                    if self.tenancy.enabled and any(
+                            s.handle is not None and s.handle is not h
+                            for s in self._slots):
+                        # every other live stream outranks h: requeue h
+                        # itself (it resumes by re-prefill) rather than
+                        # evict a higher class's KV or fail h
+                        self._preempt(slot)
+                        break
                     self._finish_slot(
                         slot, "error",
                         "kv cache exhausted: sequence cannot grow and no "
@@ -678,16 +1075,28 @@ class LLMEngine:
                 self._preempt(victim)
 
     def _pick_victim(self, exclude: GenHandle) -> Optional[_Slot]:
-        """The youngest-admitted other stream."""
+        """The stream to evict when ``exclude`` needs a block: the
+        youngest-admitted other stream, within the lowest priority class
+        and never of a class that outranks ``exclude``'s (tenancy on)."""
+        reg = self.tenancy
+        ex_cls = reg.config(exclude.tenant).priority if reg.enabled else 0
         best = None
+        best_key = None
         for slot in self._slots:
             if slot.handle is None or slot.handle is exclude:
                 continue
-            if best is None or slot.handle.admit_seq > best.handle.admit_seq:
-                best = slot
+            if reg.enabled:
+                c = reg.config(slot.handle.tenant).priority
+                if c < ex_cls:
+                    continue   # outranks the grower: never its victim
+                key = (c, slot.handle.admit_seq)
+            else:
+                key = (0, slot.handle.admit_seq)
+            if best_key is None or key > best_key:
+                best, best_key = slot, key
         return best
 
-    def _preempt(self, slot: _Slot):
+    def _preempt(self, slot: _Slot, reason: str = "kv"):
         """Evict a running stream: free its blocks and requeue it with
         prompt := prompt + everything applied so far. Decode is a pure
         function of (seed, token index), so the resumed continuation is
@@ -706,6 +1115,9 @@ class LLMEngine:
         slot.epoch += 1
         slot.spec_inflight = False
         self.allocator.free(h.id)
+        if self.tenancy.enabled:
+            _tenant_preempted.labels(tenant=h.tenant or "default",
+                                     reason=reason).inc()
         with self._lock:
             self._wait.appendleft(h)
 
@@ -777,6 +1189,7 @@ class LLMEngine:
             h.push(tok)
             h.gen_count += 1
             self._generated += 1
+            self._note_served(h, 1)
             if h.gen_count >= h.max_new or (eos is not None and tok == eos):
                 self._finish_slot(slot, "ok")
 
@@ -888,6 +1301,7 @@ class LLMEngine:
                 h.gen_count += 1
                 h.sched_count = h.gen_count
                 self._generated += 1
+                self._note_served(h, 1)
                 if h.gen_count >= h.max_new or (eos is not None and
                                                 tok == eos):
                     self._finish_slot(slot, "ok")
@@ -1072,7 +1486,27 @@ class LLMEngine:
                    if self._spec_proposed_n else 0.0),
                "spec_draft_hit_rate": (
                    self._spec_drafted_lanes / self._spec_lanes
-                   if self._spec_lanes else 0.0)}
+                   if self._spec_lanes else 0.0),
+               "handoffs_out": self._handoffs_out,
+               "handoffs_in": self._handoffs_in,
+               "parked_handoffs": len(self._handoffs),
+               "qos": self.tenancy.enabled}
+        if self.tenancy.enabled:
+            with self._lock:
+                slots_by = self._slots_by_tenant()
+                kv_by = self.allocator.used_by_tenant()
+                waiting_by: Dict[str, int] = {}
+                for w in self._wait:
+                    waiting_by[w.tenant] = waiting_by.get(w.tenant, 0) + 1
+                names = set(slots_by) | set(kv_by) | set(waiting_by) \
+                    | set(self._tenant_served)
+                out["tenants"] = {
+                    (t or "default"): {
+                        "slots": slots_by.get(t, 0),
+                        "kv_blocks": kv_by.get(t, 0),
+                        "waiting": waiting_by.get(t, 0),
+                        "served_tokens": self._tenant_served.get(t, 0),
+                    } for t in sorted(names)}
         out.update(self.allocator.stats())
         if hasattr(m, "compile_counts"):
             out["compiles"] = m.compile_counts()

@@ -1,7 +1,6 @@
 """Paged KV-cache block allocator with content-hash prefix sharing and
-copy-on-write (counterpart of ``zoo_tpu/serving/llm/kv_cache.py``,
-without its tenant partitions, metric gauges and migration adoption,
-which later slices of the port bring).
+copy-on-write, tenant partitions and migration adoption (counterpart of
+``zoo_tpu/serving/llm/kv_cache.py``, without its pool gauges).
 
 KV memory is a pool of fixed-size token blocks handed out from a free
 list: a sequence owns ``ceil(tokens / block_size)`` blocks listed in its
@@ -14,6 +13,16 @@ refcount, a block reaching refcount 0 with a registered hash parks on a
 cached-free LRU (still matchable, reclaimed lazily), eviction never
 touches a referenced block, and a sequence about to write into a shared
 block forks it first (:meth:`BlockAllocator.make_writable`).
+
+With tenancy on, hashes are salted per tenant, freed cached blocks park
+in their tenant's partition, and eviction reclaims the requester's own
+partition first, then the shared ``""`` one, and another tenant's only
+as a last resort (counted). Untagged, eviction is the one global LRU.
+
+:meth:`BlockAllocator.adopt_blocks` binds a sequence whose KV another
+replica prefilled and streamed over ``kv_migrate``: the locally
+matchable leading blocks are aliased, the rest taken fresh and
+registered under the incoming hashes.
 
 Block 0 is reserved as the trash block: inactive decode slots point
 their table at it, so a fixed-shape tick always has a legal write
@@ -29,16 +38,31 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from zoo_tpu_torch.obs.metrics import counter
+
+_migrated_blocks = counter(
+    "zoo_llm_kv_migrated_blocks_total",
+    "KV blocks adopted from another replica's prefill via kv_migrate "
+    "(fresh blocks materialized for wire payloads; locally-matched "
+    "prefix blocks are counted as prefix-cache hits instead)")
+_cross_evictions = counter(
+    "zoo_tenant_kv_cross_evictions_total",
+    "Cached-free blocks evicted ACROSS tenant partitions (last-resort "
+    "reclaim when the requester's own and the shared partitions are "
+    "both empty)", labels=("tenant",))
+
 
 def prefix_block_hashes(tokens: Sequence[int],
-                        block_size: int) -> List[bytes]:
+                        block_size: int,
+                        salt: bytes = b"") -> List[bytes]:
     """Rolling content hash per FULL block of ``tokens``: block ``i``'s
     key digests (key of block ``i-1``, the block's token ids), so equal
     keys imply the whole prefix through block ``i`` is identical.
-    Partial trailing tokens produce no hash. Same chain as the JAX
-    package's for unsalted traffic."""
+    Partial trailing tokens produce no hash. ``salt`` folds a namespace
+    (the tenant) into the chain seed; the empty salt is the unlabeled
+    chain. Same bytes as the JAX package's chain."""
     out: List[bytes] = []
-    prev = b"zoo-kv-prefix-v1"
+    prev = b"zoo-kv-prefix-v1" + salt
     n_full = len(tokens) // block_size
     if not n_full:
         return out
@@ -76,6 +100,10 @@ class BlockAllocator:
         self._by_hash: Dict[bytes, int] = {}
         # refcount-0 cached blocks, LRU first
         self._cached: "OrderedDict[int, None]" = OrderedDict()
+        # tenant partitions: a parked block's owner tenant, and each
+        # sequence's tenant (empty everywhere when tenancy is off)
+        self._part_of: Dict[int, str] = {}
+        self._tenant_of: Dict[str, str] = {}
         # per-SEQUENCE replay state (the sampling seed), never per block
         self._aux: Dict[str, Dict] = {}
 
@@ -110,6 +138,27 @@ class BlockAllocator:
     def blocks_for_tokens(self, n_tokens: int) -> int:
         return max(1, -(-int(n_tokens) // self.block_size))
 
+    def set_tenant(self, seq_id: str, tenant: str):
+        """Tag ``seq_id`` with its tenant partition BEFORE it acquires
+        blocks: its freed cached blocks park in that partition and its
+        allocations evict from it first. Untagged sequences live in the
+        shared ``""`` partition."""
+        with self._lock:
+            if tenant:
+                self._tenant_of[seq_id] = str(tenant)
+            else:
+                self._tenant_of.pop(seq_id, None)
+
+    def used_by_tenant(self) -> Dict[str, int]:
+        """Physical blocks owned per tenant partition (a block shared by
+        two of a tenant's sequences counts once)."""
+        with self._lock:
+            seen: Dict[str, set] = {}
+            for seq, blocks in self._owners.items():
+                t = self._tenant_of.get(seq, "")
+                seen.setdefault(t, set()).update(blocks)
+            return {t: len(s) for t, s in seen.items()}
+
     def set_aux(self, seq_id: str, **aux):
         with self._lock:
             self._aux.setdefault(seq_id, {}).update(aux)
@@ -134,20 +183,41 @@ class BlockAllocator:
             evictable = max(0, len(self._cached) - int(cached_blocks))
             return len(self._free) + evictable >= need
 
-    def _evict_one(self):
-        """Under the lock: reclaim the LRU cached-free block."""
-        blk, _ = self._cached.popitem(last=False)
+    def _evict_one(self, tenant: str = ""):
+        """Under the lock: reclaim one cached-free block. A tagged
+        requester takes the LRU block of its OWN partition, then of the
+        shared ``""`` one, and only when both are empty the global LRU
+        head (a counted cross-tenant eviction); an untagged requester
+        takes the global LRU head."""
+        blk = None
+        if tenant:
+            for b in self._cached:                  # LRU -> MRU order
+                if self._part_of.get(b, "") == tenant:
+                    blk = b
+                    break
+            if blk is None:
+                for b in self._cached:
+                    if not self._part_of.get(b, ""):
+                        blk = b
+                        break
+            if blk is None:
+                blk = next(iter(self._cached))      # cross-tenant
+                _cross_evictions.labels(tenant=tenant).inc()
+            self._cached.pop(blk)
+        else:
+            blk, _ = self._cached.popitem(last=False)
+        self._part_of.pop(blk, None)
         h = self._hash_of.pop(blk, None)
         if h is not None:
             self._by_hash.pop(h, None)
         self._free.append(blk)
 
-    def _take_free(self, n: int) -> Optional[List[int]]:
+    def _take_free(self, n: int, tenant: str = "") -> Optional[List[int]]:
         """Under the lock: pop ``n`` blocks, evicting cached-free blocks
-        when the free list runs short. Referenced blocks are never
-        evicted."""
+        (``tenant``'s partition first) when the free list runs short.
+        Referenced blocks are never evicted."""
         while len(self._free) < n and self._cached:
-            self._evict_one()
+            self._evict_one(tenant)
         if len(self._free) < n:
             return None
         return [self._free.pop() for _ in range(n)]
@@ -158,7 +228,8 @@ class BlockAllocator:
         if n_blocks <= 0:
             raise ValueError("n_blocks must be positive")
         with self._lock:
-            got = self._take_free(n_blocks)
+            got = self._take_free(n_blocks,
+                                  self._tenant_of.get(seq_id, ""))
             if got is None:
                 return None
             for b in got:
@@ -178,8 +249,9 @@ class BlockAllocator:
             if blocks is None:
                 return 0
             want = self.blocks_for_tokens(n_tokens)
+            tenant = self._tenant_of.get(seq_id, "")
             while len(blocks) < want:
-                got = self._take_free(1)
+                got = self._take_free(1, tenant)
                 if got is None:
                     break
                 self._ref[got[0]] = 1
@@ -217,6 +289,7 @@ class BlockAllocator:
                     break
                 self._ref[blk] = self._ref.get(blk, 0) + 1
                 self._cached.pop(blk, None)
+                self._part_of.pop(blk, None)
                 got.append(blk)
             if got:
                 self._owners.setdefault(seq_id, []).extend(got)
@@ -240,6 +313,78 @@ class BlockAllocator:
                 self._hash_of[blk] = h
                 self._by_hash[h] = blk
 
+    def adopt_blocks(self, seq_id: str, hashes: Sequence[bytes],
+                     n_blocks: int) -> Optional[Tuple[List[int], int]]:
+        """Bind a migrated sequence: another replica prefilled
+        ``seq_id`` and streamed its KV over ``kv_migrate``; hold an
+        ``n_blocks``-long table for it. Leading ``hashes`` matchable
+        HERE are aliased as :meth:`acquire_prefix` aliases them (their
+        wire bytes are redundant); the rest comes fresh off the free
+        list and is registered under the incoming hashes, so the next
+        local prompt sharing the prefix hits it.
+
+        Returns ``(block_table, n_reused)`` — the caller copies wire
+        bytes into ``block_table[n_reused:]`` only — or None, with the
+        aliases rolled back, when the pool cannot fund the remainder.
+        The LAST block is never aliased, even on a full match: it is
+        the sequence's private decode write frontier."""
+        if n_blocks <= 0:
+            raise ValueError("n_blocks must be positive")
+        with self._lock:
+            if self._owners.get(seq_id):
+                raise ValueError(
+                    f"adopt_blocks must run before {seq_id!r} owns "
+                    "blocks (the adopted table is rows 0..n)")
+            tenant = self._tenant_of.get(seq_id, "")
+            reused: List[int] = []
+            if self.prefix_cache:
+                for h in hashes[:n_blocks - 1]:
+                    blk = self._by_hash.get(h)
+                    if blk is None:
+                        break
+                    # referenced BEFORE the fresh remainder is funded,
+                    # so its eviction cannot take this block
+                    self._ref[blk] = self._ref.get(blk, 0) + 1
+                    self._cached.pop(blk, None)
+                    self._part_of.pop(blk, None)
+                    reused.append(blk)
+            fresh = self._take_free(n_blocks - len(reused), tenant)
+            if fresh is None:
+                # roll the aliases back exactly as free() would
+                for b in reversed(reused):
+                    r = self._ref.get(b, 1) - 1
+                    if r > 0:
+                        self._ref[b] = r
+                        continue
+                    self._ref.pop(b, None)
+                    if b in self._hash_of:
+                        self._cached[b] = None
+                        self._cached.move_to_end(b)   # MRU end
+                        if tenant:
+                            self._part_of[b] = tenant
+                    else:
+                        self._free.append(b)
+                return None
+            for b in fresh:
+                self._ref[b] = 1
+            table = reused + fresh
+            self._owners[seq_id] = list(table)
+            if self.prefix_cache:
+                # publish the incoming hashes over the fresh rows, first
+                # writer wins (register_blocks' rule)
+                for i, h in enumerate(hashes):
+                    if i >= len(table):
+                        break
+                    if h in self._by_hash:
+                        continue
+                    blk = table[i]
+                    if blk in self._hash_of:
+                        continue
+                    self._hash_of[blk] = h
+                    self._by_hash[h] = blk
+            _migrated_blocks.inc(len(fresh))
+            return table, len(reused)
+
     def make_writable(self, seq_id: str,
                       index: int) -> Optional[Tuple[int, int]]:
         """Copy-on-write gate before writing table row ``index``: a
@@ -254,7 +399,7 @@ class BlockAllocator:
             src = blocks[index]
             if self._ref.get(src, 1) <= 1:
                 return None
-            got = self._take_free(1)
+            got = self._take_free(1, self._tenant_of.get(seq_id, ""))
             if got is None:
                 raise MemoryError(
                     "copy-on-write fork needs a free block and the "
@@ -268,10 +413,12 @@ class BlockAllocator:
     def free(self, seq_id: str) -> int:
         """Release every block of ``seq_id``: refcounts drop by one; a
         block at 0 returns to the free list, or parks on the cached-free
-        LRU when its hash is registered. Idempotent."""
+        LRU (in its tenant's partition) when its hash is registered.
+        Idempotent."""
         with self._lock:
             blocks = self._owners.pop(seq_id, None)
             self._aux.pop(seq_id, None)
+            tenant = self._tenant_of.pop(seq_id, "")
             if not blocks:
                 return 0
             for b in reversed(blocks):
@@ -283,6 +430,8 @@ class BlockAllocator:
                 if b in self._hash_of:
                     self._cached[b] = None
                     self._cached.move_to_end(b)   # MRU end
+                    if tenant:
+                        self._part_of[b] = tenant
                 else:
                     self._free.append(b)
             return len(blocks)

@@ -8,7 +8,8 @@
   ``overlap=0/1``, ``prefix_cache=0/1``, ``kv=f32|bf16|int8``,
   ``prefill_impl=``, and ``spec_k=N`` / ``spec_ngram=N`` for
   speculative decoding: ``spec_k`` is a model shape, the verify pass's
-  width, ``spec_ngram`` the engine's drafter policy);
+  width, ``spec_ngram`` the engine's drafter policy; ``role=prefill|``
+  ``decode|mixed``, the engine's disaggregation role);
 * ``llama:vocab=128256,hidden=4096,n_block=32,n_head=32,n_kv_head=8,``
   ``intermediate=14336`` — explicit architecture (``rope_theta`` keeps
   the :class:`LlamaConfig` default, 500000).
@@ -32,7 +33,8 @@ _ENGINE_KEYS = {"slots": "num_slots", "block": "block_size",
                 "seed": "seed", "eos": "eos_id", "chunk": "prefill_chunk",
                 "overlap": "overlap", "prefix_cache": "prefix_cache",
                 "spec_k": "spec_k", "spec_ngram": "spec_ngram"}
-_STR_KEYS = {"kv": "kv_dtype", "prefill_impl": "prefill_impl"}
+_STR_KEYS = {"kv": "kv_dtype", "prefill_impl": "prefill_impl",
+             "role": "role"}
 
 
 def is_llm_spec(spec) -> bool:
@@ -134,10 +136,15 @@ def build_llm_engine(spec: str, mode: Optional[str] = None,
     # spec_k stays in `merged` (the model's verify width); spec_ngram is
     # the engine's drafter policy
     spec_ngram = merged.pop("spec_ngram", None)
+    # role and tenancy are scheduler policy: spec `role=` (or a
+    # `role=`/`tenancy=` override) < ZOO_LLM_ROLE / ZOO_TENANT_CONFIG,
+    # which the engine reads when none is given
+    role = merged.pop("role", None)
+    tenancy = merged.pop("tenancy", None)
     model = PagedLlamaModel(LlamaConfig(**cfg_kwargs), device=device,
                             **merged)
     engine = LLMEngine(model, mode=mode or knob_value("ZOO_LLM_MODE"),
                        max_waiting=overrides.get("max_waiting"),
                        overlap=overlap, prefix_cache=prefix_cache,
-                       spec_ngram=spec_ngram)
+                       spec_ngram=spec_ngram, role=role, tenancy=tenancy)
     return engine.start() if start else engine

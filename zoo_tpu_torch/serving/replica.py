@@ -10,6 +10,10 @@ up on the currently aliased version; a ``llama:`` spec mounts the
 streaming engine, any other spec the predict door
 (:func:`zoo_tpu_torch.serving.ha.load_serving_model`), and ``a+b``
 mounts both when every fragment is a ``synthetic:`` or ``llama:`` spec.
+The engine's disaggregation role comes from the spec's ``role=`` or
+``ZOO_LLM_ROLE`` (which :class:`~zoo_tpu_torch.serving.ha.ReplicaGroup`
+sets per seat), its tenants from ``ZOO_TENANT_CONFIG``; the door reads
+the same tenant registry.
 It then starts a :class:`ServingServer` behind a circuit breaker, the
 ``/metrics`` + ``/healthz`` exporter on ``--metrics-port`` (-1
 disables), the heartbeat thread the supervisor watches and a SIGTERM

@@ -21,15 +21,21 @@ What the door serves:
 * ``generate`` (a stream of frames from a mounted
   :class:`~zoo_tpu_torch.serving.llm.engine.LLMEngine`), ``ping``,
   ``version``, ``stats`` (the stage timers) and ``llm_stats``;
+* tenant admission (``tenancy``, ``ZOO_TENANT_CONFIG``): a request is
+  charged to its tenant's token bucket before it reaches the queue, and
+  a shed carries that bucket's own refill hint;
+* disaggregation: a ``handoff: [host, port]`` generate prefills here,
+  parks the KV and pushes it to the decode seat as ``kv_migrate``
+  begin/block/commit frames before its terminal ``handoff`` frame; the
+  decode seat stages the payload per connection and binds it when the
+  matching generate arrives; a ``role=prefill`` seat sheds plain
+  generates;
 
 with TLS, the graceful drain and the ``_reply`` echo of id, trace,
 tenant, version and role. What waits, and answers with an error that
-names its ROADMAP item instead of a silent ``ok``:
-
-* tenant admission (``tenancy``, ``ZOO_TENANT_CONFIG``) — A.4;
-* ``kv_migrate`` and a ``handoff`` generate — disaggregation (A.5);
-* ``debug_dump``, the wire ``chaos`` op and the request spans — the
-  flight recorder, the chaos harness and tracing (A.6).
+names its ROADMAP item instead of a silent ``ok``: ``debug_dump``, the
+wire ``chaos`` op and the request spans — the flight recorder, the
+chaos harness and tracing (A.6).
 
 The server binds loopback by default; pass ``host="0.0.0.0"`` only on a
 trusted network — there is no authentication on this door.
@@ -50,6 +56,7 @@ import numpy as np
 
 from zoo_tpu_torch.common.knobs import value as knob_value
 from zoo_tpu_torch.obs.metrics import StatTimer, counter, gauge, histogram
+from zoo_tpu_torch.serving.tenancy import registry as tenant_registry
 from zoo_tpu_torch.util.integrity import (
     corrupt_seam,
     frame_crc,
@@ -102,12 +109,31 @@ _drain_seconds = histogram(
     "zoo_serve_drain_seconds",
     "Graceful-drain wall time (raise the ZOO_SERVE_DRAIN_TIMEOUT_S "
     "budget when this nears it)")
+# the predict door's per-tenant admission tallies (the same families
+# the engine keeps for generate; the registry dedupes)
+_tenant_admitted = counter(
+    "zoo_tenant_admitted_total",
+    "Requests admitted past the tenant token bucket, per tenant",
+    labels=("tenant",))
+_tenant_shed = counter(
+    "zoo_tenant_shed_total",
+    "Requests shed per tenant and reason (rate = the tenant's own "
+    "token bucket ran dry, queue_full = the shared waiting queue was "
+    "at bound, slots/kv = per-tenant quota)", labels=("tenant", "reason"))
+# what the prefill seat pays to push a parked sequence's KV
+_migrated_bytes = counter(
+    "zoo_llm_kv_migrated_bytes_total",
+    "KV cache bytes pushed to decode replicas over kv_migrate (int8 "
+    "rows + scale planes; 0 for stateless-decodable models)")
+_handoff_seconds = histogram(
+    "zoo_llm_handoff_seconds",
+    "Prefill-side kv_migrate push wall time (export + begin/block/"
+    "commit round trip), successful pushes only",
+    buckets=(.001, .005, .01, .025, .05, .1, .25, .5, 1, 2.5, 5))
 
 # what the port's door does not serve yet, and the ROADMAP item that
-# brings each one
-HANDOFF_ITEM = "ROADMAP A.5 (disaggregation)"
+# brings it
 OBS_ITEM = "ROADMAP A.6 (observability)"
-TENANCY_ITEM = "ROADMAP A.4 (tenancy)"
 
 
 def drain_timeout() -> float:
@@ -242,8 +268,10 @@ class ServingServer:
     The JAX package's signature. ``num_replicas`` batcher threads drain
     one shared request queue; ``models=[...]`` gives each its own model
     copy, else they share ``model`` (bounded by its
-    ``supported_concurrent_num``). ``tenancy`` (and
-    ``ZOO_TENANT_CONFIG``) wait for ROADMAP A.4 and raise.
+    ``supported_concurrent_num``). ``tenancy``: the
+    :class:`~zoo_tpu_torch.serving.tenancy.TenantRegistry` of the
+    predict door's tenant admission (default: the process registry,
+    ``ZOO_TENANT_CONFIG``; inert without a config).
 
     ``certfile``/``keyfile``: serve over TLS. ``breaker``: optional
     :class:`CircuitBreaker` — after its failure threshold trips,
@@ -277,10 +305,6 @@ class ServingServer:
                  model_spec: Optional[str] = None,
                  model_loader=None,
                  tenancy=None):
-        if tenancy is not None or knob_value("ZOO_TENANT_CONFIG"):
-            raise NotImplementedError(
-                f"tenant admission waits for {TENANCY_ITEM}; unset "
-                "ZOO_TENANT_CONFIG")
         if model is None and llm_engine is None:
             raise ValueError("ServingServer needs a model, an "
                              "llm_engine, or both")
@@ -290,6 +314,8 @@ class ServingServer:
         # client learns the pool topology passively; predict-only
         # replicas have none
         self.role = getattr(llm_engine, "role", None)
+        self.tenancy = tenancy if tenancy is not None \
+            else tenant_registry()
         self.version = version
         self.model_spec = model_spec
         self.model_loader = model_loader
@@ -369,6 +395,9 @@ class ServingServer:
                     self.request.settimeout(None)
                 with outer._conns_lock:
                     outer._conns.add(self.request)
+                # kv_migrate staging, PER CONNECTION: begin/block frames
+                # collect here until the commit hands the payload over
+                self._migrate: Dict[str, Dict] = {}
 
             def finish(self):
                 with outer._conns_lock:
@@ -506,7 +535,28 @@ class ServingServer:
                         "error": "deadline expired before admission "
                                  "(budget exhausted upstream)"})
                     return
-                # 5. admission control: early rejection at the bounded
+                # 5. tenant admission: charge the request to ITS
+                # tenant's bucket before it can touch the shared queue;
+                # the hint is that bucket's own refill time
+                tenant = msg.get("tenant") or ""
+                if outer.tenancy.enabled:
+                    ok, t_hint = outer.tenancy.admit(tenant)
+                    if not ok:
+                        label = tenant or "default"
+                        _requests.labels(outcome="shed").inc()
+                        _shed.labels(reason="tenant_rate").inc()
+                        _tenant_shed.labels(tenant=label,
+                                            reason="rate").inc()
+                        self._reply(msg, {
+                            "shed": True, "retryable": True,
+                            "retry_after_ms": t_hint,
+                            "reason": "rate",
+                            "error": f"tenant {label!r} rate limited; "
+                                     f"retry after ~{t_hint}ms"})
+                        return
+                    _tenant_admitted.labels(
+                        tenant=tenant or "default").inc()
+                # 6. admission control: early rejection at the bounded
                 # queue, with a retry-after hint sized to the backlog
                 depth = outer._queue.qsize()
                 if outer.max_queue and depth >= outer.max_queue:
@@ -514,6 +564,15 @@ class ServingServer:
                     _shed.labels(reason="queue_full").inc()
                     hint = int(outer.max_wait_ms * max(
                         1, depth // max(1, outer.batch_size)))
+                    if outer.tenancy.enabled:
+                        # a rate-limited tenant waits out its OWN refill
+                        # when that is the longer bound
+                        own = outer.tenancy.bucket(
+                            tenant).retry_after_ms()
+                        hint = max(hint, own)
+                        _tenant_shed.labels(
+                            tenant=tenant or "default",
+                            reason="queue_full").inc()
                     self._reply(msg, {
                         "shed": True, "retryable": True,
                         "retry_after_ms": hint,
@@ -590,15 +649,34 @@ class ServingServer:
                         "expired": True,
                         "error": "deadline expired before admission"})
                     return
-                if msg.get("handoff"):
-                    _requests.labels(outcome="error").inc()
+                # disaggregation: ``handoff: [host, port]`` asks THIS
+                # seat to prefill only and push the KV to the decode
+                # target; a prefill seat sheds everything else retryable
+                handoff = msg.get("handoff")
+                if eng.role == "prefill" and not handoff:
+                    _requests.labels(outcome="shed").inc()
+                    _shed.labels(reason="role").inc()
                     self._reply(msg, {
-                        "done": True, "outcome": "error",
-                        "error": "a handoff generate (prefill here, "
-                                 "decode on another seat) waits for "
-                                 f"{HANDOFF_ITEM} in the port"})
+                        "shed": True, "retryable": True,
+                        "error": "role=prefill replica serves handoff "
+                                 "generates only; retry a decode/mixed "
+                                 "replica"})
                     return
+                if handoff and eng.role == "decode":
+                    # a decode seat never prefills for export: serve the
+                    # request as a plain local generate
+                    handoff = None
                 from zoo_tpu_torch.serving.llm.engine import AdmissionError
+                # adoption: a payload staged under this rid means the
+                # prompt is prefilled already; a prompt mismatch (an id
+                # collision) discards it, and the plain re-prefill gives
+                # the same stream
+                adopt = None
+                if rid is not None:
+                    adopt = eng.pop_adopted(rid)
+                    if adopt is not None and adopt.get("prompt") != \
+                            [int(t) for t in msg["prompt"]]:
+                        adopt = None
                 # per-stream sampling params ride the wire; a missing
                 # seed derives from the request id server-side, so a
                 # failover resume (same rid, another replica) replays
@@ -613,14 +691,23 @@ class ServingServer:
                         int(msg.get("max_new_tokens", 16)),
                         rid=rid, deadline=deadline,
                         sampling=sampling or None,
-                        spec_k=None if spec_k is None else int(spec_k))
+                        spec_k=None if spec_k is None else int(spec_k),
+                        handoff=bool(handoff), adopt=adopt,
+                        tenant=msg.get("tenant"))
                 except AdmissionError as e:
+                    # the engine computed the hint from the SHEDDING
+                    # tenant's own bucket and names the quota that
+                    # tripped: relay both, so the client backs off per
+                    # tenant
+                    reason = getattr(e, "reason", "queue_full")
+                    door = "tenant_rate" if reason == "rate" \
+                        else "queue_full"
                     _requests.labels(outcome="shed").inc()
-                    _shed.labels(reason="queue_full").inc()
+                    _shed.labels(reason=door).inc()
                     self._reply(msg, {
                         "shed": True, "retryable": True,
                         "retry_after_ms": e.retry_after_ms,
-                        "reason": "queue_full",
+                        "reason": reason,
                         "error": str(e)})
                     return
                 except (ValueError, KeyError) as e:
@@ -646,6 +733,22 @@ class ServingServer:
                                 seq += 1
                                 continue
                         if done:
+                            if h.outcome == "handoff":
+                                # prefill parked: push the KV to the
+                                # decode target BEFORE the terminal
+                                # frame, so the client's second leg finds
+                                # the staged adoption (or learns the
+                                # push failed and re-prefills)
+                                migrated = self._push_handoff(
+                                    eng, rid, handoff, deadline, msg)
+                                _requests.labels(outcome="ok").inc()
+                                self._reply(msg, {
+                                    "seq": seq, "done": True,
+                                    "outcome": "handoff",
+                                    "migrated": migrated,
+                                    "tokens": [], "n_tokens": 0})
+                                completed = True
+                                return
                             out = {"seq": seq, "done": True,
                                    "outcome": h.outcome,
                                    "tokens": toks,
@@ -692,6 +795,174 @@ class ServingServer:
                         # not at max_new_tokens
                         eng.cancel(h.id)
 
+            def _push_handoff(self, eng, rid, target, deadline, msg):
+                """Prefill side of a disaggregated generate: take the
+                parked payload, export its KV rows and stream them to
+                the decode target as ``kv_migrate`` begin/block/commit
+                frames (only the commit is answered: whether the peer
+                staged the adoption). The parked blocks are ALWAYS
+                released before returning; on any failure the client
+                falls back to a plain re-prefill, which gives the same
+                stream. The engine lock is never held across the socket;
+                the export gathers under the model's dispatch lock."""
+                t0 = time.perf_counter()
+                payload = eng.take_handoff(rid)
+                if payload is None or not target:
+                    if payload is not None:
+                        eng.release_handoff(rid)
+                    return False
+                ok = False
+                nbytes = 0
+                try:
+                    host, port = str(target[0]), int(target[1])
+                    # a chaos seam: tests arm it to fail or stall a push
+                    fault_point("serving.kv_migrate.push", rid=rid,
+                                blocks=len(payload["blocks"]))
+                    exp = getattr(eng.model, "export_kv_blocks", None)
+                    kv = None if exp is None else exp(payload["blocks"])
+                    sock = socket.create_connection((host, port),
+                                                    timeout=5.0)
+                    try:
+                        try:
+                            sock.setsockopt(socket.IPPROTO_TCP,
+                                            socket.TCP_NODELAY, 1)
+                        except OSError:
+                            pass
+                        crc = outer._wire_crc
+                        begin = {
+                            "op": "kv_migrate", "phase": "begin",
+                            "id": rid, "crc": 1 if crc else 0,
+                            "prompt": payload["prompt"],
+                            "first": payload["first"],
+                            "sampling": payload["sampling"],
+                            "hashes": [h.hex()
+                                       for h in payload["hashes"]],
+                            "max_new": payload["max_new"],
+                            "aux": payload["aux"],
+                            "block_size": payload["block_size"],
+                            "n_blocks": len(payload["blocks"])}
+                        if msg.get("trace") is not None:
+                            begin["trace"] = msg["trace"]
+                        _send_msg(sock, begin, crc=crc)
+                        if kv is not None:
+                            step = max(1, int(knob_value(
+                                "ZOO_KV_MIGRATE_CHUNK_BLOCKS")))
+                            for i in range(0, len(payload["blocks"]),
+                                           step):
+                                part = {name: a[:, i:i + step]
+                                        for name, a in kv.items()}
+                                nbytes += sum(int(a.nbytes)
+                                              for a in part.values())
+                                _send_msg(sock, {
+                                    "op": "kv_migrate",
+                                    "phase": "block", "id": rid,
+                                    "index": i, "kv": part}, crc=crc)
+                        commit = {"op": "kv_migrate",
+                                  "phase": "commit", "id": rid}
+                        if deadline is not None:
+                            # what is left of the request's budget
+                            # bounds the adoption
+                            commit["deadline_ms"] = int(1000 * max(
+                                0.0, deadline.remaining()))
+                        _send_msg(sock, commit, crc=crc)
+                        resp = _recv_msg(sock)
+                        ok = bool(resp and resp.get("ok")
+                                  and resp.get("adopted"))
+                    finally:
+                        sock.close()
+                except (OSError, FrameCorrupt):
+                    ok = False
+                finally:
+                    eng.release_handoff(rid)
+                if ok:
+                    _migrated_bytes.inc(nbytes)
+                    _handoff_seconds.observe(time.perf_counter() - t0)
+                return ok
+
+            def _handle_kv_migrate(self, msg):
+                """Decode side of the handoff wire: ``begin`` stages a
+                sequence's metadata on this connection, ``block`` frames
+                add its exported KV chunks, ``commit`` hands the
+                assembled payload to the engine (the only answered
+                phase). The allocator is not touched until the matching
+                generate arrives, so a pusher that dies after commit
+                leaks nothing here."""
+                eng = outer.llm_engine
+                phase = msg.get("phase")
+                rid = msg.get("id")
+                if eng is None or not rid:
+                    if phase == "commit":
+                        self._reply(msg, {
+                            "ok": False, "adopted": False,
+                            "error": "no llm engine mounted"
+                                     if eng is None else
+                                     "kv_migrate needs an id"})
+                    return
+                if phase == "begin":
+                    self._migrate[rid] = {"msg": msg, "chunks": []}
+                    return
+                st = self._migrate.get(rid)
+                if phase == "block":
+                    if st is not None:
+                        st["chunks"].append(
+                            (int(msg.get("index") or 0),
+                             msg.get("kv") or {}))
+                    return
+                if phase != "commit":
+                    self._reply(msg, {
+                        "ok": False, "adopted": False,
+                        "error": f"unknown kv_migrate phase {phase!r}"})
+                    return
+                st = self._migrate.pop(rid, None)
+                if st is None:
+                    self._reply(msg, {
+                        "ok": False, "adopted": False,
+                        "error": "commit without a begin on this "
+                                 "connection"})
+                    return
+                deadline = Deadline.from_ms(msg.get("deadline_ms"))
+                if deadline is not None and deadline.expired():
+                    _deadline_expired.labels(stage="admission").inc()
+                    self._reply(msg, {"ok": False, "adopted": False,
+                                      "expired": True})
+                    return
+                b = st["msg"]
+                kv = None
+                if st["chunks"]:
+                    st["chunks"].sort(key=lambda t: t[0])
+                    names = sorted(st["chunks"][0][1])
+                    try:
+                        kv = {name: np.concatenate(
+                            [np.asarray(c[1][name])
+                             for c in st["chunks"]], axis=1)
+                            for name in names}
+                    except (KeyError, ValueError) as e:
+                        self._reply(msg, {"ok": False,
+                                          "adopted": False,
+                                          "error": repr(e)})
+                        return
+                try:
+                    payload = {
+                        "rid": rid,
+                        "prompt": [int(t)
+                                   for t in b.get("prompt") or ()],
+                        "first": int(b.get("first") or 0),
+                        "sampling": b.get("sampling"),
+                        "hashes": [bytes.fromhex(h)
+                                   for h in b.get("hashes") or ()],
+                        "block_size": int(b.get("block_size") or 0),
+                        "aux": b.get("aux") or {},
+                        "max_new": int(b.get("max_new") or 0),
+                        "kv": kv,
+                    }
+                except (TypeError, ValueError) as e:
+                    self._reply(msg, {"ok": False, "adopted": False,
+                                      "error": repr(e)})
+                    return
+                adopted = eng.offer_adopted(payload)
+                self._reply(msg, {"ok": True,
+                                  "adopted": bool(adopted)})
+
             def _handle_reload(self, msg):
                 """Wire half of :meth:`ServingServer.reload_model`. The
                 reply is sent only AFTER the swap (or its failure): an
@@ -713,8 +984,8 @@ class ServingServer:
                     return
                 self._reply(msg, {"ok": True, **info})
 
-            def _refuse(self, msg, what: str, item: str, **extra):
-                self._reply(msg, {"ok": False, **extra,
+            def _refuse(self, msg, what: str, item: str):
+                self._reply(msg, {"ok": False,
                                   "error": f"{what} waits for {item} in "
                                            "the port"})
 
@@ -740,11 +1011,7 @@ class ServingServer:
                         elif op == "generate":
                             self._handle_generate(msg)
                         elif op == "kv_migrate":
-                            # begin/block frames are unacknowledged in
-                            # the protocol; the commit gets the verdict
-                            if msg.get("phase") not in ("begin", "block"):
-                                self._refuse(msg, "kv_migrate",
-                                             HANDOFF_ITEM, adopted=False)
+                            self._handle_kv_migrate(msg)
                         elif op == "reload":
                             self._handle_reload(msg)
                         elif op == "version":
