@@ -79,14 +79,35 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    stopped at the 480-token stream's 8th token (``wire_failover``, with
    the failover pause and the HA client's failover count); client-side
    TTFTs and decode tokens/s, streams equal to the bucket run's, no
-   block held, the flash forward and the paged decode launched. Last,
+   block held, the flash forward and the paged decode launched. Right
+   after ``direct_warm``, ``direct_traced``: the same four prompts
+   through an engine on those weights with tracing on, each stream
+   under a trace id of its own — streams equal to the bucket run's,
+   every trace holding ``llm.admit``, ``llm.first_token``,
+   ``llm.stream`` and ``llm.prefill``, the engine's
+   ``zoo_llm_ttft_seconds`` count up by 4, TTFT and decode tokens/s
+   beside ``direct_warm``'s with the overhead in percent (its launches
+   are ``launches_by_path.serve_obs``). Last,
    with this process's weights freed, the same prompts through a
    ``ReplicaGroup`` of one 8B ``python -m zoo_tpu_torch.serving.replica
    --device cuda`` process and ``group.client()``
    (``wire_replica_process``: the client in another process than the
    engine; a cold and a warm pass with the first-token hedge on, a warm
    one without; streams equal to the bucket run's, the kernels in
-   ``llm_stats``, no block held); between the int8 run and speculation,
+   ``llm_stats``, no block held), then ``obs-main``: a ``ReplicaGroup``
+   of two such 8B replicas (``max_restarts=0``, tracing into one dir
+   with this process, ``ZOO_CHAOS_ALLOW=1``, an SLO of 1.0 s on the
+   TTFT p99 evaluated every second), warmed off the clock, the four
+   prompts twice through ``group.client(hedge=True,
+   hedge_delay_ms=500)`` with explicit trace ids, replica 0 SIGKILLed
+   at stream 0's first token: 0 failures, every stream equal to the
+   bucket run's, one trace rebuilt from the JSONL files alone over both
+   replicas with two client attempts, replica 0's postmortem harvested
+   (``replica_boot`` in its ring), a live ``debug_dump`` of replica 1
+   (``llm_stream_end`` in its ring), replica 1's ``/healthz`` SLO
+   verdict (a breach over 1.0 s in the ring), a trace echoed on an
+   error reply, and ``flash`` in replica 1's ``llm_stats``; between the
+   int8 run and speculation,
    on the bucket run's weights: ``disagg-main`` — a ``role=prefill`` and
    a ``role=decode`` ``ServingServer`` in this process and an
    ``HAServingClient`` (``migrate_min_tokens`` 64) streaming the four
@@ -187,7 +208,10 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    sizes 8 and 32, 8 clients on connections of their own, a warm-up
    storm, then 200 timed requests: p50, p99, req/s, and the JAX guard
    (p99 at most 10x p50, or under 250 ms). No kernel: the door's own
-   cost;
+   cost. Then ``obs_trace`` (``bench_obs_trace``'s A/B on this MLP's
+   door): req/s through one ``HAServingClient`` with tracing off and on,
+   twice each, the overhead in percent, and a disabled ``span()``'s cost
+   in ns (under the bench's 100 us);
 15. predict-main — ResNet-50 of phase 8 (``mixed_bfloat16``, BatchNorm
    drawn from a seed) saved as a model file and published to a
    ``ModelRegistry`` as v1 (alias ``prod``), and int8 after
@@ -209,7 +233,13 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    the registry spec (prod at v2): boot seconds, ``version_info()``,
    ``healthz()``, then prod moved to v1 and ``rolling_update()`` under
    client load: zero failures, every reply within tolerance of its
-   version, the group all on v1.
+   version, the group all on v1. Last, ``chaos_ejection``
+   (``bench_chaos_ejection``'s mix on real work): three such replicas of
+   v1, 360 single-image requests from 4 clients, hedge off, replica 1
+   slowed over the wire ``chaos`` op by 20x the unloaded p50 of a
+   served request (measured first), ejection off, then on: every reply
+   bit-equal to v1's direct predict, 0 failures, replica 1 ejected, the
+   on-p99 below the off-p99; the bench's keys printed.
 
 Phase 7 is followed by predict-tiny: the tiny ResNet served through
 ``ServingServer`` (``batch_size=4``) and ``HAServingClient.predict``,
@@ -261,7 +291,8 @@ sequences.
 Then a ``{"kernels": [...]}`` line (each entry with its ``mma`` route
 and its launches by main path, ``serve_spec`` the speculative run's,
 ``serve_wire`` the wire runs', ``serve_disagg`` the disaggregated runs'
-(f32 and int8), ``serve_tenancy`` the tenancy runs', ``train_bert`` BERT
+(f32 and int8), ``serve_tenancy`` the tenancy runs', ``serve_obs``
+``direct_traced``'s, ``train_bert`` BERT
 run (b)'s,
 ``predict`` predict-main's in-process run;
 for ``conv2d`` and the three flash kernels the numbers are the bf16
@@ -3487,7 +3518,7 @@ def phase_main(torch, K, card):
     (``tenancy-main``) on the bucket run's weights, then speculation
     (``spec_k=4``) and the same model's engine at ``spec_k=0``. Returns
     the launches of the plain runs, the speculative run, the wire runs,
-    the disaggregated runs and the tenancy runs."""
+    the disaggregated runs, the tenancy runs and ``direct_traced``."""
     import numpy as np
     from zoo_tpu_torch.serving.llm import LLMEngine, build_llm_engine
 
@@ -3518,8 +3549,8 @@ def phase_main(torch, K, card):
             launches.update(flash_attention=counts["flash_attention"],
                             paged_decode=counts["paged_decode"])
             phase_tick(torch, eng.model, card)
-            wire, warm_ttft = phase_main_wire(torch, K, card, spec, params,
-                                              prompts, first)
+            wire, warm_ttft, traced = phase_main_wire(
+                torch, K, card, spec, params, prompts, first)
         elif label == "chunk=64":
             launches["paged_prefill"] = counts["paged_prefill"]
             # information only, not asserted: the two paths sum attention
@@ -3584,9 +3615,10 @@ def phase_main(torch, K, card):
           "streams_equal_nospec": spec_toks == nospec_toks})
     del eng, model, params
     phase_main_replica(torch, card, spec, bucket_prompts, first)
+    phase_obs_main(torch, card, spec, bucket_prompts, first)
     return launches, {k: spec_counts[k] for k in ("flash_attention",
                                                   "paged_prefill")}, wire, \
-        disagg, tenancy
+        disagg, tenancy, traced
 
 
 def phase_main_wire(torch, K, card, spec, params, prompts, direct):
@@ -3626,7 +3658,11 @@ def phase_main_wire(torch, K, card, spec, params, prompts, direct):
               min(h.first_token_at for h in hs)),
           "streams_equal_bucket": toks == direct})
     warm_ttft = [h.ttft() for h in hs]
+    warm_rate = sum(len(t) - 1 for t in toks) / (
+        max(h.last_token_at for h in hs) - min(h.first_token_at for h in hs))
     del eng, hs
+    traced = direct_traced(torch, K, card, spec, params, prompts, direct,
+                           warm_ttft, warm_rate)
     K.reset_launch_counts()
     for label, n in (("wire_1_server", 1), ("wire_2_servers", 2),
                      ("wire_failover", 2)):
@@ -3694,7 +3730,88 @@ def phase_main_wire(torch, K, card, spec, params, prompts, direct):
         if counts[k] <= 0:
             raise AssertionError(f"serve_wire: {k} never launched")
     return {k: counts[k] for k in ("flash_attention", "paged_decode")}, \
-        warm_ttft
+        warm_ttft, traced
+
+
+def _ttft_count():
+    from zoo_tpu_torch.obs.metrics import get_registry
+    return sum(h["count"] for h in get_registry().snapshot()["histograms"]
+               if h["name"] == "zoo_llm_ttft_seconds")
+
+
+def direct_traced(torch, K, card, spec, params, prompts, direct, warm_ttft,
+                  warm_rate):
+    """``direct_traced``: ``direct_warm`` again with tracing on — the
+    four prompts through an engine on the bucket run's weights, each
+    stream under a trace id of its own, spans into a temp dir. Required:
+    the streams equal the bucket run's; every trace holds ``llm.admit``,
+    ``llm.first_token``, ``llm.stream`` and an ``llm.prefill`` span
+    (every prompt here prefills in one bucket call; from
+    ``ZOO_LLAMA_FLASH_MIN_SEQ``'s bucket on through the flash kernel);
+    the engine's ``zoo_llm_ttft_seconds`` count rises by 4. TTFT and
+    decode tokens/s beside ``direct_warm``'s, the overhead in percent.
+    Returns the run's launches (``serve_obs``)."""
+    import shutil
+    import tempfile
+
+    from zoo_tpu_torch.obs import tracing
+    from zoo_tpu_torch.obs.timeline import group_traces, load_events
+    from zoo_tpu_torch.serving.llm import build_llm_engine
+
+    d = tempfile.mkdtemp(prefix="zoo-smoke-trace-")
+    eng = build_llm_engine(spec, device="cuda", params=params)
+    tids = [tracing.new_trace_id() for _ in prompts]
+    c0 = _ttft_count()
+    tracing.trace_to(d)
+    K.reset_launch_counts()
+    try:
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, 32, rid=f"t{i}", trace_id=tids[i])
+              for i, p in enumerate(prompts)]
+        _wait_done(hs)
+        wall = time.perf_counter() - t0
+    finally:
+        eng.stop()
+        tracing.stop_tracing()
+    counts = K.launch_counts()
+    n_ttft = _ttft_count() - c0
+    traces = group_traces(load_events(d))
+    shutil.rmtree(d, ignore_errors=True)
+    toks = [h.tokens for h in hs]
+    ttft = [h.ttft() for h in hs]
+    rate = sum(len(t) - 1 for t in toks) / (
+        max(h.last_token_at for h in hs) - min(h.first_token_at for h in hs))
+    need = ("llm.admit", "llm.first_token", "llm.stream", "llm.prefill")
+    missing = {tid[:8]: [n for n in need if n not in
+                         {e.get("name") for e in traces.get(tid, ())}]
+               for tid in tids}
+    missing = {k: v for k, v in missing.items() if v}
+    emit({"phase": "main", "run": "direct_traced", "card": card,
+          "wall_s": wall, "ttft_s": ttft, "decode_tokens_per_s": rate,
+          "direct_warm_ttft_s": warm_ttft,
+          "direct_warm_decode_tokens_per_s": warm_rate,
+          "ttft_overhead_pct": 100.0 * (sum(ttft) / sum(warm_ttft) - 1.0),
+          "decode_overhead_pct": 100.0 * (warm_rate / rate - 1.0),
+          "events_per_trace": [len(traces.get(t, ())) for t in tids],
+          "missing": missing, "ttft_histogram_count": n_ttft,
+          "streams_equal_bucket": toks == direct,
+          "launches": {k: counts[k] for k in ("flash_attention",
+                                              "paged_decode")}})
+    if toks != direct or missing or n_ttft != len(prompts) or \
+            counts["flash_attention"] <= 0 or counts["paged_decode"] <= 0:
+        raise AssertionError(
+            f"direct_traced: streams equal {toks == direct}, missing "
+            f"{missing}, ttft count {n_ttft}, launches {counts}")
+    return {k: counts[k] for k in ("flash_attention", "paged_decode")}
+
+
+def _replica_logs(log_dir, n, tail=6000):
+    for i in range(n):
+        log = os.path.join(log_dir, f"serving-replica-{i}.log")
+        if os.path.exists(log):
+            with open(log, "rb") as f:
+                sys.stderr.write(f.read()[-tail:].decode("utf-8",
+                                                         "replace"))
 
 
 def phase_main_replica(torch, card, spec, prompts, direct):
@@ -3774,14 +3891,210 @@ def phase_main_replica(torch, card, spec, prompts, direct):
                     f"equal the bucket run's: {toks == direct}")
             steps = stats["decode_steps"]
     except Exception:
-        log = os.path.join(log_dir, "serving-replica-0.log")
-        if os.path.exists(log):
-            with open(log, "rb") as f:
-                sys.stderr.write(f.read()[-8000:].decode("utf-8",
-                                                         "replace"))
+        _replica_logs(log_dir, 1, tail=8000)
         raise
     finally:
         group.stop()
+
+
+OBS_NEW, OBS_HEDGE_MS, OBS_SLO_TTFT_S = 32, 500, 1.0
+
+
+def phase_obs_main(torch, card, spec, prompts, direct):
+    """``obs-main``: the traced 8B streams across a replica SIGKILL. A
+    ``ReplicaGroup`` of two ``--device cuda`` replica processes at 8B
+    width (``max_restarts=0``; env ``ZOO_TRACE_DIR``, ``ZOO_CHAOS_ALLOW=1``,
+    ``ZOO_SLO_TTFT_P99_S=1.0``, ``ZOO_SLO_INTERVAL_S=1``; this process
+    traces into the same dir), each warmed off the clock on the four
+    prompts; then the four prompts twice (8 streams, 32 new tokens)
+    through ``group.client(hedge=True, hedge_delay_ms=500)`` with
+    explicit trace ids, replica 0 SIGKILLed once stream 0 has its first
+    token. Required: no client-visible failure; every stream equal to
+    the bucket run's for its prompt; from the JSONL files alone, one
+    trace with two or more ``client.attempt`` spans and ``server.``/
+    ``llm.`` spans from both replicas' files, ``client.generate`` and
+    ``llm.admit`` among them; ``harvest_postmortems()`` yields, within
+    30 s, replica 0's bundle with a ring holding ``replica_boot``;
+    ``debug_dump`` on replica 1 a bundle whose ring holds
+    ``llm_stream_end``; replica 1's ``/healthz`` an SLO verdict with
+    ``ttft_p99`` measured (over 1.0 s, the breach event in the bundle's
+    ring); a predict to the LLM replica errors and echoes its trace;
+    replica 1's ``llm_stats`` read ``flash`` for both attention paths.
+    The replicas count their launches in their own processes."""
+    import gc
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.obs import tracing
+    from zoo_tpu_torch.obs.timeline import group_traces, load_events
+    from zoo_tpu_torch.serving.ha import ReplicaGroup
+    from zoo_tpu_torch.serving.tcp_client import _Connection
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="zoo-smoke-obs-")
+    trace_dir = os.path.join(work, "trace")
+    log_dir = os.path.join(work, "logs")
+    env = {"ZOO_TRACE_DIR": trace_dir, "ZOO_CHAOS_ALLOW": "1",
+           "ZOO_SLO_TTFT_P99_S": str(OBS_SLO_TTFT_S),
+           "ZOO_SLO_INTERVAL_S": "1"}
+    group = ReplicaGroup(spec, num_replicas=2, max_restarts=0,
+                         log_dir=log_dir, device="cuda", env=env)
+    tracing.trace_to(trace_dir)
+    try:
+        t0 = time.perf_counter()
+        group.start(timeout=600)
+        boot_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for host, port in group.endpoints():
+            conn = _Connection(host, port)
+            try:
+                for p in prompts:
+                    for _ in conn.stream({"op": "generate", "prompt": p,
+                                          "max_new_tokens": 2}):
+                        pass
+            finally:
+                conn.close()
+        warm_s = time.perf_counter() - t0
+        streams = list(prompts) * 2
+        tids = [f"{i:02d}" + os.urandom(15).hex()
+                for i in range(len(streams))]
+        client = group.client(deadline_ms=900_000, hedge=True,
+                              hedge_delay_ms=OBS_HEDGE_MS)
+        try:
+            t0 = time.perf_counter()
+            out, t_kill = wire_streams(
+                [client] * len(streams), streams, OBS_NEW,
+                [{"trace_id": t} for t in tids],
+                stop_at=(0, 1, lambda: group.kill_replica(0)))
+            wall = time.perf_counter() - t0
+        finally:
+            client.close()
+        tracing.stop_tracing()
+        toks = [o[0] for o in out]
+        ttft = [o[1][0] - o[2] for o in out]
+        gaps = []
+        for _, times, _ in out:
+            before = [x for x in times if x <= t_kill]
+            after = [x for x in times if x > t_kill]
+            if after:
+                seq = ([before[-1]] if before else []) + after
+                if len(seq) > 1:
+                    gaps.append(max(b - a for a, b in zip(seq, seq[1:])))
+        equal = [t == direct[i % len(direct)] for i, t in enumerate(toks)]
+
+        # the timeline from the JSONL files alone
+        traces = group_traces(load_events(trace_dir))
+        crossed = None
+        for tid in tids:
+            evs = traces.get(tid, [])
+            attempts = [e for e in evs if e.get("name") == "client.attempt"]
+            files = {e.get("file") for e in evs if str(
+                e.get("name", "")).startswith(("server.", "llm."))}
+            names = {e.get("name") for e in evs}
+            if len(attempts) >= 2 and len(files) >= 2 and \
+                    {"client.generate", "llm.admit"} <= names:
+                crossed = {"trace": tid, "attempts": len(attempts),
+                           "replica_files": len(files),
+                           "events": len(evs)}
+                break
+
+        # the killed replica's postmortem (the healthz sweep may have
+        # harvested it already: read the group's dir)
+        t0 = time.perf_counter()
+        pm_dir = group.postmortem_dir()
+        bundle_path = None
+        while bundle_path is None and time.perf_counter() - t0 < 30:
+            group.harvest_postmortems()
+            mine = sorted(f for f in (os.listdir(pm_dir) if os.path.isdir(
+                pm_dir) else []) if f.startswith("replica-0-"))
+            if mine:
+                bundle_path = os.path.join(pm_dir, mine[0])
+            else:
+                time.sleep(0.2)
+        harvest_s = time.perf_counter() - t0
+        ring0 = []
+        if bundle_path is not None:
+            with open(bundle_path, encoding="utf-8") as f:
+                ring0 = json.load(f).get("ring") or []
+
+        # replica 1: the SLO verdict on /healthz, then the live bundle
+        slo, deadline = None, time.monotonic() + 15
+        while time.monotonic() < deadline:
+            hz = group.healthz()[1] or {}
+            rule = ((hz.get("slo") or {}).get("rules") or {}).get(
+                "ttft_p99") or {}
+            if "measured" in rule:
+                slo = hz["slo"]
+                break
+            time.sleep(0.3)
+        host1, port1 = group.endpoints()[1]
+        conn = _Connection(host1, port1)
+        try:
+            dump = conn.rpc({"op": "debug_dump"})
+            stats = conn.rpc({"op": "llm_stats"})["stats"]
+            probe_tid = "ee" * 16
+            probe = conn.rpc({"op": "predict", "uri": "u",
+                              "data": np.zeros((1, 2), np.float32),
+                              "trace": probe_tid})
+        finally:
+            conn.close()
+        bundle = dump.get("bundle") or {}
+        ring1 = [e.get("kind") for e in bundle.get("ring") or ()]
+        watch_p99 = slo["rules"]["ttft_p99"]["measured"] if slo else None
+        breach_seen = "slo_breach" in ring1
+        emit({"phase": "obs-main", "card": card, "replicas": 2,
+              "boot_s": boot_s, "warm_s": warm_s, "wall_s": wall,
+              "ttft_s": ttft, "client_ttft_p99_s": _pct(ttft, 99),
+              "failover_pause_s": max(gaps) if gaps else None,
+              "streams_equal_bucket": equal, "crossed_trace": crossed,
+              "traces": len(traces),
+              "postmortem": {"found": bundle_path is not None,
+                             "ring_len": len(ring0),
+                             "kinds": sorted({e.get("kind")
+                                              for e in ring0}),
+                             "harvest_s": harvest_s},
+              "debug_dump_bytes": len(json.dumps(bundle, default=str)),
+              "debug_dump_ring_len": len(ring1),
+              "watchdog_ttft_p99_s": watch_p99,
+              "slo_objective_s": OBS_SLO_TTFT_S,
+              "slo_breach_in_ring": breach_seen,
+              "probe_echo": probe.get("trace") == probe_tid,
+              "decode_attention_impl": stats["decode_attention_impl"],
+              "prefill_attention_impl": stats["prefill_attention_impl"]})
+        bad = []
+        if not all(equal) or any(len(t) != OBS_NEW for t in toks):
+            bad.append(f"streams equal {equal}")
+        if crossed is None:
+            bad.append("no trace crosses both replicas with 2 attempts")
+        if not ring0 or "replica_boot" not in {e.get("kind")
+                                               for e in ring0}:
+            bad.append(f"harvested ring {len(ring0)} events, "
+                       f"{bundle_path}")
+        if "llm_stream_end" not in ring1:
+            bad.append("debug_dump ring holds no llm_stream_end")
+        if watch_p99 is None:
+            bad.append("no ttft_p99 verdict on replica 1's /healthz")
+        elif watch_p99 > OBS_SLO_TTFT_S and not breach_seen:
+            bad.append(f"ttft_p99 {watch_p99} over the objective, no "
+                       "breach event in the ring")
+        if "error" not in probe or probe.get("trace") != probe_tid:
+            bad.append(f"probe reply {probe}")
+        if (stats["decode_attention_impl"],
+                stats["prefill_attention_impl"]) != ("flash", "flash"):
+            bad.append(f"impl {stats['decode_attention_impl']}, "
+                       f"{stats['prefill_attention_impl']}")
+        if bad:
+            raise AssertionError("obs-main: " + "; ".join(bad))
+    except Exception:
+        _replica_logs(log_dir, 2)
+        raise
+    finally:
+        tracing.stop_tracing()
+        group.stop()
+        shutil.rmtree(work, ignore_errors=True)
 
 
 # disaggregation and tenancy (phases disagg-main and tenancy-main): the
@@ -4312,6 +4625,7 @@ PREDICT_B, PREDICT_CLIENTS, PREDICT_PER_CLIENT = 32, 32, 16
 # bench.py bench_serving: an MLP behind the micro-batcher, 8 clients,
 # 200 requests a batch size, batch sizes 8 and 32
 MLP_FEAT, MLP_CLIENTS, MLP_REQUESTS = 64, 8, 200
+OBS_TRACE_REQUESTS = 300
 
 
 def phase_predict_tiny(torch, K):
@@ -4435,6 +4749,7 @@ def phase_predict_mlp(torch, card):
     if guard:
         raise AssertionError("predict-mlp latency guard: "
                              + "; ".join(guard))
+    phase_obs_trace(model, card)
 
 
 class _CountedModel:
@@ -4736,6 +5051,7 @@ def phase_predict_main(torch, K, card):
         del server, client, models, model
         torch.cuda.empty_cache()
         _predict_group(reg, v1, v2, images, direct, card)
+        _chaos_ejection(reg, v1, images, direct[v1], card)
         return counts
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4804,15 +5120,208 @@ def _predict_group(reg, v1, v2, images, direct, card):
                 f"{errors[:3]}, rolling update {result}, versions "
                 f"{after}")
     except Exception:
-        for i in range(2):
-            log = os.path.join(log_dir, f"serving-replica-{i}.log")
-            if os.path.exists(log):
-                with open(log, "rb") as f:
-                    sys.stderr.write(f.read()[-6000:].decode("utf-8",
-                                                             "replace"))
+        _replica_logs(log_dir, 2)
         raise
     finally:
         group.stop()
+
+
+CHAOS_REQUESTS, CHAOS_CLIENTS, CHAOS_SLOWDOWN = 360, 4, 20.0
+
+
+def _chaos_ejection(reg, v1, images, direct, card):
+    """``chaos_ejection``: ``bench.py`` ``bench_chaos_ejection``'s mix on
+    real work. Three ``--device cuda`` replica processes of ResNet-50 v1
+    from the registry (``ZOO_CHAOS_ALLOW=1``), 360 single-image requests
+    from 4 clients, hedge off; replica 1 slowed over the wire ``chaos``
+    op (``serving.infer``) by 20x the unloaded p50 of a served request
+    measured first in this run (the bench's 40 ms over its synthetic
+    model's 2 ms), then cleared; ejection off, then on (the bench's
+    ``EjectionConfig``). Required: every reply bit-equal to v1's direct
+    predict, no request failed, replica 1 ejected, the on-p99 below the
+    off-p99 (both over the last two thirds, as the bench)."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    from zoo_tpu_torch.serving.ejection import EjectionConfig
+    from zoo_tpu_torch.serving.ha import ReplicaGroup
+    from zoo_tpu_torch.serving.ha_client import HAServingClient
+
+    log_dir = tempfile.mkdtemp(prefix="zoo-smoke-chaos-ejection-")
+    group = ReplicaGroup(f"registry:{reg.root}:{v1}", num_replicas=3,
+                         batch_size=PREDICT_B, max_wait_ms=5.0,
+                         max_restarts=0, log_dir=log_dir, device="cuda",
+                         env={"ZOO_CHAOS_ALLOW": "1"})
+    mismatched, failed = [], []
+
+    def check(k, y):
+        if not np.array_equal(np.asarray(y)[0], direct[k]):
+            mismatched.append(k)
+
+    try:
+        t0 = time.perf_counter()
+        group.start(timeout=300)
+        boot_s = time.perf_counter() - t0
+        probe = HAServingClient(group.endpoints(), deadline_ms=600_000,
+                                hedge=False,
+                                ejection_config=EjectionConfig(
+                                    enabled=False))
+        for k in range(12):               # every seat warm
+            check(k % len(images), probe.predict(images[k % len(images):][:1]))
+        lats = []
+        for k in range(30):
+            t = time.perf_counter()
+            check(k % len(images), probe.predict(images[k % len(images):][:1]))
+            lats.append(time.perf_counter() - t)
+        probe.close()
+        unloaded_p50_ms = _pct(lats, 50) * 1e3
+        slow_ms = CHAOS_SLOWDOWN * unloaded_p50_ms
+
+        def run(eject_on):
+            cfg = EjectionConfig(
+                enabled=eject_on, min_ms=20.0, min_samples=4,
+                probation_s=0.4, probe_interval_s=0.3, readmit_base_s=0.5)
+            client = HAServingClient(group.endpoints(),
+                                     deadline_ms=600_000, hedge=False,
+                                     ejection_config=cfg)
+            for k in range(12):
+                check(k % len(images),
+                      client.predict(images[k % len(images):][:1]))
+            group.chaos_rpc(1, "serving.infer", delay_ms=slow_ms)
+            t_slow = time.monotonic()
+            got, lock = [], threading.Lock()
+
+            def one_client(c):
+                for i in range(CHAOS_REQUESTS // CHAOS_CLIENTS):
+                    k = (c * 5 + i) % len(images)
+                    t = time.perf_counter()
+                    try:
+                        y = client.predict(images[k:k + 1])
+                    except Exception as e:  # noqa: BLE001 — counted
+                        with lock:
+                            failed.append(repr(e))
+                        continue
+                    t1 = time.perf_counter()
+                    with lock:
+                        got.append((t1, t1 - t, k, y))
+
+            threads = [threading.Thread(target=one_client, args=(c,))
+                       for c in range(CHAOS_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            group.chaos_rpc(1, "serving.infer", clear=True)
+            detect = None
+            for ts, kind, _seat in client.ejection_events():
+                if kind == "ejected":
+                    detect = ts - t_slow
+                    break
+            client.close()
+            for _, _, k, y in got:
+                check(k, y)
+            got.sort(key=lambda r: r[0])
+            steady = [r[1] * 1e3 for r in got[len(got) // 3:]]
+            return _pct(steady, 99), _pct(steady, 50), detect, len(got)
+
+        off_p99, off_p50, _, n_off = run(False)
+        on_p99, on_p50, detect, n_on = run(True)
+        emit({"phase": "predict-main", "run": "chaos_ejection",
+              "card": card, "replicas": 3, "boot_s": boot_s,
+              "requests": CHAOS_REQUESTS, "clients": CHAOS_CLIENTS,
+              "unloaded_p50_ms": unloaded_p50_ms, "slow_ms": slow_ms,
+              "chaos_ejection_off_p50_ms": off_p50,
+              "chaos_ejection_off_p99_ms": off_p99,
+              "chaos_ejection_on_p50_ms": on_p50,
+              "chaos_ejection_on_p99_ms": on_p99,
+              "chaos_ejection_detect_ms":
+                  None if detect is None else detect * 1e3,
+              "chaos_ejection_p99_speedup": off_p99 / on_p99,
+              "replies": n_off + n_on, "failed": len(failed),
+              "not_bit_equal": len(mismatched)})
+        if failed or mismatched or detect is None or not on_p99 < off_p99 \
+                or n_off + n_on != 2 * CHAOS_REQUESTS:
+            raise AssertionError(
+                f"chaos_ejection: {len(failed)} failed {failed[:3]}, "
+                f"{len(mismatched)} replies not bit-equal, detect "
+                f"{detect}, p99 on {on_p99} off {off_p99}")
+    except Exception:
+        _replica_logs(log_dir, 3)
+        raise
+    finally:
+        group.stop()
+
+
+def phase_obs_trace(model, card):
+    """``obs_trace``: ``bench.py`` ``bench_obs_trace``'s A/B on the door
+    of ``bench_serving``'s MLP — ``HAServingClient`` (hedge off) ->
+    ``ServingServer`` (``batch_size=8``, ``max_wait_ms=1``) over the MLP,
+    20 warm-up requests, then 300 timed ones, request-scoped tracing off
+    and on (every request minting a trace id, every hop writing JSONL
+    spans), twice each, interleaved; req/s and the overhead in percent
+    from the better run of each. Then the disabled path: with no sink a
+    ``span()`` costs at most the bench's 100 us (best of 5 x 50000)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.obs import tracing
+    from zoo_tpu_torch.serving.ha_client import HAServingClient
+    from zoo_tpu_torch.serving.server import ServingServer
+
+    x = np.ones((1, MLP_FEAT), np.float32)
+
+    def run():
+        srv = ServingServer(model, port=0, batch_size=8,
+                            max_wait_ms=1.0).start()
+        cli = HAServingClient([(srv.host, srv.port)], hedge=False,
+                              deadline_ms=10000)
+        try:
+            for _ in range(20):
+                cli.predict(x)
+            t0 = time.perf_counter()
+            for _ in range(OBS_TRACE_REQUESTS):
+                y = cli.predict(x)
+            dt = time.perf_counter() - t0
+        finally:
+            cli.close()
+            srv.stop()
+        if y.shape != (1, 10) or not np.isfinite(y).all():
+            raise AssertionError(f"obs_trace: a reply of {y.shape}")
+        return OBS_TRACE_REQUESTS / dt
+
+    d = tempfile.mkdtemp(prefix="zoo-smoke-obs-trace-")
+    off, on = [], []
+    try:
+        for _ in range(2):
+            tracing.stop_tracing()
+            off.append(run())
+            tracing.trace_to(d)
+            on.append(run())
+            tracing.stop_tracing()
+        spans = sum(1 for e in tracing.read_trace(d)
+                    if e.get("name") in ("client.rpc", "server.predict"))
+    finally:
+        tracing.stop_tracing()
+        shutil.rmtree(d, ignore_errors=True)
+    n = 50_000
+    best = float("inf")
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with tracing.span("bench.hot"):
+                pass
+        best = min(best, time.perf_counter() - t0)
+    per_ns = best / n * 1e9
+    emit({"phase": "predict-mlp", "run": "obs_trace", "card": card,
+          "requests": OBS_TRACE_REQUESTS,
+          "obs_trace_off_req_per_sec": off, "obs_trace_on_req_per_sec": on,
+          "obs_trace_overhead_pct": 100.0 * (max(off) / max(on) - 1.0),
+          "traced_spans": spans, "obs_trace_disabled_span_ns": per_ns})
+    if per_ns >= 100_000 or spans < 2 * 2 * OBS_TRACE_REQUESTS:
+        raise AssertionError(f"obs_trace: disabled span {per_ns} ns, "
+                             f"{spans} spans written")
 
 
 def main():
@@ -4863,11 +5372,11 @@ def main():
         phase_infer_tiny(torch, K)
         phase_predict_tiny(torch, K)
         phase_train_image_tiny(torch, K)
-        serve, serve_spec, serve_wire, serve_disagg, serve_tenancy = \
-            phase_main(torch, K, card)
+        serve, serve_spec, serve_wire, serve_disagg, serve_tenancy, \
+            serve_obs = phase_main(torch, K, card)
         by_path = {"serve": serve, "serve_spec": serve_spec,
                    "serve_wire": serve_wire, "serve_disagg": serve_disagg,
-                   "serve_tenancy": serve_tenancy,
+                   "serve_tenancy": serve_tenancy, "serve_obs": serve_obs,
                    "train": phase_train_main(torch, K, card),
                    "infer": phase_infer_main(torch, K, card),
                    "block": phase_bottleneck_main(torch, K, card),

@@ -1469,6 +1469,23 @@ def test_replica_process_serves_through_the_kernels(hopper):
     assert stats["blocks_used"] == 0
 
 
+def test_traced_failover_runs_through_the_kernels(hopper):
+    """The ``check_trace_e2e`` copy on the card: three ``--device cuda``
+    ``llama:tiny`` replicas, hedged traced streams across a SIGKILL, one
+    trace over both replicas' files, a harvested postmortem and the
+    trace echoed on an error reply."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-m", "zoo_tpu_torch.scripts.check_trace_e2e",
+         "--device", "cuda"], cwd=root, capture_output=True, text=True,
+        timeout=600, env={**os.environ, "PYTHONPATH": root})
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "TRACE E2E OK" in r.stdout
+
 
 # -- the predict door ---------------------------------------------------------
 

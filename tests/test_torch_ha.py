@@ -510,6 +510,57 @@ def test_replica_refuses_to_serve_without_its_kernels(monkeypatch,
     port_replica.load_serving_kernels(torch.device("cpu"))   # no-op
 
 
+# ------------------------------------------- chaos_rpc and the harvest
+
+@pytest.mark.chaos
+@pytest.mark.timeout(120)
+def test_chaos_rpc_slows_and_clears_a_cpu_replica_then_its_remains_are_harvested(
+        tmp_path):
+    """``ReplicaGroup.chaos_rpc`` arms a delay in a real replica process
+    and clears it (refused without ``ZOO_CHAOS_ALLOW`` in the other
+    group); after a SIGKILL with no restart budget the group harvests a
+    bundle whose ring shows the boot and both chaos edges."""
+    log_dir = str(tmp_path / "g")
+    group = port_ha.ReplicaGroup(
+        "synthetic:double", num_replicas=1, max_restarts=0,
+        log_dir=log_dir, device="cpu", env={"ZOO_CHAOS_ALLOW": "1"})
+    closed = port_ha.ReplicaGroup("synthetic:double", num_replicas=1,
+                                  device="cpu")
+    group.start(timeout=60)
+    closed.start(timeout=60)
+    x = np.ones((1, 4), np.float32)
+    try:
+        with pytest.raises(RuntimeError, match="ZOO_CHAOS_ALLOW"):
+            closed.chaos_rpc(0, "serving.infer", delay_ms=50)
+        cli = HAServingClient(group.endpoints(), hedge=False)
+        resp = group.chaos_rpc(0, "serving.infer", delay_ms=150)
+        assert resp["ok"] and resp["site"] == "serving.infer"
+        t0 = time.perf_counter()
+        np.testing.assert_allclose(cli.predict(x), 2 * x)
+        assert time.perf_counter() - t0 >= 0.14
+        assert group.chaos_rpc(0, "serving.infer", clear=True)[
+            "cleared"] == "serving.infer"
+        t0 = time.perf_counter()
+        np.testing.assert_allclose(cli.predict(x), 2 * x)
+        assert time.perf_counter() - t0 < 0.14
+        cli.close()
+        group.kill_replica(0)
+        deadline = time.monotonic() + 30
+        bundles = []
+        while not bundles:
+            assert time.monotonic() < deadline
+            bundles = group.harvest_postmortems()
+            time.sleep(0.2)
+    finally:
+        group.stop()
+        closed.stop()
+    import json
+    ring = json.load(open(bundles[0]))["ring"]
+    kinds = [e["kind"] for e in ring]
+    assert kinds[0] == "replica_boot"
+    assert "chaos_arm" in kinds and "chaos_clear" in kinds
+
+
 # ---------------------------------------------------- the script copies
 
 def _script(name, marker_ok):

@@ -4,9 +4,10 @@ hashes, the weighted-fair / priority-class scheduler over one fake model
 on both engines, the allocator's tenant partitions under a random churn,
 the HA client's per-tenant backoff, streams of the tiny Llama through a
 class preemption (equal to the JAX engine's tokens), the door's tenant
-sheds, the ``check_tenancy`` copy and the smoke's tenancy phase on the
-CPU. (``tests/test_tenancy.py``'s two SLO tests wait for the port's
-observability, ROADMAP A.6.)
+sheds, the per-tenant SLO (``zoo_tenant_burn_rate``, mirroring
+``tests/test_tenancy.py::test_slo_*`` and held to the JAX watchdog's
+verdict), the ``check_tenancy`` copy and the smoke's tenancy phase on
+the CPU.
 """
 
 import importlib.util
@@ -754,6 +755,65 @@ def test_llama_streams_through_a_class_preemption_equal_jax(llama,
 
 
 # ------------------------------------------------------------ chaos smoke
+
+# ------------------------------------------------------------ tenant SLO
+
+def test_slo_per_tenant_burn_and_breach(monkeypatch):
+    """``ZOO_SLO_TENANT_SHED_RATE``: one verdict per tenant over the
+    window, the burn published as ``zoo_tenant_burn_rate``, equal to the
+    JAX watchdog's on the same series."""
+    monkeypatch.setenv("ZOO_SLO_TENANT_SHED_RATE", "0.1")
+    from zoo_tpu.obs import metrics as jax_metrics
+    from zoo_tpu.obs import slo as jax_slo
+    from zoo_tpu_torch.obs import metrics as port_metrics
+    from zoo_tpu_torch.obs import slo as port_slo
+
+    out = {}
+    for name, M, S in (("port", port_metrics, port_slo),
+                       ("jax", jax_metrics, jax_slo)):
+        shed = M.counter("zoo_tenant_shed_total",
+                         "Requests shed per tenant",
+                         labels=("tenant", "reason"))
+        adm = M.counter("zoo_tenant_admitted_total",
+                        "Requests admitted per tenant", labels=("tenant",))
+        w = S.SLOWatchdog(rules=[])
+        w.evaluate()                             # baseline snapshot
+        for _ in range(5):
+            shed.labels(tenant="slo-greedy", reason="rate").inc()
+            adm.labels(tenant="slo-greedy").inc()
+        for _ in range(10):
+            adm.labels(tenant="slo-victim").inc()
+        status = w.evaluate()
+        burn = M.gauge("zoo_tenant_burn_rate", "Per-tenant burn rate",
+                       labels=("tenant", "slo"))
+        out[name] = (status["tenants"], status["breaches"], status["ok"],
+                     burn.labels(tenant="slo-greedy",
+                                 slo="shed_rate").value)
+        S._set_status(None)
+    assert out["port"] == out["jax"]
+    tenants, breaches, ok, burn = out["port"]
+    g = tenants["slo-greedy"]
+    assert g["breached"] and g["shed_rate"] == pytest.approx(0.5)
+    assert g["burn_rate"] == pytest.approx(5.0) == burn
+    v = tenants["slo-victim"]
+    assert not v["breached"] and v["shed_rate"] == 0.0
+    assert "tenant_shed_rate[slo-greedy]" in breaches and ok is False
+
+
+def test_slo_tenant_objective_arms_the_watchdog(monkeypatch):
+    from zoo_tpu_torch.obs.slo import SLOWatchdog
+    for k in ("ZOO_SLO_TTFT_P99_S", "ZOO_SLO_INTER_TOKEN_P99_S",
+              "ZOO_SLO_ERROR_RATE", "ZOO_SLO_SHED_RATE", "ZOO_SLO_KV_UTIL",
+              "ZOO_SLO_SPEC_ACCEPT_FLOOR", "ZOO_SLO_TENANT_SHED_RATE"):
+        monkeypatch.delenv(k, raising=False)
+    assert SLOWatchdog(rules=[]).start()._thread is None
+    monkeypatch.setenv("ZOO_SLO_TENANT_SHED_RATE", "0.05")
+    w = SLOWatchdog(rules=[]).start()
+    try:
+        assert w._thread is not None
+    finally:
+        w.stop()
+
 
 @pytest.mark.chaos
 @pytest.mark.timeout(300)

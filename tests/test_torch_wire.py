@@ -354,20 +354,23 @@ def test_ping_version_stats_and_llm_stats_answer(servers):
 
 
 # (the reload and stats cases became cases of the frame-parity test in
-# tests/test_torch_predict.py: both ops are served now)
-@pytest.mark.parametrize("msg,needle", [
-    ({"op": "kv_migrate", "phase": "commit", "id": "m"}, None),
-    ({"op": "debug_dump"}, "ROADMAP A.6"),
-    ({"op": "chaos", "site": "s", "delay_ms": 5}, "ROADMAP A.6"),
-    ({"op": "generate", "id": "h", "prompt": [1, 2], "max_new_tokens": 2,
-      "handoff": ["127.0.0.1", 1]}, None),
+# tests/test_torch_predict.py: both ops are served now; debug_dump and
+# chaos are served too, and their frames are held to the JAX door's here)
+@pytest.mark.parametrize("msg", [
+    {"op": "kv_migrate", "phase": "commit", "id": "m"},
+    {"op": "debug_dump"},
+    {"op": "chaos", "site": "s", "delay_ms": 5},
+    {"op": "generate", "id": "h", "prompt": [1, 2], "max_new_tokens": 2,
+     "handoff": ["127.0.0.1", 1]},
 ], ids=["kv_migrate", "debug_dump", "chaos", "handoff"])
-def test_refused_ops_name_their_roadmap_item(servers, msg, needle):
-    """The flight recorder's and the chaos harness's ops refuse, naming
-    their item; ``kv_migrate`` and a ``handoff`` generate are served and
-    answered as the JAX door answers them: a commit with no begin on the
-    connection is refused, and a handoff whose push finds no peer ends
-    ``handoff`` with ``migrated`` false."""
+def test_refused_ops_name_their_roadmap_item(servers, msg, monkeypatch):
+    """Every op is answered as the JAX door answers it: a commit with no
+    begin on the connection is refused, a handoff whose push finds no
+    peer ends ``handoff`` with ``migrated`` false, ``chaos`` is refused
+    without ``ZOO_CHAOS_ALLOW`` (same frame), and ``debug_dump`` returns
+    a bundle with the JAX bundle's keys (its body is this process's)."""
+    monkeypatch.delenv("ZOO_CHAOS_ALLOW", raising=False)
+
     def ask(pkg):
         conn = port_tcp._Connection(servers[pkg].host, servers[pkg].port)
         try:
@@ -377,12 +380,16 @@ def test_refused_ops_name_their_roadmap_item(servers, msg, needle):
             conn.close()
 
     resp = ask("port")
-    if needle is not None:
-        assert needle in resp["error"]
-        assert not resp.get("ok")
+    ref = ask("jax")
+    if msg["op"] == "debug_dump":
+        assert resp["ok"] is True and sorted(resp) == sorted(ref)
+        assert sorted(resp["bundle"]) == sorted(ref["bundle"])
+        assert resp["bundle"]["reason"] == "debug_dump"
         return
-    assert resp == ask("jax")
-    if msg["op"] == "generate":
+    assert resp == ref
+    if msg["op"] == "chaos":
+        assert "ZOO_CHAOS_ALLOW" in resp["error"] and not resp.get("ok")
+    elif msg["op"] == "generate":
         assert resp[-1]["outcome"] == "handoff"
         assert resp[-1]["migrated"] is False
     else:
@@ -514,3 +521,24 @@ def test_metrics_text_exposition_equals_jax():
     assert _drive_registry(port_metrics) == _drive_registry(jax_metrics)
     with pytest.raises(ValueError):
         port_metrics.MetricsRegistry().counter("bad name")
+
+
+def test_frames_carry_the_ambient_trace_like_jax():
+    """``_stamp_trace``: inside a trace context a frame carries the
+    request's trace and the open span as its parent; an explicit trace
+    wins; outside any context nothing is stamped."""
+    from zoo_tpu.obs import tracing as jax_tracing
+    from zoo_tpu_torch.obs import tracing as port_tracing
+
+    out = {}
+    for name, tcp, tr in (("port", port_tcp, port_tracing),
+                          ("jax", jax_tcp, jax_tracing)):
+        got = [tcp._stamp_trace({"op": "ping"})]
+        with tr.trace_context("ab" * 16, parent_span="pp"):
+            got.append(tcp._stamp_trace({"op": "ping"}))
+            got.append(tcp._stamp_trace({"op": "ping", "trace": "mine"}))
+        got.append(tcp._stamp_trace({"op": "ping"}))
+        out[name] = got
+    assert out["port"] == out["jax"]
+    assert out["port"][1] == {"op": "ping", "trace": "ab" * 16,
+                              "pspan": "pp"}

@@ -204,6 +204,34 @@ _k("ZOO_HEARTBEAT_FILE", "str", None,
 _k("ZOO_HEARTBEAT_INTERVAL", "float", 1.0,
    "heartbeat stamp cadence (seconds)")
 _k("ZOO_OBS_SNAPSHOT", "str", None, "metrics JSONL flushed on drain")
+_k("ZOO_TRACE_DIR", "str", None, "trace-span JSONL sink directory")
+_k("ZOO_OBS_FLIGHT_CAP", "int", 512,
+   "flight ring capacity (0 = recorder off)")
+_k("ZOO_OBS_POSTMORTEM_DIR", "str", None,
+   "bundle dir + arms the continuous spill")
+_k("ZOO_SLO_TTFT_P99_S", "float", None,
+   "p99 time-to-first-token ceiling (s)")
+_k("ZOO_SLO_INTER_TOKEN_P99_S", "float", None,
+   "p99 inter-token gap ceiling (s)")
+_k("ZOO_SLO_ERROR_RATE", "float", None, "served error-rate ceiling (0..1)")
+_k("ZOO_SLO_SHED_RATE", "float", None,
+   "admission shed-rate ceiling (0..1)")
+_k("ZOO_SLO_TENANT_SHED_RATE", "float", None,
+   "per-tenant shed-rate ceiling (0..1) the SLO watchdog evaluates "
+   "each window, published as `zoo_tenant_burn_rate`")
+_k("ZOO_SLO_KV_UTIL", "float", None,
+   "KV-block pool utilization ceiling (0..1)")
+_k("ZOO_SLO_SPEC_ACCEPT_FLOOR", "float", None,
+   "speculative accept-rate FLOOR (0..1)")
+_k("ZOO_SLO_WINDOW_S", "float", 60.0, "rolling evaluation window (s)")
+_k("ZOO_SLO_INTERVAL_S", "float", 5.0, "evaluation period (s)")
+_k("ZOO_SLO_FAIL_HEALTHZ", "bool", False,
+   "1 = an active breach turns `/healthz` 503")
+_k("ZOO_CHAOS_SPEC", "str", "",
+   "the storm's fault schedule (`kind@T[:k=v,...]`, `;`-separated)")
+_k("ZOO_CHAOS_SEED", "int", 0, "seed resolving every draw in the schedule")
+_k("ZOO_CHAOS_ALLOW", "bool", False,
+   "`1` lets a replica honor wire `chaos` ops")
 
 
 def get(name: str) -> Knob:

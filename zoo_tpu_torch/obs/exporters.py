@@ -10,12 +10,15 @@ default) serving:
   probe 503 so an external supervisor sees a hung process exactly like
   ``ProcessMonitor`` does; the body also names the seat's role
   (``ZOO_LLM_ROLE``).
+  The SLO watchdog's last verdict rides along (``slo``); under
+  ``ZOO_SLO_FAIL_HEALTHZ`` a breach turns the probe 503;
+* ``GET /cluster``  — the last multihost-aggregated snapshot (JSON),
+  populated by :func:`zoo_tpu_torch.obs.aggregate.aggregate_cluster`.
 
-The SLO watchdog's verdict that the JAX package adds to ``/healthz``,
-its ``/cluster`` view and the periodic snapshot thread come with
-ROADMAP A.6. Loopback by default: there is no authentication on these
-endpoints. :func:`write_snapshot` appends one JSON line per call to a
-snapshot file (the drain's metrics flush).
+Loopback by default: there is no authentication on these endpoints.
+:func:`write_snapshot` appends one JSON line per call to a snapshot file
+(the drain's metrics flush), and :func:`start_snapshot_thread` does so
+periodically.
 ``validate_prometheus_text`` is a line-grammar + histogram-consistency
 check of one exposition payload.
 """
@@ -35,7 +38,10 @@ from typing import Dict, List, Optional
 from zoo_tpu_torch.common.knobs import value as _knob_value
 from zoo_tpu_torch.obs.metrics import MetricsRegistry, get_registry
 
-__all__ = ["MetricsExporter", "write_snapshot", "validate_prometheus_text"]
+__all__ = [
+    "MetricsExporter", "write_snapshot", "start_snapshot_thread",
+    "validate_prometheus_text",
+]
 
 logger = logging.getLogger(__name__)
 
@@ -74,6 +80,7 @@ class MetricsExporter:
                  healthz_stale_after: Optional[float] = None):
         self.registry = registry or get_registry()
         self._stale_after = healthz_stale_after
+        self._cluster_view: Optional[Dict] = None
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -88,6 +95,21 @@ class MetricsExporter:
                         health = _heartbeat_health(outer._stale_after)
                     except Exception as e:  # noqa: BLE001 — probe, not crash
                         health = {"ok": False, "error": repr(e)}
+                    # the SLO watchdog's last verdict (when one runs in
+                    # this process); a breach turns the probe 503 only
+                    # under ZOO_SLO_FAIL_HEALTHZ: a burn is an alert,
+                    # not a death
+                    try:
+                        from zoo_tpu_torch.obs.slo import last_status
+                        slo = last_status()
+                        if slo is not None:
+                            health["slo"] = slo
+                            if not slo.get("ok", True) and \
+                                    _knob_value(
+                                        "ZOO_SLO_FAIL_HEALTHZ"):
+                                health["ok"] = False
+                    except Exception:  # noqa: BLE001 — probe, not crash
+                        pass
                     # disaggregation role (ZOO_LLM_ROLE — the knob a
                     # ReplicaGroup injects per seat): external probes
                     # and routing see the pool topology on the same
@@ -99,6 +121,20 @@ class MetricsExporter:
                     self._reply(200 if health.get("ok") else 503,
                                 json.dumps(health).encode(),
                                 "application/json")
+                elif path == "/cluster":
+                    view = outer._cluster_view
+                    if view is None:
+                        # default to this process's latest
+                        # aggregate_cluster() result (lazy import:
+                        # aggregate is a sibling that loads after us)
+                        from zoo_tpu_torch.obs.aggregate import last_cluster_view
+                        view = last_cluster_view()
+                    if view is None:
+                        self._reply(404, b'{"error": "no cluster view '
+                                    b'aggregated yet"}', "application/json")
+                    else:
+                        self._reply(200, json.dumps(view).encode(),
+                                    "application/json")
                 else:
                     self._reply(404, b"not found", "text/plain")
 
@@ -120,6 +156,9 @@ class MetricsExporter:
     @property
     def url(self) -> str:
         return f"http://{self.host}:{self.port}"
+
+    def set_cluster_view(self, merged: Dict):
+        self._cluster_view = merged
 
     def start(self) -> "MetricsExporter":
         self._thread = threading.Thread(
@@ -150,6 +189,26 @@ def write_snapshot(path: str, registry: Optional[MetricsRegistry] = None,
     with open(path, "a", encoding="utf-8") as f:
         f.write(json.dumps(rec, separators=(",", ":"), default=str) + "\n")
     return rec
+
+
+def start_snapshot_thread(path: str, interval: float = 30.0,
+                          registry: Optional[MetricsRegistry] = None
+                          ) -> threading.Thread:
+    """Daemon thread appending a snapshot line every ``interval``
+    seconds (dies with the process; the torn final line a kill can leave
+    is skipped by any JSONL reader worth the name)."""
+
+    def _run():
+        while True:
+            time.sleep(interval)
+            try:
+                write_snapshot(path, registry)
+            except OSError as e:
+                logger.warning("metrics snapshot failed: %s", e)
+
+    t = threading.Thread(target=_run, daemon=True, name="zoo-obs-snapshot")
+    t.start()
+    return t
 
 
 # ---------------------------------------------- text-format validation

@@ -4,9 +4,9 @@
 A named-metric registry in the Prometheus data model: monotonic
 counters, set-anywhere gauges, fixed-exponential-bucket histograms,
 label support, and the text exposition format. The serving door, the
-clients, ejection and the supervisor all count through it. Spans, the
-flight ring and the exporters that serve ``/metrics`` come with ROADMAP
-A.6 (observability).
+clients, the engine, ejection, the supervisor, the flight ring and the
+SLO watchdog all count through it; :mod:`zoo_tpu_torch.obs.exporters`
+serves it on ``/metrics``.
 
 Hot-path contract: recording into a metric of a *disabled* registry is a
 single attribute check and an early return; an enabled record is one

@@ -28,7 +28,11 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 from zoo_tpu_torch.obs.metrics import counter
-from zoo_tpu_torch.util.resilience import HEARTBEAT_FILE_ENV, heartbeat_age
+from zoo_tpu_torch.util.resilience import (
+    HEARTBEAT_FILE_ENV,
+    _flight,
+    heartbeat_age,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -302,6 +306,8 @@ class ProcessMonitor:
                 w.restarts = 0
                 w.quarantine_backoff = 0.0
                 _worker_quarantines.labels(event="readmitted").inc()
+                _flight("replica_unquarantined", worker=w.name,
+                        quarantines=w.quarantines)
                 logger.warning(
                     "%s survived its quarantine probe for %.0fs; "
                     "re-admitted with a fresh restart budget",
@@ -322,6 +328,8 @@ class ProcessMonitor:
                 self.quarantine_probe_max_s)
             w.quarantine_until = now + w.quarantine_backoff
             _worker_quarantines.labels(event="probe").inc()
+            _flight("replica_quarantine_probe", worker=w.name,
+                    next_backoff_s=w.quarantine_backoff)
             logger.info("%s quarantine probe respawn (next backoff "
                         "%.1fs)", w.name, w.quarantine_backoff)
             w.spawn()
@@ -369,6 +377,9 @@ class ProcessMonitor:
                                               + w.quarantine_backoff)
                         _worker_quarantines.labels(
                             event="quarantined").inc()
+                        _flight("replica_quarantined", worker=w.name,
+                                reason=reason, restarts=w.restarts,
+                                probe_backoff_s=w.quarantine_backoff)
                         logger.error(
                             "%s %s with no restart budget left "
                             "(%d/%d) — QUARANTINED; probing back every "

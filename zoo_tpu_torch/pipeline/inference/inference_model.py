@@ -9,8 +9,8 @@ kernels of :mod:`zoo_tpu_torch.ops.kernels.quant`. In ``auto`` mode it
 keeps int8 only where it measures faster than the float forward.
 
 The chosen path is recorded on the model (``_quant_path``,
-``_quant_speedup``); the JAX package also publishes it as a metrics
-gauge, which waits for ROADMAP A.6. ``InferenceModel.load`` reads the
+``_quant_speedup``) and published as the ``zoo_quant_path_info`` gauge.
+``InferenceModel.load`` reads the
 port's own model file (``KerasNet.save``); the other file loaders
 (``load_tf``, ``load_onnx``, ``load_caffe``, ``load_encrypted``) raise,
 naming the ROADMAP item that brings each.
@@ -31,6 +31,24 @@ from zoo_tpu_torch.common import knobs
 from zoo_tpu_torch.common.device import resolve_device
 
 logger = logging.getLogger(__name__)
+
+
+def _publish_quant_path(path: str, speedup: Optional[float]) -> None:
+    """Record every quantize_model decision in the scrape: prior
+    verdicts flip to 0 (info-gauge style) so exactly one series is 1."""
+    from zoo_tpu_torch.obs.metrics import gauge
+
+    fam = gauge(
+        "zoo_quant_path_info",
+        "int8 quantization path chosen by quantize_model (1 = current "
+        "verdict) with the measured int8/float speedup as a label "
+        "(\"-\" when the mode skipped the microbench)",
+        labels=("path", "speedup"))
+    for child in fam.children():
+        child.set(0.0)
+    fam.labels(path=path,
+               speedup="-" if speedup is None else f"{speedup:.3f}"
+               ).set(1.0)
 
 
 class InferenceModel:
@@ -240,6 +258,7 @@ def quantize_model(model, mode: Optional[str] = None,
                          "(expected auto|force|off)")
     if mode == "off":
         model._quant_path = "bf16"
+        _publish_quant_path("bf16", None)
         return model
     if model.params is None:
         raise ValueError("model must be built before quantization")
@@ -249,6 +268,7 @@ def quantize_model(model, mode: Optional[str] = None,
         # nothing to measure with: auto behaves like force
         _apply_int8(model)
         model._quant_path = "int8"
+        _publish_quant_path("int8", None)
         return model
 
     xs = [np.zeros((sample_batch,) + tuple(s[1:]), np.float32)
@@ -262,6 +282,7 @@ def quantize_model(model, mode: Optional[str] = None,
         model._quant_path = path
         if path == "int8":
             _apply_int8(model)
+        _publish_quant_path(path, speedup)
         return model
     float_rate = _time_forward(model, xs)
     saved = _copy_tree(model.params)
@@ -272,11 +293,13 @@ def quantize_model(model, mode: Optional[str] = None,
     if speedup >= min_speedup:
         model._quant_path = "int8"
         _AUTO_VERDICT_CACHE[key] = ("int8", speedup)
+        _publish_quant_path("int8", speedup)
         return model
     model.params = saved
     model._quantized = False
     model._quant_path = "bf16-fallback"
     _AUTO_VERDICT_CACHE[key] = ("bf16-fallback", speedup)
+    _publish_quant_path("bf16-fallback", speedup)
     logger.info("int8 quantization measured %.3fx the float forward "
                 "(< %.2fx): keeping the float path", speedup, min_speedup)
     return model

@@ -5,7 +5,9 @@
 a tiny ``llama:`` spec on ``--device`` — under a mixed storm of long
 prompts (routed through the two-leg ``kv_migrate`` KV handoff) and short
 prompts (plain single-leg streams on the decode seats), then a SIGKILL
-of the prefill replica while a storm of long prompts is handing off.
+of the prefill replica **mid-handoff** (a chaos delay armed on the
+``serving.kv_migrate.push`` seam over the wire ``chaos`` op holds the
+push open while the kill lands).
 
 The contract this smoke asserts:
 
@@ -21,11 +23,6 @@ The contract this smoke asserts:
 4. the killed prefill replica respawned on its original port with its
    role kept — 3/3 healthy, and a long prompt hands off through it
    again.
-
-The JAX script pins its kill INSIDE the push with a delay armed over
-the wire ``chaos`` op, which waits for ROADMAP A.6 in the port; this
-copy kills the prefill seat while long prompts are handing off, so the
-kill lands in a prefill, a park or a push.
 
 Run directly (``python -m zoo_tpu_torch.scripts.check_disagg --device
 cpu``; no ``--device`` = the current CUDA device) or from the suite
@@ -97,7 +94,8 @@ def check(verbose: bool = True, device=None) -> int:
     short_pool = [p for p in prompts if len(p) == SHORT_PROMPT]
     log_dir = tempfile.mkdtemp(prefix="zoo-disagg-chaos-")
     group = ReplicaGroup(SPEC, num_replicas=3, max_restarts=2,
-                         log_dir=log_dir, roles=ROLES, device=device)
+                         log_dir=log_dir, roles=ROLES, device=device,
+                         env={"ZOO_CHAOS_ALLOW": "1"})
     group.start(timeout=180)
     # hedge OFF: this smoke measures the handoff + failover layer, not
     # the hedging layer on top of it
@@ -184,17 +182,30 @@ def check(verbose: bool = True, device=None) -> int:
         assert sum(llm_stats(group.ports[i])["handoffs_in"]
                    for i in (1, 2)) > 0, "no handoff reached a decode seat"
 
-        # -- phase 2: SIGKILL the prefill replica during a handoff storm
+        # -- phase 2: SIGKILL the prefill replica MID-handoff ----------
+        # hold the push open on the kv_migrate seam, start a long stream,
+        # and kill the prefill seat once it has parked the stream's KV
+        # (the push starts right after the park, so the kill lands in it)
+        group.chaos_rpc(0, "serving.kv_migrate.push", delay_ms=800.0)
         out0 = llm_stats(group.ports[0])["handoffs_out"]
-        threads = storm(2.0, 0, 100)
-        while llm_stats(group.ports[0])["handoffs_out"] == out0:
-            time.sleep(0.01)
-        group.kill_replica(0)
-        for t in threads:
-            t.join()
-        assert not errors, (
-            f"{len(errors)} client-visible failure(s) across the kill:\n"
-            + "\n".join(errors[:10]))
+        kill_done = []
+
+        def killer():
+            deadline = time.monotonic() + 60
+            while llm_stats(group.ports[0])["handoffs_out"] == out0 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.01)
+            group.kill_replica(0)
+            kill_done.append(True)
+
+        kt = threading.Thread(target=killer)
+        kt.start()
+        try:
+            # must still be byte-exact
+            run_stream(np.random.RandomState(SEED + 98), long_pool, n_long)
+        finally:
+            kt.join()
+        assert kill_done, "kill thread never fired"
 
         # -- the group heals: respawn recorded, 3/3 healthy, role kept
         deadline = time.monotonic() + 60
@@ -212,9 +223,16 @@ def check(verbose: bool = True, device=None) -> int:
         assert llm_stats(group.ports[0])["role"] == "prefill", \
             "respawned replica lost its prefill role"
 
-        # post-heal: the handoff path works again end to end
+        # post-heal: the handoff path works again end to end, once the
+        # client's breaker on the killed seat lets it back in
         rs = np.random.RandomState(SEED + 99)
-        run_stream(rs, long_pool, n_long)
+        deadline = time.monotonic() + 30
+        while True:
+            run_stream(rs, long_pool, n_long)
+            if llm_stats(group.ports[0])["handoffs_out"] >= 1 or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.3)
         assert llm_stats(group.ports[0])["handoffs_out"] >= 1, \
             "the respawned prefill seat handed nothing off"
 
@@ -238,7 +256,7 @@ def check(verbose: bool = True, device=None) -> int:
         print(f"DISAGG CHAOS OK: seed {SEED}, {n_long[0]} handoff-path "
               f"+ {n_short[0]} plain byte-exact streams, 0 failures, "
               f"{handoffs_in} adoption(s) on the live decode seats, "
-              f"prefill seat SIGKILLed during a handoff storm and "
+              f"prefill seat SIGKILLed mid-push and "
               f"respawned with its role ({group.restarts()} respawn(s)), "
               "0 leaked KV blocks")
     return 0

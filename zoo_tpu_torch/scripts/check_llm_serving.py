@@ -9,9 +9,8 @@ one replica SIGKILLed mid-stream — and the HA streaming contract holds:
 * ZERO client-visible failures — every stream completes and is
   byte-identical to its pre-chaos reference (failover-resume regenerates
   the suffix on the surviving replica; no gap, duplicate, or error);
-* the dead seat is respawned on its original port and answers ``ping``
-  (the ``/healthz`` probe of the JAX script needs the metrics exporter,
-  which waits for ROADMAP A.6);
+* the dead seat is respawned on its original port and probes healthy
+  (``/healthz``);
 * ZERO leaked KV blocks — after the storm both engines' paged
   allocators account to zero (``llm_stats`` over the wire), so aborted
   streams returned every block to the free list;
@@ -39,18 +38,13 @@ SPEC = "llama:tiny:slots=4,block=8,blocks=96,tables=8,buckets=16/32"
 
 
 def replicas_up(group, deadline_s: float) -> int:
-    """How many of the group's replicas answer ``ping`` before the
-    deadline (the port's stand-in for the JAX script's ``healthz``)."""
+    """How many of the group's replicas probe healthy on ``/healthz``
+    before the deadline."""
     end = time.monotonic() + deadline_s
     healthy = 0
     while time.monotonic() < end:
-        healthy = 0
-        for i in range(group.num_replicas):
-            try:
-                healthy += bool(group._rpc(i, {"op": "ping"}, 2.0)
-                                .get("ok"))
-            except Exception:  # noqa: BLE001 — a down replica is data
-                pass
+        hz = group.healthz()
+        healthy = sum(1 for h in hz if h is not None and h.get("ok"))
         if healthy == group.num_replicas:
             break
         time.sleep(0.3)

@@ -53,7 +53,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from zoo_tpu_torch.obs.metrics import counter, gauge
-from zoo_tpu_torch.util.resilience import env_float, env_int
+from zoo_tpu_torch.util.resilience import _flight, env_float, env_int
 
 __all__ = ["ReplicaScore", "EjectionController", "EjectionConfig",
            "ACTIVE", "PROBATION", "EJECTED"]
@@ -216,6 +216,10 @@ class EjectionController:
         s.state = state
         s.state_since = now
         _transitions.labels(event=event).inc()
+        _flight(f"replica_{event}", seat=s.name,
+                ewma_ms=None if s.ewma_ms is None
+                else round(s.ewma_ms, 2),
+                err=round(s.err, 3))
         with self._lock:
             self.events.append((now, event, s.name))
             del self.events[:-256]

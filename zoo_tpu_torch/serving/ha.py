@@ -20,10 +20,13 @@ of the port (``KerasNet.save``), and ``llama:*`` (the streaming engine,
 mounted by the replica process itself).
 
 ``ReplicaGroup(roles=[...])`` gives each seat its ``ZOO_LLM_ROLE``
-(``prefill``/``decode``/``mixed``), kept across a respawn. What waits,
-each for its ROADMAP item: the postmortem harvest, the SLO verdict on
-``/healthz`` and the wire chaos op (A.6); TF SavedModel directories
-(A.16).
+(``prefill``/``decode``/``mixed``), kept across a respawn. With a
+``log_dir`` every replica spills its flight ring under
+``<log_dir>/flight/replica-<i>`` (``ZOO_OBS_POSTMORTEM_DIR``), and
+:meth:`ReplicaGroup.harvest_postmortems` packages a dead replica's
+remains into ``<log_dir>/postmortems``; :meth:`ReplicaGroup.chaos_rpc`
+arms a fault site inside a replica over the wire ``chaos`` op. What
+waits for its ROADMAP item: TF SavedModel directories (A.16).
 """
 
 from __future__ import annotations
@@ -264,6 +267,13 @@ class ReplicaGroup:
                 wenv["ZOO_LLM_ROLE"] = self.roles[i]
             hb = os.path.join(log_dir, f"replica-{i}.hb") if log_dir \
                 else None
+            if log_dir:
+                # per-replica flight-recorder dir: the replica spills its
+                # event ring there continuously (a SIGKILL cannot be
+                # caught: the spill IS its postmortem) and dumps full
+                # bundles there on catchable deaths
+                wenv["ZOO_OBS_POSTMORTEM_DIR"] = os.path.join(
+                    log_dir, "flight", f"replica-{i}")
             cmd = [sys.executable, "-m", "zoo_tpu_torch.serving.replica",
                    "--model", model, "--host", host,
                    "--port", str(port), "--metrics-port", str(mport),
@@ -275,8 +285,8 @@ class ReplicaGroup:
                 cmd=cmd, env=wenv, name=f"serving-replica-{i}",
                 log_dir=log_dir, heartbeat_file=hb))
         # quarantine=True: a seat that exhausts max_restarts is parked
-        # (zoo_serve_replicas_quarantined gauge + backoff re-admission
-        # probes) instead of tearing down the whole group — its healthy
+        # (flight event + zoo_serve_replicas_quarantined gauge +
+        # backoff re-admission probes) instead of tearing down the whole group — its healthy
         # siblings keep serving while the clients fail over around the
         # empty seat
         self._monitor = ProcessMonitor(
@@ -338,9 +348,15 @@ class ReplicaGroup:
     def healthz(self, timeout: float = 2.0) -> List[Optional[Dict]]:
         """Probe every replica's ``/healthz`` door; ``None`` for a
         replica that did not answer. Publishes the
-        ``zoo_serve_replicas_healthy`` gauge and the restart tally. (The
-        JAX package's probe also carries the SLO verdict and sweeps the
-        flight-recorder remains: ROADMAP A.6.)"""
+        ``zoo_serve_replicas_healthy`` gauge and the restart tally.
+        The body carries each replica's last SLO-watchdog verdict when
+        one is running (``"slo"``). Also sweeps dead replicas'
+        flight-recorder remains into the group's postmortem dir
+        (best-effort, same cadence as the probes)."""
+        try:
+            self.harvest_postmortems()
+        except Exception:  # noqa: BLE001 — probing must never fail on
+            pass           # a harvest hiccup
         out: List[Optional[Dict]] = []
         for i, mport in enumerate(self.metrics_ports):
             try:
@@ -372,6 +388,121 @@ class ReplicaGroup:
         ``zoo_serve_replicas_quarantined`` gauge on every healthz
         sweep)."""
         return self._monitor.quarantined()
+
+    def alive(self) -> List[str]:
+        return self._monitor.alive()
+
+    def kill_replica(self, i: int, sig: Optional[int] = None):
+        """SIGKILL replica ``i`` (chaos hook): the supervisor respawns
+        it on the same port within its restart budget while clients
+        fail over."""
+        import signal as _signal
+        w = self._monitor.workers[i]
+        if w.proc is not None and w.proc.poll() is None:
+            os.kill(w.proc.pid, sig or _signal.SIGKILL)
+
+    def chaos_rpc(self, i: int, site: str, delay_ms: float = None,
+                  error: str = None, p: float = 1.0, times: int = None,
+                  clear: bool = False, timeout: float = 5.0) -> Dict:
+        """Arm (or clear) a fault site INSIDE replica ``i`` over the
+        wire ``chaos`` op — the remote half of the deterministic chaos
+        harness. The replica refuses unless
+        its env carries ``ZOO_CHAOS_ALLOW=1`` (pass it via ``env=`` at
+        group construction, as the chaos smokes do)."""
+        msg: Dict = {"op": "chaos", "site": site}
+        if clear:
+            msg["clear"] = 1
+        else:
+            if delay_ms is not None:
+                msg["delay_ms"] = float(delay_ms)
+            if error is not None:
+                msg["error"] = error
+            if times is not None:
+                msg["times"] = int(times)
+            msg["p"] = float(p)
+        resp = self._rpc(i, msg, timeout)
+        if not resp.get("ok"):
+            raise RuntimeError(
+                f"chaos op on replica {i} refused: {resp.get('error')}")
+        return resp
+
+    # -- postmortem harvest ------------------------------------------------
+    def _flight_dir(self, i: int) -> Optional[str]:
+        if not self.log_dir:
+            return None
+        return os.path.join(self.log_dir, "flight", f"replica-{i}")
+
+    def postmortem_dir(self) -> Optional[str]:
+        """Where harvested bundles land: ``<log_dir>/postmortems``."""
+        if not self.log_dir:
+            return None
+        return os.path.join(self.log_dir, "postmortems")
+
+    def harvest_postmortems(self) -> List[str]:
+        """Collect dead replicas' flight-recorder output into the group
+        dir. Two kinds of remains: full postmortem bundles (dumped on
+        catchable deaths — unhandled exception, SIGTERM, rc-75
+        preemption) are moved as-is; orphan spill files (``flight-
+        <pid>.jsonl`` whose pid is not the live replica — the SIGKILL
+        case, where no handler could run) are packaged into a bundle
+        with whatever events were flushed before death, torn tail
+        skipped. Idempotent; returns the new bundle paths. Requires a
+        ``log_dir`` (no dir = recorder was never armed)."""
+        out_dir = self.postmortem_dir()
+        if out_dir is None:
+            return []
+        from zoo_tpu_torch.obs.flight import read_spill
+        harvested: List[str] = []
+        for i in range(self.num_replicas):
+            fdir = self._flight_dir(i)
+            if not fdir or not os.path.isdir(fdir):
+                continue
+            w = self._monitor.workers[i]
+            live_pid = w.proc.pid if w.proc is not None and \
+                w.proc.poll() is None else None
+            for fname in sorted(os.listdir(fdir)):
+                src = os.path.join(fdir, fname)
+                if fname.startswith("postmortem-") and \
+                        fname.endswith(".json"):
+                    os.makedirs(out_dir, exist_ok=True)
+                    dst = os.path.join(out_dir,
+                                       f"replica-{i}-{fname}")
+                    try:
+                        os.replace(src, dst)
+                        harvested.append(dst)
+                    except OSError:
+                        pass
+                    continue
+                if not (fname.startswith("flight-") and
+                        fname.endswith(".jsonl")):
+                    continue
+                try:
+                    pid = int(fname[len("flight-"):-len(".jsonl")])
+                except ValueError:
+                    continue
+                if pid == live_pid:
+                    continue  # the live replica's own spill
+                ring = read_spill(src)
+                bundle = {"reason": "harvested", "pid": pid,
+                          "replica": i, "ts": time.time(),
+                          "note": "process died without dumping (e.g. "
+                                  "SIGKILL); ring reconstructed from "
+                                  "the continuous spill, torn tail "
+                                  "skipped",
+                          "ring": ring}
+                os.makedirs(out_dir, exist_ok=True)
+                dst = os.path.join(
+                    out_dir, f"replica-{i}-postmortem-pid{pid}.json")
+                try:
+                    tmp = dst + ".tmp"
+                    with open(tmp, "w", encoding="utf-8") as f:
+                        json.dump(bundle, f, default=str)
+                    os.replace(tmp, dst)
+                    os.remove(src)
+                    harvested.append(dst)
+                except OSError:
+                    pass
+        return harvested
 
     def alive(self) -> List[str]:
         return self._monitor.alive()

@@ -33,8 +33,15 @@ other tenants' never do. Disaggregation: when the plan knows a
 ``migrate_min_tokens`` tokens, leg 1 goes to the prefill seat with the
 decode target's address (``handoff``); its terminal ``handoff`` frame
 fires leg 2, a plain generate with the same id, at the target, which
-binds the migrated KV, or at any seat when the push failed. What waits
-for its ROADMAP item: the client spans (A.6).
+binds the migrated KV, or at any seat when the push failed.
+
+Every logical request also carries ONE trace id end to end: the client
+mints it (or adopts ``trace_id=`` / a predict's ``trace``), stamps it
+on every attempt's frame, hedged duplicates and failover resumes
+included, and records each attempt as a sibling ``client.attempt``
+span under one root span (``client.generate`` / ``client.rpc``), so the
+timeline merger rebuilds the whole request from the fleet's
+per-process trace files, across a replica kill.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ import hashlib
 import os
 import queue as _queue
 import random
+import sys
 import threading
 import time
 import uuid
@@ -53,6 +61,7 @@ import numpy as np
 
 from zoo_tpu_torch.common.knobs import value as _knob_value
 from zoo_tpu_torch.obs.metrics import counter, histogram
+from zoo_tpu_torch.obs.tracing import emit_span, new_trace_id
 from zoo_tpu_torch.serving.ejection import (
     EJECTED,
     PROBATION,
@@ -491,8 +500,9 @@ class HAServingClient:
         drafting for this stream); speculative or not, the token
         stream is byte-identical, so failover may freely land a
         resumed stream on a replica with a different budget.
-        ``trace_id`` rides every attempt's wire frame when given (the
-        port mints none: spans wait for ROADMAP A.6).
+        ``trace_id`` adopts a caller-minted trace id for the stream
+        (else one is minted); every attempt's frame carries it, and the
+        replicas' spans join under it.
 
         The HA contracts, applied per stream:
 
@@ -515,7 +525,13 @@ class HAServingClient:
           the last subscriber and frees the KV blocks).
         """
         rid = uuid.uuid4().hex
-        tid = trace_id
+        # one trace id for the whole logical stream: every attempt
+        # (retries, hedges, failover resumes) is a sibling span under
+        # this request's root
+        tid = trace_id if trace_id is not None else new_trace_id()
+        root_sid = uuid.uuid4().hex[:16]
+        t_req = time.perf_counter()
+        t_req_wall = time.time()
         dl = Deadline.from_ms(
             deadline_ms if deadline_ms is not None else self.deadline_ms)
         use_hedge = self.hedge if hedge is None else bool(hedge)
@@ -567,21 +583,32 @@ class HAServingClient:
             def run():
                 # exactly ONE terminal event per attempt ("err"/"end"),
                 # stopped or not — the arbiter's in_flight counter
-                # depends on it
+                # depends on it. Each attempt records ONE sibling span
+                # under the request's root.
+                t0, t0w = time.perf_counter(), time.time()
+
+                def att_span(outcome: str, ok: bool):
+                    emit_span("client.attempt", t0w,
+                              time.perf_counter() - t0, trace=tid,
+                              parent=root_sid, ok=ok, outcome=outcome,
+                              endpoint=f"{ep.host}:{ep.port}",
+                              hedge=is_hedge,
+                              resume_from=att["resume_from"])
+
                 try:
                     conn = ep.acquire()
                 except OSError as e:
                     ep.breaker.record_failure()
                     self._score_err(ep)
+                    att_span("connect_error", False)
                     results.put(("err", att, e))
                     return
                 att["conn"] = conn
                 msg = {"op": "generate", "id": rid,
                        "prompt": prompt,
                        "max_new_tokens": int(max_new_tokens),
-                       "resume_from": received}
-                if tid is not None:
-                    msg["trace"] = tid
+                       "resume_from": received,
+                       "trace": tid, "pspan": root_sid}
                 if ten is not None:
                     msg["tenant"] = ten
                 for key, val in (("temperature", temperature),
@@ -591,8 +618,15 @@ class HAServingClient:
                         msg[key] = val
                 if handoff_to is not None:
                     msg["handoff"] = [handoff_to.host, handoff_to.port]
+                spanned = False
                 try:
                     for frame in conn.stream(dict(msg), deadline=dl):
+                        if frame.get("done") and not att["stop"].is_set():
+                            # the span goes out BEFORE the terminal frame
+                            # reaches the arbiter: the caller may stop
+                            # tracing the moment its stream ends
+                            att_span("ok", True)
+                            spanned = True
                         results.put(("frame", att, frame))
                         if att["stop"].is_set():
                             break
@@ -606,11 +640,16 @@ class HAServingClient:
                     mine = claim_conn(att)
                     if mine is not None:
                         ep.release(mine, healthy=False)
+                    if not spanned:
+                        att_span("transport_error", False)
                     results.put(("err", att, e))
                     return
                 mine = claim_conn(att)
                 if mine is not None:
                     ep.release(mine, healthy=not att["stop"].is_set())
+                if not spanned:
+                    att_span("stopped" if att["stop"].is_set() else "ok",
+                             True)
                 results.put(("end", att, None))
 
             threading.Thread(target=run, daemon=True,
@@ -829,6 +868,15 @@ class HAServingClient:
         finally:
             for att in attempts:
                 kill(att)
+            # the request's root span, one per logical stream (ok=False
+            # covers raised errors AND a caller that abandoned the
+            # generator mid-stream)
+            exc = sys.exc_info()[1]
+            emit_span("client.generate", t_req_wall,
+                      time.perf_counter() - t_req, trace=tid,
+                      span_id=root_sid, ok=exc is None, rid=rid,
+                      tokens=received, attempts=len(attempts),
+                      hedged=hedged)
 
     # -- gray-failure scoring (docs/fault_tolerance.md) --------------------
     def _score_ok(self, ep: _Endpoint, dt: float):
@@ -1074,22 +1122,41 @@ class HAServingClient:
         if not is_predict:
             # probes must not pollute the per-version series
             return self._rpc_attempts(msg, deadline_ms, want)
+        # trace identity for the logical request: minted here (or
+        # adopted from the caller's ``trace`` field), ridden by EVERY
+        # attempt, parented under one root span
+        tid = msg.get("trace") or new_trace_id()
+        root_sid = uuid.uuid4().hex[:16]
+        msg["trace"] = tid
+        msg["pspan"] = root_sid
         ab_label = want if want is not None else "unpinned"
         t_req = time.perf_counter()
+        t_req_wall = time.time()
+
+        def root_span(outcome: str, ok: bool):
+            emit_span("client.rpc", t_req_wall,
+                      time.perf_counter() - t_req, trace=tid,
+                      span_id=root_sid, ok=ok, op="predict",
+                      outcome=outcome, rid=msg.get("id"))
+
         try:
             resp = self._rpc_attempts(msg, deadline_ms, want)
         except DeadlineExceeded:
             _ab_requests.labels(version=ab_label,
                                 outcome="expired").inc()
+            root_span("expired", False)
             raise
         except Exception:
             _ab_requests.labels(version=ab_label, outcome="failed").inc()
+            root_span("failed", False)
             raise
         _ab_requests.labels(
             version=ab_label,
             outcome="error" if "error" in resp else "ok").inc()
         _ab_latency.labels(version=ab_label).observe(
             time.perf_counter() - t_req)
+        root_span("error" if "error" in resp else "ok",
+                  "error" not in resp)
         return resp
 
     def _rpc_attempts(self, msg: Dict, deadline_ms: Optional[float],
@@ -1114,11 +1181,26 @@ class HAServingClient:
 
             def run():
                 t0 = time.perf_counter()
+                t0w = time.time()
+
+                def att_span(outcome: str, ok: bool):
+                    # sibling attempt spans under the request root (a
+                    # traced predict stamped trace/pspan in rpc();
+                    # untraced ops, the probes, skip entirely)
+                    if msg.get("trace") is not None:
+                        emit_span("client.attempt", t0w,
+                                  time.perf_counter() - t0,
+                                  trace=msg["trace"],
+                                  parent=msg.get("pspan"), ok=ok,
+                                  outcome=outcome,
+                                  endpoint=f"{ep.host}:{ep.port}")
+
                 try:
                     conn = ep.acquire()
                 except OSError as e:
                     ep.breaker.record_failure()
                     self._score_err(ep)
+                    att_span("connect_error", False)
                     results.put(("err", ep, e))
                     return
                 try:
@@ -1134,9 +1216,11 @@ class HAServingClient:
                         # failure; either way the seat just failed
                         ep.breaker.record_failure()
                         self._score_err(ep)
+                    att_span("transport_error", False)
                     results.put(("err", ep, e))
                     return
                 ep.release(conn, healthy=True)
+                att_span("shed" if resp.get("shed") else "ok", True)
                 results.put(("ok", ep, resp, time.perf_counter() - t0))
 
             threading.Thread(target=run, daemon=True,

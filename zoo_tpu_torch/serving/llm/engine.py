@@ -45,9 +45,14 @@ tick runs over whatever mix of old and new sequences the slots hold.
   admission and enters decode with the prefill seat's first token,
   running no prefill call here.
 
-This copy leaves out the reference's telemetry: spans, the flight ring
-and the engine's own gauges (the ``zoo_tenant_*`` families are kept).
-Streams are read by cursor; ``GenHandle.subscribe``/``unsubscribe``
+Telemetry is the reference's: the ``zoo_llm_*`` and ``zoo_tenant_*``
+families, the ``llm.stream`` / ``llm.prefill`` spans and the
+``llm.admit`` / ``llm.first_token`` / ``llm.preempt`` events under each
+stream's request trace id (``GenHandle.trace_id``), and the flight-ring
+records (``llm_stream_end``, ``tenant_shed``, ``engine_tick`` every
+128th decode step, ``kv_handoff_abort``, ``kv_migrate_out``/``_in``,
+``llm_preempt``). All of it is host work outside the tick's device
+calls: none adds a device sync. Streams are read by cursor; ``GenHandle.subscribe``/``unsubscribe``
 count the readers, so the serving door cancels a stream only when its
 last reader drops.
 The model is any object with the
@@ -66,7 +71,9 @@ from typing import Deque, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from zoo_tpu_torch.common.knobs import value as knob_value
-from zoo_tpu_torch.obs.metrics import counter, gauge
+from zoo_tpu_torch.obs.flight import record_event
+from zoo_tpu_torch.obs.metrics import counter, gauge, histogram
+from zoo_tpu_torch.obs.tracing import emit_event, emit_span
 from zoo_tpu_torch.serving.llm.kv_cache import (
     BlockAllocator,
     prefix_block_hashes,
@@ -75,6 +82,95 @@ from zoo_tpu_torch.serving.llm.speculative import PromptLookup, accept_length
 from zoo_tpu_torch.serving.tenancy import registry as tenant_registry
 from zoo_tpu_torch.util.resilience import Deadline, env_int
 
+_tokens = counter(
+    "zoo_llm_tokens_total", "Tokens processed by the LLM engine "
+    "(prefill = prompt tokens, decode = generated tokens)",
+    labels=("kind",))
+_steps = counter(
+    "zoo_llm_decode_steps_total",
+    "Fixed-shape decode iterations executed")
+_ttft = histogram(
+    "zoo_llm_ttft_seconds",
+    "Time from stream submission to its first generated token")
+# per-stream token-cadence families: tick-phase
+# timing says how busy the ENGINE is; these say what each REQUEST
+# experienced — the p99s the SLO watchdog burns against
+_inter_token = histogram(
+    "zoo_llm_inter_token_seconds",
+    "Gap between consecutive generated tokens of one stream, as "
+    "observed at the engine's readback (what a streaming client feels "
+    "between frames)")
+_stream_ttft = histogram(
+    "zoo_llm_stream_ttft_seconds",
+    "Per-stream time-to-first-token by final outcome (streams that "
+    "never produced a token observe their full lifetime under their "
+    "terminal outcome)", labels=("outcome",))
+_occupancy = gauge(
+    "zoo_llm_slot_occupancy",
+    "Decode slots holding a live sequence right now")
+_waiting = gauge(
+    "zoo_llm_waiting_streams", "Streams queued behind admission "
+    "(no free slot or no free KV blocks)")
+_preempts = counter(
+    "zoo_llm_preempt_total",
+    "Running streams evicted to free KV blocks (re-queued, resumed by "
+    "re-prefill)")
+_streams = counter(
+    "zoo_llm_streams_total", "Finished streams by outcome "
+    "(ok / expired / cancelled / error)", labels=("outcome",))
+_dedup = counter(
+    "zoo_llm_stream_dedup_total",
+    "Duplicate stream ids joined to an existing stream instead of "
+    "decoding twice")
+# tick-pipeline families: where each engine tick
+# spends its time, and how much of the wall clock the device is busy —
+# the overlap the async pipeline exists to create
+_tick_seconds = histogram(
+    "zoo_llm_tick_seconds",
+    "Per-phase engine tick latency (schedule = sweep/admit/grow host "
+    "work, prefill = prompt chunk executions, decode = dispatch-to-"
+    "ready device time, readback = applying a ready batch to streams)",
+    labels=("phase",))
+_overlap_ratio = gauge(
+    "zoo_llm_tick_overlap_ratio",
+    "Device-busy time / wall time over the recent decode window (1.0 "
+    "= the scheduler never leaves the device idle)")
+# prefix-cache families: prompt tokens whose KV
+# was reused from a cached prefix vs computed fresh, and the HBM cost
+# of one cached token under the active cache dtype
+_prefix_hits = counter(
+    "zoo_llm_prefix_cache_hit_tokens_total",
+    "Prompt tokens admitted onto CACHED prefix blocks (prefill skipped "
+    "straight past them)")
+_prefix_misses = counter(
+    "zoo_llm_prefix_cache_miss_tokens_total",
+    "Prompt tokens prefilled fresh while prefix caching was enabled")
+_kv_bytes_per_token = gauge(
+    "zoo_llm_kv_bytes_per_token",
+    "HBM bytes one cached token costs (K+V rows across layers, plus "
+    "int8 scale rows) under the engine model's KV cache dtype")
+# speculative-decoding families: how many tokens
+# the drafter proposed, how many the verify pass accepted (the
+# amortization the feature exists for), the per-pass accept-length
+# distribution, and how often the drafter had anything to propose
+_spec_proposed = counter(
+    "zoo_llm_spec_proposed_tokens_total",
+    "Draft tokens proposed by the n-gram prompt-lookup drafter and "
+    "scored by a verify pass")
+_spec_accepted = counter(
+    "zoo_llm_spec_accepted_tokens_total",
+    "Draft tokens accepted by the verify pass (each one is a decoded "
+    "token that cost no extra HBM pass)")
+_spec_accept_len = histogram(
+    "zoo_llm_spec_accept_len",
+    "Accepted-prefix length per verify pass with a non-empty draft "
+    "(0 = the first draft token already mismatched)",
+    buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0))
+_spec_hit_rate = gauge(
+    "zoo_llm_spec_draft_hit_rate",
+    "Fraction of decode lanes the prompt-lookup drafter produced at "
+    "least one proposal for (cumulative, republished from "
+    "engine.stats())")
 # per-tenant admission, shedding, preemption and live occupancy
 _tenant_admitted = counter(
     "zoo_tenant_admitted_total",
@@ -164,7 +260,10 @@ class GenHandle:
     def __init__(self, rid: str, prompt: np.ndarray, max_new: int,
                  deadline: Optional[Deadline],
                  sampling: Tuple[float, int, float, int] = None,
-                 spec_k: Optional[int] = None, tenant: str = ""):
+                 spec_k: Optional[int] = None,
+                 trace_id: Optional[str] = None,
+                 parent_span: Optional[str] = None,
+                 tenant: str = ""):
         self.id = rid
         self.prompt = np.asarray(prompt, np.int32)
         self.max_new = int(max_new)
@@ -173,6 +272,12 @@ class GenHandle:
         # slot and blocks count against and whose class orders
         # preemption ("" = unlabeled)
         self.tenant = tenant or ""
+        # request-scoped trace identity (rides the wire from the HA
+        # client): every lifecycle event of the stream carries it, so
+        # the timeline merger joins this replica's work into the
+        # request's fleet-wide trace
+        self.trace_id = trace_id
+        self.parent_span = parent_span
         # speculative budget: None = the engine's, 0 = no drafts (the
         # stream still rides the verify pass with an empty draft), 1..k
         # a cap
@@ -188,6 +293,7 @@ class GenHandle:
         self.error: Optional[str] = None
         self.truncated = False
         self.created = time.perf_counter()
+        self.created_wall = time.time()
         self.first_token_at: Optional[float] = None
         self.last_token_at: Optional[float] = None
         self.admitted_at: Optional[float] = None
@@ -221,6 +327,11 @@ class GenHandle:
             now = time.perf_counter()
             if self.first_token_at is None:
                 self.first_token_at = now
+                _ttft.observe(now - self.created)
+            else:
+                # the gap a streaming client felt between two frames
+                # (preemption pauses and failover stalls land here)
+                _inter_token.observe(now - self.last_token_at)
             self.last_token_at = now
             self._cond.notify_all()
 
@@ -233,6 +344,20 @@ class GenHandle:
             # finished handles live on in the dedup LRU: drop the index
             self.lookup = None
             self._cond.notify_all()
+        _streams.labels(outcome=outcome).inc()
+        now = time.perf_counter()
+        # ttft by outcome: a stream that died waiting observes its whole
+        # lifetime
+        _stream_ttft.labels(outcome=outcome).observe(
+            (self.first_token_at or now) - self.created)
+        record_event("llm_stream_end", rid=self.id, outcome=outcome,
+                     tokens=len(self.tokens), preempts=self.preempts,
+                     tenant=self.tenant or None, error=error)
+        emit_span("llm.stream", self.created_wall, now - self.created,
+                  trace=self.trace_id, parent=self.parent_span,
+                  ok=outcome == "ok", rid=self.id, outcome=outcome,
+                  tokens=len(self.tokens), preempts=self.preempts,
+                  tenant=self.tenant or None)
 
     def cancel(self):
         """Client-side abort: the scheduler frees the slot and blocks at
@@ -361,6 +486,9 @@ class LLMEngine:
                                         prefix_cache=self.prefix_cache)
         self._hit_tokens = 0
         self._miss_tokens = 0
+        self._kv_bpt = getattr(model, "kv_bytes_per_token", None)
+        if self._kv_bpt:
+            _kv_bytes_per_token.set(float(self._kv_bpt))
         self._preempt_count = 0
         self._slots = [_Slot() for _ in range(model.num_slots)]
         self._wait: Deque[GenHandle] = collections.deque()  # guarded-by: _lock
@@ -383,6 +511,10 @@ class LLMEngine:
         self._rbq: "_queue.Queue" = _queue.Queue()
         self._inflight = threading.Semaphore(2)
         self._rb_thread: Optional[threading.Thread] = None
+        # (ready time, device-busy seconds) of the recent ticks: the
+        # overlap gauge
+        self._busy_win: Deque[Tuple[float, float]] = \
+            collections.deque(maxlen=64)
         # set when a dispatch or readback failed: the device token chain
         # must be re-seeded from host state before the next dispatch
         self._chain_broken = False
@@ -438,11 +570,15 @@ class LLMEngine:
     def submit(self, prompt, max_new_tokens: int, rid: Optional[str] = None,
                deadline: Optional[Deadline] = None,
                sampling=None, spec_k: Optional[int] = None,
+               trace_id: Optional[str] = None,
+               parent_span: Optional[str] = None,
                handoff: bool = False, adopt: Optional[Dict] = None,
                tenant: Optional[str] = None) -> GenHandle:
         """Queue one generation (``sampling`` as :func:`parse_sampling`;
         ``spec_k`` caps this stream's drafts, None = the engine's, 0 =
-        none, and never raises the engine's width). Raises
+        none, and never raises the engine's width). ``trace_id`` /
+        ``parent_span`` stamp every lifecycle event of the stream with
+        the request's wire trace. Raises
         :class:`AdmissionError` when the waiting queue is full or the
         tenant's bucket is dry, and ``ValueError`` for a prompt no
         prefill path can hold.
@@ -478,12 +614,15 @@ class LLMEngine:
             if prior is not None:
                 # a duplicate id joins the live stream, never charged to
                 # the tenant's bucket again
+                _dedup.inc()
                 return prior
             if self.tenancy.enabled:
                 ok, hint = self.tenancy.admit(tenant)
                 if not ok:
                     label = tenant or "default"
                     _tenant_shed.labels(tenant=label, reason="rate").inc()
+                    record_event("tenant_shed", rid=rid, tenant=label,
+                                 reason="rate", retry_after_ms=hint)
                     raise AdmissionError(
                         f"tenant {label!r} rate limited "
                         f"(refill in {hint}ms)",
@@ -506,12 +645,14 @@ class LLMEngine:
             h = GenHandle(rid, prompt, max_new_tokens, deadline,
                           sampling=params,
                           spec_k=None if spec_k is None else int(spec_k),
+                          trace_id=trace_id, parent_span=parent_span,
                           tenant=tenant)
             h.hold_handoff = bool(handoff)
             h.adopt = adopt
             self._by_id[rid] = h
             self._trim_finished_locked()
             self._wait.append(h)
+            _waiting.set(len(self._wait))
         self._wake.set()
         return h
 
@@ -537,25 +678,42 @@ class LLMEngine:
                 return
 
     # -- scheduler ---------------------------------------------------------
-    def _publish(self):
-        """Republish the per-tenant slot and KV gauges (tenancy on)."""
-        if not self.tenancy.enabled:
+    def _tick_flight(self):
+        """Every 128th decode step drops a tick summary into the flight
+        ring: a postmortem then shows what the engine ran in its last
+        seconds, at a cost that never lands on every tick."""
+        if self._decode_steps % 128:
             return
+        record_event("engine_tick", steps=self._decode_steps,
+                     occupancy=sum(1 for s in self._slots if s.handle),
+                     waiting=len(self._wait),
+                     generated=self._generated)
+
+    def _publish(self):
+        """Republish the occupancy gauges, and the per-tenant slot and
+        KV gauges with tenancy on."""
         with self._lock:
-            slots_by: Dict[str, int] = {}
-            for t, n in self._slots_by_tenant().items():
-                k = t or "default"
-                slots_by[k] = slots_by.get(k, 0) + n
-            kv_by: Dict[str, int] = {}
-            for t, n in self.allocator.used_by_tenant().items():
-                k = t or "default"
-                kv_by[k] = kv_by.get(k, 0) + n
-            live = set(slots_by) | set(kv_by)
-            # tenants gauged before are set to 0, not left stale
-            for t in self._tenant_gauged | live:
-                _tenant_slots.labels(tenant=t).set(slots_by.get(t, 0))
-                _tenant_kv.labels(tenant=t).set(kv_by.get(t, 0))
-            self._tenant_gauged |= live
+            _occupancy.set(sum(1 for s in self._slots if s.handle))
+            _waiting.set(len(self._wait))
+            if self.tenancy.enabled:
+                slots_by: Dict[str, int] = {}
+                for t, n in self._slots_by_tenant().items():
+                    k = t or "default"
+                    slots_by[k] = slots_by.get(k, 0) + n
+                kv_by: Dict[str, int] = {}
+                for t, n in self.allocator.used_by_tenant().items():
+                    k = t or "default"
+                    kv_by[k] = kv_by.get(k, 0) + n
+                live = set(slots_by) | set(kv_by)
+                # tenants gauged before are set to 0, not left stale
+                for t in self._tenant_gauged | live:
+                    _tenant_slots.labels(tenant=t).set(slots_by.get(t, 0))
+                    _tenant_kv.labels(tenant=t).set(kv_by.get(t, 0))
+                self._tenant_gauged |= live
+        # republished on every scheduler pass so the engine actually
+        # serving owns the process-global gauge
+        if self._kv_bpt:
+            _kv_bytes_per_token.set(float(self._kv_bpt))
 
     def _finish_slot(self, slot: _Slot, outcome: str,
                      error: Optional[str] = None):
@@ -590,6 +748,7 @@ class LLMEngine:
                     and now - p["t0"] > self._handoff_ttl]:
             self._handoffs.pop(rid, None)
             self.allocator.free(rid)
+            record_event("kv_handoff_abort", rid=rid, reason="ttl")
         for rid in [r for r, p in self._adopted.items()
                     if now - p["staged_at"] > self._handoff_ttl]:
             self._adopted.pop(rid, None)
@@ -713,6 +872,14 @@ class LLMEngine:
             h.admit_seq = self._admit_counter
             h.admitted_at = time.perf_counter()
             self._note_served(h, len(prompt) - h.cache_hit_tokens)
+            emit_event("llm.admit", trace=h.trace_id,
+                       parent=h.parent_span, rid=h.id,
+                       queue_wait_s=round(h.admitted_at - h.created, 6),
+                       prompt_tokens=int(len(prompt)),
+                       cache_hit_tokens=int(h.cache_hit_tokens),
+                       cow_fork=slot.pending_copy is not None,
+                       resumed=h.effective_prompt is not None,
+                       tenant=h.tenant or None)
             # admission only BINDS; the device prefill runs in
             # _prefill_tick outside the engine lock
             slot.phase = "prefill"
@@ -793,6 +960,8 @@ class LLMEngine:
         if self.prefix_cache:
             self._hit_tokens += start
             self._miss_tokens += len(prompt) - start
+            _prefix_hits.inc(start)
+            _prefix_misses.inc(len(prompt) - start)
         return True
 
     def _enter_decode(self, slot: _Slot, h: GenHandle, first: int,
@@ -809,11 +978,14 @@ class LLMEngine:
         slot.last_token = first
         slot.host_token = first
         slot.use_host = True
+        emit_event("llm.first_token", trace=h.trace_id,
+                   parent=h.parent_span, rid=h.id)
         h.push(first)
         h.gen_count += 1
         h.sched_count += 1
         self._generated += 1
         self._note_served(h, 1)
+        _tokens.labels(kind="decode").inc()
         eos = getattr(self.model, "eos_id", None)
         if h.gen_count >= h.max_new or (eos is not None and first == eos):
             self._finish_slot(slot, "ok")
@@ -846,6 +1018,9 @@ class LLMEngine:
         slot.epoch += 1
         slot.spec_inflight = False
         self._handoffs_out += 1
+        record_event("kv_migrate_out", rid=h.id,
+                     blocks=len(self._handoffs[h.id]["blocks"]),
+                     prompt_tokens=int(prompt_len))
         h.finish("handoff")
         self._publish()
 
@@ -931,7 +1106,10 @@ class LLMEngine:
         local_hit = min(n_reused * bs, len(prompt) - 1)
         h.cache_hit_tokens = local_hit
         if self.prefix_cache and local_hit:
+            # aliased rows are prefix-cache hits; the migrated remainder
+            # is neither hit nor miss: no prefill ran
             self._hit_tokens += local_hit
+            _prefix_hits.inc(local_hit)
         self.allocator.set_aux(h.id, seed=h.sampling[3],
                                resumed_at=len(prompt))
         slot.handle = h
@@ -942,6 +1120,15 @@ class LLMEngine:
         h.admit_seq = self._admit_counter
         h.admitted_at = time.perf_counter()
         self._handoffs_in += 1
+        emit_event("llm.admit", trace=h.trace_id,
+                   parent=h.parent_span, rid=h.id,
+                   queue_wait_s=round(h.admitted_at - h.created, 6),
+                   prompt_tokens=int(len(prompt)),
+                   cache_hit_tokens=int(local_hit),
+                   cow_fork=False, resumed=False, adopted=True,
+                   tenant=h.tenant or None)
+        record_event("kv_migrate_in", rid=h.id,
+                     blocks=len(table) - n_reused, reused=n_reused)
         self._enter_decode(slot, h, int(payload["first"]), len(prompt))
         return True
 
@@ -980,6 +1167,8 @@ class LLMEngine:
         """OUTSIDE the lock: run the claimed prefill device calls."""
         results = []
         for slot, h, epoch, prompt, start, take, n, row, copy in work:
+            t0 = time.perf_counter()
+            t0_wall = time.time()
             try:
                 if copy is not None:
                     # the copy-on-write copy owed from admission, before
@@ -1006,6 +1195,12 @@ class LLMEngine:
                 # ends THIS stream loudly, not the scheduler thread
                 results.append((slot, h, epoch, start, take, n, None, e))
                 continue
+            dur = time.perf_counter() - t0
+            _tick_seconds.labels(phase="prefill").observe(dur)
+            _tokens.labels(kind="prefill").inc(take)
+            emit_span("llm.prefill", t0_wall, dur, trace=h.trace_id,
+                      parent=h.parent_span, rid=h.id, start=int(start),
+                      tokens=int(take), total=int(n))
             results.append((slot, h, epoch, start, take, n, tok, None))
         return results
 
@@ -1115,9 +1310,17 @@ class LLMEngine:
         slot.epoch += 1
         slot.spec_inflight = False
         self.allocator.free(h.id)
+        _preempts.inc()
         if self.tenancy.enabled:
             _tenant_preempted.labels(tenant=h.tenant or "default",
                                      reason=reason).inc()
+        emit_event("llm.preempt", trace=h.trace_id,
+                   parent=h.parent_span, rid=h.id,
+                   generated=int(h.gen_count), reason=reason,
+                   tenant=h.tenant or None)
+        record_event("llm_preempt", rid=h.id,
+                     generated=int(h.gen_count), reason=reason,
+                     tenant=h.tenant or None)
         with self._lock:
             self._wait.appendleft(h)
 
@@ -1175,6 +1378,7 @@ class LLMEngine:
                     slot, "error",
                     f"decode tick failed, stream tokens lost: {err!r}")
         self._chain_broken = True
+        self._publish()
 
     def _apply_tokens(self, snapshot, arr: np.ndarray):
         """Apply one readback batch; lanes whose slot moved on are
@@ -1190,8 +1394,10 @@ class LLMEngine:
             h.gen_count += 1
             self._generated += 1
             self._note_served(h, 1)
+            _tokens.labels(kind="decode").inc()
             if h.gen_count >= h.max_new or (eos is not None and tok == eos):
                 self._finish_slot(slot, "ok")
+        self._publish()
 
     def _decode_tick(self) -> bool:
         """The synchronous tick: host-fed lanes, blocking readback."""
@@ -1200,6 +1406,7 @@ class LLMEngine:
         if built is None:
             return False
         host, use, tables, positions, lanes, snapshot = built
+        t0 = time.perf_counter()
         try:
             batch = self.model.decode_step(None, host, use, tables,
                                            positions, lanes)
@@ -1209,9 +1416,16 @@ class LLMEngine:
             with self._lock:
                 self._fail_lanes(snapshot, e)
             return True
+        t1 = time.perf_counter()
+        _tick_seconds.labels(phase="decode").observe(t1 - t0)
+        self._note_busy(t0, t1)
         self._decode_steps += 1
+        _steps.inc()
+        self._tick_flight()
         with self._lock:
             self._apply_tokens(snapshot, arr)
+        _tick_seconds.labels(phase="readback").observe(
+            time.perf_counter() - t1)
         return True
 
     # -- speculative decoding ----------------------------------------------
@@ -1294,6 +1508,9 @@ class LLMEngine:
                 self._spec_drafted_lanes += 1
                 self._spec_proposed_n += len(draft)
                 self._spec_accepted_n += accept
+                _spec_proposed.inc(len(draft))
+                _spec_accepted.inc(accept)
+                _spec_accept_len.observe(accept)
             for tok in (int(t) for t in out[:accept + 1]):
                 slot.position += 1
                 slot.last_token = tok
@@ -1302,10 +1519,14 @@ class LLMEngine:
                 h.sched_count = h.gen_count
                 self._generated += 1
                 self._note_served(h, 1)
+                _tokens.labels(kind="decode").inc()
                 if h.gen_count >= h.max_new or (eos is not None and
                                                 tok == eos):
                     self._finish_slot(slot, "ok")
                     break
+        if self._spec_lanes:
+            _spec_hit_rate.set(self._spec_drafted_lanes / self._spec_lanes)
+        self._publish()
 
     def _spec_tick(self) -> bool:
         """The synchronous verify tick: build, dispatch, block on the
@@ -1315,6 +1536,7 @@ class LLMEngine:
         if built is None:
             return False
         tokens, tables, positions, lanes, snapshot = built
+        t0 = time.perf_counter()
         try:
             batch = self.model.verify_step(tokens, tables, positions, lanes)
             arr = self.model.read_tokens(batch)
@@ -1323,18 +1545,39 @@ class LLMEngine:
             with self._lock:
                 self._fail_lanes(snapshot, e)
             return True
+        t1 = time.perf_counter()
+        _tick_seconds.labels(phase="decode").observe(t1 - t0)
+        self._note_busy(t0, t1)
         self._decode_steps += 1
+        _steps.inc()
+        self._tick_flight()
         with self._lock:
             self._apply_spec(snapshot, arr)
+        _tick_seconds.labels(phase="readback").observe(
+            time.perf_counter() - t1)
         return True
 
     # -- overlap pipeline --------------------------------------------------
+    def _note_busy(self, t_start: float, t_ready: float):
+        """Record one tick's busy interval (clipped to start after the
+        previous ready, so two in-flight ticks never count the same
+        wall time twice) and refresh the overlap gauge."""
+        last = self._busy_win[-1][0] if self._busy_win else 0.0
+        busy = max(0.0, t_ready - max(t_start, last))
+        self._busy_win.append((t_ready, busy))
+        if len(self._busy_win) >= 2:
+            win = list(self._busy_win)
+            wall = win[-1][0] - win[0][0]
+            if wall > 0:
+                _overlap_ratio.set(
+                    min(1.0, sum(b for _, b in win[1:]) / wall))
+
     def _readback_loop(self):
         while True:
             item = self._rbq.get()
             if item is None:
                 return
-            kind, batch, snapshot = item
+            kind, batch, snapshot, t_dispatch = item
             try:
                 arr = self.model.read_tokens(batch)
             except Exception as e:  # noqa: BLE001 — these lanes' tokens
@@ -1344,12 +1587,20 @@ class LLMEngine:
                 self._inflight.release()
                 self._wake.set()
                 continue
+            t_ready = time.perf_counter()
+            _tick_seconds.labels(phase="decode").observe(
+                t_ready - t_dispatch)
+            self._note_busy(t_dispatch, t_ready)
             with self._lock:
                 if kind == "spec":
                     self._apply_spec(snapshot, arr)
                 else:
                     self._apply_tokens(snapshot, arr)
+            _tick_seconds.labels(phase="readback").observe(
+                time.perf_counter() - t_ready)
             self._decode_steps += 1
+            _steps.inc()
+            self._tick_flight()
             self._inflight.release()
             self._wake.set()
 
@@ -1385,14 +1636,19 @@ class LLMEngine:
                         self._inflight.release()
                     if self._stop.is_set():
                         return
+                t0 = time.perf_counter()
                 with self._lock:
                     self._sweep()
                     self._admit()
+                t1 = time.perf_counter()
                 self._prefill_tick()
+                t2 = time.perf_counter()
                 with self._lock:
                     self._grow_or_preempt()
                     built = self._build_spec_tick() if self._spec \
                         else self._build_tick(device_chain=True)
+                _tick_seconds.labels(phase="schedule").observe(
+                    (t1 - t0) + (time.perf_counter() - t2))
                 if built is None:
                     prev_batch = None
                     self._wake.wait(0.005)
@@ -1401,6 +1657,7 @@ class LLMEngine:
                 while not self._inflight.acquire(timeout=0.5):
                     if self._stop.is_set():
                         return
+                t_d = time.perf_counter()
                 if self._spec:
                     # verify passes are host-fed and never chain on the
                     # device (the accept length decides each seat's next
@@ -1416,7 +1673,7 @@ class LLMEngine:
                             self._fail_lanes(snapshot, e)
                         self._inflight.release()
                         continue
-                    self._rbq.put(("spec", batch, snapshot))
+                    self._rbq.put(("spec", batch, snapshot, t_d))
                     prev_batch = None
                     continue
                 host, use, tables, positions, lanes, snapshot = built
@@ -1429,7 +1686,7 @@ class LLMEngine:
                         self._fail_lanes(snapshot, e)
                     self._inflight.release()
                     continue
-                self._rbq.put(("decode", prev_batch, snapshot))
+                self._rbq.put(("decode", prev_batch, snapshot, t_d))
         finally:
             self._rbq.put(None)
             if self._rb_thread is not None:
@@ -1437,12 +1694,17 @@ class LLMEngine:
 
     def _loop_sync(self):
         while not self._stop.is_set():
+            t0 = time.perf_counter()
             with self._lock:
                 self._sweep()
                 self._admit()
+            t1 = time.perf_counter()
             self._prefill_tick()
+            t2 = time.perf_counter()
             with self._lock:
                 self._grow_or_preempt()
+            _tick_seconds.labels(phase="schedule").observe(
+                (t1 - t0) + (time.perf_counter() - t2))
             if not (self._spec_tick() if self._spec else
                     self._decode_tick()):
                 # also parks the loop while the queue is only KV-gated

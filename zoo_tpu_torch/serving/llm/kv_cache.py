@@ -1,6 +1,6 @@
 """Paged KV-cache block allocator with content-hash prefix sharing and
 copy-on-write, tenant partitions and migration adoption (counterpart of
-``zoo_tpu/serving/llm/kv_cache.py``, without its pool gauges).
+``zoo_tpu/serving/llm/kv_cache.py``, with its pool gauges).
 
 KV memory is a pool of fixed-size token blocks handed out from a free
 list: a sequence owns ``ceil(tokens / block_size)`` blocks listed in its
@@ -38,13 +38,27 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from zoo_tpu_torch.obs.metrics import counter
+from zoo_tpu_torch.obs.metrics import counter, gauge
 
 _migrated_blocks = counter(
     "zoo_llm_kv_migrated_blocks_total",
     "KV blocks adopted from another replica's prefill via kv_migrate "
     "(fresh blocks materialized for wire payloads; locally-matched "
     "prefix blocks are counted as prefix-cache hits instead)")
+_blocks_used = gauge(
+    "zoo_llm_kv_blocks_used",
+    "KV-cache blocks currently owned by live sequences")
+_blocks_free = gauge(
+    "zoo_llm_kv_blocks_free",
+    "KV-cache blocks on the allocator free list")
+_blocks_shared = gauge(
+    "zoo_llm_kv_blocks_shared",
+    "KV-cache blocks referenced by MORE than one live sequence "
+    "(prefix-cache hits sharing a prompt's blocks)")
+_blocks_cached = gauge(
+    "zoo_llm_kv_blocks_cached",
+    "Refcount-0 blocks parked on the prefix-cache LRU (matchable, "
+    "reclaimed lazily)")
 _cross_evictions = counter(
     "zoo_tenant_kv_cross_evictions_total",
     "Cached-free blocks evicted ACROSS tenant partitions (last-resort "
@@ -106,8 +120,16 @@ class BlockAllocator:
         self._tenant_of: Dict[str, str] = {}
         # per-SEQUENCE replay state (the sampling seed), never per block
         self._aux: Dict[str, Dict] = {}
+        self._publish()
 
     # -- accounting --------------------------------------------------------
+    def _publish(self):
+        _blocks_free.set(len(self._free))
+        _blocks_used.set(self.num_blocks - 1 - len(self._free)
+                         - len(self._cached))
+        _blocks_shared.set(sum(1 for r in self._ref.values() if r > 1))
+        _blocks_cached.set(len(self._cached))
+
     @property
     def free_blocks(self) -> int:
         with self._lock:
@@ -235,6 +257,7 @@ class BlockAllocator:
             for b in got:
                 self._ref[b] = 1
             self._owners.setdefault(seq_id, []).extend(got)
+            self._publish()
             return got
 
     def grow_to(self, seq_id: str, n_tokens: int) -> int:
@@ -256,6 +279,7 @@ class BlockAllocator:
                     break
                 self._ref[got[0]] = 1
                 blocks.extend(got)
+            self._publish()
             return len(blocks) * self.block_size
 
     # -- prefix cache ------------------------------------------------------
@@ -293,6 +317,7 @@ class BlockAllocator:
                 got.append(blk)
             if got:
                 self._owners.setdefault(seq_id, []).extend(got)
+                self._publish()
             return got
 
     def register_blocks(self, seq_id: str, hashes: Sequence[bytes]):
@@ -364,6 +389,7 @@ class BlockAllocator:
                             self._part_of[b] = tenant
                     else:
                         self._free.append(b)
+                self._publish()
                 return None
             for b in fresh:
                 self._ref[b] = 1
@@ -382,6 +408,7 @@ class BlockAllocator:
                         continue
                     self._hash_of[blk] = h
                     self._by_hash[h] = blk
+            self._publish()
             _migrated_blocks.inc(len(fresh))
             return table, len(reused)
 
@@ -408,6 +435,7 @@ class BlockAllocator:
             self._ref[dst] = 1
             self._ref[src] -= 1
             blocks[index] = dst
+            self._publish()
             return src, dst
 
     def free(self, seq_id: str) -> int:
@@ -434,6 +462,7 @@ class BlockAllocator:
                         self._part_of[b] = tenant
                 else:
                     self._free.append(b)
+            self._publish()
             return len(blocks)
 
     def drop_cached(self) -> int:
@@ -442,6 +471,8 @@ class BlockAllocator:
             n = len(self._cached)
             while self._cached:
                 self._evict_one()
+            if n:
+                self._publish()
             return n
 
     def live_sequences(self) -> int:

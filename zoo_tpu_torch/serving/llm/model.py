@@ -315,6 +315,13 @@ class PagedLlamaModel:
         self.kv_cache_dtype_requested = kv_dtype if kv_dtype not in (
             None, "") else (knob_value("ZOO_LLM_KV_DTYPE") or "f32")
         self.kv_cache_dtype = resolve_kv_dtype(kv_dtype, self.device)
+        # bytes ONE cached token costs (K+V rows over every layer, plus
+        # the scale rows for int8): the zoo_llm_kv_bytes_per_token gauge
+        item = {"f32": 4, "bf16": 2, "int8": 1}[self.kv_cache_dtype]
+        self.kv_bytes_per_token = (
+            2 * c.n_block * c.n_kv_head * c.head_dim * item
+            + (2 * c.n_block * c.n_kv_head * 4
+               if self.kv_cache_dtype == "int8" else 0))
         self.eos_id = eos_id
         if self.num_slots < 1 or self.num_blocks < 2:
             raise ValueError("need >= 1 slot and >= 2 KV blocks")

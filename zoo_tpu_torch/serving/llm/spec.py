@@ -1,6 +1,6 @@
-"""``llama:...`` model specs (counterpart of
-``zoo_tpu/serving/llm/spec.py``, ``llama:`` specs only; tensor-parallel
-``tp=`` and the ``synthllm:`` engine come with later slices).
+"""``llama:...`` and ``synthllm:...`` model specs (counterpart of
+``zoo_tpu/serving/llm/spec.py``; tensor-parallel ``tp=`` comes with a
+later slice).
 
 * ``llama:tiny`` — the test topology (:func:`tiny_llama_config`);
 * ``llama:tiny:seed=3,slots=4,block=8,blocks=64,buckets=16/64`` —
@@ -13,6 +13,10 @@
 * ``llama:vocab=128256,hidden=4096,n_block=32,n_head=32,n_kv_head=8,``
   ``intermediate=14336`` — explicit architecture (``rope_theta`` keeps
   the :class:`LlamaConfig` default, 500000).
+
+* ``synthllm:slots=2,block=4,blocks=64,tables=8`` — the deterministic
+  stand-in of :mod:`zoo_tpu_torch.serving.llm.synthetic` (host only, no
+  kernel) behind a real engine, for chaos smokes and benches.
 
 Engine settings resolve env (``ZOO_LLM_*``) < spec < explicit kwargs.
 """
@@ -37,8 +41,19 @@ _STR_KEYS = {"kv": "kv_dtype", "prefill_impl": "prefill_impl",
              "role": "role"}
 
 
+# the deterministic engine (chaos smokes / transport benches):
+# synthllm:slots=2,block=4,blocks=64,tables=8 — the generate-path twin
+# of the predict path's synthetic:double (see llm/synthetic.py)
+SYNTH_LLM_PREFIX = "synthllm:"
+_SYNTH_KEYS = {"slots": "num_slots", "block": "block_size",
+               "blocks": "num_blocks", "tables": "max_blocks_per_seq",
+               "max_prompt": "max_prompt_len", "eos": "eos_id",
+               "chunk": "prefill_chunk"}
+
+
 def is_llm_spec(spec) -> bool:
-    return isinstance(spec, str) and spec.startswith(LLM_PREFIX)
+    return isinstance(spec, str) and spec.startswith(
+        (LLM_PREFIX, SYNTH_LLM_PREFIX))
 
 
 def _parse_kv(parts) -> Dict[str, str]:
@@ -110,13 +125,43 @@ def _env_engine_defaults() -> Dict:
     return out
 
 
+def build_synthetic_engine(spec: str, mode: Optional[str] = None,
+                           start: bool = True, **overrides):
+    """An :class:`LLMEngine` over a deterministic
+    :class:`~zoo_tpu_torch.serving.llm.synthetic.SyntheticLLMModel` from
+    a ``synthllm:...`` spec — real allocator, scheduler, deadlines and
+    dedup; pure-function tokens computed on the host."""
+    from zoo_tpu_torch.serving.llm.engine import LLMEngine
+    from zoo_tpu_torch.serving.llm.synthetic import SyntheticLLMModel
+
+    kvs = _parse_kv(spec[len(SYNTH_LLM_PREFIX):].split(":"))
+    kwargs = {}
+    for short, name in _SYNTH_KEYS.items():
+        if short in kvs:
+            kwargs[name] = int(kvs.pop(short))
+    role = kvs.pop("role", None) or overrides.pop("role", None)
+    if kvs:
+        raise ValueError(f"unknown synthllm spec keys {sorted(kvs)}")
+    kwargs.update({k: v for k, v in overrides.items()
+                   if k not in ("mode", "max_waiting")})
+    model = SyntheticLLMModel(**kwargs)
+    engine = LLMEngine(model, mode=mode or "continuous",
+                       max_waiting=overrides.get("max_waiting"),
+                       role=role)
+    return engine.start() if start else engine
+
+
 def build_llm_engine(spec: str, mode: Optional[str] = None,
                      start: bool = True, device=None, **overrides):
     """An :class:`LLMEngine` (started unless ``start=False``) from a
     ``llama:...`` spec on ``device`` (default: the current CUDA device;
-    raises without one). ``overrides`` are engine/model kwargs that win
-    over both the spec and the env (e.g. ``params=`` to share weights,
-    ``decode_impl``/``prefill_impl``/``attention_impl``)."""
+    raises without one), or from a ``synthllm:...`` spec (host only:
+    ``device`` is not used). ``overrides`` are engine/model kwargs that
+    win over both the spec and the env (e.g. ``params=`` to share
+    weights, ``decode_impl``/``prefill_impl``/``attention_impl``)."""
+    if spec.startswith(SYNTH_LLM_PREFIX):
+        return build_synthetic_engine(spec, mode=mode, start=start,
+                                      **overrides)
     from zoo_tpu_torch.models.llm.llama import LlamaConfig
     from zoo_tpu_torch.serving.llm.engine import LLMEngine
     from zoo_tpu_torch.serving.llm.model import PagedLlamaModel

@@ -7,23 +7,28 @@
 CUDA device; raises without a card): a ``registry:<root>:<ref>`` spec is
 resolved HERE, at boot, so a replica respawned mid-rolling-update comes
 up on the currently aliased version; a ``llama:`` spec mounts the
-streaming engine, any other spec the predict door
+streaming engine (a ``synthllm:`` spec the same engine over the
+deterministic host-only stand-in), any other spec the predict door
 (:func:`zoo_tpu_torch.serving.ha.load_serving_model`), and ``a+b``
-mounts both when every fragment is a ``synthetic:`` or ``llama:`` spec.
+mounts both when every fragment is a ``synthetic:``, ``synthllm:`` or
+``llama:`` spec.
 The engine's disaggregation role comes from the spec's ``role=`` or
 ``ZOO_LLM_ROLE`` (which :class:`~zoo_tpu_torch.serving.ha.ReplicaGroup`
 sets per seat), its tenants from ``ZOO_TENANT_CONFIG``; the door reads
 the same tenant registry.
-It then starts a :class:`ServingServer` behind a circuit breaker, the
-``/metrics`` + ``/healthz`` exporter on ``--metrics-port`` (-1
-disables), the heartbeat thread the supervisor watches and a SIGTERM
-drain handler, prints ``REPLICA READY host:port [metrics=port]`` and
+The flight recorder opens first (its spill under
+``$ZOO_OBS_POSTMORTEM_DIR``, which the group sets per replica) and
+records ``replica_boot``; the SLO watchdog starts (a no-op unless a
+``ZOO_SLO_*`` objective is armed). It then starts a
+:class:`ServingServer` behind a circuit breaker, the ``/metrics`` +
+``/healthz`` exporter on ``--metrics-port`` (-1 disables), the
+heartbeat thread the supervisor watches, a SIGTERM drain handler and
+the crash handlers chained in front of it, prints ``REPLICA READY host:port [metrics=port]`` and
 blocks until drained. On a CUDA device it loads the kernels of what it
 serves before it reports ready, so a replica whose kernels cannot be
 built or loaded fails at boot, loudly.
 
-The flight recorder, its crash handlers and the SLO watchdog wait for
-ROADMAP A.6. Kept OUT of the package ``__init__`` so ``python -m`` never
+Kept OUT of the package ``__init__`` so ``python -m`` never
 double-imports the module.
 """
 
@@ -67,10 +72,19 @@ def serve_replica(ns) -> int:
     # live stack dumps on demand: `kill -USR1 <replica pid>` writes
     # every thread's Python stack to the replica log
     faulthandler.register(_sig.SIGUSR1)
-    from zoo_tpu_torch.common.device import resolve_device
     from zoo_tpu_torch.obs.exporters import MetricsExporter
+    from zoo_tpu_torch.obs.flight import (
+        flight_recorder,
+        install_crash_handlers,
+        record_event,
+    )
+    from zoo_tpu_torch.obs.slo import SLOWatchdog
     from zoo_tpu_torch.serving.ha import SYNTHETIC_PREFIX, load_serving_model
-    from zoo_tpu_torch.serving.llm.spec import build_llm_engine, is_llm_spec
+    from zoo_tpu_torch.serving.llm.spec import (
+        SYNTH_LLM_PREFIX,
+        build_llm_engine,
+        is_llm_spec,
+    )
     from zoo_tpu_torch.serving.registry import (
         ModelRegistry,
         is_registry_spec,
@@ -83,22 +97,43 @@ def serve_replica(ns) -> int:
     )
 
     start_heartbeat_thread()  # no-op unless the supervisor set the env
-    device = resolve_device(ns.device)
+    # black box first: the spill opens before the model load, so a boot
+    # crash leaves remains too
+    flight_recorder()
+    record_event("replica_boot", model=ns.model, port=ns.port)
+    watchdog = SLOWatchdog().start()
     model = engine = version = None
+    resolved = []
+
+    def device():
+        """An explicit ``--device`` is resolved on first need:
+        ``synthetic:`` and ``synthllm:`` specs run no tensor, so a
+        replica of those alone never imports torch and respawns in well
+        under a second."""
+        if not resolved:
+            from zoo_tpu_torch.common.device import resolve_device
+            resolved.append(resolve_device(ns.device))
+        return resolved[0]
+
+    if ns.device is None:
+        device()   # the current CUDA device, or raise: no quiet CPU
 
     def _mount(inner: str):
         """An llm spec mounts the paged-KV engine behind the door (an
         llm version change goes through a replica restart, which the
         alias resolution covers); anything else the predict path."""
         nonlocal model, engine
-        if is_llm_spec(inner):
-            load_serving_kernels(device, SERVING_KERNELS)
-            engine = build_llm_engine(inner, device=device)
+        if inner.startswith(SYNTH_LLM_PREFIX):
+            engine = build_llm_engine(inner)
+        elif is_llm_spec(inner):
+            load_serving_kernels(device(), SERVING_KERNELS)
+            engine = build_llm_engine(inner, device=device())
+        elif inner.startswith(SYNTHETIC_PREFIX):
+            model = load_serving_model(inner, batch_size=ns.batch_size)
         else:
-            if not inner.startswith(SYNTHETIC_PREFIX):
-                load_serving_kernels(device, PREDICT_KERNELS)
+            load_serving_kernels(device(), PREDICT_KERNELS)
             model = load_serving_model(inner, batch_size=ns.batch_size,
-                                       device=device)
+                                       device=device())
 
     if is_registry_spec(ns.model):
         # the pin keeps registry GC off the version during the load
@@ -127,6 +162,9 @@ def serve_replica(ns) -> int:
         exporter = MetricsExporter(host=ns.host,
                                    port=ns.metrics_port).start()
     server.install_drain_handler()
+    # after the drain handler, so SIGTERM dumps the postmortem bundle
+    # and THEN chains into the drain; unhandled exceptions dump too
+    install_crash_handlers()
     print(f"REPLICA READY {server.host}:{server.port}"
           + (f" metrics={exporter.port}" if exporter else ""),
           flush=True)
@@ -135,6 +173,7 @@ def serve_replica(ns) -> int:
             time.sleep(0.2)
     except KeyboardInterrupt:
         server.drain(timeout=10.0)
+    watchdog.stop()
     if exporter is not None:
         exporter.stop()
     return 0
@@ -146,7 +185,7 @@ def main(argv=None) -> int:
         description="one serving replica (spawned by ReplicaGroup)")
     ap.add_argument("--model", required=True,
                     help="a model file of the port, or a registry:*, "
-                         "synthetic:* or llama:* spec")
+                         "synthetic:*, synthllm:* or llama:* spec")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--metrics-port", type=int, default=0,

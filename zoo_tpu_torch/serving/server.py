@@ -31,11 +31,16 @@ What the door serves:
   matching generate arrives; a ``role=prefill`` seat sheds plain
   generates;
 
+* ``debug_dump`` (the flight recorder's bundle, live) and ``chaos``
+  (arm or clear a fault site in this process, refused unless
+  ``ZOO_CHAOS_ALLOW`` is ``1`` or ``true``);
+
 with TLS, the graceful drain and the ``_reply`` echo of id, trace,
-tenant, version and role. What waits, and answers with an error that
-names its ROADMAP item instead of a silent ``ok``: ``debug_dump``, the
-wire ``chaos`` op and the request spans — the flight recorder, the
-chaos harness and tracing (A.6).
+tenant, version and role. Every request that carries a ``trace`` gets
+its span under that id (``server.predict``, ``server.generate``; a shed
+gets a ``server.shed`` event), a batch runs under ``serving.batch``,
+and sheds, handoff aborts, dropped corrupt requests and the drain land
+in the flight ring.
 
 The server binds loopback by default; pass ``host="0.0.0.0"`` only on a
 trusted network — there is no authentication on this door.
@@ -44,6 +49,7 @@ trusted network — there is no authentication on this door.
 from __future__ import annotations
 
 import collections
+import os
 import queue
 import socket
 import socketserver
@@ -55,7 +61,9 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from zoo_tpu_torch.common.knobs import value as knob_value
+from zoo_tpu_torch.obs.flight import flight_recorder, record_event
 from zoo_tpu_torch.obs.metrics import StatTimer, counter, gauge, histogram
+from zoo_tpu_torch.obs.tracing import emit_event, emit_span, span
 from zoo_tpu_torch.serving.tenancy import registry as tenant_registry
 from zoo_tpu_torch.util.integrity import (
     corrupt_seam,
@@ -133,7 +141,6 @@ _handoff_seconds = histogram(
 
 # what the port's door does not serve yet, and the ROADMAP item that
 # brings it
-OBS_ITEM = "ROADMAP A.6 (observability)"
 
 
 def drain_timeout() -> float:
@@ -208,15 +215,18 @@ def _recv_exact(sock: socket.socket, n: int) -> Optional[bytearray]:
 
 
 class _Request:
-    """One predict request between the door and a batcher. (The JAX
-    package's also carries its trace identity and queue timing for the
-    request spans, which wait for ROADMAP A.6.)"""
+    """One predict request between the door and a batcher, with its
+    trace identity off the wire and its queue timing (the request
+    span's queue wait)."""
 
     __slots__ = ("uri", "data", "event", "result", "error", "id",
-                 "deadline", "expired", "version")
+                 "deadline", "expired", "version", "trace", "pspan",
+                 "t_enqueue", "t_dequeue")
 
     def __init__(self, uri: str, data, rid: Optional[str] = None,
-                 deadline: Optional[Deadline] = None):
+                 deadline: Optional[Deadline] = None,
+                 trace: Optional[str] = None,
+                 pspan: Optional[str] = None):
         self.uri = uri
         self.data = data
         self.event = threading.Event()
@@ -225,6 +235,10 @@ class _Request:
         self.id = rid
         self.deadline = deadline
         self.expired = False
+        self.trace = trace
+        self.pspan = pspan
+        self.t_enqueue: Optional[float] = None
+        self.t_dequeue: Optional[float] = None
         # the version of the model that computed ``result``: the reply
         # echoes it, not the version live at reply time, which a
         # hot-swap may have moved on since the batch ran
@@ -428,6 +442,21 @@ class ServingServer:
                 out.update(extra)
                 _send_msg(self.request, out, crc=self._crc)
 
+            def _note_reject(self, msg, reason):
+                """A door rejection beyond the counters: the flight ring
+                gets the shed with its reason, and the request's trace
+                an instant event, so rejected requests reconstruct in
+                the timeline too."""
+                kw = {}
+                if msg.get("tenant"):
+                    kw["tenant"] = msg["tenant"]
+                record_event("shed", op=msg.get("op", "predict"),
+                             reason=reason, **kw)
+                if msg.get("trace") is not None:
+                    emit_event("server.shed", trace=msg["trace"],
+                               parent=msg.get("pspan"), reason=reason,
+                               rid=msg.get("id"), **kw)
+
             def _await_and_reply(self, msg, req, deadline):
                 """Reply stage: wait for the batcher to resolve ``req``
                 under a deadline-derived bound (the propagated deadline
@@ -506,6 +535,7 @@ class ServingServer:
                         and want != outer.version:
                     _requests.labels(outcome="shed").inc()
                     _shed.labels(reason="version_mismatch").inc()
+                    self._note_reject(msg, "version_mismatch")
                     self._reply(msg, {
                         "shed": True, "retryable": True,
                         "version_mismatch": True,
@@ -518,6 +548,7 @@ class ServingServer:
                         not outer.breaker.allow():
                     _requests.labels(outcome="shed").inc()
                     _shed.labels(reason="breaker_open").inc()
+                    self._note_reject(msg, "breaker_open")
                     self._reply(msg, {
                         "shed": True, "retryable": True,
                         "retry_after_ms": int(
@@ -530,6 +561,7 @@ class ServingServer:
                 if deadline is not None and deadline.expired():
                     _requests.labels(outcome="expired").inc()
                     _deadline_expired.labels(stage="admission").inc()
+                    self._note_reject(msg, "expired_admission")
                     self._reply(msg, {
                         "expired": True,
                         "error": "deadline expired before admission "
@@ -545,6 +577,7 @@ class ServingServer:
                         label = tenant or "default"
                         _requests.labels(outcome="shed").inc()
                         _shed.labels(reason="tenant_rate").inc()
+                        self._note_reject(msg, "tenant_rate")
                         _tenant_shed.labels(tenant=label,
                                             reason="rate").inc()
                         self._reply(msg, {
@@ -562,6 +595,7 @@ class ServingServer:
                 if outer.max_queue and depth >= outer.max_queue:
                     _requests.labels(outcome="shed").inc()
                     _shed.labels(reason="queue_full").inc()
+                    self._note_reject(msg, "queue_full")
                     hint = int(outer.max_wait_ms * max(
                         1, depth // max(1, outer.batch_size)))
                     if outer.tenancy.enabled:
@@ -589,6 +623,7 @@ class ServingServer:
                     # door; everything already accepted still completes
                     _requests.labels(outcome="shed").inc()
                     _shed.labels(reason="draining").inc()
+                    self._note_reject(msg, "draining")
                     self._reply(msg, {
                         "shed": True, "draining": True,
                         "retryable": True,
@@ -596,14 +631,30 @@ class ServingServer:
                                  "down); retry another replica"})
                     return
                 req = _Request(msg["uri"], msg["data"], rid=rid,
-                               deadline=deadline)
+                               deadline=deadline,
+                               trace=msg.get("trace"),
+                               pspan=msg.get("pspan"))
                 if rid is not None and outer._dedup_cache is not None:
                     outer._dedup_cache.put(rid, req)
                 t0 = time.perf_counter()
+                t0_wall = time.time()
+                req.t_enqueue = t0
                 outer._queue.put(req)
                 _queue_depth.set(outer._queue.qsize())
-                self._await_and_reply(msg, req, deadline)
-                outer.timers["total"].record(time.perf_counter() - t0)
+                outcome = self._await_and_reply(msg, req, deadline)
+                dur = time.perf_counter() - t0
+                outer.timers["total"].record(dur)
+                # the request's server-side span (queue wait, batch,
+                # inference, reply) under ITS trace id; ``outcome`` is
+                # what THIS caller was told
+                if req.trace is not None:
+                    attrs = {"rid": rid, "outcome": outcome}
+                    if req.t_dequeue is not None:
+                        attrs["queue_wait_s"] = round(
+                            req.t_dequeue - t0, 6)
+                    emit_span("server.predict", t0_wall, dur,
+                              trace=req.trace, parent=req.pspan,
+                              ok=outcome == "ok", **attrs)
 
             def _handle_generate(self, msg):
                 """Streaming autoregressive generation: the reply is a
@@ -628,6 +679,7 @@ class ServingServer:
                         not outer.breaker.allow():
                     _requests.labels(outcome="shed").inc()
                     _shed.labels(reason="breaker_open").inc()
+                    self._note_reject(msg, "breaker_open")
                     self._reply(msg, {
                         "shed": True, "retryable": True,
                         "error": "server shedding load (circuit open)"})
@@ -635,6 +687,7 @@ class ServingServer:
                 if outer._draining.is_set():
                     _requests.labels(outcome="shed").inc()
                     _shed.labels(reason="draining").inc()
+                    self._note_reject(msg, "draining")
                     self._reply(msg, {
                         "shed": True, "draining": True,
                         "retryable": True,
@@ -644,6 +697,7 @@ class ServingServer:
                 if deadline is not None and deadline.expired():
                     _requests.labels(outcome="expired").inc()
                     _deadline_expired.labels(stage="admission").inc()
+                    self._note_reject(msg, "expired_admission")
                     self._reply(msg, {
                         "done": True, "outcome": "expired",
                         "expired": True,
@@ -656,6 +710,7 @@ class ServingServer:
                 if eng.role == "prefill" and not handoff:
                     _requests.labels(outcome="shed").inc()
                     _shed.labels(reason="role").inc()
+                    self._note_reject(msg, "role")
                     self._reply(msg, {
                         "shed": True, "retryable": True,
                         "error": "role=prefill replica serves handoff "
@@ -685,6 +740,7 @@ class ServingServer:
                             ("temperature", "top_k", "top_p", "seed")
                             if msg.get(k) is not None}
                 spec_k = msg.get("spec_k")
+                trace_id = msg.get("trace")
                 try:
                     h = eng.submit(
                         np.asarray(msg["prompt"]),
@@ -692,6 +748,8 @@ class ServingServer:
                         rid=rid, deadline=deadline,
                         sampling=sampling or None,
                         spec_k=None if spec_k is None else int(spec_k),
+                        trace_id=trace_id,
+                        parent_span=msg.get("pspan"),
                         handoff=bool(handoff), adopt=adopt,
                         tenant=msg.get("tenant"))
                 except AdmissionError as e:
@@ -704,6 +762,7 @@ class ServingServer:
                         else "queue_full"
                     _requests.labels(outcome="shed").inc()
                     _shed.labels(reason=door).inc()
+                    self._note_reject(msg, door)
                     self._reply(msg, {
                         "shed": True, "retryable": True,
                         "retry_after_ms": e.retry_after_ms,
@@ -716,7 +775,10 @@ class ServingServer:
                                       "error": repr(e)})
                     return
                 cursor = max(0, int(msg.get("resume_from") or 0))
+                resume_from = cursor
                 seq = 0
+                t_stream = time.perf_counter()
+                t_stream_wall = time.time()
                 h.subscribe()
                 completed = False
                 try:
@@ -794,6 +856,20 @@ class ServingServer:
                         # decoding: cancel so its KV blocks free NOW,
                         # not at max_new_tokens
                         eng.cancel(h.id)
+                    if trace_id is not None:
+                        # this HOP's serving span (one per attempt:
+                        # original, hedge, failover resume, each with
+                        # its resume cursor); the engine's llm.* spans
+                        # nest under the same trace
+                        emit_span("server.generate", t_stream_wall,
+                                  time.perf_counter() - t_stream,
+                                  trace=trace_id,
+                                  parent=msg.get("pspan"),
+                                  ok=completed, rid=rid,
+                                  resume_from=resume_from,
+                                  sent_tokens=cursor - resume_from,
+                                  outcome=h.outcome if completed
+                                  else "disconnected")
 
             def _push_handoff(self, eng, rid, target, deadline, msg):
                 """Prefill side of a disaggregated generate: take the
@@ -810,8 +886,12 @@ class ServingServer:
                 if payload is None or not target:
                     if payload is not None:
                         eng.release_handoff(rid)
+                    record_event("kv_handoff_abort", rid=rid,
+                                 reason="expired" if payload is None
+                                 else "no_target")
                     return False
                 ok = False
+                err = None
                 nbytes = 0
                 try:
                     host, port = str(target[0]), int(target[1])
@@ -870,14 +950,17 @@ class ServingServer:
                                   and resp.get("adopted"))
                     finally:
                         sock.close()
-                except (OSError, FrameCorrupt):
-                    ok = False
+                except (OSError, FrameCorrupt) as e:
+                    err = repr(e)
                 finally:
                     eng.release_handoff(rid)
                 if ok:
                     _migrated_bytes.inc(nbytes)
                     _handoff_seconds.observe(time.perf_counter() - t0)
-                return ok
+                    return True
+                record_event("kv_handoff_abort", rid=rid,
+                             reason=err or "peer_refused")
+                return False
 
             def _handle_kv_migrate(self, msg):
                 """Decode side of the handoff wire: ``begin`` stages a
@@ -984,10 +1067,58 @@ class ServingServer:
                     return
                 self._reply(msg, {"ok": True, **info})
 
-            def _refuse(self, msg, what: str, item: str):
-                self._reply(msg, {"ok": False,
-                                  "error": f"{what} waits for {item} in "
-                                           "the port"})
+            def _handle_chaos(self, msg):
+                """Arm (or clear) a fault site in THIS replica process —
+                the remote half of the deterministic chaos harness.
+                Refused unless the operator
+                deliberately armed the door (``ZOO_CHAOS_ALLOW=1`` in
+                the replica env, which the chaos smokes set): a
+                production replica must never take fault commands off
+                an unauthenticated socket."""
+                if os.environ.get("ZOO_CHAOS_ALLOW") not in ("1", "true"):
+                    self._reply(msg, {
+                        "error": "chaos ops disabled on this replica "
+                                 "(set ZOO_CHAOS_ALLOW=1 in its env)"})
+                    return
+                from zoo_tpu_torch.util.resilience import default_injector
+                site = msg.get("site")
+                if not site:
+                    self._reply(msg, {"error": "chaos needs a site"})
+                    return
+                if msg.get("clear"):
+                    default_injector.clear(site)
+                    record_event("chaos_clear", site=site)
+                    self._reply(msg, {"ok": True, "cleared": site})
+                    return
+                delay = float(msg.get("delay_ms") or 0.0) / 1000.0
+                err = msg.get("error")
+                exc = None
+                if err == "oserror":
+                    exc = OSError(f"injected fault at {site}")
+                elif err == "connection":
+                    exc = ConnectionResetError(
+                        f"injected fault at {site}")
+                elif err:
+                    self._reply(msg, {
+                        "error": f"unknown chaos error kind {err!r} "
+                                 "(oserror | connection)"})
+                    return
+                action = (lambda **_k: time.sleep(delay)) if delay \
+                    else None
+                if action is None and exc is None:
+                    self._reply(msg, {
+                        "error": "chaos needs delay_ms, error, or "
+                                 "clear"})
+                    return
+                default_injector.inject(
+                    site, exc=exc, action=action,
+                    times=(int(msg["times"]) if msg.get("times")
+                           is not None else None),
+                    p=float(msg.get("p", 1.0)))
+                record_event("chaos_arm", site=site,
+                             delay_ms=msg.get("delay_ms"),
+                             error=err, p=msg.get("p"))
+                self._reply(msg, {"ok": True, "site": site})
 
             def handle(self):
                 while True:
@@ -996,6 +1127,7 @@ class ServingServer:
                     except FrameCorrupt:
                         # a corrupt REQUEST cannot be trusted for a
                         # reply (id/op unreadable): drop the connection
+                        record_event("corrupt_request_dropped")
                         return
                     except OSError:
                         return   # stop() shut the connection down
@@ -1029,11 +1161,14 @@ class ServingServer:
                                 k: t.stats()
                                 for k, t in outer.timers.items()})
                         elif op == "debug_dump":
-                            self._refuse(msg, "the flight recorder's "
-                                         "debug_dump", OBS_ITEM)
+                            # the flight recorder's bundle, pulled live:
+                            # ring + metrics + config + open spans
+                            self._reply(msg, {
+                                "ok": True,
+                                "bundle": flight_recorder(
+                                ).snapshot_bundle("debug_dump")})
                         elif op == "chaos":
-                            self._refuse(msg, "the wire chaos op",
-                                         OBS_ITEM)
+                            self._handle_chaos(msg)
                         elif op == "ping":
                             self._reply(msg, {"ok": True})
                     except OSError:
@@ -1148,6 +1283,7 @@ class ServingServer:
                 first = self._queue.get(timeout=0.1)
             except queue.Empty:
                 continue
+            first.t_dequeue = time.perf_counter()
             if first.deadline is not None and first.deadline.expired():
                 self._drop_expired(first)
                 continue
@@ -1168,6 +1304,7 @@ class ServingServer:
                     nxt = self._queue.get(timeout=remaining)
                 except queue.Empty:
                     break
+                nxt.t_dequeue = time.perf_counter()
                 if nxt.deadline is not None and nxt.deadline.expired():
                     self._drop_expired(nxt)
                     continue
@@ -1191,40 +1328,41 @@ class ServingServer:
                 self._inflight += 1
             t1 = time.perf_counter()
             try:
-                fault_point("serving.infer", batch=len(batch))
-                arrays = [np.asarray(r.data) for r in batch]
-                # pad UP to a whole multiple of batch_size with zeros,
-                # so every occupancy runs the same shapes on the card
-                # (one set of kernel plans and allocations); max() keeps
-                # an all-empty window a full batch too
-                real = sum(len(a) for a in arrays)
-                padded = max(self.batch_size,
-                             -(-real // self.batch_size) * self.batch_size)
-                to_stack = arrays if padded == real else arrays + [
-                    np.zeros((padded - real,) + arrays[0].shape[1:],
-                             arrays[0].dtype)]
-                stacked = np.concatenate(to_stack, axis=0)
-                # the LIVE model, read under the swap lock so a
-                # concurrent reload flips between batches — a batch
-                # runs wholly on the old or wholly on the new version
-                with self._swap_lock:
-                    model = self._replicas[idx]
-                    version = self.version
-                self._note_warm_shape(stacked.shape[1:], stacked.dtype)
-                preds = model.predict(stacked, batch_size=self.batch_size)
-                preds = np.asarray(preds)[:real]
-                offset = 0
-                for r, a in zip(batch, arrays):
-                    r.result = np.asarray(preds[offset:offset + len(a)])
-                    # a deliberate break from the JAX door's frames: its
-                    # reply echoes the version live when it replies, which
-                    # a reload may have moved past the one that computed
-                    # the batch; this one names the computing version
-                    # (test_a_reply_echoes_the_version_that_computed_it)
-                    r.version = version
-                    offset += len(a)
-                if self.breaker is not None:
-                    self.breaker.record_success()
+                with span("serving.batch", size=len(batch)):
+                    fault_point("serving.infer", batch=len(batch))
+                    arrays = [np.asarray(r.data) for r in batch]
+                    # pad UP to a whole multiple of batch_size with zeros,
+                    # so every occupancy runs the same shapes on the card
+                    # (one set of kernel plans and allocations); max() keeps
+                    # an all-empty window a full batch too
+                    real = sum(len(a) for a in arrays)
+                    padded = max(self.batch_size,
+                                 -(-real // self.batch_size) * self.batch_size)
+                    to_stack = arrays if padded == real else arrays + [
+                        np.zeros((padded - real,) + arrays[0].shape[1:],
+                                 arrays[0].dtype)]
+                    stacked = np.concatenate(to_stack, axis=0)
+                    # the LIVE model, read under the swap lock so a
+                    # concurrent reload flips between batches — a batch
+                    # runs wholly on the old or wholly on the new version
+                    with self._swap_lock:
+                        model = self._replicas[idx]
+                        version = self.version
+                    self._note_warm_shape(stacked.shape[1:], stacked.dtype)
+                    preds = model.predict(stacked, batch_size=self.batch_size)
+                    preds = np.asarray(preds)[:real]
+                    offset = 0
+                    for r, a in zip(batch, arrays):
+                        r.result = np.asarray(preds[offset:offset + len(a)])
+                        # a deliberate break from the JAX door's frames: its
+                        # reply echoes the version live when it replies, which
+                        # a reload may have moved past the one that computed
+                        # the batch; this one names the computing version
+                        # (test_a_reply_echoes_the_version_that_computed_it)
+                        r.version = version
+                        offset += len(a)
+                    if self.breaker is not None:
+                        self.breaker.record_success()
             except Exception as e:  # route the error to every caller
                 if self.breaker is not None:
                     self.breaker.record_failure()
@@ -1283,6 +1421,8 @@ class ServingServer:
                 break
             time.sleep(0.01)
         _drain_seconds.observe(time.monotonic() - t0)
+        record_event("drain", drained=drained,
+                     seconds=round(time.monotonic() - t0, 3))
         path = snapshot_path or knob_value("ZOO_OBS_SNAPSHOT")
         if path:
             try:

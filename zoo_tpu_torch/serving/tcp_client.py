@@ -6,9 +6,9 @@
 :class:`RetryPolicy`, CRC frames negotiated per connection, request ids
 echoed and checked. ``TCPInputQueue``/``TCPOutputQueue`` are the
 predict-side API (``enqueue``/``predict``/``query``, the reference's
-``InputQueue``/``OutputQueue`` shape). The ambient trace context that
-``_stamp_trace`` reads in the JAX package waits for ROADMAP A.6: here a
-frame carries the caller's own ``trace`` field and none is minted.
+``InputQueue``/``OutputQueue`` shape). ``_stamp_trace`` puts the
+thread's adopted request trace (:func:`~zoo_tpu_torch.obs.tracing.
+trace_context`) on every outgoing frame that carries none.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from zoo_tpu_torch.obs.tracing import ambient_trace_id, current_span_id
 from zoo_tpu_torch.serving.server import _recv_frame, _send_msg
 from zoo_tpu_torch.util.integrity import wire_crc_enabled
 from zoo_tpu_torch.util.resilience import (
@@ -32,10 +33,18 @@ from zoo_tpu_torch.util.resilience import (
 
 
 def _stamp_trace(msg: Dict) -> Dict:
-    """The JAX package stamps the thread's ambient request trace onto
-    the frame here; the port has no trace context yet (ROADMAP A.6), so
-    a frame carries only a ``trace`` field its caller set, and the wire
-    never carries a minted one."""
+    """Propagate the thread's adopted request trace onto the frame: a
+    caller already inside a ``trace_context`` gets wire propagation for
+    free; explicit ``trace`` fields (the HA client's) win. No ambient
+    context = no stamp: the wire never carries the process-wide trace
+    id."""
+    if "trace" not in msg:
+        tid = ambient_trace_id()
+        if tid is not None:
+            msg["trace"] = tid
+            ps = current_span_id()
+            if ps is not None:
+                msg["pspan"] = ps
     return msg
 
 

@@ -1,6 +1,6 @@
 """Shared resilience core: deadlines, retries, circuit breaking, fault
-injection and heartbeat liveness (counterpart of
-``zoo_tpu/util/resilience.py``; its ``ChaosSchedule`` storm comes later).
+injection, the seeded chaos schedule and heartbeat liveness (counterpart
+of ``zoo_tpu/util/resilience.py``).
 
 * :class:`RetryPolicy` — bounded exponential backoff with full jitter and
   an overall wall-clock deadline; the serving TCP client redials under it.
@@ -34,6 +34,17 @@ from zoo_tpu_torch.util.integrity import FrameCorrupt  # noqa: F401
 
 logger = logging.getLogger(__name__)
 
+
+def _flight(kind: str, **fields):
+    """Record into the crash flight-recorder ring (lazy import: the
+    flight module sits above this one, and the ring must never be a
+    reason resilience fails to load)."""
+    try:
+        from zoo_tpu_torch.obs.flight import record_event
+        record_event(kind, **fields)
+    except Exception:  # noqa: BLE001 — telemetry never fails the op
+        pass
+
 _retry_attempts = counter(
     "zoo_retry_attempts_total", "RetryPolicy attempts executed "
     "(including each call's first try)")
@@ -56,6 +67,7 @@ __all__ = [
     "CircuitBreaker", "CircuitOpenError", "FrameCorrupt",
     "FaultInjector", "InjectedFault", "inject", "clear_faults",
     "fault_point", "default_injector",
+    "ChaosSchedule", "ChaosEvent",
     "touch_heartbeat", "heartbeat_age", "start_heartbeat_thread",
     "HEARTBEAT_FILE_ENV", "HEARTBEAT_INTERVAL_ENV",
     "env_float", "env_int",
@@ -187,6 +199,8 @@ class RetryPolicy:
                              self.max_attempts, delay, e)
                 self._sleep(delay)
         _retry_giveups.inc()
+        _flight("retry_giveup", attempts=self.max_attempts,
+                error=repr(last))
         raise RetryError(
             f"gave up after {self.max_attempts} attempt(s): {last!r}",
             self.max_attempts) from last
@@ -273,6 +287,7 @@ class CircuitBreaker:
             if self._state != self.CLOSED:
                 logger.info("circuit breaker closing after probe success")
                 _breaker_transitions.labels(state=self.CLOSED).inc()
+                _flight("breaker_closed")
                 _breakers_open.dec()
             self._state = self.CLOSED
 
@@ -287,6 +302,9 @@ class CircuitBreaker:
                         "failure(s); shedding load for %.1fs",
                         self._failures, self.recovery_timeout)
                     _breaker_transitions.labels(state=self.OPEN).inc()
+                    _flight("breaker_open",
+                            failures=self._failures,
+                            recovery_s=self.recovery_timeout)
                     if self._state == self.CLOSED:
                         # CLOSED->OPEN only: a reopening HALF_OPEN
                         # breaker is already counted in the gauge
@@ -456,6 +474,202 @@ def fault_point(site: str, **ctx):
 
 
 # ---------------------------------------------------------------------------
+# deterministic fleet chaos
+# ---------------------------------------------------------------------------
+
+class ChaosEvent:
+    """One resolved fault on the schedule's timeline: ``kind`` at
+    ``t0`` seconds after the run starts, optionally a WINDOW closing at
+    ``t1`` (the action is invoked again with ``phase="end"`` — revert
+    the fault), plus free-form ``params``."""
+
+    __slots__ = ("kind", "t0", "t1", "params")
+
+    def __init__(self, kind: str, t0: float,
+                 t1: Optional[float], params: Dict):
+        self.kind = kind
+        self.t0 = float(t0)
+        self.t1 = None if t1 is None else float(t1)
+        self.params = dict(params)
+
+    def as_dict(self) -> Dict:
+        return {"kind": self.kind, "t0": round(self.t0, 6),
+                "t1": None if self.t1 is None else round(self.t1, 6),
+                "params": dict(self.params)}
+
+    def __repr__(self):
+        win = f"-{self.t1:g}" if self.t1 is not None else ""
+        return f"ChaosEvent({self.kind}@{self.t0:g}{win} {self.params})"
+
+
+class ChaosSchedule:
+    """A seed-driven, replayable sequence of timed faults for a whole
+    replica group — :class:`FaultInjector` grown from "one armed site"
+    to "a storm with a clock" (docs/fault_tolerance.md).
+
+    **Spec** (``ZOO_CHAOS_SPEC``; ``;``-separated events)::
+
+        kind@T[:key=val[,key=val...]]
+
+    where ``T`` is an instant (``1.5``), a window (``0.5-3.0`` — the
+    action runs at both edges, ``phase="start"`` then ``phase="end"``),
+    or a seeded draw (``1.0~2.5`` picks a deterministic instant in the
+    range; either window edge may be a draw). A param value of ``?``
+    draws a deterministic replica index in ``[0, replicas)``. Example::
+
+        slow@0.5-4.0:replica=1,delay_ms=80;kill@2.0:replica=?;
+        corrupt@1.0-3.0:p=0.15;drop@1.5:times=2
+
+    **Determinism**: all randomness (time draws, ``?`` targets) comes
+    from ``random.Random(seed)`` at CONSTRUCTION — two schedules built
+    from the same (spec, seed, replicas) resolve to the identical
+    event list (:meth:`resolved`, what the chaos storm asserts), and
+    :meth:`run` reseeds the default :class:`FaultInjector` with the
+    same seed so probabilistic (``p < 1``) firings replay too.
+
+    **Kinds are opaque**: :meth:`run` dispatches each event to the
+    ``actions`` dict the harness supplies (``kind -> fn(event,
+    phase)``), so the schedule composes any fault the harness can
+    express — SIGKILL via ``ReplicaGroup.kill_replica``, a remote
+    per-op delay via the wire ``chaos`` op, a client-side frame
+    bit-flip via ``integrity.corrupt_action``, a spill-dir disk-full
+    via the ``flight.spill`` site."""
+
+    def __init__(self, spec: Optional[str] = None,
+                 seed: Optional[int] = None,
+                 replicas: Optional[int] = None):
+        if spec is None:
+            spec = os.environ.get("ZOO_CHAOS_SPEC", "")
+        if seed is None:
+            seed = int(os.environ.get("ZOO_CHAOS_SEED", "0") or 0)
+        self.spec = spec
+        self.seed = int(seed)
+        self.replicas = replicas
+        rng = random.Random(self.seed)
+        self.events: list = []
+        for part in (p.strip() for p in spec.split(";")):
+            if not part:
+                continue
+            self.events.append(self._parse_event(part, rng))
+        self.events.sort(key=lambda e: e.t0)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _parse_event(self, text: str, rng) -> ChaosEvent:
+        def draw(tok: str) -> float:
+            if "~" in tok:
+                a, b = tok.split("~", 1)
+                return rng.uniform(float(a), float(b))
+            return float(tok)
+
+        head, _, tail = text.partition(":")
+        kind, sep, when = head.partition("@")
+        if not sep or not when:
+            raise ValueError(
+                f"malformed chaos event {text!r} (expected "
+                "kind@T[:k=v,...], e.g. slow@0.5-3.0:replica=1,"
+                "delay_ms=80)")
+        t0, _, t1 = when.partition("-")
+        t0 = draw(t0)
+        t1 = draw(t1) if t1 else None
+        if t1 is not None and t1 < t0:
+            raise ValueError(
+                f"chaos event {text!r}: window closes before it opens")
+        params: Dict = {}
+        for kv in tail.split(","):
+            if not kv:
+                continue
+            k, sep, v = kv.partition("=")
+            if not sep:
+                raise ValueError(
+                    f"malformed chaos param {kv!r} in {text!r}")
+            k, v = k.strip(), v.strip()
+            if v == "?":
+                if not self.replicas:
+                    raise ValueError(
+                        f"chaos param {k}=? needs replicas= at "
+                        "schedule construction")
+                params[k] = rng.randrange(self.replicas)
+            else:
+                try:
+                    params[k] = int(v)
+                except ValueError:
+                    try:
+                        params[k] = float(v)
+                    except ValueError:
+                        params[k] = v
+        return ChaosEvent(kind.strip(), t0, t1, params)
+
+    def resolved(self) -> list:
+        """The fully-resolved fault sequence — every seeded draw
+        materialized. Same (spec, seed, replicas) in, same list out:
+        THE replay contract the chaos storm asserts."""
+        return [e.as_dict() for e in self.events]
+
+    @property
+    def horizon(self) -> float:
+        """Seconds from start until the last event edge fires."""
+        return max((e.t1 if e.t1 is not None else e.t0
+                    for e in self.events), default=0.0)
+
+    def run(self, actions: Dict[str, Callable],
+            injector: Optional["FaultInjector"] = None
+            ) -> "ChaosSchedule":
+        """Play the schedule on a daemon thread: each event's action
+        (``actions[kind]``) is invoked at ``t0`` with
+        ``phase="start"`` and — for windows — at ``t1`` with
+        ``phase="end"``. The injector (default: the process-global
+        one) is reseeded with the schedule's seed first, so armed
+        ``p < 1`` sites draw the same replayable sequence. Action
+        errors are logged, never fatal: chaos must not kill the
+        harness measuring it."""
+        inj = injector if injector is not None else default_injector
+        inj.reseed(self.seed)
+        timeline = []
+        for ev in self.events:
+            timeline.append((ev.t0, 0, "start", ev))
+            if ev.t1 is not None:
+                timeline.append((ev.t1, 1, "end", ev))
+        timeline.sort(key=lambda x: (x[0], x[1]))
+        self._stop.clear()
+
+        def loop():
+            t_start = time.monotonic()
+            for t, _o, phase, ev in timeline:
+                wait = t - (time.monotonic() - t_start)
+                if wait > 0 and self._stop.wait(wait):
+                    return
+                if self._stop.is_set():
+                    return
+                fn = actions.get(ev.kind)
+                if fn is None:
+                    logger.warning("chaos schedule: no action for "
+                                   "kind %r — skipped", ev.kind)
+                    continue
+                try:
+                    fn(ev, phase)
+                except Exception:  # noqa: BLE001 — chaos never kills
+                    logger.exception("chaos action %s(%s) failed",
+                                     ev.kind, phase)
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="zoo-chaos-schedule")
+        self._thread.start()
+        return self
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the timeline to finish; True when it has."""
+        if self._thread is None:
+            return True
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+
+
 # heartbeat liveness
 # ---------------------------------------------------------------------------
 
