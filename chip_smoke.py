@@ -241,10 +241,40 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    bit-equal to v1's direct predict, 0 failures, replica 1 ejected, the
    on-p99 below the off-p99; the bench's keys printed.
 
+16. cluster-main — Cluster Serving (the Redis stream job, its HTTP
+   front end and CLI) serving VGG-16 at full width and depth (224 x 224
+   x 3, 1000 classes, ``mixed_bfloat16``, weights drawn on the card from
+   a seed) from model files encrypted at rest: v1 float saved with
+   ``save_encrypted`` under AES-CBC, v2 int8 after
+   ``quantize_model(mode="force")`` under AES-GCM. Each version read by
+   ``InferenceModel.load_encrypted`` into ``ClusterServing(batch_size=
+   32)`` + ``FrontEnd`` over an ``EmbeddedRedis``: 8 client threads x 32
+   single-image ``enqueue``s read back with ``OutputQueue``, and 4 HTTP
+   ``/predict`` instances: 0 ``"NaN"``, 0 per-record fallbacks, 0
+   missing, every reply within 4e-3 of its image's direct ``predict`` in
+   a zero-padded batch of 32 (bit-equal ones counted), those direct
+   batches against ``plain_kernels()`` (v1 within 4e-3, v2 bit-equal),
+   launches exactly 13 ``conv2d`` a v1 batch and 13 ``conv2d_int8`` + 1
+   ``quantized_matmul`` (fc6, K = 25,088: the two-pass route) + 2
+   ``fused_quantized_matmul`` (fc7, fc8) a v2 batch; records/s, p50/p99,
+   mean batch occupancy, the ``decode``/``inference``/``encode`` stage
+   times and a ``cluster-step`` profile of one batch per version. Then
+   the CLI in a process of its own (``python -m
+   zoo_tpu_torch.serving.run --model <v2> --encrypted --model-enc-mode
+   gcm --redis-mode embedded --batch-size 32 --device cuda``, the key in
+   ``ZOO_MODEL_SECRET``): boot seconds, 64 queue records and 2 HTTP
+   instances within tolerance of the in-process v2 outputs, then
+   SIGTERM: drained, exit 0.
+
 Phase 7 is followed by predict-tiny: the tiny ResNet served through
 ``ServingServer`` (``batch_size=4``) and ``HAServingClient.predict``,
 float and int8, the kernel replies equal to the plain ones within phase
-7's tolerances.
+7's tolerances; then cluster-tiny: ``tests/test_cluster_serving.py``'s
+MLP behind ``EmbeddedRedis`` + ``ClusterServing`` + ``FrontEnd`` on the
+card, a queue ``enqueue``/``query``, a ``dequeue``, a synchronous
+``InputQueue.predict``, an HTTP ``/predict`` (trace and tenant echoed)
+and a string-and-sparse schema round trip, every reply within 1e-5 of a
+direct ``predict``.
 
 Phase 3 also holds the flash forward (o, lse) and backward kernels
 (dK/dV, dQ) against their plain versions, and the gradients against
@@ -260,8 +290,10 @@ K-major weight copy a quantized layer carries, the copy's one-time cost
 printed apart), and the int8
 GEMMs at the ResNet-50 head, at ``bench_int8_matmul``'s shape and (the
 two-pass one, and the fused op's hand-over to it past K = 8192: one
-``quantized_matmul`` launch, no fused one) at VGG-16's fc6, B=128,
-beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks; the reference
+``quantized_matmul`` launch, no fused one) at VGG-16's fc6, B=128 and
+the served B=32 (with the eager activation quantization before it
+timed), and VGG-16's first conv (Cin = 3, B=32) on the bf16 and int8
+routes, beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks; the reference
 conv's gradients (``conv2d_plain_grads``, the float conv's backward)
 repeat bit for bit on the same inputs at the four timed conv shapes,
 B=128, f32 and bf16; and the
@@ -294,7 +326,9 @@ and its launches by main path, ``serve_spec`` the speculative run's,
 (f32 and int8), ``serve_tenancy`` the tenancy runs', ``serve_obs``
 ``direct_traced``'s, ``train_bert`` BERT
 run (b)'s,
-``predict`` predict-main's in-process run;
+``predict`` predict-main's in-process run, ``cluster`` cluster-main's
+in-process runs (both versions; ``conv2d`` and ``conv2d_int8`` also
+carry ``vgg_first_conv``, ``quantized_matmul`` ``served_fc6``);
 for ``conv2d`` and the three flash kernels the numbers are the bf16
 route's, the f32 route's sit under ``f32_route``), the card's name and power
 limit as ``nvidia-smi`` reports them, and last ``{"ok": true, "device":
@@ -333,11 +367,23 @@ INFER_B, INFER_STEPS = 128, 8
 CONV_SHAPES = ((56, 256, 1, 64, 1), (28, 128, 3, 128, 1),
                (56, 256, 1, 512, 2), (7, 512, 3, 512, 1))
 # (M, K, N): the ResNet-50 head at B=128, bench.py bench_int8_matmul, and
-# VGG-16's fc6 at B=128 (7x7x512 = 25088 features into Dense(4096)), where
-# the fused path hands over to the two-pass path (K > 8192): 103 MB of
-# int8 weights, 12.8 MB of f32 x and an 822 MB float64 copy of w for the
-# plain version, all freed after the shape
-GEMM_SHAPES = ((128, 2048, 1000), (512, 1024, 1024), (128, 25088, 4096))
+# VGG-16's fc6 at B=128 and at the served batch, B=32 (7x7x512 = 25088
+# features into Dense(4096)), where the fused path hands over to the
+# two-pass path (K > 8192): 103 MB of int8 weights, 12.8 MB of f32 x and
+# an 822 MB float64 copy of w for the plain version, all freed after the
+# shape
+GEMM_SHAPES = ((128, 2048, 1000), (512, 1024, 1024), (128, 25088, 4096),
+               (32, 25088, 4096))
+# Cluster Serving (cluster-main): VGG-16 at full width and depth behind
+# the Redis stream job, batches of 32; 8 client threads x 32 single-image
+# requests and 4 HTTP instances a version, then the CLI in a process of
+# its own: 64 requests and 2 HTTP instances
+CLUSTER_B, CLUSTER_CLIENTS, CLUSTER_PER_CLIENT, CLUSTER_HTTP = 32, 8, 32, 4
+CLUSTER_CLI_REQUESTS, CLUSTER_CLI_HTTP = 64, 2
+CLUSTER_SECRET, CLUSTER_SALT = "chip-smoke-kms-secret", "chip-smoke-salt"
+CLUSTER_IMAGE, CLUSTER_CLASSES, VGG_CONVS = (224, 224, 3), 1000, 13
+# VGG-16's first conv (spatial, C, k, O, stride): Cin = 3, K = 27
+VGG_FIRST_CONV = (224, 3, 3, 64, 1)
 # ResNet-50's identity bottlenecks per stage: (name, spatial, Cin, Cmid)
 BLOCK_STAGES = (("conv2_x", 56, 256, 64), ("conv3_x", 28, 512, 128),
                 ("conv4_x", 14, 1024, 256), ("conv5_x", 7, 2048, 512))
@@ -1712,9 +1758,35 @@ def phase_inference_kernels(torch, record, err, results):
         torch.cuda.synchronize()
         record("conv2d_int8", f"B={B} {shape}", err(y, ref), "int8")
         del x, w, xq, wq, y, ref
+    # every other in-envelope conv shape of VGG-16, at the served batch
+    # on the two routes that serve it (bf16 for v1, int8 for v2),
+    # checked, not timed; conv1_1 (Cin = 3) is held and timed below
+    from zoo_tpu_torch.models.image import vgg16
+    vgg = sorted(set(envelope_convs(vgg16(CLUSTER_CLASSES, CLUSTER_IMAGE)))
+                 - {VGG_FIRST_CONV})
+    b = CLUSTER_B
+    for h, c, k, o, s in vgg:
+        shape = f"{h}x{h} {c}->{o} {k}x{k} stride {s} (VGG-16)"
+        x, w = randn(b, h, h, c), randn(k, k, c, o)
+        y, ref = CV.implicit_gemm_conv2d(x, w, (s, s)), \
+            CV.conv2d_plain(x, w, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d", f"bf16 B={b} {shape}", err(y, ref), "conv_bf16",
+               float(ref.float().abs().max()))
+        del x, w, y, ref
+        xq, wq, xs, ws = int8(b, h, h, c), int8(k, k, c, o), scales(b), \
+            scales(o)
+        y = CV.implicit_gemm_conv2d_int8(xq, wq, xs, ws, (s, s))
+        ref = CV.conv2d_int8_plain(xq, wq, xs, ws, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d_int8", f"B={b} {shape}", err(y, ref), "int8")
+        del xq, wq, y, ref
     emit({"phase": "kernels", "conv_shapes_checked":
-          len(CONV_SHAPES) + len(rest)})
+          len(CONV_SHAPES) + len(rest), "vgg_conv_shapes_checked":
+          len(vgg) + 1})
     torch.cuda.empty_cache()
+    _vgg_first_conv(torch, CV, F, randn, int8, scales, record, err,
+                    results)
 
     for m, k, n in GEMM_SHAPES:
         shape = f"M={m} K={k} N={n}"
@@ -1780,9 +1852,16 @@ def phase_inference_kernels(torch, record, err, results):
                       "library": f"torch._int_mm unavailable: {e!r}"})
                 libs[name] = None
         plan = Q.qmm_plan(m, k, n, 16, 16, clusters=Q.cluster_limits(dev))
+        extra = {}
+        if two_pass:
+            # the eager activation quantization the two-pass route runs
+            # before the kernel (ROADMAP A.12's "(time)" item)
+            tq = timed(torch, lambda: Q.quantize_int8(x, axis=-1), 10)
+            extra = {"activation_quantize_ms": tq["device_ms"],
+                     "activation_quantize_launches": tq["device_launches"]}
         per["quantized_matmul"].append(dict(
             qmm_timing(torch, Q, xq, wq, xs, ws, libs["quantized_matmul"]),
-            plan=plan._asdict()))
+            plan=plan._asdict(), **extra))
         emit({"phase": "kernels", "kernel": "quantized_matmul",
               "timing": per["quantized_matmul"][-1]})
         if not two_pass:
@@ -1829,6 +1908,74 @@ def phase_inference_kernels(torch, record, err, results):
     for name in ("quantized_matmul", "fused_quantized_matmul"):
         # the kernels line carries the head's shape, the main path's
         results[name].update(per[name][0], shapes=per[name])
+    # and the two-pass GEMM at fc6 of a served VGG-16 batch
+    results["quantized_matmul"]["served_fc6"] = next(
+        t for t in per["quantized_matmul"]
+        if t["shape"].startswith(f"M={CLUSTER_B} K=25088"))
+
+
+def _vgg_first_conv(torch, CV, F, randn, int8, scales, record, err,
+                    results):
+    """VGG-16's first conv at the served batch: Cin = 3, so K = 27 is a
+    multiple of neither the bf16 (16) nor the int8 (32) k-step, and the
+    activation is gathered an element at a time (``vec`` 1). Both
+    routes against their plain versions, then timed beside their bounds
+    and ``F.conv2d`` (bf16, channels-last; none for int8)."""
+    h, c, k, o, s = VGG_FIRST_CONV
+    b = CLUSTER_B
+    shape = f"B={b} {h}x{h} {c}->{o} {k}x{k} stride {s}"
+    ops = 2 * b * h * h * k * k * c * o
+    x, w = randn(b, h, h, c), randn(k, k, c, o)
+    y, ref = CV.implicit_gemm_conv2d(x, w), CV.conv2d_plain(x, w)
+    torch.cuda.synchronize()
+    record("conv2d", f"bf16 {shape} (VGG-16 conv1_1)", err(y, ref),
+           "conv_bf16", float(ref.float().abs().max()))
+    del y, ref
+    b_ms, b_by = bound(2 * (x.numel() + w.numel() + b * h * h * o), ops,
+                       PEAK_BF16_FLOPS)
+    xn = x.permute(0, 3, 1, 2)
+    wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    t = timing(torch, "conv_tc_kernel", lambda: CV.implicit_gemm_conv2d(x, w),
+               lambda: CV.conv2d_plain(x, w),
+               lambda: F.conv2d(xn, wn, padding=(k - 1) // 2), 10)
+    plan = CV.conv_plan(b * h * h, c, o)
+    first = {key: t[key] for key in ("ms", "kernel_ms", "wall_ms",
+                                     "plain_ms", "library_ms")}
+    first.update(shape=f"{shape} bf16", bound_ms=b_ms, bound_by=b_by,
+                 plan={"bm": plan.bm, "bn": plan.bn, "stages": plan.stages,
+                       "vec": plan.vec, "blocks": plan.blocks},
+                 **rates(ops, t["ms"], b_ms, t["library_ms"]))
+    results["conv2d"]["vgg_first_conv"] = first
+    emit({"phase": "kernels", "kernel": "conv2d", "vgg_first_conv": first})
+    f_conv_ms = t["library_ms"]
+    del x, w, xn, wn
+    xq, wq, xs, ws = int8(b, h, h, c), int8(k, k, c, o), scales(b), \
+        scales(o)
+    wk = CV.int8_weights_kmajor(wq)
+    y = CV.implicit_gemm_conv2d_int8(xq, wq, xs, ws, w_kmajor=wk)
+    ref = CV.conv2d_int8_plain(xq, wq, xs, ws)
+    torch.cuda.synchronize()
+    record("conv2d_int8", f"{shape} (VGG-16 conv1_1)", err(y, ref), "int8")
+    del y, ref
+    b_ms, b_by = bound(xq.numel() + wq.numel() + 4 * (b + o)
+                       + 4 * b * h * h * o, ops, PEAK_INT8_OPS)
+    t = timed(torch, lambda: CV.implicit_gemm_conv2d_int8(
+        xq, wq, xs, ws, w_kmajor=wk), 10, kernel="conv_i8_tc_kernel")
+    plain = timed(torch, lambda: CV.conv2d_int8_plain(xq, wq, xs, ws), 1,
+                  warmup=1)
+    plan = CV.conv_int8_plan(b * h * h, c, o)
+    first = {"ms": t["device_ms"], "kernel_ms": t["kernel_ms"],
+             "wall_ms": t["wall_ms"], "plain_ms": plain["device_ms"],
+             "library_ms": None, "f_conv2d_bf16_ms": f_conv_ms,
+             "shape": f"{shape} int8", "bound_ms": b_ms, "bound_by": b_by,
+             "plan": {"bn": plan.bn, "bk": plan.bk, "stages": plan.stages,
+                      "vec": plan.vec, "blocks": plan.blocks},
+             **rates(ops, t["device_ms"], b_ms, None)}
+    results["conv2d_int8"]["vgg_first_conv"] = first
+    emit({"phase": "kernels", "kernel": "conv2d_int8",
+          "vgg_first_conv": first})
+    del xq, wq, wk
+    torch.cuda.empty_cache()
 
 
 def _block_weights(torch, g, cin, cmid, grad=False):
@@ -4621,6 +4768,14 @@ def phase_tiny_tenancy(torch, K, device="cuda"):
 # the replies of the served ResNet-50 against its direct predict:
 # mixed_bfloat16's tolerance of tests/test_torch_resnet.py (TOL, :41)
 TOL_PREDICT_BF16 = 4e-3
+# the served VGG-16 v1's logits (its softmax head set aside) against
+# plain_kernels(), as a share of the plain logits' range: seed weights
+# leave its 1000 probabilities near 1e-3 each, where TOL_PREDICT_BF16
+# would pass a conv that wrote zeros; 2^-4 is far above what bf16
+# rounding gives (a whole float32 forward of seed weights differs from
+# a mixed_bfloat16 one by under 2^-7 of the range), and a conv that
+# writes zeros or garbage moves the logits by about their range
+TOL_VGG_LOGITS_REL = 2.0 ** -4
 PREDICT_B, PREDICT_CLIENTS, PREDICT_PER_CLIENT = 32, 32, 16
 # bench.py bench_serving: an MLP behind the micro-batcher, 8 clients,
 # 200 requests a batch size, batch sizes 8 and 32
@@ -5324,6 +5479,510 @@ def phase_obs_trace(model, card):
                              f"{spans} spans written")
 
 
+def _free_ports(n):
+    """``n`` distinct free TCP ports on 127.0.0.1 (all held open until
+    every one is drawn)."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def _cluster_result(oq, uri, budget=120.0, poll=0.002):
+    """``uri``'s result from ``oq`` (deleted as read), polled every
+    ``poll`` s; None when ``budget`` s pass without one."""
+    deadline = time.monotonic() + budget
+    while time.monotonic() < deadline:
+        out = oq.query_and_delete(uri)
+        if not (isinstance(out, str) and out == "[]"):
+            return out
+        time.sleep(poll)
+    return None
+
+
+def _cluster_http(host, port, image, headers=None):
+    """One ``/predict`` instance through a front end: its output."""
+    import json
+    import urllib.request
+
+    import numpy as np
+    body = json.dumps({"instances": [{"t": image.tolist()}]}).encode()
+    req = urllib.request.Request(f"http://{host}:{port}/predict", data=body,
+                                 headers=dict(headers or {}))
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        pred = json.loads(resp.read())["predictions"][0]
+    if pred == "NaN":
+        return pred
+    val = json.loads(json.loads(pred)["value"])
+    return np.asarray(val["data"], np.float32).reshape(val["shape"])
+
+
+def _cluster_storm(port, images, n_clients, per_client, label):
+    """``n_clients`` threads, each with a queue pair of its own, sending
+    ``per_client`` single-image records (client ``c``'s ``i``-th is image
+    ``(c + i) % len``) with ``InputQueue.enqueue`` and reading each result
+    back with ``OutputQueue.query_and_delete``. Returns ``(replies,
+    missing, wall_s)``, each reply ``(image, output, latency_s)``."""
+    import threading
+
+    from zoo_tpu_torch.serving import InputQueue, OutputQueue
+    replies, missing = [], []
+    lock = threading.Lock()
+
+    def worker(c):
+        iq = InputQueue(host="127.0.0.1", port=port)
+        oq = OutputQueue(host="127.0.0.1", port=port)
+        try:
+            for i in range(per_client):
+                k = (c + i) % len(images)
+                uri = f"{label}-c{c}-{i}"
+                t0 = time.perf_counter()
+                iq.enqueue(uri, t=images[k])
+                out = _cluster_result(oq, uri)
+                with lock:
+                    if out is None:
+                        missing.append(uri)
+                    else:
+                        replies.append((k, out, time.perf_counter() - t0))
+        finally:
+            iq.db.close()
+            iq.output_queue.db.close()
+            oq.db.close()
+
+    threads = [threading.Thread(target=worker, args=(c,))
+               for c in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return replies, missing, time.perf_counter() - t0
+
+
+def _cluster_check(label, outs, direct):
+    """Every output (``(image, output)`` pairs) against its image's
+    direct output: no ``"NaN"``, within ``TOL_PREDICT_BF16``; returns
+    (max error, bit-equal count)."""
+    import numpy as np
+    worst, equal = 0.0, 0
+    for k, y in outs:
+        if isinstance(y, str):
+            raise AssertionError(f"{label}: image {k} answered {y!r}")
+        ref = direct[k]
+        if y.shape != ref.shape or not np.isfinite(y).all():
+            raise AssertionError(f"{label}: a reply of shape {y.shape}")
+        worst = max(worst, float(np.abs(y - ref).max()))
+        equal += int(np.array_equal(y, ref))
+    if not worst <= TOL_PREDICT_BF16:
+        raise AssertionError(f"{label}: a reply differs from its image's "
+                             f"direct predict by {worst}")
+    return worst, equal
+
+
+def _job_counts(cs):
+    """The serving job's counters and stage timers (n, total s) now."""
+    out = {k: getattr(cs, k) for k in ("records_out", "batches",
+                                        "fallback_batches",
+                                        "fallback_records", "nan_records")}
+    out["timers"] = {k: (t.n, t.total) for k, t in cs.timers.items()}
+    return out
+
+
+def _job_window(before, after):
+    """What the job counted between two :func:`_job_counts`, the stage
+    timers as mean ms a batch."""
+    out = {k: after[k] - before[k] for k in before if k != "timers"}
+    out["stage_ms"] = {
+        k: 1e3 * (after["timers"][k][1] - before["timers"][k][1])
+        / max(1, after["timers"][k][0] - before["timers"][k][0])
+        for k in before["timers"]}
+    return out
+
+
+def phase_cluster_tiny(torch, K):
+    """The ``Sequential`` MLP of ``tests/test_cluster_serving.py``
+    (``Dense(4, relu)`` -> ``Dense(2)`` over 6 features, weights drawn on
+    the card) behind ``EmbeddedRedis`` + ``ClusterServing`` +
+    ``FrontEnd`` on ``cuda``: queue ``enqueue``/``query``, a ``dequeue``,
+    a synchronous ``InputQueue.predict``, an HTTP ``/predict`` with its
+    trace and tenant echoed, and a string-and-sparse schema round trip;
+    every reply within 1e-5 of a direct ``predict`` (``TOL_TINY_F32``),
+    no ``"NaN"``, no fallback. No kernel runs (the MLP's matmuls are
+    cuBLAS's, as in ``predict-mlp``)."""
+    import json
+    import urllib.request
+
+    import numpy as np
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from zoo_tpu_torch.pipeline.inference import InferenceModel
+    from zoo_tpu_torch.serving import (ClusterServing, EmbeddedRedis,
+                                       FrontEnd, InputQueue, OutputQueue)
+    from zoo_tpu_torch.serving.client import (decode_input_b64,
+                                              encode_input_b64)
+
+    t_start = time.perf_counter()
+    m = Sequential()
+    m.add(Dense(4, input_shape=(6,), activation="relu"))
+    m.add(Dense(2))
+    m.compile(optimizer="adam", loss="mse")
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    im = InferenceModel().load_keras(m)
+    xs = np.random.RandomState(0).randn(8, 6).astype(np.float32)
+    direct = im.predict(xs)
+    redis = EmbeddedRedis().start()
+    cs = ClusterServing(im, redis_port=redis.port).start()
+    iq = InputQueue(port=redis.port)
+    oq = OutputQueue(port=redis.port)
+    fe = FrontEnd(cs, iq).start()
+    K.reset_launch_counts()
+    try:
+        outs = []
+        for i in range(3):
+            iq.enqueue(f"q{i}", t=xs[i])
+        for i in range(3):
+            y = _cluster_result(oq, f"q{i}", budget=30.0)
+            outs.append((i, "missing" if y is None else y))
+        iq.enqueue("d3", t=xs[3])
+        iq.enqueue("d4", t=xs[4])
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and not all(
+                not isinstance(oq.query(u), str) for u in ("d3", "d4")):
+            time.sleep(0.01)
+        drained = oq.dequeue()
+        if set(drained) != {"d3", "d4"} or oq.dequeue() != {}:
+            raise AssertionError(f"cluster-tiny: dequeue {sorted(drained)}")
+        outs += [(3, drained["d3"]), (4, drained["d4"])]
+        outs.append((5, np.asarray(iq.predict(xs[5], timeout=30.0))))
+        req = urllib.request.Request(
+            f"http://{fe.host}:{fe.port}/predict",
+            data=json.dumps({"instances": [{"t": xs[6].tolist()}]}).encode(),
+            headers={"X-Zoo-Trace": "cluster-tiny", "X-Zoo-Tenant": "t0"})
+        with urllib.request.urlopen(req, timeout=30) as resp:
+            echoed = (resp.headers.get("X-Zoo-Trace"),
+                      resp.headers.get("X-Zoo-Tenant"))
+            pred = json.loads(resp.read())["predictions"][0]
+        val = json.loads(json.loads(pred)["value"])
+        outs.append((6, np.asarray(val["data"], np.float32)))
+        metrics = json.loads(urllib.request.urlopen(
+            f"http://{fe.host}:{fe.port}/metrics", timeout=30).read())
+        schema = decode_input_b64(encode_input_b64(
+            s=["a", "b", "c"], t=xs[:2]))
+        # a sparse [indices, values, shape] input with every value
+        # present decodes to its values in the dense shape
+        sparse = decode_input_b64(encode_input_b64(
+            sp=[np.array([[0], [1]]), xs[0, :2], np.array([2])]))["sp"]
+        worst = 0.0
+        for k, y in outs:
+            if isinstance(y, str) or np.asarray(y).shape != (2,):
+                raise AssertionError(f"cluster-tiny: record {k} -> {y!r}")
+            worst = max(worst, float(np.abs(y - direct[k]).max()))
+        counts = K.launch_counts()
+        emit({"phase": "cluster-tiny", "seconds":
+              time.perf_counter() - t_start, "records": len(outs),
+              "max_abs_err": worst, "tol": TOL_TINY_F32,
+              "echoed": list(echoed),
+              "job": {k: metrics[k] for k in (
+                  "records_out", "batches", "fallback_records",
+                  "nan_records")},
+              "launches": {k: counts[k] for k in INFER_KERNELS}})
+        if not worst <= TOL_TINY_F32:
+            raise AssertionError(f"cluster-tiny: replies differ from the "
+                                 f"direct predict by {worst}")
+        if echoed != ("cluster-tiny", "t0") or metrics["nan_records"] or \
+                metrics["fallback_records"] or metrics["records_out"] != 7:
+            raise AssertionError(f"cluster-tiny: headers {echoed}, job "
+                                 f"{metrics}")
+        if schema["s"] != "a|b|c" or not np.array_equal(
+                schema["t"], xs[:2]) or not np.array_equal(sparse, xs[0, :2]):
+            raise AssertionError(f"cluster-tiny: schema {schema}, sparse "
+                                 f"{sparse}")
+        _launched(counts)
+    finally:
+        fe.stop()
+        cs.stop()
+        redis.stop()
+
+
+def _cluster_version(torch, K, card, version, path, mode, images, n_conv):
+    """One encrypted VGG-16 file served in this process:
+    ``InferenceModel.load_encrypted`` -> ``ClusterServing(batch_size=32)``
+    + ``FrontEnd`` over an ``EmbeddedRedis``; a warm-up window, then the
+    counted storm (``CLUSTER_CLIENTS`` x ``CLUSTER_PER_CLIENT`` queue
+    records) and ``CLUSTER_HTTP`` HTTP instances; the replies against
+    each image's direct predict in a zero-padded batch of 32, those
+    against ``plain_kernels()`` (v1's logits too), the launches a
+    batch, and a ``cluster-step`` profile of one batch. Returns
+    (launches, direct outputs)."""
+    import numpy as np
+    from zoo_tpu_torch.pipeline.inference import InferenceModel
+    from zoo_tpu_torch.serving import (ClusterServing, EmbeddedRedis,
+                                       FrontEnd, InputQueue)
+
+    B = CLUSTER_B
+    t0 = time.perf_counter()
+    # decrypted in memory, read through the model file's allowlist, one
+    # warm-up batch at B
+    im = InferenceModel(supported_concurrent_num=2).load_encrypted(
+        path, CLUSTER_SECRET, CLUSTER_SALT, mode=mode, batch_size=B)
+    load_s = time.perf_counter() - t0
+    per_batch = {"v1": {"conv2d": n_conv},
+                 "v2": {"conv2d_int8": n_conv, "quantized_matmul": 1,
+                        "fused_quantized_matmul": 2}}[version]
+    redis = EmbeddedRedis().start()
+    cs = ClusterServing(im, redis_port=redis.port, batch_size=B).start()
+    fe = FrontEnd(cs, InputQueue(port=redis.port)).start()
+    try:
+        # one uncounted window: a batch's worth of records
+        _cluster_storm(redis.port, images, B, 1, f"{version}-warm")
+        torch.cuda.synchronize()
+        before = _job_counts(cs)
+        K.reset_launch_counts()
+        replies, missing, wall = _cluster_storm(
+            redis.port, images, CLUSTER_CLIENTS, CLUSTER_PER_CLIENT, version)
+        http = [(k, _cluster_http(fe.host, fe.port, images[k]))
+                for k in range(CLUSTER_HTTP)]
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        job = _job_window(before, _job_counts(cs))
+        direct = _direct_outputs(im, images, B)
+        with plain_kernels():
+            K.reset_launch_counts()
+            plain = _direct_outputs(im, images, B)
+            _launched(K.launch_counts())
+        vs_plain = float(np.abs(direct - plain).max())
+        logits_rel = _logits_vs_plain(K, im, images, B) \
+            if version == "v1" else None
+        worst, equal = _cluster_check(
+            f"cluster-main {version}",
+            [(k, y) for k, y, _ in replies] + http, direct)
+        n = CLUSTER_CLIENTS * CLUSTER_PER_CLIENT
+        lat = np.asarray(sorted(r[2] for r in replies)) * 1e3
+        emit({"phase": "cluster-main", "run": "in_process",
+              "version": version, "cipher": mode, "card": card,
+              "model": f"vgg16({CLUSTER_CLASSES}, {CLUSTER_IMAGE})",
+              "policy": "mixed_bfloat16", "batch_size": B,
+              "clients": CLUSTER_CLIENTS, "load_s": load_s,
+              "records": len(replies), "missing": len(missing),
+              "http_instances": len(http), "wall_s": wall,
+              "records_per_s": len(replies) / wall,
+              "p50_ms": float(np.percentile(lat, 50)),
+              "p99_ms": float(np.percentile(lat, 99)),
+              "mean_batch_occupancy": job["records_out"]
+              / max(1, job["batches"]),
+              "job": job,
+              "launches": {k: counts[k] for k in INFER_KERNELS},
+              "launches_per_batch": {k: counts[k] / max(1, job["batches"])
+                                     for k in INFER_KERNELS},
+              "max_abs_err_vs_direct": worst, "bit_equal_replies": equal,
+              "tol": TOL_PREDICT_BF16, "vs_plain_max_abs": vs_plain,
+              "vs_plain_tol": TOL_PREDICT_BF16 if version == "v1" else 0.0,
+              "logits_vs_plain_rel": logits_rel,
+              "logits_vs_plain_tol_rel": TOL_VGG_LOGITS_REL})
+        if missing or len(replies) != n:
+            raise AssertionError(f"cluster-main {version}: {len(replies)} "
+                                 f"replies of {n}, missing {missing[:5]}")
+        if job["fallback_batches"] or job["fallback_records"] or \
+                job["nan_records"] or job["records_out"] != n + len(http):
+            raise AssertionError(f"cluster-main {version}: job {job}")
+        _launched(counts, **{k: v * job["batches"]
+                             for k, v in per_batch.items()})
+        if not (vs_plain <= TOL_PREDICT_BF16 if version == "v1"
+                else np.array_equal(direct, plain)):
+            raise AssertionError(
+                f"cluster-main {version}: the kernels differ from their "
+                f"plain versions at batch {B} by {vs_plain}")
+        if logits_rel is not None and not logits_rel <= TOL_VGG_LOGITS_REL:
+            raise AssertionError(
+                f"cluster-main {version}: the logits differ from plain's by "
+                f"{logits_rel} of their range at batch {B}")
+        xb = np.zeros((B,) + images.shape[1:], np.float32)
+        xb[:len(images)] = images
+        t = timed(torch, lambda: im.predict(xb, batch_size=B), 4,
+                  warmup=1)
+        emit({"phase": "cluster-step", "version": version, "card": card,
+              "batch": B, "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
+              "device_ms": t["device_ms"],
+              "device_busy_share": t["device_busy_share"],
+              "device_launches": t["device_launches"],
+              "top_device_ms": [[k[:80], ms] for k, ms in sorted(
+                  t["by_name"].items(), key=lambda kv: -kv[1])[:8]]})
+        return counts, direct
+    finally:
+        fe.stop()
+        cs.stop()
+        redis.stop()
+
+
+def _logits_vs_plain(K, im, images, batch):
+    """The largest gap between each image's logits (the output layer's
+    activation set aside) with the kernels and under ``plain_kernels()``,
+    in direct batches of ``batch``, as a share of the plain logits'
+    range."""
+    import numpy as np
+    head = im.model._topo[-1].layer
+    act, head.activation = head.activation, None
+    try:
+        z = _direct_outputs(im, images, batch)
+        with plain_kernels():
+            K.reset_launch_counts()
+            z_plain = _direct_outputs(im, images, batch)
+            _launched(K.launch_counts())
+    finally:
+        head.activation = act
+    return float(np.abs(z - z_plain).max() / np.ptp(z_plain))
+
+
+def _cluster_cli(path, images, direct, card, log_path):
+    """The CLI in a process of its own: ``python -m
+    zoo_tpu_torch.serving.run --model <v2> --encrypted --model-enc-mode
+    gcm --redis-mode embedded --batch-size 32 --device cuda``, the key
+    in ``ZOO_MODEL_SECRET`` / ``ZOO_MODEL_SALT``; boot seconds, then
+    ``CLUSTER_CLI_REQUESTS`` queue records from 8 threads and
+    ``CLUSTER_CLI_HTTP`` HTTP instances, each within tolerance of the
+    in-process v2 direct output, then SIGTERM: drained, rc 0."""
+    import json
+    import signal
+    import socket
+    import subprocess
+    import urllib.request
+
+    redis_port, http_port = _free_ports(2)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, ZOO_MODEL_SECRET=CLUSTER_SECRET,
+               ZOO_MODEL_SALT=CLUSTER_SALT,
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    env.pop("ZOO_MODEL_ENC_MODE", None)
+    log = open(log_path, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "zoo_tpu_torch.serving.run", "--model", path,
+         "--encrypted", "--model-enc-mode", "gcm", "--redis-mode",
+         "embedded", "--redis-port", str(redis_port), "--http-port",
+         str(http_port), "--batch-size", str(CLUSTER_B), "--device",
+         "cuda"], cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+    rc = None
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                with socket.create_connection(("127.0.0.1", http_port),
+                                              timeout=1):
+                    break
+            except OSError:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("cluster CLI never opened its HTTP "
+                                         f"port (rc {proc.poll()})")
+                time.sleep(0.2)
+        boot_s = time.perf_counter() - t0
+        replies, missing, wall = _cluster_storm(
+            redis_port, images, 8, CLUSTER_CLI_REQUESTS // 8, "cli")
+        http = [(k, _cluster_http("127.0.0.1", http_port, images[k]))
+                for k in range(CLUSTER_CLI_HTTP)]
+        job = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{http_port}/metrics", timeout=30).read())
+        worst, equal = _cluster_check(
+            "cluster-main cli", [(k, y) for k, y, _ in replies] + http,
+            direct)
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+    with open(log_path) as f:
+        out = f.read()
+    boot_line = next((ln for ln in out.splitlines()
+                      if ln.startswith("serving: redis")), "")
+    emit({"phase": "cluster-main", "run": "cli", "card": card,
+          "boot_s": boot_s, "cli_boot_line": boot_line,
+          "records": len(replies), "missing": len(missing),
+          "http_instances": len(http), "wall_s": wall,
+          "records_per_s": len(replies) / wall,
+          "max_abs_err_vs_in_process": worst, "bit_equal_replies": equal,
+          "job": {k: job[k] for k in ("records_out", "batches",
+                                      "fallback_records", "nan_records")},
+          "stage_ms": {k: job[k]["avg_ms"] for k in
+                       ("decode", "inference", "encode")},
+          "drain_rc": rc})
+    if missing or len(replies) != CLUSTER_CLI_REQUESTS or \
+            job["nan_records"] or job["fallback_records"]:
+        raise AssertionError(f"cluster-main cli: {len(replies)} replies, "
+                             f"missing {missing[:5]}, job {job}")
+    if rc != 0 or "drained" not in out:
+        raise AssertionError(f"cluster-main cli: exit {rc} after SIGTERM:\n"
+                             + out[-3000:])
+
+
+def phase_cluster_main(torch, K, card):
+    """VGG-16 at full width and depth (224 x 224 x 3, 1000 classes,
+    ``mixed_bfloat16``, weights drawn on the card from a seed) served by
+    Cluster Serving from encrypted model files: v1 float saved with
+    ``save_encrypted`` (AES-CBC), v2 int8 after
+    ``quantize_model(mode="force")`` (AES-GCM); each through
+    :func:`_cluster_version` in this process, then v2 through the CLI in
+    a process of its own (:func:`_cluster_cli`). Returns the in-process
+    runs' kernel launches (both versions)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.models.image import vgg16
+    from zoo_tpu_torch.pipeline.inference import (quantize_model,
+                                                  save_encrypted)
+
+    root = tempfile.mkdtemp(prefix="zoo-smoke-cluster-")
+    try:
+        t0 = time.perf_counter()
+        m = vgg16(CLUSTER_CLASSES, CLUSTER_IMAGE)
+        m.compile("sgd", "sparse_categorical_crossentropy",
+                  dtype_policy="mixed_bfloat16")
+        m.build(torch.Generator(device="cuda").manual_seed(0),
+                device="cuda")
+        n_conv = len(envelope_convs(m))
+        if n_conv != VGG_CONVS:
+            raise AssertionError(f"VGG-16: {n_conv} convs in the kernels' "
+                                 f"envelope, expected {VGG_CONVS}")
+        build_s = time.perf_counter() - t0
+        files = {"v1": (os.path.join(root, "vgg16-v1.enc"), "cbc"),
+                 "v2": (os.path.join(root, "vgg16-v2.enc"), "gcm")}
+        save_s = {}
+        for version, (path, mode) in files.items():
+            if version == "v2":
+                quantize_model(m, mode="force")
+            t0 = time.perf_counter()
+            save_encrypted(m, path, CLUSTER_SECRET, CLUSTER_SALT, mode=mode)
+            save_s[version] = time.perf_counter() - t0
+        emit({"phase": "cluster-main", "run": "publish", "card": card,
+              "build_s": build_s, "save_encrypted_s": save_s,
+              "file_bytes": {v: os.path.getsize(p)
+                             for v, (p, _) in files.items()}})
+        del m
+        torch.cuda.empty_cache()
+        images = np.random.RandomState(0).randn(
+            16, *CLUSTER_IMAGE).astype(np.float32)
+        launches, direct = {}, {}
+        for version, (path, mode) in files.items():
+            counts, direct[version] = _cluster_version(
+                torch, K, card, version, path, mode, images, n_conv)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            torch.cuda.empty_cache()
+        _cluster_cli(files["v2"][0], images, direct["v2"], card,
+                     os.path.join(root, "cli.log"))
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main():
     try:
         import torch
@@ -5371,6 +6030,7 @@ def main():
         # each main path's launches, counted from 0 just before it runs
         phase_infer_tiny(torch, K)
         phase_predict_tiny(torch, K)
+        phase_cluster_tiny(torch, K)
         phase_train_image_tiny(torch, K)
         serve, serve_spec, serve_wire, serve_disagg, serve_tenancy, \
             serve_obs = phase_main(torch, K, card)
@@ -5386,6 +6046,7 @@ def main():
         by_path["train_bert"] = phase_train_bert_main(torch, K, card)
         phase_predict_mlp(torch, card)
         by_path["predict"] = phase_predict_main(torch, K, card)
+        by_path["cluster"] = phase_cluster_main(torch, K, card)
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"
@@ -5421,7 +6082,8 @@ def main():
                 **{key: t[key] for key in ("composition_ms", "tflops",
                                            "bound_ratio", "library_ratio",
                                            "composition_ratio", "shape",
-                                           "plan", "device_launches_per_call")
+                                           "plan", "device_launches_per_call",
+                                           "vgg_first_conv", "served_fc6")
                    if key in t},
                 **({"verify_shape": {key: t["verify_shape"][key] for key in (
                     "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",

@@ -1537,6 +1537,107 @@ def test_served_tiny_resnet_kernels_equal_plain(hopper, path, monkeypatch):
         assert counts["fused_quantized_matmul"] == 6
 
 
+# -- Cluster Serving ----------------------------------------------------------
+
+@pytest.mark.parametrize("path", ["float", "int8"])
+def test_cluster_served_vgg_kernels_equal_plain(hopper, path, monkeypatch,
+                                                tmp_path):
+    """A VGG-16 at 160 x 160 x 3 (fc6: K = 12,800, the two-pass int8
+    GEMM), ``mixed_bfloat16``, saved encrypted (AES-GCM), read back by
+    ``InferenceModel.load_encrypted`` and served by ``ClusterServing``
+    (``batch_size=4``) over an ``EmbeddedRedis`` on the card: queue and
+    HTTP replies through the kernels against the same job's replies
+    with every plain version (float within 4e-3 and its logits within
+    2^-4 of their range, int8 bit for bit), no
+    "NaN", no fallback, and per batch 13 ``conv2d``, or 13
+    ``conv2d_int8`` + 1 ``quantized_matmul`` + 2
+    ``fused_quantized_matmul``."""
+    import json
+    import time
+    import urllib.request
+
+    from zoo_tpu_torch.models.image import vgg16
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.inference import (InferenceModel,
+                                                  quantize_model,
+                                                  save_encrypted)
+    from zoo_tpu_torch.serving import (ClusterServing, EmbeddedRedis,
+                                       FrontEnd, InputQueue, OutputQueue)
+
+    m = vgg16(10, (160, 160, 3))
+    m.compile("sgd", "sparse_categorical_crossentropy",
+              dtype_policy="mixed_bfloat16")
+    m.build(_gen(hopper, 18))
+    if path == "int8":
+        quantize_model(m, mode="force")
+    enc = save_encrypted(m, str(tmp_path / "vgg.enc"), "k", "s", mode="gcm")
+    im = InferenceModel().load_encrypted(enc, "k", "s", mode="gcm",
+                                         batch_size=4)
+    x = np.random.RandomState(0).randn(6, 160, 160, 3).astype(np.float32)
+    redis = EmbeddedRedis().start()
+    cs = ClusterServing(im, redis_port=redis.port, batch_size=4).start()
+    fe = FrontEnd(cs, InputQueue(port=redis.port)).start()
+
+    def serve(tag):
+        iq, oq = InputQueue(port=redis.port), OutputQueue(port=redis.port)
+        for i in range(len(x) - 1):
+            iq.enqueue(f"{tag}{i}", t=x[i])
+        outs = []
+        for i in range(len(x) - 1):
+            deadline = time.monotonic() + 120
+            while isinstance(out := oq.query_and_delete(f"{tag}{i}"), str):
+                assert out == "[]" and time.monotonic() < deadline, out
+                time.sleep(0.01)
+            outs.append(out)
+        body = json.dumps({"instances": [{"t": x[-1].tolist()}]}).encode()
+        req = urllib.request.Request(f"http://{fe.host}:{fe.port}/predict",
+                                     data=body)
+        pred = json.loads(urllib.request.urlopen(req, timeout=120).read())
+        val = json.loads(json.loads(pred["predictions"][0])["value"])
+        outs.append(np.asarray(val["data"], np.float32))
+        return np.stack(outs)
+
+    try:
+        b0 = cs.batches
+        reset_launch_counts()
+        got = serve("k")
+        counts, batches = launch_counts(), cs.batches - b0
+        with monkeypatch.context() as mp:
+            _plain_kernels(mp)
+            reset_launch_counts()
+            ref = serve("p")
+            assert not any(launch_counts().values())
+        job = cs.metrics()
+    finally:
+        fe.stop()
+        cs.stop()
+        redis.stop()
+    assert got.shape == (6, 10) and np.isfinite(got).all()
+    assert job["nan_records"] == 0 and job["fallback_records"] == 0
+    if path == "float":
+        np.testing.assert_allclose(got, ref, rtol=0, atol=4e-3)
+        assert counts["conv2d"] == 13 * batches
+        assert counts["conv2d_int8"] == counts["quantized_matmul"] == 0
+        # seed weights leave the probabilities near-uniform, where 4e-3
+        # would pass a conv that wrote zeros: the logits (the softmax
+        # set aside) within 2^-4 of their range, as chip_smoke.py holds
+        head = im.model._topo[-1].layer
+        act, head.activation = head.activation, None
+        try:
+            z = im.predict(x, batch_size=4)
+            with monkeypatch.context() as mp:
+                _plain_kernels(mp)
+                z_ref = im.predict(x, batch_size=4)
+        finally:
+            head.activation = act
+        assert np.abs(z - z_ref).max() <= 2.0 ** -4 * np.ptp(z_ref)
+    else:
+        np.testing.assert_array_equal(got, ref)
+        assert (counts["conv2d_int8"], counts["quantized_matmul"],
+                counts["fused_quantized_matmul"], counts["conv2d"]) == (
+            13 * batches, batches, 2 * batches, 0)
+
+
 # -- the NCF and BERT slice -------------------------------------------------
 
 @pytest.mark.parametrize("policy", ["float32", "mixed_bfloat16"])

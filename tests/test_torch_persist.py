@@ -157,8 +157,7 @@ def test_inference_model_load(mode, quantized, tmp_path, monkeypatch):
 def test_other_loaders_name_their_roadmap_items():
     im = InferenceModel()
     for call, item in ((im.load_tf, "A.16"), (im.load_onnx, "A.16"),
-                       (im.load_caffe, "A.12"),
-                       (im.load_encrypted, "A.12")):
+                       (im.load_caffe, "A.12")):
         with pytest.raises(NotImplementedError, match=item):
             call("x")
 

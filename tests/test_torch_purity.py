@@ -1,6 +1,7 @@
 """The port imports neither ``jax`` nor any ``zoo_tpu`` module (its own
-name, ``zoo_tpu_torch``, shares the prefix and is allowed), and its
-entry points refuse to run quietly on the CPU."""
+name, ``zoo_tpu_torch``, shares the prefix and is allowed), nor
+``pyarrow`` (the serving wire's Arrow codec is its own), and its entry
+points refuse to run quietly on the CPU."""
 
 import ast
 import os
@@ -28,20 +29,26 @@ def _modules():
     return sorted(out)
 
 
+FORBIDDEN = ("jax", "zoo_tpu", "pyarrow")
+
+
 def _forbidden(name: str) -> bool:
-    return name == "jax" or name.startswith("jax.") or \
-        name == "zoo_tpu" or name.startswith("zoo_tpu.")
+    return any(name == root or name.startswith(root + ".")
+               for root in FORBIDDEN)
 
 
 def test_importing_every_module_pulls_in_no_jax():
     mods = _modules()
-    assert "zoo_tpu_torch.serving.llm.engine" in mods
+    for m in ("serving.llm.engine", "serving.cluster_serving",
+              "serving.client", "serving.arrow_ipc", "serving.resp",
+              "serving.redis_embedded", "serving.run", "ppml.crypto",
+              "models.image.imageclassification"):
+        assert "zoo_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'zoo_tpu' or "
-        "m.startswith('zoo_tpu.'))\n"
+        f"bad = sorted(m for m in sys.modules if any(m == r or "
+        f"m.startswith(r + '.') for r in {FORBIDDEN!r}))\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     env = dict(os.environ)
@@ -190,3 +197,31 @@ def test_predict_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     model, version = resolve_model_spec(spec, batch_size=2, device="cpu")
     assert version == "v1" and model.predict(
         np.zeros((2, 32, 32, 3), np.float32)).shape == (2, 10)
+
+
+def test_cluster_serving_entry_points_raise_without_a_card(monkeypatch,
+                                                           tmp_path):
+    """Cluster Serving's slice: no GPU and no ``device=`` (``--device``)
+    raises at the encrypted loader, the CLI's model load and VGG."""
+    from zoo_tpu_torch.models.image import vgg16
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from zoo_tpu_torch.pipeline.inference import (InferenceModel,
+                                                  save_encrypted)
+    from zoo_tpu_torch.serving import run
+
+    m = Sequential().add(Dense(2, input_shape=(3,)))
+    m.build(device="cpu")
+    enc = save_encrypted(m, str(tmp_path / "m.enc"), "k", "s")
+    plain = m.save(str(tmp_path / "m.zoo"))
+    vgg = vgg16(10, (32, 32, 3))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ap = run._parser()
+    for call in (lambda: InferenceModel().load_encrypted(enc, "k", "s"),
+                 lambda: run._load_model(ap, ap.parse_args(
+                     ["--model", plain])),
+                 lambda: vgg.build()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert InferenceModel().load_encrypted(enc, "k", "s", device="cpu") \
+        .predict(np.zeros((1, 3), np.float32)).shape == (1, 2)

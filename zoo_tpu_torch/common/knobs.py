@@ -98,6 +98,11 @@ _k("ZOO_INT8_MODE", "str", "auto",
    "keeps the winner, `force`, `off`. The default `auto` is that of "
    "`InferenceModel.load`; `quantize_model` with no `mode=` and the "
    "knob unset forces, as in the JAX package")
+_k("ZOO_MODEL_SECRET", "str", None,
+   "model decryption secret for encrypted artifacts")
+_k("ZOO_MODEL_SALT", "str", None, "salt paired with `ZOO_MODEL_SECRET`")
+_k("ZOO_MODEL_ENC_MODE", "str", "cbc",
+   "cipher mode for encrypted model artifacts (`cbc`/`gcm`)")
 _k("ZOO_CONV_IMPL", "str", "auto",
    "conv2d backend: `auto` (the implicit-GEMM CUDA kernel on a CUDA "
    "device for supported shapes, the reference conv elsewhere), "

@@ -301,8 +301,13 @@ def fused_quantized_matmul_plain(x, w_q, w_scale, out_dtype=None
                                  ) -> torch.Tensor:
     """The plain version of :func:`fused_quantized_matmul`: ``x`` widened
     to f32, per-row absmax over the full K, ``q = clamp(round(x /
-    scale), -127, 127)``, then :func:`quantized_matmul_plain`."""
+    scale), -127, 127)``, then :func:`quantized_matmul_plain`. Past
+    ``_FUSED_MAX_K`` the op's two-pass route, as the op takes it:
+    :func:`quantize_int8`, then :func:`quantized_matmul_plain`."""
     out_dtype = out_dtype or x.dtype
+    if x.shape[-1] > _FUSED_MAX_K:
+        x_q, x_scale = quantize_int8(x, axis=-1)
+        return quantized_matmul_plain(x_q, w_q, x_scale, w_scale, out_dtype)
     xf = x.float()
     scale = absmax_scale(xf.abs().amax(dim=-1, keepdim=True))
     q = torch.clamp(torch.round(xf / scale), -127, 127)

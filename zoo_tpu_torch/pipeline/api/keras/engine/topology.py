@@ -562,21 +562,34 @@ class KerasNet:
         cloudpickle of the JAX package's model) or any other file is
         refused. Int8 conv weights get their kernel's K-major copies
         again (:func:`~zoo_tpu_torch.convert.keras_params_from_jax`)."""
-        from zoo_tpu_torch.convert import keras_params_from_jax
         dev = resolve_device(device)
         with open(path, "rb") as f:
-            head = f.read(len(MODEL_MAGIC))
-            if head != MODEL_MAGIC:
-                raise ValueError(
-                    f"{path} is not a model file of zoo_tpu_torch (no "
-                    f"{MODEL_MAGIC!r} header). A JAX package .zoo file "
-                    "is a cloudpickle of that package's model and is not "
-                    "read here: build the same model in the port and "
-                    "read the JAX package's save_weights file with "
-                    "load_weights")
-            model = _ModelUnpickler(f, dev).load()
+            return KerasNet._read(f, dev, path)
+
+    @staticmethod
+    def from_bytes(data: bytes, device=None,
+                   source: str = "the buffer") -> "KerasNet":
+        """:meth:`load` of a model file held in memory (``to_bytes``'s
+        output, or a decrypted one), read by the same checks and the
+        same allowlist; ``source`` names it in a refusal."""
+        dev = resolve_device(device)
+        return KerasNet._read(io.BytesIO(data), dev, source)
+
+    @staticmethod
+    def _read(f, dev: torch.device, source: str) -> "KerasNet":
+        from zoo_tpu_torch.convert import keras_params_from_jax
+        head = f.read(len(MODEL_MAGIC))
+        if head != MODEL_MAGIC:
+            raise ValueError(
+                f"{source} is not a model file of zoo_tpu_torch (no "
+                f"{MODEL_MAGIC!r} header). A JAX package .zoo file "
+                "is a cloudpickle of that package's model and is not "
+                "read here: build the same model in the port and "
+                "read the JAX package's save_weights file with "
+                "load_weights")
+        model = _ModelUnpickler(f, dev).load()
         if not isinstance(model, KerasNet):
-            raise ValueError(f"{path} holds a {type(model).__name__}, "
+            raise ValueError(f"{source} holds a {type(model).__name__}, "
                              "not a model")
         if model.params is not None:
             model.params = keras_params_from_jax(model.params, dev)

@@ -1,7 +1,7 @@
 """Keras-1 layers of the port (counterpart of
 ``zoo_tpu/pipeline/api/keras/layers``): the layers the image models,
-NCF and BERT need. The others (``ZeroPadding2D``, ``Dropout``,
-recurrent, ...) are not ported yet."""
+NCF, BERT and VGG need. The others (``ZeroPadding2D``, recurrent, ...)
+are not ported yet."""
 
 from zoo_tpu_torch.pipeline.api.keras.layers.convolutional import (
     Conv2D,
@@ -11,7 +11,9 @@ from zoo_tpu_torch.pipeline.api.keras.layers.core import (
     Activation,
     BatchNormalization,
     Dense,
+    Dropout,
     Embedding,
+    Flatten,
     Lambda,
     Merge,
     merge,
@@ -27,6 +29,7 @@ from zoo_tpu_torch.pipeline.api.keras.layers.self_attention import (
 )
 
 __all__ = ["Activation", "BERT", "BatchNormalization", "Conv2D",
-           "Convolution2D", "Dense", "Embedding", "GlobalAveragePooling2D",
+           "Convolution2D", "Dense", "Dropout", "Embedding", "Flatten",
+           "GlobalAveragePooling2D",
            "Lambda", "LayerNorm", "MaxPooling2D", "Merge", "TransformerLayer",
            "merge"]

@@ -1,15 +1,16 @@
 """Core keras-1 layers (counterpart of the layers of
 ``zoo_tpu/pipeline/api/keras/layers/core.py`` that the image models and
 NCF need): ``Dense`` (with its int8 path), ``Activation``,
-``BatchNormalization``, ``Merge``/``merge``, ``Lambda`` and
-``Embedding``. Keras-1 argument names are kept. Parameters are held by
-the model, as ``engine.base`` describes.
+``BatchNormalization``, ``Merge``/``merge``, ``Lambda``, ``Embedding``,
+``Flatten`` and ``Dropout`` (inference only). Keras-1 argument names are
+kept. Parameters are held by the model, as ``engine.base`` describes.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -67,6 +68,35 @@ class Activation(Layer):
 
     def call(self, params, inputs, *, training=False):
         return self.activation(inputs)
+
+
+class Dropout(Layer):
+    """Inverted dropout (JAX ``core.py`` ``Dropout``): the identity at
+    inference. A training forward with ``p > 0`` raises: the port's
+    layers take no rng to draw JAX's masks from (ROADMAP A.11b)."""
+
+    def __init__(self, p: float, **kwargs):
+        super().__init__(**kwargs)
+        self.p = float(p)
+
+    def call(self, params, inputs, *, training=False):
+        if training and self.p > 0.0:
+            raise NotImplementedError(
+                f"{self.name}: dropout in training (p={self.p}) is not "
+                "ported to zoo_tpu_torch yet (ROADMAP A.11b); pass p=0 "
+                "to train")
+        return inputs
+
+
+class Flatten(Layer):
+    """All axes but the batch axis into one, in row-major (NHWC) order,
+    as the JAX layer's ``reshape``."""
+
+    def call(self, params, inputs, *, training=False):
+        return inputs.reshape(inputs.shape[0], -1)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0], int(np.prod(input_shape[1:])))
 
 
 class Lambda(Layer):

@@ -4,6 +4,7 @@
 from zoo_tpu_torch.pipeline.inference.inference_model import (
     InferenceModel,
     quantize_model,
+    save_encrypted,
 )
 
-__all__ = ["InferenceModel", "quantize_model"]
+__all__ = ["InferenceModel", "quantize_model", "save_encrypted"]

@@ -11,9 +11,10 @@ keeps int8 only where it measures faster than the float forward.
 The chosen path is recorded on the model (``_quant_path``,
 ``_quant_speedup``) and published as the ``zoo_quant_path_info`` gauge.
 ``InferenceModel.load`` reads the
-port's own model file (``KerasNet.save``); the other file loaders
-(``load_tf``, ``load_onnx``, ``load_caffe``, ``load_encrypted``) raise,
-naming the ROADMAP item that brings each.
+port's own model file (``KerasNet.save``), ``load_encrypted`` the same
+file encrypted at rest (``save_encrypted``); the other file loaders
+(``load_tf``, ``load_onnx``, ``load_caffe``) raise, naming the ROADMAP
+item that brings each.
 """
 
 from __future__ import annotations
@@ -114,10 +115,31 @@ class InferenceModel:
             "InferenceModel.load_caffe waits for ROADMAP A.12 (the rest "
             "of the image-inference slice) in the port")
 
-    def load_encrypted(self, *args, **kwargs):
-        raise NotImplementedError(
-            "InferenceModel.load_encrypted (and save_encrypted) wait for "
-            "ROADMAP A.12 in the port")
+    def load_encrypted(self, path: str, secret: str, salt: str,
+                       key_len: int = 128, mode: str = "cbc",
+                       batch_size: Optional[int] = None,
+                       quantize: bool = False, device=None):
+        """Load a model file encrypted at rest (``save_encrypted``, or
+        the JAX package's, whose framing it shares). The file is
+        decrypted in memory only, then read as :meth:`load` reads a
+        plain one: the same header check and the same allowlist of what
+        a model file may name, so an encrypted file is trusted no more
+        than a plain one. A JAX package ``.zoo`` file decrypts and is
+        then refused as its plain form is."""
+        from zoo_tpu_torch.pipeline.api.keras.engine.topology import (
+            KerasNet,
+        )
+        from zoo_tpu_torch.ppml.crypto import EncryptSupportive
+        dev = resolve_device(device)
+        blob = EncryptSupportive.decrypt_file(path, secret, salt,
+                                              key_len=key_len, mode=mode)
+        model = KerasNet.from_bytes(blob, device=dev,
+                                    source=f"{path} (decrypted)")
+        del blob    # the plaintext goes before the warm-up batch runs
+        if quantize:
+            model = quantize_model(model,
+                                   mode=knobs.value("ZOO_INT8_MODE"))
+        return self.load_keras(model, batch_size=batch_size, device=dev)
 
     def predict(self, x, batch_size: Optional[int] = None) -> np.ndarray:
         """Outputs of the held model for numpy ``x``, at most
@@ -132,6 +154,20 @@ class InferenceModel:
     @property
     def model(self):
         return self._model
+
+
+def save_encrypted(model, path: str, secret: str, salt: str,
+                   key_len: int = 128, mode: str = "cbc") -> str:
+    """Write ``model`` (a Keras model of the port) as its model file
+    encrypted at rest, AES-``mode`` under a PBKDF2 key of ``secret`` and
+    ``salt``: serialized and encrypted in memory, so the plaintext never
+    touches the disk. ``InferenceModel.load_encrypted`` reads it."""
+    from zoo_tpu_torch.ppml.crypto import EncryptSupportive
+    data = EncryptSupportive.encrypt_bytes(model.to_bytes(), secret, salt,
+                                           key_len=key_len, mode=mode)
+    with open(path, "wb") as f:
+        f.write(data)
+    return path
 
 
 # auto mode keeps int8 only when it beats the float forward by this
