@@ -56,6 +56,14 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    shuffled epochs with the fused AdamW, f32 and ``mixed_bfloat16``,
    equals the same ``fit`` through the dense attention and the plain
    update (f32 to 4b's tolerances, bf16 losses within rtol 2e-2);
+4d. estimator-tiny — the same tiny BERT through
+   ``Estimator.from_keras`` (default guard, a model_dir,
+   ``AdamWeightDecay(fused=True)``, L2 clipping 1.0, two epochs) equals
+   the estimator run through the plain versions (f32, 1e-4), checkpoints
+   at steps 0-2; then an epoch poisoned through the ``fit.batch`` seam
+   (a NaN planted in the output bias) leaves params, m, v and the
+   device step bit-equal while the AdamW kernel launches for each leaf
+   and step;
 5. main path — the Llama-3-8B-width engine answers four concurrent
    greedy requests (20/100/300/480-token prompts, 32 new tokens each:
    480 + 32 fills the 512-token context of the default 32 x 16-token
@@ -202,6 +210,34 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    (step ms, samples/s, ``mfu`` from ``bench_bert``'s analytic FLOPs
    over the bf16 peak, finite losses) and a ``train-bert-step``
    profile;
+13b. estimator-main — the NCF flagship through ``Estimator.from_keras(m,
+   model_dir=tmp)`` with the default guard at B=8192 (96 training
+   batches an epoch, a tenth of all rows held out for validation,
+   EveryEpoch checkpoints and summaries): a straight run of 4 epochs
+   (samples/s each); an exception at epoch 2's first superbatch retried
+   from the verified checkpoint, bit-equal to the straight run's epoch
+   3; a fresh estimator's ``load_orca_checkpoint()`` plus one epoch,
+   bit-equal to its epoch 4; a NaN superbatch skipped (16 steps, past
+   ``max_skips``, so also rolled back) with params and Adam's state
+   finite and the journal holding it; ``val_accuracy``/``val_loss`` read
+   back from the event files; samples/s and CUDA sync-debug warnings
+   over one epoch with the guard off and on, in turns: the guard adds
+   none, its own host reads are one a superbatch boundary plus one at
+   the epoch's end (none with it off), and no step syncs (at most a
+   copy of each superbatch array and the loss read). No kernel launches
+   (``estimator_ncf``);
+13c. estimator-bert — BERT-base at run (b)'s S=512, B=16, bf16, through
+   the estimator with ``AdamWeightDecay(lr=1e-4, fused=True)``, L2
+   clipping 1.0 and the guard, 2 epochs of 4 steps: losses within 2e-2
+   of the estimator run through the plain versions, a poisoned epoch
+   leaving every param, m, v and the device step bit-equal with the
+   fused AdamW launched for it, equal sync-debug warnings with the guard
+   off, on and off, the guard's host reads one a boundary and no step
+   syncing; its
+   launches are ``estimator_bert``;
+13d. bench-guard — ``bench.py`` ``bench_guard``'s mix (an MLP, n=16384,
+   64 features, B=512, 3 epochs x 3 interleaved reps), guarded and
+   unguarded samples/s and ``guard_overhead_pct`` (printed, not gated);
 14. predict-mlp — ``bench.py`` ``bench_serving`` in the port: an MLP
    (``Dense(128, relu)``, ``Dense(10, softmax)``, 64 features) behind
    ``ServingServer`` (two batcher threads, ``max_wait_ms=2``) at batch
@@ -281,8 +317,13 @@ Phase 3 also holds the flash forward (o, lse) and backward kernels
 autograd of the dense path, at B=8 and B=64, H=12, Hkv=4, T=512, D=64
 (the f32 backward route timed at B=8 and B=64), checks that the reference
 conv's f32 gradients do not change with cuDNN's TF32 switched on, and
-holds the fused AdamW and SGD kernels against theirs, then times them at the
-training config's shapes beside their bounds and a library yardstick
+holds the fused AdamW and SGD kernels against theirs on device scalars
+(the 1-based step, SGD's rate) with the guard's ``ok`` true, false (every
+operand bit-unchanged though the gradient holds NaNs) and absent, and the
+kernel's bias corrections from the device step against the host's
+``bias_corrections`` for steps 1 to 100000, bit for bit, then times them
+at the training config's shapes (as the guarded step launches them)
+beside their bounds and a library yardstick
 (``scaled_dot_product_attention`` and its backward, ``torch.optim``'s
 fused AdamW and SGD) the port never calls; and the implicit-GEMM conv
 kernels (bf16, f32, int8) at four ResNet-50 shapes, B=128 (int8 on the
@@ -325,7 +366,8 @@ and its launches by main path, ``serve_spec`` the speculative run's,
 ``serve_wire`` the wire runs', ``serve_disagg`` the disaggregated runs'
 (f32 and int8), ``serve_tenancy`` the tenancy runs', ``serve_obs``
 ``direct_traced``'s, ``train_bert`` BERT
-run (b)'s,
+run (b)'s, ``estimator_ncf`` estimator-main's (none), ``estimator_bert``
+estimator-bert's,
 ``predict`` predict-main's in-process run, ``cluster`` cluster-main's
 in-process runs (both versions; ``conv2d`` and ``conv2d_int8`` also
 carry ``vgg_first_conv``, ``quantized_matmul`` ``served_fc6``);
@@ -1467,57 +1509,108 @@ def phase_training_kernels(torch, record, err, results):
     # -- E: fused AdamW and SGD ------------------------------------------
     # every input at a scale where one step moves each output (p, m, v,
     # the momentum buffer) by far more than the tolerance, so a store
-    # that is missing or misplaced cannot pass
+    # that is missing or misplaced cannot pass. The per-step scalars are
+    # device tensors (the 1-based step; SGD's rate as a decayed schedule
+    # makes it), and ``ok`` the guard's device predicate: true, the
+    # kernel equals its plain version; false (the gradient NaN-poisoned),
+    # every operand keeps its bits in both.
+    dev_scalar = dict(device=dev)
     for n, offset in ((768 * 2048, 0), (1_000_003, 0), (4099, 1)):
         def leaf(scale, positive=False):
             x = randn(n + offset, scale=scale)
             return (x.abs() if positive else x)[offset:]
         p, grad, buf = leaf(0.05), leaf(0.1), leaf(1e-2)
         m, v = leaf(1e-2), leaf(1e-2, positive=True)
+        bad = grad.clone()
+        bad[::5] = float("nan")
+        lr_dev = torch.full((), 0.01, dtype=torch.float32, **dev_scalar)
         for step in (1, 10):
-            for kernel, names, ins, want, got in (
-                    ("fused_adam", ("p", "m", "v"), (p, m, v),
-                     FO.reference_apply_adam(p, grad, m, v, step, 1e-4,
-                                             weight_decay=0.01),
-                     FO.fused_apply_adam(p.clone(), grad, m.clone(),
-                                         v.clone(), step, 1e-4,
-                                         weight_decay=0.01)),
-                    ("fused_sgd", ("p", "momentum_buf"), (p, buf),
-                     FO.reference_apply_sgd(p, grad, buf, 0.01, 0.9, 0.01),
-                     FO.fused_apply_sgd(p.clone(), grad, buf.clone(), 0.01,
-                                        0.9, 0.01))):
-                torch.cuda.synchronize()
-                for out, x, a, b in zip(names, ins, got, want):
-                    case = f"{out} n={n} offset={offset} step={step}"
-                    moved = err(b, x)
-                    if not moved > 10 * TOL["update"]:
-                        raise AssertionError(f"{kernel} {case}: the step "
-                                             f"moves it by only {moved}")
-                    record(kernel, case, err(a, b), "update")
+            t = torch.full((), step, dtype=torch.int32, **dev_scalar)
+            for ok in (None, True, False):
+                flag = None if ok is None else torch.full(
+                    (), ok, dtype=torch.bool, **dev_scalar)
+                g_in = bad if ok is False else grad
+                for kernel, names, ins, want, got in (
+                        ("fused_adam", ("p", "m", "v"), (p, m, v),
+                         FO.reference_apply_adam(p, g_in, m, v, t, 1e-4,
+                                                 weight_decay=0.01, ok=flag),
+                         FO.fused_apply_adam(p.clone(), g_in, m.clone(),
+                                             v.clone(), t, 1e-4,
+                                             weight_decay=0.01, ok=flag)),
+                        ("fused_sgd", ("p", "momentum_buf"), (p, buf),
+                         FO.reference_apply_sgd(p, g_in, buf, lr_dev, 0.9,
+                                                0.01, ok=flag),
+                         FO.fused_apply_sgd(p.clone(), g_in, buf.clone(),
+                                            lr_dev, 0.9, 0.01, ok=flag))):
+                    torch.cuda.synchronize()
+                    for out, x, a, b in zip(names, ins, got, want):
+                        case = (f"{out} n={n} offset={offset} step={step} "
+                                f"ok={ok}")
+                        if ok is False:
+                            if not (torch.equal(a, x) and torch.equal(b, x)):
+                                raise AssertionError(
+                                    f"{kernel} {case}: a skipped step "
+                                    "changed the operand")
+                            record(kernel, case + " (bit-unchanged)", 0.0,
+                                   "update")
+                            continue
+                        moved = err(b, x)
+                        if not moved > 10 * TOL["update"]:
+                            raise AssertionError(
+                                f"{kernel} {case}: the step moves it by "
+                                f"only {moved}")
+                        record(kernel, case, err(a, b), "update")
+        del p, grad, buf, m, v, bad
 
-    # timed over one training step's 12 leaves
+    # the kernel's bias corrections from the device step, steps 1 to
+    # 100000, against the host function, bit for bit
+    import numpy as np
+    steps = np.arange(1, 100001, dtype=np.int32)
+    for b1, b2 in ((0.9, 0.999), (0.9, 0.98)):
+        got = FO.adam_bias_corrections(
+            torch.from_numpy(steps).to(dev), b1, b2).cpu().numpy()
+        want = np.array([FO.bias_corrections(int(s), b1, b2)
+                         for s in steps], np.float32)
+        unequal = int((got != want).sum())
+        emit({"phase": "kernels", "kernel": "fused_adam",
+              "bias_corrections": {"steps": [1, 100000], "betas": [b1, b2],
+                                   "unequal": unequal}})
+        if unequal:
+            raise AssertionError(f"fused_adam: {unequal} device bias "
+                                 f"corrections differ from the host's "
+                                 f"(betas {b1}, {b2})")
+        record("fused_adam", f"bias corrections betas=({b1}, {b2}) steps "
+               "1-100000", 0.0, "update")
+
+    # timed over one training step's 12 leaves, as the guarded step
+    # launches them: the device step, ok, (SGD) a device rate
     shapes = _train_leaf_shapes()
     numel = sum(math.prod(s) for s in shapes)
     ps = [randn(*s, scale=0.05) for s in shapes]
     gs = [randn(*s, scale=1e-3) for s in shapes]
     ms_ = [torch.zeros_like(x) for x in ps]
     vs_ = [torch.zeros_like(x) for x in ps]
+    t10 = torch.full((), 10, dtype=torch.int32, device=dev)
+    ok_t = torch.ones((), dtype=torch.bool, device=dev)
+    lr_t = torch.full((), 1e-4, dtype=torch.float32, device=dev)
 
     def adam():
         for a, b, c, d in zip(ps, gs, ms_, vs_):
-            FO.fused_apply_adam(a, b, c, d, 10, 1e-4, weight_decay=0.01)
+            FO.fused_apply_adam(a, b, c, d, t10, 1e-4, weight_decay=0.01,
+                                ok=ok_t)
 
     def adam_plain():
         for a, b, c, d in zip(ps, gs, ms_, vs_):
-            FO.reference_apply_adam(a, b, c, d, 10, 1e-4, weight_decay=0.01)
+            FO.reference_apply_adam(a, b, c, d, t10, 1e-4,
+                                    weight_decay=0.01, ok=ok_t)
 
     def sgd():
         for a, b, c in zip(ps, gs, ms_):
-            FO.fused_apply_sgd(a, b, c, 1e-4, 0.9, 0.01)
+            FO.fused_apply_sgd(a, b, c, lr_t, 0.9, 0.01, ok=ok_t)
 
     def sgd_plain():
         for a, b, c in zip(ps, gs, ms_):
-            FO.reference_apply_sgd(a, b, c, 1e-4, 0.9, 0.01)
+            FO.reference_apply_sgd(a, b, c, lr_t, 0.9, 0.01, ok=ok_t)
 
     for x, gx in zip(ps, gs):
         x.grad = gx
@@ -1543,7 +1636,13 @@ def phase_training_kernels(torch, record, err, results):
             ms=t["device_ms"], wall_ms=t["wall_ms"], kernel_ms=None,
             plain_ms=timed(torch, plain, 3)["device_ms"],
             library_ms=lib[kernel], bound_ms=b_ms, bound_by=b_by,
-            leaves=len(shapes), elements=numel)
+            leaves=len(shapes), elements=numel,
+            interface="device step, device ok" + (
+                ", device lr" if kernel == "fused_sgd" else ""))
+        emit({"phase": "kernels", "kernel": kernel, "summed": {
+            k: results[kernel][k] for k in (
+                "ms", "wall_ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "leaves", "elements", "interface")}})
     del ps, gs, ms_, vs_
     torch.cuda.empty_cache()
 
@@ -2099,22 +2198,35 @@ def phase_block_kernels(torch, record, err, results):
 
 
 def _sgd_plain(param, grad, momentum_buf, lr, momentum=0.0,
-               weight_decay=0.0):
+               weight_decay=0.0, ok=None):
     """``fused_apply_sgd``'s plain version, in place, on any device."""
     import torch
     from zoo_tpu_torch.ops.kernels import fused_optim as FO
     with torch.no_grad():
         for dst, src in zip((param, momentum_buf), FO.reference_apply_sgd(
-                param, grad, momentum_buf, lr, momentum, weight_decay)):
+                param, grad, momentum_buf, lr, momentum, weight_decay, ok)):
             dst.copy_(src)
     return param, momentum_buf
 
 
+def _adam_plain(param, grad, m, v, step, lr, beta1=0.9, beta2=0.999,
+                eps=1e-8, weight_decay=0.0, ok=None):
+    """``fused_apply_adam``'s plain version, in place, on any device."""
+    import torch
+    from zoo_tpu_torch.ops.kernels import fused_optim as FO
+    with torch.no_grad():
+        for dst, src in zip((param, m, v), FO.reference_apply_adam(
+                param, grad, m, v, step, lr, beta1, beta2, eps,
+                weight_decay, ok)):
+            dst.copy_(src)
+    return param, m, v
+
+
 @contextlib.contextmanager
 def plain_kernels():
-    """The four image-inference kernel wrappers and the SGD update
-    routed to their plain versions: the yardstick path, which nothing on
-    the main path takes."""
+    """The four image-inference kernel wrappers and the SGD and AdamW
+    updates routed to their plain versions: the yardstick path, which
+    nothing on the main path takes."""
     from zoo_tpu_torch.ops.kernels import conv as CV
     from zoo_tpu_torch.ops.kernels import quant as Q
     from zoo_tpu_torch.pipeline.api.keras import optimizers as OPT
@@ -2122,7 +2234,8 @@ def plain_kernels():
              (CV, "implicit_gemm_conv2d_int8", CV.conv2d_int8_plain),
              (Q, "quantized_matmul", Q.quantized_matmul_plain),
              (Q, "fused_quantized_matmul", Q.fused_quantized_matmul_plain),
-             (OPT, "fused_apply_sgd", _sgd_plain))
+             (OPT, "fused_apply_sgd", _sgd_plain),
+             (OPT, "fused_apply_adam", _adam_plain))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -3270,6 +3383,571 @@ def phase_train_bert_main(torch, K, card):
     return {k: out["b"][k] for k in ("flash_attention",
                                      "flash_attention_dkdv",
                                      "flash_attention_dq", "fused_adam")}
+
+
+ESTIMATOR_EPOCHS = 3
+# BERT-base through the estimator: run (b)'s S and B, 4 steps an epoch
+ESTIMATOR_BERT_STEPS = 4
+ESTIMATOR_BERT_EPOCHS = 2
+# bench.py bench_guard's mix (:645-690)
+GUARD_MIX = dict(n=16384, feat=64, batch_size=512, epochs=3, reps=3)
+# bf16 BERT losses, kernel path vs plain path (train-bert-tiny's bf16 bar)
+TOL_BERT_BF16_LOSS = 2e-2
+
+
+def _sync_warnings(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: its
+    result, the number of synchronizing-operation warnings it raised
+    (stream synchronisations and blocking copies between host and
+    device; an event wait is not one) and their count by the Python
+    line that raised each."""
+    import collections
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in syncs)
+    return out, len(syncs), dict(where)
+
+
+def _epoch_host_syncs(model, arrs, batch_size, n_batches):
+    """What one epoch of ``fit`` may make the host wait for: the guard's
+    reads (one at every ``check_every``-th superbatch boundary and one at
+    the epoch's end; 0 without a guard), and the most synchronizing
+    operations sync-debug mode may see (a copy of each array of each
+    host superbatch, and the epoch's loss read). A guard read at every
+    step exceeds the first, any sync at every step the second."""
+    supers = -(-n_batches // model._superbatch_group(arrs, batch_size,
+                                                     n_batches))
+    guard = model._active_guard()
+    reads = 0 if guard is None else supers // guard.config.check_every + 1
+    return {"boundary_reads_expected": reads,
+            "sync_warnings_max": supers * len(arrs) + 1}
+
+
+def _host_syncs_ok(sync):
+    return all(v["boundary_reads"] == v["boundary_reads_expected"]
+               and v["sync_warnings"] <= v["sync_warnings_max"]
+               for v in sync.values()) and sync["on"]["boundary_reads"]
+
+
+def _est_leaves(torch, tree):
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    return [t.detach().clone() for t in tree_leaves(tree)]
+
+
+def _bit_equal(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_estimator_tiny(torch, K):
+    """The estimator's path at a small width on the card: a tiny BERT
+    (train-bert-tiny's config, S=512 so ``auto`` takes the flash kernels,
+    f32) through ``Estimator.from_keras`` with its default guard, a
+    model_dir, ``AdamWeightDecay(fused=True)`` and L2 clipping 1.0, two
+    epochs, against the same estimator run through the plain versions
+    (dense attention, ``plain_kernels()``); then a poisoned superbatch
+    (a NaN planted in the output layer's bias, restored after) leaves
+    params, m, v and the device step bit-equal while the AdamW kernel
+    still launches. Returns the kernel path's launches."""
+    import numpy as np
+    import tempfile
+    from zoo_tpu_torch.orca.learn.keras import Estimator
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import AdamWeightDecay
+    from zoo_tpu_torch.util.resilience import inject
+    cfg = dict(vocab=256, hidden_size=64, n_block=2, n_head=4,
+               intermediate_size=128, hidden_p_drop=0.0, attn_p_drop=0.0)
+    S, B, N = 512, 4, 16
+    rs = np.random.RandomState(3)
+    data = {"x": rs.randint(0, cfg["vocab"], (N, S)).astype(np.int32),
+            "y": rs.randint(0, 2, N).astype(np.int32)}
+    start, out = None, {}
+    for label, impl in (("kernels", "auto"), ("plain", "dense")):
+        m = _bert_sequential(S, impl, **cfg)
+        m.compile(AdamWeightDecay(lr=1e-3, fused=True), LOSS)
+        if start is None:
+            start = tree_map(torch.clone, m.build(
+                torch.Generator(device="cuda").manual_seed(0),
+                device="cuda"))
+        m.params = tree_map(torch.clone, start)
+        with tempfile.TemporaryDirectory() as d:
+            est = Estimator.from_keras(m, model_dir=d)
+            est.set_l2_norm_gradient_clipping(1.0)
+            K.reset_launch_counts()
+            ctx = plain_kernels() if label == "plain" else \
+                contextlib.nullcontext()
+            with ctx:
+                hist = est.fit(data, epochs=2, batch_size=B)
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            steps = est._ckpt.all_steps()
+        out[label] = (hist["loss"], _est_leaves(torch, m.params), counts,
+                      m.layers[0].last_attention_impl, steps)
+    (lk, pk, ck, ik, sk), (lp, pp, cp, ip, sp) = out["kernels"], out["plain"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(pk, pp))
+    n_leaves = len(pk)
+    steps = 2 * (N // B)
+    want = {"flash_attention": cfg["n_block"] * steps,
+            "flash_attention_dkdv": cfg["n_block"] * steps,
+            "flash_attention_dq": cfg["n_block"] * steps,
+            "fused_adam": n_leaves * steps}
+    got = {k: ck[k] for k in want}
+    emit({"phase": "estimator-tiny", "loss_kernels": lk, "loss_plain": lp,
+          "loss_max_rel": loss_rel, "param_max_abs": param_err,
+          "attention_impl": [ik, ip], "checkpoint_steps": sk,
+          "launches": {k: v for k, v in ck.items() if v},
+          "launches_plain": {k: v for k, v in cp.items() if v}})
+    if not (loss_rel <= 1e-4 and param_err <= 1e-4) or \
+            (ik, ip) != ("flash", "dense") or sk != sp or sk != [0, 1, 2]:
+        raise AssertionError(f"estimator-tiny: kernel path differs from "
+                             f"plain: loss rel {loss_rel}, params "
+                             f"{param_err}, impls {ik} {ip}, steps {sk}")
+    if got != want or any(cp[k] for k in want):
+        raise AssertionError(f"estimator-tiny: launches {got} (plain "
+                             f"{cp}), expected {want}")
+    # a poisoned superbatch: NaN features cannot enter int ids, so the
+    # poison is a NaN planted in the output bias for the epoch (the
+    # loss and every gradient turn NaN), then restored
+    m = _bert_sequential(S, "auto", **cfg)
+    m.compile(AdamWeightDecay(lr=1e-3, fused=True), LOSS)
+    m.params = tree_map(torch.clone, start)
+    with tempfile.TemporaryDirectory() as d:
+        est = Estimator.from_keras(m, model_dir=d)
+        est.fit(data, epochs=1, batch_size=B)
+        skipped = _poisoned_epoch(torch, K, est, data, B)
+    emit({"phase": "estimator-tiny", "poisoned_epoch": skipped})
+    return ck
+
+
+def _poisoned_epoch(torch, K, est, data, batch_size):
+    """One estimator epoch with a NaN planted in the last layer's bias
+    by the ``fit.batch`` seam (so each of the superbatch's steps has a
+    NaN loss and NaN gradients), removed again before the bias is read:
+    every param, m, v and the device step bit-equal to before the
+    epoch, every step skipped, the AdamW kernel launched for each leaf
+    and step all the same."""
+    from zoo_tpu_torch.util.resilience import inject
+    model = est.model
+    key = sorted(model.params)[-1]
+    before = (_est_leaves(torch, model.params),
+              _est_leaves(torch, model._opt_state))
+    bias = model.params[key]["b"]
+    saved = bias.detach().clone()
+    guard = est._guard
+    skipped0 = guard.nonfinite_steps
+
+    def plant(site=None, arrays=None, idx=None, **_):
+        with torch.no_grad():
+            bias.fill_(float("nan"))
+
+    K.reset_launch_counts()
+    with inject("fit.batch", action=plant, exc=None, times=1):
+        hist = est.fit(data, epochs=1, batch_size=batch_size)
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    with torch.no_grad():
+        nan_left = bool(torch.isnan(bias).any())
+        bias.copy_(saved)
+    after = (_est_leaves(torch, model.params),
+             _est_leaves(torch, model._opt_state))
+    steps = len(data["y"]) // batch_size
+    n_leaves = len(before[0])
+    skipped = guard.nonfinite_steps - skipped0
+    result = {"steps": steps, "skipped": skipped, "loss": hist["loss"],
+              "params_bit_equal": _bit_equal(torch, before[0], after[0]),
+              "optimizer_state_bit_equal": _bit_equal(torch, before[1],
+                                                      after[1]),
+              "fused_adam_launches": counts["fused_adam"],
+              "nan_bias_left": nan_left}
+    if not (result["params_bit_equal"] and
+            result["optimizer_state_bit_equal"] and skipped == steps
+            and nan_left and counts["fused_adam"] == n_leaves * steps):
+        raise AssertionError(f"poisoned epoch: {result}")
+    return result
+
+
+def phase_estimator_main(torch, K, card):
+    """The NCF flagship (``NCF_CFG``) through ``Estimator.from_keras(m,
+    model_dir=tmp)`` with the default guard at ``bench_ncf``'s B=8192:
+    96 training batches an epoch and a tenth of the rows held out for
+    validation, EveryEpoch checkpoints and summaries. A straight run of
+    4 epochs (samples/s each); (b) an exception injected at epoch 2's
+    first superbatch, retried from the epoch-1 checkpoint, ends bit-equal
+    to the straight run's epoch 3; (c) a fresh estimator's
+    ``load_orca_checkpoint()`` and one more epoch, bit-equal to its epoch
+    4; (a) a NaN superbatch (NaN planted in the output bias) skipped:
+    params, Adam's mu/nu/count and the loss sum finite and unchanged by
+    it, the quarantine journal recording it; (d) ``val_accuracy`` and
+    ``val_loss`` read back from the summary files. Then samples/s and
+    synchronizing-operation warnings over one epoch with the guard on
+    and off: the guard adds none. NCF runs no kernel: every count stays
+    0. Returns the launches."""
+    import json
+    import numpy as np
+    import tempfile
+    from zoo_tpu_torch.models.recommendation import NeuralCF
+    from zoo_tpu_torch.orca.learn.keras import Estimator
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    from zoo_tpu_torch.tensorboard import read_scalars
+    from zoo_tpu_torch.util.resilience import inject
+
+    B = NCF_B
+    n_train = B * NCF_STEPS
+    n_val = n_train // 9                      # 10 % of all the rows
+    rs = np.random.RandomState(0)                           # bench.py:338
+    n = n_train + n_val
+    x = np.stack([rs.randint(0, NCF_CFG["user_count"], n),
+                  rs.randint(0, NCF_CFG["item_count"], n)],
+                 axis=1).astype(np.int32)
+    y = rs.randint(0, NCF_CFG["class_num"], n).astype(np.int32)
+    data = {"x": x[:n_train], "y": y[:n_train]}
+    val = (x[n_train:], y[n_train:])
+
+    def model():
+        m = NeuralCF(**NCF_CFG)
+        return m.compile(optimizer=Adam(lr=0.001),
+                         loss="sparse_categorical_crossentropy",
+                         metrics=["accuracy"])
+
+    start = tree_map(torch.clone, model().build(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+
+    def estimator(d, **kw):
+        m = model()
+        m.params = tree_map(torch.clone, start)
+        return Estimator.from_keras(m, model_dir=d, **kw)
+
+    root = tempfile.mkdtemp(prefix="zoo-estimator-")
+    try:
+        K.reset_launch_counts()
+        a = estimator(os.path.join(root, "a"))
+        rates_, hist = [], {}
+        snaps = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = a.fit(data, epochs=1, batch_size=B, validation_data=val)
+            torch.cuda.synchronize()
+            rates_.append(n_train / (time.perf_counter() - t0))
+            for k, v in h.items():
+                hist.setdefault(k, []).extend(v)
+            snaps.append((_est_leaves(torch, a.model.params),
+                          _est_leaves(torch, a.model._opt_state)))
+        counts = K.launch_counts()
+        # (b) retry from the verified checkpoint
+        b = estimator(os.path.join(root, "b"))
+        b.fit(data, epochs=1, batch_size=B, validation_data=val)
+        with inject("fit.batch", exc=RuntimeError("injected"),
+                    times=1) as armed:
+            b.fit(data, epochs=2, batch_size=B, validation_data=val)
+        retry = {"fired": armed.fired, "epoch": b._epoch,
+                 "params_bit_equal": _bit_equal(
+                     torch, _est_leaves(torch, b.model.params), snaps[2][0]),
+                 "optimizer_state_bit_equal": _bit_equal(
+                     torch, _est_leaves(torch, b.model._opt_state),
+                     snaps[2][1])}
+        # (c) a fresh estimator resumes the checkpoint dir
+        c = estimator(os.path.join(root, "c"))
+        c.load_orca_checkpoint(os.path.join(root, "b"))
+        resumed_at = c._epoch
+        c.fit(data, epochs=1, batch_size=B, validation_data=val)
+        resume = {"from_epoch": resumed_at,
+                  "params_bit_equal": _bit_equal(
+                      torch, _est_leaves(torch, c.model.params), snaps[3][0]),
+                  "optimizer_state_bit_equal": _bit_equal(
+                      torch, _est_leaves(torch, c.model._opt_state),
+                      snaps[3][1])}
+        # (a) a NaN superbatch is skipped
+        poisoned = _poisoned_superbatch(torch, c, data, B, val)
+        # (d) the validation series from the event files, once the
+        # writers have flushed and closed them
+        a.model.train_summary.close()
+        a.model.validation_summary.close()
+        on_disk = read_scalars(os.path.join(root, "a", "summaries", "val"))
+        read_back = {k: [v for _, _, v in on_disk.get(k, [])]
+                     for k in ("accuracy", "loss")}
+        # guard on / off: samples/s and synchronizing operations, one
+        # epoch each, in turns (off, on, off, on) on two warmed models
+        sync = {}
+        models = {}
+        for label, guard in (("off", False), ("on", None)):
+            e = estimator(os.path.join(root, "sync-" + label), guard=guard)
+            e.fit(data, epochs=1, batch_size=B)        # warm
+            models[label] = e.model
+            # and once under the sync-debug mode, uncounted: anything
+            # that warns once a process or a model stays out of the turns
+            _sync_warnings(torch, lambda: e.model.fit(
+                data, batch_size=B, nb_epoch=1, verbose=0, device="cuda"))
+        for label in ("off", "on", "off_again", "on_again"):
+            m = models[label.split("_")[0]]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, warned, where = _sync_warnings(torch, lambda: m.fit(
+                data, batch_size=B, nb_epoch=1, verbose=0, device="cuda"))
+            torch.cuda.synchronize()
+            sync[label] = {"samples_per_s": n_train / (time.perf_counter()
+                                                       - t0),
+                           "sync_warnings": warned, "sync_sources": where,
+                           "boundary_reads": m.boundary_reads,
+                           **_epoch_host_syncs(m, [data["x"], data["y"]], B,
+                                               NCF_STEPS)}
+        journal = [json.loads(line) for line in open(os.path.join(
+            root, "c", "guard", "quarantine.jsonl"))]
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "estimator-main", "config": NCF_CFG, "card": card,
+          "batch": B, "train_rows": n_train, "val_rows": n_val,
+          "samples_per_s": rates_, "losses": hist["loss"],
+          "val_loss": hist.get("val_loss"),
+          "val_accuracy": hist.get("val_accuracy"),
+          "summary_read_back": read_back, "retry": retry, "resume": resume,
+          "poisoned": poisoned, "journal_events": [e["event"]
+                                                   for e in journal],
+          "guard": sync, "launches": {k: v for k, v in counts.items() if v}})
+    if any(counts.values()):
+        raise AssertionError(f"estimator-main: kernels launched {counts}; "
+                             "NCF's path runs none")
+    if not (all(np.isfinite(hist["loss"])) and retry["fired"] == 1
+            and retry["epoch"] == 3 and retry["params_bit_equal"]
+            and retry["optimizer_state_bit_equal"]):
+        raise AssertionError(f"estimator-main: retry {retry}, losses "
+                             f"{hist['loss']}")
+    if not (resume["from_epoch"] == 3 and resume["params_bit_equal"]
+            and resume["optimizer_state_bit_equal"]):
+        raise AssertionError(f"estimator-main: resume {resume}")
+    # an event file holds f32 scalars
+    if read_back["accuracy"] != [float(np.float32(v)) for v in
+                                 hist["val_accuracy"]] or \
+            read_back["loss"] != [float(np.float32(v)) for v in
+                                  hist["val_loss"]]:
+        raise AssertionError(f"estimator-main: summaries {read_back} vs "
+                             f"history {hist}")
+    if "nonfinite_steps" not in [e["event"] for e in journal]:
+        raise AssertionError(f"estimator-main: journal {journal}")
+    if len({sync[k]["sync_warnings"] for k in sync}) != 1 or \
+            not _host_syncs_ok(sync):
+        raise AssertionError(f"estimator-main: the guard adds synchronizing "
+                             f"operations: {sync}")
+    return counts
+
+
+def _poisoned_superbatch(torch, est, data, batch_size, val):
+    """One epoch of ``est`` with the ``fit.batch`` seam planting a NaN in
+    the last layer's bias for the first superbatch only (removed at the
+    second): that superbatch's steps are skipped, the rest train; the
+    params, Adam's mu/nu/count and the epoch loss stay finite, and the
+    count moves by the steps that were not skipped. A superbatch of 16
+    skipped steps is a streak past the default ``max_skips`` (8), so the
+    guard also rolls back to the epoch's starting checkpoint there and
+    trains on from it: the count still moves by the good steps."""
+    import math
+    model = est.model
+    key = sorted(model.params)[-1]
+    bias = model.params[key]["b"]
+    saved = bias.detach().clone()
+    count0 = int(model._opt_state["count"])
+    calls = {"n": 0}
+
+    def plant(site=None, arrays=None, idx=None, **_):
+        calls["n"] += 1
+        with torch.no_grad():
+            if calls["n"] == 1:
+                bias.fill_(float("nan"))
+            elif calls["n"] == 2:
+                bias.copy_(saved)
+
+    from zoo_tpu_torch.util.resilience import inject
+    skipped0 = est._guard.nonfinite_steps
+    with inject("fit.batch", action=plant, exc=None):
+        hist = est.fit(data, epochs=1, batch_size=batch_size,
+                       validation_data=val)
+    torch.cuda.synchronize()
+    steps = len(data["y"]) // batch_size
+    skipped = est._guard.nonfinite_steps - skipped0
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 _est_leaves(torch, model.params) +
+                 _est_leaves(torch, model._opt_state))
+    out = {"steps": steps, "skipped": skipped, "loss": hist["loss"],
+           "count_moved": int(model._opt_state["count"]) - count0,
+           "rollbacks": est._guard.rollbacks, "finite": finite}
+    if not (finite and 0 < skipped < steps and
+            out["count_moved"] == steps - skipped and
+            all(math.isfinite(v) for v in hist["loss"])):
+        raise AssertionError(f"poisoned superbatch: {out}")
+    return out
+
+
+def phase_estimator_bert(torch, K, card):
+    """BERT-base (``BERT_CFG``) at run (b)'s shape (S=512, B=16,
+    ``mixed_bfloat16``, the flash kernels) through
+    ``Estimator.from_keras`` with ``AdamWeightDecay(lr=1e-4, fused=True)``,
+    ``set_l2_norm_gradient_clipping(1.0)`` and the default guard (no
+    model_dir: estimator-main covers checkpoints): a few epochs of a few
+    steps, their losses against the same
+    estimator run through the plain versions (dense attention,
+    ``plain_kernels()``) within the bf16 loss bar; a poisoned epoch
+    leaves every param, m, v and the device step bit-equal while the
+    fused AdamW kernel launches for it; synchronizing operations over one
+    epoch with the guard on equal those with it off. Returns the kernel
+    path's launches (counted over the compared run)."""
+    import numpy as np
+    from zoo_tpu_torch.orca.learn.keras import Estimator
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import AdamWeightDecay
+
+    S, B = BERT_S, BERT_B
+    N = ESTIMATOR_BERT_STEPS * B
+    rs = np.random.RandomState(0)
+    data = {"x": rs.randint(0, BERT_CFG["vocab"], (N, S)).astype(np.int32),
+            "y": rs.randint(0, 2, N).astype(np.int32)}
+    start, out = None, {}
+    for label, impl in (("kernels", "auto"), ("plain", "dense")):
+        m = _bert_sequential(S, impl, **BERT_CFG)
+        m.compile(optimizer=AdamWeightDecay(lr=1e-4, fused=True),
+                  loss=LOSS, dtype_policy="mixed_bfloat16")
+        if start is None:
+            start = tree_map(torch.clone, m.build(
+                torch.Generator(device="cuda").manual_seed(0),
+                device="cuda"))
+        m.params = tree_map(torch.clone, start)
+        # no model_dir: a BERT-base step's checkpoint is 1.3 GB and
+        # takes ~5 s to write; estimator-main covers checkpoints
+        est = Estimator.from_keras(m)
+        est.set_l2_norm_gradient_clipping(1.0)
+        ctx = plain_kernels() if label == "plain" else \
+            contextlib.nullcontext()
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with ctx:
+            hist = est.fit(data, epochs=ESTIMATOR_BERT_EPOCHS,
+                           batch_size=B)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[label] = (hist["loss"], K.launch_counts(),
+                      m.layers[0].last_attention_impl, wall, est)
+        if label == "plain":
+            del est, m
+            torch.cuda.empty_cache()
+    (lk, ck, ik, wk, est), (lp, cp, ip, wp, _) = out["kernels"], \
+        out["plain"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+    n_leaves = len(_est_leaves(torch, est.model.params))
+    steps = ESTIMATOR_BERT_STEPS * ESTIMATOR_BERT_EPOCHS
+    L = BERT_CFG["n_block"]
+    want = {"flash_attention": L * steps,
+            "flash_attention_dkdv": L * steps,
+            "flash_attention_dq": L * steps,
+            "fused_adam": n_leaves * steps}
+    got = {k: ck[k] for k in want}
+    poisoned = _poisoned_epoch(torch, K, est, data, B)
+    sync = {}
+    for label in ("off", "on", "off_again"):
+        if label.startswith("off"):
+            est.model.clear_guard()
+        else:
+            est.model.set_guard(est._guard)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, warned, where = _sync_warnings(torch, lambda: est.model.fit(
+            data, batch_size=B, nb_epoch=1, verbose=0, device="cuda"))
+        torch.cuda.synchronize()
+        sync[label] = {"samples_per_s": N / (time.perf_counter() - t0),
+                       "sync_warnings": warned, "sync_sources": where,
+                       "boundary_reads": est.model.boundary_reads,
+                       **_epoch_host_syncs(est.model, [data["x"], data["y"]],
+                                           B, ESTIMATOR_BERT_STEPS)}
+    est.model.set_guard(est._guard)
+    emit({"phase": "estimator-bert", "card": card,
+          "config": dict(BERT_CFG, seq_len=S), "batch": B,
+          "steps_per_epoch": ESTIMATOR_BERT_STEPS,
+          "epochs": ESTIMATOR_BERT_EPOCHS, "leaves": n_leaves,
+          "loss_kernels": lk, "loss_plain": lp, "loss_max_rel": loss_rel,
+          "wall_s_kernels": wk, "wall_s_plain": wp,
+          "attention_impl": [ik, ip], "poisoned_epoch": poisoned,
+          "guard": sync, "launches": {k: v for k, v in ck.items() if v},
+          "launches_plain": {k: v for k, v in cp.items() if v}})
+    if not (loss_rel <= TOL_BERT_BF16_LOSS and all(np.isfinite(lk))) or \
+            (ik, ip) != ("flash", "dense"):
+        raise AssertionError(f"estimator-bert: losses {lk} vs plain {lp} "
+                             f"(rel {loss_rel}), impls {ik} {ip}")
+    if got != want or any(cp[k] for k in want):
+        raise AssertionError(f"estimator-bert: launches {got} (plain {cp}), "
+                             f"expected {want}")
+    if not (sync["on"]["sync_warnings"] == sync["off"]["sync_warnings"]
+            == sync["off_again"]["sync_warnings"]) or \
+            not _host_syncs_ok(sync):
+        raise AssertionError(f"estimator-bert: the guard adds synchronizing "
+                             f"operations: {sync}")
+    del est
+    torch.cuda.empty_cache()
+    return ck
+
+
+def phase_bench_guard(torch, card):
+    """``bench.py`` ``bench_guard``'s mix in the port: an MLP (Dense 256
+    relu, Dense 256 relu, Dense 1; Adam; MSE) over n=16384 rows of 64
+    features at B=512, 3 epochs a fit, guarded and unguarded fits
+    interleaved 3 times; samples/s median and spread of each and
+    ``guard_overhead_pct``. Printed, not gated."""
+    import numpy as np
+    from zoo_tpu_torch.orca.learn.guard import GuardConfig, TrainingGuard
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    mix = GUARD_MIX
+    n, feat, bs = mix["n"], mix["feat"], mix["batch_size"]
+    rs = np.random.RandomState(0)
+    x = rs.randn(n, feat).astype(np.float32)
+    y = (x @ rs.randn(feat, 1)).astype(np.float32)
+
+    def build(guarded):
+        m = Sequential()
+        m.add(Dense(256, input_shape=(feat,), activation="relu"))
+        m.add(Dense(256, activation="relu"))
+        m.add(Dense(1))
+        m.compile(optimizer="adam", loss="mse")
+        if guarded:
+            m.set_guard(TrainingGuard(
+                config=GuardConfig(enabled=True, preempt_signal="none")))
+        m.fit(x, y, batch_size=bs, nb_epoch=1, shuffle=False, verbose=0,
+              device="cuda")
+        return m
+
+    def stats(xs):
+        xs = sorted(xs)
+        med = xs[len(xs) // 2]
+        return med, (xs[-1] - xs[0]) / med
+
+    mu, mg = build(False), build(True)
+    bare, guarded = [], []
+    for _ in range(mix["reps"]):
+        for m, into in ((mu, bare), (mg, guarded)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m.fit(x, y, batch_size=bs, nb_epoch=mix["epochs"],
+                  shuffle=False, verbose=0, device="cuda")
+            torch.cuda.synchronize()
+            into.append(n * mix["epochs"] / (time.perf_counter() - t0))
+    (u50, usp), (g50, gsp) = stats(bare), stats(guarded)
+    emit({"phase": "bench-guard", "card": card, "mix": mix,
+          "guard_unguarded_samples_per_sec": u50,
+          "guard_unguarded_spread": usp,
+          "guard_guarded_samples_per_sec": g50,
+          "guard_guarded_spread": gsp,
+          "guard_overhead_pct": (u50 / g50 - 1.0) * 100,
+          "unguarded": bare, "guarded": guarded})
+    del mu, mg
+    torch.cuda.empty_cache()
 
 
 def drive(engine, prompts, n_new, budget=600.0, sampling=None):
@@ -6027,6 +6705,7 @@ def main():
         phase_tiny(torch, K)
         phase_train_tiny(torch, K)
         phase_train_bert_tiny(torch, K)
+        phase_estimator_tiny(torch, K)
         # each main path's launches, counted from 0 just before it runs
         phase_infer_tiny(torch, K)
         phase_predict_tiny(torch, K)
@@ -6044,6 +6723,9 @@ def main():
                    "train_f32": phase_train_f32_main(torch, K, card)}
         phase_train_rec_main(torch, K, card)
         by_path["train_bert"] = phase_train_bert_main(torch, K, card)
+        by_path["estimator_ncf"] = phase_estimator_main(torch, K, card)
+        by_path["estimator_bert"] = phase_estimator_bert(torch, K, card)
+        phase_bench_guard(torch, card)
         phase_predict_mlp(torch, card)
         by_path["predict"] = phase_predict_main(torch, K, card)
         by_path["cluster"] = phase_cluster_main(torch, K, card)
@@ -6083,7 +6765,8 @@ def main():
                                            "bound_ratio", "library_ratio",
                                            "composition_ratio", "shape",
                                            "plan", "device_launches_per_call",
-                                           "vgg_first_conv", "served_fc6")
+                                           "vgg_first_conv", "served_fc6",
+                                           "interface")
                    if key in t},
                 **({"verify_shape": {key: t["verify_shape"][key] for key in (
                     "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",

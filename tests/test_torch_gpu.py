@@ -396,9 +396,10 @@ def test_fused_optim_kernels_match_plain(hopper, n, offset, step):
     # tolerance: a missing or misplaced store cannot pass
     p, grad = leaf(0.05), leaf(0.1)
     m, v = leaf(1e-2), leaf(1e-2, positive=True)
-    want = FO.reference_apply_adam(p, grad, m, v, step, 1e-4,
+    t = torch.full((), step, dtype=torch.int32, device=hopper)
+    want = FO.reference_apply_adam(p, grad, m, v, t, 1e-4,
                                    weight_decay=0.01)
-    got = FO.fused_apply_adam(p.clone(), grad, m.clone(), v.clone(), step,
+    got = FO.fused_apply_adam(p.clone(), grad, m.clone(), v.clone(), t,
                               1e-4, weight_decay=0.01)
     torch.cuda.synchronize()
     for x, a, b in zip((p, m, v), got, want):
@@ -411,6 +412,59 @@ def test_fused_optim_kernels_match_plain(hopper, n, offset, step):
     for x, a, b in zip((p, buf), got, want):
         assert _err(b, x) > 1e-5
         assert _err(a, b) <= 1e-6
+
+
+@pytest.mark.parametrize("ok", [True, False])
+def test_fused_optim_device_scalars_and_skip(hopper, ok):
+    """The kernels read the step, a device learning rate and the guard's
+    ``ok`` from device memory: with ``ok`` true they match their plain
+    versions on the same device scalars; with ``ok`` false every operand
+    is bit-unchanged though the gradient is NaN, and the launch is still
+    counted."""
+    from zoo_tpu_torch.ops.kernels import fused_optim as FO
+    g = _gen(hopper, 9)
+    n = 1_000_003
+    p = torch.randn(n, generator=g, device=hopper) * 0.05
+    m = torch.randn(n, generator=g, device=hopper) * 1e-2
+    v = (torch.randn(n, generator=g, device=hopper) * 1e-2).abs()
+    buf = torch.randn(n, generator=g, device=hopper) * 1e-2
+    grad = torch.randn(n, generator=g, device=hopper) * 0.1
+    if not ok:
+        grad[::7] = float("nan")
+    step = torch.full((), 12, dtype=torch.int32, device=hopper)
+    lr = torch.full((), 3e-4, dtype=torch.float32, device=hopper)
+    flag = torch.full((), ok, dtype=torch.bool, device=hopper)
+    before = (FO.ADAM_LAUNCHES, FO.SGD_LAUNCHES)
+    got = FO.fused_apply_adam(p.clone(), grad, m.clone(), v.clone(), step,
+                              lr, weight_decay=0.01, ok=flag)
+    got_sgd = FO.fused_apply_sgd(p.clone(), grad, buf.clone(), lr, 0.9,
+                                 0.01, ok=flag)
+    want = FO.reference_apply_adam(p, grad, m, v, step, lr,
+                                   weight_decay=0.01, ok=flag)
+    want_sgd = FO.reference_apply_sgd(p, grad, buf, lr, 0.9, 0.01, ok=flag)
+    torch.cuda.synchronize()
+    assert (FO.ADAM_LAUNCHES, FO.SGD_LAUNCHES) == (before[0] + 1,
+                                                   before[1] + 1)
+    for x, a, b in zip((p, m, v, p, buf), got + got_sgd, want + want_sgd):
+        if ok:
+            assert _err(b, x) > 1e-5
+            assert _err(a, b) <= 1e-6
+        else:
+            assert torch.equal(a, x) and torch.equal(b, x)
+
+
+def test_device_bias_corrections_equal_the_host_function(hopper):
+    """The kernel's bias corrections from the device step, steps 1 to
+    100000, bit-equal to ``bias_corrections`` (the power in double,
+    rounded once)."""
+    from zoo_tpu_torch.ops.kernels import fused_optim as FO
+    steps = np.arange(1, 100001, dtype=np.int32)
+    for b1, b2 in ((0.9, 0.999), (0.8, 0.98)):
+        got = FO.adam_bias_corrections(
+            torch.from_numpy(steps).to(hopper), b1, b2).cpu().numpy()
+        want = np.array([FO.bias_corrections(int(t), b1, b2)
+                         for t in steps], np.float32)
+        assert np.array_equal(got, want), (b1, b2)
 
 
 def test_tiny_fit_kernels_equal_plain(hopper):

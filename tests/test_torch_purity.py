@@ -1,7 +1,10 @@
 """The port imports neither ``jax`` nor any ``zoo_tpu`` module (its own
 name, ``zoo_tpu_torch``, shares the prefix and is allowed), nor
-``pyarrow`` (the serving wire's Arrow codec is its own), and its entry
-points refuse to run quietly on the CPU."""
+``pyarrow`` (the serving wire's Arrow codec is its own), nor ``optax``,
+``orbax``, ``pandas`` or ``tensorboard`` (the training seam keeps its
+own optimizers, checkpoint codec, duck-typed tables and event writer);
+the guard's controller imports without ``torch``; and its entry points
+refuse to run quietly on the CPU."""
 
 import ast
 import os
@@ -29,7 +32,8 @@ def _modules():
     return sorted(out)
 
 
-FORBIDDEN = ("jax", "zoo_tpu", "pyarrow")
+FORBIDDEN = ("jax", "zoo_tpu", "pyarrow", "optax", "orbax", "pandas",
+             "tensorboard")
 
 
 def _forbidden(name: str) -> bool:
@@ -42,7 +46,10 @@ def test_importing_every_module_pulls_in_no_jax():
     for m in ("serving.llm.engine", "serving.cluster_serving",
               "serving.client", "serving.arrow_ipc", "serving.resp",
               "serving.redis_embedded", "serving.run", "ppml.crypto",
-              "models.image.imageclassification"):
+              "models.image.imageclassification", "orca.learn.ckpt",
+              "orca.learn.guard", "orca.learn.trigger",
+              "orca.learn.keras.estimator", "orca.learn.optimizers.schedule",
+              "tensorboard", "tensorboard.proto", "scripts.check_guard"):
         assert "zoo_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -225,3 +232,48 @@ def test_cluster_serving_entry_points_raise_without_a_card(monkeypatch,
             call()
     assert InferenceModel().load_encrypted(enc, "k", "s", device="cpu") \
         .predict(np.zeros((1, 3), np.float32)).shape == (1, 2)
+
+
+def test_guard_controller_imports_without_torch():
+    """The guard's host controller, the triggers and the ``check_guard``
+    copy import without ``torch``, as the JAX package's import without
+    ``jax``."""
+    code = (
+        "import sys\n"
+        "import zoo_tpu_torch.orca.learn.guard\n"
+        "import zoo_tpu_torch.orca.learn.trigger\n"
+        "import zoo_tpu_torch.scripts.check_guard\n"
+        "bad = sorted(m for m in sys.modules if m == 'torch' or "
+        "m.startswith('torch.'))\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_estimator_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The estimator's slice: no GPU and no ``device=`` raises at fit,
+    predict, evaluate and ``load_orca_checkpoint``; ``device="cpu"``
+    trains."""
+    from zoo_tpu_torch.orca.learn.keras import Estimator
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.layers import Dense
+
+    def model():
+        m = Sequential().add(Dense(1, input_shape=(3,)))
+        return m.compile("adam", "mse")
+
+    data = {"x": np.zeros((8, 3), np.float32),
+            "y": np.zeros((8, 1), np.float32)}
+    Estimator.from_keras(model(), model_dir=str(tmp_path), device="cpu") \
+        .fit(data, epochs=1, batch_size=4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    est = Estimator.from_keras(model(), guard=False)
+    for call in (lambda: est.fit(data, epochs=1, batch_size=4),
+                 lambda: est.predict(data["x"]),
+                 lambda: est.evaluate(data),
+                 lambda: est.load_orca_checkpoint(str(tmp_path))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -277,8 +277,7 @@ def test_adam_matches_optax(decay):
 def test_adam_contract():
     assert isinstance(get_optimizer("adam"), Adam)
     assert get_optimizer("adam").name == "adam"
-    with pytest.raises(NotImplementedError, match="A.11"):
-        Adam(learningrate_schedule=lambda s: 1e-3)
+    assert Adam(learningrate_schedule=lambda s: 1e-3).schedule is not None
     p = {"w": torch.ones(3)}
     opt = Adam()
     state = opt.init(p)

@@ -325,11 +325,15 @@ def test_sgd_matches_optax(kw):
 def test_sgd_contract():
     assert isinstance(get_optimizer("sgd"), SGD)
     assert get_optimizer("SGD").lr == 0.01
-    with pytest.raises(NotImplementedError, match="schedul"):
-        SGD(learningrate_schedule=lambda step: 0.1)
+    assert SGD(learningrate_schedule=lambda step: 0.1).schedule is not None
     opt = SGD(lr=0.1, decay=0.5)
-    assert opt.learning_rate(0) == pytest.approx(0.1)
-    assert opt.learning_rate(2) == float(np.float32(0.1) / np.float32(2.0))
+    state = opt.init({"w": torch.zeros(3)})
+
+    def rate(count):
+        return float(opt.rate(state, torch.tensor(count, dtype=torch.int32)))
+
+    assert rate(0) == pytest.approx(0.1)
+    assert rate(2) == float(np.float32(0.1) / np.float32(2.0))
 
 
 def _metric_inputs(name, rs):

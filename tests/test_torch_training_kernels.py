@@ -185,8 +185,10 @@ def test_fused_adam_matches_pallas(shape, step, wd):
                                 step, 1e-2, beta1=0.9, beta2=0.999,
                                 eps=1e-6, weight_decay=wd, interpret=True)
     tp, tm, tv = T(p.copy()), T(m.copy()), T(v.copy())
-    out = topt.fused_apply_adam(tp, T(g), tm, tv, step, 1e-2, beta1=0.9,
-                                beta2=0.999, eps=1e-6, weight_decay=wd)
+    out = topt.fused_apply_adam(tp, T(g), tm, tv,
+                                torch.tensor(step, dtype=torch.int32), 1e-2,
+                                beta1=0.9, beta2=0.999, eps=1e-6,
+                                weight_decay=wd)
     assert out[0] is tp and out[1] is tm and out[2] is tv   # in place
     for got, want in zip(out, ref):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
@@ -215,7 +217,8 @@ def test_reference_adam_matches_jax_reference():
     v = np.abs(rs.randn(300)).astype(np.float32)
     ref = jopt.reference_apply_adam(*(jnp.asarray(a) for a in (p, g, m, v)),
                                     3, 2e-3, weight_decay=0.01)
-    got = topt.reference_apply_adam(*(T(a) for a in (p, g, m, v)), 3, 2e-3,
+    got = topt.reference_apply_adam(*(T(a) for a in (p, g, m, v)),
+                                    torch.tensor(3, dtype=torch.int32), 2e-3,
                                     weight_decay=0.01)
     for a, b in zip(got, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
@@ -226,3 +229,25 @@ def test_bias_corrections_are_f32():
     want1 = np.float32(1) / (np.float32(1) - np.float32(0.9) ** np.float32(10))
     assert bc1 == float(want1)
     assert np.float32(bc2) == bc2
+
+
+@pytest.mark.parametrize("beta", [0.9, 0.999])
+def test_bias_corrections_within_an_ulp_of_jax(beta):
+    """The port's bias correction (the power in double, rounded once)
+    against the JAX kernel's ``1 / (1 - jnp.float32(beta) ** step)`` at
+    every step from 1 to 100000: at most one f32 ulp apart (XLA's f32
+    power is not correctly rounded at every step). The device version
+    of a CPU step tensor equals the host function bit for bit."""
+    steps = np.arange(1, 100001)
+    host = np.array([topt.bias_corrections(int(t), beta, beta)[0]
+                     for t in steps], np.float32)
+    dev = topt.device_bias_corrections(
+        torch.from_numpy(steps.astype(np.int32)), beta, beta)[0].numpy()
+    np.testing.assert_array_equal(dev, host)
+    want = np.asarray(1.0 / (1.0 - jnp.float32(beta)
+                             ** jnp.asarray(steps, jnp.float32)), np.float32)
+    ulps = np.abs(host.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1, steps[ulps > 1][:10]
+    print(f"beta {beta}: {int((ulps > 0).sum())} of {len(steps)} steps one "
+          f"ulp off JAX's, at {steps[ulps > 0][:10].tolist()}")

@@ -93,6 +93,28 @@ _k("ZOO_LLAMA_ATTN_IMPL", "str", "",
    "force `dense` / `flash` attention for A/B runs")
 _k("ZOO_FUSED_OPTIM", "bool", False,
    "AdamW takes the fused direct-apply path")
+_k("ZOO_GUARD", "bool", True, "`0` disables the guard estimators attach")
+_k("ZOO_GUARD_MAX_SKIPS", "int", 8,
+   "consecutive skipped steps before rollback")
+_k("ZOO_GUARD_SPIKE_FACTOR", "float", 10.0,
+   "window-loss multiple over the rolling median that triggers rollback")
+_k("ZOO_GUARD_WINDOW", "int", 32, "rolling-loss window (boundaries)")
+_k("ZOO_GUARD_MIN_WINDOW", "int", 5,
+   "boundaries before spike detection arms")
+_k("ZOO_GUARD_ROLLBACK_BUDGET", "int", 3,
+   "rollbacks before `TrainingDiverged`")
+_k("ZOO_GUARD_LR_BACKOFF", "float", 0.5, "LR multiplier on rollback resume")
+_k("ZOO_GUARD_CHECK_EVERY", "int", 1,
+   "read the device counter every N boundaries")
+_k("ZOO_GUARD_MAX_GNORM", "float", None,
+   "optional hard gradient-norm ceiling")
+_k("ZOO_GUARD_QUARANTINE", "str", None,
+   "journal path (default `<model_dir>/guard/quarantine.jsonl`)")
+_k("ZOO_PREEMPT", "str", "SIGTERM",
+   "preemption signal name; `none` disables")
+_k("ZOO_CKPT_KEEP", "int", 5,
+   "checkpoint retention bound (steps + `.corrupt` dirs; newest verified "
+   "step protected)")
 _k("ZOO_INT8_MODE", "str", "auto",
    "int8 quantization policy: `auto` microbenches int8 vs float and "
    "keeps the winner, `force`, `off`. The default `auto` is that of "

@@ -9,10 +9,22 @@
 // Semantics as the Pallas kernels, in f32:
 // - AdamW: m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g g;
 //   p -= lr * (m bc1 / (sqrt(v bc2) + eps) + wd p), with the bias
-//   corrections bc1 = 1 / (1 - b1^t), bc2 = 1 / (1 - b2^t) computed by
-//   the caller for the 1-based step t. Every scalar is a runtime
-//   argument, so a new step or learning rate never rebuilds anything.
+//   corrections bc1 = 1 / (1 - b1^t), bc2 = 1 / (1 - b2^t) for the
+//   1-based step t.
 // - SGD: g' = g + wd p; buf = momentum buf + g'; p -= lr buf.
+//
+// The per-step scalars live in device memory, where the training step
+// keeps them: the step t (int32) and, when the learning rate is
+// scheduled or decayed, lr (f32; a null pointer means the launch
+// argument lr). The constant hyperparameters (b1, b2, eps, wd,
+// momentum) are launch arguments. So the host never reads a count to
+// launch a step, and a new step or learning rate rebuilds nothing. The
+// bias corrections come from t on the device: beta^t taken in double
+// and rounded once to f32 (bias_correction below), which is what
+// ops/kernels/fused_optim.py's bias_corrections computes on the host,
+// bit for bit. A nullable predicate ok (one byte) is the training
+// guard's skip: when it reads 0 no block writes p, m, v or buf, the
+// identity branch of the JAX step's lax.cond.
 //
 // What bounds it on an H100: bytes. AdamW reads p, g, m, v and writes
 // p, m, v: 28 bytes and ~15 flops per element; SGD 20 bytes. At the
@@ -24,7 +36,10 @@
 // walks the flat contiguous leaf with 16-byte vector loads and stores
 // (when all pointers are 16-byte aligned) and a scalar loop takes the
 // ragged tail, so nothing is padded or copied; the update is in place,
-// so each byte crosses the memory bus once each way.
+// so each byte crosses the memory bus once each way. Each thread reads
+// the device step, lr and ok once before its loop and takes the double
+// power once: a few cached scalar loads and a pow a thread, nothing per
+// element.
 #include "zt_common.cuh"
 
 namespace zt {
@@ -33,32 +48,59 @@ constexpr int kOptimThreads = 256;
 constexpr int kOptimMaxBlocks = 132 * 8;   // 8 blocks per SM, grid-stride
 
 struct AdamArgs {
-  float lr, b1, b2, eps, wd, bc1, bc2;
+  float lr, b1, b2, eps, wd;
 };
 
 struct SgdArgs {
   float lr, momentum, wd;
 };
 
+// 1 / (1 - beta^t) in f32: the power in double from the f32 beta,
+// rounded once to f32 (the correctly rounded f32 power, where powf may
+// be off by an ulp or two), then the f32 subtraction and division
+__device__ __forceinline__ float bias_correction(float beta, int t) {
+  const float pw = static_cast<float>(
+      pow(static_cast<double>(beta), static_cast<double>(t)));
+  return 1.f / (1.f - pw);
+}
+
+// the learning rate of this step: the device scalar when there is one
+__device__ __forceinline__ float step_lr(const float* lr_ptr, float lr) {
+  return lr_ptr != nullptr ? *lr_ptr : lr;
+}
+
+// whether the guard let this step through (no predicate: always)
+__device__ __forceinline__ bool step_ok(const uint8_t* ok) {
+  return ok == nullptr || *ok != 0;
+}
+
 __device__ __forceinline__ void adam_one(float& p, float g, float& m,
-                                         float& v, const AdamArgs& a) {
+                                         float& v, const AdamArgs& a,
+                                         float lr, float bc1, float bc2) {
   m = a.b1 * m + (1.f - a.b1) * g;
   v = a.b2 * v + (1.f - a.b2) * g * g;
-  const float update = (m * a.bc1) / (sqrtf(v * a.bc2) + a.eps) + a.wd * p;
-  p = p - a.lr * update;
+  const float update = (m * bc1) / (sqrtf(v * bc2) + a.eps) + a.wd * p;
+  p = p - lr * update;
 }
 
 __device__ __forceinline__ void sgd_one(float& p, float g, float& buf,
-                                        const SgdArgs& a) {
+                                        const SgdArgs& a, float lr) {
   g = g + a.wd * p;
   buf = a.momentum * buf + g;
-  p = p - a.lr * buf;
+  p = p - lr * buf;
 }
 
 __global__ void __launch_bounds__(kOptimThreads)
     adam_kernel(float* __restrict__ p, const float* __restrict__ g,
                 float* __restrict__ m, float* __restrict__ v, int64_t n,
-                int64_t n_vec, AdamArgs a) {
+                int64_t n_vec, AdamArgs a, const int* __restrict__ step,
+                const float* __restrict__ lr_ptr,
+                const uint8_t* __restrict__ ok) {
+  if (!step_ok(ok)) return;
+  const float lr = step_lr(lr_ptr, a.lr);
+  const int t_step = *step;
+  const float bc1 = bias_correction(a.b1, t_step);
+  const float bc2 = bias_correction(a.b2, t_step);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -69,17 +111,17 @@ __global__ void __launch_bounds__(kOptimThreads)
   for (int64_t i = t; i < n_vec; i += stride) {
     float4 pp = p4[i], mm = m4[i], vv = v4[i];
     const float4 gg = g4[i];
-    adam_one(pp.x, gg.x, mm.x, vv.x, a);
-    adam_one(pp.y, gg.y, mm.y, vv.y, a);
-    adam_one(pp.z, gg.z, mm.z, vv.z, a);
-    adam_one(pp.w, gg.w, mm.w, vv.w, a);
+    adam_one(pp.x, gg.x, mm.x, vv.x, a, lr, bc1, bc2);
+    adam_one(pp.y, gg.y, mm.y, vv.y, a, lr, bc1, bc2);
+    adam_one(pp.z, gg.z, mm.z, vv.z, a, lr, bc1, bc2);
+    adam_one(pp.w, gg.w, mm.w, vv.w, a, lr, bc1, bc2);
     p4[i] = pp;
     m4[i] = mm;
     v4[i] = vv;
   }
   for (int64_t i = 4 * n_vec + t; i < n; i += stride) {
     float pp = p[i], mm = m[i], vv = v[i];
-    adam_one(pp, g[i], mm, vv, a);
+    adam_one(pp, g[i], mm, vv, a, lr, bc1, bc2);
     p[i] = pp;
     m[i] = mm;
     v[i] = vv;
@@ -89,7 +131,10 @@ __global__ void __launch_bounds__(kOptimThreads)
 __global__ void __launch_bounds__(kOptimThreads)
     sgd_kernel(float* __restrict__ p, const float* __restrict__ g,
                float* __restrict__ buf, int64_t n, int64_t n_vec,
-               SgdArgs a) {
+               SgdArgs a, const float* __restrict__ lr_ptr,
+               const uint8_t* __restrict__ ok) {
+  if (!step_ok(ok)) return;
+  const float lr = step_lr(lr_ptr, a.lr);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
@@ -99,18 +144,30 @@ __global__ void __launch_bounds__(kOptimThreads)
   for (int64_t i = t; i < n_vec; i += stride) {
     float4 pp = p4[i], bb = b4[i];
     const float4 gg = g4[i];
-    sgd_one(pp.x, gg.x, bb.x, a);
-    sgd_one(pp.y, gg.y, bb.y, a);
-    sgd_one(pp.z, gg.z, bb.z, a);
-    sgd_one(pp.w, gg.w, bb.w, a);
+    sgd_one(pp.x, gg.x, bb.x, a, lr);
+    sgd_one(pp.y, gg.y, bb.y, a, lr);
+    sgd_one(pp.z, gg.z, bb.z, a, lr);
+    sgd_one(pp.w, gg.w, bb.w, a, lr);
     p4[i] = pp;
     b4[i] = bb;
   }
   for (int64_t i = 4 * n_vec + t; i < n; i += stride) {
     float pp = p[i], bb = buf[i];
-    sgd_one(pp, g[i], bb, a);
+    sgd_one(pp, g[i], bb, a, lr);
     p[i] = pp;
     buf[i] = bb;
+  }
+}
+
+// the bias corrections of the 1-based steps steps[0..n) as the AdamW
+// kernel computes them: out[2i] = bc1, out[2i + 1] = bc2
+__global__ void adam_bias_corrections_kernel(const int* __restrict__ steps,
+                                             int n, float b1, float b2,
+                                             float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    out[2 * i] = bias_correction(b1, steps[i]);
+    out[2 * i + 1] = bias_correction(b2, steps[i]);
   }
 }
 
@@ -129,10 +186,14 @@ inline int grid_for(int64_t n, int64_t n_vec) {
 }  // namespace zt
 
 // In-place AdamW over n contiguous f32 elements of p, m, v with gradient
-// g. aligned = 1 when all four pointers are 16-byte aligned.
+// g. step: the device int32 1-based step; lr_ptr: the device f32
+// learning rate, or null for the argument lr; ok: the device guard
+// predicate (one byte), or null. aligned = 1 when all four tensor
+// pointers are 16-byte aligned.
 extern "C" int zt_fused_adam(void* p, const void* g, void* m, void* v,
-                             long long n, float lr, float b1, float b2,
-                             float eps, float wd, float bc1, float bc2,
+                             long long n, const void* step,
+                             const void* lr_ptr, float lr, float b1,
+                             float b2, float eps, float wd, const void* ok,
                              int aligned, void* stream) {
   using namespace zt;
   if (n < 0) return cudaErrorInvalidValue;
@@ -142,13 +203,16 @@ extern "C" int zt_fused_adam(void* p, const void* g, void* m, void* v,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(p), static_cast<const float*>(g),
       static_cast<float*>(m), static_cast<float*>(v), n, n_vec,
-      AdamArgs{lr, b1, b2, eps, wd, bc1, bc2});
+      AdamArgs{lr, b1, b2, eps, wd}, static_cast<const int*>(step),
+      static_cast<const float*>(lr_ptr), static_cast<const uint8_t*>(ok));
   return cudaGetLastError();
 }
 
-// In-place SGD with momentum and L2 decay over n contiguous f32 elements.
+// In-place SGD with momentum and L2 decay over n contiguous f32 elements;
+// lr_ptr and ok as for zt_fused_adam.
 extern "C" int zt_fused_sgd(void* p, const void* g, void* buf, long long n,
-                            float lr, float momentum, float wd, int aligned,
+                            const void* lr_ptr, float lr, float momentum,
+                            float wd, const void* ok, int aligned,
                             void* stream) {
   using namespace zt;
   if (n < 0) return cudaErrorInvalidValue;
@@ -157,6 +221,20 @@ extern "C" int zt_fused_sgd(void* p, const void* g, void* buf, long long n,
   sgd_kernel<<<grid_for(n, n_vec), kOptimThreads, 0,
                static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(p), static_cast<const float*>(g),
-      static_cast<float*>(buf), n, n_vec, SgdArgs{lr, momentum, wd});
+      static_cast<float*>(buf), n, n_vec, SgdArgs{lr, momentum, wd},
+      static_cast<const float*>(lr_ptr), static_cast<const uint8_t*>(ok));
+  return cudaGetLastError();
+}
+
+// adam_bias_corrections_kernel over n device steps into out (2n floats)
+extern "C" int zt_adam_bias_corrections(const void* steps, int n, float b1,
+                                        float b2, void* out, void* stream) {
+  using namespace zt;
+  if (n < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  adam_bias_corrections_kernel<<<(n + kOptimThreads - 1) / kOptimThreads,
+                                 kOptimThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(steps), n, b1, b2, static_cast<float*>(out));
   return cudaGetLastError();
 }

@@ -37,15 +37,35 @@ Even so, a model file is code to trust as far as its source: a
 registry's directory is the deployment's, as the JAX package's
 cloudpickle files are.
 
-Not ported yet: validation data, meshes and plans, the training guard,
-checkpoints and summaries.
+Training (``fit``) feeds host superbatches: ``group`` batches (at most
+16, at most 64 MB, then the largest divisor of the batch count: the JAX
+package's rule) are sliced on the host, copied to the device once and
+stepped through batch by batch. With a training guard attached
+(:meth:`set_guard`, which the Orca estimator does by default) each step
+folds the health check into itself, as the JAX step does: ``ok =
+isfinite(loss) & isfinite(sum g^2)`` on the device, and where it is
+false the params, the whole optimizer state (its device count included)
+and the BatchNorm stats pass through bit-unchanged, the loss counts 0
+and stays out of the mean. The host reads the guard's ``{bad, streak}``
+counters only at superbatch boundaries (one small copy into pinned
+memory and an event wait, where the JAX loop's ``device_get`` is), and
+escalates to rollback or preemption there; the ``fit.batch`` fault seam
+fires once a superbatch on the host slice. Gradient clipping (constant
+or global L2 norm; the norm and the guard's sum of squares are one
+reduction), validation data, TensorBoard summaries and the metric-driven
+Plateau schedule are the JAX ``fit``'s.
+
+Not ported yet: meshes and plans, the profiler (``set_profile``,
+ROADMAP A.15).
 """
 
 from __future__ import annotations
 
 import io
 import pickle
+import time
 import types
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -62,7 +82,12 @@ from zoo_tpu_torch.pipeline.api.keras.engine.base import (
 )
 from zoo_tpu_torch.pipeline.api.keras.metrics import Metric, get_metric
 from zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
-from zoo_tpu_torch.pipeline.api.keras.optimizers import get_optimizer
+from zoo_tpu_torch.pipeline.api.keras.optimizers import (
+    get_optimizer,
+    state_to_device,
+)
+from zoo_tpu_torch.tensorboard import TrainSummary
+from zoo_tpu_torch.util.resilience import fault_point
 
 
 def _split_state(params: Dict) -> Tuple[Dict, Dict]:
@@ -212,6 +237,60 @@ class _ModelUnpickler(pickle.Unpickler):
         raise pickle.UnpicklingError(f"unknown persistent id {kind!r}")
 
 
+def _cast_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+
+
+@_base.model_file_part
+class MultiLoss:
+    """The loss of a multi-output model: one loss per output, summed
+    with weights (``compile(loss=[...], loss_weights=[...])``), as the
+    JAX package combines them. A class, so a model file can hold it."""
+
+    def __init__(self, fns: Sequence[Callable], weights: Sequence[float]):
+        self.fns, self.weights = list(fns), [float(w) for w in weights]
+
+    def __call__(self, ys, preds):
+        ys = ys if isinstance(ys, (list, tuple)) else [ys]
+        preds = preds if isinstance(preds, (list, tuple)) else [preds]
+        if not (len(self.fns) == len(ys) == len(preds)):
+            raise ValueError(
+                f"{len(self.fns)} losses, {len(ys)} label sets, "
+                f"{len(preds)} outputs — counts must match")
+        return sum(w * f(y, p) for w, f, y, p in
+                   zip(self.weights, self.fns, ys, preds))
+
+
+class _BoundaryReader:
+    """Reads a few device scalars to the host at a guard boundary: on a
+    CUDA device one copy into a pinned buffer and a wait on an event
+    recorded after it (the superbatch's steps finish first: the read is
+    a host-device sync once a superbatch, where the JAX loop's
+    ``device_get`` is, and no stream synchronisation); on the CPU a
+    plain read. ``reads`` counts them."""
+
+    def __init__(self, dev: torch.device):
+        self.dev, self.reads = dev, 0
+        self._buf = None
+
+    def read(self, *scalars) -> List[float]:
+        vals = torch.stack([torch.zeros((), dtype=torch.float64,
+                                        device=self.dev) if t is None
+                            else t.detach().to(torch.float64)
+                            for t in scalars])
+        self.reads += 1
+        if self.dev.type != "cuda":
+            return vals.tolist()
+        if self._buf is None or self._buf.numel() != vals.numel():
+            self._buf = torch.empty(vals.numel(), dtype=torch.float64,
+                                    pin_memory=True)
+        self._buf.copy_(vals, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return self._buf.tolist()
+
+
 def _numpy_tree(tree):
     return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
@@ -241,6 +320,10 @@ class KerasNet:
         self._keys: Optional[Dict[int, str]] = None
         self._built_shapes: Optional[List[Tuple]] = None
         self._quantized = False
+        self._grad_clip: Optional[Tuple] = None
+        self._guard = None   # orca.learn.guard.TrainingGuard
+        self.train_summary = TrainSummary()
+        self.validation_summary = TrainSummary()
 
     # -- param keys --------------------------------------------------------
     def _param_keys(self) -> Dict[int, str]:
@@ -274,20 +357,95 @@ class KerasNet:
         raise NotImplementedError
 
     # -- public API --------------------------------------------------------
-    def compile(self, optimizer, loss, metrics=None,
+    def compile(self, optimizer, loss, metrics=None, loss_weights=None,
                 dtype_policy: str = "float32"):
-        """``dtype_policy``: ``"float32"`` or ``"mixed_bfloat16"`` —
+        """``loss``: one loss, or for a multi-output model a list of one
+        loss per output, combined as their sum weighted by
+        ``loss_weights`` (default 1 each), as the JAX package combines
+        them. ``dtype_policy``: ``"float32"`` or ``"mixed_bfloat16"`` —
         parameters and optimizer state stay f32, the forward and
         backward run in bf16 with f32 islands in the norms, softmax and
         loss reductions; gradients arrive in f32."""
         if dtype_policy not in ("float32", "mixed_bfloat16"):
             raise ValueError(f"unknown dtype_policy: {dtype_policy}")
+        n_out = len(getattr(self, "outputs", [None]))
+        if n_out > 1 and not isinstance(loss, (list, tuple)):
+            raise ValueError(
+                f"model has {n_out} outputs; compile(loss=[...]) needs one "
+                "loss per output")
+        if isinstance(loss, (list, tuple)) and len(loss) != n_out:
+            raise ValueError(f"{len(loss)} losses for {n_out} outputs")
+        if loss_weights is not None and not isinstance(loss,
+                                                       (list, tuple)):
+            raise ValueError("loss_weights needs a list of losses")
         self.dtype_policy = dtype_policy
         self.optimizer = get_optimizer(optimizer)
-        self.loss_fn = get_loss(loss)
+        if isinstance(loss, (list, tuple)):
+            fns = [get_loss(x) for x in loss]
+            ws = ([float(w) for w in loss_weights]
+                  if loss_weights is not None else [1.0] * len(fns))
+            if len(ws) != len(fns):
+                raise ValueError(f"{len(ws)} loss_weights for "
+                                 f"{len(fns)} losses")
+            self.loss_fn = MultiLoss(fns, ws)
+        else:
+            self.loss_fn = get_loss(loss)
         self.metrics = [get_metric(m) for m in (metrics or [])]
         self._opt_state = None  # a new optimizer cannot reuse old state
         return self
+
+    def set_constant_gradient_clipping(self, min_value: float,
+                                       max_value: float):
+        """Clip every gradient element into [min_value, max_value]."""
+        self._grad_clip = ("const", float(min_value), float(max_value))
+        return self
+
+    def set_gradient_clipping_by_l2_norm(self, clip_norm: float):
+        """Scale gradients so their global L2 norm is at most
+        ``clip_norm``."""
+        self._grad_clip = ("l2", float(clip_norm))
+        return self
+
+    def clear_gradient_clipping(self):
+        self._grad_clip = None
+        return self
+
+    def set_guard(self, guard):
+        """Attach a :class:`zoo_tpu_torch.orca.learn.guard.TrainingGuard`:
+        every step of the next ``fit`` carries the health fold and the
+        device counters."""
+        self._guard = guard
+        return self
+
+    def clear_guard(self):
+        self._guard = None
+        return self
+
+    def _active_guard(self):
+        g = getattr(self, "_guard", None)
+        return g if g is not None and g.active else None
+
+    def set_tensorboard(self, log_dir: str, app_name: str):
+        """Train and validation summaries into event files under
+        ``log_dir/app_name/{train,val}``."""
+        self.train_summary = TrainSummary(log_dir, app_name + "/train")
+        self.validation_summary = TrainSummary(log_dir, app_name + "/val")
+
+    def set_profile(self, trace_dir=None, trace_epochs: int = 1):
+        raise NotImplementedError(
+            "set_profile: the step profiler (common/profiling.py) is not "
+            "ported to zoo_tpu_torch yet (ROADMAP A.15)")
+
+    def get_train_summary(self, tag: str = "Loss"):
+        return self._summary("train_summary").read_scalar(tag)
+
+    def get_validation_summary(self, tag: str):
+        return self._summary("validation_summary").read_scalar(tag)
+
+    def _summary(self, attr: str):
+        if getattr(self, attr, None) is None:   # a model loaded from a file
+            setattr(self, attr, TrainSummary())
+        return getattr(self, attr)
 
     def build(self, generator: Optional[torch.Generator] = None,
               input_shapes=None, device=None) -> Dict:
@@ -307,24 +465,63 @@ class KerasNet:
         self.params = self._init_params(generator, self._built_shapes)
         return self.params
 
+    def _adapt_inputs(self, xs: List[np.ndarray]) -> List[np.ndarray]:
+        """A single-input model fed k 1-D feature columns gets them
+        stacked into one (batch, k) array, as the JAX package does."""
+        shapes = self._input_shapes() or self._built_shapes
+        if shapes and len(shapes) == 1 and len(xs) > 1 \
+                and all(a.ndim == 1 for a in xs):
+            return [np.stack(xs, axis=1)]
+        return xs
+
+    def _labels(self, ys) -> List[np.ndarray]:
+        """The label arrays, one per output."""
+        n_out = len(getattr(self, "outputs", [None]))
+        if isinstance(ys, (list, tuple)):
+            if n_out <= 1:
+                # one output: a list of label rows is ONE label array
+                return [np.stack([np.asarray(a) for a in ys])
+                        if len(ys) > 1 else np.asarray(ys[0])]
+            if len(ys) != n_out:
+                raise ValueError(f"model has {n_out} outputs but got "
+                                 f"{len(ys)} label arrays")
+            return [np.asarray(a) for a in ys]
+        return [ys]
+
     def _cast_compute(self, tree):
         """f32 tensors to bf16 under ``mixed_bfloat16``; inside autograd,
         so gradients flow back to the f32 leaves in f32."""
         if self.dtype_policy != "mixed_bfloat16":
             return tree
-
-        def cast(t):
-            return t.to(torch.bfloat16) if t.dtype == torch.float32 else t
+        cast = _cast_bf16
         if isinstance(tree, list):
             return [cast(t) for t in tree]
         return tree_map(cast, tree)
 
-    def _train_step(self, opt_state, xs: List[torch.Tensor],
-                    ys: torch.Tensor):
-        """Forward, backward against the trainable leaves, the
+    def _clip(self, grads: List[torch.Tensor]):
+        """Gradient clipping before the update (outside the optimizer,
+        so toggling it never invalidates optimizer state). Returns the
+        clipped gradients and, under L2 clipping, their sum of squares
+        (the one reduction the guard reads too)."""
+        clip = getattr(self, "_grad_clip", None)
+        if clip is None:
+            return grads, None
+        if clip[0] == "const":
+            _, lo, hi = clip
+            return [torch.clamp(g, lo, hi) for g in grads], None
+        from zoo_tpu_torch.orca.learn.guard import TrainingGuard
+        sq = TrainingGuard.grad_sq_sum(grads)
+        scale = torch.clamp(clip[1] / (torch.sqrt(sq) + 1e-12), max=1.0)
+        return [g * scale for g in grads], sq * scale * scale
+
+    def _train_step(self, opt_state, xs: List[torch.Tensor], ys,
+                    guard=None, gstate=None):
+        """Forward, backward against the trainable leaves, clipping, the
         optimizer's in-place update, then the running stats replaced by
-        their updates; returns ``(opt_state, loss)`` with the loss a
-        detached f32 scalar."""
+        their updates; returns ``(opt_state, loss, gstate)`` with the
+        loss a detached f32 scalar. With a ``guard`` the step is folded
+        on its device predicate (nothing changes where it is false, and
+        the loss is 0 there) and ``gstate`` advances."""
         trainable, state = _split_state(self.params)
         collect: Dict = {}
         with torch.enable_grad():
@@ -334,35 +531,88 @@ class KerasNet:
             preds = self._forward(
                 _merge_state(self._cast_compute(trainable), state),
                 self._cast_compute(xs), training=True, collect=collect)
-            if not getattr(self.loss_fn, "_handles_low_precision", False) \
-                    and preds.dtype == torch.bfloat16:
-                preds = preds.float()
+            if not getattr(self.loss_fn, "_handles_low_precision", False):
+                preds = _outputs_f32(preds)
             loss = self.loss_fn(ys, preds)
         # a leaf the loss does not reach (BERT's pooler, the segment
         # table without segment ids) gets zeros, as jax.grad gives it
-        grads = iter(torch.autograd.grad(loss, tree_leaves(trainable),
+        grads = list(torch.autograd.grad(loss, tree_leaves(trainable),
                                          allow_unused=True,
                                          materialize_grads=True))
-        grad_tree = tree_map(lambda _: next(grads), trainable)
-        _, opt_state = self.optimizer.apply(grad_tree, opt_state, trainable)
-        self.params = _merge_state(trainable, collect or state)
-        return opt_state, loss.detach()
+        grads, sq = self._clip(grads)
+        loss = loss.detach()
+        ok = None
+        if guard is not None:
+            if sq is None:
+                sq = guard.grad_sq_sum(grads)
+            ok = guard.grad_norm_ok(loss, sq_sum=sq)
+        it = iter(grads)
+        grad_tree = tree_map(lambda _: next(it), trainable)
+        _, opt_state = self.optimizer.apply(grad_tree, opt_state, trainable,
+                                            ok)
+        new_stats = collect or state
+        if ok is not None:
+            if collect:
+                new_stats = guard.health_fold(ok, collect, state)
+            loss = torch.where(ok, loss, torch.zeros_like(loss))
+            gstate = guard.gstate_update(gstate, ok)
+        self.params = _merge_state(trainable, new_stats)
+        return opt_state, loss, gstate
+
+    def _place_params(self, params, dev: torch.device) -> None:
+        """``params`` (tensors anywhere, or numpy) as this model's
+        params on ``dev``: the trainable leaves as f32 leaf tensors that
+        autograd differentiates against, the running stats plain."""
+        def tensor(a):
+            if isinstance(a, torch.Tensor):
+                return a
+            return torch.from_numpy(np.array(a, copy=True))
+        trainable, state = _split_state(tree_map(tensor, params))
+        trainable = tree_map(
+            lambda t: t if t.device == dev and t.requires_grad
+            and t.is_leaf else t.detach().to(dev).requires_grad_(True),
+            trainable)
+        self.params = _merge_state(trainable, tree_map(
+            lambda t: t.detach().to(dev), state))
+
+    @staticmethod
+    def _superbatch_group(arrs: List[np.ndarray], batch_size: int,
+                          n_batches: int) -> int:
+        """Batches per host superbatch, the JAX ``fit``'s rule: as many
+        as fit 64 MB, at most 16, then the largest divisor of the batch
+        count not above that (when one above 1 exists)."""
+        sample_bytes = sum(a[:1].nbytes for a in arrs)
+        group = max(1, min(16, (64 << 20) // max(sample_bytes * batch_size,
+                                                 1)))
+        scan = min(group, n_batches)
+        while scan > 1 and n_batches % scan:
+            scan -= 1
+        return scan if scan > 1 else group
 
     def fit(self, x, y=None, batch_size: int = 32, nb_epoch: int = 10,
-            shuffle: bool = True, seed: int = 0, verbose: int = 1,
+            validation_data=None, shuffle: bool = True, feature_cols=None,
+            label_cols=None, seed: int = 0, verbose: int = 1,
             device=None) -> Dict[str, List[float]]:
-        """Train on numpy ``x``/``y``; returns ``{"loss": [per-epoch
-        mean]}``. Runs on the current CUDA device unless ``device`` names
-        another (``device="cpu"`` runs every plain version). The ragged
-        tail of each epoch's permutation is dropped; a second ``fit``
-        continues from the optimizer state the first one left."""
+        """Train on ``x``/``y`` (numpy, a dict of them, or a DataFrame
+        with ``feature_cols``/``label_cols``); returns ``{"loss":
+        [per-epoch mean], "val_<name>": [...] with validation_data}``.
+        Runs on the current CUDA device unless ``device`` names another
+        (``device="cpu"`` runs every plain version). The ragged tail of
+        each epoch's permutation is dropped; a second ``fit`` continues
+        from the optimizer state the first one left. With a guard
+        attached, a boundary's verdict may roll back to the last
+        verified checkpoint (:class:`~zoo_tpu_torch.orca.learn.guard.
+        EpochRolledBack` when that wipes a whole epoch) or checkpoint
+        and raise ``Preempted``."""
         if self.loss_fn is None:
             raise RuntimeError("call compile() before fit()")
         if self._quantized:
             raise RuntimeError("a quantized model is inference-only")
-        xs, ys = data_utils.to_xy_arrays(x, y)
+        xs, ys = data_utils.to_xy_arrays(x, y, feature_cols, label_cols)
+        xs = self._adapt_inputs(xs)
         if ys is None:
             raise ValueError("fit requires labels")
+        ys_list = self._labels(ys)
         n = data_utils.num_samples(xs)
         if n < batch_size:
             raise ValueError(f"dataset ({n}) smaller than the batch "
@@ -370,39 +620,173 @@ class KerasNet:
         dev = resolve_device(device)
         self.build(torch.Generator(device=dev).manual_seed(int(seed)),
                    [(None,) + a.shape[1:] for a in xs])
-        # the trainable leaves: f32 tensors on the device that autograd
-        # differentiates the loss against; the running stats: plain
-        # tensors on the device
-        trainable, state = _split_state(self.params)
-        trainable = tree_map(
-            lambda t: t if t.device == dev and t.requires_grad
-            and t.is_leaf else t.detach().to(dev).requires_grad_(True),
-            trainable)
-        self.params = _merge_state(trainable, tree_map(
-            lambda t: t.detach().to(dev), state))
+        self._place_params(self.params, dev)
         opt_state = self._opt_state
         if opt_state is None:
-            opt_state = self.optimizer.init(trainable)
+            opt_state = self.optimizer.init(_split_state(self.params)[0])
+        guard = self._active_guard()
+        gstate = None
+        if guard is not None:
+            guard.begin_fit()
+            gstate = guard.device_init(dev)
+        val_arrays = None
+        if validation_data is not None:
+            vx = validation_data[0] if isinstance(validation_data, tuple) \
+                else validation_data
+            vy = validation_data[1] if isinstance(validation_data, tuple) \
+                and len(validation_data) > 1 else None
+            val_arrays = data_utils.to_xy_arrays(vx, vy, feature_cols,
+                                                 label_cols)
+            val_arrays = (self._adapt_inputs(val_arrays[0]), val_arrays[1])
+        arrs = xs + ys_list
+        n_x = len(xs)
+        n_batches = max(n // batch_size, 1)
+        group = self._superbatch_group(arrs, batch_size, n_batches)
+        reader = _BoundaryReader(dev)
         nprng = np.random.RandomState(seed)
         history: Dict[str, List[float]] = {"loss": []}
+        # boundary bookkeeping: per-epoch cumulative baselines so each
+        # superbatch boundary sees window deltas (reset at epoch start)
+        gb = {"loss": 0.0, "steps": 0, "bad": 0, "bad0": 0, "idx": None,
+              "n": 0}
+        run = {"opt": opt_state, "g": gstate, "loss_sum": None, "steps": 0}
+
+        def boundary(epoch, final=False):
+            """Superbatch-boundary guard check: read the device counters
+            (the only host read the guard adds), escalate to rollback /
+            preempt when the controller says so."""
+            gb["n"] += 1
+            if not (final or guard.preempt_requested
+                    or gb["n"] % guard.config.check_every == 0):
+                return
+            g = run["g"]
+            bad, streak, cur = reader.read(
+                g["bad"], g["streak"], run["loss_sum"])
+            bad, streak = int(bad), int(streak)
+            cur = 0.0 if run["loss_sum"] is None else cur
+            act = guard.on_boundary(
+                bad_total=bad, streak=streak,
+                window_loss=cur - gb["loss"],
+                window_steps=run["steps"] - gb["steps"],
+                global_step=self._step, epoch=epoch,
+                batch_hint=gb["idx"])
+            gb["loss"], gb["steps"], gb["bad"] = cur, run["steps"], bad
+            if act == "rollback":
+                state, aux, lr_scale = guard.rollback()
+                self._place_params(state["params"], dev)
+                inner = state_to_device(aux, dev) if aux is not None else \
+                    self.optimizer.init(_split_state(self.params)[0])
+                if lr_scale != 1.0 and isinstance(inner, dict) \
+                        and "lr" in inner:
+                    inner["lr"].mul_(lr_scale)
+                run["opt"], run["g"] = inner, guard.device_init(dev)
+                gb["bad"] = gb["bad0"] = 0
+                if not final:
+                    # the diverged pre-rollback losses must not leak
+                    # into this epoch's reported loss/throughput: the
+                    # epoch restarts its accumulators at the restore
+                    # point (a rollback AT epoch end keeps them)
+                    run["loss_sum"], run["steps"] = None, 0
+                    gb["loss"], gb["steps"] = 0.0, 0
+            elif act == "preempt":
+                # commit the CURRENT state to the model so the owner's
+                # save callback snapshots exactly this step, then save
+                # and exit resume-don't-retry
+                self._opt_state = run["opt"]
+                guard.preempt_checkpoint(step=self._step)
+
         for epoch in range(nb_epoch):
-            loss_sum, n_steps = None, 0
-            for idx in data_utils.batch_slices(n, batch_size, shuffle,
-                                               nprng):
-                batch = [torch.from_numpy(np.ascontiguousarray(a[idx]))
-                         .to(dev) for a in xs + [ys]]
-                opt_state, loss = self._train_step(opt_state, batch[:-1],
-                                                   batch[-1])
-                loss_sum = loss if loss_sum is None else loss_sum + loss
-                self._step += 1
-                n_steps += 1
-            epoch_loss = float(loss_sum) / max(n_steps, 1)
+            t0 = time.perf_counter()
+            run["loss_sum"], run["steps"] = None, 0
+            gb["loss"], gb["steps"] = 0.0, 0
+            gb["bad0"] = gb["bad"]
+            for idx in data_utils.batch_slices(n, batch_size, shuffle, nprng,
+                                               group=group):
+                sliced = [a[idx] for a in arrs]
+                if guard is not None:
+                    # chaos seam: armed tests corrupt the host superbatch
+                    # in place (poison-batch injection); the idx hint
+                    # feeds quarantine records
+                    gb["idx"] = (int(idx[0]), int(idx[-1]))
+                    fault_point("fit.batch", arrays=sliced, idx=idx)
+                staged = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                          for a in sliced]
+                for j in range(len(idx) // batch_size):
+                    sub = [t[j * batch_size:(j + 1) * batch_size]
+                           for t in staged]
+                    ys_b = sub[n_x:]
+                    run["opt"], loss, run["g"] = self._train_step(
+                        run["opt"], sub[:n_x],
+                        ys_b[0] if len(ys_b) == 1 else ys_b, guard,
+                        run["g"])
+                    run["loss_sum"] = loss if run["loss_sum"] is None \
+                        else run["loss_sum"] + loss
+                    self._step += 1
+                    run["steps"] += 1
+                if guard is not None:
+                    boundary(epoch)
+            if guard is not None:
+                boundary(epoch, final=True)
+                # skipped steps contributed 0 to the sanitized loss sum;
+                # keep them out of the mean too
+                denom = max(run["steps"] - max(0, gb["bad"] - gb["bad0"]), 1)
+            else:
+                denom = max(run["steps"], 1)
+            if guard is not None and run["loss_sum"] is None:
+                # a mid-epoch rollback wiped every step of this epoch:
+                # there is no honest loss to report; the estimator's
+                # retry perimeter restores the verified checkpoint and
+                # retrains the lost epoch
+                from zoo_tpu_torch.orca.learn.guard import EpochRolledBack
+                raise EpochRolledBack(
+                    f"{self.name}: guard rollback wiped every step of "
+                    f"epoch {epoch + 1}; retrain it from the restored "
+                    "checkpoint")
+            epoch_loss = float(run["loss_sum"]) / denom
             history["loss"].append(epoch_loss)
+            self._summary("train_summary").add_scalar("Loss", epoch_loss,
+                                                      self._step)
+            self._summary("train_summary").add_scalar(
+                "Throughput",
+                run["steps"] * batch_size / max(time.perf_counter() - t0,
+                                                1e-9), self._step)
+            if val_arrays is not None:
+                val = self._evaluate_arrays(val_arrays[0], val_arrays[1],
+                                            batch_size, dev)
+                for k, v in val.items():
+                    history.setdefault("val_" + k, []).append(v)
+                    self._summary("validation_summary").add_scalar(
+                        k, v, self._step)
+            self._plateau_step(run["opt"], epoch_loss, history)
             if verbose:
+                extra = {k: v[-1] for k, v in history.items() if k != "loss"}
                 print(f"Epoch {epoch + 1}/{nb_epoch} - loss: "
-                      f"{epoch_loss:.4f}")
-        self._opt_state = opt_state
+                      f"{epoch_loss:.4f}" +
+                      "".join(f" - {k}: {v:.4f}" for k, v in extra.items()))
+        self._opt_state = run["opt"]
+        self.boundary_reads = reader.reads
         return history
+
+    def _plateau_step(self, opt_state, epoch_loss: float, history) -> None:
+        """Run the optimizer's Plateau controller on this epoch's
+        monitored value and write the new rate into the state's device
+        ``"lr"`` (a fill: no host copy)."""
+        plateau = getattr(self.optimizer, "plateau", None)
+        if plateau is None:
+            return
+        mon = plateau.monitor
+        if mon.lower() == "loss":
+            watched = epoch_loss
+        else:
+            series = history.get(mon) or history.get("val_" + mon)
+            watched = series[-1] if series else None
+        if watched is None:
+            warnings.warn(
+                f"Plateau monitors '{mon}' but no such series was "
+                "produced this epoch (pass validation_data / the "
+                "metric); skipping lr adjustment")
+            return
+        opt_state["lr"].fill_(plateau.update(watched))
 
     # -- inference ---------------------------------------------------------
     def _params_device(self) -> torch.device:
@@ -428,40 +812,55 @@ class KerasNet:
                     params, self._cast_compute(batch), training=False))
         return step
 
-    def predict(self, x, batch_size: int = 256, device=None) -> np.ndarray:
-        """Outputs for numpy ``x`` (one array or a list), in order.
-        Runs on the current CUDA device unless ``device`` names another
-        (``device="cpu"`` runs every plain version); builds the params
-        there from seed 0 if the model has none."""
-        xs, _ = data_utils.to_xy_arrays(x, None)
+    def predict(self, x, batch_size: int = 256, feature_cols=None,
+                device=None) -> np.ndarray:
+        """Outputs for ``x`` (one array, a list, or a DataFrame with
+        ``feature_cols``), in order. Runs on the current CUDA device
+        unless ``device`` names another (``device="cpu"`` runs every
+        plain version); builds the params there from seed 0 if the model
+        has none."""
+        xs, _ = data_utils.to_xy_arrays(x, None, feature_cols, None)
+        xs = self._adapt_inputs(xs)
         dev = resolve_device(device)
         if self.params is None:
             self.build(torch.Generator(device=dev).manual_seed(0),
                        [(None,) + a.shape[1:] for a in xs])
         return self._predict_arrays(xs, batch_size, dev)
 
-    def evaluate(self, x, y=None, batch_size: int = 32,
-                 device=None) -> Dict[str, float]:
-        """The loss and each compiled metric over numpy ``x``/``y``,
-        streamed batch by batch in order (the ragged tail padded, then
-        its padding sliced off); one read from the device at the end.
-        Runs on the current CUDA device unless ``device`` names another
+    def evaluate(self, x, y=None, batch_size: int = 32, feature_cols=None,
+                 label_cols=None, device=None) -> Dict[str, float]:
+        """The loss and each compiled metric over ``x``/``y``, streamed
+        batch by batch in order (the ragged tail padded, then its
+        padding sliced off); one read from the device at the end. A
+        multi-output model gets its combined loss over all the rows, as
+        in the JAX package (per-head metrics are not aggregated). Runs
+        on the current CUDA device unless ``device`` names another
         (``device="cpu"`` runs every plain version)."""
-        xs, ys = data_utils.to_xy_arrays(x, y)
+        xs, ys = data_utils.to_xy_arrays(x, y, feature_cols, label_cols)
+        xs = self._adapt_inputs(xs)
         if ys is None:
             raise ValueError("evaluate requires labels")
-        if len(getattr(self, "outputs", [None])) > 1:
-            raise NotImplementedError("evaluate of a multi-output model is "
-                                      "not ported to zoo_tpu_torch yet")
         dev = resolve_device(device)
         if self.params is None:
             self.build(torch.Generator(device=dev).manual_seed(0),
                        [(None,) + a.shape[1:] for a in xs])
         return self._evaluate_arrays(xs, ys, batch_size, dev)
 
-    def _evaluate_arrays(self, xs: List[np.ndarray], ys: np.ndarray,
+    def _evaluate_arrays(self, xs: List[np.ndarray], ys,
                          batch_size: int, dev: torch.device
                          ) -> Dict[str, float]:
+        if len(getattr(self, "outputs", [None])) > 1:
+            preds = self._predict_arrays(xs, batch_size, dev)
+            if self.loss_fn is None:
+                return {}
+            yt = [_to_device(np.asarray(a), dev) for a in ys] \
+                if isinstance(ys, (list, tuple)) else \
+                _to_device(np.asarray(ys), dev)
+            with torch.no_grad():
+                return {"loss": float(self.loss_fn(
+                    yt, tuple(_to_device(p, dev) for p in preds)))}
+        if isinstance(ys, (list, tuple)):
+            ys = self._labels(ys)[0]
         step = self._build_pred_step(dev)
         n = data_utils.num_samples(xs)
         bs = max(1, min(batch_size, n))
@@ -515,14 +914,17 @@ class KerasNet:
         model file: :data:`MODEL_MAGIC`, then a standard-library pickle
         of the model with its params as CPU numpy. What only a live
         model holds is left out, as the JAX package's ``to_bytes``
-        leaves out its jit caches: the optimizer state and the
-        layer-id key cache. A layer holding an object pickle cannot
+        leaves out its jit caches: the optimizer state, the layer-id
+        key cache, the attached guard and the summaries. A layer holding an object pickle cannot
         store (a ``Lambda`` around a ``lambda``) raises, naming it."""
-        live = {k: getattr(self, k) for k in ("params", "_opt_state",
-                                              "_keys")}
+        live = {k: getattr(self, k, None) for k in (
+            "params", "_opt_state", "_keys", "_guard", "train_summary",
+            "validation_summary")}
         try:
             self._opt_state = None
             self._keys = None
+            self._guard = None   # holds locks and events: owners re-attach
+            self.train_summary = self.validation_summary = None
             if live["params"] is not None:
                 self.params = _numpy_tree(live["params"])
             buf = io.BytesIO()
