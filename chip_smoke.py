@@ -196,7 +196,8 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    epoch of ``RandomState(0)`` ids and labels, host-fed, unshuffled; a
    warm-up epoch, then timed epochs (samples/s), per-step losses finite
    and falling, two runs from one start equal bit for bit, no kernel
-   launched (NCF runs none in the JAX package either),
+   launched but the key chain's split, one a step (NCF runs none in the
+   JAX package either),
    ``recommend_for_user`` on three users, and a ``train-rec-step`` line
    profiling steps by kernel group with the device's busy share;
 13. train-bert-main — Keras ``fit`` of ``bench.py`` ``bench_bert``'s
@@ -210,6 +211,22 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    (step ms, samples/s, ``mfu`` from ``bench_bert``'s analytic FLOPs
    over the bf16 peak, finite losses) and a ``train-bert-step``
    profile;
+13a. train-bert-dropout — run (a) again at BERT's published dropout
+   (``hidden_p_drop = attn_p_drop = 0.1``, so the dense attention, as
+   JAX's ``auto`` picks): 8 steps from one snapshot through the kernels
+   and through ``plain_kernels()`` (losses within 2e-2; 7 ``dropout``
+   launches a block a step, 2 + 4 a block ``derive_keys``), step ms,
+   ``mfu`` and busy share beside run (a)'s; then text-main:
+   a news20-shaped corpus (512 documents in 20 classes, >= 5000
+   distinct words) through ``TextSet.read`` -> ``tokenize`` ->
+   ``normalize`` -> ``word2idx(max_words_num=5000)`` ->
+   ``shape_sequence(500)`` and ``TextClassifier`` at its reference
+   widths (token_length 200, encoder 256, dropout 0.2, 20 classes,
+   B=128, Adam) with the cnn, lstm and gru encoders: 3 steps against
+   the plain path (1e-4), step ms, samples/s, busy share, launches a
+   step, a ``predict``; then seq-tiny: ``examples/anomaly_detection.py``'s
+   detector (unroll 24, B=128) and a ``SessionRecommender`` with history,
+   8 steps each against the plain path and a ``predict``;
 13b. estimator-main — the NCF flagship through ``Estimator.from_keras(m,
    model_dir=tmp)`` with the default guard at B=8192 (96 training
    batches an epoch, a tenth of all rows held out for validation,
@@ -225,7 +242,7 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    none, its own host reads are one a superbatch boundary plus one at
    the epoch's end (none with it off), and no step syncs (at most a
    copy of each superbatch array and the loss read). No kernel launches
-   (``estimator_ncf``);
+   but the key chain's split, one a step (``estimator_ncf``);
 13c. estimator-bert — BERT-base at run (b)'s S=512, B=16, bf16, through
    the estimator with ``AdamWeightDecay(lr=1e-4, fused=True)``, L2
    clipping 1.0 and the guard, 2 epochs of 4 steps: losses within 2e-2
@@ -346,7 +363,14 @@ flash forward and backward at BERT run (b)'s shape (B=16, H = Hkv = 12,
 T=512, D=64) against their plain versions and dense autograd, timed
 beside their bounds and the non-causal SDPA (``bert_shape``), and the
 ``Embedding`` gather's gradient at NCF's shape repeating bit for bit
-(beside ``index_add_``, a control).
+(beside ``index_add_``, a control); and the dropout kernel, forward and
+backward, bit-equal to its plain version at BERT's hidden (64, 128, 768)
+and attention (64, 12, 128, 128) shapes in bf16, (128, 256) f32 and a
+spatial mask, its kept share within 4 sigma of 1 - p, timed beside its
+bound (bytes at 3.35 TB/s, or 75 integer ops an element at 16.7 T INT32
+op/s) and ``F.dropout`` (Philox bits, a yardstick the port never
+calls), and the key kernel's splits and fold-ins bit-equal to the plain
+chain.
 
 The bf16, f32 and int8 convs (per shape and summed; the f32 conv also
 beside its 3xTF32 bound), the bf16 flash forward and backward kernels at the training
@@ -366,8 +390,11 @@ and its launches by main path, ``serve_spec`` the speculative run's,
 ``serve_wire`` the wire runs', ``serve_disagg`` the disaggregated runs'
 (f32 and int8), ``serve_tenancy`` the tenancy runs', ``serve_obs``
 ``direct_traced``'s, ``train_bert`` BERT
-run (b)'s, ``estimator_ncf`` estimator-main's (none), ``estimator_bert``
-estimator-bert's,
+run (b)'s, ``train_bert_dropout`` train-bert-dropout's, ``text_cnn``,
+``text_lstm``, ``text_gru`` text-main's, ``seq_anomaly`` and
+``seq_session`` seq-tiny's, ``estimator_ncf`` estimator-main's (the
+key split only),
+``estimator_bert`` estimator-bert's,
 ``predict`` predict-main's in-process run, ``cluster`` cluster-main's
 in-process runs (both versions; ``conv2d`` and ``conv2d_int8`` also
 carry ``vgg_first_conv``, ``quantized_matmul`` ``served_fc6``);
@@ -398,6 +425,22 @@ PEAK_F32_FLOPS = 67e12            # H100 SXM f32, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
 PEAK_TF32_FLOPS = 495e12          # H100 SXM TF32 tensor cores, dense
 PEAK_INT8_OPS = 1979e12           # H100 SXM int8 tensor cores, dense
+# H100 SXM 32-bit integer ops outside the tensor cores: 64 INT32 lanes on
+# each of 132 SMs at the 1.98 GHz boost clock (a quarter of the f32 FMA
+# rate above, which counts two flops an FMA on 128 lanes)
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
+# the dropout kernel's integer ops an element: threefry-2x32's 20 rounds
+# (add, rotate, xor), 5 key injections (2 adds), the 2 adds of the key
+# and the xor, shift, or and compare of the mask
+DROPOUT_OPS_PER_ELEMENT = 75
+# dropout kernel shapes: BERT-base's hidden (B=64, S=128, 768) and
+# attention probabilities (64, 12 heads, 128, 128) in bf16, a small f32
+# tensor, and a spatial mask (one element per feature map)
+DROPOUT_SHAPES = (((64, 128, 768), "bfloat16", None),
+                  ((64, 12, 128, 128), "bfloat16", None),
+                  ((128, 256), "float32", None),
+                  ((128, 64, 8, 8), "float32", (128, 64, 1, 1)))
+DROPOUT_P = 0.1
 LOSS = "sparse_categorical_crossentropy_from_logits"
 # the training config: bench.py bench_llama, full width and depth
 TRAIN_CFG = dict(vocab=32000, hidden=768, n_block=12, n_head=12,
@@ -513,7 +556,9 @@ MMA_FUNCTIONS = {
     "conv2d": ("conv2d", "conv_tc_kernel"),
     "conv2d_int8": ("conv2d", "conv_i8_tc_kernel"),
     "quantized_matmul": ("quant_matmul", "qmm_kernel"),
-    "fused_quantized_matmul": ("quant_matmul", "fqmm_kernel")}
+    "fused_quantized_matmul": ("quant_matmul", "fqmm_kernel"),
+    "dropout": ("dropout", "dropout_kernel"),
+    "derive_keys": ("dropout", "derive_keys_kernel")}
 F32_ROUTES = {"flash_attention": ("flash_attention", "flash_fwd_kernel"),
               "flash_attention_dkdv": ("flash_attention_bwd",
                                        "flash_bwd_dkdv_kernel"),
@@ -1066,6 +1111,7 @@ def phase_kernels(torch):
     phase_training_kernels(torch, record, err, results)
     phase_inference_kernels(torch, record, err, results)
     phase_block_kernels(torch, record, err, results)
+    phase_dropout_kernels(torch, record, results)
     # conv2d and the flash kernels: the line's numbers are the bf16
     # route's, the f32 route's sit under f32_route
     for k, bf, f32 in (("flash_attention", "bfloat16", "float32"),
@@ -2197,6 +2243,107 @@ def phase_block_kernels(torch, record, err, results):
     torch.cuda.empty_cache()
 
 
+def phase_dropout_kernels(torch, record, results):
+    """The dropout kernel bit-equal to its plain version, forward and
+    backward (the backward draws the mask again from the key), at
+    :data:`DROPOUT_SHAPES`, its kept share within 4 sigma of 1 - p; the
+    key kernel's splits and fold-ins bit-equal to the plain chain; then
+    both timed beside their bounds, the plain versions and (dropout)
+    ``F.dropout``, which draws Philox bits, not JAX's: a yardstick the
+    port never calls. The line's numbers are the BERT hidden shape's."""
+    import math
+    import torch.nn.functional as F
+    from zoo_tpu_torch.ops import random as R
+    from zoo_tpu_torch.ops.kernels import dropout as D
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4321)
+    key = R.PRNGKey(20, dev)
+    shapes = []
+    for shape, dt, mask_shape in DROPOUT_SHAPES:
+        dtype = getattr(torch, dt)
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        gy = torch.randn(shape, generator=g, device=dev).to(dtype)
+        before = D.LAUNCHES
+        xk = x.clone().requires_grad_()
+        yk = D.dropout(xk, key, DROPOUT_P, mask_shape)
+        yk.backward(gy)
+        xp = x.clone().requires_grad_()
+        yp = D.dropout_plain(xp, key, DROPOUT_P, mask_shape)
+        yp.backward(gy)
+        torch.cuda.synchronize()
+        if D.LAUNCHES - before != 2:
+            raise AssertionError(f"dropout {shape}: {D.LAUNCHES - before} "
+                                 "launches for a forward and a backward")
+        for what, a, b in (("forward", yk, yp), ("backward", xk.grad,
+                                                   xp.grad)):
+            if not torch.equal(a, b):
+                n_bad = int((a != b).sum())
+                raise AssertionError(f"dropout {shape} {dt} {what}: "
+                                     f"{n_bad} elements differ from plain")
+            record("dropout", f"{what} {shape} {dt} mask={mask_shape}",
+                   float((a.float() - b.float()).abs().max().detach()),
+                   "float32")
+        n_mask = math.prod(mask_shape or shape)
+        mask = R.bernoulli(key, 1 - DROPOUT_P, mask_shape or shape)
+        kept = float(mask.float().mean())
+        sigma = math.sqrt(DROPOUT_P * (1 - DROPOUT_P) / n_mask)
+        if abs(kept - (1 - DROPOUT_P)) > 4 * sigma:
+            raise AssertionError(f"dropout {shape}: kept share {kept}")
+        if not torch.equal(yk != 0, mask.expand(shape) & (x != 0)):
+            raise AssertionError(f"dropout {shape}: the output's zeros are "
+                                 "not the mask's")
+        x = x.detach()
+        nbytes = 2 * x.numel() * x.element_size()
+        b_ms, b_by = bound(nbytes, DROPOUT_OPS_PER_ELEMENT * x.numel(),
+                           PEAK_INT32_OPS)
+        with torch.no_grad():
+            t = timing_one_launch(
+                torch, "dropout", "dropout_kernel",
+                lambda: D.dropout(x, key, DROPOUT_P, mask_shape),
+                lambda: D.dropout_plain(x, key, DROPOUT_P, mask_shape),
+                lambda: F.dropout(x, DROPOUT_P, training=True), 30)
+        entry = dict(t, shape=f"{shape} {dt} mask={mask_shape} "
+                     f"p={DROPOUT_P}", kept_share=kept, bound_ms=b_ms,
+                     bound_by=b_by, elements=x.numel(),
+                     **rates(DROPOUT_OPS_PER_ELEMENT * x.numel(), t["ms"],
+                             b_ms, t["library_ms"]))
+        entry.pop("by_name")
+        shapes.append(entry)
+        emit({"phase": "kernels", "kernel": "dropout", "timing": entry})
+    r = results["dropout"]
+    r.update({k: shapes[0][k] for k in (
+        "ms", "kernel_ms", "wall_ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "shape", "tflops", "bound_ratio", "library_ratio",
+        "device_launches_per_call")})
+    r["shapes"] = shapes
+
+    # the key chain: 64 splits and a fold-in each, kernel == plain
+    kk = kp = R.PRNGKey(7, dev)
+    for i in range(64):
+        sk, kk = D.split(kk)
+        sp, kp = R.derive(kp, 2)
+        fk, fp = D.fold_in(sk, 1000003 * i), R.fold_in(sp, 1000003 * i)
+        if not (torch.equal(kk, kp) and torch.equal(sk, sp)
+                and torch.equal(fk, fp)):
+            raise AssertionError(f"derive_keys: step {i} differs")
+    many = D.split(key, 4096)
+    if not torch.equal(many, R.split(key, 4096)):
+        raise AssertionError("derive_keys: split(key, 4096) differs")
+    record("derive_keys", "64 splits + fold_ins, split(4096)", 0.0,
+           "float32")
+    b_ms, b_by = bound(16 + 32, 2 * 72, PEAK_INT32_OPS)
+    t = timing_one_launch(torch, "derive_keys", "derive_keys_kernel",
+                          lambda: D.split(key),
+                          lambda: R.derive(key, 2), None, 200)
+    t.pop("by_name")
+    results["derive_keys"].update(
+        t, bound_ms=b_ms, bound_by=b_by, shape="split(key) -> 2 keys",
+        **rates(2 * 72, t["ms"], b_ms, None))
+    emit({"phase": "kernels", "kernel": "derive_keys",
+          "timing": results["derive_keys"]})
+
+
 def _sgd_plain(param, grad, momentum_buf, lr, momentum=0.0,
                weight_decay=0.0, ok=None):
     """``fused_apply_sgd``'s plain version, in place, on any device."""
@@ -2224,10 +2371,13 @@ def _adam_plain(param, grad, m, v, step, lr, beta1=0.9, beta2=0.999,
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The four image-inference kernel wrappers and the SGD and AdamW
-    updates routed to their plain versions: the yardstick path, which
-    nothing on the main path takes."""
+    """The four image-inference kernel wrappers, the SGD and AdamW
+    updates, dropout and the key derivations routed to their plain
+    versions: the yardstick path, which nothing on the main path
+    takes."""
+    from zoo_tpu_torch.ops import random as R
     from zoo_tpu_torch.ops.kernels import conv as CV
+    from zoo_tpu_torch.ops.kernels import dropout as DR
     from zoo_tpu_torch.ops.kernels import quant as Q
     from zoo_tpu_torch.pipeline.api.keras import optimizers as OPT
     swaps = ((CV, "implicit_gemm_conv2d", CV.conv2d_plain),
@@ -2235,7 +2385,9 @@ def plain_kernels():
              (Q, "quantized_matmul", Q.quantized_matmul_plain),
              (Q, "fused_quantized_matmul", Q.fused_quantized_matmul_plain),
              (OPT, "fused_apply_sgd", _sgd_plain),
-             (OPT, "fused_apply_adam", _adam_plain))
+             (OPT, "fused_apply_adam", _adam_plain),
+             (DR, "dropout", DR.dropout_plain),
+             (DR, "derive_keys", R.derive))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     try:
         for mod, name, fn in swaps:
@@ -3178,6 +3330,14 @@ def _rec_group(name):
     return "elementwise"
 
 
+def _only_the_key_chain(counts, steps):
+    """True when a window of ``steps`` training steps launched no kernel
+    but the key chain's: one ``derive_keys`` a step, the fit's split of
+    its key (JAX's step splits it too, whether a layer draws or not)."""
+    return counts["derive_keys"] == steps and not any(
+        v for k, v in counts.items() if k != "derive_keys")
+
+
 def phase_train_rec_main(torch, K, card):
     """Keras ``fit`` of the NCF flagship (``_flagship()``'s config) at
     ``bench_ncf``'s size: B=8192, 96 steps an epoch, host-fed numpy,
@@ -3258,9 +3418,9 @@ def phase_train_rec_main(torch, K, card):
                                  for p in recs]})
     if not (all(np.isfinite(losses + steps)) and steps[-1] < steps[0]):
         raise AssertionError(f"train-rec-main: losses {losses} {steps}")
-    if any(counts.values()):
+    if not _only_the_key_chain(counts, NCF_EPOCHS * NCF_STEPS):
         raise AssertionError(f"train-rec-main: kernels launched {counts}; "
-                             "NCF's path runs none")
+                             "NCF's path runs none but the key split")
     if not repeats:
         raise AssertionError("train-rec-main: two runs from one start "
                              "gave other bits")
@@ -3368,6 +3528,12 @@ def phase_train_bert_main(torch, K, card):
                                        nb_epoch=1, shuffle=False,
                                        verbose=0, device="cuda"),
                   3, warmup=1)
+        BERT_STEP[run] = {"step_ms": step_s * 1e3,
+                          "mfu": flops_per_sample * B / step_s
+                          / PEAK_BF16_FLOPS,
+                          "device_ms": t["device_ms"],
+                          "device_busy_share": t["device_busy_share"],
+                          "losses": losses}
         emit({"phase": "train-bert-step", "run": run, "card": card,
               "steps": 3, "wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
               "device_ms": t["device_ms"],
@@ -3383,6 +3549,361 @@ def phase_train_bert_main(torch, K, card):
     return {k: out["b"][k] for k in ("flash_attention",
                                      "flash_attention_dkdv",
                                      "flash_attention_dq", "fused_adam")}
+
+
+# run (a)'s and (b)'s step numbers, for the dropout run beside them
+BERT_STEP = {}
+
+
+def _bert_flops_per_sample(S):
+    """``bench_bert``'s analytic training FLOPs a sample (:419-423)."""
+    L, h = BERT_CFG["n_block"], BERT_CFG["hidden_size"]
+    inter = BERT_CFG["intermediate_size"]
+    return 3 * L * (8 * h ** 2 + 4 * h * inter + 4 * S * h) * S
+
+
+def _restore(torch, m, snapshot):
+    """``m``'s params back to ``snapshot`` (a list of tensors in leaf
+    order) and its optimizer state dropped: the next ``fit`` starts
+    where the snapshot was taken."""
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    with torch.no_grad():
+        for t, s in zip(tree_leaves(m.params), snapshot):
+            t.copy_(s)
+    m._opt_state = None
+
+
+def _fit_losses(m, x, y, batch, steps, plain=False):
+    """Per-step losses of ``steps`` one-batch epochs on ``x[:batch]``
+    (through the plain versions with ``plain``), and the launches."""
+    import contextlib
+
+    import zoo_tpu_torch.ops.kernels as K
+    K.reset_launch_counts()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        hist = m.fit(x[:batch], y[:batch], batch_size=batch,
+                     nb_epoch=steps, shuffle=False, verbose=0,
+                     device="cuda")
+    return hist["loss"], K.launch_counts()
+
+
+def phase_train_bert_dropout(torch, K, card):
+    """``train-bert-dropout``: run (a) of :func:`phase_train_bert_main`
+    exactly (S=128, B=64, ``mixed_bfloat16``, ``remat="dots"``, AdamW)
+    with BERT's published dropout, ``hidden_p_drop = attn_p_drop = 0.1``,
+    so attention runs dense, as JAX's ``auto`` picks. BERT_STEPS steps
+    from one snapshot through the kernels and through every plain
+    version: losses within :data:`TOL_BERT_BF16_LOSS` (the dropout kernel
+    is bit-equal to its plain version, so they should be equal), the
+    dropout kernel launched 5 times a block a step (3 forward sites, the
+    attention and first hidden backward; the MLP site's backward and its
+    recompute under ``remat="dots"`` make 2 more: 7) and the key kernel
+    for the chain. Then step ms, ``mfu`` and busy share beside run
+    (a)'s. Returns the kernel run's launches."""
+    import numpy as np
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import AdamWeightDecay
+
+    run, S, B = BERT_RUNS[0]
+    L = BERT_CFG["n_block"]
+    cfg = dict(BERT_CFG, hidden_p_drop=0.1, attn_p_drop=0.1)
+    m = _bert_sequential(S, **cfg)
+    m.compile(optimizer=AdamWeightDecay(lr=1e-4), loss=LOSS,
+              dtype_policy="mixed_bfloat16")
+    rs = np.random.RandomState(0)                          # bench.py:415
+    ids = rs.randint(0, cfg["vocab"], (3 * B, S)).astype(np.int32)
+    y = rs.randint(0, 2, 3 * B).astype(np.int32)
+    t0 = time.perf_counter()
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    snapshot = [t.detach().clone() for t in tree_leaves(m.params)]
+    m.fit(ids[:2 * B], y[:2 * B], batch_size=B, nb_epoch=1, shuffle=False,
+          verbose=0, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    xb, yb = ids[2 * B:], y[2 * B:]
+    _restore(torch, m, snapshot)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, counts = _fit_losses(m, xb, yb, B, BERT_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    impl = m.layers[0].last_attention_impl
+    _restore(torch, m, snapshot)
+    plain, plain_counts = _fit_losses(m, xb, yb, B, BERT_STEPS, plain=True)
+    step_s = wall / BERT_STEPS
+    mfu = _bert_flops_per_sample(S) * B / step_s / PEAK_BF16_FLOPS
+    want = {"dropout": 7 * L * BERT_STEPS,
+            "derive_keys": (2 + 4 * L) * BERT_STEPS}
+    got = {k: counts[k] for k in want}
+    rel = float(np.max(np.abs(np.subtract(losses, plain))
+                       / np.abs(plain)))
+    t = timed(torch, lambda: m.fit(xb[:B], yb[:B], batch_size=B,
+                                   nb_epoch=1, shuffle=False, verbose=0,
+                                   device="cuda"), 3, warmup=1)
+    a = BERT_STEP.get("a", {})
+    emit({"phase": "train-bert-dropout", "run": run, "card": card,
+          "config": dict(cfg, seq_len=S), "batch": B, "steps": BERT_STEPS,
+          "attention_impl": impl, "setup_s": setup_s, "wall_s": wall,
+          "step_ms": step_s * 1e3, "samples_per_s": B / step_s, "mfu": mfu,
+          "device_ms": t["device_ms"],
+          "device_busy_share": t["device_busy_share"],
+          "device_launches": t["device_launches"],
+          "losses": losses, "plain_losses": plain,
+          "max_rel_loss_diff": rel, "tol": TOL_BERT_BF16_LOSS,
+          "launches_per_step": {k: v / BERT_STEPS for k, v in
+                                counts.items() if v},
+          "plain_launches": {k: v for k, v in plain_counts.items() if v},
+          "dropout_device_ms": sum(v for k, v in t["by_name"].items()
+                                   if "dropout_kernel" in k),
+          "run_a_no_dropout": a,
+          "step_ms_ratio_to_run_a": step_s * 1e3 / a["step_ms"]
+          if a else None,
+          "device_ms_ratio_to_run_a": t["device_ms"] / a["device_ms"]
+          if a else None,
+          "top_device_ms": [[k[:80], v] for k, v in sorted(
+              t["by_name"].items(), key=lambda kv: -kv[1])[:12]]})
+    if not all(np.isfinite(losses)) or rel > TOL_BERT_BF16_LOSS:
+        raise AssertionError(f"train-bert-dropout: losses {losses} vs "
+                             f"plain {plain}")
+    if got != want or impl != "dense":
+        raise AssertionError(f"train-bert-dropout: launches {got}, "
+                             f"attention {impl}; expected {want}, dense")
+    if plain_counts["dropout"] or plain_counts["derive_keys"]:
+        raise AssertionError("train-bert-dropout: the plain path launched "
+                             f"{plain_counts}")
+    del m, snapshot
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in ("dropout", "derive_keys")}
+
+
+# text-main: TextClassifier at its constructor widths (the Scala
+# reference's) on a news20-shaped TextSet: 20 classes, the 5000 most
+# frequent of >= 5000 distinct words, 500-token sequences, B=128, Adam
+TEXT_CFG = dict(class_num=20, token_length=200, sequence_length=500,
+                encoder_output_dim=256, hidden_drop=0.2)
+TEXT_B, TEXT_STEPS, TEXT_WORDS, TEXT_DOCS = 128, 3, 8000, 4 * 128
+# seq-tiny: examples/anomaly_detection.py's detector (unroll 24, B=128)
+# and a SessionRecommender with history
+SEQ_UNROLL, SEQ_B = 24, 128
+
+
+def text_corpus(root, n_docs, n_words, n_classes, seed):
+    """``root/<class>/<i>.txt``, news20's layout: documents of 300-700
+    words drawn from a Zipf law over ``n_words`` words (w0, w1, ...),
+    with capitals, digits and punctuation for the normalizer to strip.
+    Returns the number of distinct words written."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    seen = set()
+    for c in range(n_classes):
+        os.makedirs(os.path.join(root, f"class{c:02d}"))
+    for i in range(n_docs):
+        ids = (rs.zipf(1.2, rs.randint(300, 700)) - 1) % n_words
+        seen.update(ids.tolist())
+        words = [f"W{j}" if j % 7 == 0 else f"w{j}" for j in ids]
+        words[::50] = [str(j) for j in ids[::50]]
+        with open(os.path.join(root, f"class{i % n_classes:02d}",
+                               f"{i}.txt"), "w") as f:
+            f.write(" ".join(words) + ". The end!")
+    return len(seen)
+
+
+def _steps_timing(torch, fit_one, steps):
+    """``timed`` of one-step fits, and its step numbers."""
+    t = timed(torch, fit_one, steps, warmup=1)
+    return {"wall_ms": t["wall_ms"], "host_ms": t["host_ms"],
+            "device_ms": t["device_ms"],
+            "device_busy_share": t["device_busy_share"],
+            "device_launches": t["device_launches"],
+            "top_device_ms": [[k[:80], v] for k, v in sorted(
+                t["by_name"].items(), key=lambda kv: -kv[1])[:8]],
+            "top_host_ms": [[k[:80], v] for k, v in sorted(
+                t["host_by_name"].items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def phase_text_main(torch, K, card):
+    """``text-main``: a news20-shaped corpus through ``TextSet.read`` ->
+    ``tokenize().normalize().word2idx(max_words_num=5000)
+    .shape_sequence(500)`` -> ``TextClassifier`` at :data:`TEXT_CFG`
+    for each of the cnn, lstm and gru encoders: TEXT_STEPS ``fit``
+    steps through the kernels and, from the same weights, through every
+    plain version (losses within 1e-4 relative: the dropout kernel is
+    bit-equal to its plain version), the dropout kernel launched twice a
+    step (forward, backward), then step ms, samples/s, busy share and
+    device launches a step, and a ``predict`` of the corpus (finite
+    probabilities of shape (docs, 20), rows summing to 1). Returns each
+    encoder's launches of the kernel run."""
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.feature.text import TextSet
+    from zoo_tpu_torch.models.textclassification import TextClassifier
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        distinct = text_corpus(root, TEXT_DOCS, TEXT_WORDS,
+                               TEXT_CFG["class_num"], seed=0)
+        ts = TextSet.read(root).tokenize().normalize() \
+            .word2idx(max_words_num=5000) \
+            .shape_sequence(TEXT_CFG["sequence_length"])
+    x, y = ts.to_arrays()
+    prep_s = time.perf_counter() - t0
+    vocab = len(ts.get_word_index()) + 1
+    emit({"phase": "text-main", "corpus": {
+        "documents": len(ts), "distinct_words": distinct,
+        "word_index": vocab - 1, "x": list(x.shape), "prep_s": prep_s}})
+    if distinct < 5000 or vocab != 5001 or x.shape != (
+            TEXT_DOCS, TEXT_CFG["sequence_length"]):
+        raise AssertionError(f"text-main: corpus {distinct} words, index "
+                             f"{vocab - 1}, x {x.shape}")
+    out = {}
+    for enc in ("cnn", "lstm", "gru"):
+        m = TextClassifier(encoder=enc, vocab=vocab, **TEXT_CFG)
+        m.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+        t0 = time.perf_counter()
+        m.build(torch.Generator(device="cuda").manual_seed(1),
+                device="cuda")
+        snapshot = [t.detach().clone() for t in tree_leaves(m.params)]
+        m.fit(x[:TEXT_B], y[:TEXT_B], batch_size=TEXT_B, nb_epoch=1,
+              shuffle=False, verbose=0, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        _restore(torch, m, snapshot)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, counts = _fit_losses(m, x, y, TEXT_B, TEXT_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _restore(torch, m, snapshot)
+        plain, plain_counts = _fit_losses(m, x, y, TEXT_B, TEXT_STEPS,
+                                          plain=True)
+        rel = float(np.max(np.abs(np.subtract(losses, plain))
+                           / np.abs(plain)))
+        # one profiled step: a recurrent step is ~2.5 x 10^4 launches
+        step = _steps_timing(
+            torch, lambda: m.fit(x[:TEXT_B], y[:TEXT_B], batch_size=TEXT_B,
+                                 nb_epoch=1, shuffle=False, verbose=0,
+                                 device="cuda"), 1)
+        t0 = time.perf_counter()
+        probs = m.predict(x, batch_size=256, device="cuda")
+        predict_s = time.perf_counter() - t0
+        emit({"phase": "text-main", "encoder": enc, "card": card,
+              "config": dict(TEXT_CFG, vocab=vocab), "batch": TEXT_B,
+              "steps": TEXT_STEPS, "setup_s": setup_s,
+              "step_ms": wall / TEXT_STEPS * 1e3,
+              "samples_per_s": TEXT_B * TEXT_STEPS / wall,
+              "losses": losses, "plain_losses": plain,
+              "max_rel_loss_diff": rel,
+              "launches_per_step": {k: v / TEXT_STEPS for k, v in
+                                    counts.items() if v},
+              "step": step, "predict_s": predict_s,
+              "predict_samples_per_s": len(x) / predict_s})
+        want = {"dropout": 2 * TEXT_STEPS, "derive_keys": 2 * TEXT_STEPS}
+        got = {k: counts[k] for k in want}
+        if not np.isfinite(losses).all() or rel > TOL["float32"]:
+            raise AssertionError(f"text-main {enc}: losses {losses} vs "
+                                 f"plain {plain}")
+        if got != want or plain_counts["dropout"]:
+            raise AssertionError(f"text-main {enc}: launches {got}, plain "
+                                 f"{plain_counts['dropout']}; expected "
+                                 f"{want}")
+        if probs.shape != (len(x), TEXT_CFG["class_num"]) or \
+                not np.isfinite(probs).all() or \
+                np.abs(probs.sum(axis=1) - 1).max() > 1e-4:
+            raise AssertionError(f"text-main {enc}: predict {probs.shape}")
+        out[f"text_{enc}"] = counts
+        del m, snapshot
+        torch.cuda.empty_cache()
+    return out
+
+
+def anomaly_series(n=2000, n_anomalies=8, seed=0):
+    """``examples/anomaly_detection.py``'s series: two sines, noise and
+    planted spikes; returns the series and the spikes' indexes."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    t = np.arange(n)
+    base = (np.sin(t * 2 * np.pi / 50) + 0.5 * np.sin(t * 2 * np.pi / 113)
+            + 0.05 * rs.randn(n)).astype(np.float32)
+    idx = rs.choice(np.arange(100, n - 100), n_anomalies, replace=False)
+    base[idx] += rs.choice([-1, 1], n_anomalies) * rs.uniform(
+        2.0, 3.0, n_anomalies).astype(np.float32)
+    return base, set(int(i) for i in idx)
+
+
+def phase_seq_tiny(torch, K, card):
+    """``seq-tiny``: ``AnomalyDetector`` (unroll 24, B=128, three stacked
+    LSTMs each with dropout 0.2, Adam, MSE: the repo's example) and a
+    ``SessionRecommender`` with history: a short ``fit`` and a
+    ``predict`` each, through the kernels and, from the same weights,
+    through the plain versions (losses within 1e-4 relative). The
+    detector's dropouts launch the kernel 2 x 3 times a step. Returns
+    the launches of both kernel runs."""
+    import numpy as np
+    from zoo_tpu_torch.models.anomalydetection import AnomalyDetector
+    from zoo_tpu_torch.models.recommendation import SessionRecommender
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+
+    series, _ = anomaly_series()
+    x, y = AnomalyDetector.unroll(series, SEQ_UNROLL)
+    rs = np.random.RandomState(2)
+    sess = rs.randint(1, 301, (4 * SEQ_B, 10)).astype(np.int32)
+    hist = rs.randint(1, 301, (4 * SEQ_B, 5)).astype(np.int32)
+    nxt = rs.randint(1, 301, 4 * SEQ_B).astype(np.int32)
+    out = {}
+    for name, m, xs, ys, loss, n_drop in (
+            ("anomaly", AnomalyDetector((SEQ_UNROLL, 1)), x, y, "mse", 3),
+            ("session", SessionRecommender(300, item_embed=32,
+                                           include_history=True),
+             [sess, hist], nxt, "sparse_categorical_crossentropy", 0)):
+        m.compile(optimizer="adam", loss=loss)
+        m.build(torch.Generator(device="cuda").manual_seed(3),
+                device="cuda")
+        snapshot = [t.detach().clone() for t in tree_leaves(m.params)]
+        first = [a[:4 * SEQ_B] for a in xs] if isinstance(xs, list) \
+            else xs[:4 * SEQ_B]
+        runs = {}
+        for plain in (False, True):
+            _restore(torch, m, snapshot)
+            K.reset_launch_counts()
+            with plain_kernels() if plain else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                h = m.fit(first, ys[:4 * SEQ_B], batch_size=SEQ_B,
+                          nb_epoch=2, shuffle=True, seed=0, verbose=0,
+                          device="cuda")
+                torch.cuda.synchronize()
+                runs[plain] = (h["loss"], K.launch_counts(),
+                               time.perf_counter() - t0)
+        (losses, counts, wall), (plain_losses, _, _) = runs[False], \
+            runs[True]
+        K.reset_launch_counts()
+        pred = m.predict(xs, batch_size=256, device="cuda")
+        rel = float(np.max(np.abs(np.subtract(losses, plain_losses))
+                           / np.abs(plain_losses)))
+        extra = {}
+        if name == "anomaly":
+            anoms = m.detect_anomalies(y, pred, anomaly_size=12)
+            extra["flagged"] = sorted(int(a) + SEQ_UNROLL for a in anoms)
+        else:
+            extra["top3"] = m.recommend_for_session(
+                [sess[:2], hist[:2]], 3, device="cuda")
+        emit({"phase": "seq-tiny", "model": name, "card": card,
+              "batch": SEQ_B, "steps": 8, "fit_s": wall,
+              "step_ms": wall / 8 * 1e3, "losses": losses,
+              "plain_losses": plain_losses, "max_rel_loss_diff": rel,
+              "launches": {k: v for k, v in counts.items() if v},
+              "predict_shape": list(pred.shape), **extra})
+        if not np.isfinite(losses).all() or rel > TOL["float32"] or \
+                not np.isfinite(pred).all():
+            raise AssertionError(f"seq-tiny {name}: losses {losses} vs "
+                                 f"plain {plain_losses}")
+        if counts["dropout"] != 2 * n_drop * 8:
+            raise AssertionError(f"seq-tiny {name}: {counts['dropout']} "
+                                 f"dropout launches, expected "
+                                 f"{2 * n_drop * 8}")
+        out[f"seq_{name}"] = counts
+    return out
 
 
 ESTIMATOR_EPOCHS = 3
@@ -3589,7 +4110,7 @@ def phase_estimator_main(torch, K, card):
     ``val_loss`` read back from the summary files. Then samples/s and
     synchronizing-operation warnings over one epoch with the guard on
     and off: the guard adds none. NCF runs no kernel: every count stays
-    0. Returns the launches."""
+    0 but the key chain's, one split a step. Returns the launches."""
     import json
     import numpy as np
     import tempfile
@@ -3643,6 +4164,7 @@ def phase_estimator_main(torch, K, card):
             snaps.append((_est_leaves(torch, a.model.params),
                           _est_leaves(torch, a.model._opt_state)))
         counts = K.launch_counts()
+        fit_steps = a.model._step
         # (b) retry from the verified checkpoint
         b = estimator(os.path.join(root, "b"))
         b.fit(data, epochs=1, batch_size=B, validation_data=val)
@@ -3714,9 +4236,9 @@ def phase_estimator_main(torch, K, card):
           "poisoned": poisoned, "journal_events": [e["event"]
                                                    for e in journal],
           "guard": sync, "launches": {k: v for k, v in counts.items() if v}})
-    if any(counts.values()):
+    if not _only_the_key_chain(counts, fit_steps):
         raise AssertionError(f"estimator-main: kernels launched {counts}; "
-                             "NCF's path runs none")
+                             "NCF's path runs none but the key split")
     if not (all(np.isfinite(hist["loss"])) and retry["fired"] == 1
             and retry["epoch"] == 3 and retry["params_bit_equal"]
             and retry["optimizer_state_bit_equal"]):
@@ -6723,6 +7245,10 @@ def main():
                    "train_f32": phase_train_f32_main(torch, K, card)}
         phase_train_rec_main(torch, K, card)
         by_path["train_bert"] = phase_train_bert_main(torch, K, card)
+        by_path["train_bert_dropout"] = phase_train_bert_dropout(torch, K,
+                                                                 card)
+        by_path.update(phase_text_main(torch, K, card))
+        by_path.update(phase_seq_tiny(torch, K, card))
         by_path["estimator_ncf"] = phase_estimator_main(torch, K, card)
         by_path["estimator_bert"] = phase_estimator_bert(torch, K, card)
         phase_bench_guard(torch, card)
@@ -6732,7 +7258,12 @@ def main():
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"
+        # dropout and the key chain replace no Pallas kernel: the JAX
+        # package's bernoulli masks under jnp.where, and its step's split
+        keras = "zoo_tpu/pipeline/api/keras/"
         sources = {
+            "dropout": ("dropout.cu", keras + "layers/core.py:102"),
+            "derive_keys": ("dropout.cu", keras + "engine/topology.py:455"),
             "flash_attention": ("flash_attention_fwd.cu",
                                 "flash_attention.py:35"),
             "flash_attention_dkdv": ("flash_attention_bwd.cu",
@@ -6754,7 +7285,8 @@ def main():
             paths = {p: c[k] for p, c in by_path.items() if k in c}
             kernels.append({
                 "name": k, "route": "cuda", "source": src + sources[k][0],
-                "replaces": pallas + sources[k][1],
+                "replaces": sources[k][1] if sources[k][1].startswith(
+                    keras) else pallas + sources[k][1],
                 "launches": sum(paths.values()), "launches_by_path": paths,
                 "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -6766,7 +7298,7 @@ def main():
                                            "composition_ratio", "shape",
                                            "plan", "device_launches_per_call",
                                            "vgg_first_conv", "served_fc6",
-                                           "interface")
+                                           "interface", "shapes")
                    if key in t},
                 **({"verify_shape": {key: t["verify_shape"][key] for key in (
                     "ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by",

@@ -275,15 +275,47 @@ def test_bert_fit_matches_jax(fused, policy):
 
 
 def test_dropout_is_refused_in_training_only():
-    ids = _ids(b=4, t=SEQ)
+    """Dropout is no longer refused: BERT-tiny's training forward at
+    ``hidden_p_drop = attn_p_drop = 0.1`` under each remat mode matches
+    JAX's under the same key (outputs and gradients within 1e-5, the
+    masks JAX's, the recompute drawing them again), and a ``fit`` of
+    BERT or of a TransformerLayer with dropout runs. What stays refused
+    is refused at construction: ``flash`` with attention dropout (the
+    kernels take no mask), a bad remat mode, a width not divisible."""
+    import jax.random as jrandom
+
+    from zoo_tpu_torch.ops.random import PRNGKey
+    jl, _, jp, tp = _layers("bert", hidden_p_drop=0.1, attn_p_drop=0.1)
+    ids = _ids(b=4, t=SEQ, seed=8)
+    w = np.linspace(-1.0, 1.0, HIDDEN, dtype=np.float32)
+    jk = jrandom.PRNGKey(4)
+    want = np.asarray(jl.call(jp, jnp.asarray(ids), training=True, rng=jk))
+    jgrads = _flat(jax.tree_util.tree_map(np.asarray, jax.grad(
+        lambda p: (jl.call(p, jnp.asarray(ids), training=True, rng=jk)
+                   * w).sum() / (ids.size * HIDDEN))(jp)))
+    for remat in (True, "dots"):
+        tl = tlayers.BERT(vocab=VOCAB, seq_len=SEQ, intermediate_size=INTER,
+                          max_position_len=SEQ, hidden_p_drop=0.1,
+                          attn_p_drop=0.1, remat=remat, **SMALL)
+        tl.name = jl.name
+        tree = tree_map(lambda t: t.clone().requires_grad_(), tp)
+        out = tl.call(tree, torch.from_numpy(ids), training=True,
+                      rng=PRNGKey(4))
+        np.testing.assert_allclose(out.detach().numpy(), want, atol=1e-5)
+        grads = torch.autograd.grad(_loss(lambda _: out, tree),
+                                    tree_leaves(tree), allow_unused=True,
+                                    materialize_grads=True)
+        for k, g in zip(_flat(tree), grads):
+            np.testing.assert_allclose(g.numpy(), jgrads[k], atol=1e-5,
+                                       err_msg=f"{remat} {k}")
     for layer in (tlayers.BERT(vocab=VOCAB, seq_len=SEQ, **SMALL),
                   tlayers.TransformerLayer(vocab=VOCAB, seq_len=SEQ,
                                            attn_drop=0.0, **SMALL)):
         m = Sequential().add(layer)
         m.compile("adamw", "mse")
-        with pytest.raises(NotImplementedError, match="A.11b"):
-            m.fit(ids, np.zeros((4, SEQ, HIDDEN), np.float32),
-                  batch_size=4, nb_epoch=1, verbose=0, device="cpu")
+        hist = m.fit(ids, np.zeros((4, SEQ, HIDDEN), np.float32),
+                     batch_size=4, nb_epoch=1, verbose=0, device="cpu")
+        assert np.isfinite(hist["loss"]).all()
         assert m.predict(ids, device="cpu").shape == (4, SEQ, HIDDEN)
     with pytest.raises(ValueError, match="attention dropout"):
         tlayers.BERT(vocab=VOCAB, attention_impl="flash", **SMALL)

@@ -296,6 +296,43 @@ def test_threefry_bits_on_the_card_equal_the_cpus(hopper):
     assert (np.abs(noise.numpy() - ref) <= 2 * ulp).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,mask_shape", [
+    ((64, 128, 768), None), ((4, 12, 128, 128), None), ((7, 333), None),
+    ((8, 16, 5, 5), (8, 16, 1, 1)), ((8, 9, 16), (8, 1, 16)), ((0, 5), None)])
+def test_dropout_kernel_is_bit_equal_to_plain(hopper, dtype, shape,
+                                              mask_shape):
+    """Forward and backward (the mask drawn again from the key), bit for
+    bit the plain version composed from ``ops/random.py``."""
+    from zoo_tpu_torch.ops import random as R
+    from zoo_tpu_torch.ops.kernels import dropout as DR
+    g = _gen(hopper, 3)
+    x = torch.randn(shape, generator=g, device=hopper).to(dtype)
+    gy = torch.randn(shape, generator=g, device=hopper).to(dtype)
+    key = R.PRNGKey(99, hopper)
+    before = DR.LAUNCHES
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    yk = DR.dropout(xk, key, 0.25, mask_shape)
+    yk.backward(gy)
+    yp = DR.dropout_plain(xp, key, 0.25, mask_shape)
+    yp.backward(gy)
+    torch.cuda.synchronize()
+    assert DR.LAUNCHES - before == (2 if x.numel() else 0)
+    assert DR.LAST_IMPL == "cuda"
+    assert torch.equal(yk, yp) and torch.equal(xk.grad, xp.grad)
+
+
+def test_key_kernel_is_bit_equal_to_plain(hopper):
+    from zoo_tpu_torch.ops import random as R
+    from zoo_tpu_torch.ops.kernels import dropout as DR
+    key = R.PRNGKey(2 ** 40 + 17, hopper)
+    assert torch.equal(DR.split(key, 1000), R.split(key, 1000))
+    for d in (0, 1, 2 ** 32 - 1, 123456789):
+        assert torch.equal(DR.fold_in(key, d), R.fold_in(key, d))
+    with pytest.raises(TypeError, match="key"):
+        DR.split(key.float())
+
+
 def test_engine_streams_equal_plain_path(hopper):
     """Greedy streams through the tiny engine: kernels == plain."""
     from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts

@@ -49,7 +49,14 @@ def test_importing_every_module_pulls_in_no_jax():
               "models.image.imageclassification", "orca.learn.ckpt",
               "orca.learn.guard", "orca.learn.trigger",
               "orca.learn.keras.estimator", "orca.learn.optimizers.schedule",
-              "tensorboard", "tensorboard.proto", "scripts.check_guard"):
+              "tensorboard", "tensorboard.proto", "scripts.check_guard",
+              "ops.random", "ops.kernels.dropout", "feature.text",
+              "pipeline.api.keras.layers.recurrent",
+              "models.textclassification",
+              "models.textclassification.text_classifier",
+              "models.anomalydetection",
+              "models.anomalydetection.anomaly_detector",
+              "models.recommendation.session_recommender"):
         assert "zoo_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -84,6 +91,42 @@ def test_no_import_of_jax_or_zoo_tpu_in_source(path):
             names.append(str(node.args[0].value))
     bad = [n for n in names if _forbidden(n)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_the_text_pipeline_imports_no_torch():
+    """``feature.text`` is the port's own copy and plain numpy: a
+    data-preparation process imports neither torch nor jax for it."""
+    code = ("import sys; import zoo_tpu_torch.feature.text as t; "
+            "t.TextSet([]).tokenize(); "
+            "bad = [m for m in ('torch', 'jax', 'zoo_tpu') "
+            "if m in sys.modules]; print(bad); assert not bad, bad")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_sequence_entry_points_raise_without_a_card(monkeypatch):
+    """The sequence slice: no GPU and no ``device=`` raises; the CPU
+    runs the plain versions."""
+    from zoo_tpu_torch.models.anomalydetection import AnomalyDetector
+    from zoo_tpu_torch.models.textclassification import TextClassifier
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tc = TextClassifier(3, token_length=4, sequence_length=6, vocab=10,
+                        encoder="gru", encoder_output_dim=4)
+    tc.compile("adam", "sparse_categorical_crossentropy")
+    ad = AnomalyDetector((5, 1), hidden_layers=(2, 2), dropouts=(0.2, 0.2))
+    ad.compile("adam", "mse")
+    ids = np.zeros((4, 6), np.int32)
+    for call in (lambda: tc.build(),
+                 lambda: tc.fit(ids, np.zeros(4, np.int32), batch_size=4,
+                                verbose=0),
+                 lambda: ad.predict(np.zeros((4, 5, 1), np.float32))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert tc.predict(ids, device="cpu").shape == (4, 3)
 
 
 def test_entry_points_without_device_raise_without_a_card(monkeypatch):

@@ -419,8 +419,12 @@ def test_initializers_keep_their_bounds():
     assert float(w.abs().max()) > 0.9 * limit
     assert torch.equal(tbase.get_initializer("one")(g, (4,)),
                        torch.ones(4))
+    # orthogonal (the recurrent layers' U) is ported; a name neither
+    # package knows raises
+    q = tbase.get_initializer("orthogonal")(g, (8, 8))
+    np.testing.assert_allclose((q.T @ q).numpy(), np.eye(8), atol=1e-5)
     with pytest.raises(ValueError, match="unknown initializer"):
-        tbase.get_initializer("orthogonal")
+        tbase.get_initializer("no_such_initializer")
 
 
 def test_functional_model_builds_a_shared_layer_once():

@@ -178,15 +178,33 @@ def test_vgg19_builds_the_jax_graph():
 
 
 def test_dropout_is_the_identity_at_inference_and_refused_in_training():
+    """VGG's ``Dropout(0.5)``: the identity at inference in both
+    packages; in training no longer refused but JAX's, bit for bit, under
+    the same key and layer name (output and vjp)."""
+    import jax.numpy as jnp
+
+    from zoo_tpu_torch.ops.random import PRNGKey
     x = torch.randn(4, 6)
     for p in (0.0, 0.5):
         assert torch.equal(tlayers.Dropout(p).call({}, x), x)
     assert torch.equal(tlayers.Dropout(0.0).call({}, x, training=True), x)
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        tlayers.Dropout(0.5).call({}, x, training=True)
     # the JAX layer is the identity at inference too
     np.testing.assert_array_equal(
         np.asarray(jlayers.Dropout(0.5).call({}, x.numpy())), x.numpy())
+    jl, tl = jlayers.Dropout(0.5, name="fc6_drop"), \
+        tlayers.Dropout(0.5, name="fc6_drop")
+    jk = jax.random.PRNGKey(12)
+    want, vjp = jax.vjp(lambda a: jl.call({}, a, training=True, rng=jk),
+                        jnp.asarray(x.numpy()))
+    g = torch.randn(4, 6)
+    tx = x.clone().requires_grad_()
+    got = tl.call({}, tx, training=True, rng=PRNGKey(12))
+    got.backward(g)
+    assert np.array_equal(got.detach().numpy(), np.asarray(want))
+    assert np.array_equal(tx.grad.numpy(),
+                          np.asarray(vjp(jnp.asarray(g.numpy()))[0]))
+    with pytest.raises(ValueError, match="rng"):
+        tlayers.Dropout(0.5).call({}, x, training=True)
 
 
 def test_flatten_matches_jax():

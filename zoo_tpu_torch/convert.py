@@ -11,7 +11,10 @@ the same product in both packages.
 ``keras_params_from_jax(tree)`` takes a Keras model's whole params tree
 (``{"000_llama": {...}, ...}``, layer keys as the JAX package makes
 them) or a fused AdamW state ``{"m", "v", "step"}``, numpy leaves, and
-returns the same tree of tensors (``step`` as an int). Each int8 conv
+returns the same tree of tensors (``step`` as an int): the recurrent
+layers' ``W`` (in, g * units), ``U`` (units, g * units) and ``b``,
+``Bidirectional``'s ``{"fw", "bw"}`` pair and ``Conv1D``'s ``W``
+(k, cin, cout) load by name, as the port lays them out alike. Each int8 conv
 weight ``W_q`` gets the K-major copy the int8 conv kernel reads
 (:func:`~zoo_tpu_torch.ops.kernels.conv.attach_kmajor`), kept beside the
 tree, not in it.

@@ -1,2 +1,4 @@
-"""Models of the port: ``llm`` (Llama), ``image`` (ResNet) and
-``recommendation`` (NeuralCF)."""
+"""Models of the port: ``llm`` (Llama), ``image`` (ResNet, VGG),
+``recommendation`` (NeuralCF, SessionRecommender),
+``textclassification`` (TextClassifier) and ``anomalydetection``
+(AnomalyDetector)."""

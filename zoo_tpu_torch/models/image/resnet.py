@@ -46,7 +46,7 @@ class SpaceToDepthStem(Layer):
         return {"W": self.init(generator,
                                (7, 7, input_shape[3], self.filters))}
 
-    def call(self, params, x, *, training=False):
+    def call(self, params, x, *, training=False, rng=None):
         w = params["W"].to(x.dtype)
         b, h, wd, c = x.shape
         # kernel tap k covers pixel 2i-2+k (SAME pad (2, 3) at k=7, s=2);

@@ -295,7 +295,7 @@ class Llama(Layer):
                                  use_reentrant=False)
 
     def call(self, params: Dict, ids: torch.Tensor, *,
-             training: bool = False) -> torch.Tensor:
+             training: bool = False, rng=None) -> torch.Tensor:
         c = self.cfg
         h = params["embed"][ids.long()]
         T = ids.shape[1]

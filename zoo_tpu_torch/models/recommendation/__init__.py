@@ -1,7 +1,7 @@
 """Recommendation models of the port (counterpart of
-``zoo_tpu/models/recommendation``): ``NeuralCF`` and the
-``Recommender`` helpers. ``WideAndDeep`` and ``SessionRecommender`` are
-not ported yet."""
+``zoo_tpu/models/recommendation``): ``NeuralCF``,
+``SessionRecommender`` and the ``Recommender`` helpers.
+``WideAndDeep`` is not ported yet."""
 
 from zoo_tpu_torch.models.recommendation.neuralcf import NeuralCF
 from zoo_tpu_torch.models.recommendation.recommender import (
@@ -9,6 +9,9 @@ from zoo_tpu_torch.models.recommendation.recommender import (
     UserItemFeature,
     UserItemPrediction,
 )
+from zoo_tpu_torch.models.recommendation.session_recommender import (
+    SessionRecommender,
+)
 
-__all__ = ["NeuralCF", "Recommender", "UserItemFeature",
-           "UserItemPrediction"]
+__all__ = ["NeuralCF", "Recommender", "SessionRecommender",
+           "UserItemFeature", "UserItemPrediction"]

@@ -19,10 +19,15 @@ import torch
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
                     causal: bool = False,
-                    scale: Optional[float] = None
+                    scale: Optional[float] = None,
+                    dropout_p: float = 0.0,
+                    dropout_rng: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The O(T^2) path: returns ``(out, scores)`` where ``scores`` are
-    the masked f32 logits (masked entries hold the f32 minimum)."""
+    the masked f32 logits (masked entries hold the f32 minimum). With
+    ``dropout_p > 0`` and a ``dropout_rng`` key, the probabilities, cast
+    to ``v``'s dtype, are dropped out with JAX's mask for that key
+    (:func:`zoo_tpu_torch.ops.kernels.dropout.dropout`)."""
     if k.shape[1] != q.shape[1]:   # GQA: broadcast the kv heads
         if q.shape[1] % k.shape[1]:
             raise ValueError(f"q heads ({q.shape[1]}) must be a multiple "
@@ -44,6 +49,9 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         scores = scores.masked_fill(~mask, neg)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    if dropout_p > 0.0 and dropout_rng is not None:
+        from zoo_tpu_torch.ops.kernels import dropout as D
+        probs = D.dropout(probs, dropout_rng, dropout_p)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v), scores
 
 
@@ -51,17 +59,21 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None,
                           causal: bool = False,
+                          dropout_p: float = 0.0,
+                          dropout_rng: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None,
                           impl: str = "auto") -> torch.Tensor:
     """Scaled dot-product attention over (B, H, T, D) tensors.
 
     ``mask``: optional boolean mask broadcastable to (B, H, Tq, Tk)
-    (True = attend). ``impl``: ``"dense"``, ``"flash"`` (the CUDA
-    kernels, differentiable through their backward kernels; CUDA tensors
-    only, causal or none masking), or ``"auto"``
-    (:func:`~zoo_tpu_torch.models.llm.llama.resolve_attention_impl`).
-    GQA: ``k``/``v`` may carry fewer heads than ``q``."""
-    flash_ok = mask is None
+    (True = attend). ``dropout_p``/``dropout_rng``: attention dropout on
+    the dense path (JAX's mask for the key). ``impl``: ``"dense"``,
+    ``"flash"`` (the CUDA kernels, differentiable through their backward
+    kernels; CUDA tensors only, causal or none masking, no dropout), or
+    ``"auto"`` (:func:`~zoo_tpu_torch.models.llm.llama.
+    resolve_attention_impl` without a mask or dropout, dense with
+    either). GQA: ``k``/``v`` may carry fewer heads than ``q``."""
+    flash_ok = mask is None and dropout_p == 0.0
     if impl == "auto":
         from zoo_tpu_torch.models.llm.llama import resolve_attention_impl
         impl = resolve_attention_impl("auto", q.shape[-2], q.device) \
@@ -69,7 +81,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     if impl == "flash":
         if not flash_ok:
             raise ValueError("flash attention supports causal masking only "
-                             "(no arbitrary mask); use impl='dense'")
+                             "(no arbitrary mask / dropout); use the "
+                             "dense impl for those")
         if q.device.type != "cuda":
             raise ValueError("impl='flash' runs the CUDA kernel and needs "
                              "CUDA tensors; CPU tensors take impl='dense'")
@@ -78,7 +91,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
     if impl != "dense":
         raise ValueError(f"unknown attention impl {impl!r} "
                          "(dense / flash / auto)")
-    return dense_attention(q, k, v, mask, causal, scale)[0]
+    return dense_attention(q, k, v, mask, causal, scale, dropout_p,
+                           dropout_rng)[0]
 
 
 def split_heads(x: torch.Tensor, n_head: int) -> torch.Tensor:

@@ -8,6 +8,10 @@ with the kernel's plain PyTorch version:
 - :mod:`.conv` — implicit-GEMM NHWC convolution, float and int8
   (replaces ``_conv_kernel`` and ``_conv_kernel_q`` of
   ``zoo_tpu/ops/pallas/conv.py``), and the conv dispatch point;
+- :mod:`.dropout` — inverted dropout on JAX's threefry bits and the
+  key derivations of the training loop's key chain (no Pallas
+  counterpart: the JAX package's masks are ``jax.random.bernoulli``
+  under ``jnp.where``, fused by XLA);
 - :mod:`.flash_attention` — blockwise flash attention, the forward and
   the two backward kernels (dK/dV, dQ) behind an autograd function
   (replaces ``_fwd_kernel``, ``_dkdv_kernel`` and ``_dq_kernel`` of
@@ -46,6 +50,8 @@ import torch
 _COUNTERS = {
     "conv2d": ("conv", "LAUNCHES"),
     "conv2d_int8": ("conv", "INT8_LAUNCHES"),
+    "dropout": ("dropout", "LAUNCHES"),
+    "derive_keys": ("dropout", "KEY_LAUNCHES"),
     "flash_attention": ("flash_attention", "LAUNCHES"),
     "flash_attention_dkdv": ("flash_attention", "DKDV_LAUNCHES"),
     "flash_attention_dq": ("flash_attention", "DQ_LAUNCHES"),

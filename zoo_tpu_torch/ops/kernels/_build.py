@@ -33,6 +33,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "zoo_tpu_torch"
 # kernel name -> its source under csrc/
 SOURCES = {
     "conv2d": "conv2d.cu",
+    "dropout": "dropout.cu",
     "flash_attention": "flash_attention_fwd.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
     "fused_block": "fused_block.cu",

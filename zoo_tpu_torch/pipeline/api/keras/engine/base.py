@@ -6,7 +6,10 @@ protocol, with its parameters held by the model, not by the layer:
 
 - ``build(generator, input_shape) -> params``: a tree (dicts) of f32
   tensors drawn from the ``torch.Generator``, on its device;
-- ``call(params, inputs, *, training) -> outputs``;
+- ``call(params, inputs, *, training, rng=None) -> outputs``: ``rng``
+  is the training step's key (a (2,) int64 tensor of JAX's threefry
+  words, on the params' device) in training, None otherwise; a layer
+  that draws from it derives its own key by :func:`layer_rng`;
 - ``compute_output_shape(input_shape)``.
 
 ``input_shape`` excludes the batch dimension; reported shapes carry
@@ -20,6 +23,7 @@ from __future__ import annotations
 import collections
 import math
 import types
+import zlib
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -139,6 +143,30 @@ class normal:
         return out.normal_(0.0, self.stddev, generator=generator)
 
 
+@model_file_part
+class orthogonal:
+    """A (semi-)orthogonal matrix over the last axis, as
+    ``jax.nn.initializers.orthogonal()``: the Q of a QR of a normal
+    matrix, its columns' signs fixed by R's diagonal."""
+
+    def __init__(self, scale: float = 1.0):
+        self.scale = scale
+
+    def __call__(self, generator: torch.Generator, shape) -> torch.Tensor:
+        shape = tuple(shape)
+        n_cols = shape[-1]
+        n_rows = math.prod(shape) // n_cols
+        wide = n_rows < n_cols
+        a = torch.empty((n_cols, n_rows) if wide else (n_rows, n_cols),
+                        dtype=torch.float32, device=generator.device)
+        a.normal_(generator=generator)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))
+        if wide:
+            q = q.T
+        return (self.scale * q).reshape(shape).contiguous()
+
+
 _INITIALIZERS = {
     "glorot_uniform": _Uniform("glorot"),
     "he_uniform": _Uniform("he"),
@@ -149,6 +177,7 @@ _INITIALIZERS = {
     "zeros": _Const(0.0),
     "one": _Const(1.0),
     "ones": _Const(1.0),
+    "orthogonal": orthogonal(),
 }
 
 
@@ -171,11 +200,19 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
     return u / u.sum(dim=-1, keepdim=True)
 
 
+def _hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.hard_sigmoid``: ``relu6(x + 3) / 6`` (not keras-1's
+    ``0.2 x + 0.5``), the division as XLA compiles it: a multiply by
+    the f32 reciprocal of 6."""
+    return torch.clamp(x + 3.0, 0.0, 6.0) * (1.0 / 6.0)
+
+
 _ACTIVATIONS = {
     "relu": torch.relu,
     "relu6": lambda x: torch.clamp(x, 0.0, 6.0),
     "tanh": torch.tanh,
     "sigmoid": torch.sigmoid,
+    "hard_sigmoid": _hard_sigmoid,
     "softmax": _softmax,
     "log_softmax": lambda x: torch.log_softmax(x, dim=-1),
     "softplus": torch.nn.functional.softplus,
@@ -199,6 +236,19 @@ def get_activation_fn(name: Union[str, Callable, None]
     if name not in _ACTIVATIONS:
         raise ValueError(f"unknown activation: {name}")
     return _ACTIVATIONS[name]
+
+
+def layer_rng(rng: Optional[torch.Tensor], layer_name: str
+              ) -> Optional[torch.Tensor]:
+    """The layer's own key: ``fold_in(rng, crc32(name))``, the JAX
+    package's derivation (a stable digest, so both packages derive the
+    same key for a layer of the same name); None for None. On the card
+    the fold is one launch of the key kernel, so the key never visits
+    the host."""
+    if rng is None:
+        return None
+    from zoo_tpu_torch.ops.kernels import dropout as D
+    return D.fold_in(rng, zlib.crc32(layer_name.encode()))
 
 
 def normalize_shape(shape) -> Tuple:
@@ -243,7 +293,7 @@ class Layer(nn.Module):
         dim). Default: a parameterless layer."""
         return {}
 
-    def call(self, params, inputs, *, training: bool = False):
+    def call(self, params, inputs, *, training: bool = False, rng=None):
         raise NotImplementedError
 
     def compute_output_shape(self, input_shape):

@@ -12,7 +12,13 @@ updates them in place; the BatchNorm running stats stay f32 out of the
 gradient, and each BatchNorm's ``updated_stats`` from its training
 input replace them after the update. Per-step losses are summed on the
 device and read once per epoch. Batches follow the JAX package's order
-(:func:`~.data_utils.batch_slices` with ``RandomState(seed)``).
+(:func:`~.data_utils.batch_slices` with ``RandomState(seed)``), and the
+forward draws its dropout masks from the JAX fit's key chain: ``rng =
+PRNGKey(seed + 1)`` as a (2,) int64 device tensor, ``step_rng, rng =
+split(rng)`` inside every step (a guard-skipped one too), each layer
+deriving its own key from ``step_rng``; the split is a device launch, so
+a step gains no host sync. As in JAX the key is not checkpointed: a
+resumed ``fit`` starts the chain again at ``seed + 1``.
 
 ``predict`` runs the forward under ``torch.no_grad()`` batch by batch
 in order, the ragged tail padded with copies of its first row and
@@ -131,17 +137,18 @@ def _outputs_f32(preds):
 
 
 def _call(layer, key: str, params: Dict, h, training: bool,
-          collect: Optional[Dict]):
-    """``layer.call`` on ``h``; in training, with ``collect`` given, a
-    layer with running stats also leaves its ``updated_stats`` from
-    ``h`` in ``collect[key]`` (one computation of the batch moments)."""
+          collect: Optional[Dict], rng=None):
+    """``layer.call`` on ``h`` with the step's ``rng``; in training,
+    with ``collect`` given, a layer with running stats also leaves its
+    ``updated_stats`` from ``h`` in ``collect[key]`` (one computation of
+    the batch moments)."""
     p = params.get(key, {})
     if training and collect is not None and \
             hasattr(layer, "call_and_update"):
         out, stats = layer.call_and_update(p, h)
         collect[key] = {"stats": stats}
         return out
-    return layer.call(p, h, training=training)
+    return layer.call(p, h, training=training, rng=rng)
 
 
 #: the first bytes of a whole-model file of the port; ``KerasNet.load``
@@ -347,10 +354,11 @@ class KerasNet:
         raise NotImplementedError
 
     def _forward(self, params, inputs: List, *, training: bool,
-                 collect: Optional[Dict] = None):
+                 collect: Optional[Dict] = None, rng=None):
         """The model's outputs. In training, with ``collect`` given,
         each BatchNorm's ``updated_stats`` from its input lands in
-        ``collect[key] = {"stats": ...}``."""
+        ``collect[key] = {"stats": ...}``; ``rng`` (the step's key, in
+        training) reaches every layer, which derives its own from it."""
         raise NotImplementedError
 
     def _input_shapes(self) -> Optional[List[Tuple]]:
@@ -515,13 +523,20 @@ class KerasNet:
         return [g * scale for g in grads], sq * scale * scale
 
     def _train_step(self, opt_state, xs: List[torch.Tensor], ys,
-                    guard=None, gstate=None):
+                    guard=None, gstate=None, rng=None):
         """Forward, backward against the trainable leaves, clipping, the
         optimizer's in-place update, then the running stats replaced by
-        their updates; returns ``(opt_state, loss, gstate)`` with the
-        loss a detached f32 scalar. With a ``guard`` the step is folded
-        on its device predicate (nothing changes where it is false, and
-        the loss is 0 there) and ``gstate`` advances."""
+        their updates; returns ``(opt_state, loss, gstate, rng)`` with
+        the loss a detached f32 scalar. With a ``guard`` the step is
+        folded on its device predicate (nothing changes where it is
+        false, and the loss is 0 there) and ``gstate`` advances. ``rng``
+        (the fit's key) splits as the JAX step splits it, ``step_rng,
+        new_rng = split(rng)``, on every step, a skipped one too: the
+        forward draws from ``step_rng`` and ``new_rng`` comes back."""
+        step_rng = None
+        if rng is not None:
+            from zoo_tpu_torch.ops.kernels import dropout as D
+            step_rng, rng = D.split(rng)
         trainable, state = _split_state(self.params)
         collect: Dict = {}
         with torch.enable_grad():
@@ -530,7 +545,8 @@ class KerasNet:
             # bf16 ulp
             preds = self._forward(
                 _merge_state(self._cast_compute(trainable), state),
-                self._cast_compute(xs), training=True, collect=collect)
+                self._cast_compute(xs), training=True, collect=collect,
+                rng=step_rng)
             if not getattr(self.loss_fn, "_handles_low_precision", False):
                 preds = _outputs_f32(preds)
             loss = self.loss_fn(ys, preds)
@@ -557,7 +573,7 @@ class KerasNet:
             loss = torch.where(ok, loss, torch.zeros_like(loss))
             gstate = guard.gstate_update(gstate, ok)
         self.params = _merge_state(trainable, new_stats)
-        return opt_state, loss, gstate
+        return opt_state, loss, gstate, rng
 
     def _place_params(self, params, dev: torch.device) -> None:
         """``params`` (tensors anywhere, or numpy) as this model's
@@ -649,7 +665,11 @@ class KerasNet:
         # superbatch boundary sees window deltas (reset at epoch start)
         gb = {"loss": 0.0, "steps": 0, "bad": 0, "bad0": 0, "idx": None,
               "n": 0}
-        run = {"opt": opt_state, "g": gstate, "loss_sum": None, "steps": 0}
+        # the JAX fit's key chain: PRNGKey(seed + 1) on the device, split
+        # inside every step (not checkpointed: a resumed fit restarts it)
+        from zoo_tpu_torch.ops.random import PRNGKey
+        run = {"opt": opt_state, "g": gstate, "loss_sum": None, "steps": 0,
+               "rng": PRNGKey(int(seed) + 1, dev)}
 
         def boundary(epoch, final=False):
             """Superbatch-boundary guard check: read the device counters
@@ -715,10 +735,11 @@ class KerasNet:
                     sub = [t[j * batch_size:(j + 1) * batch_size]
                            for t in staged]
                     ys_b = sub[n_x:]
-                    run["opt"], loss, run["g"] = self._train_step(
-                        run["opt"], sub[:n_x],
-                        ys_b[0] if len(ys_b) == 1 else ys_b, guard,
-                        run["g"])
+                    run["opt"], loss, run["g"], run["rng"] = \
+                        self._train_step(
+                            run["opt"], sub[:n_x],
+                            ys_b[0] if len(ys_b) == 1 else ys_b, guard,
+                            run["g"], run["rng"])
                     run["loss_sum"] = loss if run["loss_sum"] is None \
                         else run["loss_sum"] + loss
                     self._step += 1
@@ -1070,11 +1091,12 @@ class Sequential(KerasNet):
             shape = layer.compute_output_shape(shape)
         return params
 
-    def _forward(self, params, inputs: List, *, training, collect=None):
+    def _forward(self, params, inputs: List, *, training, collect=None,
+                 rng=None):
         h = inputs[0] if len(inputs) == 1 else inputs
         for layer in self._layers:
             h = _call(layer, self._key_of(layer), params, h, training,
-                      collect)
+                      collect, rng)
         return h
 
 
@@ -1146,7 +1168,8 @@ class Model(KerasNet):
             shapes[id(node)] = node.layer.compute_output_shape(arg)
         return params
 
-    def _forward(self, params, inputs: List, *, training, collect=None):
+    def _forward(self, params, inputs: List, *, training, collect=None,
+                 rng=None):
         values = {id(t): v for t, v in zip(self.inputs, inputs)}
         for node in self._topo:
             if node.layer is None:
@@ -1156,7 +1179,7 @@ class Model(KerasNet):
             args = [values[id(p)] for p in node.inbound]
             arg = args if len(args) > 1 else args[0]
             values[id(node)] = _call(node.layer, self._key_of(node.layer),
-                                     params, arg, training, collect)
+                                     params, arg, training, collect, rng)
         if len(self.outputs) == 1:
             return values[id(self.output)]
         return tuple(values[id(o)] for o in self.outputs)

@@ -1,23 +1,33 @@
-"""``Convolution2D`` (alias ``Conv2D``), keras-1 style (counterpart of
-``zoo_tpu/pipeline/api/keras/layers/convolutional.py:43-119``).
+"""Convolution, padding, upsampling, cropping and spatial dropout
+layers, keras-1 style (counterpart of
+``zoo_tpu/pipeline/api/keras/layers/convolutional.py``).
 
 Convs run in NHWC with HWIO weights, the JAX package's layout;
 ``dim_ordering="th"`` (NCHW) is honoured at the layer's boundary by a
-permute on entry and exit. The float conv goes through the one conv
-dispatch point (:func:`zoo_tpu_torch.ops.kernels.conv.conv2d`); after
-``quantize_model`` the layer holds ``W_q``/``W_scale`` and runs
-:func:`zoo_tpu_torch.ops.kernels.quant.quantized_conv2d`.
+permute on entry and exit. ``Convolution2D``'s float conv goes through
+the one conv dispatch point (:func:`zoo_tpu_torch.ops.kernels.conv.
+conv2d`); after ``quantize_model`` the layer holds ``W_q``/``W_scale``
+and runs :func:`zoo_tpu_torch.ops.kernels.quant.quantized_conv2d`.
+``Convolution1D`` is ``lax.conv_general_dilated`` in the JAX package,
+outside Pallas: here the reference conv
+(:func:`~zoo_tpu_torch.ops.kernels.conv.conv2d_plain` over a one-row
+image, f32 sums with TF32 off). The spatial dropouts draw JAX's mask
+over the broadcast shape (one element per feature map) through the
+dropout kernel.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import torch.nn.functional as F
+
 from zoo_tpu_torch.pipeline.api.keras.engine.base import (
     Layer,
     get_activation_fn,
     get_initializer,
 )
+from zoo_tpu_torch.pipeline.api.keras.layers.core import spatial_dropout
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -72,7 +82,7 @@ class Convolution2D(Layer):
                                                   (self.nb_filter,))
         return params
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         x = inputs
         if self.dim_ordering == "th":
             x = x.permute(0, 2, 3, 1).contiguous()   # NCHW -> NHWC
@@ -109,3 +119,187 @@ class Convolution2D(Layer):
 
 
 Conv2D = Convolution2D
+
+
+class Convolution1D(Layer):
+    """1-D convolution over (batch, steps, dim); weights ``W``
+    (filter_length, dim, nb_filter), bias ``b``."""
+
+    def __init__(self, nb_filter: int, filter_length: int,
+                 init="glorot_uniform", activation=None,
+                 border_mode: str = "valid", subsample_length: int = 1,
+                 bias: bool = True, **kwargs):
+        super().__init__(**kwargs)
+        if border_mode not in ("valid", "same"):
+            raise ValueError("border_mode must be 'valid' or 'same'")
+        self.nb_filter = int(nb_filter)
+        self.filter_length = int(filter_length)
+        self.init = get_initializer(init)
+        self.activation = get_activation_fn(activation)
+        self.border_mode = border_mode
+        self.subsample = int(subsample_length)
+        self.bias = bias
+
+    def build(self, generator, input_shape):
+        params = {"W": self.init(generator, (self.filter_length,
+                                             input_shape[-1],
+                                             self.nb_filter))}
+        if self.bias:
+            params["b"] = get_initializer("zero")(generator,
+                                                  (self.nb_filter,))
+        return params
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        from zoo_tpu_torch.ops.kernels.conv import conv2d_plain
+        y = conv2d_plain(inputs[:, None], params["W"][None],
+                         (1, self.subsample),
+                         self.border_mode.upper())[:, 0]
+        if self.bias:
+            y = y + params["b"]
+        return self.activation(y) if self.activation else y
+
+    def compute_output_shape(self, input_shape):
+        n, steps, _ = input_shape
+        return (n, _conv_out(steps, self.filter_length, self.subsample,
+                             self.border_mode), self.nb_filter)
+
+
+Conv1D = Convolution1D
+
+
+def _spatial_axes(dim_ordering: str) -> Tuple[int, int]:
+    return (2, 3) if dim_ordering == "th" else (1, 2)
+
+
+class ZeroPadding1D(Layer):
+    def __init__(self, padding: int = 1, **kwargs):
+        super().__init__(**kwargs)
+        self.padding = int(padding)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        return F.pad(inputs, (0, 0, self.padding, self.padding))
+
+    def compute_output_shape(self, input_shape):
+        n, steps, d = input_shape
+        return (n, None if steps is None else steps + 2 * self.padding, d)
+
+
+class ZeroPadding2D(Layer):
+    def __init__(self, padding=(1, 1), dim_ordering: str = "th", **kwargs):
+        super().__init__(**kwargs)
+        self.padding = _pair(padding)
+        self.dim_ordering = dim_ordering
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        ph, pw = self.padding
+        pads = (pw, pw, ph, ph) if self.dim_ordering == "th" else \
+            (0, 0, pw, pw, ph, ph)
+        return F.pad(inputs, pads)
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        for ax, pad in zip(_spatial_axes(self.dim_ordering), self.padding):
+            if s[ax] is not None:
+                s[ax] += 2 * pad
+        return tuple(s)
+
+
+class UpSampling1D(Layer):
+    def __init__(self, length: int = 2, **kwargs):
+        super().__init__(**kwargs)
+        self.length = int(length)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        return inputs.repeat_interleave(self.length, dim=1)
+
+    def compute_output_shape(self, input_shape):
+        n, steps, d = input_shape
+        return (n, None if steps is None else steps * self.length, d)
+
+
+class UpSampling2D(Layer):
+    def __init__(self, size=(2, 2), dim_ordering: str = "th", **kwargs):
+        super().__init__(**kwargs)
+        self.size = _pair(size)
+        self.dim_ordering = dim_ordering
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        hx, wx = _spatial_axes(self.dim_ordering)
+        return inputs.repeat_interleave(self.size[0], dim=hx) \
+            .repeat_interleave(self.size[1], dim=wx)
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        for ax, k in zip(_spatial_axes(self.dim_ordering), self.size):
+            if s[ax] is not None:
+                s[ax] *= k
+        return tuple(s)
+
+
+class Cropping1D(Layer):
+    def __init__(self, cropping=(1, 1), **kwargs):
+        super().__init__(**kwargs)
+        self.cropping = tuple(int(v) for v in cropping)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        lo, hi = self.cropping
+        return inputs[:, lo:inputs.shape[1] - hi, :]
+
+    def compute_output_shape(self, input_shape):
+        n, steps, d = input_shape
+        return (n, None if steps is None else steps - sum(self.cropping), d)
+
+
+class Cropping2D(Layer):
+    def __init__(self, cropping=((0, 0), (0, 0)), dim_ordering: str = "th",
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.cropping = tuple(tuple(int(v) for v in c) for c in cropping)
+        self.dim_ordering = dim_ordering
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        (t, b), (lo, r) = self.cropping
+        hx, wx = _spatial_axes(self.dim_ordering)
+        return inputs.narrow(hx, t, inputs.shape[hx] - t - b) \
+            .narrow(wx, lo, inputs.shape[wx] - lo - r)
+
+    def compute_output_shape(self, input_shape):
+        s = list(input_shape)
+        for ax, (a, b) in zip(_spatial_axes(self.dim_ordering),
+                              self.cropping):
+            if s[ax] is not None:
+                s[ax] -= a + b
+        return tuple(s)
+
+
+class SpatialDropout1D(Layer):
+    """Drop whole feature channels of (batch, steps, dim): JAX's mask of
+    shape (batch, 1, dim)."""
+
+    def __init__(self, p: float = 0.5, **kwargs):
+        super().__init__(**kwargs)
+        self.p = float(p)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        if not training or self.p <= 0:
+            return inputs
+        return spatial_dropout(self, inputs, rng,
+                               (inputs.shape[0], 1, inputs.shape[2]))
+
+
+class SpatialDropout2D(Layer):
+    """Drop whole feature maps: JAX's mask of shape (batch, C, 1, 1)
+    (``th``) or (batch, 1, 1, C) (``tf``)."""
+
+    def __init__(self, p: float = 0.5, dim_ordering: str = "th", **kwargs):
+        super().__init__(**kwargs)
+        self.p = float(p)
+        self.dim_ordering = dim_ordering
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        if not training or self.p <= 0:
+            return inputs
+        b = inputs.shape[0]
+        shape = (b, inputs.shape[1], 1, 1) if self.dim_ordering == "th" \
+            else (b, 1, 1, inputs.shape[3])
+        return spatial_dropout(self, inputs, rng, shape)

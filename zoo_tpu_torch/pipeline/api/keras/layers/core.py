@@ -1,9 +1,12 @@
-"""Core keras-1 layers (counterpart of the layers of
-``zoo_tpu/pipeline/api/keras/layers/core.py`` that the image models and
-NCF need): ``Dense`` (with its int8 path), ``Activation``,
-``BatchNormalization``, ``Merge``/``merge``, ``Lambda``, ``Embedding``,
-``Flatten`` and ``Dropout`` (inference only). Keras-1 argument names are
-kept. Parameters are held by the model, as ``engine.base`` describes.
+"""Core keras-1 layers (counterpart of
+``zoo_tpu/pipeline/api/keras/layers/core.py``): ``InputLayer``,
+``Dense`` (with its int8 path), ``Activation``, ``Dropout``,
+``Flatten``, ``Reshape``, ``Permute``, ``RepeatVector``, ``Lambda``,
+``Embedding``, ``BatchNormalization`` and ``Merge``/``merge``. Keras-1
+argument names are kept. Parameters are held by the model, as
+``engine.base`` describes. ``GaussianNoise`` is not ported (its
+``jax.random.normal`` goes through ``erfinv``, which is not
+reproducible bit for bit; ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -19,8 +22,19 @@ from zoo_tpu_torch.pipeline.api.keras.engine.base import (
     Layer,
     get_activation_fn,
     get_initializer,
+    layer_rng,
     normalize_shape,
 )
+
+
+class InputLayer(Layer):
+    """Placeholder layer: the identity."""
+
+    def __init__(self, input_shape=None, **kwargs):
+        super().__init__(input_shape=input_shape, **kwargs)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        return inputs
 
 
 class Dense(Layer):
@@ -47,7 +61,7 @@ class Dense(Layer):
                                                   (self.output_dim,))
         return params
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         if "W_q" in params:  # int8 weights (the quantize_model path)
             from zoo_tpu_torch.ops.kernels.quant import quantized_dense
             y = quantized_dense(inputs, params["W_q"], params["W_scale"])
@@ -66,37 +80,106 @@ class Activation(Layer):
         super().__init__(**kwargs)
         self.activation = get_activation_fn(activation)
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         return self.activation(inputs)
+
+
+def spatial_dropout(layer: Layer, inputs, rng, mask_shape=None):
+    """``layer``'s inverted dropout of rate ``layer.p`` in training: the
+    mask JAX draws from ``layer_rng(rng, layer.name)`` over
+    ``mask_shape`` (default ``inputs``'s), through the dropout kernel."""
+    if rng is None:
+        raise ValueError(f"{layer.name}: dropout needs an rng in training")
+    from zoo_tpu_torch.ops.kernels import dropout as D
+    return D.dropout(inputs, layer_rng(rng, layer.name), layer.p,
+                     mask_shape)
 
 
 class Dropout(Layer):
     """Inverted dropout (JAX ``core.py`` ``Dropout``): the identity at
-    inference. A training forward with ``p > 0`` raises: the port's
-    layers take no rng to draw JAX's masks from (ROADMAP A.11b)."""
+    inference; in training ``where(mask, x / (1 - p), 0)`` with JAX's
+    ``bernoulli(layer_rng(rng, name), 1 - p, x.shape)`` mask, bit for
+    bit (:func:`zoo_tpu_torch.ops.kernels.dropout.dropout`)."""
 
     def __init__(self, p: float, **kwargs):
         super().__init__(**kwargs)
         self.p = float(p)
 
-    def call(self, params, inputs, *, training=False):
-        if training and self.p > 0.0:
-            raise NotImplementedError(
-                f"{self.name}: dropout in training (p={self.p}) is not "
-                "ported to zoo_tpu_torch yet (ROADMAP A.11b); pass p=0 "
-                "to train")
-        return inputs
+    def call(self, params, inputs, *, training=False, rng=None):
+        if not training or self.p <= 0.0:
+            return inputs
+        return spatial_dropout(self, inputs, rng)
 
 
 class Flatten(Layer):
     """All axes but the batch axis into one, in row-major (NHWC) order,
     as the JAX layer's ``reshape``."""
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         return inputs.reshape(inputs.shape[0], -1)
 
     def compute_output_shape(self, input_shape):
         return (input_shape[0], int(np.prod(input_shape[1:])))
+
+
+class Reshape(Layer):
+    """Reshape the non-batch axes (one -1 wildcard allowed)."""
+
+    def __init__(self, target_shape: Sequence[int], **kwargs):
+        super().__init__(**kwargs)
+        self.target_shape = tuple(target_shape)
+
+    def _resolve(self, input_shape):
+        out = list(self.target_shape)
+        if -1 in out:
+            known = int(np.prod([d for d in out if d != -1]))
+            out[out.index(-1)] = int(np.prod(input_shape[1:])) // known
+        return tuple(out)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        return inputs.reshape((inputs.shape[0],) + self._resolve(
+            (None,) + tuple(inputs.shape[1:])))
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0],) + self._resolve(input_shape)
+
+
+class Permute(Layer):
+    """Permute the non-batch axes; ``dims`` are 1-based (keras-1)."""
+
+    def __init__(self, dims: Sequence[int], **kwargs):
+        super().__init__(**kwargs)
+        self.dims = tuple(dims)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        return inputs.permute((0,) + self.dims)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0],) + tuple(input_shape[d] for d in self.dims)
+
+
+class RepeatVector(Layer):
+    """(B, D) -> (B, n, D)."""
+
+    def __init__(self, n: int, **kwargs):
+        super().__init__(**kwargs)
+        self.n = int(n)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        return inputs[:, None, :].repeat(1, self.n, 1)
+
+    def compute_output_shape(self, input_shape):
+        return (input_shape[0], self.n, input_shape[1])
+
+
+class GaussianNoise(Layer):
+    """Not ported: JAX's ``jax.random.normal`` goes through ``erfinv``,
+    which the port cannot reproduce bit for bit (ROADMAP A.11)."""
+
+    def __init__(self, sigma: float, **kwargs):
+        raise NotImplementedError(
+            "GaussianNoise is not ported to zoo_tpu_torch yet (ROADMAP "
+            "A.11: jax.random.normal's erfinv bits)")
 
 
 class Lambda(Layer):
@@ -110,7 +193,7 @@ class Lambda(Layer):
         self.function = function
         self._output_shape = output_shape
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         return self.function(inputs)
 
     def compute_output_shape(self, input_shape):
@@ -155,7 +238,7 @@ class Embedding(Layer):
     def build(self, generator, input_shape):
         return {"E": self.init(generator, (self.input_dim, self.output_dim))}
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         return take_rows(params["E"], inputs)
 
     def compute_output_shape(self, input_shape):
@@ -207,7 +290,7 @@ class BatchNormalization(Layer):
         return {"mean": m * st["mean"] + (1 - m) * mean.detach(),
                 "var": m * st["var"] + (1 - m) * var.detach()}
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         if training:
             mean, var = self._moments(inputs)
         else:
@@ -235,7 +318,7 @@ class Merge(Layer):
         self.mode = mode
         self.concat_axis = concat_axis
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         xs = list(inputs)
         if self.mode == "concat":
             return torch.cat(xs, dim=self.concat_axis)

@@ -9,9 +9,14 @@ attention goes through :func:`~zoo_tpu_torch.ops.attention.dot_product_attention
 (the flash kernels from 512 tokens on the card under ``auto``, the
 dense path below that or with a mask).
 
-Dropout is not ported: a training forward with ``hidden_drop`` or
-``attn_drop`` above 0 raises (ROADMAP A.11b). An inference forward
-applies none, in either package.
+Dropout in training follows the JAX package's key chain: the layer's
+key ``layer_rng(rng, name)``, split once per block, then within a block
+one split for each site whose rate is above 0, in the order attention
+probabilities, hidden after the projection, hidden after the MLP. The
+masks are JAX's for those keys (the dropout kernel on the card), and
+with attention dropout ``auto`` takes the dense attention, as JAX's
+does. Under ``remat`` the recomputed forward draws the same masks from
+the same keys. An inference forward applies none, in either package.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from zoo_tpu_torch.ops.attention import (
 from zoo_tpu_torch.pipeline.api.keras.engine.base import (
     Layer,
     get_activation_fn,
+    layer_rng,
     normal,
 )
 from zoo_tpu_torch.pipeline.api.keras.layers.core import take_rows
@@ -62,7 +68,7 @@ class LayerNorm(Layer):
         return {"gamma": torch.ones((d,), device=dev),
                 "beta": torch.zeros((d,), device=dev)}
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         return _layer_norm(inputs, params["gamma"], params["beta"],
                            self.epsilon)
 
@@ -95,30 +101,51 @@ def _block_params(generator, n_block: int, hidden: int, intermediate: int,
     }
 
 
-def _attention_half(p, h, *, n_head, mask, causal, impl):
+def _drop(x, key, p):
+    """Hidden dropout of rate ``p`` with JAX's mask for ``key`` (None:
+    the identity)."""
+    if key is None:
+        return x
+    from zoo_tpu_torch.ops.kernels import dropout as D
+    return D.dropout(x, key, p)
+
+
+def _attention_half(p, h, *, n_head, mask, causal, impl, drop=None):
     """Self-attention, the output projection and the residual, then the
-    first norm."""
+    first norm. ``drop``: ``(attn_p, attn_key, hidden_p, hidden_key)``
+    in training with dropout (a None key skips its site)."""
     q, k, v = torch.split(h @ p["qkv_w"] + p["qkv_b"], h.shape[-1], dim=-1)
-    # the kernels read rows of head_dim contiguous elements
+    attn_p, attn_key, hidden_p, hidden_key = drop or (0.0, None, 0.0, None)
+    # the kernels read rows of head_dim contiguous elements; dropout
+    # keywords only where a site draws
+    extra = {} if attn_key is None else dict(dropout_p=attn_p,
+                                             dropout_rng=attn_key)
     a = dot_product_attention(
         split_heads(q, n_head).contiguous(),
         split_heads(k, n_head).contiguous(),
         split_heads(v, n_head).contiguous(), mask=mask, causal=causal,
-        impl=impl)
-    a = merge_heads(a) @ p["proj_w"] + p["proj_b"]
+        impl=impl, **extra)
+    a = _drop(merge_heads(a) @ p["proj_w"] + p["proj_b"], hidden_key,
+              hidden_p)
     return _layer_norm(h + a, p["ln1_g"], p["ln1_b"])
 
 
-def _mlp_half(p, h, act):
+def _mlp_half(p, h, act, hidden_p=0.0, hidden_key=None):
     f = act(h @ p["fc1_w"] + p["fc1_b"]) @ p["fc2_w"] + p["fc2_b"]
+    f = _drop(f, hidden_key, hidden_p)
     return _layer_norm(h + f, p["ln2_g"], p["ln2_b"])
 
 
-def _block_forward(p, h, *, n_head, mask, causal, act, impl):
-    """Post-LN transformer block (GPT-1 / BERT style)."""
+def _block_forward(p, h, *, n_head, mask, causal, act, impl, keys=None,
+                   rates=(0.0, 0.0)):
+    """Post-LN transformer block (GPT-1 / BERT style). ``keys``: the
+    block's ``(attention, hidden, mlp)`` dropout keys (None: no
+    dropout), ``rates``: ``(attn_drop, hidden_drop)``."""
+    keys = keys or (None, None, None)
     h = _attention_half(p, h, n_head=n_head, mask=mask, causal=causal,
-                        impl=impl)
-    return _mlp_half(p, h, act)
+                        impl=impl, drop=(rates[0], keys[0], rates[1],
+                                         keys[1]))
+    return _mlp_half(p, h, act, rates[1], keys[2])
 
 
 class TransformerLayer(Layer):
@@ -178,53 +205,77 @@ class TransformerLayer(Layer):
     def _embed(self, params, ids):
         return take_rows(params["tok"], ids) + params["pos"][:ids.shape[1]]
 
-    def _check_dropout(self, training: bool):
-        if training and (self.hidden_drop > 0 or self.attn_drop > 0):
-            raise NotImplementedError(
-                f"{self.name}: dropout in training (hidden_drop="
-                f"{self.hidden_drop}, attn_drop={self.attn_drop}) is not "
-                "ported to zoo_tpu_torch yet (ROADMAP A.11b); pass 0 for "
-                "both")
-
     def _block_fn(self, training: bool):
         """The per-block function under this layer's ``remat`` (which
         only matters in training while autograd records)."""
         block = functools.partial(_block_forward, n_head=self.n_head,
                                   causal=not self.bidirectional,
-                                  act=self.act)
+                                  act=self.act,
+                                  rates=(self.attn_drop, self.hidden_drop))
         if not (training and torch.is_grad_enabled()) or \
                 self.remat is False:
             return block
         if self.remat == "dots":
-            def dots_block(p, h, *, mask, impl):
+            def dots_block(p, h, *, mask, impl, keys=None):
+                keys = keys or (None, None, None)
                 h = _attention_half(p, h, n_head=self.n_head, mask=mask,
                                     causal=not self.bidirectional,
-                                    impl=impl)
+                                    impl=impl,
+                                    drop=(self.attn_drop, keys[0],
+                                          self.hidden_drop, keys[1]))
                 return checkpoint(_mlp_half, p, h, self.act,
+                                  self.hidden_drop, keys[2],
                                   use_reentrant=False,
                                   context_fn=_dots_context)
             return dots_block
         return functools.partial(checkpoint, block, use_reentrant=False)
 
-    def _run_blocks(self, params, h, mask, training):
-        self._check_dropout(training)
+    def _block_keys(self, rng, training: bool) -> list:
+        """Each block's ``(attention, hidden, mlp)`` dropout keys, the
+        JAX package's chain: ``layer_rng``, one split per block, then one
+        split per site whose rate is above 0 (a None where a site draws
+        nothing); ``[None] * n_block`` outside training or without an
+        ``rng``."""
+        if not training or rng is None or \
+                (self.attn_drop <= 0 and self.hidden_drop <= 0):
+            return [None] * self.n_block
+        from zoo_tpu_torch.ops.kernels import dropout as D
+        rng = layer_rng(rng, self.name)
+        out = []
+        for _ in range(self.n_block):
+            rng, brng = D.split(rng)
+            sites = []
+            for rate in (self.attn_drop, self.hidden_drop, self.hidden_drop):
+                key = None
+                if rate > 0:
+                    brng, key = D.split(brng)
+                sites.append(key)
+            out.append(tuple(sites))
+        return out
+
+    def _run_blocks(self, params, h, mask, training, rng=None):
         impl = self.attention_impl
         if impl == "auto":
+            # attention dropout takes the dense path, as JAX's auto does
+            flash_ok = mask is None and not (training and
+                                             self.attn_drop > 0)
             impl = resolve_attention_impl("auto", h.shape[1], h.device) \
-                if mask is None else "dense"
+                if flash_ok else "dense"
         self.last_attention_impl = impl
         # one unbind per stacked leaf: its backward stacks the per-block
         # gradients once
         per_key = {k: torch.unbind(w, 0) for k, w in params["blocks"].items()}
         block = self._block_fn(training)
+        keys = self._block_keys(rng, training)
         for i in range(self.n_block):
+            extra = {} if keys[i] is None else {"keys": keys[i]}
             h = block({k: w[i] for k, w in per_key.items()}, h, mask=mask,
-                      impl=impl)
+                      impl=impl, **extra)
         return h
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         return self._run_blocks(params, self._embed(params, inputs), None,
-                                training)
+                                training, rng)
 
     def compute_output_shape(self, input_shape):
         return tuple(input_shape) + (self.hidden_size,)
@@ -271,7 +322,7 @@ class BERT(TransformerLayer):
             return ids, seg, mask
         return inputs, None, None
 
-    def call(self, params, inputs, *, training=False):
+    def call(self, params, inputs, *, training=False, rng=None):
         ids, seg, attn_mask = self._split_inputs(inputs)
         h = self._embed(params, ids)
         if seg is not None:
@@ -280,7 +331,7 @@ class BERT(TransformerLayer):
         mask = None
         if attn_mask is not None:
             mask = attn_mask[:, None, None, :].bool()
-        return self._run_blocks(params, h, mask, training)
+        return self._run_blocks(params, h, mask, training, rng)
 
     def pooled_output(self, params, sequence_output):
         """The [CLS] tanh pooler (the reference BERT's second output)."""

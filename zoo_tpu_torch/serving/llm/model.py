@@ -69,6 +69,8 @@ from zoo_tpu_torch.ops.kernels.paged_prefill import (
     paged_flash_prefill,
     paged_prefill_plain,
 )
+from zoo_tpu_torch.ops.random import M32 as _M32
+from zoo_tpu_torch.ops.random import threefry_bits
 from zoo_tpu_torch.util.quantize import absmax_scale, narrow_int8
 
 DEFAULT_PREFILL_BUCKETS = (32, 128, 512)
@@ -135,46 +137,7 @@ def _pick_bucket(buckets: Sequence[int], n: int) -> Optional[int]:
 # ------------------------------------------------------ on-device sampling
 
 GREEDY = (0.0, 0, 1.0, 0)  # (temperature, top_k, top_p, seed)
-_M32 = 0xFFFFFFFF
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _F32_TINY = float(torch.finfo(torch.float32).tiny)
-
-
-def threefry2x32(k1, k2, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The Threefry-2x32 block cipher, 20 rounds, on int64 tensors (or
-    ints) holding uint32 values, broadcast together: key ``(k1, k2)``,
-    counter ``(x0, x1)``; the rounds of ``jax._src.prng``'s threefry
-    lowering. Every sum is taken mod 2**32 by a mask, so nothing leaves
-    int64; the two counter words update in place after the first add."""
-    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x0, x1 = torch.broadcast_tensors(torch.as_tensor((x0 + ks[0]) & _M32),
-                                     torch.as_tensor((x1 + ks[1]) & _M32))
-    x0, x1 = x0.clone(), x1.clone()
-    hi = torch.empty_like(x1)
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x0.add_(x1).bitwise_and_(_M32)
-            torch.bitwise_left_shift(x1, r, out=hi).bitwise_and_(_M32)
-            x1.bitwise_right_shift_(32 - r).bitwise_or_(hi).bitwise_xor_(x0)
-        x0.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
-        x1.add_(ks[(i + 2) % 3]).add_(i + 1).bitwise_and_(_M32)
-    return x0, x1
-
-
-def threefry_bits(seeds: torch.Tensor, token_index: torch.Tensor,
-                  n: int) -> torch.Tensor:
-    """(N, n) uint32 values (in int64) of JAX's
-    ``random_bits(fold_in(key, token_index), 32, (n,))`` for the raw
-    threefry key ``key = [0, seed]`` of each row, in the
-    ``jax_threefry_partitionable`` mode: ``fold_in`` enciphers the
-    counter ``(0, index)`` under the key, and bit ``j`` is the xor of
-    the two words of counter ``(0, j)`` under the folded key."""
-    s = seeds.long() & _M32
-    zero = torch.zeros_like(s)
-    k1, k2 = threefry2x32(zero, s, zero, token_index.long() & _M32)
-    col = torch.arange(n, device=seeds.device, dtype=torch.int64)
-    b1, b2 = threefry2x32(k1[:, None], k2[:, None], 0, col[None, :])
-    return b1.bitwise_xor_(b2)
 
 
 def gumbel_noise(seeds: torch.Tensor, token_index: torch.Tensor,
