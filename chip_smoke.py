@@ -6,7 +6,10 @@ Run from the root of a checkout, with no arguments::
     python3 chip_smoke.py
 
 It imports neither JAX nor the JAX package, builds the port's CUDA
-kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
+kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase,
+each phase between two ``host`` lines (the CPU model, the CPUs this
+process may use and the load average at its start and end; its wall
+and CPU seconds at the end; the ``device`` line holds them too):
 
 1. device — name, capability, count, power limit (fails off Hopper);
 2. build — nvcc wall time and each kernel function's ``-Xptxas -v``
@@ -226,7 +229,18 @@ kernels from ``zoo_tpu_torch/csrc`` and prints one JSON line per phase:
    the plain path (1e-4), step ms, samples/s, busy share, launches a
    step, a ``predict``; then seq-tiny: ``examples/anomaly_detection.py``'s
    detector (unroll 24, B=128) and a ``SessionRecommender`` with history,
-   8 steps each against the plain path and a ``predict``;
+   8 steps each against the plain path and a ``predict``; then
+   chronos-main: the LSTM, TCN, Seq2Seq and MTNet forecasters at the JAX
+   package's default widths on a seeded series of NAB nyc_taxi's length
+   (10,320 half-hourly points, HOUR and WEEKDAY features, lookback 48,
+   B=64): 8 steps each against the plain path (1e-4 relative; 2
+   ``dropout`` launches a step a dropout site, ``derive_keys`` once a step
+   and once a site), a profiled step, a whole epoch, ``evaluate`` on the
+   held-out tenth; TCMF on ``examples/tcmf_panel_forecast.py``'s 500 x 240
+   panel (tcn's forecast MSE under ar's); ``examples/
+   autots_forecasting.py``'s AutoTS search (TPE, then at random over 2
+   threads; mse < 0.5; the pipeline saved, loaded and predicting the
+   same); ``AEDetector`` on the anomaly series;
 13b. estimator-main — the NCF flagship through ``Estimator.from_keras(m,
    model_dir=tmp)`` with the default guard at B=8192 (96 training
    batches an epoch, a tenth of all rows held out for validation,
@@ -392,7 +406,10 @@ and its launches by main path, ``serve_spec`` the speculative run's,
 ``direct_traced``'s, ``train_bert`` BERT
 run (b)'s, ``train_bert_dropout`` train-bert-dropout's, ``text_cnn``,
 ``text_lstm``, ``text_gru`` text-main's, ``seq_anomaly`` and
-``seq_session`` seq-tiny's, ``estimator_ncf`` estimator-main's (the
+``seq_session`` seq-tiny's, ``chronos_lstm``, ``chronos_tcn``,
+``chronos_seq2seq``, ``chronos_mtnet`` chronos-main's 8-step runs,
+``chronos_tcmf`` its TCMF TCN fit, ``chronos_autots`` its two searches,
+``estimator_ncf`` estimator-main's (the
 key split only),
 ``estimator_bert`` estimator-bert's,
 ``predict`` predict-main's in-process run, ``cluster`` cluster-main's
@@ -592,6 +609,44 @@ NO_SPILL_FUNCTIONS = ("conv_f32_tc_kernel", "f3221flash_bwd_dkdv_kernel",
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def host_facts():
+    """The host as this process sees it, read only: the CPU model
+    (``/proc/cpuinfo``'s first processor: its model name, or where that
+    reads ``unknown`` its vendor, family and model numbers), the CPUs it
+    may run on (``os.sched_getaffinity``) and the 1, 5 and 15 minute
+    load averages."""
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                fields[key.strip()] = value.strip()
+    except OSError:
+        pass
+    model = fields.get("model name")
+    if model in (None, "", "unknown") and "vendor_id" in fields:
+        model = (f"{fields['vendor_id']} family {fields.get('cpu family')}"
+                 f" model {fields.get('model')}")
+    return {"cpu_model": model, "cpus": len(os.sched_getaffinity(0)),
+            "loadavg": list(os.getloadavg())}
+
+
+def staged(name, fn, *args):
+    """``fn(*args)`` between two ``host`` lines: the host's facts at the
+    phase's start and end, and at the end the phase's wall seconds and
+    this process's CPU seconds (all threads) over it."""
+    emit({"phase": "host", "at": "start", "of": name, **host_facts()})
+    t0, c0 = time.perf_counter(), time.process_time()
+    try:
+        return fn(*args)
+    finally:
+        emit({"phase": "host", "at": "end", "of": name,
+              "seconds": time.perf_counter() - t0,
+              "cpu_seconds": time.process_time() - c0, **host_facts()})
 
 
 def nvidia_smi_line():
@@ -3906,6 +3961,289 @@ def phase_seq_tiny(torch, K, card):
     return out
 
 
+# chronos-main: NAB's nyc_taxi.csv length (10,320 half-hourly points,
+# the series the Chronos quick start forecasts), lookback one day, the
+# forecasters at the JAX package's default widths at docs/chronos.md's
+# example batch; the last tenth of the windows held out
+CHRONOS_POINTS, CHRONOS_LOOKBACK, CHRONOS_B, CHRONOS_STEPS = 10320, 48, 64, 8
+# examples/tcmf_panel_forecast.py's panel and fits
+TCMF_SERIES, TCMF_T, TCMF_HORIZON, TCMF_RANK = 500, 240, 8, 2
+TCMF_TCN = dict(tcn_epochs=150, dropout=0.0, lr=2e-3, kernel_size=4)
+# examples/autots_forecasting.py's series and search
+AUTOTS_POINTS, AUTOTS_TRIALS, AUTOTS_EPOCHS = 600, 4, 3
+
+
+def chronos_series(n=CHRONOS_POINTS, seed=0):
+    """Half-hourly daily and weekly sines plus noise from 2014-07-01
+    (nyc_taxi's first stamp), with HOUR and WEEKDAY (scaled to [0, 1])
+    from :func:`~zoo_tpu_torch.chronos.data.dt_features`: the (n, 3)
+    inputs, target first."""
+    import numpy as np
+    from zoo_tpu_torch.chronos.data import dt_features
+    rs = np.random.RandomState(seed)
+    t = np.arange(n)
+    value = (np.sin(t * 2 * np.pi / 48) + 0.5 * np.sin(t * 2 * np.pi / 336)
+             + 0.1 * rs.randn(n))
+    stamps = np.datetime64("2014-07-01T00:00") + \
+        t.astype("timedelta64[m]") * 30
+    f = dt_features(stamps, ["HOUR", "WEEKDAY"])
+    return np.stack([value, f["HOUR"] / 23.0, f["WEEKDAY"] / 6.0],
+                    axis=1).astype(np.float32)
+
+
+def tcmf_panel(n_series=TCMF_SERIES, t=TCMF_T, seed=0):
+    """``examples/tcmf_panel_forecast.py``'s ``make_panel``: a panel
+    driven by two threshold-AR factors."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    x1 = np.empty(t, np.float32)
+    x1[0] = 0.2
+    for i in range(1, t):
+        x1[i] = 0.95 * x1[i - 1] + (0.4 if x1[i - 1] < 0 else -0.4)
+    x2 = np.empty(t, np.float32)
+    x2[0] = -0.3
+    for i in range(1, t):
+        x2[i] = 0.9 * x2[i - 1] + (0.5 if x2[i - 1] < 0.1 else -0.6)
+    F = rs.randn(n_series, 2).astype(np.float32)
+    return (F @ np.stack([x1, x2]) + 0.01 * rs.randn(n_series, t)).astype(
+        np.float32)
+
+
+def _chronos_forecasters():
+    """(name, forecaster, horizon, dropout sites): the four neural
+    forecasters at their defaults' widths."""
+    from zoo_tpu_torch.chronos.forecaster import (
+        LSTMForecaster,
+        MTNetForecaster,
+        Seq2SeqForecaster,
+        TCNForecaster,
+    )
+    L = CHRONOS_LOOKBACK
+    return (("lstm", LSTMForecaster(L, 3, 1, hidden_dim=32, dropout=0.1,
+                                    device="cuda"), 1, 1),
+            ("tcn", TCNForecaster(L, 4, 3, 1, num_channels=[30, 30],
+                                  kernel_size=3, dropout=0.1,
+                                  device="cuda"), 4, 2),
+            ("seq2seq", Seq2SeqForecaster(L, 4, 3, 1, lstm_hidden_dim=64,
+                                          device="cuda"), 4, 0),
+            ("mtnet", MTNetForecaster(target_dim=1, feature_dim=3,
+                                      long_series_num=1,
+                                      series_length=L // 2,
+                                      cnn_hid_size=32, rnn_hid_size=32,
+                                      device="cuda"), 1, 0))
+
+
+def _chronos_tcmf(K):
+    """TCMF on the example's panel, ``ar`` and ``tcn``: the held-out
+    horizon's MSE of each (the example's check: tcn < ar)."""
+    import numpy as np
+    from zoo_tpu_torch.chronos.forecaster import TCMFForecaster
+    Y = tcmf_panel()
+    train, test = Y[:, :-TCMF_HORIZON], Y[:, -TCMF_HORIZON:]
+    out = {}
+    for tm, kw in (("ar", {}), ("tcn", TCMF_TCN)):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        f = TCMFForecaster(rank=TCMF_RANK, ar_lag=8, temporal_model=tm,
+                           device="cuda", **kw)
+        fit = f.fit({"y": train})
+        pred = f.predict(horizon=TCMF_HORIZON)
+        out[tm] = {"fit_s": time.perf_counter() - t0,
+                   "reconstruction_mse": fit["mse"],
+                   "forecast_mse": float(np.mean((pred - test) ** 2)),
+                   "launches": {k: v for k, v in K.launch_counts().items()
+                                if v}}
+    return out
+
+
+def _chronos_autots():
+    """``examples/autots_forecasting.py``'s search from numpy columns:
+    LSTM, lookback 24, ``hidden_dim`` in {16, 32}, ``lr`` log-uniform in
+    [1e-3, 1e-2], 4 trials of 3 epochs with TPE (``n_parallel=2`` asked,
+    which a model-based search runs one trial at a time), then the same
+    search at random over 2 threads on the card; each best pipeline
+    saved, loaded and predicting as before, its held-out mse under the
+    example's 0.5."""
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.automl import hp
+    from zoo_tpu_torch.chronos.autots import AutoTSEstimator, TSPipeline
+    from zoo_tpu_torch.chronos.data import TSDataset
+    rs = np.random.RandomState(0)
+    t = np.arange(AUTOTS_POINTS)
+    value = (np.sin(t * 2 * np.pi / 24) + 0.3 * np.sin(t * 2 * np.pi / 168)
+             + 0.1 * rs.randn(AUTOTS_POINTS)).astype(np.float32)
+    stamps = np.datetime64("2024-01-01T00") + t.astype("timedelta64[h]")
+    cut = int(AUTOTS_POINTS * 0.8)
+    out = {}
+    for alg in ("tpe", None):
+        def data(lo, hi):
+            return TSDataset.from_numpy({"datetime": stamps[lo:hi],
+                                         "value": value[lo:hi]},
+                                        "datetime", "value")
+        train, val = data(0, cut), data(cut, AUTOTS_POINTS)
+        est = AutoTSEstimator(
+            "lstm", {"hidden_dim": hp.choice([16, 32]),
+                     "lr": hp.loguniform(1e-3, 1e-2)},
+            past_seq_len=24, future_seq_len=1)
+        t0 = time.perf_counter()
+        pipe = est.fit(train, validation_data=val, epochs=AUTOTS_EPOCHS,
+                       n_sampling=AUTOTS_TRIALS, search_alg=alg,
+                       n_parallel=2, device="cuda")
+        search_s = time.perf_counter() - t0
+        res = pipe.evaluate(val, metrics=["mse", "smape"])
+        pred = pipe.predict(val)
+        with tempfile.TemporaryDirectory() as d:
+            pipe.save(d)
+            again = TSPipeline.load(d, device="cuda").predict(val)
+        out[alg or "random"] = {
+            "search_s": search_s, "best_config": pipe.best_config,
+            "mse": res["mse"], "smape": res["smape"],
+            "predict_shape": list(pred.shape),
+            "reload_equal": bool(np.array_equal(pred, again))}
+    return out
+
+
+def phase_chronos_main(torch, K, card):
+    """``chronos-main``: Chronos forecasting on the card, no pandas,
+    scikit-learn, prophet or ray. The LSTM (hidden 32, dropout 0.1), TCN
+    ([30, 30], k = 3, dropout 0.1), Seq2Seq (hidden 64) and MTNet (one
+    memory block of 24 steps, 32/32) forecasters on
+    :func:`chronos_series`'s windows (lookback 48; horizon 1 for LSTM
+    and MTNet, 4 for TCN and Seq2Seq), B = 64: CHRONOS_STEPS steps
+    through the kernels and, from the same weights, through the plain
+    versions (losses within ``TOL["float32"]`` relative), the dropout
+    kernel launched 2 times a step a dropout site and the key kernel
+    once a step plus once a site (the fit's split, each dropout's
+    ``layer_rng``; the Seq2Seq and MTNet steps launch the key chain's
+    split alone); a profiled step; one whole epoch on the kernel path
+    and ``evaluate`` on the held-out tenth. Then TCMF on the example's
+    panel (tcn's forecast MSE under ar's), the AutoTS search of
+    ``examples/autots_forecasting.py`` (mse < 0.5, a pipeline predicting
+    the same after save and load) and ``AEDetector`` (roll 24) on
+    :func:`anomaly_series`. Returns the kernel-path launches of each
+    forecaster's steps, of TCMF's TCN fit and of the searches."""
+    import numpy as np
+    from zoo_tpu_torch.chronos.data import roll_windows
+    from zoo_tpu_torch.chronos.detector import AEDetector
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+
+    series = chronos_series()
+    out = {}
+    B, steps = CHRONOS_B, CHRONOS_STEPS
+    for name, f, horizon, sites in _chronos_forecasters():
+        x, y = roll_windows(series, series[:, :1], CHRONOS_LOOKBACK,
+                            horizon)
+        n_train = len(x) - len(x) // 10
+        m = f._ensure_model()
+        m.build(torch.Generator(device="cuda").manual_seed(7),
+                device="cuda")
+        snapshot = [t.detach().clone() for t in tree_leaves(m.params)]
+        runs = {}
+        for plain in (False, True):
+            _restore(torch, m, snapshot)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            with plain_kernels() if plain else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                h = f.fit((x[:B], y[:B]), epochs=steps, batch_size=B)
+                torch.cuda.synchronize()
+                runs[plain] = (h["loss"], K.launch_counts(),
+                               time.perf_counter() - t0)
+        (losses, counts, wall), (plain_losses, plain_counts, _) = \
+            runs[False], runs[True]
+        rel = float(np.max(np.abs(np.subtract(losses, plain_losses))
+                           / np.abs(plain_losses)))
+        _restore(torch, m, snapshot)
+        step = _steps_timing(
+            torch, lambda: f.fit((x[:B], y[:B]), epochs=1, batch_size=B), 1)
+        _restore(torch, m, snapshot)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        f.fit((x[:n_train], y[:n_train]), epochs=1, batch_size=B)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        epoch_counts = K.launch_counts()
+        held = f.evaluate((x[n_train:], y[n_train:]),
+                          metrics=["mse", "smape"])
+        pred = f.predict(x[n_train:])
+        n_steps = n_train // B
+        emit({"phase": "chronos-main", "forecaster": name, "card": card,
+              "windows": len(x), "train_windows": n_train,
+              "lookback": CHRONOS_LOOKBACK, "horizon": horizon,
+              "batch": B, "steps": steps, "step_ms": wall / steps * 1e3,
+              "losses": losses, "plain_losses": plain_losses,
+              "max_rel_loss_diff": rel,
+              "launches": {k: v for k, v in counts.items() if v},
+              "step": step, "epoch_steps": n_steps, "fit_s": fit_s,
+              "epoch_samples_per_s": n_steps * B / fit_s,
+              "epoch_launches": {k: v for k, v in epoch_counts.items()
+                                 if v},
+              "held_out": held, "predict_shape": list(pred.shape)})
+        want = {"dropout": 2 * sites * steps,
+                "derive_keys": (1 + sites) * steps}
+        got = {k: counts[k] for k in want}
+        if not np.isfinite(losses).all() or rel > TOL["float32"]:
+            raise AssertionError(f"chronos-main {name}: losses {losses} "
+                                 f"vs plain {plain_losses}")
+        if got != want or any(plain_counts.values()) or any(
+                v for k, v in counts.items() if k not in want):
+            raise AssertionError(f"chronos-main {name}: launches {counts},"
+                                 f" plain {plain_counts}; expected {want}")
+        if epoch_counts["dropout"] != 2 * sites * n_steps or \
+                epoch_counts["derive_keys"] != (1 + sites) * n_steps:
+            raise AssertionError(f"chronos-main {name}: epoch launches "
+                                 f"{epoch_counts} over {n_steps} steps")
+        if pred.shape != (len(x) - n_train, horizon, 1) or \
+                not np.isfinite(pred).all() or \
+                not np.isfinite(list(held.values())).all():
+            raise AssertionError(f"chronos-main {name}: predict "
+                                 f"{pred.shape}, held-out {held}")
+        out[f"chronos_{name}"] = counts
+        del f, m, snapshot
+        torch.cuda.empty_cache()
+
+    tcmf = _chronos_tcmf(K)
+    emit({"phase": "chronos-main", "tcmf": tcmf, "card": card,
+          "panel": [TCMF_SERIES, TCMF_T], "horizon": TCMF_HORIZON,
+          "rank": TCMF_RANK})
+    if not tcmf["tcn"]["forecast_mse"] < tcmf["ar"]["forecast_mse"]:
+        raise AssertionError(f"chronos-main tcmf: tcn {tcmf['tcn']} not "
+                             f"under ar {tcmf['ar']}")
+    want = {"derive_keys": TCMF_TCN["tcn_epochs"]}
+    if tcmf["tcn"]["launches"] != want or tcmf["ar"]["launches"]:
+        raise AssertionError(f"chronos-main tcmf: launches "
+                             f"{tcmf['tcn']['launches']}, expected {want}")
+    out["chronos_tcmf"] = tcmf["tcn"]["launches"]
+
+    K.reset_launch_counts()
+    autots = _chronos_autots()
+    counts = K.launch_counts()
+    emit({"phase": "chronos-main", "autots": autots, "card": card,
+          "launches": {k: v for k, v in counts.items() if v}})
+    for alg, r in autots.items():
+        if not r["mse"] < 0.5 or not r["reload_equal"] or \
+                r["predict_shape"][1:] != [1, 1]:
+            raise AssertionError(f"chronos-main autots {alg}: {r}")
+    if not counts["dropout"] or not counts["derive_keys"]:
+        raise AssertionError(f"chronos-main autots: launches {counts}")
+    out["chronos_autots"] = counts
+
+    series, spikes = anomaly_series()
+    t0 = time.perf_counter()
+    det = AEDetector(roll_len=24, device="cuda").fit(series)
+    found = sorted(set(int(i) for i in det.anomaly_indexes()) & spikes)
+    emit({"phase": "chronos-main", "detector": "ae", "card": card,
+          "roll_len": 24, "fit_s": time.perf_counter() - t0,
+          "flagged": int(len(det.anomaly_indexes())),
+          "planted": sorted(spikes), "planted_flagged": found})
+    if not np.isfinite(det.score()).all():
+        raise AssertionError("chronos-main ae: non-finite scores")
+    return out
+
+
 ESTIMATOR_EPOCHS = 3
 # BERT-base through the estimator: run (b)'s S and B, 4 steps an epoch
 ESTIMATOR_BERT_STEPS = 4
@@ -7210,51 +7548,65 @@ def main():
         card = nvidia_smi_line()
         emit({"phase": "device", "name": name, "capability": list(cap),
               "count": torch.cuda.device_count(), "nvidia_smi": card,
-              "torch": torch.__version__, "cuda": torch.version.cuda})
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "host": host_facts()})
         if tuple(cap) != (9, 0):
             raise AssertionError(f"{name} is compute capability {cap}; the "
                                  "kernels are built for sm_90a (Hopper)")
         t0 = time.perf_counter()
-        built = _build.build()
+        built = staged("build", _build.build)
         emit({"phase": "build", "seconds": time.perf_counter() - t0,
               "kernels": {k: {"reused": r.reused,
                               "ptxas": ptxas_lines(r.ptxas)}
                           for k, r in built.items()}})
         check_no_spills(built)
-        mma, f32_mma = phase_sass(built)
+        mma, f32_mma = staged("sass", phase_sass, built)
 
-        timing = phase_kernels(torch)
-        phase_tiny(torch, K)
-        phase_train_tiny(torch, K)
-        phase_train_bert_tiny(torch, K)
-        phase_estimator_tiny(torch, K)
+        timing = staged("kernels", phase_kernels, torch)
+        staged("tiny", phase_tiny, torch, K)
+        staged("train-tiny", phase_train_tiny, torch, K)
+        staged("train-bert-tiny", phase_train_bert_tiny, torch, K)
+        staged("estimator-tiny", phase_estimator_tiny, torch, K)
         # each main path's launches, counted from 0 just before it runs
-        phase_infer_tiny(torch, K)
-        phase_predict_tiny(torch, K)
-        phase_cluster_tiny(torch, K)
-        phase_train_image_tiny(torch, K)
+        staged("infer-tiny", phase_infer_tiny, torch, K)
+        staged("predict-tiny", phase_predict_tiny, torch, K)
+        staged("cluster-tiny", phase_cluster_tiny, torch, K)
+        staged("train-image-tiny", phase_train_image_tiny, torch, K)
         serve, serve_spec, serve_wire, serve_disagg, serve_tenancy, \
-            serve_obs = phase_main(torch, K, card)
+            serve_obs = staged("main", phase_main, torch, K, card)
         by_path = {"serve": serve, "serve_spec": serve_spec,
                    "serve_wire": serve_wire, "serve_disagg": serve_disagg,
-                   "serve_tenancy": serve_tenancy, "serve_obs": serve_obs,
-                   "train": phase_train_main(torch, K, card),
-                   "infer": phase_infer_main(torch, K, card),
-                   "block": phase_bottleneck_main(torch, K, card),
-                   "train_image": phase_train_image_main(torch, K, card),
-                   "train_f32": phase_train_f32_main(torch, K, card)}
-        phase_train_rec_main(torch, K, card)
-        by_path["train_bert"] = phase_train_bert_main(torch, K, card)
-        by_path["train_bert_dropout"] = phase_train_bert_dropout(torch, K,
-                                                                 card)
-        by_path.update(phase_text_main(torch, K, card))
-        by_path.update(phase_seq_tiny(torch, K, card))
-        by_path["estimator_ncf"] = phase_estimator_main(torch, K, card)
-        by_path["estimator_bert"] = phase_estimator_bert(torch, K, card)
-        phase_bench_guard(torch, card)
-        phase_predict_mlp(torch, card)
-        by_path["predict"] = phase_predict_main(torch, K, card)
-        by_path["cluster"] = phase_cluster_main(torch, K, card)
+                   "serve_tenancy": serve_tenancy, "serve_obs": serve_obs}
+        for path, phase, fn in (
+                ("train", "train-main", phase_train_main),
+                ("infer", "infer-main", phase_infer_main),
+                ("block", "bottleneck-main", phase_bottleneck_main),
+                ("train_image", "train-image-main",
+                 phase_train_image_main),
+                ("train_f32", "train-f32-main", phase_train_f32_main)):
+            by_path[path] = staged(phase, fn, torch, K, card)
+        staged("train-rec-main", phase_train_rec_main, torch, K, card)
+        by_path["train_bert"] = staged("train-bert-main",
+                                       phase_train_bert_main, torch, K,
+                                       card)
+        by_path["train_bert_dropout"] = staged(
+            "train-bert-dropout", phase_train_bert_dropout, torch, K, card)
+        by_path.update(staged("text-main", phase_text_main, torch, K, card))
+        by_path.update(staged("seq-tiny", phase_seq_tiny, torch, K, card))
+        by_path.update(staged("chronos-main", phase_chronos_main, torch, K,
+                              card))
+        by_path["estimator_ncf"] = staged("estimator-main",
+                                          phase_estimator_main, torch, K,
+                                          card)
+        by_path["estimator_bert"] = staged("estimator-bert",
+                                           phase_estimator_bert, torch, K,
+                                           card)
+        staged("bench-guard", phase_bench_guard, torch, card)
+        staged("predict-mlp", phase_predict_mlp, torch, card)
+        by_path["predict"] = staged("predict-main", phase_predict_main,
+                                    torch, K, card)
+        by_path["cluster"] = staged("cluster-main", phase_cluster_main,
+                                    torch, K, card)
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"

@@ -1839,3 +1839,74 @@ def test_ncf_fit_on_the_card_equals_the_cpu(hopper):
     np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-5)
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         assert _err(a, b) <= 1e-5
+
+
+def test_chronos_tcn_fit_kernels_equal_plain(hopper, monkeypatch):
+    """``TCNForecaster``'s 8-step ``fit`` (two blocks, dropout 0.1) on
+    the card through the dropout and key kernels, and from the same
+    weights and layer names through their plain versions: the losses
+    within 1e-4 relative (the masks are bit-equal), the dropout kernel
+    launched 4 times a step (two blocks, forward and backward) and the
+    key kernel 3 (the fit's split, a fold per block)."""
+    from zoo_tpu_torch.chronos.forecaster import TCNForecaster
+    from zoo_tpu_torch.ops import random as R
+    from zoo_tpu_torch.ops.kernels import dropout as DR
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    rs = np.random.RandomState(3)
+    x = rs.randn(64, 16, 2).astype(np.float32)
+    y = rs.randn(64, 3, 1).astype(np.float32)
+    start, names, out = None, None, {}
+    for plain in (False, True):
+        f = TCNForecaster(16, 3, 2, 1, num_channels=[8, 8], dropout=0.1,
+                          device="cuda")
+        m = f._ensure_model()
+        if start is None:
+            start = tree_map(torch.clone, m.build(_gen(hopper, 5)))
+            names = [layer.name for layer in m.layers]
+        m.params = tree_map(torch.clone, start)
+        for layer, name in zip(m.layers, names):
+            layer.name = name
+        with monkeypatch.context() as mp:
+            if plain:
+                mp.setattr(DR, "dropout", DR.dropout_plain)
+                mp.setattr(DR, "derive_keys", R.derive)
+            reset_launch_counts()
+            hist = f.fit((x, y), epochs=1, batch_size=8)
+            torch.cuda.synchronize()
+            out[plain] = (hist["loss"], launch_counts(),
+                          tree_leaves(m.params))
+    (lk, ck, pk), (lp, cp, pp) = out[False], out[True]
+    assert ck["dropout"] == 4 * 8 and ck["derive_keys"] == 3 * 8
+    assert cp["dropout"] == cp["derive_keys"] == 0
+    np.testing.assert_allclose(lk, lp, rtol=1e-4)
+    for a, b in zip(pk, pp):
+        assert _err(a.detach(), b.detach()) <= 1e-4
+
+
+def test_chronos_dilated_reference_conv_grads_repeat(hopper):
+    """The TCN's dilated causal conv (``conv2d_plain`` with
+    ``dilation``) on the card: its gradients repeat bit for bit (cuDNN's
+    deterministic algorithms) and equal the CPU's within f32 summation
+    order."""
+    from zoo_tpu_torch.ops.kernels import conv as CV
+    g = _gen(hopper, 8)
+    x = torch.randn(64, 1, 48, 30, generator=g, device=hopper)
+    w = torch.randn(1, 3, 30, 30, generator=g, device=hopper) * 0.1
+    dy = torch.randn(64, 1, 48, 30, generator=g, device=hopper)
+    pads = ((0, 0), (8, 0))
+
+    def grads(*t):
+        return CV.conv2d_plain_grads(*t, (1, 1), pads, dilation=(1, 4))
+
+    a, b = grads(x, w, dy), grads(x, w, dy)
+    cpu = grads(x.cpu(), w.cpu(), dy.cpu())
+    y = CV.conv2d_plain(x, w, (1, 1), pads, (1, 4))
+    torch.cuda.synchronize()
+    assert y.shape == (64, 1, 48, 30)
+    assert _err(y.cpu(), CV.conv2d_plain(x.cpu(), w.cpu(), (1, 1), pads,
+                                         (1, 4))) <= 1e-4
+    for p, q, c in zip(a, b, cpu):
+        assert torch.equal(p, q)
+        assert _err(p.cpu(), c) <= 1e-4 * max(1.0, float(c.abs().max()))

@@ -2,7 +2,9 @@
 name, ``zoo_tpu_torch``, shares the prefix and is allowed), nor
 ``pyarrow`` (the serving wire's Arrow codec is its own), nor ``optax``,
 ``orbax``, ``pandas`` or ``tensorboard`` (the training seam keeps its
-own optimizers, checkpoint codec, duck-typed tables and event writer);
+own optimizers, checkpoint codec, duck-typed tables and event writer;
+Chronos's TSDataset, which takes users' frames, imports pandas inside
+the functions that need it, and importing it pulls in none);
 the guard's controller imports without ``torch``; and its entry points
 refuse to run quietly on the CPU."""
 
@@ -41,6 +43,22 @@ def _forbidden(name: str) -> bool:
                for root in FORBIDDEN)
 
 
+# the one module that takes users' pandas frames (TSDataset's
+# from_pandas, resample, rolling features): it may import pandas inside
+# a function, never at module level (test_importing_every_module_...
+# holds that importing it pulls in no pandas)
+LAZY_PANDAS = (os.path.join("zoo_tpu_torch", "chronos", "data",
+                            "tsdataset.py"),)
+
+
+def _lazy_imports(tree) -> set:
+    """The import nodes inside a function body."""
+    return {id(n) for f in ast.walk(tree)
+            if isinstance(f, (ast.FunctionDef, ast.AsyncFunctionDef))
+            for n in ast.walk(f) if isinstance(n, (ast.Import,
+                                                   ast.ImportFrom))}
+
+
 def test_importing_every_module_pulls_in_no_jax():
     mods = _modules()
     for m in ("serving.llm.engine", "serving.cluster_serving",
@@ -56,7 +74,11 @@ def test_importing_every_module_pulls_in_no_jax():
               "models.textclassification.text_classifier",
               "models.anomalydetection",
               "models.anomalydetection.anomaly_detector",
-              "models.recommendation.session_recommender"):
+              "models.recommendation.session_recommender",
+              "models.seq2seq", "chronos.data.tsdataset",
+              "chronos.forecaster", "chronos.detector.anomaly",
+              "chronos.autots.autotsestimator", "automl.search",
+              "automl.tpe", "automl.common.metrics"):
         assert "zoo_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -78,10 +100,13 @@ def test_importing_every_module_pulls_in_no_jax():
     ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_import_of_jax_or_zoo_tpu_in_source(path):
     tree = ast.parse(open(path, encoding="utf-8").read(), path)
+    lazy = _lazy_imports(tree) if os.path.relpath(path, ROOT) in \
+        LAZY_PANDAS else set()
     names = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            names += [a.name for a in node.names]
+            names += [a.name for a in node.names if not (
+                id(node) in lazy and a.name == "pandas")]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names.append(node.module or "")
         elif isinstance(node, ast.Call) and getattr(
@@ -320,3 +345,53 @@ def test_estimator_entry_points_raise_without_a_card(monkeypatch, tmp_path):
                  lambda: est.load_orca_checkpoint(str(tmp_path))):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_chronos_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The Chronos slice: no GPU and no ``device=`` raises at the
+    forecasters' fit and predict, the Seq2seq model's, the AE detector's
+    fit, TCMF's fit, AutoTS's fit and a pipeline's load; the host-only
+    ARIMA runs; ``device="cpu"`` forecasts."""
+    from zoo_tpu_torch.automl import hp
+    from zoo_tpu_torch.chronos.autots import AutoTSEstimator, TSPipeline
+    from zoo_tpu_torch.chronos.data import TSDataset
+    from zoo_tpu_torch.chronos.detector import AEDetector
+    from zoo_tpu_torch.chronos.forecaster import (
+        ARIMAForecaster,
+        LSTMForecaster,
+        MTNetForecaster,
+        Seq2SeqForecaster,
+        TCMFForecaster,
+        TCNForecaster,
+    )
+    from zoo_tpu_torch.models.seq2seq import Seq2seq
+
+    x = np.zeros((8, 4, 1), np.float32)
+    y = np.zeros((8, 1, 1), np.float32)
+    ts = TSDataset.from_numpy({"v": np.sin(np.arange(30.0))}, None, "v")
+    pipe = AutoTSEstimator("lstm", {"hidden_dim": 2}, past_seq_len=4).fit(
+        ts, epochs=1, batch_size=8, device="cpu")
+    pipe.save(str(tmp_path / "p"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fcs = (LSTMForecaster(4, 1, 1, hidden_dim=2),
+           TCNForecaster(4, 1, 1, 1, num_channels=[2]),
+           Seq2SeqForecaster(4, 1, 1, 1, lstm_hidden_dim=2),
+           MTNetForecaster(series_length=2, cnn_hid_size=2, rnn_hid_size=2))
+    calls = [lambda f=f: f.fit((x, y), epochs=1, batch_size=8) for f in fcs]
+    calls += [lambda f=f: f.predict(x) for f in fcs]
+    calls += [
+        lambda: Seq2seq(input_length=4, input_dim=1, target_length=1,
+                        output_dim=1, hidden_size=2).predict(x),
+        lambda: AEDetector(roll_len=4, epochs=1).fit(np.zeros(20)),
+        lambda: TCMFForecaster(rank=2).fit(np.zeros((4, 20), np.float32)),
+        lambda: AutoTSEstimator("lstm", {"hidden_dim": hp.choice([2])},
+                                past_seq_len=4).fit(ts),
+        lambda: TSPipeline.load(str(tmp_path / "p"))]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    a = ARIMAForecaster(1, 0, 0)
+    a.fit(np.sin(np.arange(30.0)))
+    assert a.predict(3).shape == (3,)
+    assert TSPipeline.load(str(tmp_path / "p"), device="cpu").predict(
+        ts).shape == (26, 1, 1)

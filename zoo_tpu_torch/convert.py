@@ -14,10 +14,19 @@ them) or a fused AdamW state ``{"m", "v", "step"}``, numpy leaves, and
 returns the same tree of tensors (``step`` as an int): the recurrent
 layers' ``W`` (in, g * units), ``U`` (units, g * units) and ``b``,
 ``Bidirectional``'s ``{"fw", "bw"}`` pair and ``Conv1D``'s ``W``
-(k, cin, cout) load by name, as the port lays them out alike. Each int8 conv
+(k, cin, cout) load by name, as the port lays them out alike; so do the
+Chronos trees: the Seq2seq core's ``enc_i``/``dec_i`` cells, ``bridge``
+(``w``, ``b``, or a custom layer's tree), ``gen`` and the ``enc_emb``/
+``dec_emb`` tables, the TCN blocks' WIO ``W1``/``W2`` (k, cin, cout),
+``b1``/``b2`` and the 1x1 ``Wskip``, and MTNet's shared conv and GRU,
+its heads and its bias-free AR ``Dense``. Each int8 conv
 weight ``W_q`` gets the K-major copy the int8 conv kernel reads
 (:func:`~zoo_tpu_torch.ops.kernels.conv.attach_kmajor`), kept beside the
 tree, not in it.
+
+``tcmf_from_jax(fc)`` carries a fitted JAX ``TCMFForecaster`` (``F``,
+``X``, the AR coefficients and lag, the normalisation, and its TCN's
+weights and layer names) into the port's.
 """
 
 from __future__ import annotations
@@ -63,3 +72,33 @@ def keras_params_from_jax(tree: Dict, device=None) -> Dict:
         return {"m": _tensors(tree["m"], dev), "v": _tensors(tree["v"], dev),
                 "step": int(np.asarray(tree["step"]))}
     return _tensors(tree, dev)
+
+
+def tcmf_from_jax(fc, device=None):
+    """The port's ``TCMFForecaster`` holding a fitted JAX forecaster's
+    state: its hyperparameters, ``F``, ``X``, ``ar`` and lag, the
+    normalisation's mean and std, and with ``temporal_model="tcn"`` a
+    TCN carrying the JAX TCN's weights (and its layers' names, from
+    which dropout keys derive), on ``device``."""
+    from zoo_tpu_torch.chronos.forecaster.tcmf_forecaster import (
+        TCMFForecaster,
+    )
+    out = TCMFForecaster(
+        rank=fc.rank, ar_lag=fc.ar_lag, alt_iters=fc.alt_iters, reg=fc.reg,
+        svd=fc.svd, normalize=fc.normalize,
+        temporal_model=fc.temporal_model, num_channels_X=fc.num_channels_X,
+        kernel_size=fc.kernel_size, dropout=fc.dropout, lr=fc.lr,
+        tcn_epochs=fc.tcn_epochs, device=device)
+    out.F, out.X, out.ar = (np.array(getattr(fc, k), copy=True)
+                            for k in ("F", "X", "ar"))
+    if fc.normalize:
+        out._mean, out._std = np.array(fc._mean), np.array(fc._std)
+    if fc._tcn is not None:
+        out._tcn = out._new_tcn()
+        tm = out._tcn._ensure_model()
+        tm.params = keras_params_from_jax(fc._tcn.model.params,
+                                          out._tcn._device())
+        for a, b in zip(fc._tcn.model.layers, tm.layers):
+            b.name = a.name
+        out._tcn.fitted = True
+    return out

@@ -354,10 +354,14 @@ def _spatial_pads(h: int, w: int, kh: int, kw: int,
     return (th // 2, th - th // 2), (tw // 2, tw - tw // 2), oh, ow
 
 
-def _pads(x, w, strides, padding: Union[str, Pads]) -> Pads:
+def _pads(x, w, strides, padding: Union[str, Pads],
+          dilation: Tuple[int, int] = (1, 1)) -> Pads:
+    """Explicit pads for ``padding``; a dilated kernel pads as its
+    dilated extent, ``(k - 1) * d + 1``, as XLA pads it."""
     if isinstance(padding, str):
-        ph, pw, _, _ = _spatial_pads(x.shape[1], x.shape[2], w.shape[0],
-                                     w.shape[1], strides, padding)
+        kh, kw = ((int(w.shape[i]) - 1) * dilation[i] + 1 for i in (0, 1))
+        ph, pw, _, _ = _spatial_pads(x.shape[1], x.shape[2], kh, kw,
+                                     strides, padding)
         return ph, pw
     return tuple(map(tuple, padding))
 
@@ -381,32 +385,35 @@ def _padded_nchw(x, pads: Pads, dtype) -> torch.Tensor:
     return xn
 
 
-def _conv_nhwc(x, w, strides, pads: Pads, dtype) -> torch.Tensor:
+def _conv_nhwc(x, w, strides, pads: Pads, dtype,
+               dilation: Tuple[int, int] = (1, 1)) -> torch.Tensor:
     """``F.conv2d`` of NHWC ``x`` and HWIO ``w``, both cast to
-    ``dtype``, with explicit (top, bottom), (left, right) pads; NHWC
-    out."""
+    ``dtype``, with explicit (top, bottom), (left, right) pads and the
+    kernel's ``dilation`` (XLA's ``rhs_dilation``); NHWC out."""
     xn = _padded_nchw(x, pads, dtype)
     with _no_tf32():
         y = F.conv2d(xn, w.to(dtype).permute(3, 2, 0, 1),
-                     stride=tuple(strides))
+                     stride=tuple(strides), dilation=tuple(dilation))
     return y.permute(0, 2, 3, 1).contiguous()
 
 
 def conv2d_plain_grads(x, w, dy, strides: Tuple[int, int] = (1, 1),
                        padding: Union[str, Pads] = "SAME",
-                       needs: Tuple[bool, bool] = (True, True)):
+                       needs: Tuple[bool, bool] = (True, True),
+                       dilation: Tuple[int, int] = (1, 1)):
     """``(dx, dw)``, the gradients of the reference conv in ``x``'s
     dtype (f32 sums, TF32 off) at ``x``, ``w`` for the output gradient
-    ``dy``: the float kernel's backward. A gradient whose ``needs`` flag
-    is False is not computed (None).
+    ``dy``: the float kernel's backward (and, with ``dilation``, the
+    dilated conv's). A gradient whose ``needs`` flag is False is not
+    computed (None).
 
     cuDNN runs it with deterministic algorithms: its default ones split
     f32 ``dw`` sums (1x1 convs) and ``dx`` sums (7x7 3x3) across blocks
     in an order that changes from run to run, so two ``fit`` runs of one
     seed on the card ended apart; with them, a ``fit`` repeats itself
     bit for bit, as JAX's does."""
-    strides = tuple(strides)
-    pads = _pads(x, w, strides, padding)
+    strides, dilation = tuple(strides), tuple(dilation)
+    pads = _pads(x, w, strides, padding, dilation)
     (pt, _), (pl, _) = pads
     dt = x.dtype
     xn = _padded_nchw(x, pads, dt)
@@ -416,12 +423,14 @@ def conv2d_plain_grads(x, w, dy, strides: Tuple[int, int] = (1, 1),
     with _no_tf32(deterministic=True):
         if needs[0]:
             dx = torch.nn.grad.conv2d_input(xn.shape, wn, dyn,
-                                            stride=strides)
+                                            stride=strides,
+                                            dilation=dilation)
             dx = dx[:, :, pt:pt + x.shape[1], pl:pl + x.shape[2]]
             dx = dx.permute(0, 2, 3, 1).contiguous()
         if needs[1]:
             dw = torch.nn.grad.conv2d_weight(xn, wn.shape, dyn,
-                                             stride=strides)
+                                             stride=strides,
+                                             dilation=dilation)
             dw = dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)
     return dx, dw
 
@@ -433,30 +442,38 @@ class _ConvPlain(torch.autograd.Function):
     ``dw`` are cast to their inputs' dtypes."""
 
     @staticmethod
-    def forward(ctx, x, w, strides, pads):
+    def forward(ctx, x, w, strides, pads, dilation):
         ctx.save_for_backward(x, w)
         ctx.conv = (strides, pads)
-        return _conv_nhwc(x, w, strides, pads, torch.float32).to(x.dtype)
+        ctx.dilation = dilation
+        return _conv_nhwc(x, w, strides, pads, torch.float32,
+                          dilation).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dx, dw = conv2d_plain_grads(x.float(), w.float(), dy.float(),
-                                    *ctx.conv, needs=ctx.needs_input_grad[:2])
+                                    *ctx.conv, needs=ctx.needs_input_grad[:2],
+                                    dilation=ctx.dilation)
         return (None if dx is None else dx.to(x.dtype),
-                None if dw is None else dw.to(w.dtype), None, None)
+                None if dw is None else dw.to(w.dtype), None, None, None)
 
 
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
                  strides: Tuple[int, int] = (1, 1),
-                 padding: Union[str, Pads] = "SAME") -> torch.Tensor:
+                 padding: Union[str, Pads] = "SAME",
+                 dilation: Tuple[int, int] = (1, 1)) -> torch.Tensor:
     """The reference conv and the float kernel's plain version: f32
     arithmetic, output in ``x``'s dtype; differentiable, with f32
-    gradients (TF32 off) cast to the inputs' dtypes (:class:`_ConvPlain`).
-    ``padding``: ``"SAME"``, ``"VALID"`` or explicit ``((top, bottom),
-    (left, right))``."""
-    strides = tuple(strides)
-    return _ConvPlain.apply(x, w, strides, _pads(x, w, strides, padding))
+    gradients (TF32 off, cuDNN's deterministic algorithms) cast to the
+    inputs' dtypes (:class:`_ConvPlain`). ``padding``: ``"SAME"``,
+    ``"VALID"`` or explicit ``((top, bottom), (left, right))``;
+    ``dilation``: the kernel's (XLA's ``rhs_dilation``), as the TCN's
+    dilated causal convs take it."""
+    strides, dilation = tuple(strides), tuple(int(d) for d in dilation)
+    return _ConvPlain.apply(x, w, strides,
+                            _pads(x, w, strides, padding, dilation),
+                            dilation)
 
 
 def conv2d_int8_plain(x_q, w_q, x_scale, w_scale,

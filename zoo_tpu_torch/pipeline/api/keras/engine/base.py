@@ -108,6 +108,26 @@ class _Uniform:
 
 
 @model_file_part
+class _TruncNormal:
+    """N(0, s**2) truncated to two standard deviations, ``s`` set so the
+    draw's variance is ``scale / fan_in``: ``jax.nn.initializers.
+    he_normal`` at scale 2, whose ``truncated_normal`` variance scaling
+    divides the stddev by 0.87962566103423978 (the truncated
+    distribution's stddev)."""
+
+    def __init__(self, scale: float):
+        self.scale = scale
+
+    def __call__(self, generator: torch.Generator, shape) -> torch.Tensor:
+        fi, _ = _fans(tuple(shape))
+        std = math.sqrt(self.scale / fi) / .87962566103423978
+        out = torch.empty(tuple(shape), dtype=torch.float32,
+                          device=generator.device)
+        return torch.nn.init.trunc_normal_(out, 0.0, std, -2 * std,
+                                           2 * std, generator=generator)
+
+
+@model_file_part
 class _Const:
     def __init__(self, value: float):
         self.value = value
@@ -171,6 +191,7 @@ _INITIALIZERS = {
     "glorot_uniform": _Uniform("glorot"),
     "he_uniform": _Uniform("he"),
     "lecun_uniform": _Uniform("lecun"),
+    "he_normal": _TruncNormal(2.0),
     "uniform": uniform(0.05),
     "normal": normal(0.05),
     "zero": _Const(0.0),
