@@ -160,7 +160,10 @@ and CPU seconds at the end; the ``device`` line holds them too):
    ``ZOO_INT8_MATMUL=unfused``, and a ``quantize_model(mode="auto")``
    verdict; samples/s, launches per forward (49 ``conv2d``, or 49
    ``conv2d_int8`` and one head GEMM), kernel path vs plain path on one
-   batch, top-1 agreement of int8 with float, peak memory, and an
+   batch, top-1 agreement of int8 with float (BatchNorm's statistics
+   refreshed from the first batch, and the float path's top-1 spread
+   over at least 10 classes before the agreement is read), peak memory,
+   and an
    ``infer-step`` line profiling one batch per path;
 8b. train-image-tiny — the tiny ResNet of phase 7 ``fit`` with
    ``SGD(0.1, 0.9)``, f32, 8 images, two shuffled epochs at B=4,
@@ -240,7 +243,18 @@ and CPU seconds at the end; the ``device`` line holds them too):
    panel (tcn's forecast MSE under ar's); ``examples/
    autots_forecasting.py``'s AutoTS search (TPE, then at random over 2
    threads; mse < 0.5; the pipeline saved, loaded and predicting the
-   same); ``AEDetector`` on the anomaly series;
+   same); ``AEDetector`` on the anomaly series; then zoo-main: the image
+   zoo (Inception-v1, MobileNet-v1, MobileNet-v2, SqueezeNet,
+   DenseNet-121) at 224 x 224 x 3 and 1000 classes, f32, seed weights,
+   through ``ImageClassifier.create(name, 1000).predict_image_set`` on
+   64 seeded uint8 BGR images of three sizes in batches of 32 (resize
+   256, centre crop 224, normalize): images/s, a batch's wall and
+   device ms, busy share, the conv kernel's share, exact ``conv2d``
+   launches against the graph's count, the kernel route within 1e-5 of
+   ``ZOO_CONV_IMPL=reference`` on outputs that spread (BatchNorm
+   refreshed from a batch, the head calibrated; distinct top-1 classes
+   printed), a model file round trip; then 4 ``fit`` steps of
+   MobileNet-v1 (B=32, SGD 0.9) against plain with exact launches;
 13b. estimator-main — the NCF flagship through ``Estimator.from_keras(m,
    model_dir=tmp)`` with the default guard at B=8192 (96 training
    batches an epoch, a tenth of all rows held out for validation,
@@ -365,7 +379,11 @@ two-pass one, and the fused op's hand-over to it past K = 8192: one
 ``quantized_matmul`` launch, no fused one) at VGG-16's fc6, B=128 and
 the served B=32 (with the eager activation quantization before it
 timed), and VGG-16's first conv (Cin = 3, B=32) on the bf16 and int8
-routes, beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks; the reference
+routes, beside ``F.conv2d`` and ``torch._int_mm`` as yardsticks; the f32
+conv at the image zoo's shapes (B=32: SqueezeNet fire2 and head,
+MobileNet-v2's 16/24/144-channel convs, DenseNet-121, Inception 3a)
+timed beside its bound and ``F.conv2d``, and every other in-envelope
+conv shape of the five families checked (``zoo_shapes``); the reference
 conv's gradients (``conv2d_plain_grads``, the float conv's backward)
 repeat bit for bit on the same inputs at the four timed conv shapes,
 B=128, f32 and bf16; and the
@@ -409,6 +427,8 @@ run (b)'s, ``train_bert_dropout`` train-bert-dropout's, ``text_cnn``,
 ``seq_session`` seq-tiny's, ``chronos_lstm``, ``chronos_tcn``,
 ``chronos_seq2seq``, ``chronos_mtnet`` chronos-main's 8-step runs,
 ``chronos_tcmf`` its TCMF TCN fit, ``chronos_autots`` its two searches,
+``zoo_predict`` zoo-main's five predict runs, ``zoo_fit`` its
+MobileNet-v1 steps,
 ``estimator_ncf`` estimator-main's (the
 key split only),
 ``estimator_bert`` estimator-bert's,
@@ -465,6 +485,9 @@ TRAIN_CFG = dict(vocab=32000, hidden=768, n_block=12, n_head=12,
 TRAIN_S, TRAIN_B, TRAIN_STEPS = 512, 64, 8
 # the image-inference path: bench.py bench_resnet50_int8_infer
 INFER_B, INFER_STEPS = 128, 8
+# the distinct top-1 classes the float path must give its images before
+# the int8-vs-float top-1 agreement is read
+INFER_TOP1_MIN = 10
 # ResNet-50 convs inside the kernels' envelope, (spatial, C, k, O, stride)
 CONV_SHAPES = ((56, 256, 1, 64, 1), (28, 128, 3, 128, 1),
                (56, 256, 1, 512, 2), (7, 512, 3, 512, 1))
@@ -486,6 +509,41 @@ CLUSTER_SECRET, CLUSTER_SALT = "chip-smoke-kms-secret", "chip-smoke-salt"
 CLUSTER_IMAGE, CLUSTER_CLASSES, VGG_CONVS = (224, 224, 3), 1000, 13
 # VGG-16's first conv (spatial, C, k, O, stride): Cin = 3, K = 27
 VGG_FIRST_CONV = (224, 3, 3, 64, 1)
+# zoo-main: the image-classification zoo at its published ImageNet widths
+# (224 x 224 x 3 in, 1000 classes, MobileNet-v1 alpha 1, DenseNet-121
+# growth 32, float32) through ImageClassifier.predict_image_set: 64 seeded
+# uint8 BGR images of three sizes, batches of 32; then ZOO_FIT_STEPS fit
+# steps of MobileNet-v1 with SGD(momentum 0.9)
+ZOO_FAMILIES = ("inception-v1", "mobilenet", "mobilenet-v2", "squeezenet",
+                "densenet-121")
+ZOO_IMAGES, ZOO_B, ZOO_FIT_STEPS, ZOO_CLASSES = 64, 32, 4, 1000
+# the fit steps' rate. Seed-built MobileNet-v1 on random labels carries a
+# rounding difference about ten times further each step through
+# BatchNorm's batch moments (a 3xTF32 conv against f32 cuDNN, or images
+# nudged by one ulp), so each step is held to the plain step from the
+# same params and optimizer state, not the two trajectories to each other
+ZOO_FIT_LR = 1e-3
+# the calibrated heads' logit spread across images: enough to move the
+# probabilities by 1e-2 and more, small enough that the 3xTF32 sums'
+# error in the logits (relative to their size) stays far inside 1e-5
+ZOO_LOGIT_STD = 0.5
+# one step's update through the kernels against the plain step's, by norm
+# over the trainable leaves, relative to the plain update's norm: within
+# this many times the gap a one-ulp nudge of the images opens in the plain
+# step (on an H100 both gaps read 0.4-0.9 %: BatchNorm's batch moments
+# carry the forward's rounding into the gradients)
+TOL_ZOO_UPDATE_X = 10.0
+ZOO_SIZES = ((240, 320), (300, 300), (256, 341))
+# the zoo's f32 conv shapes the kernel had not been held at, timed at
+# B = ZOO_B (spatial, C, k, O, stride): SqueezeNet fire2, MobileNet-v2's
+# first projection and a 144-wide expansion, DenseNet-121's bottleneck
+# and growth convs, Inception 3a, SqueezeNet's 512 -> 1000 head; C = 16
+# and 24 are below the f32 kernel's 32-channel reduction step
+ZOO_CONV_SHAPES = ((56, 64, 1, 16, 1), (56, 16, 3, 64, 1),
+                   (112, 32, 1, 16, 1), (56, 24, 1, 144, 1),
+                   (56, 144, 1, 24, 1), (56, 128, 3, 32, 1),
+                   (56, 96, 1, 128, 1), (28, 192, 1, 64, 1),
+                   (28, 96, 3, 128, 1), (14, 512, 1, 1000, 1))
 # ResNet-50's identity bottlenecks per stage: (name, spatial, Cin, Cmid)
 BLOCK_STAGES = (("conv2_x", 56, 256, 64), ("conv3_x", 28, 512, 128),
                 ("conv4_x", 14, 1024, 256), ("conv5_x", 7, 2048, 512))
@@ -1987,6 +2045,7 @@ def phase_inference_kernels(torch, record, err, results):
     torch.cuda.empty_cache()
     _vgg_first_conv(torch, CV, F, randn, int8, scales, record, err,
                     results)
+    _zoo_conv_shapes(torch, CV, F, randn, record, err, results)
 
     for m, k, n in GEMM_SHAPES:
         shape = f"M={m} K={k} N={n}"
@@ -2112,6 +2171,69 @@ def phase_inference_kernels(torch, record, err, results):
     results["quantized_matmul"]["served_fc6"] = next(
         t for t in per["quantized_matmul"]
         if t["shape"].startswith(f"M={CLUSTER_B} K=25088"))
+
+
+def _zoo_conv_shapes(torch, CV, F, randn, record, err, results):
+    """The f32 conv kernel at the image zoo's shapes (B = ZOO_B): the
+    ZOO_CONV_SHAPES against the plain version and timed beside their
+    bound (three TF32 products a term) and one f32 ``F.conv2d`` (TF32
+    off), then every other in-envelope conv shape of the five families
+    against the plain version, not timed."""
+    from zoo_tpu_torch.models.image import create_image_classifier
+    b = ZOO_B
+    per = []
+    for h, c, k, o, s in ZOO_CONV_SHAPES:
+        oh = -(-h // s)
+        shape = f"B={b} f32 {h}x{h} {c}->{o} {k}x{k} stride {s}"
+        x, w = randn(b, h, h, c, dtype=torch.float32), \
+            randn(k, k, c, o, dtype=torch.float32)
+        y, ref = CV.implicit_gemm_conv2d(x, w, (s, s)), \
+            CV.conv2d_plain(x, w, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d", f"{shape} (zoo)", err(y, ref), "conv_f32",
+               float(ref.abs().max()))
+        del y, ref
+        ops = 2 * b * oh * oh * k * k * c * o
+        nbytes = 4 * (b * oh * oh * c + w.numel() + b * oh * oh * o)
+        b_ms, b_by = bound(nbytes, 3 * ops, PEAK_TF32_FLOPS)
+        xn = x.permute(0, 3, 1, 2)
+        wn = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+        t = timing(torch, "conv_f32_tc_kernel",
+                   lambda: CV.implicit_gemm_conv2d(x, w, (s, s)),
+                   lambda: CV.conv2d_plain(x, w, (s, s)),
+                   lambda: F.conv2d(xn, wn, stride=s, padding=(k - 1) // 2),
+                   10)
+        plan = CV.conv_f32_plan(b * oh * oh, c, o)
+        per.append(dict(
+            {key: t[key] for key in ("ms", "kernel_ms", "wall_ms",
+                                     "plain_ms", "library_ms")},
+            shape=shape, bound_ms=b_ms, bound_by=b_by, ops=ops,
+            plan={"bm": plan.bm, "bn": plan.bn, "stages": plan.stages,
+                  "vec": plan.vec, "blocks": plan.blocks},
+            **rates(ops, t["ms"], b_ms, t["library_ms"])))
+        emit({"phase": "kernels", "kernel": "conv2d", "zoo_shape": per[-1]})
+        del x, w, xn, wn
+        torch.cuda.empty_cache()
+    results["conv2d"]["zoo_shapes"] = per
+    rest = set()
+    for name in ZOO_FAMILIES:
+        rest |= set(envelope_convs(create_image_classifier(name,
+                                                           ZOO_CLASSES)))
+    rest = sorted(rest - set(ZOO_CONV_SHAPES))
+    for h, c, k, o, s in rest:
+        shape = f"B={b} f32 {h}x{h} {c}->{o} {k}x{k} stride {s}"
+        x, w = randn(b, h, h, c, dtype=torch.float32), \
+            randn(k, k, c, o, dtype=torch.float32)
+        y, ref = CV.implicit_gemm_conv2d(x, w, (s, s)), \
+            CV.conv2d_plain(x, w, (s, s))
+        torch.cuda.synchronize()
+        record("conv2d", f"{shape} (zoo)", err(y, ref), "conv_f32",
+               float(ref.abs().max()))
+        del x, w, y, ref
+    emit({"phase": "kernels", "zoo_conv_shapes_timed": len(per),
+          "zoo_conv_shapes_checked": len(per) + len(rest)})
+    torch.cuda.empty_cache()
 
 
 def _vgg_first_conv(torch, CV, F, randn, int8, scales, record, err,
@@ -2500,6 +2622,35 @@ def redraw_batchnorm(torch, params, seed):
     walk(params)
 
 
+def refresh_batchnorm(torch, model, x):
+    """Every BatchNorm's running statistics set to those of its input in
+    one training-mode forward of ``x`` (momentum 0 for that pass; its
+    dropouts draw from a fixed key): in inference the model then
+    normalizes ``x`` as training mode does, so seed-built weights no
+    longer send every image to one output."""
+    from zoo_tpu_torch.ops import random as R
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    from zoo_tpu_torch.pipeline.api.keras.layers import BatchNormalization
+    bns = [l for l in model.layers if isinstance(l, BatchNormalization)]
+    saved = [l.momentum for l in bns]
+    dev = tree_leaves(model.params)[0].device
+    collect = {}
+    try:
+        for layer in bns:
+            layer.momentum = 0.0
+        with torch.no_grad():
+            model._forward(model.params, [torch.as_tensor(x, device=dev)],
+                           training=True, collect=collect,
+                           rng=R.PRNGKey(0, dev))
+    finally:
+        for layer, m in zip(bns, saved):
+            layer.momentum = m
+    for key, val in collect.items():
+        model.params[key]["stats"] = val["stats"]
+    torch.cuda.synchronize()
+    return len(collect)
+
+
 def envelope_convs(model):
     """(spatial, C, k, O, stride) of each of a functional model's Conv2D
     nodes inside the kernels' envelope, in graph order (square NHWC
@@ -2590,18 +2741,25 @@ def phase_infer_main(torch, K, card):
               dtype_policy="mixed_bfloat16")
     m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
     redraw_batchnorm(torch, m.params, 1)
+    rs = np.random.RandomState(0)                          # bench.py:504
+    x = np.concatenate([rs.randn(B, 224, 224, 3).astype(np.float32)
+                        for _ in range(steps)])
+    # BN's running stats from the first batch and the head centred per
+    # class (zoo-main's calibration), so the predictions spread across
+    # classes and the int8-vs-float top-1 agreement means something
+    refreshed = refresh_batchnorm(torch, m, x[:B])
+    head_scale, _ = calibrate_head(torch, m, x[:B])
     float_params = _copy_tree(m.params)
     n_conv = len(envelope_convs(m))
     if n_conv != 49:
         raise AssertionError(f"{n_conv} convs inside the envelope, not 49")
     im = InferenceModel().load_keras(m, batch_size=B)     # warm-up batch
-    rs = np.random.RandomState(0)                          # bench.py:504
-    x = np.concatenate([rs.randn(B, 224, 224, 3).astype(np.float32)
-                        for _ in range(steps)])
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     emit({"phase": "infer-main", "model": "resnet50(1000, (224, 224, 3))",
           "policy": "mixed_bfloat16", "batch": B, "batches": steps,
+          "batchnorm_refreshed_from_batch_0": refreshed,
+          "head_scale": head_scale,
           "params": sum(t.numel() for t in tree_leaves(m.params)),
           "setup_s": setup_s})
     launches, outs, profiles = {k: 0 for k in INFER_KERNELS}, {}, {}
@@ -2702,12 +2860,24 @@ def phase_infer_main(torch, K, card):
         del os.environ["ZOO_INT8_MATMUL"]
     agree = float((outs["int8"].argmax(1) == outs["float"].argmax(1))
                   .mean())
+    classes = int(len(set(outs["float"].argmax(1))))
+    spread = float(np.abs(outs["float"] - outs["float"].mean(0)).max())
+    top5 = np.argsort(-outs["float"], axis=1)[:, :5]
+    in_top5 = float((top5 == outs["int8"].argmax(1)[:, None]).any(1)
+                    .mean())
     emit({"phase": "infer-main", "int8_top1_agreement_with_float": agree,
+          "int8_top1_in_float_top5": in_top5,
           "int8_vs_float_max_abs": float(
               np.abs(outs["int8"] - outs["float"]).max()),
           "unfused_vs_fused_head_max_abs": float(
               np.abs(y - outs["int8"][:B]).max()),
-          "float_top1_classes": int(len(set(outs["float"].argmax(1))))})
+          "float_top1_classes": classes,
+          "float_prob_spread": spread, "min_top1_classes": INFER_TOP1_MIN})
+    # the agreement above counts only if the float predictions spread
+    if classes < INFER_TOP1_MIN:
+        raise AssertionError(f"infer-main: the float path puts the "
+                             f"{x.shape[0]} images in {classes} classes; "
+                             "the int8 top-1 agreement would be vacuous")
 
     auto = resnet50(1000, (224, 224, 3))
     auto.compile("sgd", "sparse_categorical_crossentropy",
@@ -2719,6 +2889,337 @@ def phase_infer_main(torch, K, card):
           "auto_speedup_int8_over_float": auto._quant_speedup,
           "sample_batch": 8, "seconds": time.perf_counter() - t})
     return launches
+
+
+def zoo_images(n=None, seed=0):
+    """``n`` (default ZOO_IMAGES) seeded uint8 BGR images, cycling
+    through ZOO_SIZES, so the deploy chain's resize and centre crop do
+    real work."""
+    import numpy as np
+    n = ZOO_IMAGES if n is None else n
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, 256, ZOO_SIZES[i % len(ZOO_SIZES)] + (3,))
+            .astype(np.uint8) for i in range(n)]
+
+
+def calibrate_head(torch, model, x):
+    """Seed-built weights send every image to nearly one output; this
+    makes the outputs spread. The head's logits (the softmax set aside)
+    are centred per class and scaled to ZOO_LOGIT_STD across the images
+    of ``x``: a ``Dense`` head's bias takes off each class's
+    mean logit in one step; a conv head under ReLU and global pooling
+    (SqueezeNet) shifts its bias by the class's offset from the mean
+    logit a few times (the ReLU makes the shift inexact). Both then
+    scale ``W`` and ``b`` by one factor (the logits scale with it: the
+    ReLU and the pooling are positively homogeneous). Returns the
+    factor and the logits' centred spread before it."""
+    import numpy as np
+    from zoo_tpu_torch.pipeline.api.keras.layers import Dense
+
+    out = model.layers[-1]
+    act = out.activation
+    out.activation = None if isinstance(out, Dense) else (lambda v: v)
+    try:
+        def logits():
+            return model.predict(x, batch_size=ZOO_B, device="cuda")
+
+        head = [l for l in model.layers
+                if "W" in model.params.get(model._key_of(l), {})][-1]
+        hp = model.params[model._key_of(head)]
+        dense = isinstance(head, Dense)
+        with torch.no_grad():
+            for _ in range(1 if dense else 4):
+                lg = logits()
+                shift = lg.mean(0) - (0.0 if dense else lg.mean())
+                hp["b"].sub_(torch.as_tensor(shift, device=hp["b"].device,
+                                             dtype=hp["b"].dtype))
+            lg = logits()
+            before = float((lg - lg.mean(0)).std())
+            scale = ZOO_LOGIT_STD / float(lg.std())
+            hp["W"].mul_(scale)
+            hp["b"].mul_(scale)
+    finally:
+        out.activation = act
+    return scale, before
+
+
+def _zoo_reference_convs(model):
+    """The convs of a zoo graph that take the reference conv: the
+    Conv2D layers outside the kernel's envelope (the stems, Inception's
+    5x5s) and the depthwise convs."""
+    from zoo_tpu_torch.ops.kernels.conv import pallas_conv_supported
+    from zoo_tpu_torch.pipeline.api.keras.layers import (
+        Convolution2D, DepthwiseConvolution2D)
+    out = {"conv2d_outside_envelope": 0, "depthwise": 0}
+    for layer in model.layers:
+        if isinstance(layer, DepthwiseConvolution2D):
+            out["depthwise"] += 1
+        elif isinstance(layer, Convolution2D) and not \
+                pallas_conv_supported(layer.kernel, layer.subsample):
+            out["conv2d_outside_envelope"] += 1
+    return out
+
+
+def _zoo_group(name):
+    """The kernel group of a device event of a zoo forward."""
+    n = name.lower()
+    if "conv_f32_tc_kernel" in n:
+        return "conv2d_kernel"
+    if "memcpy" in n.replace(" ", ""):
+        return "copies"
+    if any(k in n for k in ("conv", "cudnn", "xmma", "implicit",
+                            "depthwise")):
+        return "reference_conv"
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "nvjet")):
+        return "matmul"
+    return "other"
+
+
+def phase_zoo_main(torch, K, card):
+    """``zoo-main``: the image-classification zoo at its published
+    ImageNet widths (224 x 224 x 3, 1000 classes, float32, seed-built
+    weights) through ``ImageClassifier.create(name, 1000)
+    .predict_image_set(image_set, top_k=5)`` on ZOO_IMAGES seeded uint8
+    BGR images of mixed sizes, batches of ZOO_B. Per family: the run's
+    wall time, a batch's device time (profiler), busy share and
+    images/s; the conv kernel's share of device time; the exact
+    ``conv2d`` launches (every 1x1 and 3x3/1 conv, counted from the
+    graph) and the reference route's convs. Checks (a) the kernel route
+    against ``ZOO_CONV_IMPL=reference`` on the same images within
+    TOL_TINY_F32, (b) on outputs that spread (BatchNorm's statistics
+    refreshed from a batch, the head calibrated: probabilities that move
+    across images by at least 100 x the tolerance; the distinct top-1
+    classes printed), (c) a
+    ``save_model`` / ``load_model`` round trip predicting the same bits;
+    then (d) ZOO_FIT_STEPS ``fit`` steps of MobileNet-v1 at B = ZOO_B
+    with SGD(ZOO_FIT_LR, momentum 0.9), each step through the kernels
+    against the plain step from the same params and optimizer state:
+    losses within TOL_TRAIN_TINY, updates within TOL_ZOO_UPDATE_X times
+    the gap a one-ulp nudge of the images opens in the plain step, exact
+    ``conv2d``, ``fused_sgd``, ``dropout`` and ``derive_keys`` launches.
+    Returns the two paths' launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.feature.image import ImageSet
+    from zoo_tpu_torch.models.image import ImageClassifier
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    from zoo_tpu_torch.pipeline.api.keras.engine.topology import (
+        _split_state)
+    from zoo_tpu_torch.pipeline.api.keras.layers import BatchNormalization
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+
+    images = zoo_images()
+    n_batches = ZOO_IMAGES // ZOO_B
+    predict_launches = {"conv2d": 0}
+    tmp = tempfile.mkdtemp(prefix="zoo-main-")
+    try:
+        for name in ZOO_FAMILIES:
+            t0 = time.perf_counter()
+            clf = ImageClassifier.create(name, ZOO_CLASSES)
+            m = clf.model
+            m.build(torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda")
+            n_kernel = len(envelope_convs(m))
+            reference = _zoo_reference_convs(m)
+            th = time.perf_counter()
+            x = clf.preprocess(ImageSet.from_arrays(images))
+            preprocess_s = time.perf_counter() - th
+            has_bn = any(isinstance(l, BatchNormalization)
+                         for l in m.layers)
+            if has_bn:
+                redraw_batchnorm(torch, m.params, 1)
+                refresh_batchnorm(torch, m, x[:ZOO_B])
+            scale, logit_spread = calibrate_head(torch, m, x)
+            clf.predict_image_set(ImageSet.from_arrays(images[:ZOO_B]),
+                                  top_k=5, batch_size=ZOO_B)   # warm-up
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            iset = ImageSet.from_arrays([i.copy() for i in images])
+            K.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clf.predict_image_set(iset, top_k=5, batch_size=ZOO_B)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = K.launch_counts()
+            probs = np.stack([f["predict"] for f in iset.features])
+            launched = {k: v for k, v in counts.items() if v}
+            want = {"conv2d": n_kernel * n_batches}
+            xb = x[:ZOO_B]
+            t = timed(torch, lambda: m.predict(xb, batch_size=ZOO_B,
+                                               device="cuda"),
+                      3, kernel="conv_f32_tc_kernel", warmup=1)
+            groups = {}
+            for ev, ms in t["by_name"].items():
+                g = _zoo_group(ev)
+                groups[g] = groups.get(g, 0.0) + ms
+            # (a) the same images through the reference conv everywhere
+            os.environ["ZOO_CONV_IMPL"] = "reference"
+            try:
+                K.reset_launch_counts()
+                ref = m.predict(x, batch_size=ZOO_B, device="cuda")
+                ref_launches = K.launch_counts()["conv2d"]
+            finally:
+                del os.environ["ZOO_CONV_IMPL"]
+            diff = float(np.abs(probs - ref).max())
+            # (b) the comparison's spread: across images and classes
+            spread = float(np.abs(probs - probs.mean(0)).max())
+            classes = int(len(set(probs.argmax(1))))
+            # (c) a model file round trip
+            path = os.path.join(tmp, f"{name}.model")
+            clf.save_model(path)
+            back = ImageClassifier.load_model(path)
+            again = back.model.predict(x, batch_size=ZOO_B, device="cuda")
+            round_trip = bool(np.array_equal(again, probs))
+            emit({"phase": "zoo-main", "family": name, "card": card,
+                  "model": f"ImageClassifier.create({name!r}, "
+                           f"{ZOO_CLASSES})",
+                  "input": [224, 224, 3], "policy": "float32",
+                  "params": sum(v.numel() for v in tree_leaves(m.params)),
+                  "images": ZOO_IMAGES, "batch": ZOO_B,
+                  "image_sizes": [list(sz) for sz in ZOO_SIZES],
+                  "setup_s": setup_s, "preprocess_s": preprocess_s,
+                  "wall_s": wall, "images_per_s": ZOO_IMAGES / wall,
+                  "batch_wall_ms": wall * 1e3 / n_batches,
+                  "batch_forward_wall_ms": t["wall_ms"],
+                  "batch_device_ms": t["device_ms"],
+                  "device_busy_share": t["device_busy_share"],
+                  "conv_kernel_ms": t["kernel_ms"],
+                  "conv_kernel_share": None if not t["device_ms"] or
+                  t["kernel_ms"] is None else
+                  t["kernel_ms"] / t["device_ms"],
+                  "device_ms_by_group": groups,
+                  "launches": launched, "expected_launches": want,
+                  "conv2d_per_forward_from_graph": n_kernel,
+                  "reference_route_convs_per_forward": reference,
+                  "batchnorm_refreshed": has_bn, "head_scale": scale,
+                  "seed_logit_spread": logit_spread,
+                  "vs_reference_max_abs": diff, "tol": TOL_TINY_F32,
+                  "reference_conv2d_launches": ref_launches,
+                  "prob_spread": spread, "top1_classes": classes,
+                  "top5_of_image_0": iset.features[0]["classes"],
+                  "save_load_bit_equal": round_trip})
+            if not (probs.shape == (ZOO_IMAGES, ZOO_CLASSES)
+                    and np.isfinite(probs).all()
+                    and np.allclose(probs.sum(1), 1.0, atol=1e-4)
+                    and all(len(f["classes"]) == 5
+                            for f in iset.features)):
+                raise AssertionError(f"zoo-main {name}: outputs are not "
+                                     "probabilities with top-5 labels")
+            if launched != want or ref_launches:
+                raise AssertionError(
+                    f"zoo-main {name}: launches {launched} (reference "
+                    f"route {ref_launches}), expected {want} and 0")
+            if spread < 100 * TOL_TINY_F32:
+                raise AssertionError(
+                    f"zoo-main {name}: probabilities spread {spread} "
+                    f"({classes} top-1 classes): the comparison would "
+                    "be vacuous")
+            if not diff <= TOL_TINY_F32:
+                raise AssertionError(f"zoo-main {name}: kernel route "
+                                     f"differs from reference by {diff}")
+            if not round_trip:
+                raise AssertionError(f"zoo-main {name}: the loaded model "
+                                     "predicts other values")
+            predict_launches["conv2d"] += counts["conv2d"]
+            del clf, m, back, x, probs, ref, again
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) MobileNet-v1 fit steps: each step through the kernels and,
+    # from the same params and optimizer state, through the plain path
+    clf = ImageClassifier.create("mobilenet", ZOO_CLASSES)
+    m = clf.model
+    m.compile(SGD(lr=ZOO_FIT_LR, momentum=0.9),
+              "sparse_categorical_crossentropy")
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    x = clf.preprocess(ImageSet.from_arrays(images[:ZOO_B]))
+    y = np.random.RandomState(1).randint(0, ZOO_CLASSES, ZOO_B) \
+        .astype(np.int32)
+    n_kernel = len(envelope_convs(m))
+    n_train = len(tree_leaves(_split_state(m.params)[0]))
+    steps = ZOO_FIT_STEPS
+    counts = {}
+    losses, plain, update_diff, control, step_s = [], [], [], [], 0.0
+    for _ in range(steps):
+        start, opt = _cloned(torch, m.params), _cloned(torch, m._opt_state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, c = _fit_losses(m, x, y, ZOO_B, 1)
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        after, after_opt = _cloned(torch, m.params), \
+            _cloned(torch, m._opt_state)
+        m.params, m._opt_state = _cloned(torch, start), _cloned(torch, opt)
+        ref, c = _fit_losses(m, x, y, ZOO_B, 1, plain=True)
+        if any(c.values()):
+            raise AssertionError(f"zoo-main fit: the plain path launched {c}")
+        plain_after = _cloned(torch, m.params)
+        # the control: the plain step on the images nudged by one ulp
+        m.params, m._opt_state = _cloned(torch, start), _cloned(torch, opt)
+        _fit_losses(m, x * np.float32(1 + 2 ** -23), y, ZOO_B, 1,
+                    plain=True)
+        t_k, t_p, t_c, t_0 = (tree_leaves(_split_state(t)[0]) for t in (
+            after, plain_after, m.params, start))
+        losses += loss
+        plain += ref
+        update_diff.append(_update_gap(t_k, t_p, t_0))
+        control.append(_update_gap(t_c, t_p, t_0))
+        m.params, m._opt_state = after, after_opt
+    # a step: every in-envelope conv forward (the backward is the
+    # reference conv's gradients), one SGD launch a trainable leaf,
+    # Dropout(0.001) forward and backward, and the key chain's split and
+    # the dropout layer's fold-in
+    want = {"conv2d": n_kernel * steps, "fused_sgd": n_train * steps,
+            "dropout": 2 * steps, "derive_keys": 2 * steps}
+    launched = {k: v for k, v in counts.items() if v}
+    per_step = (np.abs(np.subtract(losses, plain)) / np.abs(plain)).tolist()
+    rel = float(max(per_step))
+    emit({"phase": "zoo-main", "fit": "mobilenet", "card": card,
+          "optimizer": f"SGD(lr={ZOO_FIT_LR}, momentum=0.9)",
+          "batch": ZOO_B, "steps": steps, "step_ms": step_s * 1e3 / steps,
+          "losses": losses, "plain_losses": plain,
+          "rel_loss_diff_by_step": per_step, "tol": TOL_TRAIN_TINY,
+          "rel_update_diff_by_step": update_diff,
+          "control_one_ulp_input_by_step": control,
+          "update_tol_x_control": TOL_ZOO_UPDATE_X,
+          "launches": launched, "expected_launches": want})
+    if not (all(np.isfinite(losses)) and rel <= TOL_TRAIN_TINY
+            and all(d <= TOL_ZOO_UPDATE_X * c
+                    for d, c in zip(update_diff, control))):
+        raise AssertionError(f"zoo-main fit: losses {losses} vs plain "
+                             f"{plain}, updates apart by {update_diff}")
+    if launched != want:
+        raise AssertionError(f"zoo-main fit: launches {launched}, "
+                             f"expected {want}")
+    del clf, m
+    torch.cuda.empty_cache()
+    return ({"conv2d": predict_launches["conv2d"]},
+            {k: counts[k] for k in want})
+
+
+def _update_gap(params, ref, start):
+    """``||params - ref|| / ||ref - start||`` over lists of leaves: how far
+    one step's update lies from the reference step's, relative to it."""
+    num = math.sqrt(sum(float(((a - b).detach() ** 2).sum())
+                        for a, b in zip(params, ref)))
+    den = math.sqrt(sum(float(((b - o).detach() ** 2).sum())
+                        for b, o in zip(ref, start)))
+    return num / den
+
+
+def _cloned(torch, tree):
+    """A copy of a params or optimizer-state tree (tensors cloned)."""
+    if isinstance(tree, dict):
+        return {k: _cloned(torch, v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    return tree
 
 
 def phase_bottleneck_main(torch, K, card):
@@ -7595,6 +8096,8 @@ def main():
         by_path.update(staged("seq-tiny", phase_seq_tiny, torch, K, card))
         by_path.update(staged("chronos-main", phase_chronos_main, torch, K,
                               card))
+        by_path["zoo_predict"], by_path["zoo_fit"] = staged(
+            "zoo-main", phase_zoo_main, torch, K, card)
         by_path["estimator_ncf"] = staged("estimator-main",
                                           phase_estimator_main, torch, K,
                                           card)
@@ -7650,6 +8153,7 @@ def main():
                                            "composition_ratio", "shape",
                                            "plan", "device_launches_per_call",
                                            "vgg_first_conv", "served_fc6",
+                                           "zoo_shapes",
                                            "interface", "shapes")
                    if key in t},
                 **({"verify_shape": {key: t["verify_shape"][key] for key in (

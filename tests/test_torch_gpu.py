@@ -1910,3 +1910,79 @@ def test_chronos_dilated_reference_conv_grads_repeat(hopper):
     for p, q, c in zip(a, b, cpu):
         assert torch.equal(p, q)
         assert _err(p.cpu(), c) <= 1e-4 * max(1.0, float(c.abs().max()))
+
+
+# -- the image zoo's conv shapes (f32, B = 32) ------------------------------
+#
+# SqueezeNet fire2 and its 512 -> 1000 head, MobileNet-v2's 16-, 24- and
+# 144-channel convs (below and off the kernel's 32-channel step),
+# DenseNet-121's bottleneck and growth convs, Inception 3a: against the
+# plain version within 1e-5 of the largest output, one launch each.
+
+@pytest.mark.parametrize("h,c,k,o", [
+    (56, 64, 1, 16), (56, 16, 3, 64), (112, 32, 1, 16), (56, 24, 1, 144),
+    (56, 144, 1, 24), (56, 128, 3, 32), (56, 96, 1, 128), (28, 192, 1, 64),
+    (28, 96, 3, 128), (14, 512, 1, 1000), (7, 160, 1, 960),
+    (112, 16, 1, 96)])
+def test_f32_conv_at_the_zoo_shapes(hopper, h, c, k, o):
+    from zoo_tpu_torch.ops.kernels import conv
+    g = _gen(hopper, 22)
+    x = torch.randn(32, h, h, c, generator=g, device=hopper)
+    wt = torch.randn(k, k, c, o, generator=g, device=hopper)
+    before = conv.LAUNCHES
+    y = conv.implicit_gemm_conv2d(x, wt)
+    ref = conv.conv2d_plain(x, wt)
+    torch.cuda.synchronize()
+    assert conv.LAUNCHES == before + 1
+    assert _rel_err(y, ref) <= 1e-5
+
+
+def test_depthwise_reference_conv_on_the_card(hopper):
+    """MobileNet's depthwise 3x3/2 (``groups = C``, multiplier 2) on the
+    card: forward and gradients within f32 summation order of the CPU's,
+    and the gradients repeat bit for bit."""
+    from zoo_tpu_torch.ops.kernels import conv as CV
+    g = _gen(hopper, 9)
+    x = torch.randn(8, 28, 28, 32, generator=g, device=hopper)
+    w = torch.randn(3, 3, 1, 64, generator=g, device=hopper) * 0.2
+    dy = torch.randn(8, 14, 14, 64, generator=g, device=hopper)
+
+    def grads(*t):
+        return CV.conv2d_plain_grads(*t, (2, 2), "SAME", groups=32)
+
+    y = CV.conv2d_plain(x, w, (2, 2), "SAME", groups=32)
+    a, b = grads(x, w, dy), grads(x, w, dy)
+    cpu_y = CV.conv2d_plain(x.cpu(), w.cpu(), (2, 2), "SAME", groups=32)
+    cpu = grads(x.cpu(), w.cpu(), dy.cpu())
+    torch.cuda.synchronize()
+    assert _err(y.cpu(), cpu_y) <= 1e-5 * max(1.0, float(cpu_y.abs().max()))
+    for p, q, c in zip(a, b, cpu):
+        assert torch.equal(p, q)
+        assert _err(p.cpu(), c) <= 1e-4 * max(1.0, float(c.abs().max()))
+
+
+def test_image_classifier_on_the_card(hopper):
+    """``ImageClassifier.predict_image_set`` of a small MobileNet-v1 on
+    the card: the kernel route within 1e-5 of the reference route, the
+    in-envelope convs launched once a forward each."""
+    import os
+
+    from zoo_tpu_torch.feature.image import ImageSet
+    from zoo_tpu_torch.models.image import ImageClassifier
+    from zoo_tpu_torch.ops.kernels import conv
+    clf = ImageClassifier.create("mobilenet", 10)
+    clf.model.build(_gen(hopper, 3), device=hopper)
+    rs = np.random.RandomState(0)
+    images = ImageSet.from_arrays([rs.randint(0, 256, (240, 300, 3))
+                                   .astype(np.uint8) for _ in range(4)])
+    before = conv.LAUNCHES
+    out = clf.predict_image_set(images, top_k=3, batch_size=4)
+    torch.cuda.synchronize()
+    assert conv.LAUNCHES - before == 13       # the 13 pointwise convs
+    probs = np.stack([f["predict"] for f in out.features])
+    os.environ["ZOO_CONV_IMPL"] = "reference"
+    try:
+        ref = clf.model.predict(clf.preprocess(images), batch_size=4)
+    finally:
+        del os.environ["ZOO_CONV_IMPL"]
+    assert np.abs(probs - ref).max() <= 1e-5

@@ -751,13 +751,17 @@ def _drain(handles, budget=120.0):
 def _traced_engine_run(P, engine, prompts, n, d):
     """Streams of one engine under tracing and a fresh ring: per trace
     id the span/event names with their deterministic attributes, and
-    the per-stream ring records."""
+    the per-stream ring records. Every prompt is queued before the
+    engine's loop starts, so the first tick admits them all in both
+    packages (submitted to a running loop, a prompt landed in the first
+    or a later tick as the threads were scheduled)."""
     P.flight.reset_for_tests()
     P.tracing.trace_to(d)
-    eng = engine.start()
+    eng = engine
     try:
         hs = [eng.submit(p, n, rid=f"r{i}", trace_id=f"t{i}",
                          parent_span="ps") for i, p in enumerate(prompts)]
+        eng.start()
         _drain(hs)
         assert [h.trace_id for h in hs] == [f"t{i}"
                                             for i in range(len(hs))]
@@ -801,15 +805,21 @@ def test_engine_spans_and_ring_per_stream_equal_jax(tmp_path, case,
                      max_blocks_per_seq=8, prefill_buckets=(8, 32))
         prompts = [np.arange(2, 8) % 64, np.arange(3, 9) % 64]
         n = 14
+    # the preempt case ticks in step (``overlap=False``): under the
+    # overlapped loop the readback thread applies tick N's tokens while
+    # tick N+1 is scheduled, so how many tokens a stream holds when the
+    # pool runs dry, and so which stream is preempted at which count,
+    # follows the threads' timing in either package
+    overlap = None if case == "bucket" else False
     jm = JaxModel(JaxConfig(**ARCH), seed=0, **shape)
     tree = jax.tree_util.tree_map(np.asarray, jm.params)
     pm = PagedLlamaModel(LlamaConfig(**ARCH),
                          params=params_from_jax(tree, "cpu"), device="cpu",
                          **shape)
-    ref = _traced_engine_run(PKG["jax"], JaxEngine(jm), prompts, n,
-                             str(tmp_path / "j"))
-    got = _traced_engine_run(PKG["port"], LLMEngine(pm), prompts, n,
-                             str(tmp_path / "p"))
+    ref = _traced_engine_run(PKG["jax"], JaxEngine(jm, overlap=overlap),
+                             prompts, n, str(tmp_path / "j"))
+    got = _traced_engine_run(PKG["port"], LLMEngine(pm, overlap=overlap),
+                             prompts, n, str(tmp_path / "p"))
     assert got == ref
     names = {x[1] for evs in got[1].values() for x in evs}
     assert {"llm.admit", "llm.first_token", "llm.stream",

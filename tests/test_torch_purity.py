@@ -5,8 +5,10 @@ name, ``zoo_tpu_torch``, shares the prefix and is allowed), nor
 own optimizers, checkpoint codec, duck-typed tables and event writer;
 Chronos's TSDataset, which takes users' frames, imports pandas inside
 the functions that need it, and importing it pulls in none);
-the guard's controller imports without ``torch``; and its entry points
-refuse to run quietly on the CPU."""
+the guard's controller imports without ``torch``; importing any of its
+modules pulls in neither ``cv2`` nor ``PIL`` (the machine with the card
+has neither: only image decoding imports cv2, when it runs); and its
+entry points refuse to run quietly on the CPU."""
 
 import ast
 import os
@@ -78,7 +80,13 @@ def test_importing_every_module_pulls_in_no_jax():
               "models.seq2seq", "chronos.data.tsdataset",
               "chronos.forecaster", "chronos.detector.anomaly",
               "chronos.autots.autotsestimator", "automl.search",
-              "automl.tpe", "automl.common.metrics"):
+              "automl.tpe", "automl.common.metrics",
+              "pipeline.api.keras.layers.advanced",
+              "pipeline.api.keras.layers.extras",
+              "pipeline.api.keras.layers.conv_extras",
+              "pipeline.api.keras.layers.compat_extras",
+              "feature.common", "feature.image", "feature.image3d",
+              "feature.image3d.transformation"):
         assert "zoo_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -116,6 +124,24 @@ def test_no_import_of_jax_or_zoo_tpu_in_source(path):
             names.append(str(node.args[0].value))
     bad = [n for n in names if _forbidden(n)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_importing_every_module_pulls_in_no_cv2_or_pil():
+    """The image pipeline resizes and converts colours itself; no module
+    of the port imports OpenCV or Pillow when it is imported (decoding
+    imports cv2 inside the function that decodes)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('cv2', 'PIL'))\n"
+        "print(bad)\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_the_text_pipeline_imports_no_torch():
@@ -395,3 +421,32 @@ def test_chronos_entry_points_raise_without_a_card(monkeypatch, tmp_path):
     assert a.predict(3).shape == (3,)
     assert TSPipeline.load(str(tmp_path / "p"), device="cpu").predict(
         ts).shape == (26, 1, 1)
+
+
+def test_image_zoo_entry_points_raise_without_a_card(monkeypatch,
+                                                     tmp_path):
+    """The image-classification slice: no GPU and no ``device=`` raises
+    at ``ImageClassifier.predict_image_set`` and ``load_model``, and at a
+    zoo model's ``predict`` and ``fit``; ``device="cpu"`` predicts."""
+    from zoo_tpu_torch.feature.image import ImageSet
+    from zoo_tpu_torch.models.image import ImageClassifier, mobilenet_v1
+
+    images = ImageSet.from_arrays(
+        [np.zeros((240, 250, 3), np.uint8) for _ in range(2)])
+    clf = ImageClassifier.create("squeezenet", 3)
+    path = str(tmp_path / "m.model")
+    small = mobilenet_v1(3, alpha=0.25, input_shape=(32, 32, 3))
+    small.compile("sgd", "sparse_categorical_crossentropy")
+    small.build(torch.Generator().manual_seed(0), device="cpu")
+    small.save(path)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((2, 32, 32, 3), np.float32)
+    for call in (lambda: clf.predict_image_set(images),
+                 lambda: ImageClassifier.load_model(path),
+                 lambda: small.predict(x),
+                 lambda: small.fit(x, np.zeros(2, np.int64), batch_size=2,
+                                   nb_epoch=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    out = clf.predict_image_set(images, top_k=2, device="cpu")
+    assert len(out.features[0]["classes"]) == 2

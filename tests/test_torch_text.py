@@ -194,11 +194,6 @@ def test_shape_layers_match_jax(name, kw, shape, out):
         {}, torch.from_numpy(x)).shape == out
 
 
-def test_gaussian_noise_names_the_roadmap():
-    with pytest.raises(NotImplementedError, match="A.11"):
-        tlayers.GaussianNoise(0.1)
-
-
 def _pair(jm, tm, seed=0):
     """The JAX model's weights and layer names on the port's model."""
     tree = jax.tree_util.tree_map(np.asarray, jm.build(

@@ -23,8 +23,8 @@ match: the same graph, layer for layer).
   as ``tests/test_torch_resnet.py`` holds ResNet.
 * ``Dropout`` is the identity at inference, a training forward with
   ``p > 0`` is refused naming ROADMAP A.11b; ``Flatten`` flattens NHWC
-  as JAX does; ``vgg19`` builds the JAX graph; the rest of the family
-  is refused naming A.12.
+  as JAX does; ``vgg19`` builds the JAX graph (the rest of the family:
+  ``tests/test_torch_image_zoo.py``).
 """
 
 import jax
@@ -214,12 +214,3 @@ def test_flatten_matches_jax():
         got, np.asarray(jlayers.Flatten().call({}, x)))
     assert tlayers.Flatten().compute_output_shape((None, 3, 4, 5)) == \
         jlayers.Flatten().compute_output_shape((None, 3, 4, 5))
-
-
-@pytest.mark.parametrize("name", [
-    "inception_v1", "mobilenet_v1", "mobilenet_v2", "squeezenet",
-    "densenet121", "create_image_classifier",
-    "image_classification_preprocess", "ImageClassifier"])
-def test_the_rest_of_the_family_names_roadmap_a12(name):
-    with pytest.raises(NotImplementedError, match="A.12"):
-        getattr(timage, name)(10)

@@ -1,1 +1,2 @@
-"""Feature pipelines of the port (``text``)."""
+"""Feature pipelines of the port: ``common`` (the Preprocessing
+algebra), ``image``, ``image3d`` and ``text``."""

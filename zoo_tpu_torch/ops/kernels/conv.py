@@ -386,21 +386,25 @@ def _padded_nchw(x, pads: Pads, dtype) -> torch.Tensor:
 
 
 def _conv_nhwc(x, w, strides, pads: Pads, dtype,
-               dilation: Tuple[int, int] = (1, 1)) -> torch.Tensor:
+               dilation: Tuple[int, int] = (1, 1),
+               groups: int = 1) -> torch.Tensor:
     """``F.conv2d`` of NHWC ``x`` and HWIO ``w``, both cast to
-    ``dtype``, with explicit (top, bottom), (left, right) pads and the
-    kernel's ``dilation`` (XLA's ``rhs_dilation``); NHWC out."""
+    ``dtype``, with explicit (top, bottom), (left, right) pads, the
+    kernel's ``dilation`` (XLA's ``rhs_dilation``) and ``groups`` (XLA's
+    ``feature_group_count``: output channel ``o`` reads group ``o //
+    (O / groups)``, as in both); NHWC out."""
     xn = _padded_nchw(x, pads, dtype)
     with _no_tf32():
         y = F.conv2d(xn, w.to(dtype).permute(3, 2, 0, 1),
-                     stride=tuple(strides), dilation=tuple(dilation))
+                     stride=tuple(strides), dilation=tuple(dilation),
+                     groups=groups)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
 def conv2d_plain_grads(x, w, dy, strides: Tuple[int, int] = (1, 1),
                        padding: Union[str, Pads] = "SAME",
                        needs: Tuple[bool, bool] = (True, True),
-                       dilation: Tuple[int, int] = (1, 1)):
+                       dilation: Tuple[int, int] = (1, 1), groups: int = 1):
     """``(dx, dw)``, the gradients of the reference conv in ``x``'s
     dtype (f32 sums, TF32 off) at ``x``, ``w`` for the output gradient
     ``dy``: the float kernel's backward (and, with ``dilation``, the
@@ -424,13 +428,15 @@ def conv2d_plain_grads(x, w, dy, strides: Tuple[int, int] = (1, 1),
         if needs[0]:
             dx = torch.nn.grad.conv2d_input(xn.shape, wn, dyn,
                                             stride=strides,
-                                            dilation=dilation)
+                                            dilation=dilation,
+                                            groups=groups)
             dx = dx[:, :, pt:pt + x.shape[1], pl:pl + x.shape[2]]
             dx = dx.permute(0, 2, 3, 1).contiguous()
         if needs[1]:
             dw = torch.nn.grad.conv2d_weight(xn, wn.shape, dyn,
                                              stride=strides,
-                                             dilation=dilation)
+                                             dilation=dilation,
+                                             groups=groups)
             dw = dw.permute(2, 3, 1, 0).contiguous().to(w.dtype)
     return dx, dw
 
@@ -442,38 +448,42 @@ class _ConvPlain(torch.autograd.Function):
     ``dw`` are cast to their inputs' dtypes."""
 
     @staticmethod
-    def forward(ctx, x, w, strides, pads, dilation):
+    def forward(ctx, x, w, strides, pads, dilation, groups):
         ctx.save_for_backward(x, w)
         ctx.conv = (strides, pads)
-        ctx.dilation = dilation
+        ctx.dilation, ctx.groups = dilation, groups
         return _conv_nhwc(x, w, strides, pads, torch.float32,
-                          dilation).to(x.dtype)
+                          dilation, groups).to(x.dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dx, dw = conv2d_plain_grads(x.float(), w.float(), dy.float(),
                                     *ctx.conv, needs=ctx.needs_input_grad[:2],
-                                    dilation=ctx.dilation)
+                                    dilation=ctx.dilation, groups=ctx.groups)
         return (None if dx is None else dx.to(x.dtype),
-                None if dw is None else dw.to(w.dtype), None, None, None)
+                None if dw is None else dw.to(w.dtype), None, None, None,
+                None)
 
 
 def conv2d_plain(x: torch.Tensor, w: torch.Tensor,
                  strides: Tuple[int, int] = (1, 1),
                  padding: Union[str, Pads] = "SAME",
-                 dilation: Tuple[int, int] = (1, 1)) -> torch.Tensor:
+                 dilation: Tuple[int, int] = (1, 1),
+                 groups: int = 1) -> torch.Tensor:
     """The reference conv and the float kernel's plain version: f32
     arithmetic, output in ``x``'s dtype; differentiable, with f32
     gradients (TF32 off, cuDNN's deterministic algorithms) cast to the
     inputs' dtypes (:class:`_ConvPlain`). ``padding``: ``"SAME"``,
     ``"VALID"`` or explicit ``((top, bottom), (left, right))``;
     ``dilation``: the kernel's (XLA's ``rhs_dilation``), as the TCN's
-    dilated causal convs take it."""
+    dilated causal convs take it; ``groups``: XLA's
+    ``feature_group_count`` (``w`` is HWIO with I = C / groups), as the
+    depthwise convs take it."""
     strides, dilation = tuple(strides), tuple(int(d) for d in dilation)
     return _ConvPlain.apply(x, w, strides,
                             _pads(x, w, strides, padding, dilation),
-                            dilation)
+                            dilation, int(groups))
 
 
 def conv2d_int8_plain(x_q, w_q, x_scale, w_scale,

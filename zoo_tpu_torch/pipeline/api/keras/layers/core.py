@@ -2,11 +2,9 @@
 ``zoo_tpu/pipeline/api/keras/layers/core.py``): ``InputLayer``,
 ``Dense`` (with its int8 path), ``Activation``, ``Dropout``,
 ``Flatten``, ``Reshape``, ``Permute``, ``RepeatVector``, ``Lambda``,
-``Embedding``, ``BatchNormalization`` and ``Merge``/``merge``. Keras-1
-argument names are kept. Parameters are held by the model, as
-``engine.base`` describes. ``GaussianNoise`` is not ported (its
-``jax.random.normal`` goes through ``erfinv``, which is not
-reproducible bit for bit; ROADMAP A.11).
+``Embedding``, ``BatchNormalization``, ``GaussianNoise`` and
+``Merge``/``merge``. Keras-1 argument names are kept. Parameters are
+held by the model, as ``engine.base`` describes.
 """
 
 from __future__ import annotations
@@ -173,13 +171,24 @@ class RepeatVector(Layer):
 
 
 class GaussianNoise(Layer):
-    """Not ported: JAX's ``jax.random.normal`` goes through ``erfinv``,
-    which the port cannot reproduce bit for bit (ROADMAP A.11)."""
+    """Additive N(0, sigma**2) noise in training: ``x + sigma *
+    normal(layer_rng(rng, name), x.shape)``, the draw
+    :func:`zoo_tpu_torch.ops.random.normal` (within 3 ulp of
+    ``jax.random.normal``); the identity otherwise."""
 
     def __init__(self, sigma: float, **kwargs):
-        raise NotImplementedError(
-            "GaussianNoise is not ported to zoo_tpu_torch yet (ROADMAP "
-            "A.11: jax.random.normal's erfinv bits)")
+        super().__init__(**kwargs)
+        self.sigma = float(sigma)
+
+    def call(self, params, inputs, *, training=False, rng=None):
+        if not training or self.sigma <= 0:
+            return inputs
+        if rng is None:
+            raise ValueError(f"{self.name}: GaussianNoise needs an rng in "
+                             "training")
+        from zoo_tpu_torch.ops import random as R
+        noise = R.normal(layer_rng(rng, self.name), inputs.shape)
+        return inputs + self.sigma * noise
 
 
 class Lambda(Layer):
