@@ -32,6 +32,9 @@ and CPU seconds at the end; the ``device`` line holds them too):
    be one) beside its plain
    version, its least possible time on the card, and (flash only)
    ``scaled_dot_product_attention`` as a yardstick the port never calls;
+   the bf16 causal flash forward, dK/dV and dQ also at T = 4096
+   (``moe_shape`` (2, 32, 8, 4096, 128) and ``long_context_shape`` (8,
+   12, 4, 4096, 64));
 4. tiny — ``llama:tiny`` greedy streams through the engine with the
    kernels equal the streams with every plain version, token for
    token, on the bucket and ``chunk=4`` paths; then
@@ -59,6 +62,11 @@ and CPU seconds at the end; the ``device`` line holds them too):
    shuffled epochs with the fused AdamW, f32 and ``mixed_bfloat16``,
    equals the same ``fit`` through the dense attention and the plain
    update (f32 to 4b's tolerances, bf16 losses within rtol 2e-2);
+4c2. moe-tiny — ``MoELlama`` at ``tiny_llama_config`` widths (4 experts,
+   top 2, T=512, so ``auto`` takes the causal flash kernels) ``fit`` for
+   two shuffled epochs with the fused AdamW, f32 and ``mixed_bfloat16``,
+   equals the same ``fit`` through the dense attention and the plain
+   update (4b's and 4c's tolerances), with exact launches;
 4d. estimator-tiny — the same tiny BERT through
    ``Estimator.from_keras`` (default guard, a model_dir,
    ``AdamWeightDecay(fused=True)``, L2 clipping 1.0, two epochs) equals
@@ -255,6 +263,22 @@ and CPU seconds at the end; the ``device`` line holds them too):
    refreshed from a batch, the head calibrated; distinct top-1 classes
    printed), a model file round trip; then 4 ``fit`` steps of
    MobileNet-v1 (B=32, SGD 0.9) against plain with exact launches;
+   then moe-main: ``MoELlama`` at Mixtral-8x7B-v0.1's published widths
+   (vocab 32000, hidden 4096, 32 heads, 8 kv heads, intermediate 14336,
+   8 experts, top 2, aux weight 0.02, capacity factor 1.25) cut to 2 of
+   32 blocks, B=2 x T=4096, ``remat="dots"``, ``mixed_bfloat16``, the
+   fused AdamW: a ``training=False`` forward through the flash kernels
+   against the dense attention (loss within 1e-3, at most 5 % of the
+   token rows moved by a routing flip), 4 steps with exact launches (2
+   flash forwards, 2 dK/dV, 2 dQ and 13 AdamW a step), step wall and
+   device ms, busy share, tokens/s, ``mfu``, peak memory and device ms by
+   group, ``call_with_aux`` forward and backward (finite aux, a nonzero
+   router gradient), and the fused AdamW on one 939.5 M-element expert
+   bank against plain; then seam-models-main: 4 ``fit`` steps each of
+   Wide & Deep (MovieLens-1M's columns, B=8192) and KNRM (qaranker's
+   widths, B=256) against the same fits on the CPU, and NER with its
+   CRF (B=32) against the plain route with exact dropout and key
+   launches and ``crf_decode`` on the card equal to the CPU's;
 13b. estimator-main — the NCF flagship through ``Estimator.from_keras(m,
    model_dir=tmp)`` with the default guard at B=8192 (96 training
    batches an epoch, a tenth of all rows held out for validation,
@@ -568,6 +592,58 @@ BERT_CFG = dict(vocab=30522, hidden_size=768, n_block=12, n_head=12,
 BERT_RUNS = (("a", 128, 64), ("b", 512, 16))
 BERT_S, BERT_B = BERT_RUNS[1][1:]
 BERT_STEPS = 8
+# MoE Llama at Mixtral-8x7B-v0.1's published widths (its config.json:
+# vocab 32000, hidden 4096, 32 heads, 8 kv heads, intermediate 14336,
+# rope_theta 1e6, rms_norm_eps 1e-5, 8 local experts, 2 a token, router
+# aux loss coefficient 0.02) with the JAX package's capacity factor 1.25
+# (Mixtral routes dropless); depth cut to 2 of 32 blocks by memory (a
+# block's f32 weights, gradients and AdamW moments take 23.2 GB), B=2 x
+# T=4096 (16 routing groups of 512 tokens, 160 slots an expert a group)
+MOE_CFG = dict(vocab=32000, hidden=4096, n_block=2, n_head=32, n_kv_head=8,
+               intermediate=14336, rope_theta=1e6, rms_eps=1e-5)
+MOE_EXPERTS = dict(n_experts=8, top_k=2, aux_loss_weight=0.02)
+MOE_B, MOE_T, MOE_STEPS = 2, 4096, 4
+# moe-main, kernels vs plain at the seed weights: the first step's loss
+# (a mean of 8192 cross-entropies, each moved by bf16 roundings of the
+# attention output that the flash kernel and the dense path place
+# differently) within 1e-3 relative of the dense forward's; and the
+# token rows whose logits move past the bf16 tolerance (TOL["bfloat16"]
+# times the row's largest logit) at most TOL_MOE_MOVED of them: such a
+# row is a token whose top-2 choice or capacity slot flipped on a near
+# tie of its router probabilities, which moves its whole output by an
+# expert's difference
+TOL_MOE_LOSS, TOL_MOE_MOVED = 1e-3, 0.05
+# phase 3's long-sequence flash shapes, bf16 causal, (B, H, Hkv, T, D):
+# the MoE path's, and bench.py bench_llama_longctx's (the training
+# config at S=4096, B=8)
+LONG_FLASH_SHAPES = (("moe_shape", (2, 32, 8, 4096, 128)),
+                     ("long_context_shape", (8, 12, 4, 4096, 64)))
+# seam-models-main: Wide & Deep with the column layout of the reference's
+# apps/recommendation-wide-n-deep notebook at MovieLens-1M's sizes
+# (6040 users, 3706 items, 5 ratings), B=8192; KNRM at the reference
+# qaranker example's widths (question 10 and answer 40 tokens, 300-d
+# GloVe-width embeddings, 21 kernels), vocab 30,000, B=256; NER at its
+# default widths with CoNLL-2003's 9 BIO tags, 20,000 words, 100 chars,
+# B=32; SEAM_STEPS fit steps each
+WND_COLUMNS = dict(
+    wide_base_cols=["occupation", "gender"], wide_base_dims=[21, 3],
+    wide_cross_cols=["age-gender"], wide_cross_dims=[100],
+    indicator_cols=["genres", "gender"], indicator_dims=[19, 3],
+    embed_cols=["userId", "itemId"], embed_in_dims=[6040, 3706],
+    embed_out_dims=[64, 64], continuous_cols=["age"])
+WND_B, KNRM_B, NER_B, SEAM_STEPS = 8192, 256, 32, 4
+KNRM_CFG = dict(text1_length=10, text2_length=40, vocab_size=30000,
+                embed_size=300, kernel_num=21, sigma=0.1, exact_sigma=0.001)
+NER_CFG = dict(num_entities=9, word_vocab_size=20000, char_vocab_size=100,
+               sequence_length=64, word_length=12, word_emb_dim=100,
+               char_emb_dim=30, tagger_lstm_dim=100)
+# Wide & Deep and KNRM on the card against the CPU, per-step losses
+# relative: the first (before any update) is an f32 forward summed in
+# another order; after it Adam turns a gradient element that cancels to
+# within rounding (a zero-initialised wide table whose rows' samples
+# cover the classes evenly) into a step of up to lr = 1e-3 of either
+# sign, which moves a later loss by up to ~1e-4 relative
+TOL_SEAM_FIRST, TOL_SEAM_LOSS = 1e-5, 1e-3
 
 # tolerances of kernel vs plain version, max absolute error:
 # f32 outputs 1e-4 (the same f32 math summed in another order, expf vs
@@ -1358,6 +1434,68 @@ def _bert_flash_kernels(torch, FA, randn, record, err, results):
     torch.cuda.empty_cache()
 
 
+def _long_flash_kernels(torch, FA, randn, record, err, results):
+    """The bf16 causal flash kernels at LONG_FLASH_SHAPES (T = 4096):
+    forward (o, lse), dK/dV and dQ against their plain versions (the
+    gradients to the bf16 tolerance times their largest magnitude, as
+    the dense-autograd witnesses above), then timed beside their bounds
+    and SDPA's (into ``results[kernel][label]``). The plain backward
+    forms (B, Hkv, rep, T, T) f32 tensors (4-13 GB), freed after each
+    shape."""
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    for label, (B, H, HKV, T, D) in LONG_FLASH_SHAPES:
+        q, do = randn(B, H, T, D, dtype=bf), randn(B, H, T, D, dtype=bf)
+        k, v = randn(B, HKV, T, D, dtype=bf), randn(B, HKV, T, D, dtype=bf)
+        shape = f"bfloat16 causal=True B={B} H={H} Hkv={HKV} T={T} D={D}"
+        o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+        ro, rlse = FA.flash_attention_plain(q, k, v, True)
+        torch.cuda.synchronize()
+        record("flash_attention", "o " + shape, err(o, ro), "bfloat16")
+        record("flash_attention", "lse " + shape, err(lse, rlse),
+               "bfloat16")
+        del ro, rlse
+        torch.cuda.empty_cache()
+        got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+        plain = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        for i, part in enumerate(("dq", "dk", "dv")):
+            kernel = "flash_attention_dq" if part == "dq" else \
+                "flash_attention_dkdv"
+            record(kernel, f"{part} {shape}", err(got[i], plain[i]),
+                   "bfloat16", float(plain[i].abs().max()))
+        del got, plain
+        torch.cuda.empty_cache()
+        pairs = B * H * T * (T + 1) // 2
+        qb, kb = q.numel() * 2, k.numel() * 2
+        b_ms, b_by = bound(2 * qb + 2 * kb + B * H * T * 4, 4 * D * pairs,
+                           PEAK_BF16_FLOPS)
+        t = timing(torch, "flash_fwd_tc_kernel",
+                   lambda: FA.flash_attention_fwd(q, k, v, True),
+                   lambda: FA.flash_attention_plain(q, k, v, True),
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True, enable_gqa=True), 10)
+        name = f"B={B} H={H} Hkv={HKV} T={T} D={D} bf16 causal"
+        keep = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "tflops", "bound_ratio", "library_ratio", "shape")
+        results["flash_attention"][label] = {
+            key: val for key, val in dict(
+                t, bound_ms=b_ms, bound_by=b_by, shape=name,
+                **rates(4 * D * pairs, t["ms"], b_ms,
+                        t["library_ms"])).items() if key in keep}
+        torch.cuda.empty_cache()
+        for kernel, tb in _bwd_timing(torch, FA, q, k, v, o, lse,
+                                      do).items():
+            results[kernel][label] = {key: val for key, val in dict(
+                tb, shape=name).items() if key in keep}
+        for kernel in ("flash_attention", "flash_attention_dkdv",
+                       "flash_attention_dq"):
+            emit({"phase": "kernels", "kernel": kernel,
+                  label: results[kernel][label]})
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+
 def _check_embedding_determinism(torch):
     """The gradient of the port's ``Embedding`` gather (``take_rows``,
     whose backward sums the rows of repeated ids) at NCF's shape, B=8192
@@ -1661,6 +1799,7 @@ def phase_training_kernels(torch, record, err, results):
     del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     _bert_flash_kernels(torch, FA, randn, record, err, results)
+    _long_flash_kernels(torch, FA, randn, record, err, results)
     _check_embedding_determinism(torch)
     _check_reference_conv_grads(torch, record, err)
     _check_reference_conv_determinism(torch)
@@ -8022,6 +8161,494 @@ def phase_cluster_main(torch, K, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _moe_group(name):
+    """The kernel group of a device event of an MoE Llama training step:
+    the flash kernels and AdamW by name, every GEMM (the projections, the
+    expert products, the dispatch and combine bmm, the head) as
+    ``matmul``, the routing's sort and scan as ``routing``, copies, and
+    the rest (norms, RoPE, casts, SwiGLU, the one-hot slots, the loss) as
+    ``elementwise``."""
+    n = name.lower()
+    for key, label in (("flash_fwd_tc_kernel", "flash_fwd"),
+                       ("flash_bwd_dkdv", "flash_dkdv"),
+                       ("flash_bwd_dq", "flash_dq"),
+                       ("adam_kernel", "fused_adam")):
+        if key in n:
+            return label
+    if any(s in n for s in ("gemm", "gemv", "cutlass", "matmul", "xmma",
+                            "nvjet")):
+        return "matmul"
+    if any(s in n for s in ("sort", "scan", "radix")):
+        return "routing"
+    if "memcpy" in n.replace(" ", ""):
+        return "copies"
+    return "elementwise"
+
+
+def moe_step_flops(cfg, n_experts, top_k, B, T, capacity_factor=1.25,
+                   group=512):
+    """One training step's FLOPs as the kernels and GEMMs run them (3x
+    the forward; dense over every capacity slot; the causal half of the
+    attention core; the remat's recompute not counted), with the
+    forward's parts a block and the head's."""
+    from zoo_tpu_torch.ops.moe import expert_capacity
+    h, hd = cfg["hidden"], cfg["hidden"] // cfg["n_head"]
+    kv, f = cfg["n_kv_head"] * hd, cfg["intermediate"]
+    N = B * T
+    G = min(group, N)
+    g = -(-N // G)
+    C = expert_capacity(G, n_experts, top_k, capacity_factor)
+    slots = n_experts * g * C
+    parts = {"projections": 2 * N * (2 * h * h + 2 * h * kv),
+             "attention_core": 4 * hd * B * cfg["n_head"] * T * (T + 1) // 2,
+             "router": 2 * N * h * n_experts,
+             "dispatch_combine": 2 * (2 * g * G * n_experts * C * h),
+             "experts": 3 * 2 * slots * h * f}
+    head = 2 * N * h * cfg["vocab"]
+    fwd = cfg["n_block"] * sum(parts.values()) + head
+    return 3 * fwd, {"per_block_forward": parts, "head_forward": head,
+                     "capacity": C, "groups": g, "slots_a_block": slots}
+
+
+def _expert_leaf_adam(torch, K, shape):
+    """``fused_apply_adam`` on one stacked expert bank (``shape``, 939.5 M
+    elements at Mixtral's widths and 2 blocks) against its plain version
+    (step 3, weight decay 0.01), then timed beside its bytes bound and
+    the plain version."""
+    from zoo_tpu_torch.ops.kernels import fused_optim as FO
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def leaf(scale, positive=False):
+        x = torch.randn(shape, generator=g, device="cuda") * scale
+        return x.abs() if positive else x
+    p, grad, m, v = leaf(0.05), leaf(0.1), leaf(1e-2), leaf(1e-2, True)
+    step = torch.full((), 3, dtype=torch.int32, device="cuda")
+    got = FO.fused_apply_adam(p.clone(), grad, m.clone(), v.clone(), step,
+                              1e-4, weight_decay=0.01)
+    torch.cuda.synchronize()
+    errs = []
+    for i, ref in enumerate(FO.reference_apply_adam(
+            p, grad, m, v, step, 1e-4, weight_decay=0.01)):
+        errs.append(float((got[i] - ref).abs().max()))
+        del ref
+    del got
+    torch.cuda.empty_cache()
+    n = p.numel()
+    b_ms, b_by = bound(7 * 4 * n, 0)
+    K.reset_launch_counts()
+    t = timed(torch, lambda: FO.fused_apply_adam(p, grad, m, v, step, 1e-4,
+                                                 weight_decay=0.01), 5,
+              kernel="adam_kernel")
+    plain = timed(torch, lambda: FO.reference_apply_adam(
+        p, grad, m, v, step, 1e-4, weight_decay=0.01), 3)["device_ms"]
+    out = {"shape": list(shape), "elements": n, "max_abs_err": max(errs),
+           "ms": t["kernel_ms"] or t["device_ms"], "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+           "bound_ratio": b_ms / (t["kernel_ms"] or t["device_ms"])}
+    del p, grad, m, v
+    torch.cuda.empty_cache()
+    if max(errs) > TOL["update"]:
+        raise AssertionError(f"fused_adam at the expert leaf {shape}: max "
+                             f"abs err {max(errs)}")
+    return out
+
+
+def phase_moe_main(torch, K, card):
+    """``moe-main``: Keras ``fit`` of ``MoELlama`` at Mixtral-8x7B's
+    widths (MOE_CFG, MOE_EXPERTS; 2 blocks, B=2, T=4096) with
+    ``remat="dots"``, ``mixed_bfloat16`` and the fused AdamW. First one
+    ``training=False`` forward through the flash kernels against the
+    dense attention at the seed weights (the logits' max-abs gap, the
+    loss); then MOE_STEPS steps on one batch with the launch counts reset
+    before and read after: 2 flash forwards, 2 dK/dV and 2 dQ a step, one
+    AdamW launch a leaf a step, the first step's loss within TOL_MOE_LOSS
+    of the plain forward's (the first step's loss is computed before any
+    update), every loss finite and the last under the first; step wall
+    and device ms, busy share, tokens/s, ``mfu``, peak memory and the
+    device time by group; then ``call_with_aux`` forward and backward
+    (finite aux, a nonzero router gradient); then, with the model freed,
+    the fused AdamW at one expert bank's size against its plain version.
+    Returns the fit's launches."""
+    import gc
+
+    import numpy as np
+    from zoo_tpu_torch.models.llm import LlamaConfig, MoELlama
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras import objectives as OBJ
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import AdamWeightDecay
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = LlamaConfig(**MOE_CFG)
+    B, T = MOE_B, MOE_T
+    layer = MoELlama(cfg, remat="dots", input_shape=(T,), **MOE_EXPERTS)
+    m = Sequential().add(layer)
+    m.compile(optimizer=AdamWeightDecay(lr=1e-4, fused=True), loss=LOSS,
+              dtype_policy="mixed_bfloat16")
+    rs = np.random.RandomState(0)
+    ids = rs.randint(0, cfg.vocab, (B, T)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    t0 = time.perf_counter()
+    m.build(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    dev = m._params_device()
+    y = torch.from_numpy(labels).to(dev)
+    build_s = time.perf_counter() - t0
+    key = m._key_of(layer)
+    n_leaves = len(tree_leaves(m.params))
+    n_params = sum(x.numel() for x in tree_leaves(m.params))
+    bank = tuple(m.params[key]["blocks"]["w_gate"].shape)
+
+    # the inference forward through the kernels and through the dense
+    # attention, at the seed weights
+    logits, loss0, impls = {}, {}, {}
+    for impl in ("auto", "dense"):
+        layer.attention_impl = impl
+        step = m._build_pred_step()
+        logits[impl] = step(ids)
+        with torch.no_grad():
+            loss0[impl] = float(OBJ.sparse_categorical_crossentropy_from_logits(
+                y, logits[impl]))
+        impls[impl] = layer.last_attention_impl
+        del step
+        torch.cuda.empty_cache()
+    layer.attention_impl = "auto"
+    diff = (logits["auto"] - logits["dense"]).abs().amax(-1)
+    row_top = logits["dense"].abs().amax(-1)
+    gap, top = float(diff.max()), float(row_top.max())
+    moved = float((diff > TOL["bfloat16"] * row_top.clamp(min=1.0)).float()
+                  .mean())
+    del logits, diff, row_top
+    torch.cuda.empty_cache()
+
+    K.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = m.fit(ids, labels, batch_size=B, nb_epoch=MOE_STEPS,
+                 shuffle=False, verbose=0, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = hist["loss"]
+    first_rel = abs(losses[0] - loss0["dense"]) / abs(loss0["dense"])
+
+    t = timed(torch, lambda: m.fit(ids, labels, batch_size=B, nb_epoch=1,
+                                   shuffle=False, verbose=0, device="cuda"),
+              3, warmup=1)
+    flops, work = moe_step_flops(MOE_CFG, MOE_EXPERTS["n_experts"],
+                                 MOE_EXPERTS["top_k"], B, T)
+    step_s = t["wall_ms"] / 1e3
+    groups = _grouped(t["by_name"], _moe_group)
+
+    # the training forward with the aux loss, and its backward to the
+    # router
+    trainable = m.params[key]
+    ids_t = torch.from_numpy(ids).to(dev)
+    with torch.enable_grad():
+        out, aux = layer.call_with_aux(m._cast_compute(trainable), ids_t)
+        total = OBJ.sparse_categorical_crossentropy_from_logits(y, out) + aux
+        g_router, = torch.autograd.grad(total, trainable["blocks"]["router"])
+    aux_v = float(aux.detach())
+    router_grad = float(g_router.abs().max())
+    del out, aux, total, g_router
+    emit({"phase": "moe-main", "config": dict(MOE_CFG, **MOE_EXPERTS),
+          "capacity_factor": layer.capacity_factor, "card": card,
+          "seq_len": T, "batch": B, "steps": MOE_STEPS, "params": n_params,
+          "leaves": n_leaves, "expert_bank": list(bank),
+          "build_s": build_s, "wall_s": wall,
+          "eval_forward": {"logit_max_abs_gap": gap, "logit_max_abs": top,
+                           "rows_moved_share": moved,
+                           "loss_kernels": loss0["auto"],
+                           "loss_plain": loss0["dense"],
+                           "attention_impl": impls},
+          "losses": losses, "first_step_loss_rel_to_plain": first_rel,
+          "step_wall_ms": t["wall_ms"], "step_device_ms": t["device_ms"],
+          "device_busy_share": t["device_busy_share"],
+          "device_source": t["device_source"],
+          "tokens_per_s": B * T / step_s,
+          "flops_per_step": flops, "work": work,
+          "mfu": flops / step_s / PEAK_BF16_FLOPS,
+          "peak_mem_gb": peak / 1e9,
+          "device_ms_by_group": groups,
+          "top_device_ms": [[k[:80], v] for k, v in sorted(
+              t["by_name"].items(), key=lambda kv: -kv[1])[:16]],
+          "aux": aux_v, "router_grad_max_abs": router_grad,
+          "launches": counts,
+          "attention_impl": layer.last_attention_impl})
+    want = {"flash_attention": cfg.n_block * MOE_STEPS,
+            "flash_attention_dkdv": cfg.n_block * MOE_STEPS,
+            "flash_attention_dq": cfg.n_block * MOE_STEPS,
+            "fused_adam": n_leaves * MOE_STEPS}
+    got = {k: counts[k] for k in want}
+    if n_leaves != 13 or got != want:
+        raise AssertionError(f"moe-main: launches {got} over {n_leaves} "
+                             f"leaves, expected {want} over 13")
+    if impls != {"auto": "flash", "dense": "dense"} or \
+            layer.last_attention_impl != "flash":
+        raise AssertionError(f"moe-main: attention routes {impls}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"moe-main: losses {losses}")
+    if not (first_rel <= TOL_MOE_LOSS and moved <= TOL_MOE_MOVED):
+        raise AssertionError(
+            f"moe-main: kernels vs plain: first-step loss rel {first_rel} "
+            f"(tol {TOL_MOE_LOSS}), {moved} of the rows moved (logits gap "
+            f"{gap} of {top})")
+    if not (np.isfinite(aux_v) and aux_v > 0 and router_grad > 0
+            and np.isfinite(router_grad)):
+        raise AssertionError(f"moe-main: aux {aux_v}, router gradient "
+                             f"{router_grad}")
+    del m, layer, trainable, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    leaf = _expert_leaf_adam(torch, K, bank)
+    emit({"phase": "moe-main", "expert_leaf_adam": leaf, "card": card})
+    return counts, leaf
+
+
+def phase_moe_tiny(torch, K):
+    """``moe-tiny``: ``MoELlama`` at ``tiny_llama_config`` widths with 4
+    experts, top 2, T=512 (so ``auto`` takes the flash kernels), two
+    shuffled epochs of ``fit`` (B=4, 8 sequences) with the fused AdamW,
+    f32 and ``mixed_bfloat16``, against the same ``fit`` through the dense
+    attention and the plain update, to 4b's and 4c's tolerances; exact
+    launches. Returns the kernel runs' launches."""
+    import numpy as np
+    from zoo_tpu_torch.models.llm import MoELlama, tiny_llama_config
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import AdamWeightDecay
+    cfg = tiny_llama_config()
+    S, B, N = 512, 4, 8
+    rs = np.random.RandomState(5)
+    ids = rs.randint(0, cfg.vocab, (N, S)).astype(np.int32)
+    labels = np.roll(ids, -1, axis=1)
+    steps = 2 * (N // B)
+    total = {}
+    for policy in ("float32", "mixed_bfloat16"):
+        start, out = None, {}
+        for label, impl, fused in (("kernels", "auto", True),
+                                   ("plain", "dense", False)):
+            layer = MoELlama(cfg, attention_impl=impl, input_shape=(S,),
+                             n_experts=4, top_k=2)
+            m = Sequential().add(layer)
+            m.compile(AdamWeightDecay(lr=1e-3, fused=fused), LOSS,
+                      dtype_policy=policy)
+            if start is None:
+                start = tree_map(torch.clone, m.build(
+                    torch.Generator(device="cuda").manual_seed(0),
+                    device="cuda"))
+            m.params = tree_map(torch.clone, start)
+            K.reset_launch_counts()
+            hist = m.fit(ids, labels, batch_size=B, nb_epoch=2,
+                         shuffle=True, seed=0, verbose=0, device="cuda")
+            torch.cuda.synchronize()
+            out[label] = (hist["loss"], m.params, K.launch_counts(),
+                          layer.last_attention_impl)
+        (lk, pk, ck, ik), (lp, pp, cp, ip) = out["kernels"], out["plain"]
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lk, lp))
+        param_err = max(float((a.detach() - b.detach()).abs().max())
+                        for a, b in zip(tree_leaves(pk), tree_leaves(pp)))
+        n_leaves = len(tree_leaves(pk))
+        emit({"phase": "moe-tiny", "policy": policy, "loss_kernels": lk,
+              "loss_plain": lp, "loss_max_rel": loss_rel,
+              "param_max_abs": param_err, "attention_impl": [ik, ip],
+              "leaves": n_leaves,
+              "launches": {k: v for k, v in ck.items() if v},
+              "launches_plain": {k: v for k, v in cp.items() if v}})
+        if policy == "float32":
+            ok = loss_rel <= 1e-4 and param_err <= 1e-4
+        else:
+            ok = loss_rel <= 2e-2 and all(np.isfinite(lk))
+        if not ok or (ik, ip) != ("flash", "dense"):
+            raise AssertionError(
+                f"moe-tiny {policy}: kernel path differs from plain: loss "
+                f"rel {loss_rel}, params {param_err}, impls {ik}, {ip}")
+        want = {"flash_attention": cfg.n_block * steps,
+                "flash_attention_dkdv": cfg.n_block * steps,
+                "flash_attention_dq": cfg.n_block * steps,
+                "fused_adam": n_leaves * steps}
+        got = {k: ck[k] for k in want}
+        if got != want or any(cp[k] for k in want):
+            raise AssertionError(f"moe-tiny {policy}: launches {got} "
+                                 f"(plain {cp}), expected {want}")
+        for k, v in ck.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _one_batch_fits(m, xs, y, batch, steps, device):
+    """Per-step losses of ``steps`` fits of one batch each, the batches
+    taken in order from ``xs`` (a list of arrays) and ``y``."""
+    losses = []
+    for i in range(steps):
+        sl = slice(i * batch, (i + 1) * batch)
+        hist = m.fit([a[sl] for a in xs] if len(xs) > 1 else xs[0][sl],
+                     y[sl], batch_size=batch, nb_epoch=1, shuffle=False,
+                     verbose=0, device=device)
+        losses.append(hist["loss"][0])
+    return losses
+
+
+def _card_and_cpu(torch, K, make, xs, y, batch, label):
+    """The same SEAM_STEPS one-batch fits of a model made by ``make()``
+    on the card (launches counted) and on the CPU from the card's initial
+    weights; a profiled step on the card. Returns the losses, the
+    launches and the step numbers."""
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    m = make()
+    m.build(torch.Generator(device="cuda").manual_seed(0),
+            [(None,) + a.shape[1:] for a in xs], device="cuda")
+    start = tree_map(lambda t: t.detach().cpu().clone(), m.params)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = _one_batch_fits(m, xs, y, batch, SEAM_STEPS, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = K.launch_counts()
+    step = _steps_timing(torch, lambda: _one_batch_fits(
+        m, xs, y, batch, 1, "cuda"), 2)
+    c = make()
+    c.params = start
+    cpu = _one_batch_fits(c, xs, y, batch, SEAM_STEPS, "cpu")
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    emit({"phase": "seam-models-main", "model": label, "batch": batch,
+          "steps": SEAM_STEPS, "losses": card, "cpu_losses": cpu,
+          "rel_to_cpu": rel, "step_ms": wall / SEAM_STEPS * 1e3,
+          "samples_per_s": batch * SEAM_STEPS / wall, "step": step,
+          "launches": {k: v for k, v in counts.items() if v}})
+    return card, cpu, rel, counts
+
+
+def phase_seam_models_main(torch, K, card):
+    """``seam-models-main``: SEAM_STEPS ``fit`` steps each on the card of
+    Wide & Deep (WND_COLUMNS, 5 classes, hidden (40, 20, 10), Adam,
+    B=8192), KNRM (KNRM_CFG, Adam, binary cross-entropy, B=256) and NER
+    with its CRF (NER_CFG, dropout 0.5, Adam, B=32). Wide & Deep and KNRM
+    run no kernel (as in JAX) but the key chain's split, one a step: their
+    per-step losses are held to the same fits on the CPU from the same
+    weights (the first within TOL_SEAM_FIRST, the rest within
+    TOL_SEAM_LOSS). NER: exact ``dropout`` (2 sites, forward and backward)
+    and ``derive_keys`` (the split and a key a site) launches, losses
+    within 1e-4 of the plain route's (the dropout kernel is bit-equal to
+    its plain version), and ``crf_decode`` on the card equal to the CPU's
+    tag for tag. Step ms and busy shares. Returns the launches."""
+    import numpy as np
+    from zoo_tpu_torch.models.ranking import KNRM
+    from zoo_tpu_torch.models.recommendation import (ColumnFeatureInfo,
+                                                     WideAndDeep)
+    from zoo_tpu_torch.models.text import NER, crf_decode
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+
+    rs = np.random.RandomState(0)
+    n = WND_B * SEAM_STEPS
+    ci = WND_COLUMNS
+    dims = ci["wide_base_dims"] + ci["wide_cross_dims"] + \
+        ci["indicator_dims"] + ci["embed_in_dims"]
+    x = np.stack([rs.randint(0, d, n) for d in dims]
+                 + [rs.uniform(18, 60, n)], 1).astype(np.float32)
+    y = rs.randint(0, 5, n).astype(np.int32)
+
+    def wnd():
+        m = WideAndDeep(5, ColumnFeatureInfo(**WND_COLUMNS))
+        m.compile(optimizer="adam", loss="sparse_categorical_crossentropy")
+        return m
+    out = {}
+    checks = {}
+    *_, rel, counts = _card_and_cpu(torch, K, wnd, [x], y, WND_B,
+                                    "wide_and_deep")
+    checks["wide_and_deep"] = (rel, counts)
+    out["seam_wide_and_deep"] = counts
+
+    q, d = KNRM_CFG["text1_length"], KNRM_CFG["text2_length"]
+    pairs = rs.randint(0, KNRM_CFG["vocab_size"],
+                       (KNRM_B * SEAM_STEPS, q + d)).astype(np.int32)
+    # an answer holds a question word in about half the pairs: relevant
+    plant = rs.rand(len(pairs)) < 0.5
+    pairs[plant, q + rs.randint(0, d)] = pairs[plant, 0]
+    rel_y = np.array([[float(r[0] in r[q:])] for r in pairs], np.float32)
+
+    def knrm():
+        m = KNRM(**KNRM_CFG)
+        m.compile(optimizer="adam", loss="binary_crossentropy")
+        return m
+    *_, rel, counts = _card_and_cpu(torch, K, knrm, [pairs], rel_y, KNRM_B,
+                                    "knrm")
+    checks["knrm"] = (rel, counts)
+    out["seam_knrm"] = counts
+    for label, (rel, counts) in checks.items():
+        bad = {k: v for k, v in counts.items()
+               if v and k != "derive_keys"}
+        if rel[0] > TOL_SEAM_FIRST or max(rel[1:]) > TOL_SEAM_LOSS or bad \
+                or counts["derive_keys"] != SEAM_STEPS:
+            raise AssertionError(f"seam-models-main {label}: loss gaps to "
+                                 f"the CPU {rel}, launches {counts}")
+
+    L, W = NER_CFG["sequence_length"], NER_CFG["word_length"]
+    words = rs.randint(0, NER_CFG["word_vocab_size"],
+                       (NER_B, L)).astype(np.int32)
+    chars = rs.randint(0, NER_CFG["char_vocab_size"],
+                       (NER_B, L, W)).astype(np.int32)
+    tags = rs.randint(0, NER_CFG["num_entities"], (NER_B, L)).astype(
+        np.int32)
+    ner = NER(**NER_CFG)
+    ner.compile(optimizer="adam", loss=ner.default_loss())
+    ner.build(torch.Generator(device="cuda").manual_seed(2), device="cuda")
+    snapshot = [t.detach().clone() for t in tree_leaves(ner.params)]
+
+    def ner_fit(plain=False):
+        K.reset_launch_counts()
+        with plain_kernels() if plain else contextlib.nullcontext():
+            hist = ner.fit([words, chars], tags, batch_size=NER_B,
+                           nb_epoch=SEAM_STEPS, shuffle=False, verbose=0,
+                           device="cuda")
+        torch.cuda.synchronize()
+        return hist["loss"], K.launch_counts()
+    t0 = time.perf_counter()
+    losses, counts = ner_fit()
+    wall = time.perf_counter() - t0
+    _restore(torch, ner, snapshot)
+    plain, plain_counts = ner_fit(plain=True)
+    rel = float(np.max(np.abs(np.subtract(losses, plain)) / np.abs(plain)))
+    step = _steps_timing(torch, lambda: ner.fit(
+        [words, chars], tags, batch_size=NER_B, nb_epoch=1, shuffle=False,
+        verbose=0, device="cuda"), 1)
+    packed = ner.predict([words, chars], batch_size=NER_B, device="cuda")
+    on_card = crf_decode(torch.from_numpy(packed).to(
+        ner._params_device())).cpu().numpy()
+    on_cpu = crf_decode(torch.from_numpy(packed)).numpy()
+    tagged = ner.predict_tags(words, chars, batch_size=NER_B)
+    emit({"phase": "seam-models-main", "model": "ner", "card": card,
+          "batch": NER_B, "steps": SEAM_STEPS, "losses": losses,
+          "plain_losses": plain, "max_rel_loss_diff": rel,
+          "step_ms": wall / SEAM_STEPS * 1e3,
+          "samples_per_s": NER_B * SEAM_STEPS / wall, "step": step,
+          "decode_equal": bool((on_card == on_cpu).all()),
+          "decoded_tags": int(len(np.unique(on_card))),
+          "launches": {k: v for k, v in counts.items() if v}})
+    want = {"dropout": 4 * SEAM_STEPS, "derive_keys": 3 * SEAM_STEPS}
+    got = {k: counts[k] for k in want}
+    if not np.isfinite(losses).all() or rel > TOL["float32"]:
+        raise AssertionError(f"seam-models-main ner: losses {losses} vs "
+                             f"plain {plain}")
+    if got != want or plain_counts["dropout"]:
+        raise AssertionError(f"seam-models-main ner: launches {got}, plain "
+                             f"{plain_counts['dropout']}; expected {want}")
+    if not ((on_card == on_cpu).all() and (tagged == on_card).all()
+            and on_card.shape == (NER_B, L)):
+        raise AssertionError("seam-models-main ner: crf_decode on the card "
+                             "differs from the CPU's")
+    out["seam_ner"] = counts
+    total = {}
+    for c in out.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main():
     try:
         import torch
@@ -8067,6 +8694,7 @@ def main():
         staged("tiny", phase_tiny, torch, K)
         staged("train-tiny", phase_train_tiny, torch, K)
         staged("train-bert-tiny", phase_train_bert_tiny, torch, K)
+        moe_tiny = staged("moe-tiny", phase_moe_tiny, torch, K)
         staged("estimator-tiny", phase_estimator_tiny, torch, K)
         # each main path's launches, counted from 0 just before it runs
         staged("infer-tiny", phase_infer_tiny, torch, K)
@@ -8098,6 +8726,12 @@ def main():
                               card))
         by_path["zoo_predict"], by_path["zoo_fit"] = staged(
             "zoo-main", phase_zoo_main, torch, K, card)
+        by_path["moe_tiny"] = moe_tiny
+        by_path["moe_train"], timing["fused_adam"]["expert_leaf"] = staged(
+            "moe-main", phase_moe_main, torch, K, card)
+        by_path["seam_models"] = staged("seam-models-main",
+                                        phase_seam_models_main, torch, K,
+                                        card)
         by_path["estimator_ncf"] = staged("estimator-main",
                                           phase_estimator_main, torch, K,
                                           card)
@@ -8154,6 +8788,9 @@ def main():
                                            "plan", "device_launches_per_call",
                                            "vgg_first_conv", "served_fc6",
                                            "zoo_shapes",
+                                           "moe_shape",
+                                           "long_context_shape",
+                                           "expert_leaf",
                                            "interface", "shapes")
                    if key in t},
                 **({"verify_shape": {key: t["verify_shape"][key] for key in (

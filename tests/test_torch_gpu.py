@@ -1986,3 +1986,59 @@ def test_image_classifier_on_the_card(hopper):
     finally:
         del os.environ["ZOO_CONV_IMPL"]
     assert np.abs(probs - ref).max() <= 1e-5
+
+
+@pytest.mark.parametrize("b,h,hkv,t,d", [(1, 32, 8, 4096, 128),
+                                         (1, 12, 4, 4096, 64)])
+def test_bf16_flash_at_t4096_matches_plain(hopper, b, h, hkv, t, d):
+    """The bf16 causal flash forward, dK/dV and dQ at T = 4096 (the MoE
+    path's head_dim 128 and the long-context shape's 64) against their
+    plain versions; the gradients within the bf16 tolerance times their
+    largest magnitude (sums of up to 4096 terms)."""
+    from zoo_tpu_torch.ops.kernels import flash_attention as FA
+    g = _gen(hopper, 23)
+    bf16 = torch.bfloat16
+    q, do = (torch.randn(b, h, t, d, generator=g, device=hopper).to(bf16)
+             for _ in "ab")
+    k, v = (torch.randn(b, hkv, t, d, generator=g, device=hopper).to(bf16)
+            for _ in "ab")
+    o, lse = FA.flash_attention_fwd(q, k, v, causal=True)
+    ro, rlse = FA.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _err(o, ro) <= TOL[bf16] and _err(lse, rlse) <= TOL[bf16]
+    del ro, rlse
+    got = FA.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        assert _err(a, w) <= TOL[bf16] * max(1.0, float(w.abs().max())), \
+            name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_the_card_matches_its_cpu_run(hopper, dtype):
+    """``moe_ffn`` (top 2 of 8, a padded last group, capacity drops) on
+    CUDA against the same call on the CPU: the routing is exact on both
+    (the same f32 router products up to rounding, no near tie in this
+    draw), outputs and gradients within the dtype's tolerance times the
+    largest magnitude."""
+    from zoo_tpu_torch.ops.moe import init_moe_params, moe_ffn
+    p = init_moe_params(_gen(torch.device("cpu"), 5), 64, 128, 8)
+    x = torch.randn(3, 100, 64, generator=_gen(torch.device("cpu"), 6))
+    ct = torch.randn(3, 100, 64, generator=_gen(torch.device("cpu"), 7))
+    out = {}
+    for dev in ("cpu", hopper):
+        pp = {k: v.detach().to(dev).requires_grad_(True)
+              for k, v in p.items()}
+        xx = x.detach().to(dev, dtype).requires_grad_(True)
+        y, aux = moe_ffn(pp, xx, top_k=2, capacity_factor=0.25,
+                         group_size=128)
+        ((y.float() * ct.to(dev)).sum() + aux).backward()
+        out[str(dev)] = [t.detach().float().cpu() for t in
+                         (y, aux, xx.grad, *(pp[k].grad for k in sorted(pp)))]
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for a, c in zip(out["cuda"], out["cpu"]):
+        assert _err(a, c) <= tol * max(1.0, float(c.abs().max()))
+    # 8 slots an expert a group: tokens whose both choices overflowed
+    assert (out["cpu"][0].abs().sum(-1) == 0).any()

@@ -86,7 +86,11 @@ def test_importing_every_module_pulls_in_no_jax():
               "pipeline.api.keras.layers.conv_extras",
               "pipeline.api.keras.layers.compat_extras",
               "feature.common", "feature.image", "feature.image3d",
-              "feature.image3d.transformation"):
+              "feature.image3d.transformation", "ops.moe",
+              "models.llm.moe_llama", "models.recommendation.wide_and_deep",
+              "models.ranking", "models.ranking.knrm", "models.text",
+              "models.text.crf", "pipeline.api.keras2",
+              "pipeline.api.keras2.layers"):
         assert "zoo_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -207,6 +211,46 @@ def test_entry_points_without_device_raise_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_seam_model_entry_points_raise_without_a_card(monkeypatch,
+                                                      tmp_path):
+    """MoELlama, Wide & Deep, KNRM and the tagging models: no GPU and no
+    ``device=`` raises (``from_seed``, ``fit``, ``predict``, ``load``,
+    ``predict_tags``); the CPU runs the plain versions."""
+    from zoo_tpu_torch.models.llm import MoELlama, tiny_llama_config
+    from zoo_tpu_torch.models.ranking import KNRM
+    from zoo_tpu_torch.models.recommendation import (ColumnFeatureInfo,
+                                                     WideAndDeep)
+    from zoo_tpu_torch.models.text import NER
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_llama_config(vocab=16)
+    wnd = WideAndDeep(2, ColumnFeatureInfo(wide_base_cols=["a"],
+                                           wide_base_dims=[3],
+                                           continuous_cols=["b"]))
+    wnd.compile("adam", "sparse_categorical_crossentropy")
+    knrm = KNRM(2, 3, vocab_size=8, embed_size=4, kernel_num=5)
+    ner = NER(3, word_vocab_size=8, char_vocab_size=5, sequence_length=4,
+              word_length=3, word_emb_dim=4, char_emb_dim=3,
+              tagger_lstm_dim=2)
+    ner.build(device="cpu")
+    path = str(tmp_path / "ner.model")
+    ner.save(path)
+    rows = np.zeros((4, 2), np.float32)
+    words, chars = np.zeros((2, 4), np.int32), np.zeros((2, 4, 3), np.int32)
+    for call in (lambda: MoELlama.from_seed(cfg, n_experts=2),
+                 lambda: wnd.fit(rows, np.zeros(4, np.int32), batch_size=4,
+                                 verbose=0),
+                 lambda: knrm.predict(np.zeros((2, 5), np.int32)),
+                 lambda: NER.load_model(path),
+                 lambda: ner.predict_tags(words, chars)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert MoELlama.from_seed(cfg, device="cpu", n_experts=2)(
+        torch.zeros((1, 4), dtype=torch.int64)).shape == (1, 4, 16)
+    assert NER.load_model(path, device="cpu").predict_tags(
+        words, chars, device="cpu").shape == (2, 4)
 
 
 def test_inference_entry_points_raise_without_a_card(monkeypatch):

@@ -93,6 +93,9 @@ _k("ZOO_LLAMA_ATTN_IMPL", "str", "",
    "force `dense` / `flash` attention for A/B runs")
 _k("ZOO_FUSED_OPTIM", "bool", False,
    "AdamW takes the fused direct-apply path")
+_k("ZOO_MOE_CAPACITY", "float", 1.25,
+   "default expert capacity factor for MoE dispatch "
+   "(`ops/moe.py`; capacity = factor * tokens / experts)")
 _k("ZOO_GUARD", "bool", True, "`0` disables the guard estimators attach")
 _k("ZOO_GUARD_MAX_SKIPS", "int", 8,
    "consecutive skipped steps before rollback")

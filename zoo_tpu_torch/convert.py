@@ -2,9 +2,11 @@
 
 ``params_from_jax(tree)`` takes the parameter pytree of a ``zoo_tpu``
 Llama (``embed``, ``blocks/{wq, wk, wv, wo, attn_norm, mlp_norm,
-w_gate, w_up, w_down}``, ``final_norm``, ``head``), with its leaves
-already turned into numpy arrays by the caller, and returns the same
-tree of torch tensors on ``device``. The layout is kept: ``(in, out)``
+w_gate, w_up, w_down}``, ``final_norm``, ``head``) or MoELlama (its
+blocks also hold ``router`` and (n_block, E, ...) expert banks), with
+its leaves already turned into numpy arrays by the caller, and returns
+the same tree of torch tensors on ``device``, every key carried; a key
+it does not know is refused, never dropped. The layout is kept: ``(in, out)``
 matrices and ``(n_block, ...)`` stacked block tensors, so ``x @ w`` is
 the same product in both packages.
 
@@ -38,17 +40,33 @@ import torch
 
 from zoo_tpu_torch.common.device import resolve_device
 from zoo_tpu_torch.models.llm.llama import BLOCK_KEYS
+from zoo_tpu_torch.models.llm.moe_llama import MOE_KEYS
 from zoo_tpu_torch.ops.kernels.conv import attach_kmajor
+
+
+#: the keys a Llama tree of either package may hold, at its top and in
+#: its stacked blocks (a dense block's, or an MoE block's router and
+#: (n_block, E, H, F) banks)
+_LLAMA_KEYS = {"embed", "blocks", "final_norm", "head"}
+_LLAMA_BLOCK_KEYS = set(BLOCK_KEYS) | set(MOE_KEYS)
 
 
 def params_from_jax(tree: Dict, device=None) -> Dict:
     dev = resolve_device(device)
+    for have, known, where in ((tree, _LLAMA_KEYS, "the tree"),
+                               (tree["blocks"], _LLAMA_BLOCK_KEYS,
+                                "a block")):
+        unknown = sorted(set(have) - known)
+        if unknown:
+            raise ValueError(
+                f"params_from_jax: {where} holds keys the port's Llama "
+                f"does not know: {unknown}")
 
     def conv(x):
         return torch.from_numpy(np.array(x, copy=True)).to(dev)
 
     out = {"embed": conv(tree["embed"]),
-           "blocks": {k: conv(tree["blocks"][k]) for k in BLOCK_KEYS},
+           "blocks": {k: conv(v) for k, v in tree["blocks"].items()},
            "final_norm": conv(tree["final_norm"])}
     if "head" in tree:
         out["head"] = conv(tree["head"])

@@ -1,4 +1,6 @@
-"""Models of the port: ``llm`` (Llama), ``image`` (ResNet, VGG),
-``recommendation`` (NeuralCF, SessionRecommender),
-``textclassification`` (TextClassifier) and ``anomalydetection``
+"""Models of the port: ``llm`` (Llama, MoELlama), ``image`` (ResNet,
+VGG, the classification zoo), ``recommendation`` (NeuralCF,
+WideAndDeep, SessionRecommender), ``ranking`` (KNRM), ``text`` (NER,
+SequenceTagger, IntentEntity on the CRF), ``textclassification``
+(TextClassifier), ``seq2seq`` and ``anomalydetection``
 (AnomalyDetector)."""

@@ -34,8 +34,10 @@ from zoo_tpu_torch.pipeline.api.keras.engine.base import (
     model_file_part,
 )
 
-BLOCK_KEYS = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm", "w_gate",
-              "w_up", "w_down")
+#: the attention half's and the norms' keys, shared by every variant
+ATTN_KEYS = ("wq", "wk", "wv", "wo", "attn_norm", "mlp_norm")
+#: a dense Llama block's keys (the serving model's too)
+BLOCK_KEYS = ATTN_KEYS + ("w_gate", "w_up", "w_down")
 
 
 @model_file_part
@@ -136,13 +138,25 @@ def _glorot(shape, generator: torch.Generator) -> torch.Tensor:
         -lim, lim, generator=generator)
 
 
+def dense_mlp_params(config: LlamaConfig, generator: torch.Generator
+                     ) -> Dict:
+    """The stacked SwiGLU weights of a dense block: ``w_gate``, ``w_up``
+    (L, H, F) and ``w_down`` (L, F, H)."""
+    c, g, L = config, generator, config.n_block
+    return {"w_gate": _glorot((L, c.hidden, c.intermediate), g),
+            "w_up": _glorot((L, c.hidden, c.intermediate), g),
+            "w_down": _glorot((L, c.intermediate, c.hidden), g)}
+
+
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                lm_head: bool = True) -> Dict:
+                lm_head: bool = True, mlp_params=dense_mlp_params) -> Dict:
     """A parameter tree drawn from ``generator`` on its device:
     glorot-uniform matrices with the JAX package's fans, unit norm gains,
-    and the embedding scaled by 0.02 * sqrt(3). The draws differ from
-    ``jax.random``'s: to hold the same weights as a JAX model, convert
-    its params instead."""
+    and the embedding scaled by 0.02 * sqrt(3). ``mlp_params(config,
+    generator)`` draws the MLP half's stacked weights (the hook an MoE
+    variant fills with its expert banks, so the dense ones are never
+    drawn). The draws differ from ``jax.random``'s: to hold the same
+    weights as a JAX model, convert its params instead."""
     c, g, dev = config, generator, generator.device
     kv = c.n_kv_head * c.head_dim
     L = c.n_block
@@ -153,10 +167,8 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
         "wk": _glorot((L, c.hidden, kv), g),
         "wv": _glorot((L, c.hidden, kv), g),
         "wo": _glorot((L, c.hidden, c.hidden), g),
-        "w_gate": _glorot((L, c.hidden, c.intermediate), g),
-        "w_up": _glorot((L, c.hidden, c.intermediate), g),
-        "w_down": _glorot((L, c.intermediate, c.hidden), g),
     }
+    blocks.update(mlp_params(c, g))
     for k in ("attn_norm", "mlp_norm"):
         blocks[k] = torch.ones((L, c.hidden), device=dev)
     params["blocks"] = blocks
@@ -198,7 +210,12 @@ class Llama(Layer):
     whole blocks (the backward reruns each block's forward, attention
     included); ``"dots"`` checkpoints only the MLP half and keeps its
     matrix products, recomputing the norm and the SwiGLU elementwise
-    chain — the attention half keeps the flash kernel's residuals."""
+    chain — the attention half keeps the flash kernel's residuals.
+
+    A variant names its block's keys in ``block_keys`` and draws its MLP
+    half in ``_mlp_block_params`` (``MoELlama``'s expert banks)."""
+
+    block_keys = BLOCK_KEYS
 
     def __init__(self, config: Optional[LlamaConfig] = None,
                  params: Optional[Dict] = None, *, lm_head: bool = True,
@@ -220,26 +237,41 @@ class Llama(Layer):
         self.last_attention_impl: Optional[str] = None
         self.embed = self.blocks = self.final_norm = self.head = None
         if params is not None:
-            self.embed = nn.Parameter(params["embed"])
-            self.blocks = nn.ParameterDict(
-                {k: nn.Parameter(params["blocks"][k]) for k in BLOCK_KEYS})
-            self.final_norm = nn.Parameter(params["final_norm"])
-            if lm_head and not config.tie_embeddings:
-                self.head = nn.Parameter(params["head"])
+            self._hold(params)
+
+    def _hold(self, params: Dict) -> None:
+        """Wrap ``params`` (without copying) as this module's trainable
+        parameters."""
+        self.embed = nn.Parameter(params["embed"])
+        self.blocks = nn.ParameterDict(
+            {k: nn.Parameter(params["blocks"][k]) for k in self.block_keys})
+        self.final_norm = nn.Parameter(params["final_norm"])
+        if self.lm_head and not self.cfg.tie_embeddings:
+            self.head = nn.Parameter(params["head"])
 
     @classmethod
     def from_seed(cls, config: LlamaConfig, *, seed: int = 0, device=None,
-                  lm_head: bool = True, attention_impl: str = "auto"
-                  ) -> "Llama":
+                  lm_head: bool = True, attention_impl: str = "auto",
+                  **kwargs) -> "Llama":
         """A model whose weights come from a ``torch.Generator`` seeded
-        with ``seed`` on ``device`` (see :func:`init_params`)."""
+        with ``seed`` on ``device`` (see :func:`init_params`);
+        ``kwargs`` go to the constructor (``MoELlama``'s expert
+        settings)."""
         dev = resolve_device(device)
         g = torch.Generator(device=dev).manual_seed(int(seed))
-        return cls(config, init_params(config, g, lm_head), lm_head=lm_head,
-                   attention_impl=attention_impl)
+        m = cls(config, lm_head=lm_head, attention_impl=attention_impl,
+                **kwargs)
+        m._hold(m.build(g, None))
+        return m
+
+    def _mlp_block_params(self, config: LlamaConfig,
+                          generator: torch.Generator) -> Dict:
+        """The MLP half's stacked weights (:func:`dense_mlp_params`)."""
+        return dense_mlp_params(config, generator)
 
     def build(self, generator: torch.Generator, input_shape) -> Dict:
-        return init_params(self.cfg, generator, self.lm_head)
+        return init_params(self.cfg, generator, self.lm_head,
+                           self._mlp_block_params)
 
     @property
     def params(self) -> Dict:
@@ -276,39 +308,55 @@ class Llama(Layer):
         x = rms_norm(h, p["mlp_norm"], self.cfg.rms_eps)
         return h + (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
-    def _block(self, p, h, cos, sin, impl):
-        return self._mlp_part(p, self._attn_part(p, h, cos, sin, impl))
-
-    def _block_fn(self):
-        """The per-block function under this layer's ``remat`` (which
-        only matters while autograd records)."""
+    def _block_fn(self, mlp_part=None):
+        """The per-block function, ``mlp_part`` (default
+        :meth:`_mlp_part`) after the attention half, under this layer's
+        ``remat`` (which only matters while autograd records)."""
         from torch.utils.checkpoint import checkpoint
+        mlp_part = mlp_part or self._mlp_part
+
+        def whole(p, h, cos, sin, impl):
+            return mlp_part(p, self._attn_part(p, h, cos, sin, impl))
+
         if not torch.is_grad_enabled() or self.remat is False:
-            return self._block
+            return whole
         if self.remat == "dots":
             def block(p, h, cos, sin, impl):
                 h = self._attn_part(p, h, cos, sin, impl)
-                return checkpoint(self._mlp_part, p, h, use_reentrant=False,
+                return checkpoint(mlp_part, p, h, use_reentrant=False,
                                   context_fn=_dots_context)
             return block
-        return functools.partial(checkpoint, self._block,
-                                 use_reentrant=False)
+        return functools.partial(checkpoint, whole, use_reentrant=False)
 
     def call(self, params: Dict, ids: torch.Tensor, *,
              training: bool = False, rng=None) -> torch.Tensor:
+        h, cos, sin, impl = self._embed(params, ids)
+        block = self._block_fn()
+        for p in self._per_block(params):
+            h = block(p, h, cos, sin, impl)
+        return self._head(params, h)
+
+    def _embed(self, params: Dict, ids: torch.Tensor):
+        """Token embeddings, the RoPE tables and the attention route."""
         c = self.cfg
         h = params["embed"][ids.long()]
         T = ids.shape[1]
         cos, sin = rope_frequencies(c.head_dim, T, c.rope_theta, h.device)
         impl = resolve_attention_impl(self.attention_impl, T, h.device)
         self.last_attention_impl = impl
-        # one unbind per stacked leaf: its backward stacks the per-block
-        # gradients once, where w[i] per block would materialise a
-        # zero-filled gradient of the whole stack for every block
-        per_key = [torch.unbind(params["blocks"][k], 0) for k in BLOCK_KEYS]
-        block = self._block_fn()
-        for ws in zip(*per_key):
-            h = block(dict(zip(BLOCK_KEYS, ws)), h, cos, sin, impl)
+        return h, cos, sin, impl
+
+    def _per_block(self, params: Dict):
+        """Each block's weights as a dict. One unbind per stacked leaf:
+        its backward stacks the per-block gradients once, where w[i] per
+        block would materialise a zero-filled gradient of the whole
+        stack for every block."""
+        keys = self.block_keys
+        per_key = [torch.unbind(params["blocks"][k], 0) for k in keys]
+        return [dict(zip(keys, ws)) for ws in zip(*per_key)]
+
+    def _head(self, params: Dict, h: torch.Tensor) -> torch.Tensor:
+        c = self.cfg
         h = rms_norm(h, params["final_norm"], c.rms_eps)
         if not self.lm_head:
             return h

@@ -1,7 +1,7 @@
 """Recommendation models of the port (counterpart of
-``zoo_tpu/models/recommendation``): ``NeuralCF``,
-``SessionRecommender`` and the ``Recommender`` helpers.
-``WideAndDeep`` is not ported yet."""
+``zoo_tpu/models/recommendation``): ``NeuralCF``, ``WideAndDeep`` with
+``ColumnFeatureInfo``, ``SessionRecommender`` and the ``Recommender``
+helpers."""
 
 from zoo_tpu_torch.models.recommendation.neuralcf import NeuralCF
 from zoo_tpu_torch.models.recommendation.recommender import (
@@ -12,6 +12,11 @@ from zoo_tpu_torch.models.recommendation.recommender import (
 from zoo_tpu_torch.models.recommendation.session_recommender import (
     SessionRecommender,
 )
+from zoo_tpu_torch.models.recommendation.wide_and_deep import (
+    ColumnFeatureInfo,
+    WideAndDeep,
+)
 
 __all__ = ["NeuralCF", "Recommender", "SessionRecommender",
-           "UserItemFeature", "UserItemPrediction"]
+           "UserItemFeature", "UserItemPrediction", "WideAndDeep",
+           "ColumnFeatureInfo"]

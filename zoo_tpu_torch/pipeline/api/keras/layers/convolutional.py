@@ -54,7 +54,10 @@ class Convolution2D(Layer):
                  init="glorot_uniform", activation=None,
                  border_mode: str = "valid",
                  subsample: Tuple[int, int] = (1, 1),
-                 dim_ordering: str = "th", bias: bool = True, **kwargs):
+                 dim_ordering: str = "th", bias: bool = True,
+                 W_regularizer=None, b_regularizer=None, **kwargs):
+        # the regularizers are accepted and not applied, as in the JAX
+        # package
         super().__init__(**kwargs)
         if border_mode not in ("valid", "same"):
             raise ValueError("border_mode must be 'valid' or 'same'")

@@ -42,6 +42,7 @@ class Dense(Layer):
 
     def __init__(self, output_dim: int, init="glorot_uniform",
                  activation=None, bias: bool = True,
+                 W_regularizer=None, b_regularizer=None,
                  input_dim: Optional[int] = None, **kwargs):
         if input_dim is not None and kwargs.get("input_shape") is None:
             kwargs["input_shape"] = (input_dim,)
@@ -50,6 +51,9 @@ class Dense(Layer):
         self.init = get_initializer(init)
         self.activation = get_activation_fn(activation)
         self.bias = bias
+        # kept, not applied: the JAX package's Dense holds them the same way
+        self.W_regularizer = W_regularizer
+        self.b_regularizer = b_regularizer
 
     def build(self, generator, input_shape):
         params = {"W": self.init(generator,

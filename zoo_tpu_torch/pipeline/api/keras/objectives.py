@@ -21,6 +21,15 @@ def mean_squared_error(y_true, y_pred):
 
 
 @model_file_part
+def binary_crossentropy(y_true, y_pred):
+    """``y_pred`` are probabilities (keras-1 contract), clipped to
+    [eps, 1 - eps] as the JAX package clips them."""
+    p = torch.clamp(y_pred, _EPS, 1.0 - _EPS)
+    return -torch.mean(y_true * torch.log(p)
+                       + (1.0 - y_true) * torch.log(1.0 - p))
+
+
+@model_file_part
 def sparse_categorical_crossentropy(y_true, y_pred):
     """``y_pred`` are probabilities (keras-1 contract)."""
     p = torch.clamp(y_pred, _EPS, 1.0)
@@ -68,6 +77,7 @@ sparse_categorical_crossentropy_from_logits._handles_low_precision = True
 _ALIASES = {
     "mse": mean_squared_error,
     "mean_squared_error": mean_squared_error,
+    "binary_crossentropy": binary_crossentropy,
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
     "sparse_categorical_crossentropy_from_logits":
         sparse_categorical_crossentropy_from_logits,
