@@ -381,6 +381,21 @@ card, a queue ``enqueue``/``query``, a ``dequeue``, a synchronous
 and a string-and-sparse schema round trip, every reply within 1e-5 of a
 direct ``predict``.
 
+Last, the Orca entry path, detection and the Caffe loader: ``orca-main``
+(``init_orca_context()`` on the card and its refusals, ``envcheck``;
+then NCF at B=8192 and BERT-base at S=512, B=16 through
+``Estimator.from_keras`` with no ``device=``, fed from XShards and from
+the same arrays: bit-equal losses, params and optimizer state, equal
+launches kernel by kernel, samples/s and busy share of both feeds),
+``detect-main`` (SSD300, 21 classes, on 512 synthetic 300-px images:
+two steps against the CPU route, 2 epochs at B=32, 64 images' detections
+against the CPU route, ``ObjectDetector.predict_image_set``; step ms,
+images/s, device ms of convs against the rest) and ``caffe-main`` (a
+seeded VGG-16 and BVLC CaffeNet written as deploy prototxts and V2
+binaries, loaded with ``InferenceModel.load_caffe``: load s, a batch of
+32 against the CPU route, images/s; VGG-16 fine-tuned 4 steps through
+the fused SGD, each step against plain).
+
 Phase 3 also holds the flash forward (o, lse) and backward kernels
 (dK/dV, dQ) against their plain versions, and the gradients against
 autograd of the dense path, at B=8 and B=64, H=12, Hkv=4, T=512, D=64
@@ -455,7 +470,9 @@ run (b)'s, ``train_bert_dropout`` train-bert-dropout's, ``text_cnn``,
 MobileNet-v1 steps,
 ``estimator_ncf`` estimator-main's (the
 key split only),
-``estimator_bert`` estimator-bert's,
+``estimator_bert`` estimator-bert's, ``orca_ncf`` and ``orca_bert``
+orca-main's shard-fed runs, ``detect`` detect-main's fit (none),
+``caffe_fit`` caffe-main's fine-tune,
 ``predict`` predict-main's in-process run, ``cluster`` cluster-main's
 in-process runs (both versions; ``conv2d`` and ``conv2d_int8`` also
 carry ``vgg_first_conv``, ``quantized_matmul`` ``served_fc6``);
@@ -893,7 +910,12 @@ def phase_sass(built):
     and the f32 flash kernels by design: the f32 paths stay on f32 FMAs
     (one TF32 product would break their tolerance) and the decode does
     ~4 flops a cache element."""
-    sass = {lib: sass_functions(r.path) for lib, r in built.items()}
+    from concurrent.futures import ThreadPoolExecutor
+
+    # one cuobjdump a library, all at once
+    with ThreadPoolExecutor(max_workers=len(built)) as pool:
+        sass = dict(zip(built, pool.map(sass_functions,
+                                        [r.path for r in built.values()])))
     routes = {k: mma_route(sass[lib], fn)
               for k, (lib, fn) in MMA_FUNCTIONS.items()}
     f32 = {k: mma_route(sass[lib], fn) for k, (lib, fn) in
@@ -8649,6 +8671,886 @@ def phase_seam_models_main(torch, K, card):
     return total
 
 
+# -- the Orca entry path, SSD detection and the Caffe loader ----------------
+# XShards of the NCF and BERT rows: 8 shards, as the README's Quick start
+ORCA_SHARDS = 8
+ORCA_BERT_STEPS = 4
+# NCF's timed epochs take the first 32 steps' rows (two superbatches):
+# a profiled pass over all 96 steps costs the host tens of seconds
+ORCA_NCF_TIMED_STEPS = 32
+# SSD300 on PASCAL VOC's 20 classes plus background, the JAX model's
+# default channels (32, 64, 128): feature maps 38, 19, 10, 5715 anchors
+SSD_CFG = dict(n_classes=21, input_size=300)
+SSD_IMAGES, SSD_B, SSD_EPOCHS, SSD_PREDICT = 512, 32, 2, 64
+SSD_SCORE = 0.1
+# f32 on both routes (TF32 off), card against the CPU route: the losses
+# of two steps on one batch (the second reads the first's update), and
+# the detection scores and boxes
+TOL_SSD_LOSS = 1e-4
+SSD_LR = 1e-3
+# the params after one step, elementwise. Adam's first step moves an
+# element by lr * g / (|g| + eps), the rate times its gradient's sign,
+# so the routes agree far within TOL_SSD_PARAM wherever their gradients
+# share a sign. An element whose CPU-route gradient is within
+# SSD_GRAD_NEAR_ZERO of its leaf's largest (a sum that cancels, added in
+# another order; a dead ReLU's exact zero) may step either way: it may
+# pass TOL_SSD_PARAM, excused and counted, and at most SSD_EXCUSED_MAX of
+# the params may be. Controls: the params before the step, and half the
+# CPU route's step, must both fail the same check
+TOL_SSD_PARAM = 1e-5
+SSD_GRAD_NEAR_ZERO = 1e-4
+SSD_EXCUSED_MAX = 1e-3
+TOL_SSD_DETECT = 1e-4
+# a detection row may differ between the routes only where the CPU
+# route's own margins (adjacent top-k scores, an IoU against the NMS
+# threshold, a score against the score threshold) are below this
+SSD_NEAR_TIE = 1e-5
+CAFFE_B, CAFFE_STEPS = 32, 4
+# softmax outputs of a seeded VGG-16 / CaffeNet, card against CPU (f32,
+# TF32 off); the fine-tune's rate
+TOL_CAFFE_PROB = 1e-4
+CAFFE_LR = 1e-4
+# a fine-tune step's loss, fused against plain SGD from the same params
+# (the same forward: only an atomic sum could move it)
+TOL_CAFFE_STEP_LOSS = 1e-6
+
+
+@contextlib.contextmanager
+def _recorded_steps(model):
+    """Each training step's loss (a device scalar) while active, read
+    by wrapping the model's ``_train_step`` on the instance."""
+    losses = []
+    step = model._train_step
+
+    def recording(*args, **kwargs):
+        out = step(*args, **kwargs)
+        losses.append(out[1])
+        return out
+
+    model._train_step = recording
+    try:
+        yield losses
+    finally:
+        del model._train_step
+
+
+def _run_numbers(t, samples, steps):
+    return {"samples_per_s": samples / (t["wall_ms"] / 1e3),
+            "step_wall_ms": t["wall_ms"] / steps,
+            "step_device_ms": t["device_ms"] / steps,
+            "device_busy_share": t["device_busy_share"],
+            "device_source": t["device_source"]}
+
+
+def _orca_context_checks(torch):
+    """``init_orca_context()`` on the card and its refusals: returns the
+    facts, raises on a wrong one; leaves a live context."""
+    import logging
+    from zoo_tpu_torch.common import envcheck
+    from zoo_tpu_torch.orca import init_orca_context, stop_orca_context
+    from zoo_tpu_torch.parallel.mesh import DEFAULT_AXES
+
+    ctx = init_orca_context()
+    out = {"platform": ctx.platform,
+           "devices": [str(d) for d in ctx.devices],
+           "mesh": dict(ctx.mesh.shape)}
+    try:
+        init_orca_context(mesh_axes={"data": -1})
+        out["reinit_refused"] = False
+    except RuntimeError:
+        out["reinit_refused"] = True
+    stop_orca_context()
+    try:
+        init_orca_context(mesh_axes={"data": 2})
+        out["data_2"] = "accepted"
+    except ValueError as e:
+        out["data_2"] = str(e)
+    stop_orca_context()
+    warned = []
+
+    class Caught(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    log = logging.getLogger("zoo_tpu_torch.orca.common")
+    handler = Caught()
+    log.addHandler(handler)
+    os.environ["ZOO_MESH_DATA"] = "2"
+    try:
+        out["env_fallback_mesh"] = dict(init_orca_context().mesh.shape)
+    finally:
+        del os.environ["ZOO_MESH_DATA"]
+        log.removeHandler(handler)
+        stop_orca_context()
+    out["env_fallback_warned"] = any("ZOO_MESH_" in m for m in warned)
+    ctx = init_orca_context()
+    out["envcheck"] = {n: [ok, d] for n, ok, d in envcheck.collect()}
+    with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+        out["envcheck_rc"] = envcheck.main()
+    ones = dict.fromkeys(DEFAULT_AXES, 1)
+    if not (out["platform"] == "gpu" and out["devices"] == ["cuda:0"]
+            and out["mesh"] == ones and out["reinit_refused"]
+            and "ROADMAP A.14" in out["data_2"]
+            and out["env_fallback_mesh"] == ones
+            and out["env_fallback_warned"]
+            and all(ok for ok, _ in out["envcheck"].values())
+            and out["envcheck_rc"] == 0):
+        raise AssertionError(f"orca-main context: {out}")
+    return ctx, out
+
+
+def _shards_and_arrays(x, y):
+    """The rows as XShards (``ORCA_SHARDS`` numpy-dict shards, cast to
+    int32 by a ``transform_shard``) and as the same int32 arrays."""
+    import numpy as np
+    from zoo_tpu_torch.orca.data import XShards
+
+    shards = XShards.partition({"x": x, "y": y}, num_shards=ORCA_SHARDS
+                               ).transform_shard(lambda s: {
+                                   "x": s["x"].astype(np.int32),
+                                   "y": s["y"].astype(np.int32)})
+    return shards, {"x": x.astype(np.int32), "y": y.astype(np.int32)}
+
+
+def _fed_both_ways(torch, K, make, start, x, y, batch, steps, setup=None,
+                   timed_steps=None):
+    """One estimator epoch of ``make()`` from ``start``'s weights, fed
+    from XShards and from the same arrays, no ``device=`` (the context
+    places it): per-step losses, final params and optimizer state,
+    launches, ``evaluate`` and ``predict``; then an epoch of the first
+    ``timed_steps`` steps' rows (default all) timed, each feed."""
+    from zoo_tpu_torch.orca.learn.keras import Estimator
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+
+    shards, arrays = _shards_and_arrays(x, y)
+    runs = {}
+    for label, data in (("shards", shards), ("numpy", arrays)):
+        m = make()
+        m.params = tree_map(torch.clone, start)
+        est = Estimator.from_keras(m)
+        if setup is not None:
+            setup(est)
+        K.reset_launch_counts()
+        with _recorded_steps(m) as losses:
+            est.fit(data, epochs=1, batch_size=batch)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        runs[label] = {
+            "losses": torch.stack(losses), "counts": counts,
+            "params": _est_leaves(torch, m.params),
+            "opt": _est_leaves(torch, m._opt_state),
+            "device": str(m._params_device()),
+            "evaluate": est.evaluate(data, batch_size=batch),
+            "predict": est.predict(data, batch_size=batch),
+            "est": est, "data": data}
+    a, b = runs["shards"], runs["numpy"]
+    same = {"losses": torch.equal(a["losses"], b["losses"]),
+            "params": _bit_equal(torch, a["params"], b["params"]),
+            "optimizer_state": _bit_equal(torch, a["opt"], b["opt"]),
+            "launches": a["counts"] == b["counts"],
+            "evaluate": a["evaluate"] == b["evaluate"],
+            "predict": bool((a["predict"] == b["predict"]).all())}
+    timed_steps = min(timed_steps or steps, steps)
+    rows = timed_steps * batch
+    feeds = dict(zip(("shards", "numpy"),
+                     _shards_and_arrays(x[:rows], y[:rows])))
+    numbers = {}
+    for label, r in runs.items():
+        t = timed(torch, lambda: r["est"].fit(feeds[label], epochs=1,
+                                              batch_size=batch),
+                  iters=1, warmup=1)
+        numbers[label] = dict(_run_numbers(t, rows, timed_steps),
+                              steps=timed_steps)
+        r.pop("est")
+    return runs, same, numbers
+
+
+def phase_orca_main(torch, K, card):
+    """``orca-main``: the README's Quick start on the card. The context:
+    ``init_orca_context()`` gives platform ``gpu``, one device and a
+    data-parallel mesh of size 1; a second call with other arguments
+    raises; ``mesh_axes={"data": 2}`` raises naming ROADMAP A.14;
+    ``ZOO_MESH_DATA=2`` falls back with its warning; ``envcheck`` passes.
+    Then, under that context, (a) NCF
+    at ``NCF_CFG``, B=8192, one epoch of ``NCF_STEPS``, and (b) BERT-base
+    at estimator-bert's config (S=512, B=16, ``mixed_bfloat16``, fused
+    AdamW, clipping 1.0), 4 steps, each through ``Estimator.from_keras``
+    with no ``device=``, fed from XShards and from the same rows as
+    arrays: per-step losses, params and optimizer state bit-equal,
+    launches equal kernel by kernel (NCF: the key chain only; BERT: the
+    three flash bodies once a block a step, AdamW once a leaf a step,
+    the key split once a step), ``evaluate`` and ``predict`` equal; then
+    samples/s, step wall and device ms and busy share of both feeds.
+    Returns the shards runs' launches."""
+    import numpy as np
+    from zoo_tpu_torch.models.recommendation import NeuralCF
+    from zoo_tpu_torch.orca import stop_orca_context
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import (
+        Adam,
+        AdamWeightDecay,
+    )
+
+    try:
+        _, facts = _orca_context_checks(torch)
+        emit({"phase": "orca-main", "run": "context", "card": card,
+              **facts})
+        # (a) NCF
+        B, n = NCF_B, NCF_B * NCF_STEPS
+        rs = np.random.RandomState(0)
+        x = np.stack([rs.randint(0, NCF_CFG["user_count"], n),
+                      rs.randint(0, NCF_CFG["item_count"], n)], axis=1)
+        y = rs.randint(0, NCF_CFG["class_num"], n)
+
+        def ncf():
+            m = NeuralCF(**NCF_CFG)
+            return m.compile(optimizer=Adam(lr=0.001),
+                             loss="sparse_categorical_crossentropy",
+                             metrics=["accuracy"])
+
+        start = tree_map(torch.clone, ncf().build(
+            torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+        runs, same, numbers = _fed_both_ways(
+            torch, K, ncf, start, x, y, B, NCF_STEPS,
+            timed_steps=ORCA_NCF_TIMED_STEPS)
+        counts = runs["shards"]["counts"]
+        emit({"phase": "orca-main", "run": "ncf", "card": card,
+              "config": NCF_CFG, "batch": B, "steps": NCF_STEPS,
+              "shards": ORCA_SHARDS, "device": runs["shards"]["device"],
+              "losses_first_last": [float(runs["shards"]["losses"][0]),
+                                    float(runs["shards"]["losses"][-1])],
+              "bit_equal": same, "timing": numbers,
+              "launches": {k: v for k, v in counts.items() if v}})
+        if not (all(same.values()) and runs["shards"]["device"] == "cuda:0"
+                and _only_the_key_chain(counts, NCF_STEPS)):
+            raise AssertionError(f"orca-main ncf: {same}, {counts}")
+        ncf_counts = counts
+        del runs, start
+        torch.cuda.empty_cache()
+        # (b) BERT-base
+        S, B = BERT_S, BERT_B
+        N = ORCA_BERT_STEPS * B
+        rs = np.random.RandomState(0)
+        x = rs.randint(0, BERT_CFG["vocab"], (N, S))
+        y = rs.randint(0, 2, N)
+
+        def bert():
+            m = _bert_sequential(S, "auto", **BERT_CFG)
+            return m.compile(optimizer=AdamWeightDecay(lr=1e-4, fused=True),
+                             loss=LOSS, dtype_policy="mixed_bfloat16")
+
+        start = tree_map(torch.clone, bert().build(
+            torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+        runs, same, numbers = _fed_both_ways(
+            torch, K, bert, start, x, y, B, ORCA_BERT_STEPS,
+            setup=lambda est: est.set_l2_norm_gradient_clipping(1.0))
+        counts = runs["shards"]["counts"]
+        L, steps = BERT_CFG["n_block"], ORCA_BERT_STEPS
+        n_leaves = len(runs["shards"]["params"])
+        want = {"flash_attention": L * steps,
+                "flash_attention_dkdv": L * steps,
+                "flash_attention_dq": L * steps,
+                "fused_adam": n_leaves * steps, "derive_keys": steps}
+        emit({"phase": "orca-main", "run": "bert", "card": card,
+              "config": dict(BERT_CFG, seq_len=S), "batch": B,
+              "steps": steps, "shards": ORCA_SHARDS, "leaves": n_leaves,
+              "device": runs["shards"]["device"],
+              "losses": runs["shards"]["losses"].tolist(),
+              "bit_equal": same, "timing": numbers,
+              "launches": {k: v for k, v in counts.items() if v}})
+        if not (all(same.values()) and runs["shards"]["device"] == "cuda:0"
+                and counts == dict(dict.fromkeys(counts, 0), **want)):
+            raise AssertionError(f"orca-main bert: {same}, {counts}, "
+                                 f"expected {want}")
+        del runs, start
+        torch.cuda.empty_cache()
+        return ncf_counts, counts
+    finally:
+        stop_orca_context()
+
+
+def make_shapes(n, size=64, seed=0):
+    """``examples/object_detection_ssd.py``'s synthetic shapes (``:14``):
+    bright squares (class 1) and blue bars (class 2) on dim noise, one
+    object an image with its normalized box."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    imgs = rs.rand(n, size, size, 3).astype(np.float32) * 0.2
+    boxes, labels = [], []
+    for i in range(n):
+        cls = 1 + rs.randint(2)
+        if cls == 1:
+            w = h = rs.randint(16, 28)
+        else:
+            w, h = rs.randint(24, 36), rs.randint(8, 14)
+        x1 = rs.randint(0, size - w)
+        y1 = rs.randint(0, size - h)
+        color = (np.array([0.9, 0.8, 0.2]) if cls == 1
+                 else np.array([0.2, 0.3, 0.9]))
+        imgs[i, y1:y1 + h, x1:x1 + w] = color + 0.05 * rs.randn(h, w, 3)
+        boxes.append(np.array([[x1 / size, y1 / size, (x1 + w) / size,
+                                (y1 + h) / size]], np.float32))
+        labels.append(np.array([cls], np.int32))
+    return imgs, boxes, labels
+
+
+def _conv_event(name):
+    n = name.lower()
+    return any(s in n for s in ("conv", "cudnn", "xmma", "implicit",
+                                "fprop", "dgrad", "wgrad", "winograd"))
+
+
+def _split_ms(by_name):
+    conv = sum(v for k, v in by_name.items() if _conv_event(k))
+    return conv, sum(by_name.values()) - conv
+
+
+def _ssd_margin(torch, model, image, top_k, iou_thr, score_thr):
+    """The CPU route's smallest margin on one image: between adjacent
+    scores of its top ``top_k + 1``, of an IoU among its top ``top_k``
+    boxes against ``iou_thr``, of a top score against ``score_thr``."""
+    from zoo_tpu_torch.models.image.objectdetection import (
+        decode_boxes,
+        iou_matrix,
+        top_k_stable,
+    )
+    x = torch.from_numpy(image[None])
+    with torch.no_grad():
+        cls, box = model._forward(model.params, [x], training=False)
+        best = torch.amax(torch.softmax(cls, -1)[0, :, 1:], -1)
+        decoded = decode_boxes(torch.from_numpy(model.anchors), box[0])
+        vals, idx = top_k_stable(best, top_k + 1)
+        ious = iou_matrix(decoded[idx[:top_k]], decoded[idx[:top_k]])
+        upper = torch.triu(torch.ones_like(ious, dtype=torch.bool), 1)
+    return float(min((vals[:-1] - vals[1:]).min(),
+                     (ious[upper] - iou_thr).abs().min(),
+                     (vals[:top_k] - score_thr).abs().min()))
+
+
+def phase_detect_main(torch, K, card):
+    """``detect-main``: ``SSD(n_classes=21, input_size=300)`` (SSD300 on
+    PASCAL VOC's classes, feature maps 38/19/10, 5715 anchors) on
+    ``make_shapes`` at 300 px from seed 0, 512 images. Two
+    ``fit_detection`` steps at B=32 on one batch on the card against the
+    CPU route on the same weights (both losses within ``TOL_SSD_LOSS``);
+    one step's params against the CPU route's within ``TOL_SSD_PARAM``
+    but for the counted near-zero-gradient elements
+    (:func:`_ssd_one_step`); then 2 epochs at B=32 on the card (finite, falling losses; no kernel
+    of the port on this path: every count 0); ``predict_detections`` on
+    64 images against the CPU route on the trained weights (kept rows
+    and labels equal apart from recorded near-ties, scores and boxes
+    within ``TOL_SSD_DETECT``); ``ObjectDetector.predict_image_set`` on
+    uint8 images of other sizes equal to resizing and predicting
+    directly. Prints the fit's ms a step and images/s; a step on
+    targets already on the card (wall and device ms, busy share, device
+    launches, device ms split into convs and the rest: the multibox loss
+    and Adam), beside the host's target encoding and the batch's copy to
+    the card; and a detection's (convs against NMS and decoding)."""
+    import numpy as np
+    from zoo_tpu_torch.feature.image import ImageSet, resize_linear
+    from zoo_tpu_torch.models.image import SSD, ObjectDetector
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (
+        tree_leaves,
+        tree_map,
+    )
+
+    size = SSD_CFG["input_size"]
+    imgs, boxes, labels = make_shapes(SSD_IMAGES, size=size, seed=0)
+    first = SSD(**SSD_CFG)
+    start = tree_map(lambda t: t.detach().clone(), first.build(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+
+    def holding(params, dev):
+        m = SSD(**SSD_CFG)
+        m.params = tree_map(lambda t: t.detach().to(dev).clone(), params)
+        return m
+
+    one = {}
+    for dev in ("cuda", "cpu"):
+        m = holding(start, dev)
+        losses = m.fit_detection(imgs[:SSD_B], boxes[:SSD_B],
+                                 labels[:SSD_B], epochs=2,
+                                 batch_size=SSD_B, lr=SSD_LR, device=dev)
+        one[dev] = (losses, [t.detach().cpu() for t in
+                             tree_leaves(m.params)])
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(one["cuda"][0],
+                                                       one["cpu"][0]))
+    one_step = _ssd_one_step(torch, holding, start, imgs[:SSD_B],
+                             boxes[:SSD_B], labels[:SSD_B])
+    K.reset_launch_counts()
+    model = holding(start, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = model.fit_detection(imgs, boxes, labels, epochs=SSD_EPOCHS,
+                               batch_size=SSD_B, lr=SSD_LR, device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    steps = SSD_EPOCHS * (SSD_IMAGES // SSD_B)
+    # predictions, card against the CPU route on the trained weights
+    px = make_shapes(SSD_PREDICT, size=size, seed=1)[0]
+    cpu = holding(model.params, "cpu")
+    card_det = model.predict_detections(px, score_threshold=SSD_SCORE,
+                                        device="cuda")
+    cpu_det = cpu.predict_detections(px, score_threshold=SSD_SCORE,
+                                     device="cpu")
+    det_err, near_ties, unexplained, kept = 0.0, [], [], 0
+    for i, (a, b) in enumerate(zip(card_det, cpu_det)):
+        kept += len(b)
+        if a.shape == b.shape and np.array_equal(a[:, 0], b[:, 0]):
+            det_err = max(det_err, float(np.abs(a[:, 1:] - b[:, 1:]).max())
+                          if len(a) else 0.0)
+            continue
+        margin = _ssd_margin(torch, cpu, px[i], 50, 0.45, SSD_SCORE)
+        (near_ties if margin < SSD_NEAR_TIE else unexplained).append(
+            {"image": i, "rows": [len(a), len(b)], "margin": margin})
+    # ObjectDetector on uint8 images of other sizes
+    u8 = [resize_linear((np.clip(px[i], 0, 1) * 255).astype(np.uint8), w, h)
+          for i, (h, w) in enumerate(((240, 320), (300, 300), (256, 341),
+                                      (480, 640)))]
+    iset = ObjectDetector(model).predict_image_set(
+        ImageSet.from_arrays([a.copy() for a in u8]),
+        score_threshold=SSD_SCORE)
+    direct = model.predict_detections(
+        np.stack([resize_linear(a, size, size).astype(np.float32) / 255.0
+                  for a in u8]), score_threshold=SSD_SCORE)
+    detector_equal = all(np.array_equal(f["predict"], d) for f, d in
+                         zip(iset.features, direct))
+    # timing: the host's target encoding and the batch's copy, a step on
+    # targets already on the card, and a detection of the 64 images
+    t0 = time.perf_counter()
+    ct, bt = _ssd_targets(model, boxes[:SSD_B], labels[:SSD_B])
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xb = torch.from_numpy(imgs[:SSD_B]).cuda()
+    ctb, btb = torch.from_numpy(ct).cuda(), torch.from_numpy(bt).cuda()
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    t_step = timed(torch, _ssd_step(torch, model, xb, ctb, btb), iters=3,
+                   warmup=1)
+    xd = torch.from_numpy(px).cuda()
+    t_det = timed(torch, lambda: model.detect(xd, SSD_SCORE), iters=3,
+                  warmup=1)
+    conv_s, rest_s = _split_ms(t_step["by_name"])
+    conv_d, rest_d = _split_ms(t_det["by_name"])
+    emit({"phase": "detect-main", "card": card, "config": SSD_CFG,
+          "feature_sizes": model.feature_sizes,
+          "anchors": int(model.anchors.shape[0]), "images": SSD_IMAGES,
+          "batch": SSD_B, "epochs": SSD_EPOCHS, "losses": hist,
+          "two_steps": {"losses_card": one["cuda"][0],
+                        "losses_cpu": one["cpu"][0],
+                        "loss_max_rel_err": loss_err, "tol": TOL_SSD_LOSS},
+          "one_step": one_step,
+          "fit_s": fit_s, "fit_step_ms": fit_s * 1e3 / steps,
+          "fit_images_per_s": steps * SSD_B / fit_s,
+          "step": {"encode_ms": encode_ms, "copy_ms": copy_ms,
+                   "wall_ms": t_step["wall_ms"],
+                   "host_ms": t_step["host_ms"],
+                   "device_ms": t_step["device_ms"],
+                   "device_busy_share": t_step["device_busy_share"],
+                   "device_launches": t_step["device_launches"],
+                   "conv_ms": conv_s, "loss_and_adam_ms": rest_s,
+                   "images_per_s": SSD_B / (t_step["wall_ms"] / 1e3)},
+          "detect": {"images": SSD_PREDICT, "wall_ms": t_det["wall_ms"],
+                     "device_ms": t_det["device_ms"],
+                     "device_busy_share": t_det["device_busy_share"],
+                     "device_launches": t_det["device_launches"],
+                     "conv_ms": conv_d, "nms_and_decode_ms": rest_d,
+                     "images_per_s": SSD_PREDICT / (t_det["wall_ms"] / 1e3)},
+          "predict": {"kept_rows_cpu": kept, "max_abs_err": det_err,
+                      "tol": TOL_SSD_DETECT, "near_ties": near_ties,
+                      "unexplained": unexplained},
+          "object_detector_equal": detector_equal,
+          "launches": {k: v for k, v in counts.items() if v}})
+    if not (loss_err <= TOL_SSD_LOSS and one_step["ok"]
+            and all(np.isfinite(hist)) and hist[-1] < hist[0]):
+        raise AssertionError(f"detect-main: two steps {loss_err}, one "
+                             f"step {one_step}, losses {hist}")
+    if any(counts.values()):
+        raise AssertionError(f"detect-main: kernels launched {counts}; "
+                             "SSD's path runs none of the port's")
+    if unexplained or det_err > TOL_SSD_DETECT or not detector_equal:
+        raise AssertionError(f"detect-main: detections {unexplained}, "
+                             f"err {det_err}, detector {detector_equal}")
+    del model, first, cpu, xd, xb
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _ssd_targets(model, boxes, labels):
+    """The anchors' class and box targets of a batch, as
+    ``fit_detection`` encodes them on the host."""
+    import numpy as np
+    from zoo_tpu_torch.models.image.objectdetection import encode_targets
+
+    ct, bt = zip(*(encode_targets(model.anchors, np.asarray(b, np.float32),
+                                  np.asarray(lab, np.int32))
+                   for b, lab in zip(boxes, labels)))
+    return np.stack(ct), np.stack(bt)
+
+
+def _ssd_grads(torch, model, x, ct, bt):
+    """The multibox loss's gradients at the model's params, as a
+    ``fit_detection`` step takes them."""
+    from zoo_tpu_torch.models.image.objectdetection import multibox_loss
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+
+    with torch.enable_grad():
+        cls, box = model._forward(model.params, [x], training=True)
+        loss = multibox_loss(cls, box, ct, bt)
+    return torch.autograd.grad(loss, tree_leaves(model.params))
+
+
+def _ssd_step(torch, model, x, ct, bt):
+    """A ``fit_detection`` step on a batch whose targets are already on
+    the card: the gradients, then optax's Adam (continuing the count)."""
+    from zoo_tpu_torch.models.image.objectdetection import _adam_update
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+
+    leaves = tree_leaves(model.params)
+    mu = [torch.zeros_like(p) for p in leaves]
+    nu = [torch.zeros_like(p) for p in leaves]
+    count = [0]
+
+    def step():
+        grads = _ssd_grads(torch, model, x, ct, bt)
+        count[0] += 1
+        _adam_update(leaves, grads, mu, nu, count[0], SSD_LR)
+    return step
+
+
+def _ssd_one_step(torch, holding, start, imgs, boxes, labels):
+    """One ``fit_detection`` step from ``start`` on the card and on the
+    CPU route, the params held elementwise within ``TOL_SSD_PARAM`` but
+    for elements whose CPU-route gradient (at ``start``, on the step's
+    batch order) is within ``SSD_GRAD_NEAR_ZERO`` of its leaf's largest;
+    the count of those past the tolerance at most ``SSD_EXCUSED_MAX`` of
+    the params. The controls (params before the step, half the CPU
+    route's step) must fail the check. Returns the figures and
+    ``ok``."""
+    import numpy as np
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+
+    after = {}
+    for dev in ("cuda", "cpu"):
+        m = holding(start, dev)
+        m.fit_detection(imgs, boxes, labels, epochs=1, batch_size=len(imgs),
+                        lr=SSD_LR, device=dev)
+        after[dev] = [t.detach().cpu() for t in tree_leaves(m.params)]
+    # fit_detection's batch order: RandomState(seed=0)'s permutation
+    order = np.random.RandomState(0).permutation(len(imgs))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        m = holding(start, dev)
+        m._on(dev)
+        ct, bt = _ssd_targets(m, [boxes[i] for i in order],
+                              [labels[i] for i in order])
+        grads[dev] = [g.detach().cpu() for g in _ssd_grads(
+            torch, m, torch.from_numpy(imgs[order]).to(dev),
+            torch.from_numpy(ct).to(dev), torch.from_numpy(bt).to(dev))]
+    before = [t.detach().cpu() for t in tree_leaves(start)]
+    near = [g.abs() <= SSD_GRAD_NEAR_ZERO * g.abs().max()
+            for g in grads["cpu"]]
+
+    def worst(got, want):
+        return max(float(torch.where(e, 0.0, (a - b).abs()).max())
+                   for a, b, e in zip(got, want, near))
+
+    err = worst(after["cuda"], after["cpu"])
+    skipped = worst(before, after["cpu"])
+    halved = worst([(a + b) / 2 for a, b in zip(before, after["cpu"])],
+                   after["cpu"])
+    n_excused = sum(int((e & ((a - b).abs() > TOL_SSD_PARAM)).sum())
+                    for a, b, e in zip(after["cuda"], after["cpu"], near))
+    n = sum(e.numel() for e in near)
+    grad_rel = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(grads["cuda"], grads["cpu"]))
+    return {"params_max_abs_err": err, "tol": TOL_SSD_PARAM,
+            "params_max_abs_err_all": max(
+                float((a - b).abs().max())
+                for a, b in zip(after["cuda"], after["cpu"])),
+            "excused": n_excused, "params": n,
+            "near_zero_elements": sum(int(e.sum()) for e in near),
+            "excused_max": SSD_EXCUSED_MAX,
+            "near_zero": SSD_GRAD_NEAR_ZERO,
+            "grad_max_err_over_leaf_max": grad_rel,
+            "control_skipped_err": skipped, "control_halved_err": halved,
+            "ok": (err <= TOL_SSD_PARAM
+                   and n_excused <= SSD_EXCUSED_MAX * n
+                   and skipped > TOL_SSD_PARAM
+                   and halved > TOL_SSD_PARAM)}
+
+
+def _vgg16_layers():
+    """``VGG_ILSVRC_16_layers_deploy``: 13 3x3 convs (pad 1) with ReLUs,
+    5 MAX pools (2, stride 2), fc6/fc7 (4096, ReLU, Dropout 0.5), fc8
+    (1000), Softmax; input 3 x 224 x 224."""
+    out, cin = [], 3
+    for stage, (width, n) in enumerate(((64, 2), (128, 2), (256, 3),
+                                        (512, 3), (512, 3)), 1):
+        for j in range(1, n + 1):
+            out.append(("conv", f"conv{stage}_{j}", dict(
+                num_output=width, pad=1, kernel_size=3), (width, cin, 3, 3)))
+            out.append(("relu", f"relu{stage}_{j}", {}, None))
+            cin = width
+        out.append(("pool", f"pool{stage}", dict(pool="MAX", kernel_size=2,
+                                                 stride=2), None))
+    fan = 512 * 7 * 7
+    for name, width in (("fc6", 4096), ("fc7", 4096), ("fc8", 1000)):
+        out.append(("fc", name, dict(num_output=width), (width, fan)))
+        fan = width
+        if name != "fc8":
+            out.append(("relu", "relu" + name[2:], {}, None))
+            out.append(("drop", "drop" + name[2:], dict(dropout_ratio=0.5),
+                        None))
+    return "VGG_ILSVRC_16_layers", (3, 224, 224), out
+
+
+def _caffenet_layers():
+    """BVLC CaffeNet (``bvlc_reference_caffenet/deploy.prototxt``): conv1
+    96x11x11 stride 4, pool, LRN (5, alpha 1e-4, beta 0.75), conv2
+    256x5x5 pad 2 group 2, pool, LRN, conv3 384x3x3, conv4 384x3x3 group
+    2, conv5 256x3x3 group 2, pool, fc6/fc7 4096 with Dropout, fc8 1000,
+    Softmax; input 3 x 227 x 227."""
+    pool = dict(pool="MAX", kernel_size=3, stride=2)
+    lrn = dict(local_size=5, alpha=0.0001, beta=0.75)
+    out = []
+    for name, cout, cin, k, extra in (
+            ("conv1", 96, 3, 11, dict(stride=4)),
+            ("conv2", 256, 96, 5, dict(pad=2, group=2)),
+            ("conv3", 384, 256, 3, dict(pad=1)),
+            ("conv4", 384, 384, 3, dict(pad=1, group=2)),
+            ("conv5", 256, 384, 3, dict(pad=1, group=2))):
+        g = extra.get("group", 1)
+        out.append(("conv", name, dict(num_output=cout, kernel_size=k,
+                                       **extra), (cout, cin // g, k, k)))
+        out.append(("relu", "relu" + name[4:], {}, None))
+        if name in ("conv1", "conv2", "conv5"):
+            out.append(("pool", "pool" + name[4:], pool, None))
+        if name in ("conv1", "conv2"):
+            out.append(("lrn", "norm" + name[4:], lrn, None))
+    fan = 256 * 6 * 6
+    for name, width in (("fc6", 4096), ("fc7", 4096), ("fc8", 1000)):
+        out.append(("fc", name, dict(num_output=width), (width, fan)))
+        fan = width
+        if name != "fc8":
+            out.append(("relu", "relu" + name[2:], {}, None))
+            out.append(("drop", "drop" + name[2:], dict(dropout_ratio=0.5),
+                        None))
+    return "CaffeNet", (3, 227, 227), out
+
+
+_CAFFE_TYPES = {"conv": ("Convolution", "convolution_param"),
+                "relu": ("ReLU", None), "pool": ("Pooling", "pooling_param"),
+                "lrn": ("LRN", "lrn_param"),
+                "fc": ("InnerProduct", "inner_product_param"),
+                "drop": ("Dropout", "dropout_param")}
+
+
+def _write_caffe(root, spec, seed):
+    """The net's deploy prototxt (written from ``spec``) and a V2
+    ``NetParameter`` binary of seeded blobs in Caffe's layouts (conv
+    (out, in/group, kh, kw), InnerProduct (out, in); He-scaled normals,
+    small biases; data packed), encoded with the port's wire helpers.
+    Returns the two paths."""
+    import numpy as np
+    from zoo_tpu_torch.tensorboard import proto as wire
+
+    name, shape, layers = spec
+    lines = [f'name: "{name}"', 'input: "data"',
+             "input_dim: 10 " + " ".join(f"input_dim: {d}" for d in shape)]
+    rng = np.random.default_rng(seed)
+    parts = [wire.field_bytes(1, name.encode())]
+    bottom = "data"
+    for kind, lname, params, wshape in layers:
+        ltype, group = _CAFFE_TYPES[kind]
+        inplace = kind in ("relu", "drop")
+        top = bottom if inplace else lname
+        body = "".join(
+            f" {k}: {v}" if not isinstance(v, str) or v.isupper() else
+            f' {k}: "{v}"' for k, v in params.items())
+        lines.append(f'layer {{ name: "{lname}" type: "{ltype}" bottom: '
+                     f'"{bottom}" top: "{top}"'
+                     + (f" {group} {{{body} }}" if group else "") + " }")
+        bottom = top
+        if wshape is None:
+            continue
+        fan_in = int(np.prod(wshape[1:]))
+        w = rng.standard_normal(wshape, dtype=np.float32) * np.float32(
+            math.sqrt(2.0 / fan_in))
+        b = rng.standard_normal(wshape[:1], dtype=np.float32) * \
+            np.float32(0.01)
+        blobs = b"".join(wire.field_bytes(7, wire.field_bytes(7, b"".join(
+            wire.field_varint(1, d) for d in a.shape)) + wire.field_bytes(
+                5, a.astype("<f4").tobytes())) for a in (w, b))
+        parts.append(wire.field_bytes(100, wire.field_bytes(1, lname.encode())
+                                      + wire.field_bytes(2, ltype.encode())
+                                      + blobs))
+    lines.append(f'layer {{ name: "prob" type: "Softmax" bottom: "{bottom}" '
+                 'top: "prob" }')
+    deploy = os.path.join(root, name + "_deploy.prototxt")
+    model = os.path.join(root, name + ".caffemodel")
+    with open(deploy, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(model, "wb") as f:
+        for p in parts:
+            f.write(p)
+    return deploy, model, shape
+
+
+def _caffe_fine_tune(torch, net, shape):
+    """``CAFFE_STEPS`` steps of Keras ``SGD`` (momentum 0.9) at B =
+    ``CAFFE_B`` through the fused kernel, each step held to the same
+    step through the plain update from the same params and momentum:
+    the loss within ``TOL_CAFFE_STEP_LOSS``, params and momentum within
+    ``TOL["update"]``
+    (a step, not a trajectory: a seeded VGG-16 at its first steps
+    carries a rounding far within a few steps). Controls, each step: the
+    plain step's largest move of a param, what a skipped step would miss
+    by, and from the second step the momentum's share of it,
+    ``lr * 0.9 * max|buf|``, what a step without momentum would miss by,
+    must each pass ``10 * TOL["update"]``. ``fused_sgd`` must launch once
+    a leaf a step, the key split once a step, nothing else."""
+    import numpy as np
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (
+        tree_leaves,
+        tree_map,
+    )
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+
+    rs = np.random.RandomState(1)
+    xt = rs.randn(CAFFE_B, *shape).astype(np.float32)
+    yt = rs.randint(0, 1000, CAFFE_B).astype(np.int32)
+    net.compile(SGD(lr=CAFFE_LR, momentum=0.9),
+                "sparse_categorical_crossentropy")
+    n_leaves = len(net.params["caffe"]["w"])
+    counts = None
+    losses, plain_losses, update_err, ms = [], [], 0.0, []
+    moved, momentum_gap = [], []
+    for _ in range(CAFFE_STEPS):
+        snap = tree_map(lambda a: a.detach().clone(), net.params)
+        opt = None if net._opt_state is None else \
+            tree_map(torch.clone, net._opt_state)
+        results = {}
+        for label in ("plain", "kernels"):
+            net.params = tree_map(torch.clone, snap)
+            net._opt_state = None if opt is None else \
+                tree_map(torch.clone, opt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, c = _fit_losses(net, xt, yt, CAFFE_B, 1,
+                                  plain=label == "plain")
+            torch.cuda.synchronize()
+            results[label] = (loss[0], _est_leaves(torch, net.params)
+                              + _est_leaves(torch, net._opt_state))
+            if label == "kernels":
+                ms.append((time.perf_counter() - t0) * 1e3)
+                counts = c if counts is None else \
+                    {k: counts[k] + v for k, v in c.items()}
+        before = _est_leaves(torch, snap)
+        moved.append(max(float((a - b).abs().max()) for a, b in
+                         zip(results["plain"][1], before)))
+        if opt is not None:
+            momentum_gap.append(CAFFE_LR * 0.9 * max(
+                float(b.abs().max()) for b in tree_leaves(opt["momentum"])))
+        losses.append(results["kernels"][0])
+        plain_losses.append(results["plain"][0])
+        update_err = max(update_err, max(
+            float((a.float() - b.float()).abs().max()) for a, b in
+            zip(results["kernels"][1], results["plain"][1])))
+    want = dict(dict.fromkeys(counts, 0), fused_sgd=n_leaves * CAFFE_STEPS,
+                derive_keys=CAFFE_STEPS)
+    out = {"leaves": n_leaves, "steps": CAFFE_STEPS, "lr": CAFFE_LR,
+           "losses": losses, "losses_plain": plain_losses,
+           "update_max_abs_err": update_err, "tol_update": TOL["update"],
+           "control_moved": moved, "control_momentum_gap": momentum_gap,
+           "fit_step_ms": ms, "counts": counts,
+           "launches": {k: v for k, v in counts.items() if v}}
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    out["loss_max_rel"] = loss_rel
+    if not (counts == want and n_leaves == 32
+            and loss_rel <= TOL_CAFFE_STEP_LOSS
+            and update_err <= TOL["update"] and all(np.isfinite(losses))
+            and len(momentum_gap) == CAFFE_STEPS - 1
+            and min(moved + momentum_gap) > 10 * TOL["update"]):
+        raise AssertionError(f"caffe-main fine-tune: {out}, expected "
+                             f"launches {want}")
+    return out
+
+
+def phase_caffe_main(torch, K, card):
+    """``caffe-main``: two public deploy nets written from code, VGG-16
+    (``VGG_ILSVRC_16_layers_deploy``, 138.4 M params) and BVLC CaffeNet
+    (LRN, ``group: 2`` convs), with seeded blobs as V2 ``NetParameter``
+    binaries. Each through ``InferenceModel.load_caffe(def, model)`` on
+    the card (load seconds), a batch of 32 against the CPU route's
+    ``load_caffe(..., device="cpu")`` (softmax outputs within
+    ``TOL_CAFFE_PROB``, top-1 equal), images/s. Then the VGG-16
+    ``CaffeNet`` fine-tuned 4 steps at B=32 with Keras ``SGD`` (momentum
+    0.9; :func:`_caffe_fine_tune`): ``fused_sgd`` launched exactly once a
+    leaf a step (32 x 4), the key split once a step and nothing else,
+    each step's loss and update against the same step through the plain
+    update. Returns the fine-tune's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.models.caffe_loader import load_caffe
+    from zoo_tpu_torch.pipeline.inference import InferenceModel
+
+    root = tempfile.mkdtemp(prefix="zoo-caffe-")
+    fit_counts = None
+    try:
+        for spec, seed in ((_vgg16_layers(), 16), (_caffenet_layers(), 7)):
+            deploy, path, shape = _write_caffe(root, spec, seed)
+            size_mb = os.path.getsize(path) / 2 ** 20
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            im = InferenceModel().load_caffe(deploy, path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            net = im.model
+            n_params = sum(t.numel() for t in
+                           net.params["caffe"]["w"].values())
+            x = np.random.RandomState(seed).randn(CAFFE_B, *shape).astype(
+                np.float32)
+            got = im.predict(x)
+            t0 = time.perf_counter()
+            cpu_net = load_caffe(deploy, path, device="cpu")
+            cpu_load_s = time.perf_counter() - t0
+            want = cpu_net.predict(x, batch_size=CAFFE_B, device="cpu")
+            del cpu_net
+            err = float(np.abs(got - want).max())
+            rel = err / float(np.abs(want).max())
+            top1 = bool((got.argmax(1) == want.argmax(1)).all())
+            srt = np.sort(want, axis=1)
+            t = timed(torch, lambda: im.predict(x), iters=3, warmup=1)
+            line = {"phase": "caffe-main", "net": spec[0], "card": card,
+                    "params": n_params, "binary_mb": size_mb,
+                    "layers": len(net.caffe_layers), "load_s": load_s,
+                    "cpu_load_s": cpu_load_s, "batch": CAFFE_B,
+                    "input": list(shape), "max_abs_err": err,
+                    "err_over_max_prob": rel,
+                    "tol": TOL_CAFFE_PROB, "top1_equal": top1,
+                    "top1_min_gap": float((srt[:, -1] - srt[:, -2]).min()),
+                    "images_per_s": CAFFE_B / (t["wall_ms"] / 1e3),
+                    "device_ms": t["device_ms"],
+                    "device_busy_share": t["device_busy_share"]}
+            if spec[0].startswith("VGG"):
+                line.update(_caffe_fine_tune(torch, net, shape))
+                fit_counts = line.pop("counts")
+            emit(line)
+            if not (err <= TOL_CAFFE_PROB and top1):
+                raise AssertionError(f"caffe-main {spec[0]}: max abs err "
+                                     f"{err}, top-1 equal {top1}")
+            del im, net
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return fit_counts
+
+
 def main():
     try:
         import torch
@@ -8744,6 +9646,12 @@ def main():
                                     torch, K, card)
         by_path["cluster"] = staged("cluster-main", phase_cluster_main,
                                     torch, K, card)
+        by_path["orca_ncf"], by_path["orca_bert"] = staged(
+            "orca-main", phase_orca_main, torch, K, card)
+        by_path["detect"] = staged("detect-main", phase_detect_main, torch,
+                                   K, card)
+        by_path["caffe_fit"] = staged("caffe-main", phase_caffe_main, torch,
+                                      K, card)
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"

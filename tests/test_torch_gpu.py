@@ -2042,3 +2042,195 @@ def test_moe_ffn_on_the_card_matches_its_cpu_run(hopper, dtype):
         assert _err(a, c) <= tol * max(1.0, float(c.abs().max()))
     # 8 slots an expert a group: tokens whose both choices overflowed
     assert (out["cpu"][0].abs().sum(-1) == 0).any()
+
+
+def test_orca_context_places_an_xshards_fit_on_the_card(hopper):
+    """``init_orca_context()`` on the card (platform ``gpu``, one device,
+    a size-1 mesh), then a small NCF ``fit`` through the estimator with
+    no ``device=``, fed from numpy-dict XShards and from the same arrays:
+    per-epoch losses, params and ``predict`` bit-equal, the same
+    launches."""
+    from zoo_tpu_torch.models.recommendation import NeuralCF
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.orca import init_orca_context, stop_orca_context
+    from zoo_tpu_torch.orca.data import XShards
+    from zoo_tpu_torch.orca.learn.keras import Estimator
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+    rs = np.random.RandomState(1)
+    x = np.stack([rs.randint(0, 300, 1000), rs.randint(0, 200, 1000)],
+                 1).astype(np.int32)
+    y = rs.randint(0, 5, 1000).astype(np.int32)
+    ctx = init_orca_context()
+    try:
+        assert (ctx.platform, ctx.num_devices, ctx.mesh.size) == \
+            ("gpu", 1, 1)
+        start, out = None, {}
+        for label, data in (("shards", XShards.partition(
+                {"x": x, "y": y}, num_shards=8)), ("arrays",
+                                                   {"x": x, "y": y})):
+            m = NeuralCF(300, 200, 5, user_embed=16, item_embed=16,
+                         hidden_layers=(32, 16), mf_embed=16)
+            m.compile(Adam(lr=0.001), "sparse_categorical_crossentropy")
+            if start is None:
+                start = tree_map(torch.clone, m.build(device="cuda"))
+            m.params = tree_map(torch.clone, start)
+            est = Estimator.from_keras(m)
+            reset_launch_counts()
+            hist = est.fit(data, epochs=2, batch_size=128)
+            out[label] = (hist["loss"], [t.detach().clone() for t in
+                                         tree_leaves(m.params)],
+                          launch_counts(), est.predict(data),
+                          m._params_device())
+        (la, pa, ca, ya, da), (lb, pb, cb, yb, db) = out["shards"], \
+            out["arrays"]
+        assert la == lb and ca == cb and np.array_equal(ya, yb)
+        assert all(torch.equal(a, b) for a, b in zip(pa, pb))
+        assert da == db == torch.device("cuda", 0)
+    finally:
+        stop_orca_context()
+
+
+def test_ssd_step_and_detections_on_the_card_match_the_cpu(hopper):
+    """Two ``fit_detection`` steps of a small SSD on one batch, on the
+    card and on the CPU from one start: both losses within rtol 1e-4
+    (the second reads the first's update), every param within the rate
+    a step (Adam's first steps move an element by up to the rate
+    whatever its gradient's size, so a gradient within rounding of zero
+    may step either way); then ``predict_detections`` of both routes on
+    the trained weights (rows and labels equal, scores and boxes within
+    1e-4); no kernel of the port launches."""
+    from zoo_tpu_torch.models.image import SSD
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    rs = np.random.RandomState(2)
+    imgs = rs.rand(16, 64, 64, 3).astype(np.float32)
+    boxes = [np.array([[0.1, 0.2, 0.5, 0.6]], np.float32)] * 16
+    labels = [np.array([1 + i % 2], np.int32) for i in range(16)]
+    start = tree_map(lambda t: t.detach().clone(),
+                     SSD(3, input_size=64).build(device="cpu"))
+    out = {}
+    reset_launch_counts()
+    for dev in ("cpu", "cuda"):
+        m = SSD(3, input_size=64)
+        m.params = tree_map(lambda t: t.clone().to(dev), start)
+        loss = m.fit_detection(imgs, boxes, labels, epochs=2, batch_size=16,
+                               lr=1e-3, device=dev)
+        out[dev] = (loss, [t.detach().cpu() for t in tree_leaves(m.params)],
+                    m)
+    assert not any(launch_counts().values())
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    assert max(_err(a, b) for a, b in zip(out["cuda"][1],
+                                          out["cpu"][1])) <= 2 * 1e-3
+    cpu = out["cpu"][2]
+    cpu.params = tree_map(lambda t: t.detach().cpu().clone(),
+                          out["cuda"][2].params)
+    got = out["cuda"][2].predict_detections(imgs[:4], score_threshold=0.0,
+                                            top_k=10, device="cuda")
+    want = cpu.predict_detections(imgs[:4], score_threshold=0.0, top_k=10,
+                                  device="cpu")
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.array_equal(g[:, 0], w[:, 0])
+        assert np.abs(g[:, 1:] - w[:, 1:]).max() <= 1e-4
+
+
+def test_caffe_net_on_the_card_fine_tunes_through_fused_sgd(hopper,
+                                                            tmp_path):
+    """A conv / LRN / grouped-conv / pool / InnerProduct / Softmax Caffe
+    net loaded on the card predicts within 1e-5 of the CPU route; a
+    fine-tune with Keras ``SGD`` (momentum 0.9) launches ``fused_sgd``
+    once a leaf a step and its losses are within rtol 1e-5 of the same
+    steps through the plain update."""
+    from zoo_tpu_torch.models.caffe_loader import load_caffe
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.pipeline.api.keras import optimizers as OPT
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    from zoo_tpu_torch.tensorboard import proto as wire
+    rs = np.random.RandomState(3)
+
+    def blob(a):
+        a = np.asarray(a, np.float32)
+        return wire.field_bytes(7, wire.field_bytes(7, b"".join(
+            wire.field_varint(1, d) for d in a.shape)) + wire.field_bytes(
+                5, a.astype("<f4").tobytes()))
+
+    def layer(name, type_, bottom, blobs=(), field=None, params=b""):
+        out = (wire.field_bytes(1, name.encode())
+               + wire.field_bytes(2, type_.encode())
+               + wire.field_bytes(3, bottom.encode())
+               + wire.field_bytes(4, name.encode())
+               + b"".join(blob(b) for b in blobs))
+        return out + (wire.field_bytes(field, params) if field else b"")
+
+    v = wire.field_varint
+    net = wire.field_bytes(3, b"data") + b"".join(v(4, d)
+                                                  for d in (1, 3, 16, 16))
+    for l in (layer("c1", "Convolution", "data",
+                    [0.3 * rs.randn(8, 3, 3, 3), 0.1 * rs.randn(8)], 106,
+                    v(1, 8) + v(4, 3) + v(3, 1)),
+              layer("n1", "LRN", "c1", (), 118, v(1, 3)),
+              layer("c2", "Convolution", "n1",
+                    [0.3 * rs.randn(8, 4, 3, 3), 0.1 * rs.randn(8)], 106,
+                    v(1, 8) + v(4, 3) + v(5, 2) + v(3, 1)),
+              layer("r2", "ReLU", "c2"),
+              layer("p2", "Pooling", "r2", (), 121, v(1, 1) + v(2, 3)
+                    + v(3, 2)),
+              layer("fc", "InnerProduct", "p2",
+                    [0.1 * rs.randn(10, 8 * 8 * 8), 0.1 * rs.randn(10)],
+                    117, v(1, 10)),
+              layer("prob", "Softmax", "fc")):
+        net += wire.field_bytes(100, l)
+    path = tmp_path / "net.caffemodel"
+    path.write_bytes(net)
+    x = rs.randn(8, 3, 16, 16).astype(np.float32)
+    card = load_caffe(None, str(path), device="cuda")
+    want = load_caffe(None, str(path), device="cpu").predict(x,
+                                                             device="cpu")
+    assert np.abs(card.predict(x, device="cuda") - want).max() <= 1e-5
+    start = tree_map(lambda t: t.detach().clone(), card.params)
+    y = rs.randint(0, 10, 8).astype(np.int32)
+    losses = {}
+    for label in ("kernels", "plain"):
+        card.params = tree_map(lambda t: t.clone(), start)
+        card.compile(OPT.SGD(lr=1e-2, momentum=0.9),
+                     "sparse_categorical_crossentropy")
+        saved = OPT.fused_apply_sgd
+        if label == "plain":
+            from zoo_tpu_torch.ops.kernels.fused_optim import (
+                reference_apply_sgd)
+
+            def plain_sgd(param, grad, buf, lr, momentum=0.0,
+                          weight_decay=0.0, ok=None):
+                p, b = reference_apply_sgd(param, grad, buf, lr, momentum,
+                                           weight_decay, ok)
+                with torch.no_grad():
+                    param.copy_(p)
+                    buf.copy_(b)
+
+            OPT.fused_apply_sgd = plain_sgd
+        reset_launch_counts()
+        try:
+            losses[label] = card.fit(x, y, batch_size=8, nb_epoch=3,
+                                     shuffle=False, verbose=0,
+                                     device="cuda")["loss"]
+        finally:
+            OPT.fused_apply_sgd = saved
+        if label == "kernels":
+            assert launch_counts()["fused_sgd"] == \
+                len(start["caffe"]["w"]) * 3
+    np.testing.assert_allclose(losses["kernels"], losses["plain"], rtol=1e-5)
+
+
+def test_envcheck_module_passes_on_the_card(hopper):
+    """``python -m zoo_tpu_torch.common.envcheck`` exits 0 on the card
+    (the device is sm_90, torch has CUDA, nvcc is found)."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "zoo_tpu_torch.common.envcheck"],
+                       capture_output=True, text=True, timeout=300, cwd=root)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "[ok ] device" in r.stdout and "sm_90" in r.stdout

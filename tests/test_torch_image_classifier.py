@@ -6,7 +6,7 @@ tensors (the port's uint8 resize is cv2's, bit for bit);
 at that size), 7 classes, on the JAX classifier's weights gives the
 same top-k labels, and probabilities within 1e-5 (f32 convs summed in
 another order); ``LabelOutput`` is equal; a saved and loaded classifier
-predicts the same bits; the detectors name ROADMAP A.12.
+predicts the same bits; the detectors are exported beside them.
 """
 
 import jax
@@ -124,8 +124,12 @@ def test_mobilenet_round_trip_keeps_depthwise(tmp_path):
 
 
 def test_detectors_name_roadmap_a12():
+    """The detectors of ROADMAP A.12 are ported: the names are the
+    objectdetection module's, exported as the JAX package exports
+    them (their parity is ``tests/test_torch_objectdetection.py``)."""
+    from zoo_tpu_torch.models.image import objectdetection as tdet
     for name in ("SSD", "ObjectDetector", "nms", "multibox_loss"):
-        with pytest.raises(NotImplementedError, match="A.12"):
-            getattr(timage, name)()
+        assert getattr(timage, name) is getattr(tdet, name)
+    assert timage.SSD(3, input_size=32).anchors.shape[1] == 4
     assert set(timage.__all__) == set(
         __import__("zoo_tpu.models.image", fromlist=["x"]).__all__)

@@ -208,8 +208,13 @@ def test_image_set_equals_jax(tmp_path):
     for a, b in zip(tsplit, jsplit):
         assert [np.array_equal(x["tensor"], y["tensor"])
                 for x, y in zip(a.features, b.features)] == [True] * len(b)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        ts.to_xshards()
+    for n in (None, 2, 3):
+        jparts, tparts = js.to_xshards(n).collect(), \
+            ts.to_xshards(n).collect()
+        assert [len(p) for p in tparts] == [len(p) for p in jparts]
+        assert all(np.array_equal(a["tensor"], b["tensor"])
+                   for tp, jp in zip(tparts, jparts)
+                   for a, b in zip(tp, jp))
 
 
 def test_decoding_equals_jax_with_cv2(tmp_path):

@@ -154,12 +154,17 @@ def test_inference_model_load(mode, quantized, tmp_path, monkeypatch):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_other_loaders_name_their_roadmap_items():
+def test_other_loaders_name_their_roadmap_items(tmp_path):
+    """``load_tf`` and ``load_onnx`` name ROADMAP A.16; ``load_caffe``
+    (ROADMAP A.12) is ported and reads a file
+    (``tests/test_torch_caffe_loader.py`` holds it to the JAX loader)."""
     im = InferenceModel()
-    for call, item in ((im.load_tf, "A.16"), (im.load_onnx, "A.16"),
-                       (im.load_caffe, "A.12")):
+    for call, item in ((im.load_tf, "A.16"), (im.load_onnx, "A.16")):
         with pytest.raises(NotImplementedError, match=item):
             call("x")
+    with pytest.raises(FileNotFoundError):
+        im.load_caffe(None, str(tmp_path / "missing.caffemodel"),
+                      device="cpu")
 
 
 @pytest.mark.parametrize("fn", [lambda h: h * 2.0, _double, torch.sin],

@@ -45,12 +45,14 @@ def _forbidden(name: str) -> bool:
                for root in FORBIDDEN)
 
 
-# the one module that takes users' pandas frames (TSDataset's
-# from_pandas, resample, rolling features): it may import pandas inside
-# a function, never at module level (test_importing_every_module_...
-# holds that importing it pulls in no pandas)
+# the modules that take users' pandas frames (TSDataset's from_pandas,
+# resample, rolling features; XShards of DataFrames): they may import
+# pandas inside a function, never at module level (test_importing_every_
+# module_... holds that importing them pulls in no pandas); the readers
+# import pandas and pyarrow through importlib when they run
 LAZY_PANDAS = (os.path.join("zoo_tpu_torch", "chronos", "data",
-                            "tsdataset.py"),)
+                            "tsdataset.py"),
+               os.path.join("zoo_tpu_torch", "orca", "data", "shard.py"))
 
 
 def _lazy_imports(tree) -> set:
@@ -90,7 +92,12 @@ def test_importing_every_module_pulls_in_no_jax():
               "models.llm.moe_llama", "models.recommendation.wide_and_deep",
               "models.ranking", "models.ranking.knrm", "models.text",
               "models.text.crf", "pipeline.api.keras2",
-              "pipeline.api.keras2.layers"):
+              "pipeline.api.keras2.layers", "common.context",
+              "common.nncontext", "common.envcheck", "parallel",
+              "parallel.mesh", "orca", "orca.common", "orca.data",
+              "orca.data.shard", "orca.data.file", "orca.data.pandas",
+              "orca.data.pandas.preprocessing", "ray",
+              "models.image.objectdetection", "models.caffe_loader"):
         assert "zoo_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -494,3 +501,48 @@ def test_image_zoo_entry_points_raise_without_a_card(monkeypatch,
             call()
     out = clf.predict_image_set(images, top_k=2, device="cpu")
     assert len(out.features[0]["classes"]) == 2
+
+
+def test_orca_detection_and_caffe_entry_points_raise_without_a_card(
+        monkeypatch, tmp_path):
+    """The Orca entry path and A.12's rest: with no GPU, no ``devices=``
+    and no ``device=``, ``init_orca_context``, ``init_nncontext``, SSD's
+    ``fit_detection``/``predict_detections``, ``ObjectDetector.
+    load_model`` and ``load_caffe`` raise; a CPU context lets a fit from
+    XShards run without ``device=``."""
+    from zoo_tpu_torch.common import init_nncontext
+    from zoo_tpu_torch.models.caffe_loader import load_caffe
+    from zoo_tpu_torch.models.image import SSD, ObjectDetector
+    from zoo_tpu_torch.orca import init_orca_context, stop_orca_context
+    from zoo_tpu_torch.orca.data import XShards
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.layers import Dense
+    from zoo_tpu_torch.tensorboard import proto as wire
+
+    ssd = SSD(3, input_size=32, feature_channels=(8,))
+    ssd.build(torch.Generator().manual_seed(0), device="cpu")
+    path = str(tmp_path / "ssd.model")
+    ssd.save(path)
+    caffe = tmp_path / "net.caffemodel"
+    caffe.write_bytes(wire.field_bytes(3, b"data") + b"".join(
+        wire.field_varint(4, d) for d in (1, 1, 2, 2)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = np.zeros((1, 32, 32, 3), np.float32)
+    for call in (init_orca_context, init_nncontext,
+                 lambda: ssd.predict_detections(x),
+                 lambda: ssd.fit_detection(x, [np.zeros((0, 4))],
+                                           [np.zeros(0)], epochs=1),
+                 lambda: ObjectDetector.load_model(path),
+                 lambda: load_caffe(None, str(caffe))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    init_orca_context(devices=["cpu"])
+    try:
+        m = Sequential().add(Dense(1, input_shape=(2,)))
+        m.compile("sgd", "mse")
+        shards = XShards.partition({"x": np.ones((8, 2), np.float32),
+                                    "y": np.ones((8, 1), np.float32)}, 2)
+        assert len(m.fit(shards, batch_size=4, nb_epoch=1,
+                         verbose=0)["loss"]) == 1
+    finally:
+        stop_orca_context()

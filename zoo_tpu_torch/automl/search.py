@@ -6,8 +6,8 @@ random draws, or a model-based sampler (TPE) as ask/tell, with an
 optional per-trial stopper and ASHA scheduler, and ``n_parallel``
 threads for the random and grid searches. The JAX engine can give each
 concurrent trial its own sub-mesh of the runtime context's devices; the
-port has no runtime context yet (ROADMAP A.14), so concurrent trials
-share the one card, as JAX trials share the ambient mesh without one.
+port's context holds one device (ROADMAP A.14), so concurrent trials
+share the one card, as JAX trials share a one-device mesh.
 ``RayTuneSearchEngine`` needs ray, which it imports when constructed.
 """
 
@@ -198,15 +198,23 @@ class LocalSearchEngine(SearchEngine):
         self.stopper = stopper
         self.search_alg = search_alg
         self.scheduler = scheduler
-        # kept for the JAX signature: with no runtime context there are
+        # kept for the JAX signature: the port's one-device context has
         # no devices to partition (_sub_contexts)
         self.partition_devices = bool(partition_devices)
 
     def _sub_contexts(self):
-        """Disjoint sub-meshes for concurrent trials: none, since the
-        port has no runtime context (ROADMAP A.14); concurrent trials
-        share the one card."""
-        return []
+        """Disjoint sub-contexts for concurrent trials: none where there
+        is no runtime context or it holds one device, as the port's
+        context does (a split of more devices comes with ROADMAP A.14's
+        multi-device context); concurrent trials then share the one
+        card."""
+        from zoo_tpu_torch.common.context import get_runtime_context
+
+        ctx = get_runtime_context(required=False)
+        if ctx is None or len(ctx.devices) < 2:
+            return []
+        raise NotImplementedError(
+            "sub-contexts over more than one device are ROADMAP A.14")
 
     def compile(self, trial_fn, search_space, n_sampling=1, metric="mse",
                 mode="min", seed=0, search_alg=None, scheduler=None):
@@ -360,7 +368,7 @@ def make_search_engine(search_alg=None, scheduler=None,
                        ) -> SearchEngine:
     """``n_parallel > 1`` runs that many trials concurrently, sharing
     the one card (``partition_devices`` is kept for the JAX signature;
-    the port has no devices to partition, :meth:`LocalSearchEngine.
+    the port's context has one device, :meth:`LocalSearchEngine.
     _sub_contexts`)."""
     if partition_devices is None:
         partition_devices = n_parallel > 1

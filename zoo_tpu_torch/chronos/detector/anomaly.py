@@ -58,10 +58,9 @@ class AEDetector:
     """A dense autoencoder over windows of ``roll_len`` steps; a point's
     score is the largest reconstruction error of the windows covering
     it, z-scored. Trains on the current CUDA device unless ``device``
-    names another. The JAX detector rounds the batch to the data shards
-    of its runtime context's mesh; the port has no runtime context yet
-    (ROADMAP A.14), so the batch is ``min(batch_size, windows)`` as
-    given."""
+    names another. The batch is ``min(batch_size, windows)``, rounded
+    down to a multiple of the data shards of the runtime context's mesh
+    when one is live (as the JAX detector rounds it)."""
 
     def __init__(self, roll_len: int = 24, ratio: float = 0.1,
                  compress_rate: float = 0.25, batch_size: int = 100,
@@ -98,9 +97,18 @@ class AEDetector:
         m.add(Dense(hidden, activation="relu", input_shape=(d,)))
         m.add(Dense(d))
         m.compile(optimizer=zopt.Adam(lr=self.lr), loss="mse")
-        m.fit(windows, windows, batch_size=min(self.batch_size,
-                                               len(windows)),
-              nb_epoch=self.epochs, verbose=0, device=dev)
+        bs = min(self.batch_size, len(windows))
+        # keep the batch divisible by the mesh's data shards
+        from zoo_tpu_torch.common.context import get_runtime_context
+        ctx = get_runtime_context(required=False)
+        if ctx is not None:
+            from zoo_tpu_torch.parallel.mesh import data_axes
+            denom = 1
+            for a in data_axes(ctx.mesh):
+                denom *= ctx.mesh.shape[a]
+            bs = max(denom, (bs // denom) * denom)
+        m.fit(windows, windows, batch_size=bs, nb_epoch=self.epochs,
+              verbose=0, device=dev)
         self.model = m
         rec = m.predict(windows, device=dev)
         err = np.mean((rec - windows) ** 2, axis=1)

@@ -263,6 +263,19 @@ _k("ZOO_CHAOS_SEED", "int", 0, "seed resolving every draw in the schedule")
 _k("ZOO_CHAOS_ALLOW", "bool", False,
    "`1` lets a replica honor wire `chaos` ops")
 
+# -- the runtime context (init_orca_context) ----------------------------------
+for _axis in ("data", "fsdp", "model", "seq", "expert", "pipe"):
+    _k(f"ZOO_MESH_{_axis.upper()}", "int", None, f"mesh `{_axis}` axis size")
+del _axis
+_k("ZOO_NUM_CORES", "int", None,
+   "local-mode core count used when no explicit `cores=` is passed")
+_k("ZOO_PROCESS_ID", "int", None,
+   "worker rank; set by the launcher for each worker")
+_k("ZOO_NUM_PROCESSES", "int", None,
+   "world size; set by the launcher for each worker")
+_k("ZOO_COORDINATOR_ADDRESS", "str", None,
+   "the coordination service's address; set by the launcher")
+
 
 def get(name: str) -> Knob:
     try:

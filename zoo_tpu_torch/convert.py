@@ -26,6 +26,10 @@ weight ``W_q`` gets the K-major copy the int8 conv kernel reads
 (:func:`~zoo_tpu_torch.ops.kernels.conv.attach_kmajor`), kept beside the
 tree, not in it.
 
+``ssd_from_jax(model)`` and ``caffe_net_from_jax(net)`` build the
+port's ``SSD`` and ``CaffeNet`` from a JAX one: its configuration (a
+Caffe net's layers, inputs and shapes) and its params, same keys.
+
 ``tcmf_from_jax(fc)`` carries a fitted JAX ``TCMFForecaster`` (``F``,
 ``X``, the AR coefficients and lag, the normalisation, and its TCN's
 weights and layer names) into the port's.
@@ -120,3 +124,37 @@ def tcmf_from_jax(fc, device=None):
             b.name = a.name
         out._tcn.fitted = True
     return out
+
+
+def ssd_from_jax(jm, device=None):
+    """The port's ``SSD`` with a JAX ``SSD``'s configuration (classes,
+    input size, channels, aspect ratios) and its params (built if it has
+    none) on ``device``: the same keys, HWIO conv weights alike."""
+    from zoo_tpu_torch.models.image.objectdetection import SSD
+    out = SSD(jm.n_classes, input_size=jm.input_size,
+              feature_channels=tuple(jm.channels),
+              aspect_ratios=tuple(jm.aspect_ratios), name=jm.name)
+    params = jm.params if jm.params is not None else jm.build()
+    out.params = keras_params_from_jax(
+        {k: _numpy(v) for k, v in params.items()}, device)
+    return out
+
+
+def caffe_net_from_jax(net, device=None):
+    """The port's ``CaffeNet`` holding a JAX ``CaffeNet``'s layers (name,
+    type, bottoms, tops, attributes), inputs and shapes, and its blobs
+    (params, after any training) on ``device``."""
+    from zoo_tpu_torch.models.caffe_loader import CaffeLayer, CaffeNet
+    layers = [CaffeLayer(l.name, l.type, list(l.bottoms), list(l.tops),
+                         [np.asarray(b) for b in l.blobs], dict(l.attrs))
+              for l in net.caffe_layers]
+    out = CaffeNet(layers, net.inputs, [], name=net.name)
+    out._built_shapes = list(net._built_shapes)
+    out.params = keras_params_from_jax(_numpy(net.params), device)
+    return out
+
+
+def _numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)

@@ -23,8 +23,8 @@ inside the decoding functions:
 
 Random transformers take ``seed`` (an int, or a ``random.Random`` to
 share): one seed draws what the JAX module draws from Python's
-``random`` after ``random.seed(seed)``. ``ImageSet.to_xshards`` raises,
-naming ROADMAP A.15.
+``random`` after ``random.seed(seed)``. ``ImageSet.to_xshards`` splits
+the features into XShards of feature lists, as the JAX module does.
 """
 
 from __future__ import annotations
@@ -592,9 +592,13 @@ class ImageSet:
         return out
 
     def to_xshards(self, num_shards: Optional[int] = None):
-        raise NotImplementedError(
-            "ImageSet.to_xshards is not ported to zoo_tpu_torch yet: it "
-            "needs orca/data/shard.py's XShards (ROADMAP A.15)")
+        """The features as a ``LocalXShards`` of ``num_shards`` (default
+        ``default_cores()``) contiguous lists of feature dicts."""
+        from zoo_tpu_torch.common.context import default_cores
+        from zoo_tpu_torch.orca.data.shard import LocalXShards
+        n = num_shards or default_cores()
+        chunks = np.array_split(np.arange(len(self.features)), max(n, 1))
+        return LocalXShards([[self.features[i] for i in c] for c in chunks])
 
     def __len__(self):
         return len(self.features)

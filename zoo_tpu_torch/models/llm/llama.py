@@ -220,7 +220,8 @@ class Llama(Layer):
     def __init__(self, config: Optional[LlamaConfig] = None,
                  params: Optional[Dict] = None, *, lm_head: bool = True,
                  attention_impl: str = "auto", remat=False,
-                 input_shape=None, name: Optional[str] = None):
+                 input_shape=None, name: Optional[str] = None,
+                 mesh=None):
         super().__init__(input_shape=input_shape, name=name)
         config = config or LlamaConfig()
         self.cfg = config
@@ -235,6 +236,7 @@ class Llama(Layer):
         self.attention_impl = attention_impl
         self.remat = remat
         self.last_attention_impl: Optional[str] = None
+        self.mesh = mesh
         self.embed = self.blocks = self.final_norm = self.head = None
         if params is not None:
             self._hold(params)
@@ -336,6 +338,26 @@ class Llama(Layer):
             h = block(p, h, cos, sin, impl)
         return self._head(params, h)
 
+    def _seq_mesh(self):
+        """``attention_impl="ring"``'s mesh: ``mesh=``, else the runtime
+        context's. A mesh without a ``seq`` axis above 1 raises as in
+        the JAX package; one with it needs ring attention over
+        ``torch.distributed``, ROADMAP A.14, and raises naming it."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is None:
+            from zoo_tpu_torch.common.context import get_runtime_context
+            ctx = get_runtime_context(required=False)
+            mesh = getattr(ctx, "mesh", None) if ctx else None
+        if mesh is None or "seq" not in mesh.axis_names \
+                or mesh.shape.get("seq", 1) <= 1:
+            raise ValueError(
+                'attention_impl="ring" needs a mesh with a seq axis > 1; '
+                "pass mesh= or init_orca_context(mesh_axes={'seq': k})")
+        raise NotImplementedError(
+            f"ring attention over the mesh's seq axis "
+            f"({mesh.shape['seq']}) is not ported to zoo_tpu_torch yet "
+            "(ROADMAP A.14)")
+
     def _embed(self, params: Dict, ids: torch.Tensor):
         """Token embeddings, the RoPE tables and the attention route."""
         c = self.cfg
@@ -344,6 +366,8 @@ class Llama(Layer):
         cos, sin = rope_frequencies(c.head_dim, T, c.rope_theta, h.device)
         impl = resolve_attention_impl(self.attention_impl, T, h.device)
         self.last_attention_impl = impl
+        if impl == "ring":
+            self._seq_mesh()
         return h, cos, sin, impl
 
     def _per_block(self, params: Dict):

@@ -5,8 +5,9 @@ Uniform ``fit``/``predict``/``evaluate``/``get_model``/``save``/``load``
 over numpy and DataFrame inputs, with orca-style checkpointing, the
 training guard, and train-summary read-back, driving the port's
 :class:`~zoo_tpu_torch.pipeline.api.keras.engine.topology.KerasNet` on
-one device: the current CUDA device unless ``device="cpu"`` (or another
-device) is given to :meth:`Estimator.from_keras`.
+one device: the ``device`` given to :meth:`Estimator.from_keras`, else
+the runtime context's (``init_orca_context``), else the current CUDA
+device. ``fit``, ``evaluate`` and ``predict`` take XShards too.
 
 Checkpoints are the port's pickle codec (:mod:`..ckpt`): ``{"params",
 "epoch"}`` as host numpy with the optimizer state beside it, restored
@@ -113,8 +114,9 @@ class KerasEstimator:
             shuffle: bool = True,
             max_failure_retries: int = 5,
             retry_time_interval: float = 120.0) -> Dict[str, List[float]]:
-        """Train ``epochs`` epochs (``data``: ``{"x", "y"}`` numpy, or a
-        DataFrame with ``feature_cols``/``label_cols``).
+        """Train ``epochs`` epochs (``data``: ``{"x", "y"}`` numpy, a
+        DataFrame with ``feature_cols``/``label_cols``, or XShards of
+        either).
 
         With a ``model_dir`` checkpoint manager, any exception inside an
         epoch restores the latest snapshot (params + optimizer state)
@@ -213,13 +215,30 @@ class KerasEstimator:
         self._ckpt.save(self._epoch, state, aux=self.model._opt_state)
 
     def _device(self):
-        from zoo_tpu_torch.common.device import resolve_device
-        return resolve_device(self.device)
+        """``device=`` when given, else the runtime context's device,
+        else the current CUDA device."""
+        from zoo_tpu_torch.pipeline.api.keras.engine.topology import _placed
+        return _placed(self.device)
+
+    @staticmethod
+    def _restore_mesh():
+        """The live mesh when it spans more than one device: the
+        placement a restore would reshard onto. The port's meshes span
+        one device (larger ones are ROADMAP A.14), so this is None and a
+        restore lands on :meth:`_device`."""
+        from zoo_tpu_torch.common.context import get_runtime_context
+        ctx = get_runtime_context(required=False)
+        mesh = ctx.mesh if ctx is not None else None
+        return mesh if mesh is not None and mesh.size > 1 else None
 
     def _load_state(self, state, aux):
         from zoo_tpu_torch.pipeline.api.keras.optimizers import (
             state_to_device,
         )
+        if self._restore_mesh() is not None:
+            raise NotImplementedError(
+                "restoring onto a mesh of more than one device is not "
+                "ported to zoo_tpu_torch yet (ROADMAP A.14)")
         dev = self._device()
         self.model._place_params(state["params"], dev)
         self.model._opt_state = state_to_device(aux, dev)

@@ -5,8 +5,11 @@ Inputs: numpy ``x`` as one array, a list of arrays, or ``{"x": ...,
 "y": ...}``; labels as one array or, for a multi-output model, a list of
 arrays; or a DataFrame-like table with ``feature_cols``/``label_cols``
 (anything with ``columns`` whose columns have ``to_numpy()``: duck-typed,
-so pandas is never imported). XShards wait for the data plane (ROADMAP
-A.15) and are refused by name; DataLoaders and ``tf.data`` too. Batch
+so pandas is never imported); or XShards
+(:mod:`zoo_tpu_torch.orca.data`) of numpy dicts (``{"x", "y"}``) or of
+such tables (with ``feature_cols``/``label_cols``), concatenated on the
+host into the same arrays, so a fit from shards is a fit from the
+stacked arrays. DataLoaders and ``tf.data`` are refused. Batch
 order is the JAX package's: one ``RandomState.shuffle`` of the sample
 indices per epoch, the ragged tail dropped, so both packages train on
 the same batches, ``group`` whole batches at a time.
@@ -59,10 +62,7 @@ def to_xy_arrays(x, y=None, feature_cols: Optional[Sequence[str]] = None,
     """Normalize the inputs to ``(inputs_list, labels)``; labels are one
     array, a list of arrays (multi-output) or None."""
     if hasattr(x, "transform_shard"):
-        raise NotImplementedError(
-            "XShards inputs are not ported to zoo_tpu_torch yet (ROADMAP "
-            "A.15); pass numpy arrays, a dict of them or a DataFrame with "
-            "feature_cols/label_cols")
+        return _xshards_xy(x, feature_cols, label_cols)
     if _is_table(x):
         if not feature_cols:
             raise ValueError("feature_cols required for DataFrame input")
@@ -83,6 +83,25 @@ def to_xy_arrays(x, y=None, feature_cols: Optional[Sequence[str]] = None,
                         f"them, or a DataFrame) in this port; got "
                         f"{type(x).__name__}")
     return _as_list(x), _normalize_labels(y)
+
+
+def _xshards_xy(shards, feature_cols, label_cols):
+    """XShards of tables (``feature_cols``/``label_cols``) or of
+    ``{"x", "y"}`` numpy dicts, stacked on the host."""
+    first = shards.collect()[0]
+    if _is_table(first):
+        if not feature_cols:
+            raise ValueError("feature_cols required for DataFrame shards")
+        stacked = shards.stack_numpy(list(feature_cols)
+                                     + list(label_cols or []))
+        xs = [np.asarray(stacked[c]) for c in feature_cols]
+        ys = _stack_labels([np.asarray(stacked[c])
+                            for c in (label_cols or [])])
+        return xs, ys
+    if isinstance(first, dict):
+        stacked = shards.stack_numpy()
+        return _as_list(stacked.get("x")), stacked.get("y")
+    raise ValueError(f"unsupported shard type: {type(first)}")
 
 
 def num_samples(xs: List[np.ndarray]) -> int:

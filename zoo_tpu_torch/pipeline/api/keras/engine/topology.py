@@ -61,8 +61,10 @@ or global L2 norm; the norm and the guard's sum of squares are one
 reduction), validation data, TensorBoard summaries and the metric-driven
 Plateau schedule are the JAX ``fit``'s.
 
-Not ported yet: meshes and plans, the profiler (``set_profile``,
-ROADMAP A.15).
+Every entry point runs on its ``device=``, else on the device of the
+runtime context ``init_orca_context`` made, else on the current CUDA
+device. Not ported yet: the sharding plans over a mesh of more than one
+device (ROADMAP A.14) and the profiler (``set_profile``, ROADMAP A.15).
 """
 
 from __future__ import annotations
@@ -77,6 +79,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from zoo_tpu_torch.common.context import context_device
 from zoo_tpu_torch.common.device import resolve_device
 from zoo_tpu_torch.pipeline.api.keras.engine import data_utils
 from zoo_tpu_torch.pipeline.api.keras.engine import base as _base
@@ -117,6 +120,13 @@ def _merge_state(trainable: Dict, state: Dict) -> Dict:
         merged.update(st)
         out[lname] = merged
     return out
+
+
+def _placed(device) -> torch.device:
+    """Where an entry point runs: ``device`` when given, else the
+    runtime context's device (``init_orca_context``), else the current
+    CUDA device (raising without one)."""
+    return resolve_device(context_device() if device is None else device)
 
 
 def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -468,7 +478,7 @@ class KerasNet:
                 "the first layer or call build(input_shapes=...)")
         if generator is None:
             generator = torch.Generator(
-                device=resolve_device(device)).manual_seed(0)
+                device=_placed(device)).manual_seed(0)
         self._built_shapes = [tuple(s) for s in shapes]
         self.params = self._init_params(generator, self._built_shapes)
         return self.params
@@ -633,7 +643,7 @@ class KerasNet:
         if n < batch_size:
             raise ValueError(f"dataset ({n}) smaller than the batch "
                              f"({batch_size})")
-        dev = resolve_device(device)
+        dev = _placed(device)
         self.build(torch.Generator(device=dev).manual_seed(int(seed)),
                    [(None,) + a.shape[1:] for a in xs])
         self._place_params(self.params, dev)
@@ -764,6 +774,12 @@ class KerasNet:
                     f"epoch {epoch + 1}; retrain it from the restored "
                     "checkpoint")
             epoch_loss = float(run["loss_sum"]) / denom
+            from zoo_tpu_torch.common.context import ZooContext
+            if ZooContext.debug_nans and not np.isfinite(epoch_loss):
+                raise FloatingPointError(
+                    f"{self.name}: non-finite training loss "
+                    f"({epoch_loss}) in epoch {epoch + 1}; NaN-check mode "
+                    "(ZooContext.debug_nans) treats this as fatal")
             history["loss"].append(epoch_loss)
             self._summary("train_summary").add_scalar("Loss", epoch_loss,
                                                       self._step)
@@ -842,7 +858,7 @@ class KerasNet:
         has none."""
         xs, _ = data_utils.to_xy_arrays(x, None, feature_cols, None)
         xs = self._adapt_inputs(xs)
-        dev = resolve_device(device)
+        dev = _placed(device)
         if self.params is None:
             self.build(torch.Generator(device=dev).manual_seed(0),
                        [(None,) + a.shape[1:] for a in xs])
@@ -861,7 +877,7 @@ class KerasNet:
         xs = self._adapt_inputs(xs)
         if ys is None:
             raise ValueError("evaluate requires labels")
-        dev = resolve_device(device)
+        dev = _placed(device)
         if self.params is None:
             self.build(torch.Generator(device=dev).manual_seed(0),
                        [(None,) + a.shape[1:] for a in xs])
@@ -985,7 +1001,7 @@ class KerasNet:
         cloudpickle of the JAX package's model) or any other file is
         refused. Int8 conv weights get their kernel's K-major copies
         again (:func:`~zoo_tpu_torch.convert.keras_params_from_jax`)."""
-        dev = resolve_device(device)
+        dev = _placed(device)
         with open(path, "rb") as f:
             return KerasNet._read(f, dev, path)
 
@@ -995,7 +1011,7 @@ class KerasNet:
         """:meth:`load` of a model file held in memory (``to_bytes``'s
         output, or a decrypted one), read by the same checks and the
         same allowlist; ``source`` names it in a refusal."""
-        dev = resolve_device(device)
+        dev = _placed(device)
         return KerasNet._read(io.BytesIO(data), dev, source)
 
     @staticmethod
@@ -1055,7 +1071,7 @@ class KerasNet:
                     f"shape-changed={changed[:5]}")
             dev = self._params_device()
         else:
-            dev = resolve_device(device)
+            dev = _placed(device)
         self.params = keras_params_from_jax(loaded, dev)
         self._step = int(blob.get("step", 0))
         return self

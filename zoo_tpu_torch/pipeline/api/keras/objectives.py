@@ -30,6 +30,14 @@ def binary_crossentropy(y_true, y_pred):
 
 
 @model_file_part
+def categorical_crossentropy(y_true, y_pred):
+    """One-hot (or soft) ``y_true`` against probabilities (keras-1
+    contract), clipped to [eps, 1] as the JAX package clips them."""
+    p = torch.clamp(y_pred, _EPS, 1.0)
+    return -torch.mean(torch.sum(y_true * torch.log(p), dim=-1))
+
+
+@model_file_part
 def sparse_categorical_crossentropy(y_true, y_pred):
     """``y_pred`` are probabilities (keras-1 contract)."""
     p = torch.clamp(y_pred, _EPS, 1.0)
@@ -78,6 +86,7 @@ _ALIASES = {
     "mse": mean_squared_error,
     "mean_squared_error": mean_squared_error,
     "binary_crossentropy": binary_crossentropy,
+    "categorical_crossentropy": categorical_crossentropy,
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
     "sparse_categorical_crossentropy_from_logits":
         sparse_categorical_crossentropy_from_logits,

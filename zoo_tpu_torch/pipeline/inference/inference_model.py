@@ -12,9 +12,9 @@ The chosen path is recorded on the model (``_quant_path``,
 ``_quant_speedup``) and published as the ``zoo_quant_path_info`` gauge.
 ``InferenceModel.load`` reads the
 port's own model file (``KerasNet.save``), ``load_encrypted`` the same
-file encrypted at rest (``save_encrypted``); the other file loaders
-(``load_tf``, ``load_onnx``, ``load_caffe``) raise, naming the ROADMAP
-item that brings each.
+file encrypted at rest (``save_encrypted``), ``load_caffe`` a Caffe
+deploy net and its weights; the other file loaders (``load_tf``,
+``load_onnx``) raise, naming the ROADMAP item that brings each.
 """
 
 from __future__ import annotations
@@ -110,10 +110,15 @@ class InferenceModel:
             "InferenceModel.load_onnx needs the ONNX loader, which waits "
             "for ROADMAP A.16 in the port")
 
-    def load_caffe(self, *args, **kwargs):
-        raise NotImplementedError(
-            "InferenceModel.load_caffe waits for ROADMAP A.12 (the rest "
-            "of the image-inference slice) in the port")
+    def load_caffe(self, def_path: Optional[str], model_path: str,
+                   batch_size: Optional[int] = None, device=None):
+        """A Caffe deploy net and its weights
+        (:func:`zoo_tpu_torch.models.caffe_loader.load_caffe`), on the
+        current CUDA device unless ``device`` names another."""
+        from zoo_tpu_torch.models.caffe_loader import load_caffe
+        return self.load_keras(load_caffe(def_path, model_path,
+                                          device=device),
+                               batch_size=batch_size, device=device)
 
     def load_encrypted(self, path: str, secret: str, salt: str,
                        key_len: int = 128, mode: str = "cbc",
