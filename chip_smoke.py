@@ -396,6 +396,25 @@ binaries, loaded with ``InferenceModel.load_caffe``: load s, a batch of
 32 against the CPU route, images/s; VGG-16 fine-tuned 4 steps through
 the fused SGD, each step against plain).
 
+Then the Orca estimators of the torch bridge and the online-learning
+loop: ``torch-main`` (BERT-base as a plain ``nn.Module`` through
+``orca.learn.pytorch.Estimator.from_torch``: the ``torch.export``
+trace on a CPU copy and its seconds and ops, no op of a converted
+forward off the card, ``predict`` before ``fit`` against the module and
+the CPU route, 8 GLUE-recipe steps (S=128, B=32, ``torch.optim.AdamW``)
+through the fused AdamW against the plain update, the trained weights
+written back bit-equal, a ``torch.optim.SGD`` fit through the fused
+SGD, a 2-trial ``AutoEstimator.from_torch`` on the card), ``gan-main``
+(``GANEstimator`` over TF-GAN's MNIST networks: one iteration against
+the CPU route, a 64-step epoch, ``generate``, a NaN batch folded away),
+``infer-est-main`` (``orca.learn.inference.Estimator.from_model`` on
+infer-main's saved ResNet-50, float and int8, from 8 XShards and from
+the array, bit-equal to ``InferenceModel.predict``; ``from_caffe`` on
+caffe-main's VGG-16 files, its top-1) and ``continuous-main`` (a
+``ContinuousTrainingLoop`` turn with ``chronos_train_fn`` over
+chronos-main's LSTM: a ``PromotionGate`` over 256 mirrored windows
+promotes the candidate; a poisoned window is demoted).
+
 Phase 3 also holds the flash forward (o, lse) and backward kernels
 (dK/dV, dQ) against their plain versions, and the gradients against
 autograd of the dense path, at B=8 and B=64, H=12, Hkv=4, T=512, D=64
@@ -472,7 +491,9 @@ MobileNet-v1 steps,
 key split only),
 ``estimator_bert`` estimator-bert's, ``orca_ncf`` and ``orca_bert``
 orca-main's shard-fed runs, ``detect`` detect-main's fit (none),
-``caffe_fit`` caffe-main's fine-tune,
+``caffe_fit`` caffe-main's fine-tune, ``torch_bert`` and
+``torch_sgd`` torch-main's AdamW and SGD fits, ``gan`` gan-main's epoch,
+``infer_est`` infer-est-main's predicts, ``continuous`` the loop's turns,
 ``predict`` predict-main's in-process run, ``cluster`` cluster-main's
 in-process runs (both versions; ``conv2d`` and ``conv2d_int8`` also
 carry ``vgg_first_conv``, ``quantized_matmul`` ``served_fc6``);
@@ -496,8 +517,11 @@ import traceback
 
 SPEC_8B = ("llama:vocab=128256,hidden=4096,n_block=32,n_head=32,"
            "n_kv_head=8,intermediate=14336")
-# full depth fits the time limit; a cut, if ever needed, cuts n_block only
-N_BLOCK = 32
+# phase 5's depth: 8 of the 8B spec's 32 blocks (widths unchanged). On a
+# host of CPU model 143 the whole smoke read 1176.8 s of its 1200 s at
+# full depth (phase 5 alone 217.5 s) and 1092.8 s at 16 blocks (phase 5
+# 143.8 s); a cut cuts n_block only
+N_BLOCK = 8
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3, bytes/s
 PEAK_F32_FLOPS = 67e12            # H100 SXM f32, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
@@ -2885,9 +2909,11 @@ def phase_infer_tiny(torch, K):
                                      f"differs from plain by {diff}")
 
 
-def phase_infer_main(torch, K, card):
+def phase_infer_main(torch, K, card, save_to=None):
     """ResNet-50 at full width and depth through InferenceModel: float,
-    int8 (fused head), one unfused-head batch and the auto verdict."""
+    int8 (fused head), one unfused-head batch and the auto verdict. With
+    ``save_to`` the calibrated float model is saved there first (the
+    input of infer-est-main)."""
     import numpy as np
     from zoo_tpu_torch.models.image import resnet50
     from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
@@ -2911,6 +2937,8 @@ def phase_infer_main(torch, K, card):
     refreshed = refresh_batchnorm(torch, m, x[:B])
     head_scale, _ = calibrate_head(torch, m, x[:B])
     float_params = _copy_tree(m.params)
+    if save_to is not None:
+        m.save(save_to)
     n_conv = len(envelope_convs(m))
     if n_conv != 49:
         raise AssertionError(f"{n_conv} convs inside the envelope, not 49")
@@ -9491,7 +9519,8 @@ def phase_caffe_main(torch, K, card):
     0.9; :func:`_caffe_fine_tune`): ``fused_sgd`` launched exactly once a
     leaf a step (32 x 4), the key split once a step and nothing else,
     each step's loss and update against the same step through the plain
-    update. Returns the fine-tune's launches."""
+    update. Returns the fine-tune's launches and VGG-16's top-1 of its
+    batch."""
     import shutil
     import tempfile
 
@@ -9500,7 +9529,7 @@ def phase_caffe_main(torch, K, card):
     from zoo_tpu_torch.pipeline.inference import InferenceModel
 
     root = tempfile.mkdtemp(prefix="zoo-caffe-")
-    fit_counts = None
+    fit_counts = vgg_top1 = None
     try:
         for spec, seed in ((_vgg16_layers(), 16), (_caffenet_layers(), 7)):
             deploy, path, shape = _write_caffe(root, spec, seed)
@@ -9538,6 +9567,7 @@ def phase_caffe_main(torch, K, card):
                     "device_ms": t["device_ms"],
                     "device_busy_share": t["device_busy_share"]}
             if spec[0].startswith("VGG"):
+                vgg_top1 = got.argmax(1).tolist()
                 line.update(_caffe_fine_tune(torch, net, shape))
                 fit_counts = line.pop("counts")
             emit(line)
@@ -9548,7 +9578,730 @@ def phase_caffe_main(torch, K, card):
             torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return fit_counts
+    return fit_counts, vgg_top1
+
+
+# torch-main: bert-base-uncased's published config (vocab 30522, hidden
+# 768, 12 layers, 12 heads, intermediate 3072, 512 positions, 2 token
+# types, erf GELU, LayerNorm eps 1e-12) with a 2-label head, as a plain
+# nn.Module, fine-tuned by the BERT paper's GLUE recipe: S=128, B=32,
+# AdamW(2e-5, weight decay 0.01), cross-entropy
+TORCH_BERT_CFG = dict(vocab=30522, hidden=768, layers=12, heads=12,
+                      intermediate=3072, positions=512, types=2, eps=1e-12,
+                      labels=2)
+TORCH_BERT_S, TORCH_BERT_B, TORCH_BERT_STEPS = 128, 32, 8
+TORCH_BERT_LR, TORCH_BERT_WD = 2e-5, 0.01
+TORCH_SGD_STEPS, TORCH_SGD_LR = 4, 1e-3
+TORCH_AUTO_WIDTHS, TORCH_AUTO_STEPS = (64, 256), 4
+# predict before fit, against the module's own eval forward on the card
+# and against the CPU route: f32 with TF32 off, 12 blocks of sums in
+# other orders, logits of O(1)
+TOL_TORCH_PREDICT = 1e-4
+# the kernel route's step losses against the plain route's: the first
+# bit-equal, the rest within estimator-tiny's AdamW bar, relative
+TOL_TORCH_STEP = 1e-4
+# gan-main: TF-GAN's MNIST example networks (tensorflow_gan/examples/
+# mnist/networks.py: unconditional_generator, unconditional_discriminator)
+# on MNIST-shaped images in [-1, 1], Adam(1e-3, beta_1 0.5) for both
+GAN_NOISE, GAN_B, GAN_IMAGES, GAN_LR, GAN_BETA1 = 64, 32, 2048, 1e-3, 0.5
+# one iteration on the card against the CPU route: the losses within
+# TOL_GAN_LOSS relative; a param element may differ past TOL_GAN_PARAM
+# only where Adam's first step normalizes a gradient within rounding of
+# zero to a full step of either sign: at most GAN_DIFF_SHARE_MAX of them
+TOL_GAN_LOSS, TOL_GAN_PARAM, GAN_DIFF_SHARE_MAX = 1e-4, 1e-5, 1e-3
+TOL_GAN_GENERATE = 1e-5
+# infer-est-main: infer-main's 1024 images at its batch of 128, from the
+# array and from 8 shards
+INFER_EST_SHARDS = 8
+# continuous-main: chronos-main's LSTM on chronos_series; the incumbent
+# trains one epoch on the first 40 % of the windows, the candidate one on
+# the first 80 %; the gate mirrors 256 held-out windows
+CONTINUOUS_GATE_WINDOWS = 256
+CONTINUOUS_B = CHRONOS_B
+
+
+def _torch_bert(torch, seed=0, **cfg):
+    """BERT for sequence classification as a plain ``nn.Module`` (the
+    card's machine has no ``transformers``): post-LN blocks, a padding
+    mask from the ids (id 0), the pooler's tanh over [CLS], dropout 0.1
+    (an eval-mode trace drops it); BERT's init (normal 0.02, zero
+    biases), drawn on the CPU from ``seed``."""
+    nn, F = torch.nn, torch.nn.functional
+    h, n_head = cfg["hidden"], cfg["heads"]
+    d = h // n_head
+
+    class Block(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.q, self.k, self.v, self.o = (nn.Linear(h, h)
+                                              for _ in range(4))
+            self.ln1 = nn.LayerNorm(h, eps=cfg["eps"])
+            self.fc1 = nn.Linear(h, cfg["intermediate"])
+            self.fc2 = nn.Linear(cfg["intermediate"], h)
+            self.ln2 = nn.LayerNorm(h, eps=cfg["eps"])
+            self.drop = nn.Dropout(0.1)
+
+        def forward(self, x, bias):
+            b, t, _ = x.shape
+
+            def heads(y):
+                return y.view(b, t, n_head, d).transpose(1, 2)
+            att = heads(self.q(x)) @ heads(self.k(x)).transpose(-1, -2)
+            att = self.drop((att / math.sqrt(d) + bias).softmax(-1))
+            ctx = (att @ heads(self.v(x))).transpose(1, 2).reshape(b, t, h)
+            x = self.ln1(x + self.drop(self.o(ctx)))
+            return self.ln2(x + self.drop(self.fc2(F.gelu(self.fc1(x)))))
+
+    class Bert(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.word = nn.Embedding(cfg["vocab"], h)
+            self.pos = nn.Embedding(cfg["positions"], h)
+            self.token_type = nn.Embedding(cfg["types"], h)
+            self.ln = nn.LayerNorm(h, eps=cfg["eps"])
+            self.blocks = nn.ModuleList(Block()
+                                        for _ in range(cfg["layers"]))
+            self.pooler = nn.Linear(h, h)
+            self.classifier = nn.Linear(h, cfg["labels"])
+            self.drop = nn.Dropout(0.1)
+
+        def forward(self, ids):
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            x = self.word(ids) + self.pos(pos)[None] + \
+                self.token_type(torch.zeros_like(ids))
+            x = self.drop(self.ln(x))
+            bias = (1.0 - (ids != 0).float())[:, None, None, :] * -10000.0
+            for block in self.blocks:
+                x = block(x, bias)
+            pooled = torch.tanh(self.pooler(x[:, 0]))
+            return self.classifier(self.drop(pooled))
+
+    g = torch.Generator().manual_seed(seed)
+    m = Bert()
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, (nn.Linear, nn.Embedding)):
+                mod.weight.normal_(0.0, 0.02, generator=g)
+            if isinstance(mod, nn.Linear):
+                mod.bias.zero_()
+    return m
+
+
+def _glue_rows(n, seed):
+    """``n`` seeded GLUE-shaped rows: token ids padded with 0 after a
+    length drawn from [16, S], labels 0/1."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    S = TORCH_BERT_S
+    ids = rs.randint(1, TORCH_BERT_CFG["vocab"], (n, S)).astype(np.int64)
+    lengths = rs.randint(16, S + 1, n)
+    ids[np.arange(S)[None, :] >= lengths[:, None]] = 0
+    return ids, rs.randint(0, 2, n).astype(np.int64)
+
+
+def _forward_devices(torch, fn):
+    """``fn()`` under a dispatch mode: the (device, op) of every tensor
+    an op of it returns."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Devices(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (list, tuple)) else [out]):
+                if isinstance(t, torch.Tensor):
+                    self.seen.add((t.device.type, str(func)))
+            return out
+
+    mode = Devices()
+    with torch.no_grad(), mode:
+        fn()
+    return mode.seen
+
+
+@contextlib.contextmanager
+def _fused_optim(on):
+    """``ZOO_FUSED_OPTIM`` set to 1 (``on``) or unset, then restored."""
+    saved = os.environ.pop("ZOO_FUSED_OPTIM", None)
+    if on:
+        os.environ["ZOO_FUSED_OPTIM"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("ZOO_FUSED_OPTIM", None)
+        if saved is not None:
+            os.environ["ZOO_FUSED_OPTIM"] = saved
+
+
+def _only(counts, **want):
+    """Raise unless every kernel launched as ``want`` says (others 0)."""
+    if counts != dict(dict.fromkeys(counts, 0), **want):
+        raise AssertionError("launches " + str(
+            {k: v for k, v in counts.items() if v}) + f", expected {want}")
+
+
+def _restart(torch, est, start, optimizer):
+    """The estimator back at its first epoch from ``start`` (its traced
+    weights), its model compiled again with ``optimizer`` (fresh
+    optimizer state): the next ``fit`` replays the same batches."""
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    m = est.model
+    m._place_params(tree_map(lambda t: t.detach().clone(), start),
+                    m._params_device())
+    m.compile(optimizer=optimizer, loss=m.loss_fn,
+              dtype_policy=m.dtype_policy)
+    est._epoch = 0
+
+
+def phase_torch_main(torch, K, card):
+    """``torch-main``: BERT-base as a plain ``nn.Module``
+    (:func:`_torch_bert`, ``TORCH_BERT_CFG``, the user's module on the
+    card) through ``orca.learn.pytorch.Estimator.from_torch`` with
+    ``torch.optim.AdamW(2e-5, weight_decay=0.01)`` and
+    ``nn.CrossEntropyLoss()``, the default guard, no ``device=``. The
+    trace (a CPU copy of the module, 2 rows) and its seconds and ops;
+    no tensor of a converted forward created off the card; ``predict``
+    before ``fit`` against the module's own eval forward and the CPU
+    route (``TOL_TORCH_PREDICT``); 8 steps at S=128, B=32 with
+    ``ZOO_FUSED_OPTIM=1`` (the AdamW kernel once a leaf a step, the key
+    split once a step, nothing else); ``get_model()``'s parameters
+    bit-equal to the estimator's; a timed fit of 4 steps. Then the same
+    estimator replays the 8 steps from the traced weights with the
+    torch AdamW converted again with the knob unset (the plain update):
+    the first loss bit-equal, the rest within ``TOL_TORCH_STEP``; and 4
+    steps with a converted ``torch.optim.SGD(momentum=0.9)`` (the SGD
+    kernel once a leaf a step). The replays reuse the one trace, which
+    takes the card's host tens of seconds. Last, a 2-trial
+    ``AutoEstimator.from_torch`` grid over a torch MLP's hidden width,
+    each trial on the card. Returns the launches of the AdamW fit and of
+    the SGD fit."""
+    import numpy as np
+    from zoo_tpu_torch.orca.automl import AutoEstimator, hp
+    from zoo_tpu_torch.orca.learn.pytorch import Estimator
+    from zoo_tpu_torch.orca.learn.pytorch.estimator import (
+        _convert_optimizer,
+    )
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+
+    nn = torch.nn
+    cfg = TORCH_BERT_CFG
+    S, B, steps = TORCH_BERT_S, TORCH_BERT_B, TORCH_BERT_STEPS
+    t0 = time.perf_counter()
+    bert = _torch_bert(torch, seed=0, **cfg).cuda()
+    build_s = time.perf_counter() - t0
+    leaves = len(list(bert.named_parameters()))
+    x, y = _glue_rows(B * steps, seed=0)
+    x_eval = _glue_rows(16, seed=1)[0]
+
+    def adamw():
+        return torch.optim.AdamW(bert.parameters(), lr=TORCH_BERT_LR,
+                                 weight_decay=TORCH_BERT_WD)
+
+    with _fused_optim(True):
+        est = Estimator.from_torch(model=bert, optimizer=adamw(),
+                                   loss=nn.CrossEntropyLoss())
+    t0 = time.perf_counter()
+    est._ensure_converted([x_eval])   # what the first call does
+    convert_s = time.perf_counter() - t0
+    net = est.model
+    start = tree_map(lambda t: t.detach().clone(), net.params)
+    if not net.optimizer.fused:
+        raise AssertionError("torch-main: ZOO_FUSED_OPTIM=1 left "
+                             "AdamWeightDecay unfused")
+    pred = est.predict(x_eval, batch_size=B)
+    with torch.no_grad():
+        own = bert.eval()(torch.from_numpy(x_eval).cuda()).cpu().numpy()
+    cpu = net.predict(x_eval[:4], batch_size=B, device="cpu")
+    xb = torch.from_numpy(x_eval).cuda()
+    step = net._build_pred_step(torch.device("cuda"))
+    seen = _forward_devices(torch, lambda: step(xb))
+    off = sorted(op for dev, op in seen if dev != "cuda")
+    predict = {"vs_module": float(np.abs(pred - own).max()),
+               "vs_cpu": float(np.abs(pred[:4] - cpu).max()),
+               "logit_spread": float(np.abs(own).max()),
+               "ops_off_the_card": off, "forward_ops": len(seen)}
+    emit({"phase": "torch-main", "run": "convert", "card": card,
+          "config": dict(cfg, seq_len=S), "leaves": leaves,
+          "build_s": build_s, "trace_and_convert_s": convert_s,
+          "torch": torch.__version__, "ops": net.converted.ops,
+          "n_ops": len(net.converted.ops),
+          "graph_nodes": len(net.converted.gm.graph.nodes),
+          "predict": predict, "tol": TOL_TORCH_PREDICT})
+    if off or predict["vs_module"] > TOL_TORCH_PREDICT or \
+            predict["vs_cpu"] > TOL_TORCH_PREDICT:
+        raise AssertionError(f"torch-main predict: {predict}")
+
+    def fit(rows):
+        K.reset_launch_counts()
+        with _recorded_steps(net) as losses:
+            est.fit({"x": x[:rows], "y": y[:rows]}, epochs=1, batch_size=B)
+        torch.cuda.synchronize()
+        return torch.stack(losses).tolist(), K.launch_counts()
+
+    kern, adam_counts = fit(B * steps)
+    _only(adam_counts, fused_adam=leaves * steps, derive_keys=steps)
+    w = net.params["torch_graph"]["w"]
+    back = dict(est.get_model().named_parameters())
+    written_back = sorted(back) == sorted(w) and all(
+        back[k].device == w[k].device and torch.equal(back[k], w[k])
+        for k in w)
+    # timing: a fit of 4 steps' rows, its launches per step
+    rows = 4 * B
+    t = timed(torch, lambda: est.fit({"x": x[:rows], "y": y[:rows]},
+                                     epochs=1, batch_size=B),
+              iters=1, warmup=1)
+    numbers = dict(_run_numbers(t, rows, 4),
+                   device_launches_per_step=(t["device_launches"] or 0) / 4)
+    # the plain route: the torch AdamW converted with the knob unset
+    with _fused_optim(False):
+        plain_opt = _convert_optimizer(adamw())
+    _restart(torch, est, start, plain_opt)
+    plain, plain_counts = fit(B * steps)
+    _only(plain_counts, derive_keys=steps)
+    rel = [abs(a - b) / abs(b) for a, b in zip(kern[1:], plain[1:])]
+    emit({"phase": "torch-main", "run": "adamw", "card": card,
+          "batch": B, "steps": steps, "leaves": leaves,
+          "losses_kernels": kern, "losses_plain": plain,
+          "plain_fused": plain_opt.fused,
+          "first_bit_equal": kern[0] == plain[0],
+          "loss_max_rel": max(rel), "tol": TOL_TORCH_STEP,
+          "written_back_bit_equal": written_back, "timing": numbers,
+          "launches": {k: v for k, v in adam_counts.items() if v}})
+    if kern[0] != plain[0] or max(rel) > TOL_TORCH_STEP or \
+            not written_back or plain_opt.fused or \
+            not np.isfinite(kern).all():
+        raise AssertionError(f"torch-main adamw: {kern} vs {plain}, "
+                             f"written back {written_back}")
+    # SGD with momentum: the fused SGD kernel
+    _restart(torch, est, start, _convert_optimizer(torch.optim.SGD(
+        bert.parameters(), lr=TORCH_SGD_LR, momentum=0.9)))
+    sgd_losses, sgd_counts = fit(TORCH_SGD_STEPS * B)
+    emit({"phase": "torch-main", "run": "sgd", "card": card,
+          "steps": TORCH_SGD_STEPS, "losses": sgd_losses,
+          "optimizer": type(net.optimizer).__name__,
+          "device": str(net._params_device()),
+          "launches": {k: v for k, v in sgd_counts.items() if v}})
+    _only(sgd_counts, fused_sgd=leaves * TORCH_SGD_STEPS,
+          derive_keys=TORCH_SGD_STEPS)
+    del est, net, start
+    torch.cuda.empty_cache()
+    # AutoEstimator: two trials over a torch MLP's hidden width
+    rs = np.random.RandomState(2)
+    xa = rs.randn(TORCH_AUTO_STEPS * B, 64).astype(np.float32)
+    ya = (xa[:, :8].sum(1, keepdims=True) > 0).astype(np.float32)
+
+    def mlp(config):
+        torch.manual_seed(0)
+        return nn.Sequential(nn.Linear(64, config["hidden"]), nn.ReLU(),
+                             nn.Linear(config["hidden"], 1))
+
+    mlp_leaves = len(list(mlp({"hidden": 8}).parameters()))
+    auto = AutoEstimator.from_torch(
+        model_creator=mlp, loss=nn.BCEWithLogitsLoss(),
+        optimizer=lambda m, c: torch.optim.SGD(m.parameters(), lr=0.05,
+                                               momentum=0.9))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    auto.fit({"x": xa, "y": ya}, epochs=1, batch_size=B,
+             search_space={"hidden": hp.grid_search(
+                 list(TORCH_AUTO_WIDTHS))}, metric="loss")
+    auto_s = time.perf_counter() - t0
+    auto_counts = K.launch_counts()
+    best = auto.get_best_model()
+    trials = len(TORCH_AUTO_WIDTHS)
+    emit({"phase": "torch-main", "run": "auto", "card": card,
+          "trials": trials, "best_config": auto.get_best_config(),
+          "best_metric": auto.best_metric, "seconds": auto_s,
+          "best_device": str(best.model._params_device()),
+          "launches": {k: v for k, v in auto_counts.items() if v}})
+    _only(auto_counts, fused_sgd=mlp_leaves * TORCH_AUTO_STEPS * trials,
+          derive_keys=TORCH_AUTO_STEPS * trials)
+    if best.model._params_device().type != "cuda":
+        raise AssertionError("torch-main: the best trial is off the card")
+    return adam_counts, sgd_counts
+
+
+def _tfgan_generator(L, Sequential):
+    """TF-GAN's ``unconditional_generator`` from the Keras layers: FC 1024
+    and FC 7*7*256 (batch norm, ReLU), two 4x4 stride-2 transposed convs
+    to 64 and 32 channels (TF's SAME: VALID then a 1-pixel crop; batch
+    norm, ReLU), a 4x4 conv to 1 channel with tanh."""
+    g = Sequential()
+    g.add(L.Dense(1024, input_shape=(GAN_NOISE,), bias=False))
+    for layer in (L.BatchNormalization(), L.Activation("relu"),
+                  L.Dense(7 * 7 * 256, bias=False), L.BatchNormalization(),
+                  L.Activation("relu"), L.Reshape((7, 7, 256))):
+        g.add(layer)
+    for width in (64, 32):
+        for layer in (L.Deconvolution2D(width, 4, 4, subsample=(2, 2),
+                                        bias=False, dim_ordering="tf"),
+                      L.Cropping2D(((1, 1), (1, 1)), dim_ordering="tf"),
+                      L.BatchNormalization(), L.Activation("relu")):
+            g.add(layer)
+    g.add(L.Convolution2D(1, 4, 4, border_mode="same", activation="tanh",
+                          dim_ordering="tf"))
+    return g
+
+
+def _tfgan_discriminator(L, Sequential):
+    """TF-GAN's ``unconditional_discriminator``: 4x4 stride-2 convs to 64
+    and 128 channels (leaky ReLU 0.01), flatten, FC 1024 (batch norm,
+    leaky ReLU), a linear logit."""
+    d = Sequential()
+    d.add(L.Convolution2D(64, 4, 4, subsample=(2, 2), border_mode="same",
+                          dim_ordering="tf", input_shape=(28, 28, 1)))
+    for layer in (L.LeakyReLU(0.01),
+                  L.Convolution2D(128, 4, 4, subsample=(2, 2),
+                                  border_mode="same", dim_ordering="tf"),
+                  L.LeakyReLU(0.01), L.Flatten(), L.Dense(1024, bias=False),
+                  L.BatchNormalization(), L.LeakyReLU(0.01), L.Dense(1)):
+        d.add(layer)
+    return d
+
+
+def _kernel_convs(net):
+    """The Conv2D layers of a Sequential inside the conv kernel's
+    envelope."""
+    from zoo_tpu_torch.ops.kernels.conv import pallas_conv_supported
+    from zoo_tpu_torch.pipeline.api.keras.layers import Convolution2D
+    return sum(isinstance(layer, Convolution2D) and pallas_conv_supported(
+        layer.kernel, layer.subsample) for layer in net.layers)
+
+
+def phase_gan_main(torch, K, card):
+    """``gan-main``: ``GANEstimator`` over TF-GAN's MNIST networks
+    (:func:`_tfgan_generator`, :func:`_tfgan_discriminator`; noise 64),
+    Adam(1e-3, beta_1 0.5) for both, on 2048 seeded MNIST-shaped images
+    in [-1, 1] at B=32: one iteration on the card against the CPU route
+    from the same seed weights (losses, params: ``TOL_GAN_*``, with the
+    unmoved params as a control that must fail); the 64-step epoch with
+    exact launches (the key split twice an iteration; ``conv2d`` as many
+    times as the nets' convs inside its envelope run, which for TF-GAN's
+    4x4 convs is none); ``generate(64, seed)`` against the CPU route; a
+    NaN batch under the guard leaves the whole state bit-equal. Returns
+    the epoch's launches."""
+    import numpy as np
+    from zoo_tpu_torch.orca.learn.gan import GANEstimator
+    from zoo_tpu_torch.pipeline.api.keras import layers as L
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.engine.topology import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    rs = np.random.RandomState(0)
+    real = rs.uniform(-1.0, 1.0, (GAN_IMAGES, 28, 28, 1)).astype(np.float32)
+    nets = {}
+    for dev in ("cuda", "cpu"):
+        g = _tfgan_generator(L, Sequential)
+        d = _tfgan_discriminator(L, Sequential)
+        if dev == "cuda":
+            g.build(torch.Generator(device="cuda").manual_seed(0),
+                    [(None, GAN_NOISE)], device="cuda")
+            d.build(torch.Generator(device="cuda").manual_seed(1),
+                    [(None, 28, 28, 1)], device="cuda")
+        else:
+            g.params = tree_map(lambda t: t.detach().cpu().clone(),
+                                nets["cuda"][0].params)
+            d.params = tree_map(lambda t: t.detach().cpu().clone(),
+                                nets["cuda"][1].params)
+        nets[dev] = (g, d)
+    start = [t.detach().cpu().clone() for net in nets["cpu"]
+             for t in tree_leaves(net.params)]
+
+    def gan(dev):
+        g, d = nets[dev]
+        return GANEstimator(g, d, g_optimizer=Adam(lr=GAN_LR,
+                                                   beta_1=GAN_BETA1),
+                            d_optimizer=Adam(lr=GAN_LR, beta_1=GAN_BETA1),
+                            noise_dim=GAN_NOISE, device=dev)
+
+    def params(est):
+        return [t.detach().cpu() for net in (est.g, est.d)
+                for t in tree_leaves(net.params)]
+
+    def diff_share(a, b):
+        n = sum(t.numel() for t in a)
+        return sum(int(((x - y).abs() > TOL_GAN_PARAM).sum())
+                   for x, y in zip(a, b)) / n
+
+    ests = {dev: gan(dev) for dev in ("cuda", "cpu")}
+    one = {dev: e.fit(real[:GAN_B], epochs=1, batch_size=GAN_B, seed=3)
+           for dev, e in ests.items()}
+    after = {dev: params(e) for dev, e in ests.items()}
+    share = diff_share(after["cuda"], after["cpu"])
+    control = diff_share(start, after["cpu"])
+    loss_rel = max(abs(one["cuda"][k][0] - one["cpu"][k][0])
+                   / abs(one["cpu"][k][0]) for k in ("d_loss", "g_loss"))
+    # generate from the same generator weights on both routes
+    ests["cpu"].g.params = tree_map(lambda t: t.detach().cpu().clone(),
+                                    ests["cuda"].g.params)
+    gen = {dev: e.generate(64, seed=5) for dev, e in ests.items()}
+    gen_err = float(np.abs(gen["cuda"] - gen["cpu"]).max())
+    step = {"losses_card": one["cuda"], "losses_cpu": one["cpu"],
+            "loss_max_rel": loss_rel, "param_diff_share": share,
+            "control_unmoved_share": control,
+            "max_param_diff": max(float((x - y).abs().max())
+                                  for x, y in zip(after["cuda"],
+                                                  after["cpu"])),
+            "generate_max_abs": gen_err}
+    emit({"phase": "gan-main", "run": "one_step", "card": card, **step,
+          "tol": [TOL_GAN_LOSS, TOL_GAN_PARAM, GAN_DIFF_SHARE_MAX,
+                  TOL_GAN_GENERATE]})
+    if not (loss_rel <= TOL_GAN_LOSS and share <= GAN_DIFF_SHARE_MAX
+            and control > GAN_DIFF_SHARE_MAX
+            and gen_err <= TOL_GAN_GENERATE and gen["cuda"].shape ==
+            (64, 28, 28, 1) and np.isfinite(gen["cuda"]).all()):
+        raise AssertionError(f"gan-main: one step vs the CPU route {step}")
+    del ests["cpu"], nets["cpu"]
+    # the epoch of 64 steps on the card
+    est = ests["cuda"]
+    n_steps = GAN_IMAGES // GAN_B
+    g_convs, d_convs = _kernel_convs(est.g), _kernel_convs(est.d)
+    per_step_convs = (est.d_steps * (g_convs + 2 * d_convs)
+                      + est.g_steps * (g_convs + d_convs))
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = est.fit(real, epochs=1, batch_size=GAN_B, seed=4)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    keys = (est.d_steps + est.g_steps) * n_steps
+    rows = 8 * GAN_B
+    t = timed(torch, lambda: est.fit(real[:rows], epochs=1,
+                                     batch_size=GAN_B), iters=1, warmup=1)
+    # a NaN batch: the whole iteration folds away
+    before = [t_.detach().clone() for part in est._state
+              for t_ in tree_leaves(part)]
+    poisoned = real[:GAN_B].copy()
+    poisoned[5, 14, 14, 0] = np.nan
+    nan_hist = est.fit(poisoned, epochs=1, batch_size=GAN_B)
+    now = [t_ for part in est._state for t_ in tree_leaves(part)]
+    unchanged = len(now) == len(before) and all(
+        torch.equal(a, b) for a, b in zip(before, now))
+    emit({"phase": "gan-main", "run": "epoch", "card": card,
+          "images": GAN_IMAGES, "batch": GAN_B, "steps": n_steps,
+          "d_loss": hist["d_loss"], "g_loss": hist["g_loss"],
+          "epoch_s": epoch_s, "step_ms": epoch_s / n_steps * 1e3,
+          "timing": dict(_run_numbers(t, rows, 8),
+                         device_launches_per_step=(
+                             t["device_launches"] or 0) / 8),
+          "convs_in_the_kernel_envelope": [g_convs, d_convs],
+          "nan_batch": {"state_bit_equal": unchanged,
+                        "losses": nan_hist},
+          "launches": {k: v for k, v in counts.items() if v}})
+    _only(counts, conv2d=per_step_convs * n_steps, derive_keys=keys)
+    if not (unchanged and nan_hist == {"d_loss": [0.0], "g_loss": [0.0]}
+            and np.isfinite(hist["d_loss"] + hist["g_loss"]).all()):
+        raise AssertionError(f"gan-main: NaN batch {unchanged} {nan_hist}, "
+                             f"losses {hist}")
+    return counts
+
+
+def phase_infer_est_main(torch, K, card, resnet_file, vgg_top1):
+    """``infer-est-main``: ``orca.learn.inference.Estimator.from_model``
+    over infer-main's saved ResNet-50 (seed weights, BatchNorm refreshed,
+    head calibrated; mixed bf16), float and int8 (``ZOO_INT8_MODE=force``,
+    ``quantize=True``), ``predict`` over infer-main's 1024 images at
+    B=128 from 8 XShards (XShards of prediction dicts back) and from the
+    array: both feeds bit-equal to each other and to the estimator's
+    ``InferenceModel.predict``; the conv kernel 49 times a forward
+    (float), the int8 conv 49 and the fused int8 GEMM once (int8); then
+    ``from_caffe`` on caffe-main's VGG-16 files (written again from the
+    same seed) gives caffe-main's top-1. Returns the launches of both
+    routes' predicts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.orca.data import XShards
+    from zoo_tpu_torch.orca.learn.inference import Estimator
+
+    B, n = INFER_B, INFER_B * INFER_STEPS
+    rs = np.random.RandomState(0)                          # infer-main's
+    x = np.concatenate([rs.randn(B, 224, 224, 3).astype(np.float32)
+                        for _ in range(INFER_STEPS)])
+    shards = XShards.partition({"x": x}, num_shards=INFER_EST_SHARDS)
+    total = {}
+    saved = os.environ.get("ZOO_INT8_MODE")
+    try:
+        for route, want in (("float", {"conv2d": 49}),
+                            ("int8", {"conv2d_int8": 49,
+                                      "fused_quantized_matmul": 1})):
+            if route == "int8":
+                os.environ["ZOO_INT8_MODE"] = "force"
+            t0 = time.perf_counter()
+            est = Estimator.from_model(resnet_file, batch_size=B,
+                                       quantize=route == "int8")
+            load_s = time.perf_counter() - t0
+            out, numbers = {}, {}
+            for feed, data in (("xshards", shards), ("array", x)):
+                K.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = est.predict(data, batch_size=B)
+                wall = time.perf_counter() - t0
+                counts = K.launch_counts()
+                if feed == "xshards":
+                    parts = got.collect()
+                    if len(parts) != INFER_EST_SHARDS or any(
+                            set(p) != {"prediction"} for p in parts):
+                        raise AssertionError("infer-est-main: XShards out "
+                                             f"{[set(p) for p in parts]}")
+                    got = np.concatenate([p["prediction"] for p in parts])
+                out[feed] = got
+                numbers[feed] = {"wall_s": wall, "images_per_s": n / wall}
+                _only(counts, **{k: v * INFER_STEPS
+                                 for k, v in want.items()})
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+            direct = est.get_model().predict(x, batch_size=B)
+            same = {"feeds": bool(np.array_equal(out["xshards"],
+                                                 out["array"])),
+                    "inference_model": bool(np.array_equal(out["array"],
+                                                           direct))}
+            emit({"phase": "infer-est-main", "route": route, "card": card,
+                  "images": n, "batch": B, "shards": INFER_EST_SHARDS,
+                  "load_s": load_s,
+                  "quant_path": getattr(est.get_model().model,
+                                        "_quant_path", None),
+                  "bit_equal": same, "timing": numbers,
+                  "top1_classes": int(len(set(direct.argmax(1))))})
+            if not all(same.values()) or direct.shape != (n, 1000):
+                raise AssertionError(f"infer-est-main {route}: {same}")
+            del est
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("ZOO_INT8_MODE", None)
+        if saved is not None:
+            os.environ["ZOO_INT8_MODE"] = saved
+    root = tempfile.mkdtemp(prefix="zoo-infer-est-")
+    try:
+        deploy, path, shape = _write_caffe(root, _vgg16_layers(), 16)
+        xc = np.random.RandomState(16).randn(CAFFE_B, *shape).astype(
+            np.float32)
+        t0 = time.perf_counter()
+        est = Estimator.from_caffe(deploy, path, batch_size=CAFFE_B)
+        load_s = time.perf_counter() - t0
+        top1 = est.predict(xc).argmax(1).tolist()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "infer-est-main", "route": "caffe", "card": card,
+          "net": "VGG_ILSVRC_16_layers", "load_s": load_s,
+          "top1_equal_caffe_main": top1 == vgg_top1})
+    if top1 != vgg_top1:
+        raise AssertionError(f"infer-est-main: from_caffe top-1 {top1}, "
+                             f"caffe-main's {vgg_top1}")
+    return total
+
+
+def phase_continuous_main(torch, K, card):
+    """``continuous-main``: the online-learning loop over chronos-main's
+    LSTM forecaster (hidden 32, dropout 0.1, lookback 48, B=64) on
+    :func:`chronos_series`'s windows, published into a ``ModelRegistry``
+    in a temporary directory. An incumbent (one epoch on the first 40 %
+    of the windows, no gate: promoted directly), then the measured turn:
+    ``chronos_train_fn`` trains a candidate (one epoch on the first 80
+    %), publishes it on ``canary``, and a ``PromotionGate`` mirrors 256
+    held-out windows with ground truth to incumbent and canary, both
+    loaded back as ``InferenceModel``s on the card; the turn must end
+    ``promoted`` with ``prod`` on the candidate. Then a poisoned window
+    (every input NaN) must end ``demoted`` with ``prod`` unchanged.
+    ``dropout`` launches twice a training step and ``derive_keys`` twice
+    (the step's split and the dropout site's key); inference launches
+    neither. Returns the loop's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from zoo_tpu_torch.chronos.data import roll_windows
+    from zoo_tpu_torch.chronos.forecaster import LSTMForecaster
+    from zoo_tpu_torch.orca.learn.continuous import (ContinuousTrainingLoop,
+                                                     PromotionGate,
+                                                     chronos_train_fn)
+    from zoo_tpu_torch.serving.ha import resolve_model_spec
+    from zoo_tpu_torch.serving.registry import ModelRegistry
+
+    series = chronos_series()
+    x, y = roll_windows(series, series[:, :1], CHRONOS_LOOKBACK, 1)
+    n = len(x) - CONTINUOUS_GATE_WINDOWS
+    made = []
+
+    def factory():
+        f = LSTMForecaster(CHRONOS_LOOKBACK, 3, 1, hidden_dim=32,
+                           dropout=0.1, device="cuda")
+        made.append(f)
+        return f
+
+    root = tempfile.mkdtemp(prefix="zoo-continuous-")
+    try:
+        reg = ModelRegistry(os.path.join(root, "registry"))
+        K.reset_launch_counts()
+        first = ContinuousTrainingLoop(chronos_train_fn(
+            factory, epochs=1, batch_size=CONTINUOUS_B,
+            out_dir=os.path.join(root, "v1")), reg)
+        out1 = first.step((x[:int(n * 0.4)], y[:int(n * 0.4)]))
+
+        def gate_factory(candidate):
+            spec = f"registry:{reg.root}:"
+            inc = resolve_model_spec(spec + "prod", batch_size=1,
+                                     device="cuda")[0]
+            can = resolve_model_spec(spec + candidate, batch_size=1,
+                                     device="cuda")[0]
+            return PromotionGate(inc.predict, can.predict,
+                                 candidate=candidate, registry=reg,
+                                 sample=1.0, window=CONTINUOUS_GATE_WINDOWS,
+                                 rng=np.random.RandomState(0))
+
+        loop = ContinuousTrainingLoop(chronos_train_fn(
+            factory, epochs=1, batch_size=CONTINUOUS_B,
+            out_dir=os.path.join(root, "v2")), reg,
+            gate_factory=gate_factory)
+        traffic = [(x[i:i + 1], y[i:i + 1]) for i in range(n, len(x))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out2 = loop.step((x[:int(n * 0.8)], y[:int(n * 0.8)]), traffic)
+        torch.cuda.synchronize()
+        turn_s = time.perf_counter() - t0
+        prod_after = reg.alias_version("prod")
+        poisoned = x[:int(n * 0.4)].copy()
+        poisoned[:] = np.nan
+        t0 = time.perf_counter()
+        out3 = loop.step((poisoned, y[:int(n * 0.4)]), traffic)
+        demote_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        versions = reg.versions()
+        prod_final = reg.alias_version("prod")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    train_steps = sum(f.model._step for f in made)
+    gate = out2.get("gate", {})
+    emit({"phase": "continuous-main", "card": card,
+          "windows": [int(n * 0.4), int(n * 0.8)], "lookback":
+          CHRONOS_LOOKBACK, "batch": CONTINUOUS_B,
+          "incumbent": {k: out1[k] for k in ("outcome", "version",
+                                             "train_seconds")},
+          "turn": {"outcome": out2["outcome"], "version": out2["version"],
+                   "reason": out2.get("reason"), "seconds": turn_s,
+                   "train_seconds": out2["train_seconds"], "gate": gate},
+          "poisoned": {"outcome": out3["outcome"], "seconds": demote_s,
+                       "error": out3.get("error")},
+          "versions": versions, "prod": [prod_after, prod_final],
+          "train_steps": train_steps,
+          "launches": {k: v for k, v in counts.items() if v}})
+    if not (out1["outcome"] == "promoted" and out2["outcome"] == "promoted"
+            and prod_after == out2["version"] == "v2"
+            and gate.get("mirrored") == CONTINUOUS_GATE_WINDOWS
+            and out3["outcome"] == "demoted" and prod_final == "v2"
+            and versions == [1, 2]):
+        raise AssertionError(f"continuous-main: {out1}, {out2}, {out3}, "
+                             f"versions {versions}, prod {prod_final}")
+    _only(counts, dropout=2 * train_steps, derive_keys=2 * train_steps)
+    return counts
 
 
 def main():
@@ -9571,6 +10324,11 @@ def main():
     # full-f32 products everywhere (TF32 keeps ~3 decimal digits)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import shutil
+    import tempfile
+    scratch = tempfile.mkdtemp(prefix="zoo-smoke-")
+    # infer-main's calibrated ResNet-50, read again by infer-est-main
+    resnet_file = os.path.join(scratch, "resnet50.zoo")
     try:
         t_start = time.perf_counter()
         name = torch.cuda.get_device_name(0)
@@ -9608,9 +10366,11 @@ def main():
         by_path = {"serve": serve, "serve_spec": serve_spec,
                    "serve_wire": serve_wire, "serve_disagg": serve_disagg,
                    "serve_tenancy": serve_tenancy, "serve_obs": serve_obs}
+        by_path["train"] = staged("train-main", phase_train_main, torch, K,
+                                  card)
+        by_path["infer"] = staged("infer-main", phase_infer_main, torch, K,
+                                  card, resnet_file)
         for path, phase, fn in (
-                ("train", "train-main", phase_train_main),
-                ("infer", "infer-main", phase_infer_main),
                 ("block", "bottleneck-main", phase_bottleneck_main),
                 ("train_image", "train-image-main",
                  phase_train_image_main),
@@ -9650,8 +10410,16 @@ def main():
             "orca-main", phase_orca_main, torch, K, card)
         by_path["detect"] = staged("detect-main", phase_detect_main, torch,
                                    K, card)
-        by_path["caffe_fit"] = staged("caffe-main", phase_caffe_main, torch,
-                                      K, card)
+        by_path["caffe_fit"], vgg_top1 = staged("caffe-main",
+                                                phase_caffe_main, torch, K,
+                                                card)
+        by_path["torch_bert"], by_path["torch_sgd"] = staged(
+            "torch-main", phase_torch_main, torch, K, card)
+        by_path["gan"] = staged("gan-main", phase_gan_main, torch, K, card)
+        by_path["infer_est"] = staged("infer-est-main", phase_infer_est_main,
+                                      torch, K, card, resnet_file, vgg_top1)
+        by_path["continuous"] = staged("continuous-main",
+                                       phase_continuous_main, torch, K, card)
 
         src = "zoo_tpu_torch/csrc/"
         pallas = "zoo_tpu/ops/pallas/"
@@ -9729,6 +10497,8 @@ def main():
     except Exception:  # noqa: BLE001 — any failed phase fails the run
         traceback.print_exc()
         return 1
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -2234,3 +2234,263 @@ def test_envcheck_module_passes_on_the_card(hopper):
                        capture_output=True, text=True, timeout=300, cwd=root)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "[ok ] device" in r.stdout and "sm_90" in r.stdout
+
+
+def _encoder_module(torch_seed=0):
+    """A small attention encoder over int64 ids, as a plain module."""
+    nn = torch.nn
+
+    class Encoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(64, 32)
+            self.layer = nn.TransformerEncoderLayer(
+                32, 4, dim_feedforward=64, dropout=0.1, batch_first=True)
+            self.head = nn.Linear(32, 2)
+
+        def forward(self, ids):
+            pos = torch.arange(ids.shape[1], device=ids.device)
+            h = self.layer(self.emb(ids) + 0.01 * pos[None, :, None])
+            return self.head(h[:, 0])
+
+    torch.manual_seed(torch_seed)
+    return Encoder()
+
+
+def test_from_torch_on_the_card_runs_the_fused_optimizers(hopper):
+    """``Estimator.from_torch`` of a module on the card: no op of the
+    converted forward off the card; ``predict`` within 1e-5 of the
+    module; AdamW with ``ZOO_FUSED_OPTIM=1`` launches the AdamW kernel
+    once a leaf a step and its losses equal the plain update's (the
+    first bit-equal, the rest within rtol 1e-4); ``SGD(momentum)`` the
+    SGD kernel once a leaf a step; the weights written back bit-equal."""
+    import os
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.orca.learn.pytorch import Estimator
+    nn = torch.nn
+    module = _encoder_module().to(hopper)
+    leaves = len(list(module.parameters()))
+    rs = np.random.RandomState(0)
+    x = rs.randint(1, 64, (64, 12)).astype(np.int64)
+    y = rs.randint(0, 2, 64).astype(np.int64)
+    out = {}
+    for route in ("kernels", "plain"):
+        if route == "kernels":
+            os.environ["ZOO_FUSED_OPTIM"] = "1"
+        try:
+            est = Estimator.from_torch(
+                model=module, loss=nn.CrossEntropyLoss(),
+                optimizer=torch.optim.AdamW(module.parameters(), lr=1e-3))
+        finally:
+            os.environ.pop("ZOO_FUSED_OPTIM", None)
+        pred = est.predict(x)
+        reset_launch_counts()
+        hist = []
+        step = est.model._train_step
+
+        def recording(*a, **k):
+            r = step(*a, **k)
+            hist.append(float(r[1]))
+            return r
+        est.model._train_step = recording
+        est.fit({"x": x, "y": y}, epochs=1, batch_size=16)
+        out[route] = (hist, launch_counts(), est, pred)
+    (lk, ck, est, pred), (lp, cp, _, _) = out["kernels"], out["plain"]
+    with torch.no_grad():
+        own = module.eval()(torch.from_numpy(x).to(hopper)).cpu().numpy()
+    assert np.abs(pred - own).max() <= 1e-5
+    assert lk[0] == lp[0]
+    np.testing.assert_allclose(lk, lp, rtol=1e-4)
+    assert ck["fused_adam"] == leaves * 4 and cp["fused_adam"] == 0
+
+    seen = set()
+
+    class Devices(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            r = func(*args, **(kwargs or {}))
+            for t in (r if isinstance(r, (list, tuple)) else [r]):
+                if isinstance(t, torch.Tensor):
+                    seen.add((t.device.type, str(func)))
+            return r
+
+    xb = torch.from_numpy(x).to(hopper)
+    fwd = est.model._build_pred_step(hopper)
+    with torch.no_grad(), Devices():
+        fwd(xb)
+    assert seen and all(dev == "cuda" for dev, _ in seen), seen
+    w = est.model.params["torch_graph"]["w"]
+    back = dict(est.get_model().named_parameters())
+    assert all(torch.equal(back[k], w[k]) for k in w)
+    sgd = Estimator.from_torch(
+        model=module, loss=nn.CrossEntropyLoss(),
+        optimizer=torch.optim.SGD(module.parameters(), lr=0.01,
+                                  momentum=0.9))
+    reset_launch_counts()
+    sgd.fit({"x": x, "y": y}, epochs=1, batch_size=16)
+    assert launch_counts()["fused_sgd"] == leaves * 4
+
+
+def test_gan_step_on_the_card_matches_the_cpu(hopper):
+    """One ``GANEstimator`` iteration (a dense generator with BatchNorm,
+    a strided-conv discriminator) on the card and on the CPU from the
+    same weights: losses within rtol 1e-4, every param within 1e-5 but
+    where Adam's first step normalizes a gradient within rounding of
+    zero (at most 1e-3 of the elements); ``generate`` within 1e-5 from
+    the same generator weights; the key kernel twice an iteration."""
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.orca.learn.gan import GANEstimator
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras import layers as L
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import Adam
+
+    def nets():
+        g = Sequential().add(L.Dense(64, input_shape=(8,), bias=False))
+        for layer in (L.BatchNormalization(), L.Activation("relu"),
+                      L.Dense(8 * 8, activation="tanh"),
+                      L.Reshape((8, 8, 1))):
+            g.add(layer)
+        d = Sequential().add(L.Convolution2D(
+            8, 3, 3, subsample=(2, 2), border_mode="same",
+            dim_ordering="tf", input_shape=(8, 8, 1)))
+        for layer in (L.LeakyReLU(0.01), L.Flatten(), L.Dense(1)):
+            d.add(layer)
+        return g, d
+
+    real = np.tanh(np.random.RandomState(0).randn(32, 8, 8, 1)).astype(
+        np.float32)
+    card_g, card_d = nets()
+    card_g.build(_gen(hopper, 0), [(None, 8)], device=hopper)
+    card_d.build(_gen(hopper, 1), [(None, 8, 8, 1)], device=hopper)
+    cpu_g, cpu_d = nets()
+    cpu_g.params = tree_map(lambda t: t.detach().cpu().clone(),
+                            card_g.params)
+    cpu_d.params = tree_map(lambda t: t.detach().cpu().clone(),
+                            card_d.params)
+    out = {}
+    reset_launch_counts()
+    for dev, g, d in (("cuda", card_g, card_d), ("cpu", cpu_g, cpu_d)):
+        gan = GANEstimator(g, d, g_optimizer=Adam(lr=1e-3, beta_1=0.5),
+                           d_optimizer=Adam(lr=1e-3, beta_1=0.5),
+                           noise_dim=8, device=dev)
+        hist = gan.fit(real, epochs=1, batch_size=32, seed=2)
+        out[dev] = (hist, [t.detach().cpu() for n in (g, d)
+                           for t in tree_leaves(n.params)], gan)
+        if dev == "cuda":
+            assert launch_counts()["derive_keys"] == 2
+    for k in ("d_loss", "g_loss"):
+        np.testing.assert_allclose(out["cuda"][0][k], out["cpu"][0][k],
+                                   rtol=1e-4)
+    n = sum(t.numel() for t in out["cpu"][1])
+    off = sum(int(((a - b).abs() > 1e-5).sum())
+              for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    assert off <= 1e-3 * n
+    cpu_g.params = tree_map(lambda t: t.detach().cpu().clone(),
+                            card_g.params)
+    gen = [out[dev][2].generate(16, seed=3) for dev in ("cuda", "cpu")]
+    assert np.abs(gen[0] - gen[1]).max() <= 1e-5
+
+
+def test_inference_estimator_on_the_card(hopper, tmp_path):
+    """``orca.learn.inference.Estimator.from_model`` of a small conv net
+    on the card: float and int8 (``ZOO_INT8_MODE=force``) predictions
+    from XShards and from the array bit-equal to each other and to
+    ``InferenceModel.predict``, the conv kernel (float) or the int8 conv
+    and GEMM kernels (int8) once a layer a batch."""
+    import os
+
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.orca.data import XShards
+    from zoo_tpu_torch.orca.learn.inference import Estimator
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras import layers as L
+    m = Sequential().add(L.Convolution2D(16, 3, 3, border_mode="same",
+                                         dim_ordering="tf",
+                                         input_shape=(8, 8, 16)))
+    for layer in (L.Activation("relu"), L.Convolution2D(
+            16, 1, 1, dim_ordering="tf"), L.Flatten(), L.Dense(10)):
+        m.add(layer)
+    m.build(_gen(hopper), device=hopper)
+    path = str(tmp_path / "m.zoo")
+    m.save(path)
+    x = np.random.RandomState(0).randn(64, 8, 8, 16).astype(np.float32)
+    for route, want in (("float", {"conv2d": 2}),
+                        ("int8", {"conv2d_int8": 2,
+                                  "fused_quantized_matmul": 1})):
+        if route == "int8":
+            os.environ["ZOO_INT8_MODE"] = "force"
+        try:
+            est = Estimator.from_model(path, batch_size=16,
+                                       quantize=route == "int8")
+        finally:
+            os.environ.pop("ZOO_INT8_MODE", None)
+        reset_launch_counts()
+        a = est.predict(x, batch_size=16)
+        counts = launch_counts()
+        assert {k: counts[k] for k in want} == {k: v * 4
+                                                for k, v in want.items()}
+        s = est.predict(XShards.partition({"x": x}, num_shards=4),
+                        batch_size=16)
+        s = np.concatenate([p["prediction"] for p in s.collect()])
+        assert np.array_equal(a, s)
+        assert np.array_equal(a, est.get_model().predict(x, batch_size=16))
+
+
+def test_continuous_turn_on_the_card(hopper, tmp_path):
+    """A ``ContinuousTrainingLoop`` turn with ``chronos_train_fn`` over a
+    small LSTM forecaster on the card: promoted directly, then gated
+    (both versions loaded back as ``InferenceModel``s on the card) and
+    promoted; a NaN window demoted with ``prod`` unchanged; the dropout
+    kernel and the key kernel each twice a training step."""
+    from zoo_tpu_torch.chronos.forecaster import LSTMForecaster
+    from zoo_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+    from zoo_tpu_torch.orca.learn.continuous import (ContinuousTrainingLoop,
+                                                     PromotionGate,
+                                                     chronos_train_fn)
+    from zoo_tpu_torch.serving.ha import resolve_model_spec
+    from zoo_tpu_torch.serving.registry import ModelRegistry
+    rs = np.random.RandomState(0)
+    x = rs.randn(640, 8, 2).astype(np.float32)
+    y = x[:, -1:, :1] * 0.5 + x[:, -1:, 1:] * 0.5
+    made = []
+
+    def factory():
+        made.append(LSTMForecaster(8, 2, 1, hidden_dim=16, dropout=0.1,
+                                   device="cuda"))
+        return made[-1]
+
+    reg = ModelRegistry(str(tmp_path / "registry"))
+    reset_launch_counts()
+    train = chronos_train_fn(factory, epochs=2, batch_size=32,
+                             out_dir=str(tmp_path / "a"))
+    assert ContinuousTrainingLoop(train, reg).step(
+        (x[:256], y[:256]))["outcome"] == "promoted"
+
+    def gate_factory(candidate):
+        inc = resolve_model_spec(f"registry:{reg.root}:prod", batch_size=1,
+                                 device="cuda")[0]
+        can = resolve_model_spec(f"registry:{reg.root}:{candidate}",
+                                 batch_size=1, device="cuda")[0]
+        return PromotionGate(inc.predict, can.predict, candidate=candidate,
+                             registry=reg, sample=1.0, window=32,
+                             max_latency_ratio=50.0,
+                             rng=np.random.RandomState(0))
+
+    loop = ContinuousTrainingLoop(chronos_train_fn(
+        factory, epochs=4, batch_size=32, out_dir=str(tmp_path / "b")),
+        reg, gate_factory=gate_factory)
+    traffic = [(x[i:i + 1], y[i:i + 1]) for i in range(600, 640)]
+    out = loop.step((x[:512], y[:512]), traffic)
+    assert out["outcome"] == "promoted", out
+    bad = x[:256].copy()
+    bad[:] = np.nan
+    assert loop.step((bad, y[:256]), traffic)["outcome"] == "demoted"
+    assert reg.alias_version("prod") == "v2" and reg.versions() == [1, 2]
+    steps = sum(f.model._step for f in made)
+    counts = launch_counts()
+    assert counts["dropout"] == 2 * steps and \
+        counts["derive_keys"] == 2 * steps

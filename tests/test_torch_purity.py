@@ -97,7 +97,14 @@ def test_importing_every_module_pulls_in_no_jax():
               "parallel.mesh", "orca", "orca.common", "orca.data",
               "orca.data.shard", "orca.data.file", "orca.data.pandas",
               "orca.data.pandas.preprocessing", "ray",
-              "models.image.objectdetection", "models.caffe_loader"):
+              "models.image.objectdetection", "models.caffe_loader",
+              "bridges", "bridges.fx_bridge", "orca.learn.pytorch",
+              "orca.learn.pytorch.estimator", "pipeline.api.torch",
+              "pipeline.api.net", "orca.automl", "orca.automl.auto_estimator",
+              "orca.automl.pytorch_utils", "orca.learn.gan",
+              "orca.learn.inference", "orca.learn.inference.estimator",
+              "orca.learn.continuous", "scripts.check_lifecycle",
+              "orca.learn.horovod", "orca.learn.mxnet", "orca.learn.mpi"):
         assert "zoo_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"
@@ -546,3 +553,47 @@ def test_orca_detection_and_caffe_entry_points_raise_without_a_card(
                          verbose=0)["loss"]) == 1
     finally:
         stop_orca_context()
+
+
+def test_orca_estimator_entry_points_raise_without_a_card(monkeypatch,
+                                                         tmp_path):
+    """The Orca estimators of the torch bridge: with no GPU and no
+    ``device=``, ``Estimator.from_torch``'s fit and predict, a GAN's fit,
+    ``from_model`` and an AutoEstimator trial raise; ``device="cpu"``
+    runs."""
+    import torch.nn as nn
+
+    from zoo_tpu_torch.orca.automl import AutoEstimator, hp
+    from zoo_tpu_torch.orca.learn.gan import GANEstimator
+    from zoo_tpu_torch.orca.learn.inference import Estimator as InfEst
+    from zoo_tpu_torch.orca.learn.pytorch import Estimator
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.layers import Dense
+
+    data = {"x": np.zeros((8, 3), np.float32),
+            "y": np.zeros((8, 1), np.float32)}
+    Estimator.from_torch(model=nn.Linear(3, 1), loss=nn.MSELoss(),
+                         device="cpu").fit(data, epochs=1, batch_size=4)
+    m = Sequential().add(Dense(1, input_shape=(3,)))
+    m.build(torch.Generator().manual_seed(0), device="cpu")
+    path = str(tmp_path / "m.zoo")
+    m.save(path)
+
+    def gan():
+        g = Sequential().add(Dense(3, input_shape=(2,)))
+        d = Sequential().add(Dense(1, input_shape=(3,)))
+        return GANEstimator(g, d, noise_dim=2, guard=False)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    est = Estimator.from_torch(model=nn.Linear(3, 1), loss=nn.MSELoss(),
+                               guard=False)
+    auto = AutoEstimator.from_torch(
+        model_creator=lambda cfg: nn.Linear(3, cfg["o"]), loss=nn.MSELoss())
+    for call in (lambda: est.fit(data, epochs=1, batch_size=4),
+                 lambda: est.predict(data["x"]),
+                 lambda: gan().fit(data["x"], batch_size=4),
+                 lambda: InfEst.from_model(path),
+                 lambda: auto.fit(data, batch_size=4, search_space={
+                     "o": hp.grid_search([1])})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()

@@ -9,7 +9,9 @@ so pandas is never imported); or XShards
 (:mod:`zoo_tpu_torch.orca.data`) of numpy dicts (``{"x", "y"}``) or of
 such tables (with ``feature_cols``/``label_cols``), concatenated on the
 host into the same arrays, so a fit from shards is a fit from the
-stacked arrays. DataLoaders and ``tf.data`` are refused. Batch
+stacked arrays; or a torch ``DataLoader`` of ``(x, y)``, ``(x1, ...,
+xn, y)`` or ``{"x", "y"}`` batches, materialized on the host as the JAX
+package materializes it. ``tf.data`` is refused. Batch
 order is the JAX package's: one ``RandomState.shuffle`` of the sample
 indices per epoch, the ragged tail dropped, so both packages train on
 the same batches, ``group`` whole batches at a time.
@@ -56,11 +58,69 @@ def _is_table(x) -> bool:
         not isinstance(x, (np.ndarray, dict, list, tuple))
 
 
+# full-materialization cap: an infinite loader fails naming the cause
+_MAX_LOADER_BATCHES = 100_000
+
+
+def _np_leaf(o):
+    if hasattr(o, "detach"):   # a torch tensor
+        import torch
+        o = o.detach().cpu()
+        return (o.float() if o.dtype == torch.bfloat16 else o).numpy()
+    return np.asarray(o)
+
+
+def _loader_xy(loader, y):
+    """A torch ``DataLoader``'s batches stacked into ``(inputs_list,
+    labels)`` (the JAX package's ``to_xy_arrays`` for a loader)."""
+    if y is not None:
+        raise ValueError("pass labels inside the DataLoader batches, not "
+                         "as a separate y= argument")
+    xs_b, ys_b = [], []
+    for n, batch in enumerate(loader):
+        if n >= _MAX_LOADER_BATCHES:
+            raise ValueError(
+                f"the loader yielded more than {_MAX_LOADER_BATCHES} "
+                "batches: is it infinite (an IterableDataset)? "
+                "Materialization needs a finite dataset")
+        if isinstance(batch, dict):
+            bx, by = batch.get("x"), batch.get("y")
+            if bx is None:
+                raise ValueError("dict batches must carry 'x' (and "
+                                 f"optionally 'y'); got keys {sorted(batch)}")
+        elif isinstance(batch, (list, tuple)):
+            if len(batch) == 1:
+                bx, by = batch[0], None
+            else:   # (x, y) or (x1, ..., xn, y): the last item is labels
+                bx, by = list(batch[:-1]), batch[-1]
+                if len(bx) == 1:
+                    bx = bx[0]
+        else:
+            bx, by = batch, None
+        bx = bx if isinstance(bx, (list, tuple)) else [bx]
+        xs_b.append([_np_leaf(a) for a in bx])
+        if by is not None:
+            ys_b.append(_np_leaf(by))
+    if not xs_b:
+        raise ValueError("empty dataloader")
+    xs = [np.concatenate([b[i] for b in xs_b]) for i in range(len(xs_b[0]))]
+    return xs, _normalize_labels(np.concatenate(ys_b) if ys_b else None)
+
+
+def _is_loader(x) -> bool:
+    """A torch ``DataLoader`` (a user subclass too), told by its class
+    so this module imports no torch."""
+    return any(c.__name__ == "DataLoader" and c.__module__.startswith(
+        "torch.utils.data") for c in type(x).__mro__)
+
+
 def to_xy_arrays(x, y=None, feature_cols: Optional[Sequence[str]] = None,
                  label_cols: Optional[Sequence[str]] = None
                  ) -> Tuple[List[np.ndarray], Optional[np.ndarray]]:
     """Normalize the inputs to ``(inputs_list, labels)``; labels are one
     array, a list of arrays (multi-output) or None."""
+    if _is_loader(x):
+        return _loader_xy(x, y)
     if hasattr(x, "transform_shard"):
         return _xshards_xy(x, feature_cols, label_cols)
     if _is_table(x):

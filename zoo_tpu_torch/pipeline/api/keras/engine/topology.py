@@ -406,8 +406,11 @@ class KerasNet:
                 raise ValueError(f"{len(ws)} loss_weights for "
                                  f"{len(fns)} losses")
             self.loss_fn = MultiLoss(fns, ws)
+            self.loss_name = "multi"
         else:
             self.loss_fn = get_loss(loss)
+            self.loss_name = (loss if isinstance(loss, str)
+                              else getattr(loss, "__name__", None))
         self.metrics = [get_metric(m) for m in (metrics or [])]
         self._opt_state = None  # a new optimizer cannot reuse old state
         return self

@@ -21,12 +21,25 @@ def mean_squared_error(y_true, y_pred):
 
 
 @model_file_part
+def mean_absolute_error(y_true, y_pred):
+    return torch.mean(torch.abs(y_pred - y_true))
+
+
+@model_file_part
 def binary_crossentropy(y_true, y_pred):
     """``y_pred`` are probabilities (keras-1 contract), clipped to
     [eps, 1 - eps] as the JAX package clips them."""
     p = torch.clamp(y_pred, _EPS, 1.0 - _EPS)
     return -torch.mean(y_true * torch.log(p)
                        + (1.0 - y_true) * torch.log(1.0 - p))
+
+
+@model_file_part
+def binary_crossentropy_from_logits(y_true, logits):
+    """torch ``nn.BCEWithLogitsLoss`` semantics, in the JAX package's
+    stable form."""
+    return torch.mean(torch.clamp_min(logits, 0) - logits * y_true
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 @model_file_part
@@ -82,10 +95,26 @@ def sparse_categorical_crossentropy_from_logits(y_true, logits):
 sparse_categorical_crossentropy_from_logits._handles_low_precision = True
 
 
+@model_file_part
+def nll_loss(y_true, log_probs):
+    """torch ``nn.NLLLoss`` semantics (log-probabilities in; labels equal
+    to -100 masked out of the mean)."""
+    idx, logp = _class_last(y_true, log_probs)
+    mask = idx != -100
+    safe = torch.where(mask, idx, 0)
+    picked = torch.gather(logp, -1, safe[..., None])[..., 0]
+    total = torch.where(mask, -picked, 0.0).sum()
+    return total / mask.sum().clamp(min=1)
+
+
 _ALIASES = {
     "mse": mean_squared_error,
     "mean_squared_error": mean_squared_error,
+    "mae": mean_absolute_error,
+    "mean_absolute_error": mean_absolute_error,
     "binary_crossentropy": binary_crossentropy,
+    "binary_crossentropy_from_logits": binary_crossentropy_from_logits,
+    "nll": nll_loss,
     "categorical_crossentropy": categorical_crossentropy,
     "sparse_categorical_crossentropy": sparse_categorical_crossentropy,
     "sparse_categorical_crossentropy_from_logits":
