@@ -286,7 +286,8 @@ and CPU seconds at the end; the ``device`` line holds them too):
    (samples/s each); an exception at epoch 2's first superbatch retried
    from the verified checkpoint, bit-equal to the straight run's epoch
    3; a fresh estimator's ``load_orca_checkpoint()`` plus one epoch,
-   bit-equal to its epoch 4; a NaN superbatch skipped (16 steps, past
+   bit-equal to its epoch 4; a poisoned superbatch (its ids set out of
+   range through the ``fit.batch`` seam) skipped (16 steps, past
    ``max_skips``, so also rolled back) with params and Adam's state
    finite and the journal holding it; ``val_accuracy``/``val_loss`` read
    back from the event files; samples/s and CUDA sync-debug warnings
@@ -396,6 +397,23 @@ binaries, loaded with ``InferenceModel.load_caffe``: load s, a batch of
 32 against the CPU route, images/s; VGG-16 fine-tuned 4 steps through
 the fused SGD, each step against plain).
 
+Then the host-to-card feed and the readers: ``ingest-main`` (ResNet-50
+at ``bench_resnet50``'s config, 1024 seeded images written with
+``write_parquet`` and read back as arrays and XShards; one epoch each
+from the parquet arrays and XShards through the staged feed (pinned
+buffers, copy stream), the parquet arrays with ``ZOO_FEED_STAGING=off``
+and the original arrays: bit-equal, launches as counted, buffers pinned,
+the first step against plain; a ``set_profile(trace_dir)`` run of 4
+steps on each feed: its phases, ``op_breakdown`` of its trace with the
+conv kernel's launches equal to the counter, the host-to-device copies'
+device ms and the part hidden under kernels) and ``readers-main``
+(BERT-base at S=512, B=16 from 8 TFRecord shards through the native
+reader, from ``FeatureSet.ndarrays`` on a spilling DISK tier and from
+the arrays, bit-equal, the first step against plain; NCF's epoch from
+``read_csv`` and ``read_parquet`` XShards, bit-equal to the arrays;
+``NNClassifier`` fitting ResNet-50 for 2 steps from a pandas DataFrame,
+equal to ``fit``; every reader's rows/s and MB/s).
+
 Then the Orca estimators of the torch bridge and the online-learning
 loop: ``torch-main`` (BERT-base as a plain ``nn.Module`` through
 ``orca.learn.pytorch.Estimator.from_torch``: the ``torch.export``
@@ -490,7 +508,9 @@ MobileNet-v1 steps,
 ``estimator_ncf`` estimator-main's (the
 key split only),
 ``estimator_bert`` estimator-bert's, ``orca_ncf`` and ``orca_bert``
-orca-main's shard-fed runs, ``detect`` detect-main's fit (none),
+orca-main's shard-fed runs, ``ingest`` ingest-main's staged parquet
+epoch, ``readers`` readers-main's TFRecord, csv and DataFrame runs,
+``detect`` detect-main's fit (none),
 ``caffe_fit`` caffe-main's fine-tune, ``torch_bert`` and
 ``torch_sgd`` torch-main's AdamW and SGD fits, ``gan`` gan-main's epoch,
 ``infer_est`` infer-est-main's predicts, ``continuous`` the loop's turns,
@@ -517,11 +537,12 @@ import traceback
 
 SPEC_8B = ("llama:vocab=128256,hidden=4096,n_block=32,n_head=32,"
            "n_kv_head=8,intermediate=14336")
-# phase 5's depth: 8 of the 8B spec's 32 blocks (widths unchanged). On a
+# phase 5's depth: 4 of the 8B spec's 32 blocks (widths unchanged). On a
 # host of CPU model 143 the whole smoke read 1176.8 s of its 1200 s at
 # full depth (phase 5 alone 217.5 s) and 1092.8 s at 16 blocks (phase 5
-# 143.8 s); a cut cuts n_block only
-N_BLOCK = 8
+# 143.8 s); on CPU model 207 it read 895.4 s at 8 blocks with the host
+# feed's phases (phase 5 76.4 s); a cut cuts n_block only
+N_BLOCK = 4
 PEAK_BYTES = 3.35e12              # H100 SXM HBM3, bytes/s
 PEAK_F32_FLOPS = 67e12            # H100 SXM f32, outside the tensor cores
 PEAK_BF16_FLOPS = 989e12          # H100 SXM bf16 tensor cores, dense
@@ -5292,29 +5313,26 @@ def phase_estimator_main(torch, K, card):
 
 
 def _poisoned_superbatch(torch, est, data, batch_size, val):
-    """One epoch of ``est`` with the ``fit.batch`` seam planting a NaN in
-    the last layer's bias for the first superbatch only (removed at the
-    second): that superbatch's steps are skipped, the rest train; the
-    params, Adam's mu/nu/count and the epoch loss stay finite, and the
-    count moves by the steps that were not skipped. A superbatch of 16
+    """One epoch of ``est`` with the ``fit.batch`` seam poisoning the
+    first host superbatch in place: every id of it is set out of range,
+    so the ``Embedding`` gives NaN rows there (``jnp.take``'s fill mode)
+    and that superbatch's steps are skipped, the rest train; the params,
+    Adam's mu/nu/count and the epoch loss stay finite, and the count
+    moves by the steps that were not skipped. The poison rides the
+    batch: the seam runs on the feed's slice thread, a superbatch or two
+    ahead of the step (as in the JAX ``fit``). A superbatch of 16
     skipped steps is a streak past the default ``max_skips`` (8), so the
     guard also rolls back to the epoch's starting checkpoint there and
     trains on from it: the count still moves by the good steps."""
     import math
     model = est.model
-    key = sorted(model.params)[-1]
-    bias = model.params[key]["b"]
-    saved = bias.detach().clone()
     count0 = int(model._opt_state["count"])
     calls = {"n": 0}
 
     def plant(site=None, arrays=None, idx=None, **_):
         calls["n"] += 1
-        with torch.no_grad():
-            if calls["n"] == 1:
-                bias.fill_(float("nan"))
-            elif calls["n"] == 2:
-                bias.copy_(saved)
+        if calls["n"] == 1:
+            arrays[0][...] = 1 << 30    # ids past every table
 
     from zoo_tpu_torch.util.resilience import inject
     skipped0 = est._guard.nonfinite_steps
@@ -8997,6 +9015,787 @@ def phase_orca_main(torch, K, card):
         stop_orca_context()
 
 
+# -- the host-to-card feed (orca/data/ingest.py) and the readers ----------
+# ingest-main trains bench.py bench_resnet50's config (the train-image-main
+# model and data: TRAIN_IMG_N seeded images) fed from parquet through the
+# staged feed; one epoch a run (the whole file at TRAIN_IMG_B),
+# INGEST_TRACED_STEPS of them in each profiled run
+INGEST_IMAGE, INGEST_CLASSES = (224, 224, 3), 1000
+INGEST_TRACED_STEPS = 4
+# readers-main: BERT-base at estimator-bert's config from TFRecord shards,
+# the tiered cache and arrays; NCF (orca-main's epoch) from csv and
+# parquet; NNClassifier's two ResNet-50 steps from a pandas DataFrame
+READER_SHARDS = 8
+READER_BERT_STEPS = 4
+NNCLASSIFIER_STEPS = 2
+# the TFRecord reader and the DISK tier read at volume: BERT-base rows
+# (S=512 int32 token ids and a label, 2052 bytes) to 269 MB, about twice
+# READER_CACHE_STORE's 128 MB DRAM budget, so half the cache's bytes go
+# to the spill file; the fit takes the first READER_BERT_STEPS batches
+# of each reader
+READER_RATE_ROWS = 131072
+READER_CACHE_STORE = "DISK_4"
+# a step through the kernels against the same step through the plain
+# versions. The loss is the forward's (bf16: one rounding of an O(1)
+# loss is up to 4e-3, and the plain path rounds at other points; the
+# readings were 4.0e-4 for BERT and 6.7e-4 for ResNet-50). BERT's
+# gradients by norm, through the flash backward against the dense
+# attention's autograd: TOL_FEED_GRAD (the reading was 1.9e-2, led by
+# the MLP's weights). ResNet-50's gradients are not held: at
+# bench_resnet50's config the plain step's own gradients move by their
+# whole norm (1.014 of it) when the images move by one f32 ulp, led by
+# conv1's, so the kernels' gap (1.007) shows nothing beside that
+# control. The optimizer is held on the kernel step's own gradients,
+# state and params against its plain update, within TOL["update"]
+TOL_FEED_PLAIN_LOSS = 4e-3
+TOL_FEED_GRAD = TOL["bfloat16"]
+
+
+def _launched_exactly(label, counts, want):
+    """Raise unless ``counts`` holds exactly ``want`` (every other
+    kernel 0)."""
+    if counts != dict(dict.fromkeys(counts, 0), **want):
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def _staged_pinned(label, pool, staged):
+    """Raise unless a staged run fed from a pool of pinned buffers and an
+    unstaged one from none."""
+    if staged != (pool is not None) or (staged and not (
+            pool["pinned"] and pool["tensors_pinned"])):
+        raise AssertionError(f"{label}: staging {pool}, staged {staged}")
+
+
+def _traced_as_counted(label, traced, counted, want):
+    """Raise unless the trace holds the kernel's launches as the counter
+    and the model count them."""
+    if not traced == counted == want:
+        raise AssertionError(f"{label}: the conv kernel traced {traced} "
+                             f"times, counted {counted}, expected {want}")
+
+
+def _intervals_union(spans):
+    """The union of ``(start, end)`` spans as sorted disjoint spans."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def trace_copy_numbers(path):
+    """From one ``torch.profiler`` Chrome trace: the device ms of
+    kernels, of host-to-device copies and of the other copies and fills,
+    and the ms of host-to-device copy time that runs while a kernel
+    runs (the copy hidden under compute)."""
+    import bisect
+    import json
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels, h2d = [], []
+    other = 0.0
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat, name = e.get("cat"), e.get("name", "")
+        span = (float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+        if cat == "kernel":
+            kernels.append(span)
+        elif cat == "gpu_memcpy" and name.startswith("Memcpy HtoD"):
+            h2d.append(span)
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            other += span[1] - span[0]
+    union = _intervals_union(kernels)
+    starts = [a for a, _ in union]
+    hidden = 0.0
+    for a, b in h2d:
+        i = max(bisect.bisect_right(starts, a) - 1, 0)
+        while i < len(union) and union[i][0] < b:
+            hidden += max(0.0, min(b, union[i][1]) - max(a, union[i][0]))
+            i += 1
+    return {"kernel_ms": sum(b - a for a, b in kernels) / 1e3,
+            "h2d_ms": sum(b - a for a, b in h2d) / 1e3,
+            "h2d_copies": len(h2d),
+            "h2d_hidden_ms": hidden / 1e3,
+            "other_copy_ms": other / 1e3}
+
+
+def _rates(rows, nbytes, seconds):
+    return {"rows": rows, "mb": nbytes / 1e6, "seconds": seconds,
+            "rows_per_s": rows / seconds, "mb_per_s": nbytes / 1e6 / seconds}
+
+
+def _fit_run(torch, K, m, start, data, steps, batch, **fit_kw):
+    """One epoch of ``m`` from ``start``'s params and a fresh optimizer,
+    fed ``data`` (arrays ``(x, y)`` or anything ``fit`` takes as x):
+    per-step losses, params, optimizer state, launches, host seconds,
+    the feed's pool and stats."""
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+    m.params = tree_map(torch.clone, start)
+    m._opt_state = None
+    x, y = data if isinstance(data, tuple) else (data, None)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _recorded_steps(m) as losses:
+        m.fit(x, y, batch_size=batch, nb_epoch=1, verbose=0, **fit_kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = K.launch_counts()
+    pool = m._staging_pool
+    if len(losses) != steps:
+        raise AssertionError(f"{len(losses)} steps, expected {steps}")
+    return {"losses": torch.stack(losses), "counts": counts,
+            "params": _est_leaves(torch, m.params),
+            "opt": _est_leaves(torch, m._opt_state), "seconds": seconds,
+            "pool": None if pool is None else {
+                "pinned": pool.pinned,
+                "tensors_pinned": all(t.is_pinned() for slot in
+                                      pool.tensors() for t in slot),
+                "create_seconds": pool.create_seconds,
+                "rows": pool.rows, "buffers": len(pool.tensors())},
+            "overlap_ratio": m.feed_stats.overlap_ratio(),
+            "feed_busy_s": dict(m.feed_stats.busy)}
+
+
+def _same_run(torch, a, b):
+    return {"losses": torch.equal(a["losses"], b["losses"]),
+            "params": _bit_equal(torch, a["params"], b["params"]),
+            "optimizer_state": _bit_equal(torch, a["opt"], b["opt"]),
+            "launches": a["counts"] == b["counts"]}
+
+
+@contextlib.contextmanager
+def _staging(mode):
+    """``ZOO_FEED_STAGING`` set to ``mode`` while active."""
+    old = os.environ.get("ZOO_FEED_STAGING")
+    os.environ["ZOO_FEED_STAGING"] = mode
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["ZOO_FEED_STAGING"]
+        else:
+            os.environ["ZOO_FEED_STAGING"] = old
+
+
+def _profiled_fit(torch, K, m, start, x, y, batch, steps, trace_dir, kernel):
+    """A ``set_profile(trace_dir)`` fit of ``steps`` steps: its phase
+    stats, the trace's breakdown, its copy numbers, and the launches of
+    the kernel whose bare name is ``kernel`` in the trace beside the
+    counter's (one traced run; the caller holds them equal)."""
+    from zoo_tpu_torch.common.profiling import trace_files
+    from zoo_tpu_torch.common.xplane import op_breakdown
+    rows = steps * batch
+    m.set_profile(trace_dir=trace_dir)
+    try:
+        run = _fit_run(torch, K, m, start, (x[:rows], y[:rows]), steps,
+                       batch, shuffle=False)
+        stats = m.get_profile_stats()
+    finally:
+        m.clear_profile()
+    path = trace_files(trace_dir)[-1]
+    breakdown = op_breakdown(path, top=200, include_async=True)
+    return {"phases": stats, "breakdown": breakdown[:8],
+            "conv_traced": dict((k, n) for k, _, n in breakdown).get(
+                kernel, 0),
+            "conv_counted": run["counts"]["conv2d"],
+            "copies": trace_copy_numbers(path), "run": run,
+            "trace_mb": os.path.getsize(path) / 1e6}
+
+
+@contextlib.contextmanager
+def _captured_update(torch, model):
+    """While active, the first call of ``model.optimizer.apply`` is
+    recorded in the yielded dict: ``before``, clones of its grads,
+    optimizer state, params and ``ok``; ``after``, clones of the params
+    and the state it left."""
+    opt, box = model.optimizer, {}
+    apply = opt.apply
+
+    def recording(grads, state, trainable, ok=None):
+        first = not box
+        if first:
+            box["before"] = (_cloned(torch, grads), _cloned(torch, state),
+                             _cloned(torch, trainable), ok)
+        out = apply(grads, state, trainable, ok)
+        if first:
+            box["after"] = (_cloned(torch, out[0]), _cloned(torch, out[1]))
+        return out
+
+    opt.apply = recording
+    try:
+        yield box
+    finally:
+        del opt.apply
+
+
+def _tensor_leaves(torch, tree):
+    """The tensors of a dict tree (or a tuple of them), in tree order."""
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    if isinstance(tree, (tuple, list)):
+        return [t for sub in tree for t in _tensor_leaves(torch, sub)]
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _grad_gap(torch, grads, ref):
+    """``||grads - ref|| / ||ref||`` over the leaves, and the three
+    leaves that differ most: ``[index, shape, ||diff||, ||ref||]``."""
+    per = [(i, list(a.shape), float((a.float() - b.float()).norm()),
+            float(b.float().norm()))
+           for i, (a, b) in enumerate(zip(_tensor_leaves(torch, grads),
+                                          _tensor_leaves(torch, ref)))]
+    num = math.sqrt(sum(d * d for _, _, d, _ in per))
+    den = math.sqrt(sum(r * r for _, _, _, r in per))
+    return num / den, sorted(per, key=lambda e: -e[2])[:3]
+
+
+def _step_against_plain(torch, K, m, plain_m, start, x, y, batch,
+                        control_x=None):
+    """One step on ``x[:batch]`` from ``start`` (a fresh optimizer)
+    through the kernels (``m``) and through every plain version
+    (``plain_m``: ``m`` itself or its dense-attention twin): the losses
+    (the forward) and their relative gap; the gradients' gap by norm
+    (:func:`_grad_gap`; with ``control_x``, also the gap of the plain
+    step's gradients on ``control_x``, the images nudged); and the
+    optimizer's update on the kernel step's own gradients, state and
+    params run again through the plain update: ``update_max_abs_err``
+    over params and state, and what that plain update launched."""
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_map
+
+    def one_step(model, xs, plain):
+        model.params = tree_map(torch.clone, start)
+        model._opt_state = None
+        with _captured_update(torch, model) as box:
+            loss, counts = _fit_losses(model, xs, y, batch, 1, plain=plain)
+        return loss[0], box, counts
+
+    kern_loss, kern, _ = one_step(m, x, False)
+    plain_loss, plain, plain_counts = one_step(plain_m, x, True)
+    grads, state, params, ok = kern["before"]
+    K.reset_launch_counts()
+    with plain_kernels():
+        params, state = m.optimizer.apply(grads, state, params, ok)
+    update_counts = K.launch_counts()
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(_tensor_leaves(torch, (params, state)),
+                              _tensor_leaves(torch, kern["after"])))
+    gap, top = _grad_gap(torch, kern["before"][0], plain["before"][0])
+    out = {"loss_kernels": kern_loss, "loss_plain": plain_loss,
+           "loss_rel": abs(kern_loss - plain_loss) / abs(plain_loss),
+           "grad_gap": gap, "grad_gap_top_leaves": top,
+           "update_max_abs_err": err,
+           "plain_launches": {k: v for k, v in plain_counts.items() if v},
+           "plain_update_launches": {k: v for k, v in update_counts.items()
+                                     if v}}
+    if control_x is not None:
+        _, control, _ = one_step(plain_m, control_x, True)
+        out["control_grad_gap"] = _grad_gap(
+            torch, control["before"][0], plain["before"][0])[0]
+    return out
+
+
+def phase_ingest_main(torch, K, card, root):
+    """``ingest-main``: ResNet-50 at ``bench_resnet50``'s config (224 x
+    224 x 3, 1000 classes, B=128, ``mixed_bfloat16``, ``SGD(0.1, 0.9)``)
+    fed from parquet through the staged feed. ``TRAIN_IMG_N`` seeded
+    images go through ``write_parquet("ndarray", ...)`` and back through
+    ``read_parquet`` as arrays and as XShards (read rates printed). One
+    epoch from the same start, four ways: the parquet arrays staged
+    (pinned buffers, copy stream), the parquet XShards staged, the
+    parquet arrays with ``ZOO_FEED_STAGING=off`` (pageable copies) and
+    the original arrays staged; per-step losses, params and optimizer
+    state bit-equal, ``conv2d`` (bf16) and ``fused_sgd`` launched once a
+    conv a forward and once a leaf a step, the key split once a step,
+    the staged buffers pinned; a step held to the same step through the
+    plain versions (:func:`_step_against_plain`: the loss, and
+    ``fused_sgd`` on the step's own gradients). Each feed's epoch
+    (pinned, staging off) timed twice without a profiler, in the order
+    pinned, pageable, pageable, pinned. Then a ``set_profile(trace_dir)``
+    run of ``INGEST_TRACED_STEPS`` steps on each feed: its phases, its
+    trace's breakdown with the conv kernel's launches equal to the
+    counter, and from the trace the device ms of host-to-device copies
+    and the part of it hidden under kernels (under the profiler, which
+    syncs each step and slows the host). Returns the staged run's
+    launches and the images (readers-main's NNClassifier reuses them)."""
+    import numpy as np
+    from zoo_tpu_torch.models.image import resnet50
+    from zoo_tpu_torch.orca.data.parquet_dataset import (read_parquet,
+                                                         write_parquet)
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.engine.topology import (
+        _split_state)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import SGD
+
+    B, steps = TRAIN_IMG_B, TRAIN_IMG_N // TRAIN_IMG_B
+    rs = np.random.RandomState(0)                          # bench.py:379
+    x = rs.randn(TRAIN_IMG_N, *INGEST_IMAGE).astype(np.float32)
+    y = rs.randint(0, INGEST_CLASSES, TRAIN_IMG_N).astype(np.int32)
+    nbytes = x.nbytes + y.nbytes
+    path = os.path.join(root, "images")
+    t0 = time.perf_counter()
+    write_parquet("ndarray", path, x, y)
+    rates = {"parquet_write": _rates(len(x), nbytes,
+                                     time.perf_counter() - t0)}
+    t0 = time.perf_counter()
+    arrays = read_parquet("arrays", path)
+    rates["parquet_read_arrays"] = _rates(len(x), nbytes,
+                                          time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    shards = read_parquet("xshards", path, num_shards=ORCA_SHARDS)
+    rates["parquet_read_xshards"] = _rates(len(x), nbytes,
+                                           time.perf_counter() - t0)
+    if not (np.array_equal(arrays["image"], x)
+            and np.array_equal(arrays["label"], y)):
+        raise AssertionError("ingest-main: parquet gave other rows back")
+    shards = shards.transform_shard(lambda s: {"x": s["image"],
+                                               "y": s["label"]})
+    m = resnet50(INGEST_CLASSES, INGEST_IMAGE)
+    m.compile(optimizer=SGD(lr=0.1, momentum=0.9),
+              loss="sparse_categorical_crossentropy",
+              dtype_policy="mixed_bfloat16")
+    start = tree_map(torch.clone, m.build(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    n_train = len(tree_leaves(_split_state(start)[0]))
+    n_conv = len(envelope_convs(m))
+    want = {"conv2d": n_conv * steps, "fused_sgd": n_train * steps,
+            "derive_keys": steps}
+    runs = {}
+    feeds = (("parquet_staged", "auto", (arrays["image"], arrays["label"])),
+             ("xshards_staged", "auto", shards),
+             ("parquet_pageable", "off", (arrays["image"], arrays["label"])),
+             ("arrays_staged", "auto", (x, y)))
+    for label, mode, data in feeds:
+        with _staging(mode):
+            runs[label] = _fit_run(torch, K, m, start, data, steps, B,
+                                   device="cuda")
+    first = runs["parquet_staged"]
+    same = {label: _same_run(torch, first, r)
+            for label, r in runs.items() if label != "parquet_staged"}
+    counts = first["counts"]
+    # a step on the same rows, kernels against plain: the loss (the
+    # forward through conv2d) and fused_sgd on the step's own gradients;
+    # the gradients' gap printed beside the one-ulp control's
+    vs_plain = _step_against_plain(torch, K, m, m, start, x, y, B,
+                                   control_x=x[:B] * np.float32(1 + 2 ** -23))
+    # each feed's epoch timed without a profiler, in the order pinned,
+    # pageable, pageable, pinned (the host's drift falls on both)
+    timed_runs = {"pinned": [], "pageable": []}
+    for label in ("pinned", "pageable", "pageable", "pinned"):
+        with _staging("auto" if label == "pinned" else "off"):
+            timed_runs[label].append(_fit_run(
+                torch, K, m, start, (x, y), steps, B, device="cuda"))
+    profiled = {}
+    for label, mode in (("pinned", "auto"), ("pageable", "off")):
+        with _staging(mode):
+            profiled[label] = _profiled_fit(
+                torch, K, m, start, x, y, B, INGEST_TRACED_STEPS,
+                os.path.join(root, f"trace-{label}"), "conv_tc_kernel")
+    numbers = {}
+    for label in ("pinned", "pageable"):
+        p, tr = profiled[label], timed_runs[label]
+        r = tr[-1]
+        c = p["copies"]
+        device_ms = (c["kernel_ms"] + c["h2d_ms"] + c["other_copy_ms"]) \
+            / INGEST_TRACED_STEPS
+        walls = [t["seconds"] * 1e3 / steps for t in tr]
+        wall_ms = sum(walls) / len(walls)
+        numbers[label] = {
+            "step_wall_ms": wall_ms, "step_wall_ms_runs": walls,
+            "samples_per_s": B / wall_ms * 1e3,
+            "step_device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "h2d_ms_per_step": c["h2d_ms"] / INGEST_TRACED_STEPS,
+            "h2d_hidden_ms_per_step": c["h2d_hidden_ms"]
+            / INGEST_TRACED_STEPS,
+            "h2d_hidden_share": c["h2d_hidden_ms"] / c["h2d_ms"]
+            if c["h2d_ms"] else None,
+            "h2d_copies": c["h2d_copies"],
+            "profiled_step_ms": p["phases"]["step"]["avg_ms"],
+            "profiled_data_wait_ms": p["phases"]["data"]["avg_ms"],
+            "overlap_ratio": r["overlap_ratio"],
+            "feed_busy_s": r["feed_busy_s"], "pool": r["pool"],
+            "trace_mb": p["trace_mb"]}
+    emit({"phase": "ingest-main", "card": card,
+          "model": f"resnet50({INGEST_CLASSES}, {INGEST_IMAGE})",
+          "optimizer": "SGD(lr=0.1, momentum=0.9)",
+          "policy": "mixed_bfloat16", "batch": B, "steps": steps,
+          "images": TRAIN_IMG_N, "read_rates": rates,
+          "losses": first["losses"].tolist(), "bit_equal": same,
+          "launches": {k: v for k, v in counts.items() if v},
+          "expected_launches": want,
+          "vs_plain": dict(vs_plain, tol_loss=TOL_FEED_PLAIN_LOSS,
+                           tol_update=TOL["update"]),
+          "profiled": {k: {"phases": p["phases"],
+                           "conv_traced": p["conv_traced"],
+                           "conv_counted": p["conv_counted"],
+                           "breakdown": p["breakdown"]}
+                       for k, p in profiled.items()},
+          "feeds": numbers})
+    bad = [label for label, s in same.items() if not all(s.values())]
+    if bad:
+        raise AssertionError(f"ingest-main: {bad} differ from the staged "
+                             f"parquet run: {same}")
+    for label, r in runs.items():
+        _launched_exactly(f"ingest-main {label}", r["counts"], want)
+        _staged_pinned(f"ingest-main {label}", r["pool"],
+                       label != "parquet_pageable")
+    if not (vs_plain["loss_rel"] <= TOL_FEED_PLAIN_LOSS
+            and vs_plain["update_max_abs_err"] <= TOL["update"]
+            and not vs_plain["plain_launches"]
+            and not vs_plain["plain_update_launches"]):
+        raise AssertionError(f"ingest-main: a step against plain "
+                             f"{vs_plain}")
+    for label, p in profiled.items():
+        ph = p["phases"]
+        if not ({"data", "step"} <= set(ph)
+                and ph["step"]["count"] == INGEST_TRACED_STEPS):
+            raise AssertionError(f"ingest-main profiled {label}: phases "
+                                 f"{ph}")
+        _traced_as_counted(f"ingest-main profiled {label}",
+                           p["conv_traced"], p["conv_counted"],
+                           n_conv * INGEST_TRACED_STEPS)
+    for label, tr in timed_runs.items():
+        for r in tr:
+            _launched_exactly(f"ingest-main timed {label}", r["counts"],
+                              want)
+            _staged_pinned(f"ingest-main timed {label}", r["pool"],
+                           label == "pinned")
+    del runs, profiled, timed_runs, m, start, arrays, shards
+    torch.cuda.empty_cache()
+    return {k: counts[k] for k in want}, (x, y)
+
+
+def _tfrecord_rows(x, y, root):
+    """``x``'s token ids and ``y``'s labels as ``READER_SHARDS`` TFRecord
+    files (one record a row: int32 ids then the int32 label)."""
+    from zoo_tpu_torch.orca.data.tfrecord import write_tfrecord
+    per = len(x) // READER_SHARDS
+    for i in range(READER_SHARDS):
+        rows = range(i * per, (i + 1) * per)
+        write_tfrecord(os.path.join(root, f"part-{i:05d}.tfrecord"),
+                       (x[r].astype("<i4").tobytes()
+                        + y[r:r + 1].astype("<i4").tobytes()
+                        for r in rows))
+    return os.path.join(root, "part-*.tfrecord")
+
+
+def _parse_row(rec):
+    import numpy as np
+    a = np.frombuffer(rec, "<i4")
+    return a[:-1], a[-1]
+
+
+def phase_readers_main(torch, K, card, root, images):
+    """``readers-main``: the readers on the card. (a) BERT-base at
+    estimator-bert's config (S=512, B=16, ``mixed_bfloat16``, fused
+    AdamW, clipping 1.0), ``READER_BERT_STEPS`` steps from the same
+    start, fed from ``READER_SHARDS`` TFRecord shards (the native reader,
+    CRCs checked), from ``FeatureSet.ndarrays`` on the
+    ``READER_CACHE_STORE`` DISK tier (half the bytes spilled) through
+    ``DoubleBufferedIterator``, and from the arrays: bit-equal, the three
+    flash bodies, AdamW and the key split launched as counted, a step
+    held to the dense attention with the plain AdamW
+    (:func:`_step_against_plain`: the loss, the gradients and AdamW on
+    the step's own gradients), and the native route taken (never the
+    Python one). The TFRecord shards and the cache hold
+    ``READER_RATE_ROWS`` rows (269 MB), each read whole and timed; the
+    fit takes their first rows. (b) NCF at ``NCF_CFG``, one epoch of
+    ``NCF_STEPS`` at ``NCF_B``, fed from ``read_csv`` and
+    ``read_parquet`` into XShards of DataFrames: bit-equal to the
+    array-fed epoch, the key split only.
+    (c) ``NNClassifier`` fits ResNet-50 for ``NNCLASSIFIER_STEPS`` steps
+    from a pandas DataFrame of ingest-main's images: equal to ``fit`` on
+    the same arrays, and its ``transform`` to ``predict``. Read rates
+    (rows/s, MB/s) for each reader. Returns the launches of the first
+    feed of each."""
+    import numpy as np
+    from zoo_tpu_torch import native
+    from zoo_tpu_torch.feature.common import FeatureSet
+    from zoo_tpu_torch.models.image import resnet50
+    from zoo_tpu_torch.models.recommendation import NeuralCF
+    from zoo_tpu_torch.orca.data.cache import DoubleBufferedIterator
+    from zoo_tpu_torch.orca.data.pandas import read_csv, read_parquet
+    from zoo_tpu_torch.orca.data.tfrecord import read_tfrecord_shards
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import (tree_leaves,
+                                                              tree_map)
+    from zoo_tpu_torch.pipeline.api.keras.engine.topology import (
+        _split_state)
+    from zoo_tpu_torch.pipeline.api.keras.optimizers import (
+        SGD,
+        Adam,
+        AdamWeightDecay,
+    )
+    from zoo_tpu_torch.pipeline.nnframes import (NNClassifier,
+                                                 RowToImageFeature)
+
+    if not native.available():
+        raise AssertionError("readers-main: the native library did not "
+                             "build (g++); the Python route is not taken")
+    native.reset_routes()
+    rates, launches = {}, {}
+    # (a) BERT-base from TFRecord, the tiered cache and arrays: each
+    # reader reads READER_RATE_ROWS rows (timed), the fit takes the first
+    # N of each
+    S, B, steps = BERT_S, BERT_B, READER_BERT_STEPS
+    N = steps * B
+    rs = np.random.RandomState(0)
+    xa = rs.randint(0, BERT_CFG["vocab"],
+                    (READER_RATE_ROWS, S)).astype(np.int32)
+    ya = rs.randint(0, 2, READER_RATE_ROWS).astype(np.int32)
+    x, y = xa[:N], ya[:N]
+    tdir = os.path.join(root, "tfrecord")
+    os.makedirs(tdir)
+    nbytes = xa.nbytes + ya.nbytes
+    t0 = time.perf_counter()
+    pattern = _tfrecord_rows(xa, ya, tdir)
+    rates["tfrecord_write"] = _rates(READER_RATE_ROWS, nbytes,
+                                     time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    parts = read_tfrecord_shards(pattern, parse_fn=_parse_row,
+                                 check_crc=True).collect()
+    rows = [r for part in parts for r in part]
+    tx = np.stack([r[0] for r in rows])
+    ty = np.asarray([r[1] for r in rows])
+    rates["tfrecord_read"] = _rates(READER_RATE_ROWS, nbytes,
+                                    time.perf_counter() - t0)
+    del parts, rows
+    # the DISK tier, fed the fit's batches of every row
+    batches = [{"x": xa[i:i + B], "y": ya[i:i + B]}
+               for i in range(0, READER_RATE_ROWS, B)]
+    t0 = time.perf_counter()
+    fs = FeatureSet.ndarrays(batches, READER_CACHE_STORE)
+    rates["cache_put"] = _rates(READER_RATE_ROWS, nbytes,
+                                time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    with DoubleBufferedIterator(iter(fs)) as it:
+        replay = list(it)
+    cx = np.concatenate([b["x"] for b in replay])
+    cy = np.concatenate([b["y"] for b in replay])
+    rates["cache_replay"] = _rates(READER_RATE_ROWS, nbytes,
+                                   time.perf_counter() - t0)
+    del replay, batches
+    cache = fs.dataset.cache
+    tiers = {"dram_used": cache.dram_used(), "spilled": cache.spilled(),
+             "store": READER_CACHE_STORE, "bytes": nbytes}
+    if not (np.array_equal(tx, xa) and np.array_equal(ty, ya)
+            and np.array_equal(cx, xa) and np.array_equal(cy, ya)):
+        raise AssertionError("readers-main: a reader gave other rows back")
+    tx, ty, cx, cy = tx[:N], ty[:N], cx[:N], cy[:N]
+    del xa, ya
+
+    def bert():
+        m = _bert_sequential(S, "auto", **BERT_CFG)
+        m.compile(optimizer=AdamWeightDecay(lr=1e-4, fused=True), loss=LOSS,
+                  dtype_policy="mixed_bfloat16")
+        return m.set_gradient_clipping_by_l2_norm(1.0)
+
+    m = bert()
+    start = tree_map(torch.clone, m.build(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    runs = {}
+    for label, (fx, fy) in (("tfrecord", (tx, ty)), ("cache", (cx, cy)),
+                            ("arrays", (x, y))):
+        runs[label] = _fit_run(torch, K, m, start, (fx, fy), steps, B,
+                               device="cuda")
+    n_leaves = len(tree_leaves(start))
+    L = BERT_CFG["n_block"]
+    want = {"flash_attention": L * steps, "flash_attention_dkdv": L * steps,
+            "flash_attention_dq": L * steps,
+            "fused_adam": n_leaves * steps, "derive_keys": steps}
+    first = runs["tfrecord"]
+    same = {label: _same_run(torch, first, r)
+            for label, r in runs.items() if label != "tfrecord"}
+    # a step on the first rows, the kernels against the dense attention
+    # and the plain AdamW, from the same start: the loss (the flash
+    # forward), the gradients (the dK/dV and dQ bodies) and the fused
+    # AdamW on the step's own gradients
+    dense = _bert_sequential(S, "dense", **BERT_CFG)
+    dense.compile(optimizer=AdamWeightDecay(lr=1e-4, fused=True),
+                  loss=LOSS, dtype_policy="mixed_bfloat16")
+    dense.set_gradient_clipping_by_l2_norm(1.0)
+    vs_plain = _step_against_plain(torch, K, m, dense, start, x, y, B)
+    routes = native.routes()
+    emit({"phase": "readers-main", "run": "bert", "card": card,
+          "config": dict(BERT_CFG, seq_len=S), "batch": B, "steps": steps,
+          "shards": READER_SHARDS, "tiers": tiers,
+          "losses": first["losses"].tolist(), "bit_equal": same,
+          "launches": {k: v for k, v in first["counts"].items() if v},
+          "expected_launches": want,
+          "vs_plain": dict(vs_plain, tol_loss=TOL_FEED_PLAIN_LOSS,
+                           tol_grad=TOL_FEED_GRAD, tol_update=TOL["update"]),
+          "routes": routes,
+          "route": {"tfrecord": "native" if set(routes.get(
+              "tfrecord_read", {})) == {"native"} else "python",
+                    "cache": cache.route}})
+    bad = [label for label, s_ in same.items() if not all(s_.values())]
+    if bad:
+        raise AssertionError(f"readers-main bert: {bad} differ: {same}")
+    for label, r in runs.items():
+        _launched_exactly(f"readers-main bert {label}", r["counts"], want)
+    if not (vs_plain["loss_rel"] <= TOL_FEED_PLAIN_LOSS
+            and vs_plain["grad_gap"] <= TOL_FEED_GRAD
+            and vs_plain["update_max_abs_err"] <= TOL["update"]
+            and not vs_plain["plain_launches"]
+            and not vs_plain["plain_update_launches"]):
+        raise AssertionError(f"readers-main bert: a step against plain "
+                             f"{vs_plain}")
+    if not (tiers["spilled"] and cache.route == "native"
+            and all(set(v) == {"native"} for v in routes.values())
+            and routes.get("tfrecord_read", {}).get("native")
+            == READER_SHARDS):
+        raise AssertionError(f"readers-main: routes {routes}, cache "
+                             f"{cache.route}, tiers {tiers}")
+    launches["bert"] = first["counts"]
+    fs.dataset.close()
+    del runs, m, dense, start
+    torch.cuda.empty_cache()
+
+    # (b) NCF from csv and parquet into XShards of DataFrames
+    pd = _module("pandas")
+    B, n = NCF_B, NCF_B * NCF_STEPS
+    rs = np.random.RandomState(0)
+    ids = np.stack([rs.randint(0, NCF_CFG["user_count"], n),
+                    rs.randint(0, NCF_CFG["item_count"], n)], axis=1)
+    labels = rs.randint(0, NCF_CFG["class_num"], n)
+    frame = pd.DataFrame({"user": ids[:, 0], "item": ids[:, 1],
+                          "label": labels})
+    nbytes = int(frame.memory_usage(index=False).sum())
+    for kind in ("csv", "parquet"):
+        d = os.path.join(root, f"ncf-{kind}")
+        os.makedirs(d)
+        per = n // ORCA_SHARDS
+        for i in range(ORCA_SHARDS):
+            part = frame.iloc[i * per:(i + 1) * per]
+            if kind == "csv":
+                part.to_csv(os.path.join(d, f"part-{i:05d}.csv"),
+                            index=False)
+            else:
+                part.to_parquet(os.path.join(d, f"part-{i:05d}.parquet"),
+                                index=False)
+
+    def ncf():
+        mm = NeuralCF(**NCF_CFG)
+        return mm.compile(optimizer=Adam(lr=0.001),
+                          loss="sparse_categorical_crossentropy",
+                          metrics=["accuracy"])
+
+    m = ncf()
+    start = tree_map(torch.clone, m.build(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    runs, shard_counts = {}, {}
+    for kind, reader in (("csv", read_csv), ("parquet", read_parquet)):
+        t0 = time.perf_counter()
+        shards = reader(os.path.join(root, f"ncf-{kind}"),
+                        num_shards=ORCA_SHARDS)
+        rates[f"ncf_{kind}_read"] = _rates(n, nbytes,
+                                           time.perf_counter() - t0)
+        shard_counts[kind] = shards.num_partitions()
+        runs[kind] = _fit_run(torch, K, m, start, shards, NCF_STEPS, B,
+                              device="cuda", feature_cols=["user", "item"],
+                              label_cols=["label"])
+    runs["arrays"] = _fit_run(torch, K, m, start,
+                              (ids.astype(np.int32),
+                               labels.astype(np.int32)), NCF_STEPS, B,
+                              device="cuda")
+    first = runs["csv"]
+    same = {label: _same_run(torch, first, r)
+            for label, r in runs.items() if label != "csv"}
+    numbers = {label: {"epoch_s": r["seconds"],
+                       "samples_per_s": n / r["seconds"],
+                       "overlap_ratio": r["overlap_ratio"],
+                       "pool": r["pool"]} for label, r in runs.items()}
+    emit({"phase": "readers-main", "run": "ncf", "card": card,
+          "config": NCF_CFG, "batch": B, "steps": NCF_STEPS,
+          "shards": shard_counts,
+          "losses_first_last": [float(first["losses"][0]),
+                                float(first["losses"][-1])],
+          "bit_equal": same, "timing": numbers,
+          "launches": {k: v for k, v in first["counts"].items() if v}})
+    bad = [label for label, s_ in same.items() if not all(s_.values())]
+    if bad or not all(_only_the_key_chain(r["counts"], NCF_STEPS)
+                      for r in runs.values()):
+        raise AssertionError(f"readers-main ncf: {same}, "
+                             f"{[r['counts'] for r in runs.values()]}")
+    launches["ncf"] = first["counts"]
+    del runs, m, start
+    torch.cuda.empty_cache()
+
+    # (c) NNClassifier: ResNet-50 from a pandas DataFrame of images
+    pd = _module("pandas")
+    B, steps = TRAIN_IMG_B, NNCLASSIFIER_STEPS
+    ix, iy = images[0][:B * steps], images[1][:B * steps]
+    df = pd.DataFrame({"image": list(ix), "label": iy})
+    m = resnet50(INGEST_CLASSES, INGEST_IMAGE)
+    m.compile(optimizer=SGD(lr=0.1, momentum=0.9),
+              loss="sparse_categorical_crossentropy",
+              dtype_policy="mixed_bfloat16")
+    start = tree_map(torch.clone, m.build(
+        torch.Generator(device="cuda").manual_seed(0), device="cuda"))
+    clf = (NNClassifier(m, features_col="image", label_col="label",
+                        device="cuda")
+           .setSamplePreprocessing(RowToImageFeature())
+           .setBatchSize(B).setMaxEpoch(1))
+    m.params = tree_map(torch.clone, start)
+    m._opt_state = None
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with _recorded_steps(m) as losses:
+        model = clf.fit(df)
+    torch.cuda.synchronize()
+    nn_s = time.perf_counter() - t0
+    nn_counts = K.launch_counts()
+    nn_run = {"losses": torch.stack(losses), "counts": nn_counts,
+              "params": _est_leaves(torch, m.params),
+              "opt": _est_leaves(torch, m._opt_state)}
+    out = model.transform(df)
+    direct = m.predict(ix, batch_size=256, device="cuda")
+    arrays_run = _fit_run(torch, K, m, start, (ix, iy), steps, B,
+                          device="cuda")
+    same = _same_run(torch, nn_run, arrays_run)
+    agree = bool((out["prediction"].to_numpy()
+                  == np.argmax(direct, -1)).all())
+    emit({"phase": "readers-main", "run": "nnclassifier", "card": card,
+          "model": f"resnet50({INGEST_CLASSES}, {INGEST_IMAGE})",
+          "batch": B, "steps": steps, "losses": nn_run["losses"].tolist(),
+          "bit_equal": same, "transform_equals_predict": agree,
+          "fit_s": nn_s,
+          "launches": {k: v for k, v in nn_counts.items() if v}})
+    if not (all(same.values()) and agree):
+        raise AssertionError(f"readers-main nnclassifier: {same}, "
+                             f"transform {agree}")
+    for label, counts in (("nnclassifier", nn_counts),
+                          ("arrays", arrays_run["counts"])):
+        _launched_exactly(
+            f"readers-main {label}", counts,
+            {"conv2d": len(envelope_convs(m)) * steps,
+             "fused_sgd": len(tree_leaves(_split_state(start)[0])) * steps,
+             "derive_keys": steps})
+    launches["nnclassifier"] = nn_counts
+    emit({"phase": "readers-main", "run": "rates", "card": card,
+          "read_rates": rates})
+    del m, start, model, df
+    torch.cuda.empty_cache()
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            if v:
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def _module(name):
+    """A module imported by name when a phase runs (pandas: the card's
+    machine has it; the port's own modules never import it at import
+    time)."""
+    import importlib
+    return importlib.import_module(name)
+
+
 def make_shapes(n, size=64, seed=0):
     """``examples/object_detection_ssd.py``'s synthetic shapes (``:14``):
     bright squares (class 1) and blue bars (class 2) on dim noise, one
@@ -10408,6 +11207,12 @@ def main():
                                     torch, K, card)
         by_path["orca_ncf"], by_path["orca_bert"] = staged(
             "orca-main", phase_orca_main, torch, K, card)
+        feed_root = os.path.join(scratch, "feed")
+        by_path["ingest"], images = staged(
+            "ingest-main", phase_ingest_main, torch, K, card, feed_root)
+        by_path["readers"] = staged("readers-main", phase_readers_main,
+                                    torch, K, card, feed_root, images)
+        del images
         by_path["detect"] = staged("detect-main", phase_detect_main, torch,
                                    K, card)
         by_path["caffe_fit"], vgg_top1 = staged("caffe-main",

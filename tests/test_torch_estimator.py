@@ -256,8 +256,13 @@ def test_from_bigdl_compiles_and_wraps(tmp_path):
                                 device="cpu").load(str(tmp_path / "w.pkl"))
     for a, b in zip(_leaves(back.model.params), _leaves(m.params)):
         assert np.array_equal(a, b)
-    with pytest.raises(NotImplementedError, match="A.15"):
-        est.set_profile()
+    # the step profiler (ported with the staged feed): phases recorded
+    # through the estimator, cleared on demand
+    assert est.set_profile() is not None
+    est.fit({"x": x, "y": y}, epochs=1, batch_size=32)
+    assert {"data", "step"} <= set(est.get_profile_stats())
+    est.clear_profile()
+    assert est.get_profile_stats() == {}
 
 
 def _two_heads(J):

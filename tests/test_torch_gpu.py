@@ -2494,3 +2494,71 @@ def test_continuous_turn_on_the_card(hopper, tmp_path):
     counts = launch_counts()
     assert counts["dropout"] == 2 * steps and \
         counts["derive_keys"] == 2 * steps
+
+
+# -- the staged host feed (orca/data/ingest.py) -------------------------
+
+def test_pinned_staging_buffer_reuse_leaves_the_batch_on_the_card(hopper):
+    """A staged batch is copied from a pinned buffer on the pool's copy
+    stream; the buffer goes back to the pool only after the copy's event
+    completed, so the tensors are whole when returned. Overwriting the recycled buffer (and every other one)
+    must not change the batch already on the card."""
+    from zoo_tpu_torch.orca.data.ingest import StagingBufferPool
+
+    rs = np.random.RandomState(0)
+    arrs = [rs.randn(4096, 256).astype(np.float32),
+            rs.randint(0, 9, 4096).astype(np.int64)]
+    pool = StagingBufferPool.maybe_create(arrs, rows=2048, device=hopper)
+    assert pool is not None and pool.pinned
+    assert all(t.is_pinned() for slot in pool.tensors() for t in slot)
+    consumer = torch.cuda.current_stream(hopper)
+    sliced = pool.take(arrs, np.arange(2048))
+    assert all(torch.from_numpy(v).is_pinned() for v in sliced)
+    staged = pool.to_device(sliced, hopper, consumer)
+    want = [a[:2048].astype(d) for a, d in zip(arrs, pool.dtypes)]
+    for _ in range(len(pool.tensors())):
+        pool.take(arrs, np.arange(2048, 4096))   # reuses the freed buffer
+    for slot in pool._slots:
+        for b in slot:
+            b[...] = 0
+    torch.cuda.synchronize()
+    for t, w in zip(staged, want):
+        assert t.device.type == "cuda"
+        assert np.array_equal(t.cpu().numpy(), w)
+
+
+def test_staged_fit_on_the_card_is_bit_equal_to_unstaged(hopper,
+                                                          monkeypatch):
+    """The same ``fit`` with ``ZOO_FEED_STAGING`` on (pinned buffers,
+    copy stream) and off (pageable copies on the default stream): the
+    per-epoch losses, params and optimizer state are bit-equal."""
+    from zoo_tpu_torch.pipeline.api.keras import Sequential
+    from zoo_tpu_torch.pipeline.api.keras.engine.base import tree_leaves
+    from zoo_tpu_torch.pipeline.api.keras.layers import Dense
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(4096, 64)             # float64: narrowed on both feeds
+    y = rs.randint(0, 10, 4096)
+    runs = {}
+    for staging in ("auto", "off"):
+        monkeypatch.setenv("ZOO_FEED_STAGING", staging)
+        m = Sequential()
+        m.add(Dense(128, input_shape=(64,), activation="relu"))
+        m.add(Dense(10, activation="softmax"))
+        m.compile("adam", "sparse_categorical_crossentropy")
+        m.build(torch.Generator(device=hopper).manual_seed(0),
+                [(None, 64)], device=hopper)
+        h = m.fit(x, y, batch_size=128, nb_epoch=3, verbose=0,
+                  device=hopper)
+        runs[staging] = (h["loss"], [t.detach().cpu().clone() for t in
+                                     tree_leaves(m.params)],
+                         [t.cpu().clone() for t in
+                          tree_leaves(m._opt_state)
+                          if isinstance(t, torch.Tensor)],
+                         m._staging_pool)
+    assert runs["auto"][3] is not None and runs["auto"][3].pinned
+    assert runs["off"][3] is None
+    assert runs["auto"][0] == runs["off"][0]
+    for a, b in zip(runs["auto"][1] + runs["auto"][2],
+                    runs["off"][1] + runs["off"][2]):
+        assert torch.equal(a, b)

@@ -104,7 +104,13 @@ def test_importing_every_module_pulls_in_no_jax():
               "orca.automl.pytorch_utils", "orca.learn.gan",
               "orca.learn.inference", "orca.learn.inference.estimator",
               "orca.learn.continuous", "scripts.check_lifecycle",
-              "orca.learn.horovod", "orca.learn.mxnet", "orca.learn.mpi"):
+              "orca.learn.horovod", "orca.learn.mxnet", "orca.learn.mpi",
+              "orca.data.ingest", "orca.data.cache", "orca.data.tfrecord",
+              "orca.data.parquet_dataset", "orca.data.spark",
+              "orca.data.elastic_search", "pipeline.nnframes",
+              "pipeline.nnframes.nn_classifier",
+              "pipeline.nnframes.nn_image_reader", "common.profiling",
+              "common.xplane", "native", "util.utils"):
         assert "zoo_tpu_torch." + m in mods
     code = (
         "import importlib, sys\n"

@@ -25,3 +25,11 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but CUDA is not "
                            "available")
     return dev
+
+
+def set_thread_device(device) -> None:
+    """Make ``device`` the calling thread's current CUDA device (a no-op
+    for any other device)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)

@@ -96,6 +96,11 @@ _k("ZOO_FUSED_OPTIM", "bool", False,
 _k("ZOO_MOE_CAPACITY", "float", 1.25,
    "default expert capacity factor for MoE dispatch "
    "(`ops/moe.py`; capacity = factor * tokens / experts)")
+_k("ZOO_FEED_STAGING", "str", "auto",
+   "rotating staging buffers in the fit feed (`off` to disable; pinned "
+   "host buffers copied on a side stream on a CUDA device, copied by "
+   "the put stage on the CPU, so a device batch never aliases a reused "
+   "buffer)")
 _k("ZOO_GUARD", "bool", True, "`0` disables the guard estimators attach")
 _k("ZOO_GUARD_MAX_SKIPS", "int", 8,
    "consecutive skipped steps before rollback")

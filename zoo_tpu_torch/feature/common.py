@@ -2,10 +2,9 @@
 ``zoo_tpu/feature/common.py``): small composable transforms over numpy
 shared by the model zoo and the data pipelines. ``a > b`` or
 ``ChainedPreprocessing([a, b])`` composes. ``FeatureSet`` wraps any
-iterable dataset. Two readers wait on ROADMAP A.15 and raise, naming it:
-``FeatureSet.ndarrays`` (the tiered sample cache of
-``orca/data/cache.py``) and ``Relations.read_parquet`` (the parquet
-readers; the port does not import pyarrow).
+iterable dataset; ``FeatureSet.ndarrays`` caches it in the tiered sample
+cache of :mod:`zoo_tpu_torch.orca.data.cache`. ``Relations.read_parquet``
+imports pyarrow when it runs.
 """
 
 from __future__ import annotations
@@ -188,26 +187,33 @@ class Relations:
 
     @staticmethod
     def read_parquet(path: str) -> List[Relation]:
-        """Not ported: the port reads no parquet without pyarrow, which it
-        does not import (ROADMAP A.15's parquet readers)."""
-        raise NotImplementedError(
-            "Relations.read_parquet is not ported to zoo_tpu_torch yet "
-            "(ROADMAP A.15: the parquet readers)")
+        """Relations from a parquet file with ``id1``, ``id2`` and
+        ``label`` columns (pyarrow is imported here)."""
+        from zoo_tpu_torch.orca.data.parquet_dataset import _need
+        tb = _need("pyarrow.parquet").read_table(path).to_pydict()
+        return [Relation(str(a), str(b), int(c)) for a, b, c in
+                zip(tb["id1"], tb["id2"], tb["label"])]
 
 
 class FeatureSet:
-    """A dataset behind the reference's ``FeatureSet`` name: iterates
-    what it wraps. ``ndarrays`` (the tiered sample cache) raises,
-    naming ROADMAP A.15."""
+    """A dataset behind the reference's ``FeatureSet`` name (the tiered
+    training-sample cache): iterates what it wraps. ``ndarrays`` caches
+    an iterable of batches in :class:`~zoo_tpu_torch.orca.data.cache.
+    CachedDataset` on the tier ``memory_type`` names."""
 
     def __init__(self, dataset):
         self.dataset = dataset
 
     @staticmethod
     def ndarrays(arrays, memory_type: str = "DRAM"):
-        raise NotImplementedError(
-            "FeatureSet.ndarrays is not ported to zoo_tpu_torch yet: it "
-            "needs orca/data/cache.py's CachedDataset (ROADMAP A.15)")
+        from zoo_tpu_torch.orca.data.cache import CachedDataset
+
+        # the reference's PMEM and DIRECT tiers (Optane, off-heap) mean
+        # "bigger than DRAM", which the cache models as a DISK_n budget
+        store = memory_type.upper()
+        if store in ("PMEM", "DIRECT"):
+            store = "DISK_2"
+        return FeatureSet(CachedDataset(arrays, store=store))
 
     def cache(self):
         return self

@@ -299,7 +299,15 @@ class KerasEstimator:
         self.model.set_tensorboard(log_dir, app_name)
 
     def set_profile(self, trace_dir=None, trace_epochs: int = 1):
+        """The model's step profiler for the next ``fit``
+        (``KerasNet.set_profile``)."""
         return self.model.set_profile(trace_dir, trace_epochs)
+
+    def clear_profile(self):
+        self.model.clear_profile()
+
+    def get_profile_stats(self):
+        return self.model.get_profile_stats()
 
     def get_train_summary(self, tag: str = "Loss"):
         return self.model.get_train_summary(tag)

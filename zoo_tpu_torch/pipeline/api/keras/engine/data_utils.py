@@ -11,7 +11,10 @@ such tables (with ``feature_cols``/``label_cols``), concatenated on the
 host into the same arrays, so a fit from shards is a fit from the
 stacked arrays; or a torch ``DataLoader`` of ``(x, y)``, ``(x1, ...,
 xn, y)`` or ``{"x", "y"}`` batches, materialized on the host as the JAX
-package materializes it. ``tf.data`` is refused. Batch
+package materializes it; or a Spark DataFrame with
+``feature_cols``/``label_cols``, staged into shards by
+:mod:`zoo_tpu_torch.orca.data.spark` (no pyspark import). ``tf.data`` is
+refused. Batch
 order is the JAX package's: one ``RandomState.shuffle`` of the sample
 indices per epoch, the ragged tail dropped, so both packages train on
 the same batches, ``group`` whole batches at a time.
@@ -119,6 +122,20 @@ def to_xy_arrays(x, y=None, feature_cols: Optional[Sequence[str]] = None,
                  ) -> Tuple[List[np.ndarray], Optional[np.ndarray]]:
     """Normalize the inputs to ``(inputs_list, labels)``; labels are one
     array, a list of arrays (multi-output) or None."""
+    from zoo_tpu_torch.orca.data.spark import is_spark_dataframe
+    if is_spark_dataframe(x):
+        # a Spark DataFrame: the executors write shard files and this
+        # process loads them (no collect of rows, orca/data/spark.py)
+        from zoo_tpu_torch.orca.data.spark import spark_dataframe_to_shards
+        if y is not None:
+            raise ValueError("labels come from label_cols for Spark "
+                             "DataFrame input, not a separate y= "
+                             "argument")
+        if not feature_cols:
+            raise ValueError("feature_cols required for Spark DataFrame "
+                             "input")
+        shards = spark_dataframe_to_shards(x, feature_cols, label_cols)
+        return to_xy_arrays(shards, None, None, None)
     if _is_loader(x):
         return _loader_xy(x, y)
     if hasattr(x, "transform_shard"):

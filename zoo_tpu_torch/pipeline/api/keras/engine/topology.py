@@ -63,8 +63,12 @@ Plateau schedule are the JAX ``fit``'s.
 
 Every entry point runs on its ``device=``, else on the device of the
 runtime context ``init_orca_context`` made, else on the current CUDA
-device. Not ported yet: the sharding plans over a mesh of more than one
-device (ROADMAP A.14) and the profiler (``set_profile``, ROADMAP A.15).
+device. The host-fed ``fit`` stages its superbatches through
+:mod:`zoo_tpu_torch.orca.data.ingest` (a slice and a device-put stage,
+pinned staging buffers on a card), and ``set_profile`` times its
+phases and traces it (:mod:`zoo_tpu_torch.common.profiling`). Not
+ported yet: the sharding plans over a mesh of more than one device
+(ROADMAP A.14).
 """
 
 from __future__ import annotations
@@ -79,8 +83,13 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from zoo_tpu_torch.common.context import context_device
-from zoo_tpu_torch.common.device import resolve_device
+from zoo_tpu_torch.common.context import (
+    context_device,
+    get_runtime_context,
+    runtime_context_scope,
+)
+from zoo_tpu_torch.common.device import resolve_device, set_thread_device
+from zoo_tpu_torch.common.profiling import NullProfiler, StepProfiler
 from zoo_tpu_torch.pipeline.api.keras.engine import data_utils
 from zoo_tpu_torch.pipeline.api.keras.engine import base as _base
 from zoo_tpu_torch.pipeline.api.keras.engine.base import (
@@ -91,6 +100,13 @@ from zoo_tpu_torch.pipeline.api.keras.engine.base import (
 )
 from zoo_tpu_torch.pipeline.api.keras.metrics import Metric, get_metric
 from zoo_tpu_torch.pipeline.api.keras.objectives import get_loss
+from zoo_tpu_torch.orca.data.cache import device_put
+from zoo_tpu_torch.orca.data.ingest import (
+    PipelineStats,
+    StagingBufferPool,
+    narrowed_dtype,
+    staged_pipeline,
+)
 from zoo_tpu_torch.pipeline.api.keras.optimizers import (
     get_optimizer,
     state_to_device,
@@ -127,17 +143,6 @@ def _placed(device) -> torch.device:
     runtime context's device (``init_orca_context``), else the current
     CUDA device (raising without one)."""
     return resolve_device(context_device() if device is None else device)
-
-
-def _to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A numpy batch on ``dev``, 64-bit narrowed to 32 as ``jnp.asarray``
-    narrows it."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if t.dtype == torch.float64:
-        t = t.float()
-    elif t.dtype == torch.int64:
-        t = t.int()
-    return t.to(dev)
 
 
 def _outputs_f32(preds):
@@ -452,10 +457,25 @@ class KerasNet:
         self.train_summary = TrainSummary(log_dir, app_name + "/train")
         self.validation_summary = TrainSummary(log_dir, app_name + "/val")
 
-    def set_profile(self, trace_dir=None, trace_epochs: int = 1):
-        raise NotImplementedError(
-            "set_profile: the step profiler (common/profiling.py) is not "
-            "ported to zoo_tpu_torch yet (ROADMAP A.15)")
+    def set_profile(self, trace_dir: Optional[str] = None,
+                    trace_epochs: int = 1):
+        """Per-phase step timers for the next ``fit`` (data-wait and
+        device-step average ms into the train summary) and, with
+        ``trace_dir``, a ``torch.profiler`` Chrome trace of the first
+        ``trace_epochs`` epochs (:mod:`zoo_tpu_torch.common.xplane`
+        reads it). Synchronizes the device after every step while on
+        (true step times, at the cost of launch overlap);
+        ``clear_profile()`` turns it off."""
+        self._profiler = StepProfiler(trace_dir=trace_dir,
+                                      trace_epochs=trace_epochs)
+        return self._profiler
+
+    def clear_profile(self):
+        self._profiler = None
+
+    def get_profile_stats(self):
+        prof = getattr(self, "_profiler", None)
+        return prof.stats() if prof else {}
 
     def get_train_summary(self, tag: str = "Loss"):
         return self._summary("train_summary").read_scalar(tag)
@@ -728,37 +748,94 @@ class KerasNet:
                 self._opt_state = run["opt"]
                 guard.preempt_checkpoint(step=self._step)
 
+        # the host feed (orca/data/ingest.py, as the JAX fit feeds it): a
+        # slice stage writes each superbatch into a rotating staging
+        # buffer (pinned on a card) and a device_put stage copies it on
+        # its own stream, each on its own thread, so the steps on
+        # superbatch k overlap the copy of k+1 and the slicing of k+2.
+        # The pool is made once a fit (pinning costs real time)
+        pool = StagingBufferPool.maybe_create(arrs, rows=group * batch_size,
+                                              device=dev)
+        self._staging_pool = pool
+        self.feed_stats = stats = PipelineStats()
+        consumer = torch.cuda.current_stream(dev) if dev.type == "cuda" \
+            else None
+        prof = getattr(self, "_profiler", None) or NullProfiler()
+        prof.device = dev
+        caller_ctx = get_runtime_context(required=False)
+
+        def pinned(fn):
+            """``fn`` on a stage thread: the fit's CUDA device current
+            and the caller's runtime context (a thread-local sub-context
+            too) in scope, as the JAX fit pins it."""
+            def run_pinned(item):
+                set_thread_device(dev)
+                if caller_ctx is None:
+                    return fn(item)
+                with runtime_context_scope(caller_ctx):
+                    return fn(item)
+            return run_pinned
+
         for epoch in range(nb_epoch):
             t0 = time.perf_counter()
             run["loss_sum"], run["steps"] = None, 0
             gb["loss"], gb["steps"] = 0.0, 0
             gb["bad0"] = gb["bad"]
-            for idx in data_utils.batch_slices(n, batch_size, shuffle, nprng,
-                                               group=group):
-                sliced = [a[idx] for a in arrs]
+            # reset() reclaims buffers a prior epoch's teardown left in
+            # flight; its token fences that epoch's stage threads off
+            # this epoch's buffers
+            gen = pool.reset() if pool is not None else None
+
+            def slice_stage(idx, gen=gen):
+                if pool is not None:
+                    sliced = pool.take(arrs, idx, gen=gen)
+                else:
+                    sliced = [a[idx].astype(narrowed_dtype(a.dtype),
+                                            copy=False) for a in arrs]
                 if guard is not None:
                     # chaos seam: armed tests corrupt the host superbatch
                     # in place (poison-batch injection); the idx hint
-                    # feeds quarantine records
+                    # feeds quarantine records (approximate: this stage
+                    # runs a superbatch ahead of the step)
                     gb["idx"] = (int(idx[0]), int(idx[-1]))
                     fault_point("fit.batch", arrays=sliced, idx=idx)
-                staged = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                          for a in sliced]
-                for j in range(len(idx) // batch_size):
-                    sub = [t[j * batch_size:(j + 1) * batch_size]
-                           for t in staged]
-                    ys_b = sub[n_x:]
-                    run["opt"], loss, run["g"], run["rng"] = \
-                        self._train_step(
-                            run["opt"], sub[:n_x],
-                            ys_b[0] if len(ys_b) == 1 else ys_b, guard,
-                            run["g"], run["rng"])
-                    run["loss_sum"] = loss if run["loss_sum"] is None \
-                        else run["loss_sum"] + loss
-                    self._step += 1
-                    run["steps"] += 1
-                if guard is not None:
-                    boundary(epoch)
+                return sliced
+
+            def put_stage(sliced, gen=gen):
+                if pool is not None:
+                    return pool.to_device(sliced, dev, consumer, gen=gen)
+                return [torch.from_numpy(a).to(dev) for a in sliced]
+
+            # depth=1: superbatches are large, and one in each queue is
+            # all the overlap needs (slice k+2 | copy k+1 | step k)
+            batches = staged_pipeline(
+                data_utils.batch_slices(n, batch_size, shuffle, nprng,
+                                        group=group),
+                [("slice", pinned(slice_stage)),
+                 ("device_put", pinned(put_stage))], depth=1, stats=stats)
+            try:
+                with prof.epoch_trace():
+                    for staged in prof.timed_iter(iter(batches), "data"):
+                        for j in range(staged[0].shape[0] // batch_size):
+                            sub = [t[j * batch_size:(j + 1) * batch_size]
+                                   for t in staged]
+                            ys_b = sub[n_x:]
+                            with prof.phase("step"):
+                                run["opt"], loss, run["g"], run["rng"] = \
+                                    self._train_step(
+                                        run["opt"], sub[:n_x],
+                                        ys_b[0] if len(ys_b) == 1 else ys_b,
+                                        guard, run["g"], run["rng"])
+                                # the device's step, not its launch
+                                prof.synchronize()
+                            run["loss_sum"] = loss if run["loss_sum"] is None \
+                                else run["loss_sum"] + loss
+                            self._step += 1
+                            run["steps"] += 1
+                        if guard is not None:
+                            boundary(epoch)
+            finally:
+                batches.close()
             if guard is not None:
                 boundary(epoch, final=True)
                 # skipped steps contributed 0 to the sanitized loss sum;
@@ -791,18 +868,23 @@ class KerasNet:
                 run["steps"] * batch_size / max(time.perf_counter() - t0,
                                                 1e-9), self._step)
             if val_arrays is not None:
-                val = self._evaluate_arrays(val_arrays[0], val_arrays[1],
-                                            batch_size, dev)
+                with prof.phase("eval"):
+                    val = self._evaluate_arrays(val_arrays[0], val_arrays[1],
+                                                batch_size, dev)
                 for k, v in val.items():
                     history.setdefault("val_" + k, []).append(v)
                     self._summary("validation_summary").add_scalar(
                         k, v, self._step)
+            for tag, val_ms in prof.epoch_scalars().items():
+                self._summary("train_summary").add_scalar(tag, val_ms,
+                                                          self._step)
             self._plateau_step(run["opt"], epoch_loss, history)
             if verbose:
                 extra = {k: v[-1] for k, v in history.items() if k != "loss"}
                 print(f"Epoch {epoch + 1}/{nb_epoch} - loss: "
                       f"{epoch_loss:.4f}" +
                       "".join(f" - {k}: {v:.4f}" for k, v in extra.items()))
+        stats.finish()
         self._opt_state = run["opt"]
         self.boundary_reads = reader.reads
         return history
@@ -845,7 +927,7 @@ class KerasNet:
             params = _merge_state(self._cast_compute(trainable), state)
 
         def step(*xs):
-            batch = [x if isinstance(x, torch.Tensor) else _to_device(x, dev)
+            batch = [x if isinstance(x, torch.Tensor) else device_put(x, dev)
                      for x in xs]
             with torch.no_grad():
                 return _outputs_f32(self._forward(
@@ -893,12 +975,12 @@ class KerasNet:
             preds = self._predict_arrays(xs, batch_size, dev)
             if self.loss_fn is None:
                 return {}
-            yt = [_to_device(np.asarray(a), dev) for a in ys] \
+            yt = [device_put(np.asarray(a), dev) for a in ys] \
                 if isinstance(ys, (list, tuple)) else \
-                _to_device(np.asarray(ys), dev)
+                device_put(np.asarray(ys), dev)
             with torch.no_grad():
                 return {"loss": float(self.loss_fn(
-                    yt, tuple(_to_device(p, dev) for p in preds)))}
+                    yt, tuple(device_put(p, dev) for p in preds)))}
         if isinstance(ys, (list, tuple)):
             ys = self._labels(ys)[0]
         step = self._build_pred_step(dev)
@@ -911,7 +993,7 @@ class KerasNet:
                                            drop_remainder=False):
             padded, real = data_utils.pad_batch([a[idx] for a in xs], bs)
             preds = step(*padded)[:real]
-            yt = _to_device(ys[idx], dev)
+            yt = device_put(ys[idx], dev)
             if self.loss_fn is not None:
                 contrib = self.loss_fn(yt, preds) * real
                 loss_sum = contrib if loss_sum is None \
@@ -955,15 +1037,20 @@ class KerasNet:
         of the model with its params as CPU numpy. What only a live
         model holds is left out, as the JAX package's ``to_bytes``
         leaves out its jit caches: the optimizer state, the layer-id
-        key cache, the attached guard and the summaries. A layer holding an object pickle cannot
+        key cache, the attached guard, the summaries, the profiler and
+        the feed's staging buffers. A layer holding an object pickle cannot
         store (a ``Lambda`` around a ``lambda``) raises, naming it."""
         live = {k: getattr(self, k, None) for k in (
             "params", "_opt_state", "_keys", "_guard", "train_summary",
-            "validation_summary")}
+            "validation_summary", "_profiler", "_staging_pool",
+            "feed_stats")}
         try:
             self._opt_state = None
             self._keys = None
             self._guard = None   # holds locks and events: owners re-attach
+            # the profiler, the staging buffers and the feed's stats
+            # belong to the live run
+            self._profiler = self._staging_pool = self.feed_stats = None
             self.train_summary = self.validation_summary = None
             if live["params"] is not None:
                 self.params = _numpy_tree(live["params"])
